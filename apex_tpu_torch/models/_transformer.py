@@ -1,0 +1,131 @@
+"""Shared transformer backbone (port of ``apex_tpu/models/_transformer.py``).
+
+The JAX package stacks every layer's parameters on a leading
+``num_layers`` dim and scans them; here each layer is a module of an
+``nn.ModuleList`` holding the same tree ``{ln1, qkv, proj, ln2, fc1, fc2}``
+under the same names, and the helpers take that layer module where the
+reference takes its parameter slice. Serial only in this slice: context
+parallelism, sequence parallelism and MoE FFNs raise.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch.ops.flash_attention import flash_attention
+from apex_tpu_torch.ops.layer_norm import layer_norm
+from apex_tpu_torch.transformer import tensor_parallel as tp
+
+
+class LayerNormParams(nn.Module):
+    """The ``{scale, bias}`` parameter pair of one LayerNorm (fp32 with the
+    default params dtype -- the mixed-dtype LN contract)."""
+
+    def __init__(self, hidden: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(hidden, dtype=dtype,
+                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(hidden, dtype=dtype,
+                                             device=device))
+
+
+class TransformerLayer(nn.Module):
+    """One layer's parameter tree (the reference's per-layer slice)."""
+
+    def __init__(self, cfg, device, generator: torch.Generator):
+        super().__init__()
+        c = cfg
+        init = tp.scaled_normal(c.init_method_std)
+        # Megatron scales output-layer init by 1/sqrt(2L)
+        # (_transformer.py:280-283)
+        out_init = tp.scaled_normal(
+            c.init_method_std / (2 * c.num_layers) ** 0.5)
+        kw = dict(params_dtype=c.params_dtype, device=device,
+                  generator=generator)
+        self.ln1 = LayerNormParams(c.hidden_size, c.params_dtype, device)
+        self.qkv = tp.ColumnParallelLinear(
+            c.hidden_size, 3 * c.hidden_size, init_method=init, **kw)
+        self.proj = tp.RowParallelLinear(
+            c.hidden_size, c.hidden_size, init_method=out_init, **kw)
+        self.ln2 = LayerNormParams(c.hidden_size, c.params_dtype, device)
+        self.fc1 = tp.ColumnParallelLinear(
+            c.hidden_size, c.ffn, init_method=init, **kw)
+        self.fc2 = tp.RowParallelLinear(
+            c.ffn, c.hidden_size, init_method=out_init, **kw)
+
+
+class TransformerBase(nn.Module):
+    """Serial transformer plumbing shared by the model zoo.
+
+    Subclasses set ``causal``. The config provides hidden_size,
+    num_attention_heads, num_layers, ffn, head_dim, params_dtype,
+    compute_dtype, init_method_std, vocab_size and attention_window.
+    """
+
+    causal: bool = True
+
+    def __init__(self, config, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.cfg = c = config
+        if c.hidden_size % c.num_attention_heads:
+            raise ValueError("hidden_size must divide evenly into heads")
+        self.device = device
+        self.embedding = tp.VocabParallelEmbedding(
+            c.vocab_size, c.hidden_size, params_dtype=c.params_dtype,
+            init_method=tp.scaled_normal(c.init_method_std), device=device,
+            generator=generator)
+        self.layers = nn.ModuleList(
+            TransformerLayer(c, device, generator)
+            for _ in range(c.num_layers))
+
+    # -- compute helpers ----------------------------------------------------
+
+    def _ln(self, p: LayerNormParams, x: torch.Tensor) -> torch.Tensor:
+        # mixed-dtype fused LN: activations in the compute dtype, fp32 γβ
+        return layer_norm(x, p.scale, p.bias)
+
+    def _dense(self, p: tp.ColumnParallelLinear,
+               x: torch.Tensor) -> torch.Tensor:
+        return p(x)
+
+    def _qkv_heads(self, layer: TransformerLayer, h: torch.Tensor):
+        """``(q, k, v)`` head tensors ``(b, heads, s, d)`` from the fused
+        QKV projection, laid out ``(heads, 3, head_dim)``
+        (``_transformer.py:416-420``). They are strided views of one
+        product; the kernels take them without a copy."""
+        c = self.cfg
+        b = h.shape[0]
+        qkv = self._dense(layer.qkv, h)
+        s = qkv.shape[1]
+        n = qkv.shape[-1] // (3 * c.head_dim)
+        qkv = qkv.view(b, s, n, 3, c.head_dim).permute(0, 2, 3, 1, 4)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    def _attn_out(self, layer: TransformerLayer,
+                  attn: torch.Tensor) -> torch.Tensor:
+        """Head merge + output projection."""
+        b, n, s, _ = attn.shape
+        attn = attn.transpose(1, 2).reshape(b, s, n * self.cfg.head_dim)
+        return self._dense(layer.proj, attn)
+
+    def _attend(self, q, k, v, bias=None) -> torch.Tensor:
+        """Core attention on ``(b, heads, s, d)`` (no context axis)."""
+        return flash_attention(q, k, v, bias, causal=self.causal,
+                               window=self.cfg.attention_window)
+
+    def _mlp(self, layer: TransformerLayer, h: torch.Tensor) -> torch.Tensor:
+        # jax.nn.gelu is the tanh approximation (_transformer.py:534)
+        return self._dense(layer.fc2, F.gelu(self._dense(layer.fc1, h),
+                                             approximate="tanh"))
+
+    def _layer(self, layer: TransformerLayer,
+               h: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def run_layers(self, h: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            h = self._layer(layer, h)
+        return h

@@ -1,0 +1,60 @@
+"""Operators of the port: each kernel wrapper beside its plain version.
+
+:func:`launch_counts` / :func:`reset_launch_counts` read and zero the
+per-wrapper launch counters, so a run can show that its path went through
+the kernels.
+"""
+
+from typing import Dict
+
+from apex_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_fwd,
+    mha_reference,
+)
+from apex_tpu_torch.ops.flash_decode import (
+    flash_decode,
+    flash_decode_fwd,
+    paged_attention_reference,
+)
+from apex_tpu_torch.ops.layer_norm import (
+    layer_norm,
+    layer_norm_fwd,
+    layer_norm_reference,
+    rms_norm,
+    rms_norm_reference,
+)
+
+#: kernel name -> its launching wrapper (the holder of the launch count)
+KERNEL_WRAPPERS = {
+    "flash_attention_fwd": flash_attention_fwd,
+    "layer_norm_fwd": layer_norm_fwd,
+    "flash_decode": flash_decode_fwd,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+__all__ = [
+    "KERNEL_WRAPPERS",
+    "flash_attention",
+    "flash_attention_fwd",
+    "flash_decode",
+    "flash_decode_fwd",
+    "launch_counts",
+    "layer_norm",
+    "layer_norm_fwd",
+    "layer_norm_reference",
+    "mha_reference",
+    "paged_attention_reference",
+    "reset_launch_counts",
+    "rms_norm",
+    "rms_norm_reference",
+]

@@ -1,0 +1,119 @@
+"""Package rules of apex_tpu_torch, checked on the CPU.
+
+- no module of the port, and not ``chip_smoke.py``, imports ``jax`` or the
+  JAX package ``apex_tpu`` (an AST scan of every import statement);
+- the entry points default to the card: without a GPU, building
+  ``GPTModel``/``Engine`` without ``device=`` raises;
+- options outside this slice (or unsupported on the card) raise instead of
+  falling back;
+- importing the whole package needs no ``nvcc``: kernels build at first
+  launch, and a missing compiler raises there.
+"""
+
+import ast
+import importlib
+import os
+import pkgutil
+
+import pytest
+import torch
+
+import apex_tpu_torch
+from apex_tpu_torch.csrc import build
+from apex_tpu_torch.models import GPTConfig, GPTModel
+from apex_tpu_torch.serve import Engine, ServeConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(vocab_size=61, hidden_size=32, num_layers=2,
+             num_attention_heads=4, max_seq_len=64)
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "apex_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, dirnames, filenames in os.walk(pkg):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        files += [os.path.join(dirpath, f) for f in filenames
+                  if f.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_no_jax_and_no_apex_tpu_imports():
+    files = _port_files()
+    assert len(files) >= 15 and os.path.exists(files[0])
+    for path in files:
+        roots = set(_imported_roots(path))
+        bad = roots & {"jax", "jaxlib", "apex_tpu", "flax", "optax"}
+        assert not bad, (os.path.relpath(path, ROOT), bad)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPTConfig(compute_dtype=torch.float32, **SMALL)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPTModel(cfg)
+    model = GPTModel(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(model, ServeConfig(max_seq=32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPTModel(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        apex_tpu_torch.resolve_device()
+    assert apex_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    assert Engine(model, ServeConfig(max_seq=32), device="cpu").device.type \
+        == "cpu"
+
+
+@pytest.mark.parametrize("field,value", [
+    ("axis", "model"), ("sequence_parallel", True),
+    ("context_axis", "context"), ("moe_num_experts", 4),
+    ("position_embedding", "rope"),
+])
+def test_options_outside_the_slice_raise(field, value):
+    cfg = GPTConfig(**{field: value}, **SMALL)
+    with pytest.raises(NotImplementedError, match="later|slice"):
+        GPTModel(cfg, device="cpu")
+
+
+def test_window_raises_on_the_card_and_runs_plain_on_the_cpu():
+    from apex_tpu_torch.models.gpt import _check_slice
+
+    cfg = GPTConfig(attention_window=8, **SMALL)
+    with pytest.raises(NotImplementedError, match="window"):
+        _check_slice(cfg, torch.device("cuda"))
+    _check_slice(cfg, torch.device("cpu"))
+    m = GPTModel(cfg, device="cpu")
+    assert m.apply(torch.zeros(1, 12, dtype=torch.long)).shape == (1, 12, 61)
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        ColumnParallelLinear)
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        ColumnParallelLinear(4, 4, axis="model")
+
+
+def test_importing_the_package_needs_no_nvcc(monkeypatch):
+    for mod in pkgutil.walk_packages(apex_tpu_torch.__path__,
+                                     "apex_tpu_torch."):
+        importlib.import_module(mod.name)
+    assert build._lib is None  # nothing was built by importing
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
+    assert {os.path.basename(s) for s in build.sources()} == {
+        "flash_attention.cu", "flash_decode.cu", "layer_norm.cu"}
