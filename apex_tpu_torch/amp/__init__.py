@@ -1,0 +1,21 @@
+"""Automatic mixed precision (port of ``apex_tpu/amp``): policies, the loss
+scaler and the mixed-precision optimizer without ZeRO."""
+
+from apex_tpu_torch.amp.frontend import MixedPrecisionOptimizer, MPOptState
+from apex_tpu_torch.amp.scaler import LossScaler
+from apex_tpu_torch.precision import (
+    Policy,
+    cast_params,
+    get_policy,
+    upcast_params,
+)
+
+__all__ = [
+    "LossScaler",
+    "MPOptState",
+    "MixedPrecisionOptimizer",
+    "Policy",
+    "cast_params",
+    "get_policy",
+    "upcast_params",
+]

@@ -48,6 +48,12 @@ SIGNATURES = {
                        _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _P],
     "apex_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _F, _I, _P],
+    "apex_ln_bwd_rows_per_block": [],
+    "apex_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "apex_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_L] * 12
+                         + [_F, _I, _I, _P],
+    "apex_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_L] * 12
+                          + [_F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -69,6 +69,103 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[32];
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core fragments (mma.sync m16n8k16, fp32 accumulate), shared by
+// the flash-attention forward and backward. Lane l of a warp is (g, tig) =
+// (l / 4, l % 4). A (16x16, row-major M x K): a0 = (g, 2tig..+1),
+// a1 = (g+8, 2tig..), a2 = (g, 2tig+8..), a3 = (g+8, 2tig+8..). B (16x8,
+// stored N x K with K contiguous): b0 = (n g, k 2tig..+1), b1 = (n g,
+// k 2tig+8..). C (16x8): c0,c1 = (g, 2tig..+1), c2,c3 = (g+8, 2tig..+1). The
+// C layout of two neighbouring n-tiles is the A layout of one k-chunk, so a
+// product's fp32 result feeds the next product without shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 64;         // rows of every q/k tile
+constexpr int kMmaThreads = 128;  // 4 warps, 16 tile rows each
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// kTile x DP tile from src[r * stride + c] into dst[r * ld + c], zero past
+// `rows_valid` and d; VEC: 16-byte loads (d % 8 == 0, strides and base
+// 16-byte aligned). All kMmaThreads threads take part.
+template <int DP, bool VEC>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld,
+                                          const __nv_bfloat16* src,
+                                          long long stride, int rows_valid,
+                                          int d) {
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  if (VEC) {
+    constexpr int C8 = DP / 8;
+    for (int e = threadIdx.x; e < kTile * C8; e += kMmaThreads) {
+      const int r = e / C8, c = (e - r * C8) * 8;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (r < rows_valid && c < d)
+        val = *reinterpret_cast<const uint4*>(src + r * stride + c);
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTile * DP; e += kMmaThreads) {
+      const int r = e / DP, c = e - r * DP;
+      dst[r * ld + c] = (r < rows_valid && c < d) ? src[r * stride + c] : zero;
+    }
+  }
+}
+
+// The same tile stored transposed: dst[c * ldt + r] = src[r][c]
+template <int DP, bool VEC>
+__device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst, int ldt,
+                                            const __nv_bfloat16* src,
+                                            long long stride, int rows_valid,
+                                            int d) {
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  if (VEC) {
+    constexpr int C8 = DP / 8;
+    for (int e = threadIdx.x; e < kTile * C8; e += kMmaThreads) {
+      const int r = e % kTile, c = (e / kTile) * 8;  // neighbours: next row
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (r < rows_valid && c < d)
+        val = *reinterpret_cast<const uint4*>(src + r * stride + c);
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&val);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst[(c + i) * ldt + r] = h[i];
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTile * DP; e += kMmaThreads) {
+      const int c = e / kTile, r = e - c * kTile;
+      dst[c * ldt + r] = (r < rows_valid && c < d) ? src[r * stride + c] : zero;
+    }
+  }
+}
+
+// Element strides (batch, head, seq) of a (b, h, s, d) tensor whose head_dim
+// stride is 1: the fused-QKV views go in without a copy.
+struct Strides {
+  long long b, h, s;
+};
+
+__host__ __forceinline__ bool vec_ok(int d, const void* p, Strides s) {
+  return d % 8 == 0 && ((uintptr_t)p & 15) == 0 && s.b % 8 == 0 &&
+         s.h % 8 == 0 && s.s % 8 == 0;
+}
+
 // Opt `Kernel` in to `bytes` of dynamic shared memory (above 48 KB this is
 // required). Done once per kernel and size, on its first launch -- never
 // again, so later launches (and CUDA-graph captures) skip the call.

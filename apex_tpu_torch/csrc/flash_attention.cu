@@ -31,10 +31,6 @@ constexpr int kBK = 64;
 constexpr int kFaThreads = 256;  // 4 lanes per query row
 constexpr int kMaxD = 128;
 
-struct Strides {
-  long long b, h, s;
-};
-
 template <typename T>
 __global__ void __launch_bounds__(kFaThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -182,80 +178,10 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
 // (row max/sum over the 4 lanes that share a row); P is rounded to bf16 and
 // fed straight back as the A operand of O += P V (the accumulator layout of
 // m16n8 equals the A layout of m16n8k16 -- no shared-memory round trip).
-// P in bf16 is what the reference kernel does (p.astype(v.dtype)).
-
-constexpr int kMmaThreads = 128;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// rows x DP tile from (row0 + r) * stride + c, zero past `rows_valid` and d;
-// VEC: 16-byte loads (d % 8 == 0, strides and base 16-byte aligned)
-template <int DP, bool VEC>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int rows_valid,
-                                          int d) {
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  if (VEC) {
-    constexpr int C8 = DP / 8;
-    for (int e = threadIdx.x; e < 64 * C8; e += kMmaThreads) {
-      const int r = e / C8, c = (e - r * C8) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r < rows_valid && c < d)
-        val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-  } else {
-    for (int e = threadIdx.x; e < 64 * DP; e += kMmaThreads) {
-      const int r = e / DP, c = e - r * DP;
-      dst[r * ld + c] = (r < rows_valid && c < d) ? src[r * stride + c] : zero;
-    }
-  }
-}
-
-// V tile stored transposed: dst[c * ldv + r] = V[r][c]
-template <int DP, bool VEC>
-__device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst, int ldv,
-                                            const __nv_bfloat16* src,
-                                            long long stride, int rows_valid,
-                                            int d) {
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  if (VEC) {
-    constexpr int C8 = DP / 8;
-    for (int e = threadIdx.x; e < 64 * C8; e += kMmaThreads) {
-      const int r = e % 64, c = (e / 64) * 8;  // neighbours: next key
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r < rows_valid && c < d)
-        val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst[(c + i) * ldv + r] = h[i];
-    }
-  } else {
-    for (int e = threadIdx.x; e < 64 * DP; e += kMmaThreads) {
-      const int c = e / 64, r = e - c * 64;
-      dst[c * ldv + r] = (r < rows_valid && c < d) ? src[r * stride + c] : zero;
-    }
-  }
-}
+// P is rounded to bf16 as the A operand. The reference kernel does not do
+// this (_fwd_kernel casts V to fp32, so its p.astype(v.dtype) stays fp32);
+// mha_reference does (p.astype(v.dtype) with bf16 V). The rounding is what
+// the bf16 tolerance of the kernel against its plain version covers.
 
 template <int DP, bool VEC>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -449,11 +375,7 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
     return launch_flash_fwd<float>(q, k, v, o, lse, b, h, sq, sk, d, qs, ks,
                                    vs, scale, causal, s);
   if (dtype != kBF16) return (int)cudaErrorInvalidValue;
-  auto al16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
-  const bool vec = d % 8 == 0 && al16(q) && al16(k) && al16(v) &&
-                   qsb % 8 == 0 && qsh % 8 == 0 && qss % 8 == 0 &&
-                   ksb % 8 == 0 && ksh % 8 == 0 && kss % 8 == 0 &&
-                   vsb % 8 == 0 && vsh % 8 == 0 && vss % 8 == 0;
+  const bool vec = vec_ok(d, q, qs) && vec_ok(d, k, ks) && vec_ok(d, v, vs);
   if (d <= 32)
     return launch_flash_mma_dp<32>(vec, q, k, v, o, lse, b, h, sq, sk, d, qs,
                                    ks, vs, scale, causal, s);

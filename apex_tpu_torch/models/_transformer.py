@@ -4,19 +4,55 @@ The JAX package stacks every layer's parameters on a leading
 ``num_layers`` dim and scans them; here each layer is a module of an
 ``nn.ModuleList`` holding the same tree ``{ln1, qkv, proj, ln2, fc1, fc2}``
 under the same names, and the helpers take that layer module where the
-reference takes its parameter slice. Serial only in this slice: context
-parallelism, sequence parallelism and MoE FFNs raise.
+reference takes its parameter slice. Serial only: context parallelism,
+sequence parallelism and MoE FFNs raise.
+
+Training: :meth:`TransformerBase.run_layers_train` checkpoints each layer
+with ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference's
+``jax.checkpoint`` of the layer body, ``_transformer.py:634-638``; policy
+None/"full" = recompute everything) and applies inverted hidden dropout
+from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import List, Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.transformer import tensor_parallel as tp
+
+
+def remat_policy(name: Optional[str]) -> None:
+    """Check a ``remat_policy`` (``_remat_policy``,
+    ``_transformer.py:123-142``): None and "full" recompute the whole layer
+    and are the only ones ported; the selective policies raise."""
+    if name in (None, "full"):
+        return None
+    if name in ("save_attn", "dots"):
+        raise NotImplementedError(
+            f"remat_policy={name!r} (selective activation checkpointing) is "
+            f"not in this slice of the port; it comes with a later PR "
+            f"(ROADMAP Queue 1 item 6). Use None or 'full'.")
+    raise ValueError(f"unknown remat_policy {name!r}")
+
+
+def inverted_dropout(x: torch.Tensor, rate: float,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Zero each element with probability ``rate`` and scale the rest by
+    ``1 / (1 - rate)`` (``utils/nn.py:17-26``); identity without a
+    generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
 class LayerNormParams(nn.Module):
@@ -121,11 +157,51 @@ class TransformerBase(nn.Module):
         return self._dense(layer.fc2, F.gelu(self._dense(layer.fc1, h),
                                              approximate="tanh"))
 
-    def _layer(self, layer: TransformerLayer,
-               h: torch.Tensor) -> torch.Tensor:
+    def _layer(self, layer: TransformerLayer, h: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         raise NotImplementedError
 
     def run_layers(self, h: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
             h = self._layer(layer, h)
+        return h
+
+    def _dropout(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        return inverted_dropout(x, self.cfg.hidden_dropout, generator)
+
+    def _layer_seeds(self, generator: Optional[torch.Generator]
+                     ) -> List[Optional[int]]:
+        """One seed per layer from ``generator`` (the reference splits the
+        dropout key per layer, ``_transformer.py:587``). Each layer draws
+        its masks from a fresh generator of its own seed, so a checkpointed
+        layer's recompute draws the same masks as its forward."""
+        n = len(self.layers)
+        if generator is None or self.cfg.hidden_dropout == 0.0:
+            return [None] * n
+        seeds = torch.randint(0, 2 ** 62, (n,), generator=generator,
+                              device=generator.device)
+        return [int(s) for s in seeds.tolist()]
+
+    def _train_layer(self, layer: TransformerLayer, seed: Optional[int],
+                     h: torch.Tensor) -> torch.Tensor:
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=h.device)
+            gen.manual_seed(seed)
+        return self._layer(layer, h, gen)
+
+    def run_layers_train(self, h: torch.Tensor,
+                         dropout_generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+        """The differentiable layer drive: each layer checkpointed when
+        ``cfg.remat`` is set (recomputed whole in the backward)."""
+        remat_policy(self.cfg.remat_policy)
+        for layer, seed in zip(self.layers,
+                               self._layer_seeds(dropout_generator)):
+            fn = functools.partial(self._train_layer, layer, seed)
+            if self.cfg.remat and torch.is_grad_enabled():
+                h = checkpoint(fn, h, use_reentrant=False)
+            else:
+                h = fn(h)
         return h

@@ -6,12 +6,17 @@ and the LM head tied to the embedding. The parameter tree and its names are
 the JAX model's, layer by layer; :meth:`GPTModel.params_from_numpy` loads a
 JAX tree (as numpy arrays) so both compute the same thing.
 
-This slice is inference: ``apply`` returns full-context logits (no targets,
-no loss), and the serving drives ``embed_at`` / ``serve_layers_prefill`` /
-``serve_layers_decode`` / ``serve_head`` thread the paged KV pool of
-``apex_tpu_torch.serve``. Tensor/sequence/context parallelism, MoE FFNs,
-rotary positions, and a sliding window on the card are later slices and
-raise ``NotImplementedError``.
+Training goes through the differentiable :meth:`GPTModel.forward` (per-token
+loss with targets, logits without) and :meth:`GPTModel.loss` (the mean
+per-token loss): per-layer activation checkpointing (``remat``), hidden
+dropout from an explicit ``torch.Generator``, and the chunked LM-head CE
+(``lm_head_chunks``). ``apply`` is inference only (``torch.no_grad``, full-
+context logits), and the serving drives ``embed_at`` /
+``serve_layers_prefill`` / ``serve_layers_decode`` / ``serve_head`` thread
+the paged KV pool of ``apex_tpu_torch.serve``. Tensor/sequence/context
+parallelism, MoE FFNs, rotary positions, selective remat policies and a
+sliding window on the card are later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
@@ -28,8 +34,10 @@ from apex_tpu_torch.models._transformer import (
     LayerNormParams,
     TransformerBase,
     TransformerLayer,
+    remat_policy,
 )
 from apex_tpu_torch.ops.flash_decode import flash_decode
+from apex_tpu_torch.ops.lm_head_loss import lm_head_cross_entropy
 from apex_tpu_torch.transformer import tensor_parallel as tp
 
 
@@ -53,6 +61,11 @@ class GPTConfig:
     position_embedding: str = "learned"
     context_axis: Optional[str] = None
     moe_num_experts: Optional[int] = None
+    hidden_dropout: float = 0.1  # applied only with a dropout generator
+    remat: bool = True  # activation checkpointing per layer (training)
+    remat_policy: Optional[str] = None  # None/"full"; selective: later
+    # vocab chunks of the fused LM-head CE (None: plain head + per-token CE)
+    lm_head_chunks: Optional[int] = None
 
     @property
     def ffn(self) -> int:
@@ -78,6 +91,7 @@ def _check_slice(c: GPTConfig, device: torch.device) -> None:
             c.attention_window is not None and device.type == "cuda",
             "the windowed flash kernels (Queue 2 item 4)"),
     }
+    remat_policy(c.remat_policy)
     for name, (on, where) in later.items():
         if on:
             raise NotImplementedError(
@@ -165,18 +179,60 @@ class GPTModel(TransformerBase):
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         return self.embed_at(tokens, pos[None])
 
-    def _layer(self, layer: TransformerLayer,
-               h: torch.Tensor) -> torch.Tensor:
-        """Pre-LN block: residual + sublayer(LN(h))."""
+    def _layer(self, layer: TransformerLayer, h: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Pre-LN block: residual + dropout(sublayer(LN(h))), the dropout
+        masks drawn from ``generator`` attention first (``_layer_aux``,
+        ``gpt.py:286-301``)."""
         q, k, v = self._qkv_heads(layer, self._ln(layer.ln1, h))
-        h = h + self._attn_out(layer, self._attend(q, k, v))
-        return h + self._mlp(layer, self._ln(layer.ln2, h))
+        h = h + self._dropout(self._attn_out(layer, self._attend(q, k, v)),
+                              generator)
+        return h + self._dropout(self._mlp(layer, self._ln(layer.ln2, h)),
+                                 generator)
+
+    def head(self, h: torch.Tensor,
+             targets: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Final LN + tied LM head (``gpt.py:303-332``): logits in the
+        compute dtype without targets; with targets the fp32 per-token loss,
+        through the chunked LM-head CE when ``lm_head_chunks`` is set, else
+        the plain head and a per-token cross entropy."""
+        c = self.cfg
+        x = self._ln(self.ln_f, h)
+        wte = self.embedding.embedding
+        if targets is not None and c.lm_head_chunks:
+            return lm_head_cross_entropy(x, wte, targets, c.lm_head_chunks)
+        logits = x @ tp.cast_param(wte, x.dtype).t()
+        if targets is None:
+            return logits
+        return F.cross_entropy(logits.float().flatten(0, -2),
+                               targets.flatten().long(),
+                               reduction="none").view(targets.shape)
+
+    def forward(self, tokens: torch.Tensor,
+                targets: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Differentiable forward (the reference's ``apply``): per-token
+        fp32 loss ``(b, s)`` with ``targets``, logits without. Hidden
+        dropout runs only with a ``dropout_generator``."""
+        tokens = tokens.to(self.device)
+        if targets is not None:
+            targets = targets.to(self.device)
+        h = self.run_layers_train(self.embed(tokens), dropout_generator)
+        return self.head(h, targets)
+
+    def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
+             dropout_generator: Optional[torch.Generator] = None
+             ) -> torch.Tensor:
+        """Mean per-token loss (``gpt.py:537-542``)."""
+        return self.forward(tokens, targets, dropout_generator).mean()
 
     @torch.no_grad()
     def apply(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full-context forward: ``(b, s)`` token ids -> ``(b, s, vocab)``
         logits in the compute dtype (the reference's ``apply`` without
-        targets)."""
+        targets). Inference only: it runs under ``no_grad``; training goes
+        through :meth:`forward` / :meth:`loss`."""
         tokens = tokens.to(self.device)
         return self.serve_head(self.run_layers(self.embed(tokens)))
 

@@ -8,7 +8,11 @@ the kernels.
 from typing import Dict
 
 from apex_tpu_torch.ops.flash_attention import (
+    FlashAttention,
     flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
     flash_attention_fwd,
     mha_reference,
 )
@@ -18,17 +22,27 @@ from apex_tpu_torch.ops.flash_decode import (
     paged_attention_reference,
 )
 from apex_tpu_torch.ops.layer_norm import (
+    FusedNorm,
     layer_norm,
+    layer_norm_bwd,
+    layer_norm_bwd_reference,
     layer_norm_fwd,
     layer_norm_reference,
     rms_norm,
     rms_norm_reference,
 )
+from apex_tpu_torch.ops.lm_head_loss import (
+    lm_head_cross_entropy,
+    lm_head_cross_entropy_reference,
+)
 
 #: kernel name -> its launching wrapper (the holder of the launch count)
 KERNEL_WRAPPERS = {
     "flash_attention_fwd": flash_attention_fwd,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
     "layer_norm_fwd": layer_norm_fwd,
+    "layer_norm_bwd": layer_norm_bwd,
     "flash_decode": flash_decode_fwd,
 }
 
@@ -43,15 +57,24 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "FlashAttention",
+    "FusedNorm",
     "KERNEL_WRAPPERS",
     "flash_attention",
+    "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_reference",
     "flash_attention_fwd",
     "flash_decode",
     "flash_decode_fwd",
     "launch_counts",
     "layer_norm",
+    "layer_norm_bwd",
+    "layer_norm_bwd_reference",
     "layer_norm_fwd",
     "layer_norm_reference",
+    "lm_head_cross_entropy",
+    "lm_head_cross_entropy_reference",
     "mha_reference",
     "paged_attention_reference",
     "reset_launch_counts",

@@ -11,7 +11,8 @@ A slot with length 0 (idle) outputs exactly 0.
 On a CUDA tensor :func:`flash_decode` launches ``csrc/flash_decode.cu``
 (which replaces ``_decode_kernel``); its ``window`` on the card is later work
 and raises. On a CPU tensor it takes :func:`paged_attention_reference`, the
-plain version (``flash_decode.py:62-98``).
+plain version (``flash_decode.py:62-98``). Like ``_decode_kernel``, it has
+no backward: with grad mode on, inputs that require grad raise.
 """
 
 from __future__ import annotations
@@ -122,6 +123,12 @@ def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"heads ({h}) must be a multiple of kv_heads ({kh})")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be a positive int, got {window}")
+    if torch.is_grad_enabled() and (q.requires_grad or k_pages.requires_grad
+                                    or v_pages.requires_grad):
+        raise RuntimeError(
+            "flash_decode has no backward: the reference's _decode_kernel "
+            "has no VJP (serving only); call it under torch.no_grad() or "
+            "on tensors that do not require grad")
     if check_device(q, "q") == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
                                          lengths, scale=scale, window=window)

@@ -3,27 +3,39 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
 
-Three phases; any failure raises and exits non-zero:
+Four phases; any failure raises and exits non-zero:
 
-1. **Build** every kernel of the serving path from ``apex_tpu_torch/csrc``
-   with nvcc (``sm_90a``) and print the build seconds, the card's name and
-   its power limit.
-2. **Kernel vs plain**: each kernel (LayerNorm forward, flash-attention
-   forward, paged flash-decode) against its plain PyTorch version on the
-   card, at the serving path's shapes in bf16 and fp32 plus edge cases,
-   each error beside its stated tolerance; then device times by CUDA-graph
-   replay between CUDA events (kernel, plain version, one PyTorch library
-   call as yardstick where one computes the same function) and the least
-   time the card could take.
+1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
+   (``sm_90a``) and print the build seconds, the card's name and its power
+   limit.
+2. **Kernel vs plain**: each kernel (LayerNorm forward and backward,
+   flash-attention forward, its dQ and dK/dV backward, paged flash-decode)
+   against its plain PyTorch version on the card, at the main paths' shapes
+   in bf16 and fp32 plus edge cases, each error beside its stated
+   tolerance; then device times by CUDA-graph replay between CUDA events
+   (kernel, plain version, one PyTorch library call as yardstick where one
+   computes the same function) and the least time the card could take.
 3. **Serving**: an fp32 greedy gate on a small model (the engine's tokens
    against the argmax of the full-context forward at every generated
    position), then GPT-2 345M at full width (random weights from a seed,
    bf16 compute, fp32 params) serving 16 requests, with every kernel's
    launch count on that run checked against the count the path implies.
+4. **Training**: an fp32 gradient gate on a small GPT (loss and every
+   parameter's grad on the card through the kernels against the same model
+   on the CPU through the plain versions), then the GPT-2 345M amp-O2
+   training step of ``apex_tpu_torch.bench.build("O2")`` at full width and
+   depth (batch 8 x 1024, random weights from a seed, one fixed batch): one
+   warm-up step and 10 steps timed as one window (the step time is the
+   window over 10, each step's time beside it) with the exact launch counts
+   checked, a falling finite loss, no skipped step and bf16 params equal to
+   their fp32 masters cast down; then the top kernels by device time of one
+   profiled step.
 
 The line before the last is the card's name and power limit as nvidia-smi
-prints them, the one before that a ``{"kernels": [...]}`` JSON object, and
-the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+prints them, the one before that a ``{"kernels": [...]}`` JSON object
+(``launches_by_path``: each kernel's count on the serving run and on the
+training run, each counted from 0; ``launches``: their sum), and the last line
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 import json
@@ -54,17 +66,20 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=20, reps=5):
+def time_ms(fn, iters=20, reps=5, stream=None):
     """Device time per call: ``iters`` calls captured in one CUDA graph and
     the graph replayed ``reps`` times between two CUDA events, so the
-    Python cost of issuing each call is not in the number."""
+    Python cost of issuing each call is not in the number. ``stream``: the
+    stream to warm up and capture on, where ``fn``'s work must run (an
+    autograd backward runs on the stream of its forward)."""
     import torch
 
-    for _ in range(3):
-        fn()
+    with torch.cuda.stream(stream or torch.cuda.current_stream()):
+        for _ in range(3):
+            fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -171,6 +186,15 @@ def check_layer_norm(torch, ops, dev):
           f"{plain:.4f} ms, F.layer_norm {lib:.4f} ms, bound {bms:.4f} ms "
           f"({by}); decode shape 8x1024: kernel {ms8:.4f} ms, eager issue "
           f"{issue8:.4f} ms per call")
+    xt = torch.randn(8192, hidden, device=dev, generator=gen).to(bf16)
+    ms_t = time_ms(lambda: ops.layer_norm(xt, w, b))
+    plain_t = time_ms(lambda: ops.layer_norm_reference(xt, w, b), 5)
+    lib_t = time_ms(lambda: F.layer_norm(xt, (hidden,), w16, b16, 1e-5))
+    bms_t, by_t = bound(8192 * hidden * 4 + hidden * 8 + 8192 * 8,
+                        8192 * hidden * 8, "float32")
+    print(f"  layer_norm timing at the training shape (8192x1024 bf16): "
+          f"kernel {ms_t:.4f} ms, plain {plain_t:.4f} ms, F.layer_norm "
+          f"{lib_t:.4f} ms, bound {bms_t:.4f} ms ({by_t})")
     return dict(name="layer_norm_fwd", route="cuda",
                 source="apex_tpu_torch/csrc/layer_norm.cu",
                 replaces="apex_tpu/ops/layer_norm.py:65",
@@ -241,11 +265,236 @@ def check_flash_attention(torch, ops, dev):
     print(f"  flash_attention timing (1,16,1024,64) bf16 causal: kernel "
           f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} "
           f"ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    b = 8
+    q, k, v = (torch.randn(b, h, s, d, device=dev, generator=gen).to(bf16)
+               for _ in range(3))
+    ms_t = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    plain_t = time_ms(lambda: ops.mha_reference(q, k, v, causal=True), 2, 2)
+    lib_t = time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                            is_causal=True))
+    flops_t = 4 * b * h * d * causal_pairs(s, s)
+    bms_t, by_t = bound(4 * b * h * s * d * 2 + b * h * s * 4, flops_t,
+                        "bfloat16")
+    print(f"  flash_attention timing at the training shape (8,16,1024,64) "
+          f"bf16 causal: kernel {ms_t:.4f} ms ({flops_t / ms_t / 1e9:.1f} "
+          f"TFLOP/s), plain {plain_t:.4f} ms, SDPA {lib_t:.4f} ms, bound "
+          f"{bms_t:.4f} ms ({by_t})")
     return dict(name="flash_attention_fwd", route="cuda",
                 source="apex_tpu_torch/csrc/flash_attention.cu",
                 replaces="apex_tpu/ops/flash_attention.py:251",
                 max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib)
+
+
+def rel_err(got, ref):
+    """max |got - ref| over max |ref|, both in fp32."""
+    return max_err(got, ref) / max(float(ref.float().abs().max()), 1e-30)
+
+
+def check_layer_norm_bwd(torch, ops, dev):
+    """LayerNorm backward kernel against ``layer_norm_bwd_reference`` on the
+    same g, x and the forward kernel's mean/rstd. Tolerances, as a share of
+    max |ref|: dx 2^-7 in bf16 (one bf16 ulp at the top: both round the same
+    fp32 value) and 1e-5 in fp32; dgamma/dbeta 1e-4 (fp32 sums over the
+    rows in another order)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [  # rows, hidden, dtype, variant
+        (8192, 1024, bf16, "ln"), (8192, 1024, f32, "ln"),
+        (8192, 1024, bf16, "rms"), (1024, 1024, bf16, "no-affine"),
+        (1024, 1024, bf16, "no-bias"), (33, 1000, f32, "ln"),
+        (33, 1000, bf16, "rms"),
+    ]
+    main_err = None
+    for rows, hidden, dt, variant in cases:
+        x = (torch.randn(rows, hidden, device=dev, generator=gen) * 3
+             + 0.5).to(dt)
+        g = torch.randn(rows, hidden, device=dev, generator=gen).to(dt)
+        w = 1 + 0.1 * torch.randn(hidden, device=dev, generator=gen)
+        b = 0.1 * torch.randn(hidden, device=dev, generator=gen)
+        rms = variant == "rms"
+        wv = None if variant == "no-affine" else w
+        bv = b if variant == "ln" else None
+        _, mean, rstd = ops.layer_norm_fwd(x, wv, bv, rms=rms)
+        kw = dict(rms=rms, has_bias=bv is not None)
+        got = ops.layer_norm_bwd(g, x, mean, rstd, wv, **kw)
+        ref = ops.layer_norm_bwd_reference(g, x, mean, rstd, wv, **kw)
+        torch.cuda.synchronize()
+        tol_dx = 2.0 ** -7 if dt == bf16 else 1e-5
+        errs = []
+        for name, a, r, tol in (("dx", got[0], ref[0], tol_dx),
+                                ("dgamma", got[1], ref[1], 1e-4),
+                                ("dbeta", got[2], ref[2], 1e-4)):
+            check((a is None) == (r is None), f"ln bwd {name} presence")
+            if a is None:
+                continue
+            e = rel_err(a, r)
+            errs.append(f"{name} {max_err(a, r):.3g} (rel {e:.3g}, tol "
+                        f"{tol:g})")
+            check(e <= tol, f"layer_norm_bwd {variant} {rows}x{hidden} {dt} "
+                  f"{name}: rel err {e:.3g} > {tol:g}")
+        check(got[0].dtype == dt, "ln bwd dx dtype")
+        print(f"  layer_norm_bwd {variant:9s} rows={rows:4d} hidden={hidden} "
+              f"{str(dt)[6:]:8s} " + ", ".join(errs))
+        if main_err is None:
+            main_err = max_err(got[0], ref[0])
+    # timing at the training shape: 8192 x 1024 bf16, fp32 gamma/beta
+    rows, hidden = 8192, 1024
+    x = torch.randn(rows, hidden, device=dev, generator=gen).to(bf16)
+    g = torch.randn(rows, hidden, device=dev, generator=gen).to(bf16)
+    w = torch.ones(hidden, device=dev)
+    b = torch.zeros(hidden, device=dev)
+    _, mean, rstd = ops.layer_norm_fwd(x, w, b)
+    kw = dict(rms=False, has_bias=True)
+    ms = time_ms(lambda: ops.layer_norm_bwd(g, x, mean, rstd, w, **kw))
+    plain = time_ms(
+        lambda: ops.layer_norm_bwd_reference(g, x, mean, rstd, w, **kw), 5)
+    w16, b16 = w.to(bf16), b.to(bf16)
+    _, amean, arstd = torch.native_layer_norm(x, (hidden,), w16, b16, 1e-5)
+    lib = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        g, x, [hidden], amean, arstd, w16, b16, [True, True, True]))
+    nbytes = rows * hidden * 2 * 3 + rows * 4 * 2 + hidden * 4 * 3
+    bms, by = bound(nbytes, rows * hidden * 13, "float32")
+    print(f"  layer_norm_bwd timing (8192x1024 bf16, fp32 gamma/beta): "
+          f"kernel + partial sum {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"aten.native_layer_norm_backward (bf16 gamma) {lib:.4f} ms, bound "
+          f"{bms:.4f} ms ({by})")
+    return dict(name="layer_norm_bwd", route="cuda",
+                source="apex_tpu_torch/csrc/layer_norm.cu",
+                replaces="apex_tpu/ops/layer_norm.py:85",
+                max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+def check_flash_attention_bwd(torch, ops, dev):
+    """Flash backward kernels (dQ, dK/dV) against
+    ``flash_attention_bwd_reference`` on the same q, k, v, dO and the
+    forward kernel's o/lse. Tolerance, as a share of max |ref| of each
+    gradient: 1e-2 in bf16 (P and dS are rounded to bf16 as mma operands,
+    and each output once more) and 1e-4 in fp32 (fp32 sums in another
+    order)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def run(q, k, v, causal, label):
+        do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
+        scale = q.shape[-1] ** -0.5
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        delta = (o.float() * do.float()).sum(-1)
+        kw = dict(causal=causal, scale=scale)
+        dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        ref = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        tol = 1e-2 if q.dtype == bf16 else 1e-4
+        parts = []
+        worst = 0.0
+        for name, a, r in zip(("dQ", "dK", "dV"), (dq, dk, dv), ref):
+            check(a.dtype == q.dtype and a.shape == r.shape,
+                  f"flash bwd {label} {name} dtype/shape")
+            e = rel_err(a, r)
+            worst = max(worst, max_err(a, r))
+            parts.append(f"{name} {max_err(a, r):.3g} (rel {e:.3g})")
+            check(e <= tol, f"flash bwd {label} {name}: rel err {e:.3g} > "
+                  f"{tol:g}")
+        print(f"  flash_attention_bwd {label} " + ", ".join(parts)
+              + f" (tol {tol:g} of max|ref|)")
+        return worst
+
+    cases = [  # b, h, sq, sk, d, dtype, causal
+        (8, 16, 1024, 1024, 64, bf16, True),
+        (8, 16, 1024, 1024, 64, f32, True),
+        (2, 16, 1024, 1024, 64, bf16, False),
+        (2, 3, 77, 300, 64, bf16, False),
+        (1, 2, 300, 77, 64, bf16, True),
+        (2, 3, 77, 300, 64, f32, True),
+        (1, 2, 300, 77, 64, f32, False),
+        (2, 4, 256, 256, 128, bf16, True),
+        (1, 4, 130, 130, 40, bf16, True),
+        (2, 2, 100, 120, 36, bf16, False),
+        (1, 4, 130, 130, 40, f32, True),
+    ]
+    main_err = None
+    for b, h, sq, sk, d, dt, causal in cases:
+        q = torch.randn(b, h, sq, d, device=dev, generator=gen).to(dt)
+        k = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
+        v = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
+        err = run(q, k, v, causal, f"b={b} h={h} sq={sq} sk={sk} d={d} "
+                  f"{str(dt)[6:]} causal={causal}")
+        if main_err is None:
+            main_err = err
+    # a fused-QKV view (strided heads), as the model hands them over
+    qkv = torch.randn(2, 256, 4, 3, 64, device=dev, generator=gen).to(bf16)
+    qkv = qkv.permute(0, 2, 3, 1, 4)
+    run(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True,
+        "strided fused-QKV view (2,4,256,64) bf16 causal")
+
+    b, h, s, d = 8, 16, 1024, 64
+    q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=gen).to(bf16)
+                   for _ in range(4))
+    scale = d ** -0.5
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+    delta = (o.float() * do.float()).sum(-1)
+    kw = dict(causal=True, scale=scale)
+    ms_dq = time_ms(
+        lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
+    ms_dkv = time_ms(
+        lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    plain = time_ms(lambda: ops.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, **kw), 2, 2)
+    # yardstick: SDPA's backward, autograd.grad of one causal SDPA output
+    # over q, k, v, captured and replayed like the kernels (the forward runs
+    # on the capture stream, so its backward does too)
+    import torch.nn.functional as F
+
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    torch.cuda.synchronize()
+    sdpa_grad = (lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                             retain_graph=True))
+    lib_pair = time_ms(sdpa_grad, stream=side)
+    backend = type(out.grad_fn).__name__
+    # the same for SDPA's FlashAttention-2 backend: its backward op called
+    # directly on the outputs of its forward op
+    aten = torch.ops.aten
+    (lo, llse, cq, ck, mq, mk, seed, off, _) = \
+        aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True, False)
+    flash_op = aten._scaled_dot_product_flash_attention_backward
+    fa2_ms = time_ms(lambda: flash_op(do, q, k, v, lo, llse, cq, ck, mq, mk,
+                                      0.0, True, seed, off))
+    # host-issue figures: eager calls between CUDA events
+    lib_eager = issue_ms(sdpa_grad, 20)
+    pair_eager = issue_ms(lambda: (
+        ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+        ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)), 20)
+    pairs = causal_pairs(s, s) * b * h
+    elems = b * h * s * d
+    dq_bound = bound(5 * elems * 2 + 2 * b * h * s * 4, 6 * d * pairs,
+                     "bfloat16")
+    dkv_bound = bound(6 * elems * 2 + 2 * b * h * s * 4, 8 * d * pairs,
+                      "bfloat16")
+    print(f"  flash_attention_bwd timing (8,16,1024,64) bf16 causal: dQ "
+          f"{ms_dq:.4f} ms ({6 * d * pairs / ms_dq / 1e9:.1f} TFLOP/s, bound "
+          f"{dq_bound[0]:.4f} ms {dq_bound[1]}), dK/dV {ms_dkv:.4f} ms "
+          f"({8 * d * pairs / ms_dkv / 1e9:.1f} TFLOP/s, bound "
+          f"{dkv_bound[0]:.4f} ms {dkv_bound[1]}), plain (both) {plain:.4f} "
+          f"ms; SDPA backward (dQ, dK, dV; autograd.grad through "
+          f"{backend}) {lib_pair:.4f} ms, the FlashAttention-2 backward op "
+          f"{fa2_ms:.4f} ms; eager between CUDA events (host issue): the "
+          f"pair {pair_eager:.4f} ms, SDPA's autograd.grad {lib_eager:.4f} "
+          f"ms")
+    common = dict(route="cuda", source="apex_tpu_torch/csrc/"
+                  "flash_attention_bwd.cu", max_abs_err=main_err,
+                  plain_ms=plain, library_ms=lib_pair)
+    return [dict(common, name="flash_attention_bwd_dq",
+                 replaces="apex_tpu/ops/flash_attention.py:328", ms=ms_dq,
+                 bound_ms=dq_bound[0], bound_by=dq_bound[1]),
+            dict(common, name="flash_attention_bwd_dkv",
+                 replaces="apex_tpu/ops/flash_attention.py:411", ms=ms_dkv,
+                 bound_ms=dkv_bound[0], bound_by=dkv_bound[1])]
 
 
 def _decode_inputs(torch, dev, gen, b, h, kh, blk, d, nb, max_blocks, dt,
@@ -387,15 +636,14 @@ def serve_345m(torch, ops, dev):
     counts = ops.launch_counts()
     prefills, ticks = eng.prefills - p0, eng.decode_steps - d0
     L = cfg.num_layers
-    expected = {"flash_attention_fwd": L * prefills,
-                "flash_decode": L * ticks,
-                "layer_norm_fwd": (2 * L + 1) * (prefills + ticks)}
+    expected = dict.fromkeys(counts, 0)  # the backward kernels: none
+    expected.update({"flash_attention_fwd": L * prefills,
+                     "flash_decode": L * ticks,
+                     "layer_norm_fwd": (2 * L + 1) * (prefills + ticks)})
     print(f"  345M: {n_params / 1e6:.1f} M params, {prefills} prefills, "
           f"{ticks} decode ticks, launches {counts} (expected {expected})")
     check(prefills == len(reqs), "one prefill per request")
-    for name, n in counts.items():
-        check(n > 0 and n == expected[name],
-              f"{name}: {n} launches, expected {expected[name]}")
+    check_counts(counts, expected)
     toks = [t for r in res.values() for t in r.tokens]
     check(len(res) == len(reqs) and all(len(r.tokens) == new
                                         for r in res.values()),
@@ -422,6 +670,28 @@ def serve_345m(torch, ops, dev):
     return counts
 
 
+def check_counts(counts, expected):
+    for name, n in counts.items():
+        check(n == expected[name] and (n > 0) == (expected[name] > 0),
+              f"{name}: {n} launches, expected {expected[name]}")
+
+
+def device_time_by_kernel(torch, prof):
+    """``{kernel name: (launches, device us)}`` of a profiler run."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + us)
+    return by_name
+
+
+def print_top(by_name, k=10):
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]:
+        print(f"    {t / 1e3:9.2f} ms {n:6d}x  {name[:80]}")
+
+
 def device_busy(torch, eng, cfg):
     """Device busy share of a decode-heavy serving window (8 requests of
     256 prompt tokens, 48 new tokens each): the kernels' device time from
@@ -441,12 +711,7 @@ def device_busy(torch, eng, cfg):
         eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + us)
+    by_name = device_time_by_kernel(torch, prof)
     busy_us = sum(t for _, t in by_name.values())
     if busy_us <= 0:
         print("  345M window: device busy time not measured (the profiler "
@@ -456,8 +721,146 @@ def device_busy(torch, eng, cfg):
           f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms = "
           f"{busy_us / 1e6 / wall:.3f} of the window (idle "
           f"{1 - busy_us / 1e6 / wall:.3f}); device time by kernel:")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
-        print(f"    {t / 1e3:9.2f} ms {n:6d}x  {name[:80]}")
+    print_top(by_name)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: training
+# ---------------------------------------------------------------------------
+
+
+def gradient_gate(torch, ops, dev):
+    """fp32, small GPT (hidden 256, 2 layers, seq 256, lm_head_chunks=2,
+    remat on): loss and every parameter's grad on the card through the
+    kernels against the same parameters on the CPU through the plain
+    versions. Tolerance: loss 1e-5 relative; each grad 1e-4 of its max
+    |CPU grad| (fp32 sums in another order through two layers)."""
+    import numpy as np
+
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                    num_attention_heads=4, max_seq_len=256,
+                    compute_dtype=torch.float32, hidden_dropout=0.0,
+                    remat=True, lm_head_chunks=2)
+    card = GPTModel(cfg, device=dev, seed=7)
+    host = GPTModel(cfg, device="cpu", seed=7)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
+    targets = torch.roll(tokens, -1, dims=-1)
+    ops.reset_launch_counts()
+    loss_c = card.loss(tokens.to(dev), targets.to(dev))
+    loss_c.backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    loss_h = host.loss(tokens, targets)
+    loss_h.backward()
+    loss_c, loss_h = float(loss_c.detach()), float(loss_h.detach())
+    rel = abs(loss_c - loss_h) / abs(loss_h)
+    print(f"  fp32 gradient gate: loss card {loss_c:.7f} cpu "
+          f"{loss_h:.7f} (rel {rel:.3g}, tol 1e-05); launches "
+          f"{counts}")
+    check(rel <= 1e-5, "gradient gate loss")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "layer_norm_fwd",
+                 "layer_norm_bwd"):
+        check(counts[name] > 0, f"gradient gate never launched {name}")
+    worst = (0.0, "")
+    for (name, pc), ph in zip(card.named_parameters(), host.parameters()):
+        check(pc.grad is not None and ph.grad is not None,
+              f"gradient gate: no grad for {name}")
+        e = rel_err(pc.grad.cpu(), ph.grad)
+        worst = max(worst, (e, name))
+        check(e <= 1e-4, f"gradient gate {name}: rel err {e:.3g} > 1e-4")
+    print(f"  fp32 gradient gate: {len(list(host.parameters()))} parameter "
+          f"grads within 1e-4 of max|cpu grad| (worst {worst[0]:.3g}, "
+          f"{worst[1]})")
+
+
+def model_flops_per_token(cfg):
+    """Training FLOPs per token, without the remat recompute: 6 x (the
+    12*L*H^2 layer weights + the V*H tied head) + 6*L*S*H for the causal
+    attention products (half of 12*L*S*H)."""
+    L, H, S, V = (cfg.num_layers, cfg.hidden_size, cfg.max_seq_len,
+                  cfg.vocab_size)
+    return 6 * (12 * L * H * H + V * H) + 6 * L * S * H
+
+
+def train_345m(torch, ops, dev):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.bench import build, fixed_batch, train_steps
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bench = build("O2", device=dev, seed=0)
+    cfg, L = bench.cfg, bench.cfg.num_layers
+    n_params = sum(p.numel() for p in bench.model.parameters())
+    tokens, targets = fixed_batch(bench)
+    n = 10
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    stats = train_steps(bench, n, tokens, targets)  # 1 warm-up + n timed
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    steps = n + 1
+    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "layer_norm_fwd": 4 * L + 1,
+                "layer_norm_bwd": 2 * L + 1, "flash_decode": 0}
+    expected = {k: v * steps for k, v in per_step.items()}
+    print(f"  345M O2 train: {n_params / 1e6:.1f} M params, batch "
+          f"{bench.batch} x {cfg.max_seq_len}, {steps} steps, launches "
+          f"{counts} (expected per step {per_step})")
+    check_counts(counts, expected)
+    losses = stats["losses"]
+    skipped = sum(m["found_inf"] for m in stats["metrics"])
+    steps_ms = stats["step_ms"]
+    ms = stats["window_ms"] / n  # the whole window: a stall counts
+    tok = stats["tokens_per_step"]
+    flops = model_flops_per_token(cfg) * tok
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"  345M O2 train: {n} steps in {stats['window_ms']:.2f} ms = "
+          f"{ms:.2f} ms a step (per step: median "
+          f"{statistics.median(steps_ms):.2f}, min {min(steps_ms):.2f}, max "
+          f"{max(steps_ms):.2f}; all {[round(t, 2) for t in steps_ms]}), "
+          f"{n * tok / stats['window_ms'] * 1e3:.1f} tokens/s, model FLOPs "
+          f"{flops / 1e12:.2f} T/step = {flops / ms / 1e9:.1f} TFLOP/s = "
+          f"{flops / ms / 1e9 / 989:.3f} of 989 TFLOP/s (6*(12*L*H^2 + V*H) "
+          f"+ 6*L*S*H per token), peak memory {peak:.2f} GiB")
+    print(f"  345M O2 train: loss first {losses[0]:.4f} last "
+          f"{losses[-1]:.4f} ({len(losses)} steps), loss scale "
+          f"{stats['metrics'][-1]['loss_scale']:g}, skipped steps {skipped}")
+    check(all(np.isfinite(losses)), "every loss finite")
+    check(losses[-1] < losses[0], "the loss falls on the fixed batch")
+    check(skipped == 0, "no step skipped")
+    for p, m in zip(bench.model.parameters(), bench.opt_state.master):
+        check(torch.equal(p, m.to(p.dtype)), "bf16 params == masters cast")
+    check(any(p.dtype == torch.bfloat16 for p in bench.model.parameters())
+          and bench.model.ln_f.scale.dtype == torch.float32,
+          "O2 dtypes: bf16 weights, fp32 norms")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bench.step(tokens, targets)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = device_time_by_kernel(torch, prof)
+    busy = sum(t for _, t in by_name.values()) / 1e3
+    if busy <= 0:
+        print("  345M O2 train: device time by kernel not measured (the "
+              "profiler saw no device events)")
+    else:
+        ours = sum(t for name, (_, t) in by_name.items()
+                   if "apex_torch" in name) / 1e3
+        print(f"  345M O2 train, one profiled step: wall {wall:.1f} ms, "
+              f"device busy {busy:.1f} ms = {busy / wall:.3f} (idle "
+              f"{1 - busy / wall:.3f}), the port's kernels {ours:.1f} ms = "
+              f"{ours / busy:.3f} of busy; device time by kernel:")
+        print_top(by_name)
+    return counts
 
 
 def main():
@@ -487,16 +890,28 @@ def main():
 
     print("phase 2: kernels against their plain versions")
     rows = [check_layer_norm(torch, ops, dev),
+            check_layer_norm_bwd(torch, ops, dev),
             check_flash_attention(torch, ops, dev),
+            *check_flash_attention_bwd(torch, ops, dev),
             check_flash_decode(torch, ops, dev)]
+    torch.cuda.empty_cache()
 
     print("phase 3: serving")
     greedy_gate(torch, dev)
-    counts = serve_345m(torch, ops, dev)
+    serve_counts = serve_345m(torch, ops, dev)
+    torch.cuda.empty_cache()
+
+    print("phase 4: training")
+    gradient_gate(torch, ops, dev)
+    train_counts = train_345m(torch, ops, dev)
     for row in rows:
-        row["launches"] = counts[row["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        by_path = {"serve": serve_counts[row["name"]],
+                   "train": train_counts[row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows]}))
     print(nvidia_smi())

@@ -101,3 +101,85 @@ def test_kernel_wrapper_never_takes_the_plain_version():
     q, k, v = (torch.from_numpy(a) for a in _qkv())
     with pytest.raises(ValueError, match="CUDA kernel"):
         tfa.flash_attention_fwd(q, k, v, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# backward: FlashAttention (plain backward on the CPU) against jax.grad of
+# the JAX flash attention, whose backward runs _bwd_dq_kernel and
+# _bwd_dkv_kernel in Pallas interpret mode (impl="pallas", 16x16 blocks, as
+# tests/test_flash_attention.py:36), and against jax.grad of mha_reference
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+from apex_tpu.ops.flash_attention import flash_attention as jax_flash  # noqa: E402,E501
+
+GRAD_TOL = 1e-4
+
+
+def _loss_grads_torch(fn, q, k, v, g):
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = fn(*ts)
+    out.backward(torch.from_numpy(g))
+    return out, [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(32, 32), (16, 48), (48, 16)])
+def test_grads_match_jax_pallas_backward(causal, shape):
+    q, k, v = _qkv(b=1, h=2, sq=shape[0], sk=shape[1], d=16, seed=4)
+    g = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    out, got = _loss_grads_torch(
+        lambda a, b, c: tfa.flash_attention(a, b, c, causal=causal),
+        q, k, v, g)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+
+    def jloss(fn):
+        return lambda a, b, c: jnp.sum(fn(a, b, c) * g)
+
+    args = tuple(jnp.asarray(a) for a in (q, k, v))
+    pallas = jax.grad(jloss(lambda a, b, c: jax_flash(
+        a, b, c, causal=causal, impl="pallas", block_q=16, block_k=16)),
+        argnums=(0, 1, 2))(*args)
+    plain = jax.grad(jloss(lambda a, b, c: jax_mha(a, b, c, causal=causal)),
+                     argnums=(0, 1, 2))(*args)
+    for a, rp, rx in zip(got, pallas, plain):
+        np.testing.assert_allclose(a, np.asarray(rp), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL)
+        np.testing.assert_allclose(a, np.asarray(rx), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_matches_autograd_through_mha_reference(causal):
+    """flash_attention_bwd_reference (the kernels' arithmetic from lse and
+    delta) equals autograd through mha_reference (fp32, 1e-5)."""
+    q, k, v = _qkv(b=2, h=2, sq=20, sk=28, d=8, seed=6)
+    g = np.random.default_rng(7).normal(size=q.shape).astype(np.float32)
+    scale = 8 ** -0.5
+    out, want = _loss_grads_torch(
+        lambda a, b, c: tfa.mha_reference(a, b, c, causal=causal), q, k, v,
+        g)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    lse = tfa._lse_reference(tq, tk, causal, scale)
+    got = tfa.flash_attention_bwd_reference(
+        tq, tk, tv, out.detach(), lse, torch.from_numpy(g), causal=causal,
+        scale=scale)
+    for a, r in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), r, atol=1e-5)
+
+
+def test_masked_cpu_inputs_keep_mha_reference_autograd():
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv())
+    out = tfa.flash_attention(q, k, v, causal=True, window=5)
+    assert type(out.grad_fn).__name__ != "FlashAttentionBackward"
+    out.sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def test_backward_wrappers_never_take_the_plain_version():
+    q, k, v = (torch.from_numpy(a) for a in _qkv())
+    lse = torch.zeros(q.shape[:3])
+    for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            fn(q, k, v, q, lse, lse, causal=True, scale=0.25)

@@ -84,3 +84,111 @@ def test_kernel_wrapper_never_takes_the_plain_version():
     x = torch.zeros(2, 8)
     with pytest.raises(ValueError, match="CUDA kernel"):
         tln.layer_norm_fwd(x, None, None)
+
+
+# ---------------------------------------------------------------------------
+# backward: the port's FusedNorm (plain backward on the CPU) against
+# jax.grad of the JAX package's fused norm, whose backward is _ln_bwd_kernel
+# run in Pallas interpret mode (impl="pallas", as tests/test_kernels.py:28)
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+
+def _bwd_case(variant, rows=6, hidden=48, seed=3):
+    x, w, b = _inputs(rows, hidden, seed)
+    g = np.random.default_rng(seed + 1).normal(size=x.shape).astype(
+        np.float32)
+    w = None if variant == "none" else w
+    b = b if variant == "wb" else None
+    return x, w, b, g
+
+
+def _torch_grads(x, w, b, g, rms, dtype=torch.float32):
+    tx = torch.from_numpy(x).to(dtype).requires_grad_()
+    tw = None if w is None else torch.from_numpy(w).requires_grad_()
+    tb = None if b is None else torch.from_numpy(b).requires_grad_()
+    y = tln.rms_norm(tx, tw) if rms else tln.layer_norm(tx, tw, tb)
+    assert type(y.grad_fn).__name__ == "FusedNormBackward"
+    y.backward(torch.from_numpy(g).to(dtype))
+    return [None if t is None else t.grad for t in (tx, tw, tb)]
+
+
+def _jax_grads(x, w, b, g, rms, impl, dtype=jnp.float32):
+    def f(x, w, b):
+        xx = x.astype(dtype)
+        y = (jln.rms_norm(xx, w, impl=impl) if rms
+             else jln.layer_norm(xx, w, b, impl=impl))
+        return jnp.sum(y.astype(jnp.float32) * g)
+
+    args = tuple(None if a is None else jnp.asarray(a) for a in (x, w, b))
+    argnums = tuple(i for i, a in enumerate(args) if a is not None)
+    grads = jax.grad(f, argnums=argnums)(*args)
+    out = [None, None, None]
+    for i, gr in zip(argnums, grads):
+        out[i] = np.asarray(gr)
+    return out
+
+
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("variant", ["wb", "w", "none"])
+def test_backward_matches_jax_pallas_kernel_fp32(rms, variant):
+    """dx/dgamma/dbeta at fp32 within 2e-5 (same fp32 math, another
+    summation order) of the interpret-mode Pallas backward and of jax.grad
+    through the plain JAX norm."""
+    x, w, b, g = _bwd_case(variant)
+    if rms:
+        b = None
+    got = _torch_grads(x, w, b, g, rms)
+    for impl in ("pallas", "xla"):
+        ref = _jax_grads(x, w, b, g, rms, impl)
+        for a, r in zip(got, ref):
+            assert (a is None) == (r is None)
+            if a is not None:
+                np.testing.assert_allclose(a.numpy(), r, atol=2e-5,
+                                           rtol=2e-5)
+
+
+@pytest.mark.parametrize("rms", [False, True])
+def test_backward_bf16_activations_fp32_affine(rms):
+    """bf16 x and dy with fp32 gamma/beta (the O2 case): dx in bf16 within
+    2 bf16 ulps of |dx| plus 1e-3 (both round fp32 values computed in
+    another order), dgamma/dbeta fp32 within 1e-3 relative (sums of bf16
+    inputs over the rows)."""
+    x, w, b, g = _bwd_case("wb", rows=16, hidden=64, seed=5)
+    xb = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    gb = np.array(jnp.asarray(g, jnp.bfloat16).astype(jnp.float32))
+    if rms:
+        b = None
+    got = _torch_grads(xb, w, b, gb, rms, dtype=torch.bfloat16)
+    ref = _jax_grads(xb, w, b, gb, rms, "pallas", dtype=jnp.bfloat16)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    dx, rdx = got[0].float().numpy(), np.asarray(ref[0], np.float32)
+    assert np.all(np.abs(dx - rdx) <= np.abs(rdx) * 2.0 ** -7 + 1e-3)
+    for a, r in zip(got[1:], ref[1:]):
+        if a is not None:
+            np.testing.assert_allclose(a.numpy(), r, rtol=1e-3,
+                                       atol=1e-3 * np.abs(r).max())
+
+
+def test_plain_backward_matches_autograd_of_plain_forward():
+    """layer_norm_bwd_reference equals autograd through the plain forward
+    (fp32, 2e-5)."""
+    x, w, b, g = _bwd_case("wb", rows=5, hidden=40, seed=9)
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    tln.layer_norm_reference(tx, tw, tb).backward(torch.from_numpy(g))
+    _, mean, rstd = tln._norm_stats_reference(tx.detach(), tw, tb, 1e-5,
+                                              False)
+    dx, dw, db = tln.layer_norm_bwd_reference(
+        torch.from_numpy(g), tx.detach(), mean, rstd, tw.detach(),
+        has_bias=True)
+    for a, r in ((dx, tx.grad), (dw, tw.grad), (db, tb.grad)):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), atol=2e-5)
+
+
+def test_backward_wrapper_never_takes_the_plain_version():
+    x = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tln.layer_norm_bwd(x, x, torch.zeros(2), torch.ones(2), None)

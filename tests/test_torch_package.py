@@ -7,7 +7,9 @@
 - options outside this slice (or unsupported on the card) raise instead of
   falling back;
 - importing the whole package needs no ``nvcc``: kernels build at first
-  launch, and a missing compiler raises there.
+  launch, and a missing compiler raises there;
+- differentiable outputs carry the port's autograd Functions, and the
+  decode kernel, which has no backward, refuses inputs that require grad.
 """
 
 import ast
@@ -15,6 +17,7 @@ import importlib
 import os
 import pkgutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -116,4 +119,79 @@ def test_importing_the_package_needs_no_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
     assert {os.path.basename(s) for s in build.sources()} == {
-        "flash_attention.cu", "flash_decode.cu", "layer_norm.cu"}
+        "flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
+        "layer_norm.cu"}
+
+
+def test_differentiable_outputs_carry_the_ports_functions():
+    """layer_norm / rms_norm / flash_attention go through the port's
+    autograd.Function whenever a gradient is tracked (on the card its
+    backward launches the kernels; here it runs the plain versions)."""
+    from apex_tpu_torch import ops
+
+    x = torch.randn(3, 8, requires_grad=True)
+    w = torch.ones(8, requires_grad=True)
+    assert type(ops.layer_norm(x, w, None).grad_fn).__name__ \
+        == "FusedNormBackward"
+    assert type(ops.rms_norm(x, w).grad_fn).__name__ == "FusedNormBackward"
+    q = torch.randn(1, 2, 8, 4, requires_grad=True)
+    out = ops.flash_attention(q, q, q, causal=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.sum().backward()
+    assert q.grad is not None
+    with torch.no_grad():
+        assert ops.layer_norm(x, w, None).grad_fn is None
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "layer_norm_bwd"):
+        assert name in ops.KERNEL_WRAPPERS and name in ops.launch_counts()
+
+
+def test_flash_decode_refuses_inputs_that_require_grad():
+    from apex_tpu_torch import ops
+
+    q = torch.randn(1, 2, 4, requires_grad=True)
+    pages = torch.randn(3, 2, 4, 4)
+    args = (pages, pages, torch.ones(1, 1, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_decode(q, *args)
+    with torch.no_grad():
+        assert ops.flash_decode(q, *args).shape == (1, 2, 4)
+
+
+@pytest.mark.parametrize("policy", ["save_attn", "dots"])
+def test_selective_remat_policies_raise(policy):
+    with pytest.raises(NotImplementedError, match="later"):
+        GPTModel(GPTConfig(remat_policy=policy, **SMALL), device="cpu")
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        GPTModel(GPTConfig(remat_policy="bogus", **SMALL), device="cpu")
+
+
+def test_bench_options_outside_the_slice_raise(monkeypatch):
+    from apex_tpu_torch.bench import build
+
+    with pytest.raises(NotImplementedError, match="O0"):
+        build("O0", device="cpu")
+    for var in ("BENCH_ZERO", "BENCH_QCOMM"):
+        monkeypatch.setenv(var, "1")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            build("O2", device="cpu")
+        monkeypatch.delenv(var)
+
+
+def test_bench_o2_step_on_the_cpu():
+    """The O2 bench step at a tiny width and depth: a finite loss, bf16
+    weights with fp32 norms, the model equal to its masters cast down."""
+    from apex_tpu_torch.bench import build, train_steps
+
+    bench = build("O2", hidden=32, layers=1, batch=1, device="cpu")
+    stats = train_steps(bench, n=1)
+    # nothing is timed on the CPU
+    assert stats["step_ms"] is None and stats["window_ms"] is None
+    assert len(stats["losses"]) == 2 and all(
+        np.isfinite(stats["losses"]))
+    assert not any(m["found_inf"] for m in stats["metrics"])
+    assert bench.model.layers[0].qkv.kernel.dtype == torch.bfloat16
+    assert bench.model.ln_f.scale.dtype == torch.float32
+    for p, m in zip(bench.model.parameters(), bench.opt_state.master):
+        assert torch.equal(p.detach(), m.to(p.dtype))
