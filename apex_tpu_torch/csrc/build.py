@@ -46,8 +46,8 @@ SIGNATURES = {
     "apex_ln_fwd": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P],
     "apex_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _P],
-    "apex_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _I, _P],
+    "apex_flash_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    "apex_flash_decode_multi": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
     "apex_ln_bwd_rows_per_block": [],
     "apex_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "apex_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_L] * 12

@@ -12,7 +12,8 @@ per-token loss): per-layer activation checkpointing (``remat``), hidden
 dropout from an explicit ``torch.Generator``, and the chunked LM-head CE
 (``lm_head_chunks``). ``apply`` is inference only (``torch.no_grad``, full-
 context logits), and the serving drives ``embed_at`` /
-``serve_layers_prefill`` / ``serve_layers_decode`` / ``serve_head`` thread
+``serve_layers_prefill`` / ``serve_layers_decode`` /
+``serve_layers_multi`` / ``serve_head`` thread
 the paged KV pool of ``apex_tpu_torch.serve``. Tensor/sequence/context
 parallelism, MoE FFNs, rotary positions, selective remat policies and a
 sliding window on the card are later slices and raise
@@ -36,7 +37,7 @@ from apex_tpu_torch.models._transformer import (
     TransformerLayer,
     remat_policy,
 )
-from apex_tpu_torch.ops.flash_decode import flash_decode
+from apex_tpu_torch.ops.flash_decode import flash_decode, flash_decode_multi
 from apex_tpu_torch.ops.lm_head_loss import lm_head_cross_entropy
 from apex_tpu_torch.transformer import tensor_parallel as tp
 
@@ -288,6 +289,41 @@ class GPTModel(TransformerBase):
                                 attend_lengths,
                                 window=self.cfg.attention_window)
             h = h + self._attn_out(layer, attn[:, :, None, :])
+            h = h + self._mlp(layer, self._ln(layer.ln2, h))
+        return h, k_pages, v_pages
+
+    @torch.no_grad()
+    def serve_layers_multi(self, h: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           write_flat: torch.Tensor,
+                           attend_lengths: torch.Tensor,
+                           positions: Optional[torch.Tensor] = None):
+        """K-token sibling of :meth:`serve_layers_decode`
+        (``gpt.py:478-517``): per layer the K new tokens' k/v heads of each
+        slot are written into the pool at ``write_flat`` ``(b, K)`` (masked
+        columns point at the null page), then the K queries attend the pages
+        through :func:`flash_decode_multi` with trailing-query semantics
+        (``attend_lengths[b]`` keys for the LAST query, query ``j`` sees
+        ``attend_lengths[b] - (K-1-j)``: in-chunk causality by length).
+        ``h`` is ``(b, K, hidden)``. The pools are updated IN PLACE (the
+        reference rebuilds them functionally) and returned. Drives chunked
+        prefill (one slot, K = chunk) and speculative verify (every slot,
+        K = drafts + 1). ``positions`` ``(b, K)`` only matter for rotary
+        positions, a later slice."""
+        blk = k_pages.shape[3]
+        bi, off = write_flat // blk, write_flat % blk
+        for i, layer in enumerate(self.layers):
+            kp, vp = k_pages[i], v_pages[i]
+            x = self._ln(layer.ln1, h)
+            q, k, v = self._qkv_heads(layer, x)
+            # kp[bi, :, off] is (b, K, kv_heads, d): the (b, K) advanced
+            # indices land in front, so the heads go (b, K, heads, d)
+            kp[bi, :, off] = k.transpose(1, 2).to(kp.dtype)
+            vp[bi, :, off] = v.transpose(1, 2).to(vp.dtype)
+            attn = flash_decode_multi(q, kp, vp, block_tables,
+                                      attend_lengths,
+                                      window=self.cfg.attention_window)
+            h = h + self._attn_out(layer, attn)
             h = h + self._mlp(layer, self._ln(layer.ln2, h))
         return h, k_pages, v_pages
 

@@ -19,6 +19,9 @@ from apex_tpu_torch.ops.flash_attention import (
 from apex_tpu_torch.ops.flash_decode import (
     flash_decode,
     flash_decode_fwd,
+    flash_decode_multi,
+    flash_decode_multi_fwd,
+    paged_attention_multi_reference,
     paged_attention_reference,
 )
 from apex_tpu_torch.ops.layer_norm import (
@@ -44,6 +47,7 @@ KERNEL_WRAPPERS = {
     "layer_norm_fwd": layer_norm_fwd,
     "layer_norm_bwd": layer_norm_bwd,
     "flash_decode": flash_decode_fwd,
+    "flash_decode_multi": flash_decode_multi_fwd,
 }
 
 
@@ -67,6 +71,8 @@ __all__ = [
     "flash_attention_fwd",
     "flash_decode",
     "flash_decode_fwd",
+    "flash_decode_multi",
+    "flash_decode_multi_fwd",
     "launch_counts",
     "layer_norm",
     "layer_norm_bwd",
@@ -76,6 +82,7 @@ __all__ = [
     "lm_head_cross_entropy",
     "lm_head_cross_entropy_reference",
     "mha_reference",
+    "paged_attention_multi_reference",
     "paged_attention_reference",
     "reset_launch_counts",
     "rms_norm",

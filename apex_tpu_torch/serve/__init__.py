@@ -5,6 +5,7 @@ from apex_tpu_torch.serve.cache import (
     BlockAllocator,
     CacheOutOfBlocks,
     KVCacheConfig,
+    PrefixCache,
     blocks_for,
     init_kv_cache,
 )
@@ -19,6 +20,7 @@ __all__ = [
     "ContinuousBatcher",
     "Engine",
     "KVCacheConfig",
+    "PrefixCache",
     "Request",
     "ServeConfig",
     "blocks_for",

@@ -28,6 +28,9 @@ class Request:
     ttft_s: Optional[float] = None
     itl_s: List[float] = dataclasses.field(default_factory=list)
     finished_s: Optional[float] = None
+    # prompt tokens whose k/v came from the prefix cache (prefill skipped
+    # to the divergence point; 0 = no hit or no cache)
+    cached_tokens: int = 0
 
     def __post_init__(self):
         if self.request_id is None:

@@ -9,17 +9,25 @@ Four phases; any failure raises and exits non-zero:
    (``sm_90a``) and print the build seconds, the card's name and its power
    limit.
 2. **Kernel vs plain**: each kernel (LayerNorm forward and backward,
-   flash-attention forward, its dQ and dK/dV backward, paged flash-decode)
-   against its plain PyTorch version on the card, at the main paths' shapes
-   in bf16 and fp32 plus edge cases, each error beside its stated
-   tolerance; then device times by CUDA-graph replay between CUDA events
-   (kernel, plain version, one PyTorch library call as yardstick where one
-   computes the same function) and the least time the card could take.
-3. **Serving**: an fp32 greedy gate on a small model (the engine's tokens
-   against the argmax of the full-context forward at every generated
-   position), then GPT-2 345M at full width (random weights from a seed,
-   bf16 compute, fp32 params) serving 16 requests, with every kernel's
-   launch count on that run checked against the count the path implies.
+   flash-attention forward, its dQ and dK/dV backward, paged flash-decode
+   with and without its window, the K-query paged decode) against its plain
+   PyTorch version on the card, at the main paths' shapes in bf16 and fp32
+   plus edge cases, each error beside its stated tolerance; then device
+   times by CUDA-graph replay between CUDA events (kernel, plain version,
+   one PyTorch library call as yardstick where one computes the same
+   function) and the least time the card could take.
+3. **Serving**: fp32 gates on a small model (the monolithic engine, then
+   chunked prefill, the prefix cache, speculative decoding with a
+   self-draft and a 1-layer draft, and all three: every token against the
+   argmax of the full-context forward, the speculative tokens also against
+   the non-speculative engine's, no page leaked), then GPT-2 345M at full
+   width (random weights from a seed, bf16 compute, fp32 params) serving
+   16 requests three ways: monolithic prefill; the prefix cache with
+   speculative decoding (spec_k 4, self-draft) on 16 prompts sharing a
+   500-token prefix (15 prefix hits, at least 15 copy-on-write forks, mean
+   accepted length above 1, no page leaked); and 256-token prefill chunks.
+   Each run's launch count of every kernel is checked against the count
+   its schedule implies.
 4. **Training**: an fp32 gradient gate on a small GPT (loss and every
    parameter's grad on the card through the kernels against the same model
    on the CPU through the plain versions), then the GPT-2 345M amp-O2
@@ -33,9 +41,9 @@ Four phases; any failure raises and exits non-zero:
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them, the one before that a ``{"kernels": [...]}`` JSON object
-(``launches_by_path``: each kernel's count on the serving run and on the
-training run, each counted from 0; ``launches``: their sum), and the last line
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+(``launches_by_path``: each kernel's count on the three serving runs and
+on the training run, each counted from 0; ``launches``: their sum), and the
+last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 import json
@@ -521,21 +529,34 @@ def check_flash_decode(torch, ops, dev):
         (2, 4, 2, 16, 128, 20, 8, bf16, [100, 7]),
         (2, 4, 2, 16, 36, 20, 8, bf16, [100, 7]),  # unaligned: scalar loads
     ]
+    windowed = [  # the same shapes with window = 128 (and 5 at blk 8)
+        (8, 16, 16, 16, 64, 513, 64, bf16, main_lengths, 128),
+        (8, 16, 16, 16, 64, 513, 64, f32, main_lengths, 128),
+        (8, 32, 16, 16, 64, 513, 64, bf16, main_lengths, 128),
+        (3, 8, 2, 8, 64, 40, 12, f32, [95, 0, 1], 5),
+        (2, 4, 2, 16, 36, 20, 8, bf16, [100, 7], 128),
+    ]
     main_err = None
-    for b, h, kh, blk, d, nb, mb, dt, lengths in cases:
+    for b, h, kh, blk, d, nb, mb, dt, lengths, window in (
+            [c + (None,) for c in cases] + windowed):
         q, kp, vp, tables, lens = _decode_inputs(
             torch, dev, gen, b, h, kh, blk, d, nb, mb, dt, lengths)
-        got = ops.flash_decode(q, kp, vp, tables, lens)
-        ref = ops.paged_attention_reference(q, kp, vp, tables, lens)
+        got = ops.flash_decode(q, kp, vp, tables, lens, window=window)
+        ref = ops.paged_attention_reference(q, kp, vp, tables, lens,
+                                            window=window)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         tol = 2e-2 if dt == bf16 else 5e-5
         idle = [i for i, n in enumerate(lengths) if n == 0]
         zero = all(bool((got[i] == 0).all()) for i in idle)
         print(f"  flash_decode b={b} h={h} kh={kh} blk={blk} d={d} "
-              f"{str(dt)[6:]:8s} max_abs_err={err:.3g} (tol {tol:g}) "
-              f"idle slots exactly 0: {zero}")
-        check(err <= tol and zero, f"flash_decode {(b, h, kh, blk, d, dt)}")
+              f"{str(dt)[6:]:8s} window={window} max_abs_err={err:.3g} "
+              f"(tol {tol:g}) idle slots exactly 0: {zero}")
+        check(err <= tol and zero,
+              f"flash_decode {(b, h, kh, blk, d, dt, window)}")
+        if window is not None and max(lengths) > window:
+            full = ops.paged_attention_reference(q, kp, vp, tables, lens)
+            check(max_err(full, ref) > tol, "the window changes the output")
         if main_err is None:
             main_err = err
     b, h, kh, blk, d, nb, mb = 8, 16, 16, 16, 64, 513, 64
@@ -553,6 +574,19 @@ def check_flash_decode(torch, ops, dev):
           f"ms per call), plain {plain:.4f} ms, no "
           f"single PyTorch call computes paged decode, bound {bms:.4f} ms "
           f"({by})")
+    # the same inputs with window 128, and through the K-query kernel at
+    # K = 1 (the same function): not checks
+    ms_w = time_ms(lambda: ops.flash_decode(q, kp, vp, tables, lens,
+                                            window=128))
+    live_w = sum(min(n, 128) for n in main_lengths)
+    bms_w, by_w = bound(nbytes - (live - live_w) * kh * d * 2 * 2,
+                        4 * h * d * live_w, "bfloat16")
+    ms_k1 = time_ms(lambda: ops.flash_decode_multi(q[:, :, None], kp, vp,
+                                                   tables, lens))
+    print(f"  flash_decode timing with window 128 ({live_w} live keys): "
+          f"kernel {ms_w:.4f} ms, bound {bms_w:.4f} ms ({by_w}); the same "
+          f"unwindowed call through flash_decode_multi at K=1: "
+          f"{ms_k1:.4f} ms")
     return dict(name="flash_decode", route="cuda",
                 source="apex_tpu_torch/csrc/flash_decode.cu",
                 replaces="apex_tpu/ops/flash_decode.py:141",
@@ -560,51 +594,248 @@ def check_flash_decode(torch, ops, dev):
                 bound_by=by, library_ms=None)
 
 
+def _visible(lengths, kq, window, s_max):
+    """Per slot, per query: the count of keys it sees, and per slot the
+    keys some query sees (the span the kernel must read)."""
+    per_row, span = [], []
+    for n in lengths:
+        lo_hi = []
+        for j in range(kq):
+            qlen = n - (kq - 1 - j)
+            hi = min(qlen, s_max)
+            lo = max(qlen - window, 0) if window else 0
+            lo_hi.append((lo, hi))
+        per_row.append([max(0, hi - lo) for lo, hi in lo_hi])
+        live = [(lo, hi) for lo, hi in lo_hi if hi > lo]
+        span.append(max(h for _, h in live) - min(lo for lo, _ in live)
+                    if live else 0)
+    return per_row, span
+
+
+def multi_bound(b, h, kh, kq, d, dt_bytes, lengths, window, blk, max_blocks,
+                dtype_name):
+    """(bound_ms, bound_by) of one K-query decode: q read and o written
+    once, each K/V element that some query of the slot sees read once, the
+    tables and lengths; 4 * d operations per visible (query, key) pair."""
+    per_row, span = _visible(lengths, kq, window, blk * max_blocks)
+    nbytes = (2 * b * h * kq * d * dt_bytes + sum(span) * kh * d * 2 * dt_bytes
+              + b * max_blocks * 4 + b * 4)
+    flops = 4 * d * h * sum(sum(r) for r in per_row)
+    return bound(nbytes, flops, dtype_name)
+
+
+def check_flash_decode_multi(torch, ops, dev):
+    """The K-query paged decode kernel against
+    ``paged_attention_multi_reference`` at the slice's two path shapes
+    (chunked prefill (1,16,256,64) and speculative verify (8,16,5,64), bf16,
+    over a 513-page pool of 16-token pages) and edge cases, bf16 and fp32.
+    Tolerance: 0.02 in bf16 (P is rounded to bf16 as the A operand of P.V,
+    which the reference kernel keeps fp32), 5e-5 in fp32. Idle slots and
+    queries that see no key (a right-aligned chunk's padding rows) must be
+    exactly 0."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(8)
+    verify_lengths = [700, 64, 1000, 0, 333, 5, 800, 513]  # slot 3 idle
+    chunk = (1, 16, 16, 256, 16, 64, 513, 64)
+    verify = (8, 16, 16, 5, 16, 64, 513, 64)
+    cases = [  # (b, h, kh, K, blk, d, num_blocks, max_blocks), lengths, window
+        (chunk, [756], None),
+        (verify, verify_lengths, None),
+        (chunk, [100], None),            # 155 padding rows see <= 0 keys
+        ((8, 16, 4, 5, 16, 64, 513, 64), verify_lengths, None),  # GQA
+        (verify, verify_lengths, 128),
+        (chunk, [900], 128),
+        ((4, 16, 16, 7, 32, 64, 300, 32), [1000, 1, 0, 517], None),  # blk 32
+        ((2, 16, 4, 5, 16, 128, 200, 64), [1000, 300], None),      # d 128
+        ((2, 8, 8, 70, 16, 36, 100, 16), [30, 200], 50),  # unaligned d
+    ]
+    main_err = None
+    for dt in (bf16, f32):
+        for (b, h, kh, kq, blk, d, nb, mb), lengths, window in cases:
+            _, kp, vp, tables, lens = _decode_inputs(
+                torch, dev, gen, b, h, kh, blk, d, nb, mb, dt, lengths)
+            q = torch.randn(b, h, kq, d, device=dev, generator=gen).to(dt)
+            got = ops.flash_decode_multi(q, kp, vp, tables, lens,
+                                         window=window)
+            ref = ops.paged_attention_multi_reference(q, kp, vp, tables,
+                                                      lens, window=window)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            tol = 2e-2 if dt == bf16 else 5e-5
+            per_row, _ = _visible(lengths, kq, window, mb * blk)
+            blind = [(i, j) for i, row in enumerate(per_row)
+                     for j, n in enumerate(row) if n == 0]
+            zero = all(bool((got[i, :, j] == 0).all()) for i, j in blind)
+            print(f"  flash_decode_multi b={b} h={h} kh={kh} K={kq} blk={blk} "
+                  f"d={d} {str(dt)[6:]:8s} window={window} max_abs_err="
+                  f"{err:.3g} (tol {tol:g}); {len(blind)} queries that see "
+                  f"no key exactly 0: {zero}")
+            check(err <= tol and zero and bool(torch.isfinite(got).all())
+                  and got.shape == q.shape and got.dtype == dt,
+                  f"flash_decode_multi {(b, h, kh, kq, blk, d, dt, window)}")
+            if main_err is None:
+                main_err = err
+        # K = 1 is the single-query decode
+        _, kp, vp, tables, lens = _decode_inputs(
+            torch, dev, gen, 8, 16, 16, 16, 64, 513, 64, dt, verify_lengths)
+        q = torch.randn(8, 16, 64, device=dev, generator=gen).to(dt)
+        one = ops.flash_decode(q, kp, vp, tables, lens)
+        multi = ops.flash_decode_multi(q[:, :, None], kp, vp, tables,
+                                       lens)[:, :, 0]
+        torch.cuda.synchronize()
+        err = max_err(multi, one)
+        tol = 2e-2 if dt == bf16 else 5e-5
+        print(f"  flash_decode_multi K=1 against flash_decode "
+              f"{str(dt)[6:]}: max_abs_err={err:.3g} (tol {tol:g})")
+        check(err <= tol, f"flash_decode_multi K=1 {dt}")
+
+    timings = {}
+    for label, (b, h, kh, kq, blk, d, nb, mb), lengths in (
+            ("chunk", chunk, [756]), ("verify", verify, verify_lengths)):
+        _, kp, vp, tables, lens = _decode_inputs(
+            torch, dev, gen, b, h, kh, blk, d, nb, mb, bf16, lengths)
+        q = torch.randn(b, h, kq, d, device=dev, generator=gen).to(bf16)
+        ms = time_ms(lambda: ops.flash_decode_multi(q, kp, vp, tables, lens))
+        plain = time_ms(lambda: ops.paged_attention_multi_reference(
+            q, kp, vp, tables, lens), 5)
+        bms, by = multi_bound(b, h, kh, kq, d, 2, lengths, None, blk, mb,
+                              "bfloat16")
+        timings[label] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                              bound_by=by)
+        print(f"  flash_decode_multi timing {label} q ({b},{h},{kq},{d}) bf16, "
+              f"lengths {lengths}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}); no single PyTorch call attends a "
+              f"paged pool")
+    main = timings["chunk"]
+    return dict(name="flash_decode_multi", route="cuda",
+                source="apex_tpu_torch/csrc/flash_decode.cu",
+                replaces="apex_tpu/ops/flash_decode.py:331",
+                max_abs_err=main_err, library_ms=None, by_shape=timings,
+                **main)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
 
 
-def greedy_gate(torch, dev):
-    """fp32, small model: every generated token equals the argmax of one
-    full-context forward over the finished sequence; where that forward's
-    top-2 gap is below 1e-3 the token must be in its top 2 (and the check
-    of that request stops there)."""
-    import numpy as np
+def check_greedy(torch, model, res, label, ref=None):
+    """Every generated token equals the argmax of one full-context forward
+    over the finished sequence; where that forward's top-2 gap is below 1e-3
+    the token must be in its top 2, and the check of that request stops
+    there. With ``ref`` (another engine's results) each token must also
+    equal ``ref``'s up to that point. Returns the tokens checked."""
+    checked = 0
+    for rid, req in res.items():
+        seq = list(req.prompt) + req.tokens
+        logits = model.apply(torch.tensor([seq], device=model.device))[0]
+        logits = logits.float()
+        for t in range(len(req.prompt), len(seq)):
+            top2 = torch.topk(logits[t - 1], 2)
+            if float(top2.values[0] - top2.values[1]) < 1e-3:
+                check(seq[t] in top2.indices.tolist(),
+                      f"{label}: request {rid} pos {t} not in top-2")
+                break
+            check(int(top2.indices[0]) == seq[t],
+                  f"{label}: request {rid} pos {t}: engine {seq[t]} != "
+                  f"forward argmax {int(top2.indices[0])}")
+            if ref is not None:
+                i = t - len(req.prompt)
+                check(i < len(ref[rid].tokens)
+                      and ref[rid].tokens[i] == seq[t],
+                      f"{label}: request {rid} pos {t} differs from the "
+                      f"non-speculative engine")
+            checked += 1
+    return checked
 
+
+def small_fp32_model(torch, dev, layers=2, seed=5):
     from apex_tpu_torch.models import GPTConfig, GPTModel
-    from apex_tpu_torch.serve import Engine, Request, ServeConfig
 
-    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_layers=layers,
                     num_attention_heads=4, max_seq_len=256,
                     compute_dtype=torch.float32)
-    model = GPTModel(cfg, device=dev, seed=5)
+    return GPTModel(cfg, device=dev, seed=seed)
+
+
+def greedy_gate(torch, dev):
+    """fp32, small model: the monolithic engine's tokens against the
+    full-context argmax (:func:`check_greedy`)."""
+    import numpy as np
+
+    from apex_tpu_torch.serve import Engine, Request, ServeConfig
+
+    model = small_fp32_model(torch, dev)
     rng = np.random.default_rng(5)
-    reqs = [Request(prompt=list(rng.integers(0, cfg.vocab_size, n)),
+    reqs = [Request(prompt=list(rng.integers(0, 1024, n)),
                     max_new_tokens=m, request_id=i)
             for i, (n, m) in enumerate(((5, 16), (60, 12), (17, 20),
                                         (33, 9), (1, 16), (100, 24)))]
     eng = Engine(model, ServeConfig(max_batch=4, max_seq=128, block_size=16),
                  device=dev)
     res = eng.run(reqs)
-    checked = 0
-    for req in res.values():
-        seq = list(req.prompt) + req.tokens
-        logits = model.apply(torch.tensor([seq], device=dev))[0].float()
-        for t in range(len(req.prompt), len(seq)):
-            row = logits[t - 1]
-            top2 = torch.topk(row, 2)
-            if float(top2.values[0] - top2.values[1]) < 1e-3:
-                check(seq[t] in top2.indices.tolist(),
-                      f"gate: request {req.request_id} pos {t} not in top-2")
-                break
-            check(int(top2.indices[0]) == seq[t],
-                  f"gate: request {req.request_id} pos {t}: engine "
-                  f"{seq[t]} != forward argmax {int(top2.indices[0])}")
-            checked += 1
+    checked = check_greedy(torch, model, res, "gate")
     check(len(res) == len(reqs) and eng.allocator.used == 0, "gate drain")
     print(f"  fp32 greedy gate: {len(res)} requests, {checked} generated "
           f"tokens equal the full-context argmax")
+
+
+def feature_gates(torch, ops, dev):
+    """fp32, small model, each feature through the kernels: chunked prefill,
+    the prefix cache (prompts on one 40-token prefix, so hits end mid-page
+    and fork), speculative decoding with a self-draft and with a 1-layer
+    draft. Every token against the full-context argmax; the speculative
+    engines' tokens also against the non-speculative engine's; no page
+    left after ``drop_prefix_cache``."""
+    import dataclasses
+
+    import numpy as np
+
+    from apex_tpu_torch.serve import Engine, Request, ServeConfig
+
+    model = small_fp32_model(torch, dev)
+    draft = small_fp32_model(torch, dev, layers=1, seed=6)
+    rng = np.random.default_rng(6)
+    prefix = list(rng.integers(0, 1024, 40))
+    spec = ((60, 12, True), (5, 16, False), (17, 20, True), (33, 9, False),
+            (1, 16, True), (70, 24, False))  # suffix, new tokens, shared
+
+    def requests():
+        r = np.random.default_rng(7)
+        return [Request(prompt=(prefix if shared else [])
+                        + list(r.integers(0, 1024, n)),
+                        max_new_tokens=m, request_id=i)
+                for i, (n, m, shared) in enumerate(spec)]
+
+    base_cfg = ServeConfig(max_batch=4, max_seq=160, block_size=16)
+    base = Engine(model, base_cfg, device=dev).run(requests())
+    for label, kw, dm, vs_base in (
+            ("chunked prefill", dict(prefill_chunk=16), None, False),
+            ("prefix cache", dict(prefix_cache=True), None, False),
+            ("speculative, self-draft", dict(spec_k=3), None, True),
+            ("speculative, 1-layer draft", dict(spec_k=2), draft, True),
+            ("all three", dict(prefix_cache=True, prefill_chunk=24,
+                               spec_k=3), None, True)):
+        eng = Engine(model, dataclasses.replace(base_cfg, **kw), device=dev,
+                     draft_model=dm)
+        ops.reset_launch_counts()
+        res = eng.run(requests())
+        counts = ops.launch_counts()
+        checked = check_greedy(torch, model, res, label,
+                               base if vs_base else None)
+        stats = eng.stats
+        eng.drop_prefix_cache()
+        check(len(res) == len(spec) and eng.allocator.used == 0,
+              f"{label}: drained, no page leaked")
+        check(counts["flash_decode_multi"] > 0
+              and counts["flash_attention_fwd"] == 0,
+              f"{label}: prefill went through the K-query kernel")
+        if label == "prefix cache":  # each prefill done before the next
+            check(stats["prefix_hits"] == 2 and stats["cow_forks"] >= 2,
+                  f"{label}: prefix hits and forks")
+        print(f"  fp32 {label}: {checked} tokens equal the full-context "
+              f"argmax" + (" and the non-speculative engine" if vs_base
+                           else "") + f"; stats {stats}")
 
 
 def serve_345m(torch, ops, dev):
@@ -622,11 +853,7 @@ def serve_345m(torch, ops, dev):
     # warm-up (cuBLAS handles, allocator): one short request
     eng.run([Request(prompt=list(range(64)), max_new_tokens=4,
                      request_id="warmup")])
-    rng = np.random.default_rng(0)
-    new = 64
-    reqs = [Request(prompt=list(rng.integers(0, cfg.vocab_size,
-                                             int(rng.integers(64, 769)))),
-                    max_new_tokens=new, request_id=i) for i in range(16)]
+    reqs = mix_345m(cfg)
     p0, d0 = eng.prefills, eng.decode_steps
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -644,30 +871,171 @@ def serve_345m(torch, ops, dev):
           f"{ticks} decode ticks, launches {counts} (expected {expected})")
     check(prefills == len(reqs), "one prefill per request")
     check_counts(counts, expected)
-    toks = [t for r in res.values() for t in r.tokens]
+    check_345m_output(torch, model, res, reqs)
+    m = latency(res, wall)
+    print(f"  345M serve: {m['tokens']} tokens in {wall:.3f} s = "
+          f"{m['tokens_s']:.1f} tokens/s, TTFT p50 {m['ttft_ms']:.2f} ms "
+          f"(min {m['ttft_min_ms']:.2f} ms), ITL p50 {m['itl_ms']:.2f} ms, "
+          f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+          f"GiB")
+    rng = np.random.default_rng(1)
+    device_busy(torch, eng, [
+        Request(prompt=list(rng.integers(0, cfg.vocab_size, 256)),
+                max_new_tokens=48, request_id=f"w{i}") for i in range(8)],
+        "345M window (8 x 256-token prompts, 48 new tokens)")
+    return counts, model, m
+
+
+def mix_345m(cfg):
+    """The 16-request serve mix: prompts of 64-768 random tokens, 64 new
+    tokens each."""
+    import numpy as np
+
+    from apex_tpu_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(prompt=list(rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(64, 769)))),
+                    max_new_tokens=64, request_id=i) for i in range(16)]
+
+
+def latency(res, wall):
+    toks = sum(len(r.tokens) for r in res.values())
+    return dict(tokens=toks, tokens_s=toks / wall,
+                ttft_ms=statistics.median(x.ttft_s for x in res.values()) * 1e3,
+                ttft_min_ms=min(x.ttft_s for x in res.values()) * 1e3,
+                itl_ms=statistics.median(
+                    v for x in res.values() for v in x.itl_s) * 1e3)
+
+
+def check_345m_output(torch, model, res, reqs, new=64):
+    """Every request got its tokens, in range; one request's sequence
+    through the reference forward is finite and its first token is in the
+    forward's top 5 (bf16)."""
+    vocab = model.cfg.vocab_size
     check(len(res) == len(reqs) and all(len(r.tokens) == new
                                         for r in res.values()),
           "every request got its tokens")
-    check(all(0 <= t < cfg.vocab_size for t in toks), "token range")
-    check(eng.allocator.used == 0, "every page freed")
-    # the output against the reference forward: one request's sequence
-    r = res[3]
-    seq = torch.tensor([list(r.prompt) + r.tokens], device=dev)
+    check(all(0 <= t < vocab for r in res.values() for t in r.tokens),
+          "token range")
+    r = res[reqs[3].request_id]
+    seq = torch.tensor([list(r.prompt) + r.tokens], device=model.device)
     logits = model.apply(seq)[0].float()
-    check(tuple(logits.shape) == (seq.shape[1], cfg.vocab_size)
+    check(tuple(logits.shape) == (seq.shape[1], vocab)
           and bool(torch.isfinite(logits).all()), "345M logits finite")
     top5 = torch.topk(logits[len(r.prompt) - 1], 5).indices.tolist()
     check(r.tokens[0] in top5, "345M first token in the forward's top 5")
-    ttft = statistics.median(x.ttft_s for x in res.values())
-    ttft_min = min(x.ttft_s for x in res.values())
-    itl = statistics.median(v for x in res.values() for v in x.itl_s)
-    print(f"  345M serve: {len(toks)} tokens in {wall:.3f} s = "
-          f"{len(toks) / wall:.1f} tokens/s, TTFT p50 {ttft * 1e3:.2f} ms "
-          f"(min {ttft_min * 1e3:.2f} ms), "
-          f"ITL p50 {itl * 1e3:.2f} ms, peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    device_busy(torch, eng, cfg)
-    return counts
+
+
+def serve_345m_prefix_spec(torch, ops, dev, model):
+    """GPT-2 345M with the prefix cache and speculative decoding (spec_k 4,
+    the target as its own draft): 16 requests on one 500-token prefix (not
+    a multiple of the 16-token page, so each hit ends mid-page and forks),
+    each with a unique 16-256-token suffix and 64 new tokens. Every prefill
+    goes through the chunk path, so the flash forward never launches."""
+    import numpy as np
+
+    from apex_tpu_torch.serve import Engine, Request, ServeConfig
+
+    cfg = model.cfg
+    scfg = ServeConfig(max_batch=8, max_seq=1024, block_size=16,
+                       prefix_cache=True, spec_k=4)
+    # warm-up on its own engine, so every counter below starts from 0
+    Engine(model, scfg, device=dev).run([Request(
+        prompt=list(range(600)), max_new_tokens=8, request_id="warmup")])
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(2)
+    prefix = list(rng.integers(0, cfg.vocab_size, 500))
+
+    def requests(tag=""):
+        r = np.random.default_rng(3)
+        return [Request(prompt=prefix + list(r.integers(
+            0, cfg.vocab_size, int(r.integers(16, 257)))),
+            max_new_tokens=64, request_id=f"{tag}{i}") for i in range(16)]
+
+    eng = Engine(model, scfg, device=dev)
+    reqs = requests()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    L = Ld = cfg.num_layers  # self-draft
+    K = scfg.spec_k + 1
+    chunks, ticks = eng.chunks, eng.spec_ticks
+    expected = dict.fromkeys(counts, 0)
+    expected.update({
+        "flash_decode_multi": (L + Ld) * chunks + L * ticks,
+        "flash_decode": Ld * K * ticks,
+        # target chunks 2L (+1 head on each request's final chunk), draft
+        # chunks 2Ld, K propose steps of 2Ld+1, one verify of 2L+1
+        "layer_norm_fwd": (2 * L + 2 * Ld) * chunks + len(reqs)
+                          + ((2 * Ld + 1) * K + 2 * L + 1) * ticks})
+    stats = eng.stats
+    print(f"  345M prefix + speculative: {chunks} target chunks (and as many "
+          f"draft chunks), {ticks} spec ticks, {eng.decode_steps} decode "
+          f"ticks, launches {counts} (expected {expected}); stats {stats}")
+    check(eng.prefills == 0 and eng.decode_steps == 0,
+          "every prefill chunked, every tick speculative")
+    check_counts(counts, expected)
+    check(stats["prefix_hits"] == 15, "15 prefix hits")
+    check(stats["cow_forks"] >= 15, "at least 15 copy-on-write forks")
+    check(stats["mean_accepted_len"] > 1, "mean accepted length above 1")
+    check(all(r.cached_tokens >= 500 for rid, r in res.items() if rid != "0"),
+          "every later request reuses the 500-token prefix")
+    check_345m_output(torch, model, res, reqs)
+    m = latency(res, wall)
+    print(f"  345M prefix + speculative serve: {m['tokens']} tokens in "
+          f"{wall:.3f} s = {m['tokens_s']:.1f} tokens/s, TTFT p50 "
+          f"{m['ttft_ms']:.2f} ms (min {m['ttft_min_ms']:.2f} ms), ITL p50 "
+          f"{m['itl_ms']:.2f} ms, mean accepted length "
+          f"{stats['mean_accepted_len']}")
+    eng.drop_prefix_cache()
+    check(eng.allocator.used == 0, "no page leaked after drop_prefix_cache")
+    # the same requests again under the profiler (the cache starts empty)
+    device_busy(torch, eng, requests("p"), "345M prefix + speculative run")
+    eng.drop_prefix_cache()
+    return counts, m
+
+
+def serve_345m_chunked(torch, ops, dev, model, mono):
+    """GPT-2 345M serving the 16-request mix with 256-token prefill chunks,
+    one per engine tick between decode steps; its TTFT and ITL p50 beside
+    the monolithic run's (``mono``), not a check."""
+    from apex_tpu_torch.serve import Engine, ServeConfig
+
+    cfg = model.cfg
+    eng = Engine(model, ServeConfig(max_batch=8, max_seq=1024, block_size=16,
+                                    prefill_chunk=256), device=dev)
+    reqs = mix_345m(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    L = cfg.num_layers
+    chunks, ticks = eng.chunks, eng.decode_steps
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"flash_decode_multi": L * chunks,
+                     "flash_decode": L * ticks,
+                     "layer_norm_fwd": 2 * L * chunks + len(reqs)
+                                       + (2 * L + 1) * ticks})
+    print(f"  345M chunked prefill: {chunks} chunks, {ticks} decode ticks, "
+          f"launches {counts} (expected {expected})")
+    check(eng.prefills == 0 and chunks == sum(-(-len(r.prompt) // 256)
+                                              for r in reqs),
+          "every prompt in 256-token chunks")
+    check_counts(counts, expected)
+    check_345m_output(torch, model, res, reqs)
+    check(eng.allocator.used == 0, "every page freed")
+    m = latency(res, wall)
+    print(f"  345M chunked serve: {m['tokens']} tokens in {wall:.3f} s = "
+          f"{m['tokens_s']:.1f} tokens/s, TTFT p50 {m['ttft_ms']:.2f} ms "
+          f"(monolithic {mono['ttft_ms']:.2f}), ITL p50 {m['itl_ms']:.2f} ms "
+          f"(monolithic {mono['itl_ms']:.2f})")
+    return counts, m
 
 
 def check_counts(counts, expected):
@@ -692,18 +1060,11 @@ def print_top(by_name, k=10):
         print(f"    {t / 1e3:9.2f} ms {n:6d}x  {name[:80]}")
 
 
-def device_busy(torch, eng, cfg):
-    """Device busy share of a decode-heavy serving window (8 requests of
-    256 prompt tokens, 48 new tokens each): the kernels' device time from
+def device_busy(torch, eng, reqs, label):
+    """Device busy share of a serving window: the kernels' device time from
     ``torch.profiler`` over the window's wall time. Not a check."""
-    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from apex_tpu_torch.serve import Request
-
-    rng = np.random.default_rng(1)
-    reqs = [Request(prompt=list(rng.integers(0, cfg.vocab_size, 256)),
-                    max_new_tokens=48, request_id=f"w{i}") for i in range(8)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -714,13 +1075,13 @@ def device_busy(torch, eng, cfg):
     by_name = device_time_by_kernel(torch, prof)
     busy_us = sum(t for _, t in by_name.values())
     if busy_us <= 0:
-        print("  345M window: device busy time not measured (the profiler "
-              "saw no device events)")
+        print(f"  {label}: device busy time not measured (the profiler saw "
+              f"no device events)")
         return
-    print(f"  345M window (8 x 256-token prompts, 48 new tokens): wall "
-          f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms = "
-          f"{busy_us / 1e6 / wall:.3f} of the window (idle "
-          f"{1 - busy_us / 1e6 / wall:.3f}); device time by kernel:")
+    print(f"  {label}, profiled: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.3f} of the "
+          f"window (idle {1 - busy_us / 1e6 / wall:.3f}); device time by "
+          f"kernel:")
     print_top(by_name)
 
 
@@ -808,7 +1169,8 @@ def train_345m(torch, ops, dev):
     steps = n + 1
     per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L, "layer_norm_fwd": 4 * L + 1,
-                "layer_norm_bwd": 2 * L + 1, "flash_decode": 0}
+                "layer_norm_bwd": 2 * L + 1, "flash_decode": 0,
+                "flash_decode_multi": 0}
     expected = {k: v * steps for k, v in per_step.items()}
     print(f"  345M O2 train: {n_params / 1e6:.1f} M params, batch "
           f"{bench.batch} x {cfg.max_seq_len}, {steps} steps, launches "
@@ -893,12 +1255,17 @@ def main():
             check_layer_norm_bwd(torch, ops, dev),
             check_flash_attention(torch, ops, dev),
             *check_flash_attention_bwd(torch, ops, dev),
-            check_flash_decode(torch, ops, dev)]
+            check_flash_decode(torch, ops, dev),
+            check_flash_decode_multi(torch, ops, dev)]
     torch.cuda.empty_cache()
 
     print("phase 3: serving")
     greedy_gate(torch, dev)
-    serve_counts = serve_345m(torch, ops, dev)
+    feature_gates(torch, ops, dev)
+    serve_counts, model, mono = serve_345m(torch, ops, dev)
+    spec_counts, _ = serve_345m_prefix_spec(torch, ops, dev, model)
+    chunk_counts, _ = serve_345m_chunked(torch, ops, dev, model, mono)
+    del model
     torch.cuda.empty_cache()
 
     print("phase 4: training")
@@ -906,13 +1273,15 @@ def main():
     train_counts = train_345m(torch, ops, dev)
     for row in rows:
         by_path = {"serve": serve_counts[row["name"]],
+                   "serve_prefix_spec": spec_counts[row["name"]],
+                   "serve_chunked": chunk_counts[row["name"]],
                    "train": train_counts[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+            "bound_by", "library_ms", "by_shape")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
