@@ -5,11 +5,13 @@ module paths so that each file here has one counterpart there. Plain tensor
 code is PyTorch; every Pallas kernel on a ported path is a CUDA C++ kernel
 written by hand for Hopper (``csrc/``), built with ``nvcc`` at first use.
 
-The first slice serves GPT-2 345M: ``models.GPTModel`` and
-``serve.Engine`` through three kernels -- the flash-attention forward
-(prefill), the LayerNorm forward (every LN) and the paged flash-decode
-(decode ticks). Entry points default to the card; ``device="cpu"`` runs
-the plain PyTorch versions of the kernels instead.
+It serves GPT-2 345M (``models.GPTModel``, ``serve.Engine``), trains it
+with amp O2 (``bench``), and trains ResNet-50 with the ImageNet recipe
+(``models.ResNet50``, ``examples.imagenet.main_amp``) through the
+hand-written kernels of ``csrc/`` (flash attention and its backward,
+LayerNorm and its backward, paged decode, softmax cross-entropy and its
+backward). Entry points default to the card; ``device="cpu"`` runs the
+plain PyTorch versions of the kernels instead.
 
 The package imports ``torch``, numpy and the standard library only.
 """

@@ -54,6 +54,8 @@ SIGNATURES = {
                          + [_F, _I, _I, _P],
     "apex_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_L] * 12
                           + [_F, _I, _I, _P],
+    "apex_xent_fwd": [_P] * 4 + [_L, _I, _F, _L, _I, _P],
+    "apex_xent_bwd": [_P] * 5 + [_L, _I, _F, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -38,6 +38,15 @@ from apex_tpu_torch.ops.lm_head_loss import (
     lm_head_cross_entropy,
     lm_head_cross_entropy_reference,
 )
+from apex_tpu_torch.ops.xentropy import (
+    SoftmaxXentropy,
+    softmax_cross_entropy,
+    softmax_cross_entropy_reference,
+    xentropy_bwd,
+    xentropy_bwd_reference,
+    xentropy_fwd,
+    xentropy_fwd_reference,
+)
 
 #: kernel name -> its launching wrapper (the holder of the launch count)
 KERNEL_WRAPPERS = {
@@ -48,6 +57,8 @@ KERNEL_WRAPPERS = {
     "layer_norm_bwd": layer_norm_bwd,
     "flash_decode": flash_decode_fwd,
     "flash_decode_multi": flash_decode_multi_fwd,
+    "xentropy_fwd": xentropy_fwd,
+    "xentropy_bwd": xentropy_bwd,
 }
 
 
@@ -64,6 +75,7 @@ __all__ = [
     "FlashAttention",
     "FusedNorm",
     "KERNEL_WRAPPERS",
+    "SoftmaxXentropy",
     "flash_attention",
     "flash_attention_bwd_dkv",
     "flash_attention_bwd_dq",
@@ -87,4 +99,10 @@ __all__ = [
     "reset_launch_counts",
     "rms_norm",
     "rms_norm_reference",
+    "softmax_cross_entropy",
+    "softmax_cross_entropy_reference",
+    "xentropy_bwd",
+    "xentropy_bwd_reference",
+    "xentropy_fwd",
+    "xentropy_fwd_reference",
 ]

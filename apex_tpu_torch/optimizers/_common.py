@@ -1,5 +1,5 @@
 """Shared optimizer plumbing (port of the part of
-``apex_tpu/optimizers/_common.py`` that FusedAdam needs).
+``apex_tpu/optimizers/_common.py`` that FusedAdam and FusedSGD need).
 
 The JAX optimizers are optax transforms over pytrees; here an optimizer
 works on lists of tensors: ``init(params)`` builds its state and

@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
 
-Four phases; any failure raises and exits non-zero:
+Five phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
    limit.
 2. **Kernel vs plain**: each kernel (LayerNorm forward and backward,
    flash-attention forward, its dQ and dK/dV backward, paged flash-decode
-   with and without its window, the K-query paged decode) against its plain
-   PyTorch version on the card, at the main paths' shapes in bf16 and fp32
-   plus edge cases, each error beside its stated tolerance; then device
+   with and without its window, the K-query paged decode, the softmax
+   cross-entropy forward and backward) against its plain PyTorch version
+   on the card, at the main paths' shapes in bf16 and fp32 plus edge
+   cases, each error beside its stated tolerance; then device
    times by CUDA-graph replay between CUDA events (kernel, plain version,
    one PyTorch library call as yardstick where one computes the same
    function) and the least time the card could take.
@@ -38,12 +39,26 @@ Four phases; any failure raises and exits non-zero:
    checked, a falling finite loss, no skipped step and bf16 params equal to
    their fp32 masters cast down; then the top kernels by device time of one
    profiled step.
+5. **ResNet-50 training** (``apex_tpu_torch.examples.imagenet.main_amp``):
+   an fp32 gradient gate on a small Bottleneck ResNet (loss, every grad and
+   the running stats on the card through cuDNN and the xentropy kernels
+   against the same model on the CPU), then ResNet-50 at full width and
+   depth under amp O2 with ``FusedSGD(lr=0.1, momentum=0.9,
+   weight_decay=1e-4, nesterov=True)``, batch 256 of 224x224 images (one
+   fixed synthetic batch on the card): one warm-up step and 10 timed as
+   one window, the exact launch counts (each xentropy kernel once a step,
+   every other kernel 0), a falling finite loss, no skipped step after the
+   warm-up, bf16 conv and fc weights and fp32 ``bn*`` params each equal to
+   its master cast down; images/s, the model-FLOPs share of 989 TFLOP/s
+   from the model's own conv and fc shapes, peak memory, and one profiled
+   step's device-busy share and top kernels.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them, the one before that a ``{"kernels": [...]}`` JSON object
-(``launches_by_path``: each kernel's count on the three serving runs and
-on the training run, each counted from 0; ``launches``: their sum), and the
-last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+(``launches_by_path``: each kernel's count on the three serving runs, the
+GPT training run and the ResNet training run, each counted from 0;
+``launches``: their sum), and the last line ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 import json
@@ -714,6 +729,141 @@ def check_flash_decode_multi(torch, ops, dev):
                 **main)
 
 
+def check_xentropy(torch, ops, dev):
+    """Softmax cross-entropy kernels against ``xentropy_fwd_reference`` /
+    ``xentropy_bwd_reference`` on the same inputs (the backward from the
+    same g, labels and the plain forward's lse). Tolerances, as a share of
+    max |ref|: loss and lse 1e-5 (both fp32 arithmetic, sums in another
+    order); dx 1e-5 from fp32 logits, 2^-8 from bf16 logits (both round
+    the same fp32 value to bf16, up to one ulp). Rows whose label is
+    ignore_index: loss and dx exactly 0."""
+    import torch.nn.functional as F
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(8)
+    ignore = -100
+    cases = [  # rows, vocab, dtype, smoothing, logit scale, ignored rows
+        (256, 1000, f32, 0.0, 1.0, "some"), (256, 1000, f32, 0.1, 1.0, "some"),
+        (8192, 50304, bf16, 0.0, 1.0, "some"),
+        (8192, 50304, bf16, 0.1, 1.0, "some"),
+        (333, 1000, bf16, 0.1, 1.0, "some"), (37, 37, f32, 0.1, 1.0, "some"),
+        (333, 37, bf16, 0.0, 1.0, "none"), (97, 50304, f32, 0.1, 1.0, "none"),
+        (256, 1000, f32, 0.1, 1e4, "some"), (100, 37, bf16, 0.1, 1e4, "some"),
+        (64, 1000, f32, 0.1, 1.0, "all"),
+    ]
+    main_err = None
+    for rows, vocab, dt, eps, scale, ign in cases:
+        x = (torch.randn(rows, vocab, device=dev, generator=gen)
+             * scale).to(dt)
+        y = torch.randint(0, vocab, (rows,), device=dev, generator=gen)
+        if ign == "some":
+            y[::7] = ignore
+        elif ign == "all":
+            y[:] = ignore
+        g = torch.randn(rows, device=dev, generator=gen)
+        loss, lse = ops.xentropy_fwd(x, y, eps, ignore)
+        rloss, rlse = ops.xentropy_fwd_reference(x, y, eps, ignore)
+        dx = ops.xentropy_bwd(g, x, y, rlse, eps, ignore)
+        rdx = ops.xentropy_bwd_reference(g, x, y, rlse, eps, ignore)
+        torch.cuda.synchronize()
+        tol_dx = 2.0 ** -8 if dt == bf16 else 1e-5
+        errs = []
+        for name, a, r, tol in (("loss", loss, rloss, 1e-5),
+                                ("lse", lse, rlse, 1e-5),
+                                ("dx", dx, rdx, tol_dx)):
+            check(a.dtype == r.dtype and a.shape == r.shape,
+                  f"xentropy {name} dtype/shape")
+            e = rel_err(a, r) if bool(r.abs().max() > 0) else max_err(a, r)
+            errs.append(f"{name} {max_err(a, r):.3g} (rel {e:.3g}, tol "
+                        f"{tol:g})")
+            check(e <= tol, f"xentropy rows={rows} V={vocab} {dt} eps={eps} "
+                  f"scale={scale:g} {name}: rel err {e:.3g} > {tol:g}")
+        skip = y == ignore
+        check(bool((loss[skip] == 0).all()) and bool((dx[skip] == 0).all()),
+              "ignored rows: loss and dx exactly 0")
+        print(f"  xentropy rows={rows:4d} V={vocab:5d} {str(dt)[6:]:8s} "
+              f"eps={eps} scale={scale:g} ignored={ign}: " + ", ".join(errs))
+        if main_err is None:
+            main_err = max(max_err(loss, rloss), max_err(dx, rdx))
+    # a batched (4, 64, V) shape through softmax_cross_entropy's Function
+    x = torch.randn(4, 64, 1000, device=dev, generator=gen)
+    y = torch.randint(0, 1000, (4, 64), device=dev, generator=gen)
+    y[0, :5] = ignore
+    g = torch.randn(4, 64, device=dev, generator=gen)
+    xk, xr = x.clone().requires_grad_(), x.clone().requires_grad_()
+    before = ops.launch_counts()
+    lk = ops.softmax_cross_entropy(xk, y, 0.1)
+    (gk,) = torch.autograd.grad(lk, xk, g)
+    after = ops.launch_counts()
+    lr = ops.softmax_cross_entropy_reference(xr, y, 0.1)
+    (gr,) = torch.autograd.grad(lr, xr, g)
+    torch.cuda.synchronize()
+    e_l, e_g = rel_err(lk.detach(), lr.detach()), rel_err(gk, gr)
+    print(f"  xentropy batched (4,64,1000) f32 eps=0.1 through "
+          f"softmax_cross_entropy: loss rel {e_l:.3g}, autograd dx rel "
+          f"{e_g:.3g} (tol 1e-05)")
+    check(lk.shape == (4, 64) and e_l <= 1e-5 and e_g <= 1e-5,
+          "batched softmax_cross_entropy")
+    check(after["xentropy_fwd"] - before["xentropy_fwd"] == 1
+          and after["xentropy_bwd"] - before["xentropy_bwd"] == 1,
+          "the batched call launched each kernel once")
+
+    timings = {}
+    for label, rows, vocab, dt in (("path", 256, 1000, f32),
+                                   ("lm", 8192, 50304, bf16)):
+        eps = 0.1
+        x = torch.randn(rows, vocab, device=dev, generator=gen).to(dt)
+        y = torch.randint(0, vocab, (rows,), device=dev, generator=gen)
+        g = torch.randn(rows, device=dev, generator=gen)
+        _, lse = ops.xentropy_fwd(x, y, eps)
+        fwd = time_ms(lambda: ops.xentropy_fwd(x, y, eps))
+        bwd = time_ms(lambda: ops.xentropy_bwd(g, x, y, lse, eps))
+        pfwd = time_ms(lambda: ops.xentropy_fwd_reference(x, y, eps), 5)
+        pbwd = time_ms(lambda: ops.xentropy_bwd_reference(g, x, y, lse, eps),
+                       5)
+        lfwd = time_ms(lambda: F.cross_entropy(
+            x, y, reduction="none", label_smoothing=eps, ignore_index=ignore))
+        # the library's backward: autograd.grad of one F.cross_entropy
+        # output, captured and replayed on the stream of its forward
+        xl = x.detach().requires_grad_()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = F.cross_entropy(xl, y, reduction="none",
+                                  label_smoothing=eps, ignore_index=ignore)
+        torch.cuda.synchronize()
+        gl = g.to(out.dtype)
+        lbwd = time_ms(lambda: torch.autograd.grad(out, xl, gl,
+                                                   retain_graph=True),
+                       stream=side)
+        eb = x.element_size()
+        n = rows * vocab
+        fb = bound(n * eb + rows * 8 + rows * 8, 5 * n, "float32")
+        bb = bound(2 * n * eb + rows * (8 + 4 + 4), 5 * n, "float32")
+        timings[label] = dict(
+            fwd=dict(ms=fwd, plain_ms=pfwd, bound_ms=fb[0], bound_by=fb[1],
+                     library_ms=lfwd),
+            bwd=dict(ms=bwd, plain_ms=pbwd, bound_ms=bb[0], bound_by=bb[1],
+                     library_ms=lbwd))
+        print(f"  xentropy timing {label} ({rows}x{vocab} {str(dt)[6:]}, "
+              f"eps {eps}): forward kernel {fwd:.4f} ms, plain {pfwd:.4f} "
+              f"ms, F.cross_entropy {lfwd:.4f} ms, bound {fb[0]:.4f} ms "
+              f"({fb[1]}, {(n * eb) / 1e6:.1f} MB of logits); backward "
+              f"kernel {bwd:.4f} ms, plain {pbwd:.4f} ms, autograd.grad of "
+              f"F.cross_entropy {lbwd:.4f} ms, bound {bb[0]:.4f} ms "
+              f"({bb[1]})")
+    common = dict(route="cuda", source="apex_tpu_torch/csrc/xentropy.cu",
+                  max_abs_err=main_err)
+    return [dict(common, name="xentropy_fwd",
+                 replaces="apex_tpu/ops/xentropy.py:28",
+                 by_shape={k: v["fwd"] for k, v in timings.items()},
+                 **timings["path"]["fwd"]),
+            dict(common, name="xentropy_bwd",
+                 replaces="apex_tpu/ops/xentropy.py:47",
+                 by_shape={k: v["bwd"] for k, v in timings.items()},
+                 **timings["path"]["bwd"])]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
@@ -1170,7 +1320,8 @@ def train_345m(torch, ops, dev):
     per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L, "layer_norm_fwd": 4 * L + 1,
                 "layer_norm_bwd": 2 * L + 1, "flash_decode": 0,
-                "flash_decode_multi": 0}
+                "flash_decode_multi": 0, "xentropy_fwd": 0,
+                "xentropy_bwd": 0}
     expected = {k: v * steps for k, v in per_step.items()}
     print(f"  345M O2 train: {n_params / 1e6:.1f} M params, batch "
           f"{bench.batch} x {cfg.max_seq_len}, {steps} steps, launches "
@@ -1225,6 +1376,205 @@ def train_345m(torch, ops, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5: ResNet-50 training (the ImageNet recipe)
+# ---------------------------------------------------------------------------
+
+
+def resnet_gradient_gate(torch, ops, dev):
+    """fp32, small ResNet (Bottleneck stages (1, 1), width 8, 32x32 images
+    with the ImageNet stem, 10 classes, batch 8): the loss, every
+    parameter's grad and the running stats after one step on the card
+    (cuDNN convs without TF32, the xentropy kernels) against the same model
+    on the CPU (the plain versions). Tolerances: loss 1e-5 relative; each
+    grad 1e-4 of its max |CPU grad| and each running stat 1e-5 of its max
+    (fp32 sums in another order)."""
+    import numpy as np
+
+    from apex_tpu_torch.models import Bottleneck, ResNet
+    from apex_tpu_torch.ops.xentropy import softmax_cross_entropy
+
+    kw = dict(stage_sizes=(1, 1), block_cls=Bottleneck, num_classes=10,
+              width=8, stem_pool=True)
+    card = ResNet(device=dev, seed=3, **kw)
+    host = ResNet(device="cpu", **kw)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.normal(size=(8, 32, 32, 3)).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, (8,)))
+    ops.reset_launch_counts()
+    loss_c = torch.mean(softmax_cross_entropy(card(images.to(dev)),
+                                              labels.to(dev)))
+    loss_c.backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    loss_h = torch.mean(softmax_cross_entropy(host(images), labels))
+    loss_h.backward()
+    lc, lh = float(loss_c.detach()), float(loss_h.detach())
+    rel = abs(lc - lh) / abs(lh)
+    print(f"  ResNet fp32 gradient gate: loss card {lc:.7f} cpu {lh:.7f} "
+          f"(rel {rel:.3g}, tol 1e-05); launches {counts}")
+    check(rel <= 1e-5, "ResNet gradient gate loss")
+    check(counts["xentropy_fwd"] == 1 and counts["xentropy_bwd"] == 1,
+          "the ResNet gate ran each xentropy kernel once")
+    worst = (0.0, "")
+    for (name, pc), ph in zip(card.named_parameters(), host.parameters()):
+        check(pc.grad is not None and ph.grad is not None,
+              f"ResNet gate: no grad for {name}")
+        e = rel_err(pc.grad.cpu(), ph.grad)
+        worst = max(worst, (e, name))
+        check(e <= 1e-4, f"ResNet gate {name}: rel err {e:.3g} > 1e-4")
+    worst_s = (0.0, "")
+    for (name, bc), bh in zip(card.named_buffers(), host.buffers()):
+        e = rel_err(bc.cpu(), bh) if bh.is_floating_point() else float(
+            not torch.equal(bc.cpu(), bh))
+        worst_s = max(worst_s, (e, name))
+        check(e <= 1e-5, f"ResNet gate running stat {name}: rel err "
+              f"{e:.3g} > 1e-5")
+    print(f"  ResNet fp32 gradient gate: {len(list(host.parameters()))} "
+          f"parameter grads within 1e-4 of max|cpu grad| (worst "
+          f"{worst[0]:.3g}, {worst[1]}), {len(list(host.buffers()))} "
+          f"running-stat buffers within 1e-5 (worst {worst_s[0]:.3g}, "
+          f"{worst_s[1]})")
+
+
+def device_time_by_class(by_name):
+    """``{class: device ms}`` of a profiler run's kernels: the port's
+    kernels, the libraries' convolutions and matrix products (cuDNN,
+    cuBLAS, CUTLASS), reductions, and the elementwise kernels and copies
+    (everything else)."""
+    classes = {"the port's kernels": 0.0, "convolutions and GEMMs": 0.0,
+               "reductions": 0.0, "elementwise and copies": 0.0}
+    gemm = ("xmma", "cudnn", "conv", "cutlass", "gemm", "nvjet", "sm90_",
+            "wgrad", "dgrad", "fprop")
+    for name, (_, us) in by_name.items():
+        low = name.lower()
+        if "apex_torch" in name:
+            key = "the port's kernels"
+        elif any(t in low for t in gemm):
+            key = "convolutions and GEMMs"
+        elif "reduce" in low:
+            key = "reductions"
+        else:
+            key = "elementwise and copies"
+        classes[key] += us / 1e3
+    return classes
+
+
+def conv_fc_macs(torch, model, size, dev):
+    """Multiply-adds of one image's forward, counted from the model's own
+    conv and fc shapes: each conv's output elements x cin x kh x kw (one
+    eval-mode forward at batch 1 with hooks reads the output shapes), the
+    fc's in x out."""
+    from apex_tpu_torch.models.resnet import Conv, Dense
+
+    macs = []
+
+    def hook(mod, _inp, out):
+        w = mod.weight
+        per_out = w.shape[1] * w.shape[2] * w.shape[3] \
+            if isinstance(mod, Conv) else w.shape[1]
+        macs.append(out.numel() * per_out)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv, Dense))]
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros(1, size, size, 3, device=dev))
+    model.train()
+    for h in handles:
+        h.remove()
+    return sum(macs), len(macs)
+
+
+def train_resnet50(torch, ops, dev):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.examples.imagenet.main_amp import (
+        build, fixed_batch, train_steps)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch, size = 256, 224
+    trainer = build("resnet50", "O2", batch_size=batch, image_size=size,
+                    num_classes=1000, lr=0.1, momentum=0.9,
+                    weight_decay=1e-4, device=dev, seed=0)
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    macs, n_layers = conv_fc_macs(torch, model, size, dev)
+    images, labels = fixed_batch(trainer)
+    n = 10
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    stats = train_steps(trainer, n, images, labels)  # 1 warm-up + n timed
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    steps = n + 1
+    expected = dict.fromkeys(counts, 0)
+    expected.update(xentropy_fwd=steps, xentropy_bwd=steps)
+    print(f"  ResNet-50 O2 train: {n_params / 1e6:.2f} M params, batch "
+          f"{batch} x {size}x{size}x3, {steps} steps, launches {counts} "
+          f"(expected {expected})")
+    check_counts(counts, expected)
+    losses = stats["losses"]
+    skipped = [m["found_inf"] for m in stats["metrics"]]
+    steps_ms = stats["step_ms"]
+    ms = stats["window_ms"] / n
+    flops = 3 * 2 * macs * batch  # training step: 3 x the forward's 2*MACs
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"  ResNet-50 O2 train: {n} steps in {stats['window_ms']:.2f} ms "
+          f"= {ms:.2f} ms a step (per step: median "
+          f"{statistics.median(steps_ms):.2f}, min {min(steps_ms):.2f}, max "
+          f"{max(steps_ms):.2f}; all {[round(t, 2) for t in steps_ms]}), "
+          f"{n * batch / stats['window_ms'] * 1e3:.1f} images/s, model "
+          f"FLOPs {flops / 1e12:.3f} T/step ({macs / 1e9:.4f} GMACs a "
+          f"forward image over {n_layers} conv and fc layers; x2 x3 x "
+          f"{batch}) = {flops / ms / 1e9:.1f} TFLOP/s = "
+          f"{flops / ms / 1e9 / 989:.3f} of 989 TFLOP/s, peak memory "
+          f"{peak:.2f} GiB")
+    print(f"  ResNet-50 O2 train: loss first {losses[0]:.4f} last "
+          f"{losses[-1]:.4f} ({[round(v, 4) for v in losses]}), loss scale "
+          f"{stats['metrics'][-1]['loss_scale']:g}, skipped steps "
+          f"{skipped}")
+    check(all(np.isfinite(losses)), "every ResNet loss finite")
+    check(losses[-1] < losses[0], "the ResNet loss falls on the fixed batch")
+    check(not any(skipped[1:]), "no step skipped after the warm-up")
+    st = trainer.opt_state
+    for (name, p), m in zip(model.named_parameters(), st.master):
+        want = torch.float32 if ".bn" in f".{name}" else torch.bfloat16
+        check(p.dtype == want, f"O2 dtype of {name}: {p.dtype}")
+        check(torch.equal(p, m.to(p.dtype)), f"{name} == its master cast")
+    check(model.conv1.weight.dtype == torch.bfloat16
+          and model.bn1.scale.dtype == torch.float32,
+          "O2 dtypes: bf16 convs, fp32 bn params")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(images, labels)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = device_time_by_kernel(torch, prof)
+    busy = sum(t for _, t in by_name.values()) / 1e3
+    if busy <= 0:
+        print("  ResNet-50 O2 train: device time by kernel not measured "
+              "(the profiler saw no device events)")
+    else:
+        ours = sum(t for name, (_, t) in by_name.items()
+                   if "apex_torch" in name) / 1e3
+        print(f"  ResNet-50 O2 train, one profiled step: wall {wall:.1f} ms, "
+              f"device busy {busy:.1f} ms = {busy / wall:.3f} (idle "
+              f"{1 - busy / wall:.3f}), the port's kernels {ours:.3f} ms = "
+              f"{ours / busy:.4f} of busy; by class: "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                          device_time_by_class(by_name).items())
+              + "; device time by kernel:")
+        print_top(by_name, 15)
+    return counts
+
+
 def main():
     import torch
 
@@ -1256,7 +1606,8 @@ def main():
             check_flash_attention(torch, ops, dev),
             *check_flash_attention_bwd(torch, ops, dev),
             check_flash_decode(torch, ops, dev),
-            check_flash_decode_multi(torch, ops, dev)]
+            check_flash_decode_multi(torch, ops, dev),
+            *check_xentropy(torch, ops, dev)]
     torch.cuda.empty_cache()
 
     print("phase 3: serving")
@@ -1271,11 +1622,17 @@ def main():
     print("phase 4: training")
     gradient_gate(torch, ops, dev)
     train_counts = train_345m(torch, ops, dev)
+    torch.cuda.empty_cache()
+
+    print("phase 5: ResNet-50 training")
+    resnet_gradient_gate(torch, ops, dev)
+    resnet_counts = train_resnet50(torch, ops, dev)
     for row in rows:
         by_path = {"serve": serve_counts[row["name"]],
                    "serve_prefix_spec": spec_counts[row["name"]],
                    "serve_chunked": chunk_counts[row["name"]],
-                   "train": train_counts[row["name"]]}
+                   "train": train_counts[row["name"]],
+                   "train_resnet": resnet_counts[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     keys = ("name", "route", "source", "replaces", "launches",

@@ -78,8 +78,10 @@ def test_policy_fields_match_jax(level):
     assert tamp.get_policy(tp) is tp
     with pytest.raises(ValueError):
         tamp.get_policy("O4")
-    with pytest.raises(TypeError):  # no overrides: nothing reads them yet
-        tamp.get_policy("O2", keep_batchnorm_fp32=False)
+    # overrides as the reference takes them
+    over = tamp.get_policy(level, keep_batchnorm_fp32=False)
+    assert over.keep_batchnorm_fp32 is False \
+        == jamp.get_policy(level, keep_batchnorm_fp32=False).keep_batchnorm_fp32
 
 
 def test_cast_params_keeps_norms_fp32():

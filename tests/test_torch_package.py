@@ -120,7 +120,7 @@ def test_importing_the_package_needs_no_nvcc(monkeypatch):
         build.nvcc()
     assert {os.path.basename(s) for s in build.sources()} == {
         "flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
-        "layer_norm.cu"}
+        "layer_norm.cu", "xentropy.cu"}
 
 
 def test_differentiable_outputs_carry_the_ports_functions():

@@ -1,0 +1,384 @@
+"""The ResNet/ImageNet slice of apex_tpu_torch against apex_tpu on the CPU.
+
+- a tiny BasicBlock ResNet and a thin Bottleneck ResNet (stem pool on) on
+  identical params (``ResNet.params_from_numpy`` of the flax init): logits,
+  the mean softmax-cross-entropy loss, every param's grad and the new
+  running stats against ``jax.value_and_grad`` of the JAX model, fp32.
+  Tolerances: logits and loss 1e-5 relative, grads 1e-4 of each grad's
+  max |JAX grad| (fp32 convs and BN sums in another order), running stats
+  1e-5;
+- 3 amp-O2 FusedSGD steps (bf16 convs, fp32 BN params and masters,
+  dynamic loss scale; lr 0.1, momentum 0.9, weight decay 1e-4, Nesterov)
+  through the example's ``build`` against the JAX
+  ``MixedPrecisionOptimizer`` run, with the O2 dtypes asserted as
+  ``tests/test_resnet.py`` does, the loss scale and step count equal:
+  with fp32 convolutions the same arithmetic (losses 1e-5, masters 1e-3 of
+  their move, stats 1e-4), with bf16 ones (the recipe) within twice the
+  bf16 noise that the test measures between JAX's bf16 and fp32 runs;
+- the O2 ``MixedPrecisionOptimizer(FusedSGD)`` on identical grads: masters
+  and momentum within 1e-6 of JAX's, and an overflow step that leaves them
+  bit-identical;
+- ``Policy.op_dtype`` and the ``get_policy`` overrides against JAX;
+- ``NpyBatchLoader`` on two ``.npz`` files against the JAX loader;
+- the example's ``build``/``train_steps`` and ``main`` on the CPU.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from apex_tpu import amp as jamp
+from apex_tpu.data.loader import NpyBatchLoader as JaxLoader
+from apex_tpu.models import resnet as jresnet
+from apex_tpu.ops.xentropy import softmax_cross_entropy as jxent
+from apex_tpu.optimizers import FusedSGD as JaxFusedSGD
+from apex_tpu_torch import amp as tamp
+from apex_tpu_torch import ops
+from apex_tpu_torch.data import NpyBatchLoader
+from apex_tpu_torch.examples.imagenet import main_amp
+from apex_tpu_torch.models import resnet as tresnet
+from apex_tpu_torch.ops.xentropy import softmax_cross_entropy
+
+TINY = {
+    "basic": dict(stage_sizes=(1, 1), num_classes=10, width=8,
+                  stem_pool=False, size=16),
+    "bottleneck": dict(stage_sizes=(1, 1), num_classes=10, width=4,
+                       stem_pool=True, size=32),
+}
+
+
+def _models(kind, dtype=None):
+    cfg = dict(TINY[kind])
+    size = cfg.pop("size")
+    jblock = jresnet.BasicBlock if kind == "basic" else jresnet.Bottleneck
+    tblock = tresnet.BasicBlock if kind == "basic" else tresnet.Bottleneck
+    jdt = jnp.float32 if dtype is None else jnp.bfloat16
+    tdt = torch.float32 if dtype is None else torch.bfloat16
+    jm = jresnet.ResNet(block_cls=jblock, dtype=jdt, **cfg)
+    tm = tresnet.ResNet(block_cls=tblock, dtype=tdt, device="cpu", **cfg)
+    return jm, tm, size
+
+
+def _batch(size, n=4, classes=10, seed=1):
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(n, size, size, 3)).astype(np.float32)
+    labels = rng.integers(0, classes, (n,)).astype(np.int64)
+    return images, labels
+
+
+def _np_tree(tree):
+    return jax.tree.map(lambda a: np.asarray(a, np.float32)
+                        if np.asarray(a).dtype != np.int32
+                        else np.asarray(a), tree)
+
+
+def _jax_loss(model, params, stats, images, labels):
+    logits, mutated = model.apply({"params": params, "batch_stats": stats},
+                                  images, mutable=["batch_stats"])
+    loss = jnp.mean(jxent(logits, labels))
+    return loss, (logits, mutated["batch_stats"])
+
+
+def _tree_of(model, tensors):
+    """``model.to_numpy()["params"]`` with ``tensors`` (grads, masters) in
+    place of the parameter values: the model's own layout mapping."""
+    with torch.no_grad():
+        saved = [p.data for p in model.parameters()]
+        for p, t in zip(model.parameters(), tensors):
+            p.data = t
+        tree = model.to_numpy()["params"]
+        for p, d in zip(model.parameters(), saved):
+            p.data = d
+    return tree
+
+
+def _assert_trees(got, ref, rel, what):
+    gl = jax.tree_util.tree_leaves_with_path(got)
+    rl = jax.tree_util.tree_leaves_with_path(ref)
+    assert [p for p, _ in gl] == [p for p, _ in rl], what
+    for (path, a), (_, b) in zip(gl, rl):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        tol = rel * max(np.abs(b).max(), 1e-30)
+        err = np.abs(a - b).max()
+        assert err <= tol, (what, jax.tree_util.keystr(path), err, tol)
+
+
+@pytest.mark.parametrize("kind", ["basic", "bottleneck"])
+def test_fp32_logits_loss_grads_and_stats_match_jax(kind):
+    jm, tm, size = _models(kind)
+    images, labels = _batch(size)
+    variables = jm.init(jax.random.PRNGKey(0), jnp.asarray(images))
+    tm.params_from_numpy(_np_tree(variables))
+    # the loaded tree comes back as it went in
+    _assert_trees(tm.to_numpy(), _np_tree(variables), 0.0, "round trip")
+
+    (jl, (jlogits, jstats)), jgrads = jax.value_and_grad(
+        _jax_loss, argnums=1, has_aux=True)(
+        jm, variables["params"], variables["batch_stats"],
+        jnp.asarray(images), jnp.asarray(labels))
+    logits = tm(torch.from_numpy(images))
+    loss = torch.mean(softmax_cross_entropy(logits, torch.from_numpy(labels)))
+    loss.backward()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5)
+    _assert_trees(_tree_of(tm, [p.grad for p in tm.parameters()]),
+                  _np_tree(jgrads), 1e-4, "grads")
+    _assert_trees(tm.to_numpy()["batch_stats"], _np_tree(jstats), 1e-5,
+                  "running stats")
+
+
+def _jax_o2_run(jm, variables, images, labels, steps):
+    policy = jamp.get_policy("O2")
+    mp = jamp.MixedPrecisionOptimizer(
+        JaxFusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4, nesterov=True),
+        policy)
+    params = jamp.cast_params(variables["params"], policy)
+    assert params["bn1"]["scale"].dtype == jnp.float32
+    assert params["conv1"]["kernel"].dtype == jnp.bfloat16
+    stats = variables["batch_stats"]
+    state = mp.init(params)
+    losses = []
+
+    @jax.jit
+    def step(params, stats, state):
+        def scaled(p):
+            loss, (_, new) = _jax_loss(jm, p, stats, images, labels)
+            return mp.scale_loss(loss, state), (loss, new)
+        (_, (loss, new)), grads = jax.value_and_grad(scaled, has_aux=True)(
+            params)
+        params, state, metrics = mp.apply_gradients(state, params, grads)
+        return params, new, state, loss, metrics
+
+    for _ in range(steps):
+        params, stats, state, loss, metrics = step(params, stats, state)
+        losses.append(float(loss))
+        assert not bool(metrics["found_inf"])
+    return _np_tree(state.master), _np_tree(stats), losses, state
+
+
+def _dist(a, b):
+    """L2 distance between two trees of the same structure."""
+    return float(np.sqrt(sum(
+        np.sum((np.asarray(x, np.float64) - np.asarray(y, np.float64)) ** 2)
+        for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)))))
+
+
+@pytest.mark.parametrize("convs", ["fp32", "bf16"])
+def test_o2_fused_sgd_steps_match_jax(monkeypatch, convs):
+    """3 recipe steps of the tiny Bottleneck ResNet under the O2 policy
+    (bf16 conv and fc weights, fp32 BN params and masters, dynamic loss
+    scale) through the example's ``build``. With the convolutions computed
+    in fp32 the two runs do the same arithmetic: losses 1e-5 relative,
+    masters within 1e-3 of how far they moved (L2), running stats 1e-4.
+    With bf16 convolutions (the recipe) they round at other places, and on
+    8 images several gradients are sums that cancel by construction (a
+    BN's input gradient sums to 0 per channel), so the runs drift apart:
+    losses within 2e-2 relative, and masters and running stats no more
+    than twice as far from the JAX bf16 run as that run is from JAX's own
+    fp32-conv run (the bf16 noise, measured in the test; 1.1x and 1.3x
+    when this was written)."""
+    jm16, _, size = _models("bottleneck", dtype="bf16")
+    jm32, _, _ = _models("bottleneck")
+    images, labels = _batch(size, n=8)
+    variables = jm16.init(jax.random.PRNGKey(0), jnp.asarray(images))
+    args = (variables, jnp.asarray(images), jnp.asarray(labels), 3)
+    j32 = _jax_o2_run(jm32, *args)
+    jmaster, jstats, jlosses, jstate = (_jax_o2_run(jm16, *args)
+                                        if convs == "bf16" else j32)
+
+    cfg = dict(TINY["bottleneck"])
+    cfg.pop("size")
+    num_classes = cfg.pop("num_classes")
+
+    def tiny(**kw):
+        if convs == "fp32":
+            kw["dtype"] = torch.float32
+        return tresnet.ResNet(block_cls=tresnet.Bottleneck, **cfg, **kw)
+
+    monkeypatch.setitem(main_amp.ARCHS, "tiny", tiny)
+    trainer = main_amp.build("tiny", "O2", batch_size=8, image_size=size,
+                             num_classes=num_classes, device="cpu")
+    model, st = trainer.model, trainer.opt_state
+    # the JAX init's weights: cast into the O2 params, the masters upcast
+    # from them (as MixedPrecisionOptimizer.init does from cast params)
+    model.params_from_numpy(_np_tree(variables))
+    with torch.no_grad():
+        for m, p in zip(st.master, model.parameters()):
+            m.copy_(p)
+    # O2 keep_batchnorm_fp32: bn params stay fp32, conv and fc go bf16
+    assert model.bn1.scale.dtype == torch.float32
+    assert model.conv1.weight.dtype == torch.bfloat16
+    assert model.fc.weight.dtype == torch.bfloat16
+    assert model.layer1_0.bn_ds.bias.dtype == torch.float32
+    out = main_amp.train_steps(trainer, 2, torch.from_numpy(images),
+                               torch.from_numpy(labels))
+    assert not any(m["found_inf"] for m in out["metrics"])
+    assert st.scaler.loss_scale == float(jstate.scaler.loss_scale)
+    assert st.inner.step == int(jstate.inner.step) == 3
+    tmaster = _tree_of(model, st.master)
+    tstats = model.to_numpy()["batch_stats"]
+    moved = _dist(jmaster, _np_tree(variables)["params"])
+    if convs == "fp32":
+        np.testing.assert_allclose(out["losses"], jlosses, rtol=1e-5)
+        assert _dist(tmaster, jmaster) <= 1e-3 * moved
+        _assert_trees(tstats, jstats, 1e-4, "running stats")
+    else:
+        np.testing.assert_allclose(out["losses"], jlosses, rtol=2e-2)
+        assert _dist(tmaster, jmaster) <= 2 * _dist(jmaster, j32[0])
+        assert _dist(tstats, jstats) <= 2 * _dist(jstats, j32[1])
+    for p, m in zip(model.parameters(), st.master):
+        assert torch.equal(p, m.to(p.dtype))  # params: masters cast down
+
+
+def test_mixed_precision_optimizer_drives_fused_sgd_like_jax():
+    """The same scaled grads into JAX's and the port's O2
+    ``MixedPrecisionOptimizer(FusedSGD)`` over a bf16 conv kernel and fp32
+    BN params: masters and momentum buffers within 1e-6 after every step;
+    the overflow step (an inf grad) leaves them bit-identical, keeps the
+    step count and halves the scale."""
+    rng = np.random.default_rng(3)
+    shapes = {"bn1": {"bias": (4,), "scale": (4,)},
+              "conv1": {"kernel": (3, 3, 2, 4)}}
+    p0 = jax.tree.map(lambda s: rng.normal(size=s).astype(np.float32),
+                      shapes, is_leaf=lambda s: isinstance(s, tuple))
+    kw = dict(lr=0.1, momentum=0.9, weight_decay=1e-4, nesterov=True)
+    policy = jamp.get_policy("O2")
+    jmp = jamp.MixedPrecisionOptimizer(JaxFusedSGD(**kw), policy)
+    jparams = jamp.cast_params(jax.tree.map(jnp.asarray, p0), policy)
+    jstate = jmp.init(jparams)
+    leaves = jax.tree.leaves(jparams)
+    tparams = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16 if a.dtype == jnp.bfloat16 else torch.float32)
+        for a in leaves]
+    assert [p.dtype for p in tparams] == [torch.float32, torch.float32,
+                                          torch.bfloat16]
+    from apex_tpu_torch.optimizers import FusedSGD
+    tmp = tamp.MixedPrecisionOptimizer(FusedSGD(**kw), tamp.get_policy("O2"))
+    tstate = tmp.init(tparams)
+    for i in range(5):
+        g = jax.tree.map(lambda p: jnp.asarray(
+            rng.normal(size=p.shape) * 2.0 ** 16, jnp.float32).astype(
+            p.dtype), jparams)
+        if i == 2:
+            g["conv1"]["kernel"] = g["conv1"]["kernel"].at[0, 0, 0, 0].set(
+                jnp.inf)
+        jparams, jstate, jm = jmp.apply_gradients(jstate, jparams, g)
+        before = [t.clone() for t in tstate.master + tstate.inner.momentum_buf]
+        tg = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(p.dtype)
+              for a, p in zip(jax.tree.leaves(g), tparams)]
+        tm = tmp.apply_gradients(tstate, tparams, tg)
+        assert tm["found_inf"] == bool(jm["found_inf"]) == (i == 2)
+        assert tm["loss_scale"] == float(jm["loss_scale"])
+        if i == 2:
+            after = tstate.master + tstate.inner.momentum_buf
+            assert all(torch.equal(a, b) for a, b in zip(before, after))
+        for got, ref in ((tstate.master, jstate.master),
+                         (tstate.inner.momentum_buf,
+                          jstate.inner.momentum_buf)):
+            for a, r in zip(got, jax.tree.leaves(ref)):
+                np.testing.assert_allclose(a.numpy(), np.asarray(r),
+                                           rtol=1e-6, atol=1e-6)
+        for p, m in zip(tparams, tstate.master):
+            assert torch.equal(p, m.to(p.dtype))
+    assert tstate.inner.step == int(jstate.inner.step) == 4
+
+
+FAMILIES = ["conv", "matmul", "batch_norm", "layer_norm", "softmax",
+            "cross_entropy", "relu", "attention"]
+
+
+@pytest.mark.parametrize("level", ["O0", "O1", "O2", "O3"])
+@pytest.mark.parametrize("overrides", [
+    {}, {"keep_batchnorm_fp32": False}, {"loss_scale": 128.0},
+    {"half_dtype": "float16"}, {"keep_batchnorm_fp32": None},
+])
+def test_policy_op_dtype_and_overrides_match_jax(level, overrides):
+    jo = dict(overrides)
+    if "half_dtype" in jo:
+        jo["half_dtype"] = jnp.float16
+    jp = jamp.get_policy(level, **jo)
+    tp = tamp.get_policy(level, **overrides)
+    name = (lambda d: None if d is None else str(jnp.dtype(d)))
+    tname = (lambda d: None if d is None else str(d).replace("torch.", ""))
+    for fam in FAMILIES:
+        assert tname(tp.op_dtype(fam)) == name(jp.op_dtype(fam)), fam
+    assert tname(tp.cast_model_type) == name(jp.cast_model_type)
+    assert tname(tp.compute_dtype) == name(jp.compute_dtype)
+    for f in ("keep_batchnorm_fp32", "master_weights", "loss_scale"):
+        assert getattr(tp, f) == getattr(jp, f), f
+    assert tp.fp32_ops == jp.fp32_ops and tp.half_ops == jp.half_ops
+
+
+def test_policy_override_errors_match_jax():
+    o1 = tamp.get_policy("O1", fp32_ops={"conv"})
+    assert o1.op_dtype("conv") == torch.float32
+    assert jamp.get_policy("O1", fp32_ops={"conv"}).op_dtype("conv") \
+        == jnp.float32
+    for bad in (dict(fp32_ops={"conv"}), dict(bogus=1)):
+        with pytest.raises(ValueError):
+            jamp.get_policy("O2", **bad)
+        with pytest.raises(ValueError):
+            tamp.get_policy("O2", **bad)
+    with pytest.raises(ValueError, match="pre-built"):
+        tamp.get_policy(tamp.get_policy("O2"), loss_scale=1.0)
+    assert tamp.get_policy("O2", half_dtype=torch.bfloat16).compute_dtype \
+        == torch.bfloat16
+
+
+def _npz_files(tmp_path, size=8):
+    rng = np.random.default_rng(7)
+    for i, n in enumerate((5, 7)):
+        np.savez(tmp_path / f"part{i}.npz",
+                 images=rng.normal(size=(n, size, size, 3)).astype(
+                     np.float32),
+                 labels=rng.integers(0, 10, (n,)))
+
+
+def test_npy_batch_loader_matches_jax(tmp_path):
+    _npz_files(tmp_path)
+    shape = (4, 8, 8, 3)
+    got = list(NpyBatchLoader(str(tmp_path), batch_shape=shape))
+    ref = list(JaxLoader(str(tmp_path), batch_shape=shape))
+    assert len(got) == len(ref) == 3
+    for (gx, gy), (rx, ry) in zip(got, ref):
+        np.testing.assert_array_equal(gx, rx)
+        np.testing.assert_array_equal(gy, ry)
+    looped = iter(NpyBatchLoader(str(tmp_path), batch_shape=shape,
+                                 loop=True))
+    assert [next(looped)[0].shape for _ in range(5)] == [shape] * 5
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(FileNotFoundError):
+        NpyBatchLoader(str(tmp_path / "empty"), batch_shape=shape)
+
+
+def test_example_build_train_steps_and_main_on_cpu(tmp_path, capsys,
+                                                  monkeypatch):
+    monkeypatch.setitem(main_amp.ARCHS, "tiny18", functools.partial(
+        tresnet.ResNet18, width=8, stem_pool=False))
+    trainer = main_amp.build("tiny18", "O2", batch_size=4, image_size=16,
+                             num_classes=10, device="cpu")
+    before = ops.launch_counts()
+    out = main_amp.train_steps(trainer, 2)
+    assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
+    assert out["window_ms"] is None and out["images_per_step"] == 4
+    assert not any(m["found_inf"] for m in out["metrics"])
+    assert ops.launch_counts() == before  # the CPU runs the plain versions
+    assert trainer.model.layer1_0.bn1.num_batches_tracked == 3
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        main_amp.build("resnet18", sync_bn=True, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device|not available"):
+        main_amp.build("resnet18")  # the card by default
+    _npz_files(tmp_path, size=32)
+    main_amp.main(["--arch", "resnet18", "--batch-size", "2",
+                   "--image-size", "32", "--num-classes", "10", "--steps",
+                   "2", "--device", "cpu", "--data-dir", str(tmp_path),
+                   "--keep-batchnorm-fp32", "True", "--loss-scale", "128"])
+    text = capsys.readouterr().out
+    assert "step    0 loss" in text and "loss_scale 128" in text
+    assert "imgs/sec (resnet18, O2, batch 2, one device: cpu)" in text
