@@ -7,6 +7,10 @@ under the same names, and the helpers take that layer module where the
 reference takes its parameter slice. Serial only: context parallelism,
 sequence parallelism and MoE FFNs raise.
 
+Rotary positions (``apply_rope`` / ``apply_rope_at``, one shared body
+``_rope_rotate``) are ported with the reference's float64 pre-reduction of
+the angles, so a rotation at position 1e6 matches it in fp32.
+
 Training: :meth:`TransformerBase.run_layers_train` checkpoints each layer
 with ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference's
 ``jax.checkpoint`` of the layer body, ``_transformer.py:634-638``; policy
@@ -19,6 +23,7 @@ from __future__ import annotations
 import functools
 from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -41,6 +46,63 @@ def remat_policy(name: Optional[str]) -> None:
             f"not in this slice of the port; it comes with a later PR "
             f"(ROADMAP Queue 1 item 6). Use None or 'full'.")
     raise ValueError(f"unknown remat_policy {name!r}")
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding (split-half / NeoX convention) on
+    ``(b, heads, s, d)`` at GLOBAL ``positions`` of shape ``(s,)``
+    (``_transformer.py:64-76``): scores depend on relative distance only,
+    and no position table exists."""
+    return _rope_rotate(x, positions, theta, batched=False)
+
+
+def apply_rope_at(x: torch.Tensor, positions: torch.Tensor,
+                  theta: float = 10000.0) -> torch.Tensor:
+    """:func:`apply_rope` at PER-SEQUENCE positions ``(b, s)`` (the decode
+    form, ``_transformer.py:79-87``), through the same body, so a token's
+    rotation is the same bit for bit at equal position."""
+    return _rope_rotate(x, positions, theta, batched=True)
+
+
+#: the position split of the angle pre-reduction (``_transformer.py:98-112``)
+ROPE_SPLIT = 2048
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_tables(d: int, theta: float, device: torch.device):
+    """``(K * inv_freq mod 2 pi, inv_freq)`` in fp32 on ``device``, the
+    reduction done in float64 on the host once per (head_dim, theta,
+    device): a host-to-device copy per call would make every layer wait for
+    the card."""
+    inv64 = theta ** (-np.arange(d // 2, dtype=np.float64) * 2.0 / d)
+    kmod = np.mod(ROPE_SPLIT * inv64, 2 * np.pi).astype(np.float32)
+    return (torch.from_numpy(kmod).to(device),
+            torch.from_numpy(inv64.astype(np.float32)).to(device))
+
+
+def _rope_rotate(x, positions, theta, *, batched):
+    """The reference's rope body (``_transformer.py:90-121``). An angle
+    ``pos * inv_freq`` in fp32 at pos = 1e6 is off by up to ~0.1 rad, so
+    the integer position is split as ``a * K + r`` (K = 2048) and
+    ``K * inv_freq`` is reduced modulo 2 pi in float64 on the host: every
+    fp32 product stays below ~3e3 rad. Then the split-half rotation in
+    fp32, cast back to x's dtype."""
+    d = x.shape[-1]
+    half = d // 2
+    kmod, inv_freq = _rope_tables(d, float(theta), x.device)
+    positions = positions.to(x.device)
+    a = torch.div(positions, ROPE_SPLIT,
+                  rounding_mode="floor").float()[..., None]
+    r = torch.remainder(positions, ROPE_SPLIT).float()[..., None]
+    ang = a * kmod + r * inv_freq  # (s, half) | (b, s, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if batched:  # broadcast over heads
+        cos, sin = cos[:, None], sin[:, None]
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def inverted_dropout(x: torch.Tensor, rate: float,
@@ -130,15 +192,28 @@ class TransformerBase(nn.Module):
     def _qkv_heads(self, layer: TransformerLayer, h: torch.Tensor):
         """``(q, k, v)`` head tensors ``(b, heads, s, d)`` from the fused
         QKV projection, laid out ``(heads, 3, head_dim)``
-        (``_transformer.py:416-420``). They are strided views of one
-        product; the kernels take them without a copy."""
+        (``_transformer.py:400-430``). They are strided views of one
+        product; the kernels take them without a copy. Under rotary
+        positions q and k are rotated at :meth:`_token_positions` (serial:
+        0 .. s-1)."""
         c = self.cfg
         b = h.shape[0]
         qkv = self._dense(layer.qkv, h)
         s = qkv.shape[1]
         n = qkv.shape[-1] // (3 * c.head_dim)
         qkv = qkv.view(b, s, n, 3, c.head_dim).permute(0, 2, 3, 1, 4)
-        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if c.position_embedding == "rope":
+            pos = self._token_positions(s, h.device)
+            q, k = (apply_rope(q, pos, c.rope_theta),
+                    apply_rope(k, pos, c.rope_theta))
+        return q, k, v
+
+    def _token_positions(self, s: int, device) -> torch.Tensor:
+        """Global positions of the tokens (``_transformer.py:481-488``):
+        serial, so ``0 .. s-1``; the context-parallel offset comes with
+        ROADMAP Queue 1 item 15."""
+        return torch.arange(s, dtype=torch.int64, device=device)
 
     def _attn_out(self, layer: TransformerLayer,
                   attn: torch.Tensor) -> torch.Tensor:
@@ -148,7 +223,9 @@ class TransformerBase(nn.Module):
         return self._dense(layer.proj, attn)
 
     def _attend(self, q, k, v, bias=None) -> torch.Tensor:
-        """Core attention on ``(b, heads, s, d)`` (no context axis)."""
+        """Core attention on ``(b, heads, s, d)`` (no context axis), with
+        the config's sliding window (``_transformer.py:490-507``, serial
+        branch); ``stream='auto'`` picks the kernels."""
         return flash_attention(q, k, v, bias, causal=self.causal,
                                window=self.cfg.attention_window)
 

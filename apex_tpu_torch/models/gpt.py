@@ -1,6 +1,7 @@
 """Megatron-style GPT (port of ``apex_tpu/models/gpt.py``), serial.
 
-Token embedding + learned positions, then per layer the pre-LN block
+Token embedding + learned positions (or rotary positions on q/k, with no
+position table), then per layer the pre-LN block
 ``h + proj(attn(LN(h)))``, ``h + fc2(gelu(fc1(LN(h))))``, then the final LN
 and the LM head tied to the embedding. The parameter tree and its names are
 the JAX model's, layer by layer; :meth:`GPTModel.params_from_numpy` loads a
@@ -14,10 +15,11 @@ dropout from an explicit ``torch.Generator``, and the chunked LM-head CE
 context logits), and the serving drives ``embed_at`` /
 ``serve_layers_prefill`` / ``serve_layers_decode`` /
 ``serve_layers_multi`` / ``serve_head`` thread
-the paged KV pool of ``apex_tpu_torch.serve``. Tensor/sequence/context
-parallelism, MoE FFNs, rotary positions, selective remat policies and a
-sliding window on the card are later slices and raise
-``NotImplementedError``.
+the paged KV pool of ``apex_tpu_torch.serve``. The sliding
+``attention_window`` runs on both devices (the streamed flash kernels on the
+card). Tensor/sequence/context parallelism, MoE FFNs, selective remat
+policies and serving a model with rotary positions are later slices and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ class GPTConfig:
     compute_dtype: Any = torch.bfloat16
     init_method_std: float = 0.02
     attention_window: Optional[int] = None
-    position_embedding: str = "learned"
+    position_embedding: str = "learned"  # learned | rope | none
+    rope_theta: float = 10000.0
     context_axis: Optional[str] = None
     moe_num_experts: Optional[int] = None
     hidden_dropout: float = 0.1  # applied only with a dropout generator
@@ -86,11 +89,6 @@ def _check_slice(c: GPTConfig, device: torch.device) -> None:
                          "ring/Ulysses context parallelism (Queue 1 item 15)"),
         "moe_num_experts": (c.moe_num_experts is not None,
                             "MoE FFNs (Queue 1 item 16)"),
-        "position_embedding='rope'": (c.position_embedding == "rope",
-                                      "rotary positions (Queue 1 item 6)"),
-        "attention_window on CUDA": (
-            c.attention_window is not None and device.type == "cuda",
-            "the windowed flash kernels (Queue 2 item 4)"),
     }
     remat_policy(c.remat_policy)
     for name, (on, where) in later.items():
@@ -98,9 +96,11 @@ def _check_slice(c: GPTConfig, device: torch.device) -> None:
             raise NotImplementedError(
                 f"GPTConfig {name} is not in this slice of the port; it "
                 f"comes with {where}")
-    if c.position_embedding not in ("learned", "none"):
+    if c.position_embedding not in ("learned", "rope", "none"):
         raise ValueError(f"position_embedding must be learned|rope|none, got "
                          f"{c.position_embedding!r}")
+    if c.position_embedding == "rope" and c.head_dim % 2:
+        raise ValueError(f"rope needs an even head_dim, got {c.head_dim}")
 
 
 class GPTModel(TransformerBase):
@@ -240,15 +240,23 @@ class GPTModel(TransformerBase):
     # -- serving drives (apex_tpu_torch/serve/engine.py) --------------------
 
     def check_servable(self) -> None:
-        """Every config this slice builds is servable: the modes that
-        reshape the sequence (context and sequence parallelism) are refused
-        at construction."""
+        """Raise for what the serving hooks cannot run: rotary positions
+        (``apply_rope_at`` at each slot's position in the hooks comes with
+        ROADMAP Queue 1 item 6). The modes that reshape the sequence
+        (context and sequence parallelism) are refused at construction."""
+        if self.cfg.position_embedding == "rope":
+            raise NotImplementedError(
+                "serving a model with position_embedding='rope' is not in "
+                "this slice of the port: the serving hooks rotate q/k at "
+                "each slot's position (apply_rope_at) with ROADMAP Queue 1 "
+                "item 6")
 
     @torch.no_grad()
     def serve_layers_prefill(self, h: torch.Tensor):
         """Run the layers over a (padded) prompt, collecting every layer's
         k/v heads for the cache fill: ``(h, k, v)`` with k/v
         ``(num_layers, b, heads, s, head_dim)``."""
+        self.check_servable()
         ks, vs = [], []
         for layer in self.layers:
             x = self._ln(layer.ln1, h)
@@ -275,6 +283,7 @@ class GPTModel(TransformerBase):
         functionally) and returned. ``attend_lengths`` includes the token
         just written (0 = idle slot, output exactly 0). ``positions`` only
         matter for rotary positions, which are a later slice."""
+        self.check_servable()
         blk = k_pages.shape[3]
         bi, off = write_flat // blk, write_flat % blk
         for i, layer in enumerate(self.layers):
@@ -310,6 +319,7 @@ class GPTModel(TransformerBase):
         prefill (one slot, K = chunk) and speculative verify (every slot,
         K = drafts + 1). ``positions`` ``(b, K)`` only matter for rotary
         positions, a later slice."""
+        self.check_servable()
         blk = k_pages.shape[3]
         bi, off = write_flat // blk, write_flat % blk
         for i, layer in enumerate(self.layers):

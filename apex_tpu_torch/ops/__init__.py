@@ -11,9 +11,15 @@ from apex_tpu_torch.ops.flash_attention import (
     FlashAttention,
     flash_attention,
     flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_stream,
+    flash_attention_bwd_dkv_stream_reference,
     flash_attention_bwd_dq,
+    flash_attention_bwd_dq_stream,
+    flash_attention_bwd_dq_stream_reference,
     flash_attention_bwd_reference,
     flash_attention_fwd,
+    flash_attention_fwd_stream,
+    flash_attention_fwd_stream_reference,
     mha_reference,
 )
 from apex_tpu_torch.ops.flash_decode import (
@@ -53,6 +59,9 @@ KERNEL_WRAPPERS = {
     "flash_attention_fwd": flash_attention_fwd,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "flash_attention_fwd_stream": flash_attention_fwd_stream,
+    "flash_attention_bwd_dq_stream": flash_attention_bwd_dq_stream,
+    "flash_attention_bwd_dkv_stream": flash_attention_bwd_dkv_stream,
     "layer_norm_fwd": layer_norm_fwd,
     "layer_norm_bwd": layer_norm_bwd,
     "flash_decode": flash_decode_fwd,
@@ -78,9 +87,15 @@ __all__ = [
     "SoftmaxXentropy",
     "flash_attention",
     "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dkv_stream",
+    "flash_attention_bwd_dkv_stream_reference",
     "flash_attention_bwd_dq",
+    "flash_attention_bwd_dq_stream",
+    "flash_attention_bwd_dq_stream_reference",
     "flash_attention_bwd_reference",
     "flash_attention_fwd",
+    "flash_attention_fwd_stream",
+    "flash_attention_fwd_stream_reference",
     "flash_decode",
     "flash_decode_fwd",
     "flash_decode_multi",

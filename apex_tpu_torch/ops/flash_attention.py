@@ -3,29 +3,46 @@
 Layout ``(batch, heads, seq, head_dim)``, as in the reference. On CUDA
 tensors :func:`flash_attention` goes through :class:`FlashAttention`, a
 ``torch.autograd.Function`` mirroring the reference's custom VJP ``_flash``
-(``flash_attention.py:1395-1429``): the forward launches
-``csrc/flash_attention.cu`` (which replaces ``_fwd_kernel``) and saves q, k,
-v, o and the fp32 lse; the backward computes ``delta = rowsum(dO * O)`` in
-fp32 (``_flash_bwd``, ``:1210``) and launches the two kernels of
-``csrc/flash_attention_bwd.cu`` (which replace ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel``). The card takes causal or non-causal attention, any
-sq/sk, head_dim <= 128, bf16 or fp32; the additive ``bias``,
-``segment_ids``/``pad_id`` and ``window`` masks on the card are later work
-(ROADMAP Queue 2 item 4) and raise there.
+(``flash_attention.py:1395-1429``), with its ``stream`` flag: a streamed
+forward is always followed by the streamed backward.
 
-On CPU tensors the same Function runs the plain versions
-(:func:`mha_reference` with its lse, :func:`flash_attention_bwd_reference`);
-with a mask the card does not take, the CPU runs :func:`mha_reference`, the
-plain version ported whole from ``flash_attention.py:1518-1556`` with every
-mask and the exact-zero rule for fully-masked rows, under its own autograd.
+- Resident (``stream=False``): the forward launches
+  ``csrc/flash_attention.cu`` (replaces ``_fwd_kernel``) and saves q, k, v,
+  o and the fp32 lse; the backward computes ``delta = rowsum(dO * O)`` in
+  fp32 (``_flash_bwd``, ``:1210``) and launches the two kernels of
+  ``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``).
+  Causal or non-causal, no masks on the card.
+- Streamed (``stream=True``): the three kernels of
+  ``csrc/flash_attention_stream.cu`` (``_fwd_kernel_stream`` with its merge
+  pass, ``_bwd_dq_kernel_stream``, ``_bwd_dkv_kernel_stream``) split each
+  row's K/V loop (or each key tile's Q loop) across CTAs of at most
+  :data:`STREAM_SPLIT_TILES` tiles of :data:`STREAM_TILE` rows, over the
+  band the causal limit and the sliding ``window`` leave. The window lives
+  only here.
 
-The TPU layout rules (VMEM budgets, the resident/streamed crossover, the
-8-alignment fallbacks) are not behaviour and are not carried over.
+``stream='auto'`` streams when ``max(sq, sk) >= STREAM_MIN_SEQ`` or a window
+is set. Both devices route alike; the card takes any sq/sk, head_dim <= 128,
+bf16 or fp32. The additive ``bias`` and ``segment_ids``/``pad_id`` masks on
+the card, and the window on the resident kernels, are later work and raise
+there (ROADMAP Queue 2 items 4 and 5).
+
+On CPU tensors the same Function runs the plain versions: for the resident
+kernels :func:`mha_reference` with its lse and
+:func:`flash_attention_bwd_reference`; for the streamed ones the per-split
+partials and the lse merge (:func:`flash_attention_fwd_stream_reference`),
+the split-wise dQ sums and the q-split dK/dV sums. With a mask the card does
+not take, the CPU runs :func:`mha_reference`, the plain version ported whole
+from ``flash_attention.py:1518-1556`` with every mask and the exact-zero
+rule for fully-masked rows, under its own autograd.
+
+The TPU layout rules (VMEM budgets, the 8-alignment fallbacks) are not
+behaviour and are not carried over.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -34,6 +51,17 @@ from apex_tpu_torch.csrc import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
+
+#: stream='auto' takes the streamed kernels at max(sq, sk) >= this (or with a
+#: window). A routing choice on the card's numbers, not a memory limit: the
+#: resident kernels take any length; see PERF.md for the times behind it.
+STREAM_MIN_SEQ = 4096
+#: rows of every q/k tile of the streamed kernels (kTile in common.cuh)
+STREAM_TILE = 64
+#: the longest split of a band, in tiles: one CTA's share of a row's K/V
+#: loop (or of a key tile's Q loop). Shared by the kernels' wrappers and the
+#: plain versions.
+STREAM_SPLIT_TILES = 16
 
 
 def _dense_pos_masks(s, q_pos, k_pos, causal, window, neg=NEG_INF):
@@ -68,11 +96,7 @@ def mha_reference(q, k, v, bias=None, *, causal: bool = False,
         if pad_id is not None:
             valid = valid & (kv_seg != pad_id)[:, None, None, :]
         s = torch.where(valid, s, NEG_INF)
-    if causal or window is not None:
-        sq, sk = s.shape[-2], s.shape[-1]
-        s = _dense_pos_masks(s, torch.arange(sq, device=s.device)[:, None],
-                             torch.arange(sk, device=s.device)[None, :],
-                             causal, window)
+    s = _mask_scores(s, causal, window)
     p = torch.softmax(s, dim=-1)
     if masked:
         # rows with no visible key output exactly zero (softmax of an
@@ -82,16 +106,12 @@ def mha_reference(q, k, v, bias=None, *, causal: bool = False,
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = False,
-                        scale: Optional[float] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on CUDA tensors: ``(o, lse)``, o
-    ``(b, h, sq, d)`` in q's dtype and lse ``(b, h, sq)`` fp32. Counts its
-    launches in ``flash_attention_fwd.launches``."""
+def _fwd_args(q, k, v, name):
+    """Check q/k/v for a forward kernel; returns them with a contiguous
+    head_dim and ``(b, h, sq, sk, d)``."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd launches a CUDA kernel; q "
-                         f"lies on {q.device}")
+        raise ValueError(f"{name} launches a CUDA kernel; q lies on "
+                         f"{q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (batch, heads, seq, head_dim)")
     b, h, sq, d = q.shape
@@ -107,8 +127,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash kernel supports head_dim <= {MAX_HEAD_DIM}, got {d}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must lie on one device")
-    scale = (d ** -0.5) if scale is None else float(scale)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    return q, k, v, (b, h, sq, sk, d)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = False,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel on CUDA tensors: ``(o, lse)``, o
+    ``(b, h, sq, d)`` in q's dtype and lse ``(b, h, sq)`` fp32. Counts its
+    launches in ``flash_attention_fwd.launches``."""
+    q, k, v, (b, h, sq, sk, d) = _fwd_args(q, k, v, "flash_attention_fwd")
+    scale = (d ** -0.5) if scale is None else float(scale)
     o = torch.empty((b, h, sq, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     if o.numel() == 0:
@@ -130,39 +161,45 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
-def _mask_scores(s, causal):
-    if causal:
+def _mask_scores(s, causal, window=None, q0=0, k0=0):
+    """The causal and window masks on scores whose first row and column sit
+    at positions ``q0`` and ``k0``."""
+    if causal or window is not None:
         sq, sk = s.shape[-2], s.shape[-1]
-        s = _dense_pos_masks(s, torch.arange(sq, device=s.device)[:, None],
-                             torch.arange(sk, device=s.device)[None, :],
-                             True, None)
+        s = _dense_pos_masks(
+            s, torch.arange(q0, q0 + sq, device=s.device)[:, None],
+            torch.arange(k0, k0 + sk, device=s.device)[None, :], causal,
+            window)
     return s
 
 
-def _lse_reference(q, k, causal, scale):
+def _lse_reference(q, k, causal, scale, window=None):
     """fp32 per-row logsumexp of the masked scores, as the forward kernel
     writes it (NEG_INF for a row with no visible key)."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    return torch.logsumexp(_mask_scores(s, causal), dim=-1)
+    return torch.logsumexp(_mask_scores(s, causal, window), dim=-1)
+
+
+def _probs(s, lse, causal, window, q0=0, k0=0):
+    """``P = exp(S - lse)`` as the backward kernels recompute it: 0 where
+    masked and on rows whose ``lse <= NEG_INF / 2`` (no visible key)."""
+    s = _mask_scores(s, causal, window, q0, k0)
+    lse = lse[..., None]
+    return torch.where(lse <= NEG_INF / 2, 0.0, torch.exp(s - lse))
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool,
-                                  scale: float):
-    """Plain backward, the arithmetic of the two backward kernels:
-    ``P = exp(S - lse)`` (0 where masked or where ``lse <= NEG_INF / 2``),
-    ``dS = P * (dO V^T - delta)`` with ``delta = rowsum(dO * O)``; returns
-    ``(dq, dk, dv)`` in q/k/v's dtypes, computed in fp32."""
+                                  scale: float,
+                                  window: Optional[int] = None):
+    """Plain backward, the arithmetic of the backward kernels:
+    ``P = exp(S - lse)`` (0 where the causal or window mask hides the key,
+    or where ``lse <= NEG_INF / 2``), ``dS = P * (dO V^T - delta)`` with
+    ``delta = rowsum(dO * O)``; returns ``(dq, dk, dv)`` in q/k/v's dtypes,
+    computed in fp32."""
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     delta = (o.float() * do32).sum(-1, keepdim=True)
     s = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * scale
-    sq, sk = s.shape[-2], s.shape[-1]
-    lse = lse.float()[..., None]
-    visible = torch.ones(sq, sk, dtype=torch.bool, device=s.device)
-    if causal:
-        visible = torch.arange(sk, device=s.device)[None, :] \
-            <= torch.arange(sq, device=s.device)[:, None]
-    live = visible & (lse > NEG_INF / 2)
-    p = torch.where(live, torch.exp(s - lse), 0.0)
+    p = _probs(s, lse.float(), causal, window)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
     dp = torch.einsum("bhqd,bhkd->bhqk", do32, v32)
     ds = p * (dp - delta)
@@ -250,35 +287,371 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
 flash_attention_bwd_dkv.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# streamed kernels: the band of tiles, split across CTAs
+# ---------------------------------------------------------------------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _window_k_range(qt: int, nk: int, causal: bool,
+                    window: Optional[int]) -> Tuple[int, int]:
+    """``[lo, hi)`` of the key tiles that query tile ``qt`` sees: the causal
+    limit, then the window (``_window_k_range``, ``flash_attention.py:
+    117-130``, with ``blk_q = blk_k = STREAM_TILE`` and no ring offsets)."""
+    t = STREAM_TILE
+    lo, hi = 0, nk
+    if causal:
+        hi = min(hi, ((qt + 1) * t + t - 1) // t)
+    if window is not None:
+        lo = max(lo, (qt * t - window + 1) // t)
+        if not causal:
+            hi = max(0, min(hi, ((qt + 1) * t + window - 2) // t + 1))
+    return lo, hi
+
+
+def _window_q_range(kt: int, nq: int, causal: bool,
+                    window: Optional[int]) -> Tuple[int, int]:
+    """``[lo, hi)`` of the query tiles that see key tile ``kt``
+    (``_window_q_range``, ``flash_attention.py:133-143``)."""
+    t = STREAM_TILE
+    lo, hi = 0, nq
+    if causal:
+        lo = min(kt, nq)
+    if window is not None:
+        hi = max(0, min(hi, ((kt + 1) * t + window - 2) // t + 1))
+        if not causal:
+            lo = max(lo, (kt * t - window + 1) // t)
+    return lo, hi
+
+
+def _splits(lo: int, hi: int, split_tiles: int) -> List[Tuple[int, int]]:
+    """The band ``[lo, hi)`` cut into ``ceil(n / split_tiles)`` pieces of
+    equal length (the last may be shorter): one CTA each (``split_of`` in
+    ``csrc/flash_attention_stream.cu``)."""
+    n = hi - lo
+    if n <= 0:
+        return []
+    ns = _cdiv(n, split_tiles)
+    per = _cdiv(n, ns)
+    return [(lo + s * per, min(hi, lo + (s + 1) * per)) for s in range(ns)
+            if lo + s * per < hi]
+
+
+@functools.lru_cache(maxsize=64)
+def _bands(n_outer: int, n_inner: int, causal: bool, window: Optional[int],
+           inner_is_k: bool, split_tiles: int):
+    """Per outer tile its list of splits, and the most splits of any: the
+    grid's split extent."""
+    rng = _window_k_range if inner_is_k else _window_q_range
+    bands = tuple(tuple(_splits(*rng(i, n_inner, causal, window),
+                                split_tiles)) for i in range(n_outer))
+    return bands, max((len(b) for b in bands), default=0)
+
+
+def _stream_bands(sq, sk, causal, window, inner_is_k):
+    t = STREAM_TILE
+    nq, nk = _cdiv(sq, t), _cdiv(sk, t)
+    if inner_is_k:
+        return _bands(nq, nk, causal, window, True, STREAM_SPLIT_TILES)
+    return _bands(nk, nq, causal, window, False, STREAM_SPLIT_TILES)
+
+
+def flash_attention_fwd_stream_reference(q, k, v, *, causal: bool,
+                                         scale: Optional[float] = None,
+                                         window: Optional[int] = None
+                                         ) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Plain streamed forward, the kernel's arithmetic in fp32: per query
+    tile, each split of its band gives a partial (unnormalised acc, row max
+    m, row sum l), and the lse merge combines them: ``m* = max m_i``,
+    ``l* = sum l_i e^(m_i - m*)``, ``o = sum acc_i e^(m_i - m*) / l*``,
+    ``lse = m* + log l*``. A row with no visible key gives o = 0 exactly
+    and lse = NEG_INF. Returns ``(o, lse)`` as the kernel does."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = (d ** -0.5) if scale is None else float(scale)
+    t = STREAM_TILE
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    o = torch.zeros(b, h, sq, d, device=q.device)
+    lse = torch.full((b, h, sq), NEG_INF, device=q.device)
+    bands, _ = _stream_bands(sq, sk, causal, window, True)
+    for qt, splits in enumerate(bands):
+        if not splits:
+            continue
+        r0, r1 = qt * t, min(sq, (qt + 1) * t)
+        parts = []
+        for a, e in splits:
+            c0, c1 = a * t, min(sk, e * t)
+            s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, r0:r1],
+                             k32[:, :, c0:c1]) * scale
+            s = _mask_scores(s, causal, window, r0, c0)
+            m = s.amax(-1)
+            p = torch.where((m <= NEG_INF / 2)[..., None], 0.0,
+                            torch.exp(s - m[..., None]))
+            parts.append((torch.einsum("bhqk,bhkd->bhqd", p,
+                                       v32[:, :, c0:c1]), m, p.sum(-1)))
+        m_star = torch.stack([m for _, m, _ in parts]).amax(0)
+        acc = torch.zeros_like(o[:, :, r0:r1])
+        l_star = torch.zeros_like(m_star)
+        for acc_i, m_i, l_i in parts:
+            w = torch.exp(m_i - m_star)
+            acc += acc_i * w[..., None]
+            l_star += l_i * w
+        l_safe = torch.where(l_star == 0.0, 1.0, l_star)
+        o[:, :, r0:r1] = acc / l_safe[..., None]
+        lse[:, :, r0:r1] = m_star + torch.log(l_safe)
+    return o.to(q.dtype), lse
+
+
+def flash_attention_bwd_dq_stream_reference(q, k, v, do, lse, delta, *,
+                                            causal: bool, scale: float,
+                                            window: Optional[int] = None
+                                            ) -> torch.Tensor:
+    """Plain streamed dQ: per query tile, each split of its band adds
+    ``scale * dS K`` over its keys into an fp32 sum (the kernel's atomics),
+    ``dS = P * (dO V^T - delta)``; dQ in q's dtype."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    t = STREAM_TILE
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    lse, delta = lse.float(), delta.float()
+    dq = torch.zeros(b, h, sq, d, device=q.device)
+    bands, _ = _stream_bands(sq, sk, causal, window, True)
+    for qt, splits in enumerate(bands):
+        r0, r1 = qt * t, min(sq, (qt + 1) * t)
+        for a, e in splits:
+            c0, c1 = a * t, min(sk, e * t)
+            s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, r0:r1],
+                             k32[:, :, c0:c1]) * scale
+            p = _probs(s, lse[:, :, r0:r1], causal, window, r0, c0)
+            dp = torch.einsum("bhqd,bhkd->bhqk", do32[:, :, r0:r1],
+                              v32[:, :, c0:c1])
+            ds = p * (dp - delta[:, :, r0:r1, None])
+            dq[:, :, r0:r1] += scale * torch.einsum(
+                "bhqk,bhkd->bhqd", ds, k32[:, :, c0:c1])
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_stream_reference(q, k, v, do, lse, delta, *,
+                                             causal: bool, scale: float,
+                                             window: Optional[int] = None
+                                             ) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """Plain streamed dK/dV: per key tile, each split of the query tiles
+    that see it adds ``scale * dS^T Q`` and ``P^T dO`` into fp32 sums;
+    ``(dk, dv)`` in k's dtype."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    t = STREAM_TILE
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    lse, delta = lse.float(), delta.float()
+    dk = torch.zeros(b, h, sk, d, device=q.device)
+    dv = torch.zeros_like(dk)
+    bands, _ = _stream_bands(sq, sk, causal, window, False)
+    for kt, splits in enumerate(bands):
+        c0, c1 = kt * t, min(sk, (kt + 1) * t)
+        for a, e in splits:
+            r0, r1 = a * t, min(sq, e * t)
+            s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, r0:r1],
+                             k32[:, :, c0:c1]) * scale
+            p = _probs(s, lse[:, :, r0:r1], causal, window, r0, c0)
+            dp = torch.einsum("bhqd,bhkd->bhqk", do32[:, :, r0:r1],
+                              v32[:, :, c0:c1])
+            ds = p * (dp - delta[:, :, r0:r1, None])
+            dv[:, :, c0:c1] += torch.einsum("bhqk,bhqd->bhkd", p,
+                                            do32[:, :, r0:r1])
+            dk[:, :, c0:c1] += scale * torch.einsum(
+                "bhqk,bhqd->bhkd", ds, q32[:, :, r0:r1])
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _window_arg(window: Optional[int]) -> int:
+    return 0 if window is None else int(window)
+
+
+def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = False,
+                               scale: Optional[float] = None,
+                               window: Optional[int] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the streamed forward on CUDA tensors (its split pass, then
+    its merge pass): ``(o, lse)`` as :func:`flash_attention_fwd`, with the
+    sliding ``window``. Counts its launches in
+    ``flash_attention_fwd_stream.launches``."""
+    q, k, v, (b, h, sq, sk, d) = _fwd_args(q, k, v,
+                                           "flash_attention_fwd_stream")
+    scale = (d ** -0.5) if scale is None else float(scale)
+    o = torch.empty((b, h, sq, d), device=q.device, dtype=q.dtype)
+    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+    if o.numel() == 0:
+        return o, lse
+    if sk == 0:
+        raise ValueError("flash_attention needs at least one key")
+    _, nsplit = _stream_bands(sq, sk, causal, window, True)
+    acc = torch.empty((nsplit, b * h, sq, d), device=q.device,
+                      dtype=torch.float32)
+    ml = torch.empty((2, nsplit, b * h, sq), device=q.device,
+                     dtype=torch.float32)
+    err = build.load().apex_flash_fwd_stream(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+        ml[0].data_ptr(), ml[1].data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, h, sq, sk, d, q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), scale, int(causal),
+        _window_arg(window), STREAM_SPLIT_TILES, nsplit,
+        build.DTYPES[q.dtype], build.current_stream(q.get_device()))
+    build.check(err, "apex_flash_fwd_stream")
+    flash_attention_fwd_stream.launches += 1
+    return o, lse
+
+
+flash_attention_fwd_stream.launches = 0
+
+
+def flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, *, causal: bool,
+                                  scale: float,
+                                  window: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """Launch the streamed dQ kernel on CUDA tensors: its CTAs add into a
+    zeroed fp32 accumulator, cast to q's dtype after. Counts its launches in
+    ``flash_attention_bwd_dq_stream.launches``."""
+    (q, k, v, do), (lse, delta), strides, (b, h, sq, sk, d) = _bwd_args(
+        q, k, v, do, lse, delta, "flash_attention_bwd_dq_stream")
+    dq = torch.zeros((b, h, sq, d), device=q.device, dtype=torch.float32)
+    if dq.numel() == 0:
+        return dq.to(q.dtype)
+    _, nsplit = _stream_bands(sq, sk, causal, window, True)
+    err = build.load().apex_flash_bwd_dq_stream(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
+        *strides, float(scale), int(causal), _window_arg(window),
+        STREAM_SPLIT_TILES, nsplit, build.DTYPES[q.dtype],
+        build.current_stream(q.get_device()))
+    build.check(err, "apex_flash_bwd_dq_stream")
+    flash_attention_bwd_dq_stream.launches += 1
+    return dq.to(q.dtype)
+
+
+flash_attention_bwd_dq_stream.launches = 0
+
+
+def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
+                                   scale: float,
+                                   window: Optional[int] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the streamed dK/dV kernel on CUDA tensors: its CTAs add into
+    zeroed fp32 accumulators, cast to k's dtype after. Counts its launches
+    in ``flash_attention_bwd_dkv_stream.launches``."""
+    (q, k, v, do), (lse, delta), strides, (b, h, sq, sk, d) = _bwd_args(
+        q, k, v, do, lse, delta, "flash_attention_bwd_dkv_stream")
+    dk = torch.zeros((b, h, sk, d), device=q.device, dtype=torch.float32)
+    dv = torch.zeros_like(dk)
+    if dk.numel() == 0 or sq == 0:
+        return dk.to(k.dtype), dv.to(v.dtype)
+    _, nsplit = _stream_bands(sq, sk, causal, window, False)
+    err = build.load().apex_flash_bwd_dkv_stream(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+        sq, sk, d, *strides, float(scale), int(causal), _window_arg(window),
+        STREAM_SPLIT_TILES, nsplit, build.DTYPES[q.dtype],
+        build.current_stream(q.get_device()))
+    build.check(err, "apex_flash_bwd_dkv_stream")
+    flash_attention_bwd_dkv_stream.launches += 1
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+flash_attention_bwd_dkv_stream.launches = 0
+
+
+def _forward(q, k, v, causal, scale, stream, window):
+    """``(o, lse)``: the kernel on a CUDA tensor, its plain version on a
+    CPU one."""
+    if stream:
+        fn = (flash_attention_fwd_stream if q.device.type == "cuda"
+              else flash_attention_fwd_stream_reference)
+        return fn(q, k, v, causal=causal, scale=scale, window=window)
+    if q.device.type == "cuda":
+        return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    return (mha_reference(q, k, v, causal=causal, scale=scale),
+            _lse_reference(q, k, causal, scale))
+
+
 class FlashAttention(torch.autograd.Function):
-    """Causal or non-causal attention without bias/segment/window masks,
-    with the two-pass flash backward (``_flash_vjp_fwd`` /
-    ``_flash_vjp_bwd``). Kernels on CUDA tensors, plain versions on CPU
-    ones."""
+    """Causal or non-causal attention without bias/segment masks, resident
+    or streamed (with the window), with the two-pass flash backward
+    (``_flash_vjp_fwd`` / ``_flash_vjp_bwd``): a streamed forward is
+    followed by the streamed backward. Kernels on CUDA tensors, plain
+    versions on CPU ones."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        if q.device.type == "cuda":
-            o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-        else:
-            o = mha_reference(q, k, v, causal=causal, scale=scale)
-            lse = _lse_reference(q, k, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, stream, window):
+        o, lse = _forward(q, k, v, causal, scale, stream, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
+        ctx.stream, ctx.window = stream, window
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         kw = dict(causal=ctx.causal, scale=ctx.scale)
-        if q.device.type != "cuda":
+        cuda = q.device.type == "cuda"
+        if not ctx.stream and not cuda:
             dq, dk, dv = flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                        **kw)
-            return dq, dk, dv, None, None
+            return dq, dk, dv, None, None, None, None
         delta = (o.float() * do.float()).sum(-1)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None
+        if ctx.stream:
+            kw["window"] = ctx.window
+            dq_fn, dkv_fn = ((flash_attention_bwd_dq_stream,
+                              flash_attention_bwd_dkv_stream) if cuda else
+                             (flash_attention_bwd_dq_stream_reference,
+                              flash_attention_bwd_dkv_stream_reference))
+        else:
+            dq_fn, dkv_fn = flash_attention_bwd_dq, flash_attention_bwd_dkv
+        dq = dq_fn(q, k, v, do, lse, delta, **kw)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None, None
+
+
+_STREAM_CHOICES = ("auto", "never", "always")
+
+
+def use_stream(stream: str, sq: int, sk: int, window: Optional[int],
+               has_bias: bool) -> bool:
+    """The ``stream=`` decision (the reference's at
+    ``flash_attention.py:1722-1739``, with the port's own 'auto' rule):
+    'auto' streams at ``max(sq, sk) >= STREAM_MIN_SEQ`` or with a window
+    (``window`` already reset to None where it covers everything); a dense
+    bias never streams, and 'always' with one raises."""
+    if stream not in _STREAM_CHOICES:
+        raise ValueError(f"stream must be auto|never|always, got {stream!r}")
+    do = stream == "always" or (stream == "auto" and (
+        max(sq, sk) >= STREAM_MIN_SEQ or window is not None))
+    if do and has_bias:
+        if stream == "always":
+            raise ValueError("stream='always' does not support dense bias; "
+                             "use segment_ids/causal for long sequences")
+        do = False
+    return do
+
+
+def _card_refusal(bias, segment_ids, stream: bool) -> str:
+    """What the card does not take yet, and the ROADMAP item that brings
+    it: a bias or segment ids on the resident kernels and the window there
+    (Queue 2 item 4), segment ids on the streamed kernels (item 5)."""
+    if bias is not None:
+        what, item = "a dense bias", 4
+    elif segment_ids is not None:
+        what, item = ("segment_ids on the streamed kernels", 5) if stream \
+            else ("segment_ids on the resident kernels", 4)
+    else:
+        what, item = "the window on the resident kernels (stream='never')", 4
+    return (f"flash_attention on CUDA does not take {what} yet: a later "
+            f"slice of the port (ROADMAP Queue 2 item {item})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -287,17 +660,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                 torch.Tensor]] = None,
                     pad_id: Optional[int] = None, causal: bool = False,
                     scale: Optional[float] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    stream: str = "auto") -> torch.Tensor:
     """Fused multi-head attention on ``(batch, heads, seq, head_dim)``.
 
     Same arguments and semantics as the reference's ``flash_attention``
     (minus its TPU tiling knobs): ``causal`` is the top-left-aligned
     upper-triangular mask, ``window`` the sliding window, ``bias`` an
     additive bias broadcastable to ``(b, h, sq, sk)``, ``segment_ids`` the
-    packed-varlen equality mask. Without those masks both devices go
+    packed-varlen equality mask, ``stream`` 'auto' | 'never' | 'always'
+    (:func:`use_stream`). Without bias or segment ids both devices go
     through :class:`FlashAttention` (kernels on the card, plain versions on
-    the CPU); CUDA tensors with a mask raise, CPU tensors with one take
-    :func:`mha_reference` and its own autograd.
+    the CPU), streamed or resident; the window needs the streamed path.
+    CUDA tensors with what the kernels do not take yet raise
+    ``NotImplementedError``; CPU tensors take :func:`mha_reference` and its
+    own autograd.
     """
     sq, sk = q.shape[2], k.shape[2]
     if window is not None:
@@ -307,23 +684,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if window >= max(sq, sk):
             window = None  # the band covers everything: dense attention
     on = check_device(q, "q")
-    masked = [name for name, val in (("bias", bias),
-                                     ("segment_ids", segment_ids),
-                                     ("window", window))
-              if val is not None]
-    if masked:
+    do_stream = use_stream(stream, sq, sk, window, bias is not None)
+    plain = (bias is not None or segment_ids is not None
+             or (window is not None and not do_stream))
+    if plain:
         if on == "cpu":
             return mha_reference(q, k, v, bias, causal=causal, scale=scale,
                                  segment_ids=segment_ids, pad_id=pad_id,
                                  window=window)
-        raise NotImplementedError(
-            f"flash_attention on CUDA does not take {masked} yet: the "
-            f"mask extensions of the flash kernels are a later slice "
-            f"(ROADMAP Queue 2 item 4)")
+        raise NotImplementedError(_card_refusal(bias, segment_ids,
+                                                do_stream))
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, scale)
-    if on == "cpu":
+        return FlashAttention.apply(q, k, v, causal, scale, do_stream,
+                                    window)
+    if on == "cpu" and not do_stream:
         return mha_reference(q, k, v, causal=causal, scale=scale)
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
+    return _forward(q, k, v, causal, scale, do_stream, window)[0]

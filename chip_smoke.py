@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
 
-Five phases; any failure raises and exits non-zero:
+Six phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
@@ -11,12 +11,14 @@ Five phases; any failure raises and exits non-zero:
 2. **Kernel vs plain**: each kernel (LayerNorm forward and backward,
    flash-attention forward, its dQ and dK/dV backward, paged flash-decode
    with and without its window, the K-query paged decode, the softmax
-   cross-entropy forward and backward) against its plain PyTorch version
-   on the card, at the main paths' shapes in bf16 and fp32 plus edge
-   cases, each error beside its stated tolerance; then device
+   cross-entropy forward and backward, the streamed flash forward with its
+   merge pass, dQ and dK/dV with the sliding window) against its plain
+   PyTorch version on the card, at the main paths' shapes in bf16 and fp32
+   plus edge cases, each error beside its stated tolerance; then device
    times by CUDA-graph replay between CUDA events (kernel, plain version,
    one PyTorch library call as yardstick where one computes the same
-   function) and the least time the card could take.
+   function; the resident flash kernels beside the streamed ones at 4096
+   and 8192 tokens) and the least time the card could take.
 3. **Serving**: fp32 gates on a small model (the monolithic engine, then
    chunked prefill, the prefix cache, speculative decoding with a
    self-draft and a 1-layer draft, and all three: every token against the
@@ -52,13 +54,25 @@ Five phases; any failure raises and exits non-zero:
    its master cast down; images/s, the model-FLOPs share of 989 TFLOP/s
    from the model's own conv and fc shapes, peak memory, and one profiled
    step's device-busy share and top kernels.
+6. **Long-context training**
+   (``apex_tpu_torch.examples.longcontext.train_long_context``): an fp32
+   gradient gate on a small GPT at 4096 tokens with rotary positions and a
+   512-token window (card through the streamed kernels against the CPU),
+   then GPT-2 345M at full width and depth under amp O2 with
+   FusedAdam(lr=1e-4), full remat and lm_head_chunks=8, two ways: (A)
+   batch 1 x 8192 with learned positions, (B) batch 1 x 16384 with rotary
+   positions and a 4096-token window. Each: one warm-up step and 10 timed
+   as one window, the exact launch counts (the streamed forward 2L a step,
+   dQ and dK/dV L each, the resident flash kernels 0), a falling finite
+   loss, no skipped step, bf16 params equal to their masters cast down;
+   tokens/s, the model-FLOPs share, peak memory, and one profiled step.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them, the one before that a ``{"kernels": [...]}`` JSON object
 (``launches_by_path``: each kernel's count on the three serving runs, the
-GPT training run and the ResNet training run, each counted from 0;
-``launches``: their sum), and the last line ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+GPT training run, the ResNet training run and the two long-context runs,
+each counted from 0; ``launches``: their sum), and the last line
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 import json
@@ -314,6 +328,19 @@ def rel_err(got, ref):
     return max_err(got, ref) / max(float(ref.float().abs().max()), 1e-30)
 
 
+def row_err(got, ref):
+    """The worst row's ||got - ref||_2 / ||ref||_2 (rows along the last
+    axis, heads along the one before, in fp32). A row's norm is floored at
+    1e-3 of the largest in its head, so a row whose exact value cancels
+    (dQ of a query that sees one key) is held to its head's scale and not
+    to its rounding noise; a row whose reference is exactly 0 must be 0."""
+    g, r = got.float(), ref.float()
+    den = r.norm(dim=-1)
+    den = den.maximum(den.amax(dim=-1, keepdim=True) * 1e-3)
+    num = (g - r).norm(dim=-1)
+    return float((num / den.clamp_min(1e-30)).max())
+
+
 def check_layer_norm_bwd(torch, ops, dev):
     """LayerNorm backward kernel against ``layer_norm_bwd_reference`` on the
     same g, x and the forward kernel's mean/rstd. Tolerances, as a share of
@@ -518,6 +545,283 @@ def check_flash_attention_bwd(torch, ops, dev):
             dict(common, name="flash_attention_bwd_dkv",
                  replaces="apex_tpu/ops/flash_attention.py:411", ms=ms_dkv,
                  bound_ms=dkv_bound[0], bound_by=dkv_bound[1])]
+
+
+def visible_pairs(sq, sk, causal, window):
+    """(query, key) pairs the causal and window masks leave, per head."""
+    total = 0
+    for q in range(sq):
+        hi = min(q + 1, sk) if causal else sk
+        lo = 0
+        if window is not None:
+            lo = max(0, q - window + 1)
+            if not causal:
+                hi = min(sk, q + window)
+        total += max(0, hi - lo)
+    return total
+
+
+def stream_bounds(b, h, sq, sk, d, causal, window):
+    """(fwd, dq, dkv) bounds of the streamed kernels: each operand read
+    once and each output written once (bf16 q/k/v/o/dO/dq/dk/dv, fp32
+    lse/delta) against 2, 3 and 4 products of 2*d FLOPs per visible pair."""
+    pairs = visible_pairs(sq, sk, causal, window) * b * h
+    q_el, k_el = b * h * sq * d, b * h * sk * d
+    rows = b * h * sq * 4
+    return (bound(2 * (2 * q_el + 2 * k_el) + rows, 4 * d * pairs,
+                  "bfloat16"),
+            bound(2 * (3 * q_el + 2 * k_el) + 2 * rows, 6 * d * pairs,
+                  "bfloat16"),
+            bound(2 * (2 * q_el + 4 * k_el) + 2 * rows, 8 * d * pairs,
+                  "bfloat16"), pairs)
+
+
+# worst-row limits (row_err) of the streamed kernels, (forward, backward),
+# keyed by "is bf16": twice the worst bf16 reading of the cases below on an
+# H100 (0.0062 forward, 0.0075 backward; 0.0055 at the path shapes), and
+# 5x the worst fp32 reading (1.9e-6); a halved tail of rows reads 0.5
+ROW_TOL = {True: (1.5e-2, 1.5e-2), False: (1e-5, 1e-5)}
+
+
+def check_flash_attention_stream(torch, ops, dev):
+    """The three streamed kernels (forward with its merge pass, dQ, dK/dV)
+    against their plain versions (``flash_attention_*_stream_reference``:
+    per-split partials and the lse merge, split-wise dQ sums, q-split dK/dV
+    sums) on the same inputs; the backward from the kernel forward's lse.
+    Each output is held twice. As a share of max |ref| over the tensor:
+    bf16 forward 2e-2 (P rounded to bf16 as an mma operand), bf16 backward
+    1e-2 (P and dS rounded, then each output); fp32 1e-5 (fp32 sums in
+    another order, and the dQ, dK, dV splits added by atomics in an order
+    that changes from run to run). That max comes from the first rows,
+    which see few keys and are large, so it cannot hold the long rows; the
+    worst row's own error (:func:`row_err`, limits :data:`ROW_TOL`) does,
+    and at the path shapes a tail of rows halved must fail it. Rows that
+    see no key must give o = 0 and lse = -1e30 exactly. Then device times
+    at the two path shapes beside their bounds, the plain versions, the
+    resident kernels (unwindowed shapes) and SDPA (causal, or with the
+    boolean band mask under the window), and resident against streamed at
+    4096 and 8192: the numbers behind STREAM_MIN_SEQ."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def rand(*shape, dt):
+        return torch.randn(*shape, device=dev, generator=gen).to(dt)
+
+    def run(q, k, v, causal, window, label):
+        dt = q.dtype
+        do = rand(*q.shape, dt=dt)
+        scale = q.shape[-1] ** -0.5
+        o, lse = ops.flash_attention_fwd_stream(q, k, v, causal=causal,
+                                                window=window)
+        delta = (o.float() * do.float()).sum(-1)
+        kw = dict(causal=causal, scale=scale, window=window)
+        dq = ops.flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, **kw)
+        dk, dv = ops.flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta,
+                                                    **kw)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = ops.flash_attention_fwd_stream_reference(
+            q, k, v, causal=causal, window=window)
+        refs = (ops.flash_attention_bwd_dq_stream_reference(
+            q, k, v, do, lse, delta, **kw),
+            *ops.flash_attention_bwd_dkv_stream_reference(
+                q, k, v, do, lse, delta, **kw))
+        fwd_tol = 2e-2 if dt == bf16 else 1e-5
+        bwd_tol = 1e-2 if dt == bf16 else 1e-5
+        row_fwd, row_bwd = ROW_TOL[dt == bf16]
+        check(o.dtype == dt and o.shape == q.shape, f"stream {label} o")
+        dead = lse_ref <= tfa.NEG_INF / 2
+        e_lse = max_err(lse[~dead], lse_ref[~dead]) if (~dead).any() else 0.0
+        check(e_lse <= 1e-4 * max(1.0, float(lse_ref[~dead].abs().max())
+                                  if (~dead).any() else 1.0),
+              f"stream fwd {label}: lse err {e_lse:.3g}")
+        n_dead = int(dead.sum())
+        if n_dead:
+            check(bool((o[dead] == 0).all()) and bool(
+                (lse[dead] == tfa.NEG_INF).all()),
+                f"stream fwd {label}: fully masked rows not exactly 0")
+        parts = [f"lse {e_lse:.3g}"]
+        worst = {"fwd": max_err(o, o_ref), "dq": max_err(dq, refs[0]),
+                 "dkv": max(max_err(dk, refs[1]), max_err(dv, refs[2]))}
+        sq = q.shape[2]
+        for name, a, r, tol, rtol in zip(
+                ("o", "dQ", "dK", "dV"), (o, dq, dk, dv), (o_ref, *refs),
+                (fwd_tol, bwd_tol, bwd_tol, bwd_tol),
+                (row_fwd, row_bwd, row_bwd, row_bwd)):
+            check(a.dtype == dt and a.shape == r.shape,
+                  f"stream {label} {name} dtype/shape")
+            e, e_row = rel_err(a, r), row_err(a, r)
+            parts.append(f"{name} {e:.3g} of max|ref| (tol {tol:g}), worst "
+                         f"row {e_row:.3g} (tol {rtol:g})")
+            check(e <= tol, f"stream {label} {name}: rel err {e:.3g} > "
+                  f"{tol:g}")
+            check(e_row <= rtol, f"stream {label} {name}: worst row err "
+                  f"{e_row:.3g} > {rtol:g}")
+            if sq >= 4096 and sq == a.shape[2]:
+                # the row measure must catch a tail of rows gone half
+                # wrong, which the share of max|ref| lets through
+                bad = a.clone()
+                bad[:, :, sq // 2:] *= 0.5
+                planted = row_err(bad, r)
+                check(planted > rtol, f"stream {label} {name}: the row "
+                      f"measure misses a halved tail ({planted:.3g})")
+                parts.append(f"halved tail: row {planted:.3g}, of max|ref| "
+                             f"{rel_err(bad, r):.3g}")
+                del bad
+        print(f"  flash_attention_stream {label}: " + ", ".join(parts)
+              + f"; {n_dead} rows with no key exactly 0")
+        return worst
+
+    cases = [  # b, h, sq, sk, d, dtype, causal, window
+        (1, 16, 8192, 8192, 64, bf16, True, None),
+        (1, 16, 16384, 16384, 64, bf16, True, 4096),
+        (1, 2, 4097, 4097, 64, f32, True, None),
+        (1, 2, 4097, 4097, 64, bf16, True, 1000),
+        (2, 3, 1000, 1000, 16, f32, False, 100),
+        (2, 3, 1000, 1000, 16, bf16, True, None),
+        (1, 2, 1000, 1000, 128, f32, True, 300),
+        (1, 4, 1000, 1000, 128, bf16, False, 200),
+        (1, 2, 300, 77, 64, f32, True, 16),     # rows past 92 see no key
+        (1, 2, 300, 77, 64, bf16, True, 16),
+        (2, 2, 100, 120, 36, bf16, False, 30),  # unaligned: scalar loads
+        (1, 2, 77, 300, 40, f32, False, None),
+    ]
+    main_err = None
+    for b, h, sq, sk, d, dt, causal, window in cases:
+        q, k, v = rand(b, h, sq, d, dt=dt), rand(b, h, sk, d, dt=dt), \
+            rand(b, h, sk, d, dt=dt)
+        err = run(q, k, v, causal, window, f"b={b} h={h} sq={sq} sk={sk} "
+                  f"d={d} {str(dt)[6:]} causal={causal} window={window}")
+        if main_err is None:
+            main_err = err
+        del q, k, v
+    qkv = rand(1, 4096, 4, 3, 64, dt=bf16).permute(0, 2, 3, 1, 4)
+    run(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True, 512,
+        "strided fused-QKV view (1,4,4096,64) bf16 causal window=512")
+    # the entry point routes: stream='always' at 1000 tokens, a window at
+    # 1024, and 'auto' at 4096 all take the streamed kernels
+    before = ops.launch_counts()
+    q = rand(1, 2, 1000, 64, dt=bf16)
+    ops.flash_attention(q, q, q, causal=True, stream="always")
+    ops.flash_attention(q, q, q, causal=True, window=128)
+    q = rand(1, 2, 4096, 64, dt=bf16)
+    ops.flash_attention(q, q, q, causal=True)
+    after = ops.launch_counts()
+    check(after["flash_attention_fwd_stream"]
+          - before["flash_attention_fwd_stream"] == 3
+          and after["flash_attention_fwd"] == before["flash_attention_fwd"],
+          "flash_attention routes always / window / auto-4096 to the "
+          "streamed forward")
+    del q, qkv
+    torch.cuda.empty_cache()
+
+    def timings(b, h, s, d, window):
+        q, k, v, do = (rand(b, h, s, d, dt=bf16) for _ in range(4))
+        scale = d ** -0.5
+        kw = dict(causal=True, scale=scale, window=window)
+        o, lse = ops.flash_attention_fwd_stream(q, k, v, causal=True,
+                                                window=window)
+        delta = (o.float() * do.float()).sum(-1)
+        out = {"fwd": {}, "dq": {}, "dkv": {}}
+        out["fwd"]["ms"] = time_ms(lambda: ops.flash_attention_fwd_stream(
+            q, k, v, causal=True, window=window), 10)
+        out["dq"]["ms"] = time_ms(lambda: ops.flash_attention_bwd_dq_stream(
+            q, k, v, do, lse, delta, **kw), 10)
+        out["dkv"]["ms"] = time_ms(
+            lambda: ops.flash_attention_bwd_dkv_stream(q, k, v, do, lse,
+                                                       delta, **kw), 10)
+        out["fwd"]["plain_ms"] = time_ms(
+            lambda: ops.flash_attention_fwd_stream_reference(
+                q, k, v, causal=True, window=window), 1, 2)
+        out["dq"]["plain_ms"] = time_ms(
+            lambda: ops.flash_attention_bwd_dq_stream_reference(
+                q, k, v, do, lse, delta, **kw), 1, 2)
+        out["dkv"]["plain_ms"] = time_ms(
+            lambda: ops.flash_attention_bwd_dkv_stream_reference(
+                q, k, v, do, lse, delta, **kw), 1, 2)
+        fb, qb, kb, pairs = stream_bounds(b, h, s, s, d, True, window)
+        for key, bd in (("fwd", fb), ("dq", qb), ("dkv", kb)):
+            out[key]["bound_ms"], out[key]["bound_by"] = bd
+        # SDPA as the yardstick: causal, or under a window the boolean
+        # band mask (keys [p-w+1, p]), built once outside the timed call
+        if window is None:
+            sdpa_kw = dict(is_causal=True)
+        else:
+            i = torch.arange(s, device=dev, dtype=torch.int32)
+            diff = i[:, None] - i[None, :]
+            sdpa_kw = dict(attn_mask=(diff >= 0) & (diff < window))
+            del i, diff
+        out["fwd"]["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw), 10)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            so = F.scaled_dot_product_attention(ql, kl, vl, **sdpa_kw)
+        torch.cuda.synchronize()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            so, (ql, kl, vl), do, retain_graph=True), 10, stream=side)
+        out["dq"]["library_ms"] = out["dkv"]["library_ms"] = lib_bwd
+        del so, ql, kl, vl, sdpa_kw
+        if window is None:
+            # the resident kernels beside the streamed ones
+            ro, rlse = ops.flash_attention_fwd(q, k, v, causal=True)
+            rdelta = (ro.float() * do.float()).sum(-1)
+            rkw = dict(causal=True, scale=scale)
+            out["fwd"]["resident_ms"] = time_ms(
+                lambda: ops.flash_attention_fwd(q, k, v, causal=True), 10)
+            out["dq"]["resident_ms"] = time_ms(
+                lambda: ops.flash_attention_bwd_dq(q, k, v, do, rlse, rdelta,
+                                                   **rkw), 10)
+            out["dkv"]["resident_ms"] = time_ms(
+                lambda: ops.flash_attention_bwd_dkv(q, k, v, do, rlse,
+                                                    rdelta, **rkw), 10)
+        label = f"({b},{h},{s},{d}) bf16 causal" + (
+            f" window {window}" if window else "")
+        flops = {"fwd": 4, "dq": 6, "dkv": 8}
+        for key in ("fwd", "dq", "dkv"):
+            t = out[key]
+            res = (f", resident {t['resident_ms']:.4f} ms"
+                   if "resident_ms" in t else "")
+            lib = (f", SDPA {t['library_ms']:.4f} ms"
+                   + (" with the band mask" if window else "")
+                   + (" (backward: dQ+dK+dV)" if key != "fwd" else ""))
+            rate = flops[key] * d * pairs / t["ms"] / 1e9
+            print(f"  flash_attention_stream timing {label} {key}: kernel "
+                  f"{t['ms']:.4f} ms ({rate:.1f} TFLOP/s), bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+                  f"{t['plain_ms']:.4f} ms{res}{lib}")
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+        return label, out
+
+    by_shape = dict(timings(1, 16, s, 64, w)
+                    for s, w in ((8192, None), (16384, 4096), (4096, None)))
+    main_label = "(1,16,8192,64) bf16 causal"
+    for s_label in (main_label, "(1,16,4096,64) bf16 causal"):
+        t = by_shape[s_label]
+        stream_sum = sum(t[k]["ms"] for k in ("fwd", "dq", "dkv"))
+        res_sum = sum(t[k]["resident_ms"] for k in ("fwd", "dq", "dkv"))
+        print(f"  STREAM_MIN_SEQ basis {s_label}: forward + dQ + dK/dV "
+              f"streamed {stream_sum:.4f} ms, resident {res_sum:.4f} ms")
+    rows = []
+    for key, name, line in (
+            ("fwd", "flash_attention_fwd_stream", 506),
+            ("dq", "flash_attention_bwd_dq_stream", 576),
+            ("dkv", "flash_attention_bwd_dkv_stream", 637)):
+        main = dict(by_shape[main_label][key])
+        main.pop("resident_ms", None)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="apex_tpu_torch/csrc/flash_attention_stream.cu",
+            replaces=f"apex_tpu/ops/flash_attention.py:{line}",
+            max_abs_err=main_err[key],
+            by_shape={lab: t[key] for lab, t in by_shape.items()}, **main))
+    return rows
 
 
 def _decode_inputs(torch, dev, gen, b, h, kh, blk, d, nb, max_blocks, dt,
@@ -1289,13 +1593,16 @@ def gradient_gate(torch, ops, dev):
           f"{worst[1]})")
 
 
-def model_flops_per_token(cfg):
+def model_flops_per_token(cfg, pairs=None):
     """Training FLOPs per token, without the remat recompute: 6 x (the
     12*L*H^2 layer weights + the V*H tied head) + 6*L*S*H for the causal
-    attention products (half of 12*L*S*H)."""
+    attention products (half of 12*L*S*H). With ``pairs``, the (query, key)
+    pairs a head sees in one sequence (a window), the attention term is
+    12*L*H*pairs/S instead."""
     L, H, S, V = (cfg.num_layers, cfg.hidden_size, cfg.max_seq_len,
                   cfg.vocab_size)
-    return 6 * (12 * L * H * H + V * H) + 6 * L * S * H
+    attn = 6 * L * S * H if pairs is None else 12 * L * H * pairs / S
+    return 6 * (12 * L * H * H + V * H) + attn
 
 
 def train_345m(torch, ops, dev):
@@ -1317,11 +1624,12 @@ def train_345m(torch, ops, dev):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     steps = n + 1
-    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
-                "flash_attention_bwd_dkv": L, "layer_norm_fwd": 4 * L + 1,
-                "layer_norm_bwd": 2 * L + 1, "flash_decode": 0,
-                "flash_decode_multi": 0, "xentropy_fwd": 0,
-                "xentropy_bwd": 0}
+    per_step = dict.fromkeys(counts, 0)
+    per_step.update({"flash_attention_fwd": 2 * L,
+                     "flash_attention_bwd_dq": L,
+                     "flash_attention_bwd_dkv": L,
+                     "layer_norm_fwd": 4 * L + 1,
+                     "layer_norm_bwd": 2 * L + 1})
     expected = {k: v * steps for k, v in per_step.items()}
     print(f"  345M O2 train: {n_params / 1e6:.1f} M params, batch "
           f"{bench.batch} x {cfg.max_seq_len}, {steps} steps, launches "
@@ -1575,6 +1883,162 @@ def train_resnet50(torch, ops, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: long-context training (the streamed flash kernels)
+# ---------------------------------------------------------------------------
+
+
+def long_context_gradient_gate(torch, ops, dev):
+    """fp32, small GPT at s = 4096 with rotary positions and a 512-token
+    window (hidden 128, 4 heads, 2 layers, lm_head_chunks=2, remat on):
+    loss and every parameter's grad on the card through the streamed
+    kernels against the same parameters on the CPU through their plain
+    versions. Tolerance: loss 1e-5 relative; each grad 1e-4 of its max
+    |CPU grad| (fp32 sums in another order, the split sums by atomics)."""
+    import numpy as np
+
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+
+    cfg = GPTConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                    num_attention_heads=4, max_seq_len=4096,
+                    compute_dtype=torch.float32, hidden_dropout=0.0,
+                    remat=True, lm_head_chunks=2,
+                    position_embedding="rope", attention_window=512)
+    card = GPTModel(cfg, device=dev, seed=11)
+    host = GPTModel(cfg, device="cpu", seed=11)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 4096)))
+    targets = torch.roll(tokens, -1, dims=-1)
+    ops.reset_launch_counts()
+    loss_c = card.loss(tokens.to(dev), targets.to(dev))
+    loss_c.backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    loss_h = host.loss(tokens, targets)
+    loss_h.backward()
+    loss_c, loss_h = float(loss_c.detach()), float(loss_h.detach())
+    rel = abs(loss_c - loss_h) / abs(loss_h)
+    print(f"  fp32 long-context gradient gate (s=4096, rope, window 512): "
+          f"loss card {loss_c:.7f} cpu {loss_h:.7f} (rel {rel:.3g}, tol "
+          f"1e-05); launches {counts}")
+    check(rel <= 1e-5, "long-context gradient gate loss")
+    for name in ("flash_attention_fwd_stream", "flash_attention_bwd_dq_stream",
+                 "flash_attention_bwd_dkv_stream"):
+        check(counts[name] > 0, f"long-context gate never launched {name}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        check(counts[name] == 0, f"long-context gate launched {name}")
+    worst = (0.0, "")
+    for (name, pc), ph in zip(card.named_parameters(), host.parameters()):
+        check(pc.grad is not None and ph.grad is not None,
+              f"long-context gate: no grad for {name}")
+        e = rel_err(pc.grad.cpu(), ph.grad)
+        worst = max(worst, (e, name))
+        check(e <= 1e-4, f"long-context gate {name}: rel err {e:.3g} > 1e-4")
+    print(f"  fp32 long-context gradient gate: {len(list(host.parameters()))}"
+          f" parameter grads within 1e-4 of max|cpu grad| (worst "
+          f"{worst[0]:.3g}, {worst[1]})")
+
+
+def train_long_context(torch, ops, dev, seq, window, pos):
+    """GPT-2 345M (vocab 50304, hidden 1024, 24 layers, 16 heads) under amp
+    O2 with FusedAdam(lr=1e-4), full remat and lm_head_chunks=8, batch 1 x
+    ``seq``, through ``examples/longcontext/train_long_context.build``: one
+    warm-up step and 10 timed as one window, with the exact launch counts,
+    a falling finite loss, no skipped step and bf16 params equal to their
+    masters cast down; then one profiled step."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.bench import fixed_batch, train_steps
+    from apex_tpu_torch.examples.longcontext.train_long_context import build
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = build(seq=seq, hidden=1024, layers=24, heads=16, vocab=50304,
+                    batch=1, lm_head_chunks=8, window=window, pos=pos,
+                    device=dev, seed=0)
+    cfg, L = trainer.cfg, trainer.cfg.num_layers
+    label = f"345M O2 long-context seq {seq} {pos}" + (
+        f" window {window}" if window else "")
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    tokens, targets = fixed_batch(trainer)
+    n = 10
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    stats = train_steps(trainer, n, tokens, targets)  # 1 warm-up + n timed
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    steps = n + 1
+    per_step = dict.fromkeys(counts, 0)
+    per_step.update({"flash_attention_fwd_stream": 2 * L,
+                     "flash_attention_bwd_dq_stream": L,
+                     "flash_attention_bwd_dkv_stream": L,
+                     "layer_norm_fwd": 4 * L + 1,
+                     "layer_norm_bwd": 2 * L + 1})
+    expected = {k: v * steps for k, v in per_step.items()}
+    print(f"  {label}: {n_params / 1e6:.1f} M params, batch 1 x {seq}, "
+          f"{steps} steps, launches {counts} (expected per step "
+          f"{ {k: v for k, v in per_step.items() if v} }, others 0)")
+    check_counts(counts, expected)
+    losses = stats["losses"]
+    skipped = sum(m["found_inf"] for m in stats["metrics"])
+    steps_ms = stats["step_ms"]
+    ms = stats["window_ms"] / n
+    tok = stats["tokens_per_step"]
+    pairs = visible_pairs(seq, seq, True, window) if window else None
+    flops = model_flops_per_token(cfg, pairs) * tok
+    formula = ("6*(12*L*H^2 + V*H) + 6*L*S*H per token" if pairs is None
+               else f"6*(12*L*H^2 + V*H) + 12*L*H*pairs/S per token, pairs = "
+               f"{pairs} visible (query, key) pairs of a head")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"  {label}: {n} steps in {stats['window_ms']:.2f} ms = {ms:.2f} "
+          f"ms a step (per step: median {statistics.median(steps_ms):.2f}, "
+          f"min {min(steps_ms):.2f}, max {max(steps_ms):.2f}; all "
+          f"{[round(t, 2) for t in steps_ms]}), "
+          f"{n * tok / stats['window_ms'] * 1e3:.1f} tokens/s, model FLOPs "
+          f"{flops / 1e12:.3f} T/step = {flops / ms / 1e9:.1f} TFLOP/s = "
+          f"{flops / ms / 1e9 / 989:.3f} of 989 TFLOP/s ({formula}), peak "
+          f"memory {peak:.2f} GiB")
+    print(f"  {label}: loss first {losses[0]:.4f} last {losses[-1]:.4f} "
+          f"({[round(v, 4) for v in losses]}), loss scale "
+          f"{stats['metrics'][-1]['loss_scale']:g}, skipped steps {skipped}")
+    check(all(np.isfinite(losses)), f"{label}: every loss finite")
+    check(losses[-1] < losses[0], f"{label}: the loss falls")
+    check(skipped == 0, f"{label}: no step skipped")
+    for p, m in zip(trainer.model.parameters(), trainer.opt_state.master):
+        check(torch.equal(p, m.to(p.dtype)),
+              f"{label}: bf16 params == masters cast")
+    check(any(p.dtype == torch.bfloat16
+              for p in trainer.model.parameters())
+          and trainer.model.ln_f.scale.dtype == torch.float32
+          and (trainer.model.position is None) == (pos != "learned"),
+          f"{label}: O2 dtypes and the position table")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(tokens, targets)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = device_time_by_kernel(torch, prof)
+    busy = sum(t for _, t in by_name.values()) / 1e3
+    if busy <= 0:
+        print(f"  {label}: device time by kernel not measured (the profiler "
+              f"saw no device events)")
+    else:
+        ours = sum(t for name, (_, t) in by_name.items()
+                   if "apex_torch" in name) / 1e3
+        print(f"  {label}, one profiled step: wall {wall:.1f} ms, device "
+              f"busy {busy:.1f} ms = {busy / wall:.3f} (idle "
+              f"{1 - busy / wall:.3f}), the port's kernels {ours:.1f} ms = "
+              f"{ours / busy:.3f} of busy; device time by kernel:")
+        print_top(by_name)
+    del trainer
+    return counts
+
+
 def main():
     import torch
 
@@ -1605,6 +2069,7 @@ def main():
             check_layer_norm_bwd(torch, ops, dev),
             check_flash_attention(torch, ops, dev),
             *check_flash_attention_bwd(torch, ops, dev),
+            *check_flash_attention_stream(torch, ops, dev),
             check_flash_decode(torch, ops, dev),
             check_flash_decode_multi(torch, ops, dev),
             *check_xentropy(torch, ops, dev)]
@@ -1627,12 +2092,20 @@ def main():
     print("phase 5: ResNet-50 training")
     resnet_gradient_gate(torch, ops, dev)
     resnet_counts = train_resnet50(torch, ops, dev)
+    torch.cuda.empty_cache()
+
+    print("phase 6: long-context training")
+    long_context_gradient_gate(torch, ops, dev)
+    long_counts = train_long_context(torch, ops, dev, 8192, None, "learned")
+    window_counts = train_long_context(torch, ops, dev, 16384, 4096, "rope")
     for row in rows:
         by_path = {"serve": serve_counts[row["name"]],
                    "serve_prefix_spec": spec_counts[row["name"]],
                    "serve_chunked": chunk_counts[row["name"]],
                    "train": train_counts[row["name"]],
-                   "train_resnet": resnet_counts[row["name"]]}
+                   "train_resnet": resnet_counts[row["name"]],
+                   "train_long": long_counts[row["name"]],
+                   "train_long_window": window_counts[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     keys = ("name", "route", "source", "replaces", "launches",

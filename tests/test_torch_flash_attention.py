@@ -170,8 +170,11 @@ def test_plain_backward_matches_autograd_through_mha_reference(causal):
 
 
 def test_masked_cpu_inputs_keep_mha_reference_autograd():
+    # a bias (no kernel takes one yet) keeps mha_reference's autograd; the
+    # window goes through FlashAttention's streamed path
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv())
-    out = tfa.flash_attention(q, k, v, causal=True, window=5)
+    bias = torch.zeros(1, 1, 24, 24)
+    out = tfa.flash_attention(q, k, v, bias, causal=True)
     assert type(out.grad_fn).__name__ != "FlashAttentionBackward"
     out.sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()

@@ -89,24 +89,46 @@ def test_entry_points_default_to_the_card(monkeypatch):
     ("position_embedding", "rope"),
 ])
 def test_options_outside_the_slice_raise(field, value):
+    """Each option raises where the slice stops: at construction, or for
+    rotary positions (which train) at the serving hooks."""
     cfg = GPTConfig(**{field: value}, **SMALL)
     with pytest.raises(NotImplementedError, match="later|slice"):
-        GPTModel(cfg, device="cpu")
+        GPTModel(cfg, device="cpu").check_servable()
 
 
-def test_window_raises_on_the_card_and_runs_plain_on_the_cpu():
-    from apex_tpu_torch.models.gpt import _check_slice
-
+def test_window_raises_on_the_card_and_runs_plain_on_the_cpu(monkeypatch):
+    """On the card only the streamed flash kernels take the window, so the
+    resident route (stream='never') with a window raises there, naming its
+    ROADMAP item; the same call on the CPU runs the plain version."""
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    q = torch.randn(1, 2, 12, 8)
+    out = tfa.flash_attention(q, q, q, causal=True, window=4, stream="never")
+    ref = tfa.mha_reference(q, q, q, causal=True, window=4)
+    assert torch.allclose(out, ref, atol=1e-6)
+    monkeypatch.setattr(tfa, "check_device", lambda t, name: "cuda")
+    with pytest.raises(NotImplementedError,
+                       match=r"window on the resident.*Queue 2 item 4"):
+        tfa.flash_attention(q, q, q, causal=True, window=4, stream="never")
     cfg = GPTConfig(attention_window=8, **SMALL)
-    with pytest.raises(NotImplementedError, match="window"):
-        _check_slice(cfg, torch.device("cuda"))
-    _check_slice(cfg, torch.device("cpu"))
     m = GPTModel(cfg, device="cpu")
     assert m.apply(torch.zeros(1, 12, dtype=torch.long)).shape == (1, 12, 61)
     from apex_tpu_torch.transformer.tensor_parallel import (
         ColumnParallelLinear)
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         ColumnParallelLinear(4, 4, axis="model")
+
+
+def test_the_model_takes_the_window_on_the_card_through_the_stream():
+    """A windowed GPT is accepted for the card: 'auto' routes the window to
+    the streamed kernels; only 'never' would keep it off them."""
+    from apex_tpu_torch.models.gpt import _check_slice
+
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    cfg = GPTConfig(attention_window=8, **SMALL)
+    _check_slice(cfg, torch.device("cuda"))
+    _check_slice(cfg, torch.device("cpu"))
+    assert tfa.use_stream("auto", 12, 12, 8, False)
+    assert not tfa.use_stream("never", 12, 12, 8, False)
 
 
 def test_importing_the_package_needs_no_nvcc(monkeypatch):
@@ -119,8 +141,9 @@ def test_importing_the_package_needs_no_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
     assert {os.path.basename(s) for s in build.sources()} == {
-        "flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
-        "layer_norm.cu", "xentropy.cu"}
+        "flash_attention.cu", "flash_attention_bwd.cu",
+        "flash_attention_stream.cu", "flash_decode.cu", "layer_norm.cu",
+        "xentropy.cu"}
 
 
 def test_differentiable_outputs_carry_the_ports_functions():
