@@ -10,7 +10,10 @@ with amp O2 (``bench``), and trains ResNet-50 with the ImageNet recipe
 (``models.ResNet50``, ``examples.imagenet.main_amp``) through the
 hand-written kernels of ``csrc/`` (flash attention and its backward,
 LayerNorm and its backward, paged decode, softmax cross-entropy and its
-backward). Entry points default to the card; ``device="cpu"`` runs the
+backward, the fused scale-mask softmax and its backward behind
+``transformer.functional.FusedScaleMaskSoftmax``). The small layers
+(``normalization``, ``contrib.FastLayerNorm``, ``models.MLP`` and the fused
+dense layers) run over the LayerNorm kernels and ``torch.matmul``. Entry points default to the card; ``device="cpu"`` runs the
 plain PyTorch versions of the kernels instead.
 
 The package imports ``torch``, numpy and the standard library only.

@@ -62,6 +62,8 @@ SIGNATURES = {
                                  + [_F] + [_I] * 5 + [_P],
     "apex_xent_fwd": [_P] * 4 + [_L, _I, _F, _L, _I, _P],
     "apex_xent_bwd": [_P] * 5 + [_L, _I, _F, _L, _I, _P],
+    "apex_softmax_fwd": [_P] * 3 + [_L] + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    "apex_softmax_bwd": [_P] * 3 + [_L, _I, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,9 @@
-"""Models of the port: the serial GPT and the ResNets."""
+"""Models of the port: the serial GPT, the ResNets, the fused dense
+layers and the MLP."""
 
+from apex_tpu_torch.models.fused_dense import FusedDense, FusedDenseGeluDense
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+from apex_tpu_torch.models.mlp import MLP
 from apex_tpu_torch.models.resnet import (
     BasicBlock,
     Bottleneck,
@@ -12,5 +15,6 @@ from apex_tpu_torch.models.resnet import (
     ResNet152,
 )
 
-__all__ = ["BasicBlock", "Bottleneck", "GPTConfig", "GPTModel", "ResNet",
-           "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152"]
+__all__ = ["BasicBlock", "Bottleneck", "FusedDense", "FusedDenseGeluDense",
+           "GPTConfig", "GPTModel", "MLP", "ResNet", "ResNet18", "ResNet34",
+           "ResNet50", "ResNet101", "ResNet152"]

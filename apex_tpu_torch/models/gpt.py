@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
+from apex_tpu_torch._params import copy_array_
 from apex_tpu_torch.models._transformer import (
     LayerNormParams,
     TransformerBase,
@@ -135,22 +136,13 @@ class GPTModel(TransformerBase):
         """Load the JAX ``GPTModel.init`` tree given as numpy arrays: layer
         leaves stacked ``(num_layers, ...)``, ``kernel`` in JAX's
         ``(in, out)`` layout (the port keeps it). Shapes must match."""
-
-        def put(param: torch.Tensor, arr, name: str) -> None:
-            arr = np.asarray(arr)
-            if arr.dtype.name == "bfloat16":  # ml_dtypes: torch reads fp32
-                arr = arr.astype(np.float32)
-            if tuple(arr.shape) != tuple(param.shape):
-                raise ValueError(f"{name}: tree shape {arr.shape} != model "
-                                 f"shape {tuple(param.shape)}")
-            param.copy_(torch.from_numpy(np.array(arr)).to(param.dtype))
-
-        put(self.embedding.embedding, tree["embedding"]["embedding"],
-            "embedding.embedding")
+        copy_array_(self.embedding.embedding, tree["embedding"]["embedding"],
+                    "embedding.embedding")
         if self.position is not None:
-            put(self.position, tree["position"], "position")
+            copy_array_(self.position, tree["position"], "position")
         for leaf in ("scale", "bias"):
-            put(getattr(self.ln_f, leaf), tree["ln_f"][leaf], f"ln_f.{leaf}")
+            copy_array_(getattr(self.ln_f, leaf), tree["ln_f"][leaf],
+                        f"ln_f.{leaf}")
         layers = tree["layers"]
         n = len(self.layers)
         for name, sub in layers.items():
@@ -160,8 +152,8 @@ class GPTModel(TransformerBase):
                     raise ValueError(f"layers.{name}.{leaf}: {stacked.shape[0]}"
                                      f" layers in the tree, {n} in the model")
                 for i, layer in enumerate(self.layers):
-                    put(getattr(getattr(layer, name), leaf), stacked[i],
-                        f"layers.{i}.{name}.{leaf}")
+                    copy_array_(getattr(getattr(layer, name), leaf),
+                                stacked[i], f"layers.{i}.{name}.{leaf}")
         return self
 
     # -- stages -------------------------------------------------------------

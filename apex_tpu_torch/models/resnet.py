@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
+from apex_tpu_torch._params import copy_array_
 from apex_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
 
 _CL = torch.channels_last
@@ -247,28 +248,22 @@ class ResNet(nn.Module):
                 tree = tree[p]
             return np.asarray(tree[key])
 
-        def put(t: torch.Tensor, arr, what):
-            src = torch.from_numpy(np.array(arr))
-            if tuple(src.shape) != tuple(t.shape):
-                raise ValueError(f"{what}: shape {tuple(src.shape)} != "
-                                 f"{tuple(t.shape)}")
-            t.copy_(src.to(t.dtype))
-
         for path, mod in self._tree_modules():
             what = "/".join(path)
             if isinstance(mod, Conv):
-                put(mod.weight, leaf(params, path, "kernel").transpose(
+                copy_array_(mod.weight, leaf(params, path, "kernel").transpose(
                     3, 2, 0, 1), what)
             elif isinstance(mod, Dense):
-                put(mod.weight, leaf(params, path, "kernel").T, what)
-                put(mod.bias, leaf(params, path, "bias"), what)
+                copy_array_(mod.weight, leaf(params, path, "kernel").T, what)
+                copy_array_(mod.bias, leaf(params, path, "bias"), what)
             else:
                 if mod.affine:
-                    put(mod.scale, leaf(params, path, "scale"), what)
-                    put(mod.bias, leaf(params, path, "bias"), what)
+                    copy_array_(mod.scale, leaf(params, path, "scale"), what)
+                    copy_array_(mod.bias, leaf(params, path, "bias"), what)
                 if mod.track_running_stats:
                     for key in ("mean", "var", "num_batches_tracked"):
-                        put(getattr(mod, key), leaf(stats, path, key), what)
+                        copy_array_(getattr(mod, key),
+                                    leaf(stats, path, key), what)
         return self
 
     @torch.no_grad()

@@ -44,6 +44,17 @@ from apex_tpu_torch.ops.lm_head_loss import (
     lm_head_cross_entropy,
     lm_head_cross_entropy_reference,
 )
+from apex_tpu_torch.ops.softmax import (
+    ScaledMaskedSoftmax,
+    scaled_masked_softmax,
+    scaled_masked_softmax_reference,
+    scaled_upper_triang_masked_softmax,
+    softmax_bwd,
+    softmax_bwd_reference,
+    softmax_fwd,
+    softmax_fwd_reference,
+    softmax_route,
+)
 from apex_tpu_torch.ops.xentropy import (
     SoftmaxXentropy,
     softmax_cross_entropy,
@@ -68,6 +79,8 @@ KERNEL_WRAPPERS = {
     "flash_decode_multi": flash_decode_multi_fwd,
     "xentropy_fwd": xentropy_fwd,
     "xentropy_bwd": xentropy_bwd,
+    "softmax_fwd": softmax_fwd,
+    "softmax_bwd": softmax_bwd,
 }
 
 
@@ -84,6 +97,7 @@ __all__ = [
     "FlashAttention",
     "FusedNorm",
     "KERNEL_WRAPPERS",
+    "ScaledMaskedSoftmax",
     "SoftmaxXentropy",
     "flash_attention",
     "flash_attention_bwd_dkv",
@@ -114,8 +128,16 @@ __all__ = [
     "reset_launch_counts",
     "rms_norm",
     "rms_norm_reference",
+    "scaled_masked_softmax",
+    "scaled_masked_softmax_reference",
+    "scaled_upper_triang_masked_softmax",
     "softmax_cross_entropy",
+    "softmax_bwd",
+    "softmax_bwd_reference",
     "softmax_cross_entropy_reference",
+    "softmax_fwd",
+    "softmax_fwd_reference",
+    "softmax_route",
     "xentropy_bwd",
     "xentropy_bwd_reference",
     "xentropy_fwd",

@@ -143,7 +143,7 @@ def test_importing_the_package_needs_no_nvcc(monkeypatch):
     assert {os.path.basename(s) for s in build.sources()} == {
         "flash_attention.cu", "flash_attention_bwd.cu",
         "flash_attention_stream.cu", "flash_decode.cu", "layer_norm.cu",
-        "xentropy.cu"}
+        "softmax.cu", "xentropy.cu"}
 
 
 def test_differentiable_outputs_carry_the_ports_functions():
@@ -167,6 +167,51 @@ def test_differentiable_outputs_carry_the_ports_functions():
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                  "layer_norm_bwd"):
         assert name in ops.KERNEL_WRAPPERS and name in ops.launch_counts()
+
+
+def test_every_pallas_call_has_a_kernel_wrapper():
+    """14 pallas_call sites in apex_tpu/ops, 14 counted wrappers."""
+    from apex_tpu_torch import ops
+
+    assert len(ops.KERNEL_WRAPPERS) == 14
+    assert {"softmax_fwd", "softmax_bwd"} <= set(ops.launch_counts())
+    for fn in (ops.softmax_fwd, ops.softmax_bwd):
+        assert isinstance(fn.launches, int)
+
+
+def test_new_modules_import_no_jax():
+    """The softmax slice's modules are among the scanned files."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"apex_tpu_torch/ops/softmax.py",
+            "apex_tpu_torch/transformer/functional/fused_softmax.py",
+            "apex_tpu_torch/normalization/fused_layer_norm.py",
+            "apex_tpu_torch/models/mlp.py",
+            "apex_tpu_torch/models/fused_dense.py",
+            "apex_tpu_torch/contrib/layer_norm.py"} <= rel
+
+
+def test_softmax_on_a_cuda_tensor_launches_or_raises(monkeypatch):
+    """A CUDA score tensor (a fake one: this machine has no card) goes to
+    the kernel, and with no nvcc the build raises: no plain fallback, for
+    the op, the module and the backward alike."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(build.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(build, "_lib", None)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        x = torch.empty(1, 2, 8, 8, device="cuda")
+        for call in (lambda: ops.scaled_masked_softmax(x, None, 0.5),
+                     lambda: FusedScaleMaskSoftmax()(x),
+                     lambda: ops.softmax_bwd(x, x)):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                call()
+    # a CPU tensor sent to the kernel wrapper raises too
+    with pytest.raises(ValueError, match="launches a CUDA kernel"):
+        ops.softmax_fwd(torch.zeros(1, 1, 2, 2))
 
 
 def test_flash_decode_refuses_inputs_that_require_grad():
