@@ -57,9 +57,9 @@ SIGNATURES = {
     "apex_flash_fwd_stream": [_P] * 8 + [_I] * 5 + [_L] * 9
                              + [_F] + [_I] * 5 + [_P],
     "apex_flash_bwd_dq_stream": [_P] * 7 + [_I] * 5 + [_L] * 12
-                                + [_F] + [_I] * 5 + [_P],
+                                + [_F] + [_I] * 7 + [_P],
     "apex_flash_bwd_dkv_stream": [_P] * 8 + [_I] * 5 + [_L] * 12
-                                 + [_F] + [_I] * 5 + [_P],
+                                 + [_F] + [_I] * 7 + [_P],
     "apex_xent_fwd": [_P] * 4 + [_L, _I, _F, _L, _I, _P],
     "apex_xent_bwd": [_P] * 5 + [_L, _I, _F, _L, _I, _P],
     "apex_softmax_fwd": [_P] * 3 + [_L] + [_I] * 4 + [_F] + [_I] * 3 + [_P],

@@ -15,10 +15,14 @@ forward is always followed by the streamed backward.
 - Streamed (``stream=True``): the three kernels of
   ``csrc/flash_attention_stream.cu`` (``_fwd_kernel_stream`` with its merge
   pass, ``_bwd_dq_kernel_stream``, ``_bwd_dkv_kernel_stream``) split each
-  row's K/V loop (or each key tile's Q loop) across CTAs of at most
-  :data:`STREAM_SPLIT_TILES` tiles of :data:`STREAM_TILE` rows, over the
-  band the causal limit and the sliding ``window`` leave. The window lives
-  only here.
+  row's K/V loop (or each key tile's Q loop) across CTAs, over the band the
+  causal limit and the sliding ``window`` leave: the forward (and the fp32
+  backward) in splits of at most :data:`STREAM_SPLIT_TILES` tiles of
+  :data:`STREAM_TILE` rows; the bf16 backward, wgmma kernels fed by TMA, with
+  CTAs of :data:`BWD_OUTER_TILE` rows streaming at most
+  :data:`BWD_SPLIT_TILES` tiles of :data:`BWD_INNER_TILE` rows (operands TMA
+  cannot read go in as contiguous copies, :func:`_tma_operands`). The window
+  lives only here.
 
 ``stream='auto'`` streams when ``max(sq, sk) >= STREAM_MIN_SEQ`` or a window
 is set. Both devices route alike; the card takes any sq/sk, head_dim <= 128,
@@ -60,8 +64,17 @@ STREAM_MIN_SEQ = 4096
 STREAM_TILE = 64
 #: the longest split of a band, in tiles: one CTA's share of a row's K/V
 #: loop (or of a key tile's Q loop). Shared by the kernels' wrappers and the
-#: plain versions.
+#: plain versions: the forward's, and the backward's in fp32.
 STREAM_SPLIT_TILES = 16
+#: the streamed backward in bf16 (the wgmma kernels): a CTA keeps
+#: BWD_OUTER_TILE rows (queries for dQ, keys for dK/dV) and streams tiles of
+#: BWD_INNER_TILE rows of the other side, at most BWD_SPLIT_TILES of them
+#: (kOuter / kInner in csrc/flash_attention_stream.cu). The plain versions
+#: of the backward split alike. The split length was tuned on the card
+#: (PERF.md).
+BWD_OUTER_TILE = 128
+BWD_INNER_TILE = 64
+BWD_SPLIT_TILES = 128
 
 
 def _dense_pos_masks(s, q_pos, k_pos, causal, window, neg=NEG_INF):
@@ -296,34 +309,36 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _window_k_range(qt: int, nk: int, causal: bool,
-                    window: Optional[int]) -> Tuple[int, int]:
-    """``[lo, hi)`` of the key tiles that query tile ``qt`` sees: the causal
-    limit, then the window (``_window_k_range``, ``flash_attention.py:
-    117-130``, with ``blk_q = blk_k = STREAM_TILE`` and no ring offsets)."""
-    t = STREAM_TILE
+def _window_k_range(qt: int, nk: int, causal: bool, window: Optional[int],
+                    blk_q: int = STREAM_TILE,
+                    blk_k: int = STREAM_TILE) -> Tuple[int, int]:
+    """``[lo, hi)`` of the key tiles (``blk_k`` rows) that query tile ``qt``
+    (``blk_q`` rows) sees: the causal limit, then the window
+    (``_window_k_range``, ``flash_attention.py:117-130``, with no ring
+    offsets)."""
     lo, hi = 0, nk
     if causal:
-        hi = min(hi, ((qt + 1) * t + t - 1) // t)
+        hi = min(hi, _cdiv((qt + 1) * blk_q, blk_k))
     if window is not None:
-        lo = max(lo, (qt * t - window + 1) // t)
+        lo = max(lo, (qt * blk_q - window + 1) // blk_k)
         if not causal:
-            hi = max(0, min(hi, ((qt + 1) * t + window - 2) // t + 1))
+            hi = max(0, min(hi, ((qt + 1) * blk_q + window - 2) // blk_k + 1))
     return lo, hi
 
 
-def _window_q_range(kt: int, nq: int, causal: bool,
-                    window: Optional[int]) -> Tuple[int, int]:
-    """``[lo, hi)`` of the query tiles that see key tile ``kt``
-    (``_window_q_range``, ``flash_attention.py:133-143``)."""
-    t = STREAM_TILE
+def _window_q_range(kt: int, nq: int, causal: bool, window: Optional[int],
+                    blk_q: int = STREAM_TILE,
+                    blk_k: int = STREAM_TILE) -> Tuple[int, int]:
+    """``[lo, hi)`` of the query tiles (``blk_q`` rows) that see key tile
+    ``kt`` (``blk_k`` rows) (``_window_q_range``, ``flash_attention.py:
+    133-143``)."""
     lo, hi = 0, nq
     if causal:
-        lo = min(kt, nq)
+        lo = min(kt * blk_k // blk_q, nq)
     if window is not None:
-        hi = max(0, min(hi, ((kt + 1) * t + window - 2) // t + 1))
+        hi = max(0, min(hi, ((kt + 1) * blk_k + window - 2) // blk_q + 1))
         if not causal:
-            lo = max(lo, (kt * t - window + 1) // t)
+            lo = max(lo, (kt * blk_k - window + 1) // blk_q)
     return lo, hi
 
 
@@ -342,21 +357,68 @@ def _splits(lo: int, hi: int, split_tiles: int) -> List[Tuple[int, int]]:
 
 @functools.lru_cache(maxsize=64)
 def _bands(n_outer: int, n_inner: int, causal: bool, window: Optional[int],
-           inner_is_k: bool, split_tiles: int):
+           inner_is_k: bool, split_tiles: int, blk_q: int, blk_k: int):
     """Per outer tile its list of splits, and the most splits of any: the
     grid's split extent."""
     rng = _window_k_range if inner_is_k else _window_q_range
-    bands = tuple(tuple(_splits(*rng(i, n_inner, causal, window),
-                                split_tiles)) for i in range(n_outer))
+    bands = tuple(tuple(_splits(*rng(i, n_inner, causal, window, blk_q,
+                                     blk_k), split_tiles))
+                  for i in range(n_outer))
     return bands, max((len(b) for b in bands), default=0)
 
 
 def _stream_bands(sq, sk, causal, window, inner_is_k):
+    """The forward's bands (and the fp32 backward kernels'): STREAM_TILE
+    rows on both sides, splits of STREAM_SPLIT_TILES."""
     t = STREAM_TILE
     nq, nk = _cdiv(sq, t), _cdiv(sk, t)
     if inner_is_k:
-        return _bands(nq, nk, causal, window, True, STREAM_SPLIT_TILES)
-    return _bands(nk, nq, causal, window, False, STREAM_SPLIT_TILES)
+        return _bands(nq, nk, causal, window, True, STREAM_SPLIT_TILES, t, t)
+    return _bands(nk, nq, causal, window, False, STREAM_SPLIT_TILES, t, t)
+
+
+def _bwd_bands(sq, sk, causal, window, inner_is_k):
+    """The bf16 backward kernels' bands: outer tiles of BWD_OUTER_TILE rows
+    (queries when ``inner_is_k``, else keys), inner tiles of BWD_INNER_TILE
+    rows, splits of BWD_SPLIT_TILES inner tiles."""
+    o, i = BWD_OUTER_TILE, BWD_INNER_TILE
+    if inner_is_k:
+        return _bands(_cdiv(sq, o), _cdiv(sk, i), causal, window, True,
+                      BWD_SPLIT_TILES, o, i)
+    return _bands(_cdiv(sk, o), _cdiv(sq, i), causal, window, False,
+                  BWD_SPLIT_TILES, i, o)
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    """Whether TMA reads ``t`` (b, h, s, d) bf16 as it is: d a multiple of 8
+    (the kernels add pairs of columns), a 16-byte-aligned base and every
+    (b, h, s) stride a positive multiple of 16 bytes where its size is
+    above 1 (``encode_rows_map`` in ``csrc/hopper.cuh``)."""
+    if t.shape[-1] % 8 or t.data_ptr() % 16:
+        return False
+    return all(st > 0 and st % 8 == 0
+               for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def _pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` with its head_dim zero-padded to ``dp``."""
+    out = t.new_zeros(*t.shape[:-1], dp)
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def _tma_operands(ts):
+    """q, k, v, dO as the bf16 backward kernels read them, and their
+    head_dim: as they are where TMA takes all four, else each one TMA
+    refuses (and all four when d is not a multiple of 8) as a contiguous
+    copy with d zero-padded to a multiple of 8. Padded columns add 0 to
+    every score and give 0 gradient columns, which the caller slices off."""
+    d = ts[0].shape[-1]
+    if all(_tma_ok(t) for t in ts):
+        return ts, d
+    dp = _cdiv(d, 8) * 8
+    return [t if dp == d and _tma_ok(t) else _pad_head_dim(t, dp)
+            for t in ts], dp
 
 
 def flash_attention_fwd_stream_reference(q, k, v, *, causal: bool,
@@ -410,20 +472,21 @@ def flash_attention_bwd_dq_stream_reference(q, k, v, do, lse, delta, *,
                                             causal: bool, scale: float,
                                             window: Optional[int] = None
                                             ) -> torch.Tensor:
-    """Plain streamed dQ: per query tile, each split of its band adds
-    ``scale * dS K`` over its keys into an fp32 sum (the kernel's atomics),
+    """Plain streamed dQ: per query tile of BWD_OUTER_TILE rows, each split
+    of its band (BWD_INNER_TILE-row key tiles) adds ``scale * dS K`` over
+    its keys into an fp32 sum (the kernel's atomics),
     ``dS = P * (dO V^T - delta)``; dQ in q's dtype."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    t = STREAM_TILE
+    to, ti = BWD_OUTER_TILE, BWD_INNER_TILE
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     lse, delta = lse.float(), delta.float()
     dq = torch.zeros(b, h, sq, d, device=q.device)
-    bands, _ = _stream_bands(sq, sk, causal, window, True)
+    bands, _ = _bwd_bands(sq, sk, causal, window, True)
     for qt, splits in enumerate(bands):
-        r0, r1 = qt * t, min(sq, (qt + 1) * t)
+        r0, r1 = qt * to, min(sq, (qt + 1) * to)
         for a, e in splits:
-            c0, c1 = a * t, min(sk, e * t)
+            c0, c1 = a * ti, min(sk, e * ti)
             s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, r0:r1],
                              k32[:, :, c0:c1]) * scale
             p = _probs(s, lse[:, :, r0:r1], causal, window, r0, c0)
@@ -440,21 +503,22 @@ def flash_attention_bwd_dkv_stream_reference(q, k, v, do, lse, delta, *,
                                              window: Optional[int] = None
                                              ) -> Tuple[torch.Tensor,
                                                         torch.Tensor]:
-    """Plain streamed dK/dV: per key tile, each split of the query tiles
-    that see it adds ``scale * dS^T Q`` and ``P^T dO`` into fp32 sums;
-    ``(dk, dv)`` in k's dtype."""
+    """Plain streamed dK/dV: per key tile of BWD_OUTER_TILE rows, each split
+    of the BWD_INNER_TILE-row query tiles that see it adds
+    ``scale * dS^T Q`` and ``P^T dO`` into fp32 sums; ``(dk, dv)`` in k's
+    dtype."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    t = STREAM_TILE
+    to, ti = BWD_OUTER_TILE, BWD_INNER_TILE
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     lse, delta = lse.float(), delta.float()
     dk = torch.zeros(b, h, sk, d, device=q.device)
     dv = torch.zeros_like(dk)
-    bands, _ = _stream_bands(sq, sk, causal, window, False)
+    bands, _ = _bwd_bands(sq, sk, causal, window, False)
     for kt, splits in enumerate(bands):
-        c0, c1 = kt * t, min(sk, (kt + 1) * t)
+        c0, c1 = kt * to, min(sk, (kt + 1) * to)
         for a, e in splits:
-            r0, r1 = a * t, min(sq, e * t)
+            r0, r1 = a * ti, min(sq, e * ti)
             s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, r0:r1],
                              k32[:, :, c0:c1]) * scale
             p = _probs(s, lse[:, :, r0:r1], causal, window, r0, c0)
@@ -511,6 +575,26 @@ def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
 flash_attention_fwd_stream.launches = 0
 
 
+def _bwd_stream_launch(q, k, v, do, lse, delta, causal, window, name,
+                       inner_is_k):
+    """Check the operands of a streamed backward kernel and pick its route:
+    bf16 takes the wgmma kernels (BWD_* tiles, operands TMA can read:
+    :func:`_tma_operands`), fp32 the FMA kernels (STREAM_* tiles). Returns
+    the operands, lse/delta, the head_dim the kernel sees and the launch
+    arguments after ``d``, before ``scale``."""
+    (q, k, v, do), (lse, delta), _, (b, h, sq, sk, d) = _bwd_args(
+        q, k, v, do, lse, delta, name)
+    if q.dtype == torch.bfloat16:
+        (q, k, v, do), d = _tma_operands([q, k, v, do])
+        _, nsplit = _bwd_bands(sq, sk, causal, window, inner_is_k)
+        tiles = (BWD_OUTER_TILE, BWD_INNER_TILE, BWD_SPLIT_TILES, nsplit)
+    else:
+        _, nsplit = _stream_bands(sq, sk, causal, window, inner_is_k)
+        tiles = (STREAM_TILE, STREAM_TILE, STREAM_SPLIT_TILES, nsplit)
+    strides = [st for t in (q, k, v, do) for st in t.stride()[:3]]
+    return (q, k, v, do), (lse, delta), d, strides, tiles
+
+
 def flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, *, causal: bool,
                                   scale: float,
                                   window: Optional[int] = None
@@ -518,21 +602,22 @@ def flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, *, causal: bool,
     """Launch the streamed dQ kernel on CUDA tensors: its CTAs add into a
     zeroed fp32 accumulator, cast to q's dtype after. Counts its launches in
     ``flash_attention_bwd_dq_stream.launches``."""
-    (q, k, v, do), (lse, delta), strides, (b, h, sq, sk, d) = _bwd_args(
-        q, k, v, do, lse, delta, "flash_attention_bwd_dq_stream")
-    dq = torch.zeros((b, h, sq, d), device=q.device, dtype=torch.float32)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    (q, k, v, do), (lse, delta), dk_, strides, tiles = _bwd_stream_launch(
+        q, k, v, do, lse, delta, causal, window,
+        "flash_attention_bwd_dq_stream", True)
+    dq = torch.zeros((b, h, sq, dk_), device=q.device, dtype=torch.float32)
     if dq.numel() == 0:
-        return dq.to(q.dtype)
-    _, nsplit = _stream_bands(sq, sk, causal, window, True)
+        return dq[..., :d].to(q.dtype)
     err = build.load().apex_flash_bwd_dq_stream(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
-        *strides, float(scale), int(causal), _window_arg(window),
-        STREAM_SPLIT_TILES, nsplit, build.DTYPES[q.dtype],
-        build.current_stream(q.get_device()))
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, dk_,
+        *strides, float(scale), int(causal), _window_arg(window), *tiles,
+        build.DTYPES[q.dtype], build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dq_stream")
     flash_attention_bwd_dq_stream.launches += 1
-    return dq.to(q.dtype)
+    return dq[..., :d].to(q.dtype)
 
 
 flash_attention_bwd_dq_stream.launches = 0
@@ -545,22 +630,23 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
     """Launch the streamed dK/dV kernel on CUDA tensors: its CTAs add into
     zeroed fp32 accumulators, cast to k's dtype after. Counts its launches
     in ``flash_attention_bwd_dkv_stream.launches``."""
-    (q, k, v, do), (lse, delta), strides, (b, h, sq, sk, d) = _bwd_args(
-        q, k, v, do, lse, delta, "flash_attention_bwd_dkv_stream")
-    dk = torch.zeros((b, h, sk, d), device=q.device, dtype=torch.float32)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    (q, k, v, do), (lse, delta), dk_, strides, tiles = _bwd_stream_launch(
+        q, k, v, do, lse, delta, causal, window,
+        "flash_attention_bwd_dkv_stream", False)
+    dk = torch.zeros((b, h, sk, dk_), device=q.device, dtype=torch.float32)
     dv = torch.zeros_like(dk)
     if dk.numel() == 0 or sq == 0:
-        return dk.to(k.dtype), dv.to(v.dtype)
-    _, nsplit = _stream_bands(sq, sk, causal, window, False)
+        return dk[..., :d].to(k.dtype), dv[..., :d].to(v.dtype)
     err = build.load().apex_flash_bwd_dkv_stream(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
-        sq, sk, d, *strides, float(scale), int(causal), _window_arg(window),
-        STREAM_SPLIT_TILES, nsplit, build.DTYPES[q.dtype],
-        build.current_stream(q.get_device()))
+        sq, sk, dk_, *strides, float(scale), int(causal), _window_arg(window),
+        *tiles, build.DTYPES[q.dtype], build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dkv_stream")
     flash_attention_bwd_dkv_stream.launches += 1
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk[..., :d].to(k.dtype), dv[..., :d].to(v.dtype)
 
 
 flash_attention_bwd_dkv_stream.launches = 0

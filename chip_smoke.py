@@ -20,8 +20,9 @@ Seven phases; any failure raises and exits non-zero:
    edge cases, each error beside its stated tolerance; then device times
    by CUDA-graph replay between CUDA events (kernel, plain version, one
    PyTorch library call as yardstick where one computes the same function;
-   the resident flash kernels beside the streamed ones at 4096 and 8192
-   tokens) and the least time the card could take.
+   the resident flash kernels beside the streamed ones at 1024 (batch 8),
+   4096 and 8192 tokens; the split length of the streamed bf16 backward
+   against the lengths tried) and the least time the card could take.
 3. **Serving**: fp32 gates on a small model (the monolithic engine, then
    chunked prefill, the prefix cache, speculative decoding with a
    self-draft and a 1-layer draft, and all three: every token against the
@@ -656,11 +657,15 @@ def check_flash_attention_stream(torch, ops, dev):
     which see few keys and are large, so it cannot hold the long rows; the
     worst row's own error (:func:`row_err`, limits :data:`ROW_TOL`) does,
     and at the path shapes a tail of rows halved must fail it. Rows that
-    see no key must give o = 0 and lse = -1e30 exactly. Then device times
-    at the two path shapes beside their bounds, the plain versions, the
-    resident kernels (unwindowed shapes) and SDPA (causal, or with the
-    boolean band mask under the window), and resident against streamed at
-    4096 and 8192: the numbers behind STREAM_MIN_SEQ."""
+    see no key must give o = 0 and lse = -1e30 exactly. The bf16 backward
+    is the wgmma kernels; the cases take it through d = 128, ragged
+    128-row outer tiles, the fused-QKV views TMA reads as they are and
+    rows TMA refuses (the wrapper's padded copy). Then device times at the
+    two path shapes beside their bounds, the plain versions, the resident
+    kernels (unwindowed shapes) and SDPA (causal, or with the boolean band
+    mask under the window), resident against streamed at 4096 and 8192
+    (the numbers behind STREAM_MIN_SEQ) and at T = (8,16,1024,64), and the
+    backward's split length against the lengths tried."""
     import importlib
 
     import torch.nn.functional as F
@@ -748,8 +753,13 @@ def check_flash_attention_stream(torch, ops, dev):
         (1, 4, 1000, 1000, 128, bf16, False, 200),
         (1, 2, 300, 77, 64, f32, True, 16),     # rows past 92 see no key
         (1, 2, 300, 77, 64, bf16, True, 16),
-        (2, 2, 100, 120, 36, bf16, False, 30),  # unaligned: scalar loads
+        # d = 36: 72-byte rows, which TMA refuses: the backward's padded copy
+        (2, 2, 100, 120, 36, bf16, False, 30),
         (1, 2, 77, 300, 40, f32, False, None),
+        # the wide wgmma path (d = 128) and its register budget
+        (1, 4, 4096, 4096, 128, bf16, True, 1024),
+        # ragged 128-row outer tiles on both sides
+        (1, 3, 1100, 990, 64, bf16, True, None),
     ]
     main_err = None
     for b, h, sq, sk, d, dt, causal, window in cases:
@@ -763,6 +773,15 @@ def check_flash_attention_stream(torch, ops, dev):
     qkv = rand(1, 4096, 4, 3, 64, dt=bf16).permute(0, 2, 3, 1, 4)
     run(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True, 512,
         "strided fused-QKV view (1,4,4096,64) bf16 causal window=512")
+    # rows 136 bytes apart: TMA refuses the stride, so the backward wrapper
+    # passes contiguous copies (tfa._tma_operands) and slices dQ back
+    wide = [rand(1, 2, 1000, 68, dt=bf16) for _ in range(3)]
+    strided = [t[..., :64] for t in wide]
+    check(not tfa._tma_ok(strided[0]), "the 136-byte stride is one TMA "
+          "refuses")
+    run(*strided, True, None, "strided view (1,2,1000,64) of 68-wide rows "
+        "bf16 causal: the padded copy")
+    del wide, strided
     # the entry point routes: stream='always' at 1000 tokens, a window at
     # 1024, and 'auto' at 4096 all take the streamed kernels
     before = ops.launch_counts()
@@ -860,9 +879,16 @@ def check_flash_attention_stream(torch, ops, dev):
         torch.cuda.empty_cache()
         return label, out
 
-    by_shape = dict(timings(1, 16, s, 64, w)
-                    for s, w in ((8192, None), (16384, 4096), (4096, None)))
+    by_shape = dict(timings(b, 16, s, 64, w)
+                    for b, s, w in ((1, 8192, None), (1, 16384, 4096),
+                                    (1, 4096, None), (8, 1024, None)))
     main_label = "(1,16,8192,64) bf16 causal"
+    t = by_shape["(8,16,1024,64) bf16 causal"]
+    print(f"  streamed backward at T (8,16,1024,64) causal: dQ + dK/dV "
+          f"{t['dq']['ms'] + t['dkv']['ms']:.4f} ms, resident pair "
+          f"{t['dq']['resident_ms'] + t['dkv']['resident_ms']:.4f} ms, SDPA "
+          f"backward {t['dq']['library_ms']:.4f} ms")
+    bwd_split_tuning(torch, ops, tfa, rand)
     for s_label in (main_label, "(1,16,4096,64) bf16 causal"):
         t = by_shape[s_label]
         stream_sum = sum(t[k]["ms"] for k in ("fwd", "dq", "dkv"))
@@ -883,6 +909,37 @@ def check_flash_attention_stream(torch, ops, dev):
             max_abs_err=main_err[key],
             by_shape={lab: t[key] for lab, t in by_shape.items()}, **main))
     return rows
+
+
+def bwd_split_tuning(torch, ops, tfa, rand, lengths=(16, 32, 64, 128)):
+    """The split length of the bf16 streamed backward (BWD_SPLIT_TILES
+    inner tiles a CTA) against the lengths tried, at L and W: device times of
+    dQ and dK/dV at each, on one line."""
+    chosen = tfa.BWD_SPLIT_TILES
+    parts = []
+    for label, s, window in (("L", 8192, None), ("W", 16384, 4096)):
+        q, k, v, do = (rand(1, 16, s, 64, dt=torch.bfloat16)
+                       for _ in range(4))
+        o, lse = ops.flash_attention_fwd_stream(q, k, v, causal=True,
+                                                window=window)
+        delta = (o.float() * do.float()).sum(-1)
+        kw = dict(causal=True, scale=0.125, window=window)
+        times = []
+        try:
+            for split in lengths:
+                tfa.BWD_SPLIT_TILES = split
+                dq = time_ms(lambda: ops.flash_attention_bwd_dq_stream(
+                    q, k, v, do, lse, delta, **kw), 10)
+                dkv = time_ms(lambda: ops.flash_attention_bwd_dkv_stream(
+                    q, k, v, do, lse, delta, **kw), 10)
+                times.append(f"{split}: {dq:.4f} + {dkv:.4f}")
+        finally:
+            tfa.BWD_SPLIT_TILES = chosen
+        parts.append(f"{label} " + ", ".join(times))
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    print(f"  BWD_SPLIT_TILES = {chosen} (chosen); dQ + dK/dV ms by split "
+          f"length: " + "; ".join(parts))
 
 
 def _decode_inputs(torch, dev, gen, b, h, kh, blk, d, nb, max_blocks, dt,

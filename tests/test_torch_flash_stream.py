@@ -9,9 +9,11 @@ JAX side runs ``flash_attention(stream="always", impl="pallas")`` with
 ``_bwd_dkv_kernel_stream`` run in Pallas interpret mode here (as
 ``tests/test_flash_attention.py`` runs them). The split length is cut to
 one or two 64-key tiles so that rows span several splits and the merge
-runs. fp32: values within 1e-5, q/k/v grads within 1e-4 (the same fp32
-math summed in another order). The CUDA kernels are held against the same
-plain versions by ``chip_smoke.py``.
+runs; the backward's own tiles (``BWD_OUTER_TILE`` / ``BWD_INNER_TILE`` /
+``BWD_SPLIT_TILES``, 128 / 64 / 128 on the card) are cut alike, with unequal
+outer and inner tiles. fp32: values within 1e-5, q/k/v grads within 1e-4
+(the same fp32 math summed in another order). The CUDA kernels are held
+against the same plain versions by ``chip_smoke.py``.
 """
 
 import importlib
@@ -67,13 +69,24 @@ def _compare(q, k, v, g, **kw):
     return out, grads
 
 
+def _small_bwd_tiles(monkeypatch, split_tiles):
+    """The backward's tiles cut to 64-row outer and 32-row inner tiles."""
+    monkeypatch.setattr(tfa, "BWD_OUTER_TILE", 64)
+    monkeypatch.setattr(tfa, "BWD_INNER_TILE", 32)
+    monkeypatch.setattr(tfa, "BWD_SPLIT_TILES", split_tiles)
+
+
 @pytest.mark.parametrize("split_tiles", [1, 2])
 @pytest.mark.parametrize("causal", [False, True])
 def test_streamed_matches_jax_streamed_kernels(monkeypatch, causal,
                                                split_tiles):
     monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", split_tiles)
+    _small_bwd_tiles(monkeypatch, split_tiles)
     _, most = tfa._stream_bands(256, 256, causal, None, True)
     assert most == 4 // split_tiles  # the last rows span several splits
+    for inner_is_k in (True, False):
+        _, most = tfa._bwd_bands(256, 256, causal, None, inner_is_k)
+        assert most == 8 // split_tiles
     _compare(*_inputs(5), causal=causal)
 
 
@@ -163,6 +176,124 @@ def test_window_band_ranges_match_the_reference_helpers():
                             causal, window)
                 assert tfa._window_q_range(i, 10, causal, window) == (
                     max(int(lo), 0), int(hi))
+
+
+@pytest.mark.parametrize("window", [None, 1, 16, 48, 100, 300])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("blk_q,blk_k", [(64, 128), (128, 64)])
+def test_unequal_tile_bands_match_the_reference_helpers(blk_q, blk_k,
+                                                        causal, window):
+    """The band helpers with blk_q != blk_k (the backward's 128-row outer
+    and 64-row inner tiles) against the JAX package's, plus the causal
+    limit, which the JAX kernels apply in their loop bounds."""
+    from apex_tpu.ops.flash_attention import _window_k_range as jk
+    from apex_tpu.ops.flash_attention import _window_q_range as jq
+
+    nq, nk = 24 * 64 // blk_q, 24 * 64 // blk_k
+    for i in range(nq):
+        lo, hi = jk(0, nk, i, blk_q, blk_k, 0, 0, causal, window)
+        if causal:
+            hi = min(int(hi), -(-(i + 1) * blk_q // blk_k))
+        assert tfa._window_k_range(i, nk, causal, window, blk_q, blk_k) == (
+            max(int(lo), 0), int(hi))
+    for i in range(nk):
+        lo0 = min(i * blk_k // blk_q, nq) if causal else 0
+        lo, hi = jq(lo0, nq, i, blk_q, blk_k, 0, 0, causal, window)
+        assert tfa._window_q_range(i, nq, causal, window, blk_q, blk_k) == (
+            max(int(lo), 0), int(hi))
+
+
+@pytest.mark.parametrize("inner_is_k", [True, False])
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (8192, 8192, True, None), (16384, 16384, True, 4096),
+    (1100, 990, True, None), (300, 77, True, 16), (1000, 1000, False, 200)])
+def test_bwd_splits_cover_every_band_once(sq, sk, causal, window,
+                                          inner_is_k):
+    """At the backward's own tiles (BWD_*), each outer tile's splits cut its
+    band into contiguous pieces of at most BWD_SPLIT_TILES inner tiles, and
+    the band holds every inner tile with a visible pair."""
+    o, i = tfa.BWD_OUTER_TILE, tfa.BWD_INNER_TILE
+    assert (o, i) == (128, 64)
+    bands, most = tfa._bwd_bands(sq, sk, causal, window, inner_is_k)
+    s_out, s_in = (sq, sk) if inner_is_k else (sk, sq)
+    assert len(bands) == -(-s_out // o)
+    pos = np.arange(max(sq, sk))
+    for t, splits in enumerate(bands):
+        assert len(splits) <= most
+        rows = pos[t * o:min(s_out, (t + 1) * o)]
+        cols = pos[:s_in]
+        qq, kk = ((rows[:, None], cols[None, :]) if inner_is_k
+                  else (cols[None, :], rows[:, None]))
+        vis = np.ones(np.broadcast_shapes(qq.shape, kk.shape), bool)
+        if causal:
+            vis &= kk <= qq
+        if window is not None:
+            vis &= qq - kk < window
+            if not causal:
+                vis &= kk - qq < window
+        hit = np.nonzero(vis.any(axis=0))[0] // i  # inner tiles with a pair
+        if not splits:
+            assert hit.size == 0
+            continue
+        assert all(a < b <= a + tfa.BWD_SPLIT_TILES for a, b in splits)
+        assert all(p[1] == n[0] for p, n in zip(splits, splits[1:]))
+        if hit.size:  # the floor-division band may hold only empty tiles
+            assert splits[0][0] <= hit.min() and hit.max() < splits[-1][1]
+
+
+def test_tma_operands_pass_what_tma_reads_and_copy_the_rest():
+    """_tma_ok / _tma_operands: the fused-QKV views (strides of 1536 and
+    384 bytes in bf16) go in as they are; 72-byte rows (d = 36), rows 136
+    bytes apart and a base 2 bytes off are refused, and come back as
+    contiguous copies with d padded to a multiple of 8."""
+    qkv = torch.zeros(1, 64, 4, 3, 64, dtype=torch.bfloat16).permute(
+        0, 2, 3, 1, 4)
+    views = [qkv[:, :, j] for j in (0, 1, 2, 0)]
+    got, d = tfa._tma_operands(views)
+    assert d == 64 and all(a is b for a, b in zip(got, views))
+    narrow = torch.zeros(1, 2, 64, 36, dtype=torch.bfloat16)
+    wide = torch.zeros(1, 2, 64, 68, dtype=torch.bfloat16)
+    shifted = torch.zeros(1, 2, 64, 72, dtype=torch.bfloat16)[..., 1:65]
+    assert not tfa._tma_ok(narrow)
+    assert not tfa._tma_ok(wide[..., :64])
+    assert not tfa._tma_ok(shifted)
+    got, d = tfa._tma_operands([narrow] * 4)
+    assert d == 40 and all(t.shape[-1] == 40 and t.is_contiguous()
+                           for t in got)
+    got, d = tfa._tma_operands([wide[..., :64], views[0], views[1], shifted])
+    assert d == 64 and got[1] is views[0] and got[2] is views[1]
+    assert got[0].is_contiguous() and got[3].is_contiguous()
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 30),
+                                           (True, 16)])
+def test_padded_copy_round_trip_matches_the_strided_input(causal, window):
+    """The plain backward on the wrapper's padded contiguous copies, sliced
+    back to d, equals the plain backward on the unpadded strided views
+    within 1e-6 in fp32: zero columns add nothing to the scores and give
+    zero gradient columns."""
+    rng = np.random.default_rng(31)
+    d, scale = 36, 36 ** -0.5
+    full = [torch.from_numpy(rng.normal(size=(2, 2, n, 44)).astype(
+        np.float32)) for n in (100, 120, 120, 100)]
+    q, k, v, do = (t[..., 3:3 + d] for t in full)  # strided, 4-byte offset
+    lse = tfa._lse_reference(q, k, causal, scale, window)
+    o = tfa.mha_reference(q, k, v, causal=causal, scale=scale, window=window)
+    delta = (o * do).sum(-1)
+    kw = dict(causal=causal, scale=scale, window=window)
+    (pq, pk, pv, pdo), dp = tfa._tma_operands([q, k, v, do])
+    assert dp == 40 and all(t.is_contiguous() for t in (pq, pk, pv, pdo))
+    want = (tfa.flash_attention_bwd_dq_stream_reference(
+        q, k, v, do, lse, delta, **kw),
+        *tfa.flash_attention_bwd_dkv_stream_reference(
+            q, k, v, do, lse, delta, **kw))
+    got = (tfa.flash_attention_bwd_dq_stream_reference(
+        pq, pk, pv, pdo, lse, delta, **kw),
+        *tfa.flash_attention_bwd_dkv_stream_reference(
+            pq, pk, pv, pdo, lse, delta, **kw))
+    for g, w in zip(got, want):
+        assert torch.all(g[..., d:] == 0)
+        np.testing.assert_allclose(g[..., :d].numpy(), w.numpy(), atol=1e-6)
 
 
 def test_splits_cover_the_band_once():

@@ -59,9 +59,14 @@ def _batch(seed, b=2, s=SEQ, vocab=64):
 @pytest.fixture
 def streamed(monkeypatch):
     """Route every attention call of the tiny model to the streamed plain
-    versions, with one-tile splits (rows span two), and count them."""
+    versions, with one-tile splits (rows span two, four in the backward),
+    and count them."""
     monkeypatch.setattr(tfa, "STREAM_MIN_SEQ", 64)
     monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", 1)
+    # the backward's own tiles cut too: 64-row outer, 32-row inner tiles
+    monkeypatch.setattr(tfa, "BWD_OUTER_TILE", 64)
+    monkeypatch.setattr(tfa, "BWD_INNER_TILE", 32)
+    monkeypatch.setattr(tfa, "BWD_SPLIT_TILES", 1)
     calls = {"fwd": 0, "dq": 0, "dkv": 0}
     for key, name in (("fwd", "flash_attention_fwd_stream_reference"),
                       ("dq", "flash_attention_bwd_dq_stream_reference"),
