@@ -19,12 +19,15 @@
 // of the inner tiles the causal limit and the window leave it (k_tiles /
 // q_tiles: _window_k_range / _window_q_range), at most `split_tiles` of
 // them; tiles outside the band are never visited, so a window costs O(s w).
-// - forward (64-row tiles both ways): each CTA runs the online softmax over
-//   its split and writes an fp32 partial (unnormalised acc, m, l); fwd_merge
-//   combines a row's partials, m* = max m_i, l* = sum l_i e^(m_i - m*),
-//   o = sum acc_i e^(m_i - m*) / l*, lse = m* + log l* (the _combine of
-//   transformer/ring.py:64-68). A row with no visible key ends with l* = 0:
-//   o = 0 exactly, lse = -1e30. bf16 on mma.sync m16n8k16, fp32 on FMA.
+// - forward: each CTA runs the online softmax over its split. Where a band
+//   has several splits, each writes an fp32 partial (unnormalised acc, m,
+//   l) and fwd_merge combines a row's partials, m* = max m_i,
+//   l* = sum l_i e^(m_i - m*), o = sum acc_i e^(m_i - m*) / l*,
+//   lse = m* + log l* (the _combine of transformer/ring.py:64-68). A row
+//   with no visible key ends with l* = 0: o = 0 exactly, lse = -1e30. bf16
+//   on wgmma (fwd_wgmma, below), where a band of one split is normalised in
+//   registers and written with no partial and no merge; fp32 on FMA
+//   (fwd_split_fma, 64-row tiles both ways, a partial from every split).
 // - dQ and dK/dV: each CTA adds its split's fp32 partial into zeroed fp32
 //   accumulators by atomics (no partial buffers, no reduction pass; the
 //   order of addition changes from run to run, within fp32 rounding). The
@@ -33,6 +36,20 @@
 // Bound on this card: operations -- 2 products of 2 d FLOPs per visible
 // pair forward, 3 for dQ and 4 for dK/dV (7 for the backward pair), against
 // 4-6 (s, d) operands moved once.
+//
+// The bf16 forward (fwd_wgmma) keeps kFwdOuter = 128 queries a CTA (two
+// consumer warpgroups of 64 rows and a producer warp, as the backward
+// below) and streams BN = 64 or 128-row K/V tiles (FWD_INNER_TILE, chosen
+// on the card) through the ring. What it does about each limit of the
+// first (mma.sync) version: loads by TMA overlap the products (no thread
+// copies a tile, no block barrier); S = Q K^T reads both operands K-major
+// and O += P V takes P from the score registers as A fragments and V as an
+// MN-major B (no V^T copy, no P in shared memory); only edge blocks test
+// each score (a second instance of the softmax), with exp2 and
+// scale log2(e) folded in; splits of up to FWD_SPLIT_TILES key tiles, so
+// that at the path shapes each band is one split, written directly with no
+// fp32 partial, no workspace and no merge launch; the longest bands launch
+// first.
 //
 // The bf16 backward (dq_wgmma, dkv_wgmma) is built for Hopper's tensor
 // cores. A CTA of three warpgroups keeps kOuter = 128 rows of one side
@@ -63,9 +80,10 @@
 // q/k/v/dO are read by TMA as (b, h, s, d) tensor maps, so strided views
 // (the fused-QKV heads) go in without a copy; where TMA cannot read a tensor
 // (a base or stride not 16-byte aligned, d % 8 != 0) the wrapper passes a
-// contiguous copy with d padded to a multiple of 8. Any sq, sk and
-// d <= 128 (64 or 128 in the kernels, zeros past d). fp32 keeps the FMA
-// kernels (dq_split_fma, dkv_split_fma) with 64-row tiles both ways.
+// contiguous copy with d padded to a multiple of 8 (the forward's q/k/v
+// alike). Any sq, sk and d <= 128 (64 or 128 in the kernels, zeros past
+// d). fp32 keeps the FMA kernels (fwd_split_fma, dq_split_fma,
+// dkv_split_fma) with 64-row tiles both ways.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -154,153 +172,6 @@ __device__ __forceinline__ bool visible(int row, int col, int sk, int causal,
 
 __device__ __forceinline__ bool live_row(float lse) {
   return lse > kNegInf * 0.5f;
-}
-
-// ---------------------------------------------------------------------------
-// forward: bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kMmaThreads) fwd_split_mma(StreamArgs a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = DP + 8;      // Q and K rows, in halves
-  constexpr int LDV = kTile + 8;  // V^T rows
-  constexpr int NT = kTile / 8;   // key n-tiles of S per warp
-  constexpr int DT = DP / 8;      // dim n-tiles of O per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kTile * LD;
-  bf16* Vt = Ks + kTile * LD;
-
-  const int qt = blockIdx.x, split = blockIdx.y, bh = blockIdx.z;
-  const int sq = a.sq, sk = a.sk, d = a.d;
-  int t0, t1;
-  if (!split_of(k_tiles(qt, (sk + kTile - 1) / kTile, a.causal, a.window),
-                split, a.split_tiles, t0, t1))
-    return;
-  const int bi = bh / a.h, hi = bh - bi * a.h;
-  const int q0 = qt * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wr = warp * 16;
-  const int rowA = q0 + wr + g, rowB = rowA + 8;
-
-  const bf16* qb = static_cast<const bf16*>(a.q) + bi * a.qs.b + hi * a.qs.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + bi * a.ks.b + hi * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + bi * a.vs.b + hi * a.vs.h;
-  load_rows<DP, VEC>(Qs, LD, qb + (long long)q0 * a.qs.s, a.qs.s, sq - q0, d);
-
-  float oacc[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i)
-    oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-  float mA = kNegInf, mB = kNegInf, lA = 0.f, lB = 0.f;
-
-  for (int j = t0; j < t1; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<DP, VEC>(Ks, LD, kb + (long long)k0 * a.ks.s, a.ks.s, sk - k0, d);
-    load_rows_t<DP, VEC>(Vt, LDV, vb + (long long)k0 * a.vs.s, a.vs.s,
-                         sk - k0, d);
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      const bf16* qa = Qs + (wr + g) * LD + kk + tig * 2;
-      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * LD);
-      const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * LD + 8);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* kp = Ks + (nt * 8 + g) * LD + kk + tig * 2;
-        mma_bf16(s[nt], a0, a1, a2, a3, ld32(kp), ld32(kp + 8));
-      }
-    }
-
-    float mxA = kNegInf, mxB = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + nt * 8 + tig * 2 + (i & 1);
-        const int row = i < 2 ? rowA : rowB;
-        s[nt][i] = visible(row, col, sk, a.causal, a.window)
-                       ? s[nt][i] * a.scale
-                       : kNegInf;
-      }
-      mxA = fmaxf(mxA, fmaxf(s[nt][0], s[nt][1]));
-      mxB = fmaxf(mxB, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, 1));
-    mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, 2));
-    mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, 1));
-    mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, 2));
-    const float mnA = fmaxf(mA, mxA), mnB = fmaxf(mB, mxB);
-    // nothing visible yet: keep p at 0 so l stays 0 (the reference's guard)
-    const bool deadA = mnA <= kNegInf * 0.5f, deadB = mnB <= kNegInf * 0.5f;
-    const float alA = expf(mA - mnA), alB = expf(mB - mnB);
-    float sumA = 0.f, sumB = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = deadA ? 0.f : expf(s[nt][0] - mnA);
-      s[nt][1] = deadA ? 0.f : expf(s[nt][1] - mnA);
-      s[nt][2] = deadB ? 0.f : expf(s[nt][2] - mnB);
-      s[nt][3] = deadB ? 0.f : expf(s[nt][3] - mnB);
-      sumA += s[nt][0] + s[nt][1];
-      sumB += s[nt][2] + s[nt][3];
-    }
-    sumA += __shfl_xor_sync(0xffffffffu, sumA, 1);
-    sumA += __shfl_xor_sync(0xffffffffu, sumA, 2);
-    sumB += __shfl_xor_sync(0xffffffffu, sumB, 1);
-    sumB += __shfl_xor_sync(0xffffffffu, sumB, 2);
-    lA = lA * alA + sumA;
-    lB = lB * alB + sumB;
-    mA = mnA;
-    mB = mnB;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      oacc[dt][0] *= alA;
-      oacc[dt][1] *= alA;
-      oacc[dt][2] *= alB;
-      oacc[dt][3] *= alB;
-    }
-#pragma unroll
-    for (int kt = 0; kt < kTile / 16; ++kt) {
-      const uint32_t a0 = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const bf16* vp = Vt + (dt * 8 + g) * LDV + kt * 16 + tig * 2;
-        mma_bf16(oacc[dt], a0, a1, a2, a3, ld32(vp), ld32(vp + 8));
-      }
-    }
-  }
-
-  // the partial: unnormalised acc, m and l of this split
-  const size_t base = ((size_t)split * a.bh + bh) * sq;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = dt * 8 + tig * 2 + (i & 1);
-      const int row = i < 2 ? rowA : rowB;
-      if (row < sq && col < d) a.acc[(base + row) * d + col] = oacc[dt][i];
-    }
-  }
-  if (tig == 0) {
-    if (rowA < sq) {
-      a.m[base + rowA] = mA;
-      a.l[base + rowA] = lA;
-    }
-    if (rowB < sq) {
-      a.m[base + rowB] = mB;
-      a.l[base + rowB] = lB;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -416,19 +287,24 @@ __global__ void __launch_bounds__(kFma) fwd_split_fma(StreamArgs a) {
 // forward: the merge pass, one warp per row
 // ---------------------------------------------------------------------------
 
+// Rows of bq-row query tiles whose band of bk-row key tiles has at least
+// min_splits splits (the others were written by the split pass itself).
 template <typename T>
 __global__ void __launch_bounds__(kMergeRows * 32)
-    fwd_merge(StreamArgs a, T* __restrict__ o, float* __restrict__ lse) {
+    fwd_merge(StreamArgs a, T* __restrict__ o, float* __restrict__ lse, int bq,
+              int bk, int min_splits) {
   const long long row = (long long)blockIdx.x * kMergeRows + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   const long long rows = (long long)a.bh * a.sq;
   if (row >= rows) return;
   const int d = a.d;
-  const int qt = (int)(row % a.sq) / kTile;
-  const Band band = k_tiles(qt, (a.sk + kTile - 1) / kTile, a.causal, a.window);
+  const int qt = (int)(row % a.sq) / bq;
+  const Band band =
+      k_tiles(qt, (a.sk + bk - 1) / bk, a.causal, a.window, bq, bk);
   const int ns = band.hi > band.lo
                      ? (band.hi - band.lo + a.split_tiles - 1) / a.split_tiles
                      : 0;
+  if (ns < min_splits) return;
   int t0, t1;
   float mx = kNegInf;
   for (int s = 0; s < ns; ++s)
@@ -532,18 +408,21 @@ __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row, int kk) {
 }
 
 // Descriptor of the k16 step kk (rows 16kk..) of an MN-major B: a streamed
-// tile whose 64-column chunks lie kInner rows apart.
+// tile of R rows, whose 64-column chunks lie R rows apart.
+template <int R = kInner>
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return hopper::sw128_desc(tile + kk * kKStep, kInner * kRowBytes, 1024);
+  return hopper::sw128_desc(tile + kk * kKStep, R * kRowBytes, 1024);
 }
 
-// Whether every pair of a 64-query x 64-key block is visible: an interior
+// Whether every pair of a 64-query x BK-key block is visible: an interior
 // block, whose scores need no test. Edge blocks (the diagonal, a window
 // edge, the ragged end) test each score. Queries past sq need no test:
-// their Q and dO rows are TMA's zero fill, so they add 0.
+// their Q and dO rows are TMA's zero fill, so they add 0 (the backward),
+// and their o and lse are never stored (the forward).
+template <int BK = 64>
 __device__ __forceinline__ bool interior(int qa, int ka, int sk, int causal,
                                          int window) {
-  const int qb = qa + 63, kb = ka + 63;
+  const int qb = qa + 63, kb = ka + BK - 1;
   return kb < sk && (!causal || kb <= qa) &&
          (window <= 0 || (qb - ka < window && (causal || kb - qa < window)));
 }
@@ -586,15 +465,24 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
   hopper::wgmma_rs_n128_tb(d, a, db);
 }
 
-// 64 x 64 scores of a warpgroup's 64 rows against a tile's 64 rows:
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  hopper::wgmma_ss_n64(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  hopper::wgmma_ss_n128(d, da, db, accumulate);
+}
+
+// 64 x RB scores of a warpgroup's 64 rows against a tile's RB rows:
 // S = A B^T over DP columns, both operands K-major in shared memory
-template <int DP, int RA>
-__device__ __forceinline__ void scores(float (&s)[32], uint32_t a_tile,
+template <int DP, int RA, int RB = kInner>
+__device__ __forceinline__ void scores(float (&s)[RB / 2], uint32_t a_tile,
                                        int a_row, uint32_t b_tile) {
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk)
-    hopper::wgmma_ss_n64(s, kmajor<RA>(a_tile, a_row, kk),
-                         kmajor<kInner>(b_tile, 0, kk), kk > 0);
+    wgmma_ss(s, kmajor<RA>(a_tile, a_row, kk), kmajor<RB>(b_tile, 0, kk),
+             kk > 0);
 }
 
 // P^T and dS^T of a 64-key x 64-query block, in place of S^T and dP^T:
@@ -648,26 +536,27 @@ __device__ __forceinline__ void dq_probs(float (&dp)[32],
   }
 }
 
-// The 64 x 64 fp32 product x as bf16 register A fragments, one per k16
+// The 64 x N fp32 product x as bf16 register A fragments, one per k16
 // slice of its columns
-__device__ __forceinline__ void fragments(uint32_t (&f)[4][4],
-                                          const float (&x)[32]) {
+template <int N = 64>
+__device__ __forceinline__ void fragments(uint32_t (&f)[N / 16][4],
+                                          const float (&x)[N / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       f[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
-// acc (64 x DP) += X Y over the tile's 64 rows: X as register fragments,
+// acc (64 x DP) += X Y over the tile's R rows: X as register fragments,
 // Y the streamed tile as an MN-major B
-template <int DP>
+template <int DP, int R = kInner>
 __device__ __forceinline__ void accumulate(float (&acc)[DP / 2],
-                                           const uint32_t (&f)[4][4],
+                                           const uint32_t (&f)[R / 16][4],
                                            uint32_t y_tile) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs_tb<DP>(acc, f[kk], mnmajor(y_tile, kk));
+  for (int kk = 0; kk < R / 16; ++kk)
+    wgmma_rs_tb<DP>(acc, f[kk], mnmajor<R>(y_tile, kk));
 }
 
 // A consumer warpgroup's loop over the nt tiles of its split.
@@ -950,6 +839,247 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// forward in bf16: wgmma fed by a TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdOuter = 128;  // query rows a CTA keeps (two warpgroups)
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct FwdMaps {
+  CUtensorMap q, k, v;  // encode_rows_map: 64 x 64 boxes
+};
+
+struct FwdArgs {
+  __nv_bfloat16* o;  // (b*h, sq, d) contiguous
+  float* lse;        // (b*h, sq) contiguous
+  float* acc;        // (nsplit, b*h, sq, d) partials, or null (one split)
+  float* m;          // (nsplit, b*h, sq) partial row max, natural units
+  float* l;          // (nsplit, b*h, sq) partial row sum
+  int h, bh, sq, sk, d;
+  uint32_t qpos, kpos, vpos;  // coordinate placement of each map
+  float scale;
+  int causal, window, split_tiles;
+};
+
+// Byte offsets in dynamic shared memory (after aligning it to 1024): Q
+// (kFwdOuter rows), the ring of (K, V) pairs of BN rows each, mbarriers.
+template <int DP, int BN>
+struct FwdLayout {
+  static constexpr int kChunks = DP / 64;
+  static constexpr int kQBytes = kChunks * kFwdOuter * kRowBytes;
+  static constexpr int kTileBytes = kChunks * BN * kRowBytes;
+  static constexpr int kRing = kQBytes;
+  static constexpr int kBars = kRing + kStages * 2 * kTileBytes;
+  static constexpr int kBytes = 1024 + kBars + (2 * kStages + 1) * 8;
+};
+
+// One key tile of the online softmax in base 2, on a warpgroup's 64 x BN
+// scores st: element i is row `row` + 8 ((i/2)%2), key col + 8 (i/4) + i%2.
+// m2 (the running max of scale log2(e) s), l (this thread's share of the
+// running sum) and the rows' rescale factors alpha, per row half; st
+// becomes P. kMask: an edge block, so each pair is tested; a masked score
+// is -inf and exp2 makes it exactly 0. A row with nothing visible yet keeps
+// m2 = -inf and subtracts 0 instead, so its P and alpha are 0, not NaN.
+template <bool kMask, int BN>
+__device__ __forceinline__ void online_softmax(float (&st)[BN / 2],
+                                               float (&m2)[2], float (&l)[2],
+                                               float (&alpha)[2], float c,
+                                               int row, int col,
+                                               const FwdArgs& a) {
+  const float ninf = __int_as_float(0xff800000);
+  float mx[2] = {ninf, ninf};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int hf = (i >> 1) & 1;
+    if (kMask && !visible(row + 8 * hf, col + 8 * (i >> 2) + (i & 1), a.sk,
+                          a.causal, a.window))
+      st[i] = ninf;
+    mx[hf] = fmaxf(mx[hf], st[i]);
+  }
+  float sub[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+    const float m_new = fmaxf(m2[hf], mx[hf] * c);
+    sub[hf] = m_new == ninf ? 0.f : m_new;
+    alpha[hf] = hopper::fast_exp2(m2[hf] - sub[hf]);
+    m2[hf] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int hf = (i >> 1) & 1;
+    st[i] = hopper::fast_exp2(fmaf(st[i], c, -sub[hf]));
+    sum[hf] += st[i];
+  }
+  l[0] = l[0] * alpha[0] + sum[0];
+  l[1] = l[1] * alpha[1] + sum[1];
+}
+
+// The forward: one CTA keeps 128 queries (Q, loaded once by TMA) and
+// streams the key tiles of its split (K, V; BN rows each) through the
+// ring. Warpgroups 0 and 1 own 64 queries each: S = Q K^T (both operands
+// K-major), the online softmax in registers, then O += P V with P straight
+// from the score registers as A fragments and V read through the
+// descriptor as an MN-major B -- no V^T copy, no P in shared memory. Warp 8
+// starts the TMA loads. A band of one split normalises in registers and
+// writes o and lse itself; a split of a longer band writes its fp32
+// partial (acc, m, l) for fwd_merge. Split 0 of an empty band writes its
+// rows' o = 0 and lse = -1e30.
+template <int DP, int BN>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    fwd_wgmma(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
+  using L = FwdLayout<DP, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_ready = empty + kStages;
+
+  const int n_outer = (a.sq + kFwdOuter - 1) / kFwdOuter;
+  const int bh = blockIdx.x, split = blockIdx.z;
+  const int qt = n_outer - 1 - (int)blockIdx.y;  // causal: longest band first
+  const int q0 = qt * kFwdOuter;
+  const Band band =
+      k_tiles(qt, (a.sk + BN - 1) / BN, a.causal, a.window, kFwdOuter, BN);
+  int t0, t1;
+  if (!split_of(band, split, a.split_tiles, t0, t1)) {
+    if (split == 0 && band.hi <= band.lo) {  // no query here sees a key
+      const size_t head = (size_t)bh * a.sq;
+      const int rows = min(kFwdOuter, a.sq - q0);
+      for (int e = threadIdx.x; e < rows * a.d; e += kBwdThreads)
+        a.o[(head + q0) * a.d + e] = __float2bfloat16_rn(0.f);
+      for (int r = threadIdx.x; r < rows; r += kBwdThreads)
+        a.lse[head + q0 + r] = kNegInf;
+    }
+    return;
+  }
+  const bool direct = band.hi - band.lo <= a.split_tiles;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // each consumer warp
+    }
+    hopper::mbar_init(q_ready, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 2) {  // the producer
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x != 2 * kWg) return;
+    hopper::mbar_arrive_tx(q_ready, L::kQBytes);
+    tma_rows<DP, kFwdOuter>(base, &maps.q, a.qpos, q_ready, q0, hi, bi);
+    for (int i = t0; i < t1; ++i) {
+      const int n = i - t0, s = n % kStages;
+      hopper::mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
+      unsigned char* ks = base + L::kRing + s * 2 * L::kTileBytes;
+      hopper::mbar_arrive_tx(&full[s], 2 * L::kTileBytes);
+      tma_rows<DP, BN>(ks, &maps.k, a.kpos, &full[s], i * BN, hi, bi);
+      tma_rows<DP, BN>(ks + L::kTileBytes, &maps.v, a.vpos, &full[s], i * BN,
+                       hi, bi);
+    }
+    return;
+  }
+
+  hopper::regs_alloc<240>();
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int qw = q0 + wg * 64;            // this warpgroup's queries
+  const int r0 = warp * 16 + lane / 4;    // rows of d[i]: + 8 ((i/2)%2)
+  const int kcol = 2 * (lane % 4);        // + 8 (i/4) + i%2
+  const float c = a.scale * kLog2e;
+  const uint32_t qs = hopper::smem_u32(base);
+  const uint32_t ring = hopper::smem_u32(base + L::kRing);
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m2[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
+  float l[2] = {0.f, 0.f};
+  hopper::mbar_wait(q_ready, 0);
+
+  for (int n = 0; n < t1 - t0; ++n) {
+    const int s = n % kStages, k0 = (t0 + n) * BN;
+    const uint32_t ks = ring + s * 2 * L::kTileBytes;
+    float st[BN / 2];
+    hopper::mbar_wait(&full[s], (n / kStages) & 1);
+    hopper::wgmma_fence();
+    scores<DP, kFwdOuter, BN>(st, qs, wg * 64, ks);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    float alpha[2];
+    if (interior<BN>(qw, k0, a.sk, a.causal, a.window))
+      online_softmax<false, BN>(st, m2, l, alpha, c, qw + r0, k0 + kcol, a);
+    else
+      online_softmax<true, BN>(st, m2, l, alpha, c, qw + r0, k0 + kcol, a);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    uint32_t pf[BN / 16][4];
+    fragments<BN>(pf, st);
+    hopper::wgmma_fence();
+    hopper::fence_regs(o);
+    accumulate<DP, BN>(o, pf, ks + L::kTileBytes);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // the row sums: each thread holds a quarter of its rows' columns
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+  }
+  const size_t head = (size_t)bh * a.sq;
+  if (direct) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = qw + r0 + 8 * hf;
+      if (row >= a.sq) continue;
+      const float inv = l[hf] > 0.f ? 1.f / l[hf] : 0.f;
+      __nv_bfloat16* orow = a.o + (head + row) * a.d;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + kcol, idx = 4 * j + 2 * hf;
+        if (col < a.d)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16(o[idx] * inv, o[idx + 1] * inv);
+      }
+      if (lane % 4 == 0)
+        a.lse[head + row] =
+            l[hf] > 0.f ? m2[hf] * kLn2 + logf(l[hf]) : kNegInf;
+    }
+    return;
+  }
+  // the split's partial: unnormalised acc, m (natural units; kNegInf where
+  // the split sees nothing, so that fwd_merge weighs it 0) and l
+  const size_t at = ((size_t)split * a.bh + bh) * a.sq;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = qw + r0 + 8 * hf;
+    if (row >= a.sq) continue;
+    float* arow = a.acc + (at + row) * a.d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + kcol, idx = 4 * j + 2 * hf;
+      if (col < a.d)
+        *reinterpret_cast<float2*>(arow + col) =
+            make_float2(o[idx], o[idx + 1]);
+    }
+    if (lane % 4 == 0) {
+      a.m[at + row] = l[hf] > 0.f ? m2[hf] * kLn2 : kNegInf;
+      a.l[at + row] = l[hf];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // dQ and dK/dV: fp32 on FMA
 // ---------------------------------------------------------------------------
 
@@ -1157,41 +1287,77 @@ int launch(const StreamArgs& a, dim3 grid, int threads, size_t smem,
 
 enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <int DP, bool VEC>
-int launch_fwd_mma(const StreamArgs& a, dim3 grid, cudaStream_t stream) {
-  constexpr size_t rows = sizeof(__nv_bfloat16) * kTile * (DP + 8);
-  constexpr size_t trans = sizeof(__nv_bfloat16) * DP * (kTile + 8);
-  return launch<fwd_split_mma<DP, VEC>>(a, grid, kMmaThreads,
-                                        2 * rows + trans, stream);
-}
-
-// The split pass of `pass` over grid (outer tiles, nsplit, b*h): the
-// forward in both types, dQ and dK/dV in fp32.
-int launch_split(Pass pass, const StreamArgs& a, int nsplit, int dtype,
+// The split pass of `pass` in fp32 over grid (outer tiles, nsplit, b*h).
+int launch_split(Pass pass, const StreamArgs& a, int nsplit,
                  cudaStream_t stream) {
   const int outer = pass == kDkv ? a.sk : a.sq;
   const dim3 grid((outer + kTile - 1) / kTile, nsplit, a.bh);
-  if (dtype == kF32) {
-    const size_t tile = sizeof(float) * kTile * (a.d + 1);
-    const size_t ptile = sizeof(float) * kTile * kPl;
-    if (pass == kFwd)
-      return launch<fwd_split_fma>(
-          a, grid, kFma, 2 * tile + sizeof(float) * kTile * a.d + ptile,
-          stream);
-    if (pass == kDq)
-      return launch<dq_split_fma>(a, grid, kFma, 4 * tile + ptile, stream);
-    return launch<dkv_split_fma>(
-        a, grid, kFma, 4 * tile + 2 * ptile + 2 * kTile * sizeof(float),
+  const size_t tile = sizeof(float) * kTile * (a.d + 1);
+  const size_t ptile = sizeof(float) * kTile * kPl;
+  if (pass == kFwd)
+    return launch<fwd_split_fma>(
+        a, grid, kFma, 2 * tile + sizeof(float) * kTile * a.d + ptile,
         stream);
-  }
-  if (dtype != kBF16 || pass != kFwd) return (int)cudaErrorInvalidValue;
-  const bool vec = vec_ok(a.d, a.q, a.qs) && vec_ok(a.d, a.k, a.ks) &&
-                   vec_ok(a.d, a.v, a.vs);
-  if (a.d <= 64)
-    return vec ? launch_fwd_mma<64, true>(a, grid, stream)
-               : launch_fwd_mma<64, false>(a, grid, stream);
-  return vec ? launch_fwd_mma<128, true>(a, grid, stream)
-             : launch_fwd_mma<128, false>(a, grid, stream);
+  if (pass == kDq)
+    return launch<dq_split_fma>(a, grid, kFma, 4 * tile + ptile, stream);
+  return launch<dkv_split_fma>(
+      a, grid, kFma, 4 * tile + 2 * ptile + 2 * kTile * sizeof(float),
+      stream);
+}
+
+// The bf16 forward over grid (b*h, outer tiles, max(nsplit, 1)) with the
+// kernel of the padded head_dim and the key tile, then the merge of the
+// bands of several splits, if any.
+template <int DP, int BN>
+int launch_fwd_wgmma(const FwdMaps& maps, const FwdArgs& a, int nsplit,
+                     cudaStream_t stream) {
+  constexpr size_t smem = FwdLayout<DP, BN>::kBytes;
+  const int err = set_max_smem<fwd_wgmma<DP, BN>>(smem);
+  if (err) return err;
+  const dim3 grid(a.bh, (a.sq + kFwdOuter - 1) / kFwdOuter,
+                  nsplit > 1 ? nsplit : 1);
+  fwd_wgmma<DP, BN><<<grid, kBwdThreads, smem, stream>>>(maps, a);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_bf16(const StreamArgs& s, int b, int inner_tile, int nsplit,
+                    void* o, void* lse, cudaStream_t stream) {
+  FwdMaps maps;
+  FwdArgs a{};
+  int err = encode_rows_map(&maps.q, &a.qpos, s.q, b, s.h, s.sq, s.d, s.qs.b,
+                            s.qs.h, s.qs.s);
+  if (!err) err = encode_rows_map(&maps.k, &a.kpos, s.k, b, s.h, s.sk, s.d,
+                                  s.ks.b, s.ks.h, s.ks.s);
+  if (!err) err = encode_rows_map(&maps.v, &a.vpos, s.v, b, s.h, s.sk, s.d,
+                                  s.vs.b, s.vs.h, s.vs.s);
+  if (err) return err;
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.acc = s.acc;
+  a.m = s.m;
+  a.l = s.l;
+  a.h = s.h;
+  a.bh = s.bh;
+  a.sq = s.sq;
+  a.sk = s.sk;
+  a.d = s.d;
+  a.scale = s.scale;
+  a.causal = s.causal;
+  a.window = s.window;
+  a.split_tiles = s.split_tiles;
+  if (s.d <= 64)
+    err = inner_tile == 64 ? launch_fwd_wgmma<64, 64>(maps, a, nsplit, stream)
+                           : launch_fwd_wgmma<64, 128>(maps, a, nsplit, stream);
+  else
+    err = inner_tile == 64
+              ? launch_fwd_wgmma<128, 64>(maps, a, nsplit, stream)
+              : launch_fwd_wgmma<128, 128>(maps, a, nsplit, stream);
+  if (err || nsplit <= 1) return err;
+  const long long rows = (long long)s.bh * s.sq;
+  const dim3 grid((unsigned)((rows + kMergeRows - 1) / kMergeRows));
+  fwd_merge<__nv_bfloat16><<<grid, kMergeRows * 32, 0, stream>>>(
+      s, (__nv_bfloat16*)o, (float*)lse, kFwdOuter, inner_tile, 2);
+  return (int)cudaGetLastError();
 }
 
 // bf16 dQ or dK/dV over grid (b*h, outer tiles, nsplit): the four tensor
@@ -1257,7 +1423,7 @@ int launch_bwd_pass(Pass pass, const StreamArgs& a, int b, int nsplit,
                     int dtype, cudaStream_t stream) {
   if (nsplit == 0) return 0;  // no query sees a key: the sums stay 0
   if (dtype == kBF16) return launch_bwd(pass, a, b, nsplit, stream);
-  return launch_split(pass, a, nsplit, dtype, stream);
+  return launch_split(pass, a, nsplit, stream);
 }
 
 bool args_ok(int b, int h, int sq, int sk, int d, int split_tiles,
@@ -1295,16 +1461,27 @@ using namespace apex_torch;
 // (batch, head, seq) each, head_dim stride 1. acc (nsplit, b*h, sq, d) and
 // m, l (nsplit, b*h, sq) are fp32 workspaces; o contiguous (b, h, sq, d) in
 // q's dtype, lse contiguous (b, h, sq) fp32. window <= 0: none. nsplit: the
-// most splits any q tile's band has (the wrapper computes it).
+// most splits any query tile's band has (the wrapper computes it with
+// outer_tile / inner_tile). fp32: kTile / kTile, a partial from every split
+// and the merge over every row. bf16 (fwd_wgmma, read by TMA: 16-byte
+// aligned bases and strides, d % 8 == 0): kFwdOuter / 64 or 128; a band of
+// one split is written by the split pass, and the merge runs, over the
+// other rows, only where nsplit > 1 -- acc, m and l may be null otherwise.
 extern "C" int apex_flash_fwd_stream(
     const void* q, const void* k, const void* v, void* acc, void* m, void* l,
     void* o, void* lse, int b, int h, int sq, int sk, int d, long long qsb,
     long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, float scale, int causal,
-    int window, int split_tiles, int nsplit, int dtype, void* stream) {
+    int window, int outer_tile, int inner_tile, int split_tiles, int nsplit,
+    int dtype, void* stream) {
   if (!args_ok(b, h, sq, sk, d, split_tiles, nsplit))
     return (int)cudaErrorInvalidValue;
-  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  const bool bf16_ok = dtype == kBF16 && outer_tile == kFwdOuter &&
+                       (inner_tile == 64 || inner_tile == 128) &&
+                       (nsplit <= 1 || (acc && m && l));
+  const bool f32_ok = dtype == kF32 && outer_tile == kTile &&
+                      inner_tile == kTile && (nsplit == 0 || (acc && m && l));
+  if (!bf16_ok && !f32_ok) return (int)cudaErrorInvalidValue;
   StreamArgs a = make_args(q, k, v, b, h, sq, sk, d, scale, causal, window,
                            split_tiles);
   a.qs = Strides{qsb, qsh, qss};
@@ -1314,18 +1491,16 @@ extern "C" int apex_flash_fwd_stream(
   a.m = static_cast<float*>(m);
   a.l = static_cast<float*>(l);
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == kBF16)
+    return launch_fwd_bf16(a, b, inner_tile, nsplit, o, lse, s);
   if (nsplit > 0) {
-    const int err = launch_split(kFwd, a, nsplit, dtype, s);
+    const int err = launch_split(kFwd, a, nsplit, s);
     if (err) return err;
   }
   const long long rows = (long long)b * h * sq;
   const dim3 grid((unsigned)((rows + kMergeRows - 1) / kMergeRows));
-  if (dtype == kF32)
-    fwd_merge<float><<<grid, kMergeRows * 32, 0, s>>>(a, (float*)o,
-                                                     (float*)lse);
-  else
-    fwd_merge<__nv_bfloat16><<<grid, kMergeRows * 32, 0, s>>>(
-        a, (__nv_bfloat16*)o, (float*)lse);
+  fwd_merge<float><<<grid, kMergeRows * 32, 0, s>>>(a, (float*)o, (float*)lse,
+                                                   kTile, kTile, 0);
   return (int)cudaGetLastError();
 }
 

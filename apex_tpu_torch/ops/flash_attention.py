@@ -16,12 +16,15 @@ forward is always followed by the streamed backward.
   ``csrc/flash_attention_stream.cu`` (``_fwd_kernel_stream`` with its merge
   pass, ``_bwd_dq_kernel_stream``, ``_bwd_dkv_kernel_stream``) split each
   row's K/V loop (or each key tile's Q loop) across CTAs, over the band the
-  causal limit and the sliding ``window`` leave: the forward (and the fp32
-  backward) in splits of at most :data:`STREAM_SPLIT_TILES` tiles of
-  :data:`STREAM_TILE` rows; the bf16 backward, wgmma kernels fed by TMA, with
-  CTAs of :data:`BWD_OUTER_TILE` rows streaming at most
-  :data:`BWD_SPLIT_TILES` tiles of :data:`BWD_INNER_TILE` rows (operands TMA
-  cannot read go in as contiguous copies, :func:`_tma_operands`). The window
+  causal limit and the sliding ``window`` leave. In bf16 they are wgmma
+  kernels fed by TMA (operands TMA cannot read go in as contiguous copies,
+  :func:`_tma_operands`): the forward with CTAs of :data:`FWD_OUTER_TILE`
+  queries streaming at most :data:`FWD_SPLIT_TILES` key tiles of
+  :data:`FWD_INNER_TILE` rows, a band of one split written with no merge
+  (:func:`_fwd_merges`); the backward with CTAs of :data:`BWD_OUTER_TILE`
+  rows streaming at most :data:`BWD_SPLIT_TILES` tiles of
+  :data:`BWD_INNER_TILE` rows. In fp32, FMA kernels in splits of at most
+  :data:`STREAM_SPLIT_TILES` tiles of :data:`STREAM_TILE` rows. The window
   lives only here.
 
 ``stream='auto'`` streams when ``max(sq, sk) >= STREAM_MIN_SEQ`` or a window
@@ -63,9 +66,17 @@ STREAM_MIN_SEQ = 4096
 #: rows of every q/k tile of the streamed kernels (kTile in common.cuh)
 STREAM_TILE = 64
 #: the longest split of a band, in tiles: one CTA's share of a row's K/V
-#: loop (or of a key tile's Q loop). Shared by the kernels' wrappers and the
-#: plain versions: the forward's, and the backward's in fp32.
+#: loop (or of a key tile's Q loop), for the fp32 kernels.
 STREAM_SPLIT_TILES = 16
+#: the streamed forward in bf16 (fwd_wgmma): a CTA keeps FWD_OUTER_TILE
+#: queries and streams key tiles of FWD_INNER_TILE rows (64 or 128), at most
+#: FWD_SPLIT_TILES of them (kFwdOuter / BN in
+#: csrc/flash_attention_stream.cu). The plain version of the forward splits
+#: alike. The inner tile and the split length were chosen on the card
+#: (PERF.md): one split a band at the long-context path shapes.
+FWD_OUTER_TILE = 128
+FWD_INNER_TILE = 128
+FWD_SPLIT_TILES = 128
 #: the streamed backward in bf16 (the wgmma kernels): a CTA keeps
 #: BWD_OUTER_TILE rows (queries for dQ, keys for dK/dV) and streams tiles of
 #: BWD_INNER_TILE rows of the other side, at most BWD_SPLIT_TILES of them
@@ -368,13 +379,30 @@ def _bands(n_outer: int, n_inner: int, causal: bool, window: Optional[int],
 
 
 def _stream_bands(sq, sk, causal, window, inner_is_k):
-    """The forward's bands (and the fp32 backward kernels'): STREAM_TILE
-    rows on both sides, splits of STREAM_SPLIT_TILES."""
+    """The fp32 kernels' bands: STREAM_TILE rows on both sides, splits of
+    STREAM_SPLIT_TILES."""
     t = STREAM_TILE
     nq, nk = _cdiv(sq, t), _cdiv(sk, t)
     if inner_is_k:
         return _bands(nq, nk, causal, window, True, STREAM_SPLIT_TILES, t, t)
     return _bands(nk, nq, causal, window, False, STREAM_SPLIT_TILES, t, t)
+
+
+def _fwd_bands(sq, sk, causal, window):
+    """The forward's bands, as the bf16 kernel and the plain version cut
+    them: query tiles of FWD_OUTER_TILE rows, key tiles of FWD_INNER_TILE
+    rows, splits of FWD_SPLIT_TILES key tiles."""
+    o, i = FWD_OUTER_TILE, FWD_INNER_TILE
+    return _bands(_cdiv(sq, o), _cdiv(sk, i), causal, window, True,
+                  FWD_SPLIT_TILES, o, i)
+
+
+def _fwd_merges(nsplit: int, bf16: bool) -> bool:
+    """Whether a streamed forward launches the merge pass and needs its fp32
+    workspace (partials of ``nsplit`` splits): in bf16 only where some band
+    has several splits (a band of one is written by the split pass); in fp32
+    always (the FMA kernel writes a partial from every split)."""
+    return nsplit > 1 or not bf16
 
 
 def _bwd_bands(sq, sk, causal, window, inner_is_k):
@@ -408,11 +436,12 @@ def _pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
 
 
 def _tma_operands(ts):
-    """q, k, v, dO as the bf16 backward kernels read them, and their
-    head_dim: as they are where TMA takes all four, else each one TMA
-    refuses (and all four when d is not a multiple of 8) as a contiguous
-    copy with d zero-padded to a multiple of 8. Padded columns add 0 to
-    every score and give 0 gradient columns, which the caller slices off."""
+    """The operands of a bf16 streamed kernel (q, k, v, and dO for the
+    backward) as the kernel reads them, and their head_dim: as they are
+    where TMA takes them all, else each one TMA refuses (and all of them
+    when d is not a multiple of 8) as a contiguous copy with d zero-padded
+    to a multiple of 8. Padded columns add 0 to every score and give 0
+    output and gradient columns, which the caller slices off."""
     d = ts[0].shape[-1]
     if all(_tma_ok(t) for t in ts):
         return ts, d
@@ -427,26 +456,29 @@ def flash_attention_fwd_stream_reference(q, k, v, *, causal: bool,
                                          ) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
     """Plain streamed forward, the kernel's arithmetic in fp32: per query
-    tile, each split of its band gives a partial (unnormalised acc, row max
-    m, row sum l), and the lse merge combines them: ``m* = max m_i``,
+    tile (FWD_OUTER_TILE rows), each split of its band (FWD_INNER_TILE-row
+    key tiles, :func:`_fwd_bands`) gives a partial (unnormalised acc, row
+    max m, row sum l), and the lse merge combines them: ``m* = max m_i``,
     ``l* = sum l_i e^(m_i - m*)``, ``o = sum acc_i e^(m_i - m*) / l*``,
-    ``lse = m* + log l*``. A row with no visible key gives o = 0 exactly
-    and lse = NEG_INF. Returns ``(o, lse)`` as the kernel does."""
+    ``lse = m* + log l*`` (a band of one split is that split's own
+    normalisation). A row with no visible key gives o = 0 exactly and lse =
+    NEG_INF. Returns ``(o, lse)`` as the kernels do; the fp32 kernel's
+    64-row tiles (STREAM_*) sum the same terms in another order."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = (d ** -0.5) if scale is None else float(scale)
-    t = STREAM_TILE
+    to, ti = FWD_OUTER_TILE, FWD_INNER_TILE
     q32, k32, v32 = q.float(), k.float(), v.float()
     o = torch.zeros(b, h, sq, d, device=q.device)
     lse = torch.full((b, h, sq), NEG_INF, device=q.device)
-    bands, _ = _stream_bands(sq, sk, causal, window, True)
+    bands, _ = _fwd_bands(sq, sk, causal, window)
     for qt, splits in enumerate(bands):
         if not splits:
             continue
-        r0, r1 = qt * t, min(sq, (qt + 1) * t)
+        r0, r1 = qt * to, min(sq, (qt + 1) * to)
         parts = []
         for a, e in splits:
-            c0, c1 = a * t, min(sk, e * t)
+            c0, c1 = a * ti, min(sk, e * ti)
             s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, r0:r1],
                              k32[:, :, c0:c1]) * scale
             s = _mask_scores(s, causal, window, r0, c0)
@@ -541,34 +573,50 @@ def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
                                scale: Optional[float] = None,
                                window: Optional[int] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the streamed forward on CUDA tensors (its split pass, then
-    its merge pass): ``(o, lse)`` as :func:`flash_attention_fwd`, with the
-    sliding ``window``. Counts its launches in
+    """Launch the streamed forward on CUDA tensors: ``(o, lse)`` as
+    :func:`flash_attention_fwd`, with the sliding ``window``. bf16 takes
+    the wgmma kernel (FWD_* tiles, operands TMA can read:
+    :func:`_tma_operands`), with the merge pass and its fp32 workspace only
+    where a band has several splits; fp32 the FMA kernel and the merge
+    (STREAM_* tiles). Counts its launches in
     ``flash_attention_fwd_stream.launches``."""
     q, k, v, (b, h, sq, sk, d) = _fwd_args(q, k, v,
                                            "flash_attention_fwd_stream")
     scale = (d ** -0.5) if scale is None else float(scale)
-    o = torch.empty((b, h, sq, d), device=q.device, dtype=q.dtype)
+    bf16 = q.dtype == torch.bfloat16
+    dk_ = d
+    if bf16:
+        (q, k, v), dk_ = _tma_operands([q, k, v])
+        _, nsplit = _fwd_bands(sq, sk, causal, window)
+        tiles = (FWD_OUTER_TILE, FWD_INNER_TILE, FWD_SPLIT_TILES, nsplit)
+    else:
+        _, nsplit = _stream_bands(sq, sk, causal, window, True)
+        tiles = (STREAM_TILE, STREAM_TILE, STREAM_SPLIT_TILES, nsplit)
+    o = torch.empty((b, h, sq, dk_), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     if o.numel() == 0:
-        return o, lse
+        return o[..., :d], lse
     if sk == 0:
         raise ValueError("flash_attention needs at least one key")
-    _, nsplit = _stream_bands(sq, sk, causal, window, True)
-    acc = torch.empty((nsplit, b * h, sq, d), device=q.device,
-                      dtype=torch.float32)
-    ml = torch.empty((2, nsplit, b * h, sq), device=q.device,
-                     dtype=torch.float32)
+    acc = ml = None
+    if _fwd_merges(nsplit, bf16):
+        acc = torch.empty((nsplit, b * h, sq, dk_), device=q.device,
+                          dtype=torch.float32)
+        ml = torch.empty((2, nsplit, b * h, sq), device=q.device,
+                         dtype=torch.float32)
+    ptrs = (0, 0, 0) if acc is None else (
+        acc.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr())
     err = build.load().apex_flash_fwd_stream(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
-        ml[0].data_ptr(), ml[1].data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, h, sq, sk, d, q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, o.data_ptr(),
+        lse.data_ptr(), b, h, sq, sk, dk_, q.stride(0), q.stride(1),
+        q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), scale, int(causal),
-        _window_arg(window), STREAM_SPLIT_TILES, nsplit,
-        build.DTYPES[q.dtype], build.current_stream(q.get_device()))
+        _window_arg(window), *tiles, build.DTYPES[q.dtype],
+        build.current_stream(q.get_device()))
     build.check(err, "apex_flash_fwd_stream")
     flash_attention_fwd_stream.launches += 1
+    if dk_ != d:
+        o = o[..., :d].contiguous()
     return o, lse
 
 

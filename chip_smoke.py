@@ -11,8 +11,9 @@ Seven phases; any failure raises and exits non-zero:
 2. **Kernel vs plain**: each kernel (LayerNorm forward and backward,
    flash-attention forward, its dQ and dK/dV backward, paged flash-decode
    with and without its window, the K-query paged decode, the softmax
-   cross-entropy forward and backward, the streamed flash forward with its
-   merge pass, dQ and dK/dV with the sliding window, the fused scale-mask
+   cross-entropy forward and backward, the streamed flash forward (with its
+   merge pass where a band has several splits), dQ and dK/dV with the
+   sliding window, the fused scale-mask
    softmax forward and backward at the GPT-2 345M and BERT-large score
    shapes, a per-head mask, unaligned rows, fp16 and rows of 65536 and
    100003 elements on the two-pass route) against its plain PyTorch
@@ -21,8 +22,9 @@ Seven phases; any failure raises and exits non-zero:
    by CUDA-graph replay between CUDA events (kernel, plain version, one
    PyTorch library call as yardstick where one computes the same function;
    the resident flash kernels beside the streamed ones at 1024 (batch 8),
-   4096 and 8192 tokens; the split length of the streamed bf16 backward
-   against the lengths tried) and the least time the card could take.
+   4096 and 8192 tokens; the key tile and split length of the streamed
+   bf16 forward and the split length of its backward against the values
+   tried) and the least time the card could take.
 3. **Serving**: fp32 gates on a small model (the monolithic engine, then
    chunked prefill, the prefix cache, speculative decoding with a
    self-draft and a 1-layer draft, and all three: every token against the
@@ -69,7 +71,8 @@ Seven phases; any failure raises and exits non-zero:
    as one window, the exact launch counts (the streamed forward 2L a step,
    dQ and dK/dV L each, the resident flash kernels 0), a falling finite
    loss, no skipped step, bf16 params equal to their masters cast down;
-   tokens/s, the model-FLOPs share, peak memory, and one profiled step.
+   tokens/s, the model-FLOPs share, peak memory, and one profiled step
+   with the streamed forward's and backward's device time.
 7. **Fused softmax and the small layers** (:func:`fused_softmax_and_small_layers`):
    ``FusedScaleMaskSoftmax`` forward and backward at the GPT-2 345M causal
    and BERT-large padded score shapes (one launch of each softmax kernel a
@@ -645,10 +648,11 @@ ROW_TOL = {True: (1.5e-2, 1.5e-2), False: (1e-5, 1e-5)}
 
 
 def check_flash_attention_stream(torch, ops, dev):
-    """The three streamed kernels (forward with its merge pass, dQ, dK/dV)
-    against their plain versions (``flash_attention_*_stream_reference``:
-    per-split partials and the lse merge, split-wise dQ sums, q-split dK/dV
-    sums) on the same inputs; the backward from the kernel forward's lse.
+    """The three streamed kernels (forward with its merge pass where a band
+    has several splits, dQ, dK/dV) against their plain versions
+    (``flash_attention_*_stream_reference``: per-split partials and the lse
+    merge, split-wise dQ sums, q-split dK/dV sums) on the same inputs; the
+    backward from the kernel forward's lse.
     Each output is held twice. As a share of max |ref| over the tensor:
     bf16 forward 2e-2 (P rounded to bf16 as an mma operand), bf16 backward
     1e-2 (P and dS rounded, then each output); fp32 1e-5 (fp32 sums in
@@ -657,15 +661,18 @@ def check_flash_attention_stream(torch, ops, dev):
     which see few keys and are large, so it cannot hold the long rows; the
     worst row's own error (:func:`row_err`, limits :data:`ROW_TOL`) does,
     and at the path shapes a tail of rows halved must fail it. Rows that
-    see no key must give o = 0 and lse = -1e30 exactly. The bf16 backward
-    is the wgmma kernels; the cases take it through d = 128, ragged
-    128-row outer tiles, the fused-QKV views TMA reads as they are and
-    rows TMA refuses (the wrapper's padded copy). Then device times at the
+    see no key must give o = 0 and lse = -1e30 exactly. The bf16 kernels
+    are the wgmma ones; the cases take them through d = 128, ragged
+    128-row outer tiles, the fused-QKV views TMA reads as they are, rows
+    TMA refuses (the wrappers' padded copies), and, with FWD_SPLIT_TILES
+    cut for the case, the forward's partials and merge beside dead rows
+    and query tiles with an empty band. Then device times at the
     two path shapes beside their bounds, the plain versions, the resident
     kernels (unwindowed shapes) and SDPA (causal, or with the boolean band
     mask under the window), resident against streamed at 4096 and 8192
     (the numbers behind STREAM_MIN_SEQ) and at T = (8,16,1024,64), and the
-    backward's split length against the lengths tried."""
+    forward's key tile and split length and the backward's split length
+    against the values tried."""
     import importlib
 
     import torch.nn.functional as F
@@ -677,20 +684,31 @@ def check_flash_attention_stream(torch, ops, dev):
     def rand(*shape, dt):
         return torch.randn(*shape, device=dev, generator=gen).to(dt)
 
-    def run(q, k, v, causal, window, label):
+    def run(q, k, v, causal, window, label, fwd_split=None):
         dt = q.dtype
         do = rand(*q.shape, dt=dt)
         scale = q.shape[-1] ** -0.5
-        o, lse = ops.flash_attention_fwd_stream(q, k, v, causal=causal,
-                                                window=window)
+        chosen = tfa.FWD_SPLIT_TILES
+        try:  # a cut split length: bands of several splits, and the merge
+            tfa.FWD_SPLIT_TILES = fwd_split or chosen
+            _, nsplit = tfa._fwd_bands(q.shape[2], k.shape[2], causal,
+                                       window)
+            o, lse = ops.flash_attention_fwd_stream(q, k, v, causal=causal,
+                                                    window=window)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = ops.flash_attention_fwd_stream_reference(
+                q, k, v, causal=causal, window=window)
+        finally:
+            tfa.FWD_SPLIT_TILES = chosen
+        if fwd_split:
+            check(dt != bf16 or nsplit > 1, f"stream {label}: the cut split "
+                  f"length leaves one split a band")
         delta = (o.float() * do.float()).sum(-1)
         kw = dict(causal=causal, scale=scale, window=window)
         dq = ops.flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, **kw)
         dk, dv = ops.flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta,
                                                     **kw)
         torch.cuda.synchronize()
-        o_ref, lse_ref = ops.flash_attention_fwd_stream_reference(
-            q, k, v, causal=causal, window=window)
         refs = (ops.flash_attention_bwd_dq_stream_reference(
             q, k, v, do, lse, delta, **kw),
             *ops.flash_attention_bwd_dkv_stream_reference(
@@ -738,11 +756,14 @@ def check_flash_attention_stream(torch, ops, dev):
                 parts.append(f"halved tail: row {planted:.3g}, of max|ref| "
                              f"{rel_err(bad, r):.3g}")
                 del bad
+        merge = "" if dt != bf16 else (
+            f"; forward bands of up to {nsplit} splits, merged"
+            if nsplit > 1 else "; one split a band, no merge")
         print(f"  flash_attention_stream {label}: " + ", ".join(parts)
-              + f"; {n_dead} rows with no key exactly 0")
+              + f"; {n_dead} rows with no key exactly 0" + merge)
         return worst
 
-    cases = [  # b, h, sq, sk, d, dtype, causal, window
+    cases = [  # b, h, sq, sk, d, dtype, causal, window[, FWD_SPLIT_TILES]
         (1, 16, 8192, 8192, 64, bf16, True, None),
         (1, 16, 16384, 16384, 64, bf16, True, 4096),
         (1, 2, 4097, 4097, 64, f32, True, None),
@@ -760,13 +781,20 @@ def check_flash_attention_stream(torch, ops, dev):
         (1, 4, 4096, 4096, 128, bf16, True, 1024),
         # ragged 128-row outer tiles on both sides
         (1, 3, 1100, 990, 64, bf16, True, None),
+        # the bf16 forward's partials and merge: bands of up to 16 splits
+        # (2 key tiles each); then partials beside a dead-row tail and
+        # query tiles whose band is empty
+        (1, 4, 4096, 4096, 64, bf16, True, 1000, 2),
+        (1, 2, 1000, 300, 64, bf16, True, 100, 1),
     ]
     main_err = None
-    for b, h, sq, sk, d, dt, causal, window in cases:
+    for b, h, sq, sk, d, dt, causal, window, *split in cases:
         q, k, v = rand(b, h, sq, d, dt=dt), rand(b, h, sk, d, dt=dt), \
             rand(b, h, sk, d, dt=dt)
         err = run(q, k, v, causal, window, f"b={b} h={h} sq={sq} sk={sk} "
-                  f"d={d} {str(dt)[6:]} causal={causal} window={window}")
+                  f"d={d} {str(dt)[6:]} causal={causal} window={window}"
+                  + (f" FWD_SPLIT_TILES={split[0]}" if split else ""),
+                  *split)
         if main_err is None:
             main_err = err
         del q, k, v
@@ -884,10 +912,15 @@ def check_flash_attention_stream(torch, ops, dev):
                                     (1, 4096, None), (8, 1024, None)))
     main_label = "(1,16,8192,64) bf16 causal"
     t = by_shape["(8,16,1024,64) bf16 causal"]
+    print(f"  streamed forward at T (8,16,1024,64) causal: "
+          f"{t['fwd']['ms']:.4f} ms, resident forward "
+          f"{t['fwd']['resident_ms']:.4f} ms, SDPA "
+          f"{t['fwd']['library_ms']:.4f} ms")
     print(f"  streamed backward at T (8,16,1024,64) causal: dQ + dK/dV "
           f"{t['dq']['ms'] + t['dkv']['ms']:.4f} ms, resident pair "
           f"{t['dq']['resident_ms'] + t['dkv']['resident_ms']:.4f} ms, SDPA "
           f"backward {t['dq']['library_ms']:.4f} ms")
+    fwd_split_tuning(torch, ops, tfa, rand)
     bwd_split_tuning(torch, ops, tfa, rand)
     for s_label in (main_label, "(1,16,4096,64) bf16 causal"):
         t = by_shape[s_label]
@@ -896,19 +929,49 @@ def check_flash_attention_stream(torch, ops, dev):
         print(f"  STREAM_MIN_SEQ basis {s_label}: forward + dQ + dK/dV "
               f"streamed {stream_sum:.4f} ms, resident {res_sum:.4f} ms")
     rows = []
-    for key, name, line in (
-            ("fwd", "flash_attention_fwd_stream", 506),
-            ("dq", "flash_attention_bwd_dq_stream", 576),
-            ("dkv", "flash_attention_bwd_dkv_stream", 637)):
+    for key, name, line, kernel in (
+            ("fwd", "flash_attention_fwd_stream", 506,
+             f"fwd_wgmma<64, {tfa.FWD_INNER_TILE}> (wgmma fed by a TMA "
+             f"ring; fwd_merge only where a band has several splits)"),
+            ("dq", "flash_attention_bwd_dq_stream", 576,
+             "dq_wgmma<64> (wgmma fed by a TMA ring)"),
+            ("dkv", "flash_attention_bwd_dkv_stream", 637,
+             "dkv_wgmma<64> (wgmma fed by a TMA ring)")):
         main = dict(by_shape[main_label][key])
         main.pop("resident_ms", None)
         rows.append(dict(
-            name=name, route="cuda",
+            name=name, route="cuda", kernel=kernel,
             source="apex_tpu_torch/csrc/flash_attention_stream.cu",
             replaces=f"apex_tpu/ops/flash_attention.py:{line}",
             max_abs_err=main_err[key],
             by_shape={lab: t[key] for lab, t in by_shape.items()}, **main))
     return rows
+
+
+def fwd_split_tuning(torch, ops, tfa, rand, lengths=(16, 32, 64, 128)):
+    """The key tile and the split length of the bf16 streamed forward
+    (FWD_INNER_TILE rows, FWD_SPLIT_TILES key tiles a CTA) against the
+    values tried, at L and W: device times on one line."""
+    inner, chosen = tfa.FWD_INNER_TILE, tfa.FWD_SPLIT_TILES
+    parts = []
+    for label, s, window in (("L", 8192, None), ("W", 16384, 4096)):
+        q, k, v = (rand(1, 16, s, 64, dt=torch.bfloat16) for _ in range(3))
+        try:
+            for tile in (128, 64):
+                tfa.FWD_INNER_TILE = tile
+                times = []
+                for split in lengths:
+                    tfa.FWD_SPLIT_TILES = split
+                    ms = time_ms(lambda: ops.flash_attention_fwd_stream(
+                        q, k, v, causal=True, window=window), 10)
+                    times.append(f"{split}: {ms:.4f}")
+                parts.append(f"{label} inner {tile} " + ", ".join(times))
+        finally:
+            tfa.FWD_INNER_TILE, tfa.FWD_SPLIT_TILES = inner, chosen
+        del q, k, v
+        torch.cuda.empty_cache()
+    print(f"  FWD_INNER_TILE = {inner}, FWD_SPLIT_TILES = {chosen} (chosen);"
+          f" forward ms by key tile and split length: " + "; ".join(parts))
 
 
 def bwd_split_tuning(torch, ops, tfa, rand, lengths=(16, 32, 64, 128)):
@@ -1822,6 +1885,14 @@ def device_time_by_kernel(torch, prof):
     return by_name
 
 
+def kernel_time(by_name, *parts):
+    """(launches, device ms) of the kernels whose names hold any of
+    ``parts``, from :func:`device_time_by_kernel`."""
+    hit = [(n, t) for name, (n, t) in by_name.items()
+           if any(p in name for p in parts)]
+    return sum(n for n, _ in hit), sum(t for _, t in hit) / 1e3
+
+
 def print_top(by_name, k=10):
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]:
         print(f"    {t / 1e3:9.2f} ms {n:6d}x  {name[:80]}")
@@ -2359,6 +2430,14 @@ def train_long_context(torch, ops, dev, seq, window, pos):
               f"{1 - busy / wall:.3f}), the port's kernels {ours:.1f} ms = "
               f"{ours / busy:.3f} of busy; device time by kernel:")
         print_top(by_name)
+        n_f, t_f = kernel_time(by_name, "fwd_wgmma", "fwd_split")
+        n_m, t_m = kernel_time(by_name, "fwd_merge")
+        n_b, t_b = kernel_time(by_name, "dq_wgmma", "dkv_wgmma", "dq_split",
+                               "dkv_split")
+        print(f"  {label}, profiled step: streamed forward {t_f:.2f} ms "
+              f"({n_f} launches) + merge {t_m:.2f} ms ({n_m}) = "
+              f"{t_f + t_m:.2f} ms of device time; streamed backward dQ + "
+              f"dK/dV {t_b:.2f} ms ({n_b})")
     del trainer
     return counts
 
@@ -2689,7 +2768,7 @@ def main():
                 0 if row["launches"] else 1, 0, row["route"],
                 group="every kernel launched on a main path")
     print_verdict()
-    keys = ("name", "route", "source", "replaces", "launches",
+    keys = ("name", "route", "kernel", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "by_shape")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}

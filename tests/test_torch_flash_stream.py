@@ -7,13 +7,15 @@ split-wise dQ sums, the q-split dK/dV sums) through ``FlashAttention``; the
 JAX side runs ``flash_attention(stream="always", impl="pallas")`` with
 64-row blocks, whose ``_fwd_kernel_stream`` / ``_bwd_dq_kernel_stream`` /
 ``_bwd_dkv_kernel_stream`` run in Pallas interpret mode here (as
-``tests/test_flash_attention.py`` runs them). The split length is cut to
-one or two 64-key tiles so that rows span several splits and the merge
-runs; the backward's own tiles (``BWD_OUTER_TILE`` / ``BWD_INNER_TILE`` /
-``BWD_SPLIT_TILES``, 128 / 64 / 128 on the card) are cut alike, with unequal
-outer and inner tiles. fp32: values within 1e-5, q/k/v grads within 1e-4
-(the same fp32 math summed in another order). The CUDA kernels are held
-against the same plain versions by ``chip_smoke.py``.
+``tests/test_flash_attention.py`` runs them). The forward's tiles
+(``FWD_OUTER_TILE`` / ``FWD_INNER_TILE`` / ``FWD_SPLIT_TILES``, 128 / 128 /
+128 on the card) are cut to 64 / 32 and splits of one or two key tiles so
+that rows span several splits and the merge runs; the backward's own tiles
+(``BWD_OUTER_TILE`` / ``BWD_INNER_TILE`` / ``BWD_SPLIT_TILES``, 128 / 64 /
+128 on the card) are cut alike, with unequal outer and inner tiles. fp32:
+values within 1e-5, q/k/v grads within 1e-4 (the same fp32 math summed in
+another order). The CUDA kernels are held against the same plain versions
+by ``chip_smoke.py``.
 """
 
 import importlib
@@ -69,6 +71,13 @@ def _compare(q, k, v, g, **kw):
     return out, grads
 
 
+def _small_fwd_tiles(monkeypatch, split_tiles):
+    """The forward's tiles cut to 64-row query and 32-row key tiles."""
+    monkeypatch.setattr(tfa, "FWD_OUTER_TILE", 64)
+    monkeypatch.setattr(tfa, "FWD_INNER_TILE", 32)
+    monkeypatch.setattr(tfa, "FWD_SPLIT_TILES", split_tiles)
+
+
 def _small_bwd_tiles(monkeypatch, split_tiles):
     """The backward's tiles cut to 64-row outer and 32-row inner tiles."""
     monkeypatch.setattr(tfa, "BWD_OUTER_TILE", 64)
@@ -81,9 +90,12 @@ def _small_bwd_tiles(monkeypatch, split_tiles):
 def test_streamed_matches_jax_streamed_kernels(monkeypatch, causal,
                                                split_tiles):
     monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", split_tiles)
+    _small_fwd_tiles(monkeypatch, split_tiles)
     _small_bwd_tiles(monkeypatch, split_tiles)
     _, most = tfa._stream_bands(256, 256, causal, None, True)
     assert most == 4 // split_tiles  # the last rows span several splits
+    _, most = tfa._fwd_bands(256, 256, causal, None)
+    assert most == 8 // split_tiles
     for inner_is_k in (True, False):
         _, most = tfa._bwd_bands(256, 256, causal, None, inner_is_k)
         assert most == 8 // split_tiles
@@ -93,6 +105,7 @@ def test_streamed_matches_jax_streamed_kernels(monkeypatch, causal,
 @pytest.mark.parametrize("causal", [False, True])
 def test_window_matches_jax_streamed_kernels(monkeypatch, causal):
     monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", 1)
+    _small_fwd_tiles(monkeypatch, 1)
     _compare(*_inputs(22), causal=causal, window=48)
 
 
@@ -101,9 +114,13 @@ def test_band_restricted_window(monkeypatch, causal):
     """sq = 512, window 16: each tile's band is 2-3 tiles of 8, so most
     tiles are never visited (the _window_grid case of the JAX tests)."""
     monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", 1)
+    _small_fwd_tiles(monkeypatch, 1)
     bands, most = tfa._stream_bands(512, 512, causal, 16, True)
     assert most == (2 if causal else 3)
     assert sum(len(b) for b in bands) < 8 * 8 // 2
+    bands, most = tfa._fwd_bands(512, 512, causal, 16)
+    assert most == (3 if causal else 4)  # 64 queries over 32-key tiles
+    assert sum(len(b) for b in bands) < 8 * 16 // 2
     _compare(*_inputs(28, sq=512, sk=512), causal=causal, window=16)
 
 
@@ -111,6 +128,7 @@ def test_cross_shape_window_fully_masked_rows_are_zero(monkeypatch):
     """sq != sk: queries past sk + window - 1 see no key; their outputs and
     their dq are exactly 0, as in the JAX kernels."""
     monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", 1)
+    _small_fwd_tiles(monkeypatch, 1)
     out, grads = _compare(*_inputs(3, sq=320, sk=128), causal=True,
                           window=40)
     dead = slice(128 + 40 - 1, None)
@@ -124,12 +142,14 @@ def test_cross_shape_window_fully_masked_rows_are_zero(monkeypatch):
 def test_merge_matches_the_dense_plain_version(monkeypatch, causal, window):
     """The per-split partials and their lse merge give the dense softmax:
     o and lse against mha_reference and the dense logsumexp, at split
-    lengths 1 and 16 (one split a row), on a ragged cross shape."""
+    lengths 1 and 16 (one split a row) of 64-query x 32-key tiles, on a
+    ragged cross shape."""
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(9, sq=200, sk=150))
     ref = tfa.mha_reference(q, k, v, causal=causal, window=window)
     lse = tfa._lse_reference(q, k, causal, 0.25, window)
     for split in (1, 16):
         monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", split)
+        _small_fwd_tiles(monkeypatch, split)
         o, l = tfa.flash_attention_fwd_stream_reference(
             q, k, v, causal=causal, window=window)
         np.testing.assert_allclose(o.numpy(), ref.numpy(), atol=VAL_TOL)
@@ -239,6 +259,119 @@ def test_bwd_splits_cover_every_band_once(sq, sk, causal, window,
         assert all(p[1] == n[0] for p, n in zip(splits, splits[1:]))
         if hit.size:  # the floor-division band may hold only empty tiles
             assert splits[0][0] <= hit.min() and hit.max() < splits[-1][1]
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 48), (False, 40)])
+@pytest.mark.parametrize("split_tiles", [1, 2, 8])
+def test_forward_tiles_match_jax_streamed_forward(monkeypatch, split_tiles,
+                                                  causal, window):
+    """The plain forward at the bf16 kernel's tiles cut to 64-query x
+    32-key tiles, in splits of 1 and 2 key tiles (rows span several
+    splits: the partials and the merge) and of 8 (one split a band: the
+    kernel's direct epilogue), against the JAX package's _fwd_kernel_stream
+    in interpret mode; o within 1e-5, lse against the dense logsumexp."""
+    _small_fwd_tiles(monkeypatch, split_tiles)
+    bands, most = tfa._fwd_bands(256, 256, causal, window)
+    if split_tiles == 8:
+        assert most == 1
+    else:
+        assert most > 1 and any(len(b) > 1 for b in bands)
+    q, k, v, _ = _inputs(17)
+    o, lse = tfa.flash_attention_fwd_stream_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        window=window)
+    jout = jax_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                     window=window, impl="pallas", stream="always",
+                     block_q=64, block_k=64)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jout), atol=VAL_TOL)
+    want = tfa._lse_reference(*(torch.from_numpy(a) for a in (q, k)),
+                              causal, 0.25, window)
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), atol=VAL_TOL)
+
+
+@pytest.mark.parametrize("outer,inner", [(128, 64), (64, 128), (128, 128)])
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (8192, 8192, True, None), (16384, 16384, True, 4096),
+    (1100, 990, True, None), (300, 77, True, 16), (1000, 1000, False, 200),
+    (700, 900, False, None)])
+def test_fwd_splits_cover_every_band_once(monkeypatch, sq, sk, causal,
+                                          window, outer, inner):
+    """_fwd_bands at unequal tiles: each query tile's band is the JAX
+    helper's _window_k_range (with the causal limit the JAX kernels put in
+    their loop bounds), cut into contiguous splits of at most
+    FWD_SPLIT_TILES key tiles that cover it exactly once."""
+    from apex_tpu.ops.flash_attention import _window_k_range as jk
+
+    monkeypatch.setattr(tfa, "FWD_OUTER_TILE", outer)
+    monkeypatch.setattr(tfa, "FWD_INNER_TILE", inner)
+    for split in (2, 5, tfa.FWD_SPLIT_TILES):
+        monkeypatch.setattr(tfa, "FWD_SPLIT_TILES", split)
+        bands, most = tfa._fwd_bands(sq, sk, causal, window)
+        nq, nk = -(-sq // outer), -(-sk // inner)
+        assert len(bands) == nq
+        for t, splits in enumerate(bands):
+            lo, hi = jk(0, nk, t, outer, inner, 0, 0, causal, window)
+            lo, hi = max(int(lo), 0), int(hi)
+            if causal:
+                hi = min(hi, -(-(t + 1) * outer // inner))
+            assert len(splits) <= most
+            if hi <= lo:
+                assert not splits
+                continue
+            assert splits[0][0] == lo and splits[-1][1] == hi
+            assert all(a < b <= a + split for a, b in splits)
+            assert all(p[1] == n[0] for p, n in zip(splits, splits[1:]))
+
+
+@pytest.mark.parametrize("inner", [64, 128])
+def test_merge_and_workspace_only_where_a_band_has_several_splits(
+        monkeypatch, inner):
+    """At the card's constants the long-context shapes (L: 8192 causal; W:
+    16384 causal, window 4096) have one split a band, so the bf16 forward
+    launches no merge and allocates no workspace; a cut split length brings
+    both back, and the fp32 route always merges."""
+    monkeypatch.setattr(tfa, "FWD_INNER_TILE", inner)
+    assert (tfa.FWD_OUTER_TILE, tfa.FWD_SPLIT_TILES) == (128, 128)
+    for sq, window in ((8192, None), (16384, 4096)):
+        _, nsplit = tfa._fwd_bands(sq, sq, True, window)
+        assert nsplit == 1
+        assert not tfa._fwd_merges(nsplit, bf16=True)
+        assert tfa._fwd_merges(nsplit, bf16=False)
+    monkeypatch.setattr(tfa, "FWD_SPLIT_TILES", 2)
+    _, nsplit = tfa._fwd_bands(8192, 8192, True, None)
+    assert nsplit == 8192 // inner // 2
+    assert tfa._fwd_merges(nsplit, bf16=True)
+    assert not tfa._fwd_merges(1, bf16=True) and tfa._fwd_merges(0, False)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,window", [
+    (300, 77, 64, True, 16), (520, 400, 128, False, 90),
+    (700, 700, 64, True, None)])
+def test_bf16_plain_forward_at_the_card_tiles(sq, sk, d, causal, window):
+    """bf16 inputs through the plain forward at the card's tiles against
+    mha_reference on the same rounded values, within phase 2's bf16 limits
+    (2e-2 of max |ref|, each row within 1.5e-2); rows that see no key give
+    o = 0 exactly and lse = NEG_INF."""
+    rng = np.random.default_rng(41)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 2, s, d)).astype(
+        np.float32)).to(torch.bfloat16) for s in (sq, sk, sk))
+    o, lse = tfa.flash_attention_fwd_stream_reference(
+        q, k, v, causal=causal, window=window)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    ref = tfa.mha_reference(q.float(), k.float(), v.float(), causal=causal,
+                            window=window)
+    err = (o.float() - ref).abs()
+    assert float(err.max()) <= 2e-2 * float(ref.abs().max())
+    den = ref.norm(dim=-1)
+    den = den.maximum(den.amax(dim=-1, keepdim=True) * 1e-3)
+    assert float((err.norm(dim=-1) / den.clamp_min(1e-30)).max()) <= 1.5e-2
+    want = tfa._lse_reference(q, k, causal, d ** -0.5, window)
+    dead = want <= tfa.NEG_INF / 2
+    assert bool(dead.any()) == (sq > sk + (window or sk))
+    assert torch.all(o[dead] == 0) and torch.all(lse[dead] == tfa.NEG_INF)
+    np.testing.assert_allclose(lse[~dead].numpy(), want[~dead].numpy(),
+                               atol=1e-4)
 
 
 def test_tma_operands_pass_what_tma_reads_and_copy_the_rest():
