@@ -51,9 +51,9 @@ SIGNATURES = {
     "apex_ln_bwd_rows_per_block": [],
     "apex_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "apex_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_L] * 12
-                         + [_F, _I, _I, _P],
+                         + [_F] + [_I] * 5 + [_P],
     "apex_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_L] * 12
-                          + [_F, _I, _I, _P],
+                          + [_F] + [_I] * 5 + [_P],
     "apex_flash_fwd_stream": [_P] * 8 + [_I] * 5 + [_L] * 9
                              + [_F] + [_I] * 7 + [_P],
     "apex_flash_bwd_dq_stream": [_P] * 7 + [_I] * 5 + [_L] * 12

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper: a dQ kernel and a dK/dV kernel.
+// Flash-attention backward for Hopper, resident: a dQ kernel and a dK/dV
+// kernel.
 //
 // Replaces: apex_tpu/ops/flash_attention.py _bwd_dq_kernel (pallas_call at
 // _flash_bwd, flash_attention.py:1301) and _bwd_dkv_kernel (pallas_call at
@@ -13,29 +14,60 @@
 // query q iff k <= q), as in the forward.
 //
 // The TPU kernels keep the whole K/V (dQ pass) or Q/dO (dK/dV pass)
-// resident in VMEM (the kfull/qfull BlockSpecs, :1239 and :1312). That is a
-// VMEM layout rule, not behaviour: here 64-row tiles stream through shared
-// memory and any sequence length works.
+// resident in VMEM (the kfull/qfull BlockSpecs, :1239 and :1312) and loop
+// over it inside one grid step. That is a VMEM layout rule, not behaviour:
+// here one CTA owns one outer tile and streams every inner tile of its band
+// (the causal limit, :402-404; the causal start, :478) through shared
+// memory, so any sequence length works. Two passes and no atomics: each CTA
+// writes its rows once, so two calls give bit-identical results, as the
+// reference's two passes do.
 //
-// Bound on this card: operations (3 products of 2*d FLOPs per pair in the
-// dQ pass, 4 in the dK/dV pass, against 4-5 (s, d) operands moved once).
-// Design (simple first; wgmma, TMA and pipelined loads are later work):
-// - two passes and no atomics, deterministic as the reference: one CTA per
-//   (64-query tile, head, batch) loops over the key tiles up to the causal
-//   limit (:402-404) and keeps dQ in fp32 registers; one CTA per (64-key
-//   tile, head, batch) keeps its K/V tile in shared memory and dK/dV in fp32
-//   registers, and loops over the query tiles from the causal start (:478);
-// - bf16: every product on the tensor cores with mma.sync m16n8k16 (fp32
-//   sums), 4 warps of 16 tile rows each; P and dS are rounded to bf16 as
-//   the A operands of the dV/dK/dQ products (the reference kernel keeps them
-//   fp32), which the bf16 tolerance against the plain version covers; the
-//   S/dP accumulators feed those products straight from registers;
-// - fp32: plain FMA, 4 neighbouring lanes per tile row, operands in shared
-//   memory as fp32 (rows padded by one word against bank conflicts).
-// Any sq, sk and d <= 128 (unaligned d takes scalar loads); q/k/v/dO may be
-// strided (b, h, s) with a contiguous head_dim.
+// Bound on this card: operations (3 products of 2*d FLOPs per visible pair
+// in the dQ pass, 4 in the dK/dV pass, against 4-6 (s, d) operands moved
+// once).
+//
+// bf16 (dq_resident_wgmma, dkv_resident_wgmma): wgmma fed by a TMA ring, on
+// the building blocks of the streamed pair (flash_bwd_wgmma.cuh).
+// - One CTA per (kOuter = 128-row outer tile, b*h) item over its whole
+//   band: dQ keeps 128 queries (Q, dO, lse, delta, loaded once) and
+//   streams the key tiles (K, V) of its causal band; dK/dV keeps 128 keys
+//   (K, V) and streams the query tiles (Q, dO, lse, delta) from the causal
+//   start. No split, no fp32 workspace, no zero-fill, no atomics.
+// - Three warpgroups: warpgroups 0 and 1 own 64 rows each of the outer
+//   tile and run wgmma; warp 8 (the producer, its registers handed to the
+//   consumers with setmaxnreg) starts the TMA loads of a kStages-deep ring
+//   of BN-row inner tiles, with full and empty mbarriers. BN is 64, or 128
+//   for dQ with DP = 64 (RES_BWD_DQ_INNER_TILE in ops/flash_attention.py,
+//   chosen on the card; dK/dV at 128 spills registers).
+// - S / dP (S^T / dP^T) read both operands K-major from 128-byte-swizzled
+//   tiles; P and dS go from the accumulators into register A fragments;
+//   dQ += dS K, dV += P^T dO and dK += dS^T Q read the streamed tile as an
+//   MN-major B: no transposed copy, no P or dS in shared memory. exp2 with
+//   scale log2(e) folded in; only edge blocks (the diagonal, the ragged
+//   end) test each score.
+// - Longest bands first: dQ walks its query tiles from the last (the
+//   longest causal band), dK/dV its key tiles from the first.
+// - The epilogue: each warpgroup rounds its 64 rows (scaled) to bf16 into a
+//   staging tile of its own, in the swizzled layout TMA reads, and one of
+//   its threads stores them with TMA: no row past sq / sk and no column past
+//   d is written. The staging tiles are apart from the resident rows, so
+//   the producer loads the next item's rows while the consumers store.
+// - Schedules: a grid of one CTA per item (plain), or one CTA per SM that
+//   walks the items in the same order (persistent); the same kernel, the
+//   grid decides. Chosen on the card: RES_BWD_PERSISTENT.
+// q/k/v/dO are read through (b, h, s, d) tensor maps, so strided views (the
+// fused-QKV heads) go in without a copy; what TMA refuses (a base or
+// stride off 16 bytes, d % 8 != 0) the wrapper passes as a padded copy. A
+// head_dim up to 64 takes the 64-wide kernels (TMA zero-fills the columns
+// past d), up to 128 the 128-wide ones.
+//
+// fp32 (bwd_dq_fma_kernel, bwd_dkv_fma_kernel): plain FMA, one CTA per
+// (64-row tile, head, batch) over its band, 4 neighbouring lanes per tile
+// row, operands in shared memory as fp32 (rows padded by one word against
+// bank conflicts), written directly. Any sq, sk and d <= 128; q/k/v/dO may
+// be strided (b, h, s) with a contiguous head_dim.
 
-#include "common.cuh"
+#include "flash_bwd_wgmma.cuh"
 
 namespace apex_torch {
 namespace {
@@ -44,7 +76,7 @@ constexpr int kFmaThreads = 256;  // 4 lanes per tile row
 constexpr int kMaxDim = 128;
 constexpr int kPLd = kTile + 1;   // fp32 P / dS tile rows
 
-struct BwdArgs {
+struct FmaArgs {
   const void* q;
   const void* k;
   const void* v;
@@ -65,274 +97,371 @@ __device__ __forceinline__ bool live_row(float lse) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16: wgmma fed by a TMA ring, one CTA per whole band
 // ---------------------------------------------------------------------------
 
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma_kernel(BwdArgs a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = DP + 8;      // Q, dO, K, V rows, in halves
-  constexpr int LDT = kTile + 8;  // K^T rows
-  constexpr int NT = kTile / 8;   // key n-tiles of S / dP per warp
-  constexpr int DT = DP / 8;      // dim n-tiles of dQ per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kTile * LD;
-  bf16* Ks = dOs + kTile * LD;
-  bf16* Vs = Ks + kTile * LD;
-  bf16* Kt = Vs + kTile * LD;  // DP x LDT
+struct ResMaps {
+  BwdMaps in;              // q, k, v, dout
+  CUtensorMap out0, out1;  // dQ; or dK and dV: (b, h, s, d) contiguous
+};
 
-  const int q0 = blockIdx.x * kTile, hi = blockIdx.y, bi = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wr = warp * 16;
-  const int rowA = q0 + wr + g, rowB = rowA + 8;
-  const int sq = a.sq, sk = a.sk, d = a.d;
+struct ResArgs {
+  BwdArgs a;             // lse, delta, shapes, map positions; window 0
+  uint32_t pos0, pos1;   // coordinate placement of out0 / out1
+  int bh, n_outer;       // b*h, outer tiles of a head
+  int items;             // bh * n_outer: the CTAs of the plain grid
+};
 
-  const bf16* qb = static_cast<const bf16*>(a.q) + bi * a.qs.b + hi * a.qs.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + bi * a.ks.b + hi * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + bi * a.vs.b + hi * a.vs.h;
-  const bf16* ob =
-      static_cast<const bf16*>(a.dout) + bi * a.dos.b + hi * a.dos.h;
-  load_rows<DP, VEC>(Qs, LD, qb + (long long)q0 * a.qs.s, a.qs.s, sq - q0, d);
-  load_rows<DP, VEC>(dOs, LD, ob + (long long)q0 * a.dos.s, a.dos.s, sq - q0,
-                     d);
+// Byte offsets in dynamic shared memory (after aligning it to 1024): the
+// two resident operands (kOuter rows each), the ring of streamed pairs (BN
+// rows each), the output staging (one tile of kOuter rows for dQ, two for
+// dK and dV), fp32 row statistics (the resident rows' for dQ, each stage's
+// for dK/dV), mbarriers.
+template <int DP, int BN, bool kDkv>
+struct ResLayout {
+  static constexpr int kChunks = DP / 64;
+  static constexpr int kOuterBytes = kChunks * kOuter * kRowBytes;
+  static constexpr int kInnerBytes = kChunks * BN * kRowBytes;
+  static constexpr int kRing = 2 * kOuterBytes;
+  static constexpr int kStage = kRing + kStages * 2 * kInnerBytes;
+  static constexpr int kStats = kStage + (kDkv ? 2 : 1) * kOuterBytes;
+  static constexpr int kStatFloats = kDkv ? 2 * kStages * BN : 2 * kOuter;
+  static constexpr int kBars = kStats + kStatFloats * 4;
+  static constexpr int kBytes = 1024 + kBars + (2 * kStages + 2) * 8;
+};
 
-  const size_t head = (size_t)(bi * a.h + hi) * sq;
-  const float lseA = rowA < sq ? a.lse[head + rowA] : kNegInf;
-  const float lseB = rowB < sq ? a.lse[head + rowB] : kNegInf;
-  const float dlA = rowA < sq ? a.delta[head + rowA] : 0.f;
-  const float dlB = rowB < sq ? a.delta[head + rowB] : 0.f;
-  const bool liveA = live_row(lseA), liveB = live_row(lseB);
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
 
-  float dq[DT][4];
+// A warpgroup's 64 x DP accumulator times `mul`, as bf16, into its rows of a
+// staging tile of kOuter rows (`tile` points at the warpgroup's first row):
+// 64-column chunks kOuter rows apart, each row 128 bytes with 16-byte chunk
+// c at c ^ (row % 8) -- the layout a {64, 64} TMA box with the 128-byte
+// swizzle reads. Thread (warp, lane) holds rows 16 warp + lane / 4 (+ 8) at
+// columns 8 j + 2 (lane % 4): one 4-byte word each, no bank conflict.
+template <int DP>
+__device__ __forceinline__ void stage_rows(unsigned char* tile,
+                                           const float (&acc)[DP / 2],
+                                           float mul) {
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int r = warp * 16 + lane / 4, sw = lane / 4;  // r % 8 == sw
 #pragma unroll
-  for (int i = 0; i < DT; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  int nk = (sk + kTile - 1) / kTile;
-  if (a.causal) nk = min(nk, (q0 + 2 * kTile - 1) / kTile);
-
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<DP, VEC>(Ks, LD, kb + (long long)k0 * a.ks.s, a.ks.s, sk - k0, d);
-    load_rows<DP, VEC>(Vs, LD, vb + (long long)k0 * a.vs.s, a.vs.s, sk - k0, d);
-    load_rows_t<DP, VEC>(Kt, LDT, kb + (long long)k0 * a.ks.s, a.ks.s,
-                         sk - k0, d);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      const bf16* qa = Qs + (wr + g) * LD + kk + tig * 2;
-      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * LD);
-      const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * LD + 8);
-      const bf16* oa = dOs + (wr + g) * LD + kk + tig * 2;
-      const uint32_t o0 = ld32(oa), o1 = ld32(oa + 8 * LD);
-      const uint32_t o2 = ld32(oa + 8), o3 = ld32(oa + 8 * LD + 8);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* kp = Ks + (nt * 8 + g) * LD + kk + tig * 2;
-        mma_bf16(s[nt], a0, a1, a2, a3, ld32(kp), ld32(kp + 8));
-        const bf16* vp = Vs + (nt * 8 + g) * LD + kk + tig * 2;
-        mma_bf16(dp[nt], o0, o1, o2, o3, ld32(vp), ld32(vp + 8));
-      }
-    }
-
-    // dS = P * (dP - delta), in place of S
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + nt * 8 + tig * 2 + (i & 1);
-        const bool up = i < 2;
-        const int row = up ? rowA : rowB;
-        const bool valid = col < sk && (!a.causal || col <= row) &&
-                           (up ? liveA : liveB);
-        const float p =
-            valid ? expf(s[nt][i] * a.scale - (up ? lseA : lseB)) : 0.f;
-        s[nt][i] = p * (dp[nt][i] - (up ? dlA : dlB));
-      }
-    }
-
-    // dQ += dS K  (dS as the A operand straight from its accumulators)
-#pragma unroll
-    for (int kt = 0; kt < kTile / 16; ++kt) {
-      const uint32_t a0 = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const bf16* kp = Kt + (dt * 8 + g) * LDT + kt * 16 + tig * 2;
-        mma_bf16(dq[dt], a0, a1, a2, a3, ld32(kp), ld32(kp + 8));
-      }
-    }
-  }
-
-  bf16* out = static_cast<bf16*>(a.dq);
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = dt * 8 + tig * 2 + (i & 1);
-      const int row = i < 2 ? rowA : rowB;
-      if (row < sq && col < d)
-        out[(head + row) * d + col] = __float2bfloat16_rn(dq[dt][i] * a.scale);
-    }
+  for (int j = 0; j < DP / 8; ++j) {
+    unsigned char* chunk = tile + (j / 8) * kOuter * kRowBytes;
+    const int col = ((j % 8) ^ sw) * 16 + (lane % 4) * 4;
+    *reinterpret_cast<uint32_t*>(chunk + r * kRowBytes + col) =
+        pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    *reinterpret_cast<uint32_t*>(chunk + (r + 8) * kRowBytes + col) =
+        pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
   }
 }
 
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dkv_mma_kernel(BwdArgs a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = DP + 8;      // K, V, Q, dO rows, in halves
-  constexpr int LDT = kTile + 8;  // Q^T, dO^T rows
-  constexpr int NT = kTile / 8;   // query n-tiles of S^T / dP^T per warp
-  constexpr int DT = DP / 8;      // dim n-tiles of dK / dV per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kTile * LD;
-  bf16* Qs = Vs + kTile * LD;
-  bf16* dOs = Qs + kTile * LD;
-  bf16* Qt = dOs + kTile * LD;  // DP x LDT
-  bf16* dOt = Qt + DP * LDT;
-  float* lse_s = reinterpret_cast<float*>(dOt + DP * LDT);
-  float* delta_s = lse_s + kTile;
-
-  const int k0 = blockIdx.x * kTile, hi = blockIdx.y, bi = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wr = warp * 16;
-  const int keyA = k0 + wr + g, keyB = keyA + 8;
-  const int sq = a.sq, sk = a.sk, d = a.d;
-
-  const bf16* qb = static_cast<const bf16*>(a.q) + bi * a.qs.b + hi * a.qs.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + bi * a.ks.b + hi * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + bi * a.vs.b + hi * a.vs.h;
-  const bf16* ob =
-      static_cast<const bf16*>(a.dout) + bi * a.dos.b + hi * a.dos.h;
-  load_rows<DP, VEC>(Ks, LD, kb + (long long)k0 * a.ks.s, a.ks.s, sk - k0, d);
-  load_rows<DP, VEC>(Vs, LD, vb + (long long)k0 * a.vs.s, a.vs.s, sk - k0, d);
-  const size_t head = (size_t)(bi * a.h + hi) * sq;
-
-  float dk[DT][4], dv[DT][4];
+// TMA stores of a warpgroup's staged 64 rows to rows [row0, row0 + 64) of
+// head (bi, hi) of `map`: one {64, 64} box a 64-column chunk.
+template <int DP>
+__device__ __forceinline__ void store_rows(const CUtensorMap* map,
+                                           uint32_t pos,
+                                           const unsigned char* tile,
+                                           int row0, int hi, int bi) {
 #pragma unroll
-  for (int i = 0; i < DT; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
+  for (int c = 0; c < DP / 64; ++c)
+    hopper::tma_store_4d(map, tile + c * kOuter * kRowBytes, c * 64,
+                         map_coord(pos, 1, row0, hi, bi),
+                         map_coord(pos, 2, row0, hi, bi),
+                         map_coord(pos, 3, row0, hi, bi));
+}
+
+// The staging protocol of a warpgroup: its store thread waits until the
+// previous item's stores have read the staging tiles, the warpgroup syncs,
+// writes (stage_rows), fences its writes for TMA and syncs again, then the
+// store thread starts the stores.
+__device__ __forceinline__ void staging_free(int wg) {
+  if (threadIdx.x % kWg == 0) hopper::bulk_wait_read<0>();
+  hopper::named_sync(1 + wg, kWg);
+}
+
+__device__ __forceinline__ void staging_ready(int wg) {
+  hopper::fence_async_shared();
+  hopper::named_sync(1 + wg, kWg);
+}
+
+// dQ: a CTA takes the items blockIdx.x, + gridDim.x, ...; item w is query
+// tile n_outer - 1 - w / bh (longest causal band first) of head w % bh. For
+// each it keeps 128 queries (Q, dO, lse, delta) and streams the BN-row key
+// tiles of the band (K, V) through the ring. Warpgroups 0 and 1 own 64
+// queries each: S = Q K^T and dP = dO V^T, then P and dS = P (dP - delta)
+// in registers, and dQ += dS K with K read through the descriptor as an
+// MN-major B. Warp 8 starts the TMA loads; its 32 lanes copy the lse and
+// delta rows.
+template <int DP, int BN>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    dq_resident_wgmma(const __grid_constant__ ResMaps maps, const ResArgs r) {
+  using L = ResLayout<DP, BN, false>;
+  const BwdArgs& a = r.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  float* stats = reinterpret_cast<float*>(base + L::kStats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* res_full = empty + kStages;  // an item's Q, dO, lse, delta
+  uint64_t* res_empty = res_full + 1;    // the consumers are done with them
+  const int nk = (a.sk + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // each consumer warp
+    }
+    hopper::mbar_init(res_full, 1 + 32);  // the TMA's, each lane's copies
+    hopper::mbar_init(res_empty, 8);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 2) {  // the producer
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x >= 2 * kWg + 32) return;
+    const int lane = threadIdx.x & 31;
+    int it = 0;  // ring tiles so far, over this CTA's items
+    for (int w = blockIdx.x, j = 0; w < r.items; w += gridDim.x, ++j) {
+      const int bh = w % r.bh, qt = r.n_outer - 1 - w / r.bh;
+      const int bi = bh / a.h, hi = bh - bi * a.h, q0 = qt * kOuter;
+      const Band band = k_tiles(qt, nk, a.causal, 0, kOuter, BN);
+      hopper::mbar_wait(res_empty, (j & 1) ^ 1);
+      if (lane == 0) {
+        hopper::mbar_arrive_tx(res_full, 2 * L::kOuterBytes);
+        tma_rows<DP, kOuter>(base, &maps.in.q, a.qpos, res_full, q0, hi, bi);
+        tma_rows<DP, kOuter>(base + L::kOuterBytes, &maps.in.dout, a.opos,
+                             res_full, q0, hi, bi);
+      }
+      copy_stats(stats, a.lse + (size_t)bh * a.sq,
+                 a.delta + (size_t)bh * a.sq, q0, kOuter, a.sq, res_full);
+      if (lane != 0) continue;
+      for (int i = band.lo; i < band.hi; ++i, ++it) {
+        const int s = it % kStages;
+        hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        unsigned char* ks = base + L::kRing + s * 2 * L::kInnerBytes;
+        hopper::mbar_arrive_tx(&full[s], 2 * L::kInnerBytes);
+        tma_rows<DP, BN>(ks, &maps.in.k, a.kpos, &full[s], i * BN, hi, bi);
+        tma_rows<DP, BN>(ks + L::kInnerBytes, &maps.in.v, a.vpos, &full[s],
+                         i * BN, hi, bi);
+      }
+    }
+    hopper::cp_async_wait_all();
+    return;
   }
 
-  const int nq = (sq + kTile - 1) / kTile;
-  // causal: query tiles wholly above this key tile see none of its keys
-  const int start = a.causal ? min(k0 / kTile, nq) : 0;
+  hopper::regs_alloc<240>();
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4;  // rows of d[i]: + 8 ((i/2)%2)
+  const int kcol = 2 * (lane % 4);      // + 8 (i/4) + i%2
+  const float c = a.scale * kLog2e;
+  const uint32_t qs = hopper::smem_u32(base), os = qs + L::kOuterBytes;
+  const uint32_t ring = hopper::smem_u32(base + L::kRing);
+  unsigned char* stage = base + L::kStage + wg * 64 * kRowBytes;
+  int it = 0;
+  for (int w = blockIdx.x, j = 0; w < r.items; w += gridDim.x, ++j) {
+    const int bh = w % r.bh, qt = r.n_outer - 1 - w / r.bh;
+    const int bi = bh / a.h, hi = bh - bi * a.h;
+    const int qw = qt * kOuter + wg * 64;  // this warpgroup's queries
+    const Band band = k_tiles(qt, nk, a.causal, 0, kOuter, BN);
+    float dq[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+    hopper::mbar_wait(res_full, j & 1);
+    const int ra = wg * 64 + r0;
+    const float l2[2] = {lse2_of(stats[ra]), lse2_of(stats[ra + 8])};
+    const float dl[2] = {stats[kOuter + ra], stats[kOuter + ra + 8]};
+    const int it0 = it;
+    auto start = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
+      const int g = it0 + n, s = g % kStages;
+      hopper::mbar_wait(&full[s], (g / kStages) & 1);
+      const uint32_t ks = ring + s * 2 * L::kInnerBytes;
+      hopper::wgmma_fence();
+      scores<DP, kOuter, BN>(st, qs, wg * 64, ks);
+      scores<DP, kOuter, BN>(dp, os, wg * 64, ks + L::kInnerBytes);
+      hopper::wgmma_commit();
+    };
+    auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
+      const int k0 = (band.lo + n) * BN;
+      if (interior<BN>(qw, k0, a.sk, a.causal, 0))
+        dq_probs<false, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+      else
+        dq_probs<true, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+      uint32_t sf[BN / 16][4];
+      fragments<BN>(sf, dp);
+      hopper::wgmma_fence();
+      hopper::fence_regs(dq);
+      accumulate<DP, BN>(dq, sf,
+                         ring + ((it0 + n) % kStages) * 2 * L::kInnerBytes);
+    };
+    auto release = [&](int n) {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[(it0 + n) % kStages]);
+    };
+    const int nt = band.hi - band.lo;
+    consume<BN>(nt, start, finish, release);
+    it += nt;
+    hopper::fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(res_empty);
 
-  for (int qi = start; qi < nq; ++qi) {
-    const int q0 = qi * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<DP, VEC>(Qs, LD, qb + (long long)q0 * a.qs.s, a.qs.s, sq - q0,
-                       d);
-    load_rows_t<DP, VEC>(Qt, LDT, qb + (long long)q0 * a.qs.s, a.qs.s,
-                         sq - q0, d);
-    load_rows<DP, VEC>(dOs, LD, ob + (long long)q0 * a.dos.s, a.dos.s,
-                       sq - q0, d);
-    load_rows_t<DP, VEC>(dOt, LDT, ob + (long long)q0 * a.dos.s, a.dos.s,
-                         sq - q0, d);
-    for (int t = threadIdx.x; t < kTile; t += kMmaThreads) {
-      const bool in = q0 + t < sq;
-      lse_s[t] = in ? a.lse[head + q0 + t] : kNegInf;
-      delta_s[t] = in ? a.delta[head + q0 + t] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      const bf16* ka = Ks + (wr + g) * LD + kk + tig * 2;
-      const uint32_t a0 = ld32(ka), a1 = ld32(ka + 8 * LD);
-      const uint32_t a2 = ld32(ka + 8), a3 = ld32(ka + 8 * LD + 8);
-      const bf16* va = Vs + (wr + g) * LD + kk + tig * 2;
-      const uint32_t v0 = ld32(va), v1 = ld32(va + 8 * LD);
-      const uint32_t v2 = ld32(va + 8), v3 = ld32(va + 8 * LD + 8);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* qp = Qs + (nt * 8 + g) * LD + kk + tig * 2;
-        mma_bf16(s[nt], a0, a1, a2, a3, ld32(qp), ld32(qp + 8));
-        const bf16* op = dOs + (nt * 8 + g) * LD + kk + tig * 2;
-        mma_bf16(dp[nt], v0, v1, v2, v3, ld32(op), ld32(op + 8));
-      }
-    }
-
-    // P^T in place of S^T, dS^T = P^T * (dP^T - delta) in place of dP^T
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = nt * 8 + tig * 2 + (i & 1);
-        const int qrow = q0 + qc;
-        const int key = i < 2 ? keyA : keyB;
-        const float l = lse_s[qc];
-        const bool valid = qrow < sq && key < sk &&
-                           (!a.causal || key <= qrow) && live_row(l);
-        const float p = valid ? expf(s[nt][i] * a.scale - l) : 0.f;
-        s[nt][i] = p;
-        dp[nt][i] = p * (dp[nt][i] - delta_s[qc]);
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q, the A operands from registers
-#pragma unroll
-    for (int kt = 0; kt < kTile / 16; ++kt) {
-      const uint32_t p0 = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
-      const uint32_t p1 = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
-      const uint32_t p2 = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-      const uint32_t p3 = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
-      const uint32_t d0 = pack_bf16(dp[2 * kt][0], dp[2 * kt][1]);
-      const uint32_t d1 = pack_bf16(dp[2 * kt][2], dp[2 * kt][3]);
-      const uint32_t d2 = pack_bf16(dp[2 * kt + 1][0], dp[2 * kt + 1][1]);
-      const uint32_t d3 = pack_bf16(dp[2 * kt + 1][2], dp[2 * kt + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const int off = (dt * 8 + g) * LDT + kt * 16 + tig * 2;
-        mma_bf16(dv[dt], p0, p1, p2, p3, ld32(dOt + off), ld32(dOt + off + 8));
-        mma_bf16(dk[dt], d0, d1, d2, d3, ld32(Qt + off), ld32(Qt + off + 8));
-      }
+    staging_free(wg);
+    stage_rows<DP>(stage, dq, a.scale);
+    staging_ready(wg);
+    if (tid == 0) {
+      store_rows<DP>(&maps.out0, r.pos0, stage, qw, hi, bi);
+      hopper::bulk_commit();
     }
   }
+  if (tid == 0) hopper::bulk_wait_read<0>();
+}
 
-  const size_t khead = (size_t)(bi * a.h + hi) * sk;
-  bf16* dk_out = static_cast<bf16*>(a.dk);
-  bf16* dv_out = static_cast<bf16*>(a.dv);
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = dt * 8 + tig * 2 + (i & 1);
-      const int key = i < 2 ? keyA : keyB;
-      if (key < sk && col < d) {
-        const size_t at = (khead + key) * d + col;
-        dk_out[at] = __float2bfloat16_rn(dk[dt][i] * a.scale);
-        dv_out[at] = __float2bfloat16_rn(dv[dt][i]);
+// dK/dV: item w is key tile w / bh (under causal, tile 0 has the longest
+// band) of head w % bh. For each a CTA keeps 128 keys (K and V) and streams
+// the BN-row query tiles from the causal start (Q, dO, lse, delta) through
+// the ring. Warpgroups 0 and 1 own 64 keys each: S^T = K Q^T and
+// dP^T = V dO^T, then P^T = exp2(S^T scale log2e - lse log2e) and
+// dS^T = P^T (dP^T - delta) in registers, and dV += P^T dO, dK += dS^T Q
+// with Q and dO read through the descriptor as MN-major B. Warp 8 starts
+// the TMA loads; its 32 lanes copy each query tile's lse and delta. A key
+// tile that no query sees (sk > sq under causal) stores zeros.
+template <int DP, int BN>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    dkv_resident_wgmma(const __grid_constant__ ResMaps maps,
+                       const ResArgs r) {
+  using L = ResLayout<DP, BN, true>;
+  const BwdArgs& a = r.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  float* stats = reinterpret_cast<float*>(base + L::kStats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* res_full = empty + kStages;  // an item's K and V
+  uint64_t* res_empty = res_full + 1;    // the consumers are done with them
+  const int nq = (a.sq + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);  // the TMA's, each lane's copies
+      hopper::mbar_init(&empty[s], 8);      // each consumer warp
+    }
+    hopper::mbar_init(res_full, 1);
+    hopper::mbar_init(res_empty, 8);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 2) {  // the producer
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x >= 2 * kWg + 32) return;
+    const int lane = threadIdx.x & 31;
+    int it = 0;
+    for (int w = blockIdx.x, j = 0; w < r.items; w += gridDim.x, ++j) {
+      const int bh = w % r.bh, kt = w / r.bh;
+      const int bi = bh / a.h, hi = bh - bi * a.h, k0 = kt * kOuter;
+      const Band band = q_tiles(kt, nq, a.causal, 0, BN, kOuter);
+      hopper::mbar_wait(res_empty, (j & 1) ^ 1);
+      if (lane == 0) {
+        hopper::mbar_arrive_tx(res_full, 2 * L::kOuterBytes);
+        tma_rows<DP, kOuter>(base, &maps.in.k, a.kpos, res_full, k0, hi, bi);
+        tma_rows<DP, kOuter>(base + L::kOuterBytes, &maps.in.v, a.vpos,
+                             res_full, k0, hi, bi);
+      }
+      const float* lse = a.lse + (size_t)bh * a.sq;
+      const float* delta = a.delta + (size_t)bh * a.sq;
+      for (int i = band.lo; i < band.hi; ++i, ++it) {
+        const int s = it % kStages, q0 = i * BN;
+        hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        unsigned char* qs = base + L::kRing + s * 2 * L::kInnerBytes;
+        if (lane == 0) {
+          hopper::mbar_arrive_tx(&full[s], 2 * L::kInnerBytes);
+          tma_rows<DP, BN>(qs, &maps.in.q, a.qpos, &full[s], q0, hi, bi);
+          tma_rows<DP, BN>(qs + L::kInnerBytes, &maps.in.dout, a.opos,
+                           &full[s], q0, hi, bi);
+        }
+        copy_stats(stats + s * 2 * BN, lse, delta, q0, BN, a.sq, &full[s]);
       }
     }
+    hopper::cp_async_wait_all();
+    return;
   }
+
+  hopper::regs_alloc<240>();
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int qcol = 2 * (lane % 4);  // queries of d[i]: + 8 (i/4) + i%2
+  const float c = a.scale * kLog2e;
+  const uint32_t ks = hopper::smem_u32(base), vs = ks + L::kOuterBytes;
+  const uint32_t ring = hopper::smem_u32(base + L::kRing);
+  unsigned char* stage = base + L::kStage + wg * 64 * kRowBytes;
+  int it = 0;
+  for (int w = blockIdx.x, j = 0; w < r.items; w += gridDim.x, ++j) {
+    const int bh = w % r.bh, kt = w / r.bh;
+    const int bi = bh / a.h, hi = bh - bi * a.h;
+    const int kw = kt * kOuter + wg * 64;        // this warpgroup's keys
+    const int key0 = kw + warp * 16 + lane / 4;  // of d[i]: + 8 ((i/2)%2)
+    const Band band = q_tiles(kt, nq, a.causal, 0, BN, kOuter);
+    float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+    hopper::mbar_wait(res_full, j & 1);
+    const int it0 = it;
+    auto start = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
+      const int g = it0 + n, s = g % kStages;
+      hopper::mbar_wait(&full[s], (g / kStages) & 1);
+      const uint32_t qs = ring + s * 2 * L::kInnerBytes;
+      hopper::wgmma_fence();
+      scores<DP, kOuter, BN>(st, ks, wg * 64, qs);
+      scores<DP, kOuter, BN>(dp, vs, wg * 64, qs + L::kInnerBytes);
+      hopper::wgmma_commit();
+    };
+    auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
+      const int s = (it0 + n) % kStages, q0 = (band.lo + n) * BN;
+      const float* st_s = stats + s * 2 * BN;
+      if (interior<64, BN>(q0, kw, a.sk, a.causal, 0))
+        dkv_probs<false, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
+      else
+        dkv_probs<true, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
+      uint32_t pf[BN / 16][4], sf[BN / 16][4];
+      fragments<BN>(pf, st);
+      fragments<BN>(sf, dp);
+      const uint32_t qs = ring + s * 2 * L::kInnerBytes;
+      hopper::wgmma_fence();
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+      accumulate<DP, BN>(dv, pf, qs + L::kInnerBytes);
+      accumulate<DP, BN>(dk, sf, qs);
+    };
+    auto release = [&](int n) {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[(it0 + n) % kStages]);
+    };
+    const int nt = band.hi - band.lo;
+    consume<BN>(nt, start, finish, release);
+    it += nt;
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(res_empty);
+
+    staging_free(wg);
+    stage_rows<DP>(stage, dk, a.scale);
+    stage_rows<DP>(stage + L::kOuterBytes, dv, 1.f);
+    staging_ready(wg);
+    if (tid == 0) {
+      store_rows<DP>(&maps.out0, r.pos0, stage, kw, hi, bi);
+      store_rows<DP>(&maps.out1, r.pos1, stage + L::kOuterBytes, kw, hi, bi);
+      hopper::bulk_commit();
+    }
+  }
+  if (tid == 0) hopper::bulk_wait_read<0>();
 }
 
 // ---------------------------------------------------------------------------
 // fp32 on FMA
 // ---------------------------------------------------------------------------
-
 // kTile x d fp32 tile into dst (row pitch d + 1), zero past rows_valid
 __device__ __forceinline__ void load_f32(float* dst, const float* src,
                                          long long stride, int rows_valid,
@@ -344,7 +473,7 @@ __device__ __forceinline__ void load_f32(float* dst, const float* src,
   }
 }
 
-__global__ void __launch_bounds__(kFmaThreads) bwd_dq_fma_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(kFmaThreads) bwd_dq_fma_kernel(FmaArgs a) {
   extern __shared__ float smf[];
   const int sq = a.sq, sk = a.sk, d = a.d, dp = d + 1;
   float* Qs = smf;
@@ -419,7 +548,7 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dq_fma_kernel(BwdArgs a) {
   }
 }
 
-__global__ void __launch_bounds__(kFmaThreads) bwd_dkv_fma_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(kFmaThreads) bwd_dkv_fma_kernel(FmaArgs a) {
   extern __shared__ float smf[];
   const int sq = a.sq, sk = a.sk, d = a.d, dp = d + 1;
   float* Ks = smf;
@@ -515,11 +644,11 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dkv_fma_kernel(BwdArgs a) {
 // ---------------------------------------------------------------------------
 
 template <auto Kernel>
-int launch(const BwdArgs& a, int tiles, int b, int threads, size_t smem,
+int launch(const FmaArgs& a, int tiles, int b, int threads, size_t smem,
            cudaStream_t stream) {
   const int err = set_max_smem<Kernel>(smem);
   if (err) return err;
-  BwdArgs arg = a;
+  FmaArgs arg = a;
   void* params[] = {&arg};
   const cudaError_t launched =
       cudaLaunchKernel(reinterpret_cast<const void*>(Kernel),
@@ -529,53 +658,123 @@ int launch(const BwdArgs& a, int tiles, int b, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-template <int DP, bool VEC>
-int launch_mma(bool dkv, const BwdArgs& a, int b, cudaStream_t stream) {
-  constexpr size_t rows = sizeof(__nv_bfloat16) * kTile * (DP + 8);
-  constexpr size_t trans = sizeof(__nv_bfloat16) * DP * (kTile + 8);
+int launch_fma(bool dkv, const FmaArgs& a, int b, cudaStream_t stream) {
+  const size_t tile = sizeof(float) * kTile * (a.d + 1);
+  const size_t ptile = sizeof(float) * kTile * kPLd;
   if (dkv)
-    return launch<bwd_dkv_mma_kernel<DP, VEC>>(
-        a, (a.sk + kTile - 1) / kTile, b, kMmaThreads,
-        4 * rows + 2 * trans + 2 * kTile * sizeof(float), stream);
-  return launch<bwd_dq_mma_kernel<DP, VEC>>(a, (a.sq + kTile - 1) / kTile, b,
-                                            kMmaThreads, 4 * rows + trans,
-                                            stream);
+    return launch<bwd_dkv_fma_kernel>(
+        a, (a.sk + kTile - 1) / kTile, b, kFmaThreads,
+        4 * tile + 2 * ptile + 2 * kTile * sizeof(float), stream);
+  return launch<bwd_dq_fma_kernel>(a, (a.sq + kTile - 1) / kTile, b,
+                                   kFmaThreads, 4 * tile + ptile, stream);
+}
+
+// A resident kernel with its shared memory over `grid` CTAs: one per item,
+// or one per SM (persistent).
+template <auto Kernel, size_t kSmem>
+int launch_res(const ResMaps& maps, const ResArgs& r, int grid,
+               cudaStream_t stream) {
+  const int err = set_max_smem<Kernel>(kSmem);
+  if (err) return err;
+  Kernel<<<grid, kBwdThreads, kSmem, stream>>>(maps, r);
+  return (int)cudaGetLastError();
+}
+
+template <int DP, int BN>
+int launch_dq(const ResMaps& maps, const ResArgs& r, int grid,
+              cudaStream_t stream) {
+  return launch_res<dq_resident_wgmma<DP, BN>,
+                    ResLayout<DP, BN, false>::kBytes>(maps, r, grid, stream);
 }
 
 template <int DP>
-int launch_mma_dp(bool vec, bool dkv, const BwdArgs& a, int b,
-                  cudaStream_t stream) {
-  return vec ? launch_mma<DP, true>(dkv, a, b, stream)
-             : launch_mma<DP, false>(dkv, a, b, stream);
-}
-
-int launch_bwd(bool dkv, const BwdArgs& a, int b, int dtype,
+int launch_dkv(const ResMaps& maps, const ResArgs& r, int grid,
                cudaStream_t stream) {
-  if (a.d < 1 || a.d > kMaxDim || b < 1 || a.h < 1 || a.sq < 1 || a.sk < 1)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == kF32) {
-    const size_t tile = sizeof(float) * kTile * (a.d + 1);
-    const size_t ptile = sizeof(float) * kTile * kPLd;
-    if (dkv)
-      return launch<bwd_dkv_fma_kernel>(
-          a, (a.sk + kTile - 1) / kTile, b, kFmaThreads,
-          4 * tile + 2 * ptile + 2 * kTile * sizeof(float), stream);
-    return launch<bwd_dq_fma_kernel>(a, (a.sq + kTile - 1) / kTile, b,
-                                     kFmaThreads, 4 * tile + ptile, stream);
-  }
-  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
-  const bool vec = vec_ok(a.d, a.q, a.qs) && vec_ok(a.d, a.k, a.ks) &&
-                   vec_ok(a.d, a.v, a.vs) && vec_ok(a.d, a.dout, a.dos);
-  if (a.d <= 32) return launch_mma_dp<32>(vec, dkv, a, b, stream);
-  if (a.d <= 64) return launch_mma_dp<64>(vec, dkv, a, b, stream);
-  return launch_mma_dp<128>(vec, dkv, a, b, stream);
+  return launch_res<dkv_resident_wgmma<DP, 64>,
+                    ResLayout<DP, 64, true>::kBytes>(maps, r, grid, stream);
 }
 
-BwdArgs make_args(const void* q, const void* k, const void* v,
+// bf16: the four operand maps and the output maps (out0: dQ or dK, out1:
+// dV; contiguous (b, h, s, d)), then the kernel. inner_tile 64, or 128 for
+// dQ with d <= 64 (dK/dV at 128 spills); persistent: one CTA per SM.
+int launch_res_bwd(bool dkv, const FmaArgs& f, int b, int inner_tile,
+                   int persistent, cudaStream_t stream) {
+  ResMaps maps;
+  ResArgs r{};
+  BwdArgs& a = r.a;
+  const int h = f.h, d = f.d, so = dkv ? f.sk : f.sq;
+  int err = encode_rows_map(&maps.in.q, &a.qpos, f.q, b, h, f.sq, d, f.qs.b,
+                            f.qs.h, f.qs.s);
+  if (!err) err = encode_rows_map(&maps.in.k, &a.kpos, f.k, b, h, f.sk, d,
+                                  f.ks.b, f.ks.h, f.ks.s);
+  if (!err) err = encode_rows_map(&maps.in.v, &a.vpos, f.v, b, h, f.sk, d,
+                                  f.vs.b, f.vs.h, f.vs.s);
+  if (!err) err = encode_rows_map(&maps.in.dout, &a.opos, f.dout, b, h, f.sq,
+                                  d, f.dos.b, f.dos.h, f.dos.s);
+  const long long ob = (long long)h * so * d, oh = (long long)so * d;
+  if (!err) err = encode_rows_map(&maps.out0, &r.pos0, dkv ? f.dk : f.dq, b, h,
+                                  so, d, ob, oh, d);
+  if (!err && dkv)
+    err = encode_rows_map(&maps.out1, &r.pos1, f.dv, b, h, so, d, ob, oh, d);
+  if (err) return err;
+  a.lse = f.lse;
+  a.delta = f.delta;
+  a.h = h;
+  a.sq = f.sq;
+  a.sk = f.sk;
+  a.d = d;
+  a.scale = f.scale;
+  a.causal = f.causal;
+  r.bh = b * h;
+  r.n_outer = (so + kOuter - 1) / kOuter;
+  const long long items = (long long)r.bh * r.n_outer;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  r.items = (int)items;
+  int grid = r.items;
+  if (persistent) {
+    int dev = 0, sms = 0;
+    err = (int)cudaGetDevice(&dev);
+    if (!err)
+      err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev);
+    if (err) return err;
+    grid = grid < sms ? grid : sms;
+  }
+  if (dkv)
+    return d > 64 ? launch_dkv<128>(maps, r, grid, stream)
+                  : launch_dkv<64>(maps, r, grid, stream);
+  if (d > 64) return launch_dq<128, 64>(maps, r, grid, stream);
+  return inner_tile == 128 ? launch_dq<64, 128>(maps, r, grid, stream)
+                           : launch_dq<64, 64>(maps, r, grid, stream);
+}
+
+// The tiles a caller names: bf16 kOuter rows kept, 64 streamed (or 128 for
+// dQ with d <= 64), either schedule; fp32 kTile both ways, the plain grid.
+bool tiles_ok(bool dkv, int dtype, int d, int outer_tile, int inner_tile,
+              int persistent) {
+  if (dtype == kBF16)
+    return outer_tile == kOuter &&
+           (inner_tile == 64 || (inner_tile == 128 && d <= 64 && !dkv)) &&
+           (persistent == 0 || persistent == 1);
+  return dtype == kF32 && outer_tile == kTile && inner_tile == kTile &&
+         persistent == 0;
+}
+
+int launch_bwd(bool dkv, const FmaArgs& a, int b, int outer_tile,
+               int inner_tile, int persistent, int dtype,
+               cudaStream_t stream) {
+  if (a.d < 1 || a.d > kMaxDim || b < 1 || a.h < 1 || a.sq < 1 || a.sk < 1 ||
+      !tiles_ok(dkv, dtype, a.d, outer_tile, inner_tile, persistent))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == kF32) return launch_fma(dkv, a, b, stream);
+  return launch_res_bwd(dkv, a, b, inner_tile, persistent, stream);
+}
+
+FmaArgs make_args(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta, int h,
                   int sq, int sk, int d, const long long* st, float scale,
                   int causal) {
-  BwdArgs a{};
+  FmaArgs a{};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -602,20 +801,24 @@ using namespace apex_torch;
 
 // q/k/v/dout strides in elements, (batch, head, seq) each, head_dim stride 1.
 // lse/delta contiguous (b, h, sq) fp32; dq contiguous (b, h, sq, d) in q's
-// dtype.
+// dtype. outer_tile / inner_tile: the rows a CTA keeps and streams;
+// persistent: one CTA per SM walking the items (bf16: 128 / 64, or 128 for
+// dQ with d <= 64 / 0 or 1; fp32: 64 / 64 / 0). bf16 reads q/k/v/dout and writes dq by TMA:
+// 16-byte-aligned bases and strides, d % 8 == 0.
 extern "C" int apex_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int b, int h, int sq,
     int sk, int d, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss, float scale, int causal,
-    int dtype, void* stream) {
+    int outer_tile, int inner_tile, int persistent, int dtype, void* stream) {
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};
-  BwdArgs a = make_args(q, k, v, dout, lse, delta, h, sq, sk, d, st, scale,
+  FmaArgs a = make_args(q, k, v, dout, lse, delta, h, sq, sk, d, st, scale,
                         causal);
   a.dq = dq;
-  return launch_bwd(false, a, b, dtype, (cudaStream_t)stream);
+  return launch_bwd(false, a, b, outer_tile, inner_tile, persistent, dtype,
+                    (cudaStream_t)stream);
 }
 
 // dk/dv contiguous (b, h, sk, d) in k's dtype; other arguments as above.
@@ -625,12 +828,14 @@ extern "C" int apex_flash_bwd_dkv(
     int sq, int sk, int d, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss, float scale,
-    int causal, int dtype, void* stream) {
+    int causal, int outer_tile, int inner_tile, int persistent, int dtype,
+    void* stream) {
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};
-  BwdArgs a = make_args(q, k, v, dout, lse, delta, h, sq, sk, d, st, scale,
+  FmaArgs a = make_args(q, k, v, dout, lse, delta, h, sq, sk, d, st, scale,
                         causal);
   a.dk = dk;
   a.dv = dv;
-  return launch_bwd(true, a, b, dtype, (cudaStream_t)stream);
+  return launch_bwd(true, a, b, outer_tile, inner_tile, persistent, dtype,
+                    (cudaStream_t)stream);
 }

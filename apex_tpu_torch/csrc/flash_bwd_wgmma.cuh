@@ -1,0 +1,319 @@
+// Device pieces of the bf16 flash-attention backward on wgmma fed by a TMA
+// ring, shared by the streamed pair (dq_wgmma / dkv_wgmma,
+// flash_attention_stream.cu) and the resident pair (dq_resident_wgmma /
+// dkv_resident_wgmma, flash_attention_bwd.cu): the bands of tiles a CTA
+// visits, the shared-memory layout of a ring, the TMA row loads, the wgmma
+// descriptors and products, P / dS from the score registers, and the
+// consumer loop. The forward (fwd_wgmma) takes the descriptors and products
+// too.
+//
+// Layout of a CTA (kBwdThreads): warpgroups 0 and 1 are the consumers, 64
+// rows each of the outer tile they keep (kOuter rows); warp 8 is the
+// producer, which starts the TMA loads of the streamed inner tiles into a
+// kStages-deep ring and hands its registers to the consumers (setmaxnreg).
+
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace apex_torch {
+namespace {
+
+constexpr int kOuter = 128;   // rows a CTA keeps: queries (dQ), keys (dK/dV)
+constexpr int kInner = 64;    // rows of a streamed tile
+constexpr int kStages = 3;    // depth of the ring
+constexpr int kWg = 128;      // threads of a warpgroup
+constexpr int kBwdThreads = 3 * kWg;  // two consumers, then the producer's
+constexpr int kRowBytes = 128;        // a swizzled row: 64 bf16
+constexpr int kKStep = 16 * kRowBytes;  // 16 rows: one k16 step of MN-major B
+constexpr float kLog2e = 1.4426950408889634f;
+
+// floor(a / b) for b > 0
+__host__ __device__ __forceinline__ int floordiv(int a, int b) {
+  return (a >= 0 ? a : a - b + 1) / b;
+}
+
+struct Band {
+  int lo, hi;  // [lo, hi) of tiles
+};
+
+// key tiles (bk rows) that query tile qt (bq rows) sees: the causal limit,
+// then the window (_window_k_range with no ring offsets)
+__device__ __forceinline__ Band k_tiles(int qt, int nk, int causal,
+                                        int window, int bq = kTile,
+                                        int bk = kTile) {
+  Band r{0, nk};
+  if (causal) r.hi = min(r.hi, ((qt + 1) * bq + bk - 1) / bk);
+  if (window > 0) {
+    r.lo = max(r.lo, floordiv(qt * bq - window + 1, bk));
+    if (!causal)
+      r.hi = max(0, min(r.hi, floordiv((qt + 1) * bq + window - 2, bk) + 1));
+  }
+  return r;
+}
+
+// query tiles (bq rows) that see key tile kt (bk rows) (_window_q_range)
+__device__ __forceinline__ Band q_tiles(int kt, int nq, int causal,
+                                        int window, int bq = kTile,
+                                        int bk = kTile) {
+  Band r{0, nq};
+  if (causal) r.lo = min(kt * bk / bq, nq);
+  if (window > 0) {
+    r.hi = max(0, min(r.hi, floordiv((kt + 1) * bk + window - 2, bq) + 1));
+    if (!causal) r.lo = max(r.lo, floordiv(kt * bk - window + 1, bq));
+  }
+  return r;
+}
+
+__device__ __forceinline__ bool visible(int row, int col, int sk, int causal,
+                                        int window) {
+  return col < sk && (!causal || col <= row) &&
+         (window <= 0 || (row - col < window && (causal || col - row < window)));
+}
+
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;  // encode_rows_map: 64 x 64 boxes
+};
+
+struct BwdArgs {
+  const float* lse;    // (b*h, sq) contiguous
+  const float* delta;  // (b*h, sq) contiguous
+  float* acc;          // streamed: dQ, or dK
+  float* dv;           // streamed: dV
+  int h, sq, sk, d;
+  uint32_t qpos, kpos, vpos, opos;  // coordinate placement of each map
+  float scale;
+  int causal, window, split_tiles;
+};
+
+// Byte offsets in dynamic shared memory (after aligning it to 1024): the two
+// resident operands (K, V or Q, dO; kOuter rows each), the ring of streamed
+// pairs (Q, dO or K, V; kInner rows each), fp32 row statistics, mbarriers.
+template <int DP>
+struct BwdLayout {
+  static constexpr int kChunks = DP / 64;
+  static constexpr int kOuterBytes = kChunks * kOuter * kRowBytes;
+  static constexpr int kInnerBytes = kChunks * kInner * kRowBytes;
+  static constexpr int kRing = 2 * kOuterBytes;
+  static constexpr int kStats = kRing + kStages * 2 * kInnerBytes;
+  static constexpr int kStatFloats = 2 * kStages * kInner;  // >= 2 kOuter
+  static constexpr int kBars = kStats + kStatFloats * 4;
+  static constexpr int kBytes = 1024 + kBars + (2 * kStages + 1) * 8;
+};
+
+// The map coordinate x_i (i = 1..3) of sequence row `row`, head hi and
+// batch bi, as encode_rows_map placed the three outer dimensions in `pos`.
+__device__ __forceinline__ int map_coord(uint32_t pos, int i, int row, int hi,
+                                         int bi) {
+  const int ps = pos & 3, ph = (pos >> 2) & 3;
+  return ps == i ? row : ph == i ? hi : bi;
+}
+
+// TMA of rows [r0, r0 + R) x all DP columns of one head into a tile of R
+// rows: 64-column chunks one after another, 64-row boxes.
+template <int DP, int R>
+__device__ __forceinline__ void tma_rows(unsigned char* dst,
+                                         const CUtensorMap* map, uint32_t pos,
+                                         uint64_t* bar, int r0, int hi,
+                                         int bi) {
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c)
+#pragma unroll
+    for (int rb = 0; rb < R / 64; ++rb) {
+      const int row = r0 + rb * 64;
+      hopper::tma_load_4d(dst + (c * R + rb * 64) * kRowBytes, map, bar,
+                          c * 64, map_coord(pos, 1, row, hi, bi),
+                          map_coord(pos, 2, row, hi, bi),
+                          map_coord(pos, 3, row, hi, bi));
+    }
+}
+
+// Descriptor of the k16 step kk of a K-major operand: rows from `row` of a
+// tile of R rows at shared address `tile`.
+template <int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row, int kk) {
+  return hopper::sw128_desc(
+      tile + (kk >> 2) * R * kRowBytes + row * kRowBytes + (kk & 3) * 32, 16,
+      1024);
+}
+
+// Descriptor of the k16 step kk (rows 16kk..) of an MN-major B: a streamed
+// tile of R rows, whose 64-column chunks lie R rows apart.
+template <int R = kInner>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return hopper::sw128_desc(tile + kk * kKStep, R * kRowBytes, 1024);
+}
+
+// Whether every pair of a BQ-query x BK-key block is visible: an interior
+// block, whose scores need no test. Edge blocks (the diagonal, a window
+// edge, the ragged end) test each score. Queries past sq need no test:
+// their Q and dO rows are TMA's zero fill, so they add 0 (the backward),
+// and their o and lse are never stored (the forward).
+template <int BK = 64, int BQ = 64>
+__device__ __forceinline__ bool interior(int qa, int ka, int sk, int causal,
+                                         int window) {
+  const int qb = qa + BQ - 1, kb = ka + BK - 1;
+  return kb < sk && (!causal || kb <= qa) &&
+         (window <= 0 || (qb - ka < window && (causal || kb - qa < window)));
+}
+
+// lse in base 2, +inf on a row with no visible key: there exp2(s - lse) is
+// exactly 0, with no test on the fast path. Rows past sq arrive as lse 0
+// with zero Q and dO rows, so they add 0 as well.
+__device__ __forceinline__ float lse2_of(float lse) {
+  return lse > kNegInf * 0.5f ? lse * kLog2e : __int_as_float(0x7f800000);
+}
+
+// The producer's lanes copy rows [r0, r0 + n) of a head's lse and delta into
+// shared memory (zeros past sq) and arrive on `bar` when they land.
+__device__ __forceinline__ void copy_stats(float* dst, const float* lse,
+                                           const float* delta, int r0, int n,
+                                           int sq, uint64_t* bar) {
+  const int lane = threadIdx.x & 31;
+  for (int r = lane; r < n; r += 32) {
+    const bool in = r0 + r < sq;
+    hopper::cp_async_4(dst + r, in ? lse + r0 + r : lse, in);
+    hopper::cp_async_4(dst + n + r, in ? delta + r0 + r : delta, in);
+  }
+  hopper::mbar_arrive_cp_async(bar);
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[DP / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  hopper::wgmma_rs_n64_tb(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  hopper::wgmma_rs_n128_tb(d, a, db);
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  hopper::wgmma_ss_n64(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  hopper::wgmma_ss_n128(d, da, db, accumulate);
+}
+
+// 64 x RB scores of a warpgroup's 64 rows against a tile's RB rows:
+// S = A B^T over DP columns, both operands K-major in shared memory
+template <int DP, int RA, int RB = kInner>
+__device__ __forceinline__ void scores(float (&s)[RB / 2], uint32_t a_tile,
+                                       int a_row, uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss(s, kmajor<RA>(a_tile, a_row, kk), kmajor<RB>(b_tile, 0, kk),
+             kk > 0);
+}
+
+// P^T and dS^T of a 64-key x N-query block, in place of S^T and dP^T:
+// element i of the accumulators is key key0 + 8 ((i/2)%2), query
+// q + 8 (i/4) + i%2; lse and delta of the tile's N queries in `stats`
+// (lse, then delta). kMask: the block is an edge block (the diagonal, a
+// window edge, the ragged end), so each pair is tested; interior blocks
+// skip the test.
+template <bool kMask, int N = 64>
+__device__ __forceinline__ void dkv_probs(float (&st)[N / 2],
+                                          float (&dp)[N / 2],
+                                          const float* stats, float c, int q,
+                                          int key0, const BwdArgs& a) {
+  const int qc = q % N;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 lj = *reinterpret_cast<const float2*>(stats + 8 * j + qc);
+    const float2 dj =
+        *reinterpret_cast<const float2*>(stats + N + 8 * j + qc);
+    const float l[2] = {lse2_of(lj.x), lse2_of(lj.y)};
+    const float dl[2] = {dj.x, dj.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      float p = hopper::fast_exp2(fmaf(st[i], c, -l[e & 1]));
+      if (kMask && !visible(q + 8 * j + (e & 1), key0 + 8 * (e >> 1), a.sk,
+                            a.causal, a.window))
+        p = 0.f;
+      st[i] = p;
+      dp[i] = p * (dp[i] - dl[e & 1]);
+    }
+  }
+}
+
+// dS of a 64-query x N-key block in place of dP: element i is query
+// row + 8 ((i/2)%2), key col + 8 (i/4) + i%2; l2 / dl: the base-2 lse and
+// the delta of the thread's two rows
+template <bool kMask, int N = 64>
+__device__ __forceinline__ void dq_probs(float (&dp)[N / 2],
+                                         const float (&st)[N / 2],
+                                         const float (&l2)[2],
+                                         const float (&dl)[2], float c,
+                                         int row, int col,
+                                         const BwdArgs& a) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int hf = (i >> 1) & 1;
+    float p = hopper::fast_exp2(fmaf(st[i], c, -l2[hf]));
+    if (kMask && !visible(row + 8 * hf, col + 8 * (i >> 2) + (i & 1), a.sk,
+                          a.causal, a.window))
+      p = 0.f;
+    dp[i] = p * (dp[i] - dl[hf]);
+  }
+}
+
+// The 64 x N fp32 product x as bf16 register A fragments, one per k16
+// slice of its columns
+template <int N = 64>
+__device__ __forceinline__ void fragments(uint32_t (&f)[N / 16][4],
+                                          const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      f[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// acc (64 x DP) += X Y over the tile's R rows: X as register fragments,
+// Y the streamed tile as an MN-major B
+template <int DP, int R = kInner>
+__device__ __forceinline__ void accumulate(float (&acc)[DP / 2],
+                                           const uint32_t (&f)[R / 16][4],
+                                           uint32_t y_tile) {
+#pragma unroll
+  for (int kk = 0; kk < R / 16; ++kk)
+    wgmma_rs_tb<DP>(acc, f[kk], mnmajor<R>(y_tile, kk));
+}
+
+// A consumer warpgroup's loop over nt streamed tiles of N rows.
+// start(st, dp, n) waits for tile n and starts its two score products as
+// one commit group; finish(st, dp, n) turns the scores into the tile's
+// contributions and starts their products; release(n) frees tile n's
+// stage once they are done. The products run on every tile, masked
+// or not, and each group is waited for in straight-line code: a wgmma
+// group kept in flight across a branch makes ptxas serialise them.
+template <int N = 64, class Start, class Finish, class Release>
+__device__ __forceinline__ void consume(int nt, Start start, Finish finish,
+                                        Release release) {
+  for (int n = 0; n < nt; ++n) {
+    float st[N / 2], dp[N / 2];
+    start(st, dp, n);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dp);
+    finish(st, dp, n);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    release(n);
+  }
+}
+
+}  // namespace
+}  // namespace apex_torch

@@ -1,5 +1,5 @@
 // Hopper building blocks of the port's wgmma kernels: mbarriers, TMA tensor
-// loads, warpgroup matrix multiplies (bf16 operands, fp32 sums) on
+// loads and stores, named barriers, wgmma (bf16 operands, fp32 sums) on
 // 128-byte-swizzled shared memory, register hand-off between warpgroups, and
 // the host side that encodes TMA tensor maps through the driver entry point.
 //
@@ -108,6 +108,39 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// the box of `map` at coordinates {c0, c1, c2, c3} from shared memory src, a
+// bulk async-group store (elements past the tensor's bounds are not
+// written); commit with bulk_commit, wait with bulk_wait_read
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until at most N committed bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// make this thread's shared-memory writes visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// barrier `id` (1-15) over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --- register hand-off ----------------------------------------------------

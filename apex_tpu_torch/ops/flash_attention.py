@@ -10,8 +10,11 @@ forward is always followed by the streamed backward.
   ``csrc/flash_attention.cu`` (replaces ``_fwd_kernel``) and saves q, k, v,
   o and the fp32 lse; the backward computes ``delta = rowsum(dO * O)`` in
   fp32 (``_flash_bwd``, ``:1210``) and launches the two kernels of
-  ``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``).
-  Causal or non-causal, no masks on the card.
+  ``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``):
+  in bf16 wgmma kernels fed by TMA, one CTA per outer tile over its whole
+  band (:func:`_res_bwd_bands`), writing each gradient once with no
+  workspace and no atomics; in fp32 FMA kernels. Causal or non-causal, no
+  masks on the card.
 - Streamed (``stream=True``): the three kernels of
   ``csrc/flash_attention_stream.cu`` (``_fwd_kernel_stream`` with its merge
   pass, ``_bwd_dq_kernel_stream``, ``_bwd_dkv_kernel_stream``) split each
@@ -86,6 +89,18 @@ FWD_SPLIT_TILES = 128
 BWD_OUTER_TILE = 128
 BWD_INNER_TILE = 64
 BWD_SPLIT_TILES = 128
+#: the resident backward in bf16 (dq_resident_wgmma / dkv_resident_wgmma in
+#: csrc/flash_attention_bwd.cu): a CTA keeps BWD_OUTER_TILE rows (the
+#: streamed backward's outer tile, kOuter) and streams every inner tile its
+#: band holds, with no split (:func:`_res_bwd_bands`): key tiles of
+#: RES_BWD_DQ_INNER_TILE rows for dQ (64 where d > 64), query tiles of
+#: BWD_INNER_TILE rows for dK/dV (at 128 its kernel spills registers).
+#: RES_BWD_PERSISTENT launches one CTA per SM walking the (outer tile,
+#: head) items longest band first, else one CTA per item in that order.
+#: Both chosen on the card (PERF.md). The fp32 kernels keep STREAM_TILE
+#: rows both ways, one CTA per item.
+RES_BWD_DQ_INNER_TILE = 128
+RES_BWD_PERSISTENT = True
 
 
 def _dense_pos_masks(s, q_pos, k_pos, causal, window, neg=NEG_INF):
@@ -262,25 +277,56 @@ def _bwd_args(q, k, v, do, lse, delta, name):
     return ts, stats, strides, (b, h, sq, sk, d)
 
 
+def _res_bwd_inner(inner_is_k: bool, d: int) -> int:
+    """The inner tile of a resident bf16 pass (dQ when ``inner_is_k``) at
+    the head_dim ``d`` the kernel sees: RES_BWD_DQ_INNER_TILE for dQ where
+    d <= 64, else BWD_INNER_TILE."""
+    return (RES_BWD_DQ_INNER_TILE if inner_is_k and d <= 64
+            else BWD_INNER_TILE)
+
+
+def _res_bwd_launch(q, k, v, do, lse, delta, name, inner_is_k):
+    """Check the operands of a resident backward kernel and pick its route:
+    bf16 takes the wgmma kernels (operands TMA can read,
+    :func:`_tma_operands`; BWD_OUTER_TILE rows kept, the pass's inner tile
+    streamed (:func:`_res_bwd_inner`), RES_BWD_PERSISTENT), fp32 the FMA
+    kernels (STREAM_TILE both ways). Returns the operands, lse/delta, the
+    head_dim the kernel sees, the strides and the launch arguments after
+    ``causal``, before the dtype: (outer tile, inner tile, persistent)."""
+    (q, k, v, do), (lse, delta), _, (b, h, sq, sk, d) = _bwd_args(
+        q, k, v, do, lse, delta, name)
+    if q.dtype == torch.bfloat16:
+        (q, k, v, do), d = _tma_operands([q, k, v, do])
+        tiles = (BWD_OUTER_TILE, _res_bwd_inner(inner_is_k, d),
+                 int(RES_BWD_PERSISTENT))
+    else:
+        tiles = (STREAM_TILE, STREAM_TILE, 0)
+    strides = [st for t in (q, k, v, do) for st in t.stride()[:3]]
+    return (q, k, v, do), (lse, delta), d, strides, tiles
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
                            scale: float) -> torch.Tensor:
     """Launch the dQ kernel on CUDA tensors: dQ ``(b, h, sq, d)`` in q's
     dtype from the forward's fp32 lse and ``delta = rowsum(dO * O)`` (both
-    ``(b, h, sq)``). Counts its launches in
+    ``(b, h, sq)``), written once by the kernel (no workspace, no atomics:
+    two calls give the same bits). Counts its launches in
     ``flash_attention_bwd_dq.launches``."""
-    (q, k, v, do), (lse, delta), strides, (b, h, sq, sk, d) = _bwd_args(
-        q, k, v, do, lse, delta, "flash_attention_bwd_dq")
-    dq = torch.empty((b, h, sq, d), device=q.device, dtype=q.dtype)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    (q, k, v, do), (lse, delta), dk_, strides, tiles = _res_bwd_launch(
+        q, k, v, do, lse, delta, "flash_attention_bwd_dq", True)
+    dq = torch.empty((b, h, sq, dk_), device=q.device, dtype=q.dtype)
     if dq.numel() == 0:
-        return dq
+        return dq[..., :d]
     err = build.load().apex_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
-        *strides, float(scale), int(causal), build.DTYPES[q.dtype],
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, dk_,
+        *strides, float(scale), int(causal), *tiles, build.DTYPES[q.dtype],
         build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dq")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq if dk_ == d else dq[..., :d].contiguous()
 
 
 flash_attention_bwd_dq.launches = 0
@@ -290,21 +336,26 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
                             scale: float
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel on CUDA tensors: ``(dk, dv)``, each
-    ``(b, h, sk, d)`` in k's dtype. Counts its launches in
+    ``(b, h, sk, d)`` in k's dtype, written once by the kernel (a key no
+    query sees gets 0). Counts its launches in
     ``flash_attention_bwd_dkv.launches``."""
-    (q, k, v, do), (lse, delta), strides, (b, h, sq, sk, d) = _bwd_args(
-        q, k, v, do, lse, delta, "flash_attention_bwd_dkv")
-    dk = torch.empty((b, h, sk, d), device=q.device, dtype=k.dtype)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    (q, k, v, do), (lse, delta), dk_, strides, tiles = _res_bwd_launch(
+        q, k, v, do, lse, delta, "flash_attention_bwd_dkv", False)
+    dk = torch.empty((b, h, sk, dk_), device=q.device, dtype=k.dtype)
     dv = torch.empty_like(dk)
     if dk.numel() == 0 or sq == 0:
-        return dk.zero_(), dv.zero_()
+        return dk.zero_()[..., :d], dv.zero_()[..., :d]
     err = build.load().apex_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
-        sq, sk, d, *strides, float(scale), int(causal),
+        sq, sk, dk_, *strides, float(scale), int(causal), *tiles,
         build.DTYPES[q.dtype], build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    if dk_ != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 
@@ -417,6 +468,27 @@ def _bwd_bands(sq, sk, causal, window, inner_is_k):
                   BWD_SPLIT_TILES, i, o)
 
 
+def _res_bwd_bands(sq: int, sk: int, causal: bool, inner_is_k: bool,
+                   outer: Optional[int] = None,
+                   inner: Optional[int] = None) -> Tuple[Tuple[int, int],
+                                                         ...]:
+    """The resident kernels' bands, one piece each: per outer tile of
+    ``outer`` rows (BWD_OUTER_TILE; queries when ``inner_is_k``, the dQ
+    pass, else keys) the ``[lo, hi)`` of the ``inner``-row inner tiles (the
+    pass's at d <= 64, :func:`_res_bwd_inner`) its CTA streams -- the
+    causal limit for dQ, the causal start for dK/dV (``k_tiles`` /
+    ``q_tiles`` in ``csrc/flash_bwd_wgmma.cuh`` with no window)."""
+    o = BWD_OUTER_TILE if outer is None else outer
+    i = _res_bwd_inner(inner_is_k, 64) if inner is None else inner
+    if inner_is_k:
+        nk = _cdiv(sk, i)
+        return tuple(_window_k_range(t, nk, causal, None, o, i)
+                     for t in range(_cdiv(sq, o)))
+    nq = _cdiv(sq, i)
+    return tuple(_window_q_range(t, nq, causal, None, i, o)
+                 for t in range(_cdiv(sk, o)))
+
+
 def _tma_ok(t: torch.Tensor) -> bool:
     """Whether TMA reads ``t`` (b, h, s, d) bf16 as it is: d a multiple of 8
     (the kernels add pairs of columns), a 16-byte-aligned base and every
@@ -436,12 +508,13 @@ def _pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
 
 
 def _tma_operands(ts):
-    """The operands of a bf16 streamed kernel (q, k, v, and dO for the
-    backward) as the kernel reads them, and their head_dim: as they are
-    where TMA takes them all, else each one TMA refuses (and all of them
-    when d is not a multiple of 8) as a contiguous copy with d zero-padded
-    to a multiple of 8. Padded columns add 0 to every score and give 0
-    output and gradient columns, which the caller slices off."""
+    """The operands of a bf16 wgmma kernel (the streamed ones and the
+    resident backward: q, k, v, and dO for a backward) as the kernel reads
+    them, and their head_dim: as they are where TMA takes them all, else
+    each one TMA refuses (and all of them when d is not a multiple of 8)
+    as a contiguous copy with d zero-padded to a multiple of 8. Padded
+    columns add 0 to every score and give 0 output and gradient columns,
+    which the caller slices off."""
     d = ts[0].shape[-1]
     if all(_tma_ok(t) for t in ts):
         return ts, d

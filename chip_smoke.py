@@ -18,13 +18,17 @@ Seven phases; any failure raises and exits non-zero:
    shapes, a per-head mask, unaligned rows, fp16 and rows of 65536 and
    100003 elements on the two-pass route) against its plain PyTorch
    version on the card, at the main paths' shapes in bf16 and fp32 plus
-   edge cases, each error beside its stated tolerance; then device times
+   edge cases, each error beside its stated tolerance (the flash backward
+   kernels, resident and streamed, also each row's own error, a planted
+   fault the row check must catch, and the resident pair's bits the same
+   from call to call); then device times
    by CUDA-graph replay between CUDA events (kernel, plain version, one
    PyTorch library call as yardstick where one computes the same function;
    the resident flash kernels beside the streamed ones at 1024 (batch 8),
    4096 and 8192 tokens; the key tile and split length of the streamed
    bf16 forward and the split length of its backward against the values
-   tried) and the least time the card could take.
+   tried, and the resident backward's schedule and dQ inner tile against
+   the values tried) and the least time the card could take.
 3. **Serving**: fp32 gates on a small model (the monolithic engine, then
    chunked prefill, the prefix cache, speculative decoding with a
    self-draft and a 1-layer draft, and all three: every token against the
@@ -46,7 +50,8 @@ Seven phases; any failure raises and exits non-zero:
    window over 10, each step's time beside it) with the exact launch counts
    checked, a falling finite loss, no skipped step and bf16 params equal to
    their fp32 masters cast down; then the top kernels by device time of one
-   profiled step.
+   profiled step, with the resident flash forward's and backward pair's
+   device time.
 5. **ResNet-50 training** (``apex_tpu_torch.examples.imagenet.main_amp``):
    an fp32 gradient gate on a small Bottleneck ResNet (loss, every grad and
    the running stats on the card through cuDNN and the xentropy kernels
@@ -483,36 +488,78 @@ def check_layer_norm_bwd(torch, ops, dev):
 def check_flash_attention_bwd(torch, ops, dev):
     """Flash backward kernels (dQ, dK/dV) against
     ``flash_attention_bwd_reference`` on the same q, k, v, dO and the
-    forward kernel's o/lse. Tolerance, as a share of max |ref| of each
-    gradient: 1e-2 in bf16 (P and dS are rounded to bf16 as mma operands,
+    forward kernel's o/lse. Each gradient is held twice. As a share of max
+    |ref|: 1e-2 in bf16 (P and dS are rounded to bf16 as wgmma operands,
     and each output once more) and 1e-4 in fp32 (fp32 sums in another
-    order)."""
+    order). The worst row's own error (:func:`row_err`) to the backward
+    limit of :data:`ROW_TOL`, as the streamed kernels are held: at T a
+    tail of dQ rows halved must fail it. Two calls at T and at the ragged
+    (1,2,300,77) case must give the same bits (each gradient is written
+    once, with no atomics). The bf16 kernels are the resident wgmma pair;
+    the cases take them through d = 128, d <= 32, d = 40 (TMA zero-fills
+    the columns past d), d = 36 (the wrappers' padded copies), cross shapes
+    and the fused-QKV view TMA reads as it is. Then the schedule and the
+    dQ inner tile against the values tried (:func:`res_bwd_tuning`) and
+    device times at T beside the bound, the plain version, the streamed
+    pair, SDPA's backward and the FlashAttention-2 backward op."""
+    import importlib
+
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(6)
 
-    def run(q, k, v, causal, label):
+    def grads(q, k, v, do, lse, delta, kw):
+        dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        return (dq, *ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 **kw))
+
+    def run(q, k, v, causal, label, plant=False, twice=False):
         do = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
         scale = q.shape[-1] ** -0.5
         o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
         delta = (o.float() * do.float()).sum(-1)
         kw = dict(causal=causal, scale=scale)
-        dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        got = grads(q, k, v, do, lse, delta, kw)
         ref = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
         tol = 1e-2 if q.dtype == bf16 else 1e-4
+        rtol = ROW_TOL[q.dtype == bf16][1]
+        grp = f"flash_attention_bwd {str(q.dtype)[6:]}"
         parts = []
         worst = 0.0
-        for name, a, r in zip(("dQ", "dK", "dV"), (dq, dk, dv), ref):
+        for name, a, r in zip(("dQ", "dK", "dV"), got, ref):
             check(a.dtype == q.dtype and a.shape == r.shape,
                   f"flash bwd {label} {name} dtype/shape")
-            e = rel_err(a, r)
+            e, e_row = rel_err(a, r), row_err(a, r)
             worst = max(worst, max_err(a, r))
-            parts.append(f"{name} {max_err(a, r):.3g} (rel {e:.3g})")
-            verdict(f"flash_attention_bwd {label} {name}", e, tol,
-                    group=f"flash_attention_bwd {str(q.dtype)[6:]}")
+            parts.append(f"{name} {max_err(a, r):.3g} (rel {e:.3g}, worst "
+                         f"row {e_row:.3g})")
+            verdict(f"flash_attention_bwd {label} {name}", e, tol, group=grp)
+            verdict(f"flash_attention_bwd {label} {name} row", e_row, rtol,
+                    group=grp)
+        if plant:
+            # the row measure must catch a tail of rows gone half wrong,
+            # which the share of max|ref| lets through
+            sq = q.shape[2]
+            bad = got[0].clone()
+            bad[:, :, sq // 2:] *= 0.5
+            planted = row_err(bad, ref[0])
+            parts.append(f"dQ with its last {sq - sq // 2} rows halved: row "
+                         f"{planted:.3g}, of max|ref| "
+                         f"{rel_err(bad, ref[0]):.3g}")
+            verdict(f"flash_attention_bwd {label} halved dQ tail caught by "
+                    f"the row check", 0 if planted > rtol else 1, 0,
+                    group=grp)
+            del bad
+        if twice:
+            again = grads(q, k, v, do, lse, delta, kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            parts.append(f"a second call bit-identical: {same}")
+            verdict(f"flash_attention_bwd {label} deterministic",
+                    0 if same else 1, 0, group=grp)
         print(f"  flash_attention_bwd {label} " + ", ".join(parts)
-              + f" (tol {tol:g} of max|ref|)")
+              + f" (tol {tol:g} of max|ref|, row {rtol:g})")
         return worst
 
     cases = [  # b, h, sq, sk, d, dtype, causal
@@ -527,14 +574,18 @@ def check_flash_attention_bwd(torch, ops, dev):
         (1, 4, 130, 130, 40, bf16, True),
         (2, 2, 100, 120, 36, bf16, False),
         (1, 4, 130, 130, 40, f32, True),
+        (2, 3, 200, 150, 32, bf16, True),      # d <= 32: the 64-wide kernels
     ]
     main_err = None
     for b, h, sq, sk, d, dt, causal in cases:
         q = torch.randn(b, h, sq, d, device=dev, generator=gen).to(dt)
         k = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
         v = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
+        at_t = (b, sq, dt) == (8, 1024, bf16)
+        ragged = (b, h, sq, sk, dt, causal) == (1, 2, 300, 77, bf16, True)
         err = run(q, k, v, causal, f"b={b} h={h} sq={sq} sk={sk} d={d} "
-                  f"{str(dt)[6:]} causal={causal}")
+                  f"{str(dt)[6:]} causal={causal}", plant=at_t,
+                  twice=at_t or ragged)
         if main_err is None:
             main_err = err
     # a fused-QKV view (strided heads), as the model hands them over
@@ -550,12 +601,17 @@ def check_flash_attention_bwd(torch, ops, dev):
     o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
     delta = (o.float() * do.float()).sum(-1)
     kw = dict(causal=True, scale=scale)
+    tuning = res_bwd_tuning(torch, ops, tfa, (q, k, v, do, lse, delta), kw)
     ms_dq = time_ms(
         lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
     ms_dkv = time_ms(
         lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
     plain = time_ms(lambda: ops.flash_attention_bwd_reference(
         q, k, v, o, lse, do, **kw), 2, 2)
+    st_dq = time_ms(lambda: ops.flash_attention_bwd_dq_stream(
+        q, k, v, do, lse, delta, **kw))
+    st_dkv = time_ms(lambda: ops.flash_attention_bwd_dkv_stream(
+        q, k, v, do, lse, delta, **kw))
     # yardstick: SDPA's backward, autograd.grad of one causal SDPA output
     # over q, k, v, captured and replayed like the kernels (the forward runs
     # on the capture stream, so its backward does too)
@@ -590,25 +646,71 @@ def check_flash_attention_bwd(torch, ops, dev):
                      "bfloat16")
     dkv_bound = bound(6 * elems * 2 + 2 * b * h * s * 4, 8 * d * pairs,
                       "bfloat16")
+    pair_ms = ms_dq + ms_dkv
     print(f"  flash_attention_bwd timing (8,16,1024,64) bf16 causal: dQ "
           f"{ms_dq:.4f} ms ({6 * d * pairs / ms_dq / 1e9:.1f} TFLOP/s, bound "
           f"{dq_bound[0]:.4f} ms {dq_bound[1]}), dK/dV {ms_dkv:.4f} ms "
           f"({8 * d * pairs / ms_dkv / 1e9:.1f} TFLOP/s, bound "
-          f"{dkv_bound[0]:.4f} ms {dkv_bound[1]}), plain (both) {plain:.4f} "
-          f"ms; SDPA backward (dQ, dK, dV; autograd.grad through "
-          f"{backend}) {lib_pair:.4f} ms, the FlashAttention-2 backward op "
-          f"{fa2_ms:.4f} ms; eager between CUDA events (host issue): the "
-          f"pair {pair_eager:.4f} ms, SDPA's autograd.grad {lib_eager:.4f} "
-          f"ms")
+          f"{dkv_bound[0]:.4f} ms {dkv_bound[1]}), pair {pair_ms:.4f} ms "
+          f"({14 * d * pairs / pair_ms / 1e9:.1f} TFLOP/s, bound "
+          f"{dq_bound[0] + dkv_bound[0]:.4f} ms), plain (both) {plain:.4f} "
+          f"ms; the streamed pair {st_dq:.4f} + {st_dkv:.4f} = "
+          f"{st_dq + st_dkv:.4f} ms; SDPA backward (dQ, dK, dV; "
+          f"autograd.grad through {backend}) {lib_pair:.4f} ms, the "
+          f"FlashAttention-2 backward op {fa2_ms:.4f} ms; eager between CUDA "
+          f"events (host cost): the pair {pair_eager:.4f} ms, SDPA's "
+          f"autograd.grad {lib_eager:.4f} ms; {nvidia_smi()}")
     common = dict(route="cuda", source="apex_tpu_torch/csrc/"
                   "flash_attention_bwd.cu", max_abs_err=main_err,
-                  plain_ms=plain, library_ms=lib_pair)
+                  plain_ms=plain, library_ms=lib_pair,
+                  res_bwd_tuning=tuning)
+    ring = ("wgmma fed by a TMA ring, one CTA per whole band, "
+            + ("persistent" if tfa.RES_BWD_PERSISTENT else "plain")
+            + " grid, bf16 stored once by TMA")
     return [dict(common, name="flash_attention_bwd_dq",
+                 kernel=f"dq_resident_wgmma<64, {tfa.RES_BWD_DQ_INNER_TILE}>"
+                        f" ({ring})",
                  replaces="apex_tpu/ops/flash_attention.py:328", ms=ms_dq,
                  bound_ms=dq_bound[0], bound_by=dq_bound[1]),
             dict(common, name="flash_attention_bwd_dkv",
+                 kernel=f"dkv_resident_wgmma<64, {tfa.BWD_INNER_TILE}> "
+                        f"({ring})",
                  replaces="apex_tpu/ops/flash_attention.py:411", ms=ms_dkv,
                  bound_ms=dkv_bound[0], bound_by=dkv_bound[1])]
+
+
+def res_bwd_tuning(torch, ops, tfa, args, kw, tiles=(64, 128)):
+    """The schedule and the dQ inner tile of the bf16 resident backward
+    (RES_BWD_PERSISTENT, RES_BWD_DQ_INNER_TILE) against the values tried,
+    at T: device times of dQ at each inner tile and of dK/dV (64-row tiles:
+    at 128 its kernel spills) on the plain grid and the persistent one, on
+    one line; returned for the ``kernels`` line (``res_bwd_tuning``)."""
+    chosen = (tfa.RES_BWD_PERSISTENT, tfa.RES_BWD_DQ_INNER_TILE)
+    times = {}
+    try:
+        for persistent in (False, True):
+            tfa.RES_BWD_PERSISTENT = persistent
+            t = {"dq": {}, "dkv": {}}
+            for tile in tiles:
+                tfa.RES_BWD_DQ_INNER_TILE = tile
+                t["dq"][tile] = time_ms(
+                    lambda: ops.flash_attention_bwd_dq(*args, **kw))
+            t["dkv"][tfa.BWD_INNER_TILE] = time_ms(
+                lambda: ops.flash_attention_bwd_dkv(*args, **kw))
+            times["persistent" if persistent else "grid"] = t
+    finally:
+        tfa.RES_BWD_PERSISTENT, tfa.RES_BWD_DQ_INNER_TILE = chosen
+    print(f"  RES_BWD_PERSISTENT = {chosen[0]}, RES_BWD_DQ_INNER_TILE = "
+          f"{chosen[1]} (chosen); ms at T (8,16,1024,64) causal by "
+          f"schedule: " + "; ".join(
+              f"{sched}: dQ " + ", ".join(f"{k}: {v:.4f}"
+                                          for k, v in t["dq"].items())
+              + ", dK/dV " + ", ".join(f"{k}: {v:.4f}"
+                                       for k, v in t["dkv"].items())
+              for sched, t in times.items()))
+    return {"chosen": {"persistent": chosen[0], "dq_inner_tile": chosen[1],
+                       "dkv_inner_tile": tfa.BWD_INNER_TILE},
+            "T_ms": times}
 
 
 def visible_pairs(sq, sk, causal, window):
@@ -2068,6 +2170,14 @@ def train_345m(torch, ops, dev):
               f"{1 - busy / wall:.3f}), the port's kernels {ours:.1f} ms = "
               f"{ours / busy:.3f} of busy; device time by kernel:")
         print_top(by_name)
+        n_f, t_f = kernel_time(by_name, "flash_fwd_kernel",
+                               "flash_fwd_mma_kernel")
+        n_q, t_q = kernel_time(by_name, "dq_resident_wgmma")
+        n_k, t_k = kernel_time(by_name, "dkv_resident_wgmma")
+        print(f"  345M O2 train, profiled step: resident forward {t_f:.2f} "
+              f"ms ({n_f} launches); resident backward dQ {t_q:.2f} ms "
+              f"({n_q}) + dK/dV {t_k:.2f} ms ({n_k}) = {t_q + t_k:.2f} ms of "
+              f"device time")
     return counts
 
 
@@ -2770,7 +2880,7 @@ def main():
     print_verdict()
     keys = ("name", "route", "kernel", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "by_shape")
+            "bound_by", "library_ms", "by_shape", "res_bwd_tuning")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
     print(nvidia_smi())

@@ -186,3 +186,145 @@ def test_backward_wrappers_never_take_the_plain_version():
     for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
         with pytest.raises(ValueError, match="CUDA kernel"):
             fn(q, k, v, q, lse, lse, causal=True, scale=0.25)
+
+
+# ---------------------------------------------------------------------------
+# the resident kernels' bands, operands and bf16 through the plain backward
+# ---------------------------------------------------------------------------
+
+
+def _jax_loop_limits(sq, sk, causal, blk_q, blk_k, dq_pass):
+    """The loop limits of the JAX resident backward kernels, per outer
+    tile: ``_bwd_dq_kernel``'s causal ``lim`` (apex_tpu/ops/
+    flash_attention.py:403) over key tiles, ``_bwd_dkv_kernel``'s causal
+    ``start`` (:478) over query tiles, each then through the kernels' own
+    ``_window_k_range`` / ``_window_q_range`` with no window. ``sq``/``sk``
+    may be ragged: the tile counts round up."""
+    from apex_tpu.ops.flash_attention import _window_k_range as jk
+    from apex_tpu.ops.flash_attention import _window_q_range as jq
+
+    nq, nk = -(-sq // blk_q), -(-sk // blk_k)
+    out = []
+    if dq_pass:
+        for qi in range(nq):
+            n = nk
+            if causal:
+                lim = ((qi + 1) * blk_q + blk_k - 1) // blk_k
+                n = int(np.clip(lim, 0, n))
+            lo, hi = jk(0, n, qi, blk_q, blk_k, 0, 0, causal, None)
+            out.append((int(lo), int(hi)))
+    else:
+        for ki in range(nk):
+            start = int(np.clip(ki * blk_k // blk_q, 0, nq)) if causal else 0
+            lo, hi = jq(start, nq, ki, blk_q, blk_k, 0, 0, causal, None)
+            out.append((int(lo), int(hi)))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("dq_pass", [True, False])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("outer,inner", [(128, 64), (64, 128)])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (300, 77), (77, 300),
+                                   (1100, 990), (130, 130)])
+def test_resident_bands_match_the_jax_kernels_loop_limits(sq, sk, outer,
+                                                          inner, causal,
+                                                          dq_pass):
+    """_res_bwd_bands (one piece a band: the resident kernels' loop over
+    inner tiles) at unequal tiles equals the JAX kernels' loop limits, and
+    every visible (query, key) pair lies in exactly one (outer tile, inner
+    tile of its band) in each pass."""
+    blk_q, blk_k = (outer, inner) if dq_pass else (inner, outer)
+    bands = tfa._res_bwd_bands(sq, sk, causal, dq_pass, outer, inner)
+    assert bands == _jax_loop_limits(sq, sk, causal, blk_q, blk_k, dq_pass)
+    q = np.arange(sq)[:, None]
+    k = np.arange(sk)[None, :]
+    visible = np.broadcast_to(k <= q, (sq, sk)) if causal else \
+        np.ones((sq, sk), bool)
+    covered = np.zeros((sq, sk), np.int32)
+    for t, (lo, hi) in enumerate(bands):
+        assert 0 <= lo and hi <= -(-(sk if dq_pass else sq) // inner)
+        for i in range(lo, hi):
+            rows = slice(t * outer, (t + 1) * outer)
+            cols = slice(i * inner, (i + 1) * inner)
+            if dq_pass:
+                covered[rows, cols] += 1
+            else:
+                covered[cols, rows] += 1
+    assert np.all(covered[visible] == 1)
+    assert covered.max() <= 1
+
+
+def test_resident_bands_at_the_cards_tiles():
+    """With the card's constants the dQ pass streams key tiles of
+    RES_BWD_DQ_INNER_TILE rows and the dK/dV pass query tiles of
+    BWD_INNER_TILE, both under BWD_OUTER_TILE-row outer tiles; above
+    d = 64 both passes take 64-row tiles."""
+    o = tfa.BWD_OUTER_TILE
+    assert tfa._res_bwd_bands(1024, 1024, True, True) == tuple(
+        (0, -(-(t + 1) * o // tfa.RES_BWD_DQ_INNER_TILE))
+        for t in range(1024 // o))
+    assert tfa._res_bwd_bands(1024, 1024, True, False) == tuple(
+        (t * o // tfa.BWD_INNER_TILE, 1024 // tfa.BWD_INNER_TILE)
+        for t in range(1024 // o))
+    assert tfa._res_bwd_inner(True, 128) == tfa._res_bwd_inner(False, 128) \
+        == 64
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", ["d36", "d36_strided", "stride_refused"])
+def test_resident_operands_padded_copy_round_trip(case, causal):
+    """The resident wrappers' operand preparation (_tma_operands) gives
+    contiguous padded copies for d = 36 and for a row stride TMA refuses;
+    the plain backward on the copies, sliced back to d, equals the plain
+    backward on the inputs as given within 1e-6 (fp32)."""
+    rng = np.random.default_rng(41)
+    d = 64 if case == "stride_refused" else 36
+    width = {"d36": 36, "d36_strided": 44, "stride_refused": 68}[case]
+    off = 3 if case == "d36_strided" else 0
+    full = [torch.from_numpy(rng.normal(size=(2, 2, n, width)).astype(
+        np.float32)) for n in (100, 120, 120, 100)]
+    q, k, v, do = (t[..., off:off + d] for t in full)
+    scale = d ** -0.5
+    ops_in, dp = tfa._tma_operands([q, k, v, do])
+    assert dp == (40 if d == 36 else 64)
+    assert all(t.is_contiguous() and t.shape[-1] == dp for t in ops_in)
+    assert not any(a is b for a, b in zip(ops_in, (q, k, v, do)))
+    lse = tfa._lse_reference(q, k, causal, scale)
+    o = tfa.mha_reference(q, k, v, causal=causal, scale=scale)
+    want = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                             causal=causal, scale=scale)
+    pq, pk, pv, pdo = ops_in
+    got = tfa.flash_attention_bwd_reference(
+        pq, pk, pv, tfa._pad_head_dim(o, dp), lse, pdo, causal=causal,
+        scale=scale)
+    for g, w in zip(got, want):
+        assert torch.all(g[..., d:] == 0)
+        np.testing.assert_allclose(g[..., :d].numpy(), w.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(40, 24), (24, 40)])
+def test_bf16_grads_through_the_plain_backward_match_jax(causal, shape):
+    """bf16 inputs through FlashAttention on the CPU (the plain backward)
+    come back as bf16 grads that match jax.grad of the JAX mha_reference
+    on the same rounded values within 1e-2 of max |ref|."""
+    rng = np.random.default_rng(43)
+    q, k, v = (rng.normal(size=(1, 2, s, 16)).astype(np.float32)
+               for s in (shape[0], shape[1], shape[1]))
+    g = rng.normal(size=q.shape).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+                  for a in (q, k, v))
+    tg = torch.from_numpy(g).to(torch.bfloat16)
+    out = tfa.flash_attention(tq, tk, tv, causal=causal)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(tg)
+    rounded = [t.detach().float().numpy() for t in (tq, tk, tv)]
+    jg = jnp.asarray(tg.float().numpy())
+    want = jax.grad(lambda a, b, c: jnp.sum(jax_mha(a, b, c, causal=causal)
+                                            * jg), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in rounded))
+    for t, w in zip((tq, tk, tv), want):
+        assert t.grad.dtype == torch.bfloat16
+        w = np.asarray(w)
+        err = np.abs(t.grad.float().numpy() - w).max()
+        assert err <= 1e-2 * np.abs(w).max(), err
