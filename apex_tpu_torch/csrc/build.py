@@ -44,8 +44,8 @@ _F = ctypes.c_float
 #: argument types of every exported entry point (restype is int)
 SIGNATURES = {
     "apex_ln_fwd": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P],
-    "apex_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _P],
+    "apex_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F] + [_I] * 5
+                      + [_P],
     "apex_flash_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
     "apex_flash_decode_multi": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
     "apex_ln_bwd_rows_per_block": [],

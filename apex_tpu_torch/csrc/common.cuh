@@ -129,42 +129,11 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld,
   }
 }
 
-// The same tile stored transposed: dst[c * ldt + r] = src[r][c]
-template <int DP, bool VEC>
-__device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst, int ldt,
-                                            const __nv_bfloat16* src,
-                                            long long stride, int rows_valid,
-                                            int d) {
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  if (VEC) {
-    constexpr int C8 = DP / 8;
-    for (int e = threadIdx.x; e < kTile * C8; e += kMmaThreads) {
-      const int r = e % kTile, c = (e / kTile) * 8;  // neighbours: next row
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r < rows_valid && c < d)
-        val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst[(c + i) * ldt + r] = h[i];
-    }
-  } else {
-    for (int e = threadIdx.x; e < kTile * DP; e += kMmaThreads) {
-      const int c = e / kTile, r = e - c * kTile;
-      dst[c * ldt + r] = (r < rows_valid && c < d) ? src[r * stride + c] : zero;
-    }
-  }
-}
-
 // Element strides (batch, head, seq) of a (b, h, s, d) tensor whose head_dim
 // stride is 1: the fused-QKV views go in without a copy.
 struct Strides {
   long long b, h, s;
 };
-
-__host__ __forceinline__ bool vec_ok(int d, const void* p, Strides s) {
-  return d % 8 == 0 && ((uintptr_t)p & 15) == 0 && s.b % 8 == 0 &&
-         s.h % 8 == 0 && s.s % 8 == 0;
-}
 
 // Opt `Kernel` in to `bytes` of dynamic shared memory (above 48 KB this is
 // required). Done once per kernel and size, on its first launch -- never

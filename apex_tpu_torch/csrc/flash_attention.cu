@@ -1,28 +1,52 @@
-// Flash-attention forward for Hopper.
+// Flash-attention forward for Hopper, resident.
 //
-// Replaces: apex_tpu/ops/flash_attention.py _fwd_kernel (pallas_call in
-// _flash_fwd). Computes O = softmax(scale * Q K^T [causal mask]) V and the
-// per-row lse = m + log(l) (fp32), with the online-softmax recurrence: a
-// running max m, a running sum l and an fp32 accumulator per query row.
-// Causal masking is top-left aligned (key k is visible to query q iff
-// k <= q, _apply_pos_masks), K/V tiles past the causal diagonal are never
-// loaded, and a row whose every key is masked outputs exactly 0 (l == 0).
+// Replaces: apex_tpu/ops/flash_attention.py _fwd_kernel (def :251,
+// pallas_call in _flash_fwd, :889). Computes O = softmax(scale * Q K^T
+// [causal mask]) V and the per-row lse = m + log(l) (fp32), with the
+// online-softmax recurrence: a running max m, a running sum l and an fp32
+// accumulator per query row. Causal masking is top-left aligned (key k is
+// visible to query q iff k <= q, _apply_pos_masks), K/V tiles past the
+// causal diagonal are never loaded, and a row whose every key is masked
+// outputs exactly 0 (l == 0).
 //
-// Bound on this card: operations at long sequence (4 * sq * sk * d / 2
-// causal FLOPs against 4 * s * d elements moved), bytes at short. Design
-// (simple first; wgmma/TMA are later work), two kernels behind one entry:
-// - bf16 (the serving path): both products on the tensor cores with
-//   mma.sync (flash_fwd_mma_kernel below), one CTA of 4 warps per
-//   (64-row q tile, head, batch);
+// Bound on this card: bytes at the path shapes (1024 tokens: 4 * s * d
+// elements moved against 4 * pairs * d FLOPs), operations at long
+// sequence. Two kernels behind one entry:
+// - bf16 (the serving and training paths): fwd_resident_wgmma<DP, BN, NWG>,
+//   wgmma fed by a TMA ring on the pieces it shares with the streamed
+//   forward (flash_fwd_wgmma.cuh, flash_bwd_wgmma.cuh):
+//   - one CTA holds BM = 64 NWG queries (NWG = 2 consumer warpgroups of 64
+//     rows; 1 where RES_FWD_OUTER_TILE = 64) and a producer warp that
+//     starts the TMA loads of BN-row K/V tiles (RES_FWD_INNER_TILE) into a
+//     kStages-deep ring; mbarriers hand the tiles over;
+//   - each CTA takes the whole causal band of its query tile: no split, no
+//     fp32 partial, no merge;
+//   - persistent (RES_FWD_PERSISTENT): as many CTAs as fit on the card
+//     walk the (query tile, b*h) items longest band first; the producer
+//     loads the next item's Q while the consumers finish the current one,
+//     and the ring's phase runs across items. Else a plain grid of one
+//     CTA per item in the same order;
+//   - S = Q K^T reads Q and K K-major, O += P V takes P from the score
+//     registers as A fragments and V as an MN-major B: no V^T copy; only
+//     edge blocks (the diagonal, the ragged end) test each score; exp2
+//     with scale log2(e) folded in;
+//   - o is rounded to bf16 into a swizzled staging tile per warpgroup and
+//     stored by TMA, which writes no row past sq and no column past d: no
+//     row is written twice, and two calls give the same bits; lse is
+//     written per row by the consumers.
+//   q/k/v are read through (b, h, s, d) tensor maps, so strided views (the
+//   fused-QKV heads) go in without a copy; what TMA refuses (a base or
+//   stride off 16 bytes, d % 8 != 0) the wrapper passes as a padded copy.
+//   A head_dim up to 64 takes the 64-wide kernels (TMA zero-fills the
+//   columns past d), up to 128 the 128-wide ones, on 64-row key tiles.
 // - fp32: plain FMA (flash_fwd_kernel), one CTA of 256 threads per q tile,
 //   Q, K, V and P tiles in shared memory as fp32 (rows padded by one word
 //   against bank conflicts), 4 neighbouring lanes per query row so the row
 //   max and sum are two shuffles and the accumulator stays in registers.
-// Any sq, sk and d <= 128; ragged edges are masked in-kernel. Inputs are
-// (b, h, s, d) with the last dim contiguous and the other strides given, so
-// the fused-QKV views need no copy.
+//   Any sq, sk and d <= 128; ragged edges are masked in-kernel. Inputs are
+//   (b, h, s, d) with the last dim contiguous and the other strides given.
 
-#include "common.cuh"
+#include "flash_fwd_wgmma.cuh"
 
 namespace apex_torch {
 
@@ -168,191 +192,240 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: both products on the tensor cores (mma.sync m16n8k16, fp32 sums)
+// bf16: wgmma fed by a TMA ring, one CTA per whole band, persistent
 // ---------------------------------------------------------------------------
-//
-// One CTA of 4 warps per (64-row q tile, head, batch); each warp owns 16
-// query rows. Q, K and V^T tiles sit in shared memory as bf16 (rows padded
-// by 8 halves so the fragment loads hit 32 distinct banks). S = Q K^T lands
-// in mma accumulator fragments; the online softmax runs on them in fp32
-// (row max/sum over the 4 lanes that share a row); P is rounded to bf16 and
-// fed straight back as the A operand of O += P V (the accumulator layout of
-// m16n8 equals the A layout of m16n8k16 -- no shared-memory round trip).
-// P is rounded to bf16 as the A operand. The reference kernel does not do
-// this (_fwd_kernel casts V to fp32, so its p.astype(v.dtype) stays fp32);
-// mha_reference does (p.astype(v.dtype) with bf16 V). The rounding is what
-// the bf16 tolerance of the kernel against its plain version covers.
 
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int h, int sq, int sk,
-                         int d, Strides qs, Strides ks, Strides vs,
-                         float scale, int causal) {
-  constexpr int LD = DP + 8;    // Q and K rows, in halves
-  constexpr int LDV = kBK + 8;  // V^T rows
-  constexpr int NT = kBK / 8;   // key n-tiles of S per warp
-  constexpr int DT = DP / 8;    // dim n-tiles of O per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBQ * LD;
-  __nv_bfloat16* Vt = Ks + kBK * LD;
+namespace {
 
-  const int qt = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
-  const int q0 = qt * kBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wr = warp * 16;  // this warp's first row in the tile
-  const int rowA = q0 + wr + g, rowB = rowA + 8;
+struct ResFwdMaps {
+  CUtensorMap q, k, v;  // encode_rows_map: 64 x 64 boxes
+  CUtensorMap o;        // (b, h, sq, d) contiguous, the TMA store's
+};
 
-  const __nv_bfloat16* qb = q + bi * qs.b + hi * qs.h + (long long)q0 * qs.s;
-  const __nv_bfloat16* kb = k + bi * ks.b + hi * ks.h;
-  const __nv_bfloat16* vb = v + bi * vs.b + hi * vs.h;
-  load_rows<DP, VEC>(Qs, LD, qb, qs.s, sq - q0, d);
+struct ResFwdArgs {
+  float* lse;  // (b*h, sq) contiguous
+  int h, sq, sk;
+  uint32_t qpos, kpos, vpos, opos;  // coordinate placement of each map
+  float scale;
+  int causal;
+  int bh, n_outer;  // b*h, query tiles of a head
+  int items;        // bh * n_outer: the CTAs of the plain grid
+};
 
-  float oacc[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i)
-    oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-  float mA = kNegInf, mB = kNegInf, lA = 0.f, lB = 0.f;
+// NWG consumer warpgroups of 64 queries each (BM = 64 NWG query rows an
+// item), then the producer's warpgroup. With one consumer two CTAs can
+// share an SM: 128 registers a thread at launch, the producer's handed
+// over (setmaxnreg) so that the consumer holds 232; with two, 168 at
+// launch and 240 after, as in the backward.
+template <int NWG>
+struct ResFwdShape {
+  static constexpr int kThreads = (NWG + 1) * kWg;
+  static constexpr int kMinBlocks = NWG == 1 ? 2 : 1;
+  static constexpr int kConsumerRegs = NWG == 1 ? 232 : 240;
+};
 
-  int nk = (sk + kBK - 1) / kBK;
-  if (causal) nk = min(nk, (q0 + kBQ + kBK - 1) / kBK);
+// Item w is query tile n_outer - 1 - w / bh (longest causal band first) of
+// head w % bh; a CTA takes the items blockIdx.x, + gridDim.x, ... For each
+// it keeps BM queries (Q, loaded once by TMA) and streams the BN-row key
+// tiles of the whole causal band (K, V) through the ring: no split, no fp32
+// partial, no merge. Warpgroup g < NWG owns queries [64 g, 64 g + 64) of
+// the tile and runs fwd_tile on each key tile; the producer's first thread
+// starts the TMA loads, the next item's Q as soon as the consumers are done
+// with the current one (the q_full / q_empty pair), while they finish and
+// store; the ring's phase runs across items. Each warpgroup rounds its o to
+// bf16 into a staging tile of its own in TMA's swizzled layout and one of
+// its threads stores it by TMA (no row past sq, no column past d written);
+// its threads write the rows' lse.
+template <int DP, int BN, int NWG>
+__global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
+                                  ResFwdShape<NWG>::kMinBlocks)
+    fwd_resident_wgmma(const __grid_constant__ ResFwdMaps maps,
+                       const ResFwdArgs a) {
+  constexpr int BM = 64 * NWG;
+  using L = FwdLayout<DP, BN, BM, true>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;  // an item's Q has landed
+  uint64_t* q_empty = q_full + 1;      // the consumers are done with it
+  const int nk = (a.sk + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * NWG);  // each consumer warp
+    }
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 4 * NWG);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kBK;
-    __syncthreads();
-    load_rows<DP, VEC>(Ks, LD, kb + (long long)k0 * ks.s, ks.s, sk - k0, d);
-    load_rows_t<DP, VEC>(Vt, LDV, vb + (long long)k0 * vs.s, vs.s, sk - k0,
-                         d);
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      const __nv_bfloat16* qa = Qs + (wr + g) * LD + kk + tig * 2;
-      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * LD);
-      const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * LD + 8);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* kbp = Ks + (nt * 8 + g) * LD + kk + tig * 2;
-        mma_bf16(s[nt], a0, a1, a2, a3, ld32(kbp), ld32(kbp + 8));
+  const int wg = threadIdx.x / kWg;
+  if (wg == NWG) {  // the producer
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x != NWG * kWg) return;
+    int it = 0;  // ring tiles so far, over this CTA's items
+    for (int w = blockIdx.x, j = 0; w < a.items; w += gridDim.x, ++j) {
+      const int bh = w % a.bh, qt = a.n_outer - 1 - w / a.bh;
+      const int bi = bh / a.h, hi = bh - bi * a.h;
+      const Band band = k_tiles(qt, nk, a.causal, 0, BM, BN);
+      hopper::mbar_wait(q_empty, (j & 1) ^ 1);
+      hopper::mbar_arrive_tx(q_full, L::kQBytes);
+      tma_rows<DP, BM>(base, &maps.q, a.qpos, q_full, qt * BM, hi, bi);
+      for (int i = band.lo; i < band.hi; ++i, ++it) {
+        const int s = it % kStages;
+        hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        unsigned char* ks = base + L::kRing + s * 2 * L::kTileBytes;
+        hopper::mbar_arrive_tx(&full[s], 2 * L::kTileBytes);
+        tma_rows<DP, BN>(ks, &maps.k, a.kpos, &full[s], i * BN, hi, bi);
+        tma_rows<DP, BN>(ks + L::kTileBytes, &maps.v, a.vpos, &full[s],
+                         i * BN, hi, bi);
       }
     }
-
-    float mxA = kNegInf, mxB = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + nt * 8 + tig * 2 + (i & 1);
-        const int row = i < 2 ? rowA : rowB;
-        const bool valid = col < sk && (!causal || col <= row);
-        s[nt][i] = valid ? s[nt][i] * scale : kNegInf;
-      }
-      mxA = fmaxf(mxA, fmaxf(s[nt][0], s[nt][1]));
-      mxB = fmaxf(mxB, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, 1));
-    mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, 2));
-    mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, 1));
-    mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, 2));
-    const float mnA = fmaxf(mA, mxA), mnB = fmaxf(mB, mxB);
-    const bool deadA = mnA <= kNegInf * 0.5f, deadB = mnB <= kNegInf * 0.5f;
-    const float alA = expf(mA - mnA), alB = expf(mB - mnB);
-    float sumA = 0.f, sumB = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = deadA ? 0.f : expf(s[nt][0] - mnA);
-      s[nt][1] = deadA ? 0.f : expf(s[nt][1] - mnA);
-      s[nt][2] = deadB ? 0.f : expf(s[nt][2] - mnB);
-      s[nt][3] = deadB ? 0.f : expf(s[nt][3] - mnB);
-      sumA += s[nt][0] + s[nt][1];
-      sumB += s[nt][2] + s[nt][3];
-    }
-    sumA += __shfl_xor_sync(0xffffffffu, sumA, 1);
-    sumA += __shfl_xor_sync(0xffffffffu, sumA, 2);
-    sumB += __shfl_xor_sync(0xffffffffu, sumB, 1);
-    sumB += __shfl_xor_sync(0xffffffffu, sumB, 2);
-    lA = lA * alA + sumA;
-    lB = lB * alB + sumB;
-    mA = mnA;
-    mB = mnB;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      oacc[dt][0] *= alA;
-      oacc[dt][1] *= alA;
-      oacc[dt][2] *= alB;
-      oacc[dt][3] *= alB;
-    }
-#pragma unroll
-    for (int kt = 0; kt < kBK / 16; ++kt) {
-      const uint32_t a0 = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* vp = Vt + (dt * 8 + g) * LDV + kt * 16 + tig * 2;
-        mma_bf16(oacc[dt], a0, a1, a2, a3, ld32(vp), ld32(vp + 8));
-      }
-    }
+    return;
   }
 
-  const float invA = 1.f / (lA == 0.f ? 1.f : lA);
-  const float invB = 1.f / (lB == 0.f ? 1.f : lB);
-  const size_t head = (size_t)(bi * h + hi) * sq;
+  hopper::regs_alloc<ResFwdShape<NWG>::kConsumerRegs>();
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4;  // rows of d[i]: + 8 ((i/2)%2)
+  const int kcol = 2 * (lane % 4);      // + 8 (i/4) + i%2
+  const float c = a.scale * kLog2e;
+  const uint32_t qs = hopper::smem_u32(base);
+  const uint32_t ring = hopper::smem_u32(base + L::kRing);
+  unsigned char* stage = base + L::kStage + wg * 64 * kRowBytes;
+  int it = 0;
+  for (int w = blockIdx.x, j = 0; w < a.items; w += gridDim.x, ++j) {
+    const int bh = w % a.bh, qt = a.n_outer - 1 - w / a.bh;
+    const int bi = bh / a.h, hi = bh - bi * a.h;
+    const int qw = qt * BM + wg * 64;  // this warpgroup's queries
+    const Band band = k_tiles(qt, nk, a.causal, 0, BM, BN);
+    float o[DP / 2];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m2[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
+    float l[2] = {0.f, 0.f};
+    hopper::mbar_wait(q_full, j & 1);
+    const int nt = band.hi - band.lo;
+    for (int n = 0; n < nt; ++n) {
+      const int g = it + n, s = g % kStages, k0 = (band.lo + n) * BN;
+      const uint32_t ks = ring + s * 2 * L::kTileBytes;
+      hopper::mbar_wait(&full[s], (g / kStages) & 1);
+      fwd_tile<DP, BM, BN>(o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c,
+                           qw + r0, k0 + kcol, a.sk, a.causal, 0,
+                           !interior<BN>(qw, k0, a.sk, a.causal, 0));
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    it += nt;
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(q_empty);
+
+    row_sums(l);
+    const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f,
+                          l[1] > 0.f ? 1.f / l[1] : 0.f};
+    if (lane % 4 == 0) {
+      const size_t head = (size_t)bh * a.sq;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = dt * 8 + tig * 2 + (i & 1);
-      const int row = i < 2 ? rowA : rowB;
-      if (row < sq && col < d)
-        o[(head + row) * d + col] =
-            __float2bfloat16_rn(oacc[dt][i] * (i < 2 ? invA : invB));
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = qw + r0 + 8 * hf;
+        if (row < a.sq) a.lse[head + row] = lse_of(m2[hf], l[hf]);
+      }
+    }
+    staging_free(wg);
+    stage_rows<DP, BM>(stage, o, inv[0], inv[1]);
+    staging_ready(wg);
+    if (tid == 0) {
+      store_rows<DP, BM>(&maps.o, a.opos, stage, qw, hi, bi);
+      hopper::bulk_commit();
     }
   }
-  if (tig == 0) {
-    if (rowA < sq) lse[head + rowA] = mA + logf(lA == 0.f ? 1.f : lA);
-    if (rowB < sq) lse[head + rowB] = mB + logf(lB == 0.f ? 1.f : lB);
-  }
+  if (tid == 0) hopper::bulk_wait_read<0>();
 }
 
-template <int DP, bool VEC>
-int launch_flash_mma(const void* q, const void* k, const void* v, void* o,
-                     void* lse, int b, int h, int sq, int sk, int d,
-                     Strides qs, Strides ks, Strides vs, float scale,
-                     int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      ((size_t)(kBQ + kBK) * (DP + 8) + (size_t)DP * (kBK + 8));
-  const int err = set_max_smem<flash_fwd_mma_kernel<DP, VEC>>(smem);
+// One kernel with its shared memory over `grid` CTAs.
+template <int DP, int BN, int NWG>
+int launch_res_fwd(const ResFwdMaps& maps, const ResFwdArgs& a,
+                   bool persistent, cudaStream_t stream) {
+  constexpr size_t smem = FwdLayout<DP, BN, 64 * NWG, true>::kBytes;
+  constexpr int threads = ResFwdShape<NWG>::kThreads;
+  auto kernel = fwd_resident_wgmma<DP, BN, NWG>;
+  int err = set_max_smem<fwd_resident_wgmma<DP, BN, NWG>>(smem);
   if (err) return err;
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_fwd_mma_kernel<DP, VEC><<<grid, kMmaThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse, h, sq, sk, d,
-      qs, ks, vs, scale, causal);
+  int grid = a.items;
+  if (persistent) {  // as many CTAs as fit on the card at once
+    static int per_sm = 0;  // CTAs an SM holds: once per instantiation
+    int dev = 0, sms = 0;
+    err = (int)cudaGetDevice(&dev);
+    if (!err)
+      err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev);
+    if (!err && per_sm == 0)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, threads, smem);
+    if (err) return err;
+    const int fit = sms * (per_sm > 0 ? per_sm : 1);
+    grid = grid < fit ? grid : fit;
+  }
+  kernel<<<grid, threads, smem, stream>>>(maps, a);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_flash_mma_dp(bool vec, const void* q, const void* k,
-                        const void* v, void* o, void* lse, int b, int h,
-                        int sq, int sk, int d, Strides qs, Strides ks,
-                        Strides vs, float scale, int causal,
-                        cudaStream_t stream) {
-  if (vec)
-    return launch_flash_mma<DP, true>(q, k, v, o, lse, b, h, sq, sk, d, qs,
-                                      ks, vs, scale, causal, stream);
-  return launch_flash_mma<DP, false>(q, k, v, o, lse, b, h, sq, sk, d, qs, ks,
-                                     vs, scale, causal, stream);
+// bf16: the tensor maps of q, k, v and o, then the kernel of the padded
+// head_dim (64 or 128), the key tile (64 or 128 rows where d <= 64; 64
+// above, where 128-row tiles and the staging overflow shared memory) and
+// the query tile (128 rows, or 64 where d <= 64).
+int launch_res_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int b, int h, int sq, int sk, int d,
+                        Strides qs, Strides ks, Strides vs, float scale,
+                        int causal, int outer_tile, int inner_tile,
+                        int persistent, cudaStream_t stream) {
+  ResFwdMaps maps;
+  ResFwdArgs a{};
+  int err = encode_rows_map(&maps.q, &a.qpos, q, b, h, sq, d, qs.b, qs.h,
+                            qs.s);
+  if (!err) err = encode_rows_map(&maps.k, &a.kpos, k, b, h, sk, d, ks.b,
+                                  ks.h, ks.s);
+  if (!err) err = encode_rows_map(&maps.v, &a.vpos, v, b, h, sk, d, vs.b,
+                                  vs.h, vs.s);
+  if (!err) err = encode_rows_map(&maps.o, &a.opos, o, b, h, sq, d,
+                                  (long long)h * sq * d, (long long)sq * d,
+                                  d);
+  if (err) return err;
+  a.lse = static_cast<float*>(lse);
+  a.h = h;
+  a.sq = sq;
+  a.sk = sk;
+  a.scale = scale;
+  a.causal = causal;
+  a.bh = b * h;
+  a.n_outer = (sq + outer_tile - 1) / outer_tile;
+  const long long items = (long long)a.bh * a.n_outer;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  a.items = (int)items;
+  const bool p = persistent != 0;
+  if (d > 64) return launch_res_fwd<128, 64, 2>(maps, a, p, stream);
+  if (outer_tile == 64)
+    return inner_tile == 64 ? launch_res_fwd<64, 64, 1>(maps, a, p, stream)
+                            : launch_res_fwd<64, 128, 1>(maps, a, p, stream);
+  return inner_tile == 64 ? launch_res_fwd<64, 64, 2>(maps, a, p, stream)
+                          : launch_res_fwd<64, 128, 2>(maps, a, p, stream);
 }
+
+// The tiles a caller names: bf16 128 (or 64 where d <= 64) query rows, 64
+// (or 128 where d <= 64) key rows, either schedule; fp32 kBQ / kBK, the
+// plain grid.
+bool fwd_tiles_ok(int dtype, int d, int outer_tile, int inner_tile,
+                  int persistent) {
+  if (dtype == kBF16)
+    return (outer_tile == 128 || (outer_tile == 64 && d <= 64)) &&
+           (inner_tile == 64 || (inner_tile == 128 && d <= 64)) &&
+           (persistent == 0 || persistent == 1);
+  return dtype == kF32 && outer_tile == kBQ && inner_tile == kBK &&
+         persistent == 0;
+}
+
+}  // namespace
 
 }  // namespace apex_torch
 
@@ -360,28 +433,28 @@ using namespace apex_torch;
 
 // q/k/v strides in elements: (batch, head, seq); the head_dim stride is 1.
 // o is contiguous (b, h, sq, d) in q's dtype; lse contiguous (b, h, sq) fp32.
+// outer_tile / inner_tile: the query rows of an item and the key rows of a
+// streamed tile; persistent: as many CTAs as fit on the card walking the
+// items (bf16: 128, or 64 where d <= 64 / 64 or 128 / 0 or 1; fp32: 64 / 64
+// / 0). bf16 reads q/k/v and writes o by TMA: 16-byte-aligned bases and
+// strides, d % 8 == 0.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int b, int h, int sq, int sk,
                               int d, long long qsb, long long qsh,
                               long long qss, long long ksb, long long ksh,
                               long long kss, long long vsb, long long vsh,
                               long long vss, float scale, int causal,
+                              int outer_tile, int inner_tile, int persistent,
                               int dtype, void* stream) {
-  if (d < 1 || d > kMaxD || b < 1 || h < 1 || sq < 1 || sk < 1)
+  if (d < 1 || d > kMaxD || b < 1 || h < 1 || sq < 1 || sk < 1 ||
+      !fwd_tiles_ok(dtype, d, outer_tile, inner_tile, persistent))
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_flash_fwd<float>(q, k, v, o, lse, b, h, sq, sk, d, qs, ks,
                                    vs, scale, causal, s);
-  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
-  const bool vec = vec_ok(d, q, qs) && vec_ok(d, k, ks) && vec_ok(d, v, vs);
-  if (d <= 32)
-    return launch_flash_mma_dp<32>(vec, q, k, v, o, lse, b, h, sq, sk, d, qs,
-                                   ks, vs, scale, causal, s);
-  if (d <= 64)
-    return launch_flash_mma_dp<64>(vec, q, k, v, o, lse, b, h, sq, sk, d, qs,
-                                   ks, vs, scale, causal, s);
-  return launch_flash_mma_dp<128>(vec, q, k, v, o, lse, b, h, sq, sk, d, qs,
-                                  ks, vs, scale, causal, s);
+  return launch_res_fwd_bf16(q, k, v, o, lse, b, h, sq, sk, d, qs, ks, vs,
+                             scale, causal, outer_tile, inner_tile,
+                             persistent, s);
 }

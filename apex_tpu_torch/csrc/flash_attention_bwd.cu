@@ -130,63 +130,6 @@ struct ResLayout {
   static constexpr int kBytes = 1024 + kBars + (2 * kStages + 2) * 8;
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// A warpgroup's 64 x DP accumulator times `mul`, as bf16, into its rows of a
-// staging tile of kOuter rows (`tile` points at the warpgroup's first row):
-// 64-column chunks kOuter rows apart, each row 128 bytes with 16-byte chunk
-// c at c ^ (row % 8) -- the layout a {64, 64} TMA box with the 128-byte
-// swizzle reads. Thread (warp, lane) holds rows 16 warp + lane / 4 (+ 8) at
-// columns 8 j + 2 (lane % 4): one 4-byte word each, no bank conflict.
-template <int DP>
-__device__ __forceinline__ void stage_rows(unsigned char* tile,
-                                           const float (&acc)[DP / 2],
-                                           float mul) {
-  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
-  const int r = warp * 16 + lane / 4, sw = lane / 4;  // r % 8 == sw
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    unsigned char* chunk = tile + (j / 8) * kOuter * kRowBytes;
-    const int col = ((j % 8) ^ sw) * 16 + (lane % 4) * 4;
-    *reinterpret_cast<uint32_t*>(chunk + r * kRowBytes + col) =
-        pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
-    *reinterpret_cast<uint32_t*>(chunk + (r + 8) * kRowBytes + col) =
-        pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
-  }
-}
-
-// TMA stores of a warpgroup's staged 64 rows to rows [row0, row0 + 64) of
-// head (bi, hi) of `map`: one {64, 64} box a 64-column chunk.
-template <int DP>
-__device__ __forceinline__ void store_rows(const CUtensorMap* map,
-                                           uint32_t pos,
-                                           const unsigned char* tile,
-                                           int row0, int hi, int bi) {
-#pragma unroll
-  for (int c = 0; c < DP / 64; ++c)
-    hopper::tma_store_4d(map, tile + c * kOuter * kRowBytes, c * 64,
-                         map_coord(pos, 1, row0, hi, bi),
-                         map_coord(pos, 2, row0, hi, bi),
-                         map_coord(pos, 3, row0, hi, bi));
-}
-
-// The staging protocol of a warpgroup: its store thread waits until the
-// previous item's stores have read the staging tiles, the warpgroup syncs,
-// writes (stage_rows), fences its writes for TMA and syncs again, then the
-// store thread starts the stores.
-__device__ __forceinline__ void staging_free(int wg) {
-  if (threadIdx.x % kWg == 0) hopper::bulk_wait_read<0>();
-  hopper::named_sync(1 + wg, kWg);
-}
-
-__device__ __forceinline__ void staging_ready(int wg) {
-  hopper::fence_async_shared();
-  hopper::named_sync(1 + wg, kWg);
-}
-
 // dQ: a CTA takes the items blockIdx.x, + gridDim.x, ...; item w is query
 // tile n_outer - 1 - w / bh (longest causal band first) of head w % bh. For
 // each it keeps 128 queries (Q, dO, lse, delta) and streams the BN-row key
@@ -309,7 +252,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     if (lane == 0) hopper::mbar_arrive(res_empty);
 
     staging_free(wg);
-    stage_rows<DP>(stage, dq, a.scale);
+    stage_rows<DP>(stage, dq, a.scale, a.scale);
     staging_ready(wg);
     if (tid == 0) {
       store_rows<DP>(&maps.out0, r.pos0, stage, qw, hi, bi);
@@ -447,8 +390,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     if (lane == 0) hopper::mbar_arrive(res_empty);
 
     staging_free(wg);
-    stage_rows<DP>(stage, dk, a.scale);
-    stage_rows<DP>(stage + L::kOuterBytes, dv, 1.f);
+    stage_rows<DP>(stage, dk, a.scale, a.scale);
+    stage_rows<DP>(stage + L::kOuterBytes, dv, 1.f, 1.f);
     staging_ready(wg);
     if (tid == 0) {
       store_rows<DP>(&maps.out0, r.pos0, stage, kw, hi, bi);

@@ -49,7 +49,8 @@
 // scale log2(e) folded in; splits of up to FWD_SPLIT_TILES key tiles, so
 // that at the path shapes each band is one split, written directly with no
 // fp32 partial, no workspace and no merge launch; the longest bands launch
-// first.
+// first. Its layout, online softmax and consumer step over a key tile are
+// in flash_fwd_wgmma.cuh, shared with the resident forward.
 //
 // The bf16 backward (dq_wgmma, dkv_wgmma) is built for Hopper's tensor
 // cores. A CTA of three warpgroups keeps kOuter = 128 rows of one side
@@ -88,7 +89,7 @@
 // d). fp32 keeps the FMA kernels (fwd_split_fma, dq_split_fma,
 // dkv_split_fma) with 64-row tiles both ways.
 
-#include "flash_bwd_wgmma.cuh"
+#include "flash_fwd_wgmma.cuh"
 
 namespace apex_torch {
 namespace {
@@ -309,8 +310,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     dkv_wgmma(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
   using L = BwdLayout<DP>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* base = align1024(smem_raw);
   float* stats = reinterpret_cast<float*>(base + L::kStats);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
   uint64_t* empty = full + kStages;
@@ -440,8 +440,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     dq_wgmma(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
   using L = BwdLayout<DP>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* base = align1024(smem_raw);
   float* stats = reinterpret_cast<float*>(base + L::kStats);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
   uint64_t* empty = full + kStages;
@@ -557,9 +556,6 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // forward in bf16: wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int kFwdOuter = 128;  // query rows a CTA keeps (two warpgroups)
-constexpr float kLn2 = 0.6931471805599453f;
-
 struct FwdMaps {
   CUtensorMap q, k, v;  // encode_rows_map: 64 x 64 boxes
 };
@@ -576,62 +572,6 @@ struct FwdArgs {
   int causal, window, split_tiles;
 };
 
-// Byte offsets in dynamic shared memory (after aligning it to 1024): Q
-// (kFwdOuter rows), the ring of (K, V) pairs of BN rows each, mbarriers.
-template <int DP, int BN>
-struct FwdLayout {
-  static constexpr int kChunks = DP / 64;
-  static constexpr int kQBytes = kChunks * kFwdOuter * kRowBytes;
-  static constexpr int kTileBytes = kChunks * BN * kRowBytes;
-  static constexpr int kRing = kQBytes;
-  static constexpr int kBars = kRing + kStages * 2 * kTileBytes;
-  static constexpr int kBytes = 1024 + kBars + (2 * kStages + 1) * 8;
-};
-
-// One key tile of the online softmax in base 2, on a warpgroup's 64 x BN
-// scores st: element i is row `row` + 8 ((i/2)%2), key col + 8 (i/4) + i%2.
-// m2 (the running max of scale log2(e) s), l (this thread's share of the
-// running sum) and the rows' rescale factors alpha, per row half; st
-// becomes P. kMask: an edge block, so each pair is tested; a masked score
-// is -inf and exp2 makes it exactly 0. A row with nothing visible yet keeps
-// m2 = -inf and subtracts 0 instead, so its P and alpha are 0, not NaN.
-template <bool kMask, int BN>
-__device__ __forceinline__ void online_softmax(float (&st)[BN / 2],
-                                               float (&m2)[2], float (&l)[2],
-                                               float (&alpha)[2], float c,
-                                               int row, int col,
-                                               const FwdArgs& a) {
-  const float ninf = __int_as_float(0xff800000);
-  float mx[2] = {ninf, ninf};
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) {
-    const int hf = (i >> 1) & 1;
-    if (kMask && !visible(row + 8 * hf, col + 8 * (i >> 2) + (i & 1), a.sk,
-                          a.causal, a.window))
-      st[i] = ninf;
-    mx[hf] = fmaxf(mx[hf], st[i]);
-  }
-  float sub[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
-    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
-    const float m_new = fmaxf(m2[hf], mx[hf] * c);
-    sub[hf] = m_new == ninf ? 0.f : m_new;
-    alpha[hf] = hopper::fast_exp2(m2[hf] - sub[hf]);
-    m2[hf] = m_new;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) {
-    const int hf = (i >> 1) & 1;
-    st[i] = hopper::fast_exp2(fmaf(st[i], c, -sub[hf]));
-    sum[hf] += st[i];
-  }
-  l[0] = l[0] * alpha[0] + sum[0];
-  l[1] = l[1] * alpha[1] + sum[1];
-}
-
 // The forward: one CTA keeps 128 queries (Q, loaded once by TMA) and
 // streams the key tiles of its split (K, V; BN rows each) through the
 // ring. Warpgroups 0 and 1 own 64 queries each: S = Q K^T (both operands
@@ -647,8 +587,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     fwd_wgmma(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
   using L = FwdLayout<DP, BN>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* base = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
   uint64_t* empty = full + kStages;
   uint64_t* q_ready = empty + kStages;
@@ -719,38 +658,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   for (int n = 0; n < t1 - t0; ++n) {
     const int s = n % kStages, k0 = (t0 + n) * BN;
     const uint32_t ks = ring + s * 2 * L::kTileBytes;
-    float st[BN / 2];
     hopper::mbar_wait(&full[s], (n / kStages) & 1);
-    hopper::wgmma_fence();
-    scores<DP, kFwdOuter, BN>(st, qs, wg * 64, ks);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(st);
-    float alpha[2];
-    if (interior<BN>(qw, k0, a.sk, a.causal, a.window))
-      online_softmax<false, BN>(st, m2, l, alpha, c, qw + r0, k0 + kcol, a);
-    else
-      online_softmax<true, BN>(st, m2, l, alpha, c, qw + r0, k0 + kcol, a);
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    uint32_t pf[BN / 16][4];
-    fragments<BN>(pf, st);
-    hopper::wgmma_fence();
-    hopper::fence_regs(o);
-    accumulate<DP, BN>(o, pf, ks + L::kTileBytes);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(o);
+    fwd_tile<DP, kFwdOuter, BN>(
+        o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c, qw + r0, k0 + kcol,
+        a.sk, a.causal, a.window,
+        !interior<BN>(qw, k0, a.sk, a.causal, a.window));
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
-
-  // the row sums: each thread holds a quarter of its rows' columns
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
-    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
-  }
+  row_sums(l);
   const size_t head = (size_t)bh * a.sq;
   if (direct) {
 #pragma unroll
@@ -766,9 +682,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
           *reinterpret_cast<uint32_t*>(orow + col) =
               pack_bf16(o[idx] * inv, o[idx + 1] * inv);
       }
-      if (lane % 4 == 0)
-        a.lse[head + row] =
-            l[hf] > 0.f ? m2[hf] * kLn2 + logf(l[hf]) : kNegInf;
+      if (lane % 4 == 0) a.lse[head + row] = lse_of(m2[hf], l[hf]);
     }
     return;
   }

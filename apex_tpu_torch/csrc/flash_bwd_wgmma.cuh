@@ -2,10 +2,11 @@
 // ring, shared by the streamed pair (dq_wgmma / dkv_wgmma,
 // flash_attention_stream.cu) and the resident pair (dq_resident_wgmma /
 // dkv_resident_wgmma, flash_attention_bwd.cu): the bands of tiles a CTA
-// visits, the shared-memory layout of a ring, the TMA row loads, the wgmma
-// descriptors and products, P / dS from the score registers, and the
-// consumer loop. The forward (fwd_wgmma) takes the descriptors and products
-// too.
+// visits, the shared-memory layout of a ring, the TMA row loads, the
+// staging and TMA stores of bf16 results, the wgmma descriptors and
+// products, P / dS from the score registers, and the consumer loop. The
+// forwards (flash_fwd_wgmma.cuh) take the bands, loads, stores,
+// descriptors and products too.
 //
 // Layout of a CTA (kBwdThreads): warpgroups 0 and 1 are the consumers, 64
 // rows each of the outer tile they keep (kOuter rows); warp 8 is the
@@ -127,6 +128,67 @@ __device__ __forceinline__ void tma_rows(unsigned char* dst,
                           map_coord(pos, 2, row, hi, bi),
                           map_coord(pos, 3, row, hi, bi));
     }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// A warpgroup's 64 x DP accumulator, each row half times its multiplier
+// (mul_lo for the thread's rows r, mul_hi for r + 8), as bf16, into its
+// rows of a staging tile of R rows (`tile` points at the warpgroup's first
+// row): 64-column chunks R rows apart, each row 128 bytes with 16-byte
+// chunk c at c ^ (row % 8) -- the layout a {64, 64} TMA box with the
+// 128-byte swizzle reads. Thread (warp, lane) holds rows 16 warp + lane / 4
+// (+ 8) at columns 8 j + 2 (lane % 4): one 4-byte word each, no bank
+// conflict.
+template <int DP, int R = kOuter>
+__device__ __forceinline__ void stage_rows(unsigned char* tile,
+                                           const float (&acc)[DP / 2],
+                                           float mul_lo, float mul_hi) {
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int r = warp * 16 + lane / 4, sw = lane / 4;  // r % 8 == sw
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    unsigned char* chunk = tile + (j / 8) * R * kRowBytes;
+    const int col = ((j % 8) ^ sw) * 16 + (lane % 4) * 4;
+    *reinterpret_cast<uint32_t*>(chunk + r * kRowBytes + col) =
+        pack_bf16(acc[4 * j] * mul_lo, acc[4 * j + 1] * mul_lo);
+    *reinterpret_cast<uint32_t*>(chunk + (r + 8) * kRowBytes + col) =
+        pack_bf16(acc[4 * j + 2] * mul_hi, acc[4 * j + 3] * mul_hi);
+  }
+}
+
+// TMA stores of a warpgroup's staged 64 rows (in a staging tile of R rows)
+// to rows [row0, row0 + 64) of head (bi, hi) of `map`: one {64, 64} box a
+// 64-column chunk. TMA writes no row past the tensor's s and no column past
+// its d.
+template <int DP, int R = kOuter>
+__device__ __forceinline__ void store_rows(const CUtensorMap* map,
+                                           uint32_t pos,
+                                           const unsigned char* tile,
+                                           int row0, int hi, int bi) {
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c)
+    hopper::tma_store_4d(map, tile + c * R * kRowBytes, c * 64,
+                         map_coord(pos, 1, row0, hi, bi),
+                         map_coord(pos, 2, row0, hi, bi),
+                         map_coord(pos, 3, row0, hi, bi));
+}
+
+// The staging protocol of a warpgroup: its store thread waits until the
+// previous item's stores have read the staging tiles, the warpgroup syncs,
+// writes (stage_rows), fences its writes for TMA and syncs again, then the
+// store thread starts the stores.
+__device__ __forceinline__ void staging_free(int wg) {
+  if (threadIdx.x % kWg == 0) hopper::bulk_wait_read<0>();
+  hopper::named_sync(1 + wg, kWg);
+}
+
+__device__ __forceinline__ void staging_ready(int wg) {
+  hopper::fence_async_shared();
+  hopper::named_sync(1 + wg, kWg);
 }
 
 // Descriptor of the k16 step kk of a K-major operand: rows from `row` of a

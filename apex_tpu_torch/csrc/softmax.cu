@@ -18,21 +18,28 @@
 //
 // Bound on this card: bytes. A few operations per element (a multiply, a
 // max, an exp, an add, a divide) against 4-6 bytes moved per element in
-// bf16. Design: one CTA per row, threads striding over the row with
-// 16-byte loads (4 fp32 or 8 bf16/fp16 elements a thread) where the row
-// starts 16-byte aligned (sk * element size % 16 == 0), scalar loads
-// otherwise, so any sq, sk and any row count run with no padding. Two
-// routes, chosen by the caller from sk:
-//   resident (sk <= RESIDENT_MAX_COLS in ops/softmax.py): the row is staged
-//     once in shared memory as fp32 (the forward the masked scores, the
-//     backward g and y), so device memory is read once and written once;
-//     each thread only touches the elements it loaded;
-//   two-pass (longer rows, up to any length): the forward keeps a
-//     per-thread online (max, sum of exp) merged over the block, then
-//     reads the row again to write y; the backward sums g * y, then reads
-//     g and y again to write dx. The second read comes mostly from L2.
-// The row max, sum and dot product are merged over the block with warp
-// shuffles and one shared-memory exchange.
+// bf16. Design: 16-byte loads (4 fp32 or 8 bf16/fp16 elements a thread)
+// where the row starts 16-byte aligned (sk * element size % 16 == 0),
+// scalar loads otherwise, so any sq, sk and any row count run with no
+// padding. Three routes, chosen by the caller from sk and the alignment
+// (softmax_route in ops/softmax.py):
+//   warp (the forward, aligned rows of sk <= WARP_MAX_COLS): one warp per
+//     row, the row held in registers (sk / 32 values a lane), several rows
+//     a CTA; no shared memory, no block barrier, shuffles for the max and
+//     the sum; x is not read where a whole 16-byte vector is masked or
+//     above the diagonal;
+//   resident (the other rows up to RESIDENT_MAX_COLS; every backward row
+//     up to it), one CTA per row, threads striding over it: the row is
+//     staged once in shared memory as fp32 (the forward the masked scores,
+//     the backward g and y), so device memory is read once and written
+//     once; each thread only touches the elements it loaded;
+//   two-pass (longer rows, up to any length), one CTA per row: the forward
+//     keeps a per-thread online (max, sum of exp) merged over the block,
+//     then reads the row again to write y; the backward sums g * y, then
+//     reads g and y again to write dx. The second read comes mostly from
+//     L2.
+// On the CTA routes the row max, sum and dot product are merged over the
+// block with warp shuffles and one shared-memory exchange.
 
 #include <cuda_fp16.h>
 #include <float.h>
@@ -45,7 +52,10 @@ namespace {
 constexpr float kFill = -10000.f;  // the reference's _MASK_FILL
 constexpr int kResidentThreads = 256;
 constexpr int kTwoPassThreads = 1024;
+constexpr int kWarpRows = 4;         // rows (warps) a CTA of the warp route
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kF16 = 2;  // DType code of fp16, this kernel pair's own
+enum Route : int { kResident = 0, kTwoPass = 1, kWarp = 2 };
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block on an H100
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -224,10 +234,9 @@ struct Row {
 
 template <typename T>
 __device__ __forceinline__ Row<T> row_of(const T* x, const uint8_t* mask,
-                                         int h, int sq, int sk,
+                                         long long row, int h, int sq, int sk,
                                          long long mask_b, long long mask_h,
                                          int causal) {
-  const long long row = blockIdx.x;
   const int q = (int)(row % sq);
   const long long bh = row / sq;
   Row<T> r;
@@ -272,6 +281,76 @@ __device__ __forceinline__ float score(const Row<T>& r, int k, float scale) {
   return load_f32(r.x + k) * scale;
 }
 
+// The warp route: one warp per row, the row in registers (V 16-byte
+// vectors a lane, vector i * 32 + lane; rows of at most 32 V N elements,
+// sk % N == 0, 16-byte aligned), kWarpRows rows a CTA. No shared memory and
+// no block barrier: the max and the sum are warp shuffles. The mask words
+// of all the lane's vectors are loaded first, then x only where some
+// element of a vector can change y (visible and not masked); y is written
+// with 16-byte stores. exp(v - m) is exp2((v - m) log2 e): a fully masked
+// row has v - m = 0 everywhere, so it stays uniform at 1 / sk.
+template <typename T, int V>
+__global__ void __launch_bounds__(kWarpRows * 32)
+    softmax_fwd_warp(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                     T* __restrict__ y, long long rows, int h, int sq, int sk,
+                     long long mask_b, long long mask_h, float scale,
+                     int causal) {
+  constexpr int N = Vec<T>::N;
+  const long long row =
+      (long long)blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const Row<T> r = row_of(x, mask, row, h, sq, sk, mask_b, mask_h, causal);
+  bool mk[V][N];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k0 = (i * 32 + lane) * N;
+    if (r.mask && k0 < r.lim) {
+      load_mask<N>(r.mask + k0, mk[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) mk[i][j] = false;
+    }
+  }
+  float v[V][N];
+  float m = -FLT_MAX;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k0 = (i * 32 + lane) * N;
+    bool live = k0 < r.lim;
+#pragma unroll
+    for (int j = 0; j < N; ++j) live = live && mk[i][j];
+    live = k0 < r.lim && !live;  // some element visible and unmasked
+    if (live) Vec<T>::load(r.x + k0, v[i]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      v[i][j] = live && !mk[i][j] && k0 + j < r.lim ? v[i][j] * scale : kFill;
+      if (k0 < sk) m = fmaxf(m, v[i][j]);
+    }
+  }
+  m = warp_max(m);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    if ((i * 32 + lane) * N >= sk) continue;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      v[i][j] = exp2f((v[i][j] - m) * kLog2e);
+      sum += v[i][j];
+    }
+  }
+  const float inv = 1.f / warp_sum(sum);
+  T* yr = y + row * sk;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k0 = (i * 32 + lane) * N;
+    if (k0 >= sk) continue;
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[i][j] *= inv;
+    Vec<T>::store(yr + k0, v[i]);
+  }
+}
+
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kResidentThreads)
     softmax_fwd_resident(const T* __restrict__ x,
@@ -280,7 +359,8 @@ __global__ void __launch_bounds__(kResidentThreads)
                          long long mask_h, float scale, int causal) {
   extern __shared__ float buf[];  // the row's masked scores, then exp
   __shared__ float red[33];
-  const Row<T> r = row_of(x, mask, h, sq, sk, mask_b, mask_h, causal);
+  const Row<T> r =
+      row_of(x, mask, blockIdx.x, h, sq, sk, mask_b, mask_h, causal);
   T* yr = y + (long long)blockIdx.x * sk;
   float m = -FLT_MAX;
   constexpr int N = Vec<T>::N;
@@ -337,7 +417,8 @@ __global__ void __launch_bounds__(kTwoPassThreads)
                          int h, int sq, int sk, long long mask_b,
                          long long mask_h, float scale, int causal) {
   __shared__ float red_m[32], red_s[32];
-  const Row<T> r = row_of(x, mask, h, sq, sk, mask_b, mask_h, causal);
+  const Row<T> r =
+      row_of(x, mask, blockIdx.x, h, sq, sk, mask_b, mask_h, causal);
   T* yr = y + (long long)blockIdx.x * sk;
   constexpr int N = Vec<T>::N;
   const int n = VEC ? sk / N : sk;
@@ -464,10 +545,39 @@ inline int resident_threads(int units) {
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// The warp route's kernel for rows of sk elements: the fewest 16-byte
+// vectors a lane (a power of two, at most kWarpMaxVecs) that hold the row.
+template <typename T>
+int launch_fwd_warp(const T* x, const uint8_t* mask, T* y, long long rows,
+                    int h, int sq, int sk, long long mask_b, long long mask_h,
+                    float scale, int causal, cudaStream_t s) {
+  constexpr int N = Vec<T>::N;
+  const long long blocks = (rows + kWarpRows - 1) / kWarpRows;
+  const dim3 grid((unsigned)blocks), block(kWarpRows * 32);
+  int vecs = 1;
+  while (vecs * 32 * N < sk) vecs *= 2;
+#define APEX_SOFTMAX_WARP(VV)                                            \
+  case VV:                                                               \
+    softmax_fwd_warp<T, VV><<<grid, block, 0, s>>>(                      \
+        x, mask, y, rows, h, sq, sk, mask_b, mask_h, scale, causal);     \
+    break;
+  switch (vecs) {
+    APEX_SOFTMAX_WARP(1)
+    APEX_SOFTMAX_WARP(2)
+    APEX_SOFTMAX_WARP(4)
+    APEX_SOFTMAX_WARP(8)
+    APEX_SOFTMAX_WARP(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef APEX_SOFTMAX_WARP
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_fwd(const void* x, const void* mask, void* y, long long rows, int h,
                int sq, int sk, int mask_heads, float scale, int causal,
-               int two_pass, cudaStream_t s) {
+               int route, cudaStream_t s) {
   constexpr int N = Vec<T>::N;
   const bool vec = (sk * (int)sizeof(T)) % 16 == 0 && aligned16(x) &&
                    aligned16(y) && (!mask || aligned16(mask));
@@ -476,7 +586,12 @@ int launch_fwd(const void* x, const void* mask, void* y, long long rows, int h,
   const long long mask_b = (long long)mask_heads * plane;
   const uint8_t* mk = (const uint8_t*)mask;
   const dim3 grid((unsigned)rows);
-  if (two_pass) {
+  if (route == kWarp) {
+    if (!vec) return (int)cudaErrorInvalidValue;
+    return launch_fwd_warp<T>((const T*)x, mk, (T*)y, rows, h, sq, sk,
+                              mask_b, mask_h, scale, causal, s);
+  }
+  if (route == kTwoPass) {
     if (vec)
       softmax_fwd_two_pass<T, true><<<grid, kTwoPassThreads, 0, s>>>(
           (const T*)x, mk, (T*)y, h, sq, sk, mask_b, mask_h, scale, causal);
@@ -540,26 +655,28 @@ using namespace apex_torch;
 
 // x, y: contiguous (b, h, sq, sk) of one dtype, rows = b * h * sq; mask:
 // null (mask_heads 0) or contiguous bool (b, mask_heads, sq, sk) with
-// mask_heads 1 or h; two_pass: the route (0: resident, sk * 4 bytes of
-// shared memory a CTA).
+// mask_heads 1 or h; route: 0 resident (sk * 4 bytes of shared memory a
+// CTA), 1 two-pass, 2 warp (16-byte aligned rows of at most 16 vectors a
+// lane: 2048 fp32 or 4096 bf16/fp16 elements).
 extern "C" int apex_softmax_fwd(const void* x, const void* mask, void* y,
                                 long long rows, int h, int sq, int sk,
                                 int mask_heads, float scale, int causal,
-                                int two_pass, int dtype, void* stream) {
+                                int route, int dtype, void* stream) {
   if (rows <= 0 || h <= 0 || sq <= 0 || sk <= 0 || rows > 0x7fffffffLL ||
+      route < kResident || route > kWarp ||
       (mask != nullptr) != (mask_heads > 0) ||
       (mask && mask_heads != 1 && mask_heads != h))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_fwd<float>(x, mask, y, rows, h, sq, sk, mask_heads, scale,
-                             causal, two_pass, s);
+                             causal, route, s);
   if (dtype == kBF16)
     return launch_fwd<__nv_bfloat16>(x, mask, y, rows, h, sq, sk, mask_heads,
-                                     scale, causal, two_pass, s);
+                                     scale, causal, route, s);
   if (dtype == kF16)
     return launch_fwd<__half>(x, mask, y, rows, h, sq, sk, mask_heads, scale,
-                              causal, two_pass, s);
+                              causal, route, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,8 +7,11 @@ tensors :func:`flash_attention` goes through :class:`FlashAttention`, a
 forward is always followed by the streamed backward.
 
 - Resident (``stream=False``): the forward launches
-  ``csrc/flash_attention.cu`` (replaces ``_fwd_kernel``) and saves q, k, v,
-  o and the fp32 lse; the backward computes ``delta = rowsum(dO * O)`` in
+  ``csrc/flash_attention.cu`` (replaces ``_fwd_kernel``; in bf16 a wgmma
+  kernel fed by TMA, one CTA per query tile over its whole band of key
+  tiles, :func:`_res_fwd_tiles` / :func:`_res_fwd_bands`, persistent where
+  :data:`RES_FWD_PERSISTENT`; in fp32 an FMA kernel) and saves q, k, v, o
+  and the fp32 lse; the backward computes ``delta = rowsum(dO * O)`` in
   fp32 (``_flash_bwd``, ``:1210``) and launches the two kernels of
   ``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``):
   in bf16 wgmma kernels fed by TMA, one CTA per outer tile over its whole
@@ -101,6 +104,23 @@ BWD_SPLIT_TILES = 128
 #: rows both ways, one CTA per item.
 RES_BWD_DQ_INNER_TILE = 128
 RES_BWD_PERSISTENT = True
+#: the resident forward in bf16 (fwd_resident_wgmma in
+#: csrc/flash_attention.cu): a CTA keeps RES_FWD_OUTER_TILE queries (two
+#: consumer warpgroups) and streams every key tile of RES_FWD_INNER_TILE rows
+#: its causal band holds, with no split (:func:`_res_fwd_bands`). Where
+#: those items would be fewer than the card's SMs (the serving prefill at
+#: 1024 tokens: 128 items on 132 SMs), items of RES_FWD_FEW_ITEMS_TILES
+#: (64 queries: one consumer warpgroup, two CTAs an SM; 64-row key tiles);
+#: above head_dim 64, 128 queries over 64-row key tiles
+#: (:func:`_res_fwd_tiles`).
+#: RES_FWD_PERSISTENT launches as many CTAs as fit on the card, walking the
+#: (query tile, head) items longest band first (:func:`_res_fwd_items`),
+#: else one CTA per item in that order. All chosen on the card (PERF.md).
+#: The fp32 kernel keeps STREAM_TILE rows both ways, one CTA per item.
+RES_FWD_OUTER_TILE = 128
+RES_FWD_INNER_TILE = 128
+RES_FWD_FEW_ITEMS_TILES: Optional[Tuple[int, int]] = (64, 64)
+RES_FWD_PERSISTENT = True
 
 
 def _dense_pos_masks(s, q_pos, k_pos, causal, window, neg=NEG_INF):
@@ -170,31 +190,62 @@ def _fwd_args(q, k, v, name):
     return q, k, v, (b, h, sq, sk, d)
 
 
+def _res_fwd_tiles(sq: int, bh: int, d: int,
+                   sms: int) -> Tuple[int, int]:
+    """(query rows of an item, key rows of a tile) of the resident bf16
+    forward over ``bh`` heads of ``sq`` queries at the head_dim ``d`` the
+    kernel sees, on a card of ``sms`` SMs: RES_FWD_OUTER_TILE /
+    RES_FWD_INNER_TILE, or RES_FWD_FEW_ITEMS_TILES where those items would
+    be fewer than the SMs; above d = 64 always 128 / 64 (one warpgroup's
+    registers and 128-row tiles of 128 columns with the output staging
+    overflow)."""
+    if d > 64:
+        return 128, 64
+    if RES_FWD_FEW_ITEMS_TILES and bh * _cdiv(sq, RES_FWD_OUTER_TILE) < sms:
+        return RES_FWD_FEW_ITEMS_TILES
+    return RES_FWD_OUTER_TILE, RES_FWD_INNER_TILE
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = False,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA tensors: ``(o, lse)``, o
-    ``(b, h, sq, d)`` in q's dtype and lse ``(b, h, sq)`` fp32. Counts its
-    launches in ``flash_attention_fwd.launches``."""
+    ``(b, h, sq, d)`` in q's dtype and lse ``(b, h, sq)`` fp32. bf16 takes
+    the wgmma kernel (operands TMA can read, :func:`_tma_operands`; the
+    RES_FWD_* tiles and schedule), which writes each row once (two calls
+    give the same bits); fp32 the FMA kernel (STREAM_TILE both ways).
+    Counts its launches in ``flash_attention_fwd.launches``."""
     q, k, v, (b, h, sq, sk, d) = _fwd_args(q, k, v, "flash_attention_fwd")
     scale = (d ** -0.5) if scale is None else float(scale)
-    o = torch.empty((b, h, sq, d), device=q.device, dtype=q.dtype)
+    dk_ = d
+    if q.dtype == torch.bfloat16:
+        (q, k, v), dk_ = _tma_operands([q, k, v])
+        tiles = (*_res_fwd_tiles(sq, b * h, dk_, _sm_count(q.get_device())),
+                 int(RES_FWD_PERSISTENT))
+    else:
+        tiles = (STREAM_TILE, STREAM_TILE, 0)
+    o = torch.empty((b, h, sq, dk_), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     if o.numel() == 0:
-        return o, lse
+        return o[..., :d], lse
     if sk == 0:
         raise ValueError("flash_attention needs at least one key")
     err = build.load().apex_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, h, sq, sk, d, q.stride(0), q.stride(1), q.stride(2),
+        b, h, sq, sk, dk_, q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        scale, int(causal), build.DTYPES[q.dtype],
+        scale, int(causal), *tiles, build.DTYPES[q.dtype],
         build.current_stream(q.get_device()))
     build.check(err, "apex_flash_fwd")
     flash_attention_fwd.launches += 1
-    return o, lse
+    return (o if dk_ == d else o[..., :d].contiguous()), lse
 
 
 flash_attention_fwd.launches = 0
@@ -489,6 +540,35 @@ def _res_bwd_bands(sq: int, sk: int, causal: bool, inner_is_k: bool,
                  for t in range(_cdiv(sk, o)))
 
 
+def _res_fwd_bands(sq: int, sk: int, causal: bool,
+                   outer: Optional[int] = None,
+                   inner: Optional[int] = None) -> Tuple[Tuple[int, int],
+                                                         ...]:
+    """The resident forward's bands, one piece each: per query tile of
+    ``outer`` rows (RES_FWD_OUTER_TILE) the ``[lo, hi)`` of the
+    ``inner``-row key tiles (RES_FWD_INNER_TILE; the tiles of a launch:
+    :func:`_res_fwd_tiles`) its CTA streams -- the causal limit, no window
+    (``k_tiles`` in ``csrc/flash_bwd_wgmma.cuh``)."""
+    o = RES_FWD_OUTER_TILE if outer is None else outer
+    i = RES_FWD_INNER_TILE if inner is None else inner
+    nk = _cdiv(sk, i)
+    return tuple(_window_k_range(t, nk, causal, None, o, i)
+                 for t in range(_cdiv(sq, o)))
+
+
+def _res_fwd_items(sq: int, bh: int,
+                   outer: Optional[int] = None) -> Tuple[Tuple[int, int],
+                                                         ...]:
+    """The resident forward's items in launch order, ``(query tile, b*h
+    index)``: item w is query tile ``n_outer - 1 - w // bh`` of head
+    ``w % bh``, so under causal the longest bands go first; a persistent
+    CTA c takes items c, c + grid, ... (``fwd_resident_wgmma``)."""
+    o = RES_FWD_OUTER_TILE if outer is None else outer
+    n_outer = _cdiv(sq, o)
+    return tuple((n_outer - 1 - w // bh, w % bh)
+                 for w in range(n_outer * bh))
+
+
 def _tma_ok(t: torch.Tensor) -> bool:
     """Whether TMA reads ``t`` (b, h, s, d) bf16 as it is: d a multiple of 8
     (the kernels add pairs of columns), a 16-byte-aligned base and every
@@ -508,8 +588,8 @@ def _pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
 
 
 def _tma_operands(ts):
-    """The operands of a bf16 wgmma kernel (the streamed ones and the
-    resident backward: q, k, v, and dO for a backward) as the kernel reads
+    """The operands of a bf16 wgmma kernel (every bf16 flash kernel: q, k,
+    v, and dO for a backward) as the kernel reads
     them, and their head_dim: as they are where TMA takes them all, else
     each one TMA refuses (and all of them when d is not a multiple of 8)
     as a contiguous copy with d zero-padded to a multiple of 8. Padded

@@ -20,10 +20,12 @@ or raise; on CPU tensors they take the plain versions
 reference (``_xla_softmax``): ordinary autograd through the masked fill
 (``jnp.where`` there), so a fully masked row's gradient is exactly 0.
 
-The kernels take any shape and fp32, bf16 or fp16 scores. Rows of at most
-:data:`RESIDENT_MAX_COLS` elements are staged once in shared memory; longer
-rows (the reference holds about 64K elements in VMEM) take a two-pass route
-(:func:`softmax_route`).
+The kernels take any shape and fp32, bf16 or fp16 scores. The forward
+holds rows of at most :data:`WARP_MAX_COLS` elements that start on 16
+bytes in one warp's registers; other rows of at most
+:data:`RESIDENT_MAX_COLS` elements (and every backward row up to it) are
+staged once in shared memory by a CTA; longer rows (the reference holds
+about 64K elements in VMEM) take a two-pass route (:func:`softmax_route`).
 """
 
 from __future__ import annotations
@@ -43,14 +45,29 @@ MASK_FILL = -10000.0
 #: passes over the device copy
 RESIDENT_MAX_COLS = 8192
 
+#: the forward holds a row in one warp's registers (sk / 32 values a lane,
+#: several rows a CTA) up to this many elements, where the row starts on 16
+#: bytes; chosen on the card (PERF.md)
+WARP_MAX_COLS = 2048
+
 #: element-type codes of the softmax entry points; fp16 is this kernel
 #: pair's alone, so it is not in ``build.DTYPES``
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def softmax_route(sk: int) -> str:
-    """``"resident"`` (the row staged in shared memory, read once) or
-    ``"two_pass"`` (an online max/sum pass, then a pass that writes)."""
+#: route codes of ``apex_softmax_fwd``
+ROUTES = {"resident": 0, "two_pass": 1, "warp": 2}
+
+
+def softmax_route(sk: int, itemsize: int = 2, aligned: bool = True) -> str:
+    """The forward's route for rows of ``sk`` elements of ``itemsize``
+    bytes: ``"warp"`` (a row in one warp's registers: sk <= WARP_MAX_COLS,
+    ``sk * itemsize`` a multiple of 16 bytes and the tensors ``aligned`` to
+    16), ``"resident"`` (the row staged in shared memory by a CTA, read
+    once) or ``"two_pass"`` (an online max/sum pass, then a pass that
+    writes). The backward takes the resident or two-pass route alike."""
+    if sk <= WARP_MAX_COLS and aligned and sk * itemsize % 16 == 0:
+        return "warp"
     return "resident" if sk <= RESIDENT_MAX_COLS else "two_pass"
 
 
@@ -134,10 +151,13 @@ def softmax_fwd(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
         mask = mask.bool().contiguous()
     y = torch.empty_like(x)
     if x.numel():
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, y, mask)
+                      if t is not None)
+        route = softmax_route(sk, x.element_size(), aligned)
         err = build.load().apex_softmax_fwd(
             x.data_ptr(), None if mask is None else mask.data_ptr(),
             y.data_ptr(), b * h * sq, h, sq, sk, heads, float(scale),
-            int(bool(causal)), int(softmax_route(sk) == "two_pass"), dtype,
+            int(bool(causal)), ROUTES[route], dtype,
             build.current_stream(x.get_device()))
         build.check(err, "apex_softmax_fwd")
         softmax_fwd.launches += 1
@@ -163,7 +183,7 @@ def softmax_bwd(g: torch.Tensor, y: torch.Tensor,
     if y.numel():
         err = build.load().apex_softmax_bwd(
             g.data_ptr(), y.data_ptr(), dx.data_ptr(), y.numel() // sk, sk,
-            float(scale), int(softmax_route(sk) == "two_pass"), dtype,
+            float(scale), int(sk > RESIDENT_MAX_COLS), dtype,
             build.current_stream(y.get_device()))
         build.check(err, "apex_softmax_bwd")
         softmax_bwd.launches += 1

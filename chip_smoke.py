@@ -18,17 +18,20 @@ Seven phases; any failure raises and exits non-zero:
    shapes, a per-head mask, unaligned rows, fp16 and rows of 65536 and
    100003 elements on the two-pass route) against its plain PyTorch
    version on the card, at the main paths' shapes in bf16 and fp32 plus
-   edge cases, each error beside its stated tolerance (the flash backward
-   kernels, resident and streamed, also each row's own error, a planted
-   fault the row check must catch, and the resident pair's bits the same
-   from call to call); then device times
+   edge cases, each error beside its stated tolerance (the flash kernels,
+   resident and streamed, also each row's own error and the forwards' lse,
+   a planted fault the row check must catch, and the resident kernels'
+   bits the same from call to call); then device times
    by CUDA-graph replay between CUDA events (kernel, plain version, one
    PyTorch library call as yardstick where one computes the same function;
-   the resident flash kernels beside the streamed ones at 1024 (batch 8),
-   4096 and 8192 tokens; the key tile and split length of the streamed
+   the resident flash kernels beside the streamed ones at 1024 (batch 1
+   and 8) and, forward + dQ + dK/dV, at 2048-16384 tokens, the numbers
+   behind STREAM_MIN_SEQ; the key tile and split length of the streamed
    bf16 forward and the split length of its backward against the values
-   tried, and the resident backward's schedule and dQ inner tile against
-   the values tried) and the least time the card could take.
+   tried, the resident forward's schedule and tiles and the resident
+   backward's schedule and dQ inner tile against the values tried, and the
+   softmax forward's warp route against its CTA route at 1024 and 2048
+   columns) and the least time the card could take.
 3. **Serving**: fp32 gates on a small model (the monolithic engine, then
    chunked prefill, the prefix cache, speculative decoding with a
    self-draft and a 1-layer draft, and all three: every token against the
@@ -308,87 +311,210 @@ def causal_pairs(sq, sk):
 
 
 def check_flash_attention(torch, ops, dev):
+    """The resident forward (``flash_attention_fwd``, which
+    ``flash_attention`` takes below STREAM_MIN_SEQ) against
+    ``mha_reference`` / ``_lse_reference`` on the
+    same inputs: o and lse, each by its share of max |ref| and by row
+    (:func:`row_err`). o: 2e-2 in bf16 (P rounded to bf16 as an mma
+    operand, then o) and 5e-5 in fp32, both as its largest absolute error
+    and as a share of max |ref|, each row within the forward limit of
+    :data:`ROW_TOL`; lse: :data:`LSE_TOL` (fp32 row statistics either
+    way). The bf16 kernel is ``fwd_resident_wgmma``; the cases take
+    it through ragged query tiles (sq = 1000, 130), sq > sk, sk > sq,
+    d = 128, d <= 32 and d = 40 (TMA zero-fills the columns past d), d = 36
+    (the wrapper's padded copy) and the strided fused-QKV view TMA reads as
+    it is. At T a tail of o rows halved must fail the row check; two calls
+    at T and at (1,2,300,77) must give the same bits. Then the tiles and the
+    schedule against the values tried (:func:`res_fwd_tuning`) and device
+    times at S and T beside the bound, the plain version, the streamed
+    forward at the same shape and SDPA."""
+    import importlib
+
     import torch.nn.functional as F
 
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(2)
+
+    def run(q, k, v, causal, label, plant=False, twice=False):
+        dt = q.dtype
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        scale = q.shape[-1] ** -0.5
+        o_ref = ops.mha_reference(q, k, v, causal=causal)
+        lse_ref = tfa._lse_reference(q, k, causal, scale)
+        check(o.dtype == dt and o.shape == q.shape and lse.shape == q.shape[:3]
+              and lse.dtype == f32, f"flash_attention {label}: dtype/shape")
+        grp = f"flash_attention_fwd {str(dt)[6:]}"
+        tol = 2e-2 if dt == bf16 else 5e-5
+        rtol = ROW_TOL[dt == bf16][0]
+        # o's absolute error is held to tol as well as its share of max|ref|
+        verdict(f"flash_attention {label} o", max_err(o, o_ref), tol,
+                group=grp)
+        parts = []
+        for name, got, ref, lim, rlim, floor in (
+                ("o", o, o_ref, tol, rtol, 1e-3),
+                ("lse", lse[..., None], lse_ref[..., None], *LSE_TOL)):
+            e, e_row = rel_err(got, ref), row_err(got, ref, floor)
+            parts.append(f"{name} {max_err(got, ref):.3g} (rel {e:.3g}, tol "
+                         f"{lim:g}; worst row {e_row:.3g}, tol {rlim:g})")
+            verdict(f"flash_attention {label} {name} of max|ref|", e, lim,
+                    group=grp)
+            verdict(f"flash_attention {label} {name} row", e_row, rlim,
+                    group=grp)
+        if plant:
+            # the row measure must catch a tail of rows gone half wrong,
+            # which the share of max|ref| lets through
+            sq = q.shape[2]
+            bad = o.clone()
+            bad[:, :, sq // 2:] *= 0.5
+            planted = row_err(bad, o_ref)
+            parts.append(f"o with its last {sq - sq // 2} rows halved: row "
+                         f"{planted:.3g}, of max|ref| "
+                         f"{rel_err(bad, o_ref):.3g}")
+            verdict(f"flash_attention {label} halved o tail caught by the "
+                    f"row check", 0 if planted > rtol else 1, 0, group=grp)
+            del bad
+        if twice:
+            o2, lse2 = ops.flash_attention_fwd(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            same = torch.equal(o, o2) and torch.equal(lse, lse2)
+            parts.append(f"a second call bit-identical: {same}")
+            verdict(f"flash_attention {label} deterministic", 0 if same else 1,
+                    0, group=grp)
+        print(f"  flash_attention {label}: " + ", ".join(parts))
+        return max_err(o, o_ref)
+
     cases = [  # b, h, sq, sk, d, dtype, causal
         (1, 16, 1024, 1024, 64, bf16, True),
+        (8, 16, 1024, 1024, 64, bf16, True),
         (1, 16, 1024, 1024, 64, f32, True),
         (1, 16, 1024, 1024, 64, bf16, False),
         (2, 3, 1000, 1000, 64, f32, True),
+        (2, 3, 1000, 1000, 64, bf16, True),    # a ragged last query tile
         (2, 3, 77, 300, 64, f32, False),
         (1, 2, 300, 77, 64, f32, True),
         (2, 4, 256, 256, 128, bf16, True),
+        (1, 4, 1000, 1000, 128, bf16, True),   # d = 128, ragged
         (1, 4, 130, 130, 40, f32, True),
-        (1, 4, 130, 130, 40, bf16, True),      # head_dim padded to 64
-        (2, 2, 100, 120, 36, bf16, False),     # unaligned: scalar loads
+        (1, 4, 130, 130, 40, bf16, True),      # TMA zero-fills 40..63
+        (2, 2, 100, 120, 36, bf16, False),     # 72-byte rows: the padded copy
         (1, 2, 64, 64, 16, bf16, True),
         (1, 2, 300, 77, 64, bf16, True),       # sq > sk
-        (2, 3, 77, 300, 64, bf16, False),
+        (2, 3, 77, 300, 64, bf16, False),      # sk > sq
     ]
     main_err = None
     for b, h, sq, sk, d, dt, causal in cases:
         q = torch.randn(b, h, sq, d, device=dev, generator=gen).to(dt)
         k = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
         v = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
-        got = ops.flash_attention(q, k, v, causal=causal)
-        ref = ops.mha_reference(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = max_err(got, ref)
-        tol = 2e-2 if dt == bf16 else 5e-5
-        print(f"  flash_attention b={b} h={h} sq={sq} sk={sk} d={d} "
-              f"{str(dt)[6:]:8s} causal={causal!s:5s} max_abs_err={err:.3g} "
-              f"(tol {tol:g})")
-        check(got.dtype == dt and got.shape == q.shape,
-              f"flash_attention {(b, h, sq, sk, d, dt, causal)}: dtype/shape")
-        verdict(f"flash_attention ({b},{h},{sq},{sk},{d}) {str(dt)[6:]} "
-                f"causal={causal}", err, tol,
-                group=f"flash_attention_fwd {str(dt)[6:]}")
+        at_t = (b, sq, dt) == (8, 1024, bf16)
+        ragged = (b, h, sq, sk, dt, causal) == (1, 2, 300, 77, bf16, True)
+        err = run(q, k, v, causal, f"({b},{h},{sq},{sk},{d}) {str(dt)[6:]} "
+                  f"causal={causal}", plant=at_t, twice=at_t or ragged)
         if main_err is None:
             main_err = err
     # a fused-QKV view (strided heads) goes in without a copy
     qkv = torch.randn(1, 128, 4, 3, 64, device=dev, generator=gen).to(bf16)
     qkv = qkv.permute(0, 2, 3, 1, 4)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    err = max_err(ops.flash_attention(q, k, v, causal=True),
-                  ops.mha_reference(q, k, v, causal=True))
-    print(f"  flash_attention strided fused-QKV view max_abs_err={err:.3g}")
-    verdict("flash_attention strided fused-QKV view", err, 2e-2,
-            group="flash_attention_fwd bfloat16")
+    check(all(tfa._tma_ok(t) for t in (q, k, v)), "the fused-QKV view is one "
+          "TMA reads as it is")
+    run(q, k, v, True, "strided fused-QKV view (1,4,128,64) bf16 causal")
+    del q, k, v, qkv
 
-    b, h, s, d = 1, 16, 1024, 64
-    q, k, v = (torch.randn(b, h, s, d, device=dev, generator=gen).to(bf16)
-               for _ in range(3))
-    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-    plain = time_ms(lambda: ops.mha_reference(q, k, v, causal=True), 5)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                          is_causal=True))
-    flops = 4 * b * h * d * causal_pairs(s, s)
-    nbytes = 4 * b * h * s * d * 2 + b * h * s * 4
-    bms, by = bound(nbytes, flops, "bfloat16")
-    print(f"  flash_attention timing (1,16,1024,64) bf16 causal: kernel "
-          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} "
-          f"ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by})")
-    b = 8
-    q, k, v = (torch.randn(b, h, s, d, device=dev, generator=gen).to(bf16)
-               for _ in range(3))
-    ms_t = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-    plain_t = time_ms(lambda: ops.mha_reference(q, k, v, causal=True), 2, 2)
-    lib_t = time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                            is_causal=True))
-    flops_t = 4 * b * h * d * causal_pairs(s, s)
-    bms_t, by_t = bound(4 * b * h * s * d * 2 + b * h * s * 4, flops_t,
-                        "bfloat16")
-    print(f"  flash_attention timing at the training shape (8,16,1024,64) "
-          f"bf16 causal: kernel {ms_t:.4f} ms ({flops_t / ms_t / 1e9:.1f} "
-          f"TFLOP/s), plain {plain_t:.4f} ms, SDPA {lib_t:.4f} ms, bound "
-          f"{bms_t:.4f} ms ({by_t})")
+    out = {}
+    for label, b in (("S", 1), ("T", 8)):
+        h, s, d = 16, 1024, 64
+        q, k, v = (torch.randn(b, h, s, d, device=dev, generator=gen).to(bf16)
+                   for _ in range(3))
+        if label == "T":
+            tuning = res_fwd_tuning(torch, ops, tfa, (q, k, v))
+        t = dict(ms=time_ms(lambda: ops.flash_attention_fwd(q, k, v,
+                                                            causal=True)))
+        t["plain_ms"] = time_ms(lambda: ops.mha_reference(q, k, v,
+                                                          causal=True),
+                                *((5, 5) if b == 1 else (2, 2)))
+        t["stream_ms"] = time_ms(lambda: ops.flash_attention_fwd_stream(
+            q, k, v, causal=True))
+        t["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        flops = 4 * b * h * d * causal_pairs(s, s)
+        t["bound_ms"], t["bound_by"] = bound(
+            4 * b * h * s * d * 2 + b * h * s * 4, flops, "bfloat16")
+        print(f"  flash_attention timing {label} ({b},{h},{s},{d}) bf16 "
+              f"causal: kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.1f} "
+              f"TFLOP/s), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"plain {t['plain_ms']:.4f} ms, the streamed forward "
+              f"{t['stream_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms; "
+              f"{nvidia_smi()}")
+        out[label] = t
+        del q, k, v
+    torch.cuda.empty_cache()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    names = []
+    for label, b in (("S", 1), ("T", 8)):
+        bq, bk = tfa._res_fwd_tiles(1024, b * 16, 64, sms)
+        names.append(f"{label}: fwd_resident_wgmma<64, {bk}, {bq // 64}>")
+    sched = "persistent" if tfa.RES_FWD_PERSISTENT else "plain grid"
     return dict(name="flash_attention_fwd", route="cuda",
+                kernel=f"{'; '.join(names)} (wgmma fed by a TMA ring, one "
+                       f"CTA per whole band, {sched}, o stored once by TMA)",
                 source="apex_tpu_torch/csrc/flash_attention.cu",
                 replaces="apex_tpu/ops/flash_attention.py:251",
-                max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib)
+                max_abs_err=main_err, by_shape=out, res_fwd_tuning=tuning,
+                **{k: out["S"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")})
+
+
+def res_fwd_tuning(torch, ops, tfa, args, inner=(64, 128), outer=(128, 64)):
+    """The schedule and the tiles of the bf16 resident forward
+    (RES_FWD_PERSISTENT, RES_FWD_OUTER_TILE / RES_FWD_INNER_TILE and
+    RES_FWD_FEW_ITEMS_TILES where those items are fewer than the SMs)
+    against the values tried: device times at T (``args``) and at S (its
+    first batch row) for the plain grid and the persistent one, query tiles
+    of 128 and 64 rows and key tiles of 64 and 128, on one line, with the
+    tiles the rule takes at each; returned for the ``kernels`` line
+    (``res_fwd_tuning``)."""
+    chosen = (tfa.RES_FWD_PERSISTENT, tfa.RES_FWD_INNER_TILE,
+              tfa.RES_FWD_OUTER_TILE, tfa.RES_FWD_FEW_ITEMS_TILES)
+    shapes = {"T": args, "S": tuple(t[:1].contiguous() for t in args)}
+    props = torch.cuda.get_device_properties(args[0].device)
+    sms = props.multi_processor_count
+    picks = {label: tfa._res_fwd_tiles(q.shape[2], q.shape[0] * q.shape[1],
+                                       q.shape[3], sms)
+             for label, (q, _, _) in shapes.items()}
+    times = {}
+    tfa.RES_FWD_FEW_ITEMS_TILES = None
+    try:
+        for label, (q, k, v) in shapes.items():
+            t = times[label] = {}
+            for persistent in (False, True):
+                tfa.RES_FWD_PERSISTENT = persistent
+                for bo in outer:
+                    tfa.RES_FWD_OUTER_TILE = bo
+                    for bn in inner:
+                        tfa.RES_FWD_INNER_TILE = bn
+                        key = (f"{'persistent' if persistent else 'grid'} "
+                               f"q{bo} k{bn}")
+                        t[key] = time_ms(lambda: ops.flash_attention_fwd(
+                            q, k, v, causal=True))
+    finally:
+        (tfa.RES_FWD_PERSISTENT, tfa.RES_FWD_INNER_TILE,
+         tfa.RES_FWD_OUTER_TILE, tfa.RES_FWD_FEW_ITEMS_TILES) = chosen
+    taken = ", ".join(f"{label} q{bq} k{bk}"
+                      for label, (bq, bk) in picks.items())
+    print(f"  RES_FWD_PERSISTENT = {chosen[0]}, RES_FWD_OUTER_TILE = "
+          f"{chosen[2]}, RES_FWD_INNER_TILE = {chosen[1]}, "
+          f"RES_FWD_FEW_ITEMS_TILES = {chosen[3]} (chosen; taken: {taken}, "
+          f"{sms} SMs); ms by schedule, query tile and key tile: "
+          + "; ".join(f"{label}: " + ", ".join(f"{k} {v:.4f}"
+                                               for k, v in t.items())
+                      for label, t in times.items()))
+    return {"chosen": {"persistent": chosen[0], "outer_tile": chosen[2],
+                       "inner_tile": chosen[1],
+                       "few_items_tiles": chosen[3]},
+            "taken": {k: list(v) for k, v in picks.items()}, "ms": times}
 
 
 def rel_err(got, ref):
@@ -747,6 +873,12 @@ def stream_bounds(b, h, sq, sk, d, causal, window):
 # H100 (0.0062 forward, 0.0075 backward; 0.0055 at the path shapes), and
 # 5x the worst fp32 reading (1.9e-6); a halved tail of rows reads 0.5
 ROW_TOL = {True: (1.5e-2, 1.5e-2), False: (1e-5, 1e-5)}
+# lse limits of the resident forward, bf16 and fp32 alike (the lse is fp32
+# statistics of fp32 scores either way): (share of max |ref|, worst row of
+# row_err over single elements, floor): each element's error against
+# max(|ref|, 0.1 of its head's largest), so an lse near 0 is held to its
+# head's scale and not to its rounding noise
+LSE_TOL = (1e-5, 1e-4, 0.1)
 
 
 def check_flash_attention_stream(torch, ops, dev):
@@ -769,12 +901,12 @@ def check_flash_attention_stream(torch, ops, dev):
     TMA refuses (the wrappers' padded copies), and, with FWD_SPLIT_TILES
     cut for the case, the forward's partials and merge beside dead rows
     and query tiles with an empty band. Then device times at the
-    two path shapes beside their bounds, the plain versions, the resident
-    kernels (unwindowed shapes) and SDPA (causal, or with the boolean band
-    mask under the window), resident against streamed at 4096 and 8192
-    (the numbers behind STREAM_MIN_SEQ) and at T = (8,16,1024,64), and the
-    forward's key tile and split length and the backward's split length
-    against the values tried."""
+    two path shapes, at 4096 and at T = (8,16,1024,64) beside their bounds,
+    the plain versions and SDPA (causal, or with the boolean band mask
+    under the window), the forward's key tile and split length and the
+    backward's split length against the values tried, and resident against
+    streamed at 2048-16384 tokens (:func:`stream_min_seq_basis`, the
+    numbers behind STREAM_MIN_SEQ)."""
     import importlib
 
     import torch.nn.functional as F
@@ -977,26 +1109,11 @@ def check_flash_attention_stream(torch, ops, dev):
             so, (ql, kl, vl), do, retain_graph=True), 10, stream=side)
         out["dq"]["library_ms"] = out["dkv"]["library_ms"] = lib_bwd
         del so, ql, kl, vl, sdpa_kw
-        if window is None:
-            # the resident kernels beside the streamed ones
-            ro, rlse = ops.flash_attention_fwd(q, k, v, causal=True)
-            rdelta = (ro.float() * do.float()).sum(-1)
-            rkw = dict(causal=True, scale=scale)
-            out["fwd"]["resident_ms"] = time_ms(
-                lambda: ops.flash_attention_fwd(q, k, v, causal=True), 10)
-            out["dq"]["resident_ms"] = time_ms(
-                lambda: ops.flash_attention_bwd_dq(q, k, v, do, rlse, rdelta,
-                                                   **rkw), 10)
-            out["dkv"]["resident_ms"] = time_ms(
-                lambda: ops.flash_attention_bwd_dkv(q, k, v, do, rlse,
-                                                    rdelta, **rkw), 10)
         label = f"({b},{h},{s},{d}) bf16 causal" + (
             f" window {window}" if window else "")
         flops = {"fwd": 4, "dq": 6, "dkv": 8}
         for key in ("fwd", "dq", "dkv"):
             t = out[key]
-            res = (f", resident {t['resident_ms']:.4f} ms"
-                   if "resident_ms" in t else "")
             lib = (f", SDPA {t['library_ms']:.4f} ms"
                    + (" with the band mask" if window else "")
                    + (" (backward: dQ+dK+dV)" if key != "fwd" else ""))
@@ -1004,7 +1121,7 @@ def check_flash_attention_stream(torch, ops, dev):
             print(f"  flash_attention_stream timing {label} {key}: kernel "
                   f"{t['ms']:.4f} ms ({rate:.1f} TFLOP/s), bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
-                  f"{t['plain_ms']:.4f} ms{res}{lib}")
+                  f"{t['plain_ms']:.4f} ms{lib}")
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
         return label, out
@@ -1013,23 +1130,9 @@ def check_flash_attention_stream(torch, ops, dev):
                     for b, s, w in ((1, 8192, None), (1, 16384, 4096),
                                     (1, 4096, None), (8, 1024, None)))
     main_label = "(1,16,8192,64) bf16 causal"
-    t = by_shape["(8,16,1024,64) bf16 causal"]
-    print(f"  streamed forward at T (8,16,1024,64) causal: "
-          f"{t['fwd']['ms']:.4f} ms, resident forward "
-          f"{t['fwd']['resident_ms']:.4f} ms, SDPA "
-          f"{t['fwd']['library_ms']:.4f} ms")
-    print(f"  streamed backward at T (8,16,1024,64) causal: dQ + dK/dV "
-          f"{t['dq']['ms'] + t['dkv']['ms']:.4f} ms, resident pair "
-          f"{t['dq']['resident_ms'] + t['dkv']['resident_ms']:.4f} ms, SDPA "
-          f"backward {t['dq']['library_ms']:.4f} ms")
     fwd_split_tuning(torch, ops, tfa, rand)
     bwd_split_tuning(torch, ops, tfa, rand)
-    for s_label in (main_label, "(1,16,4096,64) bf16 causal"):
-        t = by_shape[s_label]
-        stream_sum = sum(t[k]["ms"] for k in ("fwd", "dq", "dkv"))
-        res_sum = sum(t[k]["resident_ms"] for k in ("fwd", "dq", "dkv"))
-        print(f"  STREAM_MIN_SEQ basis {s_label}: forward + dQ + dK/dV "
-              f"streamed {stream_sum:.4f} ms, resident {res_sum:.4f} ms")
+    stream_min_seq_basis(torch, ops, tfa, rand)
     rows = []
     for key, name, line, kernel in (
             ("fwd", "flash_attention_fwd_stream", 506,
@@ -1039,8 +1142,7 @@ def check_flash_attention_stream(torch, ops, dev):
              "dq_wgmma<64> (wgmma fed by a TMA ring)"),
             ("dkv", "flash_attention_bwd_dkv_stream", 637,
              "dkv_wgmma<64> (wgmma fed by a TMA ring)")):
-        main = dict(by_shape[main_label][key])
-        main.pop("resident_ms", None)
+        main = by_shape[main_label][key]
         rows.append(dict(
             name=name, route="cuda", kernel=kernel,
             source="apex_tpu_torch/csrc/flash_attention_stream.cu",
@@ -1048,6 +1150,41 @@ def check_flash_attention_stream(torch, ops, dev):
             max_abs_err=main_err[key],
             by_shape={lab: t[key] for lab, t in by_shape.items()}, **main))
     return rows
+
+
+def stream_min_seq_basis(torch, ops, tfa, rand,
+                         lengths=(2048, 4096, 8192, 16384)):
+    """The numbers behind STREAM_MIN_SEQ: at each length (batch 1, 16 heads
+    of 64, bf16, causal, no window) the device times of the resident
+    forward, dQ and dK/dV beside the streamed ones, and their totals, one
+    line a length."""
+    for s in lengths:
+        q, k, v, do = (rand(1, 16, s, 64, dt=torch.bfloat16)
+                       for _ in range(4))
+        kw = dict(causal=True, scale=0.125)
+        t = {}
+        for route, fwd, dq, dkv in (
+                ("resident", ops.flash_attention_fwd,
+                 ops.flash_attention_bwd_dq, ops.flash_attention_bwd_dkv),
+                ("streamed", ops.flash_attention_fwd_stream,
+                 ops.flash_attention_bwd_dq_stream,
+                 ops.flash_attention_bwd_dkv_stream)):
+            o, lse = fwd(q, k, v, causal=True)
+            delta = (o.float() * do.float()).sum(-1)
+            t[route] = (
+                time_ms(lambda: fwd(q, k, v, causal=True), 10),
+                time_ms(lambda: dq(q, k, v, do, lse, delta, **kw), 10),
+                time_ms(lambda: dkv(q, k, v, do, lse, delta, **kw), 10))
+            del o, lse, delta
+        res, st = t["resident"], t["streamed"]
+        print(f"  STREAM_MIN_SEQ basis (1,16,{s},64) bf16 causal: forward + "
+              f"dQ + dK/dV resident {res[0]:.4f} + {res[1]:.4f} + "
+              f"{res[2]:.4f} = {sum(res):.4f} ms, streamed {st[0]:.4f} + "
+              f"{st[1]:.4f} + {st[2]:.4f} = {sum(st):.4f} ms (resident/"
+              f"streamed {sum(res) / sum(st):.4f}; routed "
+              f"{'streamed' if s >= tfa.STREAM_MIN_SEQ else 'resident'})")
+        del q, k, v, do
+        torch.cuda.empty_cache()
 
 
 def fwd_split_tuning(torch, ops, tfa, rand, lengths=(16, 32, 64, 128)):
@@ -1504,7 +1641,10 @@ def check_softmax(torch, ops, dev):
     the repo's score shapes: GPT-2 345M causal (8,16,1024,1024), BERT-large
     padded (8,16,512,512) with one fully masked row, the two combined, the
     root ``bench.py`` micro-bench shape, a per-head mask, unaligned rows,
-    fp16, and rows of 65536 and 100003 elements (the two-pass route).
+    fp16 (the forward's warp route where rows are aligned and at most
+    WARP_MAX_COLS long, else its CTA routes), rows of 3000 and 4096
+    elements (the resident route) and of 65536 and 100003 elements (the
+    two-pass route); each verdict names the route it held.
     Limits: fp32 max |err| 1e-6 and worst row (:func:`row_err`) 1e-5 for
     y, and for dx the larger of those and 4x the plain version's own
     distance from the same formula in float64 (dx = scale*y*(g - sum g*y)
@@ -1515,7 +1655,8 @@ def check_softmax(torch, ops, dev):
     (:data:`ROW_TOL`); a fully masked row is 1/sk within one ulp of the
     dtype. Then device times at the GPT and BERT shapes beside the plain
     versions, ``torch.softmax`` / ``torch._softmax_backward_data`` (no
-    scale, no mask: the same bytes) and the bound."""
+    scale, no mask: the same bytes) and the bound, and WARP_MAX_COLS
+    against the widths tried (:func:`warp_tuning`)."""
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     gen = torch.Generator(device=dev).manual_seed(12)
     cases = [  # label, (b, h, sq, sk), dtype, mask, causal, scale
@@ -1527,6 +1668,9 @@ def check_softmax(torch, ops, dev):
         ("unaligned", (2, 3, 300, 77), bf16, "random", False, 1.0),
         ("unaligned", (2, 3, 300, 77), f32, "random", True, 0.5),
         ("fp16", (2, 4, 128, 512), f16, None, False, 1.0),
+        # rows past WARP_MAX_COLS: a CTA a row, staged in shared memory
+        ("resident", (2, 4, 64, 4096), bf16, "padding", True, 0.125),
+        ("resident", (1, 2, 32, 3000), f32, "random", False, 1.0),
         ("long", (1, 2, 16, 65536), f32, "padding", False, 1.0),
         ("long", (1, 2, 16, 65536), bf16, "padding", False, 1.0),
         ("long odd", (1, 1, 8, 100003), bf16, None, False, 1.0),
@@ -1545,7 +1689,8 @@ def check_softmax(torch, ops, dev):
             mh = h if mkind == "heads" else 1
             mask = torch.rand(b, mh, sq, sk, device=dev, generator=gen) < 0.3
         g = torch.randn(shape, device=dev, generator=gen).to(dt)
-        route = ops.softmax_route(sk)
+        route = ops.softmax_route(sk, x.element_size())
+        bwd_route = "two_pass" if route == "two_pass" else "resident"
         y = ops.softmax_fwd(x, mask, scale, causal)
         y_ref = ops.softmax_fwd_reference(x, mask, scale, causal)
         dx = ops.softmax_bwd(g, y_ref, scale)
@@ -1577,8 +1722,9 @@ def check_softmax(torch, ops, dev):
             e_row = row_err(got, ref)
             parts.append(f"{part} {err:.3g} {unit} (limit {lim:g}), worst "
                          f"row {e_row:.3g} (limit {rlim:g})")
-            verdict(f"{name} {part}", err, lim, route, group=name)
-            verdict(f"{name} {part} row", e_row, rlim, route, group=name)
+            rt = route if part == "y" else bwd_route
+            verdict(f"{name} {part}", err, lim, rt, group=name)
+            verdict(f"{name} {part} row", e_row, rlim, rt, group=name)
         if mkind == "padding+dead":
             u = ulp(1.0 / sk, dt, torch)
             e_dead = float((y[0, 0, 7].float() - 1.0 / sk).abs().max())
@@ -1588,7 +1734,8 @@ def check_softmax(torch, ops, dev):
             verdict(f"{name} masked row = 1/sk", e_dead, u, route,
                     group=name)
         print(f"  {name} {shape} mask={mkind} causal={causal} "
-              f"scale={scale:g} [{route}]: " + ", ".join(parts))
+              f"scale={scale:g} [forward {route}, backward {bwd_route}]: "
+              + ", ".join(parts))
         if label in ("gpt", "bert"):
             inputs[label] = (x, mask, causal, scale, g, y_ref)
             main_err[label] = (max_err(y, y_ref), max_err(dx, dx_ref))
@@ -1630,10 +1777,15 @@ def check_softmax(torch, ops, dev):
               f"({fb[1]}); backward kernel {bwd:.4f} ms, plain {pbwd:.4f} "
               f"ms, torch._softmax_backward_data (no scale) {lbwd:.4f} ms, "
               f"bound {bb[0]:.4f} ms ({bb[1]})")
+    tuning = warp_tuning(torch, ops, inputs["gpt"][0], gen)
     del inputs
     torch.cuda.empty_cache()
     common = dict(route="cuda", source="apex_tpu_torch/csrc/softmax.cu")
     return [dict(common, name="softmax_fwd",
+                 kernel=f"softmax_fwd_warp (one warp per row of up to "
+                        f"WARP_MAX_COLS = {tuning['chosen']} "
+                        f"elements, in registers)",
+                 warp_tuning=tuning,
                  replaces="apex_tpu/ops/softmax.py:40",
                  max_abs_err=main_err["gpt"][0],
                  by_shape={k: v["fwd"] for k, v in timings.items()},
@@ -1643,6 +1795,37 @@ def check_softmax(torch, ops, dev):
                  max_abs_err=main_err["gpt"][1],
                  by_shape={k: v["bwd"] for k, v in timings.items()},
                  **timings["gpt"]["bwd"])]
+
+
+def warp_tuning(torch, ops, x, gen, widths=(1024, 2048)):
+    """WARP_MAX_COLS against the values tried: the forward's device time at
+    G (``x``) and at (2,16,2048,2048) bf16 causal on the warp route and on
+    the resident one (WARP_MAX_COLS patched to 0), on one line; returned
+    for the ``kernels`` line (``warp_tuning``)."""
+    import importlib
+
+    sm = importlib.import_module("apex_tpu_torch.ops.softmax")
+    chosen = sm.WARP_MAX_COLS
+    x2 = torch.randn(2, 16, 2048, 2048, device=x.device,
+                     generator=gen).to(torch.bfloat16)
+    times = {}
+    try:
+        for label, t in (("G sk=1024", x), ("(2,16,2048,2048) sk=2048", x2)):
+            times[label] = {}
+            for cap, route in ((max(widths), "warp"), (0, "resident")):
+                sm.WARP_MAX_COLS = cap
+                check(sm.softmax_route(t.shape[-1], 2) == route,
+                      f"softmax route {route} at {label}")
+                times[label][route] = time_ms(
+                    lambda: ops.softmax_fwd(t, None, 0.125, True))
+    finally:
+        sm.WARP_MAX_COLS = chosen
+    del x2
+    print(f"  WARP_MAX_COLS = {chosen} (chosen); forward ms by route (bf16 "
+          f"causal): " + "; ".join(
+              f"{label}: " + ", ".join(f"{r} {v:.4f}" for r, v in t.items())
+              for label, t in times.items()))
+    return {"chosen": chosen, "ms": times}
 
 
 # ---------------------------------------------------------------------------
@@ -2170,8 +2353,8 @@ def train_345m(torch, ops, dev):
               f"{1 - busy / wall:.3f}), the port's kernels {ours:.1f} ms = "
               f"{ours / busy:.3f} of busy; device time by kernel:")
         print_top(by_name)
-        n_f, t_f = kernel_time(by_name, "flash_fwd_kernel",
-                               "flash_fwd_mma_kernel")
+        n_f, t_f = kernel_time(by_name, "fwd_resident_wgmma",
+                               "flash_fwd_kernel")
         n_q, t_q = kernel_time(by_name, "dq_resident_wgmma")
         n_k, t_k = kernel_time(by_name, "dkv_resident_wgmma")
         print(f"  345M O2 train, profiled step: resident forward {t_f:.2f} "
@@ -2880,7 +3063,8 @@ def main():
     print_verdict()
     keys = ("name", "route", "kernel", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "by_shape", "res_bwd_tuning")
+            "bound_by", "library_ms", "by_shape", "res_fwd_tuning",
+            "res_bwd_tuning", "warp_tuning")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
     print(nvidia_smi())

@@ -328,3 +328,148 @@ def test_bf16_grads_through_the_plain_backward_match_jax(causal, shape):
         w = np.asarray(w)
         err = np.abs(t.grad.float().numpy() - w).max()
         assert err <= 1e-2 * np.abs(w).max(), err
+
+
+# ---------------------------------------------------------------------------
+# the resident forward's bands, items and operands, bf16 through its plain
+# version against the interpret-mode Pallas forward
+# ---------------------------------------------------------------------------
+
+
+def _jax_fwd_loop_limits(sq, sk, causal, blk_q, blk_k):
+    """The key-tile loop of the JAX resident forward ``_fwd_kernel`` per
+    query tile (apex_tpu/ops/flash_attention.py:304-309 with the ring
+    offsets 0): nk tiles, the causal ``lim``, then the kernel's own
+    ``_window_k_range`` with no window. ``sq``/``sk`` may be ragged: the
+    tile counts round up."""
+    from apex_tpu.ops.flash_attention import _window_k_range as jk
+
+    out = []
+    for qi in range(-(-sq // blk_q)):
+        nk = -(-sk // blk_k)
+        lo = 0
+        if causal:
+            lim = (0 - 0 + (qi + 1) * blk_q + blk_k - 1) // blk_k
+            nk = int(np.clip(lim, 0, nk))
+        lo, nk = jk(lo, nk, qi, blk_q, blk_k, 0, 0, causal, None)
+        out.append((int(lo), int(nk)))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("outer,inner", [(128, 128), (128, 64), (64, 128)])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (300, 77), (77, 300),
+                                   (1024, 1024)])
+def test_resident_forward_bands_match_the_jax_kernels_loop_limit(
+        sq, sk, outer, inner, causal):
+    """_res_fwd_bands (one piece a band: the resident forward's loop over
+    key tiles) equals the JAX _fwd_kernel's loop limit at the same tiles,
+    and every visible (query, key) pair lies in exactly one (query tile,
+    key tile of its band)."""
+    bands = tfa._res_fwd_bands(sq, sk, causal, outer, inner)
+    assert bands == _jax_fwd_loop_limits(sq, sk, causal, outer, inner)
+    q = np.arange(sq)[:, None]
+    k = np.arange(sk)[None, :]
+    visible = np.broadcast_to(k <= q, (sq, sk)) if causal else \
+        np.ones((sq, sk), bool)
+    covered = np.zeros((sq, sk), np.int32)
+    for t, (lo, hi) in enumerate(bands):
+        assert 0 <= lo and hi <= -(-sk // inner)
+        for i in range(lo, hi):
+            covered[t * outer:(t + 1) * outer, i * inner:(i + 1) * inner] += 1
+    assert np.all(covered[visible] == 1)
+    assert covered.max() <= 1
+
+
+def test_resident_forward_bands_at_the_cards_tiles():
+    """With the card's constants a query tile of RES_FWD_OUTER_TILE rows
+    streams key tiles of RES_FWD_INNER_TILE rows up to the causal limit.
+    _res_fwd_tiles takes those at the training shape T (1024 items on an
+    H100's 132 SMs), RES_FWD_FEW_ITEMS_TILES at the serving prefill S (128
+    items), and 128 queries over 64-row key tiles above d = 64."""
+    o, i = tfa.RES_FWD_OUTER_TILE, tfa.RES_FWD_INNER_TILE
+    assert tfa._res_fwd_bands(1024, 1024, True) == tuple(
+        (0, -(-(t + 1) * o // i)) for t in range(1024 // o))
+    assert tfa._res_fwd_bands(1024, 1024, False) == ((0, 1024 // i),) * (
+        1024 // o)
+    assert tfa._res_fwd_tiles(1024, 8 * 16, 64, 132) == (o, i)
+    assert tfa._res_fwd_tiles(1024, 16, 64, 132) == \
+        tuple(tfa.RES_FWD_FEW_ITEMS_TILES)
+    assert tfa._res_fwd_tiles(1024, 16, 128, 132) == (128, 64)
+    assert tfa._res_fwd_tiles(1024, 8 * 16, 128, 132) == (128, 64)
+
+
+@pytest.mark.parametrize("outer", [128, 64])
+@pytest.mark.parametrize("sq,bh", [(1024, 16), (1000, 3), (77, 2)])
+def test_resident_forward_items_cover_every_tile_longest_band_first(
+        sq, bh, outer):
+    """_res_fwd_items: every (query tile, head) exactly once, in an order
+    whose causal band lengths never grow -- so a persistent CTA c, taking
+    items c, c + grid, ..., meets its longest band first."""
+    items = tfa._res_fwd_items(sq, bh, outer)
+    n_outer = -(-sq // outer)
+    assert sorted(items) == [(t, h) for t in range(n_outer)
+                             for h in range(bh)]
+    bands = tfa._res_fwd_bands(sq, sq, True, outer, 64)
+    lengths = [bands[t][1] - bands[t][0] for t, _ in items]
+    assert lengths == sorted(lengths, reverse=True)
+    assert items[:bh] == tuple((n_outer - 1, h) for h in range(bh))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(32, 32), (16, 48), (48, 16)])
+def test_bf16_plain_forward_matches_the_jax_pallas_forward(causal, shape):
+    """bf16 q/k/v through the resident forward's plain version (what
+    FlashAttention runs on the CPU: mha_reference and its lse) against the
+    JAX _flash_fwd with _fwd_kernel in interpret mode (16-row tiles) on the
+    same rounded values: o within phase 2's bf16 limits (2e-2 of max |ref|,
+    each row within 1.5e-2), lse within 1e-5 of max |ref|."""
+    from apex_tpu.ops.flash_attention import _flash_fwd
+
+    rng = np.random.default_rng(47)
+    sq, sk = shape
+    q, k, v = (rng.normal(size=(1, 2, s, 16)).astype(np.float32)
+               for s in (sq, sk, sk))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    scale = 16 ** -0.5
+    o, lse = tfa._forward(tq, tk, tv, causal, scale, False, None)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    jo, jlse = _flash_fwd(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                            for t in (tq, tk, tv)), None, None, scale=scale,
+                          causal=causal, blk_q=16, blk_k=16)
+    ref = np.asarray(jo.astype(jnp.float32))
+    got = o.float().numpy()
+    err = np.abs(got - ref)
+    assert err.max() <= 2e-2 * np.abs(ref).max()
+    den = np.linalg.norm(ref, axis=-1)
+    den = np.maximum(den, den.max(axis=-1, keepdims=True) * 1e-3)
+    assert (np.linalg.norm(err, axis=-1) / den).max() <= 1.5e-2
+    want = np.asarray(jlse).reshape(lse.shape)
+    assert np.abs(lse.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", ["d36", "d36_strided", "stride_refused"])
+def test_resident_forward_operands_padded_copy_round_trip(case, causal):
+    """The resident forward's operand preparation (_tma_operands, as
+    flash_attention_fwd calls it) gives contiguous padded copies for d = 36
+    and for a row stride TMA refuses; the plain forward on the copies, o
+    sliced back to d, and its lse equal the plain forward on the inputs as
+    given within 1e-6 (fp32)."""
+    rng = np.random.default_rng(45)
+    d = 64 if case == "stride_refused" else 36
+    width = {"d36": 36, "d36_strided": 44, "stride_refused": 68}[case]
+    off = 3 if case == "d36_strided" else 0
+    full = [torch.from_numpy(rng.normal(size=(2, 2, n, width)).astype(
+        np.float32)) for n in (100, 120, 120)]
+    q, k, v = (t[..., off:off + d] for t in full)
+    scale = d ** -0.5
+    ops_in, dp = tfa._tma_operands([q, k, v])
+    assert dp == (40 if d == 36 else 64)
+    assert all(t.is_contiguous() and t.shape[-1] == dp for t in ops_in)
+    want_o, want_lse = tfa._forward(q, k, v, causal, scale, False, None)
+    got_o, got_lse = tfa._forward(*ops_in, causal, scale, False, None)
+    assert torch.all(got_o[..., d:] == 0)
+    np.testing.assert_allclose(got_o[..., :d].numpy(), want_o.numpy(),
+                               atol=1e-6)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-6)

@@ -193,8 +193,19 @@ def test_plain_backward_is_the_kernel_formula():
     assert ops.softmax_fwd_reference(x).dtype == torch.float16
 
 
-@pytest.mark.parametrize("sk,route", [(77, "resident"), (8192, "resident"),
-                                      (8193, "two_pass"),
-                                      (65536, "two_pass")])
-def test_route_by_row_length(sk, route):
-    assert ops.softmax_route(sk) == route
+@pytest.mark.parametrize("sk,itemsize,aligned,route", [
+    (77, 2, True, "resident"), (8192, 2, True, "resident"),
+    (8193, 2, True, "two_pass"), (65536, 2, True, "two_pass"),
+    (1024, 2, True, "warp"), (512, 2, True, "warp"), (96, 4, True, "warp"),
+    (8, 2, True, "warp"), (1000, 2, True, "warp"),
+    (1004, 2, True, "resident"), (1024, 2, False, "resident"),
+    (4096, 2, True, "resident")])
+def test_route_by_row_length(sk, itemsize, aligned, route):
+    """Rows of at most WARP_MAX_COLS elements whose bytes are a multiple of
+    16 (the tensors aligned to 16) take the warp route; unaligned rows keep
+    the CTA route with scalar loads; longer rows the resident route up to
+    RESIDENT_MAX_COLS, then the two-pass one."""
+    assert tsm.WARP_MAX_COLS >= 1024
+    assert ops.softmax_route(sk, itemsize, aligned) == route
+    if (itemsize, aligned) == (2, True):
+        assert ops.softmax_route(sk) == route
