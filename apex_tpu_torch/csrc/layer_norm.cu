@@ -1,72 +1,275 @@
 // LayerNorm / RMSNorm forward and backward for Hopper.
 //
 // Forward. Replaces: apex_tpu/ops/layer_norm.py _ln_fwd_kernel (pallas_call
-// in _fwd_pallas, layer_norm.py:154). Per row: fp32 mean and variance (two passes, as the
-// reference's mean((x - mu)^2)), rstd = rsqrt(var + eps), then
-// y = (x - mu) * rstd * gamma + beta in x's dtype; mean and rstd are written
-// in fp32 for the training slice's backward. The `rms` flag drops the mean
-// term (mean is written as 0). gamma and beta are fp32 and each optional.
-//
-// Bound on this card: bytes. One read of x and one write of y dominate
-// (a few fp32 operations per element against 2-4 bytes). Design: one CTA per
-// row, threads striding over the row, so any hidden size works; the second
-// and third passes over the row hit L1/L2 (a 1024-wide bf16 row is 2 KB), so
-// device memory sees x once and y once. Block reductions are warp shuffles
-// plus one shared-memory exchange.
+// in _fwd_pallas, layer_norm.py:154). Per row: fp32 mean and variance (two
+// passes, as the reference's mean((x - mu)^2)), rstd = rsqrt(var + eps),
+// then y = (x - mu) * rstd * gamma + beta in x's dtype; mean and rstd are
+// written in fp32 for the training slice's backward. The `rms` flag drops
+// the mean term (mean is written as 0). gamma and beta are fp32 and each
+// optional.
 //
 // Backward. Replaces: apex_tpu/ops/layer_norm.py _ln_bwd_kernel (pallas_call
 // in _bwd_pallas, layer_norm.py:216). From dy = g, x and the forward's fp32
 // mean/rstd: x^ = (x - mean) * rstd, wg = g * gamma,
 //   dx = rstd * (wg - mean(wg) - x^ * mean(wg * x^))  (RMS: no mean(wg)),
-// in x's dtype, plus per-CTA fp32 partial rows of dgamma = sum g * x^ and
-// dbeta = sum g over the CTA's rows; the wrapper sums the partials
-// (torch.sum), as _bwd_pallas sums its per-block partials outside the
-// kernel (layer_norm.py:228-231).
+// in x's dtype, and dgamma = sum g * x^, dbeta = sum g over every row, in
+// fp32.
 //
-// Bound on this card: bytes (g and x read, dx written, a few fp32
-// operations per element). Design: one CTA of 256 threads per block of
-// kLnBwdRows rows. Pass 1 gives each row's two means with one warp per row
-// (shuffles only, no block barrier per row). Pass 2 strides the threads
-// over the hidden columns and walks the CTA's rows: it writes dx and keeps
-// that column's dgamma/dbeta sums in registers across the rows, then
-// writes them once as the CTA's partial row. Any hidden size works; the
-// second read of the rows' g and x hits L2 (32 rows x 1024 bf16 x 2 tensors
-// is 128 KB a CTA).
+// Bound on this card: bytes. The forward reads x and writes y, the backward
+// reads g and x and writes dx; a few fp32 operations per element against
+// 4-6 bytes. So each row crosses device memory once, in 16-byte vectors,
+// and nothing waits on a block barrier per row. Two routes each, chosen by
+// the caller (ln_route in ops/layer_norm.py):
+//   warp (rows that start on 16 bytes, up to LN_WARP_MAX_COLS /
+//     LN_BWD_WARP_MAX_COLS elements): one warp per row, the row in the
+//     warp's registers (lane l holds the 16-byte vectors i * 32 + l, so a
+//     warp's loads are contiguous); the row statistics are warp shuffles.
+//     The forward takes one row a warp, several warps a CTA, each lane
+//     reading its columns of gamma/beta (L1 hits after the first row; staging
+//     them in shared memory once a CTA measured no faster). The backward's
+//     grid is
+//     sized to the card, not to the rows: each warp walks rows c * W + w,
+//     + grid * W, ..., keeps its lanes' gamma and its dgamma/dbeta column
+//     sums in fp32 registers across them, and the CTA folds its warps' sums
+//     through shared memory into one partial row;
+//   cta (the other rows: unaligned, or wider): the forward one CTA per row,
+//     threads striding over it in three passes (16-byte vectors where the
+//     row and the pointers are aligned, scalars otherwise); the backward
+//     one CTA per kLnBwdRows rows, one warp per row for the two means, then
+//     threads over the columns writing dx and the CTA's partial row.
+// Either way the partial rows are summed by ln_bwd_finish, columns spread
+// over CTAs and partials in a fixed order, so dgamma/dbeta are the same
+// bits from call to call (no atomics).
+
+#include <initializer_list>
 
 #include "common.cuh"
 
 namespace apex_torch {
+namespace {
 
+// Widest rows the warp routes take. ops/layer_norm.py routes by its own
+// caps (LN_WARP_MAX_COLS = 2048, LN_BWD_WARP_MAX_COLS = 1024); these let
+// chip_smoke.py's tuning line try one step wider (the backward's 2048-column
+// instances spill: 255 registers).
+constexpr int kWarpMaxCols = 4096;
+constexpr int kBwdWarpMaxCols = 2048;
+constexpr int kMaxWarpRows = 8;        // warps (rows) a CTA of the warp routes
+constexpr int kLnBwdRows = 32;         // rows a CTA of the backward's CTA route
+constexpr int kLnBwdThreads = 256;
+constexpr int kFinishCols = 32;        // columns a CTA of ln_bwd_finish
+constexpr int kFinishGroups = 16;      // its warps, each a share of the partials
+enum Route : int { kCta = 0, kWarp = 1 };
+
+// 16 bytes of T as fp32 values
 template <typename T>
-__global__ void ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                              const float* __restrict__ b, T* __restrict__ y,
-                              float* __restrict__ mean_out,
-                              float* __restrict__ rstd_out, int hidden, float eps,
-                              int rms) {
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& q,
+                                                float (&v)[N]) {
+    v[0] = __uint_as_float(q.x);
+    v[1] = __uint_as_float(q.y);
+    v[2] = __uint_as_float(q.z);
+    v[3] = __uint_as_float(q.w);
+  }
+  __device__ __forceinline__ static void store(float* p, const float (&v)[N]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(const uint4& q,
+                                                float (&v)[N]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p,
+                                               const float (&v)[N]) {
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = q;
+  }
+};
+
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// N elements of T from p as fp32 (N = 1: a scalar; else one 16-byte vector)
+template <typename T, int N>
+__device__ __forceinline__ void load_n(const T* p, float (&v)[N]) {
+  if constexpr (N == 1) {
+    v[0] = to_f32(*p);
+  } else {
+    Vec<T>::unpack(ld16(p), v);
+  }
+}
+template <typename T, int N>
+__device__ __forceinline__ void store_n(T* p, const float (&v)[N]) {
+  if constexpr (N == 1) {
+    *p = from_f32<T>(v[0]);
+  } else {
+    Vec<T>::store(p, v);
+  }
+}
+// N fp32 values (N = 1, or a multiple of 4 from a 16-byte aligned p)
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float (&v)[N]) {
+  if constexpr (N == 1) {
+    v[0] = *p;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x;
+      v[i + 1] = q.y;
+      v[i + 2] = q.z;
+      v[i + 3] = q.w;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// One warp per row, blockDim / 32 rows a CTA, V 16-byte vectors a lane
+// (rows of at most V * 32 * N elements, hidden % N == 0, every pointer on 16
+// bytes).
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxWarpRows * 32)
+    ln_fwd_warp(const T* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ b, T* __restrict__ y,
+                float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                long long rows, int hidden, float eps, int rms) {
+  constexpr int N = Vec<T>::N;
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const T* xr = x + row * hidden;
+  float v[V][N];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k0 = (i * 32 + lane) * N;
+    if (k0 < hidden) {
+      load_n<T, N>(xr + k0, v[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[i][j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) s += v[i][j];
+  }
+  const float inv_n = 1.f / (float)hidden;
+  const float mu = rms ? 0.f : warp_sum(s) * inv_n;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    if ((i * 32 + lane) * N >= hidden) continue;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float d = v[i][j] - mu;
+      ss += d * d;
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(ss) * inv_n + eps);
+  T* yr = y + row * hidden;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k0 = (i * 32 + lane) * N;
+    if (k0 >= hidden) continue;
+    float o[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) o[j] = (v[i][j] - mu) * rstd;
+    if (w != nullptr) {
+      float g[N];
+      load_f32<N>(w + k0, g);
+#pragma unroll
+      for (int j = 0; j < N; ++j) o[j] *= g[j];
+    }
+    if (b != nullptr) {
+      float c[N];
+      load_f32<N>(b + k0, c);
+#pragma unroll
+      for (int j = 0; j < N; ++j) o[j] += c[j];
+    }
+    Vec<T>::store(yr + k0, o);
+  }
+  if (lane == 0) {
+    mean_out[row] = mu;
+    rstd_out[row] = rstd;
+  }
+}
+
+// One CTA per row, threads striding over it in N-element pieces (N = 1 for
+// rows or pointers off 16 bytes); x is read three times, the second and
+// third time mostly from L1/L2.
+template <typename T, int N>
+__global__ void ln_fwd_cta(const T* __restrict__ x, const float* __restrict__ w,
+                           const float* __restrict__ b, T* __restrict__ y,
+                           float* __restrict__ mean_out,
+                           float* __restrict__ rstd_out, int hidden, float eps,
+                           int rms) {
   __shared__ float red[33];
   const size_t row = blockIdx.x;
   const T* xr = x + row * (size_t)hidden;
   T* yr = y + row * (size_t)hidden;
+  const int n = hidden / N;
   const float inv_n = 1.f / (float)hidden;
 
   float mu = 0.f;
   if (!rms) {
     float s = 0.f;
-    for (int i = threadIdx.x; i < hidden; i += blockDim.x) s += to_f32(xr[i]);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      float v[N];
+      load_n<T, N>(xr + i * N, v);
+#pragma unroll
+      for (int j = 0; j < N; ++j) s += v[j];
+    }
     mu = block_sum(s, red) * inv_n;
   }
   float ss = 0.f;
-  for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
-    const float dv = to_f32(xr[i]) - mu;
-    ss += dv * dv;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float v[N];
+    load_n<T, N>(xr + i * N, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float d = v[j] - mu;
+      ss += d * d;
+    }
   }
-  const float var = block_sum(ss, red) * inv_n;
-  const float rstd = rsqrtf(var + eps);
-  for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
-    float v = (to_f32(xr[i]) - mu) * rstd;
-    if (w != nullptr) v *= w[i];
-    if (b != nullptr) v += b[i];
-    yr[i] = from_f32<T>(v);
+  const float rstd = rsqrtf(block_sum(ss, red) * inv_n + eps);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float v[N];
+    load_n<T, N>(xr + i * N, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = (v[j] - mu) * rstd;
+    if (w != nullptr) {
+      float g[N];
+      load_f32<N>(w + i * N, g);
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] *= g[j];
+    }
+    if (b != nullptr) {
+      float c[N];
+      load_f32<N>(b + i * N, c);
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] += c[j];
+    }
+    store_n<T, N>(yr + i * N, v);
   }
   if (threadIdx.x == 0) {
     mean_out[row] = mu;
@@ -74,37 +277,172 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__
   }
 }
 
-constexpr int kLnBwdRows = 32;
-constexpr int kLnBwdThreads = 256;
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
 
-template <typename T>
+// The CTA's partial row of one sum: each warp's column sums `acc` (its lanes'
+// V vectors of N columns) through shared memory `red` (warps x hidden
+// floats), added over the warps in order. Every thread of the CTA calls it.
+template <int V, int N>
+__device__ __forceinline__ void cta_partial(const float (&acc)[V][N],
+                                            float* red, float* part,
+                                            int hidden) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  __syncthreads();  // the previous call's readers are done with red
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k0 = (i * 32 + lane) * N;
+    if (k0 >= hidden) continue;
+#pragma unroll
+    for (int j = 0; j < N; j += 4)
+      *reinterpret_cast<float4*>(red + warp * hidden + k0 + j) =
+          make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x * 4; c < hidden; c += blockDim.x * 4) {
+    float4 t = *reinterpret_cast<const float4*>(red + c);
+    for (int k = 1; k < nw; ++k) {
+      const float4 u = *reinterpret_cast<const float4*>(red + k * hidden + c);
+      t.x += u.x;
+      t.y += u.y;
+      t.z += u.z;
+      t.w += u.w;
+    }
+    *reinterpret_cast<float4*>(part + (size_t)blockIdx.x * hidden + c) = t;
+  }
+}
+
+// One warp per row, blockDim / 32 warps a CTA, rows walked with a stride of
+// the whole grid's warps; V 16-byte vectors a lane (hidden % N == 0, every
+// pointer on 16 bytes). A row's g and x are read once into registers, kept
+// packed; gamma and the dgamma/dbeta column sums stay in fp32 registers
+// across the rows. dw_part/db_part: (gridDim.x, hidden) or null.
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxWarpRows * 32)
+    ln_bwd_warp(const T* __restrict__ g, const T* __restrict__ x,
+                const float* __restrict__ mean,
+                const float* __restrict__ rstd, const float* __restrict__ w,
+                T* __restrict__ dx, float* __restrict__ dw_part,
+                float* __restrict__ db_part, long long rows, int hidden,
+                int rms) {
+  constexpr int N = Vec<T>::N;
+  extern __shared__ float4 red4[];  // warps x hidden floats
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const float inv_n = 1.f / (float)hidden;
+  float wv[V][N], dw[V][N], db[V][N];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k0 = (i * 32 + lane) * N;
+    if (w != nullptr && k0 < hidden) {
+      load_f32<N>(w + k0, wv[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) wv[i][j] = 1.f;
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) dw[i][j] = db[i][j] = 0.f;
+  }
+  const long long stride = (long long)gridDim.x * nw;
+  for (long long row = (long long)blockIdx.x * nw + (threadIdx.x >> 5);
+       row < rows; row += stride) {
+    const T* gr = g + row * hidden;
+    const T* xr = x + row * hidden;
+    uint4 gq[V], xq[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int k0 = (i * 32 + lane) * N;
+      if (k0 < hidden) {
+        gq[i] = ld16(gr + k0);
+        xq[i] = ld16(xr + k0);
+      }
+    }
+    const float mu = mean[row], rs = rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if ((i * 32 + lane) * N >= hidden) continue;
+      float gv[N], xv[N];
+      Vec<T>::unpack(gq[i], gv);
+      Vec<T>::unpack(xq[i], xv);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float wg = gv[j] * wv[i][j];
+        s1 += wg * ((xv[j] - mu) * rs);
+        s2 += wg;
+      }
+    }
+    const float c1 = warp_sum(s1) * inv_n;
+    const float c2 = rms ? 0.f : warp_sum(s2) * inv_n;
+    T* dr = dx + row * hidden;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int k0 = (i * 32 + lane) * N;
+      if (k0 >= hidden) continue;
+      float gv[N], xv[N], o[N];
+      Vec<T>::unpack(gq[i], gv);
+      Vec<T>::unpack(xq[i], xv);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xh = (xv[j] - mu) * rs;
+        o[j] = rs * (gv[j] * wv[i][j] - c2 - xh * c1);
+        dw[i][j] += gv[j] * xh;
+        db[i][j] += gv[j];
+      }
+      Vec<T>::store(dr + k0, o);
+    }
+  }
+  float* red = reinterpret_cast<float*>(red4);
+  if (dw_part != nullptr) cta_partial<V, N>(dw, red, dw_part, hidden);
+  if (db_part != nullptr) cta_partial<V, N>(db, red, db_part, hidden);
+}
+
+// One CTA of kLnBwdThreads per kLnBwdRows rows, N-element pieces (N = 1 for
+// rows or pointers off 16 bytes). Pass 1 gives each row's two means with
+// one warp per row (shuffles only); pass 2 strides the threads over the
+// columns and walks the CTA's rows, writing dx and keeping the columns'
+// dgamma/dbeta sums in registers, then writes the CTA's partial row. The
+// second read of the rows comes mostly from L2 (32 rows of g and x).
+template <typename T, int N>
 __global__ void __launch_bounds__(kLnBwdThreads)
-    ln_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                  const float* __restrict__ mean,
-                  const float* __restrict__ rstd,
-                  const float* __restrict__ w, T* __restrict__ dx,
-                  float* __restrict__ dw_part, float* __restrict__ db_part,
-                  long long rows, int hidden, int rms) {
+    ln_bwd_cta(const T* __restrict__ g, const T* __restrict__ x,
+               const float* __restrict__ mean, const float* __restrict__ rstd,
+               const float* __restrict__ w, T* __restrict__ dx,
+               float* __restrict__ dw_part, float* __restrict__ db_part,
+               long long rows, int hidden, int rms) {
   __shared__ float mu_s[kLnBwdRows], rs_s[kLnBwdRows];
   __shared__ float c1_s[kLnBwdRows], c2_s[kLnBwdRows];
   const long long r0 = (long long)blockIdx.x * kLnBwdRows;
   const int nrows = (int)min((long long)kLnBwdRows, rows - r0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
+  const int n = hidden / N;
   const float inv_n = 1.f / (float)hidden;
 
-  // pass 1, one warp per row: c1 = mean(wg * x^), c2 = mean(wg)
   for (int rr = warp; rr < nrows; rr += nwarps) {
     const size_t row = (size_t)(r0 + rr);
     const T* gr = g + row * hidden;
     const T* xr = x + row * hidden;
     const float mu = mean[row], rs = rstd[row];
     float s1 = 0.f, s2 = 0.f;
-    for (int i = lane; i < hidden; i += 32) {
-      const float xh = (to_f32(xr[i]) - mu) * rs;
-      const float wg = w != nullptr ? to_f32(gr[i]) * w[i] : to_f32(gr[i]);
-      s1 += wg * xh;
-      s2 += wg;
+    for (int i = lane; i < n; i += 32) {
+      float gv[N], xv[N], wi[N];
+      load_n<T, N>(gr + i * N, gv);
+      load_n<T, N>(xr + i * N, xv);
+      if (w != nullptr) {
+        load_f32<N>(w + i * N, wi);
+      } else {
+#pragma unroll
+        for (int j = 0; j < N; ++j) wi[j] = 1.f;
+      }
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float wg = gv[j] * wi[j];
+        s1 += wg * ((xv[j] - mu) * rs);
+        s2 += wg;
+      }
     }
     s1 = warp_sum(s1);
     s2 = warp_sum(s2);
@@ -117,24 +455,228 @@ __global__ void __launch_bounds__(kLnBwdThreads)
   }
   __syncthreads();
 
-  // pass 2, threads over columns: dx, and the column's partial sums
-  for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
-    const float wi = w != nullptr ? w[i] : 1.f;
-    float dwi = 0.f, dbi = 0.f;
-    for (int rr = 0; rr < nrows; ++rr) {
-      const size_t at = (size_t)(r0 + rr) * hidden + i;
-      const float gv = to_f32(g[at]);
-      const float xh = (to_f32(x[at]) - mu_s[rr]) * rs_s[rr];
-      dx[at] = from_f32<T>(rs_s[rr] * (gv * wi - c2_s[rr] - xh * c1_s[rr]));
-      dwi += gv * xh;
-      dbi += gv;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float wi[N], dwi[N], dbi[N];
+    if (w != nullptr) {
+      load_f32<N>(w + i * N, wi);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) wi[j] = 1.f;
     }
-    const size_t part = (size_t)blockIdx.x * hidden + i;
-    if (dw_part != nullptr) dw_part[part] = dwi;
-    if (db_part != nullptr) db_part[part] = dbi;
+#pragma unroll
+    for (int j = 0; j < N; ++j) dwi[j] = dbi[j] = 0.f;
+    for (int rr = 0; rr < nrows; ++rr) {
+      const size_t at = (size_t)(r0 + rr) * hidden + (size_t)i * N;
+      float gv[N], xv[N];
+      load_n<T, N>(g + at, gv);
+      load_n<T, N>(x + at, xv);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xh = (xv[j] - mu_s[rr]) * rs_s[rr];
+        dwi[j] += gv[j] * xh;
+        dbi[j] += gv[j];
+        xv[j] = rs_s[rr] * (gv[j] * wi[j] - c2_s[rr] - xh * c1_s[rr]);
+      }
+      store_n<T, N>(dx + at, xv);
+    }
+    const size_t part = (size_t)blockIdx.x * hidden + (size_t)i * N;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (dw_part != nullptr) dw_part[part + j] = dwi[j];
+      if (db_part != nullptr) db_part[part + j] = dbi[j];
+    }
   }
 }
 
+// dgamma / dbeta (blockIdx.y 0 / 1): each CTA takes kFinishCols columns,
+// each of its kFinishGroups warps the partial rows p = y, y + groups, ...
+// in order, and warp 0 adds the groups' sums in order: the same bits every
+// call.
+__global__ void __launch_bounds__(kFinishCols * kFinishGroups)
+    ln_bwd_finish(const float* __restrict__ dw_part,
+                  const float* __restrict__ db_part, float* __restrict__ dw,
+                  float* __restrict__ db, int parts, int hidden) {
+  __shared__ float red[kFinishGroups][kFinishCols + 1];
+  const float* part = blockIdx.y ? db_part : dw_part;
+  float* out = blockIdx.y ? db : dw;
+  if (part == nullptr) return;  // the whole CTA
+  const int c = blockIdx.x * kFinishCols + threadIdx.x;
+  float s = 0.f;
+  if (c < hidden) {
+#pragma unroll 4
+    for (int p = threadIdx.y; p < parts; p += kFinishGroups)
+      s += part[(size_t)p * hidden + c];
+  }
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < hidden) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < kFinishGroups; ++k) t += red[k][threadIdx.x];
+    out[c] = t;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  uintptr_t any = 0;
+  for (const void* p : ptrs) any |= (uintptr_t)p;
+  return (any & 15) == 0;
+}
+
+// The 16-byte vectors a lane holds for a row of `hidden` elements: the
+// least power of two that covers it.
+template <typename T>
+int lane_vectors(int hidden) {
+  const int need = (hidden + 32 * Vec<T>::N - 1) / (32 * Vec<T>::N);
+  int v = 1;
+  while (v < need) v <<= 1;
+  return v;
+}
+
+template <typename T, int V>
+void launch_fwd_warp(const T* x, const float* w, const float* b, T* y,
+                     float* mean, float* rstd, long long rows, int hidden,
+                     float eps, int rms, int rows_per_cta, cudaStream_t s) {
+  const unsigned grid = (unsigned)((rows + rows_per_cta - 1) / rows_per_cta);
+  ln_fwd_warp<T, V><<<grid, rows_per_cta * 32, 0, s>>>(
+      x, w, b, y, mean, rstd, rows, hidden, eps, rms);
+}
+
+template <typename T>
+int fwd_warp(const T* x, const float* w, const float* b, T* y, float* mean,
+             float* rstd, long long rows, int hidden, float eps, int rms,
+             int rows_per_cta, cudaStream_t s) {
+  constexpr int kMaxV = kWarpMaxCols / (32 * Vec<T>::N);
+#define APEX_LN_FWD_V(V)                                                     \
+  case V:                                                                    \
+    if constexpr (V <= kMaxV) {                                              \
+      launch_fwd_warp<T, V>(x, w, b, y, mean, rstd, rows, hidden, eps,      \
+                            rms, rows_per_cta, s);                           \
+      break;                                                                 \
+    } else {                                                                 \
+      return (int)cudaErrorInvalidValue;                                     \
+    }
+  switch (lane_vectors<T>(hidden)) {
+    APEX_LN_FWD_V(1)
+    APEX_LN_FWD_V(2)
+    APEX_LN_FWD_V(4)
+    APEX_LN_FWD_V(8)
+    APEX_LN_FWD_V(16)
+    APEX_LN_FWD_V(32)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef APEX_LN_FWD_V
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd(const void* x, const void* w, const void* b, void* y, void* mean,
+        void* rstd, long long rows, int hidden, float eps, int rms, int route,
+        int rows_per_cta, cudaStream_t s) {
+  const T* xt = (const T*)x;
+  const float *wf = (const float*)w, *bf = (const float*)b;
+  T* yt = (T*)y;
+  float *mf = (float*)mean, *rf = (float*)rstd;
+  const bool vec = hidden % Vec<T>::N == 0 && aligned16({x, w, b, y});
+  if (route == kWarp) {
+    if (!vec || hidden > kWarpMaxCols || rows_per_cta < 1 ||
+        rows_per_cta > kMaxWarpRows)
+      return (int)cudaErrorInvalidValue;
+    return fwd_warp<T>(xt, wf, bf, yt, mf, rf, rows, hidden, eps, rms,
+                       rows_per_cta, s);
+  }
+  if (route != kCta) return (int)cudaErrorInvalidValue;
+  int threads = 128;
+  if (hidden >= 4096) threads = 512;
+  else if (hidden >= 1024) threads = 256;
+  const dim3 grid((unsigned)rows);
+  if (vec) {
+    ln_fwd_cta<T, Vec<T>::N><<<grid, threads, 0, s>>>(xt, wf, bf, yt, mf, rf,
+                                                      hidden, eps, rms);
+  } else {
+    ln_fwd_cta<T, 1><<<grid, threads, 0, s>>>(xt, wf, bf, yt, mf, rf, hidden,
+                                              eps, rms);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch_bwd_warp(const T* g, const T* x, const float* mean,
+                    const float* rstd, const float* w, T* dx, float* dw_part,
+                    float* db_part, long long rows, int hidden, int rms,
+                    int grid, int warps, cudaStream_t s) {
+  const size_t smem = (size_t)warps * hidden * sizeof(float);
+  if (const int err = set_max_smem<ln_bwd_warp<T, V>>(smem)) return err;
+  ln_bwd_warp<T, V><<<grid, warps * 32, smem, s>>>(
+      g, x, mean, rstd, w, dx, dw_part, db_part, rows, hidden, rms);
+  return 0;
+}
+
+template <typename T>
+int bwd(const void* g, const void* x, const void* mean, const void* rstd,
+        const void* w, void* dx, void* dw_part, void* db_part, void* dw,
+        void* db, long long rows, int hidden, int rms, int route, int grid,
+        int warps, cudaStream_t s) {
+  const T *gt = (const T*)g, *xt = (const T*)x;
+  const float *mf = (const float*)mean, *rf = (const float*)rstd;
+  const float* wf = (const float*)w;
+  T* dxt = (T*)dx;
+  float *dwp = (float*)dw_part, *dbp = (float*)db_part;
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = hidden % Vec<T>::N == 0 &&
+                   aligned16({g, x, w, dx, dw_part, db_part});
+  int err = 0;
+  if (route == kWarp) {
+    if (!vec || hidden > kBwdWarpMaxCols || warps < 1 || warps > kMaxWarpRows)
+      return (int)cudaErrorInvalidValue;
+    constexpr int kMaxV = kBwdWarpMaxCols / (32 * Vec<T>::N);
+#define APEX_LN_BWD_V(V)                                                      \
+  case V:                                                                     \
+    if constexpr (V <= kMaxV) {                                               \
+      err = launch_bwd_warp<T, V>(gt, xt, mf, rf, wf, dxt, dwp, dbp, rows,    \
+                                  hidden, rms, grid, warps, s);               \
+      break;                                                                  \
+    } else {                                                                  \
+      return (int)cudaErrorInvalidValue;                                      \
+    }
+    switch (lane_vectors<T>(hidden)) {
+      APEX_LN_BWD_V(1)
+      APEX_LN_BWD_V(2)
+      APEX_LN_BWD_V(4)
+      APEX_LN_BWD_V(8)
+      APEX_LN_BWD_V(16)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef APEX_LN_BWD_V
+  } else if (route == kCta) {
+    if ((long long)grid != (rows + kLnBwdRows - 1) / kLnBwdRows)
+      return (int)cudaErrorInvalidValue;
+    if (vec) {
+      ln_bwd_cta<T, Vec<T>::N><<<grid, kLnBwdThreads, 0, s>>>(
+          gt, xt, mf, rf, wf, dxt, dwp, dbp, rows, hidden, rms);
+    } else {
+      ln_bwd_cta<T, 1><<<grid, kLnBwdThreads, 0, s>>>(
+          gt, xt, mf, rf, wf, dxt, dwp, dbp, rows, hidden, rms);
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  if (dw_part != nullptr || db_part != nullptr) {
+    const dim3 fgrid((unsigned)((hidden + kFinishCols - 1) / kFinishCols), 2);
+    ln_bwd_finish<<<fgrid, dim3(kFinishCols, kFinishGroups), 0, s>>>(
+        dwp, dbp, (float*)dw, (float*)db, grid, hidden);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 }  // namespace apex_torch
 
 using namespace apex_torch;
@@ -143,54 +685,43 @@ extern "C" const char* apex_torch_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// x, y: contiguous (rows, hidden) in one dtype; w, b: fp32 (hidden,) or
+// null; mean/rstd fp32 (rows,). route: 0 = one CTA a row, 1 = one warp a
+// row (every pointer on 16 bytes, hidden * itemsize % 16 == 0, hidden <=
+// 4096), `rows_per_cta` warps a CTA (1-8).
 extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b, void* y,
                            void* mean, void* rstd, long long rows, int hidden,
-                           float eps, int rms, int dtype, void* stream) {
+                           float eps, int rms, int dtype, int route,
+                           int rows_per_cta, void* stream) {
   if (rows <= 0 || hidden <= 0) return (int)cudaErrorInvalidValue;
-  int threads = 128;
-  if (hidden >= 4096) threads = 512;
-  else if (hidden >= 1024) threads = 256;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((unsigned)rows);
-  if (dtype == kF32) {
-    ln_fwd_kernel<float><<<grid, threads, 0, s>>>(
-        (const float*)x, (const float*)w, (const float*)b, (float*)y,
-        (float*)mean, (float*)rstd, hidden, eps, rms);
-  } else if (dtype == kBF16) {
-    ln_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        (const __nv_bfloat16*)x, (const float*)w, (const float*)b,
-        (__nv_bfloat16*)y, (float*)mean, (float*)rstd, hidden, eps, rms);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == kF32)
+    return fwd<float>(x, w, b, y, mean, rstd, rows, hidden, eps, rms, route,
+                      rows_per_cta, s);
+  if (dtype == kBF16)
+    return fwd<__nv_bfloat16>(x, w, b, y, mean, rstd, rows, hidden, eps, rms,
+                              route, rows_per_cta, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Rows per CTA of apex_ln_bwd: the partial rows number ceil(rows / this).
-extern "C" int apex_ln_bwd_rows_per_block() { return kLnBwdRows; }
-
 // g, x, dx: contiguous (rows, hidden) in one dtype; mean/rstd fp32 (rows,);
-// w fp32 (hidden,) or null; dw_part/db_part fp32 (ceil(rows / 32), hidden)
-// or null (no dgamma / no dbeta wanted).
+// w fp32 (hidden,) or null; dw_part/db_part fp32 (grid, hidden) scratch and
+// dw/db fp32 (hidden,) outputs, each pair null where dgamma / dbeta is not
+// wanted. route: 0 = kLnBwdRows (32) rows a CTA, grid = ceil(rows / 32); 1
+// = one warp a row (pointers on 16 bytes, hidden * itemsize % 16 == 0,
+// hidden <= 2048), `warps` warps a CTA (1-8), any grid.
 extern "C" int apex_ln_bwd(const void* g, const void* x, const void* mean,
                            const void* rstd, const void* w, void* dx,
-                           void* dw_part, void* db_part, long long rows,
-                           int hidden, int rms, int dtype, void* stream) {
+                           void* dw_part, void* db_part, void* dw, void* db,
+                           long long rows, int hidden, int rms, int dtype,
+                           int route, int grid, int warps, void* stream) {
   if (rows <= 0 || hidden <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((unsigned)((rows + kLnBwdRows - 1) / kLnBwdRows));
-  if (dtype == kF32) {
-    ln_bwd_kernel<float><<<grid, kLnBwdThreads, 0, s>>>(
-        (const float*)g, (const float*)x, (const float*)mean,
-        (const float*)rstd, (const float*)w, (float*)dx, (float*)dw_part,
-        (float*)db_part, rows, hidden, rms);
-  } else if (dtype == kBF16) {
-    ln_bwd_kernel<__nv_bfloat16><<<grid, kLnBwdThreads, 0, s>>>(
-        (const __nv_bfloat16*)g, (const __nv_bfloat16*)x, (const float*)mean,
-        (const float*)rstd, (const float*)w, (__nv_bfloat16*)dx,
-        (float*)dw_part, (float*)db_part, rows, hidden, rms);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == kF32)
+    return bwd<float>(g, x, mean, rstd, w, dx, dw_part, db_part, dw, db, rows,
+                      hidden, rms, route, grid, warps, s);
+  if (dtype == kBF16)
+    return bwd<__nv_bfloat16>(g, x, mean, rstd, w, dx, dw_part, db_part, dw,
+                              db, rows, hidden, rms, route, grid, warps, s);
+  return (int)cudaErrorInvalidValue;
 }

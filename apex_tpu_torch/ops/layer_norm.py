@@ -14,6 +14,14 @@ dispatch by device: on a CUDA tensor they launch the hand-written kernels of
 CPU tests run the same Function. Without a gradient to track (inference,
 ``no_grad``) the forward runs on its own, with no autograd bookkeeping: the
 serving path issues 49 of these per decode tick.
+
+Each kernel has two routes (:func:`ln_route`): rows that start on 16 bytes
+and hold at most :data:`LN_WARP_MAX_COLS` (forward) or
+:data:`LN_BWD_WARP_MAX_COLS` (backward) elements go one warp per row, the
+row in the warp's registers; other rows (unaligned, or wider) go to a CTA
+per row (forward) or per 32 rows (backward). Both backward routes leave
+one fp32 partial row of dgamma/dbeta per CTA, summed on the card in a
+fixed order, so two calls give the same bits.
 """
 
 from __future__ import annotations
@@ -24,6 +32,58 @@ import torch
 
 from apex_tpu_torch._device import check_device
 from apex_tpu_torch.csrc import build
+
+#: the forward holds a row in one warp's registers (hidden / 32 fp32 values
+#: a lane) up to this many elements, where the row starts on 16 bytes;
+#: chosen on the card (PERF.md), at most the kernel's 4096
+LN_WARP_MAX_COLS = 2048
+
+#: the backward's warp route up to this many elements (a lane holds its
+#: columns of g and x packed, and of gamma, dgamma and dbeta in fp32);
+#: chosen on the card where ptxas reports no spill, at most the kernel's
+#: 2048
+LN_BWD_WARP_MAX_COLS = 1024
+
+#: rows (warps) a CTA of the forward's warp route (1-8)
+LN_WARP_ROWS = 4
+
+#: warps a CTA of the backward's warp route (1-8), and its CTAs an SM: the
+#: grid is sized to the card, each warp walking rows
+LN_BWD_WARP_ROWS = 8
+LN_BWD_CTAS_PER_SM = 1
+
+#: rows a CTA of the backward's CTA route (``kLnBwdRows`` in the kernel)
+LN_BWD_CTA_ROWS = 32
+
+#: route codes of ``apex_ln_fwd`` / ``apex_ln_bwd``
+ROUTES = {"cta": 0, "warp": 1}
+
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def ln_route(hidden: int, itemsize: int, aligned: bool,
+             backward: bool = False) -> str:
+    """The kernel's route for rows of ``hidden`` elements of ``itemsize``
+    bytes: ``"warp"`` (one warp per row, the row in registers) where every
+    pointer is ``aligned`` to 16 bytes, ``hidden * itemsize`` is a multiple
+    of 16 and ``hidden`` is at most :data:`LN_WARP_MAX_COLS` (backward:
+    :data:`LN_BWD_WARP_MAX_COLS`); else ``"cta"``."""
+    cap = LN_BWD_WARP_MAX_COLS if backward else LN_WARP_MAX_COLS
+    if aligned and hidden <= cap and hidden * itemsize % 16 == 0:
+        return "warp"
+    return "cta"
+
+
+def ln_bwd_grid(rows: int, route: str, sms: int) -> int:
+    """CTAs of the backward, which is also its count of partial rows: on
+    the warp route as many as the card holds at once
+    (``sms * LN_BWD_CTAS_PER_SM``) or fewer where the rows do not fill
+    them (each warp takes at least one row); on the CTA route one per
+    :data:`LN_BWD_CTA_ROWS` rows."""
+    if route == "warp":
+        return max(1, min(-(-rows // LN_BWD_WARP_ROWS),
+                          sms * LN_BWD_CTAS_PER_SM))
+    return -(-rows // LN_BWD_CTA_ROWS)
 
 
 def _norm_stats_reference(x, w, b, eps, rms):
@@ -92,16 +152,19 @@ def _launch(x: torch.Tensor, weight: Optional[torch.Tensor],
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_fwd launches a CUDA kernel; x lies on "
                          f"{x.device}")
-    dtype = build.DTYPES.get(x.dtype)
+    dt = x.dtype
+    dtype = build.DTYPES.get(dt)
     if dtype is None:
         raise TypeError(f"layer_norm kernel takes float32/bfloat16, got "
-                        f"{x.dtype}")
+                        f"{dt}")
     dev = x.get_device()
     hidden = x.shape[-1]
     if not x.is_contiguous():
         x = x.contiguous()
     rows = x.numel() // hidden if hidden else 0
+    xp = x.data_ptr()
     ptrs = []
+    any_ptr = xp
     for name, t in (("weight", weight), ("bias", bias)):
         if t is None:
             ptrs.append(None)
@@ -112,14 +175,16 @@ def _launch(x: torch.Tensor, weight: Optional[torch.Tensor],
         if t.dtype != torch.float32 or not t.is_contiguous():
             t = t.float().contiguous()
         ptrs.append(t.data_ptr())
+        any_ptr |= ptrs[-1]
     y = torch.empty_like(x)
     stats = torch.empty(2 * rows, device=x.device, dtype=torch.float32)
     if rows:
+        route = ln_route(hidden, _ITEMSIZE[dt], not any_ptr & 15)
         mean_ptr = stats.data_ptr()
         err = build.load().apex_ln_fwd(
-            x.data_ptr(), ptrs[0], ptrs[1], y.data_ptr(), mean_ptr,
+            xp, ptrs[0], ptrs[1], y.data_ptr(), mean_ptr,
             mean_ptr + 4 * rows, rows, hidden, eps, int(rms), dtype,
-            build.current_stream(dev))
+            ROUTES[route], LN_WARP_ROWS, build.current_stream(dev))
         if err:
             build.check(err, "apex_ln_fwd")
         layer_norm_fwd.launches += 1
@@ -131,8 +196,10 @@ def layer_norm_fwd(x: torch.Tensor, weight: Optional[torch.Tensor],
                    rms: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on a CUDA tensor: ``(y, mean, rstd)`` with
-    ``mean``/``rstd`` fp32 of shape ``x.shape[:-1]``. Counts its launches
-    in ``layer_norm_fwd.launches``."""
+    ``mean``/``rstd`` fp32 of shape ``x.shape[:-1]``, on the route
+    :func:`ln_route` gives: one warp per row (``LN_WARP_ROWS`` rows a CTA)
+    or one CTA per row. Counts its launches in
+    ``layer_norm_fwd.launches``."""
     y, stats = _launch(x, weight, bias, eps, rms)
     lead = x.shape[:-1]
     mean, rstd = stats.view(2, y.numel() // max(x.shape[-1], 1))
@@ -146,9 +213,11 @@ def layer_norm_bwd(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                    rstd: torch.Tensor, weight: Optional[torch.Tensor], *,
                    rms: bool = False, has_bias: bool = False):
     """Launch the backward kernel on CUDA tensors: ``(dx, dgamma, dbeta)``
-    as :func:`layer_norm_bwd_reference` gives them (dgamma/dbeta fp32, the
-    kernel's per-CTA partial rows summed here). Counts its launches in
-    ``layer_norm_bwd.launches``."""
+    as :func:`layer_norm_bwd_reference` gives them (dgamma/dbeta fp32, None
+    where not wanted), on the route :func:`ln_route` gives. The kernel
+    leaves one partial row of each sum per CTA (:func:`ln_bwd_grid`) and
+    sums them in the same launch call, in a fixed order. Counts its
+    launches in ``layer_norm_bwd.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_bwd launches a CUDA kernel; x lies on "
                          f"{x.device}")
@@ -161,7 +230,6 @@ def layer_norm_bwd(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     if g.shape != x.shape or mean.numel() != rows or rstd.numel() != rows:
         raise ValueError(f"g {tuple(g.shape)}, mean/rstd {mean.numel()}/"
                          f"{rstd.numel()} do not match x {tuple(x.shape)}")
-    lib = build.load()
     x = x.contiguous()
     g = g.contiguous()
     mean = mean.float().contiguous()
@@ -173,21 +241,34 @@ def layer_norm_bwd(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
             raise ValueError(f"weight must be ({hidden},) on {x.device}")
         w = weight.float().contiguous()
     dx = torch.empty_like(x)
-    blocks = -(-rows // lib.apex_ln_bwd_rows_per_block())
-    parts = torch.empty((int(weight is not None) + int(has_bias), blocks,
-                         hidden), device=x.device, dtype=torch.float32)
-    dw_part = parts[0] if weight is not None else None
-    db_part = parts[-1] if has_bias else None
+    n_sums = int(weight is not None) + int(has_bias)
+    sums = torch.empty((n_sums, hidden), device=x.device,
+                       dtype=torch.float32)
     if rows:
-        err = lib.apex_ln_bwd(
+        dev = x.get_device()
+        wp = 0 if w is None else w.data_ptr()
+        route = ln_route(hidden, x.element_size(),
+                         not (g.data_ptr() | x.data_ptr() | wp) & 15,
+                         backward=True)
+        grid = ln_bwd_grid(
+            rows, route,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        parts = torch.empty((n_sums, grid, hidden), device=x.device,
+                            dtype=torch.float32)
+        # (dgamma, dbeta): their index in parts / sums, None if not wanted
+        at = (0 if weight is not None else None,
+              n_sums - 1 if has_bias else None)
+        part_p = [None if i is None else parts[i].data_ptr() for i in at]
+        sum_p = [None if i is None else sums[i].data_ptr() for i in at]
+        err = build.load().apex_ln_bwd(
             g.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            None if w is None else w.data_ptr(), dx.data_ptr(),
-            None if dw_part is None else dw_part.data_ptr(),
-            None if db_part is None else db_part.data_ptr(),
-            rows, hidden, int(rms), dtype, build.current_stream(x.get_device()))
+            None if w is None else wp, dx.data_ptr(), *part_p, *sum_p, rows,
+            hidden, int(rms), dtype, ROUTES[route], grid, LN_BWD_WARP_ROWS,
+            build.current_stream(dev))
         build.check(err, "apex_ln_bwd")
         layer_norm_bwd.launches += 1
-    sums = parts.sum(1)
+    else:
+        sums.zero_()
     dw = sums[0] if weight is not None else None
     db = sums[-1] if has_bias else None
     return dx, dw, db

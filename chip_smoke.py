@@ -2,14 +2,17 @@
 """On-card smoke run of the PyTorch/CUDA port (``apex_tpu_torch``).
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
+    python3 chip_smoke.py --ln-times TREE   # LayerNorm times of TREE's port
 
 Seven phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
    limit.
-2. **Kernel vs plain**: each kernel (LayerNorm forward and backward,
-   flash-attention forward, its dQ and dK/dV backward, paged flash-decode
+2. **Kernel vs plain**: each kernel (LayerNorm forward and backward on
+   both routes, one warp per row and one CTA per row or per 32 rows: rows
+   of 1001 elements, a view off 16 bytes, rows past the warp caps, 1 and
+   33 rows; flash-attention forward, its dQ and dK/dV backward, paged flash-decode
    with and without its window, the K-query paged decode, the softmax
    cross-entropy forward and backward, the streamed flash forward (with its
    merge pass where a band has several splits), dQ and dK/dV with the
@@ -19,9 +22,10 @@ Seven phases; any failure raises and exits non-zero:
    100003 elements on the two-pass route) against its plain PyTorch
    version on the card, at the main paths' shapes in bf16 and fp32 plus
    edge cases, each error beside its stated tolerance (the flash kernels,
-   resident and streamed, also each row's own error and the forwards' lse,
-   a planted fault the row check must catch, and the resident kernels'
-   bits the same from call to call); then device times
+   resident and streamed, and the LayerNorm pair also each row's own
+   error, the forwards' lse, a planted fault the row check must catch,
+   and the resident kernels' and the LayerNorm pair's bits the same from
+   call to call); then device times
    by CUDA-graph replay between CUDA events (kernel, plain version, one
    PyTorch library call as yardstick where one computes the same function;
    the resident flash kernels beside the streamed ones at 1024 (batch 1
@@ -29,9 +33,11 @@ Seven phases; any failure raises and exits non-zero:
    behind STREAM_MIN_SEQ; the key tile and split length of the streamed
    bf16 forward and the split length of its backward against the values
    tried, the resident forward's schedule and tiles and the resident
-   backward's schedule and dQ inner tile against the values tried, and the
+   backward's schedule and dQ inner tile against the values tried, the
    softmax forward's warp route against its CTA route at 1024 and 2048
-   columns) and the least time the card could take.
+   columns, and the LayerNorm pair's rows (warps) a CTA, CTAs an SM and
+   warp caps against the values tried) and the
+   least time the card could take.
 3. **Serving**: fp32 gates on a small model (the monolithic engine, then
    chunked prefill, the prefix cache, speculative decoding with a
    self-draft and a 1-layer draft, and all three: every token against the
@@ -54,7 +60,8 @@ Seven phases; any failure raises and exits non-zero:
    checked, a falling finite loss, no skipped step and bf16 params equal to
    their fp32 masters cast down; then the top kernels by device time of one
    profiled step, with the resident flash forward's and backward pair's
-   device time.
+   and the LayerNorm forward's and backward's (with its dgamma/dbeta
+   finish) device time and launches.
 5. **ResNet-50 training** (``apex_tpu_torch.examples.imagenet.main_amp``):
    an fp32 gradient gate on a small Bottleneck ResNet (loss, every grad and
    the running stats on the card through cuDNN and the xentropy kernels
@@ -193,9 +200,12 @@ def time_ms(fn, iters=20, reps=5, stream=None):
     return start.elapsed_time(end) / (iters * reps)
 
 
-def issue_ms(fn, iters=100):
+def issue_ms(fn, iters=100, reps=1, stat=statistics.median):
     """Time per call of eager back-to-back calls between two CUDA events:
-    the larger of the device time and the host's cost to issue the call."""
+    the larger of the device time and the host's cost to issue the call;
+    with ``reps`` > 1, ``stat`` (the median, or the least) of that many
+    windows of ``iters`` calls (the host clock of a shared machine jumps
+    from window to window)."""
     import torch
 
     for _ in range(5):
@@ -203,12 +213,15 @@ def issue_ms(fn, iters=100):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(reps):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return stat(times)
 
 
 def bound(nbytes, flops, dtype_name):
@@ -228,33 +241,118 @@ def max_err(got, ref):
 # ---------------------------------------------------------------------------
 
 
+def ln_input(torch, dev, gen, rows, hidden, dt, offset=0, scale=3.0,
+             shift=0.5):
+    """(rows, hidden) normal values * scale + shift in ``dt``; ``offset``
+    > 0: a contiguous view that many elements into a fresh buffer, so the
+    rows start off a 16-byte boundary."""
+    v = (torch.randn(rows, hidden, device=dev, generator=gen) * scale
+         + shift).to(dt)
+    if not offset:
+        return v
+    buf = torch.empty(rows * hidden + offset, device=dev, dtype=dt)
+    x = buf[offset:].view(rows, hidden)
+    x.copy_(v)
+    return x
+
+
+def ln_aligned(*ts):
+    """Every tensor's data on 16 bytes (``ln_route``'s ``aligned``)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+def ln_fwd_bound(rows, hidden):
+    """(bound_ms, bound_by) of the bf16 forward with fp32 gamma/beta: x
+    read, y written, gamma/beta read once, fp32 mean/rstd written; 8 fp32
+    operations an element."""
+    return bound(rows * hidden * 4 + hidden * 8 + rows * 8,
+                 rows * hidden * 8, "float32")
+
+
+def ln_times(torch, ops, dev):
+    """Device times (ms) of the LayerNorm kernels through the port's entry
+    points, bf16 rows of 1024 with fp32 gamma/beta: the forward at S (1024
+    rows), at the decode shape (8 rows, with its eager issue per call: the
+    least of 9 windows of 200 calls, the host's own cost with the least of
+    a shared host's noise) and
+    at T (8192 rows), and the backward at T (with dbeta). Takes any tree's
+    ``ops``, so two trees can be compared in one run."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    hidden = 1024
+    x = torch.randn(8192, hidden, device=dev, generator=gen).to(bf16)
+    g = torch.randn(8192, hidden, device=dev, generator=gen).to(bf16)
+    xs, x8 = x[:1024].clone(), x[:8].clone()
+    w = torch.ones(hidden, device=dev)
+    b = torch.zeros(hidden, device=dev)
+    _, mean, rstd = ops.layer_norm_fwd(x, w, b)
+    kw = dict(rms=False, has_bias=True)
+    return {"S": time_ms(lambda: ops.layer_norm(xs, w, b)),
+            "decode": time_ms(lambda: ops.layer_norm(x8, w, b)),
+            "decode_issue": issue_ms(lambda: ops.layer_norm(x8, w, b),
+                                     200, 9, min),
+            "T": time_ms(lambda: ops.layer_norm(x, w, b)),
+            "bwd_T": time_ms(
+                lambda: ops.layer_norm_bwd(g, x, mean, rstd, w, **kw))}
+
+
 def check_layer_norm(torch, ops, dev):
+    """LayerNorm / RMSNorm forward kernel against its plain version on the
+    same inputs. y: bf16 within one bf16 ulp of |ref| (both round the same
+    fp32 value), fp32 within 1e-5; each row within the forward limit of
+    :data:`ROW_TOL` (:func:`row_err`). The cases reach both routes
+    (:func:`ln_route`): the warp route at 1000-2048 columns, with 1, 8 and
+    33 rows (CTAs of ``LN_WARP_ROWS`` rows left part empty), RMS,
+    no-bias and no-affine; the CTA route for rows of 1001 bf16 (off 16
+    bytes), a view 2 bytes off a 16-byte boundary, and rows past
+    ``LN_WARP_MAX_COLS`` (4096 and 8192 bf16, 16384 fp32). At T a tail of y rows
+    halved must fail the row check and two calls must give the same bits.
+    Then device times at S, the decode shape (with its eager issue) and T
+    beside the plain version, ``F.layer_norm`` and the bound, and the warp
+    route's rows a CTA and cap against the values tried
+    (:func:`ln_fwd_tuning`)."""
+    import importlib
+
     import torch.nn.functional as F
 
+    tln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = [  # rows, hidden, dtype, variant
-        (1024, 1024, bf16, "ln"), (8, 1024, bf16, "ln"),
-        (1024, 1024, f32, "ln"), (1024, 1024, bf16, "rms"),
-        (1024, 1024, bf16, "no-bias"), (8, 1024, f32, "no-affine"),
-        (33, 1000, f32, "ln"), (5, 4096, bf16, "rms"),
+    cases = [  # rows, hidden, dtype, variant, offset (elements)
+        (1024, 1024, bf16, "ln", 0), (8, 1024, bf16, "ln", 0),
+        (1024, 1024, f32, "ln", 0), (1024, 1024, bf16, "rms", 0),
+        (1024, 1024, bf16, "no-bias", 0), (8, 1024, f32, "no-affine", 0),
+        (33, 1000, f32, "ln", 0), (5, 4096, bf16, "rms", 0),
+        (8192, 1024, bf16, "ln", 0),
+        # every route and edge: rows not a multiple of LN_WARP_ROWS, RMS
+        # and no-affine on the warp route, unaligned rows, a view off 16
+        # bytes, rows past the warp cap
+        (1, 1024, bf16, "ln", 0), (33, 1024, bf16, "rms", 0),
+        (33, 1024, bf16, "no-affine", 0), (33, 2048, f32, "ln", 0),
+        (64, 1001, bf16, "ln", 0), (64, 1024, bf16, "ln", 1),
+        (16, 8192, bf16, "ln", 0), (8, 16384, f32, "ln", 0),
     ]
     main_err = None
-    for rows, hidden, dt, variant in cases:
-        x = (torch.randn(rows, hidden, device=dev, generator=gen) * 3
-             + 0.5).to(dt)
+    for rows, hidden, dt, variant, offset in cases:
+        x = ln_input(torch, dev, gen, rows, hidden, dt, offset)
         w = 1 + 0.1 * torch.randn(hidden, device=dev, generator=gen)
         b = 0.1 * torch.randn(hidden, device=dev, generator=gen)
+        wv = None if variant == "no-affine" else w
+        bv = b if variant == "ln" else None
+        route = tln.ln_route(hidden, x.element_size(),
+                             ln_aligned(x, wv, bv))
         if variant == "rms":
             got, ref = ops.rms_norm(x, w), ops.rms_norm_reference(x, w)
         else:
-            wv = None if variant == "no-affine" else w
-            bv = b if variant == "ln" else None
             got = ops.layer_norm(x, wv, bv)
             ref = ops.layer_norm_reference(x, wv, bv)
         torch.cuda.synchronize()
         err = max_err(got, ref)
-        name = f"layer_norm {variant} {rows}x{hidden} {str(dt)[6:]}"
+        e_row = row_err(got, ref)
+        rlim = ROW_TOL[dt == bf16][0]
+        label = (f"layer_norm {variant} {rows}x{hidden} {str(dt)[6:]}"
+                 + (f" +{offset * x.element_size()}B" if offset else ""))
+        grp = f"layer_norm_fwd {str(dt)[6:]}"
         if dt == bf16:
             # one bf16 ulp at |y|: both round the same fp32 value
             over = float(((got.float() - ref.float()).abs()
@@ -262,48 +360,123 @@ def check_layer_norm(torch, ops, dev):
             tol = "1 bf16 ulp"
         else:
             tol = "1e-05"
-        print(f"  layer_norm {variant:9s} rows={rows:4d} hidden={hidden} "
-              f"{str(dt)[6:]:8s} max_abs_err={err:.3g} (tol {tol})")
-        check(got.dtype == x.dtype, f"{name}: dtype")
+        parts = [f"max_abs_err={err:.3g} (tol {tol})",
+                 f"worst row {e_row:.3g} (tol {rlim:g})"]
+        check(got.dtype == x.dtype, f"{label}: dtype")
         if dt == bf16:
-            verdict(f"{name} over 1 bf16 ulp", max(over, 0.0), 0.0,
-                    group="layer_norm_fwd bfloat16")
+            verdict(f"{label} over 1 bf16 ulp", max(over, 0.0), 0.0, route,
+                    group=grp)
         else:
-            verdict(name, err, 1e-5, group="layer_norm_fwd float32")
+            verdict(label, err, 1e-5, route, group=grp)
+        verdict(f"{label} row", e_row, rlim, route, group=grp)
+        if (rows, hidden, dt, variant) == (8192, 1024, bf16, "ln"):
+            # the row measure must catch a tail of rows gone half wrong
+            bad = got.clone()
+            bad[rows // 2:] *= 0.5
+            planted = row_err(bad, ref)
+            parts.append(f"y with its last {rows - rows // 2} rows halved: "
+                         f"row {planted:.3g}")
+            verdict(f"{label} halved y tail caught by the row check",
+                    0 if planted > rlim else 1, 0, route, group=grp)
+            y1, m1, r1 = ops.layer_norm_fwd(x, wv, bv)
+            y2, m2, r2 = ops.layer_norm_fwd(x, wv, bv)
+            torch.cuda.synchronize()
+            same = (torch.equal(y1, y2) and torch.equal(m1, m2)
+                    and torch.equal(r1, r2) and torch.equal(y1, got))
+            parts.append(f"a second call bit-identical: {same}")
+            verdict(f"{label} deterministic", 0 if same else 1, 0, route,
+                    group=grp)
+            del bad, y1, y2
+        print(f"  {label} [{route}]: " + ", ".join(parts))
         if main_err is None:
             main_err = err
-    # timing at the prefill shape: 1024 rows x 1024, bf16, fp32 gamma/beta
-    rows, hidden = 1024, 1024
-    x = torch.randn(rows, hidden, device=dev, generator=gen).to(bf16)
+        del x, got, ref
+    # timings at S (1024 rows x 1024), the decode shape and T, bf16, fp32
+    # gamma/beta
+    t = ln_times(torch, ops, dev)
+    ms, ms8, issue8, ms_t = t["S"], t["decode"], t["decode_issue"], t["T"]
+    hidden = 1024
+    xt = torch.randn(8192, hidden, device=dev, generator=gen).to(bf16)
+    x, x8 = xt[:1024].clone(), xt[:8].clone()
     w = torch.ones(hidden, device=dev)
     b = torch.zeros(hidden, device=dev)
     w16, b16 = w.to(bf16), b.to(bf16)
-    ms = time_ms(lambda: ops.layer_norm(x, w, b))
     plain = time_ms(lambda: ops.layer_norm_reference(x, w, b))
     lib = time_ms(lambda: F.layer_norm(x, (hidden,), w16, b16, 1e-5))
-    x8 = x[:8].clone()
-    ms8 = time_ms(lambda: ops.layer_norm(x8, w, b))
-    issue8 = issue_ms(lambda: ops.layer_norm(x8, w, b))
-    nbytes = rows * hidden * 2 * 2 + hidden * 4 * 2 + rows * 4 * 2
-    bms, by = bound(nbytes, rows * hidden * 8, "float32")
+    lib8 = time_ms(lambda: F.layer_norm(x8, (hidden,), w16, b16, 1e-5))
+    bms, by = ln_fwd_bound(1024, hidden)
+    bms8, _ = ln_fwd_bound(8, hidden)
     print(f"  layer_norm timing (1024x1024 bf16): kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, F.layer_norm {lib:.4f} ms, bound {bms:.4f} ms "
-          f"({by}); decode shape 8x1024: kernel {ms8:.4f} ms, eager issue "
-          f"{issue8:.4f} ms per call")
-    xt = torch.randn(8192, hidden, device=dev, generator=gen).to(bf16)
-    ms_t = time_ms(lambda: ops.layer_norm(xt, w, b))
+          f"({by}); decode shape 8x1024: kernel {ms8:.4f} ms, eager issue (least "
+          f"of 9 windows of 200 calls) "
+          f"{issue8:.4f} ms per call, F.layer_norm {lib8:.4f} ms, bound "
+          f"{bms8:.4f} ms")
     plain_t = time_ms(lambda: ops.layer_norm_reference(xt, w, b), 5)
     lib_t = time_ms(lambda: F.layer_norm(xt, (hidden,), w16, b16, 1e-5))
-    bms_t, by_t = bound(8192 * hidden * 4 + hidden * 8 + 8192 * 8,
-                        8192 * hidden * 8, "float32")
+    bms_t, by_t = ln_fwd_bound(8192, hidden)
     print(f"  layer_norm timing at the training shape (8192x1024 bf16): "
           f"kernel {ms_t:.4f} ms, plain {plain_t:.4f} ms, F.layer_norm "
-          f"{lib_t:.4f} ms, bound {bms_t:.4f} ms ({by_t})")
+          f"{lib_t:.4f} ms, bound {bms_t:.4f} ms ({by_t}); {nvidia_smi()}")
+    tuning = ln_fwd_tuning(torch, ops, tln, xt, w, b, gen)
+    by_shape = {
+        "S": dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms),
+        "decode": dict(ms=ms8, issue_ms=issue8, library_ms=lib8,
+                       bound_ms=bms8),
+        "T": dict(ms=ms_t, plain_ms=plain_t, library_ms=lib_t,
+                  bound_ms=bms_t)}
     return dict(name="layer_norm_fwd", route="cuda",
+                kernel=f"ln_fwd_warp (one warp per row of up to "
+                       f"LN_WARP_MAX_COLS = {tln.LN_WARP_MAX_COLS} aligned "
+                       f"elements, {tln.LN_WARP_ROWS} rows a CTA), else "
+                       f"ln_fwd_cta (a CTA per row)",
                 source="apex_tpu_torch/csrc/layer_norm.cu",
                 replaces="apex_tpu/ops/layer_norm.py:65",
                 max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, by_shape=by_shape,
+                ln_tuning=tuning)
+
+
+def ln_fwd_tuning(torch, ops, tln, xt, w, b, gen, rows_tried=(2, 4, 8),
+                  caps=(2048, 4096)):
+    """The forward's warp route against the values tried: at T (``xt``)
+    its rows a CTA (``LN_WARP_ROWS``) beside the CTA route; and its cap
+    (``LN_WARP_MAX_COLS``): warp against CTA route at the same bytes as T
+    with rows of 2048 and 4096 bf16 elements. One line; returned for the
+    ``kernels`` line (``ln_tuning``)."""
+    chosen = (tln.LN_WARP_ROWS, tln.LN_WARP_MAX_COLS)
+    t_ms, cap_ms = {}, {}
+    try:
+        for r in rows_tried:
+            tln.LN_WARP_ROWS = r
+            t_ms[f"warp rows={r}"] = time_ms(lambda: ops.layer_norm(xt, w, b))
+        tln.LN_WARP_ROWS = chosen[0]
+        tln.LN_WARP_MAX_COLS = 0
+        t_ms["cta"] = time_ms(lambda: ops.layer_norm(xt, w, b))
+        for hidden in caps:
+            x = torch.randn(xt.numel() // hidden, hidden, device=xt.device,
+                            generator=gen).to(xt.dtype)
+            wc = torch.ones(hidden, device=xt.device)
+            bc = torch.zeros(hidden, device=xt.device)
+            cap_ms[hidden] = {}
+            for cap, route in ((max(caps), "warp"), (0, "cta")):
+                tln.LN_WARP_MAX_COLS = cap
+                check(tln.ln_route(hidden, 2, True) == route,
+                      f"ln route {route} at {hidden}")
+                cap_ms[hidden][route] = time_ms(
+                    lambda: ops.layer_norm(x, wc, bc))
+            del x
+    finally:
+        tln.LN_WARP_ROWS, tln.LN_WARP_MAX_COLS = chosen
+    print(f"  LN_WARP_ROWS = {chosen[0]}, LN_WARP_MAX_COLS = {chosen[1]} "
+          f"(chosen); forward ms at T (8192x1024 bf16): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t_ms.items())
+          + "; by route at T's bytes: " + "; ".join(
+              f"{h} columns: " + ", ".join(f"{r} {v:.4f}"
+                                          for r, v in t.items())
+              for h, t in cap_ms.items()))
+    return {"chosen": {"rows_per_cta": chosen[0], "max_cols": chosen[1]},
+            "T_ms": t_ms, "cap_ms": cap_ms}
 
 
 def causal_pairs(sq, sk):
@@ -540,49 +713,93 @@ def check_layer_norm_bwd(torch, ops, dev):
     same g, x and the forward kernel's mean/rstd. Tolerances, as a share of
     max |ref|: dx 2^-7 in bf16 (one bf16 ulp at the top: both round the same
     fp32 value) and 1e-5 in fp32; dgamma/dbeta 1e-4 (fp32 sums over the
-    rows in another order)."""
+    rows in another order); and each dx row within the backward limit of
+    :data:`ROW_TOL` (:func:`row_err`). The cases reach both routes
+    (:func:`ln_route` with ``backward=True``): the warp route at T (LN,
+    RMS), with 1 and 33 rows, no-affine and no-bias; the CTA route for rows
+    of 1001 bf16, a view 2 bytes off a 16-byte boundary and rows past
+    ``LN_BWD_WARP_MAX_COLS`` (2048 and 8192 bf16, 16384 fp32). At T a tail
+    of dx rows halved must fail the row check and two calls must give the
+    same bits of dx, dgamma and dbeta. Then the device time at T (the
+    kernel and its dgamma/dbeta finish) beside the plain version,
+    ``aten.native_layer_norm_backward`` and the bound, and the warp route's
+    warps a CTA, CTAs an SM and cap against the values tried
+    (:func:`ln_bwd_tuning`)."""
+    import importlib
+
+    tln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(4)
-    cases = [  # rows, hidden, dtype, variant
-        (8192, 1024, bf16, "ln"), (8192, 1024, f32, "ln"),
-        (8192, 1024, bf16, "rms"), (1024, 1024, bf16, "no-affine"),
-        (1024, 1024, bf16, "no-bias"), (33, 1000, f32, "ln"),
-        (33, 1000, bf16, "rms"),
+    cases = [  # rows, hidden, dtype, variant, offset (elements)
+        (8192, 1024, bf16, "ln", 0), (8192, 1024, f32, "ln", 0),
+        (8192, 1024, bf16, "rms", 0), (1024, 1024, bf16, "no-affine", 0),
+        (1024, 1024, bf16, "no-bias", 0), (33, 1000, f32, "ln", 0),
+        (33, 1000, bf16, "rms", 0),
+        # every route and edge: rows not a multiple of LN_BWD_WARP_ROWS,
+        # unaligned rows, a view off 16 bytes, rows past the warp cap
+        (1, 1024, bf16, "ln", 0), (33, 1024, bf16, "ln", 0),
+        (33, 1024, bf16, "no-affine", 0), (64, 1001, bf16, "ln", 0),
+        (64, 1024, bf16, "ln", 1), (4096, 2048, bf16, "ln", 0),
+        (16, 8192, bf16, "ln", 0), (8, 16384, f32, "rms", 0),
     ]
     main_err = None
-    for rows, hidden, dt, variant in cases:
-        x = (torch.randn(rows, hidden, device=dev, generator=gen) * 3
-             + 0.5).to(dt)
-        g = torch.randn(rows, hidden, device=dev, generator=gen).to(dt)
+    for rows, hidden, dt, variant, offset in cases:
+        x = ln_input(torch, dev, gen, rows, hidden, dt, offset)
+        g = ln_input(torch, dev, gen, rows, hidden, dt, offset, 1.0, 0.0)
         w = 1 + 0.1 * torch.randn(hidden, device=dev, generator=gen)
         b = 0.1 * torch.randn(hidden, device=dev, generator=gen)
         rms = variant == "rms"
         wv = None if variant == "no-affine" else w
         bv = b if variant == "ln" else None
+        route = tln.ln_route(hidden, x.element_size(), ln_aligned(x, g, wv),
+                             backward=True)
         _, mean, rstd = ops.layer_norm_fwd(x, wv, bv, rms=rms)
         kw = dict(rms=rms, has_bias=bv is not None)
         got = ops.layer_norm_bwd(g, x, mean, rstd, wv, **kw)
         ref = ops.layer_norm_bwd_reference(g, x, mean, rstd, wv, **kw)
         torch.cuda.synchronize()
         tol_dx = 2.0 ** -7 if dt == bf16 else 1e-5
+        rlim = ROW_TOL[dt == bf16][1]
+        label = (f"layer_norm_bwd {variant} {rows}x{hidden} {str(dt)[6:]}"
+                 + (f" +{offset * x.element_size()}B" if offset else ""))
+        grp = f"layer_norm_bwd {str(dt)[6:]}"
         errs = []
         for name, a, r, tol in (("dx", got[0], ref[0], tol_dx),
                                 ("dgamma", got[1], ref[1], 1e-4),
                                 ("dbeta", got[2], ref[2], 1e-4)):
-            check((a is None) == (r is None), f"ln bwd {name} presence")
+            check((a is None) == (r is None), f"{label} {name} presence")
             if a is None:
                 continue
             e = rel_err(a, r)
             errs.append(f"{name} {max_err(a, r):.3g} (rel {e:.3g}, tol "
                         f"{tol:g})")
-            verdict(f"layer_norm_bwd {variant} {rows}x{hidden} "
-                    f"{str(dt)[6:]} {name}", e, tol,
-                    group=f"layer_norm_bwd {str(dt)[6:]}")
-        check(got[0].dtype == dt, "ln bwd dx dtype")
-        print(f"  layer_norm_bwd {variant:9s} rows={rows:4d} hidden={hidden} "
-              f"{str(dt)[6:]:8s} " + ", ".join(errs))
+            verdict(f"{label} {name}", e, tol, route, group=grp)
+        e_row = row_err(got[0], ref[0])
+        errs.append(f"dx worst row {e_row:.3g} (tol {rlim:g})")
+        verdict(f"{label} dx row", e_row, rlim, route, group=grp)
+        check(got[0].dtype == dt, f"{label} dx dtype")
+        if (rows, hidden, dt, variant) == (8192, 1024, bf16, "ln"):
+            # the row measure must catch a tail of dx rows gone half wrong
+            bad = got[0].clone()
+            bad[rows // 2:] *= 0.5
+            planted = row_err(bad, ref[0])
+            errs.append(f"dx with its last {rows - rows // 2} rows halved: "
+                        f"row {planted:.3g}, of max|ref| "
+                        f"{rel_err(bad, ref[0]):.3g}")
+            verdict(f"{label} halved dx tail caught by the row check",
+                    0 if planted > rlim else 1, 0, route, group=grp)
+            again = ops.layer_norm_bwd(g, x, mean, rstd, wv, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            errs.append(f"a second call bit-identical (dx, dgamma, dbeta): "
+                        f"{same}")
+            verdict(f"{label} deterministic", 0 if same else 1, 0, route,
+                    group=grp)
+            del bad, again
+        print(f"  {label} [{route}]: " + ", ".join(errs))
         if main_err is None:
             main_err = max_err(got[0], ref[0])
+        del x, g, got, ref
     # timing at the training shape: 8192 x 1024 bf16, fp32 gamma/beta
     rows, hidden = 8192, 1024
     x = torch.randn(rows, hidden, device=dev, generator=gen).to(bf16)
@@ -600,15 +817,105 @@ def check_layer_norm_bwd(torch, ops, dev):
         g, x, [hidden], amean, arstd, w16, b16, [True, True, True]))
     nbytes = rows * hidden * 2 * 3 + rows * 4 * 2 + hidden * 4 * 3
     bms, by = bound(nbytes, rows * hidden * 13, "float32")
+    split = ln_bwd_split(torch, ops, tln, (g, x, mean, rstd, w), kw)
     print(f"  layer_norm_bwd timing (8192x1024 bf16, fp32 gamma/beta): "
-          f"kernel + partial sum {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"aten.native_layer_norm_backward (bf16 gamma) {lib:.4f} ms, bound "
-          f"{bms:.4f} ms ({by})")
+          f"kernel + dgamma/dbeta finish {ms:.4f} ms ({split['line']}), "
+          f"plain {plain:.4f} ms, aten.native_layer_norm_backward (bf16 "
+          f"gamma) {lib:.4f} ms, bound {bms:.4f} ms ({by}); {nvidia_smi()}")
+    tuning = ln_bwd_tuning(torch, ops, tln, (g, x, mean, rstd, w), kw, gen)
+    tuning["T_split"] = split["ms"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(name="layer_norm_bwd", route="cuda",
+                kernel=f"ln_bwd_warp (one warp per row of up to "
+                       f"LN_BWD_WARP_MAX_COLS = {tln.LN_BWD_WARP_MAX_COLS} "
+                       f"aligned elements, {tln.LN_BWD_WARP_ROWS} warps a "
+                       f"CTA, {tln.ln_bwd_grid(rows, 'warp', sms)} CTAs at "
+                       f"T) + ln_bwd_finish; else ln_bwd_cta (32 rows a "
+                       f"CTA) + ln_bwd_finish",
                 source="apex_tpu_torch/csrc/layer_norm.cu",
                 replaces="apex_tpu/ops/layer_norm.py:85",
                 max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, ln_tuning=tuning)
+
+
+def ln_bwd_split(torch, ops, tln, args, kw):
+    """At T: the backward's two kernels' device times in one profiled call
+    (the main kernel and ``ln_bwd_finish``), beside ``parts.sum(1)`` of
+    partial rows of the same shape (the library sum the finish replaces),
+    timed like the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = args[0]
+    for _ in range(3):
+        ops.layer_norm_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ops.layer_norm_bwd(*args, **kw)
+        torch.cuda.synchronize()
+    by_name = device_time_by_kernel(torch, prof)
+    n_f, t_f = kernel_time(by_name, "ln_bwd_finish")
+    n_k, t_k = kernel_time(by_name, "ln_bwd_warp", "ln_bwd_cta")
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    grid = tln.ln_bwd_grid(g.shape[0], tln.ln_route(
+        g.shape[-1], g.element_size(), True, backward=True), sms)
+    parts = torch.randn(2, grid, g.shape[-1], device=g.device)
+    t_sum = time_ms(lambda: parts.sum(1))
+    ms = {"kernel": t_k / max(n_k, 1), "finish": t_f / max(n_f, 1),
+          "parts_sum": t_sum, "parts": grid}
+    line = (f"profiled: kernel {ms['kernel']:.4f} ms + finish "
+            f"{ms['finish']:.4f} ms over {grid} partial rows; parts.sum(1) "
+            f"of the same {t_sum:.4f} ms")
+    return {"ms": ms, "line": line}
+
+
+def ln_bwd_tuning(torch, ops, tln, args, kw, gen,
+                  shapes=((4, 2), (4, 3), (8, 1), (8, 2)), cap=2048):
+    """The backward's warp route against the values tried, at T: warps a
+    CTA and CTAs an SM (``LN_BWD_WARP_ROWS``, ``LN_BWD_CTAS_PER_SM``),
+    beside the CTA route; and its cap (``LN_BWD_WARP_MAX_COLS``): warp
+    against CTA route at T's bytes with rows of 2048 bf16 elements. Each
+    time includes the dgamma/dbeta finish. One line; returned for the
+    ``kernels`` line (``ln_tuning``)."""
+    chosen = (tln.LN_BWD_WARP_ROWS, tln.LN_BWD_CTAS_PER_SM,
+              tln.LN_BWD_WARP_MAX_COLS)
+    g = args[0]
+    t_ms, cap_ms = {}, {}
+    try:
+        for warps, per_sm in shapes:
+            tln.LN_BWD_WARP_ROWS, tln.LN_BWD_CTAS_PER_SM = warps, per_sm
+            t_ms[f"warp {warps} warps x {per_sm} CTAs/SM"] = time_ms(
+                lambda: ops.layer_norm_bwd(*args, **kw))
+        tln.LN_BWD_WARP_ROWS, tln.LN_BWD_CTAS_PER_SM = chosen[:2]
+        tln.LN_BWD_WARP_MAX_COLS = 0
+        t_ms["cta"] = time_ms(lambda: ops.layer_norm_bwd(*args, **kw))
+        rows = g.numel() // cap
+        x2 = torch.randn(rows, cap, device=g.device,
+                         generator=gen).to(g.dtype)
+        g2 = torch.randn(rows, cap, device=g.device,
+                         generator=gen).to(g.dtype)
+        w2 = torch.ones(cap, device=g.device)
+        _, m2, r2 = ops.layer_norm_fwd(x2, w2, None)
+        for c, route in ((cap, "warp"), (0, "cta")):
+            tln.LN_BWD_WARP_MAX_COLS = c
+            check(tln.ln_route(cap, 2, True, backward=True) == route,
+                  f"ln bwd route {route} at {cap}")
+            cap_ms[route] = time_ms(
+                lambda: ops.layer_norm_bwd(g2, x2, m2, r2, w2, **kw))
+        del x2, g2
+    finally:
+        (tln.LN_BWD_WARP_ROWS, tln.LN_BWD_CTAS_PER_SM,
+         tln.LN_BWD_WARP_MAX_COLS) = chosen
+    print(f"  LN_BWD_WARP_ROWS = {chosen[0]}, LN_BWD_CTAS_PER_SM = "
+          f"{chosen[1]}, LN_BWD_WARP_MAX_COLS = {chosen[2]} (chosen); "
+          f"backward ms at T (8192x1024 bf16, with the finish): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t_ms.items())
+          + f"; at T's bytes with {cap} columns: "
+          + ", ".join(f"{r} {v:.4f}" for r, v in cap_ms.items()))
+    return {"chosen": {"warps": chosen[0], "ctas_per_sm": chosen[1],
+                       "max_cols": chosen[2]},
+            "T_ms": t_ms, "cap_ms": {cap: cap_ms}}
 
 
 def check_flash_attention_bwd(torch, ops, dev):
@@ -2357,10 +2664,14 @@ def train_345m(torch, ops, dev):
                                "flash_fwd_kernel")
         n_q, t_q = kernel_time(by_name, "dq_resident_wgmma")
         n_k, t_k = kernel_time(by_name, "dkv_resident_wgmma")
+        n_lf, t_lf = kernel_time(by_name, "ln_fwd_")
+        n_lb, t_lb = kernel_time(by_name, "ln_bwd_")
         print(f"  345M O2 train, profiled step: resident forward {t_f:.2f} "
               f"ms ({n_f} launches); resident backward dQ {t_q:.2f} ms "
               f"({n_q}) + dK/dV {t_k:.2f} ms ({n_k}) = {t_q + t_k:.2f} ms of "
-              f"device time")
+              f"device time; LayerNorm forward {t_lf:.2f} ms ({n_lf} "
+              f"launches), backward {t_lb:.2f} ms ({n_lb} launches: the "
+              f"kernel and its dgamma/dbeta finish)")
     return counts
 
 
@@ -3064,7 +3375,7 @@ def main():
     keys = ("name", "route", "kernel", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "by_shape", "res_fwd_tuning",
-            "res_bwd_tuning", "warp_tuning")
+            "res_bwd_tuning", "warp_tuning", "ln_tuning")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
     print(nvidia_smi())
@@ -3074,5 +3385,29 @@ def main():
     return 0
 
 
+def ln_times_of_tree(tree):
+    """``python3 chip_smoke.py --ln-times TREE``: :func:`ln_times` through
+    the port of the checkout at TREE (its kernels built there), printed as
+    one JSON line with the card's name and power limit. Run it for two
+    trees in turns (parent, change, change, parent) to compare them on one
+    card."""
+    import importlib
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(tree))
+    ops = importlib.import_module("apex_tpu_torch.ops")
+    check(os.path.abspath(ops.__file__).startswith(os.path.abspath(tree)),
+          f"apex_tpu_torch imported from {ops.__file__}, not {tree}")
+    times = ln_times(torch, ops, torch.device("cuda", 0))
+    print(json.dumps({"tree": tree, "card": nvidia_smi(), "ms": times}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ln-times"]:
+        sys.exit(ln_times_of_tree(sys.argv[2]))
     sys.exit(main())

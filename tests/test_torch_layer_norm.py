@@ -192,3 +192,122 @@ def test_backward_wrapper_never_takes_the_plain_version():
     x = torch.zeros(2, 8)
     with pytest.raises(ValueError, match="CUDA kernel"):
         tln.layer_norm_bwd(x, x, torch.zeros(2), torch.ones(2), None)
+
+
+# ---------------------------------------------------------------------------
+# routing: which kernel route a row takes on the card (pure Python, so the
+# CPU holds it), the backward's grid, and parity at the routes' edges
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hidden,itemsize,aligned,backward,route", [
+    # forward: aligned rows up to LN_WARP_MAX_COLS take the warp route
+    (1024, 2, True, False, "warp"), (2048, 2, True, False, "warp"),
+    (2056, 2, True, False, "cta"), (4096, 2, True, False, "cta"),
+    (8192, 2, True, False, "cta"), (8, 2, True, False, "warp"),
+    (1000, 2, True, False, "warp"), (1001, 2, True, False, "cta"),
+    (1004, 2, True, False, "cta"), (1024, 2, False, False, "cta"),
+    (4, 4, True, False, "warp"), (2, 4, True, False, "cta"),
+    (1001, 4, True, False, "cta"), (2048, 4, True, False, "warp"),
+    (2052, 4, True, False, "cta"), (16384, 4, True, False, "cta"),
+    # backward: the same rule with LN_BWD_WARP_MAX_COLS
+    (1024, 2, True, True, "warp"), (1000, 2, True, True, "warp"),
+    (1032, 2, True, True, "cta"), (2048, 2, True, True, "cta"),
+    (1001, 2, True, True, "cta"), (1024, 2, False, True, "cta"),
+    (1024, 4, True, True, "warp"), (1028, 4, True, True, "cta"),
+    (8192, 2, True, True, "cta"), (16384, 4, True, True, "cta"),
+])
+def test_ln_route(hidden, itemsize, aligned, backward, route):
+    """Rows whose bytes are a multiple of 16, with every pointer on 16
+    bytes, take the warp route up to the cap chosen on the card (2048
+    columns forward, 1024 backward); unaligned or wider rows the CTA
+    route."""
+    assert (tln.LN_WARP_MAX_COLS, tln.LN_BWD_WARP_MAX_COLS) == (2048, 1024)
+    assert tln.ln_route(hidden, itemsize, aligned, backward) == route
+    if not backward:
+        assert tln.ln_route(hidden, itemsize, aligned) == route
+
+
+@pytest.mark.parametrize("rows,route,sms,grid", [
+    (8192, "warp", 132, 132), (8192, "cta", 132, 256),
+    (1, "warp", 132, 1), (1, "cta", 132, 1),
+    (33, "warp", 132, 5), (33, "cta", 132, 2),
+    (1056, "warp", 132, 132), (1057, "warp", 132, 132),
+    (100, "warp", 8, 8),
+])
+def test_ln_bwd_grid(rows, route, sms, grid):
+    """The backward's CTAs, and so its partial rows: on the warp route as
+    many as the card holds (LN_BWD_CTAS_PER_SM an SM) or fewer where the
+    rows do not give each warp one; on the CTA route one per 32 rows."""
+    assert (tln.LN_BWD_WARP_ROWS, tln.LN_BWD_CTAS_PER_SM,
+            tln.LN_BWD_CTA_ROWS) == (8, 1, 32)
+    assert tln.ln_bwd_grid(rows, route, sms) == grid
+
+
+def test_ln_bwd_grid_gives_every_warp_a_row_and_fits_the_card():
+    warps = tln.LN_BWD_WARP_ROWS
+    for sms in (1, 8, 132):
+        for rows in range(1, 3000, 37):
+            grid = tln.ln_bwd_grid(rows, "warp", sms)
+            assert 1 <= grid <= sms * tln.LN_BWD_CTAS_PER_SM
+            assert (grid - 1) * warps < rows  # no CTA without a row
+            cta = tln.ln_bwd_grid(rows, "cta", sms)
+            assert (cta - 1) * tln.LN_BWD_CTA_ROWS < rows <= \
+                cta * tln.LN_BWD_CTA_ROWS
+
+
+@pytest.mark.parametrize("hidden", [1001, 2056])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_norm_at_route_edges_matches_jax(hidden, rms, dtype):
+    """FusedNorm at the routes' edges (rows of 1001 elements: unaligned on
+    the card; 2056: past both warp caps), 2 rows: y against the JAX
+    package's ``impl="xla"`` norm, dx/dgamma/dbeta against ``jax.grad`` of
+    the interpret-mode Pallas kernels. fp32 within 1e-5 (y) and 2e-5 (grads);
+    bf16 within one bf16 ulp (y), two ulps + 1e-3 (dx) and 1e-3 relative
+    (dgamma/dbeta), as the tests above."""
+    for backward in (False, True):
+        for itemsize in (2, 4):
+            assert tln.ln_route(hidden, itemsize, True, backward) == "cta"
+    x, w, b, g = _bwd_case("wb", rows=1, hidden=hidden, seed=11)
+    if rms:
+        b = None
+    bf16 = dtype == "bfloat16"
+    tdt, jdt = ((torch.bfloat16, jnp.bfloat16) if bf16
+                else (torch.float32, jnp.float32))
+    if bf16:  # identical bf16 values on both sides
+        x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+        g = np.array(jnp.asarray(g, jnp.bfloat16).astype(jnp.float32))
+    tx = torch.from_numpy(x).to(tdt)
+    tw = torch.from_numpy(w)
+    tb = None if b is None else torch.from_numpy(b)
+    xj = jnp.asarray(x, jdt)
+    if rms:
+        got = tln.rms_norm(tx, tw)
+        ref = jln.rms_norm(xj, jnp.asarray(w), impl="xla")
+    else:
+        got = tln.layer_norm(tx, tw, tb)
+        ref = jln.layer_norm(xj, jnp.asarray(w), jnp.asarray(b), impl="xla")
+    assert got.dtype == tdt
+    ref32 = np.asarray(ref.astype(jnp.float32))
+    got32 = got.float().numpy()
+    if bf16:
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref32), 1e-30)))
+                      - 7)
+        assert np.all(np.abs(got32 - ref32) <= ulp)
+    else:
+        np.testing.assert_allclose(got32, ref32, atol=1e-5)
+    grads = _torch_grads(x, w, b, g, rms, dtype=tdt)
+    refs = _jax_grads(x, w, b, g, rms, "pallas", dtype=jdt)
+    for i, (a, r) in enumerate(zip(grads, refs)):
+        assert (a is None) == (r is None)
+        if a is None:
+            continue
+        a, r = a.float().numpy(), np.asarray(r, np.float32)
+        if not bf16:
+            np.testing.assert_allclose(a, r, atol=2e-5, rtol=2e-5)
+        elif i == 0:
+            assert np.all(np.abs(a - r) <= np.abs(r) * 2.0 ** -7 + 1e-3)
+        else:
+            np.testing.assert_allclose(a, r, rtol=1e-3,
+                                       atol=1e-3 * np.abs(r).max())
