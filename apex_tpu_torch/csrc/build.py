@@ -46,8 +46,9 @@ SIGNATURES = {
     "apex_ln_fwd": [_P] * 6 + [_L, _I, _F] + [_I] * 4 + [_P],
     "apex_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F] + [_I] * 5
                       + [_P],
-    "apex_flash_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
-    "apex_flash_decode_multi": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    "apex_flash_decode": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+    "apex_flash_decode_multi": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3
+                               + [_P],
     "apex_ln_bwd": [_P] * 10 + [_L] + [_I] * 6 + [_P],
     "apex_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_L] * 12
                          + [_F] + [_I] * 5 + [_P],

@@ -1,59 +1,77 @@
 // Paged flash-decode for Hopper: attention over a paged KV pool.
 //
-// Three kernels behind two entry points, all with the optional sliding window
-// (keys [length - window, length) of each query) and an fp32 online softmax;
-// a query with no visible key outputs exactly 0.
+// Two entry points, each with the optional sliding window (keys
+// [length - window, length) of each query) and an fp32 online softmax; a
+// query with no visible key outputs exactly 0.
 //
 // apex_flash_decode replaces apex_tpu/ops/flash_decode.py _decode_kernel
-// (pallas_call in flash_decode): ONE query per slot. For each slot b and kv
-// head, the H/KH query heads of the group attend the first lengths[b]
-// positions of the slot's sequence, whose keys live in pages
-// block_tables[b, p // block] at offset p % block; a slot with length 0
-// outputs exactly 0. Bound on this card: bytes. Each live K/V element is read
-// once and used for 2 * G multiply-adds. Design: one CTA (128 threads) per
-// (kv head, slot), which reads its page ids from the block table itself and
-// walks only the live pages (from the window's first page to
-// ceil(length / block)) -- the TPU grid has to visit all max_blocks pages and
-// mask the dead ones. A tile of up to 64 keys (several pages) is staged in
-// shared memory as fp32 per step; one page of one kv head is
-// block * head_dim contiguous elements, so the loads are 16 bytes a thread
-// where the shapes allow. Each warp computes whole scores (lanes split
-// head_dim, one shuffle reduction), each warp owns whole query heads for the
-// row max/sum, and the PV update splits the tile's keys over all threads
-// before a shared-memory sum. Splitting one slot's pages over several CTAs
-// with a combine pass is later work.
-//
-// apex_flash_decode_multi replaces _decode_multi_kernel (pallas_call in
-// flash_decode_multi): K TRAILING queries per slot. The rows of one
-// (slot, kv head) are (query head of the group, query) with the query index
-// minor, as in the reference; row r's query j = r % K sees the keys below
-// lengths[b] - (K - 1 - j). Chunked prefill runs it with one slot and K = the
-// chunk (256 rows per kv head), speculative verify with every slot and
-// K = drafts + 1 (5 rows). Bound on this card: bytes at both (a key's K and
-// V rows, 4 * d bytes in bf16, feed 4 * d flops per query row, so operations
-// bound only past about 295 rows per kv head). The TPU kernel keeps all G*K
-// rows' accumulators resident in VMEM and walks every page; here the rows
-// are tiled: one CTA of 4 warps per (64-row tile, kv head, slot), each warp
-// 16 rows, so any K works and nothing of a row lives in shared memory but
-// its Q. Each CTA walks only the keys its tile
-// can see: from the smallest first visible position of its rows (the
-// window) to the largest visible length (its last row's). Keys are masked by
-// POSITION against each row's own range, never by "page is allocated":
+// (def :141, pallas_call in flash_decode :271): ONE query per slot. For each
+// slot b and kv head, the H/KH query heads of the group attend the first
+// lengths[b] positions of the slot's sequence, whose keys live in pages
+// block_tables[b, p // block] at offset p % block. apex_flash_decode_multi
+// replaces _decode_multi_kernel (def :281, pallas_call in flash_decode_multi
+// :412): K TRAILING queries per slot. The rows of one (slot, kv head) are
+// (query head of the group, query) with the query index minor, as in the
+// reference; row r's query j = r % K sees the keys below
+// lengths[b] - (K - 1 - j). Chunked prefill runs it with one slot and K =
+// the chunk (256 rows per kv head), speculative verify with every slot and
+// K = drafts + 1 (5 rows); the single-query decode is K = 1. Keys are masked
+// by POSITION against each row's own range, never by "page is allocated":
 // rejected speculative positions leave stale k/v past the committed length.
-// - bf16: both products on the tensor cores with mma.sync m16n8k16 (the
-//   fragment helpers of common.cuh), 64-key tiles gathered from the pages
-//   into shared memory with 16-byte loads (K row-major, V transposed). A
-//   tile of fewer than 64 live rows (verify: 5) runs only its live warps'
-//   products; the idle warps help stage the pages. P is rounded to bf16 as
-//   the A operand of P.V, which the reference kernel does not do (it keeps P
-//   fp32); the bf16 tolerance against the plain version covers it (0.02, as
-//   for the flash forward).
-// - fp32: plain FMA, one CTA of 256 threads per 64-row tile, 4 lanes a row,
-//   as the fp32 flash forward.
+//
+// Bound on this card: bytes. A bf16 key's K and V rows (4 d bytes) feed
+// 4 d operations per query row, so compute binds only past about 295 rows
+// per kv head; the decode (1 row per kv head in GPT-2), the verify (5) and
+// the chunk (256) all sit below. What holds a kernel back is how many
+// bytes are in flight on how many SMs, and the longest slot.
+//
+// bf16 "split" route (flash_decode_split / decode_multi_split, one
+// template decode_split<NCH>; d % 8 == 0, d <= 128, block % 8 == 0,
+// 16-byte-aligned q, o and pools):
+// - Split. The rows of a (slot, kv head) go in tiles of 16 (one m16 tile:
+//   the decode's g rows, the verify's 5 g, the chunk's 256 in 16 tiles).
+//   Each tile's visible keys -- from the window's first page to its rows'
+//   largest length, in whole pages -- are cut into `splits` nearly equal
+//   runs of pages, one CTA each (split s takes pages
+//   [p0 + s n / S, p0 + (s + 1) n / S)). The split count comes from static
+//   shapes only (ops/flash_decode.py decode_splits: about 32 pages a split,
+//   at most two CTAs an SM, never more than the pages), and each CTA derives
+//   its range on the device from lengths[b]: a long slot spreads over S
+//   CTAs instead of setting the time alone, and nothing is read back to
+//   the host, so the call can be captured in a CUDA graph.
+// - Ring. One producer warp reads the page ids from the block table and
+//   keeps up to kDecRing stages of 64 keys in flight: each stage is 64 /
+//   box_rows TMA boxes of K and as many of V from a 2-D tensor map over the
+//   pool's (num_blocks * kh * block, d) rows (a page of one kv head is
+//   block * d contiguous elements), 128-byte swizzle, completing on
+//   mbarriers. The pages stay bf16 in shared memory (no fp32 staging).
+// - Math. Four consumer warps each take 16 keys of every stage for the 16
+//   rows: S = Q K^T and O += P V with mma.sync m16n8k16 (fp32 sums), K and V
+//   read with ldmatrix (V with .trans from the row-major page: no
+//   transposed copy), P kept in registers. The warps merge their (m, l,
+//   acc) in warp order through shared memory. P is rounded to bf16 as the
+//   A operand of P V, which the reference kernel keeps fp32 (the bf16
+//   tolerance covers it, as for the flash forward).
+// - Combine. A tile whose keys fit one split writes o directly. Otherwise
+//   each live split writes its fp32 (m, l, acc) rows to a workspace and adds
+//   one to the tile's counter; the CTA that brings it to the live count
+//   merges the partials in split order (so two calls give the same bits,
+//   and no atomic touches o) and resets the counter to 0 for the next call.
+//   A split with no page returns at once; a tile that sees no key writes 0.
+//
+// "gather" route (bf16 with d % 8 != 0, block % 8 != 0 or unaligned
+// pools): the kernels of the first port. flash_decode_kernel: one CTA per
+// (kv head, slot) walking its pages with tiles staged as fp32;
+// decode_multi_mma_kernel: one CTA per (64-row tile, kv head, slot), pages
+// gathered into shared memory (V transposed), mma.sync.
+// fp32 route: flash_decode_kernel<float> and decode_multi_f32_kernel (plain
+// FMA, 4 lanes a row), as first ported.
 
 #include <climits>
+#include <mutex>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace apex_torch {
 
@@ -292,12 +310,12 @@ __device__ __forceinline__ RowRange row_range(int len, int r, int kq,
   return rr;
 }
 
-// The keys a 64-row tile [r0, r0 + 64) of R rows can see: [lo, hi) over the
-// rows that see any key (hi == 0 when none does).
-__device__ __forceinline__ RowRange tile_range(int len, int r0, int R, int kq,
+// The keys rows [r0, r1) can see: [lo, hi) over the rows that see any key
+// (hi == 0 when none does).
+__device__ __forceinline__ RowRange tile_range(int len, int r0, int r1, int kq,
                                                int window, int s_max) {
   RowRange t{INT_MAX, 0};
-  for (int r = r0; r < min(r0 + kTile, R); ++r) {
+  for (int r = r0; r < r1; ++r) {
     const RowRange rr = row_range(len, r, kq, window, s_max);
     if (rr.hi > rr.lo) {
       t.lo = min(t.lo, rr.lo);
@@ -390,7 +408,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int s_max = max_blocks * blk;
   const int len = lengths[bi];
   const int* trow = tables + (size_t)bi * max_blocks;
-  const RowRange tr = tile_range(len, r0, R, kq, window, s_max);
+  const RowRange tr = tile_range(len, r0, min(r0 + kTile, R), kq, window,
+                                    s_max);
   const RowRange ra = row_range(len, rowA, kq, window, s_max);
   const RowRange rb = row_range(len, rowB, kq, window, s_max);
   const bool liveA = rowA < R, liveB = rowB < R;
@@ -533,7 +552,8 @@ __global__ void __launch_bounds__(kMqThreads)
   const int s_max = max_blocks * blk;
   const int len = lengths[bi];
   const int* trow = tables + (size_t)bi * max_blocks;
-  const RowRange tr = tile_range(len, r0, R, kq, window, s_max);
+  const RowRange tr = tile_range(len, r0, min(r0 + kTile, R), kq, window,
+                                    s_max);
   const RowRange rr = row_range(len, row, kq, window, s_max);
   const bool live = row < R;
   const size_t head0 = ((size_t)bi * h + (size_t)khi * g) * kq;
@@ -672,50 +692,613 @@ int launch_multi_f32(const void* q, const void* kp, const void* vp,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 "split" route: split keys, a TMA ring of pages, a fixed-order combine
+// ---------------------------------------------------------------------------
+
+constexpr int kDecKeys = 64;      // keys of a ring stage
+constexpr int kDecRing = 4;       // stages in flight at most
+constexpr int kDecWarps = 4;      // consumer warps; then the producer's
+constexpr int kDecRows = 16;      // rows a CTA: one m16 tile
+constexpr int kDecSplitThreads = (kDecWarps + 1) * 32;
+constexpr int kDecWarpKeys = kDecKeys / kDecWarps;  // a warp's keys a stage
+constexpr int kDecRowBytes = 128;  // a swizzled row: 64 bf16 columns
+constexpr int kDecChunk = kDecKeys * kDecRowBytes;  // 64 keys x 64 columns
+constexpr int kDecMaxSplits = 256;  // splits a group at most
+constexpr int kMapCache = 128;      // page-pool tensor maps kept
+
+struct DecodeMaps {
+  CUtensorMap k, v;  // pages_map: boxes of {64 columns, box_rows rows}
+};
+
+struct DecodeArgs {
+  const __nv_bfloat16* q;  // (b, h, kq, d) contiguous
+  const int* tables;       // (b, max_blocks)
+  const int* lengths;      // (b,)
+  __nv_bfloat16* o;        // as q
+  float* acc;              // (groups, splits, kDecRows, DP) partial sums
+  float2* ml;              // (groups, splits, kDecRows): max and sum, base 2
+  int* counters;           // (groups,): live splits done; the last resets it
+  int h, kh, kq, blk, d, max_blocks, window;
+  int rows;       // g * kq rows a (slot, kv head)
+  int row_tiles;  // ceil(rows / kDecRows)
+  int splits, ring, box_rows;
+  float c;  // scale * log2(e): scores in base 2
+};
+
+// Shared memory: the ring (`ring` stages of K then V, each NCH chunks of 64
+// keys x 128 bytes), then its mbarriers and one flag. Once the keys are
+// done, the key warps hand their partials over through the ring's first
+// stage (kMerge bytes).
+template <int NCH>
+struct DecodeShape {
+  static constexpr int kDP = 64 * NCH;  // padded head_dim
+  static constexpr int kHalf = NCH * kDecChunk;
+  static constexpr int kStage = 2 * kHalf;
+  static constexpr int kLane = kDP / 2 + 4;  // o, then m and l per row half
+  static constexpr int kMerge = (kDecWarps - 1) * 32 * kLane * 4;
+  static_assert(kMerge <= kStage && kDecWarps * kDecMaxSplits * 4 <= kStage,
+                "the hand-over and the merge's weights fit one stage");
+  static size_t bytes(int ring) {
+    return 1024 + (size_t)ring * kStage + 2 * kDecRing * 8 + 16;
+  }
+};
+
+__device__ __forceinline__ unsigned char* dec_align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// First page of split `s` of `splits` over the n pages from p0 (the next
+// split's first page ends it): nearly equal runs, none empty while
+// splits <= n.
+__device__ __forceinline__ int split_page(int p0, int n, int s, int splits) {
+  return p0 + (int)((long long)s * n / splits);
+}
+
+__device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float x,
+                                             float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
+}
+
+// One CTA: split blockIdx.x % splits of the 16-row tile blockIdx.x / splits
+// of kv head blockIdx.y of slot blockIdx.z. Warps 0-3 each take 16 keys of
+// every stage for all 16 rows; warp 4 is the producer.
+template <int NCH>
+__device__ __forceinline__ void decode_split(const DecodeMaps& maps,
+                                             const DecodeArgs& a) {
+  using Sh = DecodeShape<NCH>;
+  constexpr int DP = Sh::kDP, DT = DP / 8, KS = DP / 16;
+  constexpr int NT = kDecWarpKeys / 8;  // n8 tiles of a warp's scores
+  constexpr int kConsumers = kDecWarps * 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = dec_align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + a.ring * Sh::kStage);
+  uint64_t* empty = full + kDecRing;
+  int* last = reinterpret_cast<int*>(empty + kDecRing);
+
+  const int tile = blockIdx.x / a.splits;
+  const int split = blockIdx.x - tile * a.splits;
+  const int khi = blockIdx.y, bi = blockIdx.z;
+  const int r0 = tile * kDecRows, r1 = min(r0 + kDecRows, a.rows);
+  const int s_max = a.max_blocks * a.blk;
+  const int len = a.lengths[bi];
+  const size_t head0 =
+      ((size_t)bi * a.h + (size_t)khi * (a.h / a.kh)) * a.kq;
+  // the pages some row of the tile sees, and this split's run of them
+  const RowRange tr = tile_range(len, r0, r1, a.kq, a.window, s_max);
+  const int p0 = tr.lo / a.blk;
+  const int npg = tr.hi > tr.lo ? (tr.hi + a.blk - 1) / a.blk - p0 : 0;
+  const int live = min(npg, a.splits);
+  if (live == 0) {  // no row of the tile sees a key: exactly 0
+    if (split == 0) {
+      uint32_t* out =
+          reinterpret_cast<uint32_t*>(a.o + (head0 + r0) * (size_t)a.d);
+      for (int e = threadIdx.x; e < (r1 - r0) * a.d / 2; e += blockDim.x)
+        out[e] = 0u;
+    }
+    return;
+  }
+  const int pa = split_page(p0, npg, split, a.splits);
+  const int pb = split_page(p0, npg, split + 1, a.splits);
+  if (pa == pb) return;  // a split with no page: not counted
+  const int ka = pa * a.blk, kb = pb * a.blk;
+  const int nst = (kb - ka + kDecKeys - 1) / kDecKeys;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.ring; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kDecWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kDecWarps) {  // the producer: lane i loads box i of a stage
+    const int nbox = kDecKeys / a.box_rows;
+    const int* trow = a.tables + (size_t)bi * a.max_blocks;
+    for (int t = 0; t < nst; ++t) {
+      const int s = t % a.ring;
+      int row = 0;
+      if (lane < nbox) {
+        int pos = ka + t * kDecKeys + lane * a.box_rows;
+        if (pos >= kb) pos = kb - a.box_rows;  // past the split: masked
+        row = (trow[pos / a.blk] * a.kh + khi) * a.blk + pos % a.blk;
+      }
+      if (lane == 0) {
+        hopper::mbar_wait(&empty[s], ((t / a.ring) & 1) ^ 1);
+        hopper::mbar_arrive_tx(&full[s], Sh::kStage);
+      }
+      __syncwarp();
+      if (lane < nbox) {
+        unsigned char* dst =
+            base + s * Sh::kStage + lane * a.box_rows * kDecRowBytes;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          hopper::tma_load_2d(dst + c * kDecChunk, &maps.k, &full[s], 64 * c,
+                              row);
+          hopper::tma_load_2d(dst + Sh::kHalf + c * kDecChunk, &maps.v,
+                              &full[s], 64 * c, row);
+        }
+      }
+    }
+    return;
+  }
+
+  const int gq = lane >> 2, tig = lane & 3;
+  const int rA = r0 + gq, rB = rA + 8;
+  // Q as A fragments, zero past the rows and d
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = (i & 1) ? rB : rA;
+      const int col = ks * 16 + 2 * tig + (i >> 1) * 8;
+      qa[ks][i] = row < a.rows && col < a.d
+                      ? *reinterpret_cast<const uint32_t*>(
+                            a.q + (head0 + row) * a.d + col)
+                      : 0u;
+    }
+  // each row's visible keys inside this split
+  RowRange rr[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = hf ? rB : rA;
+    rr[hf] = row_range(len, row, a.kq, a.window, s_max);
+    rr[hf].lo = max(rr[hf].lo, ka);
+    rr[hf].hi = row < a.rows ? min(rr[hf].hi, kb) : 0;
+  }
+
+  const float ninf = __int_as_float(0xff800000);
+  float o[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[2] = {ninf, ninf}, l[2] = {0.f, 0.f};
+  const uint32_t ring = hopper::smem_u32(base);
+  const int kw = warp * kDecWarpKeys;  // this warp's first key of a stage
+  for (int t = 0; t < nst; ++t) {
+    const int s = t % a.ring;
+    const uint32_t kst = ring + s * Sh::kStage, vst = kst + Sh::kHalf;
+    const int key0 = ka + t * kDecKeys + kw;  // position of key kw
+    hopper::mbar_wait(&full[s], (t / a.ring) & 1);
+
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+    for (int k2 = 0; k2 < KS / 2; ++k2)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int key = kw + nt * 8 + (lane & 7);
+        const int c = k2 * 4 + (lane >> 3);  // 16-byte chunk of the row
+        uint32_t b[4];
+        hopper::ldsm_x4(b, kst + (c >> 3) * kDecChunk + key * kDecRowBytes +
+                               (((c & 7) ^ (key & 7)) << 4));
+        mma_bf16(sc[nt], qa[2 * k2][0], qa[2 * k2][1], qa[2 * k2][2],
+                 qa[2 * k2][3], b[0], b[1]);
+        mma_bf16(sc[nt], qa[2 * k2 + 1][0], qa[2 * k2 + 1][1],
+                 qa[2 * k2 + 1][2], qa[2 * k2 + 1][3], b[2], b[3]);
+      }
+
+    // online softmax in base 2; a row with nothing visible yet keeps
+    // m = -inf and subtracts 0, so its p and alpha are 0, not NaN
+    float mx[2] = {ninf, ninf};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int hf = i >> 1;
+        const int pos = key0 + nt * 8 + 2 * tig + (i & 1);
+        sc[nt][i] = pos >= rr[hf].lo && pos < rr[hf].hi ? sc[nt][i] * a.c
+                                                        : ninf;
+        mx[hf] = fmaxf(mx[hf], sc[nt][i]);
+      }
+    float sub[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+      const float m_new = fmaxf(m[hf], mx[hf]);
+      sub[hf] = m_new == ninf ? 0.f : m_new;
+      alpha[hf] = hopper::fast_exp2(m[hf] - sub[hf]);
+      m[hf] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sc[nt][i] = hopper::fast_exp2(sc[nt][i] - sub[i >> 1]);
+        sum[i >> 1] += sc[nt][i];
+      }
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+
+    // O += P V over the warp's 16 keys: P from the score registers, V by
+    // ldmatrix.trans from the row-major page
+    const uint32_t a0 = pack_bf16(sc[0][0], sc[0][1]);
+    const uint32_t a1 = pack_bf16(sc[0][2], sc[0][3]);
+    const uint32_t a2 = pack_bf16(sc[1][0], sc[1][1]);
+    const uint32_t a3 = pack_bf16(sc[1][2], sc[1][3]);
+#pragma unroll
+    for (int d2 = 0; d2 < DT / 2; ++d2) {
+      const int key = kw + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int c = d2 * 2 + (lane >> 4);
+      uint32_t b[4];
+      hopper::ldsm_x4_t(b, vst + (c >> 3) * kDecChunk + key * kDecRowBytes +
+                               (((c & 7) ^ (key & 7)) << 4));
+      mma_bf16(o[2 * d2], a0, a1, a2, a3, b[0], b[1]);
+      mma_bf16(o[2 * d2 + 1], a0, a1, a2, a3, b[2], b[3]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+  }
+
+  // warps 1-3 hand their partials to warp 0 through the ring once every
+  // warp is done with it; warp 0 merges them in warp order
+  hopper::named_sync(1, kConsumers);
+  float* hand = reinterpret_cast<float*>(base) + lane;
+  if (warp > 0) {
+    float* dst = hand + (warp - 1) * 32 * Sh::kLane;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[(dt * 4 + j) * 32] = o[dt][j];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      dst[(DP / 2 + hf) * 32] = m[hf];
+      dst[(DP / 2 + 2 + hf) * 32] = l[hf];
+    }
+  }
+  hopper::named_sync(1, kConsumers);
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 1; k < kDecWarps; ++k) {
+      const float* src = hand + (k - 1) * 32 * Sh::kLane;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float m2 = src[(DP / 2 + hf) * 32];
+        const float l2 = src[(DP / 2 + 2 + hf) * 32];
+        const float mn = fmaxf(m[hf], m2);
+        const float sb = mn == ninf ? 0.f : mn;
+        const float w1 = hopper::fast_exp2(m[hf] - sb);
+        const float w2 = hopper::fast_exp2(m2 - sb);
+        l[hf] = l[hf] * w1 + l2 * w2;
+        m[hf] = mn;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            o[dt][2 * hf + j] = o[dt][2 * hf + j] * w1 +
+                                src[(dt * 4 + 2 * hf + j) * 32] * w2;
+      }
+    }
+  }
+
+  if (live == 1) {  // the only split with keys: o directly
+    if (warp == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = hf ? rB : rA;
+        if (row >= a.rows) continue;
+        const float inv = l[hf] > 0.f ? 1.f / l[hf] : 0.f;
+        __nv_bfloat16* orow = a.o + (head0 + row) * a.d;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          const int col = dt * 8 + 2 * tig;
+          if (col < a.d)
+            store_bf16x2(orow + col, o[dt][2 * hf] * inv,
+                         o[dt][2 * hf + 1] * inv);
+        }
+      }
+    }
+    return;
+  }
+
+  // this split's fp32 partial rows, then the group's counter
+  const size_t gid = ((size_t)bi * a.kh + khi) * a.row_tiles + tile;
+  const size_t g0 = gid * a.splits * kDecRows;  // the group's first row
+  if (warp == 0) {
+    const size_t p_row = g0 + (size_t)split * kDecRows;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int rl = gq + 8 * hf;
+      if (r0 + rl >= a.rows) continue;
+      float* dst = a.acc + (p_row + rl) * DP;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<float2*>(dst + dt * 8 + 2 * tig) =
+            make_float2(o[dt][2 * hf], o[dt][2 * hf + 1]);
+      if (tig == 0) a.ml[p_row + rl] = make_float2(m[hf], l[hf]);
+    }
+  }
+  __threadfence();
+  hopper::named_sync(1, kConsumers);
+  if (threadIdx.x == 0)
+    *last = atomicAdd(a.counters + gid, 1) == live - 1 ? 1 : 0;
+  hopper::named_sync(1, kConsumers);
+  if (!*last) return;
+
+  // the last split of the group merges every live split's rows in split
+  // order (the same bits whichever CTA comes last), a warp a row: its
+  // lanes read the splits' (m, l) at once and leave each split's weight in
+  // shared memory (the ring's first bytes); then each lane sums two columns
+  // over the splits, every split's load in flight at once (a split with no
+  // page wrote nothing: its weight is 0 and its load is never used)
+  __threadfence();
+  float* wts = reinterpret_cast<float*>(base) + warp * kDecMaxSplits;
+  for (int rl = warp; rl < r1 - r0; rl += kDecWarps) {
+    const float2* mlr = a.ml + g0 + rl;
+    float mx = ninf;
+    for (int s = lane; s < a.splits; s += 32) {
+      const bool on = split_page(p0, npg, s, a.splits) !=
+                      split_page(p0, npg, s + 1, a.splits);
+      const float2 v = __ldcg(mlr + (size_t)s * kDecRows);
+      wts[s] = on && v.y > 0.f ? v.x : ninf;  // -inf: nothing to add
+      mx = fmaxf(mx, wts[s]);
+    }
+    mx = warp_max(mx);
+    float sl = 0.f;
+    for (int s = lane; s < a.splits; s += 32) {
+      const float w = wts[s] == ninf ? 0.f : hopper::fast_exp2(wts[s] - mx);
+      if (w > 0.f) sl += __ldcg(mlr + (size_t)s * kDecRows).y * w;
+      wts[s] = w;
+    }
+    sl = warp_sum(sl);  // the same butterfly on every lane and call
+    __syncwarp();
+    const float inv = sl > 0.f ? 1.f / sl : 0.f;
+    const float* accr = a.acc + (g0 + rl) * DP;
+#pragma unroll
+    for (int c0 = 0; c0 < DP; c0 += 64) {
+      const int col = c0 + 2 * lane;
+      if (col >= a.d) continue;
+      float x = 0.f, y = 0.f;
+#pragma unroll 8
+      for (int s = 0; s < a.splits; ++s) {
+        const float2 u = __ldcg(reinterpret_cast<const float2*>(
+            accr + (size_t)s * kDecRows * DP + col));
+        const float w = wts[s];
+        x += w > 0.f ? u.x * w : 0.f;
+        y += w > 0.f ? u.y * w : 0.f;
+      }
+      store_bf16x2(a.o + (head0 + r0 + rl) * a.d + col, x * inv, y * inv);
+    }
+    __syncwarp();
+  }
+  if (threadIdx.x == 0) a.counters[gid] = 0;  // ready for the next call
+}
+
+// #9 and #10 on the one template, under their own names for the profiler
+template <int NCH>
+__global__ void __launch_bounds__(kDecSplitThreads)
+    flash_decode_split(const __grid_constant__ DecodeMaps maps,
+                       const DecodeArgs a) {
+  decode_split<NCH>(maps, a);
+}
+
+template <int NCH>
+__global__ void __launch_bounds__(kDecSplitThreads)
+    decode_multi_split(const __grid_constant__ DecodeMaps maps,
+                       const DecodeArgs a) {
+  decode_split<NCH>(maps, a);
+}
+
+// A page pool (num_blocks, kh, blk, d) bf16 as a 2-D tensor map over its
+// rows (num_blocks * kh * blk, d): boxes of {64 columns, box_rows rows}
+// with the 128-byte swizzle, zeros past d. The pools are the same from tick
+// to tick (one per layer), so maps are kept by (pointer, rows, d, box_rows)
+// and encoded once; a map depends on nothing else.
+int pages_map(CUtensorMap* out, const void* pool, long long rows, int d,
+              int box_rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr;
+    long long rows;
+    int d, box;
+  };
+  static Entry cache[kMapCache];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.ptr == pool && e.rows == rows && e.d == d && e.box == box_rows) {
+      *out = e.map;
+      return 0;
+    }
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorSymbolNotFound;
+  if ((uintptr_t)pool % 16 || d % 8 || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  cuuint64_t gdim[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  cuuint64_t gstride[1] = {(cuuint64_t)d * 2};
+  cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, estride[2] = {1, 1};
+  CUtensorMap map;
+  const CUresult r = encode(
+      &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(pool),
+      gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  cache[next] = Entry{map, pool, rows, d, box_rows};
+  next = (next + 1) % kMapCache;
+  used = used < kMapCache ? used + 1 : used;
+  *out = map;
+  return 0;
+}
+
+template <int NCH>
+int launch_decode_split(const DecodeMaps& maps, const DecodeArgs& a, int b,
+                        bool multi, cudaStream_t stream) {
+  const size_t smem = DecodeShape<NCH>::bytes(a.ring);
+  const dim3 grid(a.row_tiles * a.splits, a.kh, b);
+  if (multi) {
+    const int err = set_max_smem<decode_multi_split<NCH>>(smem);
+    if (err) return err;
+    decode_multi_split<NCH><<<grid, kDecSplitThreads, smem, stream>>>(maps,
+                                                                      a);
+  } else {
+    const int err = set_max_smem<flash_decode_split<NCH>>(smem);
+    if (err) return err;
+    flash_decode_split<NCH><<<grid, kDecSplitThreads, smem, stream>>>(maps,
+                                                                      a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The split route's checks, tensor maps and arguments: `splits` CTAs a
+// 16-row tile; ws holds the fp32 partials (groups * splits * 16 * (DP + 2)
+// floats, DP = 64 or 128), counters one zeroed int a group (groups = b * kh
+// * ceil(h / kh * kq / 16)).
+int launch_decode_split_bf16(const void* q, const void* kp, const void* vp,
+                             const void* tables, const void* lengths, void* o,
+                             void* ws, void* counters, int b, int h, int kh,
+                             int kq, int blk, int d, int max_blocks,
+                             int num_blocks, float scale, int window,
+                             int splits, bool multi, cudaStream_t stream) {
+  const long long pool_rows = (long long)num_blocks * kh * blk;
+  if (d % 8 || d > 128 || blk % 8 || splits < 1 || splits > kDecMaxSplits ||
+      num_blocks < 1 || pool_rows > INT_MAX || !ws || !counters ||
+      ((uintptr_t)q | (uintptr_t)kp | (uintptr_t)vp | (uintptr_t)o) % 16)
+    return (int)cudaErrorInvalidValue;
+  int box = kDecKeys;  // gcd(blk, 64) >= 8: no box crosses a page
+  while (blk % box) box /= 2;
+  DecodeMaps maps;
+  int err = pages_map(&maps.k, kp, pool_rows, d, box);
+  if (!err) err = pages_map(&maps.v, vp, pool_rows, d, box);
+  if (err) return err;
+  DecodeArgs a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.tables = static_cast<const int*>(tables);
+  a.lengths = static_cast<const int*>(lengths);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.h = h;
+  a.kh = kh;
+  a.kq = kq;
+  a.blk = blk;
+  a.d = d;
+  a.max_blocks = max_blocks;
+  a.window = window;
+  a.rows = h / kh * kq;
+  a.row_tiles = (a.rows + kDecRows - 1) / kDecRows;
+  a.splits = splits;
+  a.box_rows = box;
+  a.c = scale * 1.4426950408889634f;
+  if ((long long)a.row_tiles * splits > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int dp = d > 64 ? 128 : 64;
+  const size_t groups = (size_t)b * kh * a.row_tiles;
+  a.acc = static_cast<float*>(ws);
+  a.ml = reinterpret_cast<float2*>(a.acc + groups * splits * kDecRows * dp);
+  a.counters = static_cast<int*>(counters);
+  // ring depth: the stages of the longest split (a window bounds the pages
+  // a tile sees), at most kDecRing
+  const int span = window > 0
+                       ? min(max_blocks, (window + kq - 2 + blk) / blk + 1)
+                       : max_blocks;
+  const long long pages = (span + splits - 1) / splits;
+  const long long stages = (pages * blk + kDecKeys - 1) / kDecKeys;
+  a.ring = (int)(stages < kDecRing ? (stages > 0 ? stages : 1) : kDecRing);
+  return d > 64 ? launch_decode_split<2>(maps, a, b, multi, stream)
+                : launch_decode_split<1>(maps, a, b, multi, stream);
+}
+
 }  // namespace apex_torch
 
 using namespace apex_torch;
 
 // q: contiguous (b, h, d); pages: contiguous (num_blocks, kh, blk, d);
 // tables: int32 (b, max_blocks); lengths: int32 (b,); o: (b, h, d) in q's
-// dtype. h % kh == 0.
+// dtype. h % kh == 0. splits > 0 takes the bf16 split route (ws and
+// counters as launch_decode_split_bf16 says); 0 the gather route in bf16,
+// the only one in fp32.
 extern "C" int apex_flash_decode(const void* q, const void* kp, const void* vp,
                                  const void* tables, const void* lengths,
-                                 void* o, int b, int h, int kh, int blk, int d,
-                                 int max_blocks, float scale, int window,
-                                 int dtype, void* stream) {
+                                 void* o, void* ws, void* counters, int b,
+                                 int h, int kh, int blk, int d,
+                                 int max_blocks, int num_blocks, float scale,
+                                 int window, int splits, int dtype,
+                                 void* stream) {
   if (b < 1 || kh < 1 || h % kh || blk < 1 || d < 1 || max_blocks < 1 ||
-      window < 0)
+      window < 0 || splits < 0 || (splits > 0 && dtype != kBF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_flash_decode<float>(q, kp, vp, tables, lengths, o, b, h, kh,
                                       blk, d, max_blocks, scale, window, s);
-  if (dtype == kBF16)
-    return launch_flash_decode<__nv_bfloat16>(q, kp, vp, tables, lengths, o, b,
-                                              h, kh, blk, d, max_blocks, scale,
-                                              window, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
+  if (splits > 0)
+    return launch_decode_split_bf16(q, kp, vp, tables, lengths, o, ws,
+                                    counters, b, h, kh, 1, blk, d, max_blocks,
+                                    num_blocks, scale, window, splits, false,
+                                    s);
+  return launch_flash_decode<__nv_bfloat16>(q, kp, vp, tables, lengths, o, b,
+                                            h, kh, blk, d, max_blocks, scale,
+                                            window, s);
 }
 
 // q: contiguous (b, h, kq, d); pages, tables, lengths as above (lengths[b]:
 // the keys of the LAST query); o: (b, h, kq, d) in q's dtype. h % kh == 0,
-// d <= 128; window 0 = none.
+// d <= 128; window 0 = none; splits, ws and counters as above.
 extern "C" int apex_flash_decode_multi(const void* q, const void* kp,
                                        const void* vp, const void* tables,
-                                       const void* lengths, void* o, int b,
-                                       int h, int kh, int kq, int blk, int d,
-                                       int max_blocks, float scale,
-                                       int window, int dtype, void* stream) {
+                                       const void* lengths, void* o, void* ws,
+                                       void* counters, int b, int h, int kh,
+                                       int kq, int blk, int d, int max_blocks,
+                                       int num_blocks, float scale,
+                                       int window, int splits, int dtype,
+                                       void* stream) {
   if (b < 1 || kh < 1 || h % kh || kq < 1 || blk < 1 || d < 1 ||
-      d > kMqMaxD || max_blocks < 1 || window < 0)
+      d > kMqMaxD || max_blocks < 1 || window < 0 || splits < 0 ||
+      (splits > 0 && dtype != kBF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_multi_f32(q, kp, vp, tables, lengths, o, b, h, kh, kq, blk,
                             d, max_blocks, scale, window, s);
   if (dtype != kBF16) return (int)cudaErrorInvalidValue;
-  // 16-byte page and q loads: whole 16-byte chunks per row, aligned bases
+  if (splits > 0)
+    return launch_decode_split_bf16(q, kp, vp, tables, lengths, o, ws,
+                                    counters, b, h, kh, kq, blk, d,
+                                    max_blocks, num_blocks, scale, window,
+                                    splits, true, s);
+  // the gather route; 16-byte page and q loads where d % 8 == 0 and the
+  // bases are aligned
   const bool vec = d % 8 == 0 && ((uintptr_t)q & 15) == 0 &&
                    ((uintptr_t)kp & 15) == 0 && ((uintptr_t)vp & 15) == 0;
   if (d <= 32)

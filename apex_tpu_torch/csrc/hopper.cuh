@@ -110,6 +110,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box of a 2-D `map` at coordinates {c0, c1} into dst; completes its
+// bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // the box of `map` at coordinates {c0, c1, c2, c3} from shared memory src, a
 // bulk async-group store (elements past the tensor's bounds are not
 // written); commit with bulk_commit, wait with bulk_wait_read
@@ -136,6 +148,24 @@ __device__ __forceinline__ void bulk_wait_read() {
 // make this thread's shared-memory writes visible to TMA (the async proxy)
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory (lanes 8i..8i+7 address the
+// rows of matrix i); lane l gets row l / 4, columns 2 (l % 4)..+1 of each,
+// or with .trans column l / 4, rows 2 (l % 4)..+1: the mma.sync B fragment
+// of a row-major N x K tile, or (trans) of a row-major K x N one
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // barrier `id` (1-15) over `threads` threads (a multiple of 32)

@@ -24,17 +24,44 @@ the plain versions :func:`paged_attention_reference` (``flash_decode.py:
 62-98``) and :func:`paged_attention_multi_reference` (``:101-138``). Like
 the reference kernels they have no backward: with grad mode on, inputs that
 require grad raise.
+
+Routes on the card (:func:`decode_route`): bf16 with ``head_dim % 8 == 0``
+(up to 128), ``block % 8 == 0`` and 16-byte-aligned q, o and pools takes
+the **split** route: each (slot, kv head, tile of ``DECODE_ROWS`` rows)'s
+visible pages are cut into
+:func:`decode_splits` runs, one CTA each, fed by a TMA ring of pages and
+merged in split order by the last CTA of the group (:func:`split_keys`
+says which keys a CTA takes). The split count is a function of shapes
+only: nothing is read back from the device. Other bf16 shapes take the
+**gather** route (the first port's kernels), fp32 the **fp32** route.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from apex_tpu_torch._device import check_device
 from apex_tpu_torch.csrc import build
-from apex_tpu_torch.ops.flash_attention import MAX_HEAD_DIM, NEG_INF
+from apex_tpu_torch.ops.flash_attention import (
+    MAX_HEAD_DIM,
+    NEG_INF,
+    _sm_count,
+)
+
+#: pages a split of the split route aims at: about 8 stages of 64 keys
+#: (16-key pages), enough to pay for the partial's round trip and merge
+DECODE_SPLIT_PAGES = 32
+#: CTAs an SM the splits may fill at most: past about two a CTA's fixed
+#: latency (table, TMA, counter, merge) costs more than its keys save
+DECODE_SPLIT_CTAS = 2
+#: most splits of a group (the kernel's kDecMaxSplits)
+DECODE_MAX_SPLITS = 256
+#: rows of one (slot, kv head) a split-route CTA holds: one m16 tile, its
+#: four warps splitting each stage's keys (the kernel's kDecRows)
+DECODE_ROWS = 16
 
 
 def _dense_pages(pages, tbl, b, s_max, kh, d):
@@ -101,6 +128,79 @@ def paged_attention_multi_reference(q, k_pages, v_pages, block_tables,
     return o.reshape(b, h, kq, d).to(q.dtype)
 
 
+def decode_route(dtype: torch.dtype, d: int, blk: int, aligned: bool) -> str:
+    """The kernel route of a decode call on the card: ``"split"`` (bf16,
+    ``d % 8 == 0``, ``d <= 128``, ``blk % 8 == 0``, q, o and both pools on
+    16 bytes: TMA's terms), ``"gather"`` (other bf16) or ``"fp32"``."""
+    if dtype != torch.bfloat16:
+        return "fp32"
+    if d % 8 == 0 and d <= MAX_HEAD_DIM and blk % 8 == 0 and aligned:
+        return "split"
+    return "gather"
+
+
+def decode_span_pages(max_blocks: int, blk: int, window: Optional[int],
+                      kq: int = 1) -> int:
+    """Most pages one row tile can see: the table's ``max_blocks``, or
+    with a window the pages its ``window + K - 1`` keys can cross."""
+    if window is None:
+        return max_blocks
+    return min(max_blocks, -(-(window + kq - 1) // blk) + 1)
+
+
+def decode_splits(b: int, kh: int, row_tiles: int, span_pages: int,
+                  sms: int = 132) -> int:
+    """Splits of each (slot, kv head, row tile) group on the split route,
+    from static shapes only: one split per ``DECODE_SPLIT_PAGES`` of the
+    ``span_pages`` a group can see, while the ``b * kh * row_tiles``
+    groups' CTAs stay within ``DECODE_SPLIT_CTAS`` an SM; never more than
+    the pages (so no split is empty at full length) nor
+    ``DECODE_MAX_SPLITS``, at least 1."""
+    groups = max(1, b * kh * row_tiles)
+    want = -(-span_pages // DECODE_SPLIT_PAGES)
+    fit = DECODE_SPLIT_CTAS * sms // groups
+    return max(1, min(want, fit, span_pages, DECODE_MAX_SPLITS))
+
+
+def row_keys(length: int, r: int, kq: int, window: Optional[int],
+             s_max: int):
+    """Visible key positions ``[lo, hi)`` of row ``r`` of a (slot, kv
+    head) (its query ``j = r % kq``): the kernels' ``row_range``. Empty
+    when ``hi <= lo``."""
+    qlen = length - (kq - 1 - r % kq)
+    lo = max(qlen - window, 0) if window else 0
+    return lo, min(qlen, s_max)
+
+
+def tile_keys(length: int, r0: int, r1: int, kq: int,
+              window: Optional[int], s_max: int):
+    """``[lo, hi)`` over the rows ``[r0, r1)`` that see any key, ``(0, 0)``
+    when none does: the kernels' ``tile_range``."""
+    live = [row_keys(length, r, kq, window, s_max) for r in range(r0, r1)]
+    live = [(lo, hi) for lo, hi in live if hi > lo]
+    if not live:
+        return 0, 0
+    return min(lo for lo, _ in live), max(hi for _, hi in live)
+
+
+def split_keys(length: int, split: int, splits: int, blk: int,
+               window: Optional[int] = None, kq: int = 1, rows=(0, 1),
+               s_max: Optional[int] = None):
+    """Key positions ``[ka, kb)`` that split ``split`` of ``splits`` of
+    the row tile ``rows = (r0, r1)`` reads, as the split kernel derives
+    them on the device: the tile's visible keys in whole pages of ``blk``,
+    cut into nearly equal runs of pages (``split_page``). ``(0, 0)`` for a
+    split with no page. Each row takes the keys of its own range inside
+    ``[ka, kb)``."""
+    if s_max is None:
+        s_max = 1 << 30
+    lo, hi = tile_keys(length, rows[0], rows[1], kq, window, s_max)
+    p0 = lo // blk
+    n = -(-hi // blk) - p0 if hi > lo else 0
+    pa, pb = p0 + split * n // splits, p0 + (split + 1) * n // splits
+    return (pa * blk, pb * blk) if pb > pa else (0, 0)
+
+
 def _launch_args(fn_name, q, k_pages, v_pages, block_tables, lengths):
     """Check what a decode kernel takes; the int32 tables and lengths."""
     if q.device.type != "cuda":
@@ -129,28 +229,89 @@ def _window_arg(window: Optional[int]) -> int:
     return 0 if window is None else int(window)  # 0: no window
 
 
+@functools.lru_cache(maxsize=256)
+def _plan(dtype, b, h, kh, kq, blk, d, mb, window, aligned, splits, sms):
+    """(splits, workspace floats, counters) of a decode call, from its
+    shapes: the same every tick, so worked out once; 0 splits off the split
+    route."""
+    route = decode_route(dtype, d, blk, aligned)
+    if route != "split":
+        if splits:
+            raise ValueError(f"splits apply to the split route only; this "
+                             f"call takes the {route} route")
+        return 0, 0, 0
+    tiles = -(-(h // kh * kq) // DECODE_ROWS)
+    n_split = splits or decode_splits(
+        b, kh, tiles, decode_span_pages(mb, blk, window, kq), sms)
+    groups = b * kh * tiles
+    dp = 64 if d <= 64 else 128
+    return n_split, groups * n_split * DECODE_ROWS * (dp + 2), groups
+
+
+#: (device index, stream) -> (fp32 workspace, int32 counters, their
+#: pointers) of the split route, grown on demand; each kernel leaves its
+#: counters at 0, so the zeros are written once. One pair a stream: calls
+#: on one stream run in order.
+_SCRATCH = {}
+
+
+def _scratch(q, stream, n_ws, n_cnt):
+    """The pointers of a workspace of ``n_ws`` floats and ``n_cnt`` zeroed
+    counters on q's device for ``stream``."""
+    key = (q.get_device(), stream)
+    got = _SCRATCH.get(key)
+    if got is None or got[0].numel() < n_ws or got[1].numel() < n_cnt:
+        if got is not None:  # never shrink: shapes alternate tick to tick
+            n_ws, n_cnt = max(n_ws, got[0].numel()), max(n_cnt,
+                                                         got[1].numel())
+        ws = torch.empty(n_ws, device=q.device, dtype=torch.float32)
+        cnt = torch.zeros(n_cnt, device=q.device, dtype=torch.int32)
+        got = _SCRATCH[key] = (ws, cnt, (ws.data_ptr(), cnt.data_ptr()))
+    return got[2]
+
+
+def _launch(entry, q, k_pages, v_pages, tables, lens, o, kq, scale, window,
+            splits):
+    """One decode kernel launch on q's current stream: the route, and on
+    the split route the split count and scratch (:func:`_plan`)."""
+    b, h, d = q.shape[0], q.shape[1], q.shape[-1]
+    nb, kh, blk, _ = k_pages.shape
+    dev = q.get_device()
+    stream = build.current_stream(dev)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), lens.data_ptr(), o.data_ptr())
+    aligned = not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[5]) & 15
+    mb = tables.shape[1]
+    n_split, n_ws, n_cnt = _plan(q.dtype, b, h, kh, kq, blk, d, mb, window,
+                                 aligned, splits, _sm_count(dev))
+    scratch = _scratch(q, stream, n_ws, n_cnt) if n_split else (None, None)
+    shape = ((b, h, kh, blk, d, mb, nb) if entry == "apex_flash_decode"
+             else (b, h, kh, kq, blk, d, mb, nb))
+    err = getattr(build.load(), entry)(
+        *ptrs, *scratch, *shape, scale, _window_arg(window), n_split,
+        build.DTYPES[q.dtype], stream)
+    build.check(err, entry)
+
+
 def flash_decode_fwd(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, block_tables: torch.Tensor,
                      lengths: torch.Tensor, *,
                      scale: Optional[float] = None,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     splits: Optional[int] = None) -> torch.Tensor:
     """Launch the paged decode kernel on CUDA tensors; ``(b, h, d)`` in q's
-    dtype. Counts its launches in ``flash_decode_fwd.launches``."""
+    dtype. ``splits`` overrides :func:`decode_splits` on the split route
+    (for tuning). Counts its launches in ``flash_decode_fwd.launches``."""
     tables, lens = _launch_args("flash_decode_fwd", q, k_pages, v_pages,
                                 block_tables, lengths)
     b, h, d = q.shape
-    _, kh, blk, _ = k_pages.shape
     scale = (d ** -0.5) if scale is None else float(scale)
     q = q.contiguous()
     o = torch.empty_like(q)
     if b == 0:
         return o
-    err = build.load().apex_flash_decode(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        tables.data_ptr(), lens.data_ptr(), o.data_ptr(), b, h, kh, blk, d,
-        tables.shape[1], scale, _window_arg(window), build.DTYPES[q.dtype],
-        build.current_stream(q.get_device()))
-    build.check(err, "apex_flash_decode")
+    _launch("apex_flash_decode", q, k_pages, v_pages, tables, lens, o, 1,
+            scale, window, splits)
     flash_decode_fwd.launches += 1
     return o
 
@@ -162,14 +323,15 @@ def flash_decode_multi_fwd(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            lengths: torch.Tensor, *,
                            scale: Optional[float] = None,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           splits: Optional[int] = None) -> torch.Tensor:
     """Launch the K-query paged decode kernel on CUDA tensors;
-    ``(b, h, K, d)`` in q's dtype, any K, head_dim <= 128. Counts its
-    launches in ``flash_decode_multi_fwd.launches``."""
+    ``(b, h, K, d)`` in q's dtype, any K, head_dim <= 128. ``splits`` as
+    in :func:`flash_decode_fwd`. Counts its launches in
+    ``flash_decode_multi_fwd.launches``."""
     tables, lens = _launch_args("flash_decode_multi_fwd", q, k_pages,
                                 v_pages, block_tables, lengths)
     b, h, kq, d = q.shape
-    _, kh, blk, _ = k_pages.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the K-query decode kernel takes head_dim <= "
                          f"{MAX_HEAD_DIM}, got {d}")
@@ -178,12 +340,8 @@ def flash_decode_multi_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     o = torch.empty_like(q)
     if b == 0 or kq == 0:
         return o
-    err = build.load().apex_flash_decode_multi(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        tables.data_ptr(), lens.data_ptr(), o.data_ptr(), b, h, kh, kq, blk,
-        d, tables.shape[1], scale, _window_arg(window),
-        build.DTYPES[q.dtype], build.current_stream(q.get_device()))
-    build.check(err, "apex_flash_decode_multi")
+    _launch("apex_flash_decode_multi", q, k_pages, v_pages, tables, lens, o,
+            kq, scale, window, splits)
     flash_decode_multi_fwd.launches += 1
     return o
 

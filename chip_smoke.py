@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
     python3 chip_smoke.py --ln-times TREE   # LayerNorm times of TREE's port
+    python3 chip_smoke.py --decode-times TREE   # decode times of TREE's port
 
 Seven phases; any failure raises and exits non-zero:
 
@@ -22,10 +23,12 @@ Seven phases; any failure raises and exits non-zero:
    100003 elements on the two-pass route) against its plain PyTorch
    version on the card, at the main paths' shapes in bf16 and fp32 plus
    edge cases, each error beside its stated tolerance (the flash kernels,
-   resident and streamed, and the LayerNorm pair also each row's own
-   error, the forwards' lse, a planted fault the row check must catch,
-   and the resident kernels' and the LayerNorm pair's bits the same from
-   call to call); then device times
+   resident and streamed, the LayerNorm pair and the decode pair also each
+   row's own error, the forwards' lse, a planted fault the row check must
+   catch, and the resident kernels', the LayerNorm pair's and the decode
+   pair's bits the same from call to call; the decode pair also at the
+   split route's edges, with the route in each verdict name); then device
+   times
    by CUDA-graph replay between CUDA events (kernel, plain version, one
    PyTorch library call as yardstick where one computes the same function;
    the resident flash kernels beside the streamed ones at 1024 (batch 1
@@ -35,9 +38,9 @@ Seven phases; any failure raises and exits non-zero:
    tried, the resident forward's schedule and tiles and the resident
    backward's schedule and dQ inner tile against the values tried, the
    softmax forward's warp route against its CTA route at 1024 and 2048
-   columns, and the LayerNorm pair's rows (warps) a CTA, CTAs an SM and
-   warp caps against the values tried) and the
-   least time the card could take.
+   columns, the LayerNorm pair's rows (warps) a CTA, CTAs an SM and
+   warp caps, and the decode pair's split count against the values tried)
+   and the least time the card could take.
 3. **Serving**: fp32 gates on a small model (the monolithic engine, then
    chunked prefill, the prefix cache, speculative decoding with a
    self-draft and a 1-layer draft, and all three: every token against the
@@ -49,7 +52,8 @@ Seven phases; any failure raises and exits non-zero:
    500-token prefix (15 prefix hits, at least 15 copy-on-write forks, mean
    accepted length above 1, no page leaked); and 256-token prefill chunks.
    Each run's launch count of every kernel is checked against the count
-   its schedule implies.
+   its schedule implies; the profiled windows print the decode kernels'
+   device time and launches beside the busy time, and per decode tick.
 4. **Training**: an fp32 gradient gate on a small GPT (loss and every
    parameter's grad on the card through the kernels against the same model
    on the CPU through the plain versions), then the GPT-2 345M amp-O2
@@ -104,8 +108,9 @@ that the end of the output holds them all. After the verdict comes a
 ``{"kernels": [...]}`` JSON object (``launches_by_path``: each kernel's
 count on the three serving runs, the GPT training run, the ResNet
 training run, the two long-context runs and phase 7's run (``softmax``),
-each counted from 0; ``launches``: their sum), then the card's name and
-power limit as nvidia-smi prints them, and the last line
+each counted from 0; ``launches``: their sum), the decode split-count
+tuning line, then the card's name and power limit as nvidia-smi prints
+them, and the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -222,6 +227,26 @@ def issue_ms(fn, iters=100, reps=1, stat=statistics.median):
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return stat(times)
+
+
+def host_ms(fn, iters=200, reps=9):
+    """The host's own time per call to issue ``fn``: the least of ``reps``
+    windows of ``iters`` back-to-back calls on the host clock, with no
+    wait on the device inside a window (so a kernel longer than its issue
+    does not set the number, as it does in :func:`issue_ms`)."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) / iters * 1e3)
+    torch.cuda.synchronize()
+    return min(times)
 
 
 def bound(nbytes, flops, dtype_name):
@@ -1551,6 +1576,17 @@ def bwd_split_tuning(torch, ops, tfa, rand, lengths=(16, 32, 64, 128)):
           f"length: " + "; ".join(parts))
 
 
+#: the decode timing shapes: single-query (b, h, kh, blk, d, num_blocks,
+#: max_blocks, lengths), the chunk and verify K-query shapes (b, h, kh, K,
+#: blk, d, num_blocks, max_blocks, lengths), and the single-slot case
+DECODE_MAIN = (8, 16, 16, 16, 64, 513, 64, [700, 64, 1024, 0, 333, 17, 800,
+                                            513])
+DECODE_CHUNK = (1, 16, 16, 256, 16, 64, 513, 64, [756])
+DECODE_VERIFY = (8, 16, 16, 5, 16, 64, 513, 64, [700, 64, 1000, 0, 333, 5,
+                                                 800, 513])
+DECODE_LONG = (1, 16, 16, 16, 64, 600, 512, [8192])
+
+
 def _decode_inputs(torch, dev, gen, b, h, kh, blk, d, nb, max_blocks, dt,
                    lengths):
     q = torch.randn(b, h, d, device=dev, generator=gen).to(dt)
@@ -1562,10 +1598,84 @@ def _decode_inputs(torch, dev, gen, b, h, kh, blk, d, nb, max_blocks, dt,
     return q, kp, vp, tables, lens
 
 
+def _decode_route(ops, q, kp, vp, dt):
+    """The route a decode call takes on the card, for the verdict names."""
+    import importlib
+
+    tfd = importlib.import_module("apex_tpu_torch.ops.flash_decode")
+    aligned = not (q.data_ptr() | kp.data_ptr() | vp.data_ptr()) & 15
+    return tfd.decode_route(dt, q.shape[-1], kp.shape[2], aligned)
+
+
+def _decode_held(torch, name, got, ref, dt, group, route, blind=()):
+    """Hold one decode output to its plain version: max |err| (0.02 bf16,
+    5e-5 fp32), each row's own error (:func:`row_err`, :data:`ROW_TOL`),
+    rows that see no key (``blind``: index tuples into ``got``) exactly 0,
+    finite values of q's shape and dtype. Returns (max |err|, row err)."""
+    bf16 = torch.bfloat16
+    err, e_row = max_err(got, ref), row_err(got, ref)
+    tol, rtol = (2e-2 if dt == bf16 else 5e-5), ROW_TOL[dt == bf16][0]
+    zero = all(bool((got[i] == 0).all()) for i in blind)
+    print(f"  {name} [{route}]: max_abs_err={err:.3g} (tol {tol:g}), worst "
+          f"row {e_row:.3g} (tol {rtol:g}); {len(blind)} rows that see no "
+          f"key exactly 0: {zero}")
+    check(zero and bool(torch.isfinite(got).all())
+          and got.shape == ref.shape and got.dtype == dt, f"{name} [{route}]")
+    verdict(f"{name} [{route}]", err, tol, f"cuda {route}", group=group)
+    verdict(f"{name} [{route}] worst row", e_row, rtol, f"cuda {route}",
+            group=f"{group} rows")
+    return err, e_row
+
+
+def _planted_tail(torch, name, got, ref, dt, route, group):
+    """Halve the last quarter of the output rows: the row check must fail
+    it (a planted fault the max |err| limit alone can miss)."""
+    rows = got.reshape(-1, got.shape[-1])
+    bad = rows.clone()
+    bad[-(rows.shape[0] // 4):] *= 0.5
+    planted = row_err(bad.view_as(got), ref)
+    rlim = ROW_TOL[dt == torch.bfloat16][0]
+    print(f"  {name} [{route}]: planted fault (last quarter of the rows "
+          f"halved) reads {planted:.3g} by row, limit {rlim:g}: caught "
+          f"{planted > rlim}")
+    check(planted > rlim, f"{name}: the row check misses a halved tail")
+    verdict(f"{name} planted halved tail caught", 0 if planted > rlim else 1,
+            0, f"cuda {route}", group=group)
+
+
+def _bit_identical(torch, name, call, route, group):
+    """Two calls on the same inputs give the same bits (a fixed-order
+    combine, no atomics on the output)."""
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    same = torch.equal(a, b)
+    print(f"  {name} [{route}]: two calls bit-identical: {same}")
+    check(same, f"{name}: two calls differ")
+    verdict(f"{name} two calls bit-identical", 0 if same else 1, 0,
+            f"cuda {route}", group=group)
+
+
 def check_flash_decode(torch, ops, dev):
+    """The paged decode kernel against ``paged_attention_reference`` at the
+    serve's decode shape (b=8, 16 heads of 64 over 16-token pages), GQA,
+    other pages and head_dims, the window, and the split route's edges
+    (lengths on a split edge, 1, a full 1024-key slot, idle slots only, one
+    slot of 16384 keys), bf16 and fp32: each output by max |err| and by row
+    (:func:`_decode_held`), idle slots exactly 0; a halved tail of rows at
+    the decode shape must fail the row check; two calls bit-identical.
+    Then device times and the split-count tuning line
+    (:func:`decode_split_tuning`)."""
+    import importlib
+
+    tfd = importlib.import_module("apex_tpu_torch.ops.flash_decode")
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(3)
-    main_lengths = [700, 64, 1024, 0, 333, 17, 800, 513]  # slot 3 idle
+    main_lengths = DECODE_MAIN[7]  # slot 3 idle
+    # lengths on the split route's edges at the decode shape: a length that
+    # ends a split's last page, one past it, 1, a full slot, a page's end
+    splits = tfd.decode_splits(8, 16, 1, 64)
+    edge = 16 * splits * 5
+    edge_lengths = [edge, edge + 1, 1, 1024, 0, 16, 17, 16 * splits]
     cases = [  # b, h, kh, blk, d, num_blocks, max_blocks, dtype, lengths
         (8, 16, 16, 16, 64, 513, 64, bf16, main_lengths),
         (8, 16, 16, 16, 64, 513, 64, f32, main_lengths),
@@ -1574,6 +1684,15 @@ def check_flash_decode(torch, ops, dev):
         (2, 4, 4, 128, 64, 9, 4, f32, [300, 512]),
         (2, 4, 2, 16, 128, 20, 8, bf16, [100, 7]),
         (2, 4, 2, 16, 36, 20, 8, bf16, [100, 7]),  # unaligned: scalar loads
+        # the split route's edges
+        (8, 16, 16, 16, 64, 513, 64, bf16, edge_lengths),
+        (8, 16, 16, 16, 64, 513, 64, f32, edge_lengths),
+        (8, 16, 16, 16, 64, 513, 64, bf16, [0] * 8),  # idle slots only
+        (1, 16, 16, 16, 64, 1100, 1024, bf16, [16384]),
+        (1, 16, 16, 16, 64, 1100, 1024, f32, [16384]),
+        (3, 8, 2, 8, 64, 40, 12, bf16, [95, 0, 1]),   # 8-token pages
+        (2, 4, 4, 128, 64, 9, 4, bf16, [300, 512]),   # 128-token pages
+        (2, 4, 2, 16, 40, 20, 8, bf16, [100, 7]),     # d 40: zero columns
     ]
     windowed = [  # the same shapes with window = 128 (and 5 at blk 8)
         (8, 16, 16, 16, 64, 513, 64, bf16, main_lengths, 128),
@@ -1581,6 +1700,8 @@ def check_flash_decode(torch, ops, dev):
         (8, 32, 16, 16, 64, 513, 64, bf16, main_lengths, 128),
         (3, 8, 2, 8, 64, 40, 12, f32, [95, 0, 1], 5),
         (2, 4, 2, 16, 36, 20, 8, bf16, [100, 7], 128),
+        (8, 16, 16, 16, 64, 513, 64, bf16, edge_lengths, 128),
+        (3, 8, 2, 8, 64, 40, 12, bf16, [95, 0, 1], 5),
     ]
     main_err = None
     for b, h, kh, blk, d, nb, mb, dt, lengths, window in (
@@ -1591,56 +1712,159 @@ def check_flash_decode(torch, ops, dev):
         ref = ops.paged_attention_reference(q, kp, vp, tables, lens,
                                             window=window)
         torch.cuda.synchronize()
-        err = max_err(got, ref)
-        tol = 2e-2 if dt == bf16 else 5e-5
-        idle = [i for i, n in enumerate(lengths) if n == 0]
-        zero = all(bool((got[i] == 0).all()) for i in idle)
-        print(f"  flash_decode b={b} h={h} kh={kh} blk={blk} d={d} "
-              f"{str(dt)[6:]:8s} window={window} max_abs_err={err:.3g} "
-              f"(tol {tol:g}) idle slots exactly 0: {zero}")
-        check(zero, f"flash_decode {(b, h, kh, blk, d, dt, window)}: idle "
-              f"slots not 0")
-        verdict(f"flash_decode b={b} h={h} kh={kh} blk={blk} d={d} "
-                f"{str(dt)[6:]} window={window}", err, tol,
-                group=f"flash_decode {str(dt)[6:]}")
+        route = _decode_route(ops, q, kp, vp, dt)
+        name = (f"flash_decode b={b} h={h} kh={kh} blk={blk} d={d} "
+                f"{str(dt)[6:]} window={window} lengths {lengths[:8]}")
+        err, _ = _decode_held(
+            torch, name, got, ref, dt, f"flash_decode {str(dt)[6:]}", route,
+            [(i,) for i, n in enumerate(lengths) if n == 0])
         if window is not None and max(lengths) > window:
             full = ops.paged_attention_reference(q, kp, vp, tables, lens)
-            check(max_err(full, ref) > tol, "the window changes the output")
+            check(max_err(full, ref) > (2e-2 if dt == bf16 else 5e-5),
+                  "the window changes the output")
         if main_err is None:
             main_err = err
-    b, h, kh, blk, d, nb, mb = 8, 16, 16, 16, 64, 513, 64
+        if (b, h, d, dt, lengths, window) == (8, 16, 64, bf16, main_lengths,
+                                              None):
+            _planted_tail(torch, "flash_decode decode shape", got, ref, dt,
+                          route, "flash_decode bfloat16 rows")
+            _bit_identical(torch, "flash_decode decode shape", lambda: (
+                ops.flash_decode(q, kp, vp, tables, lens)), route,
+                "flash_decode bfloat16")
+    b, h, kh, blk, d, nb, mb, lengths = DECODE_MAIN
     q, kp, vp, tables, lens = _decode_inputs(
-        torch, dev, gen, b, h, kh, blk, d, nb, mb, bf16, main_lengths)
-    ms = time_ms(lambda: ops.flash_decode(q, kp, vp, tables, lens))
-    issue = issue_ms(lambda: ops.flash_decode(q, kp, vp, tables, lens))
+        torch, dev, gen, b, h, kh, blk, d, nb, mb, bf16, lengths)
+    t = decode_times(torch, ops, dev)
+    ms, issue = t["decode"], t["decode_issue"]
     plain = time_ms(
         lambda: ops.paged_attention_reference(q, kp, vp, tables, lens), 5)
-    live = sum(main_lengths)
+    live = sum(lengths)
     nbytes = (live * kh * d * 2 * 2 + 2 * b * h * d * 2 + b * mb * 4 + b * 4)
     bms, by = bound(nbytes, 4 * h * d * live, "bfloat16")
-    print(f"  flash_decode timing (b=8 h=kh=16 blk=16 d=64 bf16, "
-          f"{live} live keys): kernel {ms:.4f} ms (eager issue {issue:.4f} "
-          f"ms per call), plain {plain:.4f} ms, no "
-          f"single PyTorch call computes paged decode, bound {bms:.4f} ms "
-          f"({by})")
+    print(f"  flash_decode timing (b=8 h=kh=16 blk=16 d=64 bf16, {live} live "
+          f"keys, {splits} splits): kernel {ms:.4f} ms (eager issue "
+          f"{issue:.4f} ms per call, least of 9 windows; host alone "
+          f"{t['decode_host']:.4f} ms), plain {plain:.4f} ms, no single "
+          f"PyTorch call computes paged decode, bound {bms:.4f} ms ({by})")
     # the same inputs with window 128, and through the K-query kernel at
-    # K = 1 (the same function): not checks
-    ms_w = time_ms(lambda: ops.flash_decode(q, kp, vp, tables, lens,
-                                            window=128))
-    live_w = sum(min(n, 128) for n in main_lengths)
+    # K = 1 (the same function); one slot over 8192 keys: not checks
+    live_w = sum(min(n, 128) for n in lengths)
     bms_w, by_w = bound(nbytes - (live - live_w) * kh * d * 2 * 2,
                         4 * h * d * live_w, "bfloat16")
     ms_k1 = time_ms(lambda: ops.flash_decode_multi(q[:, :, None], kp, vp,
                                                    tables, lens))
+    b1, h1, kh1, blk1, d1, _, mb1, lengths1 = DECODE_LONG
+    bms_l, by_l = bound(lengths1[0] * kh1 * d1 * 4 + 2 * h1 * d1 * 2
+                        + mb1 * 4 + 4, 4 * h1 * d1 * lengths1[0], "bfloat16")
     print(f"  flash_decode timing with window 128 ({live_w} live keys): "
-          f"kernel {ms_w:.4f} ms, bound {bms_w:.4f} ms ({by_w}); the same "
-          f"unwindowed call through flash_decode_multi at K=1: "
-          f"{ms_k1:.4f} ms")
+          f"kernel {t['window_128']:.4f} ms, bound {bms_w:.4f} ms ({by_w}); "
+          f"the same unwindowed call through flash_decode_multi at K=1: "
+          f"{ms_k1:.4f} ms; b=1 over 8192 keys: {t['b1_8192']:.4f} ms, "
+          f"bound {bms_l:.4f} ms ({by_l})")
+    tuning = decode_split_tuning(torch, ops, dev)
+    by_shape = {"decode": dict(ms=ms, issue_ms=issue,
+                               host_ms=t["decode_host"], bound_ms=bms,
+                               bound_by=by),
+                "window_128": dict(ms=t["window_128"], bound_ms=bms_w,
+                                   bound_by=by_w),
+                "b1_8192": dict(ms=t["b1_8192"], bound_ms=bms_l,
+                                bound_by=by_l)}
     return dict(name="flash_decode", route="cuda",
+                kernel="flash_decode_split (bf16), flash_decode_kernel "
+                       "(fp32, unaligned bf16)",
                 source="apex_tpu_torch/csrc/flash_decode.cu",
                 replaces="apex_tpu/ops/flash_decode.py:141",
                 max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, by_shape=by_shape,
+                decode_tuning=tuning)
+
+
+def decode_split_tuning(torch, ops, dev, tried=(1, 2, 3, 4, 8)):
+    """The split count against the values tried, bf16, at #9's decode
+    shape, with window 128 and at b = 1 over 8192 keys, and at #10's chunk
+    and verify shapes: device ms per split count beside the count
+    :func:`decode_splits` takes (``DECODE_SPLIT_PAGES`` pages a split, at
+    most ``DECODE_SPLIT_CTAS`` CTAs an SM), printed on one line and
+    returned for the ``kernels`` line (``decode_tuning``)."""
+    import importlib
+
+    tfd = importlib.import_module("apex_tpu_torch.ops.flash_decode")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    b, h, kh, blk, d, nb, mb, lengths = DECODE_MAIN
+    q, kp, vp, tables, lens = _decode_inputs(torch, dev, gen, b, h, kh, blk,
+                                             d, nb, mb, bf16, lengths)
+    b1, h1, kh1, blk1, d1, nb1, mb1, lengths1 = DECODE_LONG
+    q1, kp1, vp1, t1, l1 = _decode_inputs(torch, dev, gen, b1, h1, kh1,
+                                          blk1, d1, nb1, mb1, bf16, lengths1)
+    shapes = {
+        "decode": (lambda s: ops.flash_decode_fwd(q, kp, vp, tables, lens,
+                                                  splits=s),
+                   tfd.decode_splits(b, kh, 1, mb, sms)),
+        "window_128": (lambda s: ops.flash_decode_fwd(
+            q, kp, vp, tables, lens, window=128, splits=s),
+            tfd.decode_splits(b, kh, 1, tfd.decode_span_pages(mb, blk, 128),
+                              sms)),
+        "b1_8192": (lambda s: ops.flash_decode_fwd(q1, kp1, vp1, t1, l1,
+                                                   splits=s),
+                    tfd.decode_splits(b1, kh1, 1, mb1, sms))}
+    for label, (b, h, kh, kq, blk, d, nb, mb, lengths) in (
+            ("chunk", DECODE_CHUNK), ("verify", DECODE_VERIFY)):
+        _, kpm, vpm, tm, lm = _decode_inputs(torch, dev, gen, b, h, kh, blk,
+                                             d, nb, mb, bf16, lengths)
+        qm = torch.randn(b, h, kq, d, device=dev, generator=gen).to(bf16)
+        tiles = -(-(h // kh * kq) // tfd.DECODE_ROWS)
+        shapes[label] = (
+            lambda s, a=(qm, kpm, vpm, tm, lm): ops.flash_decode_multi_fwd(
+                *a, splits=s), tfd.decode_splits(b, kh, tiles, mb, sms))
+    for label, (call, chosen) in shapes.items():
+        ms = {s: time_ms(lambda: call(s)) for s in sorted({*tried, chosen})}
+        out[label] = {"chosen": chosen, "ms": ms}
+    print(f"  decode split tuning (DECODE_SPLIT_PAGES = "
+          f"{tfd.DECODE_SPLIT_PAGES}, DECODE_SPLIT_CTAS = "
+          f"{tfd.DECODE_SPLIT_CTAS}; ms by splits, * the count taken): "
+          + "; ".join(f"{k} " + ", ".join(
+              f"{s}{'*' if s == v['chosen'] else ''} {t:.4f}"
+              for s, t in v["ms"].items()) for k, v in out.items()))
+    return out
+
+
+def decode_times(torch, ops, dev):
+    """Device times (ms) of the decode kernels through the port's entry
+    points, bf16: #9 at the decode shape (with its eager issue per call:
+    the least of 9 windows of 200 calls, and the host's own cost per call,
+    :func:`host_ms`), with window 128, and at b = 1
+    over 8192 keys; #10 at the chunk and verify shapes. Takes any tree's
+    ``ops``, so two trees can be compared in one run."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, kp, vp, tables, lens = _decode_inputs(torch, dev, gen,
+                                             *DECODE_MAIN[:7], bf16,
+                                             DECODE_MAIN[7])
+    b, h, kh, blk, d, nb, mb, lengths = DECODE_LONG
+    q1, kp1, vp1, t1, l1 = _decode_inputs(torch, dev, gen, b, h, kh, blk, d,
+                                          nb, mb, bf16, lengths)
+    out = {"decode": time_ms(lambda: ops.flash_decode(q, kp, vp, tables,
+                                                      lens)),
+           "decode_issue": issue_ms(
+               lambda: ops.flash_decode(q, kp, vp, tables, lens), 200, 9,
+               min),
+           "decode_host": host_ms(
+               lambda: ops.flash_decode(q, kp, vp, tables, lens)),
+           "window_128": time_ms(lambda: ops.flash_decode(
+               q, kp, vp, tables, lens, window=128)),
+           "b1_8192": time_ms(lambda: ops.flash_decode(q1, kp1, vp1, t1,
+                                                       l1))}
+    for label, (b, h, kh, kq, blk, d, nb, mb, lengths) in (
+            ("chunk", DECODE_CHUNK), ("verify", DECODE_VERIFY)):
+        _, kp, vp, tables, lens = _decode_inputs(
+            torch, dev, gen, b, h, kh, blk, d, nb, mb, bf16, lengths)
+        q = torch.randn(b, h, kq, d, device=dev, generator=gen).to(bf16)
+        out[label] = time_ms(lambda: ops.flash_decode_multi(q, kp, vp, tables,
+                                                            lens))
+    return out
 
 
 def _visible(lengths, kq, window, s_max):
@@ -1679,16 +1903,17 @@ def check_flash_decode_multi(torch, ops, dev):
     (chunked prefill (1,16,256,64) and speculative verify (8,16,5,64), bf16,
     over a 513-page pool of 16-token pages) and edge cases, bf16 and fp32.
     Tolerance: 0.02 in bf16 (P is rounded to bf16 as the A operand of P.V,
-    which the reference kernel keeps fp32), 5e-5 in fp32. Idle slots and
-    queries that see no key (a right-aligned chunk's padding rows) must be
-    exactly 0."""
+    which the reference kernel keeps fp32), 5e-5 in fp32, and each row's
+    own error (:func:`_decode_held`). Idle slots and queries that see no
+    key (a right-aligned chunk's padding rows) must be exactly 0. At the
+    chunk shape a halved tail of rows must fail the row check and two
+    calls must give the same bits."""
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(8)
-    verify_lengths = [700, 64, 1000, 0, 333, 5, 800, 513]  # slot 3 idle
-    chunk = (1, 16, 16, 256, 16, 64, 513, 64)
-    verify = (8, 16, 16, 5, 16, 64, 513, 64)
+    verify_lengths = DECODE_VERIFY[8]  # slot 3 idle
+    chunk, verify = DECODE_CHUNK[:8], DECODE_VERIFY[:8]
     cases = [  # (b, h, kh, K, blk, d, num_blocks, max_blocks), lengths, window
-        (chunk, [756], None),
+        (chunk, DECODE_CHUNK[8], None),
         (verify, verify_lengths, None),
         (chunk, [100], None),            # 155 padding rows see <= 0 keys
         ((8, 16, 4, 5, 16, 64, 513, 64), verify_lengths, None),  # GQA
@@ -1697,6 +1922,11 @@ def check_flash_decode_multi(torch, ops, dev):
         ((4, 16, 16, 7, 32, 64, 300, 32), [1000, 1, 0, 517], None),  # blk 32
         ((2, 16, 4, 5, 16, 128, 200, 64), [1000, 300], None),      # d 128
         ((2, 8, 8, 70, 16, 36, 100, 16), [30, 200], 50),  # unaligned d
+        # the split route's edges: one slot past the table's 1024 keys, a
+        # verify batch of idle slots only, 8-token pages with a window
+        ((1, 16, 16, 5, 16, 64, 1100, 1024), [16384], None),
+        (verify, [0] * 8, None),
+        ((3, 8, 2, 7, 8, 64, 40, 12), [95, 0, 3], 5),
     ]
     main_err = None
     for dt in (bf16, f32):
@@ -1709,24 +1939,23 @@ def check_flash_decode_multi(torch, ops, dev):
             ref = ops.paged_attention_multi_reference(q, kp, vp, tables,
                                                       lens, window=window)
             torch.cuda.synchronize()
-            err = max_err(got, ref)
-            tol = 2e-2 if dt == bf16 else 5e-5
             per_row, _ = _visible(lengths, kq, window, mb * blk)
-            blind = [(i, j) for i, row in enumerate(per_row)
+            blind = [(i, slice(None), j) for i, row in enumerate(per_row)
                      for j, n in enumerate(row) if n == 0]
-            zero = all(bool((got[i, :, j] == 0).all()) for i, j in blind)
-            print(f"  flash_decode_multi b={b} h={h} kh={kh} K={kq} blk={blk} "
-                  f"d={d} {str(dt)[6:]:8s} window={window} max_abs_err="
-                  f"{err:.3g} (tol {tol:g}); {len(blind)} queries that see "
-                  f"no key exactly 0: {zero}")
-            check(zero and bool(torch.isfinite(got).all())
-                  and got.shape == q.shape and got.dtype == dt,
-                  f"flash_decode_multi {(b, h, kh, kq, blk, d, dt, window)}")
-            verdict(f"flash_decode_multi b={b} h={h} kh={kh} K={kq} "
-                    f"blk={blk} d={d} {str(dt)[6:]} window={window}", err,
-                    tol, group=f"flash_decode_multi {str(dt)[6:]}")
+            route = _decode_route(ops, q, kp, vp, dt)
+            name = (f"flash_decode_multi b={b} h={h} kh={kh} K={kq} "
+                    f"blk={blk} d={d} {str(dt)[6:]} window={window}")
+            group = f"flash_decode_multi {str(dt)[6:]}"
+            err, _ = _decode_held(torch, name, got, ref, dt, group, route,
+                                  blind)
             if main_err is None:
                 main_err = err
+            if (dt, lengths, window) == (bf16, DECODE_CHUNK[8], None):
+                _planted_tail(torch, "flash_decode_multi chunk shape", got,
+                              ref, dt, route, f"{group} rows")
+                _bit_identical(torch, "flash_decode_multi chunk shape",
+                               lambda: ops.flash_decode_multi(
+                                   q, kp, vp, tables, lens), route, group)
         # K = 1 is the single-query decode
         _, kp, vp, tables, lens = _decode_inputs(
             torch, dev, gen, 8, 16, 16, 16, 64, 513, 64, dt, verify_lengths)
@@ -1737,14 +1966,17 @@ def check_flash_decode_multi(torch, ops, dev):
         torch.cuda.synchronize()
         err = max_err(multi, one)
         tol = 2e-2 if dt == bf16 else 5e-5
+        route = _decode_route(ops, q, kp, vp, dt)
         print(f"  flash_decode_multi K=1 against flash_decode "
-              f"{str(dt)[6:]}: max_abs_err={err:.3g} (tol {tol:g})")
-        verdict(f"flash_decode_multi K=1 vs flash_decode {str(dt)[6:]}",
-                err, tol, group=f"flash_decode_multi {str(dt)[6:]}")
+              f"{str(dt)[6:]} [{route}]: max_abs_err={err:.3g} (tol {tol:g})")
+        verdict(f"flash_decode_multi K=1 vs flash_decode {str(dt)[6:]} "
+                f"[{route}]", err, tol, f"cuda {route}",
+                group=f"flash_decode_multi {str(dt)[6:]}")
 
     timings = {}
     for label, (b, h, kh, kq, blk, d, nb, mb), lengths in (
-            ("chunk", chunk, [756]), ("verify", verify, verify_lengths)):
+            ("chunk", chunk, DECODE_CHUNK[8]),
+            ("verify", verify, verify_lengths)):
         _, kp, vp, tables, lens = _decode_inputs(
             torch, dev, gen, b, h, kh, blk, d, nb, mb, bf16, lengths)
         q = torch.randn(b, h, kq, d, device=dev, generator=gen).to(bf16)
@@ -1761,8 +1993,10 @@ def check_flash_decode_multi(torch, ops, dev):
               f"paged pool")
     main = timings["chunk"]
     return dict(name="flash_decode_multi", route="cuda",
+                kernel="decode_multi_split (bf16), decode_multi_f32_kernel "
+                       "(fp32), decode_multi_mma_kernel (unaligned bf16)",
                 source="apex_tpu_torch/csrc/flash_decode.cu",
-                replaces="apex_tpu/ops/flash_decode.py:331",
+                replaces="apex_tpu/ops/flash_decode.py:281",
                 max_abs_err=main_err, library_ms=None, by_shape=timings,
                 **main)
 
@@ -2490,11 +2724,21 @@ def print_top(by_name, k=10):
         print(f"    {t / 1e3:9.2f} ms {n:6d}x  {name[:80]}")
 
 
+#: kernel-name parts of the decode kernels in a profile, #9's and #10's:
+#: the split route's, then the gather and fp32 routes'
+DECODE_KERNELS = {"#9": ("flash_decode_split", "flash_decode_kernel"),
+                  "#10": ("decode_multi_split", "decode_multi_mma_kernel",
+                          "decode_multi_f32_kernel")}
+
+
 def device_busy(torch, eng, reqs, label):
     """Device busy share of a serving window: the kernels' device time from
-    ``torch.profiler`` over the window's wall time. Not a check."""
+    ``torch.profiler`` over the window's wall time, and the decode kernels'
+    device time and launches beside it, per decode tick (the engine's
+    decode steps and speculative ticks in the window). Not a check."""
     from torch.profiler import ProfilerActivity, profile
 
+    ticks0 = eng.decode_steps + eng.spec_ticks
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2502,6 +2746,7 @@ def device_busy(torch, eng, reqs, label):
         eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    ticks = eng.decode_steps + eng.spec_ticks - ticks0
     by_name = device_time_by_kernel(torch, prof)
     busy_us = sum(t for _, t in by_name.values())
     if busy_us <= 0:
@@ -2513,6 +2758,15 @@ def device_busy(torch, eng, reqs, label):
           f"window (idle {1 - busy_us / 1e6 / wall:.3f}); device time by "
           f"kernel:")
     print_top(by_name)
+    parts = []
+    for kind, names in DECODE_KERNELS.items():
+        n, ms = kernel_time(by_name, *names)
+        parts.append(f"{kind} {ms:.2f} ms over {n} launches")
+    n, ms = kernel_time(by_name, *DECODE_KERNELS["#9"],
+                        *DECODE_KERNELS["#10"])
+    print(f"    decode kernels: {'; '.join(parts)}; together {ms:.2f} ms of "
+          f"{busy_us / 1e3:.1f} ms busy ({ms * 1e3 / busy_us:.3f}), "
+          f"{ms / max(ticks, 1):.4f} ms a decode tick over {ticks} ticks")
 
 
 # ---------------------------------------------------------------------------
@@ -3375,9 +3629,15 @@ def main():
     keys = ("name", "route", "kernel", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "by_shape", "res_fwd_tuning",
-            "res_bwd_tuning", "warp_tuning", "ln_tuning")
+            "res_bwd_tuning", "warp_tuning", "ln_tuning", "decode_tuning")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
+    tuning = next(r["decode_tuning"] for r in rows
+                  if r["name"] == "flash_decode")
+    print("decode split tuning (ms by splits; chosen): " + "; ".join(
+        f"{k} {v['chosen']}: " + ", ".join(f"{n} {t:.4f}"
+                                          for n, t in v["ms"].items())
+        for k, v in tuning.items()))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3385,11 +3645,12 @@ def main():
     return 0
 
 
-def ln_times_of_tree(tree):
-    """``python3 chip_smoke.py --ln-times TREE``: :func:`ln_times` through
-    the port of the checkout at TREE (its kernels built there), printed as
-    one JSON line with the card's name and power limit. Run it for two
-    trees in turns (parent, change, change, parent) to compare them on one
+def times_of_tree(tree, fn):
+    """``python3 chip_smoke.py --ln-times TREE`` (:func:`ln_times`) or
+    ``--decode-times TREE`` (:func:`decode_times`): the times through the
+    port of the checkout at TREE (its kernels built there), printed as one
+    JSON line with the card's name and power limit. Run it for two trees
+    in turns (parent, change, change, parent) to compare them on one
     card."""
     import importlib
 
@@ -3402,12 +3663,14 @@ def ln_times_of_tree(tree):
     ops = importlib.import_module("apex_tpu_torch.ops")
     check(os.path.abspath(ops.__file__).startswith(os.path.abspath(tree)),
           f"apex_tpu_torch imported from {ops.__file__}, not {tree}")
-    times = ln_times(torch, ops, torch.device("cuda", 0))
+    times = fn(torch, ops, torch.device("cuda", 0))
     print(json.dumps({"tree": tree, "card": nvidia_smi(), "ms": times}))
     return 0
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ln-times"]:
-        sys.exit(ln_times_of_tree(sys.argv[2]))
+        sys.exit(times_of_tree(sys.argv[2], ln_times))
+    if sys.argv[1:2] == ["--decode-times"]:
+        sys.exit(times_of_tree(sys.argv[2], decode_times))
     sys.exit(main())

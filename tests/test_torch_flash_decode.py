@@ -9,12 +9,23 @@ with the window and GQA heads; K = 1 equals the single-query decode, rows
 that see no key are exactly 0, and the wrappers validate and never fall
 back. The CUDA kernels are held against the plain versions by
 ``chip_smoke.py``.
+
+The split route's host-side rules: :func:`decode_splits` over fixed cases
+and as a property (at least one split, never more than the pages),
+:func:`decode_route`, :func:`decode_span_pages`, the key ranges the kernel
+derives on the device (:func:`split_keys`: every row's visible keys in
+exactly one split, for random lengths, windows, K and split counts), a
+plain split-then-combine of those ranges against the JAX references (fp32,
+atol 2e-5), and the launch arguments the wrapper hands the kernel, with
+lengths that raise if the host reads them.
 """
 
 import importlib
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 import torch
@@ -174,3 +185,249 @@ def test_multi_validation_and_no_fallback():
     assert ops.KERNEL_WRAPPERS["flash_decode_multi"] \
         is tfd.flash_decode_multi_fwd
     assert "flash_decode_multi" in ops.launch_counts()
+
+
+# --- the split route: split count, routes, key ranges, combine -------------
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 16, 1, 64), 2),     # the serve's decode: 128 groups, 64 pages
+    ((8, 16, 1, 9), 1),      # window 128 over 16-token pages: 9 pages
+    ((1, 16, 16, 64), 1),    # the 256-row chunk: 256 groups fill the card
+    ((1, 16, 1, 512), 16),   # one slot over 8192 keys
+    ((1, 16, 1, 1024), 16),  # one slot over 16384 keys: the CTA cap
+    ((1, 1, 1, 3), 1),       # fewer pages than a split's share
+    ((1, 1, 1, 100000), 256),  # the split cap
+])
+def test_decode_splits_fixed_cases(shape, want):
+    assert tfd.decode_splits(*shape, sms=132) == want
+
+
+@settings(max_examples=200, deadline=None, derandomize=True)
+@given(b=st.integers(1, 64), kh=st.integers(1, 32), tiles=st.integers(1, 32),
+       pages=st.integers(1, 4096), sms=st.integers(1, 264))
+def test_decode_splits_property(b, kh, tiles, pages, sms):
+    """At least one split; never more than the pages a group can see (no
+    split is empty at full length) nor the kernel's cap."""
+    n = tfd.decode_splits(b, kh, tiles, pages, sms)
+    assert 1 <= n <= min(pages, tfd.DECODE_MAX_SPLITS)
+    if n > 1:  # splitting keeps within the CTAs the card is meant to hold
+        assert b * kh * tiles * n <= tfd.DECODE_SPLIT_CTAS * sms
+
+
+@pytest.mark.parametrize("dtype,d,blk,aligned,route", [
+    (torch.bfloat16, 64, 16, True, "split"),
+    (torch.bfloat16, 128, 8, True, "split"),
+    (torch.bfloat16, 36, 16, True, "gather"),   # d % 8
+    (torch.bfloat16, 64, 12, True, "gather"),   # blk % 8
+    (torch.bfloat16, 64, 16, False, "gather"),  # off 16 bytes
+    (torch.float32, 64, 16, True, "fp32"),
+])
+def test_decode_route(dtype, d, blk, aligned, route):
+    assert tfd.decode_route(dtype, d, blk, aligned) == route
+
+
+def test_decode_span_pages():
+    assert tfd.decode_span_pages(64, 16, None) == 64
+    assert tfd.decode_span_pages(64, 16, 128) == 9   # 128 keys cross <= 9
+    assert tfd.decode_span_pages(64, 16, 128, kq=5) == 10
+    assert tfd.decode_span_pages(4, 16, 1000) == 4
+
+
+def _row_sets(length, kq, rows, window, s_max, splits, blk, tile):
+    """Per row: its visible keys, and the keys each split gives it."""
+    out = []
+    for r0 in range(0, rows, tile):
+        r1 = min(r0 + tile, rows)
+        ranges = [tfd.split_keys(length, s, splits, blk, window, kq,
+                                 (r0, r1), s_max) for s in range(splits)]
+        for r in range(r0, r1):
+            lo, hi = tfd.row_keys(length, r, kq, window, s_max)
+            mine = [set(range(max(lo, ka), min(hi, kb))) for ka, kb in ranges]
+            out.append((set(range(lo, hi)), mine, ranges))
+    return out
+
+
+@settings(max_examples=150, deadline=None, derandomize=True)
+@given(blk=st.sampled_from([8, 16, 24, 32, 128]), mb=st.integers(1, 40),
+       frac=st.floats(0, 1), window=st.one_of(st.none(), st.integers(1, 300)),
+       kq=st.integers(1, 40), g=st.integers(1, 4),
+       splits=st.integers(1, 70))
+def test_split_keys_cover_each_row_once(blk, mb, frac, window, kq, g,
+                                        splits):
+    """For random lengths (0 to max_blocks * blk), windows, K and split
+    counts, the splits' key ranges give each row its visible keys exactly
+    once; ranges are whole pages inside the table, and in order."""
+    s_max = mb * blk
+    length = int(round(frac * s_max))
+    for seen, mine, ranges in _row_sets(length, kq, g * kq, window, s_max,
+                                        splits, blk, tfd.DECODE_ROWS):
+        assert sum(len(m) for m in mine) == len(seen)
+        assert set().union(*mine) == seen
+        live = [(ka, kb) for ka, kb in ranges if kb > ka]
+        assert all(ka % blk == 0 and kb % blk == 0 and kb <= s_max
+                   for ka, kb in live)
+        assert all(a[1] <= b[0] for a, b in zip(live, live[1:]))
+        pages = (live[-1][1] - live[0][0]) // blk if live else 0
+        assert len(live) == min(splits, pages)  # no empty split in between
+
+
+def _split_combine(q, kp, vp, tables, lengths, window, splits, kq=None):
+    """The split kernel's arithmetic in fp32 numpy: for each (slot, kv
+    head, 16-row tile), each split's (m, l, acc) over its keys
+    (:func:`split_keys`), merged in split order; a row with no key is 0."""
+    single = kq is None
+    if single:
+        q = q[:, :, None]
+        kq = 1
+    b, h, _, d = q.shape
+    _, kh, blk, _ = kp.shape
+    g = h // kh
+    s_max = tables.shape[1] * blk
+    scale = d ** -0.5
+    out = np.zeros(q.shape, np.float32)
+    for bi in range(b):
+        n = int(lengths[bi])
+        pos = np.arange(s_max)
+        kd = kp[tables[bi]].transpose(1, 0, 2, 3).reshape(kh, s_max, d)
+        vd = vp[tables[bi]].transpose(1, 0, 2, 3).reshape(kh, s_max, d)
+        for ki in range(kh):
+            rows = q[bi, ki * g:(ki + 1) * g].reshape(g * kq, d)
+            for r0 in range(0, g * kq, tfd.DECODE_ROWS):
+                r1 = min(r0 + tfd.DECODE_ROWS, g * kq)
+                parts = [tfd.split_keys(n, s, splits, blk, window, kq,
+                                        (r0, r1), s_max)
+                         for s in range(splits)]
+                for r in range(r0, r1):
+                    lo, hi = tfd.row_keys(n, r, kq, window, s_max)
+                    m, l, acc = -np.inf, np.float32(0), np.zeros(d, np.float32)
+                    for ka, kb in parts:  # split order
+                        sel = (pos >= max(lo, ka)) & (pos < min(hi, kb))
+                        if not sel.any():
+                            continue
+                        sc = (kd[ki, sel] @ rows[r]) * scale
+                        ms = sc.max()
+                        p = np.exp(sc - ms)
+                        mn = max(m, ms)
+                        a_old, a_new = np.exp(m - mn), np.exp(ms - mn)
+                        l = l * a_old + p.sum() * a_new
+                        acc = acc * a_old + (p @ vd[ki, sel]) * a_new
+                        m = mn
+                    gi, j = divmod(r, kq)
+                    out[bi, ki * g + gi, j] = acc / l if l > 0 else 0.0
+    return out[:, :, 0] if single else out
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 50])
+@pytest.mark.parametrize("window,heads", [(None, (4, 4)), (5, (4, 4)),
+                                          (None, (6, 2)), (7, (6, 2))])
+def test_split_then_combine_matches_jax(splits, window, heads):
+    """1, 2, 7 splits and more splits than live pages, with and without the
+    window, GQA: the same as the JAX reference (fp32, atol 2e-5); the idle
+    slot exactly 0."""
+    h, kh = heads
+    q, kp, vp, tables, lengths = _case(h=h, kh=kh)
+    got = _split_combine(q, kp, vp, tables, lengths, window, splits)
+    ref = np.asarray(jax_paged(*(jnp.asarray(a) for a in
+                                 (q, kp, vp, tables, lengths)),
+                               window=window))
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+    assert np.all(got[1] == 0.0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 50])
+@pytest.mark.parametrize("window", [None, 5])
+def test_multi_split_then_combine_matches_jax(splits, window):
+    """K = 9 queries of a GQA group of 2: 18 rows, two 16-row tiles, some
+    rows with no key; against the JAX K-query reference (fp32, atol
+    2e-5)."""
+    arrs = _multi_case(h=4, kh=2, kq=9, n=17, lengths=(17, 0, 32, 5))
+    q, kp, vp, tables, lengths = arrs
+    got = _split_combine(q, kp, vp, tables, lengths, window, splits, kq=9)
+    ref = np.asarray(jax_paged_multi(*(jnp.asarray(a) for a in arrs),
+                                     window=window))
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+    assert np.all(got[1] == 0.0) and np.all(got[3, :, :4] == 0.0)
+
+
+class _NoHostRead(torch.Tensor):
+    """A tensor whose values the host must not read (a device value)."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func in (torch.Tensor.item, torch.Tensor.tolist,
+                    torch.Tensor.cpu, torch.Tensor.numpy,
+                    torch.Tensor.__bool__, torch.Tensor.__int__,
+                    torch.Tensor.__index__):
+            raise AssertionError(f"the wrapper read a device value "
+                                 f"({func.__name__})")
+        return super().__torch_function__(func, types, args, kwargs or {})
+
+
+@pytest.mark.parametrize("entry,kq,window,route,splits", [
+    ("apex_flash_decode", 1, None, "split", 2),
+    ("apex_flash_decode", 1, 128, "split", 1),
+    ("apex_flash_decode_multi", 5, None, "split", 2),
+    ("apex_flash_decode_multi", 256, None, "split", 1),
+])
+def test_launch_arguments_from_shapes_only(monkeypatch, entry, kq, window,
+                                           route, splits):
+    """The wrapper's launch (``_launch``) on the serve's shapes: the split
+    count from :func:`decode_splits`, a workspace of groups x splits x 16
+    rows x (64 + 2) floats and a counter a group; the lengths and tables
+    are never read on the host."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(tfd.build, "load", lambda: Lib())
+    monkeypatch.setattr(tfd.build, "current_stream", lambda dev: 7)
+    monkeypatch.setattr(tfd, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(tfd, "_SCRATCH", {})
+    b, h, kh, blk, d, nb, mb = (8 if kq != 256 else 1), 16, 16, 16, 64, 40, 64
+    q = torch.zeros(b, h, kq, d, dtype=torch.bfloat16)
+    if kq == 1:
+        q = q[:, :, 0].contiguous()
+    kp = torch.zeros(nb, kh, blk, d, dtype=torch.bfloat16)
+    tables = torch.zeros(b, mb, dtype=torch.int32).as_subclass(_NoHostRead)
+    lens = torch.full((b,), 700, dtype=torch.int32).as_subclass(_NoHostRead)
+    o = torch.empty_like(q)
+    with pytest.raises(AssertionError, match="device value"):
+        lens.item()
+    tfd._launch(entry, q, kp, kp, tables, lens, o, kq, 0.125, window, None)
+    (name, args), = calls
+    assert name == entry
+    n_split, dtype_code = args[-3], args[-2]
+    assert n_split == splits and dtype_code == tfd.build.DTYPES[q.dtype]
+    tiles = -(-(h // kh * kq) // tfd.DECODE_ROWS)
+    ws, cnt, _ = tfd._SCRATCH[(q.get_device(), 7)]
+    assert ws.numel() == b * kh * tiles * splits * tfd.DECODE_ROWS * (64 + 2)
+    assert cnt.numel() == b * kh * tiles and not cnt.any()
+    assert args[6] == ws.data_ptr() and args[7] == cnt.data_ptr()
+    assert tfd.decode_route(q.dtype, d, blk, True) == route
+
+
+def test_scratch_grows_never_shrinks_and_counters_start_at_zero(
+        monkeypatch):
+    monkeypatch.setattr(tfd, "_SCRATCH", {})
+    q = torch.zeros(2, 4, 16)
+    first = tfd._scratch(q, 7, 100, 10)
+    assert tfd._scratch(q, 7, 50, 5) == first  # fits: the same buffers
+    grown = tfd._scratch(q, 7, 200, 3)
+    ws, cnt, ptrs = tfd._SCRATCH[(q.get_device(), 7)]
+    assert ptrs == grown != first
+    assert ws.numel() == 200 and cnt.numel() == 10 and not cnt.any()
+    assert tfd._scratch(q, 8, 1, 1) != grown  # another stream, its own
+
+
+def test_split_override_only_on_the_split_route(monkeypatch):
+    monkeypatch.setattr(tfd.build, "current_stream", lambda dev: 7)
+    monkeypatch.setattr(tfd, "_sm_count", lambda dev: 132)
+    q = torch.zeros(2, 4, 16)  # fp32: the fp32 route
+    kp = torch.zeros(9, 4, 16, 16)
+    with pytest.raises(ValueError, match="split route"):
+        tfd._launch("apex_flash_decode", q, kp, kp,
+                    torch.zeros(2, 4, dtype=torch.int32),
+                    torch.zeros(2, dtype=torch.int32), q, 1, 0.25, None, 3)
