@@ -100,17 +100,22 @@ def fixed_batch(bench: Bench, seed: int = 1):
     return tokens, torch.roll(tokens, -1, dims=-1)
 
 
-def train_steps(bench: Bench, n: int = 10, tokens=None, targets=None
-                ) -> Dict[str, Any]:
+def train_steps(bench: Bench, n: int = 10, tokens=None, targets=None, *,
+                batch=None) -> Dict[str, Any]:
     """One warm-up step, then ``n`` steps on one fixed batch, timed with
     CUDA events between the steps (each reading includes the host's issue
     and its one wait per step, on the overflow flag and the loss). Returns
     the per-step losses (floats, the warm-up's first), the optimizer
     metrics, ``window_ms`` (the ``n`` timed steps from the first event to
     the last), ``step_ms`` (each timed step; both None on the CPU, where
-    nothing is timed) and ``tokens_per_step``."""
-    if tokens is None:
-        tokens, targets = fixed_batch(bench)
+    nothing is timed) and ``tokens_per_step``. ``batch``: the step's whole
+    argument tuple (token ids first), for a step that takes more than
+    ``(tokens, targets)``, as BERT's does."""
+    if batch is None:
+        if tokens is None:
+            tokens, targets = fixed_batch(bench)
+        batch = (tokens, targets)
+    tokens = batch[0]
     losses: List[float] = []
     metrics: List[Dict[str, Any]] = []
     on_card = tokens.device.type == "cuda"
@@ -119,7 +124,7 @@ def train_steps(bench: Bench, n: int = 10, tokens=None, targets=None
         if on_card and i > 0:
             events.append(torch.cuda.Event(enable_timing=True))
             events[-1].record()
-        loss, m = bench.step(tokens, targets)
+        loss, m = bench.step(*batch)
         losses.append(float(loss))
         metrics.append(m)
     window_ms = step_ms = None

@@ -44,15 +44,15 @@ _F = ctypes.c_float
 #: argument types of every exported entry point (restype is int)
 SIGNATURES = {
     "apex_ln_fwd": [_P] * 6 + [_L, _I, _F] + [_I] * 4 + [_P],
-    "apex_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F] + [_I] * 5
-                      + [_P],
+    "apex_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_P] + [_L] * 4
+                      + [_F] + [_I] * 5 + [_P],
     "apex_flash_decode": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "apex_flash_decode_multi": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3
                                + [_P],
     "apex_ln_bwd": [_P] * 10 + [_L] + [_I] * 6 + [_P],
-    "apex_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_L] * 12
+    "apex_flash_bwd_dq": [_P] * 10 + [_I] * 5 + [_L] * 16 + [_I] * 2
                          + [_F] + [_I] * 5 + [_P],
-    "apex_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_L] * 12
+    "apex_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_L] * 16
                           + [_F] + [_I] * 5 + [_P],
     "apex_flash_fwd_stream": [_P] * 8 + [_I] * 5 + [_L] * 9
                              + [_F] + [_I] * 7 + [_P],
@@ -64,6 +64,7 @@ SIGNATURES = {
     "apex_xent_bwd": [_P] * 5 + [_L, _I, _F, _L, _I, _P],
     "apex_softmax_fwd": [_P] * 3 + [_L] + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "apex_softmax_bwd": [_P] * 3 + [_L, _I, _F, _I, _I, _P],
+    "apex_empty_kernel": [_P],
 }
 
 _lock = threading.Lock()
@@ -173,6 +174,13 @@ def current_stream(device_index: int) -> int:
     """The raw handle of PyTorch's current stream on the CUDA device of
     that index (``tensor.get_device()``), the kernels' stream argument."""
     return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def empty_kernel(device_index: int) -> None:
+    """Launch an empty kernel on the current stream: the launch floor that a
+    kernel's time at a small shape is read against."""
+    check(load().apex_empty_kernel(current_stream(device_index)),
+          "apex_empty_kernel")
 
 
 def check(err: int, name: str) -> None:

@@ -2,12 +2,21 @@
 //
 // Replaces: apex_tpu/ops/flash_attention.py _fwd_kernel (def :251,
 // pallas_call in _flash_fwd, :889). Computes O = softmax(scale * Q K^T
-// [causal mask]) V and the per-row lse = m + log(l) (fp32), with the
-// online-softmax recurrence: a running max m, a running sum l and an fp32
-// accumulator per query row. Causal masking is top-left aligned (key k is
-// visible to query q iff k <= q, _apply_pos_masks), K/V tiles past the
-// causal diagonal are never loaded, and a row whose every key is masked
-// outputs exactly 0 (l == 0).
+// [+ bias] [causal mask]) V and the per-row lse = m + log(l) (fp32), with
+// the online-softmax recurrence: a running max m, a running sum l and an
+// fp32 accumulator per query row. Causal masking is top-left aligned (key
+// k is visible to query q iff k <= q, _apply_pos_masks), K/V tiles past
+// the causal diagonal are never loaded, and a row whose every key is
+// masked (an all -inf bias row) outputs exactly 0 with lse kNegInf
+// (l == 0).
+//
+// The additive bias (b|1, h|1, sq, sk), fp32, is read in place through
+// four element strides (0 on a broadcast dim) and added after the scale,
+// before the row max (_fwd_kernel :274-275). Each thread loads the values
+// of its own scores directly (read-only path; BERT's padding bias has the
+// query stride 0, so a key tile's values are one row shared by all rows,
+// from L1): no staging in shared memory. The bias kernels are separate
+// instances (kBias), so the routes without a bias are unchanged.
 //
 // Bound on this card: bytes at the path shapes (1024 tokens: 4 * s * d
 // elements moved against 4 * pairs * d FLOPs), operations at long
@@ -61,7 +70,7 @@ __global__ void __launch_bounds__(kFaThreads)
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int h, int sq, int sk, int d,
                      Strides qs, Strides ks, Strides vs, float scale,
-                     int causal) {
+                     int causal, BiasArgs bias) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* Qs = smem;            // kBQ x dp
@@ -80,6 +89,11 @@ __global__ void __launch_bounds__(kFaThreads)
   const T* qb = q + bi * qs.b + hi * qs.h;
   const T* kb = k + bi * ks.b + hi * ks.h;
   const T* vb = v + bi * vs.b + hi * vs.h;
+  // this row's bias (none past sq)
+  const float* brow = bias.p != nullptr && qrow < sq
+                          ? bias.p + bi * bias.sb + hi * bias.sh +
+                                qrow * bias.sq
+                          : nullptr;
 
   for (int e = tid; e < kBQ * d; e += kFaThreads) {
     const int rr = e / d, cc = e - rr * d;
@@ -125,6 +139,7 @@ __global__ void __launch_bounds__(kFaThreads)
     for (int jj = 0; jj < kBK / 4; ++jj) {
       const int kpos = k0 + c4 + 4 * jj;
       const bool valid = kpos < sk && (!causal || kpos <= qrow);
+      if (brow != nullptr && valid) s[jj] += __ldg(brow + kpos * bias.sk);
       s[jj] = valid ? s[jj] : kNegInf;
       mx = fmaxf(mx, s[jj]);
     }
@@ -178,7 +193,7 @@ template <typename T>
 int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
                      void* lse, int b, int h, int sq, int sk, int d,
                      Strides qs, Strides ks, Strides vs, float scale,
-                     int causal, cudaStream_t stream) {
+                     int causal, const BiasArgs& bias, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kBQ * (d + 1) + (size_t)kBK * (d + 1) +
                        (size_t)kBK * d + (size_t)kBQ * (kBK + 1));
@@ -187,7 +202,7 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   flash_fwd_kernel<T><<<grid, kFaThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, h, sq, sk,
-      d, qs, ks, vs, scale, causal);
+      d, qs, ks, vs, scale, causal, bias);
   return (int)cudaGetLastError();
 }
 
@@ -210,6 +225,7 @@ struct ResFwdArgs {
   int causal;
   int bh, n_outer;  // b*h, query tiles of a head
   int items;        // bh * n_outer: the CTAs of the plain grid
+  BiasArgs bias;    // read by the kBias instances only
 };
 
 // NWG consumer warpgroups of 64 queries each (BM = 64 NWG query rows an
@@ -235,8 +251,9 @@ struct ResFwdShape {
 // store; the ring's phase runs across items. Each warpgroup rounds its o to
 // bf16 into a staging tile of its own in TMA's swizzled layout and one of
 // its threads stores it by TMA (no row past sq, no column past d written);
-// its threads write the rows' lse.
-template <int DP, int BN, int NWG>
+// its threads write the rows' lse. kBias: the additive bias, added to each
+// key tile's scores before the row max (fwd_tile).
+template <int DP, int BN, int NWG, bool kBias>
 __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
                                   ResFwdShape<NWG>::kMinBlocks)
     fwd_resident_wgmma(const __grid_constant__ ResFwdMaps maps,
@@ -300,6 +317,8 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
     const int bi = bh / a.h, hi = bh - bi * a.h;
     const int qw = qt * BM + wg * 64;  // this warpgroup's queries
     const Band band = k_tiles(qt, nk, a.causal, 0, BM, BN);
+    BiasLines brows{};
+    if constexpr (kBias) brows = bias_rows(a.bias, bi, hi, qw + r0, a.sq);
     float o[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
@@ -311,9 +330,11 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
       const int g = it + n, s = g % kStages, k0 = (band.lo + n) * BN;
       const uint32_t ks = ring + s * 2 * L::kTileBytes;
       hopper::mbar_wait(&full[s], (g / kStages) & 1);
-      fwd_tile<DP, BM, BN>(o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c,
-                           qw + r0, k0 + kcol, a.sk, a.causal, 0,
-                           !interior<BN>(qw, k0, a.sk, a.causal, 0));
+      fwd_tile<DP, BM, BN, kBias>(o, m2, l, qs, wg * 64, ks,
+                                  ks + L::kTileBytes, c, qw + r0, k0 + kcol,
+                                  a.sk, a.causal, 0,
+                                  !interior<BN>(qw, k0, a.sk, a.causal, 0),
+                                  brows);
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
@@ -344,13 +365,13 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
 }
 
 // One kernel with its shared memory over `grid` CTAs.
-template <int DP, int BN, int NWG>
-int launch_res_fwd(const ResFwdMaps& maps, const ResFwdArgs& a,
-                   bool persistent, cudaStream_t stream) {
+template <int DP, int BN, int NWG, bool kBias>
+int launch_res_fwd_k(const ResFwdMaps& maps, const ResFwdArgs& a,
+                     bool persistent, cudaStream_t stream) {
   constexpr size_t smem = FwdLayout<DP, BN, 64 * NWG, true>::kBytes;
   constexpr int threads = ResFwdShape<NWG>::kThreads;
-  auto kernel = fwd_resident_wgmma<DP, BN, NWG>;
-  int err = set_max_smem<fwd_resident_wgmma<DP, BN, NWG>>(smem);
+  auto kernel = fwd_resident_wgmma<DP, BN, NWG, kBias>;
+  int err = set_max_smem<fwd_resident_wgmma<DP, BN, NWG, kBias>>(smem);
   if (err) return err;
   int grid = a.items;
   if (persistent) {  // as many CTAs as fit on the card at once
@@ -371,6 +392,16 @@ int launch_res_fwd(const ResFwdMaps& maps, const ResFwdArgs& a,
   return (int)cudaGetLastError();
 }
 
+// The instance with the bias where one is given
+template <int DP, int BN, int NWG>
+int launch_res_fwd(const ResFwdMaps& maps, const ResFwdArgs& a,
+                   bool persistent, cudaStream_t stream) {
+  return a.bias.p != nullptr
+             ? launch_res_fwd_k<DP, BN, NWG, true>(maps, a, persistent, stream)
+             : launch_res_fwd_k<DP, BN, NWG, false>(maps, a, persistent,
+                                                    stream);
+}
+
 // bf16: the tensor maps of q, k, v and o, then the kernel of the padded
 // head_dim (64 or 128), the key tile (64 or 128 rows where d <= 64; 64
 // above, where 128-row tiles and the staging overflow shared memory) and
@@ -378,10 +409,11 @@ int launch_res_fwd(const ResFwdMaps& maps, const ResFwdArgs& a,
 int launch_res_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                         void* lse, int b, int h, int sq, int sk, int d,
                         Strides qs, Strides ks, Strides vs, float scale,
-                        int causal, int outer_tile, int inner_tile,
-                        int persistent, cudaStream_t stream) {
+                        int causal, const BiasArgs& bias, int outer_tile,
+                        int inner_tile, int persistent, cudaStream_t stream) {
   ResFwdMaps maps;
   ResFwdArgs a{};
+  a.bias = bias;
   int err = encode_rows_map(&maps.q, &a.qpos, q, b, h, sq, d, qs.b, qs.h,
                             qs.s);
   if (!err) err = encode_rows_map(&maps.k, &a.kpos, k, b, h, sk, d, ks.b,
@@ -433,6 +465,8 @@ using namespace apex_torch;
 
 // q/k/v strides in elements: (batch, head, seq); the head_dim stride is 1.
 // o is contiguous (b, h, sq, d) in q's dtype; lse contiguous (b, h, sq) fp32.
+// bias: an fp32 (b|1, h|1, sq, sk) additive bias read through its element
+// strides (bsb, bsh, bsq, bsk; 0 on a broadcast dim), or null for none.
 // outer_tile / inner_tile: the query rows of an item and the key rows of a
 // streamed tile; persistent: as many CTAs as fit on the card walking the
 // items (bf16: 128, or 64 where d <= 64 / 64 or 128 / 0 or 1; fp32: 64 / 64
@@ -443,18 +477,21 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               int d, long long qsb, long long qsh,
                               long long qss, long long ksb, long long ksh,
                               long long kss, long long vsb, long long vsh,
-                              long long vss, float scale, int causal,
+                              long long vss, const void* bias,
+                              long long bsb, long long bsh, long long bsq,
+                              long long bsk, float scale, int causal,
                               int outer_tile, int inner_tile, int persistent,
                               int dtype, void* stream) {
   if (d < 1 || d > kMaxD || b < 1 || h < 1 || sq < 1 || sk < 1 ||
       !fwd_tiles_ok(dtype, d, outer_tile, inner_tile, persistent))
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
+  const BiasArgs ba{static_cast<const float*>(bias), bsb, bsh, bsq, bsk};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_flash_fwd<float>(q, k, v, o, lse, b, h, sq, sk, d, qs, ks,
-                                   vs, scale, causal, s);
+                                   vs, scale, causal, ba, s);
   return launch_res_fwd_bf16(q, k, v, o, lse, b, h, sq, sk, d, qs, ks, vs,
-                             scale, causal, outer_tile, inner_tile,
+                             scale, causal, ba, outer_tile, inner_tile,
                              persistent, s);
 }

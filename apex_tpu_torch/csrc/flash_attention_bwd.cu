@@ -13,6 +13,18 @@
 // dK = scale * dS^T Q. Causal masking is top-left aligned (key k visible to
 // query q iff k <= q), as in the forward.
 //
+// The additive bias (b|1, h|1, sq, sk), fp32, read in place through four
+// element strides (0 on a broadcast dim), joins S before P is recomputed
+// in both passes (S = scale * Q K^T + bias, :345-346 and :442-443). Where
+// the bias needs a gradient, the dQ pass also writes dbias = dS (the
+// reference's dbias rows, :380-382), fp32, into a (b, h, sq, sk) buffer,
+// each element once by the CTA that holds its row: with a bias of shape
+// (b, h, ...) that buffer is dbias; with a bias broadcast over b or h it
+// holds per-(b, h) partials, and dbias_finish sums them over the broadcast
+// dims in a fixed order (no atomics: two calls give the same bits). The
+// bias kernels are separate instances (kBias); without a bias the kernels
+// are unchanged.
+//
 // The TPU kernels keep the whole K/V (dQ pass) or Q/dO (dK/dV pass)
 // resident in VMEM (the kfull/qfull BlockSpecs, :1239 and :1312) and loop
 // over it inside one grid step. That is a VMEM layout rule, not behaviour:
@@ -67,6 +79,8 @@
 // bank conflicts), written directly. Any sq, sk and d <= 128; q/k/v/dO may
 // be strided (b, h, s) with a contiguous head_dim.
 
+#include <type_traits>
+
 #include "flash_bwd_wgmma.cuh"
 
 namespace apex_torch {
@@ -90,6 +104,8 @@ struct FmaArgs {
   Strides qs, ks, vs, dos;
   float scale;
   int causal;
+  BiasArgs bias;  // p == nullptr: none
+  float* dbias;   // (b, h, sq, sk) fp32 dS, or nullptr: no dbias
 };
 
 __device__ __forceinline__ bool live_row(float lse) {
@@ -111,6 +127,18 @@ struct ResArgs {
   int bh, n_outer;       // b*h, outer tiles of a head
   int items;             // bh * n_outer: the CTAs of the plain grid
 };
+
+// The kBias instances' arguments: the bias and, for dQ, the dbias buffer
+// ((b, h, sq, sk) fp32 dS, or nullptr). The instances without a bias take
+// ResArgs alone, so their parameters are what they were.
+struct ResBiasArgs : ResArgs {
+  BiasArgs bias;
+  float* dbias;
+};
+
+template <bool kBias>
+using ResArgsOf =
+    typename std::conditional<kBias, ResBiasArgs, ResArgs>::type;
 
 // Byte offsets in dynamic shared memory (after aligning it to 1024): the
 // two resident operands (kOuter rows each), the ring of streamed pairs (BN
@@ -137,10 +165,12 @@ struct ResLayout {
 // queries each: S = Q K^T and dP = dO V^T, then P and dS = P (dP - delta)
 // in registers, and dQ += dS K with K read through the descriptor as an
 // MN-major B. Warp 8 starts the TMA loads; its 32 lanes copy the lse and
-// delta rows.
-template <int DP, int BN>
+// delta rows. kBias: the bias joins S (add_bias) and, where r.dbias is
+// given, each tile's dS is stored to it as well (store_dbias).
+template <int DP, int BN, bool kBias>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    dq_resident_wgmma(const __grid_constant__ ResMaps maps, const ResArgs r) {
+    dq_resident_wgmma(const __grid_constant__ ResMaps maps,
+                      const ResArgsOf<kBias> r) {
   using L = ResLayout<DP, BN, false>;
   const BwdArgs& a = r.a;
   extern __shared__ unsigned char smem_raw[];
@@ -227,25 +257,54 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       scores<DP, kOuter, BN>(dp, os, wg * 64, ks + L::kInnerBytes);
       hopper::wgmma_commit();
     };
-    auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
-      const int k0 = (band.lo + n) * BN;
-      if (interior<BN>(qw, k0, a.sk, a.causal, 0))
-        dq_probs<false, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
-      else
-        dq_probs<true, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
-      uint32_t sf[BN / 16][4];
-      fragments<BN>(sf, dp);
-      hopper::wgmma_fence();
-      hopper::fence_regs(dq);
-      accumulate<DP, BN>(dq, sf,
-                         ring + ((it0 + n) % kStages) * 2 * L::kInnerBytes);
-    };
     auto release = [&](int n) {
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&empty[(it0 + n) % kStages]);
     };
     const int nt = band.hi - band.lo;
-    consume<BN>(nt, start, finish, release);
+    if constexpr (kBias) {
+      // the bias joins S (base 2 from here on); where dbias is wanted, each
+      // tile's dS goes to the rows of this thread's queries
+      const BiasLines brows = bias_rows(r.bias, bi, hi, qw + r0, a.sq);
+      float* drows[2] = {nullptr, nullptr};
+      if (r.dbias != nullptr) {
+        for (int hf = 0; hf < 2; ++hf)
+          if (qw + r0 + 8 * hf < a.sq)
+            drows[hf] = r.dbias + ((size_t)bh * a.sq + qw + r0 + 8 * hf) *
+                                      (size_t)a.sk;
+      }
+      auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
+        const int k0 = (band.lo + n) * BN;
+        add_bias<BN>(st, brows, c, k0 + kcol, a.sk);
+        if (interior<BN>(qw, k0, a.sk, a.causal, 0))
+          dq_probs<false, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a);
+        else
+          dq_probs<true, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a);
+        if (r.dbias != nullptr) store_dbias<BN>(drows, dp, k0 + kcol, a.sk);
+        uint32_t sf[BN / 16][4];
+        fragments<BN>(sf, dp);
+        hopper::wgmma_fence();
+        hopper::fence_regs(dq);
+        accumulate<DP, BN>(dq, sf,
+                           ring + ((it0 + n) % kStages) * 2 * L::kInnerBytes);
+      };
+      consume<BN>(nt, start, finish, release);
+    } else {
+      auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
+        const int k0 = (band.lo + n) * BN;
+        if (interior<BN>(qw, k0, a.sk, a.causal, 0))
+          dq_probs<false, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+        else
+          dq_probs<true, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+        uint32_t sf[BN / 16][4];
+        fragments<BN>(sf, dp);
+        hopper::wgmma_fence();
+        hopper::fence_regs(dq);
+        accumulate<DP, BN>(dq, sf,
+                           ring + ((it0 + n) % kStages) * 2 * L::kInnerBytes);
+      };
+      consume<BN>(nt, start, finish, release);
+    }
     it += nt;
     hopper::fence_regs(dq);
     __syncwarp();
@@ -270,11 +329,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // dS^T = P^T (dP^T - delta) in registers, and dV += P^T dO, dK += dS^T Q
 // with Q and dO read through the descriptor as MN-major B. Warp 8 starts
 // the TMA loads; its 32 lanes copy each query tile's lse and delta. A key
-// tile that no query sees (sk > sq under causal) stores zeros.
-template <int DP, int BN>
+// tile that no query sees (sk > sq under causal) stores zeros. kBias: the
+// bias joins S^T (add_bias_t, each key's bias column).
+template <int DP, int BN, bool kBias>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     dkv_resident_wgmma(const __grid_constant__ ResMaps maps,
-                       const ResArgs r) {
+                       const ResArgsOf<kBias> r) {
   using L = ResLayout<DP, BN, true>;
   const BwdArgs& a = r.a;
   extern __shared__ unsigned char smem_raw[];
@@ -360,29 +420,53 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       scores<DP, kOuter, BN>(dp, vs, wg * 64, qs + L::kInnerBytes);
       hopper::wgmma_commit();
     };
-    auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
-      const int s = (it0 + n) % kStages, q0 = (band.lo + n) * BN;
-      const float* st_s = stats + s * 2 * BN;
-      if (interior<64, BN>(q0, kw, a.sk, a.causal, 0))
-        dkv_probs<false, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
-      else
-        dkv_probs<true, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
-      uint32_t pf[BN / 16][4], sf[BN / 16][4];
-      fragments<BN>(pf, st);
-      fragments<BN>(sf, dp);
-      const uint32_t qs = ring + s * 2 * L::kInnerBytes;
-      hopper::wgmma_fence();
-      hopper::fence_regs(dv);
-      hopper::fence_regs(dk);
-      accumulate<DP, BN>(dv, pf, qs + L::kInnerBytes);
-      accumulate<DP, BN>(dk, sf, qs);
-    };
     auto release = [&](int n) {
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&empty[(it0 + n) % kStages]);
     };
     const int nt = band.hi - band.lo;
-    consume<BN>(nt, start, finish, release);
+    if constexpr (kBias) {
+      // the bias joins S^T (base 2 from here on)
+      const BiasLines bcols = bias_cols(r.bias, bi, hi, key0, a.sk);
+      auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
+        const int s = (it0 + n) % kStages, q0 = (band.lo + n) * BN;
+        const float* st_s = stats + s * 2 * BN;
+        add_bias_t<BN>(st, bcols, c, q0 + qcol, a.sq);
+        if (interior<64, BN>(q0, kw, a.sk, a.causal, 0))
+          dkv_probs<false, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a);
+        else
+          dkv_probs<true, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a);
+        uint32_t pf[BN / 16][4], sf[BN / 16][4];
+        fragments<BN>(pf, st);
+        fragments<BN>(sf, dp);
+        const uint32_t qs = ring + s * 2 * L::kInnerBytes;
+        hopper::wgmma_fence();
+        hopper::fence_regs(dv);
+        hopper::fence_regs(dk);
+        accumulate<DP, BN>(dv, pf, qs + L::kInnerBytes);
+        accumulate<DP, BN>(dk, sf, qs);
+      };
+      consume<BN>(nt, start, finish, release);
+    } else {
+      auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
+        const int s = (it0 + n) % kStages, q0 = (band.lo + n) * BN;
+        const float* st_s = stats + s * 2 * BN;
+        if (interior<64, BN>(q0, kw, a.sk, a.causal, 0))
+          dkv_probs<false, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
+        else
+          dkv_probs<true, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
+        uint32_t pf[BN / 16][4], sf[BN / 16][4];
+        fragments<BN>(pf, st);
+        fragments<BN>(sf, dp);
+        const uint32_t qs = ring + s * 2 * L::kInnerBytes;
+        hopper::wgmma_fence();
+        hopper::fence_regs(dv);
+        hopper::fence_regs(dk);
+        accumulate<DP, BN>(dv, pf, qs + L::kInnerBytes);
+        accumulate<DP, BN>(dk, sf, qs);
+      };
+      consume<BN>(nt, start, finish, release);
+    }
     it += nt;
     hopper::fence_regs(dv);
     hopper::fence_regs(dk);
@@ -439,6 +523,14 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dq_fma_kernel(FmaArgs a) {
   const float l = qrow < sq ? a.lse[head + qrow] : kNegInf;
   const float dl = qrow < sq ? a.delta[head + qrow] : 0.f;
   const bool live = live_row(l);
+  // this row's bias and dbias rows (none past sq)
+  const float* brow = a.bias.p != nullptr && qrow < sq
+                          ? a.bias.p + bi * a.bias.sb + hi * a.bias.sh +
+                                qrow * a.bias.sq
+                          : nullptr;
+  float* drow = a.dbias != nullptr && qrow < sq
+                    ? a.dbias + (head + qrow) * (size_t)sk
+                    : nullptr;
 
   float acc[kMaxDim / 4];
 #pragma unroll
@@ -468,8 +560,12 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dq_fma_kernel(FmaArgs a) {
     for (int jj = 0; jj < kTile / 4; ++jj) {
       const int c = c4 + 4 * jj, kpos = k0 + c;
       const bool valid = kpos < sk && (!a.causal || kpos <= qrow) && live;
-      const float p = valid ? expf(s[jj] * a.scale - l) : 0.f;
-      Ds[r * kPLd + c] = p * (dpv[jj] - dl);
+      float sv = s[jj] * a.scale;
+      if (brow != nullptr && valid) sv += __ldg(brow + kpos * a.bias.sk);
+      const float p = valid ? expf(sv - l) : 0.f;
+      const float ds = p * (dpv[jj] - dl);
+      Ds[r * kPLd + c] = ds;
+      if (drow != nullptr && kpos < sk) drow[kpos] = ds;
     }
     __syncwarp();  // a row's dS is written and read by the same 4 lanes
     for (int c = 0; c < kTile; ++c) {
@@ -514,6 +610,11 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dkv_fma_kernel(FmaArgs a) {
   load_f32(Ks, kb + (long long)k0 * a.ks.s, a.ks.s, sk - k0, d);
   load_f32(Vs, vb + (long long)k0 * a.vs.s, a.vs.s, sk - k0, d);
   const size_t head = (size_t)(bi * a.h + hi) * sq;
+  // this key's bias column (none past sk)
+  const float* bcol = a.bias.p != nullptr && key < sk
+                          ? a.bias.p + bi * a.bias.sb + hi * a.bias.sh +
+                                key * a.bias.sk
+                          : nullptr;
 
   float dk[kMaxDim / 4], dv[kMaxDim / 4];
 #pragma unroll
@@ -550,7 +651,9 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dkv_fma_kernel(FmaArgs a) {
       const float l = lse_s[c];
       const bool valid = qrow < sq && key < sk &&
                          (!a.causal || key <= qrow) && live_row(l);
-      const float p = valid ? expf(s[jj] * a.scale - l) : 0.f;
+      float sv = s[jj] * a.scale;
+      if (bcol != nullptr && valid) sv += __ldg(bcol + qrow * a.bias.sq);
+      const float p = valid ? expf(sv - l) : 0.f;
       Ps[r * kPLd + c] = p;
       Ds[r * kPLd + c] = p * (dpv[jj] - delta_s[c]);
     }
@@ -614,8 +717,8 @@ int launch_fma(bool dkv, const FmaArgs& a, int b, cudaStream_t stream) {
 
 // A resident kernel with its shared memory over `grid` CTAs: one per item,
 // or one per SM (persistent).
-template <auto Kernel, size_t kSmem>
-int launch_res(const ResMaps& maps, const ResArgs& r, int grid,
+template <auto Kernel, size_t kSmem, class Args>
+int launch_res(const ResMaps& maps, const Args& r, int grid,
                cudaStream_t stream) {
   const int err = set_max_smem<Kernel>(kSmem);
   if (err) return err;
@@ -623,18 +726,64 @@ int launch_res(const ResMaps& maps, const ResArgs& r, int grid,
   return (int)cudaGetLastError();
 }
 
+// The instance with the bias where one is given
 template <int DP, int BN>
-int launch_dq(const ResMaps& maps, const ResArgs& r, int grid,
+int launch_dq(const ResMaps& maps, const ResBiasArgs& r, int grid,
               cudaStream_t stream) {
-  return launch_res<dq_resident_wgmma<DP, BN>,
-                    ResLayout<DP, BN, false>::kBytes>(maps, r, grid, stream);
+  constexpr size_t smem = ResLayout<DP, BN, false>::kBytes;
+  if (r.bias.p != nullptr)
+    return launch_res<dq_resident_wgmma<DP, BN, true>, smem>(maps, r, grid,
+                                                             stream);
+  return launch_res<dq_resident_wgmma<DP, BN, false>, smem>(
+      maps, static_cast<const ResArgs&>(r), grid, stream);
 }
 
 template <int DP>
-int launch_dkv(const ResMaps& maps, const ResArgs& r, int grid,
+int launch_dkv(const ResMaps& maps, const ResBiasArgs& r, int grid,
                cudaStream_t stream) {
-  return launch_res<dkv_resident_wgmma<DP, 64>,
-                    ResLayout<DP, 64, true>::kBytes>(maps, r, grid, stream);
+  constexpr size_t smem = ResLayout<DP, 64, true>::kBytes;
+  if (r.bias.p != nullptr)
+    return launch_res<dkv_resident_wgmma<DP, 64, true>, smem>(maps, r, grid,
+                                                              stream);
+  return launch_res<dkv_resident_wgmma<DP, 64, false>, smem>(
+      maps, static_cast<const ResArgs&>(r), grid, stream);
+}
+
+// dbias of a bias broadcast over b (bb = 1) and/or h (bh = 1) from the dQ
+// pass's per-(b, h) dS partials ws (b, h, n) with n = sq * sk: out (bb, bh,
+// n), each element the sum over the broadcast dims in a fixed order (b
+// outer, h inner), so two calls give the same bits. Bound by bytes: ws
+// read once, out written once.
+__global__ void __launch_bounds__(256)
+    dbias_finish(const float* __restrict__ ws, float* __restrict__ out,
+                 int b, int h, int bb, int bh, long long n) {
+  const long long total = (long long)bb * bh * n;
+  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    const long long e = idx % n, o = idx / n;
+    const int ho = (int)(o % bh), bo = (int)(o / bh);
+    const int b0 = bb == 1 ? 0 : bo, b1 = bb == 1 ? b : bo + 1;
+    const int h0 = bh == 1 ? 0 : ho, h1 = bh == 1 ? h : ho + 1;
+    float sum = 0.f;
+    for (int bi = b0; bi < b1; ++bi)
+      for (int hi = h0; hi < h1; ++hi)
+        sum += ws[((long long)bi * h + hi) * n + e];
+    out[idx] = sum;
+  }
+}
+
+int launch_dbias_finish(const float* ws, float* out, int b, int h, int bb,
+                        int bh, long long n, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  const long long blocks = ((long long)bb * bh * n + 255) / 256;
+  const int grid = (int)(blocks < 8LL * sms ? blocks : 8LL * sms);
+  dbias_finish<<<grid, 256, 0, stream>>>(ws, out, b, h, bb, bh, n);
+  return (int)cudaGetLastError();
 }
 
 // bf16: the four operand maps and the output maps (out0: dQ or dK, out1:
@@ -643,7 +792,7 @@ int launch_dkv(const ResMaps& maps, const ResArgs& r, int grid,
 int launch_res_bwd(bool dkv, const FmaArgs& f, int b, int inner_tile,
                    int persistent, cudaStream_t stream) {
   ResMaps maps;
-  ResArgs r{};
+  ResBiasArgs r{};
   BwdArgs& a = r.a;
   const int h = f.h, d = f.d, so = dkv ? f.sk : f.sq;
   int err = encode_rows_map(&maps.in.q, &a.qpos, f.q, b, h, f.sq, d, f.qs.b,
@@ -668,6 +817,8 @@ int launch_res_bwd(bool dkv, const FmaArgs& f, int b, int inner_tile,
   a.d = d;
   a.scale = f.scale;
   a.causal = f.causal;
+  r.bias = f.bias;
+  r.dbias = f.dbias;
   r.bh = b * h;
   r.n_outer = (so + kOuter - 1) / kOuter;
   const long long items = (long long)r.bh * r.n_outer;
@@ -715,7 +866,8 @@ int launch_bwd(bool dkv, const FmaArgs& a, int b, int outer_tile,
 
 FmaArgs make_args(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta, int h,
-                  int sq, int sk, int d, const long long* st, float scale,
+                  int sq, int sk, int d, const long long* st,
+                  const void* bias, const long long* bst, float scale,
                   int causal) {
   FmaArgs a{};
   a.q = q;
@@ -734,6 +886,8 @@ FmaArgs make_args(const void* q, const void* k, const void* v,
   a.dos = Strides{st[9], st[10], st[11]};
   a.scale = scale;
   a.causal = causal;
+  a.bias = BiasArgs{static_cast<const float*>(bias), bst[0], bst[1], bst[2],
+                    bst[3]};
   return a;
 }
 
@@ -744,39 +898,61 @@ using namespace apex_torch;
 
 // q/k/v/dout strides in elements, (batch, head, seq) each, head_dim stride 1.
 // lse/delta contiguous (b, h, sq) fp32; dq contiguous (b, h, sq, d) in q's
-// dtype. outer_tile / inner_tile: the rows a CTA keeps and streams;
-// persistent: one CTA per SM walking the items (bf16: 128 / 64, or 128 for
-// dQ with d <= 64 / 0 or 1; fp32: 64 / 64 / 0). bf16 reads q/k/v/dout and writes dq by TMA:
-// 16-byte-aligned bases and strides, d % 8 == 0.
+// dtype. bias: an fp32 (b|1, h|1, sq, sk) additive bias read through its
+// element strides (bsb, bsh, bsq, bsk; 0 on a broadcast dim), or null.
+// dbias_ws: null, or (with a bias) a contiguous fp32 (b, h, sq, sk) buffer
+// the kernel writes dS into (zeroed by the caller under causal: the tiles
+// past the diagonal are not visited); dbias: (bb, bh, sq, sk) contiguous
+// fp32, the same buffer as dbias_ws where (bb, bh) == (b, h), else the
+// dbias_finish launch sums the partials into it. outer_tile / inner_tile:
+// the rows a CTA keeps and streams; persistent: one CTA per SM walking the
+// items (bf16: 128 / 64, or 128 for dQ with d <= 64 / 0 or 1; fp32: 64 /
+// 64 / 0). bf16 reads q/k/v/dout and writes dq by TMA: 16-byte-aligned
+// bases and strides, d % 8 == 0.
 extern "C" int apex_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int b, int h, int sq,
-    int sk, int d, long long qsb, long long qsh, long long qss, long long ksb,
-    long long ksh, long long kss, long long vsb, long long vsh, long long vss,
-    long long osb, long long osh, long long oss, float scale, int causal,
-    int outer_tile, int inner_tile, int persistent, int dtype, void* stream) {
+    const void* lse, const void* delta, void* dq, const void* bias,
+    void* dbias_ws, void* dbias, int b, int h, int sq, int sk, int d,
+    long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
+    long long kss, long long vsb, long long vsh, long long vss, long long osb,
+    long long osh, long long oss, long long bsb, long long bsh, long long bsq,
+    long long bsk, int bb, int bh, float scale, int causal, int outer_tile,
+    int inner_tile, int persistent, int dtype, void* stream) {
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};
-  FmaArgs a = make_args(q, k, v, dout, lse, delta, h, sq, sk, d, st, scale,
-                        causal);
+  const long long bst[4] = {bsb, bsh, bsq, bsk};
+  if (dbias_ws != nullptr &&
+      (bias == nullptr || dbias == nullptr || (bb != 1 && bb != b) ||
+       (bh != 1 && bh != h)))
+    return (int)cudaErrorInvalidValue;
+  FmaArgs a = make_args(q, k, v, dout, lse, delta, h, sq, sk, d, st, bias,
+                        bst, scale, causal);
   a.dq = dq;
-  return launch_bwd(false, a, b, outer_tile, inner_tile, persistent, dtype,
-                    (cudaStream_t)stream);
+  a.dbias = static_cast<float*>(dbias_ws);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err =
+      launch_bwd(false, a, b, outer_tile, inner_tile, persistent, dtype, s);
+  if (err || dbias_ws == nullptr || (bb == b && bh == h)) return err;
+  return launch_dbias_finish(static_cast<const float*>(dbias_ws),
+                             static_cast<float*>(dbias), b, h, bb, bh,
+                             (long long)sq * sk, s);
 }
 
 // dk/dv contiguous (b, h, sk, d) in k's dtype; other arguments as above.
 extern "C" int apex_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int b, int h,
-    int sq, int sk, int d, long long qsb, long long qsh, long long qss,
-    long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
-    long long vss, long long osb, long long osh, long long oss, float scale,
+    const void* lse, const void* delta, void* dk, void* dv, const void* bias,
+    int b, int h, int sq, int sk, int d, long long qsb, long long qsh,
+    long long qss, long long ksb, long long ksh, long long kss, long long vsb,
+    long long vsh, long long vss, long long osb, long long osh, long long oss,
+    long long bsb, long long bsh, long long bsq, long long bsk, float scale,
     int causal, int outer_tile, int inner_tile, int persistent, int dtype,
     void* stream) {
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};
-  FmaArgs a = make_args(q, k, v, dout, lse, delta, h, sq, sk, d, st, scale,
-                        causal);
+  const long long bst[4] = {bsb, bsh, bsq, bsk};
+  FmaArgs a = make_args(q, k, v, dout, lse, delta, h, sq, sk, d, st, bias,
+                        bst, scale, causal);
   a.dk = dk;
   a.dv = dv;
   return launch_bwd(true, a, b, outer_tile, inner_tile, persistent, dtype,

@@ -73,6 +73,122 @@ __device__ __forceinline__ bool visible(int row, int col, int sk, int causal,
          (window <= 0 || (row - col < window && (causal || col - row < window)));
 }
 
+// The additive fp32 bias of the resident kernels, (b|1, h|1, sq, sk) read
+// in place through element strides (0 on a broadcast dim: BERT's padding
+// bias is (b, 1, 1, sk) with the query stride 0); p == nullptr: none.
+struct BiasArgs {
+  const float* p;
+  long long sb, sh, sq, sk;
+};
+
+// Two bias lines a thread reads and the stride along them: the rows of
+// its queries row and row + 8 (stride: the key's), or, in the dK/dV pass,
+// the columns of its keys key0 and key0 + 8 (stride: the query's). nullptr
+// for a row past sq or a key past sk: those take no bias, so their scores
+// stay finite (they are never stored).
+struct BiasLines {
+  const float* r[2];
+  long long s;
+};
+
+// The bias rows of queries row and row + 8 of head (bi, hi)
+__device__ __forceinline__ BiasLines bias_rows(const BiasArgs& b, int bi,
+                                               int hi, int row, int sq) {
+  const float* head = b.p + bi * b.sb + hi * b.sh;
+  return {{row < sq ? head + row * b.sq : nullptr,
+           row + 8 < sq ? head + (row + 8) * b.sq : nullptr},
+          b.sk};
+}
+
+// The bias columns of keys key and key + 8 of head (bi, hi)
+__device__ __forceinline__ BiasLines bias_cols(const BiasArgs& b, int bi,
+                                               int hi, int key, int sk) {
+  const float* head = b.p + bi * b.sb + hi * b.sh;
+  return {{key < sk ? head + key * b.sk : nullptr,
+           key + 8 < sk ? head + (key + 8) * b.sk : nullptr},
+          b.sq};
+}
+
+// A 64 x N score block in base 2 with the bias added: st * c + bias
+// log2(e), element i at row half (i/2)%2 (bias rows `rows`) and key col +
+// 8 (i/4) + i%2 (the layout of dq_probs / online_softmax). Keys past sk
+// take none; the masks zero them after. kShare: where both rows are one
+// (a bias broadcast over queries, BERT's padding bias), each value is
+// loaded once for both (the dQ pass: faster on the card; the forward
+// without it: PERF.md, PR 13).
+template <int N, bool kShare = true>
+__device__ __forceinline__ void add_bias(float (&st)[N / 2],
+                                         const BiasLines& rows, float c,
+                                         int col, int sk) {
+  if (kShare && rows.r[0] == rows.r[1]) {
+    const float* r = rows.r[0];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = col + 8 * j + e;
+        const float b =
+            r != nullptr && key < sk ? __ldg(r + key * rows.s) * kLog2e
+                                     : 0.f;
+        st[4 * j + e] = fmaf(st[4 * j + e], c, b);
+        st[4 * j + 2 + e] = fmaf(st[4 * j + 2 + e], c, b);
+      }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float* r = rows.r[(i >> 1) & 1];
+    const int key = col + 8 * (i >> 2) + (i & 1);
+    const float b = r != nullptr && key < sk ? __ldg(r + key * rows.s) : 0.f;
+    st[i] = fmaf(st[i], c, b * kLog2e);
+  }
+}
+
+// The same on a transposed 64-key x N-query block (dkv_probs' layout:
+// element i is key (i/2)%2 of `keys` and query q + 8 (i/4) + i%2);
+// queries past sq take none. A bias broadcast over queries (stride 0)
+// gives each key one value: two loads a tile.
+template <int N>
+__device__ __forceinline__ void add_bias_t(float (&st)[N / 2],
+                                           const BiasLines& keys, float c,
+                                           int q, int sq) {
+  if (keys.s == 0) {
+    float bk[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      bk[hf] = keys.r[hf] != nullptr ? __ldg(keys.r[hf]) * kLog2e : 0.f;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int query = q + 8 * (i >> 2) + (i & 1);
+      st[i] = fmaf(st[i], c, query < sq ? bk[(i >> 1) & 1] : 0.f);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float* kc = keys.r[(i >> 1) & 1];
+    const int query = q + 8 * (i >> 2) + (i & 1);
+    const float b =
+        kc != nullptr && query < sq ? __ldg(kc + query * keys.s) : 0.f;
+    st[i] = fmaf(st[i], c, b * kLog2e);
+  }
+}
+
+// dS of a 64 x N block (dq_probs' layout) into dbias rows: `rows` are the
+// thread's two rows of the (b, h, sq, sk) fp32 workspace (nullptr past sq);
+// keys past sk are not written.
+template <int N>
+__device__ __forceinline__ void store_dbias(float* const (&rows)[2],
+                                            const float (&ds)[N / 2], int col,
+                                            int sk) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    float* r = rows[(i >> 1) & 1];
+    const int key = col + 8 * (i >> 2) + (i & 1);
+    if (r != nullptr && key < sk) r[key] = ds[i];
+  }
+}
+
 struct BwdMaps {
   CUtensorMap q, k, v, dout;  // encode_rows_map: 64 x 64 boxes
 };

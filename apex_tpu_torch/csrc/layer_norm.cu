@@ -676,6 +676,9 @@ int bwd(const void* g, const void* x, const void* mean, const void* rstd,
   return (int)cudaGetLastError();
 }
 
+// An empty kernel: the launch floor (apex_empty_kernel)
+__global__ void empty_kernel() {}
+
 }  // namespace
 }  // namespace apex_torch
 
@@ -683,6 +686,13 @@ using namespace apex_torch;
 
 extern "C" const char* apex_torch_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
+}
+
+// One launch of an empty kernel of one thread: the launch floor that any
+// kernel's time at a small shape is read against (chip_smoke.py phase 2).
+extern "C" int apex_empty_kernel(void* stream) {
+  empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 
 // x, y: contiguous (rows, hidden) in one dtype; w, b: fp32 (hidden,) or

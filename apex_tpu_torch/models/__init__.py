@@ -1,6 +1,11 @@
-"""Models of the port: the serial GPT, the ResNets, the fused dense
-layers and the MLP."""
+"""Models of the port: the serial GPT and BERT, the ResNets, the fused
+dense layers and the MLP."""
 
+from apex_tpu_torch.models.bert import (
+    BertConfig,
+    BertModel,
+    extended_attention_mask,
+)
 from apex_tpu_torch.models.fused_dense import FusedDense, FusedDenseGeluDense
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from apex_tpu_torch.models.mlp import MLP
@@ -15,6 +20,7 @@ from apex_tpu_torch.models.resnet import (
     ResNet152,
 )
 
-__all__ = ["BasicBlock", "Bottleneck", "FusedDense", "FusedDenseGeluDense",
+__all__ = ["BasicBlock", "BertConfig", "BertModel", "Bottleneck",
+           "FusedDense", "FusedDenseGeluDense", "extended_attention_mask",
            "GPTConfig", "GPTModel", "MLP", "ResNet", "ResNet18", "ResNet34",
            "ResNet50", "ResNet101", "ResNet152"]

@@ -14,8 +14,11 @@ the angles, so a rotation at position 1e6 matches it in fp32.
 Training: :meth:`TransformerBase.run_layers_train` checkpoints each layer
 with ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference's
 ``jax.checkpoint`` of the layer body, ``_transformer.py:634-638``; policy
-None/"full" = recompute everything) and applies inverted hidden dropout
-from an explicit ``torch.Generator``.
+None/"full" = recompute everything), the attention bias an input of the
+checkpointed layer, and applies inverted hidden dropout from an explicit
+``torch.Generator``. Both drives thread an additive attention bias (BERT's
+padding mask) through ``_layer``, ``_attention`` and ``_attend`` to
+``flash_attention``, as the reference's ``run_layers`` does.
 """
 
 from __future__ import annotations
@@ -203,7 +206,7 @@ class TransformerBase(nn.Module):
         n = qkv.shape[-1] // (3 * c.head_dim)
         qkv = qkv.view(b, s, n, 3, c.head_dim).permute(0, 2, 3, 1, 4)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if c.position_embedding == "rope":
+        if getattr(c, "position_embedding", "learned") == "rope":
             pos = self._token_positions(s, h.device)
             q, k = (apply_rope(q, pos, c.rope_theta),
                     apply_rope(k, pos, c.rope_theta))
@@ -224,10 +227,18 @@ class TransformerBase(nn.Module):
 
     def _attend(self, q, k, v, bias=None) -> torch.Tensor:
         """Core attention on ``(b, heads, s, d)`` (no context axis), with
-        the config's sliding window (``_transformer.py:490-507``, serial
-        branch); ``stream='auto'`` picks the kernels."""
+        the additive ``bias`` and the config's sliding window
+        (``_transformer.py:490-507``, serial branch); ``stream='auto'``
+        picks the kernels."""
         return flash_attention(q, k, v, bias, causal=self.causal,
                                window=self.cfg.attention_window)
+
+    def _attention(self, layer: TransformerLayer, h: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """QKV heads, attention, head merge and output projection
+        (``_transformer.py:440-445``)."""
+        q, k, v = self._qkv_heads(layer, h)
+        return self._attn_out(layer, self._attend(q, k, v, bias))
 
     def _mlp(self, layer: TransformerLayer, h: torch.Tensor) -> torch.Tensor:
         # jax.nn.gelu is the tanh approximation (_transformer.py:534)
@@ -235,12 +246,14 @@ class TransformerBase(nn.Module):
                                              approximate="tanh"))
 
     def _layer(self, layer: TransformerLayer, h: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         raise NotImplementedError
 
-    def run_layers(self, h: torch.Tensor) -> torch.Tensor:
+    def run_layers(self, h: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in self.layers:
-            h = self._layer(layer, h)
+            h = self._layer(layer, h, None, bias)
         return h
 
     def _dropout(self, x: torch.Tensor,
@@ -261,24 +274,27 @@ class TransformerBase(nn.Module):
         return [int(s) for s in seeds.tolist()]
 
     def _train_layer(self, layer: TransformerLayer, seed: Optional[int],
-                     h: torch.Tensor) -> torch.Tensor:
+                     h: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         gen = None
         if seed is not None:
             gen = torch.Generator(device=h.device)
             gen.manual_seed(seed)
-        return self._layer(layer, h, gen)
+        return self._layer(layer, h, gen, bias)
 
     def run_layers_train(self, h: torch.Tensor,
-                         dropout_generator: Optional[torch.Generator] = None
+                         dropout_generator: Optional[torch.Generator] = None,
+                         bias: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
         """The differentiable layer drive: each layer checkpointed when
-        ``cfg.remat`` is set (recomputed whole in the backward)."""
-        remat_policy(self.cfg.remat_policy)
+        ``cfg.remat`` is set (recomputed whole in the backward, the bias
+        one of its inputs)."""
+        remat_policy(getattr(self.cfg, "remat_policy", None))
         for layer, seed in zip(self.layers,
                                self._layer_seeds(dropout_generator)):
             fn = functools.partial(self._train_layer, layer, seed)
             if self.cfg.remat and torch.is_grad_enabled():
-                h = checkpoint(fn, h, use_reentrant=False)
+                h = checkpoint(fn, h, bias, use_reentrant=False)
             else:
-                h = fn(h)
+                h = fn(h, bias)
         return h

@@ -1,0 +1,235 @@
+"""Megatron-style BERT (port of ``apex_tpu/models/bert.py``), serial.
+
+Word + learned-position + tokentype embeddings, then the embedding LN; per
+layer the **post-LN** block ``LN(h + attn(h, bias))``, ``LN(h +
+fc2(gelu(fc1(h))))`` with the additive padding bias of
+:func:`extended_attention_mask` (-10000 on padded keys), which the resident
+flash kernels take on the card; then the head: the pooler and the binary
+(NSP) head on the fp32 pooled [CLS], and the MLM decode (dense, tanh-GELU,
+LN, the tied embedding plus ``lm_bias``). :meth:`BertModel.loss` is the
+masked mean of the per-token vocab cross entropy plus the NSP cross
+entropy (``bert.py:337-378``). The parameter tree and its names are the JAX
+model's; :meth:`BertModel.params_from_numpy` loads a JAX tree.
+
+Tensor and sequence parallelism (``axis``, ``sequence_parallel``),
+context parallelism (``context_axis``, whose padding mask becomes segment
+ids) and the ZeRO-3 drives (``unroll_layers``, ``zero3_prefetch``) are later
+slices and raise ``NotImplementedError``, naming their ROADMAP items.
+Hidden dropout runs only with a dropout generator.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch._device import DeviceLike, resolve_device
+from apex_tpu_torch._params import load_tree_
+from apex_tpu_torch.models._transformer import (
+    LayerNormParams,
+    TransformerBase,
+    TransformerLayer,
+)
+from apex_tpu_torch.transformer import tensor_parallel as tp
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    """BERT hyperparameters; the defaults are BERT-large (``bert.py:43-98``:
+    vocab 30592, hidden 1024, 24 layers, 16 heads, seq 512, 2 token
+    types)."""
+
+    vocab_size: int = 30592  # 30522 padded to a TP-friendly multiple
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_attention_heads: int = 16
+    max_seq_len: int = 512
+    type_vocab_size: int = 2
+    ffn_hidden_size: Optional[int] = None
+    axis: Optional[str] = None  # tensor parallelism: a later slice
+    sequence_parallel: bool = False
+    params_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    hidden_dropout: float = 0.1  # applied only with a dropout generator
+    init_method_std: float = 0.02
+    remat: bool = True
+    add_binary_head: bool = True
+    attention_window: Optional[int] = None
+    unroll_layers: bool = False
+    zero3_prefetch: int = 0
+    context_axis: Optional[str] = None
+
+    @property
+    def ffn(self) -> int:
+        return self.ffn_hidden_size or 4 * self.hidden_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+def _check_slice(c: BertConfig) -> None:
+    later = {
+        "axis": (c.axis is not None, "tensor parallelism (Queue 1 item 10)"),
+        "sequence_parallel": (c.sequence_parallel,
+                              "sequence parallelism (Queue 1 item 10)"),
+        "context_axis": (c.context_axis is not None,
+                         "ring/Ulysses context parallelism with the padding "
+                         "mask as segment ids (Queue 1 item 15)"),
+        "unroll_layers": (c.unroll_layers,
+                          "the ZeRO-3 drives (Queue 1 item 11; the port's "
+                          "layer loop is a Python loop already)"),
+        "zero3_prefetch": (bool(c.zero3_prefetch),
+                           "the ZeRO-3 prefetch drive (Queue 1 item 11)"),
+    }
+    for name, (on, where) in later.items():
+        if on:
+            raise NotImplementedError(
+                f"BertConfig {name} is not in this slice of the port; it "
+                f"comes with {where}")
+
+
+def extended_attention_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+    """(b, s) 1/0 padding mask -> additive fp32 (b, 1, 1, s) bias, -10000
+    on padded keys (``bert.py:101-105``)."""
+    bias = (1.0 - attention_mask.float()) * -10000.0
+    return bias[:, None, None, :]
+
+
+class BertModel(TransformerBase):
+    """Serial BERT whose parameters live on ``device`` (default: the card).
+
+    ``seed`` seeds the ``torch.Generator`` of the random init (std 0.02,
+    output layers scaled by 1/sqrt(2L)); parity runs load the JAX tree with
+    :meth:`params_from_numpy`."""
+
+    causal = False
+
+    def __init__(self, config: BertConfig, device: DeviceLike = None,
+                 seed: int = 0):
+        dev = resolve_device(device)
+        _check_slice(config)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        super().__init__(config, dev, gen)
+        c = config
+        init = tp.scaled_normal(c.init_method_std)
+        kw = dict(params_dtype=c.params_dtype, device=dev, generator=gen,
+                  init_method=init)
+        self.position = nn.Parameter(torch.empty(
+            c.max_seq_len, c.hidden_size, dtype=c.params_dtype, device=dev))
+        init(self.position, gen)
+        self.tokentype = nn.Parameter(torch.empty(
+            c.type_vocab_size, c.hidden_size, dtype=c.params_dtype,
+            device=dev))
+        init(self.tokentype, gen)
+        self.ln_emb = LayerNormParams(c.hidden_size, c.params_dtype, dev)
+        # BertLMHead (standalone_bert.py:46-74): dense + gelu + LN, then the
+        # tied decode plus a vocab bias
+        self.lm_dense = tp.ColumnParallelLinear(c.hidden_size, c.hidden_size,
+                                                **kw)
+        self.lm_ln = LayerNormParams(c.hidden_size, c.params_dtype, dev)
+        self.lm_bias = nn.Parameter(torch.zeros(c.vocab_size,
+                                                dtype=c.params_dtype,
+                                                device=dev))
+        if c.add_binary_head:
+            self.pooler = tp.ColumnParallelLinear(c.hidden_size,
+                                                  c.hidden_size, **kw)
+            self.binary_head = tp.ColumnParallelLinear(c.hidden_size, 2, **kw)
+
+    def params_from_numpy(self, tree: Dict[str, Any]) -> "BertModel":
+        """Load the JAX ``BertModel.init`` tree given as numpy arrays (layer
+        leaves stacked ``(num_layers, ...)``, ``kernel`` ``(in, out)``).
+        Shapes must match."""
+        return load_tree_(self, tree)
+
+    # -- stages -------------------------------------------------------------
+
+    def embed(self, tokens: torch.Tensor,
+              tokentype_ids: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Word + position (+ tokentype) rows, the embedding LN in the
+        compute dtype, dropout (``bert.py:166-190``)."""
+        c = self.cfg
+        h = self.embedding(tokens) + self.position[:tokens.shape[1]]
+        if tokentype_ids is not None:
+            h = h + self.tokentype[tokentype_ids]
+        h = self._ln(self.ln_emb, h.to(c.compute_dtype))
+        return self._dropout(h, generator).to(c.compute_dtype)
+
+    def _layer(self, layer: TransformerLayer, h: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Post-LN block: LN(residual + dropout(sublayer(h)))
+        (``bert.py:192-197``)."""
+        h = self._ln(layer.ln1, h + self._dropout(
+            self._attention(layer, h, bias), generator))
+        return self._ln(layer.ln2, h + self._dropout(self._mlp(layer, h),
+                                                     generator))
+
+    def head(self, h: torch.Tensor,
+             masked_lm_labels: Optional[torch.Tensor] = None):
+        """``(lm, binary_logits)``: the MLM decode's logits in the compute
+        dtype, or with labels the fp32 per-token vocab cross entropy; the
+        binary logits (fp32) from the pooled [CLS], or None without the
+        binary head (``bert.py:199-253``)."""
+        c = self.cfg
+        binary_logits = None
+        if c.add_binary_head:
+            pooled = torch.tanh(self._dense(self.pooler, h[:, 0]))
+            binary_logits = self._dense(self.binary_head, pooled.float())
+        g = F.gelu(self._dense(self.lm_dense, h), approximate="tanh")
+        g = self._ln(self.lm_ln, g)
+        wte = tp.cast_param(self.embedding.embedding, g.dtype)  # (V, H)
+        logits = g @ wte.t() + tp.cast_param(self.lm_bias, g.dtype)
+        if masked_lm_labels is None:
+            return logits, binary_logits
+        return (tp.vocab_parallel_cross_entropy(logits, masked_lm_labels),
+                binary_logits)
+
+    def apply(self, tokens: torch.Tensor,
+              attention_mask: Optional[torch.Tensor] = None,
+              tokentype_ids: Optional[torch.Tensor] = None,
+              masked_lm_labels: Optional[torch.Tensor] = None,
+              dropout_generator: Optional[torch.Generator] = None):
+        """Differentiable forward (``bert.py:255-293``): the padding mask
+        becomes the additive bias of every layer's attention; returns
+        :meth:`head`'s pair. Each layer is checkpointed under ``remat``
+        where a gradient is tracked."""
+        dev = self.device
+        tokens = tokens.to(dev)
+        bias = None
+        if attention_mask is not None:
+            bias = extended_attention_mask(attention_mask.to(dev))
+        if tokentype_ids is not None:
+            tokentype_ids = tokentype_ids.to(dev)
+        if masked_lm_labels is not None:
+            masked_lm_labels = masked_lm_labels.to(dev)
+        h = self.embed(tokens, tokentype_ids, dropout_generator)
+        h = self.run_layers_train(h, dropout_generator, bias)
+        return self.head(h, masked_lm_labels)
+
+    forward = apply
+
+    def loss(self, tokens: torch.Tensor, attention_mask: torch.Tensor,
+             loss_mask: torch.Tensor, masked_lm_labels: torch.Tensor,
+             nsp_labels: Optional[torch.Tensor] = None,
+             tokentype_ids: Optional[torch.Tensor] = None,
+             dropout_generator: Optional[torch.Generator] = None
+             ) -> torch.Tensor:
+        """The MLM loss averaged over the masked positions, plus the NSP
+        cross entropy (``bert.py:295-378``, serial)."""
+        lm_loss, binary_logits = self.apply(
+            tokens, attention_mask, tokentype_ids, masked_lm_labels,
+            dropout_generator)
+        w = loss_mask.to(self.device).float()
+        loss = (lm_loss * w).sum() / w.sum().clamp_min(1.0)
+        if nsp_labels is not None and binary_logits is not None:
+            logp = F.log_softmax(binary_logits.float(), dim=-1)
+            nsp = nsp_labels.to(self.device).long()[:, None]
+            loss = loss - logp.gather(1, nsp).mean()
+        return loss

@@ -27,13 +27,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
-from apex_tpu_torch._params import copy_array_
+from apex_tpu_torch._params import load_tree_
 from apex_tpu_torch.models._transformer import (
     LayerNormParams,
     TransformerBase,
@@ -131,30 +130,12 @@ class GPTModel(TransformerBase):
 
     # -- parameters ---------------------------------------------------------
 
-    @torch.no_grad()
     def params_from_numpy(self, tree: Dict[str, Any]) -> "GPTModel":
         """Load the JAX ``GPTModel.init`` tree given as numpy arrays: layer
         leaves stacked ``(num_layers, ...)``, ``kernel`` in JAX's
-        ``(in, out)`` layout (the port keeps it). Shapes must match."""
-        copy_array_(self.embedding.embedding, tree["embedding"]["embedding"],
-                    "embedding.embedding")
-        if self.position is not None:
-            copy_array_(self.position, tree["position"], "position")
-        for leaf in ("scale", "bias"):
-            copy_array_(getattr(self.ln_f, leaf), tree["ln_f"][leaf],
-                        f"ln_f.{leaf}")
-        layers = tree["layers"]
-        n = len(self.layers)
-        for name, sub in layers.items():
-            for leaf, stacked in sub.items():
-                stacked = np.asarray(stacked)
-                if stacked.shape[0] != n:
-                    raise ValueError(f"layers.{name}.{leaf}: {stacked.shape[0]}"
-                                     f" layers in the tree, {n} in the model")
-                for i, layer in enumerate(self.layers):
-                    copy_array_(getattr(getattr(layer, name), leaf),
-                                stacked[i], f"layers.{i}.{name}.{leaf}")
-        return self
+        ``(in, out)`` layout (the port keeps it). Shapes must match
+        (:func:`apex_tpu_torch._params.load_tree_`)."""
+        return load_tree_(self, tree)
 
     # -- stages -------------------------------------------------------------
 
@@ -173,13 +154,13 @@ class GPTModel(TransformerBase):
         return self.embed_at(tokens, pos[None])
 
     def _layer(self, layer: TransformerLayer, h: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Pre-LN block: residual + dropout(sublayer(LN(h))), the dropout
         masks drawn from ``generator`` attention first (``_layer_aux``,
         ``gpt.py:286-301``)."""
-        q, k, v = self._qkv_heads(layer, self._ln(layer.ln1, h))
-        h = h + self._dropout(self._attn_out(layer, self._attend(q, k, v)),
-                              generator)
+        h = h + self._dropout(
+            self._attention(layer, self._ln(layer.ln1, h), bias), generator)
         return h + self._dropout(self._mlp(layer, self._ln(layer.ln2, h)),
                                  generator)
 

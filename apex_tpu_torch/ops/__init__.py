@@ -18,6 +18,7 @@ from apex_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq_stream_reference,
     flash_attention_bwd_reference,
     flash_attention_fwd,
+    flash_attention_fwd_reference,
     flash_attention_fwd_stream,
     flash_attention_fwd_stream_reference,
     mha_reference,
@@ -108,6 +109,7 @@ __all__ = [
     "flash_attention_bwd_dq_stream_reference",
     "flash_attention_bwd_reference",
     "flash_attention_fwd",
+    "flash_attention_fwd_reference",
     "flash_attention_fwd_stream",
     "flash_attention_fwd_stream_reference",
     "flash_decode",

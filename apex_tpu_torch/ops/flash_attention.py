@@ -16,8 +16,9 @@ forward is always followed by the streamed backward.
   ``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``):
   in bf16 wgmma kernels fed by TMA, one CTA per outer tile over its whole
   band (:func:`_res_bwd_bands`), writing each gradient once with no
-  workspace and no atomics; in fp32 FMA kernels. Causal or non-causal, no
-  masks on the card.
+  workspace and no atomics; in fp32 FMA kernels. Causal or non-causal, with
+  the additive ``bias`` (read in place, 0 strides on its broadcast dims) and
+  its gradient from the dQ pass (:func:`flash_attention_bwd_dq`).
 - Streamed (``stream=True``): the three kernels of
   ``csrc/flash_attention_stream.cu`` (``_fwd_kernel_stream`` with its merge
   pass, ``_bwd_dq_kernel_stream``, ``_bwd_dkv_kernel_stream``) split each
@@ -34,13 +35,14 @@ forward is always followed by the streamed backward.
   lives only here.
 
 ``stream='auto'`` streams when ``max(sq, sk) >= STREAM_MIN_SEQ`` or a window
-is set. Both devices route alike; the card takes any sq/sk, head_dim <= 128,
-bf16 or fp32. The additive ``bias`` and ``segment_ids``/``pad_id`` masks on
-the card, and the window on the resident kernels, are later work and raise
-there (ROADMAP Queue 2 items 4 and 5).
+is set; a dense bias never streams. Both devices route alike; the card takes
+any sq/sk, head_dim <= 128, bf16 or fp32. The ``segment_ids``/``pad_id``
+masks on the card, and the window on the resident kernels, are later work
+and raise there (ROADMAP Queue 2 items 4 and 5).
 
 On CPU tensors the same Function runs the plain versions: for the resident
-kernels :func:`mha_reference` with its lse and
+kernels :func:`mha_reference` with its lse (with a bias,
+:func:`flash_attention_fwd_reference`) and
 :func:`flash_attention_bwd_reference`; for the streamed ones the per-split
 partials and the lse merge (:func:`flash_attention_fwd_stream_reference`),
 the split-wise dQ sums and the q-split dK/dV sums. With a mask the card does
@@ -104,6 +106,10 @@ BWD_SPLIT_TILES = 128
 #: rows both ways, one CTA per item.
 RES_BWD_DQ_INNER_TILE = 128
 RES_BWD_PERSISTENT = True
+#: the dQ inner tile where an additive bias joins S (d <= 64): its kernel
+#: instance holds the bias values of a tile in registers too, and at 128
+#: rows it spills (chosen on the card, PERF.md)
+RES_BWD_DQ_BIAS_INNER_TILE = 64
 #: the resident forward in bf16 (fwd_resident_wgmma in
 #: csrc/flash_attention.cu): a CTA keeps RES_FWD_OUTER_TILE queries (two
 #: consumer warpgroups) and streams every key tile of RES_FWD_INNER_TILE rows
@@ -211,17 +217,44 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _bias_args(bias: Optional[torch.Tensor], q: torch.Tensor, sq: int,
+               sk: int) -> Tuple:
+    """The bias as the kernels read it: ``(pointer, stride_b, stride_h,
+    stride_q, stride_k)`` in elements, 0 on a broadcast (size-1 or
+    expanded) dim, or a null pointer and zeros without one. The bias must be
+    fp32 ``(b|1, h|1, sq, sk)`` on q's device (:func:`flash_attention`
+    expands a size-1 sq/sk dim); it is never materialised."""
+    if bias is None:
+        return (None, 0, 0, 0, 0)
+    b, h = q.shape[0], q.shape[1]
+    if (bias.dim() != 4 or bias.shape[0] not in (1, b)
+            or bias.shape[1] not in (1, h) or bias.shape[2:] != (sq, sk)):
+        raise ValueError(f"the kernels take a bias (b|1, h|1, sq, sk) = "
+                         f"({b}|1, {h}|1, {sq}, {sk}), got "
+                         f"{tuple(bias.shape)}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"the kernels take an fp32 bias, got {bias.dtype}")
+    if bias.device != q.device:
+        raise ValueError("the bias must lie on q's device")
+    return (bias.data_ptr(), *(0 if n == 1 else st
+                               for n, st in zip(bias.shape, bias.stride())))
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = False,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None,
+                        bias: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA tensors: ``(o, lse)``, o
     ``(b, h, sq, d)`` in q's dtype and lse ``(b, h, sq)`` fp32. bf16 takes
     the wgmma kernel (operands TMA can read, :func:`_tma_operands`; the
     RES_FWD_* tiles and schedule), which writes each row once (two calls
-    give the same bits); fp32 the FMA kernel (STREAM_TILE both ways).
-    Counts its launches in ``flash_attention_fwd.launches``."""
+    give the same bits); fp32 the FMA kernel (STREAM_TILE both ways). A
+    ``bias`` (fp32 ``(b|1, h|1, sq, sk)``, :func:`_bias_args`) joins the
+    scores after the scale. Counts its launches in
+    ``flash_attention_fwd.launches``."""
     q, k, v, (b, h, sq, sk, d) = _fwd_args(q, k, v, "flash_attention_fwd")
+    bargs = _bias_args(bias, q, sq, sk)
     scale = (d ** -0.5) if scale is None else float(scale)
     dk_ = d
     if q.dtype == torch.bfloat16:
@@ -240,7 +273,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, h, sq, sk, dk_, q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), *bargs,
         scale, int(causal), *tiles, build.DTYPES[q.dtype],
         build.current_stream(q.get_device()))
     build.check(err, "apex_flash_fwd")
@@ -270,6 +303,35 @@ def _lse_reference(q, k, causal, scale, window=None):
     return torch.logsumexp(_mask_scores(s, causal, window), dim=-1)
 
 
+def flash_attention_fwd_reference(q, k, v, *, causal: bool, scale: float,
+                                  bias: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain resident forward with the kernel's arithmetic, in fp32:
+    ``S = scale * Q K^T + bias``, the causal mask, then ``(o, lse)`` with o
+    in q's dtype. A row whose every score is at most NEG_INF / 2 (an all
+    -inf bias row) gives o = 0 exactly and lse = NEG_INF, as ``_fwd_kernel``
+    gives for its ``l == 0`` rows (``flash_attention.py:313``)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
+    s = _mask_scores(s, causal)
+    m = s.amax(-1, keepdim=True)
+    dead = m <= NEG_INF / 2
+    p = torch.where(dead, 0.0, torch.exp(s - m))
+    l = p.sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bhqk,bhkd->bhqd", p / l_safe, v.float())
+    lse = torch.where(dead, NEG_INF, m + torch.log(l_safe))
+    return o.to(q.dtype), lse[..., 0]
+
+
+def _sum_to_bias(ds: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """dS ``(b, h, sq, sk)`` summed over the dims ``bias`` broadcasts (its
+    size-1 b and h): dbias in fp32, the bias's ``(b|1, h|1, sq, sk)``."""
+    dims = [i for i in (0, 1) if bias.shape[i] == 1 and ds.shape[i] != 1]
+    return ds.sum(dims, keepdim=True) if dims else ds
+
+
 def _probs(s, lse, causal, window, q0=0, k0=0):
     """``P = exp(S - lse)`` as the backward kernels recompute it: 0 where
     masked and on rows whose ``lse <= NEG_INF / 2`` (no visible key)."""
@@ -280,22 +342,28 @@ def _probs(s, lse, causal, window, q0=0, k0=0):
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool,
                                   scale: float,
-                                  window: Optional[int] = None):
+                                  window: Optional[int] = None,
+                                  bias: Optional[torch.Tensor] = None):
     """Plain backward, the arithmetic of the backward kernels:
-    ``P = exp(S - lse)`` (0 where the causal or window mask hides the key,
-    or where ``lse <= NEG_INF / 2``), ``dS = P * (dO V^T - delta)`` with
-    ``delta = rowsum(dO * O)``; returns ``(dq, dk, dv)`` in q/k/v's dtypes,
-    computed in fp32."""
+    ``P = exp(S - lse)`` with ``S = scale * Q K^T [+ bias]`` (0 where the
+    causal or window mask hides the key, or where ``lse <= NEG_INF / 2``),
+    ``dS = P * (dO V^T - delta)`` with ``delta = rowsum(dO * O)``; returns
+    ``(dq, dk, dv)`` in q/k/v's dtypes, computed in fp32, and with a
+    ``bias`` also dbias = dS summed over its broadcast b/h dims, fp32
+    (:func:`_sum_to_bias`)."""
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     delta = (o.float() * do32).sum(-1, keepdim=True)
     s = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * scale
+    if bias is not None:
+        s = s + bias.float()
     p = _probs(s, lse.float(), causal, window)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
     dp = torch.einsum("bhqd,bhkd->bhqk", do32, v32)
     ds = p * (dp - delta)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return grads if bias is None else (*grads, _sum_to_bias(ds, bias))
 
 
 def _bwd_args(q, k, v, do, lse, delta, name):
@@ -328,15 +396,17 @@ def _bwd_args(q, k, v, do, lse, delta, name):
     return ts, stats, strides, (b, h, sq, sk, d)
 
 
-def _res_bwd_inner(inner_is_k: bool, d: int) -> int:
+def _res_bwd_inner(inner_is_k: bool, d: int, bias: bool = False) -> int:
     """The inner tile of a resident bf16 pass (dQ when ``inner_is_k``) at
     the head_dim ``d`` the kernel sees: RES_BWD_DQ_INNER_TILE for dQ where
-    d <= 64, else BWD_INNER_TILE."""
-    return (RES_BWD_DQ_INNER_TILE if inner_is_k and d <= 64
-            else BWD_INNER_TILE)
+    d <= 64 (RES_BWD_DQ_BIAS_INNER_TILE with a bias), else
+    BWD_INNER_TILE."""
+    if inner_is_k and d <= 64:
+        return RES_BWD_DQ_BIAS_INNER_TILE if bias else RES_BWD_DQ_INNER_TILE
+    return BWD_INNER_TILE
 
 
-def _res_bwd_launch(q, k, v, do, lse, delta, name, inner_is_k):
+def _res_bwd_launch(q, k, v, do, lse, delta, name, inner_is_k, bias=False):
     """Check the operands of a resident backward kernel and pick its route:
     bf16 takes the wgmma kernels (operands TMA can read,
     :func:`_tma_operands`; BWD_OUTER_TILE rows kept, the pass's inner tile
@@ -348,7 +418,7 @@ def _res_bwd_launch(q, k, v, do, lse, delta, name, inner_is_k):
         q, k, v, do, lse, delta, name)
     if q.dtype == torch.bfloat16:
         (q, k, v, do), d = _tma_operands([q, k, v, do])
-        tiles = (BWD_OUTER_TILE, _res_bwd_inner(inner_is_k, d),
+        tiles = (BWD_OUTER_TILE, _res_bwd_inner(inner_is_k, d, bias),
                  int(RES_BWD_PERSISTENT))
     else:
         tiles = (STREAM_TILE, STREAM_TILE, 0)
@@ -357,52 +427,77 @@ def _res_bwd_launch(q, k, v, do, lse, delta, name, inner_is_k):
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
-                           scale: float) -> torch.Tensor:
+                           scale: float,
+                           bias: Optional[torch.Tensor] = None,
+                           dbias: bool = False):
     """Launch the dQ kernel on CUDA tensors: dQ ``(b, h, sq, d)`` in q's
     dtype from the forward's fp32 lse and ``delta = rowsum(dO * O)`` (both
     ``(b, h, sq)``), written once by the kernel (no workspace, no atomics:
-    two calls give the same bits). Counts its launches in
-    ``flash_attention_bwd_dq.launches``."""
+    two calls give the same bits). With a ``bias`` (as
+    :func:`flash_attention_fwd` takes it) it joins S; with ``dbias`` the
+    kernel also writes dS, fp32, and the call returns ``(dq, dbias)``,
+    dbias in the bias's ``(b|1, h|1, sq, sk)``: written directly where the
+    bias is ``(b, h, ...)``, else as per-(b, h) partials that the same
+    launch call's ``dbias_finish`` sums in a fixed order. Counts its
+    launches in ``flash_attention_bwd_dq.launches``."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _res_bwd_launch(
-        q, k, v, do, lse, delta, "flash_attention_bwd_dq", True)
+        q, k, v, do, lse, delta, "flash_attention_bwd_dq", True,
+        bias is not None)
+    bargs = _bias_args(bias, q, sq, sk)
+    if dbias and bias is None:
+        raise ValueError("dbias needs the bias")
+    ws = out = None
+    bb, bh = (b, h) if bias is None else bias.shape[:2]
+    if dbias:
+        # tiles past the causal diagonal are never visited: their dS is 0
+        alloc = torch.zeros if causal else torch.empty
+        ws = alloc((b, h, sq, sk), device=q.device, dtype=torch.float32)
+        out = ws if (bb, bh) == (b, h) else torch.empty(
+            (bb, bh, sq, sk), device=q.device, dtype=torch.float32)
     dq = torch.empty((b, h, sq, dk_), device=q.device, dtype=q.dtype)
     if dq.numel() == 0:
-        return dq[..., :d]
+        return (dq[..., :d], out.zero_()) if dbias else dq[..., :d]
     err = build.load().apex_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, dk_,
-        *strides, float(scale), int(causal), *tiles, build.DTYPES[q.dtype],
-        build.current_stream(q.get_device()))
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bargs[0],
+        None if ws is None else ws.data_ptr(),
+        None if out is None else out.data_ptr(), b, h, sq, sk, dk_,
+        *strides, *bargs[1:], bb, bh, float(scale), int(causal), *tiles,
+        build.DTYPES[q.dtype], build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dq")
     flash_attention_bwd_dq.launches += 1
-    return dq if dk_ == d else dq[..., :d].contiguous()
+    dq = dq if dk_ == d else dq[..., :d].contiguous()
+    return (dq, out) if dbias else dq
 
 
 flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
-                            scale: float
+                            scale: float,
+                            bias: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel on CUDA tensors: ``(dk, dv)``, each
     ``(b, h, sk, d)`` in k's dtype, written once by the kernel (a key no
-    query sees gets 0). Counts its launches in
-    ``flash_attention_bwd_dkv.launches``."""
+    query sees gets 0); a ``bias`` joins S as in the forward. Counts its
+    launches in ``flash_attention_bwd_dkv.launches``."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _res_bwd_launch(
         q, k, v, do, lse, delta, "flash_attention_bwd_dkv", False)
+    bargs = _bias_args(bias, q, sq, sk)
     dk = torch.empty((b, h, sk, dk_), device=q.device, dtype=k.dtype)
     dv = torch.empty_like(dk)
     if dk.numel() == 0 or sq == 0:
         return dk.zero_()[..., :d], dv.zero_()[..., :d]
     err = build.load().apex_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
-        sq, sk, dk_, *strides, float(scale), int(causal), *tiles,
-        build.DTYPES[q.dtype], build.current_stream(q.get_device()))
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bargs[0], b, h, sq, sk, dk_, *strides, *bargs[1:], float(scale),
+        int(causal), *tiles, build.DTYPES[q.dtype],
+        build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     if dk_ != d:
@@ -853,43 +948,51 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
 flash_attention_bwd_dkv_stream.launches = 0
 
 
-def _forward(q, k, v, causal, scale, stream, window):
+def _forward(q, k, v, causal, scale, stream, window, bias=None):
     """``(o, lse)``: the kernel on a CUDA tensor, its plain version on a
-    CPU one."""
+    CPU one. A bias never streams (:func:`use_stream`)."""
     if stream:
         fn = (flash_attention_fwd_stream if q.device.type == "cuda"
               else flash_attention_fwd_stream_reference)
         return fn(q, k, v, causal=causal, scale=scale, window=window)
     if q.device.type == "cuda":
-        return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                   bias=bias)
+    if bias is not None:
+        return flash_attention_fwd_reference(q, k, v, causal=causal,
+                                             scale=scale, bias=bias)
     return (mha_reference(q, k, v, causal=causal, scale=scale),
             _lse_reference(q, k, causal, scale))
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal or non-causal attention without bias/segment masks, resident
+    """Causal or non-causal attention with an optional additive bias (fp32
+    ``(b|1, h|1, sq, sk)``, resident only) and no segment masks, resident
     or streamed (with the window), with the two-pass flash backward
     (``_flash_vjp_fwd`` / ``_flash_vjp_bwd``): a streamed forward is
-    followed by the streamed backward. Kernels on CUDA tensors, plain
+    followed by the streamed backward. dbias comes from the dQ pass, and
+    only where the bias requires grad. Kernels on CUDA tensors, plain
     versions on CPU ones."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, stream, window):
-        o, lse = _forward(q, k, v, causal, scale, stream, window)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, bias, causal, scale, stream, window):
+        o, lse = _forward(q, k, v, causal, scale, stream, window, bias)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.stream, ctx.window = stream, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        want_db = bias is not None and ctx.needs_input_grad[3]
         kw = dict(causal=ctx.causal, scale=ctx.scale)
         cuda = q.device.type == "cuda"
+        none = (None,) * 4
         if not ctx.stream and not cuda:
-            dq, dk, dv = flash_attention_bwd_reference(q, k, v, o, lse, do,
-                                                       **kw)
-            return dq, dk, dv, None, None, None, None
+            dq, dk, dv, *db = flash_attention_bwd_reference(
+                q, k, v, o, lse, do, bias=bias, **kw)
+            return dq, dk, dv, (db[0] if want_db else None), *none
         delta = (o.float() * do.float()).sum(-1)
         if ctx.stream:
             kw["window"] = ctx.window
@@ -897,11 +1000,15 @@ class FlashAttention(torch.autograd.Function):
                               flash_attention_bwd_dkv_stream) if cuda else
                              (flash_attention_bwd_dq_stream_reference,
                               flash_attention_bwd_dkv_stream_reference))
-        else:
-            dq_fn, dkv_fn = flash_attention_bwd_dq, flash_attention_bwd_dkv
-        dq = dq_fn(q, k, v, do, lse, delta, **kw)
-        dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None, None, None
+            dq = dq_fn(q, k, v, do, lse, delta, **kw)
+            dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
+            return dq, dk, dv, None, *none
+        kw["bias"] = bias
+        got = flash_attention_bwd_dq(q, k, v, do, lse, delta, dbias=want_db,
+                                     **kw)
+        dq, db = got if want_db else (got, None)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, db, *none
 
 
 _STREAM_CHOICES = ("auto", "never", "always")
@@ -926,19 +1033,35 @@ def use_stream(stream: str, sq: int, sk: int, window: Optional[int],
     return do
 
 
-def _card_refusal(bias, segment_ids, stream: bool) -> str:
+def _card_refusal(segment_ids, stream: bool) -> str:
     """What the card does not take yet, and the ROADMAP item that brings
-    it: a bias or segment ids on the resident kernels and the window there
-    (Queue 2 item 4), segment ids on the streamed kernels (item 5)."""
-    if bias is not None:
-        what, item = "a dense bias", 4
-    elif segment_ids is not None:
+    it: segment ids on the resident kernels and the window there (Queue 2
+    item 4), segment ids on the streamed kernels (item 5)."""
+    if segment_ids is not None:
         what, item = ("segment_ids on the streamed kernels", 5) if stream \
             else ("segment_ids on the resident kernels", 4)
     else:
         what, item = "the window on the resident kernels (stream='never')", 4
     return (f"flash_attention on CUDA does not take {what} yet: a later "
             f"slice of the port (ROADMAP Queue 2 item {item})")
+
+
+def _canonical_bias(bias: torch.Tensor, b: int, h: int, sq: int,
+                    sk: int) -> torch.Tensor:
+    """The reference's checks and canonical form of a bias
+    (``flash_attention.py:1711-1721``): rank 4, batch and head dims 1 or
+    b / h, and size-1 sq/sk dims broadcast away -- here an fp32 ``expand``
+    outside the autograd Function, so autograd's sum of the expand gives
+    the caller's dbias shape, as ``broadcast_to``'s VJP does."""
+    if bias.dim() != 4:
+        raise ValueError(f"bias must be rank-4 broadcastable, got shape "
+                         f"{tuple(bias.shape)}")
+    bb, bh, bq, bk = bias.shape
+    if bb not in (1, b) or bh not in (1, h) or bq not in (1, sq) \
+            or bk not in (1, sk):
+        raise ValueError(f"bias shape {tuple(bias.shape)} not broadcastable "
+                         f"to ({b}, {h}, {sq}, {sk})")
+    return bias.float().expand(bb, bh, sq, sk)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -956,12 +1079,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     upper-triangular mask, ``window`` the sliding window, ``bias`` an
     additive bias broadcastable to ``(b, h, sq, sk)``, ``segment_ids`` the
     packed-varlen equality mask, ``stream`` 'auto' | 'never' | 'always'
-    (:func:`use_stream`). Without bias or segment ids both devices go
-    through :class:`FlashAttention` (kernels on the card, plain versions on
-    the CPU), streamed or resident; the window needs the streamed path.
-    CUDA tensors with what the kernels do not take yet raise
-    ``NotImplementedError``; CPU tensors take :func:`mha_reference` and its
-    own autograd.
+    (:func:`use_stream`). Without segment ids both devices go through
+    :class:`FlashAttention` (kernels on the card, plain versions on the
+    CPU), streamed or resident, the bias (:func:`_canonical_bias`) on the
+    resident route; the window needs the streamed path. CUDA tensors with
+    what the kernels do not take yet raise ``NotImplementedError``; CPU
+    tensors take :func:`mha_reference` and its own autograd.
     """
     sq, sk = q.shape[2], k.shape[2]
     if window is not None:
@@ -971,21 +1094,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if window >= max(sq, sk):
             window = None  # the band covers everything: dense attention
     on = check_device(q, "q")
+    if bias is not None:
+        bias = _canonical_bias(bias, q.shape[0], q.shape[1], sq, sk)
     do_stream = use_stream(stream, sq, sk, window, bias is not None)
-    plain = (bias is not None or segment_ids is not None
-             or (window is not None and not do_stream))
-    if plain:
+    if segment_ids is not None or (window is not None and not do_stream):
         if on == "cpu":
             return mha_reference(q, k, v, bias, causal=causal, scale=scale,
                                  segment_ids=segment_ids, pad_id=pad_id,
                                  window=window)
-        raise NotImplementedError(_card_refusal(bias, segment_ids,
-                                                do_stream))
+        raise NotImplementedError(_card_refusal(segment_ids, do_stream))
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, scale, do_stream,
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        return FlashAttention.apply(q, k, v, bias, causal, scale, do_stream,
                                     window)
-    if on == "cpu" and not do_stream:
+    if on == "cpu" and not do_stream and bias is None:
         return mha_reference(q, k, v, causal=causal, scale=scale)
-    return _forward(q, k, v, causal, scale, do_stream, window)[0]
+    return _forward(q, k, v, causal, scale, do_stream, window, bias)[0]

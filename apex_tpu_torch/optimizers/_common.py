@@ -1,9 +1,11 @@
 """Shared optimizer plumbing (port of the part of
-``apex_tpu/optimizers/_common.py`` that FusedAdam and FusedSGD need).
+``apex_tpu/optimizers/_common.py`` that FusedAdam, FusedSGD and FusedLAMB
+need).
 
 The JAX optimizers are optax transforms over pytrees; here an optimizer
 works on lists of tensors: ``init(params)`` builds its state and
-``update_(params, grads, state)`` steps the params IN PLACE.
+``update_(params, grads, state)`` steps the params IN PLACE. The maps over
+the tree are ``torch._foreach_*`` passes over the lists.
 """
 
 from __future__ import annotations
@@ -29,3 +31,38 @@ def apply_updates_(params: Sequence[torch.Tensor],
     for p, u in zip(params, updates):
         if p.dtype != u.dtype:
             p.add_(u.to(p.dtype))
+
+
+def lamb_leaf_update(g32: List[torch.Tensor], p32: Sequence[torch.Tensor],
+                     m: List[torch.Tensor], v: List[torch.Tensor], *,
+                     beta1: float, beta2: float, beta1_grad: float,
+                     bc1: float, bc2: float, eps: float,
+                     weight_decay: float, use_nvlamb: bool
+                     ) -> List[torch.Tensor]:
+    """The per-leaf LAMB math (``lamb_leaf_update``, ``_common.py:95-136``;
+    ``csrc/multi_tensor_lamb.cu`` stages 1 and 2) over every leaf of the
+    lists at once, fp32: the moments ``m = beta1 m + beta1_grad g`` and
+    ``v = beta2 v + (1 - beta2) g^2`` (updated IN PLACE), ``upd = (m / bc1)
+    / (sqrt(v / bc2) + eps) + weight_decay p``, then each leaf's trust
+    ratio ``||p|| / ||upd||`` (1 where either norm is 0, and everywhere
+    when ``weight_decay == 0`` without ``use_nvlamb``). Returns the
+    trust-scaled updates; the parameter step is ``p - lr * update``."""
+    torch._foreach_mul_(m, beta1)
+    torch._foreach_add_(m, g32, alpha=beta1_grad)
+    torch._foreach_mul_(v, beta2)
+    torch._foreach_addcmul_(v, g32, g32, value=1.0 - beta2)
+    denom = torch._foreach_div(v, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    upd = torch._foreach_div(m, bc1)
+    torch._foreach_div_(upd, denom)
+    if weight_decay != 0.0:
+        torch._foreach_add_(upd, list(p32), alpha=weight_decay)
+    if (weight_decay == 0.0 and not use_nvlamb) or not upd:
+        return upd
+    w_norm = torch.stack(torch._foreach_norm(list(p32)))
+    u_norm = torch.stack(torch._foreach_norm(upd))
+    ratio = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
+                        torch.ones_like(w_norm))
+    torch._foreach_mul_(upd, list(ratio.unbind()))
+    return upd

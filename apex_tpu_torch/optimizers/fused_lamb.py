@@ -1,0 +1,95 @@
+"""FusedLAMB (port of ``apex_tpu/optimizers/fused_lamb.py``).
+
+The layer-wise adaptive large-batch optimizer with apex's knobs
+(``fused_lamb.py:36-159``): phase 1, the global gradient norm and the clip
+factor ``max(1, ||g|| / max_grad_norm)``; phase 2, per leaf the Adam-style
+moments with ``grad_averaging`` and ``bias_correction``, decoupled weight
+decay and the trust ratio ``||p|| / ||update||`` (``use_nvlamb`` applies
+it where ``weight_decay == 0`` too; :func:`~apex_tpu_torch.optimizers.
+_common.lamb_leaf_update`). The moments and the arithmetic are fp32, in
+``torch._foreach_*`` passes over the param list (the reference's update is
+one XLA computation, not a Pallas kernel), in the ``init`` / ``update_``
+shape of ``FusedAdam`` so ``amp.MixedPrecisionOptimizer`` takes it as it
+is. ``adam_w_mode=False`` raises as in the reference; ``norm_psum_axis``
+(the ZeRO-sharded norms) raises: ROADMAP Queue 1 item 11.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from apex_tpu_torch.ops.multi_tensor import tree_l2norm
+from apex_tpu_torch.optimizers._common import (
+    apply_updates_,
+    lamb_leaf_update,
+    tree_zeros_like,
+)
+
+
+class FusedLAMBState(NamedTuple):
+    step: int
+    exp_avg: List[torch.Tensor]     # first moment, fp32
+    exp_avg_sq: List[torch.Tensor]  # second moment, fp32
+
+
+class FusedLAMB:
+    """``init(params) -> state``; ``update_(params, grads, state, lr=None)
+    -> state`` steps ``params`` in place and returns the new state (the
+    moment tensors are updated in place too)."""
+
+    def __init__(self, lr: float = 1e-3, bias_correction: bool = True,
+                 betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-6, weight_decay: float = 0.01,
+                 grad_averaging: bool = True, adam_w_mode: bool = True,
+                 max_grad_norm: float = 1.0, use_nvlamb: bool = False,
+                 norm_psum_axis: Optional[str] = None):
+        if not adam_w_mode:
+            raise RuntimeError("FusedLAMB only supports adam_w_mode "
+                               "(decoupled wd), as the reference kernel "
+                               "does.")
+        if norm_psum_axis is not None:
+            raise NotImplementedError(
+                f"FusedLAMB(norm_psum_axis={norm_psum_axis!r}): the norms of "
+                f"ZeRO-sharded leaves come with ROADMAP Queue 1 item 11")
+        self.lr = lr
+        self.bias_correction = bias_correction
+        self.betas = betas
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.grad_averaging = grad_averaging
+        self.max_grad_norm = max_grad_norm
+        self.use_nvlamb = use_nvlamb
+
+    def init(self, params: Sequence[torch.Tensor]) -> FusedLAMBState:
+        return FusedLAMBState(0, tree_zeros_like(params),
+                              tree_zeros_like(params))
+
+    @torch.no_grad()
+    def update_(self, params: Sequence[torch.Tensor],
+                grads: Sequence[torch.Tensor], state: FusedLAMBState,
+                lr: Optional[float] = None) -> FusedLAMBState:
+        beta1, beta2 = self.betas
+        step = state.step + 1
+        lr = self.lr if lr is None else lr
+        if self.bias_correction:
+            bc1 = 1.0 - beta1 ** step
+            bc2 = 1.0 - beta2 ** step
+        else:
+            bc1 = bc2 = 1.0
+        g32 = [g.float() for g in grads]
+        if self.max_grad_norm and self.max_grad_norm > 0 and g32:
+            # phase 1: the global norm and the clip factor, on the device
+            clip = torch.clamp(tree_l2norm(g32) / self.max_grad_norm,
+                               min=1.0)
+            g32 = torch._foreach_div(g32, clip)
+        upd = lamb_leaf_update(
+            g32, [p.float() for p in params], state.exp_avg,
+            state.exp_avg_sq, beta1=beta1, beta2=beta2,
+            beta1_grad=(1.0 - beta1) if self.grad_averaging else 1.0,
+            bc1=bc1, bc2=bc2, eps=self.eps, weight_decay=self.weight_decay,
+            use_nvlamb=self.use_nvlamb)
+        torch._foreach_mul_(upd, -lr)
+        apply_updates_(params, upd)
+        return FusedLAMBState(step, state.exp_avg, state.exp_avg_sq)

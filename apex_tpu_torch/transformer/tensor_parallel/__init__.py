@@ -1,5 +1,8 @@
 """Tensor-parallel layers of the port (serial in this slice)."""
 
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -14,4 +17,5 @@ __all__ = [
     "VocabParallelEmbedding",
     "cast_param",
     "scaled_normal",
+    "vocab_parallel_cross_entropy",
 ]

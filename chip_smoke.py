@@ -4,8 +4,9 @@
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
     python3 chip_smoke.py --ln-times TREE   # LayerNorm times of TREE's port
     python3 chip_smoke.py --decode-times TREE   # decode times of TREE's port
+    python3 chip_smoke.py --flash-times TREE    # flash #1/#5/#6, no bias
 
-Seven phases; any failure raises and exits non-zero:
+Eight phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
@@ -40,7 +41,15 @@ Seven phases; any failure raises and exits non-zero:
    softmax forward's warp route against its CTA route at 1024 and 2048
    columns, the LayerNorm pair's rows (warps) a CTA, CTAs an SM and
    warp caps, and the decode pair's split count against the values tried)
-   and the least time the card could take.
+   and the least time the card could take. The additive bias on the
+   resident flash kernels #1, #5 and #6 (:func:`check_flash_bias`): BERT's
+   padding bias from ``extended_attention_mask`` at (16,16,512,64) bf16,
+   dense biases with dbias broadcast over the batch, the heads or both
+   (the fixed-order finish), whole, under causal, an all -inf row, d =
+   128 and the fp32 route, each output by its share of max |ref| and by
+   row, halved tails of o and dbias caught, two calls bit-identical; the
+   times with and without the bias beside the bounds, the plain versions
+   and SDPA with the same float mask; the launch floor (an empty kernel).
 3. **Serving**: fp32 gates on a small model (the monolithic engine, then
    chunked prefill, the prefix cache, speculative decoding with a
    self-draft and a 1-layer draft, and all three: every token against the
@@ -101,6 +110,18 @@ Seven phases; any failure raises and exits non-zero:
    times; ``FusedLayerNorm``, ``FusedRMSNorm``, ``FastLayerNorm``,
    ``FusedDenseGeluDense`` and ``MLP`` at GPT-2 345M width on 8192 tokens
    against a CPU copy of each; exact launch counts.
+8. **BERT-large pretraining**
+   (``apex_tpu_torch.examples.bert.pretrain_bert``): an fp32 gradient gate
+   on a small BERT with a padded batch (card through the kernels with the
+   padding bias against the CPU), then BERT-large (vocab 30592, hidden
+   1024, 24 layers, 16 heads, seq 512, the binary head) under amp O2 with
+   FusedLAMB(lr 2e-3, weight decay 0.01), batch 16 x 512 of the example's
+   synthetic batch (one fixed batch): one warm-up step and 10 timed as one
+   window, the exact launch counts, a falling finite loss, no skipped
+   step; tokens/s, the model-FLOPs share, peak memory and one profiled
+   step's idle share; then the JSON line of
+   ``apex_tpu_torch.benchmarks.optimizer_step`` (fused Adam and fused LAMB
+   against eager Adam).
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -108,7 +129,9 @@ that the end of the output holds them all. After the verdict comes a
 ``{"kernels": [...]}`` JSON object (``launches_by_path``: each kernel's
 count on the three serving runs, the GPT training run, the ResNet
 training run, the two long-context runs and phase 7's run (``softmax``),
-each counted from 0; ``launches``: their sum), the decode split-count
+each counted from 0, and phase 8's BERT run (``bert``); ``launches``:
+their sum; ``bias_route``: #1, #5 and #6 with and without the bias;
+``launch_floor_ms`` on the decode and xentropy rows), the decode split-count
 tuning line, then the card's name and power limit as nvidia-smi prints
 them, and the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1135,6 +1158,312 @@ def check_flash_attention_bwd(torch, ops, dev):
                         f"({ring})",
                  replaces="apex_tpu/ops/flash_attention.py:411", ms=ms_dkv,
                  bound_ms=dkv_bound[0], bound_by=dkv_bound[1])]
+
+
+#: limits of the bias checks beyond the resident kernels' own, keyed by "is
+#: bf16": dbias (share of max |ref|, worst row). dS stays fp32 in both (P
+#: from fp32 scores, dP from fp32 sums of exact bf16 products), so it is
+#: held far tighter than the bf16 gradients: about 10x the worst readings
+#: on an H100 (bf16 1.04e-6 of max |ref|, 3.15e-4 by row under causal,
+#: where short rows cancel; the fp32 route gave the plain version's bits)
+DBIAS_TOL = {True: (1e-5, 3e-3), False: (1e-5, 1e-5)}
+
+
+def padding_bias(torch, ops, dev, gen, b, s, lo=128):
+    """BERT's additive padding bias (b, 1, 1, s) from
+    ``extended_attention_mask`` of a 1/0 mask whose lengths are drawn in
+    [lo, s]."""
+    from apex_tpu_torch.models import extended_attention_mask
+
+    lengths = torch.randint(lo, s + 1, (b,), device=dev, generator=gen)
+    mask = (torch.arange(s, device=dev)[None] < lengths[:, None]).int()
+    return extended_attention_mask(mask)
+
+
+def check_flash_bias(torch, ops, dev):
+    """The additive bias on the resident kernels #1, #5 and #6 against the
+    plain versions (``flash_attention_fwd_reference``,
+    ``flash_attention_bwd_reference``) on the card, from the forward
+    kernel's o and lse: BERT's padding bias (16,1,1,512) from
+    ``extended_attention_mask`` at (16,16,512,64) bf16; dense biases with
+    dbias broadcast over the batch (1,16,512,512), over the heads
+    (16,1,512,512), over both under causal, and whole (2,16,512,512); a
+    causal padding bias with dbias; an all -inf bias row (o exactly 0, lse
+    kNegInf, dbias 0); the fp32 route and d = 128. o and lse, dq, dk, dv
+    and dbias each by their share of max |ref| and by row, at the limits
+    of the resident checks (dbias: :data:`DBIAS_TOL`). A halved tail of o
+    rows at the BERT shape and of dbias rows must fail the row check; two
+    calls must give the same bits at the BERT shape and with a broadcast
+    dbias. Then device times at the BERT shape with and without the
+    padding bias and of the dense route with dbias, beside the bounds
+    (the bias counted once as stored), SDPA with the same float
+    ``attn_mask`` and the launch floor (:func:`launch_floor`). Returns the
+    timing dict the ``kernels`` line carries (``bias_route``)."""
+    import importlib
+
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def run(label, b, h, sq, sk, d, dt, causal, kind, want_db, plant=False,
+            twice=False, dead=False):
+        q, k, v, do = (torch.randn(b, h, s, d, device=dev,
+                                   generator=gen).to(dt)
+                       for s in (sq, sk, sk, sq))
+        if kind == "pad":
+            raw = padding_bias(torch, ops, dev, gen, b, sk, lo=min(128, sk))
+        else:
+            raw = torch.randn(*kind, sq, sk, device=dev, generator=gen)
+        if dead:
+            raw[0, 0, 3] = float("-inf")  # a query that sees no key
+        bias = tfa._canonical_bias(raw, b, h, sq, sk)
+        scale = d ** -0.5
+        kw = dict(causal=causal, scale=scale)
+        bf = dt == bf16
+        grp = f"flash bias {str(dt)[6:]}"
+        o, lse = ops.flash_attention_fwd(q, k, v, bias=bias, **kw)
+        ro, rlse = ops.flash_attention_fwd_reference(q, k, v, bias=bias,
+                                                     **kw)
+        delta = (o.float() * do.float()).sum(-1)
+        got = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, bias=bias,
+                                         dbias=want_db, **kw)
+        dq, db = got if want_db else (got, None)
+        dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                             bias=bias, **kw)
+        ref = ops.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                bias=bias, **kw)
+        torch.cuda.synchronize()
+        if dead:
+            check(bool((o[0, :, 3] == 0).all())
+                  and bool((lse[0, :, 3] == tfa.NEG_INF).all())
+                  and bool((ref[3][0, 0, 3] == 0).all())
+                  and bool((db[0, 0, 3] == 0).all()),
+                  f"flash bias {label}: the -inf row outputs exactly 0 with "
+                  f"lse kNegInf and zero dbias")
+            lse, rlse = lse.clone(), rlse.clone()
+            lse[0, :, 3] = rlse[0, :, 3] = 0.0  # held exactly above
+        tol, rtol = (2e-2, ROW_TOL[True][0]) if bf else (5e-5,
+                                                         ROW_TOL[False][0])
+        gtol, grtol = (1e-2, ROW_TOL[True][1]) if bf else (1e-4,
+                                                          ROW_TOL[False][1])
+        name = f"flash bias {label}"
+        parts = [held(f"{name} o", o, ro, tol, rtol, group=grp),
+                 held(f"{name} lse", lse[..., None], rlse[..., None],
+                      *LSE_TOL[:2], floor=LSE_TOL[2], group=grp)]
+        for gname, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            check(a.dtype == dt and a.shape == r.shape,
+                  f"{name} {gname} dtype/shape")
+            parts.append(held(f"{name} {gname}", a, r, gtol, grtol,
+                              group=grp))
+        if want_db:
+            check(db.dtype == f32 and db.shape == bias.shape,
+                  f"{name} dbias dtype/shape")
+            parts.append(held(f"{name} dbias", db, ref[3], *DBIAS_TOL[bf],
+                              group=grp))
+        if plant:
+            # a tail of rows gone half wrong must fail the row check
+            for what, got_t, ref_t, lim in (("o", o, ro, rtol),
+                                            ("dbias", db, ref[3],
+                                             DBIAS_TOL[bf][1])):
+                if got_t is None:
+                    continue
+                bad = got_t.clone()
+                bad[:, :, bad.shape[2] // 2:] *= 0.5
+                planted = row_err(bad, ref_t)
+                parts.append(f"{what} with its last half of rows halved: "
+                             f"row {planted:.3g}")
+                verdict(f"{name} halved {what} tail caught by the row check",
+                        0 if planted > lim else 1, 0, group=grp)
+        if twice:
+            o2, lse2 = ops.flash_attention_fwd(q, k, v, bias=bias, **kw)
+            again = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               bias=bias, dbias=want_db, **kw)
+            dq2, db2 = again if want_db else (again, None)
+            dk2, dv2 = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                   bias=bias, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in (
+                (o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)))
+            if want_db:
+                same = same and torch.equal(db, db2)
+            parts.append(f"a second call bit-identical: {same}")
+            verdict(f"{name} deterministic", 0 if same else 1, 0, group=grp)
+        print(f"  {name}: " + ", ".join(parts))
+        return max_err(o, ro)
+
+    bert = (16, 16, 512, 512, 64, bf16, False)
+    main_err = run("BERT padding (16,1,1,512) (16,16,512,64) bf16", *bert,
+                   "pad", False, plant=True, twice=True)
+    run("dense (1,16,512,512) dbias (16,16,512,64) bf16", *bert, (1, 16),
+        True, plant=True, twice=True)
+    run("per batch (16,1,512,512) dbias (16,16,512,64) bf16", *bert,
+        (16, 1), True)
+    run("whole (2,16,512,512) dbias (2,16,512,64) bf16", 2, 16, 512, 512,
+        64, bf16, False, (2, 16), True)
+    run("(1,1,512,512) dbias causal (2,16,512,64) bf16", 2, 16, 512, 512,
+        64, bf16, True, (1, 1), True, twice=True)
+    run("padding dbias causal (2,16,512,64) bf16", 2, 16, 512, 512, 64,
+        bf16, True, "pad", True)
+    run("-inf row (2,1,300,200) dbias (2,4,300,200,64) bf16", 2, 4, 300,
+        200, 64, bf16, False, (2, 1), True, dead=True)
+    run("d=128 (1,4,300,300) dbias causal (1,4,300,300,128) bf16", 1, 4,
+        300, 300, 128, bf16, True, (1, 4), True)
+    run("fp32 route (2,1,300,300) dbias (2,4,300,300,64)", 2, 4, 300, 300,
+        64, f32, False, (2, 1), True, twice=True)
+    run("fp32 route padding causal (2,4,200,330,40)", 2, 4, 200, 330, 40,
+        f32, True, "pad", True)
+    run("fp32 route -inf row (2,1,130,130) dbias (2,2,130,130,64)", 2, 2,
+        130, 130, 64, f32, False, (2, 1), True, dead=True)
+    torch.cuda.empty_cache()
+    out = bias_times(torch, ops, tfa, dev, gen)
+    out["max_abs_err"] = main_err
+    return out
+
+
+def bias_times(torch, ops, tfa, dev, gen):
+    """Device times at the BERT shape (16,16,512,64) bf16, non-causal: #1
+    and #5 + #6 without a bias and with BERT's padding bias, the dense
+    (1,16,512,512) route with dbias, SDPA with the same float attn_mask
+    (forward, and forward + backward in one captured call), each beside its
+    bound (the bias counted once as stored; dbias written once), and the
+    launch floor."""
+    import torch.nn.functional as F
+
+    b, h, s, d = 16, 16, 512, 64
+    bf16 = torch.bfloat16
+    q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=gen).to(bf16)
+                   for _ in range(4))
+    pad = padding_bias(torch, ops, dev, gen, b, s)
+    dense = torch.randn(1, h, s, s, device=dev, generator=gen)
+    kw = dict(causal=False, scale=d ** -0.5)
+    elems, rows, pairs = b * h * s * d, b * h * s, b * h * s * s
+    out = {}
+    for label, raw in (("none", None), ("padding", pad), ("dense", dense)):
+        bias = None if raw is None else tfa._canonical_bias(raw, b, h, s, s)
+        bias_bytes = 0 if raw is None else raw.numel() * 4
+        want_db = label == "dense"
+        o, lse = ops.flash_attention_fwd(q, k, v, bias=bias, **kw)
+        delta = (o.float() * do.float()).sum(-1)
+        t = {"fwd_ms": time_ms(lambda: ops.flash_attention_fwd(
+                 q, k, v, bias=bias, **kw)),
+             "dq_ms": time_ms(lambda: ops.flash_attention_bwd_dq(
+                 q, k, v, do, lse, delta, bias=bias, dbias=want_db, **kw)),
+             "dkv_ms": time_ms(lambda: ops.flash_attention_bwd_dkv(
+                 q, k, v, do, lse, delta, bias=bias, **kw))}
+        t["fwd_bound_ms"], t["fwd_bound_by"] = bound(
+            4 * elems * 2 + rows * 4 + bias_bytes, 4 * d * pairs, "bfloat16")
+        t["dq_bound_ms"], t["dq_bound_by"] = bound(
+            5 * elems * 2 + 2 * rows * 4 + bias_bytes * (2 if want_db else 1),
+            6 * d * pairs, "bfloat16")
+        t["dkv_bound_ms"], t["dkv_bound_by"] = bound(
+            6 * elems * 2 + 2 * rows * 4 + bias_bytes, 8 * d * pairs,
+            "bfloat16")
+        if label == "padding":
+            t["plain_fwd_ms"] = time_ms(
+                lambda: ops.flash_attention_fwd_reference(
+                    q, k, v, bias=bias, **kw), 2, 2)
+            t["plain_bwd_ms"] = time_ms(
+                lambda: ops.flash_attention_bwd_reference(
+                    q, k, v, o, lse, do, bias=bias, **kw), 2, 2)
+        out[label] = t
+        del o, lse, delta
+    # the dQ inner tile under the bias (RES_BWD_DQ_BIAS_INNER_TILE): 64
+    # and 128 key rows, with the padding bias
+    chosen = tfa.RES_BWD_DQ_BIAS_INNER_TILE
+    bias = tfa._canonical_bias(pad, b, h, s, s)
+    o, lse = ops.flash_attention_fwd(q, k, v, bias=bias, **kw)
+    delta = (o.float() * do.float()).sum(-1)
+    tiles = {}
+    try:
+        for tile in (64, 128):
+            tfa.RES_BWD_DQ_BIAS_INNER_TILE = tile
+            tiles[tile] = time_ms(lambda: ops.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, bias=bias, **kw))
+    finally:
+        tfa.RES_BWD_DQ_BIAS_INNER_TILE = chosen
+    out["dq_bias_inner_tile"] = {"chosen": chosen, "ms": tiles}
+    print(f"  RES_BWD_DQ_BIAS_INNER_TILE = {chosen} (chosen); dQ with the "
+          f"padding bias at (16,16,512,64) by key tile: "
+          + ", ".join(f"{t}: {ms:.4f} ms" for t, ms in tiles.items()))
+    del o, lse, delta
+    # yardstick: SDPA with the padding bias as a float attn_mask (q's
+    # dtype, as SDPA takes it), forward alone and forward + backward in one
+    # captured call
+    mask = pad.to(bf16)
+    out["padding"]["library_fwd_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+        return torch.autograd.grad(o, (ql, kl, vl), do)
+
+    out["padding"]["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
+    probe = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    out["padding"]["library_backend"] = type(probe.grad_fn).__name__
+    del probe
+    out["launch_floor_ms"] = launch_floor(torch, dev)
+    n, p_, dn = out["none"], out["padding"], out["dense"]
+    print(f"  flash bias timing (16,16,512,64) bf16 non-causal: #1 no bias "
+          f"{n['fwd_ms']:.4f} ms, padding bias {p_['fwd_ms']:.4f} ms (bound "
+          f"{p_['fwd_bound_ms']:.4f} ms {p_['fwd_bound_by']}), dense "
+          f"(1,16,512,512) {dn['fwd_ms']:.4f} ms; #5 dQ no bias "
+          f"{n['dq_ms']:.4f}, padding {p_['dq_ms']:.4f} (bound "
+          f"{p_['dq_bound_ms']:.4f} {p_['dq_bound_by']}), dense with dbias "
+          f"{dn['dq_ms']:.4f} ms (bound {dn['dq_bound_ms']:.4f}); #6 dK/dV no "
+          f"bias {n['dkv_ms']:.4f}, padding {p_['dkv_ms']:.4f} (bound "
+          f"{p_['dkv_bound_ms']:.4f} {p_['dkv_bound_by']}), dense "
+          f"{dn['dkv_ms']:.4f} ms; plain with the padding bias forward "
+          f"{p_['plain_fwd_ms']:.4f}, backward (dq, dk, dv) "
+          f"{p_['plain_bwd_ms']:.4f} ms; SDPA with the float mask forward "
+          f"{p_['library_fwd_ms']:.4f} ms, forward + backward "
+          f"{p_['library_fwd_bwd_ms']:.4f} ms ({p_['library_backend']}) "
+          f"against the port's {p_['fwd_ms'] + p_['dq_ms'] + p_['dkv_ms']:.4f}"
+          f" ms; launch floor {out['launch_floor_ms']:.4f} ms; "
+          f"{nvidia_smi()}")
+    return out
+
+
+def attach_bias_times(rows, bias):
+    """The bias route's numbers on the ``kernels`` rows of #1, #5 and #6
+    (``bias_route``: ms and bound by bias kind, SDPA with the float mask on
+    #1), and the launch floor on the rows read against it (#9, #10, #13,
+    #14)."""
+    parts = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
+             "flash_attention_bwd_dkv": "dkv"}
+    for row in rows:
+        part = parts.get(row["name"])
+        if part is not None:
+            row["bias_route"] = {
+                kind: {"ms": t[f"{part}_ms"],
+                       "bound_ms": t[f"{part}_bound_ms"],
+                       "bound_by": t[f"{part}_bound_by"]}
+                for kind, t in bias.items()
+                if kind in ("none", "padding", "dense")}
+            row["bias_route"]["max_abs_err"] = bias["max_abs_err"]
+            if part == "dq":
+                row["bias_route"]["dq_bias_inner_tile"] = bias[
+                    "dq_bias_inner_tile"]
+            row["bias_route"]["plain_ms"] = bias["padding"][
+                "plain_fwd_ms" if part == "fwd" else "plain_bwd_ms"]
+            if part == "fwd":
+                row["bias_route"]["library_ms"] = bias["padding"][
+                    "library_fwd_ms"]
+                row["bias_route"]["library_fwd_bwd_ms"] = bias["padding"][
+                    "library_fwd_bwd_ms"]
+        if row["name"] in ("flash_decode", "flash_decode_multi",
+                           "xentropy_fwd", "xentropy_bwd"):
+            row["launch_floor_ms"] = bias["launch_floor_ms"]
+
+
+def launch_floor(torch, dev):
+    """Device time per call of an empty kernel from ``csrc/`` by the same
+    CUDA-graph replay as every kernel time: what a kernel at a small shape
+    (the decode pair's, the xentropy pair's at 256 x 1000) is read
+    against."""
+    from apex_tpu_torch.csrc import build
+
+    return time_ms(lambda: build.empty_kernel(dev.index), 100, 5)
 
 
 def res_bwd_tuning(torch, ops, tfa, args, kw, tiles=(64, 128)):
@@ -3547,6 +3876,202 @@ def fused_softmax_and_small_layers(torch, ops, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: BERT-large pretraining with FusedLAMB
+# ---------------------------------------------------------------------------
+
+
+def bert_gradient_gate(torch, ops, dev):
+    """fp32, small BERT (hidden 256, 2 layers, 4 heads, seq 256, vocab
+    1024) on a padded batch (lengths 256, 200, 129, 77): the loss and every
+    parameter's grad on the card through the kernels (the resident flash
+    kernels with the padding bias) against the same parameters on the CPU
+    through the plain versions. Tolerance: loss 1e-5 relative; each grad
+    1e-4 of its max |CPU grad| (fp32 sums in another order through two
+    layers)."""
+    import numpy as np
+
+    from apex_tpu_torch.models import BertConfig, BertModel
+
+    cfg = BertConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                     num_attention_heads=4, max_seq_len=256,
+                     compute_dtype=torch.float32, hidden_dropout=0.0)
+    card = BertModel(cfg, device=dev, seed=11)
+    host = BertModel(cfg, device="cpu", seed=11)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(11)
+    b, s = 4, 256
+    attn = (np.arange(s)[None] < np.array([256, 200, 129, 77])[:, None])
+    batch = [rng.integers(0, cfg.vocab_size, (b, s)), attn.astype(np.int32),
+             (rng.random((b, s)) < 0.15).astype(np.int32),
+             rng.integers(0, cfg.vocab_size, (b, s)),
+             rng.integers(0, 2, (b,)), rng.integers(0, 2, (b, s))]
+    batch = [torch.from_numpy(a) for a in batch]
+    ops.reset_launch_counts()
+    loss_c = card.loss(*(t.to(dev) for t in batch))
+    loss_c.backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    loss_h = host.loss(*batch)
+    loss_h.backward()
+    loss_c, loss_h = float(loss_c.detach()), float(loss_h.detach())
+    rel = abs(loss_c - loss_h) / abs(loss_h)
+    print(f"  BERT fp32 gradient gate: loss card {loss_c:.7f} cpu "
+          f"{loss_h:.7f} (rel {rel:.3g}, tol 1e-05); launches {counts}")
+    verdict("BERT fp32 gradient gate loss", rel, 1e-5,
+            group="BERT fp32 gradient gate")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "layer_norm_fwd",
+                 "layer_norm_bwd"):
+        check(counts[name] > 0, f"BERT gradient gate never launched {name}")
+    worst = (0.0, "")
+    for (name, pc), ph in zip(card.named_parameters(), host.parameters()):
+        check(pc.grad is not None and ph.grad is not None,
+              f"BERT gradient gate: no grad for {name}")
+        e = rel_err(pc.grad.cpu(), ph.grad)
+        worst = max(worst, (e, name))
+    verdict(f"BERT fp32 gradient gate worst grad ({worst[1]})", worst[0],
+            1e-4, group="BERT fp32 gradient gate")
+    print(f"  BERT fp32 gradient gate: {len(list(host.parameters()))} "
+          f"parameter grads, worst {worst[0]:.3g} of max|cpu grad| "
+          f"({worst[1]}; tol 1e-4)")
+
+
+def bert_flops_per_token(cfg):
+    """Training FLOPs per token of BERT, without the remat recompute: 6 x
+    (the 12*L*H^2 layer weights + the V*H tied decode + the H^2 MLM dense)
+    + 12*L*S*H for the non-causal attention products, which count every
+    (query, key) pair; the pooler and the binary head (a few per
+    sequence) are left out."""
+    L, H, S, V = (cfg.num_layers, cfg.hidden_size, cfg.max_seq_len,
+                  cfg.vocab_size)
+    return 6 * (12 * L * H * H + V * H + H * H) + 12 * L * S * H
+
+
+def train_bert_large(torch, ops, dev):
+    """BERT-large MLM + NSP pretraining under amp O2 with FusedLAMB(lr
+    2e-3, weight decay 0.01) through the example's ``build`` at 16 x 512
+    (8192 tokens a step), one fixed synthetic batch: one warm-up step and
+    10 timed as one window, the exact launch counts (#1 2L a step with the
+    remat recompute, #5 and #6 L each, #7 4L + 2, #8 2L + 2), a falling
+    finite loss, no skipped step, bf16 params equal to their fp32 masters
+    cast down; tokens/s, the model-FLOPs share of 989 TFLOP/s
+    (:func:`bert_flops_per_token`), peak memory, and one profiled step's
+    idle share and leading kernels."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.bench import train_steps
+    from apex_tpu_torch.examples.bert.pretrain_bert import (
+        build,
+        synthetic_batch,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = build(hidden=1024, layers=24, heads=16, seq=512, batch=16,
+                    device=dev)
+    cfg, L = trainer.cfg, trainer.cfg.num_layers
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    batch = synthetic_batch(np.random.default_rng(0), 16, 512,
+                            cfg.vocab_size, dev)
+    n = 10
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    stats = train_steps(trainer, n, batch=batch)  # 1 warm-up + n timed
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    steps = n + 1
+    per_step = dict.fromkeys(counts, 0)
+    per_step.update({"flash_attention_fwd": 2 * L,
+                     "flash_attention_bwd_dq": L,
+                     "flash_attention_bwd_dkv": L,
+                     "layer_norm_fwd": 4 * L + 2,
+                     "layer_norm_bwd": 2 * L + 2})
+    expected = {k: v * steps for k, v in per_step.items()}
+    print(f"  BERT-large O2 FusedLAMB: {n_params / 1e6:.1f} M params, batch "
+          f"16 x 512, {steps} steps, launches {counts} (expected per step "
+          f"{per_step})")
+    check_counts(counts, expected, "bert")
+    losses = stats["losses"]
+    skipped = sum(m["found_inf"] for m in stats["metrics"])
+    steps_ms = stats["step_ms"]
+    ms = stats["window_ms"] / n
+    tok = stats["tokens_per_step"]
+    flops = bert_flops_per_token(cfg) * tok
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"  BERT-large O2 FusedLAMB: {n} steps in {stats['window_ms']:.2f} "
+          f"ms = {ms:.2f} ms a step (per step: median "
+          f"{statistics.median(steps_ms):.2f}, min {min(steps_ms):.2f}, max "
+          f"{max(steps_ms):.2f}; all {[round(t, 2) for t in steps_ms]}), "
+          f"{n * tok / stats['window_ms'] * 1e3:.1f} tokens/s, model FLOPs "
+          f"{flops / 1e12:.2f} T/step = {flops / ms / 1e9:.1f} TFLOP/s = "
+          f"{flops / ms / 1e9 / 989:.3f} of 989 TFLOP/s (6*(12*L*H^2 + V*H "
+          f"+ H^2) + 12*L*S*H per token, every pair), peak memory "
+          f"{peak:.2f} GiB")
+    print(f"  BERT-large O2 FusedLAMB: loss first {losses[0]:.4f} last "
+          f"{losses[-1]:.4f} ({len(losses)} steps: "
+          f"{[round(x, 4) for x in losses]}), loss scale "
+          f"{stats['metrics'][-1]['loss_scale']:g}, skipped steps {skipped}")
+    check(all(np.isfinite(losses)), "every BERT loss finite")
+    check(losses[-1] < losses[0], "the BERT loss falls on the fixed batch")
+    check(skipped == 0, "no BERT step skipped")
+    for p, m in zip(trainer.model.parameters(), trainer.opt_state.master):
+        check(torch.equal(p, m.to(p.dtype)), "bf16 params == masters cast")
+    check(trainer.model.lm_dense.kernel.dtype == torch.bfloat16
+          and trainer.model.ln_emb.scale.dtype == torch.float32,
+          "O2 dtypes: bf16 weights, fp32 norms")
+    verdict("BERT-large loss falls, no step skipped, params == masters",
+            0, 0, "-", group="BERT-large O2 FusedLAMB")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(*batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = device_time_by_kernel(torch, prof)
+    busy = sum(t for _, t in by_name.values()) / 1e3
+    if busy <= 0:
+        print("  BERT-large O2 FusedLAMB: device time by kernel not measured "
+              "(the profiler saw no device events)")
+    else:
+        ours = sum(t for name, (_, t) in by_name.items()
+                   if "apex_torch" in name) / 1e3
+        print(f"  BERT-large O2 FusedLAMB, one profiled step: wall "
+              f"{wall:.1f} ms, device busy {busy:.1f} ms = {busy / wall:.3f}"
+              f" (idle {1 - busy / wall:.3f}), the port's kernels "
+              f"{ours:.1f} ms = {ours / busy:.3f} of busy; device time by "
+              f"kernel:")
+        print_top(by_name)
+        n_f, t_f = kernel_time(by_name, "fwd_resident_wgmma")
+        n_q, t_q = kernel_time(by_name, "dq_resident_wgmma")
+        n_k, t_k = kernel_time(by_name, "dkv_resident_wgmma")
+        n_lf, t_lf = kernel_time(by_name, "ln_fwd_")
+        n_lb, t_lb = kernel_time(by_name, "ln_bwd_")
+        n_o, t_o = kernel_time(by_name, "foreach", "multi_tensor")
+        print(f"  BERT-large O2 FusedLAMB, profiled step: resident forward "
+              f"with the bias {t_f:.2f} ms ({n_f} launches); dQ {t_q:.2f} ms "
+              f"({n_q}) + dK/dV {t_k:.2f} ms ({n_k}); LayerNorm forward "
+              f"{t_lf:.2f} ms ({n_lf}), backward {t_lb:.2f} ms ({n_lb}); "
+              f"foreach (the LAMB and amp passes) {t_o:.2f} ms ({n_o})")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def optimizer_step_line(torch, dev):
+    """``apex_tpu_torch.benchmarks.optimizer_step`` on the card: its JSON
+    line (fused Adam and fused LAMB against eager Adam on the GPT-2-124M
+    and BERT-large lists)."""
+    from apex_tpu_torch.benchmarks import optimizer_step
+
+    rec = optimizer_step.run(dev)
+    print(json.dumps(rec))
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     import torch
 
@@ -3582,6 +4107,8 @@ def main():
             check_flash_decode_multi(torch, ops, dev),
             *check_xentropy(torch, ops, dev),
             *check_softmax(torch, ops, dev)]
+    bias = check_flash_bias(torch, ops, dev)
+    attach_bias_times(rows, bias)
     torch.cuda.empty_cache()
 
     print("phase 3: serving")
@@ -3611,6 +4138,12 @@ def main():
 
     print("phase 7: fused softmax and the small layers")
     softmax_counts = fused_softmax_and_small_layers(torch, ops, dev)
+    torch.cuda.empty_cache()
+
+    print("phase 8: BERT-large pretraining with FusedLAMB")
+    bert_gradient_gate(torch, ops, dev)
+    bert_counts = train_bert_large(torch, ops, dev)
+    optimizer_step_line(torch, dev)
     for row in rows:
         by_path = {"serve": serve_counts[row["name"]],
                    "serve_prefix_spec": spec_counts[row["name"]],
@@ -3619,7 +4152,8 @@ def main():
                    "train_resnet": resnet_counts[row["name"]],
                    "train_long": long_counts[row["name"]],
                    "train_long_window": window_counts[row["name"]],
-                   "softmax": softmax_counts[row["name"]]}
+                   "softmax": softmax_counts[row["name"]],
+                   "bert": bert_counts[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         verdict(f"{row['name']} launched on the main paths",
@@ -3628,8 +4162,9 @@ def main():
     print_verdict()
     keys = ("name", "route", "kernel", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "by_shape", "res_fwd_tuning",
-            "res_bwd_tuning", "warp_tuning", "ln_tuning", "decode_tuning")
+            "bound_by", "library_ms", "by_shape", "bias_route",
+            "launch_floor_ms", "res_fwd_tuning", "res_bwd_tuning",
+            "warp_tuning", "ln_tuning", "decode_tuning")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
     tuning = next(r["decode_tuning"] for r in rows
@@ -3643,6 +4178,33 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def flash_times(torch, ops, dev):
+    """The no-bias times of the resident flash kernels #1, #5 and #6 in
+    bf16: the forward at S = (1,16,1024,64) and T = (8,16,1024,64) causal,
+    dQ and dK/dV at T, and all three at BERT's (16,16,512,64) non-causal
+    (``python3 chip_smoke.py --flash-times TREE``: the port of TREE; run it
+    for the parent and this tree in turns to compare them on one card)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for label, b, s, causal in (("S", 1, 1024, True), ("T", 8, 1024, True),
+                                ("B", 16, 512, False)):
+        q, k, v, do = (torch.randn(b, 16, s, 64, device=dev,
+                                   generator=gen).to(torch.bfloat16)
+                       for _ in range(4))
+        kw = dict(causal=causal, scale=0.125)
+        out[f"fwd_{label}"] = time_ms(lambda: ops.flash_attention_fwd(
+            q, k, v, **kw))
+        if label != "S":
+            o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+            delta = (o.float() * do.float()).sum(-1)
+            out[f"dq_{label}"] = time_ms(lambda: ops.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, **kw))
+            out[f"dkv_{label}"] = time_ms(
+                lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    **kw))
+    return out
 
 
 def times_of_tree(tree, fn):
@@ -3673,4 +4235,6 @@ if __name__ == "__main__":
         sys.exit(times_of_tree(sys.argv[2], ln_times))
     if sys.argv[1:2] == ["--decode-times"]:
         sys.exit(times_of_tree(sys.argv[2], decode_times))
+    if sys.argv[1:2] == ["--flash-times"]:
+        sys.exit(times_of_tree(sys.argv[2], flash_times))
     sys.exit(main())

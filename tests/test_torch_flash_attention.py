@@ -170,14 +170,20 @@ def test_plain_backward_matches_autograd_through_mha_reference(causal):
 
 
 def test_masked_cpu_inputs_keep_mha_reference_autograd():
-    # a bias (no kernel takes one yet) keeps mha_reference's autograd; the
-    # window goes through FlashAttention's streamed path
+    # a bias goes through FlashAttention's resident route, as on the card;
+    # segment ids (no kernel takes them yet) keep mha_reference's autograd;
+    # the window goes through FlashAttention's streamed path
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv())
     bias = torch.zeros(1, 1, 24, 24)
     out = tfa.flash_attention(q, k, v, bias, causal=True)
-    assert type(out.grad_fn).__name__ != "FlashAttentionBackward"
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     out.sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
+    seg = torch.zeros(2, 24, dtype=torch.int32)
+    out = tfa.flash_attention(q, k, v, segment_ids=(seg, seg), causal=True)
+    assert type(out.grad_fn).__name__ != "FlashAttentionBackward"
+    out.sum().backward()
+    assert torch.isfinite(q.grad).all()
 
 
 def test_backward_wrappers_never_take_the_plain_version():
@@ -473,3 +479,131 @@ def test_resident_forward_operands_padded_copy_round_trip(case, causal):
     np.testing.assert_allclose(got_o[..., :d].numpy(), want_o.numpy(),
                                atol=1e-6)
     np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the additive bias through FlashAttention (the card's route: the same
+# Function, the plain versions on the CPU) against jax.grad of the JAX
+# flash attention with impl="pallas" in interpret mode (8-row blocks at 24
+# tokens), dbias included
+# ---------------------------------------------------------------------------
+
+
+def _bias(kind, seed=11):
+    """(bias, its label): batch-only (2,1,24,24), head-only (1,2,24,24),
+    BERT's padding row (2,1,1,24) with -10000 keys (dbias summed back
+    through the expand), and a (2,1,24,24) bias with an all -inf row (that
+    row outputs exactly 0)."""
+    rng = np.random.default_rng(seed)
+    shape = {"b": (2, 1, 24, 24), "h": (1, 2, 24, 24), "pad": (2, 1, 1, 24),
+             "ninf": (2, 1, 24, 24)}[kind]
+    bias = rng.normal(size=shape).astype(np.float32)
+    if kind == "pad":
+        bias[0, 0, 0, 19:] = -10000.0
+        bias[1, 0, 0, 11:] = -10000.0
+    if kind == "ninf":
+        bias[0, 0, 5, :] = -np.inf
+    return bias
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", ["b", "h", "pad", "ninf"])
+def test_bias_values_and_grads_match_jax_pallas(kind, causal, dtype):
+    """o, dq, dk, dv and dbias of flash_attention(q, k, v, bias) against
+    jax.grad of the JAX Pallas kernels (interpret mode), on the same numpy
+    inputs. fp32: 1e-4 absolute and relative (fp32 sums in another order).
+    bf16 (q/k/v/g bf16, the bias fp32): each output within 2e-2 of its max
+    |ref| (both round o and the grads to bf16 once, and delta reads the
+    rounded o), dbias within 1e-2. An all -inf bias row gives o = 0 and
+    zero grads on both sides."""
+    q, k, v = _qkv(b=2, h=2, sq=24, sk=24, d=16, seed=12)
+    g = np.random.default_rng(13).normal(size=q.shape).astype(np.float32)
+    bias = _bias(kind)
+    tdt = getattr(torch, dtype)
+    jdt = getattr(jnp, dtype)
+    ts = [torch.from_numpy(a).to(tdt).requires_grad_() for a in (q, k, v)]
+    tb = torch.from_numpy(bias).requires_grad_()
+    out = tfa.flash_attention(*ts, tb, causal=causal)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(torch.from_numpy(g).to(tdt))
+    got = [out.detach()] + [t.grad for t in ts] + [tb.grad]
+    assert tb.grad.shape == tb.shape and tb.grad.dtype == torch.float32
+    # the inputs as the torch side rounded them
+    jin = [jnp.asarray(t.detach().float().numpy(), jdt) for t in ts]
+    jg = jnp.asarray(torch.from_numpy(g).to(tdt).float().numpy(), jdt)
+    jb = jnp.asarray(bias)
+
+    def fwd(a, b_, c, bb):
+        return jax_flash(a, b_, c, bb, causal=causal, impl="pallas",
+                         block_q=16, block_k=16)
+
+    jo, vjp = jax.vjp(fwd, *jin, jb)
+    want = [jo] + list(vjp(jg))
+    names = ("o", "dq", "dk", "dv", "dbias")
+    for name, a, r in zip(names, got, want):
+        a = a.float().numpy()
+        r = np.asarray(r.astype(jnp.float32))
+        assert a.shape == r.shape, name
+        assert np.isfinite(a).all(), name
+        if dtype == "float32":
+            np.testing.assert_allclose(a, r, atol=1e-4, rtol=1e-4,
+                                       err_msg=name)
+        else:
+            lim = 1e-2 if name == "dbias" else 2e-2
+            assert np.abs(a - r).max() <= lim * np.abs(r).max(), name
+    if kind == "ninf":
+        o = got[0].float().numpy()
+        assert np.all(o[0, :, 5] == 0.0)
+        assert np.all(tb.grad.numpy()[0, 0, 5] == 0.0)
+
+
+def test_bias_without_grad_skips_dbias_and_no_grad_runs_the_plain_forward():
+    """A bias that needs no grad gets none (the kernels skip the dbias
+    work); under no_grad the CPU bias route is the plain forward with the
+    kernel's arithmetic, which agrees with mha_reference (fp32, 1e-6)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(seed=3))
+    bias = torch.from_numpy(_bias("pad"))
+    qg = q.clone().requires_grad_()
+    out = tfa.flash_attention(qg, k, v, bias)
+    out.sum().backward()
+    assert qg.grad is not None and bias.grad is None
+    with torch.no_grad():
+        plain = tfa.flash_attention(q, k, v, bias, causal=True)
+    want = tfa.mha_reference(q, k, v, bias, causal=True)
+    torch.testing.assert_close(plain, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(24, 24), (3, 1, 24, 24), (2, 3, 24, 24),
+                                   (2, 1, 5, 24), (2, 1, 24, 7)])
+def test_bias_shape_errors_match_the_reference(shape):
+    """The reference's checks (flash_attention.py:1711-1721): rank 4, and
+    b/h dims 1 or b/h (its words); a wrong sq/sk raises ValueError on both
+    sides (broadcast_to's own error in JAX)."""
+    q, k, v = _qkv(b=2, h=2, sq=24, sk=24, d=16)
+    bias = np.zeros(shape, np.float32)
+    with pytest.raises(ValueError) as jerr:
+        jax_flash(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(bias),
+                  impl="pallas", block_q=16, block_k=16)
+    with pytest.raises(ValueError) as terr:
+        tfa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                            torch.from_numpy(bias))
+    if len(shape) != 4 or shape[2:] == (24, 24):
+        assert str(terr.value) == str(jerr.value)
+
+
+def test_bias_kernel_arguments():
+    """The pointer and element strides the kernels read: 0 on a size-1 or
+    expanded dim, the bias never copied; a wrong shape or dtype raises."""
+    q = torch.zeros(2, 3, 8, 16)
+    pad = torch.zeros(2, 1, 1, 8)
+    bias = tfa._canonical_bias(pad, 2, 3, 8, 8)
+    args = tfa._bias_args(bias, q, 8, 8)
+    assert args == (pad.data_ptr(), 8, 0, 0, 1)
+    dense = torch.zeros(1, 3, 8, 8)
+    assert tfa._bias_args(dense, q, 8, 8) == (dense.data_ptr(), 0, 64, 8, 1)
+    assert tfa._bias_args(None, q, 8, 8) == (None, 0, 0, 0, 0)
+    with pytest.raises(ValueError):
+        tfa._bias_args(pad, q, 8, 8)
+    with pytest.raises(TypeError):
+        tfa._bias_args(dense.double(), q, 8, 8)

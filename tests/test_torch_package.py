@@ -118,6 +118,29 @@ def test_window_raises_on_the_card_and_runs_plain_on_the_cpu(monkeypatch):
         ColumnParallelLinear(4, 4, axis="model")
 
 
+def test_a_bias_reaches_the_kernels_and_segment_ids_raise_on_the_card(
+        monkeypatch):
+    """On the card a bias goes to the resident kernels through
+    FlashAttention (no refusal); segment ids still raise there, naming
+    their ROADMAP item (Queue 2 item 4 resident, item 5 streamed)."""
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    q = torch.randn(1, 2, 12, 8, requires_grad=True)
+    bias = torch.zeros(1, 1, 1, 12)
+    monkeypatch.setattr(tfa, "check_device", lambda t, name: "cuda")
+    out = tfa.flash_attention(q, q, q, bias)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    seg = torch.zeros(1, 12, dtype=torch.int32)
+    with pytest.raises(NotImplementedError,
+                       match=r"segment_ids on the resident.*Queue 2 item 4"):
+        tfa.flash_attention(q, q, q, segment_ids=(seg, seg))
+    with pytest.raises(NotImplementedError,
+                       match=r"segment_ids on the streamed.*Queue 2 item 5"):
+        tfa.flash_attention(q, q, q, segment_ids=(seg, seg),
+                            stream="always")
+    with pytest.raises(ValueError, match="dense bias"):
+        tfa.flash_attention(q, q, q, bias, stream="always")
+
+
 def test_the_model_takes_the_window_on_the_card_through_the_stream():
     """A windowed GPT is accepted for the card: 'auto' routes the window to
     the streamed kernels; only 'never' would keep it off them."""
