@@ -42,24 +42,29 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 #: argument types of every exported entry point (restype is int)
+#: the segment arguments of the flash entry points, before the stream: the
+#: q and k ids, the bounds, the outer and inner (min, max) tables, the outer
+#: rows' ranges, pad_id, has_pad
+_SEG = [_P] * 6 + [_I] * 2
+
 SIGNATURES = {
     "apex_ln_fwd": [_P] * 6 + [_L, _I, _F] + [_I] * 4 + [_P],
     "apex_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_P] + [_L] * 4
-                      + [_F] + [_I] * 5 + [_P],
+                      + [_F] + [_I] * 6 + _SEG + [_P],
     "apex_flash_decode": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "apex_flash_decode_multi": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3
                                + [_P],
     "apex_ln_bwd": [_P] * 10 + [_L] + [_I] * 6 + [_P],
     "apex_flash_bwd_dq": [_P] * 10 + [_I] * 5 + [_L] * 16 + [_I] * 2
-                         + [_F] + [_I] * 5 + [_P],
+                         + [_F] + [_I] * 6 + _SEG + [_P],
     "apex_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_L] * 16
-                          + [_F] + [_I] * 5 + [_P],
+                          + [_F] + [_I] * 6 + _SEG + [_P],
     "apex_flash_fwd_stream": [_P] * 8 + [_I] * 5 + [_L] * 9
-                             + [_F] + [_I] * 7 + [_P],
+                             + [_F] + [_I] * 7 + _SEG + [_P],
     "apex_flash_bwd_dq_stream": [_P] * 7 + [_I] * 5 + [_L] * 12
-                                + [_F] + [_I] * 7 + [_P],
+                                + [_F] + [_I] * 7 + _SEG + [_P],
     "apex_flash_bwd_dkv_stream": [_P] * 8 + [_I] * 5 + [_L] * 12
-                                 + [_F] + [_I] * 7 + [_P],
+                                 + [_F] + [_I] * 7 + _SEG + [_P],
     "apex_xent_fwd": [_P] * 4 + [_L, _I, _F, _L, _I, _P],
     "apex_xent_bwd": [_P] * 5 + [_L, _I, _F, _L, _I, _P],
     "apex_softmax_fwd": [_P] * 3 + [_L] + [_I] * 4 + [_F] + [_I] * 3 + [_P],

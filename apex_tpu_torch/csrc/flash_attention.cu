@@ -10,6 +10,17 @@
 // masked (an all -inf bias row) outputs exactly 0 with lse kNegInf
 // (l == 0).
 //
+// The sliding window (keys [q-w+1, q] causal, [q-w+1, q+w-1] not) and the
+// segment ids (a query sees only keys of its own id, never the pad id:
+// _seg_mask_if_needed, :226-249) narrow each query tile's band of key
+// tiles as the reference's loop limits do (:299-323): the causal limit,
+// the window (k_tiles) and, with contiguous_segments, the tile's [lo, hi)
+// from the metadata the wrapper computes at this kernel's tiles
+// (SegArgs). A block is interior, with no test on its scores, only where
+// the causal/window test says so and its query and key tiles hold one
+// non-pad id; an edge block tests q_id == k_id beside visible(). A query
+// tile whose band is empty still writes o = 0 and lse = kNegInf.
+//
 // The additive bias (b|1, h|1, sq, sk), fp32, is read in place through
 // four element strides (0 on a broadcast dim) and added after the scale,
 // before the row max (_fwd_kernel :274-275). Each thread loads the values
@@ -70,7 +81,7 @@ __global__ void __launch_bounds__(kFaThreads)
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int h, int sq, int sk, int d,
                      Strides qs, Strides ks, Strides vs, float scale,
-                     int causal, BiasArgs bias) {
+                     int causal, int window, BiasArgs bias, SegArgs seg) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* Qs = smem;            // kBQ x dp
@@ -106,14 +117,12 @@ __global__ void __launch_bounds__(kFaThreads)
   for (int j = 0; j < kMaxD / 4; ++j) acc[j] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  int nk = (sk + kBK - 1) / kBK;
-  if (causal) {
-    // tiles at or left of the diagonal of this q tile's last row
-    const int lim = (q0 + kBQ + kBK - 1) / kBK;
-    nk = min(nk, lim);
-  }
+  // the key tiles of the causal limit, the window and the segment bounds
+  const Band band = seg_band(
+      seg, k_tiles(qt, (sk + kBK - 1) / kBK, causal, window), bi, qt);
+  const SegRows sg = seg_rows(seg, false, bi, qrow, sq, sk);
 
-  for (int j = 0; j < nk; ++j) {
+  for (int j = band.lo; j < band.hi; ++j) {
     const int k0 = j * kBK;
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < kBK * d; e += kFaThreads) {
@@ -138,7 +147,8 @@ __global__ void __launch_bounds__(kFaThreads)
 #pragma unroll
     for (int jj = 0; jj < kBK / 4; ++jj) {
       const int kpos = k0 + c4 + 4 * jj;
-      const bool valid = kpos < sk && (!causal || kpos <= qrow);
+      const bool valid =
+          visible(qrow, kpos, sk, causal, window) && sg.sees(0, kpos);
       if (brow != nullptr && valid) s[jj] += __ldg(brow + kpos * bias.sk);
       s[jj] = valid ? s[jj] : kNegInf;
       mx = fmaxf(mx, s[jj]);
@@ -193,7 +203,8 @@ template <typename T>
 int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
                      void* lse, int b, int h, int sq, int sk, int d,
                      Strides qs, Strides ks, Strides vs, float scale,
-                     int causal, const BiasArgs& bias, cudaStream_t stream) {
+                     int causal, int window, const BiasArgs& bias,
+                     const SegArgs& seg, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kBQ * (d + 1) + (size_t)kBK * (d + 1) +
                        (size_t)kBK * d + (size_t)kBQ * (kBK + 1));
@@ -202,7 +213,7 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   flash_fwd_kernel<T><<<grid, kFaThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, h, sq, sk,
-      d, qs, ks, vs, scale, causal, bias);
+      d, qs, ks, vs, scale, causal, window, bias, seg);
   return (int)cudaGetLastError();
 }
 
@@ -222,10 +233,11 @@ struct ResFwdArgs {
   int h, sq, sk;
   uint32_t qpos, kpos, vpos, opos;  // coordinate placement of each map
   float scale;
-  int causal;
+  int causal, window;
   int bh, n_outer;  // b*h, query tiles of a head
   int items;        // bh * n_outer: the CTAs of the plain grid
   BiasArgs bias;    // read by the kBias instances only
+  SegArgs seg;
 };
 
 // NWG consumer warpgroups of 64 queries each (BM = 64 NWG query rows an
@@ -252,8 +264,12 @@ struct ResFwdShape {
 // bf16 into a staging tile of its own in TMA's swizzled layout and one of
 // its threads stores it by TMA (no row past sq, no column past d written);
 // its threads write the rows' lse. kBias: the additive bias, added to each
-// key tile's scores before the row max (fwd_tile).
-template <int DP, int BN, int NWG, bool kBias>
+// key tile's scores before the row max (fwd_tile). kGen: the general masks,
+// the window and the segment ids: the band is then the causal limit, the
+// window and the segment bounds (seg_band; an empty one writes o = 0 and
+// lse = kNegInf like a fully masked row), and edge blocks take the segment
+// test; the instances without them are the causal kernel as it was.
+template <int DP, int BN, int NWG, bool kBias, bool kGen>
 __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
                                   ResFwdShape<NWG>::kMinBlocks)
     fwd_resident_wgmma(const __grid_constant__ ResFwdMaps maps,
@@ -267,6 +283,7 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
   uint64_t* q_full = empty + kStages;  // an item's Q has landed
   uint64_t* q_empty = q_full + 1;      // the consumers are done with it
   const int nk = (a.sk + BN - 1) / BN;
+  const int window = kGen ? a.window : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
@@ -286,7 +303,8 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
     for (int w = blockIdx.x, j = 0; w < a.items; w += gridDim.x, ++j) {
       const int bh = w % a.bh, qt = a.n_outer - 1 - w / a.bh;
       const int bi = bh / a.h, hi = bh - bi * a.h;
-      const Band band = k_tiles(qt, nk, a.causal, 0, BM, BN);
+      Band band = k_tiles(qt, nk, a.causal, window, BM, BN);
+      if constexpr (kGen) band = seg_band(a.seg, band, bi, qt);
       hopper::mbar_wait(q_empty, (j & 1) ^ 1);
       hopper::mbar_arrive_tx(q_full, L::kQBytes);
       tma_rows<DP, BM>(base, &maps.q, a.qpos, q_full, qt * BM, hi, bi);
@@ -316,7 +334,12 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
     const int bh = w % a.bh, qt = a.n_outer - 1 - w / a.bh;
     const int bi = bh / a.h, hi = bh - bi * a.h;
     const int qw = qt * BM + wg * 64;  // this warpgroup's queries
-    const Band band = k_tiles(qt, nk, a.causal, 0, BM, BN);
+    Band band = k_tiles(qt, nk, a.causal, window, BM, BN);
+    SegRows sg{};
+    if constexpr (kGen) {
+      band = seg_band(a.seg, band, bi, qt);
+      sg = seg_rows(a.seg, false, bi, qw + r0, a.sq, a.sk);
+    }
     BiasLines brows{};
     if constexpr (kBias) brows = bias_rows(a.bias, bi, hi, qw + r0, a.sq);
     float o[DP / 2];
@@ -330,11 +353,19 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
       const int g = it + n, s = g % kStages, k0 = (band.lo + n) * BN;
       const uint32_t ks = ring + s * 2 * L::kTileBytes;
       hopper::mbar_wait(&full[s], (g / kStages) & 1);
-      fwd_tile<DP, BM, BN, kBias>(o, m2, l, qs, wg * 64, ks,
-                                  ks + L::kTileBytes, c, qw + r0, k0 + kcol,
-                                  a.sk, a.causal, 0,
-                                  !interior<BN>(qw, k0, a.sk, a.causal, 0),
-                                  brows);
+      if constexpr (kGen)
+        fwd_tile<DP, BM, BN, kBias, true>(
+            o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c, qw + r0,
+            k0 + kcol, a.sk, a.causal, a.window,
+            !interior<BN>(qw, k0, a.sk, a.causal, a.window) ||
+                !seg_interior(a.seg, sg, bi, qt, band.lo + n, k0, BN),
+            brows, &sg);
+      else
+        fwd_tile<DP, BM, BN, kBias>(o, m2, l, qs, wg * 64, ks,
+                                    ks + L::kTileBytes, c, qw + r0, k0 + kcol,
+                                    a.sk, a.causal, 0,
+                                    !interior<BN>(qw, k0, a.sk, a.causal, 0),
+                                    brows);
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
@@ -365,13 +396,13 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
 }
 
 // One kernel with its shared memory over `grid` CTAs.
-template <int DP, int BN, int NWG, bool kBias>
+template <int DP, int BN, int NWG, bool kBias, bool kGen>
 int launch_res_fwd_k(const ResFwdMaps& maps, const ResFwdArgs& a,
                      bool persistent, cudaStream_t stream) {
   constexpr size_t smem = FwdLayout<DP, BN, 64 * NWG, true>::kBytes;
   constexpr int threads = ResFwdShape<NWG>::kThreads;
-  auto kernel = fwd_resident_wgmma<DP, BN, NWG, kBias>;
-  int err = set_max_smem<fwd_resident_wgmma<DP, BN, NWG, kBias>>(smem);
+  auto kernel = fwd_resident_wgmma<DP, BN, NWG, kBias, kGen>;
+  int err = set_max_smem<fwd_resident_wgmma<DP, BN, NWG, kBias, kGen>>(smem);
   if (err) return err;
   int grid = a.items;
   if (persistent) {  // as many CTAs as fit on the card at once
@@ -392,14 +423,22 @@ int launch_res_fwd_k(const ResFwdMaps& maps, const ResFwdArgs& a,
   return (int)cudaGetLastError();
 }
 
-// The instance with the bias where one is given
+// The instance with the bias where one is given, and with the general
+// masks where a window or segment ids are
 template <int DP, int BN, int NWG>
 int launch_res_fwd(const ResFwdMaps& maps, const ResFwdArgs& a,
                    bool persistent, cudaStream_t stream) {
-  return a.bias.p != nullptr
-             ? launch_res_fwd_k<DP, BN, NWG, true>(maps, a, persistent, stream)
-             : launch_res_fwd_k<DP, BN, NWG, false>(maps, a, persistent,
-                                                    stream);
+  const bool bias = a.bias.p != nullptr;
+  if (a.window > 0 || a.seg.q != nullptr)
+    return bias ? launch_res_fwd_k<DP, BN, NWG, true, true>(maps, a,
+                                                            persistent, stream)
+                : launch_res_fwd_k<DP, BN, NWG, false, true>(
+                      maps, a, persistent, stream);
+  return bias ? launch_res_fwd_k<DP, BN, NWG, true, false>(maps, a,
+                                                           persistent, stream)
+              : launch_res_fwd_k<DP, BN, NWG, false, false>(maps, a,
+                                                            persistent,
+                                                            stream);
 }
 
 // bf16: the tensor maps of q, k, v and o, then the kernel of the padded
@@ -409,11 +448,14 @@ int launch_res_fwd(const ResFwdMaps& maps, const ResFwdArgs& a,
 int launch_res_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                         void* lse, int b, int h, int sq, int sk, int d,
                         Strides qs, Strides ks, Strides vs, float scale,
-                        int causal, const BiasArgs& bias, int outer_tile,
-                        int inner_tile, int persistent, cudaStream_t stream) {
+                        int causal, int window, const BiasArgs& bias,
+                        const SegArgs& seg, int outer_tile, int inner_tile,
+                        int persistent, cudaStream_t stream) {
   ResFwdMaps maps;
   ResFwdArgs a{};
   a.bias = bias;
+  a.seg = seg;
+  a.window = window;
   int err = encode_rows_map(&maps.q, &a.qpos, q, b, h, sq, d, qs.b, qs.h,
                             qs.s);
   if (!err) err = encode_rows_map(&maps.k, &a.kpos, k, b, h, sk, d, ks.b,
@@ -467,11 +509,15 @@ using namespace apex_torch;
 // o is contiguous (b, h, sq, d) in q's dtype; lse contiguous (b, h, sq) fp32.
 // bias: an fp32 (b|1, h|1, sq, sk) additive bias read through its element
 // strides (bsb, bsh, bsq, bsk; 0 on a broadcast dim), or null for none.
-// outer_tile / inner_tile: the query rows of an item and the key rows of a
-// streamed tile; persistent: as many CTAs as fit on the card walking the
-// items (bf16: 128, or 64 where d <= 64 / 64 or 128 / 0 or 1; fp32: 64 / 64
-// / 0). bf16 reads q/k/v and writes o by TMA: 16-byte-aligned bases and
-// strides, d % 8 == 0.
+// window <= 0: none. outer_tile / inner_tile: the query rows of an item and
+// the key rows of a streamed tile; persistent: as many CTAs as fit on the
+// card walking the items (bf16: 128, or 64 where d <= 64 / 64 or 128 / 0 or
+// 1; fp32: 64 / 64 / 0). bf16 reads q/k/v and writes o by TMA:
+// 16-byte-aligned bases and strides, d % 8 == 0. qseg / kseg: int32 (b, sq)
+// / (b, sk) segment ids, or null for none; bounds and ranges (both null:
+// mask only), omm, imm: their (b, 2, n) metadata at outer_tile /
+// inner_tile, ranges over the keys of each query (SegArgs); pad_id counts
+// where has_pad.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int b, int h, int sq, int sk,
                               int d, long long qsb, long long qsh,
@@ -480,18 +526,25 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               long long vss, const void* bias,
                               long long bsb, long long bsh, long long bsq,
                               long long bsk, float scale, int causal,
-                              int outer_tile, int inner_tile, int persistent,
-                              int dtype, void* stream) {
+                              int window, int outer_tile, int inner_tile,
+                              int persistent, int dtype, const void* qseg,
+                              const void* kseg, const void* bounds,
+                              const void* omm, const void* imm,
+                              const void* ranges, int pad_id, int has_pad,
+                              void* stream) {
   if (d < 1 || d > kMaxD || b < 1 || h < 1 || sq < 1 || sk < 1 ||
-      !fwd_tiles_ok(dtype, d, outer_tile, inner_tile, persistent))
+      !fwd_tiles_ok(dtype, d, outer_tile, inner_tile, persistent) ||
+      !seg_ok(qseg, kseg, bounds, omm, imm, ranges))
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   const BiasArgs ba{static_cast<const float*>(bias), bsb, bsh, bsq, bsk};
+  const SegArgs seg = make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id,
+                               has_pad, sq, sk, outer_tile, inner_tile);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_flash_fwd<float>(q, k, v, o, lse, b, h, sq, sk, d, qs, ks,
-                                   vs, scale, causal, ba, s);
+                                   vs, scale, causal, window, ba, seg, s);
   return launch_res_fwd_bf16(q, k, v, o, lse, b, h, sq, sk, d, qs, ks, vs,
-                             scale, causal, ba, outer_tile, inner_tile,
-                             persistent, s);
+                             scale, causal, window, ba, seg, outer_tile,
+                             inner_tile, persistent, s);
 }

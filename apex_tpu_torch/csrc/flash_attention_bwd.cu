@@ -13,6 +13,16 @@
 // dK = scale * dS^T Q. Causal masking is top-left aligned (key k visible to
 // query q iff k <= q), as in the forward.
 //
+// The sliding window and the segment ids (a query sees only keys of its
+// own id, never the pad id) narrow each outer tile's band as the
+// reference's loop limits do (:402-404, :478-484): the causal limit, the
+// window (k_tiles / q_tiles) and, with contiguous_segments, the tile's
+// [lo, hi) from the metadata at this kernel's tiles (SegArgs). Interior
+// blocks (one non-pad id on both sides, the causal/window test passed)
+// skip every test; edge blocks test q_id == k_id beside visible(). An
+// empty band still stores its rows: dQ = 0, or dK = dV = 0. A fully
+// masked row has lse kNegInf, so its P is 0 (lse2_of) and its dQ 0.
+//
 // The additive bias (b|1, h|1, sq, sk), fp32, read in place through four
 // element strides (0 on a broadcast dim), joins S before P is recomputed
 // in both passes (S = scale * Q K^T + bias, :345-346 and :442-443). Where
@@ -103,9 +113,10 @@ struct FmaArgs {
   int h, sq, sk, d;
   Strides qs, ks, vs, dos;
   float scale;
-  int causal;
+  int causal, window;  // window <= 0: none
   BiasArgs bias;  // p == nullptr: none
   float* dbias;   // (b, h, sq, sk) fp32 dS, or nullptr: no dbias
+  SegArgs seg;
 };
 
 __device__ __forceinline__ bool live_row(float lse) {
@@ -122,7 +133,7 @@ struct ResMaps {
 };
 
 struct ResArgs {
-  BwdArgs a;             // lse, delta, shapes, map positions; window 0
+  BwdArgs a;             // lse, delta, shapes, map positions, masks
   uint32_t pos0, pos1;   // coordinate placement of out0 / out1
   int bh, n_outer;       // b*h, outer tiles of a head
   int items;             // bh * n_outer: the CTAs of the plain grid
@@ -166,11 +177,14 @@ struct ResLayout {
 // in registers, and dQ += dS K with K read through the descriptor as an
 // MN-major B. Warp 8 starts the TMA loads; its 32 lanes copy the lse and
 // delta rows. kBias: the bias joins S (add_bias) and, where r.dbias is
-// given, each tile's dS is stored to it as well (store_dbias).
-template <int DP, int BN, bool kBias>
+// given, each tile's dS is stored to it as well (store_dbias). kGen: the
+// general masks (the window, the segment ids: bands narrowed by seg_band,
+// the segment test on edge blocks); without them the causal kernel as it
+// was.
+template <int DP, int BN, bool kBias, bool kGen>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     dq_resident_wgmma(const __grid_constant__ ResMaps maps,
-                      const ResArgsOf<kBias> r) {
+                      const ResArgsOf<kBias> r, const SegArgs seg) {
   using L = ResLayout<DP, BN, false>;
   const BwdArgs& a = r.a;
   extern __shared__ unsigned char smem_raw[];
@@ -181,6 +195,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   uint64_t* res_full = empty + kStages;  // an item's Q, dO, lse, delta
   uint64_t* res_empty = res_full + 1;    // the consumers are done with them
   const int nk = (a.sk + BN - 1) / BN;
+  const int window = kGen ? a.window : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
@@ -201,7 +216,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     for (int w = blockIdx.x, j = 0; w < r.items; w += gridDim.x, ++j) {
       const int bh = w % r.bh, qt = r.n_outer - 1 - w / r.bh;
       const int bi = bh / a.h, hi = bh - bi * a.h, q0 = qt * kOuter;
-      const Band band = k_tiles(qt, nk, a.causal, 0, kOuter, BN);
+      Band band = k_tiles(qt, nk, a.causal, window, kOuter, BN);
+      if constexpr (kGen) band = seg_band(seg, band, bi, qt);
       hopper::mbar_wait(res_empty, (j & 1) ^ 1);
       if (lane == 0) {
         hopper::mbar_arrive_tx(res_full, 2 * L::kOuterBytes);
@@ -239,7 +255,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const int bh = w % r.bh, qt = r.n_outer - 1 - w / r.bh;
     const int bi = bh / a.h, hi = bh - bi * a.h;
     const int qw = qt * kOuter + wg * 64;  // this warpgroup's queries
-    const Band band = k_tiles(qt, nk, a.causal, 0, kOuter, BN);
+    Band band = k_tiles(qt, nk, a.causal, window, kOuter, BN);
+    SegRows sg{};
+    if constexpr (kGen) {
+      band = seg_band(seg, band, bi, qt);
+      sg = seg_rows(seg, false, bi, qw + r0, a.sq, a.sk);
+    }
     float dq[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
@@ -276,10 +297,20 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
         const int k0 = (band.lo + n) * BN;
         add_bias<BN>(st, brows, c, k0 + kcol, a.sk);
-        if (interior<BN>(qw, k0, a.sk, a.causal, 0))
-          dq_probs<false, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a);
-        else
-          dq_probs<true, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a);
+        if constexpr (kGen) {
+          if (interior<BN>(qw, k0, a.sk, a.causal, a.window) &&
+              seg_interior(seg, sg, bi, qt, band.lo + n, k0, BN)) {
+            dq_probs<false, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a);
+          } else {
+            seg_mask<BN>(st, sg, k0 + kcol);
+            dq_probs<true, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a);
+          }
+        } else {
+          if (interior<BN>(qw, k0, a.sk, a.causal, 0))
+            dq_probs<false, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a);
+          else
+            dq_probs<true, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a);
+        }
         if (r.dbias != nullptr) store_dbias<BN>(drows, dp, k0 + kcol, a.sk);
         uint32_t sf[BN / 16][4];
         fragments<BN>(sf, dp);
@@ -292,10 +323,20 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     } else {
       auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
         const int k0 = (band.lo + n) * BN;
-        if (interior<BN>(qw, k0, a.sk, a.causal, 0))
-          dq_probs<false, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
-        else
-          dq_probs<true, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+        if constexpr (kGen) {
+          if (interior<BN>(qw, k0, a.sk, a.causal, a.window) &&
+              seg_interior(seg, sg, bi, qt, band.lo + n, k0, BN)) {
+            dq_probs<false, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+          } else {
+            seg_mask<BN>(st, sg, k0 + kcol);
+            dq_probs<true, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+          }
+        } else {
+          if (interior<BN>(qw, k0, a.sk, a.causal, 0))
+            dq_probs<false, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+          else
+            dq_probs<true, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+        }
         uint32_t sf[BN / 16][4];
         fragments<BN>(sf, dp);
         hopper::wgmma_fence();
@@ -330,11 +371,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // with Q and dO read through the descriptor as MN-major B. Warp 8 starts
 // the TMA loads; its 32 lanes copy each query tile's lse and delta. A key
 // tile that no query sees (sk > sq under causal) stores zeros. kBias: the
-// bias joins S^T (add_bias_t, each key's bias column).
-template <int DP, int BN, bool kBias>
+// bias joins S^T (add_bias_t, each key's bias column). kGen: as in the dQ
+// kernel.
+template <int DP, int BN, bool kBias, bool kGen>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     dkv_resident_wgmma(const __grid_constant__ ResMaps maps,
-                       const ResArgsOf<kBias> r) {
+                       const ResArgsOf<kBias> r, const SegArgs seg) {
   using L = ResLayout<DP, BN, true>;
   const BwdArgs& a = r.a;
   extern __shared__ unsigned char smem_raw[];
@@ -345,6 +387,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   uint64_t* res_full = empty + kStages;  // an item's K and V
   uint64_t* res_empty = res_full + 1;    // the consumers are done with them
   const int nq = (a.sq + BN - 1) / BN;
+  const int window = kGen ? a.window : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1 + 32);  // the TMA's, each lane's copies
@@ -365,7 +408,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     for (int w = blockIdx.x, j = 0; w < r.items; w += gridDim.x, ++j) {
       const int bh = w % r.bh, kt = w / r.bh;
       const int bi = bh / a.h, hi = bh - bi * a.h, k0 = kt * kOuter;
-      const Band band = q_tiles(kt, nq, a.causal, 0, BN, kOuter);
+      Band band = q_tiles(kt, nq, a.causal, window, BN, kOuter);
+      if constexpr (kGen) band = seg_band(seg, band, bi, kt);
       hopper::mbar_wait(res_empty, (j & 1) ^ 1);
       if (lane == 0) {
         hopper::mbar_arrive_tx(res_full, 2 * L::kOuterBytes);
@@ -405,7 +449,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const int bi = bh / a.h, hi = bh - bi * a.h;
     const int kw = kt * kOuter + wg * 64;        // this warpgroup's keys
     const int key0 = kw + warp * 16 + lane / 4;  // of d[i]: + 8 ((i/2)%2)
-    const Band band = q_tiles(kt, nq, a.causal, 0, BN, kOuter);
+    Band band = q_tiles(kt, nq, a.causal, window, BN, kOuter);
+    SegRows sg{};
+    if constexpr (kGen) {
+      band = seg_band(seg, band, bi, kt);
+      sg = seg_rows(seg, true, bi, key0, a.sq, a.sk);
+    }
     float dk[DP / 2], dv[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
@@ -432,10 +481,20 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         const int s = (it0 + n) % kStages, q0 = (band.lo + n) * BN;
         const float* st_s = stats + s * 2 * BN;
         add_bias_t<BN>(st, bcols, c, q0 + qcol, a.sq);
-        if (interior<64, BN>(q0, kw, a.sk, a.causal, 0))
-          dkv_probs<false, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a);
-        else
-          dkv_probs<true, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a);
+        if constexpr (kGen) {
+          if (interior<64, BN>(q0, kw, a.sk, a.causal, a.window) &&
+              seg_interior(seg, sg, bi, kt, band.lo + n, q0, BN)) {
+            dkv_probs<false, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a);
+          } else {
+            seg_mask<BN>(st, sg, q0 + qcol);
+            dkv_probs<true, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a);
+          }
+        } else {
+          if (interior<64, BN>(q0, kw, a.sk, a.causal, 0))
+            dkv_probs<false, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a);
+          else
+            dkv_probs<true, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a);
+        }
         uint32_t pf[BN / 16][4], sf[BN / 16][4];
         fragments<BN>(pf, st);
         fragments<BN>(sf, dp);
@@ -451,10 +510,20 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
         const int s = (it0 + n) % kStages, q0 = (band.lo + n) * BN;
         const float* st_s = stats + s * 2 * BN;
-        if (interior<64, BN>(q0, kw, a.sk, a.causal, 0))
-          dkv_probs<false, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
-        else
-          dkv_probs<true, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
+        if constexpr (kGen) {
+          if (interior<64, BN>(q0, kw, a.sk, a.causal, a.window) &&
+              seg_interior(seg, sg, bi, kt, band.lo + n, q0, BN)) {
+            dkv_probs<false, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
+          } else {
+            seg_mask<BN>(st, sg, q0 + qcol);
+            dkv_probs<true, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
+          }
+        } else {
+          if (interior<64, BN>(q0, kw, a.sk, a.causal, 0))
+            dkv_probs<false, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
+          else
+            dkv_probs<true, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
+        }
         uint32_t pf[BN / 16][4], sf[BN / 16][4];
         fragments<BN>(pf, st);
         fragments<BN>(sf, dp);
@@ -535,10 +604,12 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dq_fma_kernel(FmaArgs a) {
   float acc[kMaxDim / 4];
 #pragma unroll
   for (int jj = 0; jj < kMaxDim / 4; ++jj) acc[jj] = 0.f;
-  int nk = (sk + kTile - 1) / kTile;
-  if (a.causal) nk = min(nk, (q0 + 2 * kTile - 1) / kTile);
+  const Band band = seg_band(
+      a.seg, k_tiles(blockIdx.x, (sk + kTile - 1) / kTile, a.causal, a.window),
+      bi, blockIdx.x);
+  const SegRows sg = seg_rows(a.seg, false, bi, qrow, sq, sk);
 
-  for (int j = 0; j < nk; ++j) {
+  for (int j = band.lo; j < band.hi; ++j) {
     const int k0 = j * kTile;
     __syncthreads();
     load_f32(Ks, kb + (long long)k0 * a.ks.s, a.ks.s, sk - k0, d);
@@ -559,7 +630,8 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dq_fma_kernel(FmaArgs a) {
 #pragma unroll
     for (int jj = 0; jj < kTile / 4; ++jj) {
       const int c = c4 + 4 * jj, kpos = k0 + c;
-      const bool valid = kpos < sk && (!a.causal || kpos <= qrow) && live;
+      const bool valid = visible(qrow, kpos, sk, a.causal, a.window) &&
+                         sg.sees(0, kpos) && live;
       float sv = s[jj] * a.scale;
       if (brow != nullptr && valid) sv += __ldg(brow + kpos * a.bias.sk);
       const float p = valid ? expf(sv - l) : 0.f;
@@ -619,10 +691,12 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dkv_fma_kernel(FmaArgs a) {
   float dk[kMaxDim / 4], dv[kMaxDim / 4];
 #pragma unroll
   for (int jj = 0; jj < kMaxDim / 4; ++jj) dk[jj] = dv[jj] = 0.f;
-  const int nq = (sq + kTile - 1) / kTile;
-  const int start = a.causal ? min(k0 / kTile, nq) : 0;
+  const Band band = seg_band(
+      a.seg, q_tiles(blockIdx.x, (sq + kTile - 1) / kTile, a.causal, a.window),
+      bi, blockIdx.x);
+  const SegRows sg = seg_rows(a.seg, true, bi, key, sq, sk);
 
-  for (int qi = start; qi < nq; ++qi) {
+  for (int qi = band.lo; qi < band.hi; ++qi) {
     const int q0 = qi * kTile;
     __syncthreads();
     load_f32(Qs, qb + (long long)q0 * a.qs.s, a.qs.s, sq - q0, d);
@@ -649,8 +723,9 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dkv_fma_kernel(FmaArgs a) {
     for (int jj = 0; jj < kTile / 4; ++jj) {
       const int c = c4 + 4 * jj, qrow = q0 + c;
       const float l = lse_s[c];
-      const bool valid = qrow < sq && key < sk &&
-                         (!a.causal || key <= qrow) && live_row(l);
+      const bool valid = qrow < sq &&
+                         visible(qrow, key, sk, a.causal, a.window) &&
+                         sg.sees(0, qrow) && live_row(l);
       float sv = s[jj] * a.scale;
       if (bcol != nullptr && valid) sv += __ldg(bcol + qrow * a.bias.sq);
       const float p = valid ? expf(sv - l) : 0.f;
@@ -718,35 +793,52 @@ int launch_fma(bool dkv, const FmaArgs& a, int b, cudaStream_t stream) {
 // A resident kernel with its shared memory over `grid` CTAs: one per item,
 // or one per SM (persistent).
 template <auto Kernel, size_t kSmem, class Args>
-int launch_res(const ResMaps& maps, const Args& r, int grid,
-               cudaStream_t stream) {
+int launch_res(const ResMaps& maps, const Args& r, const SegArgs& seg,
+               int grid, cudaStream_t stream) {
   const int err = set_max_smem<Kernel>(kSmem);
   if (err) return err;
-  Kernel<<<grid, kBwdThreads, kSmem, stream>>>(maps, r);
+  Kernel<<<grid, kBwdThreads, kSmem, stream>>>(maps, r, seg);
   return (int)cudaGetLastError();
 }
 
-// The instance with the bias where one is given
-template <int DP, int BN>
-int launch_dq(const ResMaps& maps, const ResBiasArgs& r, int grid,
-              cudaStream_t stream) {
+// The instance with the bias where one is given, and with the general
+// masks where a window or segment ids are
+template <int DP, int BN, bool kGen>
+int launch_dq_k(const ResMaps& maps, const ResBiasArgs& r,
+                const SegArgs& seg, int grid, cudaStream_t stream) {
   constexpr size_t smem = ResLayout<DP, BN, false>::kBytes;
   if (r.bias.p != nullptr)
-    return launch_res<dq_resident_wgmma<DP, BN, true>, smem>(maps, r, grid,
-                                                             stream);
-  return launch_res<dq_resident_wgmma<DP, BN, false>, smem>(
-      maps, static_cast<const ResArgs&>(r), grid, stream);
+    return launch_res<dq_resident_wgmma<DP, BN, true, kGen>, smem>(
+        maps, r, seg, grid, stream);
+  return launch_res<dq_resident_wgmma<DP, BN, false, kGen>, smem>(
+      maps, static_cast<const ResArgs&>(r), seg, grid, stream);
+}
+
+template <int DP, int BN>
+int launch_dq(const ResMaps& maps, const ResBiasArgs& r, const SegArgs& seg,
+              int grid, cudaStream_t stream) {
+  return r.a.window > 0 || seg.q != nullptr
+             ? launch_dq_k<DP, BN, true>(maps, r, seg, grid, stream)
+             : launch_dq_k<DP, BN, false>(maps, r, seg, grid, stream);
+}
+
+template <int DP, bool kGen>
+int launch_dkv_k(const ResMaps& maps, const ResBiasArgs& r,
+                 const SegArgs& seg, int grid, cudaStream_t stream) {
+  constexpr size_t smem = ResLayout<DP, 64, true>::kBytes;
+  if (r.bias.p != nullptr)
+    return launch_res<dkv_resident_wgmma<DP, 64, true, kGen>, smem>(
+        maps, r, seg, grid, stream);
+  return launch_res<dkv_resident_wgmma<DP, 64, false, kGen>, smem>(
+      maps, static_cast<const ResArgs&>(r), seg, grid, stream);
 }
 
 template <int DP>
-int launch_dkv(const ResMaps& maps, const ResBiasArgs& r, int grid,
-               cudaStream_t stream) {
-  constexpr size_t smem = ResLayout<DP, 64, true>::kBytes;
-  if (r.bias.p != nullptr)
-    return launch_res<dkv_resident_wgmma<DP, 64, true>, smem>(maps, r, grid,
-                                                              stream);
-  return launch_res<dkv_resident_wgmma<DP, 64, false>, smem>(
-      maps, static_cast<const ResArgs&>(r), grid, stream);
+int launch_dkv(const ResMaps& maps, const ResBiasArgs& r, const SegArgs& seg,
+               int grid, cudaStream_t stream) {
+  return r.a.window > 0 || seg.q != nullptr
+             ? launch_dkv_k<DP, true>(maps, r, seg, grid, stream)
+             : launch_dkv_k<DP, false>(maps, r, seg, grid, stream);
 }
 
 // dbias of a bias broadcast over b (bb = 1) and/or h (bh = 1) from the dQ
@@ -817,6 +909,7 @@ int launch_res_bwd(bool dkv, const FmaArgs& f, int b, int inner_tile,
   a.d = d;
   a.scale = f.scale;
   a.causal = f.causal;
+  a.window = f.window;
   r.bias = f.bias;
   r.dbias = f.dbias;
   r.bh = b * h;
@@ -835,11 +928,11 @@ int launch_res_bwd(bool dkv, const FmaArgs& f, int b, int inner_tile,
     grid = grid < sms ? grid : sms;
   }
   if (dkv)
-    return d > 64 ? launch_dkv<128>(maps, r, grid, stream)
-                  : launch_dkv<64>(maps, r, grid, stream);
-  if (d > 64) return launch_dq<128, 64>(maps, r, grid, stream);
-  return inner_tile == 128 ? launch_dq<64, 128>(maps, r, grid, stream)
-                           : launch_dq<64, 64>(maps, r, grid, stream);
+    return d > 64 ? launch_dkv<128>(maps, r, f.seg, grid, stream)
+                  : launch_dkv<64>(maps, r, f.seg, grid, stream);
+  if (d > 64) return launch_dq<128, 64>(maps, r, f.seg, grid, stream);
+  return inner_tile == 128 ? launch_dq<64, 128>(maps, r, f.seg, grid, stream)
+                           : launch_dq<64, 64>(maps, r, f.seg, grid, stream);
 }
 
 // The tiles a caller names: bf16 kOuter rows kept, 64 streamed (or 128 for
@@ -868,7 +961,7 @@ FmaArgs make_args(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta, int h,
                   int sq, int sk, int d, const long long* st,
                   const void* bias, const long long* bst, float scale,
-                  int causal) {
+                  int causal, int window, const SegArgs& seg) {
   FmaArgs a{};
   a.q = q;
   a.k = k;
@@ -886,6 +979,8 @@ FmaArgs make_args(const void* q, const void* k, const void* v,
   a.dos = Strides{st[9], st[10], st[11]};
   a.scale = scale;
   a.causal = causal;
+  a.window = window;
+  a.seg = seg;
   a.bias = BiasArgs{static_cast<const float*>(bias), bst[0], bst[1], bst[2],
                     bst[3]};
   return a;
@@ -901,14 +996,18 @@ using namespace apex_torch;
 // dtype. bias: an fp32 (b|1, h|1, sq, sk) additive bias read through its
 // element strides (bsb, bsh, bsq, bsk; 0 on a broadcast dim), or null.
 // dbias_ws: null, or (with a bias) a contiguous fp32 (b, h, sq, sk) buffer
-// the kernel writes dS into (zeroed by the caller under causal: the tiles
-// past the diagonal are not visited); dbias: (bb, bh, sq, sk) contiguous
-// fp32, the same buffer as dbias_ws where (bb, bh) == (b, h), else the
-// dbias_finish launch sums the partials into it. outer_tile / inner_tile:
-// the rows a CTA keeps and streams; persistent: one CTA per SM walking the
-// items (bf16: 128 / 64, or 128 for dQ with d <= 64 / 0 or 1; fp32: 64 /
-// 64 / 0). bf16 reads q/k/v/dout and writes dq by TMA: 16-byte-aligned
-// bases and strides, d % 8 == 0.
+// the kernel writes dS into (zeroed by the caller where a band leaves tiles
+// unvisited: causal, a window, segment bounds); dbias: (bb, bh, sq, sk)
+// contiguous fp32, the same buffer as dbias_ws where (bb, bh) == (b, h),
+// else the dbias_finish launch sums the partials into it. window <= 0:
+// none. outer_tile / inner_tile: the rows a CTA keeps and streams;
+// persistent: one CTA per SM walking the items (bf16: 128 / 64, or 128 for
+// dQ with d <= 64 / 0 or 1; fp32: 64 / 64 / 0). bf16 reads q/k/v/dout and
+// writes dq by TMA: 16-byte-aligned bases and strides, d % 8 == 0. qseg /
+// kseg: int32 (b, sq) / (b, sk) segment ids or null; bounds and ranges
+// (both null: mask only), omm, imm: their (b, 2, n) metadata at outer_tile /
+// inner_tile (SegArgs; the outer side, whose rows the ranges cover, is the
+// queries for dQ, the keys for dK/dV).
 extern "C" int apex_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const void* bias,
@@ -916,17 +1015,23 @@ extern "C" int apex_flash_bwd_dq(
     long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
     long long kss, long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, long long bsb, long long bsh, long long bsq,
-    long long bsk, int bb, int bh, float scale, int causal, int outer_tile,
-    int inner_tile, int persistent, int dtype, void* stream) {
+    long long bsk, int bb, int bh, float scale, int causal, int window,
+    int outer_tile, int inner_tile, int persistent, int dtype,
+    const void* qseg, const void* kseg, const void* bounds, const void* omm,
+    const void* imm, const void* ranges, int pad_id, int has_pad,
+    void* stream) {
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};
   const long long bst[4] = {bsb, bsh, bsq, bsk};
-  if (dbias_ws != nullptr &&
-      (bias == nullptr || dbias == nullptr || (bb != 1 && bb != b) ||
-       (bh != 1 && bh != h)))
+  if ((dbias_ws != nullptr &&
+       (bias == nullptr || dbias == nullptr || (bb != 1 && bb != b) ||
+        (bh != 1 && bh != h))) ||
+      !seg_ok(qseg, kseg, bounds, omm, imm, ranges))
     return (int)cudaErrorInvalidValue;
-  FmaArgs a = make_args(q, k, v, dout, lse, delta, h, sq, sk, d, st, bias,
-                        bst, scale, causal);
+  FmaArgs a = make_args(
+      q, k, v, dout, lse, delta, h, sq, sk, d, st, bias, bst, scale, causal,
+      window, make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
+                       sq, sk, outer_tile, inner_tile));
   a.dq = dq;
   a.dbias = static_cast<float*>(dbias_ws);
   cudaStream_t s = (cudaStream_t)stream;
@@ -946,13 +1051,19 @@ extern "C" int apex_flash_bwd_dkv(
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
     long long bsb, long long bsh, long long bsq, long long bsk, float scale,
-    int causal, int outer_tile, int inner_tile, int persistent, int dtype,
-    void* stream) {
+    int causal, int window, int outer_tile, int inner_tile, int persistent,
+    int dtype, const void* qseg, const void* kseg, const void* bounds,
+    const void* omm, const void* imm, const void* ranges, int pad_id,
+    int has_pad, void* stream) {
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};
   const long long bst[4] = {bsb, bsh, bsq, bsk};
-  FmaArgs a = make_args(q, k, v, dout, lse, delta, h, sq, sk, d, st, bias,
-                        bst, scale, causal);
+  if (!seg_ok(qseg, kseg, bounds, omm, imm, ranges))
+    return (int)cudaErrorInvalidValue;
+  FmaArgs a = make_args(
+      q, k, v, dout, lse, delta, h, sq, sk, d, st, bias, bst, scale, causal,
+      window, make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
+                       sk, sq, outer_tile, inner_tile));
   a.dk = dk;
   a.dv = dv;
   return launch_bwd(true, a, b, outer_tile, inner_tile, persistent, dtype,

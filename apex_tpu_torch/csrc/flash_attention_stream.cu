@@ -11,6 +11,18 @@
 // window (keys [q-w+1, q] causal, [q-w+1, q+w-1] not: _apply_pos_masks).
 // A row with no visible key adds exactly 0.
 //
+// Segment ids (a query sees only keys of its own id, never the pad id:
+// _seg_mask_if_needed) join the mask on edge blocks; a block whose query
+// and key tiles hold one non-pad id is interior. The splits stay static
+// (the bands of the causal limit and the window, cut on the host from
+// shapes alone); with contiguous_segments each split CTA narrows its range
+// to its outer tile's [lo, hi) from the metadata at this kernel's tiles
+// (SegArgs, read on the card). A forward split left empty still hands the
+// merge an empty partial (m = -1e30, l = 0), or writes o = 0 and lse =
+// -1e30 where it is its band's only split, so the merge's fixed order
+// gives what mask-only evaluation gives; an empty dQ or dK/dV split adds
+// nothing and skips its atomics.
+//
 // On the TPU the streamed kernels put the K/V (or Q) loop in the grid and
 // carry acc/m/l, or the dQ/dK/dV sums, in VMEM scratch from one sequential
 // trip to the next; the window shrinks the grid to the band (_window_grid).
@@ -114,6 +126,7 @@ struct StreamArgs {
   Strides qs, ks, vs, dos;
   float scale;
   int causal, window, split_tiles;  // window <= 0: none
+  SegArgs seg;
 };
 
 // Split s of the band: ceil(n / split_tiles) pieces of equal length (the
@@ -152,9 +165,13 @@ __global__ void __launch_bounds__(kFma) fwd_split_fma(StreamArgs a) {
                 split, a.split_tiles, t0, t1))
     return;
   const int bi = bh / a.h, hi = bh - bi * a.h;
+  // narrowed to the segment bounds; an empty split still writes its
+  // (empty) partial below
+  const Band nb = seg_band(a.seg, Band{t0, t1}, bi, qt);
   const int q0 = qt * kTile;
   const int tid = threadIdx.x, r = tid >> 2, c4 = tid & 3;
   const int qrow = q0 + r;
+  const SegRows sg = seg_rows(a.seg, false, bi, qrow, sq, sk);
   const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.h;
   const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.h;
   const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
@@ -170,7 +187,7 @@ __global__ void __launch_bounds__(kFma) fwd_split_fma(StreamArgs a) {
   for (int j = 0; j < kDimMax / 4; ++j) acc[j] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  for (int j = t0; j < t1; ++j) {
+  for (int j = nb.lo; j < nb.hi; ++j) {
     const int k0 = j * kTile;
     __syncthreads();
     for (int e = tid; e < kTile * d; e += kFma) {
@@ -195,7 +212,9 @@ __global__ void __launch_bounds__(kFma) fwd_split_fma(StreamArgs a) {
 #pragma unroll
     for (int jj = 0; jj < kTile / 4; ++jj) {
       const int kpos = k0 + c4 + 4 * jj;
-      s[jj] = visible(qrow, kpos, sk, a.causal, a.window) ? s[jj] : kNegInf;
+      s[jj] = visible(qrow, kpos, sk, a.causal, a.window) && sg.sees(0, kpos)
+                  ? s[jj]
+                  : kNegInf;
       mx = fmaxf(mx, s[jj]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -304,10 +323,13 @@ __global__ void __launch_bounds__(kMergeRows * 32)
 // P^T = exp2(S^T scale log2e - lse log2e), dS^T = P^T (dP^T - delta) in
 // registers, and dV += P^T dO, dK += dS^T Q with Q and dO read through the
 // descriptor as MN-major B -- no transposed copy. Warp 8 starts the TMA
-// loads and the cp.async copies of the row statistics.
-template <int DP>
+// loads and the cp.async copies of the row statistics. kGen: the segment
+// ids (the split narrowed by seg_band, the segment test on edge blocks);
+// without them the kernel as it was.
+template <int DP, bool kGen>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    dkv_wgmma(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+    dkv_wgmma(const __grid_constant__ BwdMaps maps, const BwdArgs a,
+              const SegArgs seg) {
   using L = BwdLayout<DP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
@@ -323,6 +345,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                 split, a.split_tiles, t0, t1))
     return;
   const int bi = bh / a.h, hi = bh - bi * a.h;
+  if constexpr (kGen) {
+    const Band nb = seg_band(seg, Band{t0, t1}, bi, kt);
+    if (nb.lo >= nb.hi) return;  // no query of this split shares an id
+    t0 = nb.lo;
+    t1 = nb.hi;
+  }
   const int k0 = kt * kOuter;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -370,6 +398,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int key0 = kw + warp * 16 + lane / 4;   // keys of d[i]: + 8 ((i/2)%2)
   const int qcol = 2 * (lane % 4);              // + 8 (i/4) + i%2
   const float c = a.scale * kLog2e;
+  SegRows sg{};
+  if constexpr (kGen) sg = seg_rows(seg, true, bi, key0, a.sq, a.sk);
   const uint32_t ks = hopper::smem_u32(base), vs = ks + L::kOuterBytes;
   float dk[DP / 2], dv[DP / 2];
 #pragma unroll
@@ -389,10 +419,20 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   auto finish = [&](float (&st)[32], float (&dp)[32], int n) {
     const int s = n % kStages, q0 = (t0 + n) * kInner;
     const float* l2 = stats + s * 2 * kInner;
-    if (interior(q0, kw, a.sk, a.causal, a.window))
-      dkv_probs<false>(st, dp, l2, c, q0 + qcol, key0, a);
-    else
-      dkv_probs<true>(st, dp, l2, c, q0 + qcol, key0, a);
+    if constexpr (kGen) {
+      if (interior(q0, kw, a.sk, a.causal, a.window) &&
+          seg_interior(seg, sg, bi, kt, t0 + n, q0, kInner)) {
+        dkv_probs<false>(st, dp, l2, c, q0 + qcol, key0, a);
+      } else {
+        seg_mask<kInner>(st, sg, q0 + qcol);
+        dkv_probs<true>(st, dp, l2, c, q0 + qcol, key0, a);
+      }
+    } else {
+      if (interior(q0, kw, a.sk, a.causal, a.window))
+        dkv_probs<false>(st, dp, l2, c, q0 + qcol, key0, a);
+      else
+        dkv_probs<true>(st, dp, l2, c, q0 + qcol, key0, a);
+    }
     uint32_t pf[4][4], sf[4][4];
     fragments(pf, st);
     fragments(sf, dp);
@@ -434,10 +474,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // streams the key tiles of its split (K, V) through the ring. Warpgroups 0
 // and 1 own 64 queries each: S = Q K^T and dP = dO V^T, then P and
 // dS = P (dP - delta) in registers, and dQ += dS K with K read through the
-// descriptor as MN-major B.
-template <int DP>
+// descriptor as MN-major B. kGen: as in dkv_wgmma.
+template <int DP, bool kGen>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    dq_wgmma(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+    dq_wgmma(const __grid_constant__ BwdMaps maps, const BwdArgs a,
+             const SegArgs seg) {
   using L = BwdLayout<DP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
@@ -455,6 +496,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                 split, a.split_tiles, t0, t1))
     return;
   const int bi = bh / a.h, hi = bh - bi * a.h;
+  if constexpr (kGen) {
+    const Band nb = seg_band(seg, Band{t0, t1}, bi, qt);
+    if (nb.lo >= nb.hi) return;  // no key of this split shares an id
+    t0 = nb.lo;
+    t1 = nb.hi;
+  }
   const int q0 = qt * kOuter;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -500,6 +547,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int r0 = warp * 16 + lane / 4;          // rows of d[i]: + 8 ((i/2)%2)
   const int kcol = 2 * (lane % 4);              // + 8 (i/4) + i%2
   const float c = a.scale * kLog2e;
+  SegRows sg{};
+  if constexpr (kGen) sg = seg_rows(seg, false, bi, qw + r0, a.sq, a.sk);
   const uint32_t qs = hopper::smem_u32(base), os = qs + L::kOuterBytes;
   float dq[DP / 2];
 #pragma unroll
@@ -521,10 +570,20 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   };
   auto finish = [&](float (&st)[32], float (&dp)[32], int n) {
     const int k0 = (t0 + n) * kInner;
-    if (interior(qw, k0, a.sk, a.causal, a.window))
-      dq_probs<false>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
-    else
-      dq_probs<true>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+    if constexpr (kGen) {
+      if (interior(qw, k0, a.sk, a.causal, a.window) &&
+          seg_interior(seg, sg, bi, qt, t0 + n, k0, kInner)) {
+        dq_probs<false>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+      } else {
+        seg_mask<kInner>(st, sg, k0 + kcol);
+        dq_probs<true>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+      }
+    } else {
+      if (interior(qw, k0, a.sk, a.causal, a.window))
+        dq_probs<false>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+      else
+        dq_probs<true>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+    }
     uint32_t sf[4][4];
     fragments(sf, dp);
     hopper::wgmma_fence();
@@ -581,10 +640,15 @@ struct FwdArgs {
 // starts the TMA loads. A band of one split normalises in registers and
 // writes o and lse itself; a split of a longer band writes its fp32
 // partial (acc, m, l) for fwd_merge. Split 0 of an empty band writes its
-// rows' o = 0 and lse = -1e30.
-template <int DP, int BN>
+// rows' o = 0 and lse = -1e30. kGen: the segment ids (the split narrowed
+// by seg_band, the segment test on edge blocks); a split that the segment
+// bounds leave empty writes what split 0 of an empty band writes (its
+// band's only split) or an empty partial. Without them the kernel as it
+// was.
+template <int DP, int BN, bool kGen>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    fwd_wgmma(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
+    fwd_wgmma(const __grid_constant__ FwdMaps maps, const FwdArgs a,
+              const SegArgs seg) {
   using L = FwdLayout<DP, BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
@@ -612,6 +676,30 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
   const bool direct = band.hi - band.lo <= a.split_tiles;
   const int bi = bh / a.h, hi = bh - bi * a.h;
+  if constexpr (kGen) {
+    const Band nb = seg_band(seg, Band{t0, t1}, bi, qt);
+    if (nb.lo >= nb.hi) {  // no key of this split shares an id
+      const size_t head = (size_t)bh * a.sq;
+      const int rows = min(kFwdOuter, a.sq - q0);
+      if (direct) {
+        for (int e = threadIdx.x; e < rows * a.d; e += kBwdThreads)
+          a.o[(head + q0) * a.d + e] = __float2bfloat16_rn(0.f);
+        for (int r = threadIdx.x; r < rows; r += kBwdThreads)
+          a.lse[head + q0 + r] = kNegInf;
+      } else {
+        const size_t at = ((size_t)split * a.bh + bh) * a.sq + q0;
+        for (int e = threadIdx.x; e < rows * a.d; e += kBwdThreads)
+          a.acc[at * a.d + e] = 0.f;
+        for (int r = threadIdx.x; r < rows; r += kBwdThreads) {
+          a.m[at + r] = kNegInf;
+          a.l[at + r] = 0.f;
+        }
+      }
+      return;
+    }
+    t0 = nb.lo;
+    t1 = nb.hi;
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
@@ -646,6 +734,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int r0 = warp * 16 + lane / 4;    // rows of d[i]: + 8 ((i/2)%2)
   const int kcol = 2 * (lane % 4);        // + 8 (i/4) + i%2
   const float c = a.scale * kLog2e;
+  SegRows sg{};
+  if constexpr (kGen) sg = seg_rows(seg, false, bi, qw + r0, a.sq, a.sk);
   const uint32_t qs = hopper::smem_u32(base);
   const uint32_t ring = hopper::smem_u32(base + L::kRing);
   float o[DP / 2];
@@ -659,10 +749,18 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const int s = n % kStages, k0 = (t0 + n) * BN;
     const uint32_t ks = ring + s * 2 * L::kTileBytes;
     hopper::mbar_wait(&full[s], (n / kStages) & 1);
-    fwd_tile<DP, kFwdOuter, BN>(
-        o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c, qw + r0, k0 + kcol,
-        a.sk, a.causal, a.window,
-        !interior<BN>(qw, k0, a.sk, a.causal, a.window));
+    if constexpr (kGen)
+      fwd_tile<DP, kFwdOuter, BN, false, true>(
+          o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c, qw + r0,
+          k0 + kcol, a.sk, a.causal, a.window,
+          !interior<BN>(qw, k0, a.sk, a.causal, a.window) ||
+              !seg_interior(seg, sg, bi, qt, t0 + n, k0, BN),
+          {}, &sg);
+    else
+      fwd_tile<DP, kFwdOuter, BN>(
+          o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c, qw + r0,
+          k0 + kcol, a.sk, a.causal, a.window,
+          !interior<BN>(qw, k0, a.sk, a.causal, a.window));
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
@@ -738,9 +836,12 @@ __global__ void __launch_bounds__(kFma) dq_split_fma(StreamArgs a) {
                 split, a.split_tiles, t0, t1))
     return;
   const int bi = bh / a.h, hi = bh - bi * a.h;
+  const Band nb = seg_band(a.seg, Band{t0, t1}, bi, qt);
+  if (nb.lo >= nb.hi) return;  // no key of this split shares an id
   const int q0 = qt * kTile;
   const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3;
   const int qrow = q0 + r;
+  const SegRows sg = seg_rows(a.seg, false, bi, qrow, sq, sk);
   const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.h;
   const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.h;
   const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
@@ -757,7 +858,7 @@ __global__ void __launch_bounds__(kFma) dq_split_fma(StreamArgs a) {
 #pragma unroll
   for (int jj = 0; jj < kDimMax / 4; ++jj) acc[jj] = 0.f;
 
-  for (int j = t0; j < t1; ++j) {
+  for (int j = nb.lo; j < nb.hi; ++j) {
     const int k0 = j * kTile;
     __syncthreads();
     load_f32(Ks, kb + (long long)k0 * a.ks.s, a.ks.s, sk - k0, d);
@@ -778,7 +879,8 @@ __global__ void __launch_bounds__(kFma) dq_split_fma(StreamArgs a) {
 #pragma unroll
     for (int jj = 0; jj < kTile / 4; ++jj) {
       const int c = c4 + 4 * jj, kpos = k0 + c;
-      const bool valid = visible(qrow, kpos, sk, a.causal, a.window) && live;
+      const bool valid = visible(qrow, kpos, sk, a.causal, a.window) &&
+                         sg.sees(0, kpos) && live;
       const float p = valid ? expf(s[jj] * a.scale - l) : 0.f;
       Ds[r * kPl + c] = p * (dpv[jj] - dl);
     }
@@ -820,9 +922,12 @@ __global__ void __launch_bounds__(kFma) dkv_split_fma(StreamArgs a) {
                 split, a.split_tiles, t0, t1))
     return;
   const int bi = bh / a.h, hi = bh - bi * a.h;
+  const Band nb = seg_band(a.seg, Band{t0, t1}, bi, kt);
+  if (nb.lo >= nb.hi) return;  // no query of this split shares an id
   const int k0 = kt * kTile;
   const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3;
   const int key = k0 + r;
+  const SegRows sg = seg_rows(a.seg, true, bi, key, sq, sk);
   const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.h;
   const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.h;
   const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
@@ -836,7 +941,7 @@ __global__ void __launch_bounds__(kFma) dkv_split_fma(StreamArgs a) {
 #pragma unroll
   for (int jj = 0; jj < kDimMax / 4; ++jj) dk[jj] = dv[jj] = 0.f;
 
-  for (int qi = t0; qi < t1; ++qi) {
+  for (int qi = nb.lo; qi < nb.hi; ++qi) {
     const int q0 = qi * kTile;
     __syncthreads();
     load_f32(Qs, qb + (long long)q0 * a.qs.s, a.qs.s, sq - q0, d);
@@ -865,7 +970,7 @@ __global__ void __launch_bounds__(kFma) dkv_split_fma(StreamArgs a) {
       const float l = lse_s[c];
       const bool valid = qrow < sq &&
                          visible(qrow, key, sk, a.causal, a.window) &&
-                         live_row(l);
+                         sg.sees(0, qrow) && live_row(l);
       const float p = valid ? expf(s[jj] * a.scale - l) : 0.f;
       Ps[r * kPl + c] = p;
       Ds[r * kPl + c] = p * (dpv[jj] - delta_s[c]);
@@ -937,16 +1042,26 @@ int launch_split(Pass pass, const StreamArgs& a, int nsplit,
 // The bf16 forward over grid (b*h, outer tiles, max(nsplit, 1)) with the
 // kernel of the padded head_dim and the key tile, then the merge of the
 // bands of several splits, if any.
-template <int DP, int BN>
-int launch_fwd_wgmma(const FwdMaps& maps, const FwdArgs& a, int nsplit,
-                     cudaStream_t stream) {
+template <int DP, int BN, bool kGen>
+int launch_fwd_wgmma_k(const FwdMaps& maps, const FwdArgs& a,
+                       const SegArgs& seg, int nsplit, cudaStream_t stream) {
   constexpr size_t smem = FwdLayout<DP, BN>::kBytes;
-  const int err = set_max_smem<fwd_wgmma<DP, BN>>(smem);
+  const int err = set_max_smem<fwd_wgmma<DP, BN, kGen>>(smem);
   if (err) return err;
   const dim3 grid(a.bh, (a.sq + kFwdOuter - 1) / kFwdOuter,
                   nsplit > 1 ? nsplit : 1);
-  fwd_wgmma<DP, BN><<<grid, kBwdThreads, smem, stream>>>(maps, a);
+  fwd_wgmma<DP, BN, kGen><<<grid, kBwdThreads, smem, stream>>>(maps, a, seg);
   return (int)cudaGetLastError();
+}
+
+// The instance with the segment ids where they are given
+template <int DP, int BN>
+int launch_fwd_wgmma(const FwdMaps& maps, const FwdArgs& a,
+                     const SegArgs& seg, int nsplit, cudaStream_t stream) {
+  return seg.q != nullptr
+             ? launch_fwd_wgmma_k<DP, BN, true>(maps, a, seg, nsplit, stream)
+             : launch_fwd_wgmma_k<DP, BN, false>(maps, a, seg, nsplit,
+                                                 stream);
 }
 
 int launch_fwd_bf16(const StreamArgs& s, int b, int inner_tile, int nsplit,
@@ -975,12 +1090,13 @@ int launch_fwd_bf16(const StreamArgs& s, int b, int inner_tile, int nsplit,
   a.window = s.window;
   a.split_tiles = s.split_tiles;
   if (s.d <= 64)
-    err = inner_tile == 64 ? launch_fwd_wgmma<64, 64>(maps, a, nsplit, stream)
-                           : launch_fwd_wgmma<64, 128>(maps, a, nsplit, stream);
+    err = inner_tile == 64
+              ? launch_fwd_wgmma<64, 64>(maps, a, s.seg, nsplit, stream)
+              : launch_fwd_wgmma<64, 128>(maps, a, s.seg, nsplit, stream);
   else
     err = inner_tile == 64
-              ? launch_fwd_wgmma<128, 64>(maps, a, nsplit, stream)
-              : launch_fwd_wgmma<128, 128>(maps, a, nsplit, stream);
+              ? launch_fwd_wgmma<128, 64>(maps, a, s.seg, nsplit, stream)
+              : launch_fwd_wgmma<128, 128>(maps, a, s.seg, nsplit, stream);
   if (err || nsplit <= 1) return err;
   const long long rows = (long long)s.bh * s.sq;
   const dim3 grid((unsigned)((rows + kMergeRows - 1) / kMergeRows));
@@ -991,23 +1107,36 @@ int launch_fwd_bf16(const StreamArgs& s, int b, int inner_tile, int nsplit,
 
 // bf16 dQ or dK/dV over grid (b*h, outer tiles, nsplit): the four tensor
 // maps, then the kernel of the padded head_dim.
-template <int DP>
-int launch_bwd_dp(Pass pass, const BwdMaps& maps, const BwdArgs& a, int bh,
-                  int nsplit, cudaStream_t stream) {
+template <int DP, bool kGen>
+int launch_bwd_dp_k(Pass pass, const BwdMaps& maps, const BwdArgs& a,
+                    const SegArgs& seg, int bh, int nsplit,
+                    cudaStream_t stream) {
   constexpr size_t smem = BwdLayout<DP>::kBytes;
   const int outer = pass == kDkv ? a.sk : a.sq;
   const dim3 grid(bh, (outer + kOuter - 1) / kOuter, nsplit);
   int err;
   if (pass == kDq) {
-    err = set_max_smem<dq_wgmma<DP>>(smem);
+    err = set_max_smem<dq_wgmma<DP, kGen>>(smem);
     if (err) return err;
-    dq_wgmma<DP><<<grid, kBwdThreads, smem, stream>>>(maps, a);
+    dq_wgmma<DP, kGen><<<grid, kBwdThreads, smem, stream>>>(maps, a, seg);
   } else {
-    err = set_max_smem<dkv_wgmma<DP>>(smem);
+    err = set_max_smem<dkv_wgmma<DP, kGen>>(smem);
     if (err) return err;
-    dkv_wgmma<DP><<<grid, kBwdThreads, smem, stream>>>(maps, a);
+    dkv_wgmma<DP, kGen><<<grid, kBwdThreads, smem, stream>>>(maps, a, seg);
   }
   return (int)cudaGetLastError();
+}
+
+// The instance with the segment ids where they are given
+template <int DP>
+int launch_bwd_dp(Pass pass, const BwdMaps& maps, const BwdArgs& a,
+                  const SegArgs& seg, int bh, int nsplit,
+                  cudaStream_t stream) {
+  return seg.q != nullptr
+             ? launch_bwd_dp_k<DP, true>(pass, maps, a, seg, bh, nsplit,
+                                         stream)
+             : launch_bwd_dp_k<DP, false>(pass, maps, a, seg, bh, nsplit,
+                                          stream);
 }
 
 int launch_bwd(Pass pass, const StreamArgs& s, int b, int nsplit,
@@ -1037,8 +1166,9 @@ int launch_bwd(Pass pass, const StreamArgs& s, int b, int nsplit,
   a.causal = s.causal;
   a.window = s.window;
   a.split_tiles = s.split_tiles;
-  return s.d <= 64 ? launch_bwd_dp<64>(pass, maps, a, s.bh, nsplit, stream)
-                   : launch_bwd_dp<128>(pass, maps, a, s.bh, nsplit, stream);
+  return s.d <= 64
+             ? launch_bwd_dp<64>(pass, maps, a, s.seg, s.bh, nsplit, stream)
+             : launch_bwd_dp<128>(pass, maps, a, s.seg, s.bh, nsplit, stream);
 }
 
 // The backward's tiles as the wrapper sees them (outer rows kept, inner rows
@@ -1096,14 +1226,21 @@ using namespace apex_torch;
 // aligned bases and strides, d % 8 == 0): kFwdOuter / 64 or 128; a band of
 // one split is written by the split pass, and the merge runs, over the
 // other rows, only where nsplit > 1 -- acc, m and l may be null otherwise.
+// qseg / kseg: int32 (b, sq) / (b, sk) segment ids or null; bounds and
+// ranges (both null: mask only), omm, imm: their (b, 2, n) metadata at
+// outer_tile / inner_tile, the ranges over the outer side's rows (SegArgs;
+// for dK/dV below the outer side is the keys).
 extern "C" int apex_flash_fwd_stream(
     const void* q, const void* k, const void* v, void* acc, void* m, void* l,
     void* o, void* lse, int b, int h, int sq, int sk, int d, long long qsb,
     long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, float scale, int causal,
     int window, int outer_tile, int inner_tile, int split_tiles, int nsplit,
-    int dtype, void* stream) {
-  if (!args_ok(b, h, sq, sk, d, split_tiles, nsplit))
+    int dtype, const void* qseg, const void* kseg, const void* bounds,
+    const void* omm, const void* imm, const void* ranges, int pad_id,
+    int has_pad, void* stream) {
+  if (!args_ok(b, h, sq, sk, d, split_tiles, nsplit) ||
+      !seg_ok(qseg, kseg, bounds, omm, imm, ranges))
     return (int)cudaErrorInvalidValue;
   const bool bf16_ok = dtype == kBF16 && outer_tile == kFwdOuter &&
                        (inner_tile == 64 || inner_tile == 128) &&
@@ -1119,6 +1256,8 @@ extern "C" int apex_flash_fwd_stream(
   a.acc = static_cast<float*>(acc);
   a.m = static_cast<float*>(m);
   a.l = static_cast<float*>(l);
+  a.seg = make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
+                   sq, sk, outer_tile, inner_tile);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kBF16)
     return launch_fwd_bf16(a, b, inner_tile, nsplit, o, lse, s);
@@ -1145,12 +1284,17 @@ extern "C" int apex_flash_bwd_dq_stream(
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss, float scale, int causal,
     int window, int outer_tile, int inner_tile, int split_tiles, int nsplit,
-    int dtype, void* stream) {
+    int dtype, const void* qseg, const void* kseg, const void* bounds,
+    const void* omm, const void* imm, const void* ranges, int pad_id,
+    int has_pad, void* stream) {
   if (!args_ok(b, h, sq, sk, d, split_tiles, nsplit) ||
-      !bwd_tiles_ok(dtype, outer_tile, inner_tile))
+      !bwd_tiles_ok(dtype, outer_tile, inner_tile) ||
+      !seg_ok(qseg, kseg, bounds, omm, imm, ranges))
     return (int)cudaErrorInvalidValue;
   StreamArgs a = make_args(q, k, v, b, h, sq, sk, d, scale, causal, window,
                            split_tiles);
+  a.seg = make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
+                   sq, sk, outer_tile, inner_tile);
   a.dout = dout;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
@@ -1171,12 +1315,17 @@ extern "C" int apex_flash_bwd_dkv_stream(
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss, float scale,
     int causal, int window, int outer_tile, int inner_tile, int split_tiles,
-    int nsplit, int dtype, void* stream) {
+    int nsplit, int dtype, const void* qseg, const void* kseg,
+    const void* bounds, const void* omm, const void* imm, const void* ranges,
+    int pad_id, int has_pad, void* stream) {
   if (!args_ok(b, h, sq, sk, d, split_tiles, nsplit) ||
-      !bwd_tiles_ok(dtype, outer_tile, inner_tile))
+      !bwd_tiles_ok(dtype, outer_tile, inner_tile) ||
+      !seg_ok(qseg, kseg, bounds, omm, imm, ranges))
     return (int)cudaErrorInvalidValue;
   StreamArgs a = make_args(q, k, v, b, h, sq, sk, d, scale, causal, window,
                            split_tiles);
+  a.seg = make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
+                   sk, sq, outer_tile, inner_tile);
   a.dout = dout;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);

@@ -73,6 +73,169 @@ __device__ __forceinline__ bool visible(int row, int col, int sk, int causal,
          (window <= 0 || (row - col < window && (causal || col - row < window)));
 }
 
+// The segment ids of a launch (packed varlen attention: the reference's
+// segment_ids, pad_id and contiguous_segments, _seg_mask_if_needed and
+// _seg_metadata). q / k: the per-token int32 ids, contiguous (b, sq) /
+// (b, sk); a query sees a key only where their ids are equal and the id is
+// not `pad` (has_pad). q == nullptr: no segment mask. The metadata the
+// wrapper computes at this launch's own tiles, (b, 2, n) int32 each:
+// `bounds` the [lo, hi) of the inner tiles that outer tile t can share an
+// id with (nullptr: mask only, the whole static band is visited), `omm` /
+// `imm` each outer / inner tile's (min, max) id. With contiguous ids,
+// `ranges` (b, 2, own rows): the [lo, hi) of the other side's rows that
+// share each own row's id (empty for the pad id); the equality test is
+// then two compares, as the causal one is. Without them (ids in any
+// order, mask only) an edge block loads the other side's ids. All read
+// from global memory (a few ints an item, L2-resident), never by the
+// host: a launch stays capturable in a CUDA graph.
+struct SegArgs {
+  const int* q;
+  const int* k;
+  const int* bounds;
+  const int* omm;
+  const int* imm;
+  const int* ranges;
+  int n_outer, n_inner;  // tiles of the outer and the inner side
+  int pad, has_pad;
+};
+
+// A band [lo, hi) narrowed to outer tile t's segment bounds (batch row bi),
+// never with hi below lo
+__device__ __forceinline__ Band seg_band(const SegArgs& g, Band r, int bi,
+                                         int t) {
+  if (g.bounds != nullptr) {
+    const int* b = g.bounds + (size_t)bi * 2 * g.n_outer;
+    r.lo = max(r.lo, __ldg(b + t));
+    r.hi = min(r.hi, __ldg(b + g.n_outer + t));
+  }
+  r.hi = max(r.lo, r.hi);
+  return r;
+}
+
+// The segment arguments of an entry point: none at all (q null), or the
+// ids of both sides with their (min, max) tables, and the bounds and the
+// ranges together or neither
+inline bool seg_ok(const void* q, const void* k, const void* bounds,
+                   const void* omm, const void* imm, const void* ranges) {
+  if (q == nullptr)
+    return k == nullptr && bounds == nullptr && omm == nullptr &&
+           imm == nullptr && ranges == nullptr;
+  return k != nullptr && omm != nullptr && imm != nullptr &&
+         (bounds == nullptr) == (ranges == nullptr);
+}
+
+// SegArgs of a launch whose outer side has outer_len rows in tiles of
+// outer_tile, its inner side inner_len in tiles of inner_tile
+inline SegArgs make_seg(const void* q, const void* k, const void* bounds,
+                        const void* omm, const void* imm, const void* ranges,
+                        int pad, int has_pad, int outer_len, int inner_len,
+                        int outer_tile, int inner_tile) {
+  return SegArgs{static_cast<const int*>(q), static_cast<const int*>(k),
+                 static_cast<const int*>(bounds),
+                 static_cast<const int*>(omm), static_cast<const int*>(imm),
+                 static_cast<const int*>(ranges),
+                 (outer_len + outer_tile - 1) / outer_tile,
+                 (inner_len + inner_tile - 1) / inner_tile, pad, has_pad};
+}
+
+// Whether outer tile t and inner tile i (batch row bi) hold one id between
+// them, not the pad: every pair of the block shares its segment, so the
+// block needs no segment test (the reference's uniform_ok). True without
+// segment ids.
+__device__ __forceinline__ bool seg_uniform(const SegArgs& g, int bi, int t,
+                                            int i) {
+  if (g.q == nullptr) return true;
+  const int* o = g.omm + (size_t)bi * 2 * g.n_outer;
+  const int* n = g.imm + (size_t)bi * 2 * g.n_inner;
+  const int id = __ldg(o + t);
+  return id == __ldg(o + g.n_outer + t) && id == __ldg(n + i) &&
+         id == __ldg(n + g.n_inner + i) && !(g.has_pad && id == g.pad);
+}
+
+// The segment test of a thread's scores: its two own rows (queries; keys
+// in the dK/dV pass), row and row + 8, see the other side's rows [lo, hi)
+// -- their id's range with contiguous ids, everything without segment ids
+// -- and, where the ids are in any order (`ranged` false), only those of
+// their own id, loaded from `other`. An own row past its sequence or with
+// the pad id sees nothing. The wgmma kernels apply it to an edge block's
+// scores as a step of its own (seg_mask), only in the instances that take
+// the general masks (kGen), so that the code without them is what it was.
+struct SegRows {
+  const int* other;  // the batch row's ids of the other side, or nullptr
+  int lo[2], hi[2];
+  int id[2];
+  // own row hf may see row pos of the other side
+  __device__ __forceinline__ bool sees(int hf, int pos) const {
+    const bool in = pos >= lo[hf] && pos < hi[hf];
+    return other == nullptr ? in : in && __ldg(other + pos) == id[hf];
+  }
+};
+
+// The SegRows of own rows row and row + 8 of batch row bi (queries, or in
+// the dK/dV pass keys, where dkv)
+__device__ __forceinline__ SegRows seg_rows(const SegArgs& g, bool dkv,
+                                            int bi, int row, int sq,
+                                            int sk) {
+  const int own_n = dkv ? sk : sq, n = dkv ? sq : sk;
+  SegRows s{nullptr, {0, 0}, {n, n}, {0, 0}};
+  if (g.q == nullptr) return s;
+  const int* own = (dkv ? g.k : g.q) + (size_t)bi * own_n;
+  const int* rng =
+      g.ranges != nullptr ? g.ranges + (size_t)bi * 2 * own_n : nullptr;
+  if (rng == nullptr) s.other = (dkv ? g.q : g.k) + (size_t)bi * n;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row + 8 * hf;
+    if (r >= own_n) {
+      s.hi[hf] = 0;
+    } else if (rng != nullptr) {
+      s.lo[hf] = __ldg(rng + r);
+      s.hi[hf] = __ldg(rng + own_n + r);
+    } else {
+      s.id[hf] = __ldg(own + r);
+      if (g.has_pad && s.id[hf] == g.pad) s.hi[hf] = 0;
+    }
+  }
+  return s;
+}
+
+// Whether every row of the calling warp sees the other side's rows
+// [p0, p0 + n): with contiguous ids (ranges) from the rows' ranges, every
+// warp on its own and with no load; with ids in any order from the tiles'
+// (min, max) ids (seg_uniform, outer tile t and inner tile i). Called by
+// whole warps.
+__device__ __forceinline__ bool seg_interior(const SegArgs& g,
+                                             const SegRows& sg, int bi,
+                                             int t, int i, int p0, int n) {
+  if (g.ranges != nullptr)
+    return __all_sync(0xffffffffu, sg.lo[0] <= p0 && sg.hi[0] >= p0 + n &&
+                                       sg.lo[1] <= p0 && sg.hi[1] >= p0 + n);
+  return seg_uniform(g, bi, t, i);
+}
+
+// -inf on the scores of a 64 x N block (element i: own row (i/2)%2, other
+// row col + 8 (i/4) + i%2, the layout of every block here) that the rows
+// may not see: the segment step of an edge block, before its causal and
+// window test; exp2 then makes their P exactly 0.
+template <int N>
+__device__ __forceinline__ void seg_mask(float (&st)[N / 2],
+                                         const SegRows& sg, int col) {
+  const float ninf = __int_as_float(0xff800000);
+  if (sg.other == nullptr) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int hf = (i >> 1) & 1, pos = col + 8 * (i >> 2) + (i & 1);
+      if (pos < sg.lo[hf] || pos >= sg.hi[hf]) st[i] = ninf;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int hf = (i >> 1) & 1;
+      if (!sg.sees(hf, col + 8 * (i >> 2) + (i & 1))) st[i] = ninf;
+    }
+  }
+}
+
 // The additive fp32 bias of the resident kernels, (b|1, h|1, sq, sk) read
 // in place through element strides (0 on a broadcast dim: BERT's padding
 // bias is (b, 1, 1, sk) with the query stride 0); p == nullptr: none.
@@ -399,7 +562,7 @@ __device__ __forceinline__ void scores(float (&s)[RB / 2], uint32_t a_tile,
 // q + 8 (i/4) + i%2; lse and delta of the tile's N queries in `stats`
 // (lse, then delta). kMask: the block is an edge block (the diagonal, a
 // window edge, the ragged end), so each pair is tested; interior blocks
-// skip the test.
+// skip the test. A segment edge is masked before (seg_mask).
 template <bool kMask, int N = 64>
 __device__ __forceinline__ void dkv_probs(float (&st)[N / 2],
                                           float (&dp)[N / 2],

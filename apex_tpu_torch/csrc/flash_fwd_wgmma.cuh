@@ -83,15 +83,18 @@ __device__ __forceinline__ void online_softmax(float (&st)[BN / 2],
 // registers as A fragments and V read through the descriptor as an
 // MN-major B -- no V^T copy, no P in shared memory. Each product group is
 // waited for in straight-line code. row / col: the thread's first query and
-// key (online_softmax); edge: whether the block needs the test. kBias: the
+// key (online_softmax); edge: whether the block needs the test (in the
+// general-mask kernels, kGen, with the rows' segment step, seg_mask of
+// sg, first). kBias: the
 // additive bias (the resident forward's), read through `bias` (the rows of
 // row and row + 8, add_bias) and added in base 2 before the row max, as
 // _fwd_kernel adds it after the scale (s = (q scale) k^T + bias).
-template <int DP, int BM, int BN, bool kBias = false>
+template <int DP, int BM, int BN, bool kBias = false, bool kGen = false>
 __device__ __forceinline__ void fwd_tile(
     float (&o)[DP / 2], float (&m2)[2], float (&l)[2], uint32_t qs,
     int q_row, uint32_t ks, uint32_t vs, float c, int row, int col, int sk,
-    int causal, int window, bool edge, const BiasLines& bias = {}) {
+    int causal, int window, bool edge, const BiasLines& bias = {},
+    const SegRows* sg = nullptr) {
   float st[BN / 2];
   hopper::wgmma_fence();
   scores<DP, BM, BN>(st, qs, q_row, ks);
@@ -103,6 +106,9 @@ __device__ __forceinline__ void fwd_tile(
     c = 1.f;  // st is in base 2 now
   }
   float alpha[2];
+  if constexpr (kGen) {
+    if (edge) seg_mask<BN>(st, *sg, col);
+  }
   if (edge)
     online_softmax<true, BN>(st, m2, l, alpha, c, row, col, sk, causal,
                              window);

@@ -31,24 +31,33 @@ forward is always followed by the streamed backward.
   (:func:`_fwd_merges`); the backward with CTAs of :data:`BWD_OUTER_TILE`
   rows streaming at most :data:`BWD_SPLIT_TILES` tiles of
   :data:`BWD_INNER_TILE` rows. In fp32, FMA kernels in splits of at most
-  :data:`STREAM_SPLIT_TILES` tiles of :data:`STREAM_TILE` rows. The window
-  lives only here.
+  :data:`STREAM_SPLIT_TILES` tiles of :data:`STREAM_TILE` rows.
+
+Every kernel takes the sliding ``window`` and the packed-varlen masks of
+the reference (``segment_ids``, ``pad_id``, ``contiguous_segments``:
+``_seg_mask_if_needed`` and ``_seg_metadata``, ``flash_attention.py:
+214-249``, ``:756-799``): a query sees a key only where their ids are
+equal and the key's id is not ``pad_id``, a row that sees no key outputs
+exactly 0, and with ``contiguous_segments`` each outer tile's band of inner
+tiles is narrowed to the ``[lo, hi)`` its ids can meet
+(:func:`_seg_metadata`, computed by plain reductions at the tiles each
+kernel walks and read on the card), so packed sequences cost
+``sum(len_i^2)`` score blocks. The streamed kernels keep their static
+splits and narrow each one.
 
 ``stream='auto'`` streams when ``max(sq, sk) >= STREAM_MIN_SEQ`` or a window
 is set; a dense bias never streams. Both devices route alike; the card takes
-any sq/sk, head_dim <= 128, bf16 or fp32. The ``segment_ids``/``pad_id``
-masks on the card, and the window on the resident kernels, are later work
-and raise there (ROADMAP Queue 2 items 4 and 5).
+any sq/sk, head_dim <= 128, bf16 or fp32.
 
 On CPU tensors the same Function runs the plain versions: for the resident
-kernels :func:`mha_reference` with its lse (with a bias,
-:func:`flash_attention_fwd_reference`) and
+kernels :func:`mha_reference` with its lse (with a bias, a window or
+segment ids, :func:`flash_attention_fwd_reference`) and
 :func:`flash_attention_bwd_reference`; for the streamed ones the per-split
 partials and the lse merge (:func:`flash_attention_fwd_stream_reference`),
-the split-wise dQ sums and the q-split dK/dV sums. With a mask the card does
-not take, the CPU runs :func:`mha_reference`, the plain version ported whole
-from ``flash_attention.py:1518-1556`` with every mask and the exact-zero
-rule for fully-masked rows, under its own autograd.
+the split-wise dQ sums and the q-split dK/dV sums, each split narrowed by the
+same segment bounds the kernels read. :func:`mha_reference` is the plain
+version ported whole from ``flash_attention.py:1518-1556`` with every mask
+and the exact-zero rule for fully-masked rows.
 
 The TPU layout rules (VMEM budgets, the 8-alignment fallbacks) are not
 behaviour and are not carried over.
@@ -57,7 +66,8 @@ behaviour and are not carried over.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Tuple
+import warnings
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -171,6 +181,184 @@ def mha_reference(q, k, v, bias=None, *, causal: bool = False,
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 
+class _Segments(NamedTuple):
+    """Segment ids as the kernels and the plain versions take them: int32
+    ``(b, sq)`` / ``(b, sk)`` on q's device, ``pad_id``, whether the ids
+    are non-decreasing (``contiguous_segments``: the bounds apply), and the
+    metadata tables computed so far, by tiles (:func:`_seg_tables`), so
+    that a forward and its backward compute each once."""
+    q: torch.Tensor
+    k: torch.Tensor
+    pad_id: Optional[int]
+    contiguous: bool
+    tables: dict
+
+
+def _as_seg(segment_ids, pad_id, contiguous_segments, q, k
+            ) -> Optional[_Segments]:
+    """The checked :class:`_Segments` of a call, or None without ids: the
+    shapes ``(b, sq)`` / ``(b, sk)`` as the reference checks them
+    (``flash_attention.py:1628-1631``), the ids as int32 on q's device. A
+    :class:`_Segments` passed as ``segment_ids`` (with its tables) is taken
+    as it is."""
+    if segment_ids is None:
+        return None
+    if isinstance(segment_ids, _Segments):
+        return segment_ids
+    q_seg, kv_seg = segment_ids
+    b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
+    if tuple(q_seg.shape) != (b, sq) or tuple(kv_seg.shape) != (b, sk):
+        raise ValueError(
+            f"segment_ids shapes {tuple(q_seg.shape)}/{tuple(kv_seg.shape)} "
+            f"do not match (batch, seq) = ({b}, {sq})/({b}, {sk})")
+    ids = [t.to(device=q.device, dtype=torch.int32).contiguous()
+           for t in (q_seg, kv_seg)]
+    return _Segments(*ids, None if pad_id is None else int(pad_id),
+                     bool(contiguous_segments), {})
+
+
+def _tile_min_max(ids: torch.Tensor, blk: int):
+    """Each ``blk``-row tile's (min, max) id of ``ids`` (b, s); a ragged end
+    is filled for the reductions with one more than the largest id, which
+    keeps non-decreasing ids so and matches no real id."""
+    b, s = ids.shape
+    n = _cdiv(s, blk)
+    if n * blk != s:
+        fill = (ids.amax() + 1).expand(b, n * blk - s)
+        ids = torch.cat([ids, fill], dim=1)
+    return torch.aminmax(ids.reshape(b, n, blk), dim=-1)
+
+
+def _seg_metadata(q_seg: torch.Tensor, kv_seg: torch.Tensor, blk_q: int,
+                  blk_k: int, pad_id: Optional[int] = None):
+    """Per-tile metadata of non-decreasing segment ids (the reference's
+    ``_seg_metadata``, ``flash_attention.py:756-799``, as plain
+    reductions): ``(bounds_q, bounds_k, qmm, kmm)``, int32 ``(b, 2, n)``
+    each. ``bounds_q[b, :, i]`` is the ``[lo, hi)`` of the ``blk_k``-row key
+    tiles that query tile ``i`` (``blk_q`` rows) can share an id with,
+    ``bounds_k`` the same over query tiles for each key tile; ``qmm`` /
+    ``kmm`` each tile's (min, max) id. With ``pad_id``, all-padding tiles
+    get empty ranges and no range reaches into the padding suffix. Ragged
+    ends take any length (:func:`_tile_min_max`)."""
+    qmin, qmax = _tile_min_max(q_seg, blk_q)
+    kmin, kmax = _tile_min_max(kv_seg, blk_k)
+    nq, nk = qmin.shape[1], kmin.shape[1]
+    start_q = (kmax[:, None, :] < qmin[:, :, None]).sum(-1)
+    end_q = nk - (kmin[:, None, :] > qmax[:, :, None]).sum(-1)
+    start_k = (qmax[:, None, :] < kmin[:, :, None]).sum(-1)
+    end_k = nq - (qmin[:, None, :] > kmax[:, :, None]).sum(-1)
+    if pad_id is not None:
+        pad_q, pad_k = qmin == pad_id, kmin == pad_id
+        real_q = nq - pad_q.sum(-1, keepdim=True)
+        real_k = nk - pad_k.sum(-1, keepdim=True)
+        end_q = torch.minimum(end_q, real_k).masked_fill(pad_q, 0)
+        start_q = start_q.masked_fill(pad_q, 0)
+        end_k = torch.minimum(end_k, real_q).masked_fill(pad_k, 0)
+        start_k = start_k.masked_fill(pad_k, 0)
+
+    def pair(lo, hi):
+        return torch.stack([lo, hi], dim=1).to(torch.int32).contiguous()
+
+    return (pair(start_q, end_q), pair(start_k, end_k), pair(qmin, qmax),
+            pair(kmin, kmax))
+
+
+def _seg_tables(seg: _Segments, outer: int, inner: int, inner_is_k: bool):
+    """(bounds, outer (min, max), inner (min, max)) of a kernel whose outer
+    tiles of ``outer`` rows (queries where ``inner_is_k``, else keys) walk
+    inner tiles of ``inner`` rows: :func:`_seg_metadata` at those tiles,
+    computed once per :class:`_Segments` and tiles."""
+    key = (outer, inner, inner_is_k)
+    if key not in seg.tables:
+        blk_q, blk_k = (outer, inner) if inner_is_k else (inner, outer)
+        bq, bk, qmm, kmm = _seg_metadata(seg.q, seg.k, blk_q, blk_k,
+                                         seg.pad_id)
+        seg.tables[key] = (bq, qmm, kmm) if inner_is_k else (bk, kmm, qmm)
+    return seg.tables[key]
+
+
+def _seg_ranges(seg: _Segments, own_is_q: bool) -> torch.Tensor:
+    """``(b, 2, n)`` int32 for contiguous ids: for each row of one side
+    (queries where ``own_is_q``, else keys) the ``[lo, hi)`` of the other
+    side's rows that share its id, empty for the pad id -- the equality
+    mask as two compares in the kernels (``SegRows``). Computed once per
+    :class:`_Segments` and side."""
+    key = ("ranges", own_is_q)
+    if key not in seg.tables:
+        own, other = (seg.q, seg.k) if own_is_q else (seg.k, seg.q)
+        lo = torch.searchsorted(other, own)
+        hi = torch.searchsorted(other, own, right=True)
+        if seg.pad_id is not None:
+            hi = torch.where(own == seg.pad_id, lo, hi)
+        seg.tables[key] = torch.stack([lo, hi], dim=1).to(
+            torch.int32).contiguous()
+    return seg.tables[key]
+
+
+def _seg_args(seg: Optional[_Segments], outer: int, inner: int,
+              inner_is_k: bool):
+    """The segment arguments of a launch (``SegArgs`` in
+    ``csrc/flash_bwd_wgmma.cuh``): the id pointers, the bounds (null where
+    the ids are not contiguous: mask only), the outer and inner (min, max)
+    tables at the kernel's tiles, the outer rows' ranges (null with the
+    bounds), pad_id and has_pad; and the tensors that must live until the
+    launch."""
+    if seg is None:
+        return (None,) * 6 + (0, 0), ()
+    bounds, omm, imm = _seg_tables(seg, outer, inner, inner_is_k)
+    ranges = _seg_ranges(seg, inner_is_k) if seg.contiguous else None
+    keep = (seg.q, seg.k, bounds if seg.contiguous else None, omm, imm,
+            ranges)
+    ptrs = tuple(None if t is None else t.data_ptr() for t in keep)
+    pad = seg.pad_id
+    return ptrs + (0 if pad is None else pad, int(pad is not None)), keep
+
+
+def _seg_valid(seg: _Segments, q0: int, k0: int, nq: int, nk: int,
+               rows=slice(None)) -> torch.Tensor:
+    """``(b, 1, nq, nk)`` bool: the pairs of queries ``[q0, q0 + nq)`` and
+    keys ``[k0, k0 + nk)`` (batch rows ``rows``) that share a non-pad id."""
+    qi = seg.q[rows, q0:q0 + nq]
+    ki = seg.k[rows, k0:k0 + nk]
+    valid = qi[:, :, None] == ki[:, None, :]
+    if seg.pad_id is not None:
+        valid = valid & (ki != seg.pad_id)[:, None, :]
+    return valid[:, None]
+
+
+def _reach(seg: _Segments, sq: int, sk: int, outer: int, inner: int,
+           inner_is_k: bool) -> torch.Tensor:
+    """``(b, 1, sq, sk)`` bool: the pairs whose (outer tile, inner tile) lies
+    in the contiguous-segment bounds of a resident kernel with those tiles,
+    so that the dense plain versions skip what the kernels skip."""
+    bounds, _, _ = _seg_tables(seg, outer, inner, inner_is_k)
+    n_out, n_in = (sq, sk) if inner_is_k else (sk, sq)
+    dev = seg.q.device
+    t = torch.arange(n_out, device=dev) // outer
+    i = torch.arange(n_in, device=dev) // inner
+    lo = bounds[:, 0].long()[:, t, None]
+    hi = bounds[:, 1].long()[:, t, None]
+    r = (lo <= i) & (i < hi)
+    return (r if inner_is_k else r.transpose(1, 2))[:, None]
+
+
+def _res_seg_valid(seg: _Segments, sq: int, sk: int, fwd: bool):
+    """The pairs the resident plain versions keep: equal non-pad ids and,
+    with contiguous ids, the bounds at the kernels' tiles (the forward's
+    RES_FWD_OUTER_TILE / RES_FWD_INNER_TILE; both backward passes'
+    otherwise)."""
+    valid = _seg_valid(seg, 0, 0, sq, sk)
+    if seg.contiguous:
+        if fwd:
+            valid = valid & _reach(seg, sq, sk, RES_FWD_OUTER_TILE,
+                                   RES_FWD_INNER_TILE, True)
+        else:
+            valid = valid & _reach(seg, sq, sk, BWD_OUTER_TILE,
+                                   RES_BWD_DQ_INNER_TILE, True) & _reach(
+                seg, sq, sk, BWD_OUTER_TILE, BWD_INNER_TILE, False)
+    return valid
+
+
 def _fwd_args(q, k, v, name):
     """Check q/k/v for a forward kernel; returns them with a contiguous
     head_dim and ``(b, h, sq, sk, d)``."""
@@ -243,7 +431,10 @@ def _bias_args(bias: Optional[torch.Tensor], q: torch.Tensor, sq: int,
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = False,
                         scale: Optional[float] = None,
-                        bias: Optional[torch.Tensor] = None
+                        bias: Optional[torch.Tensor] = None,
+                        window: Optional[int] = None,
+                        segment_ids=None, pad_id: Optional[int] = None,
+                        contiguous_segments: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA tensors: ``(o, lse)``, o
     ``(b, h, sq, d)`` in q's dtype and lse ``(b, h, sq)`` fp32. bf16 takes
@@ -251,8 +442,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     RES_FWD_* tiles and schedule), which writes each row once (two calls
     give the same bits); fp32 the FMA kernel (STREAM_TILE both ways). A
     ``bias`` (fp32 ``(b|1, h|1, sq, sk)``, :func:`_bias_args`) joins the
-    scores after the scale. Counts its launches in
+    scores after the scale; the ``window`` and the segment masks as
+    :func:`flash_attention` takes them, the bounds at the kernel's tiles
+    (:func:`_seg_args`). Counts its launches in
     ``flash_attention_fwd.launches``."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     q, k, v, (b, h, sq, sk, d) = _fwd_args(q, k, v, "flash_attention_fwd")
     bargs = _bias_args(bias, q, sq, sk)
     scale = (d ** -0.5) if scale is None else float(scale)
@@ -263,6 +457,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  int(RES_FWD_PERSISTENT))
     else:
         tiles = (STREAM_TILE, STREAM_TILE, 0)
+    sargs, _keep = _seg_args(seg, tiles[0], tiles[1], True)
     o = torch.empty((b, h, sq, dk_), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     if o.numel() == 0:
@@ -274,8 +469,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, h, sq, sk, dk_, q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), *bargs,
-        scale, int(causal), *tiles, build.DTYPES[q.dtype],
-        build.current_stream(q.get_device()))
+        scale, int(causal), _window_arg(window), *tiles,
+        build.DTYPES[q.dtype], *sargs, build.current_stream(q.get_device()))
     build.check(err, "apex_flash_fwd")
     flash_attention_fwd.launches += 1
     return (o if dk_ == d else o[..., :d].contiguous()), lse
@@ -284,9 +479,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
-def _mask_scores(s, causal, window=None, q0=0, k0=0):
-    """The causal and window masks on scores whose first row and column sit
-    at positions ``q0`` and ``k0``."""
+def _mask_scores(s, causal, window=None, q0=0, k0=0, seg=None,
+                 rows=slice(None)):
+    """The segment, causal and window masks on scores whose first row and
+    column sit at positions ``q0`` and ``k0`` (batch rows ``rows`` of
+    ``seg``)."""
+    if seg is not None:
+        s = torch.where(_seg_valid(seg, q0, k0, s.shape[-2], s.shape[-1],
+                                   rows), s, NEG_INF)
     if causal or window is not None:
         sq, sk = s.shape[-2], s.shape[-1]
         s = _dense_pos_masks(
@@ -304,17 +504,27 @@ def _lse_reference(q, k, causal, scale, window=None):
 
 
 def flash_attention_fwd_reference(q, k, v, *, causal: bool, scale: float,
-                                  bias: Optional[torch.Tensor] = None
+                                  bias: Optional[torch.Tensor] = None,
+                                  window: Optional[int] = None,
+                                  segment_ids=None,
+                                  pad_id: Optional[int] = None,
+                                  contiguous_segments: bool = False
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain resident forward with the kernel's arithmetic, in fp32:
-    ``S = scale * Q K^T + bias``, the causal mask, then ``(o, lse)`` with o
-    in q's dtype. A row whose every score is at most NEG_INF / 2 (an all
-    -inf bias row) gives o = 0 exactly and lse = NEG_INF, as ``_fwd_kernel``
-    gives for its ``l == 0`` rows (``flash_attention.py:313``)."""
+    ``S = scale * Q K^T + bias``, the segment, causal and window masks
+    (with contiguous ids also the kernel's bounds, :func:`_res_seg_valid`),
+    then ``(o, lse)`` with o in q's dtype. A row whose every score is at
+    most NEG_INF / 2 (an all -inf bias row, a row that sees no key) gives
+    o = 0 exactly and lse = NEG_INF, as ``_fwd_kernel`` gives for its
+    ``l == 0`` rows (``flash_attention.py:313``)."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias.float()
-    s = _mask_scores(s, causal)
+    if seg is not None:
+        s = torch.where(_res_seg_valid(seg, q.shape[2], k.shape[2], True), s,
+                        NEG_INF)
+    s = _mask_scores(s, causal, window)
     m = s.amax(-1, keepdim=True)
     dead = m <= NEG_INF / 2
     p = torch.where(dead, 0.0, torch.exp(s - m))
@@ -332,10 +542,10 @@ def _sum_to_bias(ds: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return ds.sum(dims, keepdim=True) if dims else ds
 
 
-def _probs(s, lse, causal, window, q0=0, k0=0):
+def _probs(s, lse, causal, window, q0=0, k0=0, seg=None, rows=slice(None)):
     """``P = exp(S - lse)`` as the backward kernels recompute it: 0 where
     masked and on rows whose ``lse <= NEG_INF / 2`` (no visible key)."""
-    s = _mask_scores(s, causal, window, q0, k0)
+    s = _mask_scores(s, causal, window, q0, k0, seg, rows)
     lse = lse[..., None]
     return torch.where(lse <= NEG_INF / 2, 0.0, torch.exp(s - lse))
 
@@ -343,19 +553,27 @@ def _probs(s, lse, causal, window, q0=0, k0=0):
 def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool,
                                   scale: float,
                                   window: Optional[int] = None,
-                                  bias: Optional[torch.Tensor] = None):
+                                  bias: Optional[torch.Tensor] = None,
+                                  segment_ids=None,
+                                  pad_id: Optional[int] = None,
+                                  contiguous_segments: bool = False):
     """Plain backward, the arithmetic of the backward kernels:
     ``P = exp(S - lse)`` with ``S = scale * Q K^T [+ bias]`` (0 where the
-    causal or window mask hides the key, or where ``lse <= NEG_INF / 2``),
+    segment, causal or window mask hides the key, outside the kernels'
+    contiguous-segment bounds, or where ``lse <= NEG_INF / 2``),
     ``dS = P * (dO V^T - delta)`` with ``delta = rowsum(dO * O)``; returns
     ``(dq, dk, dv)`` in q/k/v's dtypes, computed in fp32, and with a
     ``bias`` also dbias = dS summed over its broadcast b/h dims, fp32
     (:func:`_sum_to_bias`)."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     delta = (o.float() * do32).sum(-1, keepdim=True)
     s = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * scale
     if bias is not None:
         s = s + bias.float()
+    if seg is not None:
+        s = torch.where(_res_seg_valid(seg, q.shape[2], k.shape[2], False),
+                        s, NEG_INF)
     p = _probs(s, lse.float(), causal, window)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
     dp = torch.einsum("bhqd,bhkd->bhqk", do32, v32)
@@ -429,7 +647,10 @@ def _res_bwd_launch(q, k, v, do, lse, delta, name, inner_is_k, bias=False):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
                            scale: float,
                            bias: Optional[torch.Tensor] = None,
-                           dbias: bool = False):
+                           dbias: bool = False,
+                           window: Optional[int] = None, segment_ids=None,
+                           pad_id: Optional[int] = None,
+                           contiguous_segments: bool = False):
     """Launch the dQ kernel on CUDA tensors: dQ ``(b, h, sq, d)`` in q's
     dtype from the forward's fp32 lse and ``delta = rowsum(dO * O)`` (both
     ``(b, h, sq)``), written once by the kernel (no workspace, no atomics:
@@ -438,21 +659,27 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
     kernel also writes dS, fp32, and the call returns ``(dq, dbias)``,
     dbias in the bias's ``(b|1, h|1, sq, sk)``: written directly where the
     bias is ``(b, h, ...)``, else as per-(b, h) partials that the same
-    launch call's ``dbias_finish`` sums in a fixed order. Counts its
-    launches in ``flash_attention_bwd_dq.launches``."""
+    launch call's ``dbias_finish`` sums in a fixed order. The ``window``
+    and the segment masks as :func:`flash_attention_fwd` takes them. Counts
+    its launches in ``flash_attention_bwd_dq.launches``."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _res_bwd_launch(
         q, k, v, do, lse, delta, "flash_attention_bwd_dq", True,
         bias is not None)
     bargs = _bias_args(bias, q, sq, sk)
+    sargs, _keep = _seg_args(seg, tiles[0], tiles[1], True)
     if dbias and bias is None:
         raise ValueError("dbias needs the bias")
     ws = out = None
     bb, bh = (b, h) if bias is None else bias.shape[:2]
     if dbias:
-        # tiles past the causal diagonal are never visited: their dS is 0
-        alloc = torch.zeros if causal else torch.empty
+        # tiles outside a band (past the causal diagonal, the window or the
+        # segment bounds) are never visited: their dS is 0
+        skips = causal or window is not None or (seg is not None
+                                                  and seg.contiguous)
+        alloc = torch.zeros if skips else torch.empty
         ws = alloc((b, h, sq, sk), device=q.device, dtype=torch.float32)
         out = ws if (bb, bh) == (b, h) else torch.empty(
             (bb, bh, sq, sk), device=q.device, dtype=torch.float32)
@@ -464,8 +691,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bargs[0],
         None if ws is None else ws.data_ptr(),
         None if out is None else out.data_ptr(), b, h, sq, sk, dk_,
-        *strides, *bargs[1:], bb, bh, float(scale), int(causal), *tiles,
-        build.DTYPES[q.dtype], build.current_stream(q.get_device()))
+        *strides, *bargs[1:], bb, bh, float(scale), int(causal),
+        _window_arg(window), *tiles, build.DTYPES[q.dtype], *sargs,
+        build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     dq = dq if dk_ == d else dq[..., :d].contiguous()
@@ -477,17 +705,23 @@ flash_attention_bwd_dq.launches = 0
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
                             scale: float,
-                            bias: Optional[torch.Tensor] = None
+                            bias: Optional[torch.Tensor] = None,
+                            window: Optional[int] = None, segment_ids=None,
+                            pad_id: Optional[int] = None,
+                            contiguous_segments: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel on CUDA tensors: ``(dk, dv)``, each
     ``(b, h, sk, d)`` in k's dtype, written once by the kernel (a key no
-    query sees gets 0); a ``bias`` joins S as in the forward. Counts its
-    launches in ``flash_attention_bwd_dkv.launches``."""
+    query sees gets 0); a ``bias``, the ``window`` and the segment masks
+    as in the forward. Counts its launches in
+    ``flash_attention_bwd_dkv.launches``."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _res_bwd_launch(
         q, k, v, do, lse, delta, "flash_attention_bwd_dkv", False)
     bargs = _bias_args(bias, q, sq, sk)
+    sargs, _keep = _seg_args(seg, tiles[0], tiles[1], False)
     dk = torch.empty((b, h, sk, dk_), device=q.device, dtype=k.dtype)
     dv = torch.empty_like(dk)
     if dk.numel() == 0 or sq == 0:
@@ -496,8 +730,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         bargs[0], b, h, sq, sk, dk_, *strides, *bargs[1:], float(scale),
-        int(causal), *tiles, build.DTYPES[q.dtype],
-        build.current_stream(q.get_device()))
+        int(causal), _window_arg(window), *tiles, build.DTYPES[q.dtype],
+        *sargs, build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     if dk_ != d:
@@ -616,38 +850,42 @@ def _bwd_bands(sq, sk, causal, window, inner_is_k):
 
 def _res_bwd_bands(sq: int, sk: int, causal: bool, inner_is_k: bool,
                    outer: Optional[int] = None,
-                   inner: Optional[int] = None) -> Tuple[Tuple[int, int],
-                                                         ...]:
+                   inner: Optional[int] = None,
+                   window: Optional[int] = None) -> Tuple[Tuple[int, int],
+                                                          ...]:
     """The resident kernels' bands, one piece each: per outer tile of
     ``outer`` rows (BWD_OUTER_TILE; queries when ``inner_is_k``, the dQ
     pass, else keys) the ``[lo, hi)`` of the ``inner``-row inner tiles (the
     pass's at d <= 64, :func:`_res_bwd_inner`) its CTA streams -- the
-    causal limit for dQ, the causal start for dK/dV (``k_tiles`` /
-    ``q_tiles`` in ``csrc/flash_bwd_wgmma.cuh`` with no window)."""
+    causal limit and the window for dQ, the causal start and the window
+    for dK/dV (``k_tiles`` / ``q_tiles`` in ``csrc/flash_bwd_wgmma.cuh``),
+    before the segment bounds narrow them."""
     o = BWD_OUTER_TILE if outer is None else outer
     i = _res_bwd_inner(inner_is_k, 64) if inner is None else inner
     if inner_is_k:
         nk = _cdiv(sk, i)
-        return tuple(_window_k_range(t, nk, causal, None, o, i)
+        return tuple(_window_k_range(t, nk, causal, window, o, i)
                      for t in range(_cdiv(sq, o)))
     nq = _cdiv(sq, i)
-    return tuple(_window_q_range(t, nq, causal, None, i, o)
+    return tuple(_window_q_range(t, nq, causal, window, i, o)
                  for t in range(_cdiv(sk, o)))
 
 
 def _res_fwd_bands(sq: int, sk: int, causal: bool,
                    outer: Optional[int] = None,
-                   inner: Optional[int] = None) -> Tuple[Tuple[int, int],
-                                                         ...]:
+                   inner: Optional[int] = None,
+                   window: Optional[int] = None) -> Tuple[Tuple[int, int],
+                                                          ...]:
     """The resident forward's bands, one piece each: per query tile of
     ``outer`` rows (RES_FWD_OUTER_TILE) the ``[lo, hi)`` of the
     ``inner``-row key tiles (RES_FWD_INNER_TILE; the tiles of a launch:
-    :func:`_res_fwd_tiles`) its CTA streams -- the causal limit, no window
-    (``k_tiles`` in ``csrc/flash_bwd_wgmma.cuh``)."""
+    :func:`_res_fwd_tiles`) its CTA streams -- the causal limit and the
+    window (``k_tiles`` in ``csrc/flash_bwd_wgmma.cuh``), before the
+    segment bounds narrow them."""
     o = RES_FWD_OUTER_TILE if outer is None else outer
     i = RES_FWD_INNER_TILE if inner is None else inner
     nk = _cdiv(sk, i)
-    return tuple(_window_k_range(t, nk, causal, None, o, i)
+    return tuple(_window_k_range(t, nk, causal, window, o, i)
                  for t in range(_cdiv(sq, o)))
 
 
@@ -698,20 +936,53 @@ def _tma_operands(ts):
             for t in ts], dp
 
 
+def _stream_rows(seg: Optional[_Segments], b: int) -> List[slice]:
+    """The batch rows a streamed plain version walks at once: each row on
+    its own where contiguous segment bounds narrow the splits (the bounds
+    differ from row to row), else all rows together."""
+    if seg is not None and seg.contiguous:
+        return [slice(i, i + 1) for i in range(b)]
+    return [slice(None)]
+
+
+def _stream_bounds(seg: Optional[_Segments], outer: int, inner: int,
+                   inner_is_k: bool):
+    """The contiguous-segment bounds a streamed kernel with these tiles
+    reads, as nested lists ``[b][2][n_outer]``, or None (mask only)."""
+    if seg is None or not seg.contiguous:
+        return None
+    return _seg_tables(seg, outer, inner, inner_is_k)[0].tolist()
+
+
+def _narrow(bounds, rows: slice, t: int, a: int, e: int) -> Tuple[int, int]:
+    """Split ``[a, e)`` of outer tile ``t`` narrowed by the bounds of batch
+    row ``rows`` (as each split CTA narrows its own)."""
+    if bounds is None:
+        return a, e
+    lo, hi = bounds[rows.start][0][t], bounds[rows.start][1][t]
+    return max(a, lo), min(e, hi)
+
+
 def flash_attention_fwd_stream_reference(q, k, v, *, causal: bool,
                                          scale: Optional[float] = None,
-                                         window: Optional[int] = None
+                                         window: Optional[int] = None,
+                                         segment_ids=None,
+                                         pad_id: Optional[int] = None,
+                                         contiguous_segments: bool = False
                                          ) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
     """Plain streamed forward, the kernel's arithmetic in fp32: per query
     tile (FWD_OUTER_TILE rows), each split of its band (FWD_INNER_TILE-row
-    key tiles, :func:`_fwd_bands`) gives a partial (unnormalised acc, row
-    max m, row sum l), and the lse merge combines them: ``m* = max m_i``,
+    key tiles, :func:`_fwd_bands`), narrowed by the contiguous-segment
+    bounds as the kernel narrows it, gives a partial (unnormalised acc, row
+    max m, row sum l; a split left empty gives acc 0, m NEG_INF, l 0), and
+    the lse merge combines them: ``m* = max m_i``,
     ``l* = sum l_i e^(m_i - m*)``, ``o = sum acc_i e^(m_i - m*) / l*``,
     ``lse = m* + log l*`` (a band of one split is that split's own
     normalisation). A row with no visible key gives o = 0 exactly and lse =
     NEG_INF. Returns ``(o, lse)`` as the kernels do; the fp32 kernel's
     64-row tiles (STREAM_*) sum the same terms in another order."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = (d ** -0.5) if scale is None else float(scale)
@@ -720,42 +991,56 @@ def flash_attention_fwd_stream_reference(q, k, v, *, causal: bool,
     o = torch.zeros(b, h, sq, d, device=q.device)
     lse = torch.full((b, h, sq), NEG_INF, device=q.device)
     bands, _ = _fwd_bands(sq, sk, causal, window)
-    for qt, splits in enumerate(bands):
-        if not splits:
-            continue
-        r0, r1 = qt * to, min(sq, (qt + 1) * to)
-        parts = []
-        for a, e in splits:
-            c0, c1 = a * ti, min(sk, e * ti)
-            s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, r0:r1],
-                             k32[:, :, c0:c1]) * scale
-            s = _mask_scores(s, causal, window, r0, c0)
-            m = s.amax(-1)
-            p = torch.where((m <= NEG_INF / 2)[..., None], 0.0,
-                            torch.exp(s - m[..., None]))
-            parts.append((torch.einsum("bhqk,bhkd->bhqd", p,
-                                       v32[:, :, c0:c1]), m, p.sum(-1)))
-        m_star = torch.stack([m for _, m, _ in parts]).amax(0)
-        acc = torch.zeros_like(o[:, :, r0:r1])
-        l_star = torch.zeros_like(m_star)
-        for acc_i, m_i, l_i in parts:
-            w = torch.exp(m_i - m_star)
-            acc += acc_i * w[..., None]
-            l_star += l_i * w
-        l_safe = torch.where(l_star == 0.0, 1.0, l_star)
-        o[:, :, r0:r1] = acc / l_safe[..., None]
-        lse[:, :, r0:r1] = m_star + torch.log(l_safe)
+    bounds = _stream_bounds(seg, to, ti, True)
+    for rows in _stream_rows(seg, b):
+        for qt, splits in enumerate(bands):
+            if not splits:
+                continue
+            r0, r1 = qt * to, min(sq, (qt + 1) * to)
+            parts = []
+            for a, e in splits:
+                a, e = _narrow(bounds, rows, qt, a, e)
+                if a >= e:
+                    m = torch.full_like(lse[rows, :, r0:r1], NEG_INF)
+                    parts.append((torch.zeros_like(o[rows, :, r0:r1]), m,
+                                  torch.zeros_like(m)))
+                    continue
+                c0, c1 = a * ti, min(sk, e * ti)
+                s = torch.einsum("bhqd,bhkd->bhqk", q32[rows, :, r0:r1],
+                                 k32[rows, :, c0:c1]) * scale
+                s = _mask_scores(s, causal, window, r0, c0, seg, rows)
+                m = s.amax(-1)
+                p = torch.where((m <= NEG_INF / 2)[..., None], 0.0,
+                                torch.exp(s - m[..., None]))
+                parts.append((torch.einsum("bhqk,bhkd->bhqd", p,
+                                           v32[rows, :, c0:c1]), m,
+                              p.sum(-1)))
+            m_star = torch.stack([m for _, m, _ in parts]).amax(0)
+            acc = torch.zeros_like(o[rows, :, r0:r1])
+            l_star = torch.zeros_like(m_star)
+            for acc_i, m_i, l_i in parts:
+                w = torch.exp(m_i - m_star)
+                acc += acc_i * w[..., None]
+                l_star += l_i * w
+            l_safe = torch.where(l_star == 0.0, 1.0, l_star)
+            o[rows, :, r0:r1] = acc / l_safe[..., None]
+            lse[rows, :, r0:r1] = m_star + torch.log(l_safe)
     return o.to(q.dtype), lse
 
 
 def flash_attention_bwd_dq_stream_reference(q, k, v, do, lse, delta, *,
                                             causal: bool, scale: float,
-                                            window: Optional[int] = None
+                                            window: Optional[int] = None,
+                                            segment_ids=None,
+                                            pad_id: Optional[int] = None,
+                                            contiguous_segments: bool = False
                                             ) -> torch.Tensor:
     """Plain streamed dQ: per query tile of BWD_OUTER_TILE rows, each split
-    of its band (BWD_INNER_TILE-row key tiles) adds ``scale * dS K`` over
-    its keys into an fp32 sum (the kernel's atomics),
-    ``dS = P * (dO V^T - delta)``; dQ in q's dtype."""
+    of its band (BWD_INNER_TILE-row key tiles), narrowed by the segment
+    bounds (an empty one adds nothing), adds ``scale * dS K`` over its keys
+    into an fp32 sum (the kernel's atomics), ``dS = P * (dO V^T - delta)``;
+    dQ in q's dtype."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     to, ti = BWD_OUTER_TILE, BWD_INNER_TILE
@@ -763,30 +1048,40 @@ def flash_attention_bwd_dq_stream_reference(q, k, v, do, lse, delta, *,
     lse, delta = lse.float(), delta.float()
     dq = torch.zeros(b, h, sq, d, device=q.device)
     bands, _ = _bwd_bands(sq, sk, causal, window, True)
-    for qt, splits in enumerate(bands):
-        r0, r1 = qt * to, min(sq, (qt + 1) * to)
-        for a, e in splits:
-            c0, c1 = a * ti, min(sk, e * ti)
-            s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, r0:r1],
-                             k32[:, :, c0:c1]) * scale
-            p = _probs(s, lse[:, :, r0:r1], causal, window, r0, c0)
-            dp = torch.einsum("bhqd,bhkd->bhqk", do32[:, :, r0:r1],
-                              v32[:, :, c0:c1])
-            ds = p * (dp - delta[:, :, r0:r1, None])
-            dq[:, :, r0:r1] += scale * torch.einsum(
-                "bhqk,bhkd->bhqd", ds, k32[:, :, c0:c1])
+    bounds = _stream_bounds(seg, to, ti, True)
+    for rows in _stream_rows(seg, b):
+        for qt, splits in enumerate(bands):
+            r0, r1 = qt * to, min(sq, (qt + 1) * to)
+            for a, e in splits:
+                a, e = _narrow(bounds, rows, qt, a, e)
+                if a >= e:
+                    continue
+                c0, c1 = a * ti, min(sk, e * ti)
+                s = torch.einsum("bhqd,bhkd->bhqk", q32[rows, :, r0:r1],
+                                 k32[rows, :, c0:c1]) * scale
+                p = _probs(s, lse[rows, :, r0:r1], causal, window, r0, c0,
+                           seg, rows)
+                dp = torch.einsum("bhqd,bhkd->bhqk", do32[rows, :, r0:r1],
+                                  v32[rows, :, c0:c1])
+                ds = p * (dp - delta[rows, :, r0:r1, None])
+                dq[rows, :, r0:r1] += scale * torch.einsum(
+                    "bhqk,bhkd->bhqd", ds, k32[rows, :, c0:c1])
     return dq.to(q.dtype)
 
 
 def flash_attention_bwd_dkv_stream_reference(q, k, v, do, lse, delta, *,
                                              causal: bool, scale: float,
-                                             window: Optional[int] = None
+                                             window: Optional[int] = None,
+                                             segment_ids=None,
+                                             pad_id: Optional[int] = None,
+                                             contiguous_segments: bool = False
                                              ) -> Tuple[torch.Tensor,
                                                         torch.Tensor]:
     """Plain streamed dK/dV: per key tile of BWD_OUTER_TILE rows, each split
-    of the BWD_INNER_TILE-row query tiles that see it adds
-    ``scale * dS^T Q`` and ``P^T dO`` into fp32 sums; ``(dk, dv)`` in k's
-    dtype."""
+    of the BWD_INNER_TILE-row query tiles that see it, narrowed by the
+    segment bounds (an empty one adds nothing), adds ``scale * dS^T Q`` and
+    ``P^T dO`` into fp32 sums; ``(dk, dv)`` in k's dtype."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     to, ti = BWD_OUTER_TILE, BWD_INNER_TILE
@@ -795,20 +1090,26 @@ def flash_attention_bwd_dkv_stream_reference(q, k, v, do, lse, delta, *,
     dk = torch.zeros(b, h, sk, d, device=q.device)
     dv = torch.zeros_like(dk)
     bands, _ = _bwd_bands(sq, sk, causal, window, False)
-    for kt, splits in enumerate(bands):
-        c0, c1 = kt * to, min(sk, (kt + 1) * to)
-        for a, e in splits:
-            r0, r1 = a * ti, min(sq, e * ti)
-            s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, r0:r1],
-                             k32[:, :, c0:c1]) * scale
-            p = _probs(s, lse[:, :, r0:r1], causal, window, r0, c0)
-            dp = torch.einsum("bhqd,bhkd->bhqk", do32[:, :, r0:r1],
-                              v32[:, :, c0:c1])
-            ds = p * (dp - delta[:, :, r0:r1, None])
-            dv[:, :, c0:c1] += torch.einsum("bhqk,bhqd->bhkd", p,
-                                            do32[:, :, r0:r1])
-            dk[:, :, c0:c1] += scale * torch.einsum(
-                "bhqk,bhqd->bhkd", ds, q32[:, :, r0:r1])
+    bounds = _stream_bounds(seg, to, ti, False)
+    for rows in _stream_rows(seg, b):
+        for kt, splits in enumerate(bands):
+            c0, c1 = kt * to, min(sk, (kt + 1) * to)
+            for a, e in splits:
+                a, e = _narrow(bounds, rows, kt, a, e)
+                if a >= e:
+                    continue
+                r0, r1 = a * ti, min(sq, e * ti)
+                s = torch.einsum("bhqd,bhkd->bhqk", q32[rows, :, r0:r1],
+                                 k32[rows, :, c0:c1]) * scale
+                p = _probs(s, lse[rows, :, r0:r1], causal, window, r0, c0,
+                           seg, rows)
+                dp = torch.einsum("bhqd,bhkd->bhqk", do32[rows, :, r0:r1],
+                                  v32[rows, :, c0:c1])
+                ds = p * (dp - delta[rows, :, r0:r1, None])
+                dv[rows, :, c0:c1] += torch.einsum("bhqk,bhqd->bhkd", p,
+                                                   do32[rows, :, r0:r1])
+                dk[rows, :, c0:c1] += scale * torch.einsum(
+                    "bhqk,bhqd->bhkd", ds, q32[rows, :, r0:r1])
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -819,15 +1120,20 @@ def _window_arg(window: Optional[int]) -> int:
 def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = False,
                                scale: Optional[float] = None,
-                               window: Optional[int] = None
+                               window: Optional[int] = None,
+                               segment_ids=None,
+                               pad_id: Optional[int] = None,
+                               contiguous_segments: bool = False
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the streamed forward on CUDA tensors: ``(o, lse)`` as
-    :func:`flash_attention_fwd`, with the sliding ``window``. bf16 takes
-    the wgmma kernel (FWD_* tiles, operands TMA can read:
-    :func:`_tma_operands`), with the merge pass and its fp32 workspace only
-    where a band has several splits; fp32 the FMA kernel and the merge
-    (STREAM_* tiles). Counts its launches in
+    :func:`flash_attention_fwd`, with the sliding ``window`` and the
+    segment masks. bf16 takes the wgmma kernel (FWD_* tiles, operands TMA
+    can read: :func:`_tma_operands`), with the merge pass and its fp32
+    workspace only where a band has several splits; fp32 the FMA kernel and
+    the merge (STREAM_* tiles). The splits come from shapes alone; the
+    segment bounds narrow each on the card. Counts its launches in
     ``flash_attention_fwd_stream.launches``."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     q, k, v, (b, h, sq, sk, d) = _fwd_args(q, k, v,
                                            "flash_attention_fwd_stream")
     scale = (d ** -0.5) if scale is None else float(scale)
@@ -840,6 +1146,7 @@ def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
     else:
         _, nsplit = _stream_bands(sq, sk, causal, window, True)
         tiles = (STREAM_TILE, STREAM_TILE, STREAM_SPLIT_TILES, nsplit)
+    sargs, _keep = _seg_args(seg, tiles[0], tiles[1], True)
     o = torch.empty((b, h, sq, dk_), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     if o.numel() == 0:
@@ -859,7 +1166,7 @@ def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
         lse.data_ptr(), b, h, sq, sk, dk_, q.stride(0), q.stride(1),
         q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), scale, int(causal),
-        _window_arg(window), *tiles, build.DTYPES[q.dtype],
+        _window_arg(window), *tiles, build.DTYPES[q.dtype], *sargs,
         build.current_stream(q.get_device()))
     build.check(err, "apex_flash_fwd_stream")
     flash_attention_fwd_stream.launches += 1
@@ -876,8 +1183,9 @@ def _bwd_stream_launch(q, k, v, do, lse, delta, causal, window, name,
     """Check the operands of a streamed backward kernel and pick its route:
     bf16 takes the wgmma kernels (BWD_* tiles, operands TMA can read:
     :func:`_tma_operands`), fp32 the FMA kernels (STREAM_* tiles). Returns
-    the operands, lse/delta, the head_dim the kernel sees and the launch
-    arguments after ``d``, before ``scale``."""
+    the operands, lse/delta, the head_dim the kernel sees, the strides and
+    the launch arguments after ``window``, before the dtype: (outer tile,
+    inner tile, split tiles, splits)."""
     (q, k, v, do), (lse, delta), _, (b, h, sq, sk, d) = _bwd_args(
         q, k, v, do, lse, delta, name)
     if q.dtype == torch.bfloat16:
@@ -893,16 +1201,22 @@ def _bwd_stream_launch(q, k, v, do, lse, delta, causal, window, name,
 
 def flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, *, causal: bool,
                                   scale: float,
-                                  window: Optional[int] = None
+                                  window: Optional[int] = None,
+                                  segment_ids=None,
+                                  pad_id: Optional[int] = None,
+                                  contiguous_segments: bool = False
                                   ) -> torch.Tensor:
     """Launch the streamed dQ kernel on CUDA tensors: its CTAs add into a
-    zeroed fp32 accumulator, cast to q's dtype after. Counts its launches in
+    zeroed fp32 accumulator (a split the segment bounds leave empty adds
+    nothing), cast to q's dtype after. Counts its launches in
     ``flash_attention_bwd_dq_stream.launches``."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _bwd_stream_launch(
         q, k, v, do, lse, delta, causal, window,
         "flash_attention_bwd_dq_stream", True)
+    sargs, _keep = _seg_args(seg, tiles[0], tiles[1], True)
     dq = torch.zeros((b, h, sq, dk_), device=q.device, dtype=torch.float32)
     if dq.numel() == 0:
         return dq[..., :d].to(q.dtype)
@@ -910,7 +1224,7 @@ def flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, *, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, dk_,
         *strides, float(scale), int(causal), _window_arg(window), *tiles,
-        build.DTYPES[q.dtype], build.current_stream(q.get_device()))
+        build.DTYPES[q.dtype], *sargs, build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dq_stream")
     flash_attention_bwd_dq_stream.launches += 1
     return dq[..., :d].to(q.dtype)
@@ -921,16 +1235,22 @@ flash_attention_bwd_dq_stream.launches = 0
 
 def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
                                    scale: float,
-                                   window: Optional[int] = None
+                                   window: Optional[int] = None,
+                                   segment_ids=None,
+                                   pad_id: Optional[int] = None,
+                                   contiguous_segments: bool = False
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the streamed dK/dV kernel on CUDA tensors: its CTAs add into
-    zeroed fp32 accumulators, cast to k's dtype after. Counts its launches
-    in ``flash_attention_bwd_dkv_stream.launches``."""
+    zeroed fp32 accumulators (a split the segment bounds leave empty adds
+    nothing), cast to k's dtype after. Counts its launches in
+    ``flash_attention_bwd_dkv_stream.launches``."""
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _bwd_stream_launch(
         q, k, v, do, lse, delta, causal, window,
         "flash_attention_bwd_dkv_stream", False)
+    sargs, _keep = _seg_args(seg, tiles[0], tiles[1], False)
     dk = torch.zeros((b, h, sk, dk_), device=q.device, dtype=torch.float32)
     dv = torch.zeros_like(dk)
     if dk.numel() == 0 or sq == 0:
@@ -939,7 +1259,8 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
         sq, sk, dk_, *strides, float(scale), int(causal), _window_arg(window),
-        *tiles, build.DTYPES[q.dtype], build.current_stream(q.get_device()))
+        *tiles, build.DTYPES[q.dtype], *sargs,
+        build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dkv_stream")
     flash_attention_bwd_dkv_stream.launches += 1
     return dk[..., :d].to(k.dtype), dv[..., :d].to(v.dtype)
@@ -948,54 +1269,53 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
 flash_attention_bwd_dkv_stream.launches = 0
 
 
-def _forward(q, k, v, causal, scale, stream, window, bias=None):
+def _forward(q, k, v, causal, scale, stream, window, bias=None, seg=None):
     """``(o, lse)``: the kernel on a CUDA tensor, its plain version on a
     CPU one. A bias never streams (:func:`use_stream`)."""
+    kw = dict(causal=causal, scale=scale, window=window, segment_ids=seg)
     if stream:
         fn = (flash_attention_fwd_stream if q.device.type == "cuda"
               else flash_attention_fwd_stream_reference)
-        return fn(q, k, v, causal=causal, scale=scale, window=window)
+        return fn(q, k, v, **kw)
     if q.device.type == "cuda":
-        return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                   bias=bias)
-    if bias is not None:
-        return flash_attention_fwd_reference(q, k, v, causal=causal,
-                                             scale=scale, bias=bias)
-    return (mha_reference(q, k, v, causal=causal, scale=scale),
-            _lse_reference(q, k, causal, scale))
+        return flash_attention_fwd(q, k, v, bias=bias, **kw)
+    if bias is None and seg is None and window is None:
+        return (mha_reference(q, k, v, causal=causal, scale=scale),
+                _lse_reference(q, k, causal, scale))
+    return flash_attention_fwd_reference(q, k, v, bias=bias, **kw)
 
 
 class FlashAttention(torch.autograd.Function):
     """Causal or non-causal attention with an optional additive bias (fp32
-    ``(b|1, h|1, sq, sk)``, resident only) and no segment masks, resident
-    or streamed (with the window), with the two-pass flash backward
-    (``_flash_vjp_fwd`` / ``_flash_vjp_bwd``): a streamed forward is
-    followed by the streamed backward. dbias comes from the dQ pass, and
-    only where the bias requires grad. Kernels on CUDA tensors, plain
-    versions on CPU ones."""
+    ``(b|1, h|1, sq, sk)``, resident only), the sliding window and the
+    segment masks (``seg``: :class:`_Segments` or None), resident or
+    streamed, with the two-pass flash backward (``_flash_vjp_fwd`` /
+    ``_flash_vjp_bwd``): a streamed forward is followed by the streamed
+    backward. dbias comes from the dQ pass, and only where the bias requires
+    grad. Kernels on CUDA tensors, plain versions on CPU ones."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, scale, stream, window):
-        o, lse = _forward(q, k, v, causal, scale, stream, window, bias)
+    def forward(ctx, q, k, v, bias, causal, scale, stream, window, seg):
+        o, lse = _forward(q, k, v, causal, scale, stream, window, bias, seg)
         ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.causal, ctx.scale = causal, scale
-        ctx.stream, ctx.window = stream, window
+        ctx.stream, ctx.window, ctx.seg = stream, window, seg
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, o, lse = ctx.saved_tensors
         want_db = bias is not None and ctx.needs_input_grad[3]
-        kw = dict(causal=ctx.causal, scale=ctx.scale)
+        kw = dict(causal=ctx.causal, scale=ctx.scale, window=ctx.window,
+                  segment_ids=ctx.seg)
         cuda = q.device.type == "cuda"
-        none = (None,) * 4
+        none = (None,) * 5
         if not ctx.stream and not cuda:
             dq, dk, dv, *db = flash_attention_bwd_reference(
                 q, k, v, o, lse, do, bias=bias, **kw)
             return dq, dk, dv, (db[0] if want_db else None), *none
         delta = (o.float() * do.float()).sum(-1)
         if ctx.stream:
-            kw["window"] = ctx.window
             dq_fn, dkv_fn = ((flash_attention_bwd_dq_stream,
                               flash_attention_bwd_dkv_stream) if cuda else
                              (flash_attention_bwd_dq_stream_reference,
@@ -1003,11 +1323,11 @@ class FlashAttention(torch.autograd.Function):
             dq = dq_fn(q, k, v, do, lse, delta, **kw)
             dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
             return dq, dk, dv, None, *none
-        kw["bias"] = bias
-        got = flash_attention_bwd_dq(q, k, v, do, lse, delta, dbias=want_db,
-                                     **kw)
+        got = flash_attention_bwd_dq(q, k, v, do, lse, delta, bias=bias,
+                                     dbias=want_db, **kw)
         dq, db = got if want_db else (got, None)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias=bias,
+                                         **kw)
         return dq, dk, dv, db, *none
 
 
@@ -1033,17 +1353,40 @@ def use_stream(stream: str, sq: int, sk: int, window: Optional[int],
     return do
 
 
-def _card_refusal(segment_ids, stream: bool) -> str:
-    """What the card does not take yet, and the ROADMAP item that brings
-    it: segment ids on the resident kernels and the window there (Queue 2
-    item 4), segment ids on the streamed kernels (item 5)."""
-    if segment_ids is not None:
-        what, item = ("segment_ids on the streamed kernels", 5) if stream \
-            else ("segment_ids on the resident kernels", 4)
-    else:
-        what, item = "the window on the resident kernels (stream='never')", 4
-    return (f"flash_attention on CUDA does not take {what} yet: a later "
-            f"slice of the port (ROADMAP Queue 2 item {item})")
+#: whether the one-time hint to pass contiguous_segments=True has fired
+_WARNED_PACKED_OPT_IN = False
+
+
+def _check_monotone(seg: _Segments) -> None:
+    """The reference's check of packed ids (``flash_attention.py:
+    1632-1664``): with ``contiguous_segments`` ids that are not
+    non-decreasing raise ``ValueError`` (block skipping would drop valid
+    pairs); without it, non-decreasing ids give a one-time hint to opt in.
+    It costs a reduction and one host read per call (none once the hint has
+    fired on mask-only calls). While a CUDA graph is being captured the
+    check is skipped and the caller owns the guarantee, as the reference's
+    caller does under ``jit``."""
+    global _WARNED_PACKED_OPT_IN
+    if not seg.contiguous and _WARNED_PACKED_OPT_IN:
+        return
+    if seg.q.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    down = torch.stack([(seg.q.diff(dim=-1) < 0).any(),
+                        (seg.k.diff(dim=-1) < 0).any()]).tolist()
+    if seg.contiguous:
+        for name, bad in zip(("q", "kv"), down):
+            if bad:
+                raise ValueError(
+                    f"{name} segment ids are not non-decreasing; pass "
+                    "contiguous_segments=False for non-packed layouts "
+                    "(mask-only, no block skipping)")
+    elif not any(down):
+        _WARNED_PACKED_OPT_IN = True
+        warnings.warn(
+            "flash_attention: segment ids are non-decreasing (packed "
+            "layout) but contiguous_segments=False; pass "
+            "contiguous_segments=True to enable block skipping (cost "
+            "sum(len_i^2) instead of total^2)", stacklevel=3)
 
 
 def _canonical_bias(bias: torch.Tensor, b: int, h: int, sq: int,
@@ -1068,7 +1411,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, *,
                     segment_ids: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
-                    pad_id: Optional[int] = None, causal: bool = False,
+                    pad_id: Optional[int] = None,
+                    contiguous_segments: bool = False, causal: bool = False,
                     scale: Optional[float] = None,
                     window: Optional[int] = None,
                     stream: str = "auto") -> torch.Tensor:
@@ -1078,13 +1422,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (minus its TPU tiling knobs): ``causal`` is the top-left-aligned
     upper-triangular mask, ``window`` the sliding window, ``bias`` an
     additive bias broadcastable to ``(b, h, sq, sk)``, ``segment_ids`` the
-    packed-varlen equality mask, ``stream`` 'auto' | 'never' | 'always'
-    (:func:`use_stream`). Without segment ids both devices go through
-    :class:`FlashAttention` (kernels on the card, plain versions on the
-    CPU), streamed or resident, the bias (:func:`_canonical_bias`) on the
-    resident route; the window needs the streamed path. CUDA tensors with
-    what the kernels do not take yet raise ``NotImplementedError``; CPU
-    tensors take :func:`mha_reference` and its own autograd.
+    packed-varlen equality mask ``(b, sq)`` / ``(b, sk)`` with ``pad_id``
+    keys never attended, ``contiguous_segments`` the caller's statement that
+    the ids are non-decreasing, which turns on block skipping (checked:
+    :func:`_check_monotone`), ``stream`` 'auto' | 'never' | 'always'
+    (:func:`use_stream`). Both devices go through :class:`FlashAttention`
+    (kernels on the card, plain versions on the CPU), streamed or
+    resident, with every mask; the bias (:func:`_canonical_bias`) on the
+    resident route. Rows that see no key output exactly 0.
     """
     sq, sk = q.shape[2], k.shape[2]
     if window is not None:
@@ -1096,18 +1441,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on = check_device(q, "q")
     if bias is not None:
         bias = _canonical_bias(bias, q.shape[0], q.shape[1], sq, sk)
+    seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
+    if seg is not None:
+        _check_monotone(seg)
     do_stream = use_stream(stream, sq, sk, window, bias is not None)
-    if segment_ids is not None or (window is not None and not do_stream):
-        if on == "cpu":
-            return mha_reference(q, k, v, bias, causal=causal, scale=scale,
-                                 segment_ids=segment_ids, pad_id=pad_id,
-                                 window=window)
-        raise NotImplementedError(_card_refusal(segment_ids, do_stream))
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias)):
         return FlashAttention.apply(q, k, v, bias, causal, scale, do_stream,
-                                    window)
-    if on == "cpu" and not do_stream and bias is None:
+                                    window, seg)
+    if on == "cpu" and not do_stream and bias is None and seg is None \
+            and window is None:
         return mha_reference(q, k, v, causal=causal, scale=scale)
-    return _forward(q, k, v, causal, scale, do_stream, window, bias)[0]
+    return _forward(q, k, v, causal, scale, do_stream, window, bias, seg)[0]

@@ -4,9 +4,10 @@
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
     python3 chip_smoke.py --ln-times TREE   # LayerNorm times of TREE's port
     python3 chip_smoke.py --decode-times TREE   # decode times of TREE's port
-    python3 chip_smoke.py --flash-times TREE    # flash #1/#5/#6, no bias
+    python3 chip_smoke.py --flash-times TREE    # flash #1-#6, no masks
+    python3 chip_smoke.py --sass TREE   # SASS counts of the flash kernels
 
-Eight phases; any failure raises and exits non-zero:
+Nine phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
@@ -50,6 +51,14 @@ Eight phases; any failure raises and exits non-zero:
    row, halved tails of o and dbias caught, two calls bit-identical; the
    times with and without the bias beside the bounds, the plain versions
    and SDPA with the same float mask; the launch floor (an empty kernel).
+   The segment ids, ``pad_id`` and the contiguous-segment bounds on all
+   six flash kernels (:func:`check_flash_segments`), forward and backward,
+   bf16 and fp32, resident and streamed: packed ids with a padding tail,
+   causal and not, the bounds against mask-only, a causal row whose
+   same-id keys lie above the diagonal (exactly 0), the window with
+   segments and the window alone on the resident route, cut split lengths
+   (empty partials merged), d = 128, a halved tail caught, two calls
+   bit-identical, and the root bench.py selftest's streamed case.
 3. **Serving**: fp32 gates on a small model (the monolithic engine, then
    chunked prefill, the prefix cache, speculative decoding with a
    self-draft and a 1-layer draft, and all three: every token against the
@@ -122,6 +131,15 @@ Eight phases; any failure raises and exits non-zero:
    step's idle share; then the JSON line of
    ``apex_tpu_torch.benchmarks.optimizer_step`` (fused Adam and fused LAMB
    against eager Adam).
+9. **Packed varlen attention** (:func:`fmha_packed`): ``contrib.fmha``
+   forward and backward at BERT-large width (16 heads of 64, bf16,
+   non-causal) on (R) 16 sequences of seeded lengths in 32-384 (the
+   resident kernels) and (S) 32 in 64-512 (the streamed ones), each with
+   37 tokens past ``cu_seqlens[-1]``: the route, the launches, output and
+   grads against ``fmha_reference``, the exact zeros; then each kernel's
+   time with the bounds on and off, the metadata's, the bound (sum
+   len_i^2 pairs) and SDPA over the padded batch and with the
+   block-diagonal mask.
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -129,7 +147,8 @@ that the end of the output holds them all. After the verdict comes a
 ``{"kernels": [...]}`` JSON object (``launches_by_path``: each kernel's
 count on the three serving runs, the GPT training run, the ResNet
 training run, the two long-context runs and phase 7's run (``softmax``),
-each counted from 0, and phase 8's BERT run (``bert``); ``launches``:
+each counted from 0, phase 8's BERT run (``bert``) and phase 9's
+(``fmha``); ``segments``: phase 9's times on #1-#6; ``launches``:
 their sum; ``bias_route``: #1, #5 and #6 with and without the bias;
 ``launch_floor_ms`` on the decode and xentropy rows), the decode split-count
 tuning line, then the card's name and power limit as nvidia-smi prints
@@ -1318,6 +1337,264 @@ def check_flash_bias(torch, ops, dev):
     out = bias_times(torch, ops, tfa, dev, gen)
     out["max_abs_err"] = main_err
     return out
+
+
+#: fp32 limits of the segment checks (share of max |ref|, worst row): the
+#: fp32 kernels and their plain versions sum the same fp32 terms in
+#: another order
+SEG_F32_TOL = (2e-6, 1e-5)
+
+
+def packed_ids(torch, b, s, lengths, pad_id):
+    """(b, s) int32 non-decreasing segment ids on the CPU: segments 1, 2,
+    ... of ``lengths`` (cut at s), the rest pad_id; batch row i makes the
+    first segment 17 i longer so that the rows differ."""
+    ids = torch.full((b, s), pad_id, dtype=torch.int32)
+    for i in range(b):
+        at = 0
+        for n, ln in enumerate(lengths, start=1):
+            ln = ln + 17 * i if n == 1 else ln
+            ids[i, at:min(s, at + ln)] = n
+            at += ln
+            if at >= s:
+                break
+    return ids
+
+
+def check_flash_segments(torch, ops, dev):
+    """The segment ids, pad_id and contiguous-segment bounds on the six
+    flash kernels (#1 #5 #6 resident, #2 #3 #4 streamed), forward and
+    backward, bf16 and fp32, against the plain versions on the card:
+    packed ids with a padding tail, causal and not, the bounds on and off
+    (mask-only; the two must agree within the limits, and whether they are
+    bit-identical is printed), a causal row whose same-id keys all lie
+    above the diagonal (exactly 0, cross q/kv ids), the window with
+    segments on the streamed route, the window alone and with segments on
+    the resident route (stream='never'), cut split lengths so that a
+    narrowed split hands the merge an empty partial, d = 128, a halved
+    tail that the row check must catch, two calls bit-identical (the
+    resident kernels and the streamed forward), and the root bench.py
+    selftest's streamed case: (1,2,8192,64) bf16, causal, 8 equal
+    segments, contiguous, stream='always', through ``flash_attention`` and
+    its grads against autograd through ``mha_reference``. bf16 limits: 0.02
+    of max |ref| forward, 0.01 backward, ROW_TOL by row; fp32:
+    :data:`SEG_F32_TOL`; lse by LSE_TOL; rows that see no key exactly 0
+    with lse NEG_INF."""
+    import importlib
+
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(14)
+    routes = {False: (ops.flash_attention_fwd, ops.flash_attention_bwd_dq,
+                      ops.flash_attention_bwd_dkv),
+              True: (ops.flash_attention_fwd_stream,
+                     ops.flash_attention_bwd_dq_stream,
+                     ops.flash_attention_bwd_dkv_stream)}
+
+    def plain(stream, q, k, v, o, lse, do, delta, kw):
+        if stream:
+            ro, rlse = ops.flash_attention_fwd_stream_reference(q, k, v, **kw)
+            return (ro, rlse, ops.flash_attention_bwd_dq_stream_reference(
+                q, k, v, do, lse, delta, **kw),
+                *ops.flash_attention_bwd_dkv_stream_reference(
+                    q, k, v, do, lse, delta, **kw))
+        ro, rlse = ops.flash_attention_fwd_reference(q, k, v, **kw)
+        return (ro, rlse, *ops.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, **kw))
+
+    def kernels(stream, q, k, v, do, kw):
+        fwd, dq_fn, dkv_fn = routes[stream]
+        o, lse = fwd(q, k, v, **kw)
+        delta = (o.float() * do.float()).sum(-1)
+        dq = dq_fn(q, k, v, do, lse, delta, **kw)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
+        return o, lse, delta, dq, dk, dv
+
+    def run(label, b, h, sq, sk, d, dt, causal, stream, ids=None,
+            lengths=(60, 90, 45, 50), pad=9, window=None, contiguous=True,
+            plant=False, twice=False, both=True, zero_row=None):
+        q, k, v, do = (torch.randn(b, h, n, d, device=dev,
+                                   generator=gen).to(dt)
+                       for n in (sq, sk, sk, sq))
+        if ids is None:
+            ids = (packed_ids(torch, b, sq, lengths, pad),
+                   packed_ids(torch, b, sk, lengths, pad))
+        seg = tuple(t.to(dev) for t in ids)
+        kw = dict(causal=causal, scale=d ** -0.5, window=window,
+                  segment_ids=seg, pad_id=pad,
+                  contiguous_segments=contiguous)
+        bf = dt == bf16
+        route = ("streamed" if stream else "resident") + f" {str(dt)[6:]}"
+        grp = f"flash segments {route}"
+        name = f"flash segments {route} {label}"
+        o, lse, delta, dq, dk, dv = kernels(stream, q, k, v, do, kw)
+        ro, rlse, rdq, rdk, rdv = plain(stream, q, k, v, o, lse, do, delta,
+                                        kw)
+        torch.cuda.synchronize()
+        dead = rlse <= tfa.NEG_INF / 2
+        check(bool((lse[dead] == tfa.NEG_INF).all())
+              and bool((o[dead] == 0).all()),
+              f"{name}: rows that see no key are exactly 0, lse NEG_INF")
+        if zero_row is not None:
+            check(bool(dead[:, :, zero_row].all())
+                  and bool((dq[:, :, zero_row] == 0).all()),
+                  f"{name}: the row whose same-id keys lie above the "
+                  f"diagonal is exactly 0 with dQ 0")
+        lse, rlse = lse.masked_fill(dead, 0.0), rlse.masked_fill(dead, 0.0)
+        ftol, frow = (2e-2, ROW_TOL[True][0]) if bf else SEG_F32_TOL
+        btol, brow = (1e-2, ROW_TOL[True][1]) if bf else SEG_F32_TOL
+        parts = [held(f"{name} o", o, ro, ftol, frow, group=grp),
+                 held(f"{name} lse", lse[..., None], rlse[..., None],
+                      *LSE_TOL[:2], floor=LSE_TOL[2], group=grp)]
+        for gname, a, r in (("dq", dq, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+            check(a.dtype == dt and a.shape == r.shape,
+                  f"{name} {gname} dtype/shape")
+            parts.append(held(f"{name} {gname}", a, r, btol, brow,
+                              group=grp))
+        if plant:
+            bad = o.clone()
+            bad[:, :, sq // 2:] *= 0.5
+            planted = row_err(bad, ro)
+            parts.append(f"o with its last half of rows halved: row "
+                         f"{planted:.3g}")
+            verdict(f"{name} halved o tail caught by the row check",
+                    0 if planted > frow else 1, 0, group=grp)
+        if twice:
+            again = kernels(stream, q, k, v, do, kw)
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in zip(
+                (o, lse.masked_fill(dead, 0.0)),
+                (again[0], again[1].masked_fill(dead, 0.0)))]
+            same_bwd = all(torch.equal(x, y) for x, y in zip(
+                (dq, dk, dv), again[3:]))
+            parts.append(f"a second call bit-identical: forward "
+                         f"{all(same)}, backward {same_bwd}")
+            verdict(f"{name} deterministic", 0 if all(same) and (
+                stream or same_bwd) else 1, 0, group=grp)
+        if both and contiguous:
+            # the bounds against mask-only evaluation of the same ids
+            mkw = dict(kw, contiguous_segments=False)
+            m = kernels(stream, q, k, v, do, mkw)
+            torch.cuda.synchronize()
+            for gname, a, r, tol, rt in zip(
+                    ("o", "dq", "dk", "dv"), (m[0], *m[3:]),
+                    (o, dq, dk, dv), (ftol, btol, btol, btol),
+                    (frow, brow, brow, brow)):
+                held(f"{name} mask-only {gname} vs bounds", a, r, tol, rt,
+                     group=grp)
+            bits = [torch.equal(x, y) for x, y in zip(
+                (m[0], *m[3:]), (o, dq, dk, dv))]
+            parts.append("mask-only vs bounds bit-identical (o, dq, dk, dv): "
+                         + "/".join(str(x) for x in bits))
+        print(f"  {name}: " + ", ".join(parts))
+        return max_err(o, ro)
+
+    errs = {}
+    for stream in (False, True):
+        for dt in (bf16, f32):
+            r = run("(2,4,300,300,64) pad non-causal", 2, 4, 300, 300, 64,
+                    dt, False, stream, plant=dt == bf16, twice=True)
+            errs[(stream, dt)] = r
+            run("(2,4,300,300,64) pad causal", 2, 4, 300, 300, 64, dt, True,
+                stream, twice=dt == bf16)
+            # q position 0 in segment 2, every segment-2 key above it
+            qid = torch.ones(2, 128, dtype=torch.int32)
+            qid[:, 0] = 2
+            kid = torch.tensor([1] * 64 + [2] * 64,
+                               dtype=torch.int32).expand(2, 128).clone()
+            run("(2,2,128,128,64) row 0 sees only keys above the diagonal",
+                2, 2, 128, 128, 64, dt, True, stream, ids=(qid, kid),
+                contiguous=False, zero_row=0)
+        run("(1,4,777,520,128) d=128 pad causal", 1, 4, 777, 520, 128, bf16,
+            True, stream, lengths=(200, 150, 120))
+    for dt in (bf16, f32):
+        wide = dict(lengths=(200, 150, 220))
+        run("(2,4,700,700,64) window 100 pad causal", 2, 4, 700, 700, 64,
+            dt, True, True, window=100, **wide)
+        run("(1,4,700,700,64) window 90 pad non-causal", 1, 4, 700, 700,
+            64, dt, False, True, window=90, **wide)
+        run("(1,4,700,700,64) window 100 pad causal stream='never'", 1, 4,
+            700, 700, 64, dt, True, False, window=100, **wide)
+    # the resident window alone (no segment ids)
+    for dt in (bf16, f32):
+        q, k, v, do = (torch.randn(1, 4, 600, 64, device=dev,
+                                   generator=gen).to(dt) for _ in range(4))
+        kw = dict(causal=True, scale=0.125, window=128)
+        o, lse, delta, dq, dk, dv = kernels(False, q, k, v, do, kw)
+        ro, rlse, *rg = plain(False, q, k, v, o, lse, do, delta, kw)
+        grp = f"flash resident window {str(dt)[6:]}"
+        bf = dt == bf16
+        tol = (2e-2, ROW_TOL[True][0]) if bf else SEG_F32_TOL
+        parts = [held(f"{grp} o", o, ro, *tol, group=grp)]
+        for gname, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), rg):
+            parts.append(held(f"{grp} {gname}", a, r,
+                              *((1e-2, ROW_TOL[True][1]) if bf
+                                else SEG_F32_TOL), group=grp))
+        print(f"  {grp} (1,4,600,64) causal window 128: " + ", ".join(parts))
+    # cut split lengths: bands of several splits, narrowed ones empty
+    cut = ("FWD_SPLIT_TILES", "BWD_SPLIT_TILES", "STREAM_SPLIT_TILES")
+    chosen = [getattr(tfa, n) for n in cut]
+    try:
+        for n in cut:
+            setattr(tfa, n, 2)
+        for dt in (bf16, f32):
+            run("(2,4,1100,1100,64) splits of 2 tiles pad causal", 2, 4,
+                1100, 1100, 64, dt, True, True,
+                lengths=(300, 90, 260, 330))
+    finally:
+        for n, c in zip(cut, chosen):
+            setattr(tfa, n, c)
+    bench_segments_case(torch, ops, dev, gen)
+    return errs
+
+
+def bench_segments_case(torch, ops, dev, gen):
+    """The root bench.py selftest's streamed case (bench.py:1045-1058):
+    (1,2,8192,64) bf16, causal, 8 equal segments, contiguous, stream=
+    'always', through ``flash_attention`` (the streamed kernels, one launch
+    each) and its grads: o against ``mha_reference`` in fp32 on the same
+    rounded inputs and against the plain streamed forward, the grads
+    against the plain streamed backward from the kernel's o and lse."""
+    b, h, s, d = 1, 2, 8192, 64
+    seg = torch.arange(8, device=dev, dtype=torch.int32).repeat_interleave(
+        s // 8)[None]
+    q, k, v = (torch.randn(b, h, s, d, device=dev, generator=gen).to(
+        torch.bfloat16).requires_grad_() for _ in range(3))
+    g = torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
+    kw = dict(segment_ids=(seg, seg), causal=True, contiguous_segments=True)
+    before = ops.launch_counts()
+    o = ops.flash_attention(q, k, v, stream="always", **kw)
+    got = torch.autograd.grad(o, (q, k, v), g)
+    after = ops.launch_counts()
+    ran = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    check(ran == {"flash_attention_fwd_stream": 1,
+                  "flash_attention_bwd_dq_stream": 1,
+                  "flash_attention_bwd_dkv_stream": 1},
+          f"bench segments case: launches {ran}")
+    q, k, v, o = (t.detach() for t in (q, k, v, o))
+    kw["scale"] = d ** -0.5
+    # the kernel's lse (the forward gives the same bits again)
+    o2, lse = ops.flash_attention_fwd_stream(q, k, v, **kw)
+    delta = (o2.float() * g.float()).sum(-1)
+    ro, _ = ops.flash_attention_fwd_stream_reference(q, k, v, **kw)
+    dense = ops.mha_reference(q.float(), k.float(), v.float(),
+                              segment_ids=(seg, seg), causal=True)
+    want = (ops.flash_attention_bwd_dq_stream_reference(
+        q, k, v, g, lse, delta, **kw),
+        *ops.flash_attention_bwd_dkv_stream_reference(
+            q, k, v, g, lse, delta, **kw))
+    grp = "flash segments bench.py streamed case"
+    check(torch.equal(o, o2), f"{grp}: the forward's bits from call to call")
+    parts = [held(f"{grp} o", o, ro, 2e-2, ROW_TOL[True][0], group=grp),
+             held(f"{grp} o vs mha_reference", o, dense, 2e-2,
+                  ROW_TOL[True][0], group=grp)]
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        parts.append(held(f"{grp} {name}", a, r, 1e-2, ROW_TOL[True][1],
+                          group=grp))
+    print(f"  {grp} (1,2,8192,64) bf16 causal, 8 segments, contiguous, "
+          f"stream='always' (launches {ran}): " + ", ".join(parts))
+    del dense, want
 
 
 def bias_times(torch, ops, tfa, dev, gen):
@@ -4110,6 +4387,8 @@ def main():
     bias = check_flash_bias(torch, ops, dev)
     attach_bias_times(rows, bias)
     torch.cuda.empty_cache()
+    check_flash_segments(torch, ops, dev)
+    torch.cuda.empty_cache()
 
     print("phase 3: serving")
     greedy_gate(torch, dev)
@@ -4144,6 +4423,11 @@ def main():
     bert_gradient_gate(torch, ops, dev)
     bert_counts = train_bert_large(torch, ops, dev)
     optimizer_step_line(torch, dev)
+    torch.cuda.empty_cache()
+
+    print("phase 9: packed varlen attention (contrib.fmha) at BERT-large "
+          "width")
+    fmha_counts, fmha_rows = fmha_packed(torch, ops, dev)
     for row in rows:
         by_path = {"serve": serve_counts[row["name"]],
                    "serve_prefix_spec": spec_counts[row["name"]],
@@ -4153,7 +4437,10 @@ def main():
                    "train_long": long_counts[row["name"]],
                    "train_long_window": window_counts[row["name"]],
                    "softmax": softmax_counts[row["name"]],
-                   "bert": bert_counts[row["name"]]}
+                   "bert": bert_counts[row["name"]],
+                   "fmha": fmha_counts[row["name"]]}
+        if row["name"] in fmha_rows:
+            row["segments"] = fmha_rows[row["name"]]
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         verdict(f"{row['name']} launched on the main paths",
@@ -4163,7 +4450,7 @@ def main():
     keys = ("name", "route", "kernel", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "by_shape", "bias_route",
-            "launch_floor_ms", "res_fwd_tuning", "res_bwd_tuning",
+            "launch_floor_ms", "segments", "res_fwd_tuning", "res_bwd_tuning",
             "warp_tuning", "ln_tuning", "decode_tuning")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
@@ -4180,14 +4467,227 @@ def main():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 9: packed varlen attention (contrib.fmha) at BERT-large width
+# ---------------------------------------------------------------------------
+
+FMHA_KERNELS = {False: ("flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv"),
+                True: ("flash_attention_fwd_stream",
+                       "flash_attention_bwd_dq_stream",
+                       "flash_attention_bwd_dkv_stream")}
+
+
+def fmha_case(torch, ops, dev, label, lengths, tail=37, h=16, d=64):
+    """One packed batch through ``contrib.fmha`` (non-causal, bf16, 16 heads
+    of 64): the route 'auto' takes, the main path's launches (forward +
+    backward, counted from 0), output and grads against ``fmha_reference``
+    (per sequence, fp32, autograd), exact zeros past ``cu_seqlens[-1]``;
+    then each kernel's device time by CUDA-graph replay with the bounds on
+    and off, the metadata reductions alone, the bound (sum len_i^2 visible
+    pairs as operations, the operands as bytes) and two SDPA yardsticks.
+    Returns (launch counts, timing rows)."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib import (fmha, fmha_reference,
+                                        segment_ids_from_cu_seqlens)
+
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    bf16 = torch.bfloat16
+    n, total = len(lengths), sum(lengths)
+    t = total + tail
+    stream = t >= tfa.STREAM_MIN_SEQ
+    gen = torch.Generator(device=dev).manual_seed(9)
+    qkv = torch.randn(t, 3, h, d, device=dev, generator=gen).to(bf16)
+    qkv.requires_grad_()
+    g = torch.randn(t, h, d, device=dev, generator=gen).to(bf16)
+    cu = torch.tensor([0] + [sum(lengths[:i + 1]) for i in range(n)],
+                      dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    out = fmha(qkv, cu, 512)
+    out.backward(g)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expected = {name: int(name in FMHA_KERNELS[stream]) for name in counts}
+    check_counts(counts, expected, f"fmha {label}")
+    rq = qkv.detach().float().requires_grad_()
+    ref = fmha_reference(rq, cu)
+    (rgrad,) = torch.autograd.grad(ref, rq, g.float())
+    grp = f"fmha {label}"
+    check(bool((out[total:] == 0).all())
+          and bool((qkv.grad[total:] == 0).all()),
+          f"{grp}: the {tail} tokens past cu_seqlens[-1] are exactly 0 "
+          f"with zero grads")
+    parts = [held(f"{grp} out", out.detach(), ref.detach(), 2e-2,
+                  ROW_TOL[True][0], group=grp)]
+    for i, name in enumerate("qkv"):
+        parts.append(held(f"{grp} d{name}", qkv.grad[:, i], rgrad[:, i],
+                          1e-2, ROW_TOL[True][1], group=grp))
+    route = "streamed" if stream else "resident"
+    print(f"  {grp}: {n} sequences, lengths {min(lengths)}-{max(lengths)}, "
+          f"{total} tokens + {tail} past cu_seqlens[-1] -> (1,{h},{t},{d}) "
+          f"bf16 non-causal, 'auto' took the {route} kernels; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; " + ", ".join(parts)
+          + f"; tail exactly 0")
+    del ref, rgrad, rq
+
+    # device times of the three kernels, the bounds on and off
+    q, k, v = (qkv.detach()[:, i].transpose(0, 1)[None] for i in range(3))
+    do = g.transpose(0, 1)[None]
+    ids = segment_ids_from_cu_seqlens(cu, t)[None]
+    fwd, dq_fn, dkv_fn = (getattr(ops, name) for name in FMHA_KERNELS[stream])
+    scale = d ** -0.5
+    ms = {}
+    for contiguous in (True, False):
+        seg = tfa._as_seg((ids, ids), n + 1, contiguous, q, k)
+        kw = dict(causal=False, scale=scale, segment_ids=seg)
+        o, lse = fwd(q, k, v, **kw)
+        delta = (o.float() * do.float()).sum(-1)
+        dq_fn(q, k, v, do, lse, delta, **kw)
+        dkv_fn(q, k, v, do, lse, delta, **kw)  # the tables, before capture
+        tag = "bounds" if contiguous else "mask_only"
+        ms[tag] = {"fwd": time_ms(lambda: fwd(q, k, v, **kw)),
+                   "dq": time_ms(lambda: dq_fn(q, k, v, do, lse, delta,
+                                               **kw)),
+                   "dkv": time_ms(lambda: dkv_fn(q, k, v, do, lse, delta,
+                                                 **kw))}
+    outer = tfa.FWD_OUTER_TILE if stream else tfa.RES_FWD_OUTER_TILE
+    inner = tfa.FWD_INNER_TILE if stream else tfa.RES_FWD_INNER_TILE
+    meta_ms = time_ms(lambda: tfa._seg_args(
+        tfa._as_seg((ids, ids), n + 1, True, q, k), outer, inner, True))
+    # the host reads of a call: contiguous_segments' monotone check and
+    # fmha's envelope check, eager between CUDA events
+    check_seg = tfa._as_seg((ids, ids), n + 1, True, q, k)
+    host = {"monotone_check": issue_ms(
+                lambda: tfa._check_monotone(check_seg), 20),
+            "envelope_check": issue_ms(
+                lambda: int((cu[1:] - cu[:-1]).max()), 20)}
+    pairs = h * sum(x * x for x in lengths)
+    elems, rows = t * h * d, t * h
+    bounds = {"fwd": bound(4 * elems * 2 + rows * 4 + 2 * t * 4,
+                           4 * d * pairs, "bfloat16"),
+              "dq": bound(5 * elems * 2 + 2 * rows * 4 + 2 * t * 4,
+                          6 * d * pairs, "bfloat16"),
+              "dkv": bound(6 * elems * 2 + 2 * rows * 4 + 2 * t * 4,
+                           8 * d * pairs, "bfloat16")}
+    # the plain forward, eager between CUDA events (the streamed one reads
+    # its bounds on the host, so it cannot be captured)
+    seg = tfa._as_seg((ids, ids), n + 1, True, q, k)
+    kw = dict(causal=False, scale=scale, segment_ids=seg)
+    plain = {"fwd": issue_ms(lambda: (
+        ops.flash_attention_fwd_stream_reference if stream
+        else ops.flash_attention_fwd_reference)(q, k, v, **kw), 2)}
+    # yardstick 1: SDPA at the packed shape with the dense block-diagonal
+    # boolean mask (pad rows see nothing: their output is not read)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    pad_id = n + 1
+    mask = ((ids[0][:, None] == ids[0][None, :])
+            & (ids[0] != pad_id)[None, :])[None, None]
+    lib = {"packed_fwd": time_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, attn_mask=mask))}
+    ql, kl, vl = (x.detach().requires_grad_() for x in (qc, kc, vc))
+    dc = do.contiguous()
+
+    def packed_fwd_bwd():
+        o = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+        return torch.autograd.grad(o, (ql, kl, vl), dc)
+
+    lib["packed_fwd_bwd"] = time_ms(packed_fwd_bwd)
+    del mask
+    # yardstick 2: SDPA over the padded batch (n, h, 512, d) with a
+    # key-padding mask, the layout the packing avoids
+    pq, pk, pv, pdo = (torch.zeros(n, h, 512, d, device=dev, dtype=bf16)
+                       for _ in range(4))
+    for i, ln in enumerate(lengths):
+        s0 = sum(lengths[:i])
+        for dst, src in ((pq, q), (pk, k), (pv, v), (pdo, do)):
+            dst[i, :, :ln] = src[0, :, s0:s0 + ln]
+    kmask = (torch.arange(512, device=dev)[None]
+             < torch.tensor(lengths, device=dev)[:, None])[:, None, None]
+    lib["padded_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
+        pq, pk, pv, attn_mask=kmask))
+    pql, pkl, pvl = (x.requires_grad_() for x in (pq, pk, pv))
+
+    def padded_fwd_bwd():
+        o = F.scaled_dot_product_attention(pql, pkl, pvl, attn_mask=kmask)
+        return torch.autograd.grad(o, (pql, pkl, pvl), pdo)
+
+    lib["padded_fwd_bwd"] = time_ms(padded_fwd_bwd)
+    del pq, pk, pv, pdo, pql, pkl, pvl
+    names = FMHA_KERNELS[stream]
+    rows_out = {}
+    for part, name in zip(("fwd", "dq", "dkv"), names):
+        rows_out[name] = {
+            "case": label, "shape": [1, h, t, d], "sequences": n,
+            "tokens": total, "ms": ms["bounds"][part],
+            "mask_only_ms": ms["mask_only"][part],
+            "bound_ms": bounds[part][0], "bound_by": bounds[part][1],
+            "metadata_ms": meta_ms, "host_checks_ms": host}
+    rows_out[names[0]]["plain_ms"] = plain["fwd"]
+    rows_out[names[0]]["library_ms"] = lib["packed_fwd"]
+    rows_out[names[0]]["library"] = lib
+    port = sum(ms["bounds"].values())
+    print(f"  {grp} times (ms by CUDA-graph replay; the wrapper with its "
+          f"tables, bounds on / mask-only): "
+          + ", ".join(f"{p} {ms['bounds'][p]:.4f} / "
+                      f"{ms['mask_only'][p]:.4f} (bound {bounds[p][0]:.4f} "
+                      f"{bounds[p][1]})" for p in ("fwd", "dq", "dkv"))
+          + f"; the metadata reductions of one kernel's tiles {meta_ms:.4f}"
+          f", the monotone check {host['monotone_check']:.4f} and the "
+          f"envelope check {host['envelope_check']:.4f} (eager)"
+          f"; plain forward (eager) {plain['fwd']:.4f}; SDPA packed "
+          f"block-diagonal "
+          f"mask forward {lib['packed_fwd']:.4f}, forward + backward "
+          f"{lib['packed_fwd_bwd']:.4f}; SDPA padded ({n},{h},512,{d}) "
+          f"key-padding mask forward {lib['padded_fwd']:.4f}, forward + "
+          f"backward {lib['padded_fwd_bwd']:.4f}; the port forward + "
+          f"backward {port:.4f}; {nvidia_smi()}")
+    return counts, rows_out
+
+
+def fmha_packed(torch, ops, dev):
+    """Phase 9: (R) 16 sequences of seeded lengths in 32-384 (total under
+    STREAM_MIN_SEQ: the resident kernels) and (S) 32 in 64-512 (above it:
+    the streamed kernels), each with 37 tokens past ``cu_seqlens[-1]``.
+    Returns the summed launch counts and the timing rows by kernel."""
+    gen = torch.Generator().manual_seed(21)
+    r = torch.randint(32, 385, (16,), generator=gen).tolist()
+    s = torch.randint(64, 513, (32,), generator=gen).tolist()
+    check(sum(r) + 37 < 4096 < sum(s),
+          f"fmha lengths: {sum(r)} and {sum(s)} tokens")
+    counts_r, rows_r = fmha_case(torch, ops, dev, "R (16 x 32-384)", r)
+    torch.cuda.empty_cache()
+    counts_s, rows_s = fmha_case(torch, ops, dev, "S (32 x 64-512)", s)
+    torch.cuda.empty_cache()
+    counts = {k: counts_r[k] + counts_s[k] for k in counts_r}
+    return counts, {**rows_r, **rows_s}
+
+
 def flash_times(torch, ops, dev):
-    """The no-bias times of the resident flash kernels #1, #5 and #6 in
-    bf16: the forward at S = (1,16,1024,64) and T = (8,16,1024,64) causal,
-    dQ and dK/dV at T, and all three at BERT's (16,16,512,64) non-causal
+    """The times of the flash kernels with no bias and no segment ids in
+    bf16: the resident #1 at S = (1,16,1024,64) and T = (8,16,1024,64)
+    causal, #5 and #6 at T, all three at BERT's (16,16,512,64)
+    non-causal, and the streamed #2-#4 at L = (1,16,8192,64) causal
     (``python3 chip_smoke.py --flash-times TREE``: the port of TREE; run it
     for the parent and this tree in turns to compare them on one card)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {}
+    q, k, v, do = (torch.randn(1, 16, 8192, 64, device=dev,
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(causal=True, scale=0.125)
+    o, lse = ops.flash_attention_fwd_stream(q, k, v, **kw)
+    delta = (o.float() * do.float()).sum(-1)
+    out["fwd_stream_L"] = time_ms(lambda: ops.flash_attention_fwd_stream(
+        q, k, v, **kw))
+    out["dq_stream_L"] = time_ms(lambda: ops.flash_attention_bwd_dq_stream(
+        q, k, v, do, lse, delta, **kw))
+    out["dkv_stream_L"] = time_ms(
+        lambda: ops.flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta,
+                                                   **kw))
+    del q, k, v, do, o, lse, delta
     for label, b, s, causal in (("S", 1, 1024, True), ("T", 8, 1024, True),
                                 ("B", 16, 512, False)):
         q, k, v, do = (torch.randn(b, 16, s, 64, device=dev,
@@ -4205,6 +4705,46 @@ def flash_times(torch, ops, dev):
                 lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                     **kw))
     return out
+
+
+def sass_counts(tree):
+    """``python3 chip_smoke.py --sass TREE``: per flash wgmma kernel of
+    TREE's built library, its SASS instruction count and the MUFU (exp2),
+    LDG and local-memory (LDL, STL) instructions among them, from
+    ``cuobjdump -sass``: how a change's instances compare with the parent's
+    instruction for instruction (a layout change of an argument struct has
+    changed ptxas's code duplication and cost 15%; PERF.md)."""
+    import collections
+    import re
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from apex_tpu_torch.csrc import build
+
+    check(os.path.abspath(build.__file__).startswith(os.path.abspath(tree)),
+          f"apex_tpu_torch imported from {build.__file__}, not {tree}")
+    build.load()
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", build.library_path()],
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "wgmma" in m.group(1) else None
+            if fn:
+                counts[fn] = collections.Counter()
+            continue
+        m = re.match(
+            r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)",
+            line)
+        if fn and m:
+            counts[fn]["instructions"] += 1
+            if m.group(2) in ("MUFU", "LDG", "LDL", "STL"):
+                counts[fn][m.group(2)] += 1
+    print(json.dumps({"tree": tree, "sass": {k: dict(v) for k, v in
+                                             counts.items()}}))
+    return 0
 
 
 def times_of_tree(tree, fn):
@@ -4237,4 +4777,6 @@ if __name__ == "__main__":
         sys.exit(times_of_tree(sys.argv[2], decode_times))
     if sys.argv[1:2] == ["--flash-times"]:
         sys.exit(times_of_tree(sys.argv[2], flash_times))
+    if sys.argv[1:2] == ["--sass"]:
+        sys.exit(sass_counts(sys.argv[2]))
     sys.exit(main())

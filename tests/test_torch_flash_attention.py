@@ -170,20 +170,25 @@ def test_plain_backward_matches_autograd_through_mha_reference(causal):
 
 
 def test_masked_cpu_inputs_keep_mha_reference_autograd():
-    # a bias goes through FlashAttention's resident route, as on the card;
-    # segment ids (no kernel takes them yet) keep mha_reference's autograd;
-    # the window goes through FlashAttention's streamed path
+    # every mask goes through FlashAttention on the CPU, as on the card: a
+    # bias on the resident route, segment ids on the route 'auto' takes
+    # (the plain versions of the kernels), the window on the streamed path;
+    # the grads agree with autograd through mha_reference
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv())
     bias = torch.zeros(1, 1, 24, 24)
     out = tfa.flash_attention(q, k, v, bias, causal=True)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     out.sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
-    seg = torch.zeros(2, 24, dtype=torch.int32)
+    seg = torch.tensor([[0] * 10 + [1] * 14, [2] * 24], dtype=torch.int32)
+    q.grad = None
     out = tfa.flash_attention(q, k, v, segment_ids=(seg, seg), causal=True)
-    assert type(out.grad_fn).__name__ != "FlashAttentionBackward"
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     out.sum().backward()
-    assert torch.isfinite(q.grad).all()
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    tfa.mha_reference(qr, kr, vr, segment_ids=(seg, seg),
+                      causal=True).sum().backward()
+    torch.testing.assert_close(q.grad, qr.grad, atol=1e-5, rtol=1e-5)
 
 
 def test_backward_wrappers_never_take_the_plain_version():
@@ -607,3 +612,305 @@ def test_bias_kernel_arguments():
         tfa._bias_args(pad, q, 8, 8)
     with pytest.raises(TypeError):
         tfa._bias_args(dense.double(), q, 8, 8)
+
+
+# ---------------------------------------------------------------------------
+# segment ids, pad_id and the contiguous-segment bounds (the plain versions
+# the kernels are held to on the card), and the window on the resident route
+# ---------------------------------------------------------------------------
+
+SEG_ROWS = (np.repeat([1, 2, 3, 9], [40, 30, 38, 20]),
+            np.repeat([5, 9], [100, 28]))
+
+
+def _seg_ids(s=128):
+    return np.stack([r[:s] for r in SEG_ROWS]).astype(np.int32)
+
+
+def _jax_and_port_grads(q, k, v, g, jfn, tfn):
+    """Output and (dq, dk, dv) of the JAX function (jax.vjp) and of the
+    port's (autograd) on the same numpy inputs."""
+    jo, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (q, k, v)))
+    jg = vjp(jnp.asarray(g))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tfn(*ts)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(torch.from_numpy(g))
+    return ([np.asarray(jo)] + [np.asarray(x) for x in jg],
+            [out.detach().numpy()] + [t.grad.numpy() for t in ts])
+
+
+@pytest.mark.parametrize("contiguous", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("stream", ["never", "always"])
+def test_segment_ids_through_flash_attention_match_jax_pallas_and_xla(
+        stream, causal, contiguous):
+    """Segment ids with a pad id through FlashAttention on both plain routes
+    (resident, streamed; bounds on or off) against the JAX kernels in
+    interpret mode (impl="pallas", the same stream choice, 64/128 blocks)
+    and the XLA mask (impl="xla"): outputs 2e-5, grads 1e-4; rows that see
+    no key exactly 0 on every side."""
+    q, k, v = _qkv(b=2, h=2, sq=128, sk=128, d=16, seed=31)
+    g = np.random.default_rng(32).normal(size=q.shape).astype(np.float32)
+    ids = _seg_ids()
+    kw = dict(pad_id=9, causal=causal)
+    tseg = (torch.from_numpy(ids),) * 2
+    jseg = (jnp.asarray(ids),) * 2
+    port = lambda a, b, c: tfa.flash_attention(  # noqa: E731
+        a, b, c, segment_ids=tseg, contiguous_segments=contiguous,
+        stream=stream, **kw)
+    for impl in ("pallas", "xla"):
+        want, got = _jax_and_port_grads(q, k, v, g, lambda a, b, c: jax_flash(
+            a, b, c, segment_ids=jseg, contiguous_segments=contiguous,
+            impl=impl, stream=stream, block_q=64, block_k=128, **kw), port)
+        for name, a, r in zip(("o", "dq", "dk", "dv"), got, want):
+            tol = ATOL if name == "o" else GRAD_TOL
+            np.testing.assert_allclose(a, r, atol=tol, rtol=tol,
+                                       err_msg=f"{impl} {name}")
+    assert np.all(got[0][0, :, 108:] == 0.0) and np.all(got[0][1, :, 100:]
+                                                        == 0.0)
+    assert np.all(got[1][0, :, 108:] == 0.0)
+
+
+@pytest.mark.parametrize("stream", ["never", "always"])
+def test_contiguous_segments_equal_mask_only(stream, monkeypatch):
+    """contiguous_segments=True (the bounds narrow every band) computes the
+    same function as mask-only evaluation, values and grads (fp32, 1e-6),
+    also with split lengths of one tile, where narrowed splits are empty
+    and the forward merges empty partials."""
+    for name in ("FWD_SPLIT_TILES", "BWD_SPLIT_TILES", "STREAM_SPLIT_TILES"):
+        monkeypatch.setattr(tfa, name, 1)
+    monkeypatch.setattr(tfa, "FWD_OUTER_TILE", 32)
+    monkeypatch.setattr(tfa, "FWD_INNER_TILE", 16)
+    monkeypatch.setattr(tfa, "BWD_OUTER_TILE", 32)
+    monkeypatch.setattr(tfa, "BWD_INNER_TILE", 16)
+    monkeypatch.setattr(tfa, "RES_FWD_OUTER_TILE", 32)
+    monkeypatch.setattr(tfa, "RES_FWD_INNER_TILE", 16)
+    monkeypatch.setattr(tfa, "RES_BWD_DQ_INNER_TILE", 16)
+    q, k, v = _qkv(b=2, h=2, sq=128, sk=128, d=16, seed=33)
+    g = torch.from_numpy(
+        np.random.default_rng(34).normal(size=q.shape).astype(np.float32))
+    seg = (torch.from_numpy(_seg_ids()),) * 2
+    outs = []
+    for contiguous in (True, False):
+        ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        out = tfa.flash_attention(*ts, segment_ids=seg, pad_id=9,
+                                  causal=True, stream=stream,
+                                  contiguous_segments=contiguous)
+        out.backward(g)
+        outs.append([out.detach()] + [t.grad for t in ts])
+    want = tfa.mha_reference(*(torch.from_numpy(a) for a in (q, k, v)),
+                             segment_ids=seg, pad_id=9, causal=True)
+    torch.testing.assert_close(outs[0][0], want, atol=2e-5, rtol=2e-5)
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("pad", [None, 9])
+@pytest.mark.parametrize("blk_q,blk_k", [(16, 16), (32, 16), (16, 64),
+                                         (128, 128), (64, 32)])
+def test_seg_metadata_matches_jax(blk_q, blk_k, pad):
+    """The ported _seg_metadata equals the JAX one at equal tile sizes:
+    bounds both ways and each tile's (min, max) ids, with a pad-id suffix
+    (all-padding tiles get empty ranges; no range reaches the suffix)."""
+    from apex_tpu.ops.flash_attention import _seg_metadata as jmeta
+
+    q_seg = _seg_ids()
+    kv_seg = np.stack([np.repeat([1, 2, 3, 9], [20, 50, 26, 32]),
+                       np.repeat([4, 5, 9], [64, 32, 32])]).astype(np.int32)
+    want = jmeta(jnp.asarray(q_seg), jnp.asarray(kv_seg), blk_q, blk_k, pad)
+    got = tfa._seg_metadata(torch.from_numpy(q_seg),
+                            torch.from_numpy(kv_seg), blk_q, blk_k, pad)
+    for a, r in zip(got, want):
+        assert a.dtype == torch.int32 and a.is_contiguous()
+        np.testing.assert_array_equal(a.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("pad", [None, 9])
+@pytest.mark.parametrize("sq,sk,blk_q,blk_k", [(100, 77, 32, 16),
+                                               (77, 100, 64, 64),
+                                               (128, 50, 16, 128)])
+def test_seg_metadata_ragged_ends_keep_every_valid_pair(sq, sk, blk_q,
+                                                        blk_k, pad):
+    """Ragged ends (lengths the tiles do not divide): the tile (min, max) of
+    the real rows are exact but for the last tile's max, which takes one
+    more than the largest id (monotone, no real id); every pair with equal
+    non-pad ids lies inside both bounds."""
+    q_seg = torch.from_numpy(_seg_ids()[:, :sq].copy())
+    kv_seg = torch.from_numpy(_seg_ids()[:, :sk].copy())
+    bq, bk, qmm, kmm = tfa._seg_metadata(q_seg, kv_seg, blk_q, blk_k, pad)
+    for ids, mm, blk in ((q_seg, qmm, blk_q), (kv_seg, kmm, blk_k)):
+        n = -(-ids.shape[1] // blk)
+        for t in range(n):
+            tile = ids[:, t * blk:(t + 1) * blk]
+            assert torch.equal(mm[:, 0, t], tile.amin(-1))
+            if tile.shape[1] == blk:
+                assert torch.equal(mm[:, 1, t], tile.amax(-1))
+    valid = q_seg[:, :, None] == kv_seg[:, None, :]
+    if pad is not None:
+        valid &= (kv_seg != pad)[:, None, :]
+    qt = torch.arange(sq) // blk_q
+    kt = torch.arange(sk) // blk_k
+    for b in range(2):
+        lo_q, hi_q = bq[b, 0][qt][:, None], bq[b, 1][qt][:, None]
+        lo_k, hi_k = bk[b, 0][kt][None, :], bk[b, 1][kt][None, :]
+        inside = ((lo_q <= kt[None, :]) & (kt[None, :] < hi_q)
+                  & (lo_k <= qt[:, None]) & (qt[:, None] < hi_k))
+        assert not (valid[b] & ~inside).any()
+
+
+def test_contiguous_segments_check_ids_and_warn_once(monkeypatch):
+    """With contiguous_segments, ids that are not non-decreasing raise the
+    reference's ValueError (both sides); without it, non-decreasing ids
+    give the one-time hint to opt in (both sides), and a wrong ids shape
+    raises the reference's ValueError."""
+    import apex_tpu.ops.flash_attention as jfa
+
+    q, k, v = _qkv(b=1, h=1, sq=16, sk=16, d=8)
+    bad = np.array([[1, 2, 1] + [3] * 13], np.int32)
+    good = np.array([[1] * 8 + [2] * 8], np.int32)
+    targs = [torch.from_numpy(a) for a in (q, k, v)]
+    jargs = [jnp.asarray(a) for a in (q, k, v)]
+    for fn, args, mk in ((jax_flash, jargs, jnp.asarray),
+                         (tfa.flash_attention, targs, torch.from_numpy)):
+        with pytest.raises(ValueError, match="q segment ids are not "
+                           "non-decreasing"):
+            fn(*args, segment_ids=(mk(bad), mk(good)),
+               contiguous_segments=True)
+        with pytest.raises(ValueError, match="kv segment ids are not "
+                           "non-decreasing"):
+            fn(*args, segment_ids=(mk(good), mk(bad)),
+               contiguous_segments=True)
+        with pytest.raises(ValueError, match="do not match"):
+            fn(*args, segment_ids=(mk(good[:, :8]), mk(good)))
+    monkeypatch.setattr(jfa, "_WARNED_PACKED_OPT_IN", False)
+    monkeypatch.setattr(tfa, "_WARNED_PACKED_OPT_IN", False)
+    for fn, args, mk in ((jax_flash, jargs, jnp.asarray),
+                         (tfa.flash_attention, targs, torch.from_numpy)):
+        with pytest.warns(UserWarning, match="contiguous_segments=True"):
+            fn(*args, segment_ids=(mk(good), mk(good)))
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            fn(*args, segment_ids=(mk(good), mk(good)))  # once only
+            fn(*args, segment_ids=(mk(bad), mk(bad)))  # mask-only: fine
+
+
+@pytest.mark.parametrize("stream", ["never", "always"])
+def test_causal_row_whose_same_segment_keys_lie_above_is_zero(stream):
+    """tests/test_flash_attention.py:353 on the port: query 0 in segment 2,
+    every segment-2 key above the diagonal: its output and dQ are exactly 0
+    on both plain routes, as on the JAX kernel and XLA path."""
+    q, k, v = _qkv(b=2, h=2, sq=128, sk=128, d=16, seed=35)
+    q_seg = np.r_[[2], np.ones(127, int)][None].repeat(2, 0).astype(np.int32)
+    kv_seg = np.repeat([1, 2], [64, 64])[None].repeat(2, 0).astype(np.int32)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(
+        *ts, segment_ids=(torch.from_numpy(q_seg), torch.from_numpy(kv_seg)),
+        causal=True, stream=stream)
+    out.sum().backward()
+    assert torch.all(out[:, :, 0] == 0.0) and torch.all(ts[0].grad[:, :, 0]
+                                                        == 0.0)
+    want = np.asarray(jax_flash(
+        *(jnp.asarray(a) for a in (q, k, v)),
+        segment_ids=(jnp.asarray(q_seg), jnp.asarray(kv_seg)), causal=True,
+        impl="pallas", block_q=64, block_k=128, stream=stream))
+    np.testing.assert_allclose(out.detach().numpy(), want, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("stream", ["never", "always"])
+def test_window_composes_with_segments(stream, causal):
+    """Window + packed ids (tests/test_flash_attention.py:461) on both
+    plain routes, with the bounds, against the JAX XLA mask: values 2e-5,
+    grads 1e-4."""
+    q, k, v = _qkv(b=2, h=2, sq=128, sk=128, d=16, seed=36)
+    g = np.random.default_rng(37).normal(size=q.shape).astype(np.float32)
+    ids = _seg_ids()
+    kw = dict(pad_id=9, causal=causal, window=24)
+    want, got = _jax_and_port_grads(
+        q, k, v, g,
+        lambda a, b, c: jax_flash(a, b, c, segment_ids=(jnp.asarray(ids),) * 2,
+                                  impl="xla", **kw),
+        lambda a, b, c: tfa.flash_attention(
+            a, b, c, segment_ids=(torch.from_numpy(ids),) * 2, stream=stream,
+            contiguous_segments=True, **kw))
+    for name, a, r in zip(("o", "dq", "dk", "dv"), got, want):
+        tol = ATOL if name == "o" else GRAD_TOL
+        np.testing.assert_allclose(a, r, atol=tol, rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_resident_window_matches_jax_pallas(causal):
+    """stream='never' with a window: FlashAttention's resident route (the
+    plain forward and backward with the window, as the resident kernels
+    take it on the card) against the JAX resident kernels in interpret mode
+    with the same window: values 2e-5, grads 1e-4."""
+    q, k, v = _qkv(b=1, h=2, sq=48, sk=48, d=16, seed=38)
+    g = np.random.default_rng(39).normal(size=q.shape).astype(np.float32)
+    kw = dict(causal=causal, window=10, stream="never")
+    want, got = _jax_and_port_grads(
+        q, k, v, g,
+        lambda a, b, c: jax_flash(a, b, c, impl="pallas", block_q=16,
+                                  block_k=16, **kw),
+        lambda a, b, c: tfa.flash_attention(a, b, c, **kw))
+    for name, a, r in zip(("o", "dq", "dk", "dv"), got, want):
+        tol = ATOL if name == "o" else GRAD_TOL
+        np.testing.assert_allclose(a, r, atol=tol, rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("window", [1, 40, 200])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (300, 77), (77, 300)])
+def test_resident_bands_take_the_window(sq, sk, causal, window):
+    """_res_fwd_bands / _res_bwd_bands with a window equal the JAX kernels'
+    loop limits through their _window_k_range / _window_q_range at the
+    same tiles, as k_tiles / q_tiles compute them on the card."""
+    from apex_tpu.ops.flash_attention import _window_k_range as jk
+    from apex_tpu.ops.flash_attention import _window_q_range as jq
+
+    for outer, inner in ((128, 128), (128, 64)):
+        nq, nk = -(-sq // outer), -(-sk // inner)
+        want = []
+        for qi in range(nq):
+            n = nk
+            if causal:
+                n = int(np.clip(((qi + 1) * outer + inner - 1) // inner, 0,
+                                n))
+            lo, hi = jk(0, n, qi, outer, inner, 0, 0, causal, window)
+            want.append((int(lo), int(hi)))
+        got = tfa._res_fwd_bands(sq, sk, causal, outer, inner, window)
+        # the kernels clip an empty band to hi = lo (seg_band)
+        assert [(lo, max(lo, hi)) for lo, hi in got] == [
+            (lo, max(lo, hi)) for lo, hi in want]
+        assert tfa._res_bwd_bands(sq, sk, causal, True, outer, inner,
+                                  window) == got
+        nq_i = -(-sq // inner)
+        want = []
+        for ki in range(-(-sk // outer)):
+            start = int(np.clip(ki * outer // inner, 0, nq_i)) if causal \
+                else 0
+            lo, hi = jq(start, nq_i, ki, inner, outer, 0, 0, causal, window)
+            want.append((int(lo), int(max(lo, hi))))
+        got = tfa._res_bwd_bands(sq, sk, causal, False, outer, inner, window)
+        assert [(lo, max(lo, hi)) for lo, hi in got] == want
+
+
+@pytest.mark.parametrize("pad", [None, 9])
+def test_seg_ranges_are_the_equality_mask_of_contiguous_ids(pad):
+    """_seg_ranges (what the kernels test on contiguous ids: each row sees
+    the other side's rows [lo, hi)) gives exactly the equality-and-pad mask
+    of _seg_valid, both ways, with unequal q and kv ids and lengths."""
+    q_seg = torch.from_numpy(_seg_ids())
+    kv_seg = torch.from_numpy(np.stack(
+        [np.repeat([1, 2, 3, 9], [20, 50, 26, 4]),
+         np.repeat([4, 5, 9], [64, 30, 6])]).astype(np.int32))
+    seg = tfa._as_seg((q_seg, kv_seg), pad, True, torch.zeros(2, 1, 128, 8),
+                      torch.zeros(2, 1, 100, 8))
+    valid = tfa._seg_valid(seg, 0, 0, 128, 100)[:, 0]
+    for own_is_q, mask in ((True, valid), (False, valid.transpose(1, 2))):
+        r = tfa._seg_ranges(seg, own_is_q)
+        pos = torch.arange(mask.shape[2])
+        got = (r[:, 0, :, None] <= pos) & (pos < r[:, 1, :, None])
+        assert torch.equal(got, mask)

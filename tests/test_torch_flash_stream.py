@@ -471,25 +471,43 @@ def test_routing_on_cpu_tensors(monkeypatch):
     monkeypatch.setattr(tfa, "STREAM_MIN_SEQ", 128)
     tfa.flash_attention(q.requires_grad_(), k, v, causal=True)
     assert calls == [32, None]
-    # 'never' with a window: the CPU keeps mha_reference's own autograd
+    # 'never' with a window: FlashAttention's resident route (the plain
+    # resident versions with the window), not the streamed one
     out = tfa.flash_attention(q, k, v, causal=True, window=32,
                               stream="never")
-    assert type(out.grad_fn).__name__ != "FlashAttentionBackward"
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     assert calls == [32, None]
     with pytest.raises(ValueError, match="bias"):
         tfa.flash_attention(q, k, v, torch.zeros(1, 1, 128, 128),
                             stream="always")
 
 
-def test_card_refusals_name_their_roadmap_items():
-    # the bias reaches the resident kernels and is refused no more
-    # (tests/test_torch_package.py); segment ids and the resident window
-    # still name their items
-    seg = (torch.zeros(1), torch.zeros(1))
-    assert "Queue 2 item 4" in tfa._card_refusal(seg, False)
-    assert "Queue 2 item 5" in tfa._card_refusal(seg, True)
-    msg = tfa._card_refusal(None, False)
-    assert "window" in msg and "Queue 2 item 4" in msg
+def test_card_refusals_name_their_roadmap_items(monkeypatch):
+    # the card refuses no flash mask any more: segment ids with pad_id on
+    # the streamed route and the window on the resident one reach
+    # FlashAttention (tests/test_torch_package.py has the bias); what is
+    # left is the ring's global offsets, with context parallelism (Queue 1
+    # item 15), which the long-context example names
+    monkeypatch.setattr(tfa, "check_device", lambda t, name: "cuda")
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(0, sq=64, sk=64))
+    q.requires_grad_()
+    seg = torch.tensor([[1] * 20 + [2] * 30 + [7] * 14] * q.shape[0],
+                       dtype=torch.int32)
+    for kw in (dict(segment_ids=(seg, seg), pad_id=7, stream="always",
+                    contiguous_segments=True),
+               dict(window=16, stream="never")):
+        out = tfa.flash_attention(q, k, v, causal=True, **kw)
+        assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+        ref = tfa.mha_reference(q, k, v, causal=True,
+                                **{x: kw[x] for x in kw
+                                   if x in ("segment_ids", "pad_id",
+                                            "window")})
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    assert not hasattr(tfa, "_card_refusal")
+    from apex_tpu_torch.examples.longcontext import train_long_context as lc
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        lc.main(["--device", "cpu", "--cp", "2"])
 
 
 def test_stream_wrappers_never_take_the_plain_version():

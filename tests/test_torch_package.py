@@ -97,18 +97,22 @@ def test_options_outside_the_slice_raise(field, value):
 
 
 def test_window_raises_on_the_card_and_runs_plain_on_the_cpu(monkeypatch):
-    """On the card only the streamed flash kernels take the window, so the
-    resident route (stream='never') with a window raises there, naming its
-    ROADMAP item; the same call on the CPU runs the plain version."""
+    """The resident route (stream='never') takes the window on the card
+    too now: with the device check answering 'cuda' the call goes through
+    FlashAttention (on these CPU tensors its plain versions, as the card
+    runs the resident kernels) and agrees with mha_reference; the model
+    takes the window, and tensor parallelism still raises."""
     tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     q = torch.randn(1, 2, 12, 8)
     out = tfa.flash_attention(q, q, q, causal=True, window=4, stream="never")
     ref = tfa.mha_reference(q, q, q, causal=True, window=4)
     assert torch.allclose(out, ref, atol=1e-6)
     monkeypatch.setattr(tfa, "check_device", lambda t, name: "cuda")
-    with pytest.raises(NotImplementedError,
-                       match=r"window on the resident.*Queue 2 item 4"):
-        tfa.flash_attention(q, q, q, causal=True, window=4, stream="never")
+    qg = q.clone().requires_grad_()
+    out = tfa.flash_attention(qg, q, q, causal=True, window=4,
+                              stream="never")
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert torch.allclose(out, ref, atol=1e-6)
     cfg = GPTConfig(attention_window=8, **SMALL)
     m = GPTModel(cfg, device="cpu")
     assert m.apply(torch.zeros(1, 12, dtype=torch.long)).shape == (1, 12, 61)
@@ -120,25 +124,31 @@ def test_window_raises_on_the_card_and_runs_plain_on_the_cpu(monkeypatch):
 
 def test_a_bias_reaches_the_kernels_and_segment_ids_raise_on_the_card(
         monkeypatch):
-    """On the card a bias goes to the resident kernels through
-    FlashAttention (no refusal); segment ids still raise there, naming
-    their ROADMAP item (Queue 2 item 4 resident, item 5 streamed)."""
+    """On the card a bias and segment ids (with pad_id and
+    contiguous_segments, resident and streamed) go to the kernels through
+    FlashAttention, with no refusal; stream='always' with a bias still
+    raises the reference's ValueError, and what waits for the ring's
+    global offsets (context parallelism) raises naming ROADMAP Queue 1
+    item 15."""
+    from apex_tpu_torch.models.bert import BertConfig, _check_slice
+
     tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     q = torch.randn(1, 2, 12, 8, requires_grad=True)
     bias = torch.zeros(1, 1, 1, 12)
     monkeypatch.setattr(tfa, "check_device", lambda t, name: "cuda")
     out = tfa.flash_attention(q, q, q, bias)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
-    seg = torch.zeros(1, 12, dtype=torch.int32)
-    with pytest.raises(NotImplementedError,
-                       match=r"segment_ids on the resident.*Queue 2 item 4"):
-        tfa.flash_attention(q, q, q, segment_ids=(seg, seg))
-    with pytest.raises(NotImplementedError,
-                       match=r"segment_ids on the streamed.*Queue 2 item 5"):
-        tfa.flash_attention(q, q, q, segment_ids=(seg, seg),
-                            stream="always")
+    seg = torch.tensor([[1] * 5 + [2] * 4 + [3] * 3], dtype=torch.int32)
+    ref = tfa.mha_reference(q, q, q, segment_ids=(seg, seg), pad_id=3)
+    for stream in ("never", "always"):
+        out = tfa.flash_attention(q, q, q, segment_ids=(seg, seg), pad_id=3,
+                                  contiguous_segments=True, stream=stream)
+        assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+        assert torch.allclose(out, ref, atol=1e-6)
     with pytest.raises(ValueError, match="dense bias"):
         tfa.flash_attention(q, q, q, bias, stream="always")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        _check_slice(BertConfig(context_axis="context"))
 
 
 def test_the_model_takes_the_window_on_the_card_through_the_stream():
