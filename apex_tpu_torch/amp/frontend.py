@@ -14,7 +14,9 @@ Per step (the reference's ``apply_gradients``):
 The JAX step chooses with ``lax.cond`` on the device; here the overflow flag
 is read on the host once per step (one device sync), and the skipped branch
 simply does not run. State is explicit, as in the reference
-(:class:`MPOptState`), but updated in place.
+(:class:`MPOptState`), but updated in place. :func:`state_tree` /
+:func:`load_state_tree_` map it to and from the JAX ``MPOptState``'s tree
+(the checkpoint layout, ``apex_tpu_torch.checkpoint``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from torch import nn
 
 from apex_tpu_torch import precision as _precision
+from apex_tpu_torch._params import module_tree, tensors_of_tree
 from apex_tpu_torch.amp.scaler import LossScaler
 from apex_tpu_torch.ops.multi_tensor import tree_l2norm
 
@@ -42,6 +45,62 @@ class MPOptState:
         self.inner = inner
         self.master = master
         self.scaler = scaler
+
+
+def state_tree(state: MPOptState, module: nn.Module,
+               device="cpu") -> Dict[str, Any]:
+    """The JAX ``MPOptState`` tree of ``state`` (``apex_tpu/amp/
+    frontend.py:39``) for the params of ``module``: ``inner`` (the inner
+    optimizer's NamedTuple state under its field names, ``FusedAdamState``'s
+    ``step`` / ``exp_avg`` / ``exp_avg_sq``), ``master`` (absent without
+    masters, as JAX's None) and ``scaler`` (``loss_scale`` fp32,
+    ``unskipped`` int32). Per-parameter lists take the JAX params' layout
+    (:func:`apex_tpu_torch._params.module_tree`); an int is an int32 0-d
+    leaf. Leaves are copies on ``device`` (``"meta"``: the structure
+    alone)."""
+    inner = {}
+    for field, value in state.inner._asdict().items():
+        if isinstance(value, int):
+            inner[field] = torch.tensor(value, dtype=torch.int32,
+                                        device=device)
+        elif isinstance(value, (list, tuple)):
+            inner[field] = module_tree(module, value, device)
+        elif value is not None:
+            raise TypeError(f"inner state field {field!r}: "
+                            f"{type(value).__name__} has no JAX layout")
+    tree = {"inner": inner, "scaler": {
+        "loss_scale": torch.tensor(state.scaler.loss_scale,
+                                   dtype=torch.float32, device=device),
+        "unskipped": torch.tensor(state.scaler.unskipped,
+                                  dtype=torch.int32, device=device)}}
+    if state.master is not None:
+        tree["master"] = module_tree(module, state.master, device)
+    return tree
+
+
+@torch.no_grad()
+def load_state_tree_(state: MPOptState, module: nn.Module,
+                     tree: Dict[str, Any]) -> MPOptState:
+    """Copy a JAX-layout ``MPOptState`` tree (:func:`state_tree`'s, or one
+    restored from either package's checkpoint) into ``state`` IN PLACE:
+    the masters and moment tensors keep their storage, the step count and
+    the scaler take the tree's values. Returns ``state``."""
+    ints = {}
+    for field, value in state.inner._asdict().items():
+        if isinstance(value, int):
+            ints[field] = int(tree["inner"][field])
+        elif isinstance(value, (list, tuple)):
+            for dst, src in zip(value, tensors_of_tree(
+                    module, tree["inner"][field])):
+                dst.copy_(src)
+    state.inner = state.inner._replace(**ints)
+    if state.master is not None:
+        for dst, src in zip(state.master,
+                            tensors_of_tree(module, tree["master"])):
+            dst.copy_(src)
+    state.scaler.loss_scale = float(tree["scaler"]["loss_scale"])
+    state.scaler.unskipped = int(tree["scaler"]["unskipped"])
+    return state
 
 
 def _param_list(params) -> List[torch.Tensor]:

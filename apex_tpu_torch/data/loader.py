@@ -29,10 +29,13 @@ class PrefetchIterator:
     def __init__(self, it: Iterable, depth: int = 2):
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
 
         def _worker():
             try:
                 for item in it:
+                    if self._stop.is_set():
+                        return
                     self._q.put(item)
             except BaseException as e:  # surfaced on next()
                 # deliberate retention: the worker failure must re-raise on
@@ -41,7 +44,8 @@ class PrefetchIterator:
                 # lint: disable=exception-retention -- re-raised on next(); host-side, no device frames
                 self._err = e
             finally:
-                self._q.put(self._SENTINEL)
+                if not self._stop.is_set():
+                    self._q.put(self._SENTINEL)
 
         self._thread = threading.Thread(target=_worker, daemon=True)
         self._thread.start()
@@ -59,6 +63,23 @@ class PrefetchIterator:
                 raise self._err
             raise StopIteration
         return item
+
+    def close(self) -> None:
+        """Stop the worker: it ends at its next item (a put blocked on a
+        full queue is freed by emptying it); ``next`` raises StopIteration
+        from then on."""
+        self._stop.set()
+        while True:  # the worker puts at most one more item
+            try:
+                while True:
+                    self._q.get_nowait()
+            except queue.Empty:
+                pass
+            try:
+                self._q.put_nowait(self._SENTINEL)
+                return
+            except queue.Full:
+                continue
 
 
 class NpyBatchLoader:

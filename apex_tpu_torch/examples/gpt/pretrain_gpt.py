@@ -1,0 +1,373 @@
+"""GPT pretraining on one card, with checkpoint and resume: the serial
+branch (``--tp 1 --pp 1``, one device) of ``examples/gpt/pretrain_gpt.py``.
+
+    python -m apex_tpu_torch.examples.gpt.pretrain_gpt --hidden 1024 \\
+        --layers 24 --heads 16 --seq 1024 --micro-batch 4 \\
+        --num-microbatches 2 --steps 11 --save-dir D
+    # the same command again resumes from the latest step under D
+
+The moving parts are the reference's (``:391-510``): ``GPTConfig(
+hidden_dropout=0, remat=True, bf16 compute under O1-O3, else fp32)``,
+``amp.get_policy(--opt-level)`` + ``cast_params`` +
+``MixedPrecisionOptimizer(FusedAdam(lr=--lr))`` with its loss scaler, a
+batch of ``micro_batch x num_microbatches`` rows, and the loss of
+``pipelined_loss_fn`` at one stage: the mean over the batch, its grads
+summed over the micro-batches (each micro-batch's scaled loss over M runs
+its own backward). Batches are the reference's: synthetic tokens from
+``np.random.default_rng(0)`` with next-token targets (``roll(-1)``), or
+``--data DIR`` through :class:`apex_tpu_torch.csrc.TokenLoader` with rows
+of ``seq + 1`` tokens ``% vocab``. The run resumes from
+``latest_step(--save-dir)``, saves every ``--save-every`` steps
+(``apex_tpu_torch.checkpoint``, the JAX package's npz layout: a checkpoint
+of either package resumes in the other) and prints the reference's lines.
+As in the reference, a resumed run's data stream starts again at its
+first batch: the generator and the loader are built anew at every start.
+
+``--unroll`` is accepted and changes nothing: the port always drives the
+layers one by one. The parallel and monitoring options raise
+``NotImplementedError`` with the ROADMAP item that brings them; the
+reference's own argument-consistency errors are kept. ``--device cpu``
+runs the plain versions of the kernels on the CPU; the default is the card.
+
+:func:`build` returns an ``apex_tpu_torch.bench.Bench`` whose ``step``
+is the training step; :func:`run` is :func:`main` returning what it
+measured.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from apex_tpu_torch import amp, checkpoint
+from apex_tpu_torch._device import DeviceLike, resolve_device
+from apex_tpu_torch._params import load_tree_, module_tree
+from apex_tpu_torch.bench import Bench
+from apex_tpu_torch.models import GPTConfig, GPTModel
+from apex_tpu_torch.optimizers import FusedAdam
+
+#: options of the reference outside this slice -> the ROADMAP Queue 1 item
+#: that brings them
+_LATER = {
+    "tp": ("tensor parallelism", 10),
+    "pp": ("pipeline parallelism", 12),
+    "pp_schedule": ("the pipeline schedules", 12),
+    "vpp": ("interleaved pipeline chunks", 12),
+    "zero": ("ZeRO", 11),
+    "zero_gather": ("ZeRO's compressed gather", 11),
+    "zero3_prefetch": ("ZeRO-3 prefetch", 11),
+    "reduce_dtype": ("the quantized ZeRO wire", 11),
+    "mesh_islands": ("the two-tier mesh", 16),
+    "offload_optimizer": ("the host-offloaded optimizer", 11),
+    "moe_experts": ("MoE FFNs", 16),
+    "moe_dispatch_dtype": ("MoE FFNs", 16),
+    "plan": ("the placement search", 21),
+    "journal": ("the metrics journal", 21),
+    "trace": ("span tracing", 21),
+    "ledger": ("the run ledger", 21),
+    "flight": ("the flight recorder", 21),
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--pp", type=int, default=1)
+    p.add_argument("--hidden", type=int, default=256)
+    p.add_argument("--layers", type=int, default=4)
+    p.add_argument("--heads", type=int, default=8)
+    p.add_argument("--vocab", type=int, default=50304)
+    p.add_argument("--seq", type=int, default=256)
+    p.add_argument("--micro-batch", type=int, default=2)
+    p.add_argument("--num-microbatches", type=int, default=2)
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--opt-level", default="O2")
+    p.add_argument("--pp-schedule", default="1f1b",
+                   choices=["gpipe", "1f1b", "interleaved", "zerobubble"])
+    p.add_argument("--vpp", type=int, default=None)
+    p.add_argument("--zero3-prefetch", type=int, default=0, metavar="N")
+    p.add_argument("--unroll", action="store_true",
+                   help="accepted; the port always drives the layers one "
+                        "by one")
+    p.add_argument("--zero", action="store_true")
+    p.add_argument("--zero-level", type=int, default=None, choices=(1, 2, 3))
+    p.add_argument("--zero-gather", default=None, choices=["bf16", "int8"])
+    p.add_argument("--reduce-dtype", default=None, choices=["int8", "e5m2"])
+    p.add_argument("--mesh-islands", type=int, default=1, metavar="N")
+    p.add_argument("--dcn-wire", default="int8",
+                   choices=["int8", "e5m2", "none"])
+    p.add_argument("--offload-optimizer", action="store_true")
+    p.add_argument("--offload-buckets", type=int, default=2, metavar="N")
+    p.add_argument("--moe-experts", type=int, default=None, metavar="E")
+    p.add_argument("--moe-top-k", type=int, default=2)
+    p.add_argument("--moe-capacity-factor", type=float, default=1.25)
+    p.add_argument("--moe-dispatch-dtype", default=None,
+                   choices=["int8", "e5m2"])
+    p.add_argument("--plan", default=None, metavar="auto")
+    p.add_argument("--plan-hbm-gb", type=float, default=16.0)
+    p.add_argument("--data", default=None,
+                   help="dir of .bin int32 token files")
+    p.add_argument("--save-dir", default=None)
+    p.add_argument("--save-every", type=int, default=100)
+    p.add_argument("--journal", default=None, metavar="PATH")
+    p.add_argument("--trace", default=None, metavar="PATH")
+    p.add_argument("--ledger", nargs="?", const="out/ledger.jsonl",
+                   default=None, metavar="PATH")
+    p.add_argument("--flight", nargs="?", const="auto", default=None,
+                   metavar="PATH")
+    p.add_argument("--device", default=None,
+                   help="'cuda' (the default) or 'cpu'")
+    args = p.parse_args(argv)
+    # the reference's argument-consistency errors (:289-361)
+    if args.zero_level is not None:
+        args.zero = True
+    elif args.zero:
+        args.zero_level = 2
+    if args.zero_gather and not args.zero:
+        p.error("--zero-gather requires --zero")
+    if args.reduce_dtype and not args.zero:
+        p.error("--reduce-dtype requires --zero (it is the ZeRO grad "
+                "reduce-scatter wire dtype)")
+    if args.vpp is None:
+        args.vpp = 2 if args.pp_schedule == "interleaved" else 1
+    if args.vpp > 1 and args.pp_schedule != "interleaved":
+        p.error("--vpp > 1 is the interleaved schedule's knob")
+    if args.pp_schedule == "interleaved" and args.vpp < 2:
+        p.error("--pp-schedule interleaved needs --vpp >= 2")
+    if args.pp_schedule == "zerobubble" and (args.pp < 2 or args.tp > 1):
+        p.error("--pp-schedule zerobubble needs --pp >= 2 and --tp 1 (the "
+                "explicit-backward executor drives the pipe axis only)")
+    if args.zero3_prefetch and (args.zero_level or 0) < 3:
+        p.error("--zero3-prefetch requires --zero-level 3 (it "
+                "double-buffers the per-layer chunk gathers)")
+    if args.offload_optimizer and args.save_dir:
+        p.error("--offload-optimizer does not checkpoint: the optimizer "
+                "state is host-resident numpy, outside the device "
+                "checkpoint tree")
+    if args.moe_dispatch_dtype and not args.moe_experts:
+        p.error("--moe-dispatch-dtype requires --moe-experts (it is the "
+                "expert-parallel dispatch wire dtype)")
+    return args
+
+
+def check_slice(args) -> None:
+    """Raise ``NotImplementedError`` for an option outside the serial
+    single-card branch, naming the ROADMAP item that brings it."""
+    on = {
+        "tp": args.tp > 1, "pp": args.pp > 1,
+        "pp_schedule": args.pp_schedule != "1f1b", "vpp": args.vpp > 1,
+        "zero": args.zero, "zero_gather": bool(args.zero_gather),
+        "zero3_prefetch": bool(args.zero3_prefetch),
+        "reduce_dtype": bool(args.reduce_dtype),
+        "mesh_islands": args.mesh_islands > 1,
+        "offload_optimizer": args.offload_optimizer,
+        "moe_experts": bool(args.moe_experts),
+        "moe_dispatch_dtype": bool(args.moe_dispatch_dtype),
+        "plan": bool(args.plan), "journal": bool(args.journal),
+        "trace": bool(args.trace),
+        "ledger": bool(args.ledger or os.environ.get("APEX_TPU_LEDGER")),
+        "flight": bool(args.flight)}
+    for name, set_ in on.items():
+        if set_:
+            what, item = _LATER[name]
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')}: {what} is not in this slice of "
+                f"the port (the serial single-card branch); it comes with "
+                f"ROADMAP Queue 1 item {item}")
+
+
+def microbatched_backward(bench: Bench, tokens: torch.Tensor,
+                          targets: torch.Tensor,
+                          num_microbatches: int) -> torch.Tensor:
+    """The loss of ``pipelined_loss_fn`` at one stage: each of the M
+    micro-batches' mean loss, scaled by the loss scale over M, runs its own
+    backward, so the grads sum to those of the batch mean. Each
+    micro-batch's grads are added into fp32 buffers and the sum is rounded
+    once to each param's dtype. Returns the batch mean (detached)."""
+    return _microbatched_backward(bench.model, bench.mp_opt, bench.opt_state,
+                                  tokens, targets, num_microbatches)
+
+
+def _microbatched_backward(model, mp_opt, state, tokens, targets,
+                           num_microbatches):
+    tokens, targets = tokens.to(model.device), targets.to(model.device)
+    if tokens.shape[0] % num_microbatches:
+        raise ValueError(f"batch ({tokens.shape[0]}) must divide by "
+                         f"microbatches ({num_microbatches})")
+    params = list(model.parameters())
+    acc = total = None
+    for tok, tgt in zip(tokens.chunk(num_microbatches),
+                        targets.chunk(num_microbatches)):
+        loss = model.loss(tok, tgt)
+        mp_opt.scale_loss(loss / num_microbatches, state).backward()
+        loss = loss.detach()
+        total = loss if total is None else total + loss
+        if num_microbatches > 1:
+            if acc is None:  # fp32 copies; an fp32 grad is kept as it is
+                acc = [p.grad.float() for p in params]
+            else:
+                for a, p in zip(acc, params):
+                    a.add_(p.grad)
+            for p in params:
+                p.grad = None
+    if acc is not None:
+        for p, a in zip(params, acc):
+            p.grad = a.to(p.dtype)
+    return total / num_microbatches
+
+
+def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
+          heads: int = 8, seq: int = 256, micro_batch: int = 2,
+          num_microbatches: int = 2, lr: float = 3e-4,
+          opt_level: str = "O2", remat_policy: Optional[str] = None,
+          seed: int = 0, device: DeviceLike = None) -> Bench:
+    """The reference's serial model and optimizer state (``:391-424``) on
+    one device (the card unless ``device="cpu"``), random weights from
+    ``seed``. ``step(tokens, targets)`` is the training step: the
+    micro-batched backward (:func:`microbatched_backward`), then the
+    optimizer step, which skips the update and lowers the scale on an
+    overflow. ``remat_policy``: the checkpointing policy of every layer
+    (the reference's config field; its example keeps the default)."""
+    dev = resolve_device(device)
+    policy = amp.get_policy(opt_level)
+    cfg = GPTConfig(
+        vocab_size=vocab,
+        hidden_size=hidden,
+        num_layers=layers,
+        num_attention_heads=heads,
+        max_seq_len=seq,
+        hidden_dropout=0.0,
+        compute_dtype=(torch.bfloat16 if opt_level in ("O1", "O2", "O3")
+                       else torch.float32),
+        remat=True,
+        remat_policy=remat_policy,
+    )
+    model = GPTModel(cfg, device=dev, seed=seed)
+    amp.cast_params(model, policy)
+    mp_opt = amp.MixedPrecisionOptimizer(FusedAdam(lr=lr), policy)
+    opt_state = mp_opt.init(model)
+
+    def step(tokens: torch.Tensor, targets: torch.Tensor):
+        # over the parts, not the Bench: no cycle keeps a dropped trainer
+        loss = _microbatched_backward(model, mp_opt, opt_state, tokens,
+                                      targets, num_microbatches)
+        metrics = mp_opt.step(opt_state, model)
+        return loss, metrics
+
+    return Bench(step, model, mp_opt, opt_state, cfg,
+                 micro_batch * num_microbatches)
+
+
+def from_args(args, remat_policy: Optional[str] = None) -> Bench:
+    """:func:`build` from :func:`parse_args`'s namespace."""
+    return build(vocab=args.vocab, hidden=args.hidden, layers=args.layers,
+                 heads=args.heads, seq=args.seq,
+                 micro_batch=args.micro_batch,
+                 num_microbatches=args.num_microbatches, lr=args.lr,
+                 opt_level=args.opt_level, remat_policy=remat_policy,
+                 device=args.device)
+
+
+def train_state(bench: Bench, device="cpu") -> Dict[str, Any]:
+    """``{"params", "opt"}`` in the JAX example's checkpoint layout
+    (``:850-851``). ``device="meta"``: the structure alone (a restore
+    target), with no copy."""
+    return {"params": module_tree(bench.model, device=device),
+            "opt": amp.state_tree(bench.opt_state, bench.model,
+                                  device=device)}
+
+
+def load_train_state_(bench: Bench, tree: Dict[str, Any]) -> None:
+    """Copy a ``{"params", "opt"}`` tree into the model and its optimizer
+    state in place."""
+    load_tree_(bench.model, tree["params"])
+    amp.load_state_tree_(bench.opt_state, bench.model, tree["opt"])
+
+
+def batches(args, batch: int) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """The reference's batches (``:624-640``), from their first."""
+    if args.data:
+        from apex_tpu_torch.csrc import TokenLoader
+
+        files = sorted(os.path.join(args.data, f)
+                       for f in os.listdir(args.data) if f.endswith(".bin"))
+        for arr in TokenLoader(files, (batch, args.seq + 1), loop=True):
+            arr = torch.from_numpy(arr % args.vocab).long()
+            yield arr[:, :-1], arr[:, 1:]
+        return
+    rng = np.random.default_rng(0)
+    while True:
+        toks = rng.integers(0, args.vocab, (batch, args.seq))
+        yield (torch.from_numpy(toks),
+               torch.from_numpy(np.roll(toks, -1, axis=-1)))
+
+
+def run(argv=None) -> Dict[str, Any]:
+    """:func:`main`'s run; returns the trainer (``bench``), the first step
+    (``start``), each step's loss and metrics, each step's host seconds to
+    its loss (``step_s``, saves excluded), ``ms_per_step`` and
+    ``tokens_per_s`` (the reference's window: every step after the first,
+    saves included, ending in a device sync) and the seconds of each save
+    and of the restore."""
+    args = parse_args(argv)
+    check_slice(args)
+    batch = args.micro_batch * args.num_microbatches
+    bench = from_args(args)
+    dev = bench.model.device
+    out: Dict[str, Any] = {"bench": bench, "losses": [], "metrics": [],
+                           "step_s": [], "save_s": [], "restore_s": None}
+    next_batch = batches(args, batch)
+    start = 0
+    if args.save_dir and (
+            step := checkpoint.latest_step(args.save_dir)) is not None:
+        t0 = time.perf_counter()
+        load_train_state_(bench, checkpoint.restore_checkpoint(
+            args.save_dir, train_state(bench, device="meta")))
+        out["restore_s"] = time.perf_counter() - t0
+        start = step
+        print(f"resumed from step {step}")
+    out["start"] = start
+
+    t0 = time.perf_counter()
+    for i in range(start, start + args.steps):
+        s0 = time.perf_counter()
+        toks, tgts = next(next_batch)
+        loss, metrics = bench.step(toks, tgts)
+        out["losses"].append(float(loss))  # waits for the step's loss
+        out["step_s"].append(time.perf_counter() - s0)
+        out["metrics"].append(metrics)
+        if i == start:
+            t0 = time.perf_counter()  # exclude the first step
+        if i % 5 == 0 or i == start + args.steps - 1:
+            print(f"step {i:5d} loss {float(loss):.4f} "
+                  f"scale {float(metrics['loss_scale']):.0f}")
+        if args.save_dir and (i + 1) % args.save_every == 0:
+            s0 = time.perf_counter()
+            checkpoint.save_checkpoint(args.save_dir, i + 1,
+                                       train_state(bench))
+            out["save_s"].append(time.perf_counter() - s0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    n_done = max(args.steps - 1, 1)
+    dt = (time.perf_counter() - t0) / n_done
+    out["ms_per_step"] = dt * 1e3
+    out["tokens_per_s"] = batch * args.seq / dt
+    if args.steps:
+        print(f"{batch * args.seq / dt:.0f} tokens/s | mesh: tp={args.tp} "
+              f"pp={args.pp} dp=1 | {dt * 1e3:.1f} ms/step")
+    return out
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -13,9 +13,17 @@ the angles, so a rotation at position 1e6 matches it in fp32.
 
 Training: :meth:`TransformerBase.run_layers_train` checkpoints each layer
 with ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference's
-``jax.checkpoint`` of the layer body, ``_transformer.py:634-638``; policy
-None/"full" = recompute everything), the attention bias an input of the
-checkpointed layer, and applies inverted hidden dropout from an explicit
+``jax.checkpoint`` of the layer body, ``_transformer.py:634-638``), under
+the reference's policies (``_remat_policy``, ``:123-142``): None/"full"
+recomputes the whole layer; "save_attn" keeps the flash attention's
+outputs, so the backward does not run the attention forward again (the
+layer is checkpointed in two parts around the attention call, whose
+autograd Function keeps q, k, v, o and lse: the reference keeps only o and
+lse and recomputes q, k, v); "dots" keeps the outputs of the matrix
+products with no batch dims (the linear layers: ``aten.mm`` /
+``aten.addmm``, a selective-checkpoint policy) and recomputes the rest,
+the attention forward included. The attention bias is an input of the
+checkpointed layer, and inverted hidden dropout draws from an explicit
 ``torch.Generator``. Both drives thread an additive attention bias (BERT's
 padding mask) through ``_layer``, ``_attention`` and ``_attend`` to
 ``flash_attention``, as the reference's ``run_layers`` does.
@@ -37,18 +45,37 @@ from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.transformer import tensor_parallel as tp
 
 
-def remat_policy(name: Optional[str]) -> None:
-    """Check a ``remat_policy`` (``_remat_policy``,
-    ``_transformer.py:123-142``): None and "full" recompute the whole layer
-    and are the only ones ported; the selective policies raise."""
-    if name in (None, "full"):
-        return None
-    if name in ("save_attn", "dots"):
-        raise NotImplementedError(
-            f"remat_policy={name!r} (selective activation checkpointing) is "
-            f"not in this slice of the port; it comes with a later PR "
-            f"(ROADMAP Queue 1 item 6). Use None or 'full'.")
-    raise ValueError(f"unknown remat_policy {name!r}")
+#: the remat policies (``_remat_policy``, ``_transformer.py:123-142``)
+REMAT_POLICIES = ("full", "save_attn", "dots")
+
+
+def remat_policy(name: Optional[str]) -> str:
+    """The policy ``name`` stands for: None is "full"; an unknown name
+    raises ``ValueError``."""
+    name = name or "full"
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {name!r}")
+    return name
+
+
+def _dots_context():
+    """Selective checkpointing that saves the outputs of the matrix
+    products with no batch dims (``dots_with_no_batch_dims_saveable``): the
+    linear layers' ``aten.mm`` / ``aten.addmm``. A batched product and every
+    other op is recomputed; the kernels launched through ctypes run again in
+    the recompute, writing into tensors it allocates anew."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -192,13 +219,15 @@ class TransformerBase(nn.Module):
                x: torch.Tensor) -> torch.Tensor:
         return p(x)
 
-    def _qkv_heads(self, layer: TransformerLayer, h: torch.Tensor):
+    def _qkv_heads(self, layer: TransformerLayer, h: torch.Tensor,
+                   positions: Optional[torch.Tensor] = None):
         """``(q, k, v)`` head tensors ``(b, heads, s, d)`` from the fused
         QKV projection, laid out ``(heads, 3, head_dim)``
         (``_transformer.py:400-430``). They are strided views of one
         product; the kernels take them without a copy. Under rotary
         positions q and k are rotated at :meth:`_token_positions` (serial:
-        0 .. s-1)."""
+        0 .. s-1), or at ``positions`` ``(b, s)``, each sequence's own (the
+        serving hooks: each slot sits at its own context position)."""
         c = self.cfg
         b = h.shape[0]
         qkv = self._dense(layer.qkv, h)
@@ -207,9 +236,13 @@ class TransformerBase(nn.Module):
         qkv = qkv.view(b, s, n, 3, c.head_dim).permute(0, 2, 3, 1, 4)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if getattr(c, "position_embedding", "learned") == "rope":
-            pos = self._token_positions(s, h.device)
-            q, k = (apply_rope(q, pos, c.rope_theta),
-                    apply_rope(k, pos, c.rope_theta))
+            if positions is None:
+                pos = self._token_positions(s, h.device)
+                q, k = (apply_rope(q, pos, c.rope_theta),
+                        apply_rope(k, pos, c.rope_theta))
+            else:
+                q, k = (apply_rope_at(q, positions, c.rope_theta),
+                        apply_rope_at(k, positions, c.rope_theta))
         return q, k, v
 
     def _token_positions(self, s: int, device) -> torch.Tensor:
@@ -282,19 +315,48 @@ class TransformerBase(nn.Module):
             gen.manual_seed(seed)
         return self._layer(layer, h, gen, bias)
 
+    def _save_attn_layer(self, layer: TransformerLayer,
+                         seed: Optional[int], h: torch.Tensor,
+                         bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """One layer under "save_attn": the part before the attention
+        and the part after it (the subclass's ``_pre_attention`` and
+        ``_post_attention``, GPT's) are checkpointed, the attention call
+        between them is not, so its Function keeps its inputs and outputs
+        and the backward runs only its backward kernels."""
+        q, k, v = checkpoint(self._pre_attention, layer, h,
+                             use_reentrant=False)
+        attn = self._attend(q, k, v, bias)
+        return checkpoint(self._train_post_attention, layer, seed, h, attn,
+                          use_reentrant=False)
+
+    def _train_post_attention(self, layer: TransformerLayer,
+                              seed: Optional[int], h: torch.Tensor,
+                              attn: torch.Tensor) -> torch.Tensor:
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=h.device)
+            gen.manual_seed(seed)
+        return self._post_attention(layer, h, attn, gen)
+
     def run_layers_train(self, h: torch.Tensor,
                          dropout_generator: Optional[torch.Generator] = None,
                          bias: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
         """The differentiable layer drive: each layer checkpointed when
-        ``cfg.remat`` is set (recomputed whole in the backward, the bias
-        one of its inputs)."""
-        remat_policy(getattr(self.cfg, "remat_policy", None))
+        ``cfg.remat`` is set, under ``cfg.remat_policy`` (the bias one of
+        the checkpointed inputs)."""
+        policy = remat_policy(getattr(self.cfg, "remat_policy", None))
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer, seed in zip(self.layers,
                                self._layer_seeds(dropout_generator)):
             fn = functools.partial(self._train_layer, layer, seed)
-            if self.cfg.remat and torch.is_grad_enabled():
-                h = checkpoint(fn, h, bias, use_reentrant=False)
-            else:
+            if not remat:
                 h = fn(h, bias)
+            elif policy == "save_attn":
+                h = self._save_attn_layer(layer, seed, h, bias)
+            elif policy == "dots":
+                h = checkpoint(fn, h, bias, use_reentrant=False,
+                               context_fn=_dots_context)
+            else:
+                h = checkpoint(fn, h, bias, use_reentrant=False)
         return h

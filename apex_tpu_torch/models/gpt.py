@@ -15,11 +15,12 @@ dropout from an explicit ``torch.Generator``, and the chunked LM-head CE
 context logits), and the serving drives ``embed_at`` /
 ``serve_layers_prefill`` / ``serve_layers_decode`` /
 ``serve_layers_multi`` / ``serve_head`` thread
-the paged KV pool of ``apex_tpu_torch.serve``. The sliding
+the paged KV pool of ``apex_tpu_torch.serve``, rotating q/k at each
+slot's own positions under rotary positions. The sliding
 ``attention_window`` runs on both devices (the streamed flash kernels on the
-card). Tensor/sequence/context parallelism, MoE FFNs, selective remat
-policies and serving a model with rotary positions are later slices and
-raise ``NotImplementedError``.
+card). ``remat_policy`` takes the reference's None/"full", "save_attn" and
+"dots" (``models/_transformer.py``). Tensor/sequence/context parallelism
+and MoE FFNs are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ class GPTConfig:
     moe_num_experts: Optional[int] = None
     hidden_dropout: float = 0.1  # applied only with a dropout generator
     remat: bool = True  # activation checkpointing per layer (training)
-    remat_policy: Optional[str] = None  # None/"full"; selective: later
+    remat_policy: Optional[str] = None  # None/"full" | "save_attn" | "dots"
     # vocab chunks of the fused LM-head CE (None: plain head + per-token CE)
     lm_head_chunks: Optional[int] = None
 
@@ -159,8 +160,20 @@ class GPTModel(TransformerBase):
         """Pre-LN block: residual + dropout(sublayer(LN(h))), the dropout
         masks drawn from ``generator`` attention first (``_layer_aux``,
         ``gpt.py:286-301``)."""
-        h = h + self._dropout(
-            self._attention(layer, self._ln(layer.ln1, h), bias), generator)
+        q, k, v = self._pre_attention(layer, h)
+        return self._post_attention(layer, h, self._attend(q, k, v, bias),
+                                    generator)
+
+    def _pre_attention(self, layer: TransformerLayer, h: torch.Tensor):
+        """LN and the QKV heads: the layer up to its attention call."""
+        return self._qkv_heads(layer, self._ln(layer.ln1, h))
+
+    def _post_attention(self, layer: TransformerLayer, h: torch.Tensor,
+                        attn: torch.Tensor,
+                        generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The layer after its attention call: the output projection and
+        the MLP half, each a residual with dropout."""
+        h = h + self._dropout(self._attn_out(layer, attn), generator)
         return h + self._dropout(self._mlp(layer, self._ln(layer.ln2, h)),
                                  generator)
 
@@ -212,24 +225,12 @@ class GPTModel(TransformerBase):
 
     # -- serving drives (apex_tpu_torch/serve/engine.py) --------------------
 
-    def check_servable(self) -> None:
-        """Raise for what the serving hooks cannot run: rotary positions
-        (``apply_rope_at`` at each slot's position in the hooks comes with
-        ROADMAP Queue 1 item 6). The modes that reshape the sequence
-        (context and sequence parallelism) are refused at construction."""
-        if self.cfg.position_embedding == "rope":
-            raise NotImplementedError(
-                "serving a model with position_embedding='rope' is not in "
-                "this slice of the port: the serving hooks rotate q/k at "
-                "each slot's position (apply_rope_at) with ROADMAP Queue 1 "
-                "item 6")
-
     @torch.no_grad()
     def serve_layers_prefill(self, h: torch.Tensor):
         """Run the layers over a (padded) prompt, collecting every layer's
         k/v heads for the cache fill: ``(h, k, v)`` with k/v
-        ``(num_layers, b, heads, s, head_dim)``."""
-        self.check_servable()
+        ``(num_layers, b, heads, s, head_dim)``. Rotary positions are the
+        training forward's, 0 .. s-1."""
         ks, vs = [], []
         for layer in self.layers:
             x = self._ln(layer.ln1, h)
@@ -239,6 +240,16 @@ class GPTModel(TransformerBase):
             ks.append(k)
             vs.append(v)
         return h, torch.stack(ks), torch.stack(vs)
+
+    def _rope_positions(self, positions: Optional[torch.Tensor]):
+        """``positions`` where rotary positions need them (None else); a
+        rotary model's serving step without them raises."""
+        if self.cfg.position_embedding != "rope":
+            return None
+        if positions is None:
+            raise ValueError("a rotary-position model's serving step needs "
+                             "each token's positions")
+        return positions.to(self.device)
 
     @torch.no_grad()
     def serve_layers_decode(self, h: torch.Tensor, k_pages: torch.Tensor,
@@ -254,15 +265,17 @@ class GPTModel(TransformerBase):
         ``h`` is ``(b, 1, hidden)``; the pools ``(L, num_blocks, kv_heads,
         block, head_dim)`` are updated IN PLACE (the reference rebuilds them
         functionally) and returned. ``attend_lengths`` includes the token
-        just written (0 = idle slot, output exactly 0). ``positions`` only
-        matter for rotary positions, which are a later slice."""
-        self.check_servable()
+        just written (0 = idle slot, output exactly 0). ``positions``
+        ``(b,)``: each slot's new token's position, where rotary positions
+        rotate its q and k (``gpt.py:453-456``)."""
+        rope = self._rope_positions(positions)
         blk = k_pages.shape[3]
         bi, off = write_flat // blk, write_flat % blk
         for i, layer in enumerate(self.layers):
             kp, vp = k_pages[i], v_pages[i]
             x = self._ln(layer.ln1, h)
-            q, k, v = self._qkv_heads(layer, x)
+            q, k, v = self._qkv_heads(
+                layer, x, None if rope is None else rope[:, None])
             # kp[bi, :, off] is (b, kv_heads, d): advanced indices split by
             # the head slice land in front, as in numpy and JAX
             kp[bi, :, off] = k[:, :, 0, :].to(kp.dtype)
@@ -290,15 +303,15 @@ class GPTModel(TransformerBase):
         ``h`` is ``(b, K, hidden)``. The pools are updated IN PLACE (the
         reference rebuilds them functionally) and returned. Drives chunked
         prefill (one slot, K = chunk) and speculative verify (every slot,
-        K = drafts + 1). ``positions`` ``(b, K)`` only matter for rotary
-        positions, a later slice."""
-        self.check_servable()
+        K = drafts + 1). ``positions`` ``(b, K)``: the tokens' positions,
+        where rotary positions rotate their q and k (``gpt.py:496-498``)."""
+        rope = self._rope_positions(positions)
         blk = k_pages.shape[3]
         bi, off = write_flat // blk, write_flat % blk
         for i, layer in enumerate(self.layers):
             kp, vp = k_pages[i], v_pages[i]
             x = self._ln(layer.ln1, h)
-            q, k, v = self._qkv_heads(layer, x)
+            q, k, v = self._qkv_heads(layer, x, rope)
             # kp[bi, :, off] is (b, K, kv_heads, d): the (b, K) advanced
             # indices land in front, so the heads go (b, K, heads, d)
             kp[bi, :, off] = k.transpose(1, 2).to(kp.dtype)

@@ -35,7 +35,8 @@ takes one monolithic prefill (``flash_attention``).
 
 Not in this port yet (ROADMAP Queue 1 item 14): SLO windows, request traces
 (``serve/reqtrace.py``), journals and tracer spans, tensor-parallel serving,
-``examples/gpt/generate_gpt.py``, and a CUDA graph of the decode tick. The
+and a CUDA graph of the decode tick. ``examples/gpt/generate_gpt.py`` drives
+it from a checkpoint (``apex_tpu_torch.examples.gpt.generate_gpt``). The
 reference's ``decode_impl`` has no counterpart: the port picks the kernel
 or the plain version by the device of the tensors.
 """
@@ -125,7 +126,6 @@ class Engine:
         if model.device != dev:
             raise ValueError(f"the model lies on {model.device}, the engine "
                              f"on {dev}")
-        model.check_servable()
         c = model.cfg
         self.model = model
         self.config = cfg = config.resolved()
@@ -149,7 +149,6 @@ class Engine:
         self.dk_pages = self.dv_pages = None
         if cfg.spec_k:
             dm = draft_model if draft_model is not None else model
-            dm.check_servable()
             if dm.device != dev:
                 raise ValueError(f"the draft model lies on {dm.device}, the "
                                  f"engine on {dev}")

@@ -112,12 +112,7 @@ def test_loss_and_every_grad_match_jax(streamed, pos, window):
                                    err_msg=name)
 
 
-def test_rope_model_is_refused_by_the_serving_hooks():
-    tm = GPTModel(GPTConfig(position_embedding="rope", **TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tm.check_servable()
-    with pytest.raises(NotImplementedError, match="rope"):
-        tm.serve_layers_prefill(torch.zeros(1, 4, 64))
+def test_rope_model_needs_an_even_head_dim():
     with pytest.raises(ValueError, match="even head_dim"):
         GPTModel(GPTConfig(position_embedding="rope", vocab_size=64,
                            hidden_size=36, num_attention_heads=4),
