@@ -83,11 +83,38 @@
 // head_dim up to 64 takes the 64-wide kernels (TMA zero-fills the columns
 // past d), up to 128 the 128-wide ones.
 //
-// fp32 (bwd_dq_fma_kernel, bwd_dkv_fma_kernel): plain FMA, one CTA per
-// (64-row tile, head, batch) over its band, 4 neighbouring lanes per tile
-// row, operands in shared memory as fp32 (rows padded by one word against
-// bank conflicts), written directly. Any sq, sk and d <= 128; q/k/v/dO may
-// be strided (b, h, s) with a contiguous head_dim.
+// fp32 (dq_f32_blocked, dkv_f32_blocked): register-blocked FMA fed by a
+// double-buffered cp.async ring. The first port's FMA kernels read one
+// shared-memory operand per FMA, one row and 16 columns a thread, and
+// reached 7% of the 67 TFLOP/s fp32 peak.
+// - A CTA of NW warps keeps 16 NW outer rows (queries for dQ, keys for
+//   dK/dV) and streams the BN-row inner tiles of its band through two
+//   stages: the next tile lands while this one computes. 16-byte copies
+//   where a row is on 16 bytes (d % 4 == 0 and aligned strides), 4-byte
+//   ones otherwise; columns past d and rows past sq / sk are zero-filled.
+//   Operand rows at pitch DP + 4.
+// - Each thread holds a 4 x BN/8 micro-tile of S and dP (4 outer rows,
+//   BN/8 inner rows) and a 4 x DP/8 one of each output, so each
+//   shared-memory operand is read once a micro-tile, 16 bytes at a time,
+//   with no bank conflict (scores_fma, accumulate_fma). P and dS go from
+//   registers through a shared tile whose rows the same warp writes and
+//   reads (__syncwarp).
+// - Every sum is one fmaf chain in the order the plain version's fp32
+//   products take (S and dP over the head dimension, the gradients over
+//   the band's keys or queries): the resident fp32 limits (a worst row of
+//   1e-5, dbias and the segment cases at 1e-5 / 2e-6) hold on rows whose
+//   exact value cancels, such as dQ of a query that sees one key. Split
+//   TF32 on mma.sync (x = hi + lo, three TF32 products) was tried first:
+//   2-3e-6 of max |ref| but 3e-3 on such rows (PERF.md), so it is not
+//   here.
+// - Masks: interior tiles skip every test; edge tiles (the diagonal, a
+//   window edge, the ragged ends, a segment edge) test each pair. exp as
+//   the plain version takes it, expf(scale s + bias - lse).
+// - Longest band first, one CTA per item or as many CTAs as fit walking
+//   the items (RES_BWD_F32_PERSISTENT), each output element written once:
+//   no atomics, two calls give the same bits.
+// Any sq, sk and d <= 128 (S's column groups past d skipped); q/k/v/dO may be
+// strided (b, h, s) with a contiguous head_dim.
 
 #include <type_traits>
 
@@ -96,11 +123,10 @@
 namespace apex_torch {
 namespace {
 
-constexpr int kFmaThreads = 256;  // 4 lanes per tile row
 constexpr int kMaxDim = 128;
-constexpr int kPLd = kTile + 1;   // fp32 P / dS tile rows
 
-struct FmaArgs {
+// The arguments of an entry point, as the host passes them to either route
+struct CallArgs {
   const void* q;
   const void* k;
   const void* v;
@@ -118,10 +144,6 @@ struct FmaArgs {
   float* dbias;   // (b, h, sq, sk) fp32 dS, or nullptr: no dbias
   SegArgs seg;
 };
-
-__device__ __forceinline__ bool live_row(float lse) {
-  return lse > kNegInf * 0.5f;
-}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma fed by a TMA ring, one CTA per whole band
@@ -556,207 +578,452 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// fp32 on FMA
+// fp32: register-blocked FMA fed by a double-buffered cp.async ring
 // ---------------------------------------------------------------------------
-// kTile x d fp32 tile into dst (row pitch d + 1), zero past rows_valid
-__device__ __forceinline__ void load_f32(float* dst, const float* src,
-                                         long long stride, int rows_valid,
-                                         int d) {
-  const int dp = d + 1;
-  for (int e = threadIdx.x; e < kTile * d; e += kFmaThreads) {
-    const int r = e / d, c = e - r * d;
-    dst[r * dp + c] = r < rows_valid ? src[r * stride + c] : 0.f;
-  }
+
+struct F32Args {
+  CallArgs a;
+  int bh, n_outer;  // b*h, outer tiles of a head
+  int items;        // bh * n_outer: the CTAs of the plain grid
+  int vec;          // bit i set: operand i (q, k, v, dO) takes 16-byte copies
+};
+
+// Float offsets in dynamic shared memory: the two resident operands (Q, dO
+// or K, V; 16 NW rows each), two stages of the streamed pair (K, V or Q,
+// dO; BN rows each, with the BN queries' lse and delta for dK/dV), then the
+// dS tile (dQ) or the P^T and dS^T tiles (dK/dV), outer rows by BN. Operand
+// rows at pitch DP + 4, P / dS rows at BN + 8: see scores_fma and
+// accumulate_fma.
+template <int DP, int NW, int BN, bool kDkv>
+struct F32Layout {
+  static constexpr int kP = DP + 4;
+  static constexpr int kPd = BN + 8;
+  static constexpr int kRows = 16 * NW;
+  static constexpr int kRing = 2 * kRows * kP;
+  static constexpr int kStage = 2 * BN * kP + (kDkv ? 2 * BN : 0);
+  static constexpr int kTiles = kRing + 2 * kStage;
+  static constexpr int kTile = kRows * kPd;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kTiles + (kDkv ? 2 : 1) * kTile);
+};
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(kFmaThreads) bwd_dq_fma_kernel(FmaArgs a) {
-  extern __shared__ float smf[];
-  const int sq = a.sq, sk = a.sk, d = a.d, dp = d + 1;
-  float* Qs = smf;
-  float* dOs = Qs + kTile * dp;
-  float* Ks = dOs + kTile * dp;
-  float* Vs = Ks + kTile * dp;
-  float* Ds = Vs + kTile * dp;  // kTile x kPLd: dS
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
 
-  const int q0 = blockIdx.x * kTile, hi = blockIdx.y, bi = blockIdx.z;
-  const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3;
-  const int qrow = q0 + r;
-  const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.h;
-  const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.h;
-  const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
-  const float* ob =
-      static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.h;
-  load_f32(Qs, qb + (long long)q0 * a.qs.s, a.qs.s, sq - q0, d);
-  load_f32(dOs, ob + (long long)q0 * a.dos.s, a.dos.s, sq - q0, d);
-  const size_t head = (size_t)(bi * a.h + hi) * sq;
-  const float l = qrow < sq ? a.lse[head + qrow] : kNegInf;
-  const float dl = qrow < sq ? a.delta[head + qrow] : 0.f;
-  const bool live = live_row(l);
-  // this row's bias and dbias rows (none past sq)
-  const float* brow = a.bias.p != nullptr && qrow < sq
-                          ? a.bias.p + bi * a.bias.sb + hi * a.bias.sh +
-                                qrow * a.bias.sq
-                          : nullptr;
-  float* drow = a.dbias != nullptr && qrow < sq
-                    ? a.dbias + (head + qrow) * (size_t)sk
-                    : nullptr;
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
 
-  float acc[kMaxDim / 4];
-#pragma unroll
-  for (int jj = 0; jj < kMaxDim / 4; ++jj) acc[jj] = 0.f;
-  const Band band = seg_band(
-      a.seg, k_tiles(blockIdx.x, (sk + kTile - 1) / kTile, a.causal, a.window),
-      bi, blockIdx.x);
-  const SegRows sg = seg_rows(a.seg, false, bi, qrow, sq, sk);
-
-  for (int j = band.lo; j < band.hi; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();
-    load_f32(Ks, kb + (long long)k0 * a.ks.s, a.ks.s, sk - k0, d);
-    load_f32(Vs, vb + (long long)k0 * a.vs.s, a.vs.s, sk - k0, d);
-    __syncthreads();
-    float s[kTile / 4], dpv[kTile / 4];
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) s[jj] = dpv[jj] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float qv = Qs[r * dp + kk], ov = dOs[r * dp + kk];
-#pragma unroll
-      for (int jj = 0; jj < kTile / 4; ++jj) {
-        const int c = c4 + 4 * jj;
-        s[jj] = fmaf(qv, Ks[c * dp + kk], s[jj]);
-        dpv[jj] = fmaf(ov, Vs[c * dp + kk], dpv[jj]);
-      }
+// Rows [r0, r0 + R) of one head (`head`: its row 0, `rs`: the row stride)
+// into a tile of R rows at pitch DP + 4 by cp.async, all NT threads taking
+// part: rows past n and columns past d are zeros. vec: 16-byte copies
+// (d % 4 == 0, the head and rs on 16 bytes), else 4-byte ones.
+template <int DP, int R, int NT>
+__device__ __forceinline__ void ring_rows(float* dst, const float* head,
+                                          long long rs, int r0, int n, int d,
+                                          bool vec) {
+  constexpr int kP = DP + 4;
+  if (vec) {
+    constexpr int C = DP / 4;
+    for (int e = threadIdx.x; e < R * C; e += NT) {
+      const int r = e / C, c = (e % C) * 4;
+      const bool in = r0 + r < n && c < d;
+      cp_async_16(dst + r * kP + c, in ? head + (r0 + r) * rs + c : head,
+                  in);
     }
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) {
-      const int c = c4 + 4 * jj, kpos = k0 + c;
-      const bool valid = visible(qrow, kpos, sk, a.causal, a.window) &&
-                         sg.sees(0, kpos) && live;
-      float sv = s[jj] * a.scale;
-      if (brow != nullptr && valid) sv += __ldg(brow + kpos * a.bias.sk);
-      const float p = valid ? expf(sv - l) : 0.f;
-      const float ds = p * (dpv[jj] - dl);
-      Ds[r * kPLd + c] = ds;
-      if (drow != nullptr && kpos < sk) drow[kpos] = ds;
-    }
-    __syncwarp();  // a row's dS is written and read by the same 4 lanes
-    for (int c = 0; c < kTile; ++c) {
-      const float ds = Ds[r * kPLd + c];
-#pragma unroll
-      for (int jj = 0; jj < kMaxDim / 4; ++jj) {
-        const int col = c4 + 4 * jj;
-        if (col < d) acc[jj] = fmaf(ds, Ks[c * dp + col], acc[jj]);
-      }
-    }
-  }
-  if (qrow < sq) {
-    float* out = static_cast<float*>(a.dq) + (head + qrow) * d;
-#pragma unroll
-    for (int jj = 0; jj < kMaxDim / 4; ++jj) {
-      const int col = c4 + 4 * jj;
-      if (col < d) out[col] = acc[jj] * a.scale;
+  } else {
+    for (int e = threadIdx.x; e < R * DP; e += NT) {
+      const int r = e / DP, c = e % DP;
+      const bool in = r0 + r < n && c < d;
+      hopper::cp_async_4(dst + r * kP + c,
+                         in ? head + (r0 + r) * rs + c : head, in);
     }
   }
 }
 
-__global__ void __launch_bounds__(kFmaThreads) bwd_dkv_fma_kernel(FmaArgs a) {
-  extern __shared__ float smf[];
-  const int sq = a.sq, sk = a.sk, d = a.d, dp = d + 1;
-  float* Ks = smf;
-  float* Vs = Ks + kTile * dp;
-  float* Qs = Vs + kTile * dp;
-  float* dOs = Qs + kTile * dp;
-  float* Ps = dOs + kTile * dp;  // kTile x kPLd: P^T
-  float* Ds = Ps + kTile * kPLd;  // dS^T
-  float* lse_s = Ds + kTile * kPLd;
-  float* delta_s = lse_s + kTile;
+// The thread layout of the fp32 kernels: thread (ty, tx) = (tid / 8, tid %
+// 8) of 32 NW keeps outer rows own_row(ty, i), i < 4 -- pairs 8 apart (the
+// row, row + 8 of SegRows and BiasLines), a warp's rows consecutive -- and
+// the inner rows (S's columns) tx + 8 j, j < BN / 8, and the output
+// columns col_of(tx, m) = 32 (m / 4) + 4 tx + m % 4, m < DP / 8.
+template <int BM>
+__device__ __forceinline__ int own_row(int ty, int i) {
+  return (ty & 7) + 16 * (ty >> 3) + 8 * (i & 1) + (BM / 2) * (i >> 1);
+}
 
-  const int k0 = blockIdx.x * kTile, hi = blockIdx.y, bi = blockIdx.z;
-  const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3;
-  const int key = k0 + r;
-  const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.h;
-  const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.h;
-  const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
-  const float* ob =
-      static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.h;
-  load_f32(Ks, kb + (long long)k0 * a.ks.s, a.ks.s, sk - k0, d);
-  load_f32(Vs, vb + (long long)k0 * a.vs.s, a.vs.s, sk - k0, d);
-  const size_t head = (size_t)(bi * a.h + hi) * sq;
-  // this key's bias column (none past sk)
-  const float* bcol = a.bias.p != nullptr && key < sk
-                          ? a.bias.p + bi * a.bias.sb + hi * a.bias.sh +
-                                key * a.bias.sk
-                          : nullptr;
+__device__ __forceinline__ int col_of(int tx, int m) {
+  return 32 * (m >> 2) + 4 * tx + (m & 3);
+}
 
-  float dk[kMaxDim / 4], dv[kMaxDim / 4];
+// s[i][j] = X[own_row(ty, i)] . Y[tx + 8 j] over the first 4 kd4 columns
+// (zero past d), each an fmaf chain from 0 in column order, as the plain
+// version's fp32 product sums it. x and y: tiles at pitch DP + 4; 16-byte
+// loads, each operand read once a 4 x BN/8 micro-tile: a warp's four X
+// rows lie 16 bytes apart and its eight Y rows too, so no bank conflict.
+template <int DP, int BM, int BN>
+__device__ __forceinline__ void scores_fma(float (&s)[4][BN / 8],
+                                           const float* x, const float* y,
+                                           int kd4, int ty, int tx) {
+  constexpr int kP = DP + 4;
 #pragma unroll
-  for (int jj = 0; jj < kMaxDim / 4; ++jj) dk[jj] = dv[jj] = 0.f;
-  const Band band = seg_band(
-      a.seg, q_tiles(blockIdx.x, (sq + kTile - 1) / kTile, a.causal, a.window),
-      bi, blockIdx.x);
-  const SegRows sg = seg_rows(a.seg, true, bi, key, sq, sk);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int kq = 0; kq < kd4; ++kq) {
+    float4 xa[4], yb[BN / 8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      xa[i] = *reinterpret_cast<const float4*>(x + own_row<BM>(ty, i) * kP +
+                                               4 * kq);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      yb[j] = *reinterpret_cast<const float4*>(y + (tx + 8 * j) * kP +
+                                               4 * kq);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        float v = fmaf(xa[i].x, yb[j].x, s[i][j]);
+        v = fmaf(xa[i].y, yb[j].y, v);
+        v = fmaf(xa[i].z, yb[j].z, v);
+        s[i][j] = fmaf(xa[i].w, yb[j].w, v);
+      }
+  }
+}
 
-  for (int qi = band.lo; qi < band.hi; ++qi) {
-    const int q0 = qi * kTile;
-    __syncthreads();
-    load_f32(Qs, qb + (long long)q0 * a.qs.s, a.qs.s, sq - q0, d);
-    load_f32(dOs, ob + (long long)q0 * a.dos.s, a.dos.s, sq - q0, d);
-    for (int t = threadIdx.x; t < kTile; t += kFmaThreads) {
-      const bool in = q0 + t < sq;
-      lse_s[t] = in ? a.lse[head + q0 + t] : kNegInf;
-      delta_s[t] = in ? a.delta[head + q0 + t] : 0.f;
+// The BN-wide rows of a P / dS tile (pitch BN + 8) that a thread wrote:
+// element (i, j) at own_row(ty, i), column tx + 8 j. A warp writes 8 words
+// of four consecutive rows: banks 8 row + tx, no conflict.
+template <int BM, int BN>
+__device__ __forceinline__ void store_tile(float* tile,
+                                           const float (&z)[4][BN / 8],
+                                           int ty, int tx) {
+  constexpr int kPd = BN + 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      tile[own_row<BM>(ty, i) * kPd + tx + 8 * j] = z[i][j];
+}
+
+// acc[i][m] (row own_row(ty, i), column col_of(tx, m)) += Z[row][c]
+// W[c][column] for c = 0.. BN - 1 in order: one fmaf chain per element
+// across the band's tiles, as the plain version's product sums it. Z: a
+// P / dS tile (pitch BN + 8; 16-byte loads of 4 columns of the thread's
+// rows, broadcast across its warp: banks 8 row + c..); W: a streamed tile
+// (pitch DP + 4; a 16-byte load of the 8 tx of a warp covers 32
+// consecutive columns: 128 bytes, no conflict).
+template <int DP, int BM, int BN>
+__device__ __forceinline__ void accumulate_fma(float (&acc)[4][DP / 8],
+                                               const float* z, const float* w,
+                                               int ty, int tx) {
+  constexpr int kP = DP + 4, kPd = BN + 8;
+#pragma unroll 1
+  for (int c4 = 0; c4 < BN; c4 += 4) {
+    float zc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 zq =
+          *reinterpret_cast<const float4*>(z + own_row<BM>(ty, i) * kPd + c4);
+      zc[i][0] = zq.x;
+      zc[i][1] = zq.y;
+      zc[i][2] = zq.z;
+      zc[i][3] = zq.w;
     }
-    __syncthreads();
-    float s[kTile / 4], dpv[kTile / 4];
 #pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) s[jj] = dpv[jj] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float kv = Ks[r * dp + kk], vv = Vs[r * dp + kk];
+    for (int u = 0; u < 4; ++u) {
+      const float* wr = w + (c4 + u) * kP + 4 * tx;
 #pragma unroll
-      for (int jj = 0; jj < kTile / 4; ++jj) {
-        const int c = c4 + 4 * jj;
-        s[jj] = fmaf(kv, Qs[c * dp + kk], s[jj]);
-        dpv[jj] = fmaf(vv, dOs[c * dp + kk], dpv[jj]);
+      for (int g = 0; g < DP / 32; ++g) {
+        const float4 wq = *reinterpret_cast<const float4*>(wr + 32 * g);
+        const float wv[4] = {wq.x, wq.y, wq.z, wq.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][4 * g + e] = fmaf(zc[i][u], wv[e], acc[i][4 * g + e]);
       }
     }
+  }
+}
+
+// A thread's 4 x DP/8 result times `mul` into `out` (contiguous rows of
+// d): rows row0 + own_row(ty, i), none past n rows or d columns
+template <int DP, int BM>
+__device__ __forceinline__ void store_f32(float* out,
+                                          const float (&acc)[4][DP / 8],
+                                          float mul, int row0, int n, int d,
+                                          int ty, int tx) {
 #pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) {
-      const int c = c4 + 4 * jj, qrow = q0 + c;
-      const float l = lse_s[c];
-      const bool valid = qrow < sq &&
-                         visible(qrow, key, sk, a.causal, a.window) &&
-                         sg.sees(0, qrow) && live_row(l);
-      float sv = s[jj] * a.scale;
-      if (bcol != nullptr && valid) sv += __ldg(bcol + qrow * a.bias.sq);
-      const float p = valid ? expf(sv - l) : 0.f;
-      Ps[r * kPLd + c] = p;
-      Ds[r * kPLd + c] = p * (dpv[jj] - delta_s[c]);
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + own_row<BM>(ty, i);
+    if (row >= n) continue;
+    float* o = out + (size_t)row * d;
+#pragma unroll
+    for (int m = 0; m < DP / 8; ++m) {
+      const int col = col_of(tx, m);
+      if (col < d) o[col] = acc[i][m] * mul;
     }
-    __syncwarp();  // a key row's P/dS are written and read by the same lanes
-    for (int c = 0; c < kTile; ++c) {
-      const float p = Ps[r * kPLd + c], ds = Ds[r * kPLd + c];
+  }
+}
+
+// dQ: item w is query tile n_outer - 1 - w / bh (the longest causal band
+// first) of head w % bh; a CTA takes items blockIdx.x, + gridDim.x, ....
+// For each it keeps 16 NW queries (Q, dO) and streams the BN-row key tiles
+// (K, V) of the band: S = Q K^T and dP = dO V^T in 4 x BN/8 micro-tiles,
+// P = exp(scale S + bias - lse) and dS = P (dP - delta) in registers
+// (stored as dbias where a.dbias is given), dS through the warp's rows of
+// a shared tile, dQ += dS K; dQ written once, times scale.
+template <int DP, int NW, int BN>
+__global__ void __launch_bounds__(NW * 32) dq_f32_blocked(const F32Args r) {
+  using L = F32Layout<DP, NW, BN, false>;
+  constexpr int NT = NW * 32, kP = L::kP, BM = L::kRows;
+  const CallArgs& a = r.a;
+  extern __shared__ float smf[];
+  float* qs = smf;
+  float* os = qs + BM * kP;
+  float* ring = smf + L::kRing;
+  float* dst = smf + L::kTiles;  // dS
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+  const int kd4 = (a.d + 3) / 4, nk = (a.sk + BN - 1) / BN;
+  const float inf = __int_as_float(0x7f800000);
+  for (int w = blockIdx.x; w < r.items; w += gridDim.x) {
+    const int bh = w % r.bh, qt = r.n_outer - 1 - w / r.bh;
+    const int bi = bh / a.h, hi = bh - bi * a.h, q0 = qt * BM;
+    const float* qh =
+        static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.h;
+    const float* kh =
+        static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.h;
+    const float* vh =
+        static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
+    const float* oh =
+        static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.h;
+    const Band band =
+        seg_band(a.seg, k_tiles(qt, nk, a.causal, a.window, BM, BN), bi, qt);
+    const int nt = band.hi - band.lo;
+    auto load_stage = [&](int i, int s) {
+      float* to = ring + s * L::kStage;
+      ring_rows<DP, BN, NT>(to, kh, a.ks.s, i * BN, a.sk, a.d, r.vec & 2);
+      ring_rows<DP, BN, NT>(to + BN * kP, vh, a.vs.s, i * BN, a.sk, a.d,
+                            r.vec & 4);
+    };
+    __syncthreads();  // the previous item is done with every tile
+    if (nt > 0) {
+      ring_rows<DP, BM, NT>(qs, qh, a.qs.s, q0, a.sq, a.d, r.vec & 1);
+      ring_rows<DP, BM, NT>(os, oh, a.dos.s, q0, a.sq, a.d, r.vec & 8);
+      load_stage(band.lo, 0);
+    }
+    cp_async_commit();
+
+    const size_t head = (size_t)bh * a.sq;
+    float l[4], dl[4];
+    float* drows[4];
 #pragma unroll
-      for (int jj = 0; jj < kMaxDim / 4; ++jj) {
-        const int col = c4 + 4 * jj;
-        if (col < d) {
-          dv[jj] = fmaf(p, dOs[c * dp + col], dv[jj]);
-          dk[jj] = fmaf(ds, Qs[c * dp + col], dk[jj]);
+    for (int i = 0; i < 4; ++i) {
+      const int q = q0 + own_row<BM>(ty, i);
+      const float lse = q < a.sq ? a.lse[head + q] : kNegInf;
+      l[i] = lse > kNegInf * 0.5f ? lse : inf;  // exp(s - inf) = 0
+      dl[i] = q < a.sq ? a.delta[head + q] : 0.f;
+      drows[i] = a.dbias != nullptr && q < a.sq
+                     ? a.dbias + (head + q) * (size_t)a.sk
+                     : nullptr;
+    }
+    // rows own_row(ty, 2 p) and + 8 share SegRows / BiasLines p
+    SegRows sg[2];
+    BiasLines br[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int q = q0 + own_row<BM>(ty, 2 * p);
+      sg[p] = seg_rows(a.seg, false, bi, q, a.sq, a.sk);
+      br[p] = a.bias.p != nullptr ? bias_rows(a.bias, bi, hi, q, a.sq)
+                                  : BiasLines{{nullptr, nullptr}, 0};
+    }
+    float acc[4][DP / 8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int m = 0; m < DP / 8; ++m) acc[i][m] = 0.f;
+
+    for (int n = 0; n < nt; ++n) {
+      if (n + 1 < nt) load_stage(band.lo + n + 1, (n + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* ks = ring + (n & 1) * L::kStage;
+      const int k0 = (band.lo + n) * BN;
+      const bool edge =
+          !(interior<BN, BM>(q0, k0, a.sk, a.causal, a.window) &&
+            seg_interior(a.seg, sg[0], bi, qt, band.lo + n, k0, BN) &&
+            seg_interior(a.seg, sg[1], bi, qt, band.lo + n, k0, BN));
+      {
+        float s[4][BN / 8], dp[4][BN / 8];
+        scores_fma<DP, BM, BN>(s, qs, ks, kd4, ty, tx);
+        scores_fma<DP, BM, BN>(dp, os, ks + BN * kP, kd4, ty, tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int key = k0 + tx + 8 * j;
+            const BiasLines& b = br[i >> 1];
+            float sv = s[i][j] * a.scale;
+            if (b.r[i & 1] != nullptr && key < a.sk)
+              sv += __ldg(b.r[i & 1] + key * b.s);
+            float p = expf(sv - l[i]);
+            if (edge && !(visible(q0 + own_row<BM>(ty, i), key, a.sk,
+                                  a.causal, a.window) &&
+                          sg[i >> 1].sees(i & 1, key)))
+              p = 0.f;
+            dp[i][j] = p * (dp[i][j] - dl[i]);
+            if (drows[i] != nullptr && key < a.sk) drows[i][key] = dp[i][j];
+          }
+        store_tile<BM, BN>(dst, dp, ty, tx);
+      }
+      __syncwarp();  // a row's dS is written and read by one warp
+      accumulate_fma<DP, BM, BN>(acc, dst, ks, ty, tx);
+      __syncthreads();  // this stage is free for tile n + 2
+    }
+    cp_async_wait<0>();
+    store_f32<DP, BM>(static_cast<float*>(a.dq) + head * a.d, acc, a.scale,
+                      q0, a.sq, a.d, ty, tx);
+  }
+}
+
+// dK/dV: item w is key tile w / bh (under causal, tile 0 has the longest
+// band) of head w % bh. For each a CTA keeps 16 NW keys (K, V) and streams
+// the BN-row query tiles (Q, dO, lse, delta) from the causal start: S^T =
+// K Q^T and dP^T = V dO^T in 4 x BN/8 micro-tiles, P^T and dS^T in
+// registers and through the warp's rows of two shared tiles, dV += P^T dO
+// and dK += dS^T Q; both written once (dK times scale). A key that no
+// query sees gets 0.
+template <int DP, int NW, int BN>
+__global__ void __launch_bounds__(NW * 32) dkv_f32_blocked(const F32Args r) {
+  using L = F32Layout<DP, NW, BN, true>;
+  constexpr int NT = NW * 32, kP = L::kP, BM = L::kRows;
+  const CallArgs& a = r.a;
+  extern __shared__ float smf[];
+  float* ks = smf;
+  float* vs = ks + BM * kP;
+  float* ring = smf + L::kRing;
+  float* pt = smf + L::kTiles;  // P^T, then dS^T
+  float* dst = pt + L::kTile;
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+  const int kd4 = (a.d + 3) / 4, nq = (a.sq + BN - 1) / BN;
+  const float inf = __int_as_float(0x7f800000);
+  for (int w = blockIdx.x; w < r.items; w += gridDim.x) {
+    const int bh = w % r.bh, kt = w / r.bh;
+    const int bi = bh / a.h, hi = bh - bi * a.h, k0 = kt * BM;
+    const float* qh =
+        static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.h;
+    const float* kh =
+        static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.h;
+    const float* vh =
+        static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
+    const float* oh =
+        static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.h;
+    const size_t head = (size_t)bh * a.sq;
+    const Band band =
+        seg_band(a.seg, q_tiles(kt, nq, a.causal, a.window, BN, BM), bi, kt);
+    const int nt = band.hi - band.lo;
+    auto load_stage = [&](int i, int s) {
+      float* to = ring + s * L::kStage;
+      ring_rows<DP, BN, NT>(to, qh, a.qs.s, i * BN, a.sq, a.d, r.vec & 1);
+      ring_rows<DP, BN, NT>(to + BN * kP, oh, a.dos.s, i * BN, a.sq, a.d,
+                            r.vec & 8);
+      if (threadIdx.x < 2 * BN) {  // lse, then delta
+        const int q = i * BN + threadIdx.x % BN;
+        const float* src = (threadIdx.x < BN ? a.lse : a.delta) + head;
+        hopper::cp_async_4(to + 2 * BN * kP + threadIdx.x,
+                           q < a.sq ? src + q : src, q < a.sq);
+      }
+    };
+    __syncthreads();  // the previous item is done with every tile
+    if (nt > 0) {
+      ring_rows<DP, BM, NT>(ks, kh, a.ks.s, k0, a.sk, a.d, r.vec & 2);
+      ring_rows<DP, BM, NT>(vs, vh, a.vs.s, k0, a.sk, a.d, r.vec & 4);
+      load_stage(band.lo, 0);
+    }
+    cp_async_commit();
+
+    SegRows sg[2];
+    BiasLines bc[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int key = k0 + own_row<BM>(ty, 2 * p);
+      sg[p] = seg_rows(a.seg, true, bi, key, a.sq, a.sk);
+      bc[p] = a.bias.p != nullptr ? bias_cols(a.bias, bi, hi, key, a.sk)
+                                  : BiasLines{{nullptr, nullptr}, 0};
+    }
+    float dk[4][DP / 8], dv[4][DP / 8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int m = 0; m < DP / 8; ++m) dk[i][m] = dv[i][m] = 0.f;
+
+    for (int n = 0; n < nt; ++n) {
+      if (n + 1 < nt) load_stage(band.lo + n + 1, (n + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* qs = ring + (n & 1) * L::kStage;
+      const float* dos = qs + BN * kP;
+      const float* st = dos + BN * kP;  // lse, delta of the tile's queries
+      const int q0 = (band.lo + n) * BN;
+      const bool edge =
+          !(q0 + BN <= a.sq &&
+            interior<BM, BN>(q0, k0, a.sk, a.causal, a.window) &&
+            seg_interior(a.seg, sg[0], bi, kt, band.lo + n, q0, BN) &&
+            seg_interior(a.seg, sg[1], bi, kt, band.lo + n, q0, BN));
+      {
+        float s[4][BN / 8], dp[4][BN / 8];
+        scores_fma<DP, BM, BN>(s, ks, qs, kd4, ty, tx);
+        scores_fma<DP, BM, BN>(dp, vs, dos, kd4, ty, tx);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int qi = tx + 8 * j, q = q0 + qi;
+          const float lse = st[qi], delta = st[BN + qi];
+          const float lq = lse > kNegInf * 0.5f ? lse : inf;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const BiasLines& b = bc[i >> 1];
+            float sv = s[i][j] * a.scale;
+            if (b.r[i & 1] != nullptr && q < a.sq)
+              sv += __ldg(b.r[i & 1] + q * b.s);
+            float p = expf(sv - lq);
+            if (edge && !(q < a.sq &&
+                          visible(q, k0 + own_row<BM>(ty, i), a.sk,
+                                  a.causal, a.window) &&
+                          sg[i >> 1].sees(i & 1, q)))
+              p = 0.f;
+            s[i][j] = p;
+            dp[i][j] = p * (dp[i][j] - delta);
+          }
         }
+        store_tile<BM, BN>(pt, s, ty, tx);
+        store_tile<BM, BN>(dst, dp, ty, tx);
       }
+      __syncwarp();  // a key row's P / dS are written and read by one warp
+      accumulate_fma<DP, BM, BN>(dv, pt, dos, ty, tx);
+      accumulate_fma<DP, BM, BN>(dk, dst, qs, ty, tx);
+      __syncthreads();  // this stage is free for tile n + 2
     }
-  }
-  if (key < sk) {
-    const size_t at = ((size_t)(bi * a.h + hi) * sk + key) * d;
-    float* dk_out = static_cast<float*>(a.dk) + at;
-    float* dv_out = static_cast<float*>(a.dv) + at;
-#pragma unroll
-    for (int jj = 0; jj < kMaxDim / 4; ++jj) {
-      const int col = c4 + 4 * jj;
-      if (col < d) {
-        dk_out[col] = dk[jj] * a.scale;
-        dv_out[col] = dv[jj];
-      }
-    }
+    cp_async_wait<0>();
+    const size_t out = (size_t)bh * a.sk * a.d;
+    store_f32<DP, BM>(static_cast<float*>(a.dk) + out, dk, a.scale, k0, a.sk,
+                      a.d, ty, tx);
+    store_f32<DP, BM>(static_cast<float*>(a.dv) + out, dv, 1.f, k0, a.sk,
+                      a.d, ty, tx);
   }
 }
 
@@ -764,30 +1031,77 @@ __global__ void __launch_bounds__(kFmaThreads) bwd_dkv_fma_kernel(FmaArgs a) {
 // launches
 // ---------------------------------------------------------------------------
 
-template <auto Kernel>
-int launch(const FmaArgs& a, int tiles, int b, int threads, size_t smem,
-           cudaStream_t stream) {
-  const int err = set_max_smem<Kernel>(smem);
+// An fp32 kernel over one CTA per item, or (persistent) as many CTAs as fit
+// on the card at once
+template <auto Kernel, size_t kSmem, int kThreads>
+int launch_f32_k(const F32Args& r, int persistent, cudaStream_t stream) {
+  int err = set_max_smem<Kernel>(kSmem);
   if (err) return err;
-  FmaArgs arg = a;
-  void* params[] = {&arg};
-  const cudaError_t launched =
-      cudaLaunchKernel(reinterpret_cast<const void*>(Kernel),
-                       dim3(tiles, a.h, b), dim3(threads), params, smem,
-                       stream);
-  if (launched != cudaSuccess) return (int)launched;
+  int grid = r.items;
+  if (persistent) {
+    static int resident = 0;  // CTAs the card holds at once, per instance
+    if (resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      err = (int)cudaGetDevice(&dev);
+      if (!err)
+        err = (int)cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, dev);
+      if (!err)
+        err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, Kernel, kThreads, kSmem);
+      if (err) return err;
+      resident = sms * (per_sm > 0 ? per_sm : 1);
+    }
+    grid = grid < resident ? grid : resident;
+  }
+  Kernel<<<grid, kThreads, kSmem, stream>>>(r);
   return (int)cudaGetLastError();
 }
 
-int launch_fma(bool dkv, const FmaArgs& a, int b, cudaStream_t stream) {
-  const size_t tile = sizeof(float) * kTile * (a.d + 1);
-  const size_t ptile = sizeof(float) * kTile * kPLd;
-  if (dkv)
-    return launch<bwd_dkv_fma_kernel>(
-        a, (a.sk + kTile - 1) / kTile, b, kFmaThreads,
-        4 * tile + 2 * ptile + 2 * kTile * sizeof(float), stream);
-  return launch<bwd_dq_fma_kernel>(a, (a.sq + kTile - 1) / kTile, b,
-                                   kFmaThreads, 4 * tile + ptile, stream);
+template <int DP, int NW, int BN>
+int launch_dq_f32(const F32Args& r, int persistent, cudaStream_t stream) {
+  return launch_f32_k<dq_f32_blocked<DP, NW, BN>,
+                      F32Layout<DP, NW, BN, false>::kBytes, NW * 32>(
+      r, persistent, stream);
+}
+
+template <int DP, int NW, int BN>
+int launch_dkv_f32(const F32Args& r, int persistent, cudaStream_t stream) {
+  return launch_f32_k<dkv_f32_blocked<DP, NW, BN>,
+                      F32Layout<DP, NW, BN, true>::kBytes, NW * 32>(
+      r, persistent, stream);
+}
+
+// Whether an fp32 operand's rows take 16-byte copies: d % 4 == 0 and its
+// base and (b, h, s) strides on 16 bytes
+bool rows_vec(const void* p, const Strides& s, int d) {
+  return d % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         s.b % 4 == 0 && s.h % 4 == 0 && s.s % 4 == 0;
+}
+
+// fp32: outer_tile rows a CTA (16 a warp), 64 rows a stage (32 for dK/dV
+// above d = 64: tiles_ok has checked them); the 64-wide instances up to
+// d = 64, else 128.
+int launch_f32(bool dkv, const CallArgs& a, int b, int outer_tile,
+               int persistent, cudaStream_t stream) {
+  F32Args r{};
+  r.a = a;
+  r.bh = b * a.h;
+  r.n_outer = ((dkv ? a.sk : a.sq) + outer_tile - 1) / outer_tile;
+  const long long items = (long long)r.bh * r.n_outer;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  r.items = (int)items;
+  r.vec = rows_vec(a.q, a.qs, a.d) | rows_vec(a.k, a.ks, a.d) << 1 |
+          rows_vec(a.v, a.vs, a.d) << 2 | rows_vec(a.dout, a.dos, a.d) << 3;
+  const bool wide = outer_tile == 128;
+  if (!dkv) {
+    if (a.d > 64) return launch_dq_f32<128, 4, 64>(r, persistent, stream);
+    return wide ? launch_dq_f32<64, 8, 64>(r, persistent, stream)
+                : launch_dq_f32<64, 4, 64>(r, persistent, stream);
+  }
+  if (a.d > 64) return launch_dkv_f32<128, 4, 32>(r, persistent, stream);
+  return wide ? launch_dkv_f32<64, 8, 64>(r, persistent, stream)
+              : launch_dkv_f32<64, 4, 64>(r, persistent, stream);
 }
 
 // A resident kernel with its shared memory over `grid` CTAs: one per item,
@@ -881,7 +1195,7 @@ int launch_dbias_finish(const float* ws, float* out, int b, int h, int bb,
 // bf16: the four operand maps and the output maps (out0: dQ or dK, out1:
 // dV; contiguous (b, h, s, d)), then the kernel. inner_tile 64, or 128 for
 // dQ with d <= 64 (dK/dV at 128 spills); persistent: one CTA per SM.
-int launch_res_bwd(bool dkv, const FmaArgs& f, int b, int inner_tile,
+int launch_res_bwd(bool dkv, const CallArgs& f, int b, int inner_tile,
                    int persistent, cudaStream_t stream) {
   ResMaps maps;
   ResBiasArgs r{};
@@ -936,33 +1250,36 @@ int launch_res_bwd(bool dkv, const FmaArgs& f, int b, int inner_tile,
 }
 
 // The tiles a caller names: bf16 kOuter rows kept, 64 streamed (or 128 for
-// dQ with d <= 64), either schedule; fp32 kTile both ways, the plain grid.
+// dQ with d <= 64); fp32 64 rows kept (or 128 with d <= 64), 64 streamed
+// (32 for dK/dV above d = 64: its registers); either schedule.
 bool tiles_ok(bool dkv, int dtype, int d, int outer_tile, int inner_tile,
               int persistent) {
+  if (persistent != 0 && persistent != 1) return false;
   if (dtype == kBF16)
     return outer_tile == kOuter &&
-           (inner_tile == 64 || (inner_tile == 128 && d <= 64 && !dkv)) &&
-           (persistent == 0 || persistent == 1);
-  return dtype == kF32 && outer_tile == kTile && inner_tile == kTile &&
-         persistent == 0;
+           (inner_tile == 64 || (inner_tile == 128 && d <= 64 && !dkv));
+  return dtype == kF32 &&
+         (outer_tile == 64 || (outer_tile == 128 && d <= 64)) &&
+         inner_tile == (dkv && d > 64 ? 32 : 64);
 }
 
-int launch_bwd(bool dkv, const FmaArgs& a, int b, int outer_tile,
+int launch_bwd(bool dkv, const CallArgs& a, int b, int outer_tile,
                int inner_tile, int persistent, int dtype,
                cudaStream_t stream) {
   if (a.d < 1 || a.d > kMaxDim || b < 1 || a.h < 1 || a.sq < 1 || a.sk < 1 ||
       !tiles_ok(dkv, dtype, a.d, outer_tile, inner_tile, persistent))
     return (int)cudaErrorInvalidValue;
-  if (dtype == kF32) return launch_fma(dkv, a, b, stream);
+  if (dtype == kF32)
+    return launch_f32(dkv, a, b, outer_tile, persistent, stream);
   return launch_res_bwd(dkv, a, b, inner_tile, persistent, stream);
 }
 
-FmaArgs make_args(const void* q, const void* k, const void* v,
+CallArgs make_args(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta, int h,
                   int sq, int sk, int d, const long long* st,
                   const void* bias, const long long* bst, float scale,
                   int causal, int window, const SegArgs& seg) {
-  FmaArgs a{};
+  CallArgs a{};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -1001,8 +1318,9 @@ using namespace apex_torch;
 // contiguous fp32, the same buffer as dbias_ws where (bb, bh) == (b, h),
 // else the dbias_finish launch sums the partials into it. window <= 0:
 // none. outer_tile / inner_tile: the rows a CTA keeps and streams;
-// persistent: one CTA per SM walking the items (bf16: 128 / 64, or 128 for
-// dQ with d <= 64 / 0 or 1; fp32: 64 / 64 / 0). bf16 reads q/k/v/dout and
+// persistent: as many CTAs as the card holds, walking the items (bf16: 128
+// / 64, or 128 for dQ with d <= 64 / 0 or 1; fp32: 64 or 128 (d <= 64) /
+// 64, or 32 for dK/dV above d = 64 / 0 or 1). bf16 reads q/k/v/dout and
 // writes dq by TMA: 16-byte-aligned bases and strides, d % 8 == 0. qseg /
 // kseg: int32 (b, sq) / (b, sk) segment ids or null; bounds and ranges
 // (both null: mask only), omm, imm: their (b, 2, n) metadata at outer_tile /
@@ -1028,7 +1346,7 @@ extern "C" int apex_flash_bwd_dq(
         (bh != 1 && bh != h))) ||
       !seg_ok(qseg, kseg, bounds, omm, imm, ranges))
     return (int)cudaErrorInvalidValue;
-  FmaArgs a = make_args(
+  CallArgs a = make_args(
       q, k, v, dout, lse, delta, h, sq, sk, d, st, bias, bst, scale, causal,
       window, make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
                        sq, sk, outer_tile, inner_tile));
@@ -1060,7 +1378,7 @@ extern "C" int apex_flash_bwd_dkv(
   const long long bst[4] = {bsb, bsh, bsq, bsk};
   if (!seg_ok(qseg, kseg, bounds, omm, imm, ranges))
     return (int)cudaErrorInvalidValue;
-  FmaArgs a = make_args(
+  CallArgs a = make_args(
       q, k, v, dout, lse, delta, h, sq, sk, d, st, bias, bst, scale, causal,
       window, make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
                        sk, sq, outer_tile, inner_tile));

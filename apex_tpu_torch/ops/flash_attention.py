@@ -16,7 +16,9 @@ forward is always followed by the streamed backward.
   ``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``):
   in bf16 wgmma kernels fed by TMA, one CTA per outer tile over its whole
   band (:func:`_res_bwd_bands`), writing each gradient once with no
-  workspace and no atomics; in fp32 FMA kernels. Causal or non-causal, with
+  workspace and no atomics; in fp32 register-blocked FMA kernels fed by a
+  cp.async ring (:func:`_res_bwd_tiles`), also writing each gradient
+  once. Causal or non-causal, with
   the additive ``bias`` (read in place, 0 strides on its broadcast dims) and
   its gradient from the dQ pass (:func:`flash_attention_bwd_dq`).
 - Streamed (``stream=True``): the three kernels of
@@ -112,10 +114,19 @@ BWD_SPLIT_TILES = 128
 #: BWD_INNER_TILE rows for dK/dV (at 128 its kernel spills registers).
 #: RES_BWD_PERSISTENT launches one CTA per SM walking the (outer tile,
 #: head) items longest band first, else one CTA per item in that order.
-#: Both chosen on the card (PERF.md). The fp32 kernels keep STREAM_TILE
-#: rows both ways, one CTA per item.
+#: Both chosen on the card (PERF.md).
 RES_BWD_DQ_INNER_TILE = 128
 RES_BWD_PERSISTENT = True
+#: the resident backward in fp32 (dq_f32_blocked / dkv_f32_blocked in
+#: csrc/flash_attention_bwd.cu: register-blocked FMA): a CTA keeps
+#: RES_BWD_F32_OUTER_TILE rows (16 a warp; 64 where d > 64) and streams the
+#: 64-row inner tiles of its band (32-row query tiles for dK/dV where
+#: d > 64: its registers) through a two-stage cp.async ring.
+#: RES_BWD_F32_PERSISTENT launches as many CTAs as the card holds, walking
+#: the items longest band first, else one CTA per item in that order. Both
+#: chosen on the card (PERF.md).
+RES_BWD_F32_OUTER_TILE = 128
+RES_BWD_F32_PERSISTENT = False
 #: the dQ inner tile where an additive bias joins S (d <= 64): its kernel
 #: instance holds the bias values of a tile in registers too, and at 128
 #: rows it spills (chosen on the card, PERF.md)
@@ -624,22 +635,36 @@ def _res_bwd_inner(inner_is_k: bool, d: int, bias: bool = False) -> int:
     return BWD_INNER_TILE
 
 
+def _res_bwd_tiles(bf16: bool, inner_is_k: bool, d: int,
+                   bias: bool = False) -> Tuple[int, int, int]:
+    """The launch arguments after ``causal``, before the dtype, of a
+    resident pass (dQ when ``inner_is_k``) at the head_dim ``d`` the kernel
+    sees: (outer tile, inner tile, persistent). bf16: BWD_OUTER_TILE, the
+    pass's inner tile (:func:`_res_bwd_inner`), RES_BWD_PERSISTENT; fp32:
+    RES_BWD_F32_OUTER_TILE (64 where d > 64), 64 (32 for dK/dV where
+    d > 64), RES_BWD_F32_PERSISTENT."""
+    if bf16:
+        return (BWD_OUTER_TILE, _res_bwd_inner(inner_is_k, d, bias),
+                int(RES_BWD_PERSISTENT))
+    wide = d <= 64
+    inner = 64 if inner_is_k or wide else 32
+    return (RES_BWD_F32_OUTER_TILE if wide else 64, inner,
+            int(RES_BWD_F32_PERSISTENT))
+
+
 def _res_bwd_launch(q, k, v, do, lse, delta, name, inner_is_k, bias=False):
     """Check the operands of a resident backward kernel and pick its route:
     bf16 takes the wgmma kernels (operands TMA can read,
-    :func:`_tma_operands`; BWD_OUTER_TILE rows kept, the pass's inner tile
-    streamed (:func:`_res_bwd_inner`), RES_BWD_PERSISTENT), fp32 the FMA
-    kernels (STREAM_TILE both ways). Returns the operands, lse/delta, the
-    head_dim the kernel sees, the strides and the launch arguments after
+    :func:`_tma_operands`), fp32 the register-blocked FMA kernels; both at
+    :func:`_res_bwd_tiles`. Returns the operands, lse/delta, the head_dim
+    the kernel sees, the strides and the launch arguments after
     ``causal``, before the dtype: (outer tile, inner tile, persistent)."""
     (q, k, v, do), (lse, delta), _, (b, h, sq, sk, d) = _bwd_args(
         q, k, v, do, lse, delta, name)
-    if q.dtype == torch.bfloat16:
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
         (q, k, v, do), d = _tma_operands([q, k, v, do])
-        tiles = (BWD_OUTER_TILE, _res_bwd_inner(inner_is_k, d, bias),
-                 int(RES_BWD_PERSISTENT))
-    else:
-        tiles = (STREAM_TILE, STREAM_TILE, 0)
+    tiles = _res_bwd_tiles(bf16, inner_is_k, d, bias)
     strides = [st for t in (q, k, v, do) for st in t.stride()[:3]]
     return (q, k, v, do), (lse, delta), d, strides, tiles
 

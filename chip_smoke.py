@@ -41,8 +41,12 @@ Ten phases; any failure raises and exits non-zero:
    backward's schedule and dQ inner tile against the values tried, the
    softmax forward's warp route against its CTA route at 1024 and 2048
    columns, the LayerNorm pair's rows (warps) a CTA, CTAs an SM and
-   warp caps, and the decode pair's split count against the values tried)
-   and the least time the card could take. The additive bias on the
+   warp caps, the fp32 resident backward's schedule and tiles at F =
+   (4,16,1024,64), and the decode pair's split count against the values
+   tried) and the least time the card could take. The fp32 resident
+   backward pair (register-blocked FMA) at F with a halved dQ tail caught
+   and two calls bit-identical, at d = 6, 16, 36, 40 and 128, cross
+   shapes, the fused-QKV view and views off 16 bytes (its 4-byte copies). The additive bias on the
    resident flash kernels #1, #5 and #6 (:func:`check_flash_bias`): BERT's
    padding bias from ``extended_attention_mask`` at (16,16,512,64) bf16,
    dense biases with dbias broadcast over the batch, the heads or both
@@ -154,9 +158,12 @@ Ten phases; any failure raises and exits non-zero:
    example's default 3e-4 are reported beside them); (b)
    ``build(opt_level="O0")`` for 3 steps on
    one batch (fp32 routes of #1, #5, #6, #7, #8: launches, a falling
-   loss), then each of those fp32 routes at this shape against its plain
-   version and timed beside the bound, the plain version and the library
-   call; (c) remat_policy full, save_attn and dots: the first step's loss
+   loss, the step beside the one with the fp32 backward pair on FMA
+   kernels), the same 11 steps as (a) at O0 and lr 3e-4 (the first
+   batch's loss before and after, reported beside O2's), then each of
+   those fp32 routes at this shape against its plain version and timed
+   beside the bound, the plain version and the library call (SDPA's fp32
+   backward with its backend by name); (c) remat_policy full, save_attn and dots: the first step's loss
    and grads against full's, exact launches (#1 L*M a step under
    save_attn), step time and peak memory; (d) ``generate_gpt.run`` (fp32)
    from the checkpoint: plain, prefix cache + speculative, 256-token
@@ -194,7 +201,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tfloat32": 495e12}
 
 
 def check(cond, msg):
@@ -1092,6 +1099,7 @@ def check_flash_attention_bwd(torch, ops, dev):
     cases = [  # b, h, sq, sk, d, dtype, causal
         (8, 16, 1024, 1024, 64, bf16, True),
         (8, 16, 1024, 1024, 64, f32, True),
+        (4, 16, 1024, 1024, 64, f32, True),    # F: the O0 pretrain's shape
         (2, 16, 1024, 1024, 64, bf16, False),
         (2, 3, 77, 300, 64, bf16, False),
         (1, 2, 300, 77, 64, bf16, True),
@@ -1102,24 +1110,35 @@ def check_flash_attention_bwd(torch, ops, dev):
         (2, 2, 100, 120, 36, bf16, False),
         (1, 4, 130, 130, 40, f32, True),
         (2, 3, 200, 150, 32, bf16, True),      # d <= 32: the 64-wide kernels
+        (1, 4, 256, 256, 128, f32, True),      # fp32: the 128-wide kernels
+        (2, 3, 100, 120, 36, f32, False),
+        (2, 3, 200, 150, 16, f32, True),
+        (2, 2, 90, 70, 6, f32, True),          # fp32: 4-byte copies
     ]
     main_err = None
     for b, h, sq, sk, d, dt, causal in cases:
         q = torch.randn(b, h, sq, d, device=dev, generator=gen).to(dt)
         k = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
         v = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
-        at_t = (b, sq, dt) == (8, 1024, bf16)
-        ragged = (b, h, sq, sk, dt, causal) == (1, 2, 300, 77, bf16, True)
+        at_t = (b, sq, dt) == (8, 1024, bf16) or (b, sq, dt) == (4, 1024,
+                                                                  f32)
+        ragged = (b, h, sq, sk) == (1, 2, 300, 77)
         err = run(q, k, v, causal, f"b={b} h={h} sq={sq} sk={sk} d={d} "
                   f"{str(dt)[6:]} causal={causal}", plant=at_t,
                   twice=at_t or ragged)
         if main_err is None:
             main_err = err
     # a fused-QKV view (strided heads), as the model hands them over
-    qkv = torch.randn(2, 256, 4, 3, 64, device=dev, generator=gen).to(bf16)
-    qkv = qkv.permute(0, 2, 3, 1, 4)
-    run(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True,
-        "strided fused-QKV view (2,4,256,64) bf16 causal")
+    for dt in (bf16, f32):
+        qkv = torch.randn(2, 256, 4, 3, 64, device=dev, generator=gen).to(dt)
+        qkv = qkv.permute(0, 2, 3, 1, 4)
+        run(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True,
+            f"strided fused-QKV view (2,4,256,64) {str(dt)[6:]} causal")
+    # fp32 rows off 16 bytes (a view one element in): the 4-byte copies
+    wide = torch.randn(3, 2, 2, 150, 65, device=dev, generator=gen)
+    run(wide[0, ..., 1:], wide[1, ..., 1:], wide[2, ..., 1:], False,
+        "views off 16 bytes (2,2,150,64) float32 non-causal")
+    f32_tuning = res_bwd_f32_tuning(torch, ops, tfa, dev, gen)
 
     b, h, s, d = 8, 16, 1024, 64
     q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=gen).to(bf16)
@@ -1190,18 +1209,27 @@ def check_flash_attention_bwd(torch, ops, dev):
     common = dict(route="cuda", source="apex_tpu_torch/csrc/"
                   "flash_attention_bwd.cu", max_abs_err=main_err,
                   plain_ms=plain, library_ms=lib_pair,
-                  res_bwd_tuning=tuning)
+                  res_bwd_tuning=tuning, res_bwd_f32_tuning=f32_tuning)
+    f32_tiles = {p: tfa._res_bwd_tiles(False, p == "dq", 64)
+                 for p in ("dq", "dkv")}
+    blocked = ("register-blocked FMA fed by a cp.async ring, "
+               + ("persistent" if tfa.RES_BWD_F32_PERSISTENT else "plain")
+               + " grid, fp32 stored once")
     ring = ("wgmma fed by a TMA ring, one CTA per whole band, "
             + ("persistent" if tfa.RES_BWD_PERSISTENT else "plain")
             + " grid, bf16 stored once by TMA")
     return [dict(common, name="flash_attention_bwd_dq",
                  kernel=f"dq_resident_wgmma<64, {tfa.RES_BWD_DQ_INNER_TILE}>"
-                        f" ({ring})",
+                        f" ({ring}); fp32 dq_f32_blocked<64, "
+                        f"{f32_tiles['dq'][0] // 16}, {f32_tiles['dq'][1]}> "
+                        f"({blocked})",
                  replaces="apex_tpu/ops/flash_attention.py:328", ms=ms_dq,
                  bound_ms=dq_bound[0], bound_by=dq_bound[1]),
             dict(common, name="flash_attention_bwd_dkv",
                  kernel=f"dkv_resident_wgmma<64, {tfa.BWD_INNER_TILE}> "
-                        f"({ring})",
+                        f"({ring}); fp32 dkv_f32_blocked<64, "
+                        f"{f32_tiles['dkv'][0] // 16}, {f32_tiles['dkv'][1]}>"
+                        f" ({blocked})",
                  replaces="apex_tpu/ops/flash_attention.py:411", ms=ms_dkv,
                  bound_ms=dkv_bound[0], bound_by=dkv_bound[1])]
 
@@ -1802,6 +1830,45 @@ def res_bwd_tuning(torch, ops, tfa, args, kw, tiles=(64, 128)):
     return {"chosen": {"persistent": chosen[0], "dq_inner_tile": chosen[1],
                        "dkv_inner_tile": tfa.BWD_INNER_TILE},
             "T_ms": times}
+
+
+def res_bwd_f32_tuning(torch, ops, tfa, dev, gen):
+    """The schedule and the outer tile of the fp32 resident backward
+    (RES_BWD_F32_PERSISTENT, RES_BWD_F32_OUTER_TILE) against the values
+    tried, at F = (4,16,1024,64) causal: device times of dQ and of dK/dV
+    at each outer tile (over 64-row inner tiles) on the plain grid and the
+    persistent one, on one line; returned for the ``kernels`` line
+    (``res_bwd_f32_tuning``)."""
+    q, k, v, do = (torch.randn(4, 16, 1024, 64, device=dev, generator=gen)
+                   for _ in range(4))
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+    args = (q, k, v, do, lse, (o * do).sum(-1))
+    kw = dict(causal=True, scale=0.125)
+    chosen = (tfa.RES_BWD_F32_PERSISTENT, tfa.RES_BWD_F32_OUTER_TILE)
+    times = {}
+    try:
+        for persistent in (False, True):
+            tfa.RES_BWD_F32_PERSISTENT = persistent
+            t = {"dq": {}, "dkv": {}}
+            for outer in (64, 128):
+                tfa.RES_BWD_F32_OUTER_TILE = outer
+                t["dq"][outer] = time_ms(
+                    lambda: ops.flash_attention_bwd_dq(*args, **kw))
+                t["dkv"][outer] = time_ms(
+                    lambda: ops.flash_attention_bwd_dkv(*args, **kw))
+            times["persistent" if persistent else "grid"] = t
+    finally:
+        tfa.RES_BWD_F32_PERSISTENT, tfa.RES_BWD_F32_OUTER_TILE = chosen
+    print(f"  RES_BWD_F32_PERSISTENT = {chosen[0]}, RES_BWD_F32_OUTER_TILE "
+          f"= {chosen[1]} (chosen); ms at F (4,16,1024,64) fp32 causal by "
+          f"schedule and outer tile: " + "; ".join(
+              f"{sched}: dQ " + ", ".join(f"{k}: {v:.4f}"
+                                          for k, v in t["dq"].items())
+              + ", dK/dV " + ", ".join(f"{k}: {v:.4f}"
+                                       for k, v in t["dkv"].items())
+              for sched, t in times.items()) + f"; {nvidia_smi()}")
+    return {"chosen": {"persistent": chosen[0], "outer_tile": chosen[1]},
+            "F_ms": times}
 
 
 def visible_pairs(sq, sk, causal, window):
@@ -4511,22 +4578,35 @@ def pretrain_save_resume(torch, ops, dev, ckpt_dir):
     return counts, peak
 
 
-def pretrain_default_lr(torch, dev):
-    """The pretrain example at its default lr 3e-4 for 11 steps, then the
-    stream's first batch again: its loss before and after, beside (a)'s at
-    lr 1e-4. Reported, not a check."""
+def pretrain_default_lr(torch, dev, opt_level="O2", beside=None):
+    """The pretrain example at ``opt_level`` and its default lr 3e-4 for 11
+    steps (the batches of (a)), then the stream's first batch again: its
+    loss before and after, beside ``beside`` (O2's (before, after)).
+    Reported, not a check. Returns (before, after)."""
     from apex_tpu_torch.examples.gpt import pretrain_gpt
 
-    argv = PRETRAIN_345M + ["--lr", "3e-4"]
+    argv = PRETRAIN_345M + ["--lr", "3e-4", "--opt-level", opt_level]
     res = pretrain_gpt.run(argv + ["--steps", "11"])
     toks, tgts = next(pretrain_gpt.batches(pretrain_gpt.parse_args(argv),
                                            res["bench"].batch))
     after = float(res["bench"].step(toks, tgts)[0])
-    print(f"  (a) at the example's default lr 3e-4: the first batch's loss "
-          f"{res['losses'][0]:.4f} before and {after:.4f} after 11 steps; "
-          f"the steps' losses {[round(x, 4) for x in res['losses']]}")
+    before = res["losses"][0]
+    other = ("" if beside is None else
+             f" (O2 at 3e-4: {beside[0]:.4f} before, {beside[1]:.4f} after)")
+    print(f"  ({'a' if opt_level == 'O2' else 'b'}) {opt_level} at the "
+          f"example's default lr 3e-4: the first batch's loss {before:.4f} "
+          f"before and {after:.4f} after 11 steps{other}; the steps' losses "
+          f"{[round(x, 4) for x in res['losses']]}")
     del res
+    gc.collect()
     torch.cuda.empty_cache()
+    return before, after
+
+
+#: the O0 step (host clock, 3 steps on one batch, the first included) with
+#: the fp32 backward pair on FMA kernels, on an H100 80GB HBM3 at 700 W
+#: (PERF.md), printed beside this run's
+O0_STEP_FMA_PAIR_MS = 966.5
 
 
 def pretrain_o0(torch, ops, dev):
@@ -4554,7 +4634,9 @@ def pretrain_o0(torch, ops, dev):
     counts = ops.launch_counts()
     per_step = pretrain_per_step(L, 2)
     print(f"  (b) pretrain_gpt 345M O0 (fp32): {steps} steps on one batch, "
-          f"{wall:.1f} ms a step (host clock, the first step included), "
+          f"{wall:.1f} ms a step (host clock, the first step included; "
+          f"{O0_STEP_FMA_PAIR_MS} ms with the fp32 backward pair on FMA "
+          f"kernels), "
           f"losses {[round(x, 4) for x in losses]}, launches {counts}")
     check_counts(counts, expected_counts(counts, steps, per_step),
                  "gpt_pretrain_o0")
@@ -4573,13 +4655,38 @@ FP32_TOL = {"flash_attention_fwd": 5e-5, "flash_attention_bwd_dq": 1e-4,
             "layer_norm_bwd": 1e-4}
 
 
+def split_tf32_bound(nbytes, flops):
+    """(bound_ms, bound_by) of fp32 work done as split TF32: three TF32
+    products per fp32 product at 495 TFLOP/s, or the bytes."""
+    return bound(nbytes, 3 * flops, "tfloat32")
+
+
+def sdpa_backward_backend(torch, out, inputs, grad):
+    """SDPA's backward as it ran: the ``grad_fn`` of its output and the
+    device kernels of one ``autograd.grad`` under the profiler, by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, inputs, grad, retain_graph=True)
+        torch.cuda.synchronize()
+    by_name = device_time_by_kernel(torch, prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:3]
+    return {"grad_fn": type(out.grad_fn).__name__,
+            "kernels": [f"{name[:120]} ({t / 1e3:.4f} ms)"
+                        for name, (_, t) in top] or "not captured"}
+
+
 def fp32_train_times(torch, ops, dev):
     """The fp32 routes of #1, #5, #6, #7 and #8 at the O0 pretrain's
     shapes (attention (4,16,1024,64), LayerNorm 4096 x 1024): each against
     its plain version (share of max |ref|, :data:`FP32_TOL`), then its time by
-    CUDA-graph replay beside the bound (67 TFLOP/s fp32, 3.35 TB/s), the
-    plain version and the library call (SDPA forward, SDPA's backward by
-    autograd.grad, F.layer_norm, aten.native_layer_norm_backward)."""
+    CUDA-graph replay beside the bound (67 TFLOP/s fp32, 3.35 TB/s; for #5
+    and #6 also the same work as split TF32, three products at 495
+    TFLOP/s), the plain version and the library call (SDPA forward, SDPA's
+    backward by autograd.grad with its backend by name, F.layer_norm,
+    aten.native_layer_norm_backward)."""
     import torch.nn.functional as F
 
     f32 = torch.float32
@@ -4614,12 +4721,16 @@ def fp32_train_times(torch, ops, dev):
             ms=time_ms(lambda: ops.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, **kw)),
             bound=bound(5 * elems * 4 + 2 * b * h * s * 4, 6 * d * pairs,
-                        "float32")),
+                        "float32"),
+            bound_tf32=split_tf32_bound(5 * elems * 4 + 2 * b * h * s * 4,
+                                        6 * d * pairs)),
         "flash_attention_bwd_dkv": dict(
             ms=time_ms(lambda: ops.flash_attention_bwd_dkv(
                 q, k, v, do, lse, delta, **kw)),
             bound=bound(6 * elems * 4 + 2 * b * h * s * 4, 8 * d * pairs,
-                        "float32"))}
+                        "float32"),
+            bound_tf32=split_tf32_bound(6 * elems * 4 + 2 * b * h * s * 4,
+                                        8 * d * pairs))}
     plain_bwd = time_ms(lambda: ops.flash_attention_bwd_reference(
         q, k, v, o, lse, do, **kw), 2, 2)
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
@@ -4630,8 +4741,34 @@ def fp32_train_times(torch, ops, dev):
     torch.cuda.synchronize()
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         out, (ql, kl, vl), do, retain_graph=True), stream=side)
+    backend = sdpa_backward_backend(torch, out, (ql, kl, vl), do)
+    # how near SDPA's own fp32 grads come to the plain backward, beside the
+    # port's: context for the limits the port is held to, not a check
+    lib_grads = torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
+    near = "; ".join(
+        f"{n}: SDPA {rel_err(g, r):.3g} of max |ref|, worst row "
+        f"{row_err(g, r):.3g}; the port {rel_err(p, r):.3g}, {row_err(p, r):.3g}"
+        for n, g, p, r in zip(("dQ", "dK", "dV"), lib_grads, (dq, dk, dv),
+                              (rq, rk, rv)))
+    print(f"  (b) fp32 grads at F against the plain backward: {near}")
+    del lib_grads
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        times[name].update(plain_ms=plain_bwd, library_ms=lib_bwd)
+        times[name].update(plain_ms=plain_bwd, library_ms=lib_bwd,
+                           library=backend)
+    pair = (times["flash_attention_bwd_dq"]["ms"]
+            + times["flash_attention_bwd_dkv"]["ms"])
+    print(f"  (b) the fp32 backward pair at F (4,16,1024,64) causal: dQ "
+          f"{times['flash_attention_bwd_dq']['ms']:.4f} + dK/dV "
+          f"{times['flash_attention_bwd_dkv']['ms']:.4f} = {pair:.4f} ms "
+          f"against SDPA's fp32 backward (dQ, dK, dV) {lib_bwd:.4f} ms "
+          f"(autograd.grad through {backend['grad_fn']}; its kernels "
+          f"{backend['kernels']}); bounds dQ "
+          f"{times['flash_attention_bwd_dq']['bound'][0]:.4f} ms as FMA at "
+          f"67 TFLOP/s, "
+          f"{times['flash_attention_bwd_dq']['bound_tf32'][0]:.4f} ms as "
+          f"split TF32 (three products at 495); dK/dV "
+          f"{times['flash_attention_bwd_dkv']['bound'][0]:.4f} / "
+          f"{times['flash_attention_bwd_dkv']['bound_tf32'][0]:.4f} ms")
     del q, k, v, do, o, lse, ref_o, dq, dk, dv, rq, rk, rv, out, ql, kl, vl
     torch.cuda.empty_cache()
 
@@ -4665,6 +4802,8 @@ def fp32_train_times(torch, ops, dev):
                     "float32"))
     for name, t in times.items():
         t["bound_ms"], t["bound_by"] = t.pop("bound")
+        if "bound_tf32" in t:
+            t["bound_tf32_ms"] = t.pop("bound_tf32")[0]
         t["max_rel_err"] = errs[name]
         print(f"  (b) {name} fp32 route at the O0 pretrain shape: share of "
               f"max |ref| {errs[name]:.3g} (tol {FP32_TOL[name]:g}); kernel "
@@ -5048,8 +5187,9 @@ def gpt_examples(torch, ops, dev):
     try:
         counts, a_peak = pretrain_save_resume(torch, ops, dev, ckpt)
         by_path = {"gpt_pretrain": counts}
-        pretrain_default_lr(torch, dev)
+        o2_lr = pretrain_default_lr(torch, dev)
         by_path["gpt_pretrain_o0"] = pretrain_o0(torch, ops, dev)
+        pretrain_default_lr(torch, dev, "O0", o2_lr)
         fp32 = {k: {"fp32 O0 pretrain": v}
                 for k, v in fp32_train_times(torch, ops, dev).items()}
         by_path.update(remat_policies(torch, ops, dev, a_peak))
@@ -5175,6 +5315,7 @@ def main():
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "by_shape", "bias_route",
             "launch_floor_ms", "segments", "res_fwd_tuning", "res_bwd_tuning",
+            "res_bwd_f32_tuning",
             "warp_tuning", "ln_tuning", "decode_tuning")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
@@ -5393,11 +5534,22 @@ def flash_times(torch, ops, dev):
     """The times of the flash kernels with no bias and no segment ids in
     bf16: the resident #1 at S = (1,16,1024,64) and T = (8,16,1024,64)
     causal, #5 and #6 at T, all three at BERT's (16,16,512,64)
-    non-causal, and the streamed #2-#4 at L = (1,16,8192,64) causal
-    (``python3 chip_smoke.py --flash-times TREE``: the port of TREE; run it
-    for the parent and this tree in turns to compare them on one card)."""
+    non-causal, and the streamed #2-#4 at L = (1,16,8192,64) causal; #5 and
+    #6 in fp32 at F = (4,16,1024,64) causal (``python3 chip_smoke.py
+    --flash-times TREE``: the port of TREE; run it for the parent and this
+    tree in turns to compare them on one card)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {}
+    q, k, v, do = (torch.randn(4, 16, 1024, 64, device=dev, generator=gen)
+                   for _ in range(4))
+    kw = dict(causal=True, scale=0.125)
+    o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    delta = (o * do).sum(-1)
+    out["dq_f32_F"] = time_ms(lambda: ops.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, **kw))
+    out["dkv_f32_F"] = time_ms(lambda: ops.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, **kw))
+    del q, k, v, do, o, lse, delta
     q, k, v, do = (torch.randn(1, 16, 8192, 64, device=dev,
                                generator=gen).to(torch.bfloat16)
                    for _ in range(4))
@@ -5432,9 +5584,10 @@ def flash_times(torch, ops, dev):
 
 
 def sass_counts(tree):
-    """``python3 chip_smoke.py --sass TREE``: per flash wgmma kernel of
-    TREE's built library, its SASS instruction count and the MUFU (exp2),
-    LDG and local-memory (LDL, STL) instructions among them, from
+    """``python3 chip_smoke.py --sass TREE``: per flash wgmma kernel and
+    fp32 register-blocked kernel of TREE's built library, its SASS instruction
+    count and the MUFU (exp2), LDG, HMMA, FFMA and local-memory (LDL, STL)
+    instructions among them, from
     ``cuobjdump -sass``: how a change's instances compare with the parent's
     instruction for instruction (a layout change of an argument struct has
     changed ptxas's code duplication and cost 15%; PERF.md)."""
@@ -5455,7 +5608,8 @@ def sass_counts(tree):
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if "wgmma" in m.group(1) else None
+            fn = m.group(1) if ("wgmma" in m.group(1)
+                                or "f32_blocked" in m.group(1)) else None
             if fn:
                 counts[fn] = collections.Counter()
             continue
@@ -5464,7 +5618,7 @@ def sass_counts(tree):
             line)
         if fn and m:
             counts[fn]["instructions"] += 1
-            if m.group(2) in ("MUFU", "LDG", "LDL", "STL"):
+            if m.group(2) in ("MUFU", "LDG", "HMMA", "FFMA", "LDL", "STL"):
                 counts[fn][m.group(2)] += 1
     print(json.dumps({"tree": tree, "sass": {k: dict(v) for k, v in
                                              counts.items()}}))

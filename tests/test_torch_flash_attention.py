@@ -281,6 +281,106 @@ def test_resident_bands_at_the_cards_tiles():
         == 64
 
 
+def test_fp32_route_tiles_follow_their_own_constants(monkeypatch):
+    """The fp32 resident pair's launch tiles come from its own constants
+    (RES_BWD_F32_OUTER_TILE and RES_BWD_F32_PERSISTENT; 64-row inner
+    tiles, and above d = 64 64 rows kept and 32-row query tiles for
+    dK/dV), not from the streamed kernels' STREAM_TILE; bf16 keeps its
+    own."""
+    def tiles():
+        return [tfa._res_bwd_tiles(False, dq, d) for d in (64, 128)
+                for dq in (True, False)]
+
+    o, p = tfa.RES_BWD_F32_OUTER_TILE, int(tfa.RES_BWD_F32_PERSISTENT)
+    assert tiles() == [(o, 64, p), (o, 64, p), (64, 64, p), (64, 32, p)]
+    monkeypatch.setattr(tfa, "STREAM_TILE", 16)
+    assert tiles() == [(o, 64, p), (o, 64, p), (64, 64, p), (64, 32, p)]
+    monkeypatch.setattr(tfa, "RES_BWD_F32_OUTER_TILE", 192 - o)
+    monkeypatch.setattr(tfa, "RES_BWD_F32_PERSISTENT", not p)
+    assert tiles() == [(192 - o, 64, 1 - p), (192 - o, 64, 1 - p),
+                       (64, 64, 1 - p), (64, 32, 1 - p)]
+    assert tfa._res_bwd_tiles(True, True, 64) == (
+        tfa.BWD_OUTER_TILE, tfa.RES_BWD_DQ_INNER_TILE,
+        int(tfa.RES_BWD_PERSISTENT))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dq_pass", [True, False])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(1024, 1024), (300, 77), (77, 300),
+                                   (200, 150)])
+def test_fp32_resident_bands_at_the_cards_tiles(sq, sk, causal, dq_pass, d):
+    """At the fp32 pair's tiles (_res_bwd_tiles, the card's constants) the
+    bands the kernels walk (_res_bwd_bands, k_tiles / q_tiles in
+    csrc/flash_bwd_wgmma.cuh) equal the JAX kernels' loop limits at those
+    tiles, and every visible pair lies in exactly one (outer tile, inner
+    tile of its band)."""
+    outer, inner, _ = tfa._res_bwd_tiles(False, dq_pass, d)
+    blk_q, blk_k = (outer, inner) if dq_pass else (inner, outer)
+    bands = tfa._res_bwd_bands(sq, sk, causal, dq_pass, outer, inner)
+    assert bands == _jax_loop_limits(sq, sk, causal, blk_q, blk_k, dq_pass)
+    covered = np.zeros((sq, sk), np.int32)
+    for t, (lo, hi) in enumerate(bands):
+        for i in range(lo, hi):
+            rows = slice(t * outer, (t + 1) * outer)
+            cols = slice(i * inner, (i + 1) * inner)
+            if dq_pass:
+                covered[rows, cols] += 1
+            else:
+                covered[cols, rows] += 1
+    visible = np.tril(np.ones((sq, sk), bool)) if causal else \
+        np.ones((sq, sk), bool)
+    assert np.all(covered[visible] == 1) and covered.max() <= 1
+
+
+@pytest.mark.parametrize("pad", [None, 9])
+@pytest.mark.parametrize("dq_pass", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_segment_tables_at_the_cards_tiles(d, dq_pass, pad):
+    """The segment arguments _seg_args builds at the fp32 pair's tiles
+    (contiguous ids with a pad suffix, ragged ends) against _seg_valid:
+    every pair with equal non-pad ids lies in its outer tile's bounds; a
+    block whose (min, max) tables name one non-pad id on both sides (the
+    kernels' seg_uniform: no test) holds only valid pairs; and each own
+    row's range is exactly the other side's rows it may see."""
+    sq, sk = 128, 100
+    q_ids = torch.from_numpy(_seg_ids(sq))
+    k_ids = torch.from_numpy(_seg_ids(sk))
+    q = torch.zeros(2, 1, sq, d)
+    k = torch.zeros(2, 1, sk, d)
+    seg = tfa._as_seg((q_ids, k_ids), pad, True, q, k)
+    outer, inner, _ = tfa._res_bwd_tiles(False, dq_pass, d)
+    ptrs, keep = tfa._seg_args(seg, outer, inner, dq_pass)
+    assert ptrs[-2:] == (0 if pad is None else pad, int(pad is not None))
+    _, _, bounds, omm, imm, ranges = keep
+    valid = tfa._seg_valid(seg, 0, 0, sq, sk)[:, 0]
+    if not dq_pass:
+        valid = valid.transpose(1, 2)  # (b, own rows = keys, queries)
+    n_own, n_other = valid.shape[1:]
+    assert bounds.shape == omm.shape == (2, 2, -(-n_own // outer))
+    assert imm.shape == (2, 2, -(-n_other // inner))
+    assert ranges.shape == (2, 2, n_own)
+    own_ids = seg.q if dq_pass else seg.k
+    for b in range(2):
+        for t in range(-(-n_own // outer)):
+            rows = valid[b, t * outer:(t + 1) * outer]
+            lo, hi = int(bounds[b, 0, t]), int(bounds[b, 1, t])
+            tiles = torch.arange(n_other) // inner
+            assert not (rows & ((tiles < lo) | (tiles >= hi))).any()
+            for i in range(-(-n_other // inner)):
+                ids = {int(omm[b, 0, t]), int(omm[b, 1, t]),
+                       int(imm[b, 0, i]), int(imm[b, 1, i])}
+                if len(ids) == 1 and ids != {pad}:
+                    own_n = min(outer, n_own - t * outer)
+                    block = rows[:, i * inner:(i + 1) * inner]
+                    assert block[:own_n].all()
+        for r in range(n_own):
+            lo, hi = int(ranges[b, 0, r]), int(ranges[b, 1, r])
+            want = valid[b, r]
+            assert want[lo:hi].all() and want.sum() == max(hi - lo, 0), \
+                (b, r, int(own_ids[b, r]))
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("case", ["d36", "d36_strided", "stride_refused"])
 def test_resident_operands_padded_copy_round_trip(case, causal):
