@@ -29,9 +29,10 @@
 // from L1): no staging in shared memory. The bias kernels are separate
 // instances (kBias), so the routes without a bias are unchanged.
 //
-// Bound on this card: bytes at the path shapes (1024 tokens: 4 * s * d
-// elements moved against 4 * pairs * d FLOPs), operations at long
-// sequence. Two kernels behind one entry:
+// Bound on this card: in bf16 bytes at the path shapes (1024 tokens: 4 * s
+// * d elements moved against 4 * pairs * d FLOPs), operations at long
+// sequence; in fp32 operations (67 TFLOP/s of FMA). Two kernels behind one
+// entry:
 // - bf16 (the serving and training paths): fwd_resident_wgmma<DP, BN, NWG>,
 //   wgmma fed by a TMA ring on the pieces it shares with the streamed
 //   forward (flash_fwd_wgmma.cuh, flash_bwd_wgmma.cuh):
@@ -59,169 +60,64 @@
 //   stride off 16 bytes, d % 8 != 0) the wrapper passes as a padded copy.
 //   A head_dim up to 64 takes the 64-wide kernels (TMA zero-fills the
 //   columns past d), up to 128 the 128-wide ones, on 64-row key tiles.
-// - fp32: plain FMA (flash_fwd_kernel), one CTA of 256 threads per q tile,
-//   Q, K, V and P tiles in shared memory as fp32 (rows padded by one word
-//   against bank conflicts), 4 neighbouring lanes per query row so the row
-//   max and sum are two shuffles and the accumulator stays in registers.
-//   Any sq, sk and d <= 128; ragged edges are masked in-kernel. Inputs are
-//   (b, h, s, d) with the last dim contiguous and the other strides given.
+// - fp32 (the O0 pretrain, generate_gpt's prefill, the fp32 gradient
+//   gates): fwd_f32_blocked (flash_f32_blocked.cuh), register-blocked FMA
+//   fed by a two-stage cp.async ring, on the pieces of the fp32 backward
+//   pair (dq_f32_blocked / dkv_f32_blocked) and the step the streamed fp32
+//   forward shares:
+//   - a CTA of 4 warps keeps 64 queries (RES_FWD_F32_OUTER_TILE; Q loaded
+//     once) and streams the 64-row key tiles of its whole band
+//     (RES_FWD_F32_INNER_TILE), the next tile landing while this one
+//     computes: no split, no workspace, no merge; one CTA an item, the
+//     longest band first (128-row CTAs, 32-row key tiles and the
+//     persistent grid were slower on the card: PERF.md);
+//   - each thread holds a 4 x BN/8 micro-tile of S and a 4 x DP/8 one of
+//     O, so every shared-memory operand is read once a micro-tile, 16 bytes
+//     at a time (the first port's kernel read one operand an FMA and
+//     reached 6% of 67 TFLOP/s);
+//   - on the FMA units, not split TF32: S is one fmaf chain over the head
+//     dimension in column order, O the online recurrence's chain over the
+//     keys, and exp is expf in natural units, as the plain version takes
+//     it; the fp32 limits (each row within 1e-5, the segment cases 2e-6)
+//     are those split TF32 missed in the backward (PERF.md). On the card,
+//     against the plain version: o 3.2e-7 of max |ref| and a worst row of
+//     1.4e-6 at (4,16,1024,64) causal (SDPA's fp32 forward 6.1e-7 and
+//     2.5e-6), the segment cases 1-5e-7;
+//   - masks only on edge tiles; the bias in kBias instances, each thread
+//     loading its scores' values; the window and segment ids in kGen ones;
+//   - o written once, times 1 / l, lse by each row's first lane: two calls
+//     give the same bits.
+//   Any sq, sk and d <= 128 (64-wide instances up to d = 64; above, 64
+//   queries over 32-row key tiles); q/k/v strided over (b, h, s) with a
+//   contiguous head_dim, 16-byte copies where the rows allow.
 
+#include "flash_f32_blocked.cuh"
 #include "flash_fwd_wgmma.cuh"
 
 namespace apex_torch {
+namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kFaThreads = 256;  // 4 lanes per query row
 constexpr int kMaxD = 128;
 
-template <typename T>
-__global__ void __launch_bounds__(kFaThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int h, int sq, int sk, int d,
-                     Strides qs, Strides ks, Strides vs, float scale,
-                     int causal, int window, BiasArgs bias, SegArgs seg) {
-  extern __shared__ float smem[];
-  const int dp = d + 1;
-  float* Qs = smem;            // kBQ x dp
-  float* Ks = Qs + kBQ * dp;   // kBK x dp
-  float* Vs = Ks + kBK * dp;   // kBK x d
-  float* Ps = Vs + kBK * d;    // kBQ x (kBK + 1)
-  constexpr int pp = kBK + 1;
-
-  const int qt = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
-  const int q0 = qt * kBQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;  // query row within the tile
-  const int c4 = tid & 3;  // this lane's column phase
-  const int qrow = q0 + r;
-
-  const T* qb = q + bi * qs.b + hi * qs.h;
-  const T* kb = k + bi * ks.b + hi * ks.h;
-  const T* vb = v + bi * vs.b + hi * vs.h;
-  // this row's bias (none past sq)
-  const float* brow = bias.p != nullptr && qrow < sq
-                          ? bias.p + bi * bias.sb + hi * bias.sh +
-                                qrow * bias.sq
-                          : nullptr;
-
-  for (int e = tid; e < kBQ * d; e += kFaThreads) {
-    const int rr = e / d, cc = e - rr * d;
-    const int qi = q0 + rr;
-    Qs[rr * dp + cc] = qi < sq ? to_f32(qb[qi * qs.s + cc]) * scale : 0.f;
-  }
-
-  float acc[kMaxD / 4];
-#pragma unroll
-  for (int j = 0; j < kMaxD / 4; ++j) acc[j] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  // the key tiles of the causal limit, the window and the segment bounds
-  const Band band = seg_band(
-      seg, k_tiles(qt, (sk + kBK - 1) / kBK, causal, window), bi, qt);
-  const SegRows sg = seg_rows(seg, false, bi, qrow, sq, sk);
-
-  for (int j = band.lo; j < band.hi; ++j) {
-    const int k0 = j * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kBK * d; e += kFaThreads) {
-      const int rr = e / d, cc = e - rr * d;
-      const int ki = k0 + rr;
-      const bool in = ki < sk;
-      Ks[rr * dp + cc] = in ? to_f32(kb[ki * ks.s + cc]) : 0.f;
-      Vs[rr * d + cc] = in ? to_f32(vb[ki * vs.s + cc]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[kBK / 4];
-#pragma unroll
-    for (int jj = 0; jj < kBK / 4; ++jj) s[jj] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float qv = Qs[r * dp + kk];
-#pragma unroll
-      for (int jj = 0; jj < kBK / 4; ++jj)
-        s[jj] = fmaf(qv, Ks[(c4 + 4 * jj) * dp + kk], s[jj]);
-    }
-    float mx = kNegInf;
-#pragma unroll
-    for (int jj = 0; jj < kBK / 4; ++jj) {
-      const int kpos = k0 + c4 + 4 * jj;
-      const bool valid =
-          visible(qrow, kpos, sk, causal, window) && sg.sees(0, kpos);
-      if (brow != nullptr && valid) s[jj] += __ldg(brow + kpos * bias.sk);
-      s[jj] = valid ? s[jj] : kNegInf;
-      mx = fmaxf(mx, s[jj]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    // fully masked so far: exp(s - m) would be exp(0); keep p at 0 so l
-    // stays 0 and the row outputs 0 (the reference kernel's guard)
-    const bool dead = m_new <= kNegInf * 0.5f;
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < kBK / 4; ++jj) {
-      const float p = dead ? 0.f : expf(s[jj] - m_new);
-      Ps[r * pp + c4 + 4 * jj] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // a row's P is written and read by the same 4 lanes
-
-#pragma unroll
-    for (int jj = 0; jj < kMaxD / 4; ++jj) acc[jj] *= alpha;
-    for (int c = 0; c < kBK; ++c) {
-      const float p = Ps[r * pp + c];
-#pragma unroll
-      for (int jj = 0; jj < kMaxD / 4; ++jj) {
-        const int col = c4 + 4 * jj;
-        if (col < d) acc[jj] = fmaf(p, Vs[c * d + col], acc[jj]);
-      }
-    }
-  }
-
-  if (qrow < sq) {
-    const float l_safe = l == 0.f ? 1.f : l;
-    const float inv = 1.f / l_safe;
-    const size_t row_off = ((size_t)(bi * h + hi) * sq + qrow);
-    T* orow = o + row_off * d;
-#pragma unroll
-    for (int jj = 0; jj < kMaxD / 4; ++jj) {
-      const int col = c4 + 4 * jj;
-      if (col < d) orow[col] = from_f32<T>(acc[jj] * inv);
-    }
-    if (c4 == 0) lse[row_off] = m + logf(l_safe);
-  }
-}
-
-template <typename T>
-int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                     void* lse, int b, int h, int sq, int sk, int d,
-                     Strides qs, Strides ks, Strides vs, float scale,
-                     int causal, int window, const BiasArgs& bias,
-                     const SegArgs& seg, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kBQ * (d + 1) + (size_t)kBK * (d + 1) +
-                       (size_t)kBK * d + (size_t)kBQ * (kBK + 1));
-  const int err = set_max_smem<flash_fwd_kernel<T>>(smem);
-  if (err) return err;
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_fwd_kernel<T><<<grid, kFaThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, h, sq, sk,
-      d, qs, ks, vs, scale, causal, window, bias, seg);
-  return (int)cudaGetLastError();
+// fp32: fwd_f32_blocked (flash_f32_blocked.cuh) over the items of the whole
+// bands, one split each (no workspace, no merge), plain grid
+int launch_res_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int b, int h, int sq, int sk, int d,
+                       Strides qs, Strides ks, Strides vs, float scale,
+                       int causal, int window, const BiasArgs& bias,
+                       const SegArgs& seg, int inner_tile,
+                       cudaStream_t stream) {
+  FwdF32Args a = fwd_f32_args(q, k, v, o, lse, h, b * h, sq, sk, d, qs, ks,
+                              vs, scale, causal, window, seg, nullptr,
+                              nullptr, nullptr,
+                              (sk + inner_tile - 1) / inner_tile, 1);
+  a.bias = bias;
+  return launch_fwd_f32<false>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma fed by a TMA ring, one CTA per whole band, persistent
 // ---------------------------------------------------------------------------
-
-namespace {
 
 struct ResFwdMaps {
   CUtensorMap q, k, v;  // encode_rows_map: 64 x 64 boxes
@@ -487,16 +383,16 @@ int launch_res_fwd_bf16(const void* q, const void* k, const void* v, void* o,
 }
 
 // The tiles a caller names: bf16 128 (or 64 where d <= 64) query rows, 64
-// (or 128 where d <= 64) key rows, either schedule; fp32 kBQ / kBK, the
-// plain grid.
+// (or 128 where d <= 64) key rows, either schedule; fp32 those of
+// fwd_f32_tiles_ok on the plain grid.
 bool fwd_tiles_ok(int dtype, int d, int outer_tile, int inner_tile,
                   int persistent) {
   if (dtype == kBF16)
-    return (outer_tile == 128 || (outer_tile == 64 && d <= 64)) &&
-           (inner_tile == 64 || (inner_tile == 128 && d <= 64)) &&
-           (persistent == 0 || persistent == 1);
-  return dtype == kF32 && outer_tile == kBQ && inner_tile == kBK &&
-         persistent == 0;
+    return (persistent == 0 || persistent == 1) &&
+           (outer_tile == 128 || (outer_tile == 64 && d <= 64)) &&
+           (inner_tile == 64 || (inner_tile == 128 && d <= 64));
+  return dtype == kF32 && persistent == 0 &&
+         fwd_f32_tiles_ok(d, outer_tile, inner_tile);
 }
 
 }  // namespace
@@ -512,12 +408,12 @@ using namespace apex_torch;
 // window <= 0: none. outer_tile / inner_tile: the query rows of an item and
 // the key rows of a streamed tile; persistent: as many CTAs as fit on the
 // card walking the items (bf16: 128, or 64 where d <= 64 / 64 or 128 / 0 or
-// 1; fp32: 64 / 64 / 0). bf16 reads q/k/v and writes o by TMA:
-// 16-byte-aligned bases and strides, d % 8 == 0. qseg / kseg: int32 (b, sq)
-// / (b, sk) segment ids, or null for none; bounds and ranges (both null:
-// mask only), omm, imm: their (b, 2, n) metadata at outer_tile /
-// inner_tile, ranges over the keys of each query (SegArgs); pad_id counts
-// where has_pad.
+// 1; fp32: 64 / 64, or 64 / 32 above d = 64 / 0). bf16 reads q/k/v and
+// writes o by TMA: 16-byte-aligned bases and strides, d % 8 == 0. qseg /
+// kseg: int32 (b, sq) / (b, sk) segment ids, or null for none; bounds and
+// ranges (both null: mask only), omm, imm: their (b, 2, n) metadata at
+// outer_tile / inner_tile, ranges over the keys of each query (SegArgs);
+// pad_id counts where has_pad.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int b, int h, int sq, int sk,
                               int d, long long qsb, long long qsh,
@@ -542,8 +438,8 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                                has_pad, sq, sk, outer_tile, inner_tile);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
-    return launch_flash_fwd<float>(q, k, v, o, lse, b, h, sq, sk, d, qs, ks,
-                                   vs, scale, causal, window, ba, seg, s);
+    return launch_res_fwd_f32(q, k, v, o, lse, b, h, sq, sk, d, qs, ks, vs,
+                              scale, causal, window, ba, seg, inner_tile, s);
   return launch_res_fwd_bf16(q, k, v, o, lse, b, h, sq, sk, d, qs, ks, vs,
                              scale, causal, window, ba, seg, outer_tile,
                              inner_tile, persistent, s);

@@ -84,7 +84,8 @@
 // past d), up to 128 the 128-wide ones.
 //
 // fp32 (dq_f32_blocked, dkv_f32_blocked): register-blocked FMA fed by a
-// double-buffered cp.async ring. The first port's FMA kernels read one
+// double-buffered cp.async ring, on the building blocks it shares with the
+// fp32 forward (flash_f32_blocked.cuh). The first port's FMA kernels read one
 // shared-memory operand per FMA, one row and 16 columns a thread, and
 // reached 7% of the 67 TFLOP/s fp32 peak.
 // - A CTA of NW warps keeps 16 NW outer rows (queries for dQ, keys for
@@ -118,7 +119,7 @@
 
 #include <type_traits>
 
-#include "flash_bwd_wgmma.cuh"
+#include "flash_f32_blocked.cuh"
 
 namespace apex_torch {
 namespace {
@@ -588,197 +589,6 @@ struct F32Args {
   int vec;          // bit i set: operand i (q, k, v, dO) takes 16-byte copies
 };
 
-// Float offsets in dynamic shared memory: the two resident operands (Q, dO
-// or K, V; 16 NW rows each), two stages of the streamed pair (K, V or Q,
-// dO; BN rows each, with the BN queries' lse and delta for dK/dV), then the
-// dS tile (dQ) or the P^T and dS^T tiles (dK/dV), outer rows by BN. Operand
-// rows at pitch DP + 4, P / dS rows at BN + 8: see scores_fma and
-// accumulate_fma.
-template <int DP, int NW, int BN, bool kDkv>
-struct F32Layout {
-  static constexpr int kP = DP + 4;
-  static constexpr int kPd = BN + 8;
-  static constexpr int kRows = 16 * NW;
-  static constexpr int kRing = 2 * kRows * kP;
-  static constexpr int kStage = 2 * BN * kP + (kDkv ? 2 * BN : 0);
-  static constexpr int kTiles = kRing + 2 * kStage;
-  static constexpr int kTile = kRows * kPd;
-  static constexpr size_t kBytes =
-      sizeof(float) * (kTiles + (kDkv ? 2 : 1) * kTile);
-};
-
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   hopper::smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Rows [r0, r0 + R) of one head (`head`: its row 0, `rs`: the row stride)
-// into a tile of R rows at pitch DP + 4 by cp.async, all NT threads taking
-// part: rows past n and columns past d are zeros. vec: 16-byte copies
-// (d % 4 == 0, the head and rs on 16 bytes), else 4-byte ones.
-template <int DP, int R, int NT>
-__device__ __forceinline__ void ring_rows(float* dst, const float* head,
-                                          long long rs, int r0, int n, int d,
-                                          bool vec) {
-  constexpr int kP = DP + 4;
-  if (vec) {
-    constexpr int C = DP / 4;
-    for (int e = threadIdx.x; e < R * C; e += NT) {
-      const int r = e / C, c = (e % C) * 4;
-      const bool in = r0 + r < n && c < d;
-      cp_async_16(dst + r * kP + c, in ? head + (r0 + r) * rs + c : head,
-                  in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < R * DP; e += NT) {
-      const int r = e / DP, c = e % DP;
-      const bool in = r0 + r < n && c < d;
-      hopper::cp_async_4(dst + r * kP + c,
-                         in ? head + (r0 + r) * rs + c : head, in);
-    }
-  }
-}
-
-// The thread layout of the fp32 kernels: thread (ty, tx) = (tid / 8, tid %
-// 8) of 32 NW keeps outer rows own_row(ty, i), i < 4 -- pairs 8 apart (the
-// row, row + 8 of SegRows and BiasLines), a warp's rows consecutive -- and
-// the inner rows (S's columns) tx + 8 j, j < BN / 8, and the output
-// columns col_of(tx, m) = 32 (m / 4) + 4 tx + m % 4, m < DP / 8.
-template <int BM>
-__device__ __forceinline__ int own_row(int ty, int i) {
-  return (ty & 7) + 16 * (ty >> 3) + 8 * (i & 1) + (BM / 2) * (i >> 1);
-}
-
-__device__ __forceinline__ int col_of(int tx, int m) {
-  return 32 * (m >> 2) + 4 * tx + (m & 3);
-}
-
-// s[i][j] = X[own_row(ty, i)] . Y[tx + 8 j] over the first 4 kd4 columns
-// (zero past d), each an fmaf chain from 0 in column order, as the plain
-// version's fp32 product sums it. x and y: tiles at pitch DP + 4; 16-byte
-// loads, each operand read once a 4 x BN/8 micro-tile: a warp's four X
-// rows lie 16 bytes apart and its eight Y rows too, so no bank conflict.
-template <int DP, int BM, int BN>
-__device__ __forceinline__ void scores_fma(float (&s)[4][BN / 8],
-                                           const float* x, const float* y,
-                                           int kd4, int ty, int tx) {
-  constexpr int kP = DP + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-  for (int kq = 0; kq < kd4; ++kq) {
-    float4 xa[4], yb[BN / 8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      xa[i] = *reinterpret_cast<const float4*>(x + own_row<BM>(ty, i) * kP +
-                                               4 * kq);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-      yb[j] = *reinterpret_cast<const float4*>(y + (tx + 8 * j) * kP +
-                                               4 * kq);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        float v = fmaf(xa[i].x, yb[j].x, s[i][j]);
-        v = fmaf(xa[i].y, yb[j].y, v);
-        v = fmaf(xa[i].z, yb[j].z, v);
-        s[i][j] = fmaf(xa[i].w, yb[j].w, v);
-      }
-  }
-}
-
-// The BN-wide rows of a P / dS tile (pitch BN + 8) that a thread wrote:
-// element (i, j) at own_row(ty, i), column tx + 8 j. A warp writes 8 words
-// of four consecutive rows: banks 8 row + tx, no conflict.
-template <int BM, int BN>
-__device__ __forceinline__ void store_tile(float* tile,
-                                           const float (&z)[4][BN / 8],
-                                           int ty, int tx) {
-  constexpr int kPd = BN + 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-      tile[own_row<BM>(ty, i) * kPd + tx + 8 * j] = z[i][j];
-}
-
-// acc[i][m] (row own_row(ty, i), column col_of(tx, m)) += Z[row][c]
-// W[c][column] for c = 0.. BN - 1 in order: one fmaf chain per element
-// across the band's tiles, as the plain version's product sums it. Z: a
-// P / dS tile (pitch BN + 8; 16-byte loads of 4 columns of the thread's
-// rows, broadcast across its warp: banks 8 row + c..); W: a streamed tile
-// (pitch DP + 4; a 16-byte load of the 8 tx of a warp covers 32
-// consecutive columns: 128 bytes, no conflict).
-template <int DP, int BM, int BN>
-__device__ __forceinline__ void accumulate_fma(float (&acc)[4][DP / 8],
-                                               const float* z, const float* w,
-                                               int ty, int tx) {
-  constexpr int kP = DP + 4, kPd = BN + 8;
-#pragma unroll 1
-  for (int c4 = 0; c4 < BN; c4 += 4) {
-    float zc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 zq =
-          *reinterpret_cast<const float4*>(z + own_row<BM>(ty, i) * kPd + c4);
-      zc[i][0] = zq.x;
-      zc[i][1] = zq.y;
-      zc[i][2] = zq.z;
-      zc[i][3] = zq.w;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float* wr = w + (c4 + u) * kP + 4 * tx;
-#pragma unroll
-      for (int g = 0; g < DP / 32; ++g) {
-        const float4 wq = *reinterpret_cast<const float4*>(wr + 32 * g);
-        const float wv[4] = {wq.x, wq.y, wq.z, wq.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][4 * g + e] = fmaf(zc[i][u], wv[e], acc[i][4 * g + e]);
-      }
-    }
-  }
-}
-
-// A thread's 4 x DP/8 result times `mul` into `out` (contiguous rows of
-// d): rows row0 + own_row(ty, i), none past n rows or d columns
-template <int DP, int BM>
-__device__ __forceinline__ void store_f32(float* out,
-                                          const float (&acc)[4][DP / 8],
-                                          float mul, int row0, int n, int d,
-                                          int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + own_row<BM>(ty, i);
-    if (row >= n) continue;
-    float* o = out + (size_t)row * d;
-#pragma unroll
-    for (int m = 0; m < DP / 8; ++m) {
-      const int col = col_of(tx, m);
-      if (col < d) o[col] = acc[i][m] * mul;
-    }
-  }
-}
-
 // dQ: item w is query tile n_outer - 1 - w / bh (the longest causal band
 // first) of head w % bh; a CTA takes items blockIdx.x, + gridDim.x, ....
 // For each it keeps 16 NW queries (Q, dO) and streams the BN-row key tiles
@@ -1031,33 +841,6 @@ __global__ void __launch_bounds__(NW * 32) dkv_f32_blocked(const F32Args r) {
 // launches
 // ---------------------------------------------------------------------------
 
-// An fp32 kernel over one CTA per item, or (persistent) as many CTAs as fit
-// on the card at once
-template <auto Kernel, size_t kSmem, int kThreads>
-int launch_f32_k(const F32Args& r, int persistent, cudaStream_t stream) {
-  int err = set_max_smem<Kernel>(kSmem);
-  if (err) return err;
-  int grid = r.items;
-  if (persistent) {
-    static int resident = 0;  // CTAs the card holds at once, per instance
-    if (resident == 0) {
-      int dev = 0, sms = 0, per_sm = 0;
-      err = (int)cudaGetDevice(&dev);
-      if (!err)
-        err = (int)cudaDeviceGetAttribute(
-            &sms, cudaDevAttrMultiProcessorCount, dev);
-      if (!err)
-        err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, Kernel, kThreads, kSmem);
-      if (err) return err;
-      resident = sms * (per_sm > 0 ? per_sm : 1);
-    }
-    grid = grid < resident ? grid : resident;
-  }
-  Kernel<<<grid, kThreads, kSmem, stream>>>(r);
-  return (int)cudaGetLastError();
-}
-
 template <int DP, int NW, int BN>
 int launch_dq_f32(const F32Args& r, int persistent, cudaStream_t stream) {
   return launch_f32_k<dq_f32_blocked<DP, NW, BN>,
@@ -1070,13 +853,6 @@ int launch_dkv_f32(const F32Args& r, int persistent, cudaStream_t stream) {
   return launch_f32_k<dkv_f32_blocked<DP, NW, BN>,
                       F32Layout<DP, NW, BN, true>::kBytes, NW * 32>(
       r, persistent, stream);
-}
-
-// Whether an fp32 operand's rows take 16-byte copies: d % 4 == 0 and its
-// base and (b, h, s) strides on 16 bytes
-bool rows_vec(const void* p, const Strides& s, int d) {
-  return d % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-         s.b % 4 == 0 && s.h % 4 == 0 && s.s % 4 == 0;
 }
 
 // fp32: outer_tile rows a CTA (16 a warp), 64 rows a stage (32 for dK/dV

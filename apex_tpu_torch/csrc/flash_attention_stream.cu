@@ -36,10 +36,13 @@
 //   l) and fwd_merge combines a row's partials, m* = max m_i,
 //   l* = sum l_i e^(m_i - m*), o = sum acc_i e^(m_i - m*) / l*,
 //   lse = m* + log l* (the _combine of transformer/ring.py:64-68). A row
-//   with no visible key ends with l* = 0: o = 0 exactly, lse = -1e30. bf16
-//   on wgmma (fwd_wgmma, below), where a band of one split is normalised in
-//   registers and written with no partial and no merge; fp32 on FMA
-//   (fwd_split_fma, 64-row tiles both ways, a partial from every split).
+//   with no visible key ends with l* = 0: o = 0 exactly, lse = -1e30. A
+//   band of one split is normalised in registers and written with no
+//   partial, no workspace and no merge, in both dtypes: bf16 on wgmma
+//   (fwd_wgmma, below), fp32 on register-blocked FMA (the split instances
+//   of fwd_f32_blocked, flash_f32_blocked.cuh: the resident fp32 forward's
+//   CTA body over one split, FWD_F32_OUTER_TILE queries over
+//   FWD_F32_INNER_TILE-row key tiles, splits of up to FWD_F32_SPLIT_TILES).
 // - dQ and dK/dV: each CTA adds its split's fp32 partial into zeroed fp32
 //   accumulators by atomics (no partial buffers, no reduction pass; the
 //   order of addition changes from run to run, within fp32 rounding). The
@@ -98,9 +101,11 @@
 // (a base or stride not 16-byte aligned, d % 8 != 0) the wrapper passes a
 // contiguous copy with d padded to a multiple of 8 (the forward's q/k/v
 // alike). Any sq, sk and d <= 128 (64 or 128 in the kernels, zeros past
-// d). fp32 keeps the FMA kernels (fwd_split_fma, dq_split_fma,
-// dkv_split_fma) with 64-row tiles both ways.
+// d). The fp32 backward keeps the first port's FMA kernels (dq_split_fma,
+// dkv_split_fma) with kTile-row tiles both ways (STREAM_TILE,
+// STREAM_SPLIT_TILES in ops/flash_attention.py).
 
+#include "flash_f32_blocked.cuh"
 #include "flash_fwd_wgmma.cuh"
 
 namespace apex_torch {
@@ -129,137 +134,8 @@ struct StreamArgs {
   SegArgs seg;
 };
 
-// Split s of the band: ceil(n / split_tiles) pieces of equal length (the
-// last may be shorter). False when the band has no split s.
-__device__ __forceinline__ bool split_of(Band r, int s, int split_tiles,
-                                         int& t0, int& t1) {
-  const int n = r.hi - r.lo;
-  if (n <= 0) return false;
-  const int ns = (n + split_tiles - 1) / split_tiles;
-  if (s >= ns) return false;
-  const int per = (n + ns - 1) / ns;
-  t0 = r.lo + s * per;
-  t1 = min(r.hi, t0 + per);
-  return t0 < t1;
-}
-
 __device__ __forceinline__ bool live_row(float lse) {
   return lse > kNegInf * 0.5f;
-}
-
-// ---------------------------------------------------------------------------
-// forward: fp32 on FMA
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kFma) fwd_split_fma(StreamArgs a) {
-  extern __shared__ float smem[];
-  const int sq = a.sq, sk = a.sk, d = a.d, dp = d + 1;
-  float* Qs = smem;            // kTile x dp, pre-scaled
-  float* Ks = Qs + kTile * dp;
-  float* Vs = Ks + kTile * dp;  // kTile x d
-  float* Ps = Vs + kTile * d;   // kTile x kPl
-
-  const int qt = blockIdx.x, split = blockIdx.y, bh = blockIdx.z;
-  int t0, t1;
-  if (!split_of(k_tiles(qt, (sk + kTile - 1) / kTile, a.causal, a.window),
-                split, a.split_tiles, t0, t1))
-    return;
-  const int bi = bh / a.h, hi = bh - bi * a.h;
-  // narrowed to the segment bounds; an empty split still writes its
-  // (empty) partial below
-  const Band nb = seg_band(a.seg, Band{t0, t1}, bi, qt);
-  const int q0 = qt * kTile;
-  const int tid = threadIdx.x, r = tid >> 2, c4 = tid & 3;
-  const int qrow = q0 + r;
-  const SegRows sg = seg_rows(a.seg, false, bi, qrow, sq, sk);
-  const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.h;
-  const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.h;
-  const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
-
-  for (int e = tid; e < kTile * d; e += kFma) {
-    const int rr = e / d, cc = e - rr * d;
-    const int qi = q0 + rr;
-    Qs[rr * dp + cc] = qi < sq ? qb[(long long)qi * a.qs.s + cc] * a.scale : 0.f;
-  }
-
-  float acc[kDimMax / 4];
-#pragma unroll
-  for (int j = 0; j < kDimMax / 4; ++j) acc[j] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  for (int j = nb.lo; j < nb.hi; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();
-    for (int e = tid; e < kTile * d; e += kFma) {
-      const int rr = e / d, cc = e - rr * d;
-      const int ki = k0 + rr;
-      const bool in = ki < sk;
-      Ks[rr * dp + cc] = in ? kb[(long long)ki * a.ks.s + cc] : 0.f;
-      Vs[rr * d + cc] = in ? vb[(long long)ki * a.vs.s + cc] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kTile / 4];
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) s[jj] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float qv = Qs[r * dp + kk];
-#pragma unroll
-      for (int jj = 0; jj < kTile / 4; ++jj)
-        s[jj] = fmaf(qv, Ks[(c4 + 4 * jj) * dp + kk], s[jj]);
-    }
-    float mx = kNegInf;
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) {
-      const int kpos = k0 + c4 + 4 * jj;
-      s[jj] = visible(qrow, kpos, sk, a.causal, a.window) && sg.sees(0, kpos)
-                  ? s[jj]
-                  : kNegInf;
-      mx = fmaxf(mx, s[jj]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const bool dead = m_new <= kNegInf * 0.5f;
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) {
-      const float p = dead ? 0.f : expf(s[jj] - m_new);
-      Ps[r * kPl + c4 + 4 * jj] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // a row's P is written and read by the same 4 lanes
-
-#pragma unroll
-    for (int jj = 0; jj < kDimMax / 4; ++jj) acc[jj] *= alpha;
-    for (int c = 0; c < kTile; ++c) {
-      const float p = Ps[r * kPl + c];
-#pragma unroll
-      for (int jj = 0; jj < kDimMax / 4; ++jj) {
-        const int col = c4 + 4 * jj;
-        if (col < d) acc[jj] = fmaf(p, Vs[c * d + col], acc[jj]);
-      }
-    }
-  }
-
-  if (qrow < sq) {
-    const size_t at = ((size_t)split * a.bh + bh) * sq + qrow;
-    float* arow = a.acc + at * d;
-#pragma unroll
-    for (int jj = 0; jj < kDimMax / 4; ++jj) {
-      const int col = c4 + 4 * jj;
-      if (col < d) arow[col] = acc[jj];
-    }
-    if (c4 == 0) {
-      a.m[at] = m;
-      a.l[at] = l;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -280,9 +156,7 @@ __global__ void __launch_bounds__(kMergeRows * 32)
   const int qt = (int)(row % a.sq) / bq;
   const Band band =
       k_tiles(qt, (a.sk + bk - 1) / bk, a.causal, a.window, bq, bk);
-  const int ns = band.hi > band.lo
-                     ? (band.hi - band.lo + a.split_tiles - 1) / a.split_tiles
-                     : 0;
+  const int ns = n_splits(band, a.split_tiles);
   if (ns < min_splits) return;
   int t0, t1;
   float mx = kNegInf;
@@ -1019,19 +893,16 @@ int launch(const StreamArgs& a, dim3 grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Pass { kDq = 1, kDkv = 2 };
 
-// The split pass of `pass` in fp32 over grid (outer tiles, nsplit, b*h).
+// The split pass of the fp32 backward's `pass` over grid (outer tiles,
+// nsplit, b*h).
 int launch_split(Pass pass, const StreamArgs& a, int nsplit,
                  cudaStream_t stream) {
   const int outer = pass == kDkv ? a.sk : a.sq;
   const dim3 grid((outer + kTile - 1) / kTile, nsplit, a.bh);
   const size_t tile = sizeof(float) * kTile * (a.d + 1);
   const size_t ptile = sizeof(float) * kTile * kPl;
-  if (pass == kFwd)
-    return launch<fwd_split_fma>(
-        a, grid, kFma, 2 * tile + sizeof(float) * kTile * a.d + ptile,
-        stream);
   if (pass == kDq)
     return launch<dq_split_fma>(a, grid, kFma, 4 * tile + ptile, stream);
   return launch<dkv_split_fma>(
@@ -1102,6 +973,25 @@ int launch_fwd_bf16(const StreamArgs& s, int b, int inner_tile, int nsplit,
   const dim3 grid((unsigned)((rows + kMergeRows - 1) / kMergeRows));
   fwd_merge<__nv_bfloat16><<<grid, kMergeRows * 32, 0, stream>>>(
       s, (__nv_bfloat16*)o, (float*)lse, kFwdOuter, inner_tile, 2);
+  return (int)cudaGetLastError();
+}
+
+// fp32: fwd_f32_blocked (flash_f32_blocked.cuh) over the items (b*h,
+// query tile, split) of up to max(nsplit, 1) splits a band, plain grid,
+// then the merge of the bands of several splits, if any.
+int launch_fwd_f32_split(const StreamArgs& s, int outer_tile,
+                         int inner_tile, int nsplit, void* o, void* lse,
+                         cudaStream_t stream) {
+  const int err = launch_fwd_f32<true>(
+      fwd_f32_args(s.q, s.k, s.v, o, lse, s.h, s.bh, s.sq, s.sk, s.d, s.qs,
+                   s.ks, s.vs, s.scale, s.causal, s.window, s.seg, s.acc,
+                   s.m, s.l, s.split_tiles, nsplit),
+      stream);
+  if (err || nsplit <= 1) return err;
+  const long long rows = (long long)s.bh * s.sq;
+  const dim3 grid((unsigned)((rows + kMergeRows - 1) / kMergeRows));
+  fwd_merge<float><<<grid, kMergeRows * 32, 0, stream>>>(
+      s, (float*)o, (float*)lse, outer_tile, inner_tile, 2);
   return (int)cudaGetLastError();
 }
 
@@ -1221,11 +1111,11 @@ using namespace apex_torch;
 // m, l (nsplit, b*h, sq) are fp32 workspaces; o contiguous (b, h, sq, d) in
 // q's dtype, lse contiguous (b, h, sq) fp32. window <= 0: none. nsplit: the
 // most splits any query tile's band has (the wrapper computes it with
-// outer_tile / inner_tile). fp32: kTile / kTile, a partial from every split
-// and the merge over every row. bf16 (fwd_wgmma, read by TMA: 16-byte
-// aligned bases and strides, d % 8 == 0): kFwdOuter / 64 or 128; a band of
-// one split is written by the split pass, and the merge runs, over the
-// other rows, only where nsplit > 1 -- acc, m and l may be null otherwise.
+// outer_tile / inner_tile / split_tiles). bf16 (fwd_wgmma, read by TMA:
+// 16-byte aligned bases and strides, d % 8 == 0): kFwdOuter / 64 or 128;
+// fp32 (fwd_f32_blocked): the tiles of fwd_f32_tiles_ok. A band of one
+// split is written by the split pass, and the merge runs, over the other
+// rows, only where nsplit > 1 -- acc, m and l may be null otherwise.
 // qseg / kseg: int32 (b, sq) / (b, sk) segment ids or null; bounds and
 // ranges (both null: mask only), omm, imm: their (b, 2, n) metadata at
 // outer_tile / inner_tile, the ranges over the outer side's rows (SegArgs;
@@ -1245,8 +1135,9 @@ extern "C" int apex_flash_fwd_stream(
   const bool bf16_ok = dtype == kBF16 && outer_tile == kFwdOuter &&
                        (inner_tile == 64 || inner_tile == 128) &&
                        (nsplit <= 1 || (acc && m && l));
-  const bool f32_ok = dtype == kF32 && outer_tile == kTile &&
-                      inner_tile == kTile && (nsplit == 0 || (acc && m && l));
+  const bool f32_ok = dtype == kF32 &&
+                      fwd_f32_tiles_ok(d, outer_tile, inner_tile) &&
+                      (nsplit <= 1 || (acc && m && l));
   if (!bf16_ok && !f32_ok) return (int)cudaErrorInvalidValue;
   StreamArgs a = make_args(q, k, v, b, h, sq, sk, d, scale, causal, window,
                            split_tiles);
@@ -1261,15 +1152,7 @@ extern "C" int apex_flash_fwd_stream(
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kBF16)
     return launch_fwd_bf16(a, b, inner_tile, nsplit, o, lse, s);
-  if (nsplit > 0) {
-    const int err = launch_split(kFwd, a, nsplit, s);
-    if (err) return err;
-  }
-  const long long rows = (long long)b * h * sq;
-  const dim3 grid((unsigned)((rows + kMergeRows - 1) / kMergeRows));
-  fwd_merge<float><<<grid, kMergeRows * 32, 0, s>>>(a, (float*)o, (float*)lse,
-                                                   kTile, kTile, 0);
-  return (int)cudaGetLastError();
+  return launch_fwd_f32_split(a, outer_tile, inner_tile, nsplit, o, lse, s);
 }
 
 // dQ: adds into dq_acc, fp32 contiguous (b, h, sq, d), which the caller

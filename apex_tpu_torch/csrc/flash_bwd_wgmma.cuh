@@ -67,6 +67,27 @@ __device__ __forceinline__ Band q_tiles(int kt, int nq, int causal,
   return r;
 }
 
+// The splits of a band of split_tiles tiles at most: ceil(n / split_tiles)
+// for its n tiles, 0 for an empty band
+__device__ __forceinline__ int n_splits(Band r, int split_tiles) {
+  const int n = r.hi - r.lo;
+  return n > 0 ? (n + split_tiles - 1) / split_tiles : 0;
+}
+
+// Split s of the band: n_splits pieces of equal length (the last may be
+// shorter). False when the band has no split s.
+__device__ __forceinline__ bool split_of(Band r, int s, int split_tiles,
+                                         int& t0, int& t1) {
+  const int n = r.hi - r.lo;
+  if (n <= 0) return false;
+  const int ns = (n + split_tiles - 1) / split_tiles;
+  if (s >= ns) return false;
+  const int per = (n + ns - 1) / ns;
+  t0 = r.lo + s * per;
+  t1 = min(r.hi, t0 + per);
+  return t0 < t1;
+}
+
 __device__ __forceinline__ bool visible(int row, int col, int sk, int causal,
                                         int window) {
   return col < sk && (!causal || col <= row) &&

@@ -10,7 +10,8 @@ forward is always followed by the streamed backward.
   ``csrc/flash_attention.cu`` (replaces ``_fwd_kernel``; in bf16 a wgmma
   kernel fed by TMA, one CTA per query tile over its whole band of key
   tiles, :func:`_res_fwd_tiles` / :func:`_res_fwd_bands`, persistent where
-  :data:`RES_FWD_PERSISTENT`; in fp32 an FMA kernel) and saves q, k, v, o
+  :data:`RES_FWD_PERSISTENT`; in fp32 a register-blocked FMA kernel fed by
+  a cp.async ring, :func:`_res_fwd_f32_tiles`) and saves q, k, v, o
   and the fp32 lse; the backward computes ``delta = rowsum(dO * O)`` in
   fp32 (``_flash_bwd``, ``:1210``) and launches the two kernels of
   ``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``):
@@ -32,7 +33,11 @@ forward is always followed by the streamed backward.
   :data:`FWD_INNER_TILE` rows, a band of one split written with no merge
   (:func:`_fwd_merges`); the backward with CTAs of :data:`BWD_OUTER_TILE`
   rows streaming at most :data:`BWD_SPLIT_TILES` tiles of
-  :data:`BWD_INNER_TILE` rows. In fp32, FMA kernels in splits of at most
+  :data:`BWD_INNER_TILE` rows. In fp32 the forward is the resident
+  route's register-blocked FMA kernel over splits (:data:`FWD_F32_OUTER_TILE`
+  queries, at most :data:`FWD_F32_SPLIT_TILES` key tiles of
+  :data:`FWD_F32_INNER_TILE` rows, a band of one split written with no
+  merge), the backward FMA kernels in splits of at most
   :data:`STREAM_SPLIT_TILES` tiles of :data:`STREAM_TILE` rows.
 
 Every kernel takes the sliding ``window`` and the packed-varlen masks of
@@ -83,10 +88,11 @@ MAX_HEAD_DIM = 128
 #: window). A routing choice on the card's numbers, not a memory limit: the
 #: resident kernels take any length; see PERF.md for the times behind it.
 STREAM_MIN_SEQ = 4096
-#: rows of every q/k tile of the streamed kernels (kTile in common.cuh)
+#: rows of every q/k tile of the streamed fp32 backward (dq_split_fma /
+#: dkv_split_fma; kTile in common.cuh)
 STREAM_TILE = 64
 #: the longest split of a band, in tiles: one CTA's share of a row's K/V
-#: loop (or of a key tile's Q loop), for the fp32 kernels.
+#: loop (or of a key tile's Q loop), for the streamed fp32 backward.
 STREAM_SPLIT_TILES = 16
 #: the streamed forward in bf16 (fwd_wgmma): a CTA keeps FWD_OUTER_TILE
 #: queries and streams key tiles of FWD_INNER_TILE rows (64 or 128), at most
@@ -143,11 +149,34 @@ RES_BWD_DQ_BIAS_INNER_TILE = 64
 #: RES_FWD_PERSISTENT launches as many CTAs as fit on the card, walking the
 #: (query tile, head) items longest band first (:func:`_res_fwd_items`),
 #: else one CTA per item in that order. All chosen on the card (PERF.md).
-#: The fp32 kernel keeps STREAM_TILE rows both ways, one CTA per item.
 RES_FWD_OUTER_TILE = 128
 RES_FWD_INNER_TILE = 128
 RES_FWD_FEW_ITEMS_TILES: Optional[Tuple[int, int]] = (64, 64)
 RES_FWD_PERSISTENT = True
+#: the resident forward in fp32 (fwd_f32_blocked in
+#: csrc/flash_f32_blocked.cuh: register-blocked FMA fed by a two-stage
+#: cp.async ring): one CTA an item keeps RES_FWD_F32_OUTER_TILE queries (16
+#: a warp) and streams every key tile of RES_FWD_F32_INNER_TILE rows its
+#: band holds, with no split; above d = 64, 64 queries over 32-row key
+#: tiles (:func:`_f32_fwd_tiles`). The card's kernel takes these tiles
+#: alone: 128-query CTAs, 32-row key tiles at d <= 64 and the persistent
+#: grid were slower there (PERF.md); the plain version cuts its bands at
+#: whatever they are set to.
+RES_FWD_F32_OUTER_TILE = 64
+RES_FWD_F32_INNER_TILE = 64
+#: the streamed forward in fp32 (the split instances of the same kernel, at
+#: the same tiles): a CTA keeps FWD_F32_OUTER_TILE queries and streams at
+#: most FWD_F32_SPLIT_TILES key tiles of FWD_F32_INNER_TILE rows; a band of
+#: one split is written with no workspace and no merge (:func:`_fwd_merges`).
+#: 128 makes every band up to 8192 keys one split. That is the fastest at L
+#: = (1,16,8192,64) causal, and at RP = (1,16,317,64) window 256
+#: (generate_gpt's RoPE prefill) it keeps the one launch and no workspace,
+#: but there it costs about a quarter of the time: 3 splits a band (length
+#: 2) read 0.0311 ms against 0.0409 on the card, since 80 items leave most
+#: of its 132 SMs idle (PERF.md).
+FWD_F32_OUTER_TILE = 64
+FWD_F32_INNER_TILE = 64
+FWD_F32_SPLIT_TILES = 128
 
 
 def _dense_pos_masks(s, q_pos, k_pos, causal, window, neg=NEG_INF):
@@ -411,6 +440,22 @@ def _res_fwd_tiles(sq: int, bh: int, d: int,
     return RES_FWD_OUTER_TILE, RES_FWD_INNER_TILE
 
 
+def _f32_fwd_tiles(outer: int, inner: int, d: int) -> Tuple[int, int]:
+    """(query rows of a CTA, key rows of a tile) of the fp32 forward
+    (``fwd_f32_blocked``) at head_dim ``d`` from the route's constants:
+    ``(outer, inner)`` up to d = 64, else 64 / 32 (the 128-wide instances'
+    registers and shared memory; ``fwd_f32_tiles_ok``)."""
+    return (outer, inner) if d <= 64 else (64, 32)
+
+
+def _res_fwd_f32_tiles(d: int) -> Tuple[int, int, int]:
+    """The resident fp32 forward's launch tiles at head_dim ``d``:
+    (RES_FWD_F32_OUTER_TILE, RES_FWD_F32_INNER_TILE) through
+    :func:`_f32_fwd_tiles`, and 0: the plain grid."""
+    return (*_f32_fwd_tiles(RES_FWD_F32_OUTER_TILE, RES_FWD_F32_INNER_TILE,
+                            d), 0)
+
+
 @functools.lru_cache(maxsize=16)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -451,7 +496,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(b, h, sq, d)`` in q's dtype and lse ``(b, h, sq)`` fp32. bf16 takes
     the wgmma kernel (operands TMA can read, :func:`_tma_operands`; the
     RES_FWD_* tiles and schedule), which writes each row once (two calls
-    give the same bits); fp32 the FMA kernel (STREAM_TILE both ways). A
+    give the same bits); fp32 the register-blocked FMA kernel at
+    :func:`_res_fwd_f32_tiles`, which writes each row once too. A
     ``bias`` (fp32 ``(b|1, h|1, sq, sk)``, :func:`_bias_args`) joins the
     scores after the scale; the ``window`` and the segment masks as
     :func:`flash_attention` takes them, the bounds at the kernel's tiles
@@ -467,7 +513,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         tiles = (*_res_fwd_tiles(sq, b * h, dk_, _sm_count(q.get_device())),
                  int(RES_FWD_PERSISTENT))
     else:
-        tiles = (STREAM_TILE, STREAM_TILE, 0)
+        tiles = _res_fwd_f32_tiles(d)
     sargs, _keep = _seg_args(seg, tiles[0], tiles[1], True)
     o = torch.empty((b, h, sq, dk_), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
@@ -835,8 +881,8 @@ def _bands(n_outer: int, n_inner: int, causal: bool, window: Optional[int],
 
 
 def _stream_bands(sq, sk, causal, window, inner_is_k):
-    """The fp32 kernels' bands: STREAM_TILE rows on both sides, splits of
-    STREAM_SPLIT_TILES."""
+    """The fp32 backward kernels' bands: STREAM_TILE rows on both sides,
+    splits of STREAM_SPLIT_TILES."""
     t = STREAM_TILE
     nq, nk = _cdiv(sq, t), _cdiv(sk, t)
     if inner_is_k:
@@ -844,21 +890,33 @@ def _stream_bands(sq, sk, causal, window, inner_is_k):
     return _bands(nk, nq, causal, window, False, STREAM_SPLIT_TILES, t, t)
 
 
-def _fwd_bands(sq, sk, causal, window):
-    """The forward's bands, as the bf16 kernel and the plain version cut
-    them: query tiles of FWD_OUTER_TILE rows, key tiles of FWD_INNER_TILE
-    rows, splits of FWD_SPLIT_TILES key tiles."""
-    o, i = FWD_OUTER_TILE, FWD_INNER_TILE
-    return _bands(_cdiv(sq, o), _cdiv(sk, i), causal, window, True,
-                  FWD_SPLIT_TILES, o, i)
+def _fwd_tiles(bf16: bool, d: int) -> Tuple[int, int, int]:
+    """(query rows of a CTA, key rows of a tile, key tiles of a split) of
+    the streamed forward's route at head_dim ``d``: bf16 FWD_OUTER_TILE /
+    FWD_INNER_TILE / FWD_SPLIT_TILES; fp32 FWD_F32_OUTER_TILE /
+    FWD_F32_INNER_TILE through :func:`_f32_fwd_tiles`, FWD_F32_SPLIT_TILES."""
+    if bf16:
+        return FWD_OUTER_TILE, FWD_INNER_TILE, FWD_SPLIT_TILES
+    return (*_f32_fwd_tiles(FWD_F32_OUTER_TILE, FWD_F32_INNER_TILE, d),
+            FWD_F32_SPLIT_TILES)
 
 
-def _fwd_merges(nsplit: int, bf16: bool) -> bool:
+def _fwd_bands(sq, sk, causal, window, tiles=None):
+    """The forward's bands, as the kernel and the plain version cut them at
+    ``tiles`` (:func:`_fwd_tiles`; the bf16 route's by default): query
+    tiles of ``tiles[0]`` rows, key tiles of ``tiles[1]`` rows, splits of
+    ``tiles[2]`` key tiles."""
+    o, i, split = tiles or _fwd_tiles(True, 0)
+    return _bands(_cdiv(sq, o), _cdiv(sk, i), causal, window, True, split,
+                  o, i)
+
+
+def _fwd_merges(nsplit: int) -> bool:
     """Whether a streamed forward launches the merge pass and needs its fp32
-    workspace (partials of ``nsplit`` splits): in bf16 only where some band
-    has several splits (a band of one is written by the split pass); in fp32
-    always (the FMA kernel writes a partial from every split)."""
-    return nsplit > 1 or not bf16
+    workspace (partials of ``nsplit`` splits): only where some band has
+    several splits, in either dtype (a band of one is written by the split
+    pass)."""
+    return nsplit > 1
 
 
 def _bwd_bands(sq, sk, causal, window, inner_is_k):
@@ -997,25 +1055,26 @@ def flash_attention_fwd_stream_reference(q, k, v, *, causal: bool,
                                          ) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
     """Plain streamed forward, the kernel's arithmetic in fp32: per query
-    tile (FWD_OUTER_TILE rows), each split of its band (FWD_INNER_TILE-row
-    key tiles, :func:`_fwd_bands`), narrowed by the contiguous-segment
+    tile, each split of its band (:func:`_fwd_bands`), narrowed by the
+    contiguous-segment
     bounds as the kernel narrows it, gives a partial (unnormalised acc, row
     max m, row sum l; a split left empty gives acc 0, m NEG_INF, l 0), and
     the lse merge combines them: ``m* = max m_i``,
     ``l* = sum l_i e^(m_i - m*)``, ``o = sum acc_i e^(m_i - m*) / l*``,
     ``lse = m* + log l*`` (a band of one split is that split's own
     normalisation). A row with no visible key gives o = 0 exactly and lse =
-    NEG_INF. Returns ``(o, lse)`` as the kernels do; the fp32 kernel's
-    64-row tiles (STREAM_*) sum the same terms in another order."""
+    NEG_INF. Returns ``(o, lse)`` as the kernels do, at the tiles of q's
+    dtype's route (:func:`_fwd_tiles`)."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = (d ** -0.5) if scale is None else float(scale)
-    to, ti = FWD_OUTER_TILE, FWD_INNER_TILE
+    tiles = _fwd_tiles(q.dtype == torch.bfloat16, d)
+    to, ti = tiles[:2]
     q32, k32, v32 = q.float(), k.float(), v.float()
     o = torch.zeros(b, h, sq, d, device=q.device)
     lse = torch.full((b, h, sq), NEG_INF, device=q.device)
-    bands, _ = _fwd_bands(sq, sk, causal, window)
+    bands, _ = _fwd_bands(sq, sk, causal, window, tiles)
     bounds = _stream_bounds(seg, to, ti, True)
     for rows in _stream_rows(seg, b):
         for qt, splits in enumerate(bands):
@@ -1152,11 +1211,12 @@ def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the streamed forward on CUDA tensors: ``(o, lse)`` as
     :func:`flash_attention_fwd`, with the sliding ``window`` and the
-    segment masks. bf16 takes the wgmma kernel (FWD_* tiles, operands TMA
-    can read: :func:`_tma_operands`), with the merge pass and its fp32
-    workspace only where a band has several splits; fp32 the FMA kernel and
-    the merge (STREAM_* tiles). The splits come from shapes alone; the
-    segment bounds narrow each on the card. Counts its launches in
+    segment masks. bf16 takes the wgmma kernel (operands TMA can read:
+    :func:`_tma_operands`), fp32 the register-blocked FMA kernel, each at
+    its route's tiles (:func:`_fwd_tiles`), with the merge pass and its
+    fp32 workspace only where a band has several splits
+    (:func:`_fwd_merges`). The splits come from shapes alone; the segment
+    bounds narrow each on the card. Counts its launches in
     ``flash_attention_fwd_stream.launches``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     q, k, v, (b, h, sq, sk, d) = _fwd_args(q, k, v,
@@ -1166,11 +1226,9 @@ def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
     dk_ = d
     if bf16:
         (q, k, v), dk_ = _tma_operands([q, k, v])
-        _, nsplit = _fwd_bands(sq, sk, causal, window)
-        tiles = (FWD_OUTER_TILE, FWD_INNER_TILE, FWD_SPLIT_TILES, nsplit)
-    else:
-        _, nsplit = _stream_bands(sq, sk, causal, window, True)
-        tiles = (STREAM_TILE, STREAM_TILE, STREAM_SPLIT_TILES, nsplit)
+    route = _fwd_tiles(bf16, d)
+    _, nsplit = _fwd_bands(sq, sk, causal, window, route)
+    tiles = (*route, nsplit)
     sargs, _keep = _seg_args(seg, tiles[0], tiles[1], True)
     o = torch.empty((b, h, sq, dk_), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
@@ -1179,7 +1237,7 @@ def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
     if sk == 0:
         raise ValueError("flash_attention needs at least one key")
     acc = ml = None
-    if _fwd_merges(nsplit, bf16):
+    if _fwd_merges(nsplit):
         acc = torch.empty((nsplit, b * h, sq, dk_), device=q.device,
                           dtype=torch.float32)
         ml = torch.empty((2, nsplit, b * h, sq), device=q.device,

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --decode-times TREE   # decode times of TREE's port
     python3 chip_smoke.py --flash-times TREE    # flash #1-#6, no masks
     python3 chip_smoke.py --sass TREE   # SASS counts of the flash kernels
+    python3 chip_smoke.py --kernel-names   # fp32 attention kernels by name
 
 Ten phases; any failure raises and exits non-zero:
 
@@ -42,11 +43,20 @@ Ten phases; any failure raises and exits non-zero:
    softmax forward's warp route against its CTA route at 1024 and 2048
    columns, the LayerNorm pair's rows (warps) a CTA, CTAs an SM and
    warp caps, the fp32 resident backward's schedule and tiles at F =
-   (4,16,1024,64), and the decode pair's split count against the values
-   tried) and the least time the card could take. The fp32 resident
+   (4,16,1024,64), the fp32 streamed forward's split length at RP and L,
+   and the decode pair's split count against the values tried) and the
+   least time the card could take. The fp32 resident
    backward pair (register-blocked FMA) at F with a halved dQ tail caught
    and two calls bit-identical, at d = 6, 16, 36, 40 and 128, cross
-   shapes, the fused-QKV view and views off 16 bytes (its 4-byte copies). The additive bias on the
+   shapes, the fused-QKV view and views off 16 bytes (its 4-byte copies);
+   the fp32 forward (the same FMA pieces, resident and split) at F with a
+   halved o tail caught and two calls bit-identical, at d = 16, 36 (views
+   off 16 bytes), 40 and 128, cross shapes and the fused-QKV view, and
+   streamed with one split a band (no workspace, by the bytes allocated)
+   and with cut split lengths (the merge). In a child process
+   (``--kernel-names``), the kernels by name of one call each of SDPA's
+   fp32 forward and backward and of #2 fp32 at RP (one ``fwd_f32_blocked``
+   launch, no merge). The additive bias on the
    resident flash kernels #1, #5 and #6 (:func:`check_flash_bias`): BERT's
    padding bias from ``extended_attention_mask`` at (16,16,512,64) bf16,
    dense biases with dbias broadcast over the batch, the heads or both
@@ -163,14 +173,18 @@ Ten phases; any failure raises and exits non-zero:
    batch's loss before and after, reported beside O2's), then each of
    those fp32 routes at this shape against its plain version and timed
    beside the bound, the plain version and the library call (SDPA's fp32
-   backward with its backend by name); (c) remat_policy full, save_attn and dots: the first step's loss
+   forward and backward, SDPA's fp32 o against the plain version), and
+   #3/#4 fp32 at L = (1,16,8192,64); (c)
+   remat_policy full, save_attn and dots: the first step's loss
    and grads against full's, exact launches (#1 L*M a step under
    save_attn), step time and peak memory; (d) ``generate_gpt.run`` (fp32)
    from the checkpoint: plain, prefix cache + speculative, 256-token
    chunks, every token against the full-context argmax, exact launches,
    TTFT/ITL p50 and tokens/s, then #9 and #10 on their fp32 routes at
    phase 2's decode shapes; (e) ``--pos rope --window 256`` with random
-   weights, monolithic and chunked + speculative, held the same way.
+   weights, monolithic and chunked + speculative, held the same way, then
+   #2's fp32 route at the longest prefill (one split a band: no
+   workspace).
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -663,6 +677,9 @@ def check_flash_attention(torch, ops, dev):
         (1, 16, 1024, 1024, 64, bf16, True),
         (8, 16, 1024, 1024, 64, bf16, True),
         (1, 16, 1024, 1024, 64, f32, True),
+        (4, 16, 1024, 1024, 64, f32, True),    # F: the O0 pretrain's
+        (1, 4, 256, 256, 128, f32, True),      # the 128-wide fp32 instance
+        (1, 2, 64, 64, 16, f32, True),
         (1, 16, 1024, 1024, 64, bf16, False),
         (2, 3, 1000, 1000, 64, f32, True),
         (2, 3, 1000, 1000, 64, bf16, True),    # a ragged last query tile
@@ -682,19 +699,28 @@ def check_flash_attention(torch, ops, dev):
         q = torch.randn(b, h, sq, d, device=dev, generator=gen).to(dt)
         k = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
         v = torch.randn(b, h, sk, d, device=dev, generator=gen).to(dt)
-        at_t = (b, sq, dt) == (8, 1024, bf16)
-        ragged = (b, h, sq, sk, dt, causal) == (1, 2, 300, 77, bf16, True)
+        at_t = (b, sq, dt) in ((8, 1024, bf16), (4, 1024, f32))
+        ragged = (b, h, sq, sk, causal) == (1, 2, 300, 77, True)
         err = run(q, k, v, causal, f"({b},{h},{sq},{sk},{d}) {str(dt)[6:]} "
                   f"causal={causal}", plant=at_t, twice=at_t or ragged)
         if main_err is None:
             main_err = err
+    # fp32 d = 36 as views one column into 40-wide rows: bases off 16 bytes,
+    # so the fp32 kernel takes its 4-byte copies
+    q, k, v = (torch.randn(2, 2, n, 40, device=dev, generator=gen)[..., 1:37]
+               for n in (100, 120, 120))
+    run(q, k, v, False, "(2,2,100,120,36) fp32 causal=False, views off 16 "
+        "bytes (4-byte copies)")
     # a fused-QKV view (strided heads) goes in without a copy
-    qkv = torch.randn(1, 128, 4, 3, 64, device=dev, generator=gen).to(bf16)
-    qkv = qkv.permute(0, 2, 3, 1, 4)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    check(all(tfa._tma_ok(t) for t in (q, k, v)), "the fused-QKV view is one "
-          "TMA reads as it is")
-    run(q, k, v, True, "strided fused-QKV view (1,4,128,64) bf16 causal")
+    for dt in (bf16, f32):
+        qkv = torch.randn(1, 128, 4, 3, 64, device=dev, generator=gen).to(dt)
+        qkv = qkv.permute(0, 2, 3, 1, 4)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if dt == bf16:
+            check(all(tfa._tma_ok(t) for t in (q, k, v)), "the fused-QKV "
+                  "view is one TMA reads as it is")
+        run(q, k, v, True, f"strided fused-QKV view (1,4,128,64) "
+            f"{str(dt)[6:]} causal")
     del q, k, v, qkv
 
     out = {}
@@ -731,9 +757,15 @@ def check_flash_attention(torch, ops, dev):
         bq, bk = tfa._res_fwd_tiles(1024, b * 16, 64, sms)
         names.append(f"{label}: fwd_resident_wgmma<64, {bk}, {bq // 64}>")
     sched = "persistent" if tfa.RES_FWD_PERSISTENT else "plain grid"
+    fo, fi, _ = tfa._res_fwd_f32_tiles(64)
+    f32_name = (f"fp32: fwd_f32_blocked<64, {fo // 16}, {fi}> (register-"
+                f"blocked FMA fed by a cp.async ring, one CTA per whole band, "
+                f"plain grid, fp32 o stored once; "
+                f"csrc/flash_f32_blocked.cuh)")
     return dict(name="flash_attention_fwd", route="cuda",
                 kernel=f"{'; '.join(names)} (wgmma fed by a TMA ring, one "
-                       f"CTA per whole band, {sched}, o stored once by TMA)",
+                       f"CTA per whole band, {sched}, o stored once by TMA); "
+                       f"{f32_name}",
                 source="apex_tpu_torch/csrc/flash_attention.cu",
                 replaces="apex_tpu/ops/flash_attention.py:251",
                 max_abs_err=main_err, by_shape=out, res_fwd_tuning=tuning,
@@ -1588,7 +1620,8 @@ def check_flash_segments(torch, ops, dev):
                                 else SEG_F32_TOL), group=grp))
         print(f"  {grp} (1,4,600,64) causal window 128: " + ", ".join(parts))
     # cut split lengths: bands of several splits, narrowed ones empty
-    cut = ("FWD_SPLIT_TILES", "BWD_SPLIT_TILES", "STREAM_SPLIT_TILES")
+    cut = ("FWD_SPLIT_TILES", "BWD_SPLIT_TILES", "STREAM_SPLIT_TILES",
+           "FWD_F32_SPLIT_TILES")
     chosen = [getattr(tfa, n) for n in cut]
     try:
         for n in cut:
@@ -1951,25 +1984,49 @@ def check_flash_attention_stream(torch, ops, dev):
     def rand(*shape, dt):
         return torch.randn(*shape, device=dev, generator=gen).to(dt)
 
-    def run(q, k, v, causal, window, label, fwd_split=None):
+    def run(q, k, v, causal, window, label, fwd_split=None, twice=False):
         dt = q.dtype
         do = rand(*q.shape, dt=dt)
         scale = q.shape[-1] ** -0.5
-        chosen = tfa.FWD_SPLIT_TILES
+        split_name = "FWD_SPLIT_TILES" if dt == bf16 else "FWD_F32_SPLIT_TILES"
+        chosen = getattr(tfa, split_name)
+        b, h, sq, d = q.shape
         try:  # a cut split length: bands of several splits, and the merge
-            tfa.FWD_SPLIT_TILES = fwd_split or chosen
-            _, nsplit = tfa._fwd_bands(q.shape[2], k.shape[2], causal,
-                                       window)
+            setattr(tfa, split_name, fwd_split or chosen)
+            _, nsplit = tfa._fwd_bands(sq, k.shape[2], causal, window,
+                                       tfa._fwd_tiles(dt == bf16, d))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             o, lse = ops.flash_attention_fwd_stream(q, k, v, causal=causal,
                                                     window=window)
             torch.cuda.synchronize()
+            extra = (torch.cuda.max_memory_allocated() - base
+                     - o.numel() * o.element_size() - lse.numel() * 4)
             o_ref, lse_ref = ops.flash_attention_fwd_stream_reference(
                 q, k, v, causal=causal, window=window)
+            if twice:
+                o2, lse2 = ops.flash_attention_fwd_stream(
+                    q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                same = torch.equal(o, o2) and torch.equal(lse, lse2)
+                verdict(f"flash_attention_stream {label} deterministic",
+                        0 if same else 1, 0,
+                        group=f"flash_attention_stream {str(dt)[6:]}")
+                del o2, lse2
         finally:
-            tfa.FWD_SPLIT_TILES = chosen
+            setattr(tfa, split_name, chosen)
         if fwd_split:
-            check(dt != bf16 or nsplit > 1, f"stream {label}: the cut split "
-                  f"length leaves one split a band")
+            check(nsplit > 1, f"stream {label}: the cut split length leaves "
+                  f"one split a band")
+        if dt == f32:
+            # the fp32 workspace (the partials of every split) exists only
+            # where a band has several splits: a band of one is written
+            # by the split pass itself, with no merge launch
+            ws = max(nsplit, 1) * b * h * sq * d * 4
+            check((extra >= ws // 2) == (nsplit > 1),
+                  f"stream fwd {label}: {extra} bytes allocated beside o and "
+                  f"lse with {nsplit} splits a band at most")
         delta = (o.float() * do.float()).sum(-1)
         kw = dict(causal=causal, scale=scale, window=window)
         dq = ops.flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, **kw)
@@ -2023,9 +2080,13 @@ def check_flash_attention_stream(torch, ops, dev):
                 parts.append(f"halved tail: row {planted:.3g}, of max|ref| "
                              f"{rel_err(bad, r):.3g}")
                 del bad
-        merge = "" if dt != bf16 else (
-            f"; forward bands of up to {nsplit} splits, merged"
-            if nsplit > 1 else "; one split a band, no merge")
+        merge = (f"; forward bands of up to {nsplit} splits, merged"
+                 if nsplit > 1 else "; one split a band, no merge")
+        if dt == f32:
+            merge += f" ({extra} bytes allocated beside o and lse)"
+        if twice:
+            merge += "; a second forward bit-identical"
+
         print(f"  flash_attention_stream {label}: " + ", ".join(parts)
               + f"; {n_dead} rows with no key exactly 0" + merge)
         return worst
@@ -2033,7 +2094,11 @@ def check_flash_attention_stream(torch, ops, dev):
     cases = [  # b, h, sq, sk, d, dtype, causal, window[, FWD_SPLIT_TILES]
         (1, 16, 8192, 8192, 64, bf16, True, None),
         (1, 16, 16384, 16384, 64, bf16, True, 4096),
-        (1, 2, 4097, 4097, 64, f32, True, None),
+        (1, 2, 4097, 4097, 64, f32, True, None),  # fp32: one split a band
+        # fp32 with the split length cut to 2 key tiles: bands of several
+        # splits and the merge; then partials beside dead rows
+        (1, 2, 1000, 1000, 64, f32, True, 300, 2),
+        (1, 2, 1000, 300, 64, f32, True, 100, 1),
         (1, 2, 4097, 4097, 64, bf16, True, 1000),
         (2, 3, 1000, 1000, 16, f32, False, 100),
         (2, 3, 1000, 1000, 16, bf16, True, None),
@@ -2058,10 +2123,11 @@ def check_flash_attention_stream(torch, ops, dev):
     for b, h, sq, sk, d, dt, causal, window, *split in cases:
         q, k, v = rand(b, h, sq, d, dt=dt), rand(b, h, sk, d, dt=dt), \
             rand(b, h, sk, d, dt=dt)
+        name = "FWD_SPLIT_TILES" if dt == bf16 else "FWD_F32_SPLIT_TILES"
         err = run(q, k, v, causal, window, f"b={b} h={h} sq={sq} sk={sk} "
                   f"d={d} {str(dt)[6:]} causal={causal} window={window}"
-                  + (f" FWD_SPLIT_TILES={split[0]}" if split else ""),
-                  *split)
+                  + (f" {name}={split[0]}" if split else ""),
+                  *split, twice=dt == f32 and sk > 300)
         if main_err is None:
             main_err = err
         del q, k, v
@@ -2164,13 +2230,18 @@ def check_flash_attention_stream(torch, ops, dev):
                                     (1, 4096, None), (8, 1024, None)))
     main_label = "(1,16,8192,64) bf16 causal"
     fwd_split_tuning(torch, ops, tfa, rand)
+    f32_split = fwd_f32_split_tuning(torch, ops, tfa, rand)
     bwd_split_tuning(torch, ops, tfa, rand)
     stream_min_seq_basis(torch, ops, tfa, rand)
     rows = []
+    fo, fi, fs = tfa._fwd_tiles(False, 64)
     for key, name, line, kernel in (
             ("fwd", "flash_attention_fwd_stream", 506,
              f"fwd_wgmma<64, {tfa.FWD_INNER_TILE}> (wgmma fed by a TMA "
-             f"ring; fwd_merge only where a band has several splits)"),
+             f"ring); fp32: fwd_f32_blocked<64, {fo // 16}, {fi}> split "
+             f"instances (register-blocked FMA fed by a cp.async ring, "
+             f"splits of up to {fs} key tiles; csrc/flash_f32_blocked.cuh); "
+             f"fwd_merge only where a band has several splits"),
             ("dq", "flash_attention_bwd_dq_stream", 576,
              "dq_wgmma<64> (wgmma fed by a TMA ring)"),
             ("dkv", "flash_attention_bwd_dkv_stream", 637,
@@ -2182,6 +2253,7 @@ def check_flash_attention_stream(torch, ops, dev):
             replaces=f"apex_tpu/ops/flash_attention.py:{line}",
             max_abs_err=main_err[key],
             by_shape={lab: t[key] for lab, t in by_shape.items()}, **main))
+    rows[0]["fwd_f32_split_tuning"] = f32_split
     return rows
 
 
@@ -2244,6 +2316,46 @@ def fwd_split_tuning(torch, ops, tfa, rand, lengths=(16, 32, 64, 128)):
         torch.cuda.empty_cache()
     print(f"  FWD_INNER_TILE = {inner}, FWD_SPLIT_TILES = {chosen} (chosen);"
           f" forward ms by key tile and split length: " + "; ".join(parts))
+
+
+def fwd_f32_split_tuning(torch, ops, tfa, rand,
+                         lengths=(2, 4, 8, 16, 32, 128)):
+    """The split length of the fp32 streamed forward (FWD_F32_SPLIT_TILES
+    key tiles of FWD_F32_INNER_TILE rows a CTA) against the lengths tried,
+    at RP = (1,16,317,64) causal, window 256 (generate_gpt's longest RoPE
+    prefill) and at L = (1,16,8192,64) causal, in fp32: device times on one
+    line with the splits of the longest band each takes (a length that cuts
+    the same splits as a shorter one is skipped); returned for the
+    ``kernels`` line (``fwd_f32_split_tuning``)."""
+    chosen = tfa.FWD_F32_SPLIT_TILES
+    out, parts = {}, []
+    for label, s, window in (("RP", 317, 256), ("L", 8192, None)):
+        q, k, v = (rand(1, 16, s, 64, dt=torch.float32) for _ in range(3))
+        t = out[label] = {}
+        seen = set()
+        try:
+            for split in lengths:
+                tfa.FWD_F32_SPLIT_TILES = split
+                _, ns = tfa._fwd_bands(s, s, True, window,
+                                       tfa._fwd_tiles(False, 64))
+                if ns in seen:
+                    continue
+                seen.add(ns)
+                t[f"split {split} ({ns})"] = time_ms(
+                    lambda: ops.flash_attention_fwd_stream(
+                        q, k, v, causal=True, window=window), 10)
+        finally:
+            tfa.FWD_F32_SPLIT_TILES = chosen
+        parts.append(f"{label}: " + ", ".join(f"{k} {v:.4f}"
+                                              for k, v in t.items()))
+        del q, k, v
+        torch.cuda.empty_cache()
+    print(f"  FWD_F32_SPLIT_TILES = {chosen} (chosen: one split a band at RP "
+          f"and L, no workspace and no merge); fp32 forward ms at "
+          f"{tfa.FWD_F32_OUTER_TILE} x {tfa.FWD_F32_INNER_TILE} tiles by "
+          f"split length (splits of the longest band): " + "; ".join(parts)
+          + f"; {nvidia_smi()}")
+    return {"chosen": {"split_tiles": chosen}, "ms": out}
 
 
 def bwd_split_tuning(torch, ops, tfa, rand, lengths=(16, 32, 64, 128)):
@@ -3615,8 +3727,7 @@ def train_345m(torch, ops, dev):
               f"{1 - busy / wall:.3f}), the port's kernels {ours:.1f} ms = "
               f"{ours / busy:.3f} of busy; device time by kernel:")
         print_top(by_name)
-        n_f, t_f = kernel_time(by_name, "fwd_resident_wgmma",
-                               "flash_fwd_kernel")
+        n_f, t_f = kernel_time(by_name, "fwd_resident_wgmma")
         n_q, t_q = kernel_time(by_name, "dq_resident_wgmma")
         n_k, t_k = kernel_time(by_name, "dkv_resident_wgmma")
         n_lf, t_lf = kernel_time(by_name, "ln_fwd_")
@@ -4604,9 +4715,12 @@ def pretrain_default_lr(torch, dev, opt_level="O2", beside=None):
 
 
 #: the O0 step (host clock, 3 steps on one batch, the first included) with
-#: the fp32 backward pair on FMA kernels, on an H100 80GB HBM3 at 700 W
-#: (PERF.md), printed beside this run's
+#: the fp32 backward pair on the first port's FMA kernels, and with the
+#: register-blocked pair beside the first port's fp32 forward (#1 on
+#: flash_fwd_kernel), on an H100 80GB HBM3 at 700 W (PERF.md), printed
+#: beside this run's
 O0_STEP_FMA_PAIR_MS = 966.5
+O0_STEP_FMA_FWD_MS = 757.7
 
 
 def pretrain_o0(torch, ops, dev):
@@ -4635,8 +4749,9 @@ def pretrain_o0(torch, ops, dev):
     per_step = pretrain_per_step(L, 2)
     print(f"  (b) pretrain_gpt 345M O0 (fp32): {steps} steps on one batch, "
           f"{wall:.1f} ms a step (host clock, the first step included; "
-          f"{O0_STEP_FMA_PAIR_MS} ms with the fp32 backward pair on FMA "
-          f"kernels), "
+          f"{O0_STEP_FMA_FWD_MS} ms with the fp32 forward on the first "
+          f"port's FMA kernel, {O0_STEP_FMA_PAIR_MS} ms with the backward "
+          f"pair on it too), "
           f"losses {[round(x, 4) for x in losses]}, launches {counts}")
     check_counts(counts, expected_counts(counts, steps, per_step),
                  "gpt_pretrain_o0")
@@ -4661,21 +4776,123 @@ def split_tf32_bound(nbytes, flops):
     return bound(nbytes, 3 * flops, "tfloat32")
 
 
-def sdpa_backward_backend(torch, out, inputs, grad):
-    """SDPA's backward as it ran: the ``grad_fn`` of its output and the
-    device kernels of one ``autograd.grad`` under the profiler, by time."""
+def kernels_of(torch, fn):
+    """The device kernels of one call of ``fn`` under the profiler, after
+    one call outside it (:func:`device_time_by_kernel`), and the top 3 by
+    time as ``["name xN (ms)", ...]``, or "not captured"."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.autograd.grad(out, inputs, grad, retain_graph=True)
+        fn()
         torch.cuda.synchronize()
     by_name = device_time_by_kernel(torch, prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:3]
-    return {"grad_fn": type(out.grad_fn).__name__,
-            "kernels": [f"{name[:120]} ({t / 1e3:.4f} ms)"
-                        for name, (_, t) in top] or "not captured"}
+    return by_name, [f"{name[:120]} x{n} ({t / 1e3:.4f} ms)"
+                     for name, (n, t) in top] or "not captured"
+
+
+def rope_prefill_inputs(torch, dev, s):
+    """generate_gpt's RoPE prefill operands at (1,16,s,64) fp32 from seed
+    12: q and k contiguous (as the rotation leaves them), v a strided view
+    of the QKV product (as the model hands it over)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    qkv = torch.randn(1, s, 16, 3, 64, device=dev,
+                      generator=gen).permute(0, 2, 3, 1, 4)
+    return qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
+
+
+def fp32_kernels_by_name(torch, ops, dev):
+    """The device kernels, by name, of one call of each fp32 attention that
+    phase 10 times: SDPA's forward and backward (autograd.grad) at F =
+    (4,16,1024,64) causal and its backward at L = (1,16,8192,64) causal;
+    at RP = (1,16,317,64) window 256, #2 fp32 (held to launch
+    fwd_f32_blocked once and no fwd_merge) and SDPA with the boolean band
+    mask. Run in a fresh process
+    (:func:`kernels_by_name_apart`): in the process that has run the
+    phases the profiler captures nothing for some of these calls. Returned
+    by the rows of the ``kernels`` line they go with."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for label, (b, s) in (("F", (4, 1024)), ("L", (1, 8192))):
+        q, k, v, do = (torch.randn(b, 16, s, 64, device=dev, generator=gen)
+                       for _ in range(4))
+        if label == "F":
+            _, out["SDPA fp32 forward at F"] = kernels_of(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        _, out[f"SDPA fp32 backward at {label} "
+               f"({type(o.grad_fn).__name__})"] = kernels_of(
+            torch, lambda: torch.autograd.grad(o, (q, k, v), do,
+                                               retain_graph=True))
+        del q, k, v, do, o
+        torch.cuda.empty_cache()
+    q, k, v = rope_prefill_inputs(torch, dev, 317)
+    launched, out["#2 fp32 at RP"] = kernels_of(
+        torch, lambda: ops.flash_attention_fwd_stream(q, k, v, causal=True,
+                                                      window=256))
+    check(kernel_time(launched, "fwd_f32_blocked")[0] == 1
+          and kernel_time(launched, "fwd_merge")[0] == 0,
+          f"#2 fp32 at RP launches fwd_f32_blocked once and no merge: "
+          f"{out['#2 fp32 at RP']}")
+    i = torch.arange(317, device=dev)
+    diff = i[:, None] - i[None, :]
+    band = (diff >= 0) & (diff < 256)
+    _, out["SDPA with the band mask at RP"] = kernels_of(
+        torch, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=band))
+    print("  fp32 attention kernels by name (one call under the profiler): "
+          + "; ".join(f"{k}: {v}" for k, v in out.items()))
+    del q, k, v, band
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": {
+                k: out[k] for k in ("SDPA fp32 forward at F",)},
+            "flash_attention_fwd_stream": {
+                k: out[k] for k in ("#2 fp32 at RP",
+                                    "SDPA with the band mask at RP")},
+            **{name: {k: v for k, v in out.items() if "backward" in k}
+               for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                            "flash_attention_bwd_dq_stream",
+                            "flash_attention_bwd_dkv_stream")}}
+
+
+def kernels_by_name_apart():
+    """:func:`fp32_kernels_by_name` in a child process (``python3
+    chip_smoke.py --kernel-names``, the kernels this run built), its lines
+    printed here; fails if the child does."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--kernel-names"], capture_output=True, text=True,
+                       timeout=600, cwd=HERE)
+    check(r.returncode == 0, f"--kernel-names exited {r.returncode}: "
+          f"{r.stdout[-2000:]} {r.stderr[-4000:]}")
+    *lines, last = r.stdout.strip().splitlines()
+    for line in lines:
+        print(line)
+    return json.loads(last)
+
+
+def kernel_names_main():
+    """``python3 chip_smoke.py --kernel-names``: :func:`fp32_kernels_by_name`
+    on the card, its result as the last line (one JSON object)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.csrc import build
+
+    build.load()
+    print(json.dumps(fp32_kernels_by_name(torch, ops,
+                                          torch.device("cuda", 0))))
+    return 0
 
 
 def fp32_train_times(torch, ops, dev):
@@ -4741,7 +4958,7 @@ def fp32_train_times(torch, ops, dev):
     torch.cuda.synchronize()
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         out, (ql, kl, vl), do, retain_graph=True), stream=side)
-    backend = sdpa_backward_backend(torch, out, (ql, kl, vl), do)
+    backend = type(out.grad_fn).__name__
     # how near SDPA's own fp32 grads come to the plain backward, beside the
     # port's: context for the limits the port is held to, not a check
     lib_grads = torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
@@ -4752,17 +4969,35 @@ def fp32_train_times(torch, ops, dev):
                               (rq, rk, rv)))
     print(f"  (b) fp32 grads at F against the plain backward: {near}")
     del lib_grads
+    # how near SDPA's fp32 o comes to the plain version beside the port's:
+    # context for a split-TF32 forward, not a check (its kernels by name:
+    # fp32_kernels_by_name, phase 2)
+    lib_o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    times["flash_attention_fwd"].update(
+        library={"call": "F.scaled_dot_product_attention(is_causal=True)"},
+        library_err={"share": rel_err(lib_o, ref_o),
+                     "row": row_err(lib_o, ref_o)},
+        row_err=row_err(o, ref_o))
+    t1 = times["flash_attention_fwd"]
+    print(f"  (b) fp32 forward at F (4,16,1024,64) causal: the port "
+          f"{t1['ms']:.4f} ms ({4 * d * pairs / t1['ms'] / 1e9:.1f} "
+          f"TFLOP/s), bound {t1['bound'][0]:.4f} ms ({t1['bound'][1]}), "
+          f"plain {t1['plain_ms']:.4f} ms, SDPA {t1['library_ms']:.4f} ms; "
+          f"o against the plain version: SDPA "
+          f"{t1['library_err']['share']:.3g} of max |ref|, worst row "
+          f"{t1['library_err']['row']:.3g}; the port {errs['flash_attention_fwd']:.3g}, "
+          f"{t1['row_err']:.3g}")
+    del lib_o
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         times[name].update(plain_ms=plain_bwd, library_ms=lib_bwd,
-                           library=backend)
+                           library={"grad_fn": backend})
     pair = (times["flash_attention_bwd_dq"]["ms"]
             + times["flash_attention_bwd_dkv"]["ms"])
     print(f"  (b) the fp32 backward pair at F (4,16,1024,64) causal: dQ "
           f"{times['flash_attention_bwd_dq']['ms']:.4f} + dK/dV "
           f"{times['flash_attention_bwd_dkv']['ms']:.4f} = {pair:.4f} ms "
           f"against SDPA's fp32 backward (dQ, dK, dV) {lib_bwd:.4f} ms "
-          f"(autograd.grad through {backend['grad_fn']}; its kernels "
-          f"{backend['kernels']}); bounds dQ "
+          f"(autograd.grad through {backend}); bounds dQ "
           f"{times['flash_attention_bwd_dq']['bound'][0]:.4f} ms as FMA at "
           f"67 TFLOP/s, "
           f"{times['flash_attention_bwd_dq']['bound_tf32'][0]:.4f} ms as "
@@ -4814,6 +5049,78 @@ def fp32_train_times(torch, ops, dev):
                 FP32_TOL[name], group="gpt examples: fp32 routes")
     print(f"  (b) fp32 timings: {nvidia_smi()}")
     return times
+
+
+def fp32_stream_bwd_times(torch, ops, dev):
+    """The fp32 routes of #3 and #4 (dq_split_fma / dkv_split_fma: the
+    first port's FMA kernels) at L = (1,16,8192,64) causal: against their
+    plain versions at phase 2's streamed fp32 limits (1e-5 of max |ref|,
+    :data:`ROW_TOL` by row), then their times by CUDA-graph replay beside
+    the bounds (67 TFLOP/s fp32, 3.35 TB/s), the plain versions and SDPA's
+    fp32 backward at L (dQ, dK, dV by ``autograd.grad``) with its kernels
+    by name. Returns ``{kernel: {"fp32 L": timing}}``."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, h, s, d = 1, 16, 8192, 64
+    q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=gen)
+                   for _ in range(4))
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, lse = ops.flash_attention_fwd_stream(q, k, v, causal=True)
+    delta = (o * do).sum(-1)
+    got = {"flash_attention_bwd_dq_stream": (
+        ops.flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, **kw),),
+        "flash_attention_bwd_dkv_stream":
+            ops.flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, **kw)}
+    ref = {"flash_attention_bwd_dq_stream": (
+        ops.flash_attention_bwd_dq_stream_reference(q, k, v, do, lse, delta,
+                                                    **kw),),
+        "flash_attention_bwd_dkv_stream":
+            ops.flash_attention_bwd_dkv_stream_reference(q, k, v, do, lse,
+                                                         delta, **kw)}
+    _, qb, kb, pairs = stream_bounds(b, h, s, s, d, True, None, "float32")
+    calls = {"flash_attention_bwd_dq_stream": (
+        ops.flash_attention_bwd_dq_stream,
+        ops.flash_attention_bwd_dq_stream_reference, qb),
+        "flash_attention_bwd_dkv_stream": (
+            ops.flash_attention_bwd_dkv_stream,
+            ops.flash_attention_bwd_dkv_stream_reference, kb)}
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    torch.cuda.synchronize()
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (ql, kl, vl), do, retain_graph=True), 3, 2, stream=side)
+    backend = type(out.grad_fn).__name__
+    del out, ql, kl, vl
+    times = {}
+    for name, (fn, plain, (bms, by)) in calls.items():
+        err = max(rel_err(a, r) for a, r in zip(got[name], ref[name]))
+        e_row = max(row_err(a, r) for a, r in zip(got[name], ref[name]))
+        verdict(f"{name} fp32 at L", err, 1e-5,
+                group="flash_attention_stream float32")
+        verdict(f"{name} fp32 at L row", e_row, ROW_TOL[False][1],
+                group="flash_attention_stream float32")
+        t = times[name] = dict(
+            ms=time_ms(lambda: fn(q, k, v, do, lse, delta, **kw), 3, 2),
+            plain_ms=time_ms(lambda: plain(q, k, v, do, lse, delta, **kw),
+                             1, 2),
+            library_ms=lib_bwd, library={"grad_fn": backend}, bound_ms=bms,
+            bound_by=by,
+            max_rel_err=err)
+        flops = (6 if "dq" in name else 8) * d * pairs
+        print(f"  {name} fp32 route at L (1,16,8192,64) causal: share of max "
+              f"|ref| {err:.3g} (tol 1e-05), worst row {e_row:.3g} (tol "
+              f"{ROW_TOL[False][1]:g}); kernel {t['ms']:.4f} ms "
+              f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), bound {bms:.4f} ms "
+              f"({by}), plain {t['plain_ms']:.4f} ms, SDPA's fp32 backward "
+              f"(dQ+dK+dV) {lib_bwd:.4f} ms (autograd.grad through "
+              f"{backend}); {nvidia_smi()}")
+    del q, k, v, do, o, lse, delta, got, ref
+    torch.cuda.empty_cache()
+    return {name: {"fp32 L": t} for name, t in times.items()}
 
 
 def state_bytes(bench, *extra):
@@ -5067,17 +5374,29 @@ def fp32_rope_prefill_times(torch, ops, dev, s, window=256):
     over). Against its plain version at phase 2's fp32 limits (o 1e-5 of
     max |ref|, its worst row 1e-5, lse 1e-4 of max(1, max |lse|)), then its
     time by CUDA-graph replay beside the bound (67 TFLOP/s fp32, 3.35
-    TB/s), the plain version and SDPA with the boolean band mask."""
+    TB/s), the plain version and SDPA with the boolean band mask (the
+    kernels of both by name: fp32_kernels_by_name, phase 2)."""
+    import importlib
+
     import torch.nn.functional as F
 
-    gen = torch.Generator(device=dev).manual_seed(12)
     b, h, d = 1, 16, 64
-    qkv = torch.randn(b, s, h, 3, d, device=dev,
-                      generator=gen).permute(0, 2, 3, 1, 4)
-    q, k, v = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), \
-        qkv[:, :, 2]
+    q, k, v = rope_prefill_inputs(torch, dev, s)
     kw = dict(causal=True, window=window)
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    _, nsplit = tfa._fwd_bands(s, s, True, window, tfa._fwd_tiles(False, d))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     o, lse = ops.flash_attention_fwd_stream(q, k, v, **kw)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - base - o.numel() * 4
+             - lse.numel() * 4)
+    # a band of one split: one launch, written by the split pass with no
+    # fp32 workspace (which would hold b h s d floats a split) and no merge
+    check(nsplit == 1 and extra < b * h * s * d * 4,
+          f"#2 fp32 at the rope prefill: {nsplit} splits a band, {extra} "
+          f"bytes beside o and lse")
     ro, rlse = ops.flash_attention_fwd_stream_reference(q, k, v, **kw)
     err, e_row = rel_err(o, ro), row_err(o, ro)
     e_lse = max_err(lse, rlse) / max(1.0, float(rlse.abs().max()))
@@ -5101,14 +5420,15 @@ def fp32_rope_prefill_times(torch, ops, dev, s, window=256):
             q, k, v, **kw), 5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=band)),
-        bound_ms=bms, bound_by=by, max_rel_err=err)
+        bound_ms=bms, bound_by=by, max_rel_err=err, workspace_bytes=extra)
     print(f"  (e) flash_attention_fwd_stream {label}, {pairs} visible "
           f"pairs: share of max |ref| {err:.3g} (tol 1e-05), worst row "
           f"{e_row:.3g} (tol {ROW_TOL[False][0]:g}), lse {e_lse:.3g} (tol "
-          f"1e-04); kernel {t['ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
-          f"plain {t['plain_ms']:.4f} ms, SDPA with the band mask "
-          f"{t['library_ms']:.4f} ms")
-    del qkv, q, k, v, o, lse, ro, rlse, band
+          f"1e-04); {nsplit} split a band, {extra} bytes beside o and lse; "
+          f"kernel {t['ms']:.4f} ms, bound {bms:.4f} ms ({by}), plain "
+          f"{t['plain_ms']:.4f} ms, SDPA with the band mask "
+          f"{t['library_ms']:.4f} ms; {nvidia_smi()}")
+    del q, k, v, o, lse, ro, rlse, band
     torch.cuda.empty_cache()
     return {"flash_attention_fwd_stream": {label: t}}
 
@@ -5192,6 +5512,7 @@ def gpt_examples(torch, ops, dev):
         pretrain_default_lr(torch, dev, "O0", o2_lr)
         fp32 = {k: {"fp32 O0 pretrain": v}
                 for k, v in fp32_train_times(torch, ops, dev).items()}
+        fp32.update(fp32_stream_bwd_times(torch, ops, dev))
         by_path.update(remat_policies(torch, ops, dev, a_peak))
         by_path.update(generate_checkpoint(torch, ops, dev, ckpt))
         fp32.update(fp32_decode_times(torch, ops, dev))
@@ -5239,6 +5560,10 @@ def main():
             check_flash_decode_multi(torch, ops, dev),
             *check_xentropy(torch, ops, dev),
             *check_softmax(torch, ops, dev)]
+    by_name = kernels_by_name_apart()
+    for row in rows:
+        if row["name"] in by_name:
+            row["kernels_by_name"] = by_name[row["name"]]
     bias = check_flash_bias(torch, ops, dev)
     attach_bias_times(rows, bias)
     torch.cuda.empty_cache()
@@ -5315,7 +5640,7 @@ def main():
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "by_shape", "bias_route",
             "launch_floor_ms", "segments", "res_fwd_tuning", "res_bwd_tuning",
-            "res_bwd_f32_tuning",
+            "res_bwd_f32_tuning", "fwd_f32_split_tuning", "kernels_by_name",
             "warp_tuning", "ln_tuning", "decode_tuning")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
@@ -5534,15 +5859,21 @@ def flash_times(torch, ops, dev):
     """The times of the flash kernels with no bias and no segment ids in
     bf16: the resident #1 at S = (1,16,1024,64) and T = (8,16,1024,64)
     causal, #5 and #6 at T, all three at BERT's (16,16,512,64)
-    non-causal, and the streamed #2-#4 at L = (1,16,8192,64) causal; #5 and
-    #6 in fp32 at F = (4,16,1024,64) causal (``python3 chip_smoke.py
+    non-causal, and the streamed #2-#4 at L = (1,16,8192,64) causal; #1,
+    #5 and #6 in fp32 at F = (4,16,1024,64) causal and #2 in fp32 at RP =
+    (1,16,317,64) causal, window 256 (``python3 chip_smoke.py
     --flash-times TREE``: the port of TREE; run it for the parent and this
     tree in turns to compare them on one card)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {}
+    q, k, v = (torch.randn(1, 16, 317, 64, device=dev, generator=gen)
+               for _ in range(3))
+    out["fwd_stream_f32_RP"] = time_ms(lambda: ops.flash_attention_fwd_stream(
+        q, k, v, causal=True, window=256))
     q, k, v, do = (torch.randn(4, 16, 1024, 64, device=dev, generator=gen)
                    for _ in range(4))
     kw = dict(causal=True, scale=0.125)
+    out["fwd_f32_F"] = time_ms(lambda: ops.flash_attention_fwd(q, k, v, **kw))
     o, lse = ops.flash_attention_fwd(q, k, v, **kw)
     delta = (o * do).sum(-1)
     out["dq_f32_F"] = time_ms(lambda: ops.flash_attention_bwd_dq(
@@ -5655,6 +5986,8 @@ if __name__ == "__main__":
         sys.exit(times_of_tree(sys.argv[2], decode_times))
     if sys.argv[1:2] == ["--flash-times"]:
         sys.exit(times_of_tree(sys.argv[2], flash_times))
+    if sys.argv[1:2] == ["--kernel-names"]:
+        sys.exit(kernel_names_main())
     if sys.argv[1:2] == ["--sass"]:
         sys.exit(sass_counts(sys.argv[2]))
     sys.exit(main())

@@ -333,11 +333,8 @@ def test_fp32_resident_bands_at_the_cards_tiles(sq, sk, causal, dq_pass, d):
     assert np.all(covered[visible] == 1) and covered.max() <= 1
 
 
-@pytest.mark.parametrize("pad", [None, 9])
-@pytest.mark.parametrize("dq_pass", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
-def test_fp32_segment_tables_at_the_cards_tiles(d, dq_pass, pad):
-    """The segment arguments _seg_args builds at the fp32 pair's tiles
+def _check_seg_tables(d, dq_pass, pad, outer, inner):
+    """The segment arguments _seg_args builds at (outer, inner) tiles
     (contiguous ids with a pad suffix, ragged ends) against _seg_valid:
     every pair with equal non-pad ids lies in its outer tile's bounds; a
     block whose (min, max) tables name one non-pad id on both sides (the
@@ -349,7 +346,6 @@ def test_fp32_segment_tables_at_the_cards_tiles(d, dq_pass, pad):
     q = torch.zeros(2, 1, sq, d)
     k = torch.zeros(2, 1, sk, d)
     seg = tfa._as_seg((q_ids, k_ids), pad, True, q, k)
-    outer, inner, _ = tfa._res_bwd_tiles(False, dq_pass, d)
     ptrs, keep = tfa._seg_args(seg, outer, inner, dq_pass)
     assert ptrs[-2:] == (0 if pad is None else pad, int(pad is not None))
     _, _, bounds, omm, imm, ranges = keep
@@ -379,6 +375,104 @@ def test_fp32_segment_tables_at_the_cards_tiles(d, dq_pass, pad):
             want = valid[b, r]
             assert want[lo:hi].all() and want.sum() == max(hi - lo, 0), \
                 (b, r, int(own_ids[b, r]))
+
+
+
+
+@pytest.mark.parametrize("pad", [None, 9])
+@pytest.mark.parametrize("dq_pass", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_segment_tables_at_the_cards_tiles(d, dq_pass, pad):
+    """_check_seg_tables at the fp32 pair's tiles (_res_bwd_tiles)."""
+    outer, inner, _ = tfa._res_bwd_tiles(False, dq_pass, d)
+    _check_seg_tables(d, dq_pass, pad, outer, inner)
+
+
+@pytest.mark.parametrize("pad", [None, 9])
+@pytest.mark.parametrize("route", ["resident", "streamed"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_forward_segment_tables_at_the_cards_tiles(d, route, pad):
+    """_check_seg_tables at the fp32 forward's tiles, resident
+    (_res_fwd_f32_tiles) and streamed (_fwd_tiles): the query side
+    outer, as the forward wrappers build them."""
+    outer, inner = (tfa._res_fwd_f32_tiles(d) if route == "resident"
+                    else tfa._fwd_tiles(False, d))[:2]
+    _check_seg_tables(d, True, pad, outer, inner)
+
+
+def test_fp32_forward_tiles_follow_their_own_constants(monkeypatch):
+    """The fp32 forward's launch tiles come from its own constants, resident
+    (RES_FWD_F32_OUTER_TILE / _INNER_TILE, on the plain grid) and streamed
+    (FWD_F32_OUTER_TILE / _INNER_TILE / _SPLIT_TILES), 64 / 32 above
+    d = 64, not from the streamed backward's STREAM_TILE /
+    STREAM_SPLIT_TILES nor the bf16 routes' constants."""
+    def tiles():
+        return [f(d) for d in (64, 128)
+                for f in (tfa._res_fwd_f32_tiles,
+                          lambda d: tfa._fwd_tiles(False, d))]
+
+    ro, ri = tfa.RES_FWD_F32_OUTER_TILE, tfa.RES_FWD_F32_INNER_TILE
+    so, si, ss = (tfa.FWD_F32_OUTER_TILE, tfa.FWD_F32_INNER_TILE,
+                  tfa.FWD_F32_SPLIT_TILES)
+    want = [(ro, ri, 0), (so, si, ss), (64, 32, 0), (64, 32, ss)]
+    assert tiles() == want
+    for name in ("STREAM_TILE", "STREAM_SPLIT_TILES", "RES_FWD_OUTER_TILE",
+                 "RES_FWD_INNER_TILE", "FWD_OUTER_TILE", "FWD_INNER_TILE",
+                 "FWD_SPLIT_TILES"):
+        monkeypatch.setattr(tfa, name, 16)
+    monkeypatch.setattr(tfa, "RES_FWD_PERSISTENT", not tfa.RES_FWD_PERSISTENT)
+    assert tiles() == want
+    monkeypatch.setattr(tfa, "RES_FWD_F32_OUTER_TILE", 192 - ro)
+    monkeypatch.setattr(tfa, "RES_FWD_F32_INNER_TILE", 96 - ri)
+    monkeypatch.setattr(tfa, "FWD_F32_OUTER_TILE", 192 - so)
+    monkeypatch.setattr(tfa, "FWD_F32_INNER_TILE", 96 - si)
+    monkeypatch.setattr(tfa, "FWD_F32_SPLIT_TILES", ss + 3)
+    assert tiles() == [(192 - ro, 96 - ri, 0),
+                       (192 - so, 96 - si, ss + 3), (64, 32, 0),
+                       (64, 32, ss + 3)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [None, 40, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(1024, 1024), (300, 77), (77, 300),
+                                   (317, 317)])
+def test_fp32_resident_forward_bands_at_the_cards_tiles(sq, sk, causal,
+                                                        window, d):
+    """At the resident fp32 forward's tiles (_res_fwd_f32_tiles, the card's
+    constants) the bands its CTAs walk (_res_fwd_bands, k_tiles in
+    csrc/flash_bwd_wgmma.cuh) equal the JAX _fwd_kernel's loop limit at
+    those tiles through its _window_k_range, and every visible pair lies in
+    exactly one (query tile, key tile of its band)."""
+    from apex_tpu.ops.flash_attention import _window_k_range as jk
+
+    outer, inner, _ = tfa._res_fwd_f32_tiles(d)
+    bands = tfa._res_fwd_bands(sq, sk, causal, outer, inner, window)
+    nq, nk = -(-sq // outer), -(-sk // inner)
+    want = []
+    for qi in range(nq):
+        n = nk
+        if causal:
+            n = int(np.clip(((qi + 1) * outer + inner - 1) // inner, 0, n))
+        lo, hi = jk(0, n, qi, outer, inner, 0, 0, causal, window)
+        want.append((int(lo), int(hi)))
+    # the kernels clip an empty band to hi = lo (seg_band, max(0, ...))
+    assert [(lo, max(lo, hi)) for lo, hi in bands] == [
+        (lo, max(lo, hi)) for lo, hi in want]
+    q = np.arange(sq)[:, None]
+    k = np.arange(sk)[None, :]
+    visible = np.ones((sq, sk), bool)
+    if causal:
+        visible &= k <= q
+    if window is not None:
+        visible &= q - k < window
+        if not causal:
+            visible &= k - q < window
+    covered = np.zeros((sq, sk), np.int32)
+    for t, (lo, hi) in enumerate(bands):
+        for i in range(lo, hi):
+            covered[t * outer:(t + 1) * outer, i * inner:(i + 1) * inner] += 1
+    assert np.all(covered[visible] == 1) and covered.max() <= 1
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -778,10 +872,13 @@ def test_contiguous_segments_equal_mask_only(stream, monkeypatch):
     same function as mask-only evaluation, values and grads (fp32, 1e-6),
     also with split lengths of one tile, where narrowed splits are empty
     and the forward merges empty partials."""
-    for name in ("FWD_SPLIT_TILES", "BWD_SPLIT_TILES", "STREAM_SPLIT_TILES"):
+    for name in ("FWD_SPLIT_TILES", "BWD_SPLIT_TILES", "STREAM_SPLIT_TILES",
+                 "FWD_F32_SPLIT_TILES"):
         monkeypatch.setattr(tfa, name, 1)
     monkeypatch.setattr(tfa, "FWD_OUTER_TILE", 32)
     monkeypatch.setattr(tfa, "FWD_INNER_TILE", 16)
+    monkeypatch.setattr(tfa, "FWD_F32_OUTER_TILE", 32)
+    monkeypatch.setattr(tfa, "FWD_F32_INNER_TILE", 16)
     monkeypatch.setattr(tfa, "BWD_OUTER_TILE", 32)
     monkeypatch.setattr(tfa, "BWD_INNER_TILE", 16)
     monkeypatch.setattr(tfa, "RES_FWD_OUTER_TILE", 32)

@@ -72,10 +72,12 @@ def _compare(q, k, v, g, **kw):
 
 
 def _small_fwd_tiles(monkeypatch, split_tiles):
-    """The forward's tiles cut to 64-row query and 32-row key tiles."""
-    monkeypatch.setattr(tfa, "FWD_OUTER_TILE", 64)
-    monkeypatch.setattr(tfa, "FWD_INNER_TILE", 32)
-    monkeypatch.setattr(tfa, "FWD_SPLIT_TILES", split_tiles)
+    """The forward's tiles cut to 64-row query and 32-row key tiles, on
+    both routes (bf16 FWD_*, fp32 FWD_F32_*)."""
+    for route in ("FWD", "FWD_F32"):
+        monkeypatch.setattr(tfa, f"{route}_OUTER_TILE", 64)
+        monkeypatch.setattr(tfa, f"{route}_INNER_TILE", 32)
+        monkeypatch.setattr(tfa, f"{route}_SPLIT_TILES", split_tiles)
 
 
 def _small_bwd_tiles(monkeypatch, split_tiles):
@@ -328,21 +330,107 @@ def test_fwd_splits_cover_every_band_once(monkeypatch, sq, sk, causal,
 def test_merge_and_workspace_only_where_a_band_has_several_splits(
         monkeypatch, inner):
     """At the card's constants the long-context shapes (L: 8192 causal; W:
-    16384 causal, window 4096) have one split a band, so the bf16 forward
-    launches no merge and allocates no workspace; a cut split length brings
-    both back, and the fp32 route always merges."""
+    16384 causal, window 4096) have one split a band on the bf16 route, and
+    RP (317 causal, window 256: generate_gpt's longest RoPE prefill) on the
+    fp32 route, so the forward launches no merge and allocates no workspace
+    in either dtype; a cut split length brings both back."""
     monkeypatch.setattr(tfa, "FWD_INNER_TILE", inner)
     assert (tfa.FWD_OUTER_TILE, tfa.FWD_SPLIT_TILES) == (128, 128)
     for sq, window in ((8192, None), (16384, 4096)):
         _, nsplit = tfa._fwd_bands(sq, sq, True, window)
         assert nsplit == 1
-        assert not tfa._fwd_merges(nsplit, bf16=True)
-        assert tfa._fwd_merges(nsplit, bf16=False)
+        assert not tfa._fwd_merges(nsplit)
+    f32 = tfa._fwd_tiles(False, 64)
+    _, nsplit = tfa._fwd_bands(317, 317, True, 256, f32)
+    assert nsplit == 1 and not tfa._fwd_merges(nsplit)
     monkeypatch.setattr(tfa, "FWD_SPLIT_TILES", 2)
     _, nsplit = tfa._fwd_bands(8192, 8192, True, None)
     assert nsplit == 8192 // inner // 2
-    assert tfa._fwd_merges(nsplit, bf16=True)
-    assert not tfa._fwd_merges(1, bf16=True) and tfa._fwd_merges(0, False)
+    assert tfa._fwd_merges(nsplit)
+    monkeypatch.setattr(tfa, "FWD_F32_SPLIT_TILES", 2)
+    _, nsplit = tfa._fwd_bands(8192, 8192, True, None,
+                               tfa._fwd_tiles(False, 64))
+    assert nsplit == 8192 // f32[1] // 2 and tfa._fwd_merges(nsplit)
+    assert not tfa._fwd_merges(1) and not tfa._fwd_merges(0)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 48), (False, 40)])
+@pytest.mark.parametrize("split_tiles", [1, 2, 16])
+def test_fp32_streamed_forward_at_its_own_splits_matches_jax(
+        monkeypatch, split_tiles, causal, window):
+    """The plain forward on fp32 inputs cuts its bands at the fp32 route's
+    own tiles (FWD_F32_*: here 32-query x 16-key tiles, the bf16 route's
+    left at the card's), in splits of 1 and 2 key tiles (the partials and
+    the merge) and of 16 (one split a band: the kernel's direct epilogue),
+    and matches the JAX package's _fwd_kernel_stream in interpret mode; o
+    within 1e-5, lse against the dense logsumexp."""
+    monkeypatch.setattr(tfa, "FWD_F32_OUTER_TILE", 32)
+    monkeypatch.setattr(tfa, "FWD_F32_INNER_TILE", 16)
+    monkeypatch.setattr(tfa, "FWD_F32_SPLIT_TILES", split_tiles)
+    tiles = tfa._fwd_tiles(False, 16)
+    assert tiles == (32, 16, split_tiles)
+    assert tfa._fwd_tiles(True, 16) == (128, 128, 128)
+    bands, most = tfa._fwd_bands(256, 256, causal, window, tiles)
+    if split_tiles == 16:
+        assert most == 1
+    else:
+        assert most > 1 and any(len(b) > 1 for b in bands)
+    seen = []
+    real = tfa._fwd_bands
+
+    def recorded(*a):
+        seen.append(a[4])
+        return real(*a)
+
+    monkeypatch.setattr(tfa, "_fwd_bands", recorded)
+    q, k, v, _ = _inputs(19)
+    o, lse = tfa.flash_attention_fwd_stream_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        window=window)
+    assert seen == [tiles]
+    jout = jax_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                     window=window, impl="pallas", stream="always",
+                     block_q=64, block_k=64)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jout), atol=VAL_TOL)
+    want = tfa._lse_reference(*(torch.from_numpy(a) for a in (q, k)),
+                              causal, 0.25, window)
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), atol=VAL_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (8192, 8192, True, None), (317, 317, True, 256), (1100, 990, True, None),
+    (300, 77, True, 16), (1000, 1000, False, 200), (700, 900, False, None)])
+def test_fp32_forward_splits_at_the_cards_tiles(sq, sk, causal, window, d):
+    """At the fp32 route's tiles (FWD_F32_*, 64 / 32 above d = 64) each
+    query tile's band is the JAX helper's _window_k_range with the causal
+    limit, cut into contiguous splits of at most FWD_F32_SPLIT_TILES key
+    tiles that cover it exactly once."""
+    from apex_tpu.ops.flash_attention import _window_k_range as jk
+
+    outer, inner, split = tfa._fwd_tiles(False, d)
+    if d > 64:
+        assert (outer, inner) == (64, 32)
+    else:
+        assert (outer, inner) == (tfa.FWD_F32_OUTER_TILE,
+                                  tfa.FWD_F32_INNER_TILE)
+    bands, most = tfa._fwd_bands(sq, sk, causal, window,
+                                 (outer, inner, split))
+    nq, nk = -(-sq // outer), -(-sk // inner)
+    assert len(bands) == nq
+    for t, splits in enumerate(bands):
+        lo, hi = jk(0, nk, t, outer, inner, 0, 0, causal, window)
+        lo, hi = max(int(lo), 0), int(hi)
+        if causal:
+            hi = min(hi, -(-(t + 1) * outer // inner))
+        assert len(splits) <= most
+        if hi <= lo:
+            assert not splits
+            continue
+        assert splits[0][0] == lo and splits[-1][1] == hi
+        assert all(a < b <= a + split for a, b in splits)
+        assert all(p[1] == n[0] for p, n in zip(splits, splits[1:]))
 
 
 @pytest.mark.parametrize("sq,sk,d,causal,window", [

@@ -63,6 +63,10 @@ def streamed(monkeypatch):
     and count them."""
     monkeypatch.setattr(tfa, "STREAM_MIN_SEQ", 64)
     monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", 1)
+    # the fp32 forward's own tiles: 64-row query and key tiles, one a split
+    monkeypatch.setattr(tfa, "FWD_F32_OUTER_TILE", 64)
+    monkeypatch.setattr(tfa, "FWD_F32_INNER_TILE", 64)
+    monkeypatch.setattr(tfa, "FWD_F32_SPLIT_TILES", 1)
     # the backward's own tiles cut too: 64-row outer, 32-row inner tiles
     monkeypatch.setattr(tfa, "BWD_OUTER_TILE", 64)
     monkeypatch.setattr(tfa, "BWD_INNER_TILE", 32)
