@@ -3,7 +3,11 @@
 //
 // Replaces: apex_tpu/ops/flash_attention.py _bwd_dq_kernel (pallas_call at
 // _flash_bwd, flash_attention.py:1301) and _bwd_dkv_kernel (pallas_call at
-// :1376). Both recompute, per (query, key) pair,
+// :1376); in fp32 also _bwd_dq_kernel_stream (pallas_call in
+// _flash_bwd_stream, :1101) and _bwd_dkv_kernel_stream (:1172): the
+// streamed wrappers launch the fp32 pair below over whole bands, as those
+// kernels carry a whole band along their grid's sequential axis, and write
+// each output once. Both recompute, per (query, key) pair,
 //   S = scale * Q K^T,  P = exp(S - lse)  (0 where masked, and 0 for a row
 //   whose lse <= kNegInf / 2: a fully masked row),
 //   dP = dO V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O)

@@ -2,8 +2,11 @@
 // pass, a split-K/V dQ pass and a split-Q dK/dV pass.
 //
 // Replaces: apex_tpu/ops/flash_attention.py _fwd_kernel_stream (pallas_call
-// in _flash_fwd_stream, :992), _bwd_dq_kernel_stream (pallas_call in
-// _flash_bwd_stream, :1101) and _bwd_dkv_kernel_stream (:1172). They
+// in _flash_fwd_stream, :992), and in bf16 _bwd_dq_kernel_stream
+// (pallas_call in _flash_bwd_stream, :1101) and _bwd_dkv_kernel_stream
+// (:1172); in fp32 the streamed wrappers launch the resident fp32 backward
+// pair (flash_attention_bwd.cu) over whole bands, as the JAX kernels carry
+// a whole band along their grid's sequential axis. They
 // compute what the resident kernels compute -- O = softmax(scale Q K^T) V
 // with the fp32 lse, then dQ = scale dS K and dK = scale dS^T Q,
 // dV = P^T dO from P = exp(scale S - lse), dS = P (dO V^T - delta) -- under
@@ -43,10 +46,11 @@
 //   of fwd_f32_blocked, flash_f32_blocked.cuh: the resident fp32 forward's
 //   CTA body over one split, FWD_F32_OUTER_TILE queries over
 //   FWD_F32_INNER_TILE-row key tiles, splits of up to FWD_F32_SPLIT_TILES).
-// - dQ and dK/dV: each CTA adds its split's fp32 partial into zeroed fp32
-//   accumulators by atomics (no partial buffers, no reduction pass; the
-//   order of addition changes from run to run, within fp32 rounding). The
-//   wrapper zeroes them before and casts them to q's dtype after.
+// - dQ and dK/dV (bf16): each CTA adds its split's fp32 partial into
+//   zeroed fp32 accumulators by atomics (no partial buffers, no reduction
+//   pass; the order of addition changes from run to run, within fp32
+//   rounding). The wrapper zeroes them before and casts them to bf16
+//   after.
 //
 // Bound on this card: operations -- 2 products of 2 d FLOPs per visible
 // pair forward, 3 for dQ and 4 for dK/dV (7 for the backward pair), against
@@ -101,9 +105,7 @@
 // (a base or stride not 16-byte aligned, d % 8 != 0) the wrapper passes a
 // contiguous copy with d padded to a multiple of 8 (the forward's q/k/v
 // alike). Any sq, sk and d <= 128 (64 or 128 in the kernels, zeros past
-// d). The fp32 backward keeps the first port's FMA kernels (dq_split_fma,
-// dkv_split_fma) with kTile-row tiles both ways (STREAM_TILE,
-// STREAM_SPLIT_TILES in ops/flash_attention.py).
+// d).
 
 #include "flash_f32_blocked.cuh"
 #include "flash_fwd_wgmma.cuh"
@@ -111,9 +113,7 @@
 namespace apex_torch {
 namespace {
 
-constexpr int kFma = 256;        // fp32 kernels: 4 lanes per tile row
 constexpr int kDimMax = 128;
-constexpr int kPl = kTile + 1;   // fp32 P / dS tile rows
 constexpr int kMergeRows = 8;    // rows per merge block (one warp each)
 
 struct StreamArgs {
@@ -133,10 +133,6 @@ struct StreamArgs {
   int causal, window, split_tiles;  // window <= 0: none
   SegArgs seg;
 };
-
-__device__ __forceinline__ bool live_row(float lse) {
-  return lse > kNegInf * 0.5f;
-}
 
 // ---------------------------------------------------------------------------
 // forward: the merge pass, one warp per row
@@ -681,234 +677,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// dQ and dK/dV: fp32 on FMA
-// ---------------------------------------------------------------------------
-
-// kTile x d fp32 tile into dst (row pitch d + 1), zero past rows_valid
-__device__ __forceinline__ void load_f32(float* dst, const float* src,
-                                         long long stride, int rows_valid,
-                                         int d) {
-  const int dp = d + 1;
-  for (int e = threadIdx.x; e < kTile * d; e += kFma) {
-    const int r = e / d, c = e - r * d;
-    dst[r * dp + c] = r < rows_valid ? src[r * stride + c] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kFma) dq_split_fma(StreamArgs a) {
-  extern __shared__ float smf[];
-  const int sq = a.sq, sk = a.sk, d = a.d, dp = d + 1;
-  float* Qs = smf;
-  float* dOs = Qs + kTile * dp;
-  float* Ks = dOs + kTile * dp;
-  float* Vs = Ks + kTile * dp;
-  float* Ds = Vs + kTile * dp;  // kTile x kPl: dS
-
-  const int qt = blockIdx.x, split = blockIdx.y, bh = blockIdx.z;
-  int t0, t1;
-  if (!split_of(k_tiles(qt, (sk + kTile - 1) / kTile, a.causal, a.window),
-                split, a.split_tiles, t0, t1))
-    return;
-  const int bi = bh / a.h, hi = bh - bi * a.h;
-  const Band nb = seg_band(a.seg, Band{t0, t1}, bi, qt);
-  if (nb.lo >= nb.hi) return;  // no key of this split shares an id
-  const int q0 = qt * kTile;
-  const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3;
-  const int qrow = q0 + r;
-  const SegRows sg = seg_rows(a.seg, false, bi, qrow, sq, sk);
-  const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.h;
-  const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.h;
-  const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
-  const float* ob =
-      static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.h;
-  load_f32(Qs, qb + (long long)q0 * a.qs.s, a.qs.s, sq - q0, d);
-  load_f32(dOs, ob + (long long)q0 * a.dos.s, a.dos.s, sq - q0, d);
-  const size_t head = (size_t)bh * sq;
-  const float l = qrow < sq ? a.lse[head + qrow] : kNegInf;
-  const float dl = qrow < sq ? a.delta[head + qrow] : 0.f;
-  const bool live = live_row(l);
-
-  float acc[kDimMax / 4];
-#pragma unroll
-  for (int jj = 0; jj < kDimMax / 4; ++jj) acc[jj] = 0.f;
-
-  for (int j = nb.lo; j < nb.hi; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();
-    load_f32(Ks, kb + (long long)k0 * a.ks.s, a.ks.s, sk - k0, d);
-    load_f32(Vs, vb + (long long)k0 * a.vs.s, a.vs.s, sk - k0, d);
-    __syncthreads();
-    float s[kTile / 4], dpv[kTile / 4];
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) s[jj] = dpv[jj] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float qv = Qs[r * dp + kk], ov = dOs[r * dp + kk];
-#pragma unroll
-      for (int jj = 0; jj < kTile / 4; ++jj) {
-        const int c = c4 + 4 * jj;
-        s[jj] = fmaf(qv, Ks[c * dp + kk], s[jj]);
-        dpv[jj] = fmaf(ov, Vs[c * dp + kk], dpv[jj]);
-      }
-    }
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) {
-      const int c = c4 + 4 * jj, kpos = k0 + c;
-      const bool valid = visible(qrow, kpos, sk, a.causal, a.window) &&
-                         sg.sees(0, kpos) && live;
-      const float p = valid ? expf(s[jj] * a.scale - l) : 0.f;
-      Ds[r * kPl + c] = p * (dpv[jj] - dl);
-    }
-    __syncwarp();  // a row's dS is written and read by the same 4 lanes
-    for (int c = 0; c < kTile; ++c) {
-      const float ds = Ds[r * kPl + c];
-#pragma unroll
-      for (int jj = 0; jj < kDimMax / 4; ++jj) {
-        const int col = c4 + 4 * jj;
-        if (col < d) acc[jj] = fmaf(ds, Ks[c * dp + col], acc[jj]);
-      }
-    }
-  }
-  if (qrow < sq) {
-    float* out = a.acc + (head + qrow) * d;
-#pragma unroll
-    for (int jj = 0; jj < kDimMax / 4; ++jj) {
-      const int col = c4 + 4 * jj;
-      if (col < d) atomicAdd(out + col, acc[jj] * a.scale);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kFma) dkv_split_fma(StreamArgs a) {
-  extern __shared__ float smf[];
-  const int sq = a.sq, sk = a.sk, d = a.d, dp = d + 1;
-  float* Ks = smf;
-  float* Vs = Ks + kTile * dp;
-  float* Qs = Vs + kTile * dp;
-  float* dOs = Qs + kTile * dp;
-  float* Ps = dOs + kTile * dp;  // kTile x kPl: P^T
-  float* Ds = Ps + kTile * kPl;  // dS^T
-  float* lse_s = Ds + kTile * kPl;
-  float* delta_s = lse_s + kTile;
-
-  const int kt = blockIdx.x, split = blockIdx.y, bh = blockIdx.z;
-  int t0, t1;
-  if (!split_of(q_tiles(kt, (sq + kTile - 1) / kTile, a.causal, a.window),
-                split, a.split_tiles, t0, t1))
-    return;
-  const int bi = bh / a.h, hi = bh - bi * a.h;
-  const Band nb = seg_band(a.seg, Band{t0, t1}, bi, kt);
-  if (nb.lo >= nb.hi) return;  // no query of this split shares an id
-  const int k0 = kt * kTile;
-  const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3;
-  const int key = k0 + r;
-  const SegRows sg = seg_rows(a.seg, true, bi, key, sq, sk);
-  const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.h;
-  const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.h;
-  const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
-  const float* ob =
-      static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.h;
-  load_f32(Ks, kb + (long long)k0 * a.ks.s, a.ks.s, sk - k0, d);
-  load_f32(Vs, vb + (long long)k0 * a.vs.s, a.vs.s, sk - k0, d);
-  const size_t head = (size_t)bh * sq;
-
-  float dk[kDimMax / 4], dv[kDimMax / 4];
-#pragma unroll
-  for (int jj = 0; jj < kDimMax / 4; ++jj) dk[jj] = dv[jj] = 0.f;
-
-  for (int qi = nb.lo; qi < nb.hi; ++qi) {
-    const int q0 = qi * kTile;
-    __syncthreads();
-    load_f32(Qs, qb + (long long)q0 * a.qs.s, a.qs.s, sq - q0, d);
-    load_f32(dOs, ob + (long long)q0 * a.dos.s, a.dos.s, sq - q0, d);
-    for (int t = threadIdx.x; t < kTile; t += kFma) {
-      const bool in = q0 + t < sq;
-      lse_s[t] = in ? a.lse[head + q0 + t] : kNegInf;
-      delta_s[t] = in ? a.delta[head + q0 + t] : 0.f;
-    }
-    __syncthreads();
-    float s[kTile / 4], dpv[kTile / 4];
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) s[jj] = dpv[jj] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float kv = Ks[r * dp + kk], vv = Vs[r * dp + kk];
-#pragma unroll
-      for (int jj = 0; jj < kTile / 4; ++jj) {
-        const int c = c4 + 4 * jj;
-        s[jj] = fmaf(kv, Qs[c * dp + kk], s[jj]);
-        dpv[jj] = fmaf(vv, dOs[c * dp + kk], dpv[jj]);
-      }
-    }
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) {
-      const int c = c4 + 4 * jj, qrow = q0 + c;
-      const float l = lse_s[c];
-      const bool valid = qrow < sq &&
-                         visible(qrow, key, sk, a.causal, a.window) &&
-                         sg.sees(0, qrow) && live_row(l);
-      const float p = valid ? expf(s[jj] * a.scale - l) : 0.f;
-      Ps[r * kPl + c] = p;
-      Ds[r * kPl + c] = p * (dpv[jj] - delta_s[c]);
-    }
-    __syncwarp();  // a key row's P/dS are written and read by the same lanes
-    for (int c = 0; c < kTile; ++c) {
-      const float p = Ps[r * kPl + c], ds = Ds[r * kPl + c];
-#pragma unroll
-      for (int jj = 0; jj < kDimMax / 4; ++jj) {
-        const int col = c4 + 4 * jj;
-        if (col < d) {
-          dv[jj] = fmaf(p, dOs[c * dp + col], dv[jj]);
-          dk[jj] = fmaf(ds, Qs[c * dp + col], dk[jj]);
-        }
-      }
-    }
-  }
-  if (key < sk) {
-    const size_t at = ((size_t)bh * sk + key) * d;
-#pragma unroll
-    for (int jj = 0; jj < kDimMax / 4; ++jj) {
-      const int col = c4 + 4 * jj;
-      if (col < d) {
-        atomicAdd(a.acc + at + col, dk[jj] * a.scale);
-        atomicAdd(a.dv + at + col, dv[jj]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-template <auto Kernel>
-int launch(const StreamArgs& a, dim3 grid, int threads, size_t smem,
-           cudaStream_t stream) {
-  const int err = set_max_smem<Kernel>(smem);
-  if (err) return err;
-  StreamArgs arg = a;
-  void* params[] = {&arg};
-  const cudaError_t launched = cudaLaunchKernel(
-      reinterpret_cast<const void*>(Kernel), grid, dim3(threads), params,
-      smem, stream);
-  if (launched != cudaSuccess) return (int)launched;
-  return (int)cudaGetLastError();
-}
-
 enum Pass { kDq = 1, kDkv = 2 };
-
-// The split pass of the fp32 backward's `pass` over grid (outer tiles,
-// nsplit, b*h).
-int launch_split(Pass pass, const StreamArgs& a, int nsplit,
-                 cudaStream_t stream) {
-  const int outer = pass == kDkv ? a.sk : a.sq;
-  const dim3 grid((outer + kTile - 1) / kTile, nsplit, a.bh);
-  const size_t tile = sizeof(float) * kTile * (a.d + 1);
-  const size_t ptile = sizeof(float) * kTile * kPl;
-  if (pass == kDq)
-    return launch<dq_split_fma>(a, grid, kFma, 4 * tile + ptile, stream);
-  return launch<dkv_split_fma>(
-      a, grid, kFma, 4 * tile + 2 * ptile + 2 * kTile * sizeof(float),
-      stream);
-}
 
 // The bf16 forward over grid (b*h, outer tiles, max(nsplit, 1)) with the
 // kernel of the padded head_dim and the key tile, then the merge of the
@@ -1062,17 +834,16 @@ int launch_bwd(Pass pass, const StreamArgs& s, int b, int nsplit,
 }
 
 // The backward's tiles as the wrapper sees them (outer rows kept, inner rows
-// streamed): bf16 takes kOuter / kInner, fp32 kTile / kTile.
+// streamed): bf16 only, kOuter / kInner
 bool bwd_tiles_ok(int dtype, int outer_tile, int inner_tile) {
-  if (dtype == kBF16) return outer_tile == kOuter && inner_tile == kInner;
-  return dtype == kF32 && outer_tile == kTile && inner_tile == kTile;
+  return dtype == kBF16 && outer_tile == kOuter && inner_tile == kInner;
 }
 
+// no launch where no query sees a key (the zeroed sums stay 0)
 int launch_bwd_pass(Pass pass, const StreamArgs& a, int b, int nsplit,
-                    int dtype, cudaStream_t stream) {
-  if (nsplit == 0) return 0;  // no query sees a key: the sums stay 0
-  if (dtype == kBF16) return launch_bwd(pass, a, b, nsplit, stream);
-  return launch_split(pass, a, nsplit, stream);
+                    cudaStream_t stream) {
+  if (nsplit == 0) return 0;
+  return launch_bwd(pass, a, b, nsplit, stream);
 }
 
 bool args_ok(int b, int h, int sq, int sk, int d, int split_tiles,
@@ -1155,11 +926,12 @@ extern "C" int apex_flash_fwd_stream(
   return launch_fwd_f32_split(a, outer_tile, inner_tile, nsplit, o, lse, s);
 }
 
-// dQ: adds into dq_acc, fp32 contiguous (b, h, sq, d), which the caller
-// zeroed. q/k/v/dout strides as above; lse/delta contiguous (b, h, sq).
-// outer_tile / inner_tile: the rows a CTA keeps and streams, as the wrapper
-// computed nsplit with them (bf16: kOuter / kInner; fp32: kTile / kTile).
-// bf16 reads q/k/v/dout by TMA: 16-byte-aligned bases and strides, d % 8 == 0.
+// dQ (bf16 operands): adds into dq_acc, fp32 contiguous (b, h, sq, d),
+// which the caller zeroed. q/k/v/dout strides as above; lse/delta
+// contiguous (b, h, sq). outer_tile / inner_tile: the rows a CTA keeps and
+// streams, kOuter / kInner, as the wrapper computed nsplit with them. TMA
+// reads q/k/v/dout: 16-byte-aligned bases and strides, d % 8 == 0. fp32
+// operands are refused: their wrapper launches the resident fp32 pair.
 extern "C" int apex_flash_bwd_dq_stream(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq_acc, int b, int h, int sq,
@@ -1186,11 +958,11 @@ extern "C" int apex_flash_bwd_dq_stream(
   a.ks = Strides{ksb, ksh, kss};
   a.vs = Strides{vsb, vsh, vss};
   a.dos = Strides{osb, osh, oss};
-  return launch_bwd_pass(kDq, a, b, nsplit, dtype, (cudaStream_t)stream);
+  return launch_bwd_pass(kDq, a, b, nsplit, (cudaStream_t)stream);
 }
 
-// dK/dV: add into dk_acc and dv_acc, fp32 contiguous (b, h, sk, d), which
-// the caller zeroed; other arguments as above.
+// dK/dV (bf16 operands): add into dk_acc and dv_acc, fp32 contiguous
+// (b, h, sk, d), which the caller zeroed; other arguments as above.
 extern "C" int apex_flash_bwd_dkv_stream(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk_acc, void* dv_acc, int b,
@@ -1218,5 +990,5 @@ extern "C" int apex_flash_bwd_dkv_stream(
   a.ks = Strides{ksb, ksh, kss};
   a.vs = Strides{vsb, vsh, vss};
   a.dos = Strides{osb, osh, oss};
-  return launch_bwd_pass(kDkv, a, b, nsplit, dtype, (cudaStream_t)stream);
+  return launch_bwd_pass(kDkv, a, b, nsplit, (cudaStream_t)stream);
 }

@@ -22,23 +22,26 @@ forward is always followed by the streamed backward.
   once. Causal or non-causal, with
   the additive ``bias`` (read in place, 0 strides on its broadcast dims) and
   its gradient from the dQ pass (:func:`flash_attention_bwd_dq`).
-- Streamed (``stream=True``): the three kernels of
+- Streamed (``stream=True``): the kernels of
   ``csrc/flash_attention_stream.cu`` (``_fwd_kernel_stream`` with its merge
-  pass, ``_bwd_dq_kernel_stream``, ``_bwd_dkv_kernel_stream``) split each
-  row's K/V loop (or each key tile's Q loop) across CTAs, over the band the
-  causal limit and the sliding ``window`` leave. In bf16 they are wgmma
-  kernels fed by TMA (operands TMA cannot read go in as contiguous copies,
-  :func:`_tma_operands`): the forward with CTAs of :data:`FWD_OUTER_TILE`
-  queries streaming at most :data:`FWD_SPLIT_TILES` key tiles of
-  :data:`FWD_INNER_TILE` rows, a band of one split written with no merge
-  (:func:`_fwd_merges`); the backward with CTAs of :data:`BWD_OUTER_TILE`
-  rows streaming at most :data:`BWD_SPLIT_TILES` tiles of
-  :data:`BWD_INNER_TILE` rows. In fp32 the forward is the resident
-  route's register-blocked FMA kernel over splits (:data:`FWD_F32_OUTER_TILE`
-  queries, at most :data:`FWD_F32_SPLIT_TILES` key tiles of
-  :data:`FWD_F32_INNER_TILE` rows, a band of one split written with no
-  merge), the backward FMA kernels in splits of at most
-  :data:`STREAM_SPLIT_TILES` tiles of :data:`STREAM_TILE` rows.
+  pass; in bf16 ``_bwd_dq_kernel_stream``, ``_bwd_dkv_kernel_stream``)
+  split each row's K/V loop (or each key tile's Q loop) across CTAs, over
+  the band the causal limit and the sliding ``window`` leave. In bf16 they
+  are wgmma kernels fed by TMA (operands TMA cannot read go in as
+  contiguous copies, :func:`_tma_operands`): the forward with CTAs of
+  :data:`FWD_OUTER_TILE` queries streaming at most :data:`FWD_SPLIT_TILES`
+  key tiles of :data:`FWD_INNER_TILE` rows, a band of one split written
+  with no merge (:func:`_fwd_merges`); the backward with CTAs of
+  :data:`BWD_OUTER_TILE` rows streaming at most :data:`BWD_SPLIT_TILES`
+  tiles of :data:`BWD_INNER_TILE` rows. In fp32 the forward is the
+  resident route's register-blocked FMA kernel over splits
+  (:data:`FWD_F32_OUTER_TILE` queries, at most :data:`FWD_F32_SPLIT_TILES`
+  key tiles of :data:`FWD_F32_INNER_TILE` rows, a band of one split
+  written with no merge), and the backward the resident fp32 pair of
+  ``csrc/flash_attention_bwd.cu`` over whole bands, as the JAX streamed
+  kernels carry a whole band along their grid's sequential axis
+  (:func:`_bwd_tiles`): each gradient written once, no zeroed buffer, no
+  atomics.
 
 Every kernel takes the sliding ``window`` and the packed-varlen masks of
 the reference (``segment_ids``, ``pad_id``, ``contiguous_segments``:
@@ -88,12 +91,6 @@ MAX_HEAD_DIM = 128
 #: window). A routing choice on the card's numbers, not a memory limit: the
 #: resident kernels take any length; see PERF.md for the times behind it.
 STREAM_MIN_SEQ = 4096
-#: rows of every q/k tile of the streamed fp32 backward (dq_split_fma /
-#: dkv_split_fma; kTile in common.cuh)
-STREAM_TILE = 64
-#: the longest split of a band, in tiles: one CTA's share of a row's K/V
-#: loop (or of a key tile's Q loop), for the streamed fp32 backward.
-STREAM_SPLIT_TILES = 16
 #: the streamed forward in bf16 (fwd_wgmma): a CTA keeps FWD_OUTER_TILE
 #: queries and streams key tiles of FWD_INNER_TILE rows (64 or 128), at most
 #: FWD_SPLIT_TILES of them (kFwdOuter / BN in
@@ -124,7 +121,8 @@ BWD_SPLIT_TILES = 128
 RES_BWD_DQ_INNER_TILE = 128
 RES_BWD_PERSISTENT = True
 #: the resident backward in fp32 (dq_f32_blocked / dkv_f32_blocked in
-#: csrc/flash_attention_bwd.cu: register-blocked FMA): a CTA keeps
+#: csrc/flash_attention_bwd.cu: register-blocked FMA; the streamed fp32
+#: backward launches them too): a CTA keeps
 #: RES_BWD_F32_OUTER_TILE rows (16 a warp; 64 where d > 64) and streams the
 #: 64-row inner tiles of its band (32-row query tiles for dK/dV where
 #: d > 64: its registers) through a two-stage cp.async ring.
@@ -734,11 +732,19 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
     and the segment masks as :func:`flash_attention_fwd` takes them. Counts
     its launches in ``flash_attention_bwd_dq.launches``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
+    return _bwd_dq(q, k, v, do, lse, delta, causal, scale, bias, dbias,
+                   window, seg, flash_attention_bwd_dq)
+
+
+def _bwd_dq(q, k, v, do, lse, delta, causal, scale, bias, dbias, window,
+            seg, wrapper):
+    """The launch of the resident dQ kernel for ``wrapper`` (the entry point
+    that counts it: :func:`flash_attention_bwd_dq`, or the streamed one for
+    fp32 operands)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _res_bwd_launch(
-        q, k, v, do, lse, delta, "flash_attention_bwd_dq", True,
-        bias is not None)
+        q, k, v, do, lse, delta, wrapper.__name__, True, bias is not None)
     bargs = _bias_args(bias, q, sq, sk)
     sargs, _keep = _seg_args(seg, tiles[0], tiles[1], True)
     if dbias and bias is None:
@@ -766,7 +772,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
         _window_arg(window), *tiles, build.DTYPES[q.dtype], *sargs,
         build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    wrapper.launches += 1
     dq = dq if dk_ == d else dq[..., :d].contiguous()
     return (dq, out) if dbias else dq
 
@@ -787,10 +793,18 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
     as in the forward. Counts its launches in
     ``flash_attention_bwd_dkv.launches``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
+    return _bwd_dkv(q, k, v, do, lse, delta, causal, scale, bias, window,
+                    seg, flash_attention_bwd_dkv)
+
+
+def _bwd_dkv(q, k, v, do, lse, delta, causal, scale, bias, window, seg,
+             wrapper):
+    """The launch of the resident dK/dV kernel for ``wrapper``, as
+    :func:`_bwd_dq`."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _res_bwd_launch(
-        q, k, v, do, lse, delta, "flash_attention_bwd_dkv", False)
+        q, k, v, do, lse, delta, wrapper.__name__, False)
     bargs = _bias_args(bias, q, sq, sk)
     sargs, _keep = _seg_args(seg, tiles[0], tiles[1], False)
     dk = torch.empty((b, h, sk, dk_), device=q.device, dtype=k.dtype)
@@ -804,7 +818,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
         int(causal), _window_arg(window), *tiles, build.DTYPES[q.dtype],
         *sargs, build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    wrapper.launches += 1
     if dk_ != d:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
@@ -823,8 +837,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _window_k_range(qt: int, nk: int, causal: bool, window: Optional[int],
-                    blk_q: int = STREAM_TILE,
-                    blk_k: int = STREAM_TILE) -> Tuple[int, int]:
+                    blk_q: int = BWD_INNER_TILE,
+                    blk_k: int = BWD_INNER_TILE) -> Tuple[int, int]:
     """``[lo, hi)`` of the key tiles (``blk_k`` rows) that query tile ``qt``
     (``blk_q`` rows) sees: the causal limit, then the window
     (``_window_k_range``, ``flash_attention.py:117-130``, with no ring
@@ -840,8 +854,8 @@ def _window_k_range(qt: int, nk: int, causal: bool, window: Optional[int],
 
 
 def _window_q_range(kt: int, nq: int, causal: bool, window: Optional[int],
-                    blk_q: int = STREAM_TILE,
-                    blk_k: int = STREAM_TILE) -> Tuple[int, int]:
+                    blk_q: int = BWD_INNER_TILE,
+                    blk_k: int = BWD_INNER_TILE) -> Tuple[int, int]:
     """``[lo, hi)`` of the query tiles (``blk_q`` rows) that see key tile
     ``kt`` (``blk_k`` rows) (``_window_q_range``, ``flash_attention.py:
     133-143``)."""
@@ -858,7 +872,7 @@ def _window_q_range(kt: int, nq: int, causal: bool, window: Optional[int],
 def _splits(lo: int, hi: int, split_tiles: int) -> List[Tuple[int, int]]:
     """The band ``[lo, hi)`` cut into ``ceil(n / split_tiles)`` pieces of
     equal length (the last may be shorter): one CTA each (``split_of`` in
-    ``csrc/flash_attention_stream.cu``)."""
+    ``csrc/flash_bwd_wgmma.cuh``)."""
     n = hi - lo
     if n <= 0:
         return []
@@ -878,16 +892,6 @@ def _bands(n_outer: int, n_inner: int, causal: bool, window: Optional[int],
                                      blk_k), split_tiles))
                   for i in range(n_outer))
     return bands, max((len(b) for b in bands), default=0)
-
-
-def _stream_bands(sq, sk, causal, window, inner_is_k):
-    """The fp32 backward kernels' bands: STREAM_TILE rows on both sides,
-    splits of STREAM_SPLIT_TILES."""
-    t = STREAM_TILE
-    nq, nk = _cdiv(sq, t), _cdiv(sk, t)
-    if inner_is_k:
-        return _bands(nq, nk, causal, window, True, STREAM_SPLIT_TILES, t, t)
-    return _bands(nk, nq, causal, window, False, STREAM_SPLIT_TILES, t, t)
 
 
 def _fwd_tiles(bf16: bool, d: int) -> Tuple[int, int, int]:
@@ -919,16 +923,31 @@ def _fwd_merges(nsplit: int) -> bool:
     return nsplit > 1
 
 
-def _bwd_bands(sq, sk, causal, window, inner_is_k):
-    """The bf16 backward kernels' bands: outer tiles of BWD_OUTER_TILE rows
-    (queries when ``inner_is_k``, else keys), inner tiles of BWD_INNER_TILE
-    rows, splits of BWD_SPLIT_TILES inner tiles."""
-    o, i = BWD_OUTER_TILE, BWD_INNER_TILE
+def _bwd_tiles(bf16: bool, inner_is_k: bool,
+               d: int) -> Tuple[int, int, Optional[int]]:
+    """(outer rows of a CTA, inner rows of a tile, inner tiles of a split or
+    None: whole bands) of the streamed backward's pass (dQ when
+    ``inner_is_k``) on its dtype's route at head_dim ``d``: bf16
+    BWD_OUTER_TILE / BWD_INNER_TILE / BWD_SPLIT_TILES; fp32 the resident
+    fp32 pair's tiles (:func:`_res_bwd_tiles`) over whole bands."""
+    if bf16:
+        return BWD_OUTER_TILE, BWD_INNER_TILE, BWD_SPLIT_TILES
+    return (*_res_bwd_tiles(False, inner_is_k, d)[:2], None)
+
+
+def _bwd_bands(sq, sk, causal, window, inner_is_k, tiles=None):
+    """The backward kernels' bands, as the kernels and the plain versions
+    cut them at ``tiles`` (:func:`_bwd_tiles`; the bf16 route's by
+    default): outer tiles of ``tiles[0]`` rows (queries when
+    ``inner_is_k``, else keys), inner tiles of ``tiles[1]`` rows, splits of
+    ``tiles[2]`` inner tiles (None: one piece a band)."""
+    o, i, split = tiles or _bwd_tiles(True, inner_is_k, 0)
+    n_out, n_in = ((_cdiv(sq, o), _cdiv(sk, i)) if inner_is_k
+                   else (_cdiv(sk, o), _cdiv(sq, i)))
+    split = split or max(n_in, 1)
     if inner_is_k:
-        return _bands(_cdiv(sq, o), _cdiv(sk, i), causal, window, True,
-                      BWD_SPLIT_TILES, o, i)
-    return _bands(_cdiv(sk, o), _cdiv(sq, i), causal, window, False,
-                  BWD_SPLIT_TILES, i, o)
+        return _bands(n_out, n_in, causal, window, True, split, o, i)
+    return _bands(n_out, n_in, causal, window, False, split, i, o)
 
 
 def _res_bwd_bands(sq: int, sk: int, causal: bool, inner_is_k: bool,
@@ -1119,19 +1138,21 @@ def flash_attention_bwd_dq_stream_reference(q, k, v, do, lse, delta, *,
                                             pad_id: Optional[int] = None,
                                             contiguous_segments: bool = False
                                             ) -> torch.Tensor:
-    """Plain streamed dQ: per query tile of BWD_OUTER_TILE rows, each split
-    of its band (BWD_INNER_TILE-row key tiles), narrowed by the segment
-    bounds (an empty one adds nothing), adds ``scale * dS K`` over its keys
-    into an fp32 sum (the kernel's atomics), ``dS = P * (dO V^T - delta)``;
-    dQ in q's dtype."""
+    """Plain streamed dQ: per query tile, each split of its band of key
+    tiles (at the tiles of q's dtype's route, :func:`_bwd_tiles`: in fp32
+    the whole band), narrowed by the segment bounds (an empty one adds
+    nothing), adds ``scale * dS K`` over its keys into an fp32 sum (the
+    bf16 kernel's atomics), ``dS = P * (dO V^T - delta)``; dQ in q's
+    dtype."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    to, ti = BWD_OUTER_TILE, BWD_INNER_TILE
+    tiles = _bwd_tiles(q.dtype == torch.bfloat16, True, d)
+    to, ti = tiles[:2]
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     lse, delta = lse.float(), delta.float()
     dq = torch.zeros(b, h, sq, d, device=q.device)
-    bands, _ = _bwd_bands(sq, sk, causal, window, True)
+    bands, _ = _bwd_bands(sq, sk, causal, window, True, tiles)
     bounds = _stream_bounds(seg, to, ti, True)
     for rows in _stream_rows(seg, b):
         for qt, splits in enumerate(bands):
@@ -1161,19 +1182,21 @@ def flash_attention_bwd_dkv_stream_reference(q, k, v, do, lse, delta, *,
                                              contiguous_segments: bool = False
                                              ) -> Tuple[torch.Tensor,
                                                         torch.Tensor]:
-    """Plain streamed dK/dV: per key tile of BWD_OUTER_TILE rows, each split
-    of the BWD_INNER_TILE-row query tiles that see it, narrowed by the
-    segment bounds (an empty one adds nothing), adds ``scale * dS^T Q`` and
-    ``P^T dO`` into fp32 sums; ``(dk, dv)`` in k's dtype."""
+    """Plain streamed dK/dV: per key tile, each split of the query tiles
+    that see it (at the tiles of q's dtype's route, :func:`_bwd_tiles`: in
+    fp32 the whole band), narrowed by the segment bounds (an empty one adds
+    nothing), adds ``scale * dS^T Q`` and ``P^T dO`` into fp32 sums;
+    ``(dk, dv)`` in k's dtype."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    to, ti = BWD_OUTER_TILE, BWD_INNER_TILE
+    tiles = _bwd_tiles(q.dtype == torch.bfloat16, False, d)
+    to, ti = tiles[:2]
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     lse, delta = lse.float(), delta.float()
     dk = torch.zeros(b, h, sk, d, device=q.device)
     dv = torch.zeros_like(dk)
-    bands, _ = _bwd_bands(sq, sk, causal, window, False)
+    bands, _ = _bwd_bands(sq, sk, causal, window, False, tiles)
     bounds = _stream_bounds(seg, to, ti, False)
     for rows in _stream_rows(seg, b):
         for kt, splits in enumerate(bands):
@@ -1263,21 +1286,17 @@ flash_attention_fwd_stream.launches = 0
 
 def _bwd_stream_launch(q, k, v, do, lse, delta, causal, window, name,
                        inner_is_k):
-    """Check the operands of a streamed backward kernel and pick its route:
-    bf16 takes the wgmma kernels (BWD_* tiles, operands TMA can read:
-    :func:`_tma_operands`), fp32 the FMA kernels (STREAM_* tiles). Returns
-    the operands, lse/delta, the head_dim the kernel sees, the strides and
-    the launch arguments after ``window``, before the dtype: (outer tile,
-    inner tile, split tiles, splits)."""
+    """Check the bf16 operands of a streamed backward kernel (the wgmma
+    kernels: operands TMA can read, :func:`_tma_operands`). Returns the
+    operands, lse/delta, the head_dim the kernel sees, the strides and the
+    launch arguments after ``window``, before the dtype: (outer tile, inner
+    tile, split tiles, splits)."""
     (q, k, v, do), (lse, delta), _, (b, h, sq, sk, d) = _bwd_args(
         q, k, v, do, lse, delta, name)
-    if q.dtype == torch.bfloat16:
-        (q, k, v, do), d = _tma_operands([q, k, v, do])
-        _, nsplit = _bwd_bands(sq, sk, causal, window, inner_is_k)
-        tiles = (BWD_OUTER_TILE, BWD_INNER_TILE, BWD_SPLIT_TILES, nsplit)
-    else:
-        _, nsplit = _stream_bands(sq, sk, causal, window, inner_is_k)
-        tiles = (STREAM_TILE, STREAM_TILE, STREAM_SPLIT_TILES, nsplit)
+    (q, k, v, do), d = _tma_operands([q, k, v, do])
+    route = _bwd_tiles(True, inner_is_k, d)
+    _, nsplit = _bwd_bands(sq, sk, causal, window, inner_is_k, route)
+    tiles = (*route, nsplit)
     strides = [st for t in (q, k, v, do) for st in t.stride()[:3]]
     return (q, k, v, do), (lse, delta), d, strides, tiles
 
@@ -1289,11 +1308,16 @@ def flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, *, causal: bool,
                                   pad_id: Optional[int] = None,
                                   contiguous_segments: bool = False
                                   ) -> torch.Tensor:
-    """Launch the streamed dQ kernel on CUDA tensors: its CTAs add into a
-    zeroed fp32 accumulator (a split the segment bounds leave empty adds
-    nothing), cast to q's dtype after. Counts its launches in
+    """Launch the streamed dQ kernel on CUDA tensors: dQ in q's dtype. In
+    bf16 its CTAs add into a zeroed fp32 accumulator (a split the segment
+    bounds leave empty adds nothing), cast to bf16 after; in fp32 it is the
+    resident fp32 kernel over whole bands (:func:`flash_attention_bwd_dq`
+    with no bias), which writes each element once. Counts its launches in
     ``flash_attention_bwd_dq_stream.launches``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
+    if q.dtype == torch.float32:
+        return _bwd_dq(q, k, v, do, lse, delta, causal, scale, None, False,
+                       window, seg, flash_attention_bwd_dq_stream)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _bwd_stream_launch(
@@ -1323,11 +1347,15 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
                                    pad_id: Optional[int] = None,
                                    contiguous_segments: bool = False
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the streamed dK/dV kernel on CUDA tensors: its CTAs add into
-    zeroed fp32 accumulators (a split the segment bounds leave empty adds
-    nothing), cast to k's dtype after. Counts its launches in
+    """Launch the streamed dK/dV kernel on CUDA tensors: ``(dk, dv)`` in
+    k's dtype, as :func:`flash_attention_bwd_dq_stream` gives dQ (in fp32
+    the resident fp32 kernel, :func:`flash_attention_bwd_dkv`: a key no
+    query sees gets 0). Counts its launches in
     ``flash_attention_bwd_dkv_stream.launches``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
+    if q.dtype == torch.float32:
+        return _bwd_dkv(q, k, v, do, lse, delta, causal, scale, None, window,
+                        seg, flash_attention_bwd_dkv_stream)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _bwd_stream_launch(

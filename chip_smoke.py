@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ln-times TREE   # LayerNorm times of TREE's port
     python3 chip_smoke.py --decode-times TREE   # decode times of TREE's port
     python3 chip_smoke.py --flash-times TREE    # flash #1-#6, no masks
+    python3 chip_smoke.py --o0-long-times TREE  # the O0 step at 8192
     python3 chip_smoke.py --sass TREE   # SASS counts of the flash kernels
     python3 chip_smoke.py --kernel-names   # fp32 attention kernels by name
 
@@ -53,10 +54,16 @@ Ten phases; any failure raises and exits non-zero:
    halved o tail caught and two calls bit-identical, at d = 16, 36 (views
    off 16 bytes), 40 and 128, cross shapes and the fused-QKV view, and
    streamed with one split a band (no workspace, by the bytes allocated)
-   and with cut split lengths (the merge). In a child process
-   (``--kernel-names``), the kernels by name of one call each of SDPA's
-   fp32 forward and backward and of #2 fp32 at RP (one ``fwd_f32_blocked``
-   launch, no merge). The additive bias on the
+   and with cut split lengths (the merge). The fp32 streamed backward pair
+   (the resident fp32 pair's kernels over whole bands) at d = 6, 16, 36,
+   40 and 128, the fused-QKV view and views off 16 bytes, two calls
+   bit-identical, and rows whose band is empty exactly 0 in memory that
+   was NaN (:func:`check_fp32_stream_bwd`).
+   In a child process (``--kernel-names``), the kernels by name of one
+   call each of SDPA's fp32 forward and backward, of #3 and #4 fp32 at L
+   (one ``dq_f32_blocked`` / ``dkv_f32_blocked`` launch each, nothing
+   else) and of #2 fp32 at RP (one ``fwd_f32_blocked`` launch, no
+   merge). The additive bias on the
    resident flash kernels #1, #5 and #6 (:func:`check_flash_bias`): BERT's
    padding bias from ``extended_attention_mask`` at (16,16,512,64) bf16,
    dense biases with dbias broadcast over the batch, the heads or both
@@ -174,7 +181,8 @@ Ten phases; any failure raises and exits non-zero:
    those fp32 routes at this shape against its plain version and timed
    beside the bound, the plain version and the library call (SDPA's fp32
    forward and backward, SDPA's fp32 o against the plain version), and
-   #3/#4 fp32 at L = (1,16,8192,64); (c)
+   #3/#4 fp32 at L32 = (1,16,8192,64) and W32 = (1,16,16384,64) window
+   4096 (halved dQ and dK tails caught, two calls bit-identical); (c)
    remat_policy full, save_attn and dots: the first step's loss
    and grads against full's, exact launches (#1 L*M a step under
    save_attn), step time and peak memory; (d) ``generate_gpt.run`` (fp32)
@@ -184,7 +192,10 @@ Ten phases; any failure raises and exits non-zero:
    phase 2's decode shapes; (e) ``--pos rope --window 256`` with random
    weights, monolithic and chunked + speculative, held the same way, then
    #2's fp32 route at the longest prefill (one split a band: no
-   workspace).
+   workspace); (f) ``pretrain_gpt`` at O0 on one 8192-token sequence a
+   step, 3 steps: the streamed kernels' fp32 routes (#2 2L, #3 and #4 L a
+   step, the resident flash kernels 0), a finite falling loss, the ms a
+   step.
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -194,7 +205,7 @@ count on the three serving runs, the GPT training run, the ResNet
 training run, the two long-context runs and phase 7's run (``softmax``),
 each counted from 0, phase 8's BERT run (``bert``), phase 9's (``fmha``)
 and phase 10's (``gpt_pretrain``, ``gpt_pretrain_o0``, ``gpt_remat_*``,
-``gpt_generate*``); ``by_shape`` also holds phase 10's fp32 times;
+``gpt_generate*``, ``gpt_pretrain_o0_long``); ``by_shape`` also holds phase 10's fp32 times;
 ``segments``: phase 9's times on #1-#6; ``launches``:
 their sum; ``bias_route``: #1, #5 and #6 with and without the bias;
 ``launch_floor_ms`` on the decode and xentropy rows), the decode split-count
@@ -1557,8 +1568,9 @@ def check_flash_segments(torch, ops, dev):
                 (dq, dk, dv), again[3:]))
             parts.append(f"a second call bit-identical: forward "
                          f"{all(same)}, backward {same_bwd}")
+            # the bf16 streamed backward adds its splits by atomics
             verdict(f"{name} deterministic", 0 if all(same) and (
-                stream or same_bwd) else 1, 0, group=grp)
+                (stream and bf) or same_bwd) else 1, 0, group=grp)
         if both and contiguous:
             # the bounds against mask-only evaluation of the same ids
             mkw = dict(kw, contiguous_segments=False)
@@ -1620,8 +1632,7 @@ def check_flash_segments(torch, ops, dev):
                                 else SEG_F32_TOL), group=grp))
         print(f"  {grp} (1,4,600,64) causal window 128: " + ", ".join(parts))
     # cut split lengths: bands of several splits, narrowed ones empty
-    cut = ("FWD_SPLIT_TILES", "BWD_SPLIT_TILES", "STREAM_SPLIT_TILES",
-           "FWD_F32_SPLIT_TILES")
+    cut = ("FWD_SPLIT_TILES", "BWD_SPLIT_TILES", "FWD_F32_SPLIT_TILES")
     chosen = [getattr(tfa, n) for n in cut]
     try:
         for n in cut:
@@ -1947,6 +1958,115 @@ ROW_TOL = {True: (1.5e-2, 1.5e-2), False: (1e-5, 1e-5)}
 LSE_TOL = (1e-5, 1e-4, 0.1)
 
 
+def poisoned_empty(torch, shape, dev):
+    """Fill and free ``shape`` fp32 blocks of the caching allocator with NaN
+    (two: dK and dV take one each), so that the next ``torch.empty`` of
+    that shape reuses memory that is not 0; returns whether a probe
+    allocation read NaN, which shows the reuse in this process."""
+    junk = [torch.full(shape, float("nan"), device=dev) for _ in range(2)]
+    del junk
+    probe = torch.empty(shape, device=dev)
+    reused = bool(torch.isnan(probe).all())
+    del probe
+    return reused
+
+
+def check_fp32_stream_bwd(torch, ops, dev, gen):
+    """The fp32 streamed backward pair (#3/#4 fp32: dq_f32_blocked /
+    dkv_f32_blocked over whole bands) beyond the cases of
+    :func:`check_flash_attention_stream`: d = 6, 16, 36, 40 and 128, the
+    fused-QKV view and views off 16 bytes (the kernels' 4-byte copies),
+    each against the plain versions (1e-5 of max |ref|, :data:`ROW_TOL` by
+    row) with a second call bit-identical (each element written once),
+    also at d = 128 over bands of 64 key tiles (dQ) and 128 query tiles
+    (dK/dV); and rows whose band is empty -- keys that no query sees under
+    a causal cross shape, queries past the keys' window, the padding tiles
+    under contiguous segments -- exactly 0 in outputs the wrapper does not
+    zero (the memory they reuse filled with NaN first,
+    :func:`poisoned_empty`)."""
+    f32 = torch.float32
+    grp = "flash_attention_stream float32 backward"
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def grads(q, k, v, do, kw):
+        o, lse = ops.flash_attention_fwd_stream(q, k, v, **kw)
+        delta = (o * do).sum(-1)
+        reused = poisoned_empty(torch, tuple(q.shape), dev)
+        dq = ops.flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, **kw)
+        poisoned_empty(torch, tuple(k.shape), dev)
+        dk, dv = ops.flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta,
+                                                    **kw)
+        torch.cuda.synchronize()
+        return (dq, dk, dv), lse, delta, reused
+
+    def run(label, q, k, v, kw, twice=True, zero=None):
+        do = rand(*q.shape)
+        kw = dict(kw, scale=q.shape[-1] ** -0.5)
+        got, lse, delta, reused = grads(q, k, v, do, kw)
+        refs = (ops.flash_attention_bwd_dq_stream_reference(
+            q, k, v, do, lse, delta, **kw),
+            *ops.flash_attention_bwd_dkv_stream_reference(
+                q, k, v, do, lse, delta, **kw))
+        parts = []
+        for name, a, r in zip(("dQ", "dK", "dV"), got, refs):
+            check(a.dtype == f32 and a.shape == r.shape,
+                  f"fp32 stream bwd {label} {name} dtype/shape")
+            parts.append(held(f"fp32 stream bwd {label} {name}", a, r, 1e-5,
+                              ROW_TOL[False][1], group=grp))
+        if zero is not None:
+            dead_q, dead_k = zero
+            exact = bool((got[0][:, :, dead_q] == 0).all()) and all(
+                bool((t[:, :, dead_k] == 0).all()) for t in got[1:])
+            verdict(f"fp32 stream bwd {label}: empty-band rows exactly 0",
+                    0 if exact else 1, 0, group=grp)
+            parts.append(f"rows with an empty band exactly 0 (NaN-filled "
+                         f"memory reused: {reused})")
+        if twice:
+            again, *_ = grads(q, k, v, do, kw)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            verdict(f"fp32 stream bwd {label} deterministic",
+                    0 if same else 1, 0, group=grp)
+            parts.append(f"a second call bit-identical: {same}")
+        print(f"  fp32 stream bwd {label}: " + ", ".join(parts))
+
+    causal_w = dict(causal=True, window=300)
+    for d in (6, 16, 36, 40, 128):
+        run(f"(1,2,1000,1000,{d}) causal window 300", rand(1, 2, 1000, d),
+            rand(1, 2, 1000, d), rand(1, 2, 1000, d), causal_w)
+    run("(1,2,4096,4096,128) causal", rand(1, 2, 4096, 128),
+        rand(1, 2, 4096, 128), rand(1, 2, 4096, 128), dict(causal=True))
+    qkv = rand(1, 1000, 4, 3, 64).permute(0, 2, 3, 1, 4)
+    run("fused-QKV view (1,4,1000,64) causal", qkv[:, :, 0], qkv[:, :, 1],
+        qkv[:, :, 2], dict(causal=True))
+    off = [rand(1, 2, 700, 37)[..., 1:] for _ in range(3)]
+    run("views off 16 bytes (1,2,700,36) non-causal", *off,
+        dict(causal=False))
+    off = [rand(1, 2, 700, 65)[..., 1:] for _ in range(3)]
+    run("views off 16 bytes (1,2,700,64) causal window 200", *off,
+        dict(causal=True, window=200))
+    del qkv, off
+    # rows whose band is empty: keys 77.. see no query; queries past
+    # 77 + 15 see no key (the last 128-row query tile's band is empty);
+    # the padding tiles of packed ids under the bounds
+    run("(1,2,77,300,64) causal: keys no query sees", rand(1, 2, 77, 64),
+        rand(1, 2, 300, 64), rand(1, 2, 300, 64), dict(causal=True),
+        zero=(slice(0, 0), slice(77, None)))
+    run("(1,2,300,77,64) causal window 16: queries that see no key",
+        rand(1, 2, 300, 64), rand(1, 2, 77, 64), rand(1, 2, 77, 64),
+        dict(causal=True, window=16), zero=(slice(92, None), slice(0, 0)))
+    ids = packed_ids(torch, 2, 300, (60, 90, 45, 50), 9).to(dev)
+    seg = dict(causal=True, segment_ids=(ids, ids), pad_id=9,
+               contiguous_segments=True)
+    check(bool((ids[0, 256:] == 9).all()), "batch row 0's last 128-row "
+          "tile is padding: its band under the bounds is empty")
+    run("(2,4,300,300,64) packed ids, pad tail, contiguous segments",
+        rand(2, 4, 300, 64), rand(2, 4, 300, 64), rand(2, 4, 300, 64), seg,
+        zero=(slice(262, None), slice(262, None)))
+    torch.cuda.empty_cache()
+
+
 def check_flash_attention_stream(torch, ops, dev):
     """The three streamed kernels (forward with its merge pass where a band
     has several splits, dQ, dK/dV) against their plain versions
@@ -2037,6 +2157,19 @@ def check_flash_attention_stream(torch, ops, dev):
             q, k, v, do, lse, delta, **kw),
             *ops.flash_attention_bwd_dkv_stream_reference(
                 q, k, v, do, lse, delta, **kw))
+        same_bwd = None
+        if twice and dt == f32:  # one split a band: each element once
+            again = (ops.flash_attention_bwd_dq_stream(q, k, v, do, lse,
+                                                       delta, **kw),
+                     *ops.flash_attention_bwd_dkv_stream(q, k, v, do, lse,
+                                                         delta, **kw))
+            torch.cuda.synchronize()
+            same_bwd = all(torch.equal(a, b)
+                           for a, b in zip((dq, dk, dv), again))
+            verdict(f"flash_attention_stream {label} backward deterministic",
+                    0 if same_bwd else 1, 0,
+                    group=f"flash_attention_stream {str(dt)[6:]}")
+            del again
         fwd_tol = 2e-2 if dt == bf16 else 1e-5
         bwd_tol = 1e-2 if dt == bf16 else 1e-5
         row_fwd, row_bwd = ROW_TOL[dt == bf16]
@@ -2086,6 +2219,8 @@ def check_flash_attention_stream(torch, ops, dev):
             merge += f" ({extra} bytes allocated beside o and lse)"
         if twice:
             merge += "; a second forward bit-identical"
+        if same_bwd is not None:
+            merge += f", a second backward too: {same_bwd}"
 
         print(f"  flash_attention_stream {label}: " + ", ".join(parts)
               + f"; {n_dead} rows with no key exactly 0" + merge)
@@ -2159,6 +2294,7 @@ def check_flash_attention_stream(torch, ops, dev):
           "streamed forward")
     del q, qkv
     torch.cuda.empty_cache()
+    check_fp32_stream_bwd(torch, ops, dev, gen)
 
     def timings(b, h, s, d, window):
         q, k, v, do = (rand(b, h, s, d, dt=bf16) for _ in range(4))
@@ -2235,6 +2371,11 @@ def check_flash_attention_stream(torch, ops, dev):
     stream_min_seq_basis(torch, ops, tfa, rand)
     rows = []
     fo, fi, fs = tfa._fwd_tiles(False, 64)
+    bo, bi, _ = tfa._bwd_tiles(False, True, 64)
+    f32_bwd = (f"; fp32: {{}}_f32_blocked<64, {bo // 16}, {{}}> (the resident "
+               f"fp32 pair's register-blocked FMA fed by a cp.async ring, "
+               f"over whole bands, each element written once; "
+               f"csrc/flash_attention_bwd.cu)")
     for key, name, line, kernel in (
             ("fwd", "flash_attention_fwd_stream", 506,
              f"fwd_wgmma<64, {tfa.FWD_INNER_TILE}> (wgmma fed by a TMA "
@@ -2243,9 +2384,11 @@ def check_flash_attention_stream(torch, ops, dev):
              f"splits of up to {fs} key tiles; csrc/flash_f32_blocked.cuh); "
              f"fwd_merge only where a band has several splits"),
             ("dq", "flash_attention_bwd_dq_stream", 576,
-             "dq_wgmma<64> (wgmma fed by a TMA ring)"),
+             "dq_wgmma<64> (wgmma fed by a TMA ring)"
+             + f32_bwd.format("dq", bi)),
             ("dkv", "flash_attention_bwd_dkv_stream", 637,
-             "dkv_wgmma<64> (wgmma fed by a TMA ring)")):
+             "dkv_wgmma<64> (wgmma fed by a TMA ring)"
+             + f32_bwd.format("dkv", tfa._bwd_tiles(False, False, 64)[1]))):
         main = by_shape[main_label][key]
         rows.append(dict(
             name=name, route="cuda", kernel=kernel,
@@ -4762,6 +4905,80 @@ def pretrain_o0(torch, ops, dev):
     return counts
 
 
+#: (f): the pretrain example at O0 (fp32) on one 8192-token sequence a step,
+#: which routes attention to the streamed kernels (STREAM_MIN_SEQ): #2, #3
+#: and #4 on their fp32 routes
+PRETRAIN_O0_LONG = PRETRAIN_345M + ["--opt-level", "O0", "--seq", "8192",
+                                    "--micro-batch", "1",
+                                    "--num-microbatches", "1"]
+
+
+def o0_long_steps(torch, ops, steps=3):
+    """``pretrain_gpt`` at :data:`PRETRAIN_O0_LONG` through the port that
+    ``ops`` belongs to: ``steps`` steps on the stream's first batch, each
+    on the host clock to its loss, with the launches counted from 0.
+    Returns (losses, ms of each step, counts, layers)."""
+    import importlib
+
+    pretrain_gpt = importlib.import_module(
+        ops.__name__.rsplit(".", 1)[0] + ".examples.gpt.pretrain_gpt")
+    torch.cuda.empty_cache()
+    args = pretrain_gpt.parse_args(PRETRAIN_O0_LONG)
+    bench = pretrain_gpt.from_args(args)
+    toks, tgts = next(pretrain_gpt.batches(args, bench.batch))
+    check(bench.model.layers[0].qkv.kernel.dtype == torch.float32
+          and tuple(toks.shape) == (1, args.seq), "(f): fp32 weights, one "
+          "sequence a step")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(bench.step(toks, tgts)[0]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    layers = bench.cfg.num_layers
+    del bench, toks, tgts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, ms, counts, layers
+
+
+def pretrain_o0_long(torch, ops, dev):
+    """(f): ``pretrain_gpt`` at O0 on one 8192-token sequence a step
+    (:data:`PRETRAIN_O0_LONG`: fp32, remat full, learned positions) for 3
+    steps on the stream's first batch: the exact launches (per step the
+    streamed forward 2L, its dQ and dK/dV L each, the resident flash kernels
+    0), a finite falling loss, and the median ms a step (another tree's:
+    ``--o0-long-times``). Returns the counts."""
+    import numpy as np
+
+    losses, ms, counts, L = o0_long_steps(torch, ops)
+    per_step = {"flash_attention_fwd_stream": 2 * L,
+                "flash_attention_bwd_dq_stream": L,
+                "flash_attention_bwd_dkv_stream": L,
+                "layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1}
+    print(f"  (f) pretrain_gpt 345M O0 (fp32) at 1 x 8192 tokens: 3 steps on "
+          f"one batch, {statistics.median(ms):.1f} ms a step (median; host "
+          f"clock, each step {[round(x, 1) for x in ms]}), losses "
+          f"{[round(x, 4) for x in losses]}, launches {counts}; "
+          f"{nvidia_smi()}")
+    check_counts(counts, expected_counts(counts, len(losses), per_step),
+                 "gpt_pretrain_o0_long")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "(f) O0 at 8192 tokens: a finite falling loss")
+    return counts
+
+
+def o0_long_times(torch, ops, dev):
+    """``python3 chip_smoke.py --o0-long-times TREE``: (f)'s steps through
+    TREE's port, the ms of each and their median, to compare two trees in
+    turns on one card."""
+    losses, ms, _, _ = o0_long_steps(torch, ops)
+    return {"o0_long_step_ms": statistics.median(ms), "steps_ms": ms,
+            "losses": losses}
+
+
 #: limits of the fp32 routes as a share of max |ref|: phase 2's fp32 limits
 #: (the forward's o 5e-5, the backward's grads 1e-4, LayerNorm's y 1e-5, its
 #: dgamma/dbeta 1e-4, held with dx)
@@ -4808,9 +5025,11 @@ def fp32_kernels_by_name(torch, ops, dev):
     """The device kernels, by name, of one call of each fp32 attention that
     phase 10 times: SDPA's forward and backward (autograd.grad) at F =
     (4,16,1024,64) causal and its backward at L = (1,16,8192,64) causal;
-    at RP = (1,16,317,64) window 256, #2 fp32 (held to launch
-    fwd_f32_blocked once and no fwd_merge) and SDPA with the boolean band
-    mask. Run in a fresh process
+    #3 fp32 and #4 fp32 at L (each held to launch its dq_f32_blocked /
+    dkv_f32_blocked instance once and nothing else: no memset of its
+    output, no cast); at RP = (1,16,317,64) window 256, #2 fp32 (held to
+    launch fwd_f32_blocked once and no fwd_merge) and SDPA with the boolean
+    band mask. Run in a fresh process
     (:func:`kernels_by_name_apart`): in the process that has run the
     phases the profiler captures nothing for some of these calls. Returned
     by the rows of the ``kernels`` line they go with."""
@@ -4825,6 +5044,22 @@ def fp32_kernels_by_name(torch, ops, dev):
             _, out["SDPA fp32 forward at F"] = kernels_of(
                 torch, lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True))
+        if label == "L":
+            o, lse = ops.flash_attention_fwd_stream(q, k, v, causal=True)
+            delta = (o * do).sum(-1)
+            kw = dict(causal=True, scale=0.125)
+            for key, fn, kernel in (
+                    ("#3 fp32 at L", ops.flash_attention_bwd_dq_stream,
+                     "dq_f32_blocked"),
+                    ("#4 fp32 at L", ops.flash_attention_bwd_dkv_stream,
+                     "dkv_f32_blocked")):
+                launched, out[key] = kernels_of(
+                    torch, lambda: fn(q, k, v, do, lse, delta, **kw))
+                check(len(launched) == 1
+                      and kernel_time(launched, kernel)[0] == 1,
+                      f"{key} launches {kernel} once and nothing else: "
+                      f"{out[key]}")
+            del o, lse, delta
         q, k, v = (t.requires_grad_() for t in (q, k, v))
         o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         _, out[f"SDPA fp32 backward at {label} "
@@ -4857,9 +5092,12 @@ def fp32_kernels_by_name(torch, ops, dev):
                 k: out[k] for k in ("#2 fp32 at RP",
                                     "SDPA with the band mask at RP")},
             **{name: {k: v for k, v in out.items() if "backward" in k}
-               for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                            "flash_attention_bwd_dq_stream",
-                            "flash_attention_bwd_dkv_stream")}}
+               for name in ("flash_attention_bwd_dq",
+                            "flash_attention_bwd_dkv")},
+            **{name: {k: v for k, v in out.items()
+                      if "backward" in k or k.startswith(tag)}
+               for name, tag in (("flash_attention_bwd_dq_stream", "#3"),
+                                 ("flash_attention_bwd_dkv_stream", "#4"))}}
 
 
 def kernels_by_name_apart():
@@ -5052,75 +5290,103 @@ def fp32_train_times(torch, ops, dev):
 
 
 def fp32_stream_bwd_times(torch, ops, dev):
-    """The fp32 routes of #3 and #4 (dq_split_fma / dkv_split_fma: the
-    first port's FMA kernels) at L = (1,16,8192,64) causal: against their
-    plain versions at phase 2's streamed fp32 limits (1e-5 of max |ref|,
-    :data:`ROW_TOL` by row), then their times by CUDA-graph replay beside
-    the bounds (67 TFLOP/s fp32, 3.35 TB/s), the plain versions and SDPA's
-    fp32 backward at L (dQ, dK, dV by ``autograd.grad``) with its kernels
-    by name. Returns ``{kernel: {"fp32 L": timing}}``."""
+    """The fp32 routes of #3 and #4 (dq_f32_blocked / dkv_f32_blocked over
+    whole bands) at L32 = (1,16,8192,64) causal and W32 =
+    (1,16,16384,64) causal, window 4096: against their plain versions at
+    phase 2's streamed fp32 limits (1e-5 of max |ref|, :data:`ROW_TOL` by
+    row, which a halved tail of dQ rows and of dK rows must fail), two
+    calls bit-identical, then their times by CUDA-graph replay beside the
+    bounds (67 TFLOP/s fp32, 3.35 TB/s), the plain versions and SDPA's fp32
+    backward (dQ, dK, dV by ``autograd.grad``; under the window with the
+    boolean band mask). Returns ``{kernel: {"fp32 L32": timing,
+    "fp32 W32": timing}}``."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    b, h, s, d = 1, 16, 8192, 64
-    q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=gen)
-                   for _ in range(4))
-    kw = dict(causal=True, scale=d ** -0.5)
-    o, lse = ops.flash_attention_fwd_stream(q, k, v, causal=True)
-    delta = (o * do).sum(-1)
-    got = {"flash_attention_bwd_dq_stream": (
-        ops.flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, **kw),),
-        "flash_attention_bwd_dkv_stream":
-            ops.flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, **kw)}
-    ref = {"flash_attention_bwd_dq_stream": (
-        ops.flash_attention_bwd_dq_stream_reference(q, k, v, do, lse, delta,
-                                                    **kw),),
-        "flash_attention_bwd_dkv_stream":
-            ops.flash_attention_bwd_dkv_stream_reference(q, k, v, do, lse,
-                                                         delta, **kw)}
-    _, qb, kb, pairs = stream_bounds(b, h, s, s, d, True, None, "float32")
-    calls = {"flash_attention_bwd_dq_stream": (
-        ops.flash_attention_bwd_dq_stream,
-        ops.flash_attention_bwd_dq_stream_reference, qb),
-        "flash_attention_bwd_dkv_stream": (
-            ops.flash_attention_bwd_dkv_stream,
-            ops.flash_attention_bwd_dkv_stream_reference, kb)}
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    torch.cuda.synchronize()
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        out, (ql, kl, vl), do, retain_graph=True), 3, 2, stream=side)
-    backend = type(out.grad_fn).__name__
-    del out, ql, kl, vl
-    times = {}
-    for name, (fn, plain, (bms, by)) in calls.items():
-        err = max(rel_err(a, r) for a, r in zip(got[name], ref[name]))
-        e_row = max(row_err(a, r) for a, r in zip(got[name], ref[name]))
-        verdict(f"{name} fp32 at L", err, 1e-5,
-                group="flash_attention_stream float32")
-        verdict(f"{name} fp32 at L row", e_row, ROW_TOL[False][1],
-                group="flash_attention_stream float32")
-        t = times[name] = dict(
-            ms=time_ms(lambda: fn(q, k, v, do, lse, delta, **kw), 3, 2),
-            plain_ms=time_ms(lambda: plain(q, k, v, do, lse, delta, **kw),
-                             1, 2),
-            library_ms=lib_bwd, library={"grad_fn": backend}, bound_ms=bms,
-            bound_by=by,
-            max_rel_err=err)
-        flops = (6 if "dq" in name else 8) * d * pairs
-        print(f"  {name} fp32 route at L (1,16,8192,64) causal: share of max "
-              f"|ref| {err:.3g} (tol 1e-05), worst row {e_row:.3g} (tol "
-              f"{ROW_TOL[False][1]:g}); kernel {t['ms']:.4f} ms "
-              f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), bound {bms:.4f} ms "
-              f"({by}), plain {t['plain_ms']:.4f} ms, SDPA's fp32 backward "
-              f"(dQ+dK+dV) {lib_bwd:.4f} ms (autograd.grad through "
-              f"{backend}); {nvidia_smi()}")
-    del q, k, v, do, o, lse, delta, got, ref
+    b, h, d = 1, 16, 64
+    times = {"flash_attention_bwd_dq_stream": {},
+             "flash_attention_bwd_dkv_stream": {}}
+    grp = "flash_attention_stream float32"
+    for label, s, window in (("L32", 8192, None), ("W32", 16384, 4096)):
+        q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=gen)
+                       for _ in range(4))
+        kw = dict(causal=True, scale=d ** -0.5, window=window)
+        o, lse = ops.flash_attention_fwd_stream(q, k, v, causal=True,
+                                                window=window)
+        delta = (o * do).sum(-1)
+        del o
+        calls = {"flash_attention_bwd_dq_stream": (
+            lambda: (ops.flash_attention_bwd_dq_stream(
+                q, k, v, do, lse, delta, **kw),),
+            lambda: (ops.flash_attention_bwd_dq_stream_reference(
+                q, k, v, do, lse, delta, **kw),)),
+            "flash_attention_bwd_dkv_stream": (
+                lambda: ops.flash_attention_bwd_dkv_stream(
+                    q, k, v, do, lse, delta, **kw),
+                lambda: ops.flash_attention_bwd_dkv_stream_reference(
+                    q, k, v, do, lse, delta, **kw))}
+        _, qb, kb, pairs = stream_bounds(b, h, s, s, d, True, window,
+                                         "float32")
+        bounds = {"flash_attention_bwd_dq_stream": qb,
+                  "flash_attention_bwd_dkv_stream": kb}
+        if window is None:
+            sdpa_kw = dict(is_causal=True)
+        else:
+            i = torch.arange(s, device=dev, dtype=torch.int32)
+            diff = i[:, None] - i[None, :]
+            sdpa_kw = dict(attn_mask=(diff >= 0) & (diff < window))
+            del i, diff
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = F.scaled_dot_product_attention(ql, kl, vl, **sdpa_kw)
+        torch.cuda.synchronize()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (ql, kl, vl), do, retain_graph=True), 3, 2, stream=side)
+        backend = type(out.grad_fn).__name__
+        del out, ql, kl, vl, sdpa_kw
+        for name, (fn, plain) in calls.items():
+            got, ref = fn(), plain()
+            again = fn()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, r) for a, r in zip(got, again))
+            verdict(f"{name} fp32 at {label} deterministic", 0 if same else 1,
+                    0, group=grp)
+            err = max(rel_err(a, r) for a, r in zip(got, ref))
+            e_row = max(row_err(a, r) for a, r in zip(got, ref))
+            verdict(f"{name} fp32 at {label}", err, 1e-5, group=grp)
+            verdict(f"{name} fp32 at {label} row", e_row, ROW_TOL[False][1],
+                    group=grp)
+            # a tail of dQ rows (of dK rows) halved must fail the row check
+            bad = got[0].clone()
+            bad[:, :, s // 2:] *= 0.5
+            planted = row_err(bad, ref[0])
+            verdict(f"{name} fp32 at {label}: a halved "
+                    f"{'dQ' if 'dq' in name else 'dK'} tail caught by the "
+                    f"row check", 0 if planted > ROW_TOL[False][1] else 1, 0,
+                    group=grp)
+            del got, ref, again, bad
+            bms, by = bounds[name]
+            t = times[name][f"fp32 {label}"] = dict(
+                ms=time_ms(fn, 3, 2), plain_ms=time_ms(plain, 1, 2),
+                library_ms=lib_bwd, library={"grad_fn": backend},
+                bound_ms=bms, bound_by=by, max_rel_err=err, row_err=e_row)
+            flops = (6 if "dq" in name else 8) * d * pairs
+            print(f"  {name} fp32 route at {label} (1,16,{s},64) causal"
+                  + (f" window {window}" if window else "")
+                  + f": share of max |ref| {err:.3g} (tol 1e-05), worst row "
+                  f"{e_row:.3g} (tol {ROW_TOL[False][1]:g}), halved tail "
+                  f"row {planted:.3g}, a second call bit-identical {same}; "
+                  f"kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.1f} "
+                  f"TFLOP/s), bound {bms:.4f} ms ({by}), plain "
+                  f"{t['plain_ms']:.4f} ms, SDPA's fp32 backward (dQ+dK+dV"
+                  + (", the boolean band mask" if window else "")
+                  + f") {lib_bwd:.4f} ms (autograd.grad through {backend}); "
+                  f"{nvidia_smi()}")
+        del calls, q, k, v, do, lse, delta
     torch.cuda.empty_cache()
-    return {name: {"fp32 L": t} for name, t in times.items()}
+    return times
 
 
 def state_bytes(bench, *extra):
@@ -5492,7 +5758,8 @@ def gpt_examples(torch, ops, dev):
     """Phase 10: (a) pretrain, save, resume; (b) O0 and the fp32 training
     routes; (c) the remat policies; (d) generate from the checkpoint, fp32,
     three ways, and the fp32 decode routes; (e) RoPE + window serving and
-    the streamed forward's fp32 route at its prefill. The
+    the streamed forward's fp32 route at its prefill; (f) O0 at 8192
+    tokens, the streamed kernels' fp32 routes on a main path. The
     checkpoint lives in a directory under the build directory, removed at
     the end. Returns the launch counts by path and the fp32 times by
     kernel (``{kernel: {label: timing}}``)."""
@@ -5519,6 +5786,7 @@ def gpt_examples(torch, ops, dev):
         rope_counts, longest = generate_rope(torch, ops, dev)
         by_path.update(rope_counts)
         fp32.update(fp32_rope_prefill_times(torch, ops, dev, longest))
+        by_path["gpt_pretrain_o0_long"] = pretrain_o0_long(torch, ops, dev)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
@@ -5861,11 +6129,23 @@ def flash_times(torch, ops, dev):
     causal, #5 and #6 at T, all three at BERT's (16,16,512,64)
     non-causal, and the streamed #2-#4 at L = (1,16,8192,64) causal; #1,
     #5 and #6 in fp32 at F = (4,16,1024,64) causal and #2 in fp32 at RP =
-    (1,16,317,64) causal, window 256 (``python3 chip_smoke.py
-    --flash-times TREE``: the port of TREE; run it for the parent and this
-    tree in turns to compare them on one card)."""
+    (1,16,317,64) causal, window 256, and #3 and #4 in fp32 at L32 =
+    (1,16,8192,64) causal (``python3 chip_smoke.py --flash-times TREE``:
+    the port of TREE; run it for the parent and this tree in turns to
+    compare them on one card)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {}
+    q, k, v, do = (torch.randn(1, 16, 8192, 64, device=dev, generator=gen)
+                   for _ in range(4))
+    kw = dict(causal=True, scale=0.125)
+    o, lse = ops.flash_attention_fwd_stream(q, k, v, **kw)
+    delta = (o * do).sum(-1)
+    out["dq_stream_L32"] = time_ms(lambda: ops.flash_attention_bwd_dq_stream(
+        q, k, v, do, lse, delta, **kw), 5, 2)
+    out["dkv_stream_L32"] = time_ms(
+        lambda: ops.flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta,
+                                                   **kw), 5, 2)
+    del q, k, v, do, o, lse, delta
     q, k, v = (torch.randn(1, 16, 317, 64, device=dev, generator=gen)
                for _ in range(3))
     out["fwd_stream_f32_RP"] = time_ms(lambda: ops.flash_attention_fwd_stream(
@@ -5986,6 +6266,8 @@ if __name__ == "__main__":
         sys.exit(times_of_tree(sys.argv[2], decode_times))
     if sys.argv[1:2] == ["--flash-times"]:
         sys.exit(times_of_tree(sys.argv[2], flash_times))
+    if sys.argv[1:2] == ["--o0-long-times"]:
+        sys.exit(times_of_tree(sys.argv[2], o0_long_times))
     if sys.argv[1:2] == ["--kernel-names"]:
         sys.exit(kernel_names_main())
     if sys.argv[1:2] == ["--sass"]:

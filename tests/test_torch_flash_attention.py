@@ -285,15 +285,16 @@ def test_fp32_route_tiles_follow_their_own_constants(monkeypatch):
     """The fp32 resident pair's launch tiles come from its own constants
     (RES_BWD_F32_OUTER_TILE and RES_BWD_F32_PERSISTENT; 64-row inner
     tiles, and above d = 64 64 rows kept and 32-row query tiles for
-    dK/dV), not from the streamed kernels' STREAM_TILE; bf16 keeps its
-    own."""
+    dK/dV), not from the streamed bf16 kernels' BWD_* constants; bf16
+    keeps its own."""
     def tiles():
         return [tfa._res_bwd_tiles(False, dq, d) for d in (64, 128)
                 for dq in (True, False)]
 
     o, p = tfa.RES_BWD_F32_OUTER_TILE, int(tfa.RES_BWD_F32_PERSISTENT)
     assert tiles() == [(o, 64, p), (o, 64, p), (64, 64, p), (64, 32, p)]
-    monkeypatch.setattr(tfa, "STREAM_TILE", 16)
+    for name in ("BWD_OUTER_TILE", "BWD_INNER_TILE", "BWD_SPLIT_TILES"):
+        monkeypatch.setattr(tfa, name, 16)
     assert tiles() == [(o, 64, p), (o, 64, p), (64, 64, p), (64, 32, p)]
     monkeypatch.setattr(tfa, "RES_BWD_F32_OUTER_TILE", 192 - o)
     monkeypatch.setattr(tfa, "RES_BWD_F32_PERSISTENT", not p)
@@ -389,6 +390,48 @@ def test_fp32_segment_tables_at_the_cards_tiles(d, dq_pass, pad):
 
 
 @pytest.mark.parametrize("pad", [None, 9])
+@pytest.mark.parametrize("dq_pass", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_streamed_backward_segment_tables_at_the_cards_tiles(
+        d, dq_pass, pad):
+    """_check_seg_tables at the streamed fp32 backward's tiles (_bwd_tiles:
+    the resident fp32 pair's, 128 rows kept over 64-row tiles, 64 over 64 /
+    32 above d = 64, over whole bands), as its wrappers build them."""
+    outer, inner, split = tfa._bwd_tiles(False, dq_pass, d)
+    assert (outer, inner, split) == (
+        *tfa._res_bwd_tiles(False, dq_pass, d)[:2], None)
+    assert (outer, inner) == ((128, 64) if d <= 64 else
+                              (64, 64 if dq_pass else 32))
+    _check_seg_tables(d, dq_pass, pad, outer, inner)
+
+
+def test_fp32_streamed_backward_tiles_follow_their_own_constants(
+        monkeypatch):
+    """The streamed fp32 backward runs at the resident fp32 pair's tiles
+    (RES_BWD_F32_OUTER_TILE; 64 rows kept above d = 64, over 32-row query
+    tiles for dK/dV) over whole bands (no split length), not at the bf16
+    route's BWD_* constants nor the resident bf16 pair's; bf16 keeps
+    BWD_*."""
+    def tiles():
+        return [tfa._bwd_tiles(False, dq, d) for d in (64, 128)
+                for dq in (True, False)]
+
+    o = tfa.RES_BWD_F32_OUTER_TILE
+    want = [(o, 64, None), (o, 64, None), (64, 64, None), (64, 32, None)]
+    assert tiles() == want
+    for name in ("BWD_OUTER_TILE", "BWD_INNER_TILE", "BWD_SPLIT_TILES",
+                 "RES_BWD_DQ_INNER_TILE", "RES_BWD_DQ_BIAS_INNER_TILE"):
+        monkeypatch.setattr(tfa, name, 16)
+    monkeypatch.setattr(tfa, "RES_BWD_F32_PERSISTENT",
+                        not tfa.RES_BWD_F32_PERSISTENT)
+    assert tiles() == want
+    assert tfa._bwd_tiles(True, True, 64) == (16, 16, 16)
+    monkeypatch.setattr(tfa, "RES_BWD_F32_OUTER_TILE", 192 - o)
+    assert tiles() == [(192 - o, 64, None), (192 - o, 64, None),
+                       (64, 64, None), (64, 32, None)]
+
+
+@pytest.mark.parametrize("pad", [None, 9])
 @pytest.mark.parametrize("route", ["resident", "streamed"])
 @pytest.mark.parametrize("d", [64, 128])
 def test_fp32_forward_segment_tables_at_the_cards_tiles(d, route, pad):
@@ -404,8 +447,8 @@ def test_fp32_forward_tiles_follow_their_own_constants(monkeypatch):
     """The fp32 forward's launch tiles come from its own constants, resident
     (RES_FWD_F32_OUTER_TILE / _INNER_TILE, on the plain grid) and streamed
     (FWD_F32_OUTER_TILE / _INNER_TILE / _SPLIT_TILES), 64 / 32 above
-    d = 64, not from the streamed backward's STREAM_TILE /
-    STREAM_SPLIT_TILES nor the bf16 routes' constants."""
+    d = 64, not from the fp32 backward's RES_BWD_F32_OUTER_TILE nor the
+    bf16 routes' constants."""
     def tiles():
         return [f(d) for d in (64, 128)
                 for f in (tfa._res_fwd_f32_tiles,
@@ -416,9 +459,9 @@ def test_fp32_forward_tiles_follow_their_own_constants(monkeypatch):
                   tfa.FWD_F32_SPLIT_TILES)
     want = [(ro, ri, 0), (so, si, ss), (64, 32, 0), (64, 32, ss)]
     assert tiles() == want
-    for name in ("STREAM_TILE", "STREAM_SPLIT_TILES", "RES_FWD_OUTER_TILE",
-                 "RES_FWD_INNER_TILE", "FWD_OUTER_TILE", "FWD_INNER_TILE",
-                 "FWD_SPLIT_TILES"):
+    for name in ("RES_BWD_F32_OUTER_TILE", "BWD_SPLIT_TILES",
+                 "RES_FWD_OUTER_TILE", "RES_FWD_INNER_TILE", "FWD_OUTER_TILE",
+                 "FWD_INNER_TILE", "FWD_SPLIT_TILES"):
         monkeypatch.setattr(tfa, name, 16)
     monkeypatch.setattr(tfa, "RES_FWD_PERSISTENT", not tfa.RES_FWD_PERSISTENT)
     assert tiles() == want
@@ -871,8 +914,9 @@ def test_contiguous_segments_equal_mask_only(stream, monkeypatch):
     """contiguous_segments=True (the bounds narrow every band) computes the
     same function as mask-only evaluation, values and grads (fp32, 1e-6),
     also with split lengths of one tile, where narrowed splits are empty
-    and the forward merges empty partials."""
-    for name in ("FWD_SPLIT_TILES", "BWD_SPLIT_TILES", "STREAM_SPLIT_TILES",
+    and the forward merges empty partials (the fp32 backward takes whole
+    bands, here of 32 rows kept)."""
+    for name in ("FWD_SPLIT_TILES", "BWD_SPLIT_TILES",
                  "FWD_F32_SPLIT_TILES"):
         monkeypatch.setattr(tfa, name, 1)
     monkeypatch.setattr(tfa, "FWD_OUTER_TILE", 32)
@@ -881,6 +925,7 @@ def test_contiguous_segments_equal_mask_only(stream, monkeypatch):
     monkeypatch.setattr(tfa, "FWD_F32_INNER_TILE", 16)
     monkeypatch.setattr(tfa, "BWD_OUTER_TILE", 32)
     monkeypatch.setattr(tfa, "BWD_INNER_TILE", 16)
+    monkeypatch.setattr(tfa, "RES_BWD_F32_OUTER_TILE", 32)
     monkeypatch.setattr(tfa, "RES_FWD_OUTER_TILE", 32)
     monkeypatch.setattr(tfa, "RES_FWD_INNER_TILE", 16)
     monkeypatch.setattr(tfa, "RES_BWD_DQ_INNER_TILE", 16)

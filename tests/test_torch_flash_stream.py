@@ -12,7 +12,9 @@ JAX side runs ``flash_attention(stream="always", impl="pallas")`` with
 128 on the card) are cut to 64 / 32 and splits of one or two key tiles so
 that rows span several splits and the merge runs; the backward's own tiles
 (``BWD_OUTER_TILE`` / ``BWD_INNER_TILE`` / ``BWD_SPLIT_TILES``, 128 / 64 /
-128 on the card) are cut alike, with unequal outer and inner tiles. fp32:
+128 on the card) are cut alike, with unequal outer and inner tiles; the
+fp32 backward takes whole bands at the resident fp32 pair's tiles
+(``RES_BWD_F32_OUTER_TILE`` rows kept, cut to 64). fp32:
 values within 1e-5, q/k/v grads within 1e-4 (the same fp32 math summed in
 another order). The CUDA kernels are held against the same plain versions
 by ``chip_smoke.py``.
@@ -81,32 +83,39 @@ def _small_fwd_tiles(monkeypatch, split_tiles):
 
 
 def _small_bwd_tiles(monkeypatch, split_tiles):
-    """The backward's tiles cut to 64-row outer and 32-row inner tiles."""
+    """The backward's tiles cut: bf16 (BWD_*) to 64-row outer and 32-row
+    inner tiles in splits of ``split_tiles``, fp32 (whole bands at the
+    resident fp32 pair's tiles) to 64 rows kept over its 64-row tiles."""
     monkeypatch.setattr(tfa, "BWD_OUTER_TILE", 64)
     monkeypatch.setattr(tfa, "BWD_INNER_TILE", 32)
     monkeypatch.setattr(tfa, "BWD_SPLIT_TILES", split_tiles)
+    monkeypatch.setattr(tfa, "RES_BWD_F32_OUTER_TILE", 64)
 
 
-@pytest.mark.parametrize("split_tiles", [1, 2])
+@pytest.mark.parametrize("split_tiles", [1, 2, 8])
 @pytest.mark.parametrize("causal", [False, True])
 def test_streamed_matches_jax_streamed_kernels(monkeypatch, causal,
                                                split_tiles):
-    monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", split_tiles)
+    """Splits of 1 and 2 tiles (the last rows span several splits) and of 8
+    (one split a band) on the bf16 route's tiles; the fp32 backward, which
+    these fp32 inputs run, in whole bands of up to 4 tiles."""
     _small_fwd_tiles(monkeypatch, split_tiles)
     _small_bwd_tiles(monkeypatch, split_tiles)
-    _, most = tfa._stream_bands(256, 256, causal, None, True)
-    assert most == 4 // split_tiles  # the last rows span several splits
     _, most = tfa._fwd_bands(256, 256, causal, None)
     assert most == 8 // split_tiles
     for inner_is_k in (True, False):
-        _, most = tfa._bwd_bands(256, 256, causal, None, inner_is_k)
+        _, most = tfa._bwd_bands(256, 256, causal, None, inner_is_k,
+                                 tfa._bwd_tiles(True, inner_is_k, 16))
         assert most == 8 // split_tiles
+        bands, most = tfa._bwd_bands(256, 256, causal, None, inner_is_k,
+                                     tfa._bwd_tiles(False, inner_is_k, 16))
+        assert most == 1
+        assert max(e - a for b in bands for a, e in b) == 4
     _compare(*_inputs(5), causal=causal)
 
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_window_matches_jax_streamed_kernels(monkeypatch, causal):
-    monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", 1)
     _small_fwd_tiles(monkeypatch, 1)
     _compare(*_inputs(22), causal=causal, window=48)
 
@@ -114,12 +123,15 @@ def test_window_matches_jax_streamed_kernels(monkeypatch, causal):
 @pytest.mark.parametrize("causal", [False, True])
 def test_band_restricted_window(monkeypatch, causal):
     """sq = 512, window 16: each tile's band is 2-3 tiles of 8, so most
-    tiles are never visited (the _window_grid case of the JAX tests)."""
-    monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", 1)
+    tiles are never visited (the _window_grid case of the JAX tests); the
+    fp32 backward at 64-row tiles both ways, each band whole."""
+    _small_bwd_tiles(monkeypatch, 1)
     _small_fwd_tiles(monkeypatch, 1)
-    bands, most = tfa._stream_bands(512, 512, causal, 16, True)
-    assert most == (2 if causal else 3)
-    assert sum(len(b) for b in bands) < 8 * 8 // 2
+    bands, most = tfa._bwd_bands(512, 512, causal, 16, True,
+                                 tfa._bwd_tiles(False, True, 16))
+    lengths = [e - a for b in bands for a, e in b]
+    assert most == 1 and max(lengths) == (2 if causal else 3)
+    assert sum(lengths) < 8 * 8 // 2
     bands, most = tfa._fwd_bands(512, 512, causal, 16)
     assert most == (3 if causal else 4)  # 64 queries over 32-key tiles
     assert sum(len(b) for b in bands) < 8 * 16 // 2
@@ -129,7 +141,6 @@ def test_band_restricted_window(monkeypatch, causal):
 def test_cross_shape_window_fully_masked_rows_are_zero(monkeypatch):
     """sq != sk: queries past sk + window - 1 see no key; their outputs and
     their dq are exactly 0, as in the JAX kernels."""
-    monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", 1)
     _small_fwd_tiles(monkeypatch, 1)
     out, grads = _compare(*_inputs(3, sq=320, sk=128), causal=True,
                           window=40)
@@ -150,7 +161,6 @@ def test_merge_matches_the_dense_plain_version(monkeypatch, causal, window):
     ref = tfa.mha_reference(q, k, v, causal=causal, window=window)
     lse = tfa._lse_reference(q, k, causal, 0.25, window)
     for split in (1, 16):
-        monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", split)
         _small_fwd_tiles(monkeypatch, split)
         o, l = tfa.flash_attention_fwd_stream_reference(
             q, k, v, causal=causal, window=window)
@@ -185,7 +195,7 @@ def test_window_band_ranges_match_the_reference_helpers():
     from apex_tpu.ops.flash_attention import _window_k_range as jk
     from apex_tpu.ops.flash_attention import _window_q_range as jq
 
-    t = tfa.STREAM_TILE
+    t = tfa.BWD_INNER_TILE
     for causal in (False, True):
         for window in (1, 16, 48, 100):
             for i in range(10):
@@ -431,6 +441,130 @@ def test_fp32_forward_splits_at_the_cards_tiles(sq, sk, causal, window, d):
         assert splits[0][0] == lo and splits[-1][1] == hi
         assert all(a < b <= a + split for a, b in splits)
         assert all(p[1] == n[0] for p, n in zip(splits, splits[1:]))
+
+
+# packed ids of 48 tokens: three segments, then a padding tail (id 9)
+SEG48 = np.repeat([1, 2, 3, 9], [15, 12, 13, 8]).astype(np.int32)
+
+
+@pytest.mark.parametrize("mask", ["causal", "full", "window", "segments"])
+@pytest.mark.parametrize("outer,inner", [(16, 8), (16, 16), (32, 8)])
+def test_fp32_streamed_backward_at_its_own_tiles_matches_jax(
+        monkeypatch, outer, inner, mask):
+    """The plain streamed dQ and dK/dV on fp32 inputs cut their bands at the
+    fp32 route's own tiles (the resident fp32 pair's, _res_bwd_tiles: here
+    cut to 16 or 32 rows kept over 8- or 16-row tiles; the bf16 route's
+    left at the card's), one piece a band as the kernel takes it, and match
+    the JAX package's streamed kernels in interpret mode (16-row blocks)
+    through FlashAttention: causal, non-causal, a window of 10 and packed
+    ids with pad_id and the contiguous-segment bounds; values within 1e-5,
+    grads within 1e-4."""
+    real_tiles = tfa._res_bwd_tiles
+
+    def cut(bf16, inner_is_k, d, bias=False):
+        if bf16:
+            return real_tiles(bf16, inner_is_k, d, bias)
+        return outer, inner, 0
+
+    monkeypatch.setattr(tfa, "_res_bwd_tiles", cut)
+    for inner_is_k in (True, False):
+        tiles = tfa._bwd_tiles(False, inner_is_k, 16)
+        assert tiles == (outer, inner, None)
+        assert tfa._bwd_tiles(True, inner_is_k, 16) == (128, 64, 128)
+        bands, most = tfa._bwd_bands(48, 48, False, None, inner_is_k, tiles)
+        assert most == 1 and tuple(bands[0]) == ((0, 48 // inner),)
+    seen = []
+    real = tfa._bwd_bands
+
+    def recorded(*a):
+        seen.append(a[5])
+        return real(*a)
+
+    monkeypatch.setattr(tfa, "_bwd_bands", recorded)
+    kw = {"causal": dict(causal=True), "full": dict(causal=False),
+          "window": dict(causal=True, window=10),
+          "segments": dict(causal=True, pad_id=9)}[mask]
+    q, k, v, g = _inputs(43, sq=48, sk=48, b=2, d=16)
+    tkw, jkw = dict(kw), dict(kw, impl="pallas", stream="always",
+                              block_q=16, block_k=16)
+    if mask == "segments":
+        ids = np.stack([SEG48, np.repeat([4, 5, 9], [20, 20, 8])]).astype(
+            np.int32)
+        tkw.update(segment_ids=(torch.from_numpy(ids),) * 2,
+                   contiguous_segments=True)
+        jkw.update(segment_ids=(jnp.asarray(ids),) * 2,
+                   contiguous_segments=True)
+    out, grads = _torch(q, k, v, g, **tkw)
+    assert seen == [(outer, inner, None)] * 2
+    args = tuple(jnp.asarray(a) for a in (q, k, v))
+    jout = jax_flash(*args, **jkw)
+    jgrads = jax.grad(lambda *a: jnp.sum(jax_flash(*a, **jkw) * g),
+                      argnums=(0, 1, 2))(*args)
+    np.testing.assert_allclose(out, np.asarray(jout), atol=VAL_TOL)
+    for name, a, r in zip("qkv", grads, jgrads):
+        np.testing.assert_allclose(a, np.asarray(r), atol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+    if mask == "segments":  # padded queries and keys: exactly 0
+        assert np.all(grads[0][:, :, 40:] == 0.0)
+        assert np.all(grads[1][:, :, 40:] == 0.0)
+
+
+@pytest.mark.parametrize("inner_is_k", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (8192, 8192, True, None), (16384, 16384, True, 4096),
+    (1100, 990, True, None), (300, 77, True, 16), (1000, 1000, False, 200),
+    (77, 300, False, None)])
+def test_fp32_bwd_splits_at_the_cards_tiles(sq, sk, causal, window, d,
+                                            inner_is_k):
+    """At the fp32 backward's tiles (_bwd_tiles: the resident fp32 pair's,
+    128 rows kept over 64-row tiles, 64 over 64 / 32 above d = 64) each
+    outer tile's band is the JAX helpers' range with the causal limit, in
+    one piece (the kernel's k_tiles / q_tiles, no split)."""
+    from apex_tpu.ops.flash_attention import _window_k_range as jk
+    from apex_tpu.ops.flash_attention import _window_q_range as jq
+
+    outer, inner, split = tiles = tfa._bwd_tiles(False, inner_is_k, d)
+    assert split is None
+    bands, most = tfa._bwd_bands(sq, sk, causal, window, inner_is_k, tiles)
+    s_out, s_in = (sq, sk) if inner_is_k else (sk, sq)
+    n_out, n_in = -(-s_out // outer), -(-s_in // inner)
+    assert len(bands) == n_out
+    for t, splits in enumerate(bands):
+        if inner_is_k:
+            lo, hi = jk(0, n_in, t, outer, inner, 0, 0, causal, window)
+            if causal:
+                hi = min(int(hi), -(-(t + 1) * outer // inner))
+        else:
+            lo0 = min(t * outer // inner, n_in) if causal else 0
+            lo, hi = jq(lo0, n_in, t, inner, outer, 0, 0, causal, window)
+        lo, hi = max(int(lo), 0), int(hi)
+        assert len(splits) <= most <= 1
+        if hi <= lo:
+            assert not splits
+            continue
+        assert tuple(splits) == ((lo, hi),)
+
+
+def test_fp32_bwd_one_split_a_band_at_the_path_shapes(monkeypatch):
+    """Every band of L32 = (1,16,8192,64) causal and W32 = (1,16,16384,64)
+    causal, window 4096 is one piece on the fp32 route, at d = 64 and 128,
+    in both passes: the kernel writes each gradient once, with no split
+    length to cut (a cut BWD_SPLIT_TILES splits the bf16 route's bands and
+    leaves the fp32 route's whole)."""
+    for cut in (None, 16):
+        if cut:
+            monkeypatch.setattr(tfa, "BWD_SPLIT_TILES", cut)
+        for inner_is_k in (True, False):
+            for s, window in ((8192, None), (16384, 4096)):
+                for d in (64, 128):
+                    _, nsplit = tfa._bwd_bands(
+                        s, s, True, window, inner_is_k,
+                        tfa._bwd_tiles(False, inner_is_k, d))
+                    assert nsplit == 1
+            _, nsplit = tfa._bwd_bands(8192, 8192, True, None, inner_is_k,
+                                       tfa._bwd_tiles(True, inner_is_k, 64))
+            assert nsplit == (1 if cut is None else 8192 // 64 // cut)
 
 
 @pytest.mark.parametrize("sq,sk,d,causal,window", [

@@ -59,10 +59,11 @@ def _batch(seed, b=2, s=SEQ, vocab=64):
 @pytest.fixture
 def streamed(monkeypatch):
     """Route every attention call of the tiny model to the streamed plain
-    versions, with one-tile splits (rows span two, four in the backward),
-    and count them."""
+    versions, with one-tile splits in the forward (rows span two) and the
+    fp32 backward over whole bands of 64-row tiles, and count them."""
     monkeypatch.setattr(tfa, "STREAM_MIN_SEQ", 64)
-    monkeypatch.setattr(tfa, "STREAM_SPLIT_TILES", 1)
+    # the fp32 backward's tiles (the resident fp32 pair's): 64 rows kept
+    monkeypatch.setattr(tfa, "RES_BWD_F32_OUTER_TILE", 64)
     # the fp32 forward's own tiles: 64-row query and key tiles, one a split
     monkeypatch.setattr(tfa, "FWD_F32_OUTER_TILE", 64)
     monkeypatch.setattr(tfa, "FWD_F32_INNER_TILE", 64)
