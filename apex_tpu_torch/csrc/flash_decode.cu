@@ -19,11 +19,13 @@
 // by POSITION against each row's own range, never by "page is allocated":
 // rejected speculative positions leave stale k/v past the committed length.
 //
-// Bound on this card: bytes. A bf16 key's K and V rows (4 d bytes) feed
-// 4 d operations per query row, so compute binds only past about 295 rows
-// per kv head; the decode (1 row per kv head in GPT-2), the verify (5) and
-// the chunk (256) all sit below. What holds a kernel back is how many
-// bytes are in flight on how many SMs, and the longest slot.
+// Bound on this card: bytes in bf16. A bf16 key's K and V rows (4 d bytes)
+// feed 4 d operations per query row, so compute binds only past about 295
+// rows per kv head; the decode (1 row per kv head in GPT-2), the verify (5)
+// and the chunk (256) all sit below. What holds a kernel back is how many
+// bytes are in flight on how many SMs, and the longest slot. In fp32 (8 d
+// bytes a key, FMA at 67 TFLOP/s) the line sits near 16 rows: the decode
+// and the verify are bound by bytes, the chunk by operations.
 //
 // bf16 "split" route (flash_decode_split / decode_multi_split, one
 // template decode_split<NCH>; d % 8 == 0, d <= 128, block % 8 == 0,
@@ -59,18 +61,53 @@
 //   and no atomic touches o) and resets the counter to 0 for the next call.
 //   A split with no page returns at once; a tile that sees no key writes 0.
 //
+// fp32 "f32_split" route (flash_decode_f32 / decode_multi_f32, one body
+// decode_f32_rows<DP, NR>; d <= 128, any block size, any alignment):
+// - Split. As the bf16 route: the rows of a (slot, kv head) in tiles of
+//   16, each tile's visible pages cut into `splits` runs from static shapes
+//   (ops/flash_decode.py decode_splits with the fp32 constants), each
+//   CTA's range derived on the device.
+// - Ring. The threads of the CTA copy the K and V rows of a stage (64 keys)
+//   row by row through the block table into fp32 tiles at pitch DP + 4,
+//   completing on the stage's mbarrier: one bulk copy (cp.async.bulk, no
+//   tensor map) a row where d % 4 == 0 and q and the pools lie on 16 bytes,
+//   4-byte cp.async copies else (16-byte cp.async copies a thread measured
+//   slower). Stage t + S - 1 lands while stage t computes (S = 3 stages at
+//   DP = 64, 2 at 128). Positions outside the keys some row of the tile
+//   sees are not loaded; columns past d stay zero. Each row masks its own
+//   range, so a position outside it meets only a zero probability, and
+//   every value in the ring is a key of the pool or zero (the ring is
+//   zeroed first).
+// - Rows. An instance keeps NR of a tile's 16 rows (1, 4, 8 or 16: the
+//   live rows, rounded up), so a GPT-2 decode computes its one row and not
+//   16. Four warps each take 16 keys of every stage: lane (key, half) sums
+//   its half of the columns for every row with Q read as a broadcast, the
+//   halves added by one shuffle; the online softmax (expf, natural units,
+//   as the plain version) keeps each row's max over the warp's keys; P goes
+//   through the warp's own shared tile and each lane accumulates its DP / 32
+//   columns of P V, fp32 throughout. The warps merge their (m, l, acc) in
+//   warp order at the end. The chunk's 256 rows a kv head take 16 tiles
+//   too: 64-row tiles on the register-blocked micro-tiles of
+//   flash_f32_blocked.cuh (K/V read once per 64 rows, not per 16) were 9%
+//   faster over 756 keys but 1.45-1.7x slower over the 128-317 keys of the
+//   generate's chunks, and the shapes do not tell the two apart (PERF.md).
+// - Combine. As the bf16 route, in fp32: a tile of one live split writes o;
+//   else each live split writes its (m, l, acc) rows to the workspace, and
+//   the CTA that completes the group's counter merges them in split order
+//   (two calls give the same bits; no atomic touches o) and resets it.
+//
 // "gather" route (bf16 with d % 8 != 0, block % 8 != 0 or unaligned
-// pools): the kernels of the first port. flash_decode_kernel: one CTA per
-// (kv head, slot) walking its pages with tiles staged as fp32;
-// decode_multi_mma_kernel: one CTA per (64-row tile, kv head, slot), pages
-// gathered into shared memory (V transposed), mma.sync.
-// fp32 route: flash_decode_kernel<float> and decode_multi_f32_kernel (plain
-// FMA, 4 lanes a row), as first ported.
+// pools; fp32 with d > 128 on the single-query entry point): the kernels
+// of the first port. flash_decode_kernel: one CTA per (kv head, slot)
+// walking its pages with tiles staged as fp32; decode_multi_mma_kernel
+// (bf16): one CTA per (64-row tile, kv head, slot), pages gathered into
+// shared memory (V transposed), mma.sync.
 
 #include <climits>
 #include <mutex>
 
 #include "common.cuh"
+#include "flash_f32_blocked.cuh"
 #include "hopper.cuh"
 
 namespace apex_torch {
@@ -519,130 +556,6 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// fp32: plain FMA, one CTA of 256 threads per (64-row tile, kv head, slot),
-// 4 neighbouring lanes per row (row max and sum are two shuffles, the
-// accumulator stays in registers), tiles in shared memory as fp32 with rows
-// padded by one word against bank conflicts.
-constexpr int kMqThreads = 256;
-constexpr int kMqMaxD = 128;
-
-__global__ void __launch_bounds__(kMqThreads)
-    decode_multi_f32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ kp,
-                            const float* __restrict__ vp,
-                            const int* __restrict__ tables,
-                            const int* __restrict__ lengths,
-                            float* __restrict__ o, int h, int kh, int kq,
-                            int blk, int d, int max_blocks, float scale,
-                            int window) {
-  extern __shared__ float smem[];
-  constexpr int pp = kTile + 1;
-  const int dp = d + 1;
-  float* Qs = smem;              // kTile x dp
-  float* Ks = Qs + kTile * dp;   // kTile x dp
-  float* Vs = Ks + kTile * dp;   // kTile x d
-  float* Ps = Vs + kTile * d;    // kTile x pp
-
-  const int khi = blockIdx.y, bi = blockIdx.z;
-  const int g = h / kh, R = g * kq, r0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;  // row within the tile
-  const int c4 = tid & 3;  // this lane's column phase
-  const int row = r0 + r;
-  const int s_max = max_blocks * blk;
-  const int len = lengths[bi];
-  const int* trow = tables + (size_t)bi * max_blocks;
-  const RowRange tr = tile_range(len, r0, min(r0 + kTile, R), kq, window,
-                                    s_max);
-  const RowRange rr = row_range(len, row, kq, window, s_max);
-  const bool live = row < R;
-  const size_t head0 = ((size_t)bi * h + (size_t)khi * g) * kq;
-
-  for (int e = tid; e < kTile * d; e += kMqThreads) {
-    const int ri = e / d, ci = e - ri * d;
-    Qs[ri * dp + ci] =
-        r0 + ri < R ? q[(head0 + r0 + ri) * d + ci] * scale : 0.f;
-  }
-
-  float acc[kMqMaxD / 4];
-#pragma unroll
-  for (int j = 0; j < kMqMaxD / 4; ++j) acc[j] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  for (int k0 = (tr.lo / kTile) * kTile; k0 < tr.hi; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kTile * d; e += kMqThreads) {
-      const int t = e / d, c = e - t * d;
-      const int pos = k0 + t;
-      float kv = 0.f, vv = 0.f;
-      if (pos < tr.hi) {
-        const size_t off = page_offset(trow, pos, kh, khi, blk, d) + c;
-        kv = kp[off];
-        vv = vp[off];
-      }
-      Ks[t * dp + c] = kv;
-      Vs[t * d + c] = vv;
-    }
-    __syncthreads();
-
-    float s[kTile / 4];
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) s[jj] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float qv = Qs[r * dp + kk];
-#pragma unroll
-      for (int jj = 0; jj < kTile / 4; ++jj)
-        s[jj] = fmaf(qv, Ks[(c4 + 4 * jj) * dp + kk], s[jj]);
-    }
-    float mx = kNegInf;
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) {
-      const int pos = k0 + c4 + 4 * jj;
-      const bool valid = live && pos >= rr.lo && pos < rr.hi;
-      s[jj] = valid ? s[jj] : kNegInf;
-      mx = fmaxf(mx, s[jj]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const bool dead = m_new <= kNegInf * 0.5f;
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < kTile / 4; ++jj) {
-      const float p = dead ? 0.f : expf(s[jj] - m_new);
-      Ps[r * pp + c4 + 4 * jj] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // a row's P is written and read by the same 4 lanes
-
-#pragma unroll
-    for (int jj = 0; jj < kMqMaxD / 4; ++jj) acc[jj] *= alpha;
-    for (int c = 0; c < kTile; ++c) {
-      const float p = Ps[r * pp + c];
-#pragma unroll
-      for (int jj = 0; jj < kMqMaxD / 4; ++jj) {
-        const int col = c4 + 4 * jj;
-        if (col < d) acc[jj] = fmaf(p, Vs[c * d + col], acc[jj]);
-      }
-    }
-  }
-
-  if (live) {
-    const float inv = 1.f / (l == 0.f ? 1.f : l);
-    float* orow = o + (head0 + row) * d;
-#pragma unroll
-    for (int jj = 0; jj < kMqMaxD / 4; ++jj) {
-      const int col = c4 + 4 * jj;
-      if (col < d) orow[col] = acc[jj] * inv;
-    }
-  }
-}
-
 template <int DP, bool VEC>
 int launch_multi_mma(const void* q, const void* kp, const void* vp,
                      const void* tables, const void* lengths, void* o, int b,
@@ -673,23 +586,6 @@ int launch_multi_mma_dp(bool vec, const void* q, const void* kp,
   return launch_multi_mma<DP, false>(q, kp, vp, tables, lengths, o, b, h, kh,
                                      kq, blk, d, max_blocks, scale, window,
                                      stream);
-}
-
-int launch_multi_f32(const void* q, const void* kp, const void* vp,
-                     const void* tables, const void* lengths, void* o, int b,
-                     int h, int kh, int kq, int blk, int d, int max_blocks,
-                     float scale, int window, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * kTile * (d + 1) + (size_t)kTile * d +
-                       (size_t)kTile * (kTile + 1));
-  const int err = set_max_smem<decode_multi_f32_kernel>(smem);
-  if (err) return err;
-  const dim3 grid((h / kh * kq + kTile - 1) / kTile, kh, b);
-  decode_multi_f32_kernel<<<grid, kMqThreads, smem, stream>>>(
-      (const float*)q, (const float*)kp, (const float*)vp, (const int*)tables,
-      (const int*)lengths, (float*)o, h, kh, kq, blk, d, max_blocks, scale,
-      window);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1238,15 +1134,510 @@ int launch_decode_split_bf16(const void* q, const void* kp, const void* vp,
                 : launch_decode_split<1>(maps, a, b, multi, stream);
 }
 
+// ---------------------------------------------------------------------------
+// fp32 "f32_split" route: split keys, a bulk-copy ring of pages, FMA rows,
+// a fixed-order combine
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Keys = 64;      // keys of a stage
+constexpr int kF32Warps = 4;      // warps, 16 keys of a stage each
+constexpr int kF32WarpKeys = kF32Keys / kF32Warps;
+constexpr int kF32Threads = kF32Warps * 32;
+
+struct DecodeF32Args {
+  const float* q;   // (b, h, kq, d) contiguous
+  const float* kp;  // (num_blocks, kh, blk, d) contiguous
+  const float* vp;
+  const int* tables;   // (b, max_blocks)
+  const int* lengths;  // (b,)
+  float* o;            // as q
+  float* acc;    // (groups, splits, 16, d): partial sums
+  float2* ml;    // (groups, splits, 16): row max and sum
+  int* counters;  // (groups,): live splits done; the last resets it
+  int h, kh, kq, blk, d, max_blocks, window;
+  int rows;       // g * kq rows a (slot, kv head)
+  int row_tiles;  // ceil(rows / 16)
+  int splits;
+  int vec;  // d % 4 == 0, q and the pools on 16 bytes: 16-byte copies
+  float scale;
+};
+
+// A CTA's place: split blockIdx.x % splits of row tile blockIdx.x / splits
+// of kv head blockIdx.y of slot blockIdx.z, the keys some row of its tile
+// sees (tr), the tile's pages from p0, its live splits, and this split's
+// keys [ka, kb) (ka == kb: a split with no page).
+struct F32Place {
+  int tile, split, khi, bi, r0, nrows, len, s_max;
+  size_t head0;  // the (slot, kv head)'s first row in q and o
+  size_t gid;    // the group: (slot, kv head, row tile)
+  RowRange tr;
+  int p0, npg, live, ka, kb;
+};
+
+__device__ __forceinline__ F32Place f32_place(const DecodeF32Args& a) {
+  F32Place c;
+  c.tile = blockIdx.x / a.splits;
+  c.split = blockIdx.x - c.tile * a.splits;
+  c.khi = blockIdx.y;
+  c.bi = blockIdx.z;
+  c.r0 = c.tile * kDecRows;
+  c.nrows = min(kDecRows, a.rows - c.r0);
+  c.s_max = a.max_blocks * a.blk;
+  c.len = a.lengths[c.bi];
+  c.head0 = ((size_t)c.bi * a.h + (size_t)c.khi * (a.h / a.kh)) * a.kq;
+  c.gid = ((size_t)c.bi * a.kh + c.khi) * a.row_tiles + c.tile;
+  c.tr = tile_range(c.len, c.r0, c.r0 + c.nrows, a.kq, a.window, c.s_max);
+  c.p0 = c.tr.lo / a.blk;
+  c.npg = c.tr.hi > c.tr.lo ? (c.tr.hi + a.blk - 1) / a.blk - c.p0 : 0;
+  c.live = min(c.npg, a.splits);
+  c.ka = split_page(c.p0, c.npg, c.split, a.splits) * a.blk;
+  c.kb = split_page(c.p0, c.npg, c.split + 1, a.splits) * a.blk;
+  return c;
+}
+
+// A tile no row of which sees a key writes exactly 0 (its split 0); a
+// split with no page has nothing to do. True: the CTA returns.
+__device__ __forceinline__ bool f32_idle(const DecodeF32Args& a,
+                                         const F32Place& c) {
+  if (c.live == 0) {
+    if (c.split == 0) {
+      float* out = a.o + (c.head0 + c.r0) * (size_t)a.d;
+      for (int e = threadIdx.x; e < c.nrows * a.d; e += kF32Threads)
+        out[e] = 0.f;
+    }
+    return true;
+  }
+  return c.ka == c.kb;
+}
+
+// `bytes` (a multiple of 16; both addresses on 16 bytes) from global to
+// shared memory by the bulk copy engine, completing on bar's transaction
+// count: no tensor map, any row pitch.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(hopper::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(hopper::smem_u32(bar))
+      : "memory");
+}
+
+// The 64 key rows [k0, k0 + 64) of kv head khi, K and V, into tiles of 64
+// rows at pitch DP + 4, each row from its page through the block table row
+// trow, completing on the stage's mbarrier `bar` (every thread arrives once
+// a use). vec (d % 4 == 0, pools on 16 bytes): thread t copies row t % 64
+// of K (t < 64) or V by one bulk copy of d floats; a position outside [lo,
+// hi) is not copied, so its row keeps an earlier stage's pool values or
+// the ring's zeros (columns past d stay 0). Else 4-byte cp.async copies
+// with zeros outside [lo, hi) and past d, the thread's arrival made when
+// they land.
+template <int DP>
+__device__ __forceinline__ void load_keys(float* ks, float* vs, uint64_t* bar,
+                                          const DecodeF32Args& a,
+                                          const int* trow, int khi, int k0,
+                                          int lo, int hi) {
+  constexpr int kP = DP + 4;
+  static_assert(kF32Threads == 2 * kF32Keys, "a row of K or V a thread");
+  if (a.vec) {
+    const int r = threadIdx.x % kF32Keys, pos = k0 + r;
+    const bool in = pos >= lo && pos < hi;
+    hopper::mbar_arrive_tx(bar, in ? 4 * a.d : 0);
+    if (in) {
+      const bool v = threadIdx.x >= kF32Keys;
+      bulk_load((v ? vs : ks) + r * kP,
+                (v ? a.vp : a.kp) +
+                    page_offset(trow, pos, a.kh, khi, a.blk, a.d),
+                4 * a.d, bar);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kF32Keys * DP; e += kF32Threads) {
+      const int r = e / DP, c = e % DP, pos = k0 + r;
+      const bool in = pos >= lo && pos < hi && c < a.d;
+      const size_t off =
+          in ? page_offset(trow, pos, a.kh, khi, a.blk, a.d) + c : 0;
+      hopper::cp_async_4(ks + r * kP + c, a.kp + off, in);
+      hopper::cp_async_4(vs + r * kP + c, a.vp + off, in);
+    }
+    hopper::mbar_arrive_cp_async(bar);
+  }
+}
+
+// The ring's start: its S stage barriers (an arrival a thread) and its
+// floats zeroed (rows a bulk copy skips, columns past d), ordered before
+// the bulk copies that write it
+template <int S>
+__device__ __forceinline__ void ring_init(float* ring, int floats,
+                                          uint64_t* full) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) hopper::mbar_init(&full[s], kF32Threads);
+    hopper::fence_barrier_init();
+  }
+  float4* r4 = reinterpret_cast<float4*>(ring);
+  for (int e = threadIdx.x; e < floats / 4; e += kF32Threads)
+    r4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  hopper::fence_async_shared();
+  __syncthreads();
+}
+
+// After every thread has written this split's partial rows (acc at pitch d,
+// ml) to the workspace: the group's counter. The CTA that brings it to the
+// live count merges every live split's rows in split order into o -- per
+// row the splits' weights exp(m_s - max m) and 1 / sum l_s w_s first, into
+// shared memory at wts (nrows x (splits + 1) floats), then each element's
+// sum over the splits in order: the same bits whichever CTA comes last --
+// and resets the counter for the next call.
+__device__ __forceinline__ void f32_combine(const DecodeF32Args& a,
+                                            const F32Place& c, float* wts) {
+  __shared__ int last;
+  const size_t g0 = c.gid * a.splits * kDecRows;  // the group's row 0
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(a.counters + c.gid, 1) == c.live - 1 ? 1 : 0;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int ns = a.splits;
+  float* inv = wts + c.nrows * ns;
+  for (int r = threadIdx.x; r < c.nrows; r += kF32Threads) {
+    float mx = kNegInf;
+    for (int s = 0; s < ns; ++s) {
+      const bool on = split_page(c.p0, c.npg, s, ns) !=
+                      split_page(c.p0, c.npg, s + 1, ns);
+      const float2 v = on ? __ldcg(a.ml + g0 + (size_t)s * kDecRows + r)
+                          : make_float2(kNegInf, 0.f);
+      wts[r * ns + s] = v.y > 0.f ? v.x : kNegInf;
+      if (v.y > 0.f) mx = fmaxf(mx, v.x);
+    }
+    float sl = 0.f;
+    for (int s = 0; s < ns; ++s) {
+      const float m = wts[r * ns + s];
+      const float w = m > kNegInf ? expf(m - mx) : 0.f;
+      if (w > 0.f)
+        sl = fmaf(__ldcg(a.ml + g0 + (size_t)s * kDecRows + r).y, w, sl);
+      wts[r * ns + s] = w;
+    }
+    inv[r] = sl > 0.f ? 1.f / sl : 0.f;
+  }
+  __syncthreads();
+  float* out = a.o + (c.head0 + c.r0) * (size_t)a.d;
+  for (int e = threadIdx.x; e < c.nrows * a.d; e += kF32Threads) {
+    const int r = e / a.d, col = e - r * a.d;
+    float x = 0.f;
+    for (int s = 0; s < ns; ++s) {
+      const float w = wts[r * ns + s];
+      if (w > 0.f)
+        x = fmaf(__ldcg(a.acc + (g0 + (size_t)s * kDecRows + r) * a.d +
+                        col),
+                 w, x);
+    }
+    out[e] = x * inv[r];
+  }
+  if (threadIdx.x == 0) a.counters[c.gid] = 0;  // ready for the next call
+}
+
+// The fp32 route's shared memory (floats): the ring (S stages of K then V,
+// 64 rows at pitch DP + 4 each), Q (NR rows at DP + 4), each warp's P (NR
+// rows of its 16 keys), then the S stage barriers. After the keys the ring
+// holds the warps' partial rows, then the combine's weights (16 x (256 + 1)
+// at most).
+template <int DP, int NR>
+struct F32DecodeLayout {
+  static constexpr int kP = DP + 4;
+  static constexpr int kRing = DP > 64 ? 2 : 3;
+  static constexpr int kStage = 2 * kF32Keys * kP;
+  static constexpr int kQ = kRing * kStage;
+  static constexpr int kPw = kQ + NR * kP;
+  static constexpr int kHand = NR * (DP + 2);  // a warp's partial rows
+  static constexpr int kBar = kPw + kF32Warps * NR * kF32WarpKeys;
+  static constexpr size_t kBytes = sizeof(float) * kBar + 8 * kRing;
+  static_assert(kF32Warps * kHand <= kQ &&
+                    kDecRows * (kDecMaxSplits + 1) <= kQ,
+                "the hand-over and the combine's weights fit the ring");
+};
+
+// The fp32 route's body: up to NR of the 16 rows of a tile, four warps
+// each taking 16 keys of every stage. Lane (key = lane % 16, half =
+// lane / 16) sums, for each row, its key's products over the float4
+// chunks 2 j + half of the columns (Q broadcast from shared memory; the
+// two halves' chunks on other banks), then adds the other half's sum: one
+// fmaf chain a half. s = scale S, kNegInf outside the row's own range; the
+// row max over the warp's 16 keys (four shuffles), alpha = exp(m_old - m),
+// p = exp(s - m) (0 while the row has seen nothing), the lane's share of
+// l; P through the warp's tile, and O += P V with the lane's DP / 32
+// columns, one fmaf chain a column over the keys in order.
+template <int DP, int NR>
+__device__ __forceinline__ void decode_f32_rows(const DecodeF32Args& a) {
+  using L = F32DecodeLayout<DP, NR>;
+  constexpr int kP = L::kP, S = L::kRing, NT = kF32Threads;
+  constexpr int CW = DP / 32;  // P V columns of a lane
+  extern __shared__ __align__(16) float dsm[];
+  const F32Place c = f32_place(a);
+  if (f32_idle(a, c)) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key = lane & 15, half = lane >> 4;
+  float* ring = dsm;
+  float* qs = dsm + L::kQ;
+  float* pw = dsm + L::kPw + warp * NR * kF32WarpKeys;
+  uint64_t* full = reinterpret_cast<uint64_t*>(dsm + L::kBar);
+  const int* trow = a.tables + (size_t)c.bi * a.max_blocks;
+  // the keys this split loads: its run, cut to what some row sees
+  const int lo = max(c.ka, c.tr.lo), hi = min(c.kb, c.tr.hi);
+  const int nst = (hi - c.ka + kF32Keys - 1) / kF32Keys;
+  auto load_stage = [&](int t) {
+    float* to = ring + (t % S) * L::kStage;
+    load_keys<DP>(to, to + kF32Keys * kP, &full[t % S], a, trow, c.khi,
+                  c.ka + t * kF32Keys, lo, hi);
+  };
+  ring_init<S>(ring, L::kQ, full);
+  ring_rows<DP, NR, NT>(qs, a.q + c.head0 * a.d, a.d, c.r0,
+                        min(a.rows, c.r0 + c.nrows), a.d, a.vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t)
+    if (t < nst) load_stage(t);
+
+  // each row's visible keys inside [lo, hi); none past the tile's rows
+  int rlo[NR], rhi[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const RowRange rr = row_range(c.len, c.r0 + r, a.kq, a.window, c.s_max);
+    rlo[r] = max(rr.lo, lo);
+    rhi[r] = r < c.nrows ? min(rr.hi, hi) : 0;
+  }
+  float m[NR], l[NR], acc[NR][CW];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < CW; ++e) acc[r][e] = 0.f;
+  }
+  cp_async_wait<0>();  // Q (the 4-byte stage copies arrive on their barrier)
+  __syncthreads();
+
+  const int kw = warp * kF32WarpKeys;  // the warp's first key of a stage
+  for (int t = 0; t < nst; ++t) {
+    if (t + S - 1 < nst) load_stage(t + S - 1);
+    hopper::mbar_wait(&full[t % S], (t / S) & 1);
+    const float* ks = ring + (t % S) * L::kStage;
+    const float* vs = ks + kF32Keys * kP;
+    const int pos = c.ka + t * kF32Keys + kw + key;
+
+    float s[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) s[r] = 0.f;
+    const float* kr = ks + (kw + key) * kP + 4 * half;
+#pragma unroll 4
+    for (int j = 0; j < DP / 8; ++j) {
+      const float4 kv = *reinterpret_cast<const float4*>(kr + 8 * j);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(qs + r * kP + 8 * j + 4 * half);
+        float v = fmaf(qv.x, kv.x, s[r]);
+        v = fmaf(qv.y, kv.y, v);
+        v = fmaf(qv.z, kv.z, v);
+        s[r] = fmaf(qv.w, kv.w, v);
+      }
+    }
+    float mx[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      s[r] += __shfl_xor_sync(0xffffffffu, s[r], 16);
+      s[r] = pos >= rlo[r] && pos < rhi[r] ? s[r] * a.scale : kNegInf;
+      mx[r] = s[r];
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
+    }
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const float m_new = fmaxf(m[r], mx[r]);
+      const float alpha = expf(m[r] - m_new);
+      m[r] = m_new;
+      const float p = m_new <= kNegInf * 0.5f ? 0.f : expf(s[r] - m_new);
+      l[r] = l[r] * alpha + p;
+#pragma unroll
+      for (int e = 0; e < CW; ++e) acc[r][e] *= alpha;
+      if (half == 0) pw[r * kF32WarpKeys + key] = p;
+    }
+    __syncwarp();  // the warp's P is written and read by the warp alone
+#pragma unroll
+    for (int k4 = 0; k4 < kF32WarpKeys; k4 += 4) {
+      float pr[NR][4];
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const float4 p4 =
+            *reinterpret_cast<const float4*>(pw + r * kF32WarpKeys + k4);
+        pr[r][0] = p4.x;
+        pr[r][1] = p4.y;
+        pr[r][2] = p4.z;
+        pr[r][3] = p4.w;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vr = vs + (kw + k4 + u) * kP + CW * lane;
+        float vv[CW];
+        if constexpr (CW == 4) {
+          const float4 v4 = *reinterpret_cast<const float4*>(vr);
+          vv[0] = v4.x;
+          vv[1] = v4.y;
+          vv[2] = v4.z;
+          vv[3] = v4.w;
+        } else {
+          const float2 v2 = *reinterpret_cast<const float2*>(vr);
+          vv[0] = v2.x;
+          vv[1] = v2.y;
+        }
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+#pragma unroll
+          for (int e = 0; e < CW; ++e)
+            acc[r][e] = fmaf(pr[r][u], vv[e], acc[r][e]);
+      }
+    }
+    __syncthreads();  // this stage and the P tiles are free
+  }
+
+  // the warps' partial rows through the ring, merged in warp order, a
+  // thread an element
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1)
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+  __syncthreads();
+  float* hw = dsm + warp * L::kHand;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+#pragma unroll
+    for (int e = 0; e < CW; ++e) hw[r * DP + CW * lane + e] = acc[r][e];
+    if (lane == 0) {
+      hw[NR * DP + r] = m[r];
+      hw[NR * DP + NR + r] = l[r];
+    }
+  }
+  __syncthreads();
+  const size_t p_row =
+      (c.gid * a.splits + c.split) * (size_t)kDecRows;  // workspace row
+  for (int e = threadIdx.x; e < c.nrows * a.d; e += NT) {
+    const int r = e / a.d, col = e - r * a.d;
+    float mw = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kF32Warps; ++w)
+      mw = fmaxf(mw, dsm[w * L::kHand + NR * DP + r]);
+    float sl = 0.f, x = 0.f;
+#pragma unroll
+    for (int w = 0; w < kF32Warps; ++w) {
+      const float* h = dsm + w * L::kHand;
+      const float wt = expf(h[NR * DP + r] - mw);
+      sl = fmaf(h[NR * DP + NR + r], wt, sl);
+      x = fmaf(h[r * DP + col], wt, x);
+    }
+    if (c.live == 1) {
+      a.o[(c.head0 + c.r0) * a.d + e] = sl > 0.f ? x / sl : 0.f;
+    } else {
+      a.acc[(p_row + r) * a.d + col] = x;
+      if (col == 0)
+        a.ml[p_row + r] = make_float2(sl > 0.f ? mw : kNegInf, sl);
+    }
+  }
+  if (c.live > 1) f32_combine(a, c, dsm);
+}
+
+// #9 and #10 on the one body, under their own names for the profiler
+template <int DP, int NR>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_decode_f32(const DecodeF32Args a) {
+  decode_f32_rows<DP, NR>(a);
+}
+
+template <int DP, int NR>
+__global__ void __launch_bounds__(kF32Threads)
+    decode_multi_f32(const DecodeF32Args a) {
+  decode_f32_rows<DP, NR>(a);
+}
+
+// #9's or #10's instance of NR rows at the padded head_dim DP
+template <int DP, int NR>
+int launch_f32_rows(const DecodeF32Args& a, int b, bool multi,
+                    cudaStream_t stream) {
+  constexpr size_t kSmem = F32DecodeLayout<DP, NR>::kBytes;
+  const auto kernel = multi ? decode_multi_f32<DP, NR>
+                            : flash_decode_f32<DP, NR>;
+  const int err = multi ? set_max_smem<decode_multi_f32<DP, NR>>(kSmem)
+                        : set_max_smem<flash_decode_f32<DP, NR>>(kSmem);
+  if (err) return err;
+  const dim3 grid(a.row_tiles * a.splits, a.kh, b);
+  kernel<<<grid, kF32Threads, kSmem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The instance of a tile's live rows (1, 4, 8, 16) at the padded head_dim
+// DP
+template <int DP>
+int launch_f32_dp(const DecodeF32Args& a, int b, bool multi,
+                  cudaStream_t stream) {
+  const int nr = min(a.rows, kDecRows);
+  if (nr <= 1) return launch_f32_rows<DP, 1>(a, b, multi, stream);
+  if (nr <= 4) return launch_f32_rows<DP, 4>(a, b, multi, stream);
+  if (nr <= 8) return launch_f32_rows<DP, 8>(a, b, multi, stream);
+  return launch_f32_rows<DP, 16>(a, b, multi, stream);
+}
+
+// The fp32 split route's checks and arguments: `splits` CTAs a 16-row
+// tile; ws holds the partials (groups * splits * 16 * (DP + 2) floats, DP =
+// 64 or 128), counters one zeroed int a group (groups = b * kh * ceil(h /
+// kh * kq / 16)).
+int launch_decode_f32(const void* q, const void* kp, const void* vp,
+                      const void* tables, const void* lengths, void* o,
+                      void* ws, void* counters, int b, int h, int kh, int kq,
+                      int blk, int d, int max_blocks, float scale, int window,
+                      int splits, bool multi, cudaStream_t stream) {
+  if (d > 128 || splits < 1 || splits > kDecMaxSplits || !ws || !counters)
+    return (int)cudaErrorInvalidValue;
+  DecodeF32Args a{};
+  a.q = static_cast<const float*>(q);
+  a.kp = static_cast<const float*>(kp);
+  a.vp = static_cast<const float*>(vp);
+  a.tables = static_cast<const int*>(tables);
+  a.lengths = static_cast<const int*>(lengths);
+  a.o = static_cast<float*>(o);
+  a.h = h;
+  a.kh = kh;
+  a.kq = kq;
+  a.blk = blk;
+  a.d = d;
+  a.max_blocks = max_blocks;
+  a.window = window;
+  a.rows = h / kh * kq;
+  a.row_tiles = (a.rows + kDecRows - 1) / kDecRows;
+  a.splits = splits;
+  a.vec = d % 4 == 0 &&
+          ((uintptr_t)q | (uintptr_t)kp | (uintptr_t)vp) % 16 == 0;
+  a.scale = scale;
+  if ((long long)a.row_tiles * splits > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int dp = d > 64 ? 128 : 64;
+  const size_t groups = (size_t)b * kh * a.row_tiles;
+  a.acc = static_cast<float*>(ws);
+  a.ml = reinterpret_cast<float2*>(a.acc + groups * splits * kDecRows * dp);
+  a.counters = static_cast<int*>(counters);
+  return d > 64 ? launch_f32_dp<128>(a, b, multi, stream)
+                : launch_f32_dp<64>(a, b, multi, stream);
+}
+
 }  // namespace apex_torch
 
 using namespace apex_torch;
 
 // q: contiguous (b, h, d); pages: contiguous (num_blocks, kh, blk, d);
 // tables: int32 (b, max_blocks); lengths: int32 (b,); o: (b, h, d) in q's
-// dtype. h % kh == 0. splits > 0 takes the bf16 split route (ws and
-// counters as launch_decode_split_bf16 says); 0 the gather route in bf16,
-// the only one in fp32.
+// dtype. h % kh == 0. splits > 0 takes the split route of the dtype: bf16
+// (ws and counters as launch_decode_split_bf16 says) or fp32 (d <= 128; as
+// launch_decode_f32 says); 0 the gather route (bf16, or fp32 with d > 128).
 extern "C" int apex_flash_decode(const void* q, const void* kp, const void* vp,
                                  const void* tables, const void* lengths,
                                  void* o, void* ws, void* counters, int b,
@@ -1255,13 +1646,18 @@ extern "C" int apex_flash_decode(const void* q, const void* kp, const void* vp,
                                  int window, int splits, int dtype,
                                  void* stream) {
   if (b < 1 || kh < 1 || h % kh || blk < 1 || d < 1 || max_blocks < 1 ||
-      window < 0 || splits < 0 || (splits > 0 && dtype != kBF16))
+      window < 0 || splits < 0 || (dtype != kF32 && dtype != kBF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32)
+  if (dtype == kF32) {
+    if (splits > 0)
+      return launch_decode_f32(q, kp, vp, tables, lengths, o, ws, counters, b,
+                               h, kh, 1, blk, d, max_blocks, scale, window,
+                               splits, false, s);
+    if (d <= 128) return (int)cudaErrorInvalidValue;  // the split route's
     return launch_flash_decode<float>(q, kp, vp, tables, lengths, o, b, h, kh,
                                       blk, d, max_blocks, scale, window, s);
-  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
+  }
   if (splits > 0)
     return launch_decode_split_bf16(q, kp, vp, tables, lengths, o, ws,
                                     counters, b, h, kh, 1, blk, d, max_blocks,
@@ -1274,7 +1670,8 @@ extern "C" int apex_flash_decode(const void* q, const void* kp, const void* vp,
 
 // q: contiguous (b, h, kq, d); pages, tables, lengths as above (lengths[b]:
 // the keys of the LAST query); o: (b, h, kq, d) in q's dtype. h % kh == 0,
-// d <= 128; window 0 = none; splits, ws and counters as above.
+// d <= 128; window 0 = none; splits, ws and counters as above (fp32:
+// splits > 0).
 extern "C" int apex_flash_decode_multi(const void* q, const void* kp,
                                        const void* vp, const void* tables,
                                        const void* lengths, void* o, void* ws,
@@ -1283,15 +1680,15 @@ extern "C" int apex_flash_decode_multi(const void* q, const void* kp,
                                        int num_blocks, float scale,
                                        int window, int splits, int dtype,
                                        void* stream) {
-  if (b < 1 || kh < 1 || h % kh || kq < 1 || blk < 1 || d < 1 ||
-      d > kMqMaxD || max_blocks < 1 || window < 0 || splits < 0 ||
-      (splits > 0 && dtype != kBF16))
+  if (b < 1 || kh < 1 || h % kh || kq < 1 || blk < 1 || d < 1 || d > 128 ||
+      max_blocks < 1 || window < 0 || splits < 0 ||
+      (dtype != kF32 && dtype != kBF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
-    return launch_multi_f32(q, kp, vp, tables, lengths, o, b, h, kh, kq, blk,
-                            d, max_blocks, scale, window, s);
-  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
+    return launch_decode_f32(q, kp, vp, tables, lengths, o, ws, counters, b,
+                             h, kh, kq, blk, d, max_blocks, scale, window,
+                             splits, true, s);
   if (splits > 0)
     return launch_decode_split_bf16(q, kp, vp, tables, lengths, o, ws,
                                     counters, b, h, kh, kq, blk, d,

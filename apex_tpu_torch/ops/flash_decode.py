@@ -31,9 +31,15 @@ the **split** route: each (slot, kv head, tile of ``DECODE_ROWS`` rows)'s
 visible pages are cut into
 :func:`decode_splits` runs, one CTA each, fed by a TMA ring of pages and
 merged in split order by the last CTA of the group (:func:`split_keys`
-says which keys a CTA takes). The split count is a function of shapes
-only: nothing is read back from the device. Other bf16 shapes take the
-**gather** route (the first port's kernels), fp32 the **fp32** route.
+says which keys a CTA takes). fp32 with ``head_dim <= 128`` (any block,
+any alignment) takes the **f32_split** route: the same split and combine
+in fp32 (``DECODE_F32_SPLIT_PAGES`` / ``DECODE_F32_SPLIT_CTAS``; tiles of
+``DECODE_ROWS`` rows, of which the kernel computes the live ones), a ring
+of pages filled row by row by bulk copies and FMA products. The split
+count is a function of shapes only: nothing is read back from the device.
+Other shapes take the **gather** route (the first port's kernels: bf16 off
+the split route's terms, fp32 single-query decode with ``head_dim >
+128``).
 """
 
 from __future__ import annotations
@@ -62,6 +68,14 @@ DECODE_MAX_SPLITS = 256
 #: rows of one (slot, kv head) a split-route CTA holds: one m16 tile, its
 #: four warps splitting each stage's keys (the kernel's kDecRows)
 DECODE_ROWS = 16
+#: the fp32 route's pages a split and CTAs an SM, as DECODE_SPLIT_PAGES and
+#: DECODE_SPLIT_CTAS for its pages of twice the bytes: the card holds two
+#: of its CTAs an SM at once, and splits worth three let a batch's long
+#: slots spread while its short and idle slots' CTAs end at once (the
+#: verify 16% faster than at two; one slot over 8192 keys, all CTAs equal,
+#: loses to two; chip_smoke.py's decode_split_tuning, PERF.md)
+DECODE_F32_SPLIT_PAGES = 16
+DECODE_F32_SPLIT_CTAS = 3
 
 
 def _dense_pages(pages, tbl, b, s_max, kh, d):
@@ -131,9 +145,11 @@ def paged_attention_multi_reference(q, k_pages, v_pages, block_tables,
 def decode_route(dtype: torch.dtype, d: int, blk: int, aligned: bool) -> str:
     """The kernel route of a decode call on the card: ``"split"`` (bf16,
     ``d % 8 == 0``, ``d <= 128``, ``blk % 8 == 0``, q, o and both pools on
-    16 bytes: TMA's terms), ``"gather"`` (other bf16) or ``"fp32"``."""
+    16 bytes: TMA's terms), ``"f32_split"`` (fp32, ``d <= 128``, any block
+    and alignment) or ``"gather"`` (other bf16; fp32 with ``d > 128``, which
+    only the single-query entry point takes: ``flash_decode_kernel``)."""
     if dtype != torch.bfloat16:
-        return "fp32"
+        return "f32_split" if d <= MAX_HEAD_DIM else "gather"
     if d % 8 == 0 and d <= MAX_HEAD_DIM and blk % 8 == 0 and aligned:
         return "split"
     return "gather"
@@ -149,16 +165,19 @@ def decode_span_pages(max_blocks: int, blk: int, window: Optional[int],
 
 
 def decode_splits(b: int, kh: int, row_tiles: int, span_pages: int,
-                  sms: int = 132) -> int:
-    """Splits of each (slot, kv head, row tile) group on the split route,
+                  sms: int = 132, f32: bool = False) -> int:
+    """Splits of each (slot, kv head, row tile) group on a split route,
     from static shapes only: one split per ``DECODE_SPLIT_PAGES`` of the
     ``span_pages`` a group can see, while the ``b * kh * row_tiles``
-    groups' CTAs stay within ``DECODE_SPLIT_CTAS`` an SM; never more than
-    the pages (so no split is empty at full length) nor
+    groups' CTAs stay within ``DECODE_SPLIT_CTAS`` an SM (``f32``: the
+    fp32 route's ``DECODE_F32_SPLIT_PAGES`` / ``DECODE_F32_SPLIT_CTAS``);
+    never more than the pages (so no split is empty at full length) nor
     ``DECODE_MAX_SPLITS``, at least 1."""
+    pages, ctas = ((DECODE_F32_SPLIT_PAGES, DECODE_F32_SPLIT_CTAS) if f32
+                   else (DECODE_SPLIT_PAGES, DECODE_SPLIT_CTAS))
     groups = max(1, b * kh * row_tiles)
-    want = -(-span_pages // DECODE_SPLIT_PAGES)
-    fit = DECODE_SPLIT_CTAS * sms // groups
+    want = -(-span_pages // pages)
+    fit = ctas * sms // groups
     return max(1, min(want, fit, span_pages, DECODE_MAX_SPLITS))
 
 
@@ -233,23 +252,24 @@ def _window_arg(window: Optional[int]) -> int:
 def _plan(dtype, b, h, kh, kq, blk, d, mb, window, aligned, splits, sms):
     """(splits, workspace floats, counters) of a decode call, from its
     shapes: the same every tick, so worked out once; 0 splits off the split
-    route."""
+    routes."""
     route = decode_route(dtype, d, blk, aligned)
-    if route != "split":
+    if route not in ("split", "f32_split"):
         if splits:
-            raise ValueError(f"splits apply to the split route only; this "
+            raise ValueError(f"splits apply to the split routes only; this "
                              f"call takes the {route} route")
         return 0, 0, 0
     tiles = -(-(h // kh * kq) // DECODE_ROWS)
     n_split = splits or decode_splits(
-        b, kh, tiles, decode_span_pages(mb, blk, window, kq), sms)
+        b, kh, tiles, decode_span_pages(mb, blk, window, kq), sms,
+        f32=route == "f32_split")
     groups = b * kh * tiles
     dp = 64 if d <= 64 else 128
     return n_split, groups * n_split * DECODE_ROWS * (dp + 2), groups
 
 
 #: (device index, stream) -> (fp32 workspace, int32 counters, their
-#: pointers) of the split route, grown on demand; each kernel leaves its
+#: pointers) of the split routes, grown on demand; each kernel leaves its
 #: counters at 0, so the zeros are written once. One pair a stream: calls
 #: on one stream run in order.
 _SCRATCH = {}
@@ -273,7 +293,7 @@ def _scratch(q, stream, n_ws, n_cnt):
 def _launch(entry, q, k_pages, v_pages, tables, lens, o, kq, scale, window,
             splits):
     """One decode kernel launch on q's current stream: the route, and on
-    the split route the split count and scratch (:func:`_plan`)."""
+    a split route the split count and scratch (:func:`_plan`)."""
     b, h, d = q.shape[0], q.shape[1], q.shape[-1]
     nb, kh, blk, _ = k_pages.shape
     dev = q.get_device()
@@ -300,7 +320,7 @@ def flash_decode_fwd(q: torch.Tensor, k_pages: torch.Tensor,
                      window: Optional[int] = None,
                      splits: Optional[int] = None) -> torch.Tensor:
     """Launch the paged decode kernel on CUDA tensors; ``(b, h, d)`` in q's
-    dtype. ``splits`` overrides :func:`decode_splits` on the split route
+    dtype. ``splits`` overrides :func:`decode_splits` on a split route
     (for tuning). Counts its launches in ``flash_decode_fwd.launches``."""
     tables, lens = _launch_args("flash_decode_fwd", q, k_pages, v_pages,
                                 block_tables, lengths)

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --o0-long-times TREE  # the O0 step at 8192
     python3 chip_smoke.py --sass TREE   # SASS counts of the flash kernels
     python3 chip_smoke.py --kernel-names   # fp32 attention kernels by name
+    python3 chip_smoke.py --generate-profile   # an fp32 generate, profiled
 
 Ten phases; any failure raises and exits non-zero:
 
@@ -62,8 +63,15 @@ Ten phases; any failure raises and exits non-zero:
    In a child process (``--kernel-names``), the kernels by name of one
    call each of SDPA's fp32 forward and backward, of #3 and #4 fp32 at L
    (one ``dq_f32_blocked`` / ``dkv_f32_blocked`` launch each, nothing
-   else) and of #2 fp32 at RP (one ``fwd_f32_blocked`` launch, no
-   merge). The additive bias on the
+   else), of #2 fp32 at RP (one ``fwd_f32_blocked`` launch, no
+   merge), and of #9 fp32 at the decode shape and #10 fp32 at the verify
+   and chunk shapes (one ``flash_decode_f32`` / ``decode_multi_f32``
+   launch each, nothing else). The decode pair's fp32 split route also at
+   8-, 12-, 32- and 128-token pages, d = 38 (4-byte copies), 40 and 128,
+   pools off 16 bytes, lengths on a split's last page at 1, 2, 3 and 8
+   splits, output memory that read NaN, a halved tail caught at the decode
+   and chunk shapes and two calls bit-identical at the decode, verify and
+   chunk shapes. The additive bias on the
    resident flash kernels #1, #5 and #6 (:func:`check_flash_bias`): BERT's
    padding bias from ``extended_attention_mask`` at (16,16,512,64) bf16,
    dense biases with dbias broadcast over the batch, the heads or both
@@ -189,10 +197,13 @@ Ten phases; any failure raises and exits non-zero:
    from the checkpoint: plain, prefix cache + speculative, 256-token
    chunks, every token against the full-context argmax, exact launches,
    TTFT/ITL p50 and tokens/s, then #9 and #10 on their fp32 routes at
-   phase 2's decode shapes; (e) ``--pos rope --window 256`` with random
+   phase 2's decode shapes (#9 also with window 128 and at b = 1 over 8192
+   keys); (e) ``--pos rope --window 256`` with random
    weights, monolithic and chunked + speculative, held the same way, then
-   #2's fp32 route at the longest prefill (one split a band: no
-   workspace); (f) ``pretrain_gpt`` at O0 on one 8192-token sequence a
+   in a child process (``--generate-profile``) the chunked speculative run
+   once more under the profiler (the device's busy share and the decode
+   kernels' ms a tick), then #2's fp32 route at the longest prefill (one
+   split a band: no workspace); (f) ``pretrain_gpt`` at O0 on one 8192-token sequence a
    step, 3 steps: the streamed kernels' fp32 routes (#2 2L, #3 and #4 L a
    step, the resident flash kernels 0), a finite falling loss, the ms a
    step.
@@ -2541,6 +2552,10 @@ DECODE_CHUNK = (1, 16, 16, 256, 16, 64, 513, 64, [756])
 DECODE_VERIFY = (8, 16, 16, 5, 16, 64, 513, 64, [700, 64, 1000, 0, 333, 5,
                                                  800, 513])
 DECODE_LONG = (1, 16, 16, 16, 64, 600, 512, [8192])
+#: phase 10 (e)'s chunks: 128 queries of one slot with window 256, the
+#: third chunk of a 317-token prompt (K-query shape as DECODE_CHUNK, then
+#: the window)
+DECODE_CHUNK_W = (1, 16, 16, 128, 16, 64, 513, 64, [317], 256)
 
 
 def _decode_inputs(torch, dev, gen, b, h, kh, blk, d, nb, max_blocks, dt,
@@ -2611,39 +2626,79 @@ def _bit_identical(torch, name, call, route, group):
             f"cuda {route}", group=group)
 
 
+def _f32_pool(torch, pool, off):
+    """A contiguous copy of ``pool`` that starts ``off`` floats past a 16-byte
+    boundary (off 16 bytes for off % 4 != 0: the fp32 route's 4-byte
+    copies)."""
+    flat = torch.empty(pool.numel() + off, device=pool.device,
+                       dtype=pool.dtype)
+    return flat[off:].view(pool.shape).copy_(pool)
+
+
+def _nan_filled_call(torch, name, call, ref, blind, route, group):
+    """The call with its output memory NaN-filled first (the caching
+    allocator's freed block of the output's shape, :func:`poisoned_empty`):
+    every element finite and within the fp32 limit, the rows that see no key
+    exactly 0 -- each written by the kernel, none left to the memory."""
+    reused = poisoned_empty(torch, tuple(ref.shape), ref.device)
+    got = call()
+    torch.cuda.synchronize()
+    ok = bool(torch.isfinite(got).all()) and all(
+        bool((got[i] == 0).all()) for i in blind)
+    err = max_err(got, ref)
+    print(f"  {name} [{route}]: output memory NaN-filled first (reuse seen "
+          f"{reused}): finite with {len(blind)} blind rows exactly 0: {ok}, "
+          f"max_abs_err={err:.3g}")
+    check(ok, f"{name}: a NaN left in the output or a blind row not 0")
+    verdict(f"{name} NaN-filled output", err, 5e-5, f"cuda {route}",
+            group=group)
+
+
 def check_flash_decode(torch, ops, dev):
     """The paged decode kernel against ``paged_attention_reference`` at the
     serve's decode shape (b=8, 16 heads of 64 over 16-token pages), GQA,
-    other pages and head_dims, the window, and the split route's edges
-    (lengths on a split edge, 1, a full 1024-key slot, idle slots only, one
-    slot of 16384 keys), bf16 and fp32: each output by max |err| and by row
+    other pages (8, 12, 16, 32, 128 tokens) and head_dims, pools off 16
+    bytes, the window, and the split routes' edges (lengths on a split
+    edge, 1, a full 1024-key slot, idle slots only, one slot of 16384
+    keys), bf16 and fp32: each output by max |err| and by row
     (:func:`_decode_held`), idle slots exactly 0; a halved tail of rows at
-    the decode shape must fail the row check; two calls bit-identical.
-    Then device times and the split-count tuning line
-    (:func:`decode_split_tuning`)."""
+    the decode shape must fail the row check; two calls bit-identical. In
+    fp32 also lengths on a split's last page at 1, 2, 3 and 8 splits and a
+    call into NaN-filled output memory. Then device times and the
+    split-count tuning lines (:func:`decode_split_tuning`)."""
     import importlib
 
     tfd = importlib.import_module("apex_tpu_torch.ops.flash_decode")
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(3)
     main_lengths = DECODE_MAIN[7]  # slot 3 idle
-    # lengths on the split route's edges at the decode shape: a length that
+    # lengths on the split routes' edges at the decode shape: a length that
     # ends a split's last page, one past it, 1, a full slot, a page's end
     splits = tfd.decode_splits(8, 16, 1, 64)
     edge = 16 * splits * 5
     edge_lengths = [edge, edge + 1, 1, 1024, 0, 16, 17, 16 * splits]
+    f32_splits = tfd.decode_splits(8, 16, 1, 64, f32=True)
+    f32_edge = [16 * f32_splits * 5, 16 * f32_splits * 5 + 1, 1, 1024, 0,
+                16, 17, 16 * f32_splits]
     cases = [  # b, h, kh, blk, d, num_blocks, max_blocks, dtype, lengths
         (8, 16, 16, 16, 64, 513, 64, bf16, main_lengths),
         (8, 16, 16, 16, 64, 513, 64, f32, main_lengths),
         (8, 32, 16, 16, 64, 513, 64, bf16, main_lengths),   # GQA h = 2 kh
+        (8, 32, 16, 16, 64, 513, 64, f32, main_lengths),
         (3, 8, 2, 8, 64, 40, 12, f32, [95, 0, 1]),
         (2, 4, 4, 128, 64, 9, 4, f32, [300, 512]),
+        (3, 8, 2, 12, 64, 40, 12, f32, [131, 0, 12]),  # 12-token pages
+        (4, 16, 16, 32, 40, 40, 8, f32, [256, 1, 200, 33]),  # d 40
+        (2, 64, 4, 16, 128, 20, 8, f32, [100, 7]),  # d 128, 16 rows a group
+        (2, 4, 2, 16, 38, 20, 8, f32, [100, 7]),  # d % 4: 4-byte copies
+        (2, 4, 2, 16, 160, 20, 8, f32, [100, 7]),  # d 160: the gather route
         (2, 4, 2, 16, 128, 20, 8, bf16, [100, 7]),
         (2, 4, 2, 16, 36, 20, 8, bf16, [100, 7]),  # unaligned: scalar loads
-        # the split route's edges
+        # the split routes' edges
         (8, 16, 16, 16, 64, 513, 64, bf16, edge_lengths),
-        (8, 16, 16, 16, 64, 513, 64, f32, edge_lengths),
+        (8, 16, 16, 16, 64, 513, 64, f32, f32_edge),
         (8, 16, 16, 16, 64, 513, 64, bf16, [0] * 8),  # idle slots only
+        (8, 16, 16, 16, 64, 513, 64, f32, [0] * 8),
         (1, 16, 16, 16, 64, 1100, 1024, bf16, [16384]),
         (1, 16, 16, 16, 64, 1100, 1024, f32, [16384]),
         (3, 8, 2, 8, 64, 40, 12, bf16, [95, 0, 1]),   # 8-token pages
@@ -2655,8 +2710,10 @@ def check_flash_decode(torch, ops, dev):
         (8, 16, 16, 16, 64, 513, 64, f32, main_lengths, 128),
         (8, 32, 16, 16, 64, 513, 64, bf16, main_lengths, 128),
         (3, 8, 2, 8, 64, 40, 12, f32, [95, 0, 1], 5),
+        (3, 8, 2, 12, 64, 40, 12, f32, [131, 0, 12], 30),
         (2, 4, 2, 16, 36, 20, 8, bf16, [100, 7], 128),
         (8, 16, 16, 16, 64, 513, 64, bf16, edge_lengths, 128),
+        (8, 16, 16, 16, 64, 513, 64, f32, f32_edge, 128),
         (3, 8, 2, 8, 64, 40, 12, bf16, [95, 0, 1], 5),
     ]
     main_err = None
@@ -2671,22 +2728,40 @@ def check_flash_decode(torch, ops, dev):
         route = _decode_route(ops, q, kp, vp, dt)
         name = (f"flash_decode b={b} h={h} kh={kh} blk={blk} d={d} "
                 f"{str(dt)[6:]} window={window} lengths {lengths[:8]}")
+        blind = [(i,) for i, n in enumerate(lengths) if n == 0]
         err, _ = _decode_held(
             torch, name, got, ref, dt, f"flash_decode {str(dt)[6:]}", route,
-            [(i,) for i, n in enumerate(lengths) if n == 0])
+            blind)
         if window is not None and max(lengths) > window:
             full = ops.paged_attention_reference(q, kp, vp, tables, lens)
             check(max_err(full, ref) > (2e-2 if dt == bf16 else 5e-5),
                   "the window changes the output")
         if main_err is None:
             main_err = err
-        if (b, h, d, dt, lengths, window) == (8, 16, 64, bf16, main_lengths,
-                                              None):
-            _planted_tail(torch, "flash_decode decode shape", got, ref, dt,
-                          route, "flash_decode bfloat16 rows")
-            _bit_identical(torch, "flash_decode decode shape", lambda: (
-                ops.flash_decode(q, kp, vp, tables, lens)), route,
-                "flash_decode bfloat16")
+        if (b, h, d, lengths, window) == (8, 16, 64, main_lengths, None):
+            _planted_tail(torch, f"flash_decode {str(dt)[6:]} decode shape",
+                          got, ref, dt, route,
+                          f"flash_decode {str(dt)[6:]} rows")
+            _bit_identical(torch, f"flash_decode {str(dt)[6:]} decode shape",
+                           lambda: ops.flash_decode(q, kp, vp, tables, lens),
+                           route, f"flash_decode {str(dt)[6:]}")
+        if dt == f32 and (b, d, lengths, window) == (8, 64, f32_edge, None):
+            # the same edges at other split counts, then pools off 16 bytes
+            # (4-byte copies) and output memory that read NaN
+            for n in (1, 2, 3, 8):
+                _decode_held(
+                    torch, f"{name} splits={n}",
+                    ops.flash_decode_fwd(q, kp, vp, tables, lens, splits=n),
+                    ref, dt, "flash_decode float32", route, blind)
+            kp4, vp4 = _f32_pool(torch, kp, 1), _f32_pool(torch, vp, 3)
+            _decode_held(torch, f"{name} pools off 16 bytes",
+                         ops.flash_decode(q, kp4, vp4, tables, lens), ref,
+                         dt, "flash_decode float32", route, blind)
+            del kp4, vp4
+            _nan_filled_call(
+                torch, "flash_decode float32 edges",
+                lambda: ops.flash_decode(q, kp, vp, tables, lens), ref,
+                blind, route, "flash_decode float32")
     b, h, kh, blk, d, nb, mb, lengths = DECODE_MAIN
     q, kp, vp, tables, lens = _decode_inputs(
         torch, dev, gen, b, h, kh, blk, d, nb, mb, bf16, lengths)
@@ -2726,8 +2801,8 @@ def check_flash_decode(torch, ops, dev):
                 "b1_8192": dict(ms=t["b1_8192"], bound_ms=bms_l,
                                 bound_by=by_l)}
     return dict(name="flash_decode", route="cuda",
-                kernel="flash_decode_split (bf16), flash_decode_kernel "
-                       "(fp32, unaligned bf16)",
+                kernel="flash_decode_split (bf16), flash_decode_f32 (fp32), "
+                       "flash_decode_kernel (unaligned bf16, fp32 d > 128)",
                 source="apex_tpu_torch/csrc/flash_decode.cu",
                 replaces="apex_tpu/ops/flash_decode.py:141",
                 max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -2736,54 +2811,66 @@ def check_flash_decode(torch, ops, dev):
 
 
 def decode_split_tuning(torch, ops, dev, tried=(1, 2, 3, 4, 8)):
-    """The split count against the values tried, bf16, at #9's decode
-    shape, with window 128 and at b = 1 over 8192 keys, and at #10's chunk
-    and verify shapes: device ms per split count beside the count
-    :func:`decode_splits` takes (``DECODE_SPLIT_PAGES`` pages a split, at
-    most ``DECODE_SPLIT_CTAS`` CTAs an SM), printed on one line and
-    returned for the ``kernels`` line (``decode_tuning``)."""
+    """The split count against the values tried, bf16 and fp32 (labels
+    ``fp32 ...``), at #9's decode shape, with window 128 and at b = 1 over
+    8192 keys, and at #10's chunk and verify shapes: device ms per split
+    count beside the count :func:`decode_splits` takes (bf16:
+    ``DECODE_SPLIT_PAGES`` pages a split, at most ``DECODE_SPLIT_CTAS`` CTAs
+    an SM; fp32: ``DECODE_F32_SPLIT_PAGES`` / ``DECODE_F32_SPLIT_CTAS``),
+    printed one line a dtype and returned for the ``kernels`` line
+    (``decode_tuning``)."""
     import importlib
 
     tfd = importlib.import_module("apex_tpu_torch.ops.flash_decode")
-    bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(4)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    b, h, kh, blk, d, nb, mb, lengths = DECODE_MAIN
-    q, kp, vp, tables, lens = _decode_inputs(torch, dev, gen, b, h, kh, blk,
-                                             d, nb, mb, bf16, lengths)
-    b1, h1, kh1, blk1, d1, nb1, mb1, lengths1 = DECODE_LONG
-    q1, kp1, vp1, t1, l1 = _decode_inputs(torch, dev, gen, b1, h1, kh1,
-                                          blk1, d1, nb1, mb1, bf16, lengths1)
-    shapes = {
-        "decode": (lambda s: ops.flash_decode_fwd(q, kp, vp, tables, lens,
-                                                  splits=s),
-                   tfd.decode_splits(b, kh, 1, mb, sms)),
-        "window_128": (lambda s: ops.flash_decode_fwd(
-            q, kp, vp, tables, lens, window=128, splits=s),
-            tfd.decode_splits(b, kh, 1, tfd.decode_span_pages(mb, blk, 128),
-                              sms)),
-        "b1_8192": (lambda s: ops.flash_decode_fwd(q1, kp1, vp1, t1, l1,
-                                                   splits=s),
-                    tfd.decode_splits(b1, kh1, 1, mb1, sms))}
-    for label, (b, h, kh, kq, blk, d, nb, mb, lengths) in (
-            ("chunk", DECODE_CHUNK), ("verify", DECODE_VERIFY)):
-        _, kpm, vpm, tm, lm = _decode_inputs(torch, dev, gen, b, h, kh, blk,
-                                             d, nb, mb, bf16, lengths)
-        qm = torch.randn(b, h, kq, d, device=dev, generator=gen).to(bf16)
-        tiles = -(-(h // kh * kq) // tfd.DECODE_ROWS)
-        shapes[label] = (
-            lambda s, a=(qm, kpm, vpm, tm, lm): ops.flash_decode_multi_fwd(
-                *a, splits=s), tfd.decode_splits(b, kh, tiles, mb, sms))
-    for label, (call, chosen) in shapes.items():
-        ms = {s: time_ms(lambda: call(s)) for s in sorted({*tried, chosen})}
-        out[label] = {"chosen": chosen, "ms": ms}
-    print(f"  decode split tuning (DECODE_SPLIT_PAGES = "
-          f"{tfd.DECODE_SPLIT_PAGES}, DECODE_SPLIT_CTAS = "
-          f"{tfd.DECODE_SPLIT_CTAS}; ms by splits, * the count taken): "
-          + "; ".join(f"{k} " + ", ".join(
-              f"{s}{'*' if s == v['chosen'] else ''} {t:.4f}"
-              for s, t in v["ms"].items()) for k, v in out.items()))
+    for dt in (torch.bfloat16, torch.float32):
+        f32, tag = dt == torch.float32, ("fp32 " if dt == torch.float32
+                                         else "")
+        b, h, kh, blk, d, nb, mb, lengths = DECODE_MAIN
+        q, kp, vp, tables, lens = _decode_inputs(torch, dev, gen, b, h, kh,
+                                                 blk, d, nb, mb, dt, lengths)
+        b1, h1, kh1, blk1, d1, nb1, mb1, lengths1 = DECODE_LONG
+        q1, kp1, vp1, t1, l1 = _decode_inputs(torch, dev, gen, b1, h1, kh1,
+                                              blk1, d1, nb1, mb1, dt,
+                                              lengths1)
+        shapes = {
+            "decode": (lambda s: ops.flash_decode_fwd(q, kp, vp, tables,
+                                                      lens, splits=s),
+                       tfd.decode_splits(b, kh, 1, mb, sms, f32)),
+            "window_128": (lambda s: ops.flash_decode_fwd(
+                q, kp, vp, tables, lens, window=128, splits=s),
+                tfd.decode_splits(b, kh, 1,
+                                  tfd.decode_span_pages(mb, blk, 128), sms,
+                                  f32)),
+            "b1_8192": (lambda s: ops.flash_decode_fwd(q1, kp1, vp1, t1, l1,
+                                                       splits=s),
+                        tfd.decode_splits(b1, kh1, 1, mb1, sms, f32))}
+        for label, (b, h, kh, kq, blk, d, nb, mb, lengths) in (
+                ("chunk", DECODE_CHUNK), ("verify", DECODE_VERIFY)):
+            _, kpm, vpm, tm, lm = _decode_inputs(torch, dev, gen, b, h, kh,
+                                                 blk, d, nb, mb, dt, lengths)
+            qm = torch.randn(b, h, kq, d, device=dev, generator=gen).to(dt)
+            tiles = -(-(h // kh * kq) // tfd.DECODE_ROWS)
+            shapes[label] = (
+                lambda s, a=(qm, kpm, vpm, tm, lm): ops.flash_decode_multi_fwd(
+                    *a, splits=s),
+                tfd.decode_splits(b, kh, tiles, mb, sms, f32))
+        for label, (call, chosen) in shapes.items():
+            ms = {s: time_ms(lambda: call(s))
+                  for s in sorted({*tried, chosen})}
+            out[tag + label] = {"chosen": chosen, "ms": ms}
+        consts = ((tfd.DECODE_F32_SPLIT_PAGES, tfd.DECODE_F32_SPLIT_CTAS)
+                  if f32 else (tfd.DECODE_SPLIT_PAGES,
+                               tfd.DECODE_SPLIT_CTAS))
+        print(f"  decode split tuning {str(dt)[6:]} (pages a split "
+              f"{consts[0]}, CTAs an SM {consts[1]}; ms by splits, * the "
+              f"count taken): " + "; ".join(
+                  f"{k} " + ", ".join(
+                      f"{s}{'*' if s == v['chosen'] else ''} {t:.4f}"
+                      for s, t in v["ms"].items())
+                  for k, v in out.items() if k.startswith(tag)))
     return out
 
 
@@ -2792,34 +2879,43 @@ def decode_times(torch, ops, dev):
     points, bf16: #9 at the decode shape (with its eager issue per call:
     the least of 9 windows of 200 calls, and the host's own cost per call,
     :func:`host_ms`), with window 128, and at b = 1
-    over 8192 keys; #10 at the chunk and verify shapes. Takes any tree's
-    ``ops``, so two trees can be compared in one run."""
-    bf16 = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(3)
-    q, kp, vp, tables, lens = _decode_inputs(torch, dev, gen,
-                                             *DECODE_MAIN[:7], bf16,
-                                             DECODE_MAIN[7])
-    b, h, kh, blk, d, nb, mb, lengths = DECODE_LONG
-    q1, kp1, vp1, t1, l1 = _decode_inputs(torch, dev, gen, b, h, kh, blk, d,
-                                          nb, mb, bf16, lengths)
-    out = {"decode": time_ms(lambda: ops.flash_decode(q, kp, vp, tables,
-                                                      lens)),
-           "decode_issue": issue_ms(
-               lambda: ops.flash_decode(q, kp, vp, tables, lens), 200, 9,
-               min),
-           "decode_host": host_ms(
-               lambda: ops.flash_decode(q, kp, vp, tables, lens)),
-           "window_128": time_ms(lambda: ops.flash_decode(
-               q, kp, vp, tables, lens, window=128)),
-           "b1_8192": time_ms(lambda: ops.flash_decode(q1, kp1, vp1, t1,
-                                                       l1))}
-    for label, (b, h, kh, kq, blk, d, nb, mb, lengths) in (
-            ("chunk", DECODE_CHUNK), ("verify", DECODE_VERIFY)):
-        _, kp, vp, tables, lens = _decode_inputs(
-            torch, dev, gen, b, h, kh, blk, d, nb, mb, bf16, lengths)
-        q = torch.randn(b, h, kq, d, device=dev, generator=gen).to(bf16)
-        out[label] = time_ms(lambda: ops.flash_decode_multi(q, kp, vp, tables,
-                                                            lens))
+    over 8192 keys; #10 at the chunk and verify shapes and at
+    :data:`DECODE_CHUNK_W`; then the same six in fp32 (labels ``fp32
+    ...``). Takes any tree's ``ops``, so two trees can be compared in one
+    run."""
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "fp32 " if dt == torch.float32 else ""
+        gen = torch.Generator(device=dev).manual_seed(3)
+        q, kp, vp, tables, lens = _decode_inputs(torch, dev, gen,
+                                                 *DECODE_MAIN[:7], dt,
+                                                 DECODE_MAIN[7])
+        b, h, kh, blk, d, nb, mb, lengths = DECODE_LONG
+        q1, kp1, vp1, t1, l1 = _decode_inputs(torch, dev, gen, b, h, kh, blk,
+                                              d, nb, mb, dt, lengths)
+        out[tag + "decode"] = time_ms(lambda: ops.flash_decode(
+            q, kp, vp, tables, lens))
+        if not tag:
+            out["decode_issue"] = issue_ms(
+                lambda: ops.flash_decode(q, kp, vp, tables, lens), 200, 9,
+                min)
+            out["decode_host"] = host_ms(
+                lambda: ops.flash_decode(q, kp, vp, tables, lens))
+        out[tag + "window_128"] = time_ms(lambda: ops.flash_decode(
+            q, kp, vp, tables, lens, window=128))
+        out[tag + "b1_8192"] = time_ms(lambda: ops.flash_decode(
+            q1, kp1, vp1, t1, l1))
+        for label, (b, h, kh, kq, blk, d, nb, mb, lengths, window) in (
+                ("chunk", DECODE_CHUNK + (None,)),
+                ("verify", DECODE_VERIFY + (None,)),
+                ("chunk_w256", DECODE_CHUNK_W)):
+            _, kp, vp, tables, lens = _decode_inputs(
+                torch, dev, gen, b, h, kh, blk, d, nb, mb, dt, lengths)
+            q = torch.randn(b, h, kq, d, device=dev, generator=gen).to(dt)
+            out[tag + label] = time_ms(lambda: ops.flash_decode_multi(
+                q, kp, vp, tables, lens, window=window))
+        del q, kp, vp, q1, kp1, vp1
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2862,8 +2958,11 @@ def check_flash_decode_multi(torch, ops, dev):
     which the reference kernel keeps fp32), 5e-5 in fp32, and each row's
     own error (:func:`_decode_held`). Idle slots and queries that see no
     key (a right-aligned chunk's padding rows) must be exactly 0. At the
-    chunk shape a halved tail of rows must fail the row check and two
-    calls must give the same bits."""
+    chunk shape a halved tail of rows must fail the row check (bf16 and
+    fp32) and two calls must give the same bits (and in fp32 at the verify
+    shape); in fp32 also pools off 16 bytes (4-byte copies), 12- and
+    128-token pages and a call into NaN-filled output memory at the chunk
+    and verify shapes."""
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(8)
     verify_lengths = DECODE_VERIFY[8]  # slot 3 idle
@@ -2883,6 +2982,9 @@ def check_flash_decode_multi(torch, ops, dev):
         ((1, 16, 16, 5, 16, 64, 1100, 1024), [16384], None),
         (verify, [0] * 8, None),
         ((3, 8, 2, 7, 8, 64, 40, 12), [95, 0, 3], 5),
+        ((3, 8, 2, 9, 12, 64, 40, 12), [131, 0, 5], 40),  # 12-token pages
+        ((2, 4, 4, 40, 128, 64, 9, 4), [300, 512], None),  # 128-token pages
+        ((1, 16, 16, 100, 16, 128, 70, 64), [700], None),  # d 128, 7 tiles
     ]
     main_err = None
     for dt in (bf16, f32):
@@ -2906,12 +3008,29 @@ def check_flash_decode_multi(torch, ops, dev):
                                   blind)
             if main_err is None:
                 main_err = err
-            if (dt, lengths, window) == (bf16, DECODE_CHUNK[8], None):
-                _planted_tail(torch, "flash_decode_multi chunk shape", got,
-                              ref, dt, route, f"{group} rows")
-                _bit_identical(torch, "flash_decode_multi chunk shape",
-                               lambda: ops.flash_decode_multi(
+            if (lengths, window) == (DECODE_CHUNK[8], None):
+                _planted_tail(torch, f"flash_decode_multi {str(dt)[6:]} "
+                              f"chunk shape", got, ref, dt, route,
+                              f"{group} rows")
+            at = (None if window is not None else
+                  "chunk" if lengths == DECODE_CHUNK[8] else
+                  "verify" if lengths == verify_lengths else None)
+            if at and (dt == f32 or at == "chunk") and (b, kh) in (
+                    (1, 16), (8, 16)):
+                _bit_identical(torch, f"flash_decode_multi {str(dt)[6:]} "
+                               f"{at} shape", lambda: ops.flash_decode_multi(
                                    q, kp, vp, tables, lens), route, group)
+            if at and dt == f32 and (b, kh) in ((1, 16), (8, 16)):
+                _nan_filled_call(
+                    torch, f"flash_decode_multi float32 {at} shape",
+                    lambda: ops.flash_decode_multi(q, kp, vp, tables, lens),
+                    ref, blind, route, group)
+                kp4, vp4 = _f32_pool(torch, kp, 2), _f32_pool(torch, vp, 1)
+                _decode_held(torch, f"{name} pools off 16 bytes",
+                             ops.flash_decode_multi(q, kp4, vp4, tables,
+                                                    lens), ref, dt, group,
+                             route, blind)
+                del kp4, vp4
         # K = 1 is the single-query decode
         _, kp, vp, tables, lens = _decode_inputs(
             torch, dev, gen, 8, 16, 16, 16, 64, 513, 64, dt, verify_lengths)
@@ -2949,8 +3068,9 @@ def check_flash_decode_multi(torch, ops, dev):
               f"paged pool")
     main = timings["chunk"]
     return dict(name="flash_decode_multi", route="cuda",
-                kernel="decode_multi_split (bf16), decode_multi_f32_kernel "
-                       "(fp32), decode_multi_mma_kernel (unaligned bf16)",
+                kernel="decode_multi_split (bf16), decode_multi_f32 / "
+                       "decode_multi_f32_tiles (fp32), "
+                       "decode_multi_mma_kernel (unaligned bf16)",
                 source="apex_tpu_torch/csrc/flash_decode.cu",
                 replaces="apex_tpu/ops/flash_decode.py:281",
                 max_abs_err=main_err, library_ms=None, by_shape=timings,
@@ -3681,10 +3801,11 @@ def print_top(by_name, k=10):
 
 
 #: kernel-name parts of the decode kernels in a profile, #9's and #10's:
-#: the split route's, then the gather and fp32 routes'
-DECODE_KERNELS = {"#9": ("flash_decode_split", "flash_decode_kernel"),
-                  "#10": ("decode_multi_split", "decode_multi_mma_kernel",
-                          "decode_multi_f32_kernel")}
+#: the bf16 and fp32 split routes', then the gather route's
+DECODE_KERNELS = {"#9": ("flash_decode_split", "flash_decode_f32",
+                         "flash_decode_kernel"),
+                  "#10": ("decode_multi_split", "decode_multi_f32",
+                          "decode_multi_mma_kernel")}
 
 
 def device_busy(torch, eng, reqs, label):
@@ -5029,7 +5150,9 @@ def fp32_kernels_by_name(torch, ops, dev):
     dkv_f32_blocked instance once and nothing else: no memset of its
     output, no cast); at RP = (1,16,317,64) window 256, #2 fp32 (held to
     launch fwd_f32_blocked once and no fwd_merge) and SDPA with the boolean
-    band mask. Run in a fresh process
+    band mask; #9 fp32 at the decode shape and #10 fp32 at the verify and
+    chunk shapes (each held to launch its fp32 split-route kernel once and
+    nothing else). Run in a fresh process
     (:func:`kernels_by_name_apart`): in the process that has run the
     phases the profiler captures nothing for some of these calls. Returned
     by the rows of the ``kernels`` line they go with."""
@@ -5082,11 +5205,36 @@ def fp32_kernels_by_name(torch, ops, dev):
     _, out["SDPA with the band mask at RP"] = kernels_of(
         torch, lambda: F.scaled_dot_product_attention(q, k, v,
                                                       attn_mask=band))
-    print("  fp32 attention kernels by name (one call under the profiler): "
-          + "; ".join(f"{k}: {v}" for k, v in out.items()))
     del q, k, v, band
+    # #9 fp32 at the decode shape, #10 fp32 at the verify and chunk shapes:
+    # one launch of the fp32 split route's kernel each, nothing else (the
+    # workspace grown and zeroed by the call outside the profiler)
+    f32 = torch.float32
+    qd, kpd, vpd, td, ld = _decode_inputs(torch, dev, gen, *DECODE_MAIN[:7],
+                                          f32, DECODE_MAIN[7])
+    decode_calls = {"#9 fp32 at the decode shape": (
+        lambda: ops.flash_decode(qd, kpd, vpd, td, ld), "flash_decode_f32")}
+    for label, (b, h, kh, kq, blk, d, nb, mb, lengths) in (
+            ("verify", DECODE_VERIFY), ("chunk", DECODE_CHUNK)):
+        _, kpm, vpm, tm, lm = _decode_inputs(torch, dev, gen, b, h, kh, blk,
+                                             d, nb, mb, f32, lengths)
+        qm = torch.randn(b, h, kq, d, device=dev, generator=gen)
+        decode_calls[f"#10 fp32 at the {label} shape"] = (
+            lambda a=(qm, kpm, vpm, tm, lm): ops.flash_decode_multi(*a),
+            "decode_multi_f32")
+    for key, (fn, kernel) in decode_calls.items():
+        launched, out[key] = kernels_of(torch, fn)
+        check(len(launched) == 1 and kernel_time(launched, kernel)[0] == 1,
+              f"{key} launches {kernel} once and nothing else: {out[key]}")
+    del qd, kpd, vpd, decode_calls
+    print("  fp32 attention and decode kernels by name (one call under the "
+          "profiler): " + "; ".join(f"{k}: {v}" for k, v in out.items()))
     torch.cuda.empty_cache()
-    return {"flash_attention_fwd": {
+    return {"flash_decode": {k: v for k, v in out.items()
+                             if k.startswith("#9 ")},
+            "flash_decode_multi": {k: v for k, v in out.items()
+                                   if k.startswith("#10 ")},
+            "flash_attention_fwd": {
                 k: out[k] for k in ("SDPA fp32 forward at F",)},
             "flash_attention_fwd_stream": {
                 k: out[k] for k in ("#2 fp32 at RP",
@@ -5115,9 +5263,10 @@ def kernels_by_name_apart():
     return json.loads(last)
 
 
-def kernel_names_main():
+def kernel_names_main(fn=None):
     """``python3 chip_smoke.py --kernel-names``: :func:`fp32_kernels_by_name`
-    on the card, its result as the last line (one JSON object)."""
+    on the card, its result as the last line (one JSON object); with
+    ``fn`` (``--generate-profile``), ``fn`` alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5128,8 +5277,10 @@ def kernel_names_main():
     from apex_tpu_torch.csrc import build
 
     build.load()
-    print(json.dumps(fp32_kernels_by_name(torch, ops,
-                                          torch.device("cuda", 0))))
+    dev = torch.device("cuda", 0)
+    if fn is not None:
+        return fn(torch, ops, dev)
+    print(json.dumps(fp32_kernels_by_name(torch, ops, dev)))
     return 0
 
 
@@ -5633,6 +5784,49 @@ def generate_rope(torch, ops, dev):
     return counts_by, longest
 
 
+#: (e)'s chunked speculative run (gRS): RoPE, window 256, 128-token chunks,
+#: spec_k 4, random weights
+GENERATE_ROPE_SPEC = GENERATE_345M + ["--pos", "rope", "--window", "256",
+                                      "--shared-prefix", "300",
+                                      "--prefill-chunk", "128",
+                                      "--spec-k", "4"]
+
+
+def generate_profile(torch, ops, dev):
+    """``python3 chip_smoke.py --generate-profile``: (e)'s fp32 generate
+    with chunks and speculation (:data:`GENERATE_ROPE_SPEC`) once, then
+    its requests again on the same engine under the profiler
+    (:func:`device_busy`): the device's busy share of an fp32 generate
+    window and the decode kernels' ms a tick, measured."""
+    from apex_tpu_torch.serve import Request
+
+    out, _ = generate_run(torch, ops, GENERATE_ROPE_SPEC,
+                          "(e) generate 345M rope window 256, chunks + "
+                          "speculative (before the profiled window)")
+    reqs = [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                    request_id=f"w{r.request_id}") for r in out["requests"]]
+    device_busy(torch, out["engine"], reqs,
+                "(e) generate 345M fp32 rope window 256, chunks + "
+                "speculative, the same 6 requests again")
+    return 0
+
+
+def generate_profile_apart():
+    """:func:`generate_profile` in a child process (``python3 chip_smoke.py
+    --generate-profile``): late in this process the profiler captures no
+    kernels (PERF.md); its lines printed here, the per-request lines of
+    the example left out. Fails if the child does."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--generate-profile"], capture_output=True,
+                       text=True, timeout=600, cwd=HERE)
+    check(r.returncode == 0, f"--generate-profile exited {r.returncode}: "
+          f"{r.stdout[-2000:]} {r.stderr[-4000:]}")
+    for line in r.stdout.splitlines():
+        if line.startswith(("  (", "    ")) and not line.startswith(
+                "  tokens:"):
+            print(line)
+
+
 def fp32_rope_prefill_times(torch, ops, dev, s, window=256):
     """#2's fp32 route at (e)'s longest monolithic prefill, (1,16,s,64)
     causal with the window: q and k contiguous (as the rotation leaves
@@ -5700,29 +5894,44 @@ def fp32_rope_prefill_times(torch, ops, dev, s, window=256):
 
 
 def fp32_decode_times(torch, ops, dev):
-    """The fp32 routes of #9 and #10 at phase 2's decode, chunk and verify
-    shapes (the generate example's pools, 16 heads of 64, 16-token pages),
-    beside the bf16 rows: each against its plain version (share of max
-    |ref|, 5e-5: phase 2's fp32 decode limit), its time, the plain
-    version's and the bound."""
+    """The fp32 routes of #9 and #10 at phase 2's decode shape (and with
+    window 128, and at b = 1 over 8192 keys), chunk and verify shapes (the
+    generate example's pools, 16 heads of 64, 16-token pages), beside the
+    bf16 rows: each against its plain version (share of max |ref|, 5e-5:
+    phase 2's fp32 decode limit), its time, the plain version's and the
+    bound."""
     f32 = torch.float32
     gen = torch.Generator(device=dev).manual_seed(11)
-    out = {}
+    out = {"flash_decode": {}}
     b, h, kh, blk, d, nb, mb, lengths = DECODE_MAIN
     q, kp, vp, tables, lens = _decode_inputs(
         torch, dev, gen, b, h, kh, blk, d, nb, mb, f32, lengths)
-    err = rel_err(ops.flash_decode(q, kp, vp, tables, lens),
-                  ops.paged_attention_reference(q, kp, vp, tables, lens))
-    live = sum(lengths)
-    bms, by = bound(live * kh * d * 4 * 2 + 2 * b * h * d * 4 + b * mb * 4
-                    + b * 4, 4 * h * d * live, "float32")
-    out["flash_decode"] = {"fp32 decode": dict(
-        ms=time_ms(lambda: ops.flash_decode(q, kp, vp, tables, lens)),
-        plain_ms=time_ms(lambda: ops.paged_attention_reference(
-            q, kp, vp, tables, lens), 5),
-        bound_ms=bms, bound_by=by, max_rel_err=err)}
-    verdict("flash_decode fp32 at the decode shape", err, 5e-5,
-            group="gpt examples: fp32 routes")
+    b1, h1, kh1, blk1, d1, nb1, mb1, lengths1 = DECODE_LONG
+    long_in = _decode_inputs(torch, dev, gen, b1, h1, kh1, blk1, d1, nb1,
+                             mb1, f32, lengths1)
+    for label, (qq, kk, vv, tt, ll), window, (bb, hh, kkh, dd, mbb, lst) in (
+            ("fp32 decode", (q, kp, vp, tables, lens), None,
+             (b, h, kh, d, mb, lengths)),
+            ("fp32 window_128", (q, kp, vp, tables, lens), 128,
+             (b, h, kh, d, mb, lengths)),
+            ("fp32 b1_8192", long_in, None,
+             (b1, h1, kh1, d1, mb1, lengths1))):
+        err = rel_err(ops.flash_decode(qq, kk, vv, tt, ll, window=window),
+                      ops.paged_attention_reference(qq, kk, vv, tt, ll,
+                                                    window=window))
+        live = sum(min(n, window or n) for n in lst)
+        bms, by = bound(live * kkh * dd * 4 * 2 + 2 * bb * hh * dd * 4
+                        + bb * mbb * 4 + bb * 4, 4 * hh * dd * live,
+                        "float32")
+        out["flash_decode"][label] = dict(
+            ms=time_ms(lambda: ops.flash_decode(qq, kk, vv, tt, ll,
+                                                window=window)),
+            plain_ms=time_ms(lambda: ops.paged_attention_reference(
+                qq, kk, vv, tt, ll, window=window), 5),
+            bound_ms=bms, bound_by=by, max_rel_err=err)
+        verdict(f"flash_decode fp32 at the {label[5:]} shape", err, 5e-5,
+                group="gpt examples: fp32 routes")
+    del long_in
     out["flash_decode_multi"] = {}
     for label, shape in (("fp32 chunk", DECODE_CHUNK),
                          ("fp32 verify", DECODE_VERIFY)):
@@ -5785,6 +5994,7 @@ def gpt_examples(torch, ops, dev):
         fp32.update(fp32_decode_times(torch, ops, dev))
         rope_counts, longest = generate_rope(torch, ops, dev)
         by_path.update(rope_counts)
+        generate_profile_apart()
         fp32.update(fp32_rope_prefill_times(torch, ops, dev, longest))
         by_path["gpt_pretrain_o0_long"] = pretrain_o0_long(torch, ops, dev)
     finally:
@@ -6270,6 +6480,8 @@ if __name__ == "__main__":
         sys.exit(times_of_tree(sys.argv[2], o0_long_times))
     if sys.argv[1:2] == ["--kernel-names"]:
         sys.exit(kernel_names_main())
+    if sys.argv[1:2] == ["--generate-profile"]:
+        sys.exit(kernel_names_main(generate_profile))
     if sys.argv[1:2] == ["--sass"]:
         sys.exit(sass_counts(sys.argv[2]))
     sys.exit(main())

@@ -10,14 +10,16 @@ that see no key are exactly 0, and the wrappers validate and never fall
 back. The CUDA kernels are held against the plain versions by
 ``chip_smoke.py``.
 
-The split route's host-side rules: :func:`decode_splits` over fixed cases
-and as a property (at least one split, never more than the pages),
-:func:`decode_route`, :func:`decode_span_pages`, the key ranges the kernel
-derives on the device (:func:`split_keys`: every row's visible keys in
-exactly one split, for random lengths, windows, K and split counts), a
+The split routes' host-side rules: :func:`decode_splits` over fixed cases
+and as a property (at least one split, never more than the pages), with
+the bf16 and the fp32 constants, :func:`decode_route`,
+:func:`decode_span_pages`, the key ranges the
+kernel derives on the device (:func:`split_keys`: every row's visible keys
+in exactly one split, for random lengths, windows, K and split counts), a
 plain split-then-combine of those ranges against the JAX references (fp32,
-atol 2e-5), and the launch arguments the wrapper hands the kernel, with
-lengths that raise if the host reads them.
+atol 2e-5; at both routes' split counts), and the launch arguments the
+wrapper hands the kernel on both split routes, with lengths and tables
+that raise if the host reads them.
 """
 
 import importlib
@@ -221,10 +223,43 @@ def test_decode_splits_property(b, kh, tiles, pages, sms):
     (torch.bfloat16, 36, 16, True, "gather"),   # d % 8
     (torch.bfloat16, 64, 12, True, "gather"),   # blk % 8
     (torch.bfloat16, 64, 16, False, "gather"),  # off 16 bytes
-    (torch.float32, 64, 16, True, "fp32"),
+    (torch.float32, 64, 16, True, "f32_split"),
 ])
 def test_decode_route(dtype, d, blk, aligned, route):
     assert tfd.decode_route(dtype, d, blk, aligned) == route
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("blk", [8, 12, 16])
+@pytest.mark.parametrize("d", [64, 36, 128])
+def test_decode_route_f32(d, blk, aligned):
+    """fp32 up to head_dim 128 takes the fp32 split route whatever the
+    block size and alignment (4-byte copies where 16-byte ones do not
+    apply); head_dim 160 the first port's single-query kernel."""
+    assert tfd.decode_route(torch.float32, d, blk, aligned) == "f32_split"
+    assert tfd.decode_route(torch.float32, 160, blk, aligned) == "gather"
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 16, 1, 64), 3),    # the decode: 128 groups, 3 CTAs an SM
+    ((8, 16, 1, 17), 2),    # window 256 over 16-token pages: 17 pages
+    ((1, 16, 16, 64), 1),   # the chunk: 16 tiles of 16 rows, 256 groups
+    ((1, 16, 2, 64), 4),    # a 32-row chunk: 32 groups, 4 splits of 16
+    ((1, 16, 1, 512), 24),  # one slot over 8192 keys: the CTA cap
+    ((1, 1, 1, 3), 1),
+])
+def test_decode_splits_f32_fixed_cases(shape, want):
+    assert tfd.decode_splits(*shape, sms=132, f32=True) == want
+
+
+@settings(max_examples=100, deadline=None, derandomize=True)
+@given(b=st.integers(1, 64), kh=st.integers(1, 32), tiles=st.integers(1, 32),
+       pages=st.integers(1, 4096), sms=st.integers(1, 264))
+def test_decode_splits_f32_property(b, kh, tiles, pages, sms):
+    n = tfd.decode_splits(b, kh, tiles, pages, sms, f32=True)
+    assert 1 <= n <= min(pages, tfd.DECODE_MAX_SPLITS)
+    if n > 1:
+        assert b * kh * tiles * n <= tfd.DECODE_F32_SPLIT_CTAS * sms
 
 
 def test_decode_span_pages():
@@ -350,6 +385,57 @@ def test_multi_split_then_combine_matches_jax(splits, window):
     assert np.all(got[1] == 0.0) and np.all(got[3, :, :4] == 0.0)
 
 
+def _long_case(h, kh, kq, lengths, d=16, blk=8, mb=12, seed=9):
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    n = b * mb + 1
+    kp = rng.normal(size=(n, kh, blk, d)).astype(np.float32)
+    vp = rng.normal(size=(n, kh, blk, d)).astype(np.float32)
+    q = rng.normal(size=(b, h, kq, d)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, n))[:b * mb].reshape(b, mb)
+    return q, kp, vp, tables.astype(np.int32), np.array(lengths, np.int32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 9])
+@pytest.mark.parametrize("window,heads", [(None, (2, 2)), (30, (2, 2)),
+                                          (None, (4, 2)), (11, (4, 2))])
+def test_f32_split_then_combine_matches_jax(splits, window, heads):
+    """The fp32 route's split counts (3 at the generate's decode and verify
+    shapes, 4 over a window) on longer rows: K = 40 trailing queries over
+    12 pages of 8 keys (40 or 80 rows a (slot, kv head): 16-row tiles
+    with a short last one), GQA, an idle slot, rows that see no key (a slot
+    of 20 keys: its first 20 queries), the window; against the JAX K-query
+    reference (fp32, atol 2e-5), blind rows exactly 0."""
+    h, kh = heads
+    arrs = _long_case(h, kh, 40, (90, 0, 20, 57))
+    q, kp, vp, tables, lengths = arrs
+    got = _split_combine(q, kp, vp, tables, lengths, window, splits, kq=40)
+    ref = np.asarray(jax_paged_multi(*(jnp.asarray(a) for a in arrs),
+                                     window=window))
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+    assert np.all(got[1] == 0.0) and np.all(got[2, :, :20] == 0.0)
+    assert np.all(got[2, :, 20:] != 0.0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("window,heads", [(None, (4, 4)), (17, (4, 4)),
+                                          (None, (8, 2)), (5, (8, 2))])
+def test_f32_single_query_split_then_combine_matches_jax(splits, window,
+                                                         heads):
+    """The fp32 decode: 16-row tiles of the group's g rows over 12 pages of
+    8 keys (a length on a page's end, one past it, 1, idle), against the
+    JAX single-query reference (fp32, atol 2e-5)."""
+    h, kh = heads
+    q, kp, vp, tables, lengths = _long_case(h, kh, 1, (96, 33, 1, 0, 64))
+    q = q[:, :, 0]
+    got = _split_combine(q, kp, vp, tables, lengths, window, splits)
+    ref = np.asarray(jax_paged(*(jnp.asarray(a) for a in
+                                 (q, kp, vp, tables, lengths)),
+                               window=window))
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+    assert np.all(got[3] == 0.0)
+
+
 class _NoHostRead(torch.Tensor):
     """A tensor whose values the host must not read (a device value)."""
 
@@ -425,9 +511,51 @@ def test_scratch_grows_never_shrinks_and_counters_start_at_zero(
 def test_split_override_only_on_the_split_route(monkeypatch):
     monkeypatch.setattr(tfd.build, "current_stream", lambda dev: 7)
     monkeypatch.setattr(tfd, "_sm_count", lambda dev: 132)
-    q = torch.zeros(2, 4, 16)  # fp32: the fp32 route
-    kp = torch.zeros(9, 4, 16, 16)
+    q = torch.zeros(2, 4, 36, dtype=torch.bfloat16)  # d % 8: the gather route
+    kp = torch.zeros(9, 4, 16, 36, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="split route"):
         tfd._launch("apex_flash_decode", q, kp, kp,
                     torch.zeros(2, 4, dtype=torch.int32),
                     torch.zeros(2, dtype=torch.int32), q, 1, 0.25, None, 3)
+
+
+@pytest.mark.parametrize("entry,b,kq,window,splits", [
+    ("apex_flash_decode", 8, 1, None, 3),   # the decode
+    ("apex_flash_decode", 8, 1, 256, 2),    # RoPE serving's window
+    ("apex_flash_decode_multi", 8, 5, None, 3),   # the verify
+    ("apex_flash_decode_multi", 1, 256, None, 1),  # the chunk: 256 groups
+])
+def test_f32_launch_arguments_from_shapes_only(monkeypatch, entry, b, kq,
+                                               window, splits):
+    """The fp32 route's launch on the generate example's shapes (16 heads
+    of 64 over 16-token pages, 64-page tables): the split count from
+    :func:`decode_splits` with the fp32 constants, a workspace of groups x
+    splits x 16 rows x (64 + 2) floats and one zeroed counter a group; the
+    lengths and tables are never read on the host."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(tfd.build, "load", lambda: Lib())
+    monkeypatch.setattr(tfd.build, "current_stream", lambda dev: 7)
+    monkeypatch.setattr(tfd, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(tfd, "_SCRATCH", {})
+    h, kh, blk, d, nb, mb = 16, 16, 16, 64, 40, 64
+    q = torch.zeros(b, h, kq, d)
+    if kq == 1:
+        q = q[:, :, 0].contiguous()
+    kp = torch.zeros(nb, kh, blk, d)
+    tables = torch.zeros(b, mb, dtype=torch.int32).as_subclass(_NoHostRead)
+    lens = torch.full((b,), 700, dtype=torch.int32).as_subclass(_NoHostRead)
+    tfd._launch(entry, q, kp, kp, tables, lens, torch.empty_like(q), kq,
+                0.125, window, None)
+    (name, args), = calls
+    assert name == entry
+    assert args[-3:-1] == (splits, tfd.build.DTYPES[torch.float32])
+    groups = b * kh * -(-(h // kh * kq) // tfd.DECODE_ROWS)
+    ws, cnt, _ = tfd._SCRATCH[(q.get_device(), 7)]
+    assert ws.numel() == groups * splits * tfd.DECODE_ROWS * (64 + 2)
+    assert cnt.numel() == groups and not cnt.any()
+    assert args[6] == ws.data_ptr() and args[7] == cnt.data_ptr()
