@@ -13,7 +13,11 @@ LayerNorm and its backward, paged decode, softmax cross-entropy and its
 backward, the fused scale-mask softmax and its backward behind
 ``transformer.functional.FusedScaleMaskSoftmax``). The small layers
 (``normalization``, ``contrib.FastLayerNorm``, ``models.MLP`` and the fused
-dense layers) run over the LayerNorm kernels and ``torch.matmul``. Entry points default to the card; ``device="cpu"`` runs the
+dense layers) run over the LayerNorm kernels and ``torch.matmul``. The
+root ``bench.py`` of the JAX package runs as ``python -m
+apex_tpu_torch.bench``; ``amp.initialize`` and the O1 function registries,
+the DCGAN example and the native host runtime (``csrc``) come with it.
+Entry points default to the card; ``device="cpu"`` runs the
 plain PyTorch versions of the kernels instead.
 
 The package imports ``torch``, numpy and the standard library only.

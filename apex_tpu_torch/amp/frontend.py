@@ -1,6 +1,7 @@
-"""The mixed-precision optimizer (port of ``apex_tpu/amp/frontend.py``,
-``MixedPrecisionOptimizer`` without ZeRO: ``frontend.py:126-560``, the
-non-``zero_axis`` branch).
+"""The mixed-precision optimizer and ``amp.initialize`` (port of
+``apex_tpu/amp/frontend.py``: ``MixedPrecisionOptimizer`` without ZeRO,
+``frontend.py:126-560``, the non-``zero_axis`` branch; ``AmpTrainState``
+and ``initialize``, ``frontend.py:1106-1217``).
 
 Per step (the reference's ``apply_gradients``):
 
@@ -17,11 +18,17 @@ simply does not run. State is explicit, as in the reference
 (:class:`MPOptState`), but updated in place. :func:`state_tree` /
 :func:`load_state_tree_` map it to and from the JAX ``MPOptState``'s tree
 (the checkpoint layout, ``apex_tpu_torch.checkpoint``).
+
+:func:`initialize` is the call apex users start from, in PyTorch's idiom:
+it casts the module's parameters in place and returns an
+:class:`AmpTrainState` (a step counter over the module and its optimizer
+state, updated in place), ``(module, mp_optimizer)`` or ``(module,
+policy)``, as the reference returns its three forms.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -195,3 +202,95 @@ class MixedPrecisionOptimizer:
         for p in params:
             p.grad = None
         return metrics
+
+
+class AmpTrainState:
+    """The train state :func:`initialize` bundles (``AmpTrainState``,
+    ``frontend.py:1106-1150``): ``module`` (the parameters live in it),
+    ``opt_state``, ``apply_fn`` (``apply_fn(module, *inputs)``),
+    ``mp_optimizer`` and ``step``, the count of :meth:`apply_gradients`
+    calls (skipped overflow steps included, as the reference's). The
+    reference returns a new state; this one updates itself in place."""
+
+    def __init__(self, *, apply_fn: Callable, module: nn.Module,
+                 mp_optimizer: MixedPrecisionOptimizer):
+        self.step = 0
+        self.module = module
+        self.apply_fn = apply_fn
+        self.mp_optimizer = mp_optimizer
+        self.opt_state = mp_optimizer.init(module)
+
+    @property
+    def scaler(self) -> LossScaler:
+        return self.opt_state.scaler
+
+    def scale_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        return self.mp_optimizer.scale_loss(loss, self.opt_state)
+
+    def apply_gradients(self, scaled_grads: Optional[Sequence[torch.Tensor]]
+                        = None, **update_kwargs) -> Dict[str, Any]:
+        """Step the module from the grads of the scaled loss (a list
+        aligned with ``module.parameters()``, or None: each parameter's
+        ``.grad``, cleared after) and count the step; returns the
+        optimizer's metrics."""
+        if scaled_grads is None:
+            metrics = self.mp_optimizer.step(self.opt_state, self.module,
+                                             **update_kwargs)
+        else:
+            metrics = self.mp_optimizer.apply_gradients(
+                self.opt_state, self.module, scaled_grads, **update_kwargs)
+        self.step += 1
+        return metrics
+
+
+def initialize(module: nn.Module, optimizers=None, opt_level: str = "O1", *,
+               apply_fn: Optional[Callable] = None,
+               cast_model_type=None, keep_batchnorm_fp32=None,
+               master_weights=None,
+               loss_scale: Optional[Union[str, float]] = None,
+               min_loss_scale: Optional[float] = None,
+               max_loss_scale: float = 2.0 ** 24,
+               half_dtype=torch.bfloat16, verbosity: int = 1):
+    """``amp.initialize`` (reference: apex/amp/frontend.py:195-358;
+    ``apex_tpu/amp/frontend.py:1153-1217``): the policy of ``opt_level``
+    with the reference's overrides, the O1 function registries armed
+    (:func:`apex_tpu_torch.amp.functions.set_active_policy`) and
+    ``module``'s parameters cast IN PLACE (:func:`precision.cast_params`).
+    ``optimizers``: one optimizer with ``init`` / ``update_``
+    (``FusedAdam``, ``FusedSGD``, ...), or None for inference casting.
+
+    Returns an :class:`AmpTrainState` with an optimizer and ``apply_fn``;
+    ``(module, mp_optimizer)`` with an optimizer alone; ``(module,
+    policy)`` with none. ``apply_fn`` without an optimizer raises
+    ``ValueError``."""
+    policy = _precision.get_policy(
+        opt_level, half_dtype=half_dtype, cast_model_type=cast_model_type,
+        keep_batchnorm_fp32=keep_batchnorm_fp32,
+        master_weights=master_weights, loss_scale=loss_scale)
+    if verbosity:
+        from apex_tpu_torch.utils.log_util import maybe_print
+
+        maybe_print(
+            f"apex_tpu_torch.amp: opt_level={policy.opt_level} "
+            f"cast_model_type={policy.cast_model_type} "
+            f"master_weights={policy.master_weights} "
+            f"loss_scale={policy.loss_scale}", rank0=True)
+    # arm the O1-style function registries (amp.py:68-177's patch install)
+    from apex_tpu_torch.amp.functions import set_active_policy
+
+    set_active_policy(policy)
+    _precision.cast_params(module, policy)
+    if optimizers is None:
+        if apply_fn is not None:
+            raise ValueError(
+                "apply_fn without an optimizer has nothing to train; call "
+                "initialize(module, opt_level=...) for inference casting, "
+                "or pass an optimizer to build an AmpTrainState.")
+        return module, policy
+    mp_opt = MixedPrecisionOptimizer(optimizers, policy,
+                                     min_loss_scale=min_loss_scale,
+                                     max_loss_scale=max_loss_scale)
+    if apply_fn is not None:
+        return AmpTrainState(apply_fn=apply_fn, module=module,
+                             mp_optimizer=mp_opt)
+    return module, mp_opt

@@ -1,14 +1,16 @@
 """Token-file streaming (port of ``TokenLoader``, ``apex_tpu/csrc/
 build.py:117-195``).
 
-The reference streams ``.bin`` files on a native worker thread (C++ in
-``apex_runtime.cpp``) and falls back to a Python reader. Here the reader is
-Python, on the background thread of :class:`apex_tpu_torch.data.loader.
-PrefetchIterator`: it is host-side I/O, no device kernel. The stream is the
-reference's: the files concatenated in order as one token sequence, cut
-into batches of ``batch_shape`` (a ragged tail is dropped), re-looped with
-``loop=True``; every ``iter()`` restarts the stream on its own thread, so
-iterators are independent; a missing file raises at construction.
+As the reference, it streams ``.bin`` files on a native worker thread
+(the C++ of ``apex_runtime.cpp``, :mod:`apex_tpu_torch.csrc.runtime`) where
+the runtime built, and otherwise reads them in Python on the background
+thread of :class:`apex_tpu_torch.data.loader.PrefetchIterator`
+(``available()`` says which). It is host-side I/O, no device kernel. The
+stream is the reference's on both paths: the files concatenated in order as
+one token sequence, cut into batches of ``batch_shape`` (a ragged tail is
+dropped), re-looped with ``loop=True``; every ``iter()`` restarts the
+stream on a worker of its own, so iterators are independent; a missing
+file raises at construction.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from apex_tpu_torch.csrc import runtime
 from apex_tpu_torch.data.loader import PrefetchIterator
 
 
@@ -45,7 +48,12 @@ class TokenLoader:
 
     def __iter__(self) -> Iterator[np.ndarray]:
         """Each iteration restarts the stream."""
-        it = PrefetchIterator(self._stream(), depth=self._n_buffers)
+        if runtime.available():
+            it = runtime.native_stream(self.paths, self.batch_shape,
+                                       self.dtype, self._n_buffers,
+                                       self.loop)
+        else:
+            it = PrefetchIterator(self._stream(), depth=self._n_buffers)
         self._iters.append(it)
         return it
 
@@ -67,6 +75,6 @@ class TokenLoader:
                 return
 
     def close(self) -> None:
-        """Stop every live iterator's reader thread."""
+        """Stop every live iterator's worker thread."""
         while self._iters:
             self._iters.pop().close()

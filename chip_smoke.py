@@ -10,7 +10,7 @@
     python3 chip_smoke.py --kernel-names   # fp32 attention kernels by name
     python3 chip_smoke.py --generate-profile   # an fp32 generate, profiled
 
-Ten phases; any failure raises and exits non-zero:
+Eleven phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
@@ -207,6 +207,19 @@ Ten phases; any failure raises and exits non-zero:
    step, 3 steps: the streamed kernels' fp32 routes (#2 2L, #3 and #4 L a
    step, the resident flash kernels 0), a finite falling loss, the ms a
    step.
+11. **The root bench.py harness** (:func:`bench_harness`): ``python -m
+   apex_tpu_torch.bench`` once in a child process at its defaults (windows
+   of :data:`BENCH_STEPS` = 10 steps, 3 windows; GPT-2 345M O2 against the
+   fp32 O0 leg at 8 x 1024, interleaved; ResNet-50 at 64 x 224²; BERT-large
+   at 8 x 512; the canary; the optimizer ratio; the kernel selftest): the
+   line must hold ``value``, ``vs_baseline`` from interleaved windows, both
+   rungs, ``selftest.all_ok`` and no ``errors``; its figures and each
+   selftest entry against its ``tol_norm`` are printed, every kernel but
+   the decode pair must have launched in it (``launches_by_path``'s
+   ``bench``, counted in the bench's processes). Then the DCGAN example
+   (``apex_tpu_torch.examples.dcgan.main_amp``) 10 steps on the card:
+   finite losses, bf16 params, both scalers clean, no csrc kernel; and the
+   native host runtime (``csrc.available()``, a flatten round trip).
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -216,7 +229,8 @@ count on the three serving runs, the GPT training run, the ResNet
 training run, the two long-context runs and phase 7's run (``softmax``),
 each counted from 0, phase 8's BERT run (``bert``), phase 9's (``fmha``)
 and phase 10's (``gpt_pretrain``, ``gpt_pretrain_o0``, ``gpt_remat_*``,
-``gpt_generate*``, ``gpt_pretrain_o0_long``); ``by_shape`` also holds phase 10's fp32 times;
+``gpt_generate*``, ``gpt_pretrain_o0_long``) and phase 11's (``bench``);
+``by_shape`` also holds phase 10's fp32 times;
 ``segments``: phase 9's times on #1-#6; ``launches``:
 their sum; ``bias_route``: #1, #5 and #6 with and without the bias;
 ``launch_floor_ms`` on the decode and xentropy rows), the decode split-count
@@ -6003,6 +6017,140 @@ def gpt_examples(torch, ops, dev):
     return by_path, fp32
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the root bench.py harness (python -m apex_tpu_torch.bench), the
+# DCGAN example and the native host runtime
+# ---------------------------------------------------------------------------
+
+#: steps per timed window of the bench run (its default, BENCH_STEPS)
+BENCH_STEPS = 10
+#: the kernels the bench's path does not run: the paged decode pair serves
+DECODE_ONLY = ("flash_decode", "flash_decode_multi")
+
+
+def bench_harness(torch, ops, dev):
+    """Phase 11: ``python -m apex_tpu_torch.bench`` once in a child process
+    at its defaults (windows of 10 steps, 3 windows, GPT batch 8 x 1024,
+    ResNet-50 64 x 224², BERT-large 8 x 512): the line must hold ``value``
+    and ``vs_baseline`` from interleaved windows, both rungs, the canary,
+    the optimizer ratio and ``selftest.all_ok``, and no ``errors``; its
+    figures and each selftest entry (a verdict against its ``tol_norm``)
+    are printed, and every kernel but the decode pair must have launched
+    in it. Then the DCGAN example for 10 steps on the card (finite losses,
+    bf16 params, both scalers clean, no kernel of csrc/ launched) and the
+    native runtime (``csrc.available()``, a flatten round trip). Returns
+    the bench's launch counts by kernel."""
+    import numpy as np
+
+    from apex_tpu_torch import bench, csrc
+    from apex_tpu_torch.examples.dcgan import main_amp as dcgan
+
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if k not in bench.MONITOR_VARS and not k.startswith("BENCH_")}
+    env["PYTHONPATH"] = HERE + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    env["BENCH_STEPS"] = str(BENCH_STEPS)
+    out = subprocess.run([sys.executable, "-m", "apex_tpu_torch.bench"],
+                         capture_output=True, text=True, timeout=900,
+                         env=env, cwd=HERE)
+    dt = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    check(out.returncode == 0 and lines,
+          f"bench exited {out.returncode}: {out.stderr[-3000:]}")
+    rec = json.loads(lines[-1])
+    for line in out.stderr.splitlines():
+        if line.startswith(("O0 leg:", "headline:", "platform:")):
+            print(f"  bench stderr: {line}")
+    check("errors" not in rec, f"bench errors: {rec.get('errors')}; "
+          f"stderr {out.stderr[-2000:]}")
+    sp = rec.get("spread", {})
+    check(rec.get("value") and rec.get("vs_baseline")
+          and sp.get("interleaved") is True,
+          f"bench headline: value {rec.get('value')} vs_baseline "
+          f"{rec.get('vs_baseline')} interleaved {sp.get('interleaved')}")
+    st = rec["selftest"]
+    for name, e in st.items():
+        if isinstance(e, dict):
+            worst = max(v for k, v in e.items() if k.endswith("norm_err"))
+            verdict(f"bench selftest {name} (fwd + bwd, error / max |plain|)",
+                    worst, e["tol_norm"], group="bench selftest")
+    check(st.get("all_ok") is True, f"bench selftest: {st}")
+    resnet = rec["resnet50_o2_imgs_per_sec"]
+    bert = rec["bert_large_lamb_tokens_per_sec"]
+    check(isinstance(resnet, dict) and isinstance(bert, dict)
+          and "degraded" not in bert and rec.get("fused_opt_step_vs_eager"),
+          f"bench rungs: resnet {resnet}, bert {bert}")
+    print(f"  bench (python -m apex_tpu_torch.bench, {dt:.1f} s, windows of "
+          f"{BENCH_STEPS} steps): GPT-2 345M O2 {rec['value']} tokens/s "
+          f"(min {sp['o2']['min']}, max {sp['o2']['max']}, batch "
+          f"{rec.get('effective_batch', 8)}), O0 {sp['o0']['median']} "
+          f"(min {sp['o0']['min']}, max {sp['o0']['max']}), vs_baseline "
+          f"{rec['vs_baseline']}, interleaved; rungs O2 {sp['o2']['rung']}, "
+          f"O0 {sp['o0']['rung']}")
+    print(f"  bench: ResNet-50 O2 {resnet['median']} imgs/s (min "
+          f"{resnet['min']}, max {resnet['max']}, batch {resnet['batch']}, "
+          f"canary TF/s {resnet['canary_tf_s']}); BERT-large LAMB "
+          f"{bert['median']} tokens/s (min {bert['min']}, max {bert['max']}"
+          f", batch {bert['batch']}, canary TF/s {bert['canary_tf_s']}); "
+          f"fused_opt_step_vs_eager {rec['fused_opt_step_vs_eager']}; "
+          f"selftest all_ok {st['all_ok']} on {st['device']}; "
+          f"{nvidia_smi()}")
+    print("  bench selftest: " + "; ".join(
+        f"{k} fwd {v['fwd_norm_err']:.2e} bwd {v.get('bwd_norm_err', 0):.2e}"
+        f" (tol {v['tol_norm']})" for k, v in st.items()
+        if isinstance(v, dict)))
+    counts = rec["kernel_launches"]["total"]
+    by_stage = rec["kernel_launches"]["by_stage"]
+    print(f"  bench launches by stage: " + "; ".join(
+        f"{k} { {n: c for n, c in v.items() if c} }"
+        for k, v in by_stage.items()))
+    for name in ops.KERNEL_WRAPPERS:
+        n = counts.get(name, 0)
+        if name in DECODE_ONLY:
+            check(n == 0, f"bench: {name} launched {n} times")
+        else:
+            verdict(f"bench: {name} launches (none is a failure)",
+                    0 if n else 1, 0, group="bench launches")
+    print(f"  phase 11 bench took {dt:.1f} s")
+
+    # the DCGAN example, 10 steps on the card
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    res = dcgan.run(["--steps", "10"])
+    torch.cuda.synchronize()
+    tr, hist = res["trainer"], res["history"]
+    check(all(np.isfinite([h["loss_d"], h["loss_g"]]).all() for h in hist)
+          and len(hist) == 10, f"dcgan losses {hist}")
+    check(all(p.dtype == torch.bfloat16 and p.is_cuda
+              for m in (tr.G, tr.D) for p in m.parameters()),
+          "dcgan: params bf16 on the card")
+    check(not any(h["skipped_d"] or h["skipped_g"] for h in hist)
+          and tr.ds.scaler.loss_scale == tr.gs.scaler.loss_scale == 2.0 ** 16
+          and tr.ds.inner.step == tr.gs.inner.step == 10,
+          f"dcgan scalers: D {tr.ds.scaler.state_dict()} G "
+          f"{tr.gs.scaler.state_dict()}")
+    dc = ops.launch_counts()
+    check(not any(dc.values()), f"dcgan launched csrc kernels: {dc}")
+    print(f"  dcgan (examples/dcgan/main_amp.py, 10 steps, batch 32, "
+          f"{time.perf_counter() - t1:.1f} s): loss_D "
+          f"{hist[0]['loss_d']:.4f} -> {hist[-1]['loss_d']:.4f}, loss_G "
+          f"{hist[0]['loss_g']:.4f} -> {hist[-1]['loss_g']:.4f}, scales "
+          f"D {tr.ds.scaler.loss_scale:.0f} G {tr.gs.scaler.loss_scale:.0f},"
+          f" no step skipped, bf16 params")
+
+    # the native host runtime
+    arrays = [np.arange(10, dtype=np.int32), np.ones((3, 5), np.float32)]
+    back = csrc.unflatten(csrc.flatten(arrays), arrays)
+    check(csrc.available() and all(np.array_equal(a, b)
+                                   for a, b in zip(arrays, back)),
+          "csrc: the native runtime is not available on the card's host")
+    lib = os.path.relpath(csrc.runtime.library_path(), HERE)
+    print(f"  csrc native runtime: available ({lib}), flatten round trip "
+          f"exact")
+    return {name: counts.get(name, 0) for name in ops.KERNEL_WRAPPERS}
+
+
 def main():
     import torch
 
@@ -6091,6 +6239,12 @@ def main():
     print("phase 10: the GPT examples (pretrain_gpt -> checkpoint -> resume "
           "-> generate_gpt) at GPT-2 345M")
     gpt_counts, fp32_rows = gpt_examples(torch, ops, dev)
+    torch.cuda.empty_cache()
+
+    print("phase 11: the root bench.py harness (python -m "
+          "apex_tpu_torch.bench), the DCGAN example, the native runtime")
+    gpt_counts["bench"] = bench_harness(torch, ops, dev)
+    torch.cuda.empty_cache()
     for row in rows:
         if row["name"] in fp32_rows:
             row.setdefault("by_shape", {}).update(fp32_rows[row["name"]])

@@ -212,14 +212,20 @@ def test_every_pallas_call_has_a_kernel_wrapper():
 
 
 def test_new_modules_import_no_jax():
-    """The softmax slice's modules are among the scanned files."""
+    """The softmax slice's modules and the bench slice's (the bench, amp's
+    functions, the native runtime, the DCGAN example) are among the
+    scanned files."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert {"apex_tpu_torch/ops/softmax.py",
             "apex_tpu_torch/transformer/functional/fused_softmax.py",
             "apex_tpu_torch/normalization/fused_layer_norm.py",
             "apex_tpu_torch/models/mlp.py",
             "apex_tpu_torch/models/fused_dense.py",
-            "apex_tpu_torch/contrib/layer_norm.py"} <= rel
+            "apex_tpu_torch/contrib/layer_norm.py",
+            "apex_tpu_torch/bench.py", "apex_tpu_torch/amp/functions.py",
+            "apex_tpu_torch/utils/log_util.py",
+            "apex_tpu_torch/csrc/runtime.py",
+            "apex_tpu_torch/examples/dcgan/main_amp.py"} <= rel
 
 
 def test_softmax_on_a_cuda_tensor_launches_or_raises(monkeypatch):
@@ -265,15 +271,23 @@ def test_unknown_remat_policy_raises():
 
 
 def test_bench_options_outside_the_slice_raise(monkeypatch):
+    """ZeRO raises naming item 11; the telemetry variables and
+    ``--gpt-profile`` raise naming item 21 (the O0 leg runs now)."""
+    from apex_tpu_torch import bench
     from apex_tpu_torch.bench import build
 
-    with pytest.raises(NotImplementedError, match="O0"):
-        build("O0", device="cpu")
     for var in ("BENCH_ZERO", "BENCH_QCOMM"):
         monkeypatch.setenv(var, "1")
         with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
             build("O2", device="cpu")
         monkeypatch.delenv(var)
+    for var in bench.MONITOR_VARS:
+        monkeypatch.setenv(var, "1")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
+            build("O2", device="cpu")
+        monkeypatch.delenv(var)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 21"):
+        bench.cli(["--gpt-profile"])
 
 
 def test_bench_o2_step_on_the_cpu():
