@@ -20,6 +20,13 @@ eager Adam, again ``windows`` times) between CUDA events (the host clock on
 the CPU), and each ratio is the median of the same-window ratios. Prints
 one JSON line with both ratios per list, the card's name and power limit.
 The ratio is reported; nothing is claimed.
+
+The command line adds :func:`per_optimizer_ms`: the ms a step of every
+fused optimizer of the port on the GPT-2-124M list (FusedAdam, FusedLAMB,
+FusedAdagrad, FusedNovoGrad, LARC around FusedSGD with momentum, and
+FusedMixedPrecisionLamb stepping bf16 copies of the list through fp32
+masters from grads scaled by 2^16, with no host read), in interleaved
+windows; reported only.
 """
 
 from __future__ import annotations
@@ -34,7 +41,15 @@ from typing import Callable, Dict, List
 import torch
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
-from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+from apex_tpu_torch.optimizers import (
+    LARC,
+    FusedAdagrad,
+    FusedAdam,
+    FusedLAMB,
+    FusedMixedPrecisionLamb,
+    FusedNovoGrad,
+    FusedSGD,
+)
 
 
 def gpt2_like_params(hidden: int = 768, layers: int = 12, vocab: int = 50304,
@@ -150,7 +165,56 @@ def measure(params: List[torch.Tensor], fused_steps: int = 10,
     return out
 
 
-def _card() -> str:
+def per_optimizer_ms(params: List[torch.Tensor], steps: int = 10,
+                     windows: int = 3) -> Dict[str, float]:
+    """The ms a step of each fused optimizer on its own copy of ``params``
+    (grads of 1e-4), windows of ``steps`` steps interleaved across the
+    optimizers, the median window of each. FusedMixedPrecisionLamb steps
+    bf16 copies from bf16 grads of 1e-4 x 2^16 with ``scale`` and ``lr`` as
+    device tensors."""
+    on_card = params[0].device.type == "cuda"
+    grads = [torch.full_like(p, 1e-4) for p in params]
+    scale = 2.0 ** 16
+    sides = {}
+    for name, opt in (("fused_adam", FusedAdam(lr=1e-3)),
+                      ("fused_lamb", FusedLAMB(lr=1e-3)),
+                      ("fused_adagrad", FusedAdagrad(lr=1e-3)),
+                      ("fused_novograd", FusedNovoGrad(lr=1e-3)),
+                      ("larc_fused_sgd",
+                       LARC(FusedSGD(lr=1e-3, momentum=0.9)))):
+        ps = [p.clone() for p in params]
+        box = [opt.init(ps)]
+
+        def step(opt=opt, ps=ps, box=box):
+            box[0] = opt.update_(ps, grads, box[0])
+
+        sides[name] = step
+    mp = FusedMixedPrecisionLamb(lr=1e-3,
+                                 reduced_precision_dtype=torch.bfloat16)
+    mps = [p.to(torch.bfloat16) for p in params]
+    mpg = [torch.full_like(p, 1e-4 * scale) for p in mps]
+    dev = params[0].device
+    kw = dict(scale=torch.full((), scale, device=dev),
+              lr=torch.full((), 1e-3, device=dev))
+    mbox = [mp.init(mps)]
+
+    def mp_step():
+        mbox[0] = mp.step(mbox[0], mps, mpg, **kw)
+
+    sides["fused_mixed_precision_lamb"] = mp_step
+    for fn in sides.values():  # warm-up
+        fn()
+    if on_card:
+        torch.cuda.synchronize()
+    samples: Dict[str, List[float]] = {k: [] for k in sides}
+    for _ in range(windows):
+        for name, fn in sides.items():
+            samples[name].append(_window_ms(fn, steps, on_card))
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -171,7 +235,7 @@ def run(device: DeviceLike = None, gpt2=None, bert: bool = True,
         del params
     return {"metric": "fused_optimizer_step_vs_eager_adam_step",
             "unit": "x", "platform": "gpu" if dev.type == "cuda" else "cpu",
-            "card": _card() if dev.type == "cuda" else None,
+            "card": card_line() if dev.type == "cuda" else None,
             "trees": trees}
 
 
@@ -181,7 +245,10 @@ def main(argv=None) -> int:
                     help="'cuda' (the default) or 'cpu'")
     ap.add_argument("--windows", type=int, default=3)
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.device, windows=args.windows)))
+    rec = run(args.device, windows=args.windows)
+    rec["per_optimizer_ms"] = {"gpt2_124m": per_optimizer_ms(
+        gpt2_like_params(device=args.device), windows=args.windows)}
+    print(json.dumps(rec))
     return 0
 
 

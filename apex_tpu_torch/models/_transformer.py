@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import layer_norm
 from apex_tpu_torch.transformer import tensor_parallel as tp
+from apex_tpu_torch.utils.nn import inverted_dropout
 
 
 #: the remat policies (``_remat_policy``, ``_transformer.py:123-142``)
@@ -133,18 +134,6 @@ def _rope_rotate(x, positions, theta, *, batched):
     x2 = x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
-
-
-def inverted_dropout(x: torch.Tensor, rate: float,
-                     generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Zero each element with probability ``rate`` and scale the rest by
-    ``1 / (1 - rate)`` (``utils/nn.py:17-26``); identity without a
-    generator or at rate 0."""
-    if generator is None or rate == 0.0:
-        return x
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
 class LayerNormParams(nn.Module):

@@ -10,7 +10,7 @@
     python3 chip_smoke.py --kernel-names   # fp32 attention kernels by name
     python3 chip_smoke.py --generate-profile   # an fp32 generate, profiled
 
-Eleven phases; any failure raises and exits non-zero:
+Twelve phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
@@ -220,6 +220,21 @@ Eleven phases; any failure raises and exits non-zero:
    (``apex_tpu_torch.examples.dcgan.main_amp``) 10 steps on the card:
    finite losses, bf16 params, both scalers clean, no csrc kernel; and the
    native host runtime (``csrc.available()``, a flatten round trip).
+12. **The convergence probe, the rest of the optimizers and the legacy
+   APIs** (:func:`optimizers_and_legacy`): (a) ``python -m
+   apex_tpu_torch.benchmarks.convergence_probe`` at its defaults (GPT-2
+   345M O2, 600 steps of 2 x 512 tokens, lr 3e-4 warmed up over 50 steps;
+   the CPU replay in a subprocess cut to 3 steps): exit 0, final loss <=
+   6.0, the replay with no error within 0.05, the exact launch counts
+   (path ``probe``); (b) ``FusedMixedPrecisionLamb`` beside
+   ``MixedPrecisionOptimizer(FusedLAMB)`` at BERT-large (16 x 512, O2, 5
+   steps on the same scaled grads): masters within 1e-5 of each leaf's max,
+   bf16 params equal, no host sync in its step (sync debug mode "error"),
+   a planted inf leaving every bit and the step count; (c)
+   ``FP16_Optimizer(FusedAdam)`` beside amp O2 at GPT-2 345M (8 x 1024, 3
+   steps): masters within 1e-6, a planted inf skipped with the scale
+   halved; (d) every fused optimizer's ms a step on the GPT-2-124M list;
+   (e) ``make_lstm(1024, 1024, 2)`` at 32 x 128 steps fp32 against the CPU.
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -229,8 +244,8 @@ count on the three serving runs, the GPT training run, the ResNet
 training run, the two long-context runs and phase 7's run (``softmax``),
 each counted from 0, phase 8's BERT run (``bert``), phase 9's (``fmha``)
 and phase 10's (``gpt_pretrain``, ``gpt_pretrain_o0``, ``gpt_remat_*``,
-``gpt_generate*``, ``gpt_pretrain_o0_long``) and phase 11's (``bench``);
-``by_shape`` also holds phase 10's fp32 times;
+``gpt_generate*``, ``gpt_pretrain_o0_long``), phase 11's (``bench``) and
+phase 12's (``probe``); ``by_shape`` also holds phase 10's fp32 times;
 ``segments``: phase 9's times on #1-#6; ``launches``:
 their sum; ``bias_route``: #1, #5 and #6 with and without the bias;
 ``launch_floor_ms`` on the decode and xentropy rows), the decode split-count
@@ -6151,6 +6166,329 @@ def bench_harness(torch, ops, dev):
     return {name: counts.get(name, 0) for name in ops.KERNEL_WRAPPERS}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the convergence probe, the rest of the optimizers and the legacy
+# APIs
+# ---------------------------------------------------------------------------
+
+#: the probe's arguments beyond its defaults (GPT-2 345M, 600 steps of 2 x
+#: 512 tokens, lr 3e-4 warmed up over 50 steps): the CPU replay cut from 6
+#: steps to 3, its fewest; a replay step of the 345M bf16 model takes
+#: about 32 s on the card's host, after about 37 s of set-up (PERF.md)
+PROBE_ARGS = ["--cpu-check-steps", "3"]
+PROBE_OUTPUT = os.path.join(HERE, "build", "convergence_probe.json")
+
+
+def convergence_probe(torch, ops, dev):
+    """Phase 12 (a): ``python -m apex_tpu_torch.benchmarks.convergence_probe``
+    at its defaults but :data:`PROBE_ARGS`, in this process (its ``main``):
+    GPT-2 345M O2 (full remat, the 8-chunk LM head, FusedAdam with a
+    50-step warm-up) trains 600 steps on 2 fixed batches of 2 x 512
+    tokens, then replays the first 3 on the CPU in a subprocess. Requires
+    exit 0 and ``ok``, a final loss
+    <= 6.0, a replay with no ``error`` within its band (0.05), and the
+    exact launch counts of the card's steps (#1 2L a step with the remat
+    recompute, #5 and #6 L, #7 4L + 1, #8 2L + 1; the replay runs the plain
+    versions in its own process). Prints the overflow count, the final
+    scale, the curve every 50 steps and the wall times. Returns the launch
+    counts (path ``probe``)."""
+    from apex_tpu_torch.benchmarks import convergence_probe as cp
+
+    if os.path.exists(PROBE_OUTPUT):
+        os.unlink(PROBE_OUTPUT)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cp.main(PROBE_ARGS + ["--output", PROBE_OUTPUT])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    dt = time.perf_counter() - t0
+    with open(PROBE_OUTPUT) as f:
+        rec = json.load(f)
+    L, steps = rec["layers"], rec["steps"]
+    per_step = dict.fromkeys(counts, 0)
+    per_step.update({"flash_attention_fwd": 2 * L,
+                     "flash_attention_bwd_dq": L,
+                     "flash_attention_bwd_dkv": L,
+                     "layer_norm_fwd": 4 * L + 1,
+                     "layer_norm_bwd": 2 * L + 1})
+    print(f"  probe: {steps} steps, launches {counts} (expected per step "
+          f"{per_step})")
+    check_counts(counts, {k: v * steps for k, v in per_step.items()},
+                 "probe")
+    cc = rec.get("cpu_check", {})
+    check("error" not in cc and "cpu_curve_max_rel_dev" in cc,
+          f"probe CPU replay failed: {cc}")
+    curve = rec["curve_every_10"]
+    print(f"  probe (GPT-2 345M O2, {rec['batch']} x {rec['seq']}, lr "
+          f"{rec['lr']} warmed up over {rec['warmup_steps']} steps): loss "
+          f"{rec['loss_first']} -> {rec['loss_final']} (bar "
+          f"{cp.LOSS_BAR}), max after warm-up {rec['loss_max_after_warmup']}"
+          f", overflow steps {rec['overflow_steps']}, final scale "
+          f"{rec['final_loss_scale']:g}, wall {rec['wall_seconds']} s (phase "
+          f"{dt:.1f} s); {rec['card']}")
+    print(f"  probe curve every 50 steps: {curve[::5]}")
+    print(f"  probe CPU replay: {cc['steps']} steps in {cc['seconds']} s, "
+          f"device {cc['device_curve']}, cpu {cc['cpu_curve']}, max rel dev "
+          f"{cc['cpu_curve_max_rel_dev']} (band {cc['band']})")
+    verdict("probe final loss (bar 6.0)", rec["loss_final"], cp.LOSS_BAR,
+            group="convergence probe")
+    verdict("probe CPU replay max rel dev", cc["cpu_curve_max_rel_dev"],
+            cc["band"], "cuda/cpu", group="convergence probe")
+    check(rc == 0 and rec["ok"] is True and rec["platform"] == dev.type,
+          f"probe: exit {rc}, record {rec}")
+    return counts
+
+
+def mp_lamb_bert(torch, ops, dev, steps=5):
+    """Phase 12 (b): BERT-large (phase 8's build: O2, 16 x 512, FusedLAMB
+    lr 2e-3, weight decay 0.01) steps ``steps`` times through
+    ``amp.MixedPrecisionOptimizer(FusedLAMB)``; before each step the scaled
+    grads are cloned and fed to a ``FusedMixedPrecisionLamb`` that started
+    from the same bf16 weights, its ``lr`` and ``scale`` device tensors,
+    its step run under ``torch.cuda.set_sync_debug_mode("error")`` (any
+    host sync raises). After each step every master must lie within 1e-5 of
+    its leaf's max |master| of amp's, and the bf16 params must be equal.
+    Then an inf planted in one grad: masters, moments, the bf16 params and
+    the step count keep their bits."""
+    import numpy as np
+
+    from apex_tpu_torch.examples.bert.pretrain_bert import (
+        build,
+        synthetic_batch,
+    )
+    from apex_tpu_torch.optimizers import FusedMixedPrecisionLamb
+
+    torch.cuda.empty_cache()
+    trainer = build(hidden=1024, layers=24, heads=16, seq=512, batch=16,
+                    device=dev)
+    model, mp_opt, st = trainer.model, trainer.mp_opt, trainer.opt_state
+    params = list(model.parameters())
+    twin = [p.detach().clone() for p in params]
+    opt = FusedMixedPrecisionLamb(lr=2e-3, weight_decay=0.01,
+                                  reduced_precision_dtype=torch.bfloat16)
+    ms = opt.init(twin)
+    lr_t = torch.full((), 2e-3, device=dev)
+    batch = synthetic_batch(np.random.default_rng(0), 16, 512,
+                            trainer.cfg.vocab_size, dev)
+    worst, diff = (0.0, -1), 0
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = model.loss(*batch)
+        scale = st.scaler.loss_scale
+        mp_opt.scale_loss(loss, st).backward()
+        grads = [p.grad.clone() if p.grad is not None
+                 else torch.zeros_like(p) for p in params]
+        scale_t = torch.full((), scale, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ms = opt.step(ms, twin, grads, lr=lr_t, scale=scale_t)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        metrics = mp_opt.step(st, model)
+        check(not metrics["found_inf"], f"mp-LAMB check: step {i} skipped")
+        for j, (a, b) in enumerate(zip(ms.master, st.master)):
+            worst = max(worst, (rel_err(a, b), j))
+        diff = max(diff, sum(int((a != b).sum()) for a, b in
+                             zip(twin, params)))
+    dt = time.perf_counter() - t0
+    names = [n for n, _ in model.named_parameters()]
+    check(int(ms.step) == steps, f"mp-LAMB step {int(ms.step)} != {steps}")
+    print(f"  mp-LAMB at BERT-large (16 x 512, {len(params)} leaves, "
+          f"{sum(p.numel() for p in params) / 1e6:.1f} M params): {steps} "
+          f"steps beside MixedPrecisionOptimizer(FusedLAMB) in {dt:.1f} s, "
+          f"loss {float(loss.detach()):.4f}, scale "
+          f"{st.scaler.loss_scale:g}; worst master {worst[0]:.3g} of its "
+          f"leaf's max ({names[worst[1]]}; tol 1e-5), bf16 params "
+          f"differing {diff}; no host sync in its step")
+    verdict("mp-LAMB masters vs MixedPrecisionOptimizer(FusedLAMB), BERT-"
+            "large (error / leaf max)", worst[0], 1e-5, group="mp-LAMB")
+    verdict("mp-LAMB bf16 params differing from amp's (elements)", diff, 0,
+            group="mp-LAMB")
+    bad = [g.clone() for g in grads]
+    bad[5].view(-1)[7] = float("inf")
+    before = [t.clone() for t in [*ms.master, *ms.exp_avg, *ms.exp_avg_sq,
+                                  *twin]]
+    step0 = ms.step.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ms = opt.step(ms, twin, bad, lr=lr_t, scale=scale_t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = [*ms.master, *ms.exp_avg, *ms.exp_avg_sq, *twin]
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, after))
+    check(torch.equal(ms.step, step0), "mp-LAMB step advanced on an inf")
+    verdict("mp-LAMB overflow skip: tensors whose bits changed", changed, 0,
+            group="mp-LAMB")
+    print(f"  mp-LAMB planted inf ({names[5]}): step stays {int(ms.step)}, "
+          f"{len(before)} masters, moments and params bit-identical")
+    del trainer, model, params, twin, ms, grads, bad, before, after
+    torch.cuda.empty_cache()
+
+
+def fp16_optimizer_gpt(torch, ops, dev, steps=3, batch=8):
+    """Phase 12 (c): GPT-2 345M (``convert_network``: bf16, norms fp32; full
+    remat, the 8-chunk LM head) on one batch of ``batch`` x 1024 tokens:
+    ``FP16_Optimizer(FusedAdam(1e-4))`` with a dynamic scale starting at
+    2^16 steps a copy of the params from the same scaled grads as
+    ``amp.MixedPrecisionOptimizer(FusedAdam(1e-4))`` at O2, ``steps``
+    steps: the masters within 1e-6 of each leaf's max, the bf16 params
+    equal. Then an inf planted in one grad: the step is skipped (masters
+    and moments keep their bits) and the scale halves."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer, convert_network
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.precision import name_is_norm
+
+    torch.cuda.empty_cache()
+    cfg = GPTConfig(hidden_dropout=0.0, compute_dtype=torch.bfloat16,
+                    remat=True, lm_head_chunks=8)
+    model = GPTModel(cfg, device=dev, seed=0)
+    convert_network(model)
+    check(all(p.dtype == (torch.float32 if name_is_norm(n)
+                          else torch.bfloat16)
+              for n, p in model.named_parameters()),
+          "convert_network: bf16 weights, fp32 norms")
+    params = list(model.parameters())
+    twin = [p.detach().clone() for p in params]
+    mpo = amp.MixedPrecisionOptimizer(FusedAdam(lr=1e-4),
+                                      amp.get_policy("O2"))
+    st = mpo.init(model)
+    legacy = FP16_Optimizer(FusedAdam(lr=1e-4), dynamic_loss_scale=True,
+                            dynamic_loss_args={"init_scale": 2.0 ** 16})
+    fs = legacy.init(twin)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                           generator=gen, device=dev)
+    targets = torch.roll(tokens, -1, dims=-1)
+    worst, diff = (0.0, -1), 0
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = model.loss(tokens, targets)
+        check(fs.scaler.loss_scale == st.scaler.loss_scale,
+              "FP16_Optimizer and amp scale alike")
+        mpo.scale_loss(loss, st).backward()
+        grads = [p.grad.clone() for p in params]
+        info = legacy.step(fs, twin, grads)
+        metrics = mpo.step(st, model)
+        check(not info["overflow"] and not metrics["found_inf"],
+              f"FP16_Optimizer check: step {i} overflowed")
+        for j, (a, b) in enumerate(zip(fs.master, st.master)):
+            worst = max(worst, (rel_err(a, b), j))
+        diff = max(diff, sum(int((a != b).sum()) for a, b in
+                             zip(twin, params)))
+    dt = time.perf_counter() - t0
+    names = [n for n, _ in model.named_parameters()]
+    print(f"  FP16_Optimizer(FusedAdam) at GPT-2 345M ({batch} x "
+          f"{cfg.max_seq_len}): {steps} steps beside amp O2 in {dt:.1f} s, "
+          f"loss {float(loss.detach()):.4f}; worst master {worst[0]:.3g} of "
+          f"its leaf's max ({names[worst[1]]}; tol 1e-6), bf16 params "
+          f"differing {diff}")
+    verdict("FP16_Optimizer masters vs amp O2 FusedAdam, GPT-2 345M (error "
+            "/ leaf max)", worst[0], 1e-6, group="FP16_Optimizer")
+    verdict("FP16_Optimizer bf16 params differing from amp's (elements)",
+            diff, 0, group="FP16_Optimizer")
+    bad = [g.clone() for g in grads]
+    bad[3].view(-1)[11] = float("inf")
+    before = [t.clone() for t in [*fs.master, *fs.inner.exp_avg,
+                                  *fs.inner.exp_avg_sq, *twin]]
+    scale0, inner_step = fs.scaler.loss_scale, fs.inner.step
+    info = legacy.step(fs, twin, bad)
+    after = [*fs.master, *fs.inner.exp_avg, *fs.inner.exp_avg_sq, *twin]
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, after))
+    check(info["overflow"] and fs.inner.step == inner_step
+          and fs.scaler.loss_scale == scale0 / 2,
+          f"FP16_Optimizer overflow: {info}, step {fs.inner.step}")
+    verdict("FP16_Optimizer overflow skip: tensors whose bits changed",
+            changed, 0, group="FP16_Optimizer")
+    print(f"  FP16_Optimizer planted inf ({names[3]}): skipped, scale "
+          f"{scale0:g} -> {fs.scaler.loss_scale:g}")
+    del model, params, twin, st, fs, grads, bad, before, after
+    torch.cuda.empty_cache()
+
+
+def optimizer_ms_line(torch, dev):
+    """Phase 12 (d): ``optimizer_step.per_optimizer_ms`` on the GPT-2-124M
+    list: every fused optimizer's ms a step, one JSON line; reported
+    only."""
+    from apex_tpu_torch.benchmarks import optimizer_step
+
+    params = optimizer_step.gpt2_like_params(device=dev)
+    ms = optimizer_step.per_optimizer_ms(params)
+    print(json.dumps({"per_optimizer_ms": {"gpt2_124m": ms},
+                      "leaves": len(params),
+                      "params": sum(p.numel() for p in params),
+                      "card": nvidia_smi()}))
+    del params
+    torch.cuda.empty_cache()
+    return ms
+
+
+#: (e)'s tolerance: each output, final state and grad within this share of
+#: its max |CPU value| (fp32 GEMMs in another order through 128 steps)
+LSTM_TOL = 1e-4
+
+
+def lstm_card_vs_cpu(torch, dev, batch=32, steps=128):
+    """Phase 12 (e): ``make_lstm(1024, 1024, 2)`` on the card against the
+    same weights on the CPU, fp32 with TF32 off: the outputs, both layers'
+    final (h, c), and the grads of every weight and of the input under a
+    fixed random projection of the outputs, each within
+    :data:`LSTM_TOL` of its max |CPU value|."""
+    from apex_tpu_torch.rnn import make_lstm
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+    card = make_lstm(1024, 1024, 2, device=dev, seed=3)
+    host = make_lstm(1024, 1024, 2, device="cpu", seed=3)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(batch, steps, 1024, generator=gen)
+    proj = torch.randn(batch, steps, 1024, generator=gen)
+    results = {}
+    for label, net, d in (("card", card, dev), ("cpu", host, "cpu")):
+        xd = x.to(d).requires_grad_()
+        t0 = time.perf_counter()
+        out, finals = net(xd)
+        (out * proj.to(d)).sum().backward()
+        if d != "cpu":
+            torch.cuda.synchronize()
+        results[label] = (time.perf_counter() - t0, [
+            ("output", out.detach()), ("h0", finals[0][0].detach()),
+            ("c0", finals[0][1].detach()), ("h1", finals[1][0].detach()),
+            ("c1", finals[1][1].detach()), ("grad x", xd.grad)] + [
+            (f"grad {n}", p.grad) for n, p in net.named_parameters()])
+    worst = (0.0, "")
+    for (name, got), (_, ref) in zip(results["card"][1], results["cpu"][1]):
+        worst = max(worst, (rel_err(got.cpu(), ref), name))
+    print(f"  make_lstm(1024, 1024, 2), {batch} x {steps} steps fp32: "
+          f"forward + backward {results['card'][0]:.2f} s on the card, "
+          f"{results['cpu'][0]:.2f} s on the CPU; worst {worst[0]:.3g} of "
+          f"its max |cpu| ({worst[1]}; tol {LSTM_TOL:g}) over the output, "
+          f"the final states and {len(results['cpu'][1]) - 5} grads")
+    verdict(f"LSTM card vs CPU, worst ({worst[1]})", worst[0], LSTM_TOL,
+            "cuda/cpu", group="LSTM card vs CPU")
+    del card, host
+    torch.cuda.empty_cache()
+
+
+def optimizers_and_legacy(torch, ops, dev):
+    """Phase 12: the convergence probe (a, its launch counts returned as
+    path ``probe``), mp-LAMB at BERT-large (b), FP16_Optimizer at GPT-2
+    345M (c), the optimizers' ms a step (d) and the LSTM (e)."""
+    t0 = time.perf_counter()
+    counts = convergence_probe(torch, ops, dev)
+    torch.cuda.empty_cache()
+    mp_lamb_bert(torch, ops, dev)
+    fp16_optimizer_gpt(torch, ops, dev)
+    optimizer_ms_line(torch, dev)
+    lstm_card_vs_cpu(torch, dev)
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     import torch
 
@@ -6244,6 +6582,11 @@ def main():
     print("phase 11: the root bench.py harness (python -m "
           "apex_tpu_torch.bench), the DCGAN example, the native runtime")
     gpt_counts["bench"] = bench_harness(torch, ops, dev)
+    torch.cuda.empty_cache()
+
+    print("phase 12: the convergence probe, the rest of the optimizers and "
+          "the legacy APIs")
+    gpt_counts["probe"] = optimizers_and_legacy(torch, ops, dev)
     torch.cuda.empty_cache()
     for row in rows:
         if row["name"] in fp32_rows:

@@ -212,10 +212,24 @@ def test_every_pallas_call_has_a_kernel_wrapper():
 
 
 def test_new_modules_import_no_jax():
-    """The softmax slice's modules and the bench slice's (the bench, amp's
-    functions, the native runtime, the DCGAN example) are among the
-    scanned files."""
+    """The softmax slice's modules, the bench slice's (the bench, amp's
+    functions, the native runtime, the DCGAN example) and the probe
+    slice's (the convergence probe, utils/io and utils/nn, the rest of the
+    optimizers, fp16_utils, rnn, reparameterization) are among the scanned
+    files."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"apex_tpu_torch/benchmarks/convergence_probe.py",
+            "apex_tpu_torch/utils/io.py", "apex_tpu_torch/utils/nn.py",
+            "apex_tpu_torch/optimizers/fused_adagrad.py",
+            "apex_tpu_torch/optimizers/fused_novograd.py",
+            "apex_tpu_torch/optimizers/larc.py",
+            "apex_tpu_torch/optimizers/fused_mixed_precision_lamb.py",
+            "apex_tpu_torch/fp16_utils/__init__.py",
+            "apex_tpu_torch/fp16_utils/fp16_optimizer.py",
+            "apex_tpu_torch/fp16_utils/fp16util.py",
+            "apex_tpu_torch/fp16_utils/loss_scaler.py",
+            "apex_tpu_torch/rnn.py",
+            "apex_tpu_torch/reparameterization/__init__.py"} <= rel
     assert {"apex_tpu_torch/ops/softmax.py",
             "apex_tpu_torch/transformer/functional/fused_softmax.py",
             "apex_tpu_torch/normalization/fused_layer_norm.py",
