@@ -16,11 +16,14 @@ from apex_tpu_torch.models.resnet import (
     ResNet18,
     ResNet34,
     ResNet50,
+    ResNet50Frozen,
     ResNet101,
+    ResNet101Frozen,
     ResNet152,
 )
 
 __all__ = ["BasicBlock", "BertConfig", "BertModel", "Bottleneck",
            "FusedDense", "FusedDenseGeluDense", "extended_attention_mask",
            "GPTConfig", "GPTModel", "MLP", "ResNet", "ResNet18", "ResNet34",
-           "ResNet50", "ResNet101", "ResNet152"]
+           "ResNet50", "ResNet50Frozen", "ResNet101", "ResNet101Frozen",
+           "ResNet152"]

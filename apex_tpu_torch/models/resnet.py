@@ -25,9 +25,17 @@ BN + ReLU fusion and the fp32 classifier are the reference's
   "batch_stats"}`` tree given as numpy (HWIO conv kernels, an ``(in, out)``
   Dense kernel) and :meth:`ResNet.to_numpy` gives it back.
 
+``norm_cls`` swaps the norm wholesale, as the reference's does: it takes
+the :class:`~apex_tpu_torch.parallel.SyncBatchNorm` constructor surface
+(``momentum``, ``axis_name``, ``group_size``, ``channel_last``, ``device``
+and ``fuse_relu``). :data:`ResNet50Frozen` / :data:`ResNet101Frozen` build
+every block as ``contrib.bottleneck.FastBottleneck`` with
+``norm_cls=FrozenBatchNorm`` (``resnet.py:168-180``): a tree with no
+``batch_stats``, which ``params_from_numpy`` / ``to_numpy`` carry as the
+reference's ``{"params"}``.
+
 Not in this slice: BN synchronised over a process group (``axis_name``,
-``bn_group_size``; ROADMAP Queue 1 item 9) and the frozen/contrib variants
-(``ResNet50Frozen``, ``norm_cls``; Queue 1 item 20). The downsample branch
+``bn_group_size``; ROADMAP Queue 1 item 9). The downsample branch
 is built when a block changes the channel count or has stride 2, which is
 where the reference's shape test (``residual.shape != y.shape``) puts it for
 every feature map larger than 1 x 1.
@@ -173,7 +181,8 @@ class ResNet(nn.Module):
     ``width * 2**i``; ``stem_pool`` chooses the ImageNet stem (7x7 stride 2
     and a 3x3 max pool) or the small-image one (3x3, no pool). BN momentum
     is 0.1 and every BN is local; ``axis_name`` / ``bn_group_size`` raise
-    until data parallelism (ROADMAP Queue 1 item 9). The images have 3
+    until data parallelism (ROADMAP Queue 1 item 9). ``norm_cls`` is the
+    norm's constructor (``SyncBatchNorm``'s surface). The images have 3
     channels (flax infers the count from the first input; the port builds
     its weights up front). Runs on the card unless ``device="cpu"``;
     weights from ``seed``."""
@@ -182,6 +191,7 @@ class ResNet(nn.Module):
                  num_classes: int = 1000, width: int = 64,
                  axis_name: Optional[str] = None,
                  bn_group_size: Optional[int] = None,
+                 norm_cls=SyncBatchNorm,
                  dtype: torch.dtype = torch.float32, stem_pool: bool = True,
                  device: DeviceLike = None, seed: int = 0):
         super().__init__()
@@ -190,7 +200,7 @@ class ResNet(nn.Module):
         gen.manual_seed(int(seed))
         self.device, self.dtype, self.stem_pool = dev, dtype, stem_pool
         self.stage_sizes = tuple(stage_sizes)
-        norm = partial(SyncBatchNorm, momentum=0.1, axis_name=axis_name,
+        norm = partial(norm_cls, momentum=0.1, axis_name=axis_name,
                        group_size=bn_group_size, channel_last=False,
                        device=dev)
         if stem_pool:
@@ -230,17 +240,23 @@ class ResNet(nn.Module):
     # -- parameters ---------------------------------------------------------
 
     def _tree_modules(self):
-        """``(flax path, module)`` of every conv, BN and the classifier."""
+        """``(flax path, module)`` of every conv, norm and the
+        classifier."""
+        from apex_tpu_torch.contrib.bottleneck import FrozenBatchNorm
+
         for name, mod in self.named_modules():
-            if isinstance(mod, (Conv, Dense, SyncBatchNorm)):
+            if isinstance(mod, (Conv, Dense, SyncBatchNorm,
+                                FrozenBatchNorm)):
                 yield tuple(name.split(".")), mod
 
     @torch.no_grad()
     def params_from_numpy(self, variables: Dict[str, Any]) -> "ResNet":
         """Load the JAX model's ``{"params", "batch_stats"}`` tree given as
         numpy arrays: HWIO conv kernels, the Dense kernel ``(in, out)``, BN
-        ``scale``/``bias`` and ``mean``/``var``/``num_batches_tracked``.
-        Each tensor keeps its dtype and memory format; shapes must match."""
+        ``scale``/``bias`` and ``mean``/``var``/``num_batches_tracked``
+        (a frozen norm's ``scale``/``bias`` only: the frozen models' tree
+        has no ``batch_stats``). Each tensor keeps its dtype and memory
+        format; shapes must match."""
         params, stats = variables["params"], variables.get("batch_stats", {})
 
         def leaf(tree, path, key):
@@ -269,7 +285,8 @@ class ResNet(nn.Module):
     @torch.no_grad()
     def to_numpy(self) -> Dict[str, Any]:
         """The ``{"params", "batch_stats"}`` tree in the reference's layout,
-        as fp32 numpy (``num_batches_tracked`` int32)."""
+        as fp32 numpy (``num_batches_tracked`` int32); ``{"params"}`` alone
+        where no norm tracks statistics (the frozen models)."""
         params: Dict[str, Any] = {}
         stats: Dict[str, Any] = {}
 
@@ -296,7 +313,8 @@ class ResNet(nn.Module):
                         mean=f32(mod.mean), var=f32(mod.var),
                         num_batches_tracked=mod.num_batches_tracked.cpu()
                         .numpy())
-        return {"params": params, "batch_stats": stats}
+        return {"params": params, "batch_stats": stats} if stats \
+            else {"params": params}
 
 
 def _resnet(stage_sizes, block_cls, **kw) -> ResNet:
@@ -308,3 +326,20 @@ ResNet34 = partial(_resnet, (3, 4, 6, 3), BasicBlock)
 ResNet50 = partial(_resnet, (3, 4, 6, 3), Bottleneck)
 ResNet101 = partial(_resnet, (3, 4, 23, 3), Bottleneck)
 ResNet152 = partial(_resnet, (3, 8, 36, 3), Bottleneck)
+
+
+def _frozen_resnet(stage_sizes, **kw) -> ResNet:
+    """ResNet with every BN frozen to a per-channel scale and bias, the
+    detection-backbone configuration of apex's fast_bottleneck extension:
+    ``FastBottleneck`` blocks and a frozen stem norm (``_frozen_resnet``)."""
+    from apex_tpu_torch.contrib.bottleneck import (
+        FastBottleneck,
+        FrozenBatchNorm,
+    )
+
+    return ResNet(stage_sizes, FastBottleneck, norm_cls=FrozenBatchNorm,
+                  **kw)
+
+
+ResNet50Frozen = partial(_frozen_resnet, (3, 4, 6, 3))
+ResNet101Frozen = partial(_frozen_resnet, (3, 4, 23, 3))

@@ -9,8 +9,9 @@
     python3 chip_smoke.py --sass TREE   # SASS counts of the flash kernels
     python3 chip_smoke.py --kernel-names   # fp32 attention kernels by name
     python3 chip_smoke.py --generate-profile   # an fp32 generate, profiled
+    python3 chip_smoke.py --contrib   # the build, then phase 13 alone
 
-Twelve phases; any failure raises and exits non-zero:
+Thirteen phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
@@ -235,6 +236,29 @@ Twelve phases; any failure raises and exits non-zero:
    steps): masters within 1e-6, a planted inf skipped with the scale
    halved; (d) every fused optimizer's ms a step on the GPT-2-124M list;
    (e) ``make_lstm(1024, 1024, 2)`` at 32 x 128 steps fp32 against the CPU.
+13. **Contrib** (:func:`contrib_phase`): (a) ``SelfMultiheadAttn`` and
+   ``EncdecMultiheadAttn`` at Transformer-big width (embed 1024, 16 heads
+   of 64, batch 16, biases, ``include_norm_add``): self-attention on 512
+   tokens with a seeded key-padding mask (lengths 128-512), then with a
+   dense float ``attn_mask`` added, and 384 queries over a 512-token memory
+   under the padding mask, each bf16 and fp32, forward and backward
+   through ``impl="fast"`` (#1, #5, #6, #7, #8 once each) against
+   ``impl="default"`` on the card: the output and every parameter's and
+   input's grad by share of max |ref| and by row (phase 2's limits), q/k/v
+   read in place, both routes' forward + backward ms and the attention
+   alone beside SDPA with the float mask; (b) a small frozen ResNet's fp32
+   gradient gate (card against the CPU), then ``ResNet50Frozen`` at 64 x
+   224² under amp O2 with FusedSGD (lr 1e-3), phase 5's step, 1 + 10 steps:
+   a finite falling loss, each xentropy kernel once a step, images/s; (c)
+   the RNN-T joint and loss at B 16, T 256, U 64, V 1024, joint width 512
+   (bf16 joint, fp32 log-probs): the loss and its grad against the CPU on
+   the same log-probs (1e-5), two sequences against the float64 DP (1e-4),
+   the ms; (d) ASP at GPT-2 345M O2 (phase 4's build): the 2:4 masks of
+   every eligible leaf on the card equal the CPU's, a seeded channel
+   permutation of layer 0's MLP pair keeps its output (1e-5), 5 steps of
+   the ASP-wrapped FusedAdam under amp with every masked group of 4 holding
+   >= 2 zeros in the bf16 params and the fp32 masters after each step,
+   ``sparsity_ratio`` 0.5, phase 4's launches a step and a falling loss.
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -245,7 +269,8 @@ training run, the two long-context runs and phase 7's run (``softmax``),
 each counted from 0, phase 8's BERT run (``bert``), phase 9's (``fmha``)
 and phase 10's (``gpt_pretrain``, ``gpt_pretrain_o0``, ``gpt_remat_*``,
 ``gpt_generate*``, ``gpt_pretrain_o0_long``), phase 11's (``bench``) and
-phase 12's (``probe``); ``by_shape`` also holds phase 10's fp32 times;
+phase 12's (``probe``) and phase 13's (``contrib``); ``by_shape`` also
+holds phase 10's fp32 times;
 ``segments``: phase 9's times on #1-#6; ``launches``:
 their sum; ``bias_route``: #1, #5 and #6 with and without the bias;
 ``launch_floor_ms`` on the decode and xentropy rows), the decode split-count
@@ -6588,6 +6613,11 @@ def main():
           "the legacy APIs")
     gpt_counts["probe"] = optimizers_and_legacy(torch, ops, dev)
     torch.cuda.empty_cache()
+
+    print("phase 13: contrib (fused multi-head attention, ResNet50Frozen, "
+          "the RNN-T transducer, ASP 2:4 sparsity)")
+    gpt_counts["contrib"] = contrib_phase(torch, ops, dev)
+    torch.cuda.empty_cache()
     for row in rows:
         if row["name"] in fp32_rows:
             row.setdefault("by_shape", {}).update(fp32_rows[row["name"]])
@@ -6966,6 +6996,550 @@ def times_of_tree(tree, fn):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 13: contrib (the fused multi-head attention, the frozen-BN
+# ResNet-50, the RNN-T transducer, ASP 2:4 sparsity)
+# ---------------------------------------------------------------------------
+
+#: (a): Transformer-big width, which is also BERT-large's attention shape:
+#: batch, tokens, encoder-decoder queries, embed, heads, least key length
+MHA_WIDTH = dict(batch=16, seq=512, queries=384, embed=1024, heads=16,
+                 min_len=128)
+#: (b): ResNet50Frozen through phase 5's amp O2 FusedSGD step
+FROZEN_RUN = dict(batch_size=64, image_size=224, num_classes=1000, lr=1e-3,
+                  steps=10)
+#: (c): a speech-sized lattice: batch, frames, labels, vocabulary, joint
+#: width
+TRANSDUCER = dict(B=16, T=256, U=64, V=1024, H=512)
+#: (d): ``bench.build``'s width and depth overrides (none: GPT-2 345M)
+ASP_BUILD = {}
+ASP_STEPS = 5
+
+
+def counted(torch, ops, fn, expected, label, total):
+    """Run ``fn`` with the launch counts set to 0 just before and read just
+    after, hold them to ``expected`` (kernel -> count, others 0) and add
+    them to ``total`` (path ``contrib``); returns ``fn()``."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        check(n == expected.get(name, 0), f"contrib {label}: {name}: {n} "
+              f"launches, expected {expected.get(name, 0)}")
+    verdict(f"launch counts exact, {label}", 0, 0, "-",
+            group="launch counts exact, path contrib")
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    return out
+
+
+def held2d(name, got, ref, share, row, group):
+    """:func:`held` for a tensor of any rank: a 1-D one as one row."""
+    if got.dim() < 2:
+        got, ref = got.reshape(1, -1), ref.reshape(1, -1)
+    return held(name, got, ref, share, row, group=group)
+
+
+def mha_case(torch, ops, dev, gen, dtype, cross, dense, total):
+    """Phase 13 (a), one case: ``SelfMultiheadAttn`` (or
+    ``EncdecMultiheadAttn`` with ``cross``) with ``bias=True`` and
+    ``include_norm_add=True``, fp32 params, ``dtype`` activations, a
+    key-padding mask of seeded lengths (and with ``dense`` a float
+    (seq, seq) ``attn_mask`` added), forward + backward through
+    ``impl="fast"`` (the kernels; its launches counted: #1, #5, #6, #7,
+    #8 once each) against ``impl="default"`` (the explicit attention) on
+    the same inputs: the output and every parameter's and input's grad by
+    share of max |ref| and by row (phase 2's limits). Returns the label
+    and both routes' forward + backward ms by CUDA-graph replay."""
+    import importlib
+
+    from apex_tpu_torch.contrib import EncdecMultiheadAttn, SelfMultiheadAttn
+
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    w = MHA_WIDTH
+    b, s, e, h = w["batch"], w["seq"], w["embed"], w["heads"]
+    sq = w["queries"] if cross else s
+    bf16 = dtype == torch.bfloat16
+    label = (f"{'encdec' if cross else 'self'} "
+             f"{'pad+dense' if dense else 'pad'} "
+             f"{'bf16' if bf16 else 'fp32'}")
+    cls = EncdecMultiheadAttn if cross else SelfMultiheadAttn
+    mod = cls(e, h, bias=True, include_norm_add=True, device=dev, seed=21)
+    with torch.no_grad():  # biases and LN params away from 0 and 1
+        for name, p in mod.named_parameters():
+            if "bias" in name or "ln" in name:
+                p.add_(0.1 * torch.randn(p.shape, device=dev, generator=gen))
+    inputs = [torch.randn(b, sq, e, device=dev, generator=gen).to(dtype)]
+    if cross:
+        inputs.append(torch.randn(b, s, e, device=dev, generator=gen)
+                      .to(dtype))
+    lengths = torch.randint(w["min_len"], s + 1, (b,), device=dev,
+                            generator=gen)
+    kw = {"key_padding_mask": torch.arange(s, device=dev)[None]
+          >= lengths[:, None]}
+    if dense:
+        kw["attn_mask"] = torch.randn(s, s, device=dev, generator=gen)
+    g = torch.randn(b, sq, e, device=dev, generator=gen).to(dtype)
+
+    def run(impl):
+        mod.impl = impl
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = mod(*leaves, **kw)
+        grads = torch.autograd.grad(out, [*mod.parameters(), *leaves], g)
+        return out.detach(), grads
+
+    fast = counted(torch, ops, lambda: run("fast"), {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1, "layer_norm_fwd": 1,
+        "layer_norm_bwd": 1}, f"MHA {label}", total)
+    plain = run("default")
+    share = 2e-2 if bf16 else 1e-5
+    fwd_row, bwd_row = ROW_TOL[bf16]
+    group = f"contrib MHA {label}"
+    names = ["out", *(f"d{n}" for n, _ in mod.named_parameters()),
+             *(("dquery", "dmemory") if cross else ("dx",))]
+    parts = []
+    for name, got, ref in zip(names, (fast[0], *fast[1]),
+                              (plain[0], *plain[1])):
+        check(bool(torch.isfinite(got).all()), f"{group} {name} finite")
+        parts.append(held2d(f"{group} {name}", got, ref, share,
+                            fwd_row if name == "out" else bwd_row, group))
+    # q, k, v are strided views of the packed projections: the kernels
+    # read them in place (bf16: through TMA, no padded copy)
+    with torch.no_grad():
+        hq = ops.layer_norm(inputs[0], mod.ln_scale, mod.ln_bias)
+        if cross:
+            q = hq @ mod.q_weight.to(dtype)
+            k, v = (inputs[1] @ mod.kv_weight.to(dtype)).split(e, dim=-1)
+        else:
+            q, k, v = (hq @ mod.in_weight.to(dtype)).split(e, dim=-1)
+        views = [mod._heads(t) for t in (q, k, v)]
+    in_place = all(tfa._tma_ok(t) for t in views) if bf16 else all(
+        t.stride(-1) == 1 for t in views)
+    verdict(f"{group} q/k/v views read in place", 0 if in_place else 1, 0,
+            group=group)
+    ms = {impl: time_ms(lambda: run(impl), 3, 3)
+          for impl in ("fast", "default")}
+    print(f"  MHA {label} ({b} x {sq}{f' over {s}' if cross else ''} "
+          f"tokens, E {e}, {h} heads, norm-add, biases; lengths "
+          f"{int(lengths.min())}-{int(lengths.max())}) fast against "
+          f"default, of max|ref|: " + ", ".join(parts)
+          + f"; q/k/v read in place: {in_place}; forward + backward "
+          f"fast {ms['fast']:.4f} ms, default {ms['default']:.4f} ms")
+    out = {"label": label, "ms": ms}
+    if bf16 and not cross:
+        out["attention"] = mha_attention_times(torch, views, kw, g.shape)
+    return out
+
+
+def mha_attention_times(torch, views, kw, shape):
+    """The attention call alone at (a)'s shape (16,16,512,64) bf16 on the
+    packed projection's views, forward + backward by CUDA-graph replay:
+    ``flash_attention`` with the module's bias against SDPA with the same
+    bias as a float ``attn_mask``, beside PERF.md's BB rows."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib.multihead_attn import _mask_bias, _padding_bias
+    from apex_tpu_torch.ops import flash_attention
+
+    bias = _padding_bias(kw["key_padding_mask"])
+    if "attn_mask" in kw:
+        bias = bias + _mask_bias(kw["attn_mask"])
+    do = torch.randn_like(views[0])
+    mask = bias.to(views[0].dtype)
+
+    def fwd_bwd(fn):
+        leaves = [t.detach().requires_grad_() for t in views]
+        return torch.autograd.grad(fn(*leaves), leaves, do)
+
+    return {"flash_ms": time_ms(lambda: fwd_bwd(
+                lambda q, k, v: flash_attention(q, k, v, bias)), 5, 3),
+            "sdpa_ms": time_ms(lambda: fwd_bwd(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask)), 5, 3)}
+
+
+def mha_transformer_big(torch, ops, dev, total):
+    """Phase 13 (a): the six cases of :func:`mha_case` (self-attention
+    with the key-padding mask, then with a dense float mask added, and
+    encoder-decoder 384 queries over 512 keys, each bf16 and fp32)."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for cross, dense in ((False, False), (False, True), (True, False)):
+            rows.append(mha_case(torch, ops, dev, gen, dtype, cross, dense,
+                                 total))
+            torch.cuda.empty_cache()
+    att = "; ".join(f"{r['label']}: flash_attention {r['attention']['flash_ms']:.4f}"
+                    f" ms, SDPA with the float mask "
+                    f"{r['attention']['sdpa_ms']:.4f} ms"
+                    for r in rows if "attention" in r)
+    print(f"  MHA attention alone (16,16,512,64) bf16, forward + backward: "
+          f"{att}; {nvidia_smi()}")
+    return rows
+
+
+def frozen_gradient_gate(torch, ops, dev):
+    """Phase 13 (b) gate: fp32, a small frozen ResNet (FastBottleneck
+    stages (1, 1), width 8, 32x32 images with the ImageNet stem, 10
+    classes, batch 8, the frozen norms' scale and bias drawn away from 1
+    and 0): the loss and every parameter's grad on the card (cuDNN without
+    TF32, the xentropy kernels) against the same model on the CPU.
+    Tolerances as :func:`resnet_gradient_gate`'s: loss 1e-5 relative, each
+    grad 1e-4 of its max |CPU grad|."""
+    import numpy as np
+
+    from apex_tpu_torch.models.resnet import _frozen_resnet
+    from apex_tpu_torch.ops.xentropy import softmax_cross_entropy
+
+    kw = dict(num_classes=10, width=8, stem_pool=True)
+    card = _frozen_resnet((1, 1), device=dev, seed=3, **kw)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    with torch.no_grad():
+        for name, p in card.named_parameters():
+            if ".bn" in f".{name}":
+                p.add_(0.2 * torch.randn(p.shape, device=dev, generator=gen))
+    host = _frozen_resnet((1, 1), device="cpu", **kw)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    check(not list(card.buffers()), "the frozen net holds no running stats")
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.normal(size=(8, 32, 32, 3)).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, (8,)))
+    loss_c = torch.mean(softmax_cross_entropy(card(images.to(dev)),
+                                              labels.to(dev)))
+    loss_c.backward()
+    loss_h = torch.mean(softmax_cross_entropy(host(images), labels))
+    loss_h.backward()
+    lc, lh = float(loss_c.detach()), float(loss_h.detach())
+    rel = abs(lc - lh) / abs(lh)
+    group = "contrib frozen ResNet fp32 gradient gate"
+    verdict(f"{group} loss", rel, 1e-5, group=group)
+    worst = (0.0, "")
+    for (name, pc), ph in zip(card.named_parameters(), host.parameters()):
+        worst = max(worst, (rel_err(pc.grad.cpu(), ph.grad), name))
+    verdict(f"{group} worst grad ({worst[1]})", worst[0], 1e-4, group=group)
+    print(f"  frozen ResNet fp32 gradient gate: loss card {lc:.7f} cpu "
+          f"{lh:.7f} (rel {rel:.3g}, tol 1e-05); "
+          f"{len(list(host.parameters()))} grads, worst {worst[0]:.3g} "
+          f"({worst[1]}, tol 1e-4)")
+
+
+def train_resnet50_frozen(torch, ops, dev, total):
+    """Phase 13 (b): ``ResNet50Frozen`` at :data:`FROZEN_RUN` (64 x 224²
+    NHWC) under amp O2 with ``FusedSGD(momentum 0.9, weight decay 1e-4,
+    Nesterov)``, phase 5's step (``main_amp``'s ``Trainer`` and
+    ``train_steps``): one warm-up step and 10 timed, each xentropy kernel
+    once a step and nothing else, a finite falling loss, no skipped step
+    after the warm-up, bf16 convs and fp32 frozen-norm params, images/s."""
+    import numpy as np
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.imagenet.main_amp import (
+        Trainer, fixed_batch, train_steps)
+    from apex_tpu_torch.models import ResNet50Frozen
+    from apex_tpu_torch.ops.xentropy import softmax_cross_entropy
+    from apex_tpu_torch.optimizers import FusedSGD
+
+    run = FROZEN_RUN
+    policy = amp.get_policy("O2")
+    model = ResNet50Frozen(num_classes=run["num_classes"],
+                           dtype=policy.op_dtype("conv"), device=dev, seed=0)
+    amp.cast_params(model, policy)
+    mp_opt = amp.MixedPrecisionOptimizer(
+        FusedSGD(lr=run["lr"], momentum=0.9, weight_decay=1e-4,
+                 nesterov=True), policy)
+    opt_state = mp_opt.init(model)
+
+    def step(images, labels):
+        loss = torch.mean(softmax_cross_entropy(model(images), labels))
+        mp_opt.scale_loss(loss, opt_state).backward()
+        return loss.detach(), mp_opt.step(opt_state, model)
+
+    trainer = Trainer(step, model, mp_opt, opt_state, policy,
+                      run["batch_size"], run["image_size"],
+                      run["num_classes"])
+    images, labels = fixed_batch(trainer)
+    n = run["steps"]
+    stats = counted(torch, ops, lambda: train_steps(trainer, n, images,
+                                                    labels),
+                    {"xentropy_fwd": n + 1, "xentropy_bwd": n + 1},
+                    "ResNet50Frozen", total)
+    losses = stats["losses"]
+    skipped = [m["found_inf"] for m in stats["metrics"]]
+    ms = stats["window_ms"] / n if stats["window_ms"] else float("nan")
+    print(f"  ResNet50Frozen O2 train ({run['batch_size']} x "
+          f"{run['image_size']}² NHWC, FusedSGD lr {run['lr']}): {n} steps "
+          f"{ms:.2f} ms a step, "
+          f"{run['batch_size'] / ms * 1e3:.1f} images/s; loss "
+          f"{[round(v, 4) for v in losses]}, skipped {skipped}; "
+          f"{nvidia_smi()}")
+    check(all(np.isfinite(losses)), "every ResNet50Frozen loss finite")
+    check(losses[-1] < losses[0], "the ResNet50Frozen loss falls")
+    check(not any(skipped[1:]), "no ResNet50Frozen step skipped after the "
+          "warm-up")
+    check(model.conv1.weight.dtype == torch.bfloat16
+          and model.bn1.scale.dtype == torch.float32
+          and not list(model.buffers()),
+          "ResNet50Frozen O2: bf16 convs, fp32 frozen norms, no stats")
+    return {"ms": ms, "images_s": run["batch_size"] / ms * 1e3,
+            "losses": losses}
+
+
+def transducer_lattice(torch, ops, dev, total):
+    """Phase 13 (c): the RNN-T joint and loss at :data:`TRANSDUCER` (B 16,
+    T 256, U 64, V 1024, joint width 512): the bf16 joint with ReLU, a bf16
+    projection to V, fp32 log-probs, ``transducer_loss`` and its gradients
+    (no kernel of ours: counted 0). Then the loss and its grad on those
+    log-probs against the port's CPU run on the same log-probs (1e-5 of
+    max |ref|), sequences 0 and 1 against the float64 DP (1e-4, the JAX
+    test's rtol), and the ms of the loss's forward + backward (CUDA-graph
+    replay) and of the whole joint -> loss step."""
+    from apex_tpu_torch.contrib import (
+        transducer_joint, transducer_loss, transducer_loss_reference)
+
+    c = TRANSDUCER
+    B, T, U, V, H = c["B"], c["T"], c["U"], c["V"], c["H"]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bf16 = torch.bfloat16
+    f = torch.randn(B, T, H, device=dev, generator=gen).to(bf16)
+    g = torch.randn(B, U + 1, H, device=dev, generator=gen).to(bf16)
+    w = (torch.randn(H, V, device=dev, generator=gen) * H ** -0.5).to(bf16)
+    targets = torch.randint(1, V, (B, U), device=dev, generator=gen)
+    f_len = torch.randint(T // 2, T + 1, (B,), device=dev, generator=gen)
+    y_len = torch.randint(U // 2, U + 1, (B,), device=dev, generator=gen)
+    f_len[0], y_len[0] = T, U
+    lens = (targets, f_len, y_len)
+
+    def step():
+        leaves = [t.detach().requires_grad_() for t in (f, g, w)]
+        logits = transducer_joint(leaves[0], leaves[1], relu=True) @ leaves[2]
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        loss = transducer_loss(lp, *lens).mean()
+        return (lp.detach(), loss.detach(),
+                torch.autograd.grad(loss, leaves))
+
+    lp, loss, grads = counted(torch, ops, step, {}, "transducer", total)
+    group = "contrib transducer"
+    for name, t in zip(("df", "dg", "dw"), grads):
+        check(bool(torch.isfinite(t).all()), f"{group} {name} finite")
+    lp_c = lp.clone().requires_grad_()
+    loss_c = transducer_loss(lp_c, *lens)
+    (dlp_c,) = torch.autograd.grad(loss_c.sum(), lp_c)
+    lp_h = lp.cpu().requires_grad_()
+    loss_h = transducer_loss(lp_h, *(t.cpu() for t in lens))
+    (dlp_h,) = torch.autograd.grad(loss_h.sum(), lp_h)
+    e_loss = rel_err(loss_c.detach().cpu(), loss_h.detach())
+    e_grad = rel_err(dlp_c.cpu(), dlp_h)
+    verdict(f"{group} loss card vs cpu", e_loss, 1e-5, "cuda/cpu",
+            group=group)
+    verdict(f"{group} dlog_probs card vs cpu", e_grad, 1e-5, "cuda/cpu",
+            group=group)
+    dp = transducer_loss_reference(lp[:2].cpu(), targets[:2].cpu(),
+                                   f_len[:2].cpu(), y_len[:2].cpu())
+    got = loss_c.detach()[:2].cpu().double().numpy()
+    e_dp = float(abs(got - dp).max() / abs(dp).max())
+    verdict(f"{group} 2 sequences vs the float64 DP", e_dp, 1e-4,
+            "cuda/cpu", group=group)
+    del lp_h, loss_h, dlp_h, dlp_c, grads
+    lp_t = lp.clone().requires_grad_()
+    loss_ms = time_ms(lambda: torch.autograd.grad(
+        transducer_loss(lp_t, *lens).sum(), lp_t), 1, 3)
+    step_ms = time_ms(step, 1, 3)
+    print(f"  transducer (B {B}, T {T}, U {U}, V {V}, joint {H}, bf16 joint, "
+          f"fp32 log-probs): mean loss {float(loss):.4f}; card vs cpu loss "
+          f"{e_loss:.3g}, dlog_probs {e_grad:.3g} (tol 1e-5), 2 sequences "
+          f"vs the float64 DP {e_dp:.3g} (tol 1e-4); loss forward + "
+          f"backward {loss_ms:.3f} ms ({T + U} anti-diagonals), joint -> "
+          f"loss step {step_ms:.3f} ms; {nvidia_smi()}")
+    return {"loss_ms": loss_ms, "step_ms": step_ms}
+
+
+def zeros_per_group(torch, tree, masks):
+    """The least count of zeros in a group of 4 along dim -2 over every
+    masked leaf of ``tree`` (a JAX-layout tree; ``masks`` the mask tree
+    of its structure), and the number of masked leaves."""
+    from apex_tpu_torch.contrib import sparsity
+
+    worst, n = 4, 0
+    paths = []
+    sparsity.tree_map_with_path(lambda path, m: paths.append((path, m)),
+                                masks)
+    for path, m in paths:
+        if m is None:
+            continue
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        z = (leaf == 0).movedim(-2, -1)
+        z = z.reshape(*z.shape[:-1], -1, 4).sum(-1)
+        worst = min(worst, int(z.min()))
+        n += 1
+    return worst, n
+
+
+def asp_gpt_345m(torch, ops, dev, total):
+    """Phase 13 (d): ASP at phase 4's configuration (GPT-2 345M O2,
+    ``bench.build``, 8 x 1024 tokens, one fixed batch): the 2:4 masks of
+    every eligible leaf of the model's JAX-layout tree on the card equal
+    the CPU's from the same weights; one seeded channel permutation of
+    layer 0's MLP pair (fc1's outputs, fc2's inputs) keeps the pair's
+    output (fp32, 1e-5 of max |ref|); then ``ASP.init_optimizer_for_pruning
+    (FusedAdam(lr 1e-4))`` inside amp's ``MixedPrecisionOptimizer`` for
+    :data:`ASP_STEPS` steps: after every step each masked group of 4 along
+    the contraction dim holds >= 2 zeros in the bf16 params and in the fp32
+    masters, ``sparsity_ratio`` is 0.5, the launches are phase 4's a step;
+    the loss is finite and falls."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch._params import module_tree
+    from apex_tpu_torch.bench import build, fixed_batch
+    from apex_tpu_torch.contrib import sparsity
+    from apex_tpu_torch.contrib.sparsity import ASP
+    from apex_tpu_torch.contrib.sparsity import permutation as plib
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    group = "contrib ASP GPT-2 345M"
+    bench = build("O2", device=dev, seed=0, **ASP_BUILD)
+    model, cfg, L = bench.model, bench.cfg, bench.cfg.num_layers
+    bench.opt_state = None  # phase 4's optimizer state: not used here
+    tree = sparsity.jax_layout_tree(model)
+    t0 = time.perf_counter()
+    masks = sparsity.compute_sparse_masks(tree)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = sparsity.compute_sparse_masks(
+        sparsity.tree_map_with_path(lambda _, t: t.cpu(), tree))
+    t_cpu = time.perf_counter() - t0
+    differ = eligible = 0
+    for a, b in zip(sparsity.tree_leaves(masks), sparsity.tree_leaves(host)):
+        check((a is None) == (b is None), f"{group}: eligibility differs")
+        if a is not None:
+            eligible += 1
+            differ += int((a.cpu() != b).sum())
+    verdict(f"{group} masks card vs cpu (elements differing)", differ, 0,
+            "cuda/cpu", group=group)
+    del tree, host
+    # one seeded channel permutation of layer 0's MLP pair
+    lay = model.layers[0]
+    pair = {"fc1": {"kernel": lay.fc1.kernel.float(),
+                    "bias": lay.fc1.bias.float()},
+            "fc2": {"kernel": lay.fc2.kernel.float(),
+                    "bias": lay.fc2.bias.float()}}
+    perm = np.random.default_rng(7).permutation(pair["fc2"]["kernel"].shape[0])
+    permuted = plib.apply_channel_permutation(
+        pair, plib.ChannelGroup(consumers=["fc2"], producers=["fc1"]), perm)
+    x = torch.randn(2048, cfg.hidden_size, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(24))
+
+    def mlp(p):
+        hdn = F.gelu(x @ p["fc1"]["kernel"] + p["fc1"]["bias"],
+                     approximate="tanh")
+        return hdn @ p["fc2"]["kernel"] + p["fc2"]["bias"]
+
+    with torch.no_grad():
+        e_perm = rel_err(mlp(permuted), mlp(pair))
+    verdict(f"{group} permuted MLP pair output", e_perm, 1e-5, group=group)
+    del pair, permuted, x
+    # the ASP-wrapped FusedAdam under amp O2
+    ASP.reset()
+    ASP.init_model_for_pruning(model, "m4n2_1d")
+    mp = amp.MixedPrecisionOptimizer(
+        ASP.init_optimizer_for_pruning(FusedAdam(lr=1e-4)), bench.mp_opt.policy)
+    _, per_param = ASP.compute_sparse_masks(model)
+    state = mp.init(model)
+    tokens, targets = fixed_batch(bench)
+
+    def step():
+        loss = model.loss(tokens, targets)
+        mp.scale_loss(loss, state).backward()
+        return float(loss.detach()), mp.step(state, model)
+
+    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "layer_norm_fwd": 4 * L + 1,
+                "layer_norm_bwd": 2 * L + 1}
+    losses, worst_p, worst_m = [], 4, 4
+    t0 = time.perf_counter()
+    for i in range(ASP_STEPS):
+        loss, metrics = counted(torch, ops, step, per_step, "ASP steps",
+                                total)
+        check(not metrics["found_inf"], f"{group}: step {i} skipped")
+        losses.append(loss)
+        zp, n = zeros_per_group(torch, sparsity.jax_layout_tree(model), masks)
+        zm, _ = zeros_per_group(
+            torch, module_tree(model, state.master, device=dev), masks)
+        worst_p, worst_m = min(worst_p, zp), min(worst_m, zm)
+        ratio = sparsity.sparsity_ratio(list(model.parameters()), per_param)
+        verdict(f"{group} sparsity_ratio - 0.5", abs(ratio - 0.5), 0,
+                group=group)
+    wall = time.perf_counter() - t0
+    verdict(f"{group} 2 - least zeros of a group (bf16 params)",
+            max(0, 2 - worst_p), 0, group=group)
+    verdict(f"{group} 2 - least zeros of a group (fp32 masters)",
+            max(0, 2 - worst_m), 0, group=group)
+    check(all(np.isfinite(losses)), f"{group}: every loss finite")
+    check(losses[-1] < losses[0], f"{group}: the loss falls")
+    print(f"  ASP GPT-2 345M O2 ({cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, {bench.batch} x {cfg.max_seq_len}): masks of "
+          f"{eligible} eligible leaves on the card ({t_card:.2f} s) equal the "
+          f"CPU's ({t_cpu:.2f} s): {differ} differ; permuted MLP pair "
+          f"{e_perm:.3g} (tol 1e-5); {ASP_STEPS} steps of ASP FusedAdam "
+          f"under amp ({wall:.1f} s with the checks): loss "
+          f"{[round(v, 4) for v in losses]}, least zeros in a group of 4: "
+          f"params {worst_p}, masters {worst_m} ({n} masked leaves), "
+          f"sparsity_ratio {ratio}")
+    ASP.reset()
+    return {"losses": losses}
+
+
+def contrib_phase(torch, ops, dev):
+    """Phase 13: (a) :func:`mha_transformer_big`, (b)
+    :func:`frozen_gradient_gate` and :func:`train_resnet50_frozen`, (c)
+    :func:`transducer_lattice`, (d) :func:`asp_gpt_345m`. Returns the
+    launches of its counted runs (path ``contrib``)."""
+    t0 = time.perf_counter()
+    total = {}
+    mha_transformer_big(torch, ops, dev, total)
+    torch.cuda.empty_cache()
+    frozen_gradient_gate(torch, ops, dev)
+    train_resnet50_frozen(torch, ops, dev, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    transducer_lattice(torch, ops, dev, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    asp_gpt_345m(torch, ops, dev, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 13 launches {total}; phase 13 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def contrib_main():
+    """``python3 chip_smoke.py --contrib``: phase 13 alone after the
+    build, with its verdict."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.csrc import build
+
+    print(f"card: {nvidia_smi()}; torch {torch.__version__}")
+    build.load()
+    contrib_phase(torch, ops, torch.device("cuda", 0))
+    print_verdict()
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ln-times"]:
         sys.exit(times_of_tree(sys.argv[2], ln_times))
@@ -6981,4 +7555,6 @@ if __name__ == "__main__":
         sys.exit(kernel_names_main(generate_profile))
     if sys.argv[1:2] == ["--sass"]:
         sys.exit(sass_counts(sys.argv[2]))
+    if sys.argv[1:2] == ["--contrib"]:
+        sys.exit(contrib_main())
     sys.exit(main())

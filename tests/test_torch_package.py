@@ -213,11 +213,19 @@ def test_every_pallas_call_has_a_kernel_wrapper():
 
 def test_new_modules_import_no_jax():
     """The softmax slice's modules, the bench slice's (the bench, amp's
-    functions, the native runtime, the DCGAN example) and the probe
+    functions, the native runtime, the DCGAN example), the probe
     slice's (the convergence probe, utils/io and utils/nn, the rest of the
-    optimizers, fp16_utils, rnn, reparameterization) are among the scanned
-    files."""
+    optimizers, fp16_utils, rnn, reparameterization) and the contrib
+    slice's (multihead_attn, bottleneck, groupbn, transducer, sparsity)
+    are among the scanned files."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"apex_tpu_torch/contrib/multihead_attn.py",
+            "apex_tpu_torch/contrib/bottleneck.py",
+            "apex_tpu_torch/contrib/groupbn.py",
+            "apex_tpu_torch/contrib/transducer.py",
+            "apex_tpu_torch/contrib/sparsity/__init__.py",
+            "apex_tpu_torch/contrib/sparsity/asp.py",
+            "apex_tpu_torch/contrib/sparsity/permutation.py"} <= rel
     assert {"apex_tpu_torch/benchmarks/convergence_probe.py",
             "apex_tpu_torch/utils/io.py", "apex_tpu_torch/utils/nn.py",
             "apex_tpu_torch/optimizers/fused_adagrad.py",
