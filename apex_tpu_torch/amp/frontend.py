@@ -164,15 +164,25 @@ class MixedPrecisionOptimizer:
 
     @torch.no_grad()
     def apply_gradients(self, state: MPOptState, model_params,
-                        scaled_grads: Sequence[torch.Tensor],
+                        scaled_grads: Sequence[torch.Tensor], *,
+                        found_inf_reducer: Optional[
+                            Callable[[torch.Tensor], torch.Tensor]] = None,
                         **update_kwargs) -> Dict[str, Any]:
         """Step ``model_params`` IN PLACE from the grads of the SCALED
         loss; returns the metrics ``found_inf`` (bool), ``loss_scale`` (the
         scale after the update) and, with ``log_grad_norm``, ``grad_norm``
-        (the fp32 L2 norm of the unscaled grads, a 0-d tensor)."""
+        (the fp32 L2 norm of the unscaled grads, a 0-d tensor).
+
+        ``found_inf_reducer`` maps this rank's 0-d overflow flag to the
+        flag every rank acts on (``frontend.py:473-511``), for example
+        :class:`apex_tpu_torch.transformer.amp.MeshGradScaler`'s vote over
+        the model-parallel axes, so that all ranks skip a step together.
+        It runs on the card before the step's one host read of the flag."""
         params = _param_list(model_params)
         grads32, found = state.scaler.unscale(scaled_grads,
                                               out_dtype=torch.float32)
+        if found_inf_reducer is not None:
+            found = found_inf_reducer(found)
         found_inf = bool(found)  # the one host sync of the step
         if not found_inf:
             step_params = state.master if state.master is not None \
@@ -190,7 +200,9 @@ class MixedPrecisionOptimizer:
             metrics["grad_norm"] = tree_l2norm(grads32)
         return metrics
 
-    def step(self, state: MPOptState, model_params,
+    def step(self, state: MPOptState, model_params, *,
+             found_inf_reducer: Optional[
+                 Callable[[torch.Tensor], torch.Tensor]] = None,
              **update_kwargs) -> Dict[str, Any]:
         """:meth:`apply_gradients` from each param's ``.grad`` (after
         ``scale_loss(loss).backward()``), then the grads are cleared. A
@@ -198,7 +210,9 @@ class MixedPrecisionOptimizer:
         params = _param_list(model_params)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        metrics = self.apply_gradients(state, params, grads, **update_kwargs)
+        metrics = self.apply_gradients(state, params, grads,
+                                       found_inf_reducer=found_inf_reducer,
+                                       **update_kwargs)
         for p in params:
             p.grad = None
         return metrics
@@ -228,17 +242,23 @@ class AmpTrainState:
         return self.mp_optimizer.scale_loss(loss, self.opt_state)
 
     def apply_gradients(self, scaled_grads: Optional[Sequence[torch.Tensor]]
-                        = None, **update_kwargs) -> Dict[str, Any]:
+                        = None, *, found_inf_reducer: Optional[
+                            Callable[[torch.Tensor], torch.Tensor]] = None,
+                        **update_kwargs) -> Dict[str, Any]:
         """Step the module from the grads of the scaled loss (a list
         aligned with ``module.parameters()``, or None: each parameter's
         ``.grad``, cleared after) and count the step; returns the
-        optimizer's metrics."""
+        optimizer's metrics. ``found_inf_reducer``: as
+        :meth:`MixedPrecisionOptimizer.apply_gradients`'s
+        (``frontend.py:1136-1141``)."""
         if scaled_grads is None:
-            metrics = self.mp_optimizer.step(self.opt_state, self.module,
-                                             **update_kwargs)
+            metrics = self.mp_optimizer.step(
+                self.opt_state, self.module,
+                found_inf_reducer=found_inf_reducer, **update_kwargs)
         else:
             metrics = self.mp_optimizer.apply_gradients(
-                self.opt_state, self.module, scaled_grads, **update_kwargs)
+                self.opt_state, self.module, scaled_grads,
+                found_inf_reducer=found_inf_reducer, **update_kwargs)
         self.step += 1
         return metrics
 

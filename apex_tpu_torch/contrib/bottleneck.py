@@ -12,11 +12,18 @@ cannot drift. The scale/bias epilogues, the ReLUs and the residual add are
 plain PyTorch here, as they are plain XLA in the reference (no Pallas
 kernel).
 
-Not ported here, each with the item of ROADMAP Queue 1 that takes it:
-``assert_epilogues_fused``, which reads XLA's compiled HLO (the port has no
-counterpart of that IR; item 21, with ``lint/``'s jaxpr analyzers as
-``torch.fx`` / ``torch.export`` graph passes), and the spatially sharded
-bottleneck (the H dim split over devices with halo exchanges; item 9).
+:class:`SpatialBottleneck` is the spatially parallel block (apex's
+``SpatialBottleneck``): each rank of a mesh axis holds a strip of rows (H)
+of the activations, and before the 3x3 conv it swaps one halo row with
+each neighbour through ``collectives.ppermute_shift``; the strips at the
+ends pad with zeros, as the serial conv does. The reference gets the same
+split from GSPMD, which inserts the halo exchange itself
+(``tests/test_bottleneck.py:111-131``).
+
+Not ported here: ``assert_epilogues_fused``, which reads XLA's compiled
+HLO (the port has no counterpart of that IR; ROADMAP Queue 1 item 21,
+with ``lint/``'s jaxpr analyzers as ``torch.fx`` / ``torch.export`` graph
+passes).
 """
 
 from __future__ import annotations
@@ -25,12 +32,15 @@ from functools import partial
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
 from apex_tpu_torch.models.resnet import Bottleneck
+from apex_tpu_torch.parallel import collectives
 
-__all__ = ["FrozenBatchNorm", "FastBottleneck", "fold_batchnorm"]
+__all__ = ["FrozenBatchNorm", "FastBottleneck", "SpatialBottleneck",
+           "fold_batchnorm"]
 
 
 def fold_batchnorm(scale: torch.Tensor, bias: torch.Tensor,
@@ -107,3 +117,44 @@ class FastBottleneck(Bottleneck):
                          partial(FrozenBatchNorm, channel_last=False,
                                  device=dev),
                          dtype, dev, gen)
+
+
+class SpatialBottleneck(FastBottleneck):
+    """:class:`FastBottleneck` over a strip of rows: ``forward(x)`` takes
+    this rank's rows ``[r * h, (r + 1) * h)`` of the NCHW activations, the
+    ranks of ``spatial_axis`` (a mesh axis) holding consecutive strips in
+    axis order, and returns the same rows of the serial block's output.
+    The 1x1 convs, the frozen norms and the residual are per pixel; the
+    3x3 conv reads one row past each edge of the strip, which the
+    neighbours send (two ``ppermute_shift`` calls a block). Stride 1 only:
+    a strided 3x3 conv would need strips aligned to the stride."""
+
+    def __init__(self, cin: int, filters: int, strides: int = 1, norm=None,
+                 dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None,
+                 gen: Optional[torch.Generator] = None,
+                 spatial_axis: str = "data"):
+        if strides != 1:
+            raise ValueError("SpatialBottleneck takes stride 1 only")
+        super().__init__(cin, filters, strides, norm, dtype, device, gen)
+        self.spatial_axis = spatial_axis
+
+    def forward(self, x, use_running_average: Optional[bool] = None):
+        axis = self.spatial_axis
+        y = self.bn1(self.conv1(x))
+        # rank i gets rank i-1's last row and rank i+1's first row
+        above = collectives.ppermute_shift(y[:, :, -1:], axis, 1)
+        below = collectives.ppermute_shift(y[:, :, :1], axis, -1)
+        idx, n = collectives.axis_rank(axis), collectives.axis_size(axis)
+        if idx == 0:
+            above = torch.zeros_like(above)
+        if idx == n - 1:
+            below = torch.zeros_like(below)
+        y = torch.cat([above, y, below], dim=2)
+        y = F.conv2d(y, self.conv2.weight.to(self.conv2.dtype), None, 1,
+                     (0, 1))
+        y = self.bn3(self.conv3(self.bn2(y)))
+        residual = x
+        if self.conv_ds is not None:
+            residual = self.bn_ds(self.conv_ds(x))
+        return torch.relu(y + residual)

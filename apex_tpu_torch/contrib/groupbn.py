@@ -9,12 +9,12 @@ dim) and ``fuse_relu``; this module keeps the reference's constructor
 ``batch_norm_add_relu`` epilogue. Plain PyTorch, as the reference is plain
 XLA: no kernel.
 
-``bn_group > 1`` synchronises the statistics over a group of devices. It
-needs ``axis_name`` (without one it raises ``ValueError``, as the
-reference does), and with one it raises ``NotImplementedError``: BN over a
-process group comes with data parallelism, ROADMAP Queue 1 item 9. With
-``bn_group == 1`` the reference drops ``axis_name`` and the statistics stay
-local; so does the port.
+``bn_group > 1`` synchronises the statistics over blocks of ``bn_group``
+ranks along the mesh axis ``axis_name`` (the CUDA-IPC peer group of the
+reference's ``bnp`` becomes a ``torch.distributed`` sub-group). It needs
+``axis_name``: without one it raises ``ValueError``, as the reference
+does. With ``bn_group == 1`` the reference drops ``axis_name`` and the
+statistics stay local; so does the port.
 """
 
 from __future__ import annotations

@@ -8,14 +8,19 @@ At first use every ``*.cu`` source beside this file is compiled by its own
 ``nvcc`` process, all started together, for ``sm_90a``; the objects are
 linked into one shared library under ``build/`` at the repository root,
 named by a hash of the sources and flags, so an unchanged tree reuses it and
-a changed one rebuilds. The library exports plain C functions: pointers and
+a changed one rebuilds. Ranks that start together build once: the build
+runs under an ``fcntl`` lock on a file in ``build/`` (:func:`build_once`),
+and a process that waited on it finds the library and loads it. The
+library exports plain C functions: pointers and
 the CUDA stream are ``c_void_p``, and each function returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -24,7 +29,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -154,6 +159,30 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"apex_tpu_torch_kernels-{_digest()}.so")
 
 
+@contextlib.contextmanager
+def file_lock(path: str):
+    """An exclusive ``fcntl`` lock on ``path`` (made if missing), held
+    across processes for the ``with`` block."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def build_once(path: str, compile_fn: Callable[[str], None]) -> None:
+    """``compile_fn(path)`` unless ``path`` exists, under a file lock beside
+    it: of the processes that call this together one compiles, the others
+    wait and find the file."""
+    if os.path.exists(path):
+        return
+    with file_lock(path + ".lock"):
+        if not os.path.exists(path):
+            compile_fn(path)
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call (raises if it cannot be)."""
     global _lib
@@ -162,8 +191,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             path = library_path()
-            if not os.path.exists(path):
-                _compile(path)
+            build_once(path, _compile)
             lib = ctypes.CDLL(path)
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -1,10 +1,13 @@
-"""GPT pretraining on one card, with checkpoint and resume: the serial
-branch (``--tp 1 --pp 1``, one device) of ``examples/gpt/pretrain_gpt.py``.
+"""GPT pretraining with checkpoint and resume: the serial and the
+data-parallel branches (``--tp 1 --pp 1``) of
+``examples/gpt/pretrain_gpt.py``.
 
     python -m apex_tpu_torch.examples.gpt.pretrain_gpt --hidden 1024 \\
         --layers 24 --heads 16 --seq 1024 --micro-batch 4 \\
         --num-microbatches 2 --steps 11 --save-dir D
     # the same command again resumes from the latest step under D
+    torchrun --nproc_per_node N -m apex_tpu_torch.examples.gpt.pretrain_gpt \\
+        ...   # data parallel over N ranks (NCCL; gloo with --device cpu)
 
 The moving parts are the reference's (``:391-510``): ``GPTConfig(
 hidden_dropout=0, remat=True, bf16 compute under O1-O3, else fp32)``,
@@ -16,7 +19,18 @@ summed over the micro-batches (each micro-batch's scaled loss over M runs
 its own backward). Batches are the reference's: synthetic tokens from
 ``np.random.default_rng(0)`` with next-token targets (``roll(-1)``), or
 ``--data DIR`` through :class:`apex_tpu_torch.csrc.TokenLoader` with rows
-of ``seq + 1`` tokens ``% vocab``. The run resumes from
+of ``seq + 1`` tokens ``% vocab``.
+
+Data parallelism (``:375``, ``:464``, ``:505-514``): under a launcher
+(:func:`apex_tpu_torch.parallel.multiproc.initialize_distributed`) ``dp``
+is the world size, the global batch is ``micro_batch x dp x
+num_microbatches`` rows of which rank r takes ``[r B / dp, (r + 1) B /
+dp)``, the local micro-batched backward runs as in the serial branch, and
+then the non-layer grads go through ``allreduce_gradients_by_spec`` and the
+layers' through ``allreduce_gradients`` over the gradient-reduction axes
+(``data``, ``context``), and the loss is the ``pmean`` of the local means.
+The parameters start equal on every rank (the same seed). Checkpoints are
+written by rank 0 and read by all; rank 0 prints. The run resumes from
 ``latest_step(--save-dir)``, saves every ``--save-every`` steps
 (``apex_tpu_torch.checkpoint``, the JAX package's npz layout: a checkpoint
 of either package resumes in the other) and prints the reference's lines.
@@ -44,12 +58,21 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from apex_tpu_torch import amp, checkpoint
 from apex_tpu_torch._device import DeviceLike, resolve_device
 from apex_tpu_torch._params import load_tree_, module_tree
 from apex_tpu_torch.bench import Bench
 from apex_tpu_torch.models import GPTConfig, GPTModel
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.parallel import collectives, mesh, multiproc
+from apex_tpu_torch.parallel.distributed import (
+    allreduce_gradients,
+    allreduce_gradients_by_spec,
+    data_parallel_world,
+    local_rows,
+)
 
 #: options of the reference outside this slice -> the ROADMAP Queue 1 item
 #: that brings them
@@ -157,8 +180,8 @@ def parse_args(argv=None):
 
 
 def check_slice(args) -> None:
-    """Raise ``NotImplementedError`` for an option outside the serial
-    single-card branch, naming the ROADMAP item that brings it."""
+    """Raise ``NotImplementedError`` for an option outside the serial and
+    data-parallel branches, naming the ROADMAP item that brings it."""
     on = {
         "tp": args.tp > 1, "pp": args.pp > 1,
         "pp_schedule": args.pp_schedule != "1f1b", "vpp": args.vpp > 1,
@@ -178,8 +201,8 @@ def check_slice(args) -> None:
             what, item = _LATER[name]
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}: {what} is not in this slice of "
-                f"the port (the serial single-card branch); it comes with "
-                f"ROADMAP Queue 1 item {item}")
+                f"the port (the serial and data-parallel branches); it comes "
+                f"with ROADMAP Queue 1 item {item}")
 
 
 def microbatched_backward(bench: Bench, tokens: torch.Tensor,
@@ -222,19 +245,49 @@ def _microbatched_backward(model, mp_opt, state, tokens, targets,
     return total / num_microbatches
 
 
+def reduce_data_parallel(model: GPTModel,
+                         loss: torch.Tensor) -> torch.Tensor:
+    """The reference's data-parallel reduction (``:505-514``) on the
+    parameters' ``.grad``: the non-layer grads through
+    ``allreduce_gradients_by_spec`` (every spec replicated: at tp = pp = 1
+    no parameter is sharded), the layers' through ``allreduce_gradients``
+    over the gradient-reduction axes. Returns the ``pmean`` of ``loss``."""
+    axes = mesh.get_gradient_reduction_axes()
+    named = list(model.named_parameters())
+    rest = [p for n, p in named if not n.startswith("layers.")]
+    layers = [p for n, p in named if n.startswith("layers.")]
+
+    def grads(ps):
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in ps]
+
+    rest_g = allreduce_gradients_by_spec(grads(rest), [()] * len(rest))
+    layer_g = allreduce_gradients(grads(layers), axes)
+    for p, g in zip(rest + layers, rest_g + layer_g):
+        p.grad = g
+    return collectives.pmean(loss, axes)
+
+
 def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
           heads: int = 8, seq: int = 256, micro_batch: int = 2,
           num_microbatches: int = 2, lr: float = 3e-4,
           opt_level: str = "O2", remat_policy: Optional[str] = None,
           seed: int = 0, device: DeviceLike = None) -> Bench:
-    """The reference's serial model and optimizer state (``:391-424``) on
-    one device (the card unless ``device="cpu"``), random weights from
-    ``seed``. ``step(tokens, targets)`` is the training step: the
-    micro-batched backward (:func:`microbatched_backward`), then the
-    optimizer step, which skips the update and lowers the scale on an
-    overflow. ``remat_policy``: the checkpointing policy of every layer
-    (the reference's config field; its example keeps the default)."""
+    """The reference's model and optimizer state (``:391-424``) on one
+    device (the card unless ``device="cpu"``), random weights from
+    ``seed``. ``step(tokens, targets)`` is the training step on the global
+    batch: this rank's rows (all of them without ``torch.distributed``)
+    through the micro-batched backward (:func:`microbatched_backward`),
+    the data-parallel reduction (:func:`reduce_data_parallel`, when
+    ``torch.distributed`` is initialized), then the optimizer step, which
+    skips the update and lowers the scale on an overflow.
+    ``remat_policy``: the checkpointing policy of every layer (the
+    reference's config field; its example keeps the default). The Bench's
+    ``batch`` is the global batch, ``micro_batch x dp x
+    num_microbatches``."""
     dev = resolve_device(device)
+    dp, rank = data_parallel_world()
+    distributed = dist.is_available() and dist.is_initialized()
     policy = amp.get_policy(opt_level)
     cfg = GPTConfig(
         vocab_size=vocab,
@@ -255,13 +308,16 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
 
     def step(tokens: torch.Tensor, targets: torch.Tensor):
         # over the parts, not the Bench: no cycle keeps a dropped trainer
-        loss = _microbatched_backward(model, mp_opt, opt_state, tokens,
-                                      targets, num_microbatches)
+        loss = _microbatched_backward(
+            model, mp_opt, opt_state, local_rows(tokens, dp, rank),
+            local_rows(targets, dp, rank), num_microbatches)
+        if distributed:
+            loss = reduce_data_parallel(model, loss)
         metrics = mp_opt.step(opt_state, model)
         return loss, metrics
 
     return Bench(step, model, mp_opt, opt_state, cfg,
-                 micro_batch * num_microbatches)
+                 micro_batch * dp * num_microbatches)
 
 
 def from_args(args, remat_policy: Optional[str] = None) -> Bench:
@@ -317,8 +373,21 @@ def run(argv=None) -> Dict[str, Any]:
     and of the restore."""
     args = parse_args(argv)
     check_slice(args)
-    batch = args.micro_batch * args.num_microbatches
+    started = (not dist.is_initialized()
+               and multiproc.initialize_distributed(device=args.device))
+    try:
+        return _run(args)
+    finally:
+        if started:
+            multiproc.shutdown()
+
+
+def _run(args) -> Dict[str, Any]:
     bench = from_args(args)
+    batch = bench.batch
+    dp, _ = data_parallel_world()
+    distributed = dist.is_initialized()
+    lead = dist.get_rank() == 0 if distributed else True
     dev = bench.model.device
     out: Dict[str, Any] = {"bench": bench, "losses": [], "metrics": [],
                            "step_s": [], "save_s": [], "restore_s": None}
@@ -331,7 +400,8 @@ def run(argv=None) -> Dict[str, Any]:
             args.save_dir, train_state(bench, device="meta")))
         out["restore_s"] = time.perf_counter() - t0
         start = step
-        print(f"resumed from step {step}")
+        if lead:
+            print(f"resumed from step {step}")
     out["start"] = start
 
     t0 = time.perf_counter()
@@ -344,13 +414,16 @@ def run(argv=None) -> Dict[str, Any]:
         out["metrics"].append(metrics)
         if i == start:
             t0 = time.perf_counter()  # exclude the first step
-        if i % 5 == 0 or i == start + args.steps - 1:
+        if lead and (i % 5 == 0 or i == start + args.steps - 1):
             print(f"step {i:5d} loss {float(loss):.4f} "
                   f"scale {float(metrics['loss_scale']):.0f}")
         if args.save_dir and (i + 1) % args.save_every == 0:
             s0 = time.perf_counter()
-            checkpoint.save_checkpoint(args.save_dir, i + 1,
-                                       train_state(bench))
+            if lead:  # the state is the same on every rank
+                checkpoint.save_checkpoint(args.save_dir, i + 1,
+                                           train_state(bench))
+            if distributed:
+                dist.barrier()
             out["save_s"].append(time.perf_counter() - s0)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -358,9 +431,9 @@ def run(argv=None) -> Dict[str, Any]:
     dt = (time.perf_counter() - t0) / n_done
     out["ms_per_step"] = dt * 1e3
     out["tokens_per_s"] = batch * args.seq / dt
-    if args.steps:
+    if args.steps and lead:
         print(f"{batch * args.seq / dt:.0f} tokens/s | mesh: tp={args.tp} "
-              f"pp={args.pp} dp=1 | {dt * 1e3:.1f} ms/step")
+              f"pp={args.pp} dp={dp} | {dt * 1e3:.1f} ms/step")
     return out
 
 

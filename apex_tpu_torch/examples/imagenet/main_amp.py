@@ -1,8 +1,10 @@
-"""ImageNet-style ResNet training with amp on one card: the single-device
-subset of ``examples/imagenet/main_amp.py``.
+"""ImageNet-style ResNet training with amp and data parallelism: the port
+of ``examples/imagenet/main_amp.py``.
 
     python -m apex_tpu_torch.examples.imagenet.main_amp --arch resnet50 \\
         --opt-level O2 --batch-size 256 --steps 20
+    torchrun --nproc_per_node N -m apex_tpu_torch.examples.imagenet.main_amp \\
+        --sync-bn ...   # N ranks (NCCL; gloo with --device cpu)
 
 The moving parts are the reference's: ``ResNet50`` (NHWC images) built in
 ``policy.op_dtype("conv")``, ``get_policy(opt_level, keep_batchnorm_fp32=,
@@ -14,9 +16,16 @@ port's xentropy kernels. Data is synthetic ImageNet-shaped from a seeded
 generator by default, or ``--data-dir``: ``.npz`` files (keys
 ``images``/``labels``) streamed by the prefetching loader.
 
-One device only: ``--sync-bn`` and the data-parallel collectives come with
-ROADMAP Queue 1 item 9 and raise. ``--device cpu`` runs the plain versions
-of the kernels on the CPU; the default is the card.
+Data parallelism (``:95-150``): under a launcher
+(:func:`apex_tpu_torch.parallel.multiproc.initialize_distributed`) the data
+axis is the whole world, ``--batch-size`` is the global batch of which
+rank r takes rows ``[r B / dp, (r + 1) B / dp)``, the grads are averaged
+over ``data`` (``allreduce_gradients``) after the backward, and the loss is
+the ``pmean`` of the local means. ``--sync-bn`` makes every BN a
+SyncBatchNorm over ``data`` (the running statistics then agree on every
+rank; under local BN each rank keeps its own). The parameters start equal
+on every rank (the same seed); rank 0 prints. ``--device cpu`` runs the
+plain versions of the kernels on the CPU; the default is the card.
 
 :func:`build` and :func:`train_steps` are what ``chip_smoke.py`` drives, as
 ``apex_tpu_torch/bench.py`` is for GPT: ``train_steps`` takes one fixed
@@ -39,6 +48,12 @@ from apex_tpu_torch._device import DeviceLike, resolve_device
 from apex_tpu_torch.models import resnet as resnet_mod
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy
 from apex_tpu_torch.optimizers import FusedSGD
+from apex_tpu_torch.parallel import collectives, mesh, multiproc
+from apex_tpu_torch.parallel.distributed import (
+    allreduce_gradients,
+    data_parallel_world,
+    local_rows,
+)
 
 ARCHS = {
     "resnet18": resnet_mod.ResNet18,
@@ -46,10 +61,6 @@ ARCHS = {
     "resnet50": resnet_mod.ResNet50,
     "resnet101": resnet_mod.ResNet101,
 }
-
-_SYNC_BN_LATER = ("--sync-bn (SyncBatchNorm over a process group) and the "
-                  "data-parallel step come with ROADMAP Queue 1 item 9")
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -64,8 +75,8 @@ def parse_args(argv=None):
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--sync-bn", action="store_true",
-                   help="SyncBatchNorm over the data axis (not in this "
-                        "slice: raises)")
+                   help="SyncBatchNorm over the data axis "
+                        "(convert_syncbn_model)")
     p.add_argument("--keep-batchnorm-fp32", default=None)
     p.add_argument("--loss-scale", default=None)
     p.add_argument("--data-dir", default=None,
@@ -78,8 +89,11 @@ def parse_args(argv=None):
 @dataclasses.dataclass
 class Trainer:
     """What :func:`build` returns: ``step(images, labels) -> (loss,
-    metrics)`` runs one training step (the unscaled mean loss, detached, and
-    the optimizer's metrics) over ``model`` / ``mp_opt`` / ``opt_state``."""
+    metrics)`` runs one training step on the global batch (this rank's
+    rows of it) and returns the unscaled mean loss (detached; the
+    ``pmean`` over the ranks) and the optimizer's metrics, over ``model`` /
+    ``mp_opt`` / ``opt_state``. ``batch_size`` is the global batch, ``dp``
+    the data-parallel size."""
 
     step: Callable
     model: resnet_mod.ResNet
@@ -89,6 +103,7 @@ class Trainer:
     batch_size: int
     image_size: int
     num_classes: int
+    dp: int = 1
 
 
 def build(arch: str = "resnet50", opt_level: str = "O2", *,
@@ -102,14 +117,19 @@ def build(arch: str = "resnet50", opt_level: str = "O2", *,
     """The recipe's model, policy and optimizer on one device (the card
     unless ``device="cpu"``), random weights from ``seed``;
     ``keep_batchnorm_fp32`` / ``loss_scale`` override the policy when not
-    None."""
-    if sync_bn:
-        raise NotImplementedError(_SYNC_BN_LATER)
+    None. With ``torch.distributed`` initialized the step is the
+    reference's data-parallel one; ``sync_bn`` synchronises every BN over
+    ``data`` (one rank without a process group: the local statistics)."""
+    if sync_bn and not mesh.model_parallel_is_initialized():
+        mesh.initialize_model_parallel()
+    dp, rank = data_parallel_world()
+    distributed = torch.distributed.is_initialized()
     dev = resolve_device(device)
     policy = amp.get_policy(opt_level,
                             keep_batchnorm_fp32=keep_batchnorm_fp32,
                             loss_scale=loss_scale)
     model = ARCHS[arch](num_classes=num_classes,
+                        axis_name=mesh.AXIS_DATA if sync_bn else None,
                         dtype=policy.op_dtype("conv"), device=dev,
                         seed=seed)
     amp.cast_params(model, policy)
@@ -119,20 +139,28 @@ def build(arch: str = "resnet50", opt_level: str = "O2", *,
     opt_state = mp_opt.init(model)
 
     def step(images: torch.Tensor, labels: torch.Tensor):
-        logits = model(images)
-        loss = torch.mean(softmax_cross_entropy(logits, labels))
+        logits = model(local_rows(images, dp, rank))
+        loss = torch.mean(softmax_cross_entropy(
+            logits, local_rows(labels, dp, rank)))
         mp_opt.scale_loss(loss, opt_state).backward()
+        loss = loss.detach()
+        if distributed:
+            params = list(model.parameters())
+            for p, g in zip(params, allreduce_gradients(
+                    [p.grad for p in params], (mesh.AXIS_DATA,))):
+                p.grad = g
+            loss = collectives.pmean(loss, (mesh.AXIS_DATA,))
         metrics = mp_opt.step(opt_state, model)
-        return loss.detach(), metrics
+        return loss, metrics
 
     return Trainer(step, model, mp_opt, opt_state, policy, batch_size,
-                   image_size, num_classes)
+                   image_size, num_classes, dp)
 
 
 def fixed_batch(trainer: Trainer, seed: int = 1):
-    """One synthetic ``(batch, size, size, 3)`` fp32 image batch (standard
-    normal) and its int64 labels, made on the model's device from
-    ``seed``."""
+    """One synthetic global ``(batch, size, size, 3)`` fp32 image batch
+    (standard normal) and its int64 labels, made on the model's device
+    from ``seed`` (the same on every rank)."""
     dev = trainer.model.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -179,6 +207,16 @@ def train_steps(trainer: Trainer, n: int = 10, images=None, labels=None
 
 def main(argv=None) -> Optional[int]:
     args = parse_args(argv)
+    started = (not torch.distributed.is_initialized()
+               and multiproc.initialize_distributed(device=args.device))
+    try:
+        return _main(args)
+    finally:
+        if started:
+            multiproc.shutdown()
+
+
+def _main(args) -> int:
     keep_bn = (None if args.keep_batchnorm_fp32 is None
                else args.keep_batchnorm_fp32 == "True")
     scale = (None if args.loss_scale is None else "dynamic"
@@ -190,6 +228,8 @@ def main(argv=None) -> Optional[int]:
                     keep_batchnorm_fp32=keep_bn, loss_scale=scale,
                     sync_bn=args.sync_bn, device=args.device)
     dev = trainer.model.device
+    lead = (not torch.distributed.is_initialized()
+            or torch.distributed.get_rank() == 0)
     shape = (args.batch_size, args.image_size, args.image_size, 3)
     if args.data_dir:
         from apex_tpu_torch.data import NpyBatchLoader
@@ -216,7 +256,7 @@ def main(argv=None) -> Optional[int]:
             t0 = time.perf_counter()
         else:
             seen += args.batch_size
-        if i % 5 == 0:
+        if lead and i % 5 == 0:
             print(f"step {i:4d} loss {float(loss):.4f} "
                   f"loss_scale {metrics['loss_scale']:.0f}")
     if loss is not None:
@@ -224,8 +264,11 @@ def main(argv=None) -> Optional[int]:
     dt = time.perf_counter() - t0
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"{seen / max(dt, 1e-9):.1f} imgs/sec ({args.arch}, "
-          f"{args.opt_level}, batch {args.batch_size}, one device: {name})")
+    where = (f"one device: {name}" if trainer.dp == 1
+             else f"{trainer.dp}-way DP on {name}")
+    if lead:
+        print(f"{seen / max(dt, 1e-9):.1f} imgs/sec ({args.arch}, "
+              f"{args.opt_level}, batch {args.batch_size}, {where})")
     return 0
 
 

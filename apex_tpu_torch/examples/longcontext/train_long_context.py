@@ -1,4 +1,4 @@
-"""Long-context GPT training on one card: the serial mode (``--cp 1 --dp
+"""Long-context GPT training: the serial and data-parallel modes (``--cp
 1``) of ``examples/longcontext/train_long_context.py``.
 
     python -m apex_tpu_torch.examples.longcontext.train_long_context \\
@@ -14,8 +14,12 @@ dynamic loss scale, ``model.loss`` on one fixed random batch and its
 next-token targets. At these lengths (``STREAM_MIN_SEQ``), or with a
 window, every layer's attention runs the streamed flash kernels on the card.
 
-Ring and Ulysses context parallelism (``--cp`` > 1) and data parallelism
-(``--dp`` > 1) come with ROADMAP Queue 1 items 15 and 9 and raise;
+``--dp N`` is the reference's data-parallel mesh at ``--cp 1``: launch N
+processes (``torchrun --nproc_per_node N``; the world must have N ranks),
+each takes its rows of the global batch (``--batch``, default N), its
+grads go through ``allreduce_gradients_by_spec`` and its loss is the
+``pmean`` of the local means (``:138-153``). Ring and Ulysses context
+parallelism (``--cp`` > 1) comes with ROADMAP Queue 1 item 15 and raises;
 ``--sp-impl`` is accepted and unused, as in the reference's serial mode.
 ``--cp`` and ``--dp`` default to 1 here (the reference defaults to a 4 x 2
 mesh). ``--device cpu`` runs the plain versions of the kernels on the CPU;
@@ -37,17 +41,23 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch import amp
 from apex_tpu_torch._device import DeviceLike, resolve_device
 from apex_tpu_torch.bench import Bench, fixed_batch
 from apex_tpu_torch.models import GPTConfig, GPTModel
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.parallel import collectives, mesh, multiproc
+from apex_tpu_torch.parallel.distributed import (
+    allreduce_gradients_by_spec,
+    data_parallel_world,
+    local_rows,
+)
 
-_PARALLEL_LATER = ("--cp {cp} --dp {dp}: context parallelism (ring/Ulysses "
-                   "attention over a process group) comes with ROADMAP Queue "
-                   "1 item 15 and data parallelism with item 9; this slice "
-                   "runs the serial mode (--cp 1 --dp 1)")
+_CP_LATER = ("--cp {cp}: context parallelism (ring/Ulysses attention over a "
+             "process group) comes with ROADMAP Queue 1 item 15; this slice "
+             "runs --cp 1, serial or data parallel (--dp)")
 
 
 def parse_args(argv=None):
@@ -87,13 +97,18 @@ def build(*, seq: int = 4096, hidden: int = 256, layers: int = 4,
           window: Optional[int] = None, pos: str = "learned",
           cp: int = 1, dp: int = 1, seed: int = 0,
           device: DeviceLike = None) -> Bench:
-    """The reference's serial config and O2 state (``:83-111``) on one
-    device (the card unless ``device="cpu"``), random weights from
-    ``seed``; ``step(tokens, targets)`` is its serial step (``:113-121``):
-    the scaled loss's backward, then the O2 FusedAdam step, which skips the
-    update and halves the scale on an overflow."""
-    if cp != 1 or dp != 1:
-        raise NotImplementedError(_PARALLEL_LATER.format(cp=cp, dp=dp))
+    """The reference's config and O2 state (``:83-111``) on one device (the
+    card unless ``device="cpu"``), random weights from ``seed``;
+    ``step(tokens, targets)`` takes the global batch (``batch`` rows):
+    with ``dp`` = 1 the serial step (``:113-121``), the scaled loss's
+    backward, then the O2 FusedAdam step, which skips the update and
+    halves the scale on an overflow; with ``dp`` > 1 (the data axis of the
+    launched world; anything else raises) this rank's rows, the grads
+    through ``allreduce_gradients_by_spec`` and the loss ``pmean``-ed
+    (``:138-153``) before that step."""
+    if cp != 1:
+        raise NotImplementedError(_CP_LATER.format(cp=cp))
+    dp, rank = data_parallel_world(dp)
     dev = resolve_device(device)
     policy = amp.get_policy("O2")
     cfg = GPTConfig(
@@ -116,17 +131,37 @@ def build(*, seq: int = 4096, hidden: int = 256, layers: int = 4,
     opt_state = mp_opt.init(model)
 
     def step(tokens: torch.Tensor, targets: torch.Tensor):
-        loss = model.loss(tokens, targets)
+        loss = model.loss(local_rows(tokens, dp, rank),
+                          local_rows(targets, dp, rank))
         mp_opt.scale_loss(loss, opt_state).backward()
+        loss = loss.detach()
+        if dp > 1:
+            params = list(model.parameters())
+            grads = allreduce_gradients_by_spec(
+                [p.grad for p in params], [()] * len(params))
+            for p, g in zip(params, grads):
+                p.grad = g
+            loss = collectives.pmean(loss, mesh.get_gradient_reduction_axes())
         metrics = mp_opt.step(opt_state, model)
-        return loss.detach(), metrics
+        return loss, metrics
 
     return Bench(step, model, mp_opt, opt_state, cfg, batch)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    started = (args.dp > 1 and not dist.is_initialized()
+               and multiproc.initialize_distributed(device=args.device))
+    try:
+        return _main(args)
+    finally:
+        if started:
+            multiproc.shutdown()
+
+
+def _main(args) -> int:
     batch = args.batch or args.dp
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     trainer = build(seq=args.seq, hidden=args.hidden, layers=args.layers,
                     heads=args.heads, vocab=args.vocab, batch=batch,
                     lm_head_chunks=args.lm_head_chunks, window=args.window,
@@ -141,20 +176,23 @@ def main(argv=None) -> int:
         loss_val = float(loss)  # device->host fetch: the step's barrier
         if i == 0:
             t0 = time.perf_counter()  # exclude the warm-up step
-        print(f"step {i}: loss {loss_val:.4f}", file=sys.stderr)
+        if lead:
+            print(f"step {i}: loss {loss_val:.4f}", file=sys.stderr)
     steps_timed = max(args.steps - 1, 1)
     dt = (time.perf_counter() - t0) / steps_timed
     tok_s = batch * args.seq / dt
-    print(f"{tok_s:.0f} tokens/s at context {args.seq} "
-          f"(cp={args.cp}, dp={args.dp}, serial)")
-    if args.output:
+    mode = "serial" if args.dp == 1 else "data parallel"
+    if lead:
+        print(f"{tok_s:.0f} tokens/s at context {args.seq} "
+              f"(cp={args.cp}, dp={args.dp}, {mode})")
+    if args.output and lead:
         os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
         with open(args.output, "w") as f:
             json.dump({
                 "metric": "longcontext_train_tokens_per_sec",
                 "platform": "gpu" if on_card else "cpu",
                 "seq": args.seq, "cp": args.cp, "dp": args.dp,
-                "mode": "serial", "batch": batch,
+                "mode": mode, "batch": batch,
                 "hidden": args.hidden, "layers": args.layers,
                 "lm_head_chunks": args.lm_head_chunks,
                 "window": args.window,

@@ -34,8 +34,9 @@ every block as ``contrib.bottleneck.FastBottleneck`` with
 ``batch_stats``, which ``params_from_numpy`` / ``to_numpy`` carry as the
 reference's ``{"params"}``.
 
-Not in this slice: BN synchronised over a process group (``axis_name``,
-``bn_group_size``; ROADMAP Queue 1 item 9). The downsample branch
+``axis_name`` / ``bn_group_size`` pass through to every norm: BN
+statistics synchronised over that mesh axis (blocks of ``bn_group_size``
+ranks along it), the reference's ``--sync-bn``. The downsample branch
 is built when a block changes the channel count or has stride 2, which is
 where the reference's shape test (``residual.shape != y.shape``) puts it for
 every feature map larger than 1 x 1.
@@ -180,8 +181,8 @@ class ResNet(nn.Module):
     ``stage_sizes`` blocks of ``block_cls`` per stage at widths
     ``width * 2**i``; ``stem_pool`` chooses the ImageNet stem (7x7 stride 2
     and a 3x3 max pool) or the small-image one (3x3, no pool). BN momentum
-    is 0.1 and every BN is local; ``axis_name`` / ``bn_group_size`` raise
-    until data parallelism (ROADMAP Queue 1 item 9). ``norm_cls`` is the
+    is 0.1; ``axis_name`` / ``bn_group_size`` synchronise every BN over
+    that mesh axis (local BN without them). ``norm_cls`` is the
     norm's constructor (``SyncBatchNorm``'s surface). The images have 3
     channels (flax infers the count from the first input; the port builds
     its weights up front). Runs on the card unless ``device="cpu"``;

@@ -11,10 +11,13 @@ against ``jax.value_and_grad`` of the JAX model on the same params, and
 the O2 cast (fp32 frozen-BN params, the epilogue in bf16). Tolerances:
 fp32 2e-5 absolute for the block's outputs (the JAX test's bar), logits
 1e-5 relative, grads 1e-4 of each grad's max |JAX grad| (fp32 convs summed
-in another order, as ``tests/test_torch_resnet.py``). Mirrors
+in another order, as ``tests/test_torch_resnet.py``). The spatially
+parallel block (``SpatialBottleneck``: H split into strips over 4 gloo
+ranks, one halo row swapped with each neighbour before the 3x3 conv)
+against the serial block on the same weights, atol 2e-5 (the bar of
+``tests/test_bottleneck.py:111-131``, where GSPMD splits H). Mirrors
 ``tests/test_bottleneck.py`` but its two ``assert_epilogues_fused`` cases
-(HLO inspection: ROADMAP Queue 1 item 21) and the spatially sharded block
-(a device mesh: item 9).
+(HLO inspection: ROADMAP Queue 1 item 21).
 """
 
 from functools import partial
@@ -270,3 +273,29 @@ def test_o2_cast_keeps_frozen_bn_fp32():
     loss.backward()
     assert torch.isfinite(loss)
     assert model.bn1.scale.grad.dtype == torch.float32
+
+
+def test_spatial_parallel_bottleneck_matches_serial(tmp_path):
+    """``FastBottleneck(filters=8)`` on (2, 32, 16, 16) NHWC (the JAX
+    test's shape; NCHW here) with seeded frozen-BN scales and biases, H
+    split over 4 ranks: each rank's strip of the output equals the serial
+    block's rows. The block's weights come from its default seed, the same
+    on every rank."""
+    from torch_dp_workers import run_ranks, spatial_bottleneck
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 16, 32, 16)).astype(np.float32)
+    scales = {n: (rng.uniform(0.5, 1.5, c).astype(np.float32),
+                  rng.normal(size=c).astype(np.float32))
+              for n, c in (("bn1", 8), ("bn2", 8), ("bn3", 32),
+                           ("bn_ds", 32))}
+    serial = FastBottleneck(16, 8, device="cpu")
+    with torch.no_grad():
+        for n, (s_, b_) in scales.items():
+            getattr(serial, n).scale.copy_(torch.from_numpy(s_))
+            getattr(serial, n).bias.copy_(torch.from_numpy(b_))
+        ref = serial(torch.from_numpy(x)).numpy()
+    strips = run_ranks(spatial_bottleneck, 4, tmp_path, x, scales)
+    assert all(s_.shape == (2, 32, 8, 16) for s_ in strips)
+    np.testing.assert_allclose(np.concatenate(strips, axis=2), ref,
+                               atol=2e-5)

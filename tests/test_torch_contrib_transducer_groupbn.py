@@ -191,8 +191,19 @@ def test_groupbn_group_raises():
         BatchNorm2d_NHWC(8, bn_group=2, device="cpu")
     with pytest.raises(ValueError, match="axis_name"):
         jgbn.BatchNorm2d_NHWC(8, bn_group=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        BatchNorm2d_NHWC(8, bn_group=2, axis_name="data", device="cpu")
+    # bn_group 2: NHWC statistics over blocks of 2 ranks along "data"
+    # (held on 4 gloo ranks in tests/test_torch_sync_batchnorm_dp.py); a
+    # one-rank mesh has no block of 2
+    bn = BatchNorm2d_NHWC(8, bn_group=2, axis_name="data", device="cpu")
+    assert (bn.axis_name, bn.group_size, bn.channel_last) == ("data", 2, True)
+    from apex_tpu_torch.parallel import mesh
+
+    mesh.initialize_model_parallel()
+    try:
+        with pytest.raises(ValueError, match="not divisible by group_size"):
+            bn(torch.zeros(2, 3, 3, 8))
+    finally:
+        mesh.destroy_model_parallel()
     # bn_group 1 drops axis_name, as the reference does: statistics local
     bn = BatchNorm2d_NHWC(8, axis_name="data", device="cpu")
     assert bn.channel_last and bn.num_features == 8

@@ -120,3 +120,16 @@ def test_pretrain_gpt_reads_its_data_through_the_native_stream(tmp_path):
     rows = np.arange(16).reshape(2, 8)
     assert np.array_equal(toks.numpy(), rows[:, :-1])
     assert np.array_equal(tgts.numpy(), rows[:, 1:])
+
+
+def test_kernel_build_runs_once_across_processes(tmp_path):
+    """Two processes reach the build together: under the file lock in the
+    build directory one compiles, the other waits and loads its library
+    (``csrc.build.build_once``, around ``build.load``'s nvcc build)."""
+    from torch_dp_workers import locked_build, run_ranks
+
+    path, counter = str(tmp_path / "lib.so"), str(tmp_path / "builds")
+    got = run_ranks(locked_build, 2, tmp_path, path, counter)
+    assert got == ["built", "built"]
+    with open(counter) as f:
+        assert len(f.read().split()) == 1

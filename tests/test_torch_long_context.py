@@ -209,9 +209,14 @@ def test_example_main_on_cpu_writes_the_reference_record(tmp_path, capsys):
     assert np.isfinite(rec["loss_final"]) and rec["steps_timed"] == 1
 
 
-@pytest.mark.parametrize("flag", [["--cp", "2"], ["--dp", "2"]])
-def test_parallel_modes_raise_naming_their_roadmap_items(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+@pytest.mark.parametrize("flag,error,match", [
+    (["--cp", "2"], NotImplementedError, "Queue 1 item 15"),
+    # data parallelism runs under a launcher of --dp processes (held on
+    # gloo ranks in tests/test_torch_ddp.py); one process has 1 rank
+    (["--dp", "2"], RuntimeError, "launch 2 processes")],
+    ids=["flag0", "flag1"])
+def test_parallel_modes_raise_naming_their_roadmap_items(flag, error, match):
+    with pytest.raises(error, match=match):
         lc.main(["--device", "cpu", *flag])
 
 

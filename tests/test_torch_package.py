@@ -215,10 +215,20 @@ def test_new_modules_import_no_jax():
     """The softmax slice's modules, the bench slice's (the bench, amp's
     functions, the native runtime, the DCGAN example), the probe
     slice's (the convergence probe, utils/io and utils/nn, the rest of the
-    optimizers, fp16_utils, rnn, reparameterization) and the contrib
+    optimizers, fp16_utils, rnn, reparameterization), the contrib
     slice's (multihead_attn, bottleneck, groupbn, transducer, sparsity)
-    are among the scanned files."""
+    and the data-parallel slice's (mesh, collectives, distributed,
+    multiproc, parallel_state, transformer amp, the simple example) are
+    among the scanned files."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"apex_tpu_torch/parallel/mesh.py",
+            "apex_tpu_torch/parallel/collectives.py",
+            "apex_tpu_torch/parallel/distributed.py",
+            "apex_tpu_torch/parallel/multiproc.py",
+            "apex_tpu_torch/transformer/parallel_state.py",
+            "apex_tpu_torch/transformer/amp.py",
+            "apex_tpu_torch/examples/simple/distributed_data_parallel.py"
+            } <= rel
     assert {"apex_tpu_torch/contrib/multihead_attn.py",
             "apex_tpu_torch/contrib/bottleneck.py",
             "apex_tpu_torch/contrib/groupbn.py",

@@ -42,6 +42,7 @@ from apex_tpu_torch import ops
 from apex_tpu_torch.data import NpyBatchLoader
 from apex_tpu_torch.examples.imagenet import main_amp
 from apex_tpu_torch.models import resnet as tresnet
+from apex_tpu_torch.parallel import mesh
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy
 
 TINY = {
@@ -370,8 +371,19 @@ def test_example_build_train_steps_and_main_on_cpu(tmp_path, capsys,
     assert not any(m["found_inf"] for m in out["metrics"])
     assert ops.launch_counts() == before  # the CPU runs the plain versions
     assert trainer.model.layer1_0.bn1.num_batches_tracked == 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        main_amp.build("resnet18", sync_bn=True, device="cpu")
+    # --sync-bn on one rank with no process group: local BN, bit for bit
+    synced = main_amp.build("tiny18", "O2", batch_size=4, image_size=16,
+                            num_classes=10, sync_bn=True, device="cpu")
+    try:
+        assert synced.model.layer1_0.bn1.axis_name == "data"
+        got = main_amp.train_steps(synced, 2)
+    finally:
+        mesh.destroy_model_parallel()
+    assert got["losses"] == out["losses"]
+    for p, q in zip(synced.model.parameters(), trainer.model.parameters()):
+        assert torch.equal(p, q)
+    assert torch.equal(synced.model.layer1_0.bn1.var,
+                       trainer.model.layer1_0.bn1.var)
     with pytest.raises(RuntimeError, match="no CUDA device|not available"):
         main_amp.build("resnet18")  # the card by default
     _npz_files(tmp_path, size=32)

@@ -21,6 +21,7 @@ import torch
 
 from apex_tpu.parallel.sync_batchnorm import SyncBatchNorm as JaxBN
 from apex_tpu_torch.parallel import SyncBatchNorm
+from apex_tpu_torch.parallel import mesh
 from apex_tpu_torch.parallel.sync_batchnorm import sync_moments
 
 
@@ -163,7 +164,21 @@ def test_untracked_stats_and_local_only_surface():
     mean, var, count = sync_moments(torch.from_numpy(x), [0])
     np.testing.assert_allclose(var.numpy(), x.var(0), rtol=1e-5)
     assert count == 8.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        SyncBatchNorm(3, axis_name="data", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # statistics over a mesh axis need an installed mesh
+    with pytest.raises(RuntimeError, match="not initialized"):
         sync_moments(torch.from_numpy(x), [0], axis_name="data")
+    # one rank with no process group: the group's statistics are the local
+    # ones, bit for bit (the data-parallel cases run on gloo ranks,
+    # tests/test_torch_sync_batchnorm_dp.py)
+    mesh.initialize_model_parallel()
+    try:
+        synced = SyncBatchNorm(3, axis_name="data", device="cpu")
+        local = SyncBatchNorm(3, device="cpu")
+        assert torch.equal(synced(torch.from_numpy(x)),
+                           local(torch.from_numpy(x)))
+        assert torch.equal(synced.var, local.var)
+        got = sync_moments(torch.from_numpy(x), [0], axis_name="data")
+        for a, b in zip(got, (mean, var, count)):
+            assert torch.equal(a, b)
+    finally:
+        mesh.destroy_model_parallel()
