@@ -15,8 +15,17 @@ raise on restore.
 
 Leaves may be tensors (any device; bf16 kept), numpy arrays or Python
 numbers; restored leaves are CPU tensors in the saved dtypes. The orbax
-backend and ``sharding_tree`` of the reference are not ported: this
-package is single-process.
+backend is not ported.
+
+Tensor parallelism keeps the file topology-free, as the reference's
+``sharding_tree`` restore does: :func:`save_checkpoint` with ``specs`` (the
+split of each leaf over the model axis, ``tensor_parallel.layers``' form)
+gathers every model-sharded leaf to its full shape -- every rank of the
+axis calls it -- and the first rank of the world writes; and
+:func:`restore_checkpoint` with ``specs`` cuts the full tree to one tensor-
+parallel rank's shard. So a checkpoint saved at tp 2 resumes serial, and a
+serial one resumes at tp 2. A subtree with no entry in ``specs`` (None) is
+replicated.
 """
 
 from __future__ import annotations
@@ -28,6 +37,9 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from apex_tpu_torch.parallel.mesh import AXIS_MODEL
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _SEP = "/"
@@ -126,24 +138,44 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def save_checkpoint(directory: str, step: int, state: Any) -> str:
+def save_checkpoint(directory: str, step: int, state: Any,
+                    specs: Any = None, axis: str = AXIS_MODEL) -> str:
     """Save ``state`` (a tree) as ``directory/step_{step}/state.npz``;
-    returns the step directory."""
+    returns the step directory. With ``specs`` (tensor parallelism) the
+    model-sharded leaves are gathered over ``axis`` first, so every rank of
+    it must call this, and only the world's first rank writes."""
     path = _step_dir(directory, step)
+    if specs is not None:
+        from apex_tpu_torch.transformer.tensor_parallel import gather_params
+
+        state = gather_params(state, specs, axis)
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_rank() != 0:
+            return path
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, "state.npz"), **_flatten(state))
     return path
 
 
 def restore_checkpoint(directory: str, target: Any,
-                       step: Optional[int] = None) -> Any:
+                       step: Optional[int] = None, specs: Any = None,
+                       axis: str = AXIS_MODEL) -> Any:
     """The tree saved at ``step`` (default: the latest) in the structure of
     ``target`` (only its keys are read: the dtypes and shapes are the
     saved ones), with CPU tensors as leaves. Keys of the file that
-    ``target`` does not name are not read."""
+    ``target`` does not name are not read. With ``specs`` the full tree is
+    cut to this process's shard along ``axis`` of the installed
+    topology."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
     with np.load(os.path.join(_step_dir(directory, step), "state.npz")) as z:
-        return _unflatten_into(target, z)
+        tree = _unflatten_into(target, z)
+    if specs is None:
+        return tree
+    from apex_tpu_torch.transformer.tensor_parallel import mappings, \
+        shard_params
+
+    rank, size = mappings.axis_world(axis)
+    return shard_params(tree, specs, rank, size, axis)

@@ -1,12 +1,13 @@
-"""GPT serving on one card: prompts -> tokens through the paged-KV engine,
-from a training checkpoint or random weights (the ``--tp 1`` branch of
-``examples/gpt/generate_gpt.py``).
+"""GPT serving: prompts -> tokens through the paged-KV engine, from a
+training checkpoint or random weights (``examples/gpt/generate_gpt.py``).
 
     python -m apex_tpu_torch.examples.gpt.generate_gpt --hidden 1024 \\
         --layers 24 --heads 16 --max-seq 1024 --max-batch 8 --load-dir D
     ... --prefix-cache --shared-prefix 500 --spec-k 4
     ... --prefill-chunk 256
     ... --pos rope --window 256          # rotary positions, sliding window
+    torchrun --nproc_per_node 2 -m apex_tpu_torch.examples.gpt.generate_gpt \\
+        ... --tp 2                        # tensor parallel over 2 ranks
 
 As the reference (``:157-255``): an fp32 GPT without remat
 (``compute_dtype=float32``, ``--window``, ``--pos``), random weights from
@@ -21,9 +22,14 @@ the reference's synthetic prompts (or ``--prompt-file``) cut to
 equal the JAX example's on the same checkpoint; sampled ones come from
 torch generators, not JAX keys.
 
-``--tp`` > 1 (ROADMAP Queue 1 item 10) and the monitoring options (item
-21) raise ``NotImplementedError``. ``--device cpu`` runs the plain versions
-of the kernels on the CPU; the default is the card. :func:`run` is
+``--tp N`` (``:157-170``) runs under a launcher: the mesh of
+``initialize_model_parallel(tensor_model_parallel_size=N)`` (one process,
+or a world that does not divide by N, raises naming the world size), the
+model and any draft on the model axis, the checkpoint's full tree cut to
+this rank's shard, and an engine over the mesh whose ranks run in
+lockstep; rank 0 prints. The monitoring options (ROADMAP Queue 1 item 21)
+raise ``NotImplementedError``. ``--device cpu`` runs the plain versions of
+the kernels on the CPU; the default is the card. :func:`run` is
 :func:`main` returning the engine, the model and the results.
 """
 
@@ -37,10 +43,13 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch import checkpoint
 from apex_tpu_torch._params import load_tree_, module_tree
 from apex_tpu_torch.models import GPTConfig, GPTModel
+from apex_tpu_torch.parallel import mesh as mesh_lib
+from apex_tpu_torch.parallel import multiproc
 from apex_tpu_torch.serve import Engine, Request, ServeConfig
 
 #: the reference's monitoring options (ROADMAP Queue 1 item 21)
@@ -84,10 +93,6 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="'cuda' (the default) or 'cpu'")
     args = p.parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1: tensor-parallel serving is not in this slice of the "
-            "port; it comes with ROADMAP Queue 1 item 10")
     args.ledger = args.ledger or os.environ.get("APEX_TPU_LEDGER")
     for name in _MONITOR:
         if getattr(args, name):
@@ -118,7 +123,11 @@ def load_prompts(args) -> List[List[int]]:
 def build(args):
     """``(engine, model)``: the fp32 model (restored from ``--load-dir``
     when given) and its engine, with the draft model of ``--spec-k
-    --draft-layers``."""
+    --draft-layers``; with ``--tp`` > 1 on the dp x tp mesh it installs."""
+    mesh = None
+    if args.tp > 1:
+        mesh = mesh_lib.initialize_model_parallel(
+            tensor_model_parallel_size=args.tp)
     cfg = GPTConfig(
         vocab_size=args.vocab,
         hidden_size=args.hidden,
@@ -130,11 +139,14 @@ def build(args):
         remat=False,
         attention_window=args.window,
         position_embedding=args.pos,
+        axis=mesh_lib.AXIS_MODEL if mesh is not None else None,
     )
     model = GPTModel(cfg, device=args.device, seed=args.seed)
     if args.load_dir:
+        specs = {"params": model.specs()} if mesh is not None else None
         restored = checkpoint.restore_checkpoint(
-            args.load_dir, {"params": module_tree(model, device="meta")})
+            args.load_dir, {"params": module_tree(model, device="meta")},
+            specs=specs)
         load_tree_(model, restored["params"])
         print(f"restored params from {args.load_dir}")
     draft = None
@@ -147,7 +159,7 @@ def build(args):
         block_size=args.block_size, temperature=args.temperature,
         top_k=args.top_k, seed=args.seed, prefix_cache=args.prefix_cache,
         prefill_chunk=args.prefill_chunk, spec_k=args.spec_k),
-        device=model.device, draft_model=draft)
+        device=model.device, draft_model=draft, mesh=mesh)
     return engine, model
 
 
@@ -163,11 +175,32 @@ def run(argv=None) -> Dict[str, Any]:
     the ``results`` (``{request_id: Request}``) and the serve's ``wall_s``
     (host clock around ``engine.run``)."""
     args = parse_args(argv)
+    started = (args.tp > 1 and not dist.is_initialized()
+               and multiproc.initialize_distributed(device=args.device))
+    try:
+        return _run(args)
+    finally:
+        if started:
+            multiproc.shutdown()
+        elif args.tp > 1:
+            mesh_lib.destroy_model_parallel()
+
+
+def _run(args) -> Dict[str, Any]:
     engine, model = build(args)
     reqs = requests(args)
     t0 = time.perf_counter()
     results = engine.run(reqs)
     wall = time.perf_counter() - t0
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        report(args, engine, results)
+    engine.drop_prefix_cache()
+    return {"engine": engine, "model": model, "requests": reqs,
+            "results": results, "wall_s": wall}
+
+
+def report(args, engine, results) -> None:
+    """The reference's per-request and summary lines."""
     for rid in sorted(results):
         r = results[rid]
         itl_ms = (1e3 * float(np.median(r.itl_s)) if r.itl_s else None)
@@ -182,9 +215,6 @@ def run(argv=None) -> Dict[str, Any]:
     if args.prefix_cache or args.spec_k:
         print("serving stats: " + ", ".join(
             f"{k}={v}" for k, v in engine.stats.items()))
-    engine.drop_prefix_cache()
-    return {"engine": engine, "model": model, "requests": reqs,
-            "results": results, "wall_s": wall}
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,5 @@
-"""GPT pretraining with checkpoint and resume: the serial and the
-data-parallel branches (``--tp 1 --pp 1``) of
-``examples/gpt/pretrain_gpt.py``.
+"""GPT pretraining with checkpoint and resume: the serial, data-parallel
+and tensor-parallel branches (``--pp 1``) of ``examples/gpt/pretrain_gpt.py``.
 
     python -m apex_tpu_torch.examples.gpt.pretrain_gpt --hidden 1024 \\
         --layers 24 --heads 16 --seq 1024 --micro-batch 4 \\
@@ -8,6 +7,7 @@ data-parallel branches (``--tp 1 --pp 1``) of
     # the same command again resumes from the latest step under D
     torchrun --nproc_per_node N -m apex_tpu_torch.examples.gpt.pretrain_gpt \\
         ...   # data parallel over N ranks (NCCL; gloo with --device cpu)
+    torchrun --nproc_per_node N -m ... --tp T   # a dp (N / T) x tp T mesh
 
 The moving parts are the reference's (``:391-510``): ``GPTConfig(
 hidden_dropout=0, remat=True, bf16 compute under O1-O3, else fp32)``,
@@ -30,7 +30,19 @@ then the non-layer grads go through ``allreduce_gradients_by_spec`` and the
 layers' through ``allreduce_gradients`` over the gradient-reduction axes
 (``data``, ``context``), and the loss is the ``pmean`` of the local means.
 The parameters start equal on every rank (the same seed). Checkpoints are
-written by rank 0 and read by all; rank 0 prints. The run resumes from
+written by rank 0 and read by all; rank 0 prints.
+
+Tensor parallelism (``--tp T``, ``:369-440``): the mesh of
+``initialize_model_parallel(tensor_model_parallel_size=T)`` (data-parallel
+size world / T; a world that does not divide raises), a GPT on the model
+axis holding this rank's shard (the full init from the seed, cut), the TP
+ranks of a data shard taking the same rows, the grads reduced over the
+data axis by each leaf's spec (``allreduce_gradients_by_spec`` with the
+model's specs), and the overflow vote over the model axis, so every rank
+skips or steps together. A checkpoint holds the full tree: its model-
+sharded leaves are gathered over the model axis at a save (every rank
+calls it) and cut to this rank's shard at a restore, so a run resumes at
+another ``--tp``. The run resumes from
 ``latest_step(--save-dir)``, saves every ``--save-every`` steps
 (``apex_tpu_torch.checkpoint``, the JAX package's npz layout: a checkpoint
 of either package resumes in the other) and prints the reference's lines.
@@ -38,7 +50,7 @@ As in the reference, a resumed run's data stream starts again at its
 first batch: the generator and the loader are built anew at every start.
 
 ``--unroll`` is accepted and changes nothing: the port always drives the
-layers one by one. The parallel and monitoring options raise
+layers one by one. The pipeline, ZeRO and monitoring options raise
 ``NotImplementedError`` with the ROADMAP item that brings them; the
 reference's own argument-consistency errors are kept. ``--device cpu``
 runs the plain versions of the kernels on the CPU; the default is the card.
@@ -77,7 +89,6 @@ from apex_tpu_torch.parallel.distributed import (
 #: options of the reference outside this slice -> the ROADMAP Queue 1 item
 #: that brings them
 _LATER = {
-    "tp": ("tensor parallelism", 10),
     "pp": ("pipeline parallelism", 12),
     "pp_schedule": ("the pipeline schedules", 12),
     "vpp": ("interleaved pipeline chunks", 12),
@@ -180,10 +191,11 @@ def parse_args(argv=None):
 
 
 def check_slice(args) -> None:
-    """Raise ``NotImplementedError`` for an option outside the serial and
-    data-parallel branches, naming the ROADMAP item that brings it."""
+    """Raise ``NotImplementedError`` for an option outside the serial,
+    data-parallel and tensor-parallel branches, naming the ROADMAP item
+    that brings it."""
     on = {
-        "tp": args.tp > 1, "pp": args.pp > 1,
+        "pp": args.pp > 1,
         "pp_schedule": args.pp_schedule != "1f1b", "vpp": args.vpp > 1,
         "zero": args.zero, "zero_gather": bool(args.zero_gather),
         "zero3_prefetch": bool(args.zero3_prefetch),
@@ -201,8 +213,8 @@ def check_slice(args) -> None:
             what, item = _LATER[name]
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}: {what} is not in this slice of "
-                f"the port (the serial and data-parallel branches); it comes "
-                f"with ROADMAP Queue 1 item {item}")
+                f"the port (the serial, data- and tensor-parallel branches); "
+                f"it comes with ROADMAP Queue 1 item {item}")
 
 
 def microbatched_backward(bench: Bench, tokens: torch.Tensor,
@@ -249,21 +261,29 @@ def reduce_data_parallel(model: GPTModel,
                          loss: torch.Tensor) -> torch.Tensor:
     """The reference's data-parallel reduction (``:505-514``) on the
     parameters' ``.grad``: the non-layer grads through
-    ``allreduce_gradients_by_spec`` (every spec replicated: at tp = pp = 1
-    no parameter is sharded), the layers' through ``allreduce_gradients``
-    over the gradient-reduction axes. Returns the ``pmean`` of ``loss``."""
+    ``allreduce_gradients_by_spec`` by the model's specs, the layers'
+    through ``allreduce_gradients`` over the gradient-reduction axes.
+    Returns the ``pmean`` of ``loss``."""
     axes = mesh.get_gradient_reduction_axes()
     named = list(model.named_parameters())
-    rest = [p for n, p in named if not n.startswith("layers.")]
+    rest = [(n, p) for n, p in named if not n.startswith("layers.")]
     layers = [p for n, p in named if n.startswith("layers.")]
+    specs = model.specs()
+
+    def spec_of(name):
+        leaf = specs
+        for key in name.split("."):
+            leaf = leaf[key]
+        return leaf
 
     def grads(ps):
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in ps]
 
-    rest_g = allreduce_gradients_by_spec(grads(rest), [()] * len(rest))
+    rest_g = allreduce_gradients_by_spec(grads([p for _, p in rest]),
+                                         [spec_of(n) for n, _ in rest])
     layer_g = allreduce_gradients(grads(layers), axes)
-    for p, g in zip(rest + layers, rest_g + layer_g):
+    for p, g in zip([p for _, p in rest] + layers, rest_g + layer_g):
         p.grad = g
     return collectives.pmean(loss, axes)
 
@@ -272,7 +292,8 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
           heads: int = 8, seq: int = 256, micro_batch: int = 2,
           num_microbatches: int = 2, lr: float = 3e-4,
           opt_level: str = "O2", remat_policy: Optional[str] = None,
-          seed: int = 0, device: DeviceLike = None) -> Bench:
+          seed: int = 0, tp: int = 1, axis: Optional[str] = None,
+          device: DeviceLike = None) -> Bench:
     """The reference's model and optimizer state (``:391-424``) on one
     device (the card unless ``device="cpu"``), random weights from
     ``seed``. ``step(tokens, targets)`` is the training step on the global
@@ -284,8 +305,16 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
     ``remat_policy``: the checkpointing policy of every layer (the
     reference's config field; its example keeps the default). The Bench's
     ``batch`` is the global batch, ``micro_batch x dp x
-    num_microbatches``."""
+    num_microbatches``. ``tp`` > 1 installs the dp x tp mesh
+    (``initialize_model_parallel(tensor_model_parallel_size=tp)``) unless
+    one of that tp size is installed, and builds the model on the model
+    axis; ``axis="model"`` does so at ``tp`` = 1 too."""
     dev = resolve_device(device)
+    if tp > 1 or axis is not None:
+        axis = axis or mesh.AXIS_MODEL
+        if not (mesh.model_parallel_is_initialized()
+                and mesh.get_tensor_model_parallel_world_size() == tp):
+            mesh.initialize_model_parallel(tensor_model_parallel_size=tp)
     dp, rank = data_parallel_world()
     distributed = dist.is_available() and dist.is_initialized()
     policy = amp.get_policy(opt_level)
@@ -300,11 +329,17 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
                        else torch.float32),
         remat=True,
         remat_policy=remat_policy,
+        axis=axis,
     )
     model = GPTModel(cfg, device=dev, seed=seed)
     amp.cast_params(model, policy)
     mp_opt = amp.MixedPrecisionOptimizer(FusedAdam(lr=lr), policy)
     opt_state = mp_opt.init(model)
+
+    vote = None
+    if axis is not None:  # every rank of the model axis skips or steps
+        def vote(found):
+            return collectives.found_inf_max(found, axis)
 
     def step(tokens: torch.Tensor, targets: torch.Tensor):
         # over the parts, not the Bench: no cycle keeps a dropped trainer
@@ -313,7 +348,7 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
             local_rows(targets, dp, rank), num_microbatches)
         if distributed:
             loss = reduce_data_parallel(model, loss)
-        metrics = mp_opt.step(opt_state, model)
+        metrics = mp_opt.step(opt_state, model, found_inf_reducer=vote)
         return loss, metrics
 
     return Bench(step, model, mp_opt, opt_state, cfg,
@@ -327,21 +362,36 @@ def from_args(args, remat_policy: Optional[str] = None) -> Bench:
                  micro_batch=args.micro_batch,
                  num_microbatches=args.num_microbatches, lr=args.lr,
                  opt_level=args.opt_level, remat_policy=remat_policy,
-                 device=args.device)
+                 tp=args.tp, device=args.device)
 
 
 def train_state(bench: Bench, device="cpu") -> Dict[str, Any]:
     """``{"params", "opt"}`` in the JAX example's checkpoint layout
-    (``:850-851``). ``device="meta"``: the structure alone (a restore
-    target), with no copy."""
+    (``:850-851``): this rank's shards under tensor parallelism.
+    ``device="meta"``: the structure alone (a restore target), with no
+    copy."""
     return {"params": module_tree(bench.model, device=device),
             "opt": amp.state_tree(bench.opt_state, bench.model,
                                   device=device)}
 
 
+def train_state_specs(bench: Bench) -> Optional[Dict[str, Any]]:
+    """The split of each leaf of :func:`train_state` over the model axis
+    (the masters and moments split as their params; the step count and
+    the scaler replicated), or None for a serial model."""
+    if bench.model.cfg.axis is None:
+        return None
+    specs = bench.model.specs()
+    opt = train_state(bench, device="meta")["opt"]
+    return {"params": specs, "opt": {
+        "inner": {k: specs if isinstance(v, dict) else None
+                  for k, v in opt["inner"].items()},
+        "master": specs if "master" in opt else None, "scaler": None}}
+
+
 def load_train_state_(bench: Bench, tree: Dict[str, Any]) -> None:
-    """Copy a ``{"params", "opt"}`` tree into the model and its optimizer
-    state in place."""
+    """Copy a ``{"params", "opt"}`` tree (this rank's shards) into the
+    model and its optimizer state in place."""
     load_tree_(bench.model, tree["params"])
     amp.load_state_tree_(bench.opt_state, bench.model, tree["opt"])
 
@@ -389,6 +439,7 @@ def _run(args) -> Dict[str, Any]:
     distributed = dist.is_initialized()
     lead = dist.get_rank() == 0 if distributed else True
     dev = bench.model.device
+    specs = train_state_specs(bench)
     out: Dict[str, Any] = {"bench": bench, "losses": [], "metrics": [],
                            "step_s": [], "save_s": [], "restore_s": None}
     next_batch = batches(args, batch)
@@ -397,7 +448,7 @@ def _run(args) -> Dict[str, Any]:
             step := checkpoint.latest_step(args.save_dir)) is not None:
         t0 = time.perf_counter()
         load_train_state_(bench, checkpoint.restore_checkpoint(
-            args.save_dir, train_state(bench, device="meta")))
+            args.save_dir, train_state(bench, device="meta"), specs=specs))
         out["restore_s"] = time.perf_counter() - t0
         start = step
         if lead:
@@ -419,7 +470,11 @@ def _run(args) -> Dict[str, Any]:
                   f"scale {float(metrics['loss_scale']):.0f}")
         if args.save_dir and (i + 1) % args.save_every == 0:
             s0 = time.perf_counter()
-            if lead:  # the state is the same on every rank
+            if specs is not None:  # gathered over the model axis: all call
+                checkpoint.save_checkpoint(
+                    args.save_dir, i + 1, train_state(bench, device=dev),
+                    specs=specs)
+            elif lead:  # the state is the same on every rank
                 checkpoint.save_checkpoint(args.save_dir, i + 1,
                                            train_state(bench))
             if distributed:

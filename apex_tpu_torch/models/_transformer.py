@@ -4,8 +4,22 @@ The JAX package stacks every layer's parameters on a leading
 ``num_layers`` dim and scans them; here each layer is a module of an
 ``nn.ModuleList`` holding the same tree ``{ln1, qkv, proj, ln2, fc1, fc2}``
 under the same names, and the helpers take that layer module where the
-reference takes its parameter slice. Serial only: context parallelism,
-sequence parallelism and MoE FFNs raise.
+reference takes its parameter slice. Context parallelism and MoE FFNs
+raise.
+
+Tensor parallelism (``cfg.axis``, the mesh's ``"model"``): the embedding is
+vocab-parallel, QKV and fc1 column-parallel with no gather, proj and fc2
+row-parallel, each layer built at its local shapes; the fused QKV output is
+laid out ``(heads, 3, head_dim)``, so a column shard holds whole heads and
+the flash kernels see ``heads / tp`` of them. Sequence parallelism
+(``cfg.sequence_parallel`` with an ``axis``; ignored serial, as in the
+reference) swaps each row-parallel all-reduce for a reduce-scatter onto the
+sequence and each column-parallel ``copy_to`` for an all-gather of it
+(``_transformer.py:225-310``): LN, dropout and the residuals run on ``(b,
+s / tp, h)`` shards, the replicated parameters consumed there (the LNs'
+gamma and beta, the position table) ride :meth:`TransformerBase._sp_param`
+so their grads are whole on every rank, and hidden dropout draws from the
+sequence-parallel generator (seed + 1414 + the tp rank).
 
 Rotary positions (``apply_rope`` / ``apply_rope_at``, one shared body
 ``_rope_rotate``) are ported with the reference's float64 pre-reduction of
@@ -47,7 +61,7 @@ from apex_tpu_torch.utils.nn import inverted_dropout
 
 
 #: the remat policies (``_remat_policy``, ``_transformer.py:123-142``)
-REMAT_POLICIES = ("full", "save_attn", "dots")
+REMAT_POLICIES = tp.checkpoint_policies
 
 
 def remat_policy(name: Optional[str]) -> str:
@@ -151,7 +165,8 @@ class LayerNormParams(nn.Module):
 class TransformerLayer(nn.Module):
     """One layer's parameter tree (the reference's per-layer slice)."""
 
-    def __init__(self, cfg, device, generator: torch.Generator):
+    def __init__(self, cfg, device, generator: torch.Generator,
+                 sequence_parallel: bool = False):
         super().__init__()
         c = cfg
         init = tp.scaled_normal(c.init_method_std)
@@ -160,25 +175,42 @@ class TransformerLayer(nn.Module):
         out_init = tp.scaled_normal(
             c.init_method_std / (2 * c.num_layers) ** 0.5)
         kw = dict(params_dtype=c.params_dtype, device=device,
-                  generator=generator)
+                  generator=generator, axis=c.axis,
+                  sequence_parallel=sequence_parallel)
         self.ln1 = LayerNormParams(c.hidden_size, c.params_dtype, device)
         self.qkv = tp.ColumnParallelLinear(
-            c.hidden_size, 3 * c.hidden_size, init_method=init, **kw)
+            c.hidden_size, 3 * c.hidden_size, gather_output=False,
+            init_method=init, **kw)
         self.proj = tp.RowParallelLinear(
-            c.hidden_size, c.hidden_size, init_method=out_init, **kw)
+            c.hidden_size, c.hidden_size, input_is_parallel=True,
+            init_method=out_init, **kw)
         self.ln2 = LayerNormParams(c.hidden_size, c.params_dtype, device)
         self.fc1 = tp.ColumnParallelLinear(
-            c.hidden_size, c.ffn, init_method=init, **kw)
+            c.hidden_size, c.ffn, gather_output=False, init_method=init,
+            **kw)
         self.fc2 = tp.RowParallelLinear(
-            c.ffn, c.hidden_size, init_method=out_init, **kw)
+            c.ffn, c.hidden_size, input_is_parallel=True,
+            init_method=out_init, **kw)
+
+    def specs(self):
+        """Each leaf's split over the model axis, in the JAX tree's layout
+        (``layer_stack_specs`` without the stacked dim)."""
+        ln = {"scale": (), "bias": ()}
+        return {"ln1": ln, "qkv": self.qkv.specs(),
+                "proj": self.proj.specs(), "ln2": dict(ln),
+                "fc1": self.fc1.specs(), "fc2": self.fc2.specs()}
 
 
 class TransformerBase(nn.Module):
-    """Serial transformer plumbing shared by the model zoo.
+    """Transformer plumbing shared by the model zoo, serial or tensor
+    parallel over ``cfg.axis``.
 
     Subclasses set ``causal``. The config provides hidden_size,
     num_attention_heads, num_layers, ffn, head_dim, params_dtype,
-    compute_dtype, init_method_std, vocab_size and attention_window.
+    compute_dtype, init_method_std, vocab_size, attention_window, axis and
+    sequence_parallel. A tensor-parallel model needs the topology installed
+    (:func:`apex_tpu_torch.parallel.initialize_model_parallel`) before it
+    is built: its layers are built at the local shapes.
     """
 
     causal: bool = True
@@ -190,19 +222,106 @@ class TransformerBase(nn.Module):
         if c.hidden_size % c.num_attention_heads:
             raise ValueError("hidden_size must divide evenly into heads")
         self.device = device
+        # sequence parallelism rides the model axis; serial ignores it
+        self._sp = bool(c.sequence_parallel) and c.axis is not None
+        if c.axis is not None:
+            _, tp_size = tp.mappings.axis_world(c.axis)
+            tp.divide(c.num_attention_heads, tp_size)
+            if self._sp and c.max_seq_len % tp_size:
+                raise ValueError(
+                    f"sequence_parallel=True needs max_seq_len "
+                    f"({c.max_seq_len}) divisible by the tensor-parallel "
+                    f"size ({tp_size}): the embedding reduce-scatter shards "
+                    f"the sequence tp ways")
         self.embedding = tp.VocabParallelEmbedding(
-            c.vocab_size, c.hidden_size, params_dtype=c.params_dtype,
+            c.vocab_size, c.hidden_size, axis=c.axis,
+            sequence_parallel=self._sp, params_dtype=c.params_dtype,
             init_method=tp.scaled_normal(c.init_method_std), device=device,
             generator=generator)
         self.layers = nn.ModuleList(
-            TransformerLayer(c, device, generator)
+            TransformerLayer(c, device, generator, self._sp)
             for _ in range(c.num_layers))
+
+    def layer_stack_specs(self):
+        """The layers' specs with the stacked ``num_layers`` dim first
+        (``stack_specs``)."""
+
+        def stack(t):
+            if isinstance(t, dict):
+                return {k: stack(v) for k, v in t.items()}
+            return (None, *t)
+
+        return stack(self.layers[0].specs())
+
+    def params_from_numpy(self, tree):
+        """Load the JAX ``init`` tree given as numpy arrays (layer leaves
+        stacked ``(num_layers, ...)``, ``kernel`` in JAX's ``(in, out)``
+        layout, which the port keeps): the FULL tree, of which a
+        tensor-parallel model loads this rank's shard
+        (:func:`apex_tpu_torch.transformer.tensor_parallel.shard_params`
+        by :meth:`specs`). Shapes must match
+        (:func:`apex_tpu_torch._params.load_tree_`)."""
+        from apex_tpu_torch._params import load_tree_
+
+        c = self.cfg
+        if c.axis is not None:
+            rank, size = tp.mappings.axis_world(c.axis)
+            tree = tp.shard_params(tree, self.specs(), rank, size, c.axis)
+        return load_tree_(self, tree)
+
+    def sharded_flags(self) -> List[bool]:
+        """Per parameter (``parameters()`` order): whether it is this rank's
+        shard of a tensor split over the model axis -- the ``sharded``
+        flags of ``FusedLAMB.update_``, whose norms are then the whole
+        tensors'."""
+        from apex_tpu_torch._params import _tree_path
+
+        specs, axis = self.specs(), self.cfg.axis
+        out = []
+        for name, _ in self.named_parameters():
+            leaf = specs
+            for key in _tree_path(name)[0]:
+                leaf = leaf[key]
+            out.append(axis is not None and axis in leaf)
+        return out
+
+    # -- sequence-parallel helpers -------------------------------------------
+
+    def _sp_param(self, x: torch.Tensor) -> torch.Tensor:
+        """A REPLICATED parameter consumed in a sequence-sharded region: each
+        rank sees only its tokens, so its grad there is partial; the
+        identity-forward / psum-backward ``copy_to`` makes it whole on every
+        rank (``_transformer.py:356-368``). Identity outside SP."""
+        if not self._sp:
+            return x
+        return tp.copy_to_tensor_model_parallel_region(x, self.cfg.axis)
+
+    def _seq_shard_start(self, s_local: int) -> int:
+        """Global position of this rank's first token for a
+        sequence-sharded activation of ``s_local`` tokens (0 outside SP)."""
+        if not self._sp:
+            return 0
+        rank, _ = tp.mappings.axis_world(self.cfg.axis)
+        return rank * s_local
+
+    def _positions(self, pos_table: torch.Tensor,
+                   s_local: int) -> torch.Tensor:
+        """The learned position rows of this shard's tokens; under SP the
+        table rides :meth:`_sp_param` (``_transformer.py:466-479``)."""
+        start = self._seq_shard_start(s_local)
+        return self._sp_param(pos_table)[start:start + s_local]
 
     # -- compute helpers ----------------------------------------------------
 
-    def _ln(self, p: LayerNormParams, x: torch.Tensor) -> torch.Tensor:
-        # mixed-dtype fused LN: activations in the compute dtype, fp32 γβ
-        return layer_norm(x, p.scale, p.bias)
+    def _ln(self, p: LayerNormParams, x: torch.Tensor,
+            sequence_region: bool = True) -> torch.Tensor:
+        # mixed-dtype fused LN: activations in the compute dtype, fp32 γβ;
+        # an LN in the sequence-sharded region takes γβ through _sp_param
+        # (head LNs past the sequence gather pass sequence_region=False)
+        scale, bias = p.scale, p.bias
+        if sequence_region:
+            scale, bias = self._sp_param(scale), self._sp_param(bias)
+        return layer_norm(x, scale, bias)
 
     def _dense(self, p: tp.ColumnParallelLinear,
                x: torch.Tensor) -> torch.Tensor:
@@ -212,8 +331,10 @@ class TransformerBase(nn.Module):
                    positions: Optional[torch.Tensor] = None):
         """``(q, k, v)`` head tensors ``(b, heads, s, d)`` from the fused
         QKV projection, laid out ``(heads, 3, head_dim)``
-        (``_transformer.py:400-430``). They are strided views of one
-        product; the kernels take them without a copy. Under rotary
+        (``_transformer.py:400-430``): ``heads / tp`` local heads under
+        tensor parallelism, on the gathered sequence under SP. They are
+        strided views of one product; the kernels take them without a
+        copy. Under rotary
         positions q and k are rotated at :meth:`_token_positions` (serial:
         0 .. s-1), or at ``positions`` ``(b, s)``, each sequence's own (the
         serving hooks: each slot sits at its own context position)."""
@@ -282,6 +403,19 @@ class TransformerBase(nn.Module):
                  generator: Optional[torch.Generator]) -> torch.Tensor:
         return inverted_dropout(x, self.cfg.hidden_dropout, generator)
 
+    def _dropout_generator(self, seed: Optional[int],
+                           device) -> Optional[torch.Generator]:
+        """The generator of one layer's hidden dropout: ``seed``'s, the
+        same on every tensor-parallel rank (the replicated regions), or
+        under SP the sequence-parallel stream of ``seed`` (each rank holds
+        different tokens there, ``_transformer.py:370-381``)."""
+        if seed is None:
+            return None
+        if self._sp:
+            return tp.sequence_parallel_generator(seed, self.cfg.axis,
+                                                  device)
+        return tp.data_parallel_generator(seed, device)
+
     def _layer_seeds(self, generator: Optional[torch.Generator]
                      ) -> List[Optional[int]]:
         """One seed per layer from ``generator`` (the reference splits the
@@ -298,11 +432,8 @@ class TransformerBase(nn.Module):
     def _train_layer(self, layer: TransformerLayer, seed: Optional[int],
                      h: torch.Tensor,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        gen = None
-        if seed is not None:
-            gen = torch.Generator(device=h.device)
-            gen.manual_seed(seed)
-        return self._layer(layer, h, gen, bias)
+        return self._layer(layer, h, self._dropout_generator(seed, h.device),
+                           bias)
 
     def _save_attn_layer(self, layer: TransformerLayer,
                          seed: Optional[int], h: torch.Tensor,
@@ -321,11 +452,8 @@ class TransformerBase(nn.Module):
     def _train_post_attention(self, layer: TransformerLayer,
                               seed: Optional[int], h: torch.Tensor,
                               attn: torch.Tensor) -> torch.Tensor:
-        gen = None
-        if seed is not None:
-            gen = torch.Generator(device=h.device)
-            gen.manual_seed(seed)
-        return self._post_attention(layer, h, attn, gen)
+        return self._post_attention(layer, h, attn,
+                                    self._dropout_generator(seed, h.device))
 
     def run_layers_train(self, h: torch.Tensor,
                          dropout_generator: Optional[torch.Generator] = None,

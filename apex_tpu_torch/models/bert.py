@@ -1,4 +1,4 @@
-"""Megatron-style BERT (port of ``apex_tpu/models/bert.py``), serial.
+"""Megatron-style BERT (port of ``apex_tpu/models/bert.py``).
 
 Word + learned-position + tokentype embeddings, then the embedding LN; per
 layer the **post-LN** block ``LN(h + attn(h, bias))``, ``LN(h +
@@ -11,11 +11,18 @@ masked mean of the per-token vocab cross entropy plus the NSP cross
 entropy (``bert.py:337-378``). The parameter tree and its names are the JAX
 model's; :meth:`BertModel.params_from_numpy` loads a JAX tree.
 
-Tensor and sequence parallelism (``axis``, ``sequence_parallel``),
-context parallelism (``context_axis``, whose padding mask becomes segment
-ids) and the ZeRO-3 drives (``unroll_layers``, ``zero3_prefetch``) are later
-slices and raise ``NotImplementedError``, naming their ROADMAP items.
-Hidden dropout runs only with a dropout generator.
+Tensor parallelism (``axis="model"``) shards the embedding, the layers
+and ``lm_bias`` over the model axis (:meth:`BertModel.specs`), and the MLM
+decode is the vocab-sharded head with ``vocab_parallel_cross_entropy``
+behind a ``copy_to`` (``bert.py:247-255``). ``sequence_parallel=True``
+runs the embedding LN, the layers' LNs, dropout and residuals on sequence
+shards: the tokentype ids are this shard's (``bert.py:189``) and the head
+first all-gathers the sequence with ``tensor_parallel_output_grad=False``
+(``bert.py:222``: everything downstream is replicated). Context
+parallelism (``context_axis``, whose padding mask becomes segment ids) and
+the ZeRO-3 drives (``unroll_layers``, ``zero3_prefetch``) are later slices
+and raise ``NotImplementedError``, naming their ROADMAP items. Hidden
+dropout runs only with a dropout generator.
 """
 
 from __future__ import annotations
@@ -28,7 +35,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
-from apex_tpu_torch._params import load_tree_
 from apex_tpu_torch.models._transformer import (
     LayerNormParams,
     TransformerBase,
@@ -50,8 +56,8 @@ class BertConfig:
     max_seq_len: int = 512
     type_vocab_size: int = 2
     ffn_hidden_size: Optional[int] = None
-    axis: Optional[str] = None  # tensor parallelism: a later slice
-    sequence_parallel: bool = False
+    axis: Optional[str] = None  # tensor-parallel mesh axis (None: serial)
+    sequence_parallel: bool = False  # on the model axis; ignored serial
     params_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
     hidden_dropout: float = 0.1  # applied only with a dropout generator
@@ -74,9 +80,6 @@ class BertConfig:
 
 def _check_slice(c: BertConfig) -> None:
     later = {
-        "axis": (c.axis is not None, "tensor parallelism (Queue 1 item 10)"),
-        "sequence_parallel": (c.sequence_parallel,
-                              "sequence parallelism (Queue 1 item 10)"),
         "context_axis": (c.context_axis is not None,
                          "ring/Ulysses context parallelism with the padding "
                          "mask as segment ids (Queue 1 item 15)"),
@@ -101,7 +104,8 @@ def extended_attention_mask(attention_mask: torch.Tensor) -> torch.Tensor:
 
 
 class BertModel(TransformerBase):
-    """Serial BERT whose parameters live on ``device`` (default: the card).
+    """BERT whose parameters live on ``device`` (default: the card), serial
+    or tensor parallel over ``config.axis``.
 
     ``seed`` seeds the ``torch.Generator`` of the random init (std 0.02,
     output layers scaled by 1/sqrt(2L)); parity runs load the JAX tree with
@@ -133,19 +137,29 @@ class BertModel(TransformerBase):
         self.lm_dense = tp.ColumnParallelLinear(c.hidden_size, c.hidden_size,
                                                 **kw)
         self.lm_ln = LayerNormParams(c.hidden_size, c.params_dtype, dev)
-        self.lm_bias = nn.Parameter(torch.zeros(c.vocab_size,
-                                                dtype=c.params_dtype,
-                                                device=dev))
+        # vocab-sharded over the model axis, as the decode's logits
+        self.lm_bias = nn.Parameter(torch.zeros(
+            self.embedding.embedding.shape[0], dtype=c.params_dtype,
+            device=dev))
         if c.add_binary_head:
             self.pooler = tp.ColumnParallelLinear(c.hidden_size,
                                                   c.hidden_size, **kw)
             self.binary_head = tp.ColumnParallelLinear(c.hidden_size, 2, **kw)
 
-    def params_from_numpy(self, tree: Dict[str, Any]) -> "BertModel":
-        """Load the JAX ``BertModel.init`` tree given as numpy arrays (layer
-        leaves stacked ``(num_layers, ...)``, ``kernel`` ``(in, out)``).
-        Shapes must match."""
-        return load_tree_(self, tree)
+    def specs(self) -> Dict[str, Any]:
+        """Each leaf's split over the model axis in the JAX tree's layout
+        (``bert.py:139-162``)."""
+        c = self.cfg
+        ln = {"scale": (), "bias": ()}
+        dense = {"kernel": (), "bias": ()}
+        tree = {"embedding": self.embedding.specs(), "position": (),
+                "tokentype": (), "ln_emb": ln,
+                "layers": self.layer_stack_specs(), "lm_dense": dense,
+                "lm_ln": dict(ln), "lm_bias": (c.axis,)}
+        if c.add_binary_head:
+            tree["pooler"] = dict(dense)
+            tree["binary_head"] = dict(dense)
+        return tree
 
     # -- stages -------------------------------------------------------------
 
@@ -153,12 +167,25 @@ class BertModel(TransformerBase):
               tokentype_ids: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Word + position (+ tokentype) rows, the embedding LN in the
-        compute dtype, dropout (``bert.py:166-190``)."""
+        compute dtype, dropout (``bert.py:166-190``). Under SP the
+        embedding's reduce-scatter leaves this rank's sequence shard; its
+        positions and tokentype ids are the shard's, and the replicated
+        tables ride ``_sp_param``."""
         c = self.cfg
-        h = self.embedding(tokens) + self.position[:tokens.shape[1]]
+        h = self.embedding(tokens)
+        s_local = h.shape[1]
+        h = h + self._positions(self.position, s_local)
         if tokentype_ids is not None:
-            h = h + self.tokentype[tokentype_ids]
+            start = self._seq_shard_start(s_local)
+            ids = tokentype_ids[:, start:start + s_local]
+            h = h + self._sp_param(self.tokentype)[ids]
         h = self._ln(self.ln_emb, h.to(c.compute_dtype))
+        if generator is not None and self._sp:
+            # a sequence-sharded region: this rank's stream of a seed drawn
+            # alike on every rank
+            seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
+                                     device=generator.device))
+            generator = self._dropout_generator(seed, h.device)
         return self._dropout(h, generator).to(c.compute_dtype)
 
     def _layer(self, layer: TransformerLayer, h: torch.Tensor,
@@ -178,17 +205,25 @@ class BertModel(TransformerBase):
         binary logits (fp32) from the pooled [CLS], or None without the
         binary head (``bert.py:199-253``)."""
         c = self.cfg
+        if self._sp:
+            # close the sequence-sharded region; downstream is replicated,
+            # so the gather's adjoint is a slice (bert.py:212-222)
+            h = tp.gather_from_sequence_parallel_region(
+                h, c.axis, tensor_parallel_output_grad=False)
         binary_logits = None
         if c.add_binary_head:
             pooled = torch.tanh(self._dense(self.pooler, h[:, 0]))
             binary_logits = self._dense(self.binary_head, pooled.float())
         g = F.gelu(self._dense(self.lm_dense, h), approximate="tanh")
-        g = self._ln(self.lm_ln, g)
-        wte = tp.cast_param(self.embedding.embedding, g.dtype)  # (V, H)
+        g = self._ln(self.lm_ln, g, sequence_region=False)
+        if c.axis is not None:
+            g = tp.copy_to_tensor_model_parallel_region(g, c.axis)
+        wte = tp.cast_param(self.embedding.embedding, g.dtype)  # (V/tp, H)
         logits = g @ wte.t() + tp.cast_param(self.lm_bias, g.dtype)
         if masked_lm_labels is None:
             return logits, binary_logits
-        return (tp.vocab_parallel_cross_entropy(logits, masked_lm_labels),
+        return (tp.vocab_parallel_cross_entropy(logits, masked_lm_labels,
+                                                c.axis),
                 binary_logits)
 
     def apply(self, tokens: torch.Tensor,

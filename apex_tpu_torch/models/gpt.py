@@ -1,4 +1,4 @@
-"""Megatron-style GPT (port of ``apex_tpu/models/gpt.py``), serial.
+"""Megatron-style GPT (port of ``apex_tpu/models/gpt.py``).
 
 Token embedding + learned positions (or rotary positions on q/k, with no
 position table), then per layer the pre-LN block
@@ -19,8 +19,21 @@ the paged KV pool of ``apex_tpu_torch.serve``, rotating q/k at each
 slot's own positions under rotary positions. The sliding
 ``attention_window`` runs on both devices (the streamed flash kernels on the
 card). ``remat_policy`` takes the reference's None/"full", "save_attn" and
-"dots" (``models/_transformer.py``). Tensor/sequence/context parallelism
-and MoE FFNs are later slices and raise ``NotImplementedError``.
+"dots" (``models/_transformer.py``).
+
+Tensor parallelism (``axis="model"``, after ``initialize_model_parallel(
+tensor_model_parallel_size=N)``): every rank holds its shard of the tree
+(:meth:`GPTModel.specs`; :meth:`GPTModel.params_from_numpy` takes the FULL
+JAX tree and loads this rank's shard), the layers run at ``heads / N``
+local heads, and the train head is the vocab-sharded LM head with
+``vocab_parallel_cross_entropy`` (``gpt.py:302-332``; the chunked LM-head
+CE is serial only, as in the reference). ``sequence_parallel=True`` runs
+the LN/dropout/residual regions on sequence shards (``models/
+_transformer.py``). The serving drives run at local heads and
+:meth:`GPTModel.serve_head` all-gathers the vocab-sharded logits, so every
+rank sees the same full-vocab logits (``gpt.py:522-535``); serving refuses
+sequence parallelism as the reference does. Context parallelism and MoE
+FFNs are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,11 +42,9 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import DeviceLike, resolve_device
-from apex_tpu_torch._params import load_tree_
 from apex_tpu_torch.models._transformer import (
     LayerNormParams,
     TransformerBase,
@@ -56,7 +67,9 @@ class GPTConfig:
     num_attention_heads: int = 16
     max_seq_len: int = 1024
     ffn_hidden_size: Optional[int] = None  # default 4 * hidden
-    axis: Optional[str] = None  # tensor parallelism: a later slice
+    axis: Optional[str] = None  # tensor-parallel mesh axis (None: serial)
+    # Megatron-style sequence parallelism on the model axis (ignored
+    # serial); needs max_seq_len divisible by the tp size
     sequence_parallel: bool = False
     params_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
@@ -83,9 +96,6 @@ class GPTConfig:
 
 def _check_slice(c: GPTConfig, device: torch.device) -> None:
     later = {
-        "axis": (c.axis is not None, "tensor parallelism (Queue 1 item 10)"),
-        "sequence_parallel": (c.sequence_parallel,
-                              "sequence parallelism (Queue 1 item 10)"),
         "context_axis": (c.context_axis is not None,
                          "ring/Ulysses context parallelism (Queue 1 item 15)"),
         "moe_num_experts": (c.moe_num_experts is not None,
@@ -105,11 +115,14 @@ def _check_slice(c: GPTConfig, device: torch.device) -> None:
 
 
 class GPTModel(TransformerBase):
-    """Serial GPT whose parameters live on ``device`` (default: the card).
+    """GPT whose parameters live on ``device`` (default: the card), serial
+    or tensor parallel over ``config.axis``.
 
     ``seed`` seeds the ``torch.Generator`` of the random init (std 0.02,
-    output layers scaled by 1/sqrt(2L)); the numbers differ from JAX's, so
-    parity runs load the JAX tree with :meth:`params_from_numpy`."""
+    output layers scaled by 1/sqrt(2L)); a tensor-parallel model from a
+    seed holds the shards of the serial model from that seed. The numbers
+    differ from JAX's, so parity runs load the JAX tree with
+    :meth:`params_from_numpy`."""
 
     causal = True
 
@@ -131,12 +144,15 @@ class GPTModel(TransformerBase):
 
     # -- parameters ---------------------------------------------------------
 
-    def params_from_numpy(self, tree: Dict[str, Any]) -> "GPTModel":
-        """Load the JAX ``GPTModel.init`` tree given as numpy arrays: layer
-        leaves stacked ``(num_layers, ...)``, ``kernel`` in JAX's
-        ``(in, out)`` layout (the port keeps it). Shapes must match
-        (:func:`apex_tpu_torch._params.load_tree_`)."""
-        return load_tree_(self, tree)
+    def specs(self) -> Dict[str, Any]:
+        """Each leaf's split over the model axis in the JAX tree's layout
+        (``gpt.py:230-238``): a tuple a leaf, one entry a dim."""
+        ln = {"scale": (), "bias": ()}
+        tree = {"embedding": self.embedding.specs(),
+                "layers": self.layer_stack_specs(), "ln_f": ln}
+        if self.position is not None:
+            tree["position"] = ()
+        return tree
 
     # -- stages -------------------------------------------------------------
 
@@ -151,8 +167,14 @@ class GPTModel(TransformerBase):
         return h.to(self.cfg.compute_dtype)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        pos = torch.arange(tokens.shape[1], device=tokens.device)
-        return self.embed_at(tokens, pos[None])
+        """Token rows plus the position rows of ``0 .. s-1``, in fp32, then
+        the cast (``gpt.py:240-253``). Under SP the embedding's
+        reduce-scatter leaves this rank's sequence shard, and the positions
+        added are its own."""
+        h = self.embedding(tokens)
+        if self.position is not None:
+            h = h + self._positions(self.position, h.shape[1])
+        return h.to(self.cfg.compute_dtype)
 
     def _layer(self, layer: TransformerLayer, h: torch.Tensor,
                generator: Optional[torch.Generator] = None,
@@ -180,20 +202,27 @@ class GPTModel(TransformerBase):
     def head(self, h: torch.Tensor,
              targets: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Final LN + tied LM head (``gpt.py:303-332``): logits in the
-        compute dtype without targets; with targets the fp32 per-token loss,
-        through the chunked LM-head CE when ``lm_head_chunks`` is set, else
-        the plain head and a per-token cross entropy."""
+        compute dtype without targets (vocab-sharded under tensor
+        parallelism); with targets the fp32 per-token loss, through the
+        chunked LM-head CE when ``lm_head_chunks`` is set (serial only),
+        else the plain head and ``vocab_parallel_cross_entropy`` (over the
+        axis under tensor parallelism, whose head input is the ``copy_to``
+        of the LN output; under SP the sequence all-gather, whose backward
+        reduce-scatter sums the per-vocab-shard partial cotangents)."""
         c = self.cfg
         x = self._ln(self.ln_f, h)
         wte = self.embedding.embedding
-        if targets is not None and c.lm_head_chunks:
+        if targets is not None and c.lm_head_chunks and c.axis is None:
             return lm_head_cross_entropy(x, wte, targets, c.lm_head_chunks)
+        if c.axis is not None:
+            if self._sp:
+                x = tp.gather_from_sequence_parallel_region(x, c.axis)
+            else:
+                x = tp.copy_to_tensor_model_parallel_region(x, c.axis)
         logits = x @ tp.cast_param(wte, x.dtype).t()
         if targets is None:
             return logits
-        return F.cross_entropy(logits.float().flatten(0, -2),
-                               targets.flatten().long(),
-                               reduction="none").view(targets.shape)
+        return tp.vocab_parallel_cross_entropy(logits, targets, c.axis)
 
     def forward(self, tokens: torch.Tensor,
                 targets: Optional[torch.Tensor] = None,
@@ -219,9 +248,23 @@ class GPTModel(TransformerBase):
         """Full-context forward: ``(b, s)`` token ids -> ``(b, s, vocab)``
         logits in the compute dtype (the reference's ``apply`` without
         targets). Inference only: it runs under ``no_grad``; training goes
-        through :meth:`forward` / :meth:`loss`."""
+        through :meth:`forward` / :meth:`loss`. Under SP the sequence
+        shards are gathered before the head."""
         tokens = tokens.to(self.device)
-        return self.serve_head(self.run_layers(self.embed(tokens)))
+        h = self.run_layers(self.embed(tokens))
+        if self._sp:
+            h = tp.gather_from_sequence_parallel_region(h, self.cfg.axis)
+        return self.serve_head(h)
+
+    def check_servable(self) -> None:
+        """Serving takes tensor parallelism (local kv heads, gathered
+        logits) and refuses sequence parallelism: a decode step's one token
+        cannot shard ``s / tp`` ways (``gpt.py:380-398``)."""
+        if self._sp:
+            raise ValueError(
+                "serving does not support sequence_parallel=True: decode "
+                "works on single-token sequences that cannot shard s/tp "
+                "ways; build the serve model with sequence_parallel=False")
 
     # -- serving drives (apex_tpu_torch/serve/engine.py) --------------------
 
@@ -326,7 +369,15 @@ class GPTModel(TransformerBase):
     @torch.no_grad()
     def serve_head(self, h: torch.Tensor) -> torch.Tensor:
         """Final LN + LM head tied to the embedding: full-vocab logits
-        ``(b, s, vocab)`` in the compute dtype."""
-        x = self._ln(self.ln_f, h)
-        wte = tp.cast_param(self.embedding.embedding, x.dtype)  # (V, H)
-        return x @ wte.t()
+        ``(b, s, vocab)`` in the compute dtype. Under tensor parallelism
+        the vocab-sharded logits are all-gathered over the axis
+        (``gpt.py:522-535``), bit-identical on every rank, so greedy picks
+        and a seeded sampler agree across the ranks."""
+        c = self.cfg
+        x = self._ln(self.ln_f, h, sequence_region=False)
+        wte = tp.cast_param(self.embedding.embedding, x.dtype)  # (V/tp, H)
+        logits = x @ wte.t()
+        if c.axis is not None:
+            logits = tp.gather_from_tensor_model_parallel_region(logits,
+                                                                 c.axis)
+        return logits

@@ -53,8 +53,8 @@ def lamb_leaf_update(g32: List[torch.Tensor], p32: Sequence[torch.Tensor],
                      beta1: float, beta2: float, beta1_grad: float,
                      bc1: Union[float, torch.Tensor],
                      bc2: Union[float, torch.Tensor], eps: float,
-                     weight_decay: float, use_nvlamb: bool
-                     ) -> List[torch.Tensor]:
+                     weight_decay: float, use_nvlamb: bool,
+                     sumsq_reduce=None) -> List[torch.Tensor]:
     """The per-leaf LAMB math (``lamb_leaf_update``, ``_common.py:95-136``;
     ``csrc/multi_tensor_lamb.cu`` stages 1 and 2) over every leaf of the
     lists at once, fp32: the moments ``m = beta1 m + beta1_grad g`` and
@@ -65,8 +65,10 @@ def lamb_leaf_update(g32: List[torch.Tensor], p32: Sequence[torch.Tensor],
     are floats or float64 0-d tensors on the lists' device (the sync-free
     ``FusedMixedPrecisionLamb`` keeps its step count there); a tensor
     holding a float's value gives that float's bits
-    (:func:`div_like_scalar`). Returns the trust-scaled updates; the
-    parameter step is ``p - lr * update``."""
+    (:func:`div_like_scalar`). ``sumsq_reduce`` (tensor parallelism) maps
+    the stacked per-leaf squared norms of the local shards to those of the
+    whole tensors; the norms are then its square roots. Returns the
+    trust-scaled updates; the parameter step is ``p - lr * update``."""
     torch._foreach_mul_(m, beta1)
     torch._foreach_add_(m, g32, alpha=beta1_grad)
     torch._foreach_mul_(v, beta2)
@@ -82,6 +84,9 @@ def lamb_leaf_update(g32: List[torch.Tensor], p32: Sequence[torch.Tensor],
         return upd
     w_norm = torch.stack(torch._foreach_norm(list(p32)))
     u_norm = torch.stack(torch._foreach_norm(upd))
+    if sumsq_reduce is not None:
+        w_norm = torch.sqrt(sumsq_reduce(w_norm * w_norm))
+        u_norm = torch.sqrt(sumsq_reduce(u_norm * u_norm))
     ratio = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
                         torch.ones_like(w_norm))
     torch._foreach_mul_(upd, list(ratio.unbind()))

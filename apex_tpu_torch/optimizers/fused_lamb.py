@@ -12,6 +12,12 @@ one XLA computation, not a Pallas kernel), in the ``init`` / ``update_``
 shape of ``FusedAdam`` so ``amp.MixedPrecisionOptimizer`` takes it as it
 is. ``adam_w_mode=False`` raises as in the reference; ``norm_psum_axis``
 (the ZeRO-sharded norms) raises: ROADMAP Queue 1 item 11.
+
+Under tensor parallelism a leaf may be this rank's shard of a tensor split
+over the model axis: ``update_(..., sharded=flags, axis="model")`` sums
+the squared norms of the flagged leaves over the axis, so the global clip
+norm and each trust ratio are those of the whole tensors, as the JAX
+optimizer computes them on the global arrays.
 """
 
 from __future__ import annotations
@@ -69,7 +75,9 @@ class FusedLAMB:
     @torch.no_grad()
     def update_(self, params: Sequence[torch.Tensor],
                 grads: Sequence[torch.Tensor], state: FusedLAMBState,
-                lr: Optional[float] = None) -> FusedLAMBState:
+                lr: Optional[float] = None,
+                sharded: Optional[Sequence[bool]] = None,
+                axis: Optional[str] = None) -> FusedLAMBState:
         beta1, beta2 = self.betas
         step = state.step + 1
         lr = self.lr if lr is None else lr
@@ -79,17 +87,36 @@ class FusedLAMB:
         else:
             bc1 = bc2 = 1.0
         g32 = [g.float() for g in grads]
+        reduce = None
+        if axis is not None and sharded is not None and any(sharded):
+            reduce = _sumsq_reduce(sharded, axis)
         if self.max_grad_norm and self.max_grad_norm > 0 and g32:
             # phase 1: the global norm and the clip factor, on the device
-            clip = torch.clamp(tree_l2norm(g32) / self.max_grad_norm,
-                               min=1.0)
+            if reduce is None:
+                norm = tree_l2norm(g32)
+            else:
+                sq = torch.stack(torch._foreach_norm(g32)) ** 2
+                norm = torch.sqrt(reduce(sq).sum())
+            clip = torch.clamp(norm / self.max_grad_norm, min=1.0)
             g32 = torch._foreach_div(g32, clip)
         upd = lamb_leaf_update(
             g32, [p.float() for p in params], state.exp_avg,
             state.exp_avg_sq, beta1=beta1, beta2=beta2,
             beta1_grad=(1.0 - beta1) if self.grad_averaging else 1.0,
             bc1=bc1, bc2=bc2, eps=self.eps, weight_decay=self.weight_decay,
-            use_nvlamb=self.use_nvlamb)
+            use_nvlamb=self.use_nvlamb, sumsq_reduce=reduce)
         torch._foreach_mul_(upd, -lr)
         apply_updates_(params, upd)
         return FusedLAMBState(step, state.exp_avg, state.exp_avg_sq)
+
+
+def _sumsq_reduce(sharded: Sequence[bool], axis: str):
+    """Per-leaf squared norms -> those of the whole tensors: the flagged
+    entries summed over ``axis`` (one all-reduce of the vector)."""
+    from apex_tpu_torch.parallel import collectives
+
+    def reduce(sq: torch.Tensor) -> torch.Tensor:
+        mask = torch.tensor(list(sharded), device=sq.device)
+        return torch.where(mask, collectives.psum(sq, axis), sq)
+
+    return reduce

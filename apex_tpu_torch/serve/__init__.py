@@ -8,6 +8,7 @@ from apex_tpu_torch.serve.cache import (
     PrefixCache,
     blocks_for,
     init_kv_cache,
+    kv_heads,
 )
 from apex_tpu_torch.serve.engine import Engine, ServeConfig
 from apex_tpu_torch.serve.sampler import sample_tokens, slot_generator
@@ -25,6 +26,7 @@ __all__ = [
     "ServeConfig",
     "blocks_for",
     "init_kv_cache",
+    "kv_heads",
     "sample_tokens",
     "slot_generator",
 ]

@@ -3,9 +3,10 @@ prefix cache (port of ``apex_tpu/serve/cache.py``).
 
 The pools keep the JAX layout, layer-stacked
 ``(L, num_blocks, kv_heads, block, head_dim)``, with ONE block table shared
-by all layers. Block 0 is the reserved NULL page: idle slots and padding
-rows write there, and table slots beyond a sequence's allocation point
-there. The allocator never hands it out.
+by all layers; under tensor parallelism a rank's pools hold its
+``heads / tp`` kv heads (:func:`kv_heads`). Block 0 is the reserved NULL
+page: idle slots and padding rows write there, and table slots beyond a
+sequence's allocation point there. The allocator never hands it out.
 
 :class:`PrefixCache` is the sharing trie of the prefix cache: one node per
 FULL block of a prefilled prompt, each holding one allocator reference on
@@ -284,6 +285,21 @@ class KVCacheConfig:
 
     def max_blocks_per_seq(self, max_seq: int) -> int:
         return blocks_for(max_seq, self.block_size)
+
+
+def kv_heads(model_cfg, mesh=None) -> int:
+    """The kv heads one rank's pools hold: all of the model's, or under
+    tensor parallelism (``model_cfg.axis`` over ``mesh``) ``heads / tp`` --
+    a rank owns whole heads, the serving twin of the training head split
+    (``kv_cache_spec``, ``cache.py:370-376``)."""
+    n = model_cfg.num_attention_heads
+    if getattr(model_cfg, "axis", None) is None:
+        return n
+    tp = mesh.shape[model_cfg.axis]
+    if n % tp:
+        raise ValueError(f"{n} heads do not split over {tp} "
+                         f"tensor-parallel ranks")
+    return n // tp
 
 
 def init_kv_cache(cfg: KVCacheConfig, device: torch.device):

@@ -33,9 +33,19 @@ Any of the three routes EVERY prefill through the chunk path (K-query
 attention over the pages, ``flash_decode_multi``); without them a prompt
 takes one monolithic prefill (``flash_attention``).
 
+Tensor-parallel serving (``engine.py:176-260``): a model built with
+``axis="model"`` needs the mesh (``mesh=``, the topology
+``initialize_model_parallel`` installed), its pools hold ``heads / tp`` kv
+heads (a rank owns whole heads, ``cache.py:370-376``), and a draft model
+must share the target's axis. Every rank of the axis runs this same host
+loop in lockstep on the same requests: the gathered logits are the same on
+every rank (``GPTModel.serve_head``), so greedy picks agree, and a sampled
+pick draws from generators seeded by (seed, slot, tick), the same on every
+rank. Sequence-parallel models are refused (``GPTModel.check_servable``).
+
 Not in this port yet (ROADMAP Queue 1 item 14): SLO windows, request traces
-(``serve/reqtrace.py``), journals and tracer spans, tensor-parallel serving,
-and a CUDA graph of the decode tick. ``examples/gpt/generate_gpt.py`` drives
+(``serve/reqtrace.py``), journals and tracer spans, and a CUDA graph of
+the decode tick. ``examples/gpt/generate_gpt.py`` drives
 it from a checkpoint (``apex_tpu_torch.examples.gpt.generate_gpt``). The
 reference's ``decode_impl`` has no counterpart: the port picks the kernel
 or the plain version by the device of the tensors.
@@ -59,6 +69,7 @@ from apex_tpu_torch.serve.cache import (
     PrefixCache,
     blocks_for,
     init_kv_cache,
+    kv_heads,
 )
 from apex_tpu_torch.serve.sampler import sample_tokens, slot_generator
 from apex_tpu_torch.serve.scheduler import ContinuousBatcher, Request
@@ -118,23 +129,32 @@ class Engine:
     ``device`` defaults to the card and must be the model's device.
     ``draft_model`` (with ``spec_k``) defaults to the target itself; its
     pools have its own geometry but share the target's block tables and
-    allocator, so one block id addresses both caches."""
+    allocator, so one block id addresses both caches. ``mesh``: the
+    installed topology, required by a tensor-parallel model."""
 
     def __init__(self, model, config: ServeConfig,
-                 device: DeviceLike = None, draft_model=None):
+                 device: DeviceLike = None, draft_model=None, mesh=None):
         self.device = dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"the model lies on {model.device}, the engine "
                              f"on {dev}")
+        model.check_servable()
         c = model.cfg
         self.model = model
+        self.mesh = mesh
+        self.axis = c.axis
+        if self.axis is not None and mesh is None:
+            raise ValueError(
+                "a tensor-parallel model (cfg.axis set) needs the mesh: "
+                "pass mesh= (initialize_model_parallel's), or build the "
+                "serve model serial (axis=None)")
         self.config = cfg = config.resolved()
         if cfg.max_seq > c.max_seq_len:
             raise ValueError(
                 f"max_seq ({cfg.max_seq}) exceeds the model's max_seq_len "
                 f"({c.max_seq_len})")
         self.kv_config = KVCacheConfig(
-            num_layers=c.num_layers, kv_heads=c.num_attention_heads,
+            num_layers=c.num_layers, kv_heads=kv_heads(c, mesh),
             head_dim=c.head_dim, block_size=cfg.block_size,
             num_blocks=cfg.num_blocks, dtype=c.compute_dtype)
         self._nb_per_seq = self.kv_config.max_blocks_per_seq(cfg.max_seq)
@@ -152,6 +172,12 @@ class Engine:
             if dm.device != dev:
                 raise ValueError(f"the draft model lies on {dm.device}, the "
                                  f"engine on {dev}")
+            dm.check_servable()
+            if dm.cfg.axis != c.axis:
+                raise ValueError(
+                    "the draft model must share the target's tensor-"
+                    "parallel axis (both run on the same ranks in "
+                    "lockstep)")
             if cfg.max_seq > dm.cfg.max_seq_len:
                 raise ValueError(
                     f"max_seq ({cfg.max_seq}) exceeds the draft model's "
@@ -159,7 +185,7 @@ class Engine:
             dc = dm.cfg
             self.draft_model = dm
             self.draft_kv_config = KVCacheConfig(
-                num_layers=dc.num_layers, kv_heads=dc.num_attention_heads,
+                num_layers=dc.num_layers, kv_heads=kv_heads(dc, mesh),
                 head_dim=dc.head_dim, block_size=cfg.block_size,
                 num_blocks=cfg.num_blocks, dtype=dc.compute_dtype)
             self.dk_pages, self.dv_pages = init_kv_cache(

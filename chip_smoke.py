@@ -11,8 +11,9 @@
     python3 chip_smoke.py --generate-profile   # an fp32 generate, profiled
     python3 chip_smoke.py --contrib   # the build, then phase 13 alone
     python3 chip_smoke.py --dp   # the build, then phase 14 alone
+    python3 chip_smoke.py --tp   # the build, then phase 15 alone
 
-Fourteen phases; any failure raises and exits non-zero:
+Fifteen phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
@@ -277,6 +278,20 @@ Fourteen phases; any failure raises and exits non-zero:
    64 (logits, running statistics, and the grads against the spread the
    serial run shows with its batch's halves swapped); the long-context
    example's ``--dp 2`` at 2 x 8192 against the serial run at batch 2.
+15. **Tensor parallel** (:func:`tp_phase`): (a) NCCL at world size 1 in
+   this process: ``pretrain_gpt`` on the model axis at tp = 1 (GPT-2 345M,
+   8 x 1024, O2), 3 steps, its losses and params after each step bit for
+   bit the serial run's. (b) Two gloo ranks on the one card (host-staged:
+   correctness only), spawned once, every case against serial references
+   this process makes first: ``pretrain_gpt --tp 2`` at 345M (3 O2 steps:
+   losses, step 1's grads gathered to full shape by share and by row, the
+   replicated leaves equal on both ranks after each step), the same under
+   sequence parallelism, a checkpoint saved at tp 2 resumed serial (the
+   next loss), BERT-large at tp 2 (8 x 512 with padding, O2 FusedLAMB with
+   whole-tensor norms, 2 steps), ``generate_gpt --tp 2`` at 345M fp32,
+   monolithic and with the prefix cache and spec_k 4 (every token against
+   the TP model's full-context argmax and the serial engine's tokens, 8 kv
+   heads a rank); then #9 / #10 fp32 at 8 heads, times only.
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -287,9 +302,9 @@ training run, the two long-context runs and phase 7's run (``softmax``),
 each counted from 0, phase 8's BERT run (``bert``), phase 9's (``fmha``)
 and phase 10's (``gpt_pretrain``, ``gpt_pretrain_o0``, ``gpt_remat_*``,
 ``gpt_generate*``, ``gpt_pretrain_o0_long``), phase 11's (``bench``) and
-phase 12's (``probe``), phase 13's (``contrib``) and phase 14's (``dp``:
-(a)'s runs and both ranks' of (b)); ``by_shape`` also
-holds phase 10's fp32 times;
+phase 12's (``probe``), phase 13's (``contrib``), phase 14's (``dp``:
+(a)'s runs and both ranks' of (b)) and phase 15's (``tp``: the same);
+``by_shape`` also holds phase 10's fp32 times and phase 15's at 8 heads;
 ``segments``: phase 9's times on #1-#6; ``launches``:
 their sum; ``bias_route``: #1, #5 and #6 with and without the bias;
 ``launch_floor_ms`` on the decode and xentropy rows), the decode split-count
@@ -6656,9 +6671,16 @@ def main():
           "on the card)")
     gpt_counts["dp"] = dp_phase(torch, ops, dev)
     torch.cuda.empty_cache()
+
+    print("phase 15: tensor parallel (NCCL at world size 1; two gloo ranks "
+          "on the card)")
+    gpt_counts["tp"], heads8 = tp_phase(torch, ops, dev)
+    torch.cuda.empty_cache()
     for row in rows:
         if row["name"] in fp32_rows:
             row.setdefault("by_shape", {}).update(fp32_rows[row["name"]])
+        row.setdefault("by_shape", {}).update(
+            {k: v for k, v in heads8.items() if k.split()[0] == row["name"]})
         by_path = {"serve": serve_counts[row["name"]],
                    "serve_prefix_spec": spec_counts[row["name"]],
                    "serve_chunked": chunk_counts[row["name"]],
@@ -7645,14 +7667,29 @@ def capture_grads(torch, trainer, into):
     trainer.mp_opt.step = step
 
 
-def pretrain_steps(torch, ops, argv, steps, snap=False):
-    """``pretrain_gpt.from_args`` on the stream's first ``steps`` batches:
-    (bench, losses, each step's params when ``snap``, first step's grads,
-    launches)."""
+def pretrain_steps(torch, ops, argv, steps, snap=False, axis=None,
+                   **config):
+    """``pretrain_gpt.build`` from ``argv`` on the stream's first ``steps``
+    batches: (bench, losses, each step's params when ``snap``, first
+    step's grads, launches). ``axis="model"`` builds on the model axis at
+    the argv's ``--tp`` (1 too); ``config`` (``sequence_parallel``,
+    ``compute_dtype``) goes into the example's config, which has no flag
+    for them."""
     from apex_tpu_torch.examples.gpt import pretrain_gpt
 
     args = pretrain_gpt.parse_args(argv)
-    bench = pretrain_gpt.from_args(args)
+    real = pretrain_gpt.GPTConfig
+    if config:
+        pretrain_gpt.GPTConfig = lambda **c: real(**dict(c, **config))
+    try:
+        bench = pretrain_gpt.build(
+            vocab=args.vocab, hidden=args.hidden, layers=args.layers,
+            heads=args.heads, seq=args.seq, micro_batch=args.micro_batch,
+            num_microbatches=args.num_microbatches, lr=args.lr,
+            opt_level=args.opt_level, tp=args.tp, axis=axis,
+            device=args.device)
+    finally:
+        pretrain_gpt.GPTConfig = real
     grads, losses, snaps = [], [], []
     capture_grads(torch, bench, grads)
     batches = pretrain_gpt.batches(args, bench.batch)
@@ -7660,7 +7697,7 @@ def pretrain_steps(torch, ops, argv, steps, snap=False):
     ops.reset_launch_counts()
     for _ in range(steps):
         loss, m = bench.step(*next(batches))
-        check(not m["found_inf"], "no 345M DP step skipped")
+        check(not m["found_inf"], "no 345M pretrain step skipped")
         losses.append(float(loss))
         if snap:
             snaps.append([p.detach().clone()
@@ -8103,6 +8140,665 @@ def dp_main():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 15: tensor parallel (NCCL at world size 1; two gloo ranks on the
+# card)
+# ---------------------------------------------------------------------------
+
+#: (b)'s GPT runs: ``pretrain_gpt --tp 2`` at config 4 (8 x 1024 as 2
+#: micro-batches of 4, O2, FusedAdam, full remat), the serial run on the
+#: same 8 rows as its reference
+TP_345M = PRETRAIN_345M + ["--tp", "2"]
+TP_STEPS = 3
+#: (b)'s BERT-large: 8 x 512, O2, FusedLAMB; the padding bias from row i's
+#: length 512 - 37 i
+BERT_TP = dict(hidden=1024, layers=24, heads=16, seq=512, batch=8)
+BERT_TP_STEPS = 2
+#: (b)'s serving: ``generate_gpt`` at 345M fp32 (random weights, seed 0)
+#: on prompts behind a 500-token shared prefix, monolithic, then with the
+#: prefix cache and spec_k 4; the serial reference monolithic
+GENERATE_SHARED = GENERATE_345M + ["--shared-prefix", "500"]
+GENERATE_TP = GENERATE_SHARED + ["--tp", "2"]
+GENERATE_TP_SPEC = ["--prefix-cache", "--spec-k", "4"]
+#: limits of (b), phase 14's: losses relative; step-1 grads by share of
+#: max |ref| and by row, held on the fp32-compute twins of the TP steps
+#: (and SP's O2 grads against TP's); the O2 grads' worst leaf L2 at most
+#: 3x the serial run's own bf16 distance from its fp32-compute twin (each
+#: rank rounds its partial row-parallel products and input grads to bf16
+#: before the bf16 sum, so the O2 activations part by bf16 units: 0.026 of
+#: max and 0.030 by row at 345M; PERF.md)
+TP_LOSS_REL = DP_LOSS_REL
+TP_GRAD = DP_GRAD
+TP_FLOOR = DP_RESNET_TOL["grads"]
+
+
+def bert_tp_batch(torch, vocab):
+    """(b)'s BERT batch on the CPU: the example's synthetic batch with row
+    i padded from 512 - 37 i on (the padding bias reaches every layer)."""
+    import numpy as np
+
+    from apex_tpu_torch.examples.bert.pretrain_bert import synthetic_batch
+
+    b, s = BERT_TP["batch"], BERT_TP["seq"]
+    batch = synthetic_batch(np.random.default_rng(0), b, s, vocab,
+                            torch.device("cpu"))
+    for i in range(b):
+        batch[1][i, s - 37 * i:] = 0
+    return batch
+
+
+def bert_tp_steps(torch, ops, batch, tp_axis=None, steps=BERT_TP_STEPS,
+                  **config):
+    """BERT-large O2 FusedLAMB (``pretrain_bert.build`` at :data:`BERT_TP`)
+    ``steps`` steps on ``batch``: (trainer, losses, first step's scaled
+    grads, launches). With ``tp_axis`` the model is built on it and the
+    step votes on overflow over it and hands FusedLAMB the sharded flags,
+    so its norms are the whole tensors'; ``config`` goes into the
+    example's config."""
+    from apex_tpu_torch.examples.bert import pretrain_bert
+    from apex_tpu_torch.parallel import collectives
+
+    real = pretrain_bert.BertConfig
+    if tp_axis is not None:
+        config = dict(config, axis=tp_axis)
+    if config:
+        pretrain_bert.BertConfig = lambda **c: real(**dict(c, **config))
+    try:
+        trainer = pretrain_bert.build(**BERT_TP)
+    finally:
+        pretrain_bert.BertConfig = real
+    model, mp_opt, st = trainer.model, trainer.mp_opt, trainer.opt_state
+    kw = {}
+    if tp_axis is not None:
+        kw = dict(found_inf_reducer=lambda f: collectives.found_inf_max(
+            f, tp_axis), sharded=model.sharded_flags(), axis=tp_axis)
+    batch = [t.to(model.device) for t in batch]
+    grads, losses = [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for _ in range(steps):
+        loss = model.loss(*batch)
+        mp_opt.scale_loss(loss, st).backward()
+        if not grads:
+            grads.extend(p.grad.detach().clone() for p in model.parameters())
+        m = mp_opt.step(st, model, **kw)
+        check(not m["found_inf"], "no BERT TP step skipped")
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    return trainer, losses, grads, ops.launch_counts()
+
+
+def bert_per_step(L):
+    """Phase 8's launches of one BERT step (#1 2L with the recompute)."""
+    return {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "layer_norm_fwd": 4 * L + 2,
+            "layer_norm_bwd": 2 * L + 2}
+
+
+def full_grads(torch, model, grads):
+    """Local grads (``parameters()`` order) gathered to full shape over the
+    model axis, in the same order: the serial model's."""
+    from apex_tpu_torch._params import module_tree, tensors_of_tree
+    from apex_tpu_torch.transformer import tensor_parallel as tp
+
+    tree = tp.gather_params(module_tree(model, grads, device=grads[0].device),
+                            model.specs(), model.cfg.axis)
+    return tensors_of_tree(model, tree)
+
+
+def leaf_errs(torch, model, got, ref):
+    """Per parameter of ``model`` (its names): the share of max |ref|, the
+    row error and the L2 distance of ``got`` from ``ref`` (grad lists in
+    ``parameters()`` order, full shapes)."""
+    out = []
+    for (name, _), g, r in zip(model.named_parameters(), got, ref):
+        r = r.to(g.device)
+        out.append((name, rel_err(g, r), row_err(g if g.dim() else g[None],
+                                                 r if r.dim() else r[None]),
+                    l2_err(g, r)))
+    return out
+
+
+def worst_leaves(errs, k=3):
+    """The ``k`` leaves of :func:`leaf_errs` furthest by share, by row and
+    by L2."""
+    return {key: [(e[0], float(f"{e[i]:.3g}"))
+                  for e in sorted(errs, key=lambda e: -e[i])[:k]]
+            for i, key in ((1, "share"), (2, "row"), (3, "l2"))}
+
+
+def replicated_equal(torch, model, snaps):
+    """Per snapshot: whether the model's replicated leaves are bit-identical
+    on every rank of its axis."""
+    from apex_tpu_torch.parallel import collectives
+
+    flags = model.sharded_flags()
+    out = []
+    for snap in snaps:
+        fp = param_fingerprint(torch, [p for p, f in zip(snap, flags)
+                                       if not f])
+        both = collectives.all_gather(fp, model.cfg.axis, tiled=False)
+        out.append(all(torch.equal(both[0], x) for x in both[1:]))
+    return out
+
+
+def tp_fp32_decode_heads(torch, ops, dev, heads=8):
+    """#9 and #10 fp32 at the generate pools' shapes with ``heads`` heads
+    and kv heads (a tp = 2 rank's share of 345M's 16): each against its
+    plain version and its time, the plain version's and the bound (times
+    only: the split count is the 16-head rule's)."""
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    b, _, _, blk, d, nb, mb, lengths = DECODE_MAIN
+    q, kp, vp, tables, lens = _decode_inputs(
+        torch, dev, gen, b, heads, heads, blk, d, nb, mb, f32, lengths)
+    err = rel_err(ops.flash_decode(q, kp, vp, tables, lens),
+                  ops.paged_attention_reference(q, kp, vp, tables, lens))
+    bms, by = bound(sum(lengths) * heads * d * 4 * 2 + 2 * b * heads * d * 4
+                    + b * mb * 4 + b * 4, 4 * heads * d * sum(lengths),
+                    "float32")
+    out["flash_decode fp32 decode h8"] = dict(
+        ms=time_ms(lambda: ops.flash_decode(q, kp, vp, tables, lens)),
+        plain_ms=time_ms(lambda: ops.paged_attention_reference(
+            q, kp, vp, tables, lens), 5), bound_ms=bms, bound_by=by,
+        max_rel_err=err)
+    for label, shape in (("chunk", DECODE_CHUNK), ("verify", DECODE_VERIFY)):
+        b, _, _, kq, blk, d, nb, mb, lengths = shape
+        _, kp, vp, tables, lens = _decode_inputs(
+            torch, dev, gen, b, heads, heads, blk, d, nb, mb, f32, lengths)
+        q = torch.randn(b, heads, kq, d, device=dev, generator=gen)
+        err = rel_err(ops.flash_decode_multi(q, kp, vp, tables, lens),
+                      ops.paged_attention_multi_reference(q, kp, vp, tables,
+                                                          lens))
+        bms, by = multi_bound(b, heads, heads, kq, d, 4, lengths, None, blk,
+                              mb, "float32")
+        out[f"flash_decode_multi fp32 {label} h8"] = dict(
+            ms=time_ms(lambda: ops.flash_decode_multi(q, kp, vp, tables,
+                                                      lens)),
+            plain_ms=time_ms(lambda: ops.paged_attention_multi_reference(
+                q, kp, vp, tables, lens), 5), bound_ms=bms, bound_by=by,
+            max_rel_err=err)
+    for label, t in out.items():
+        verdict(f"{label} against its plain version", t["max_rel_err"],
+                5e-5, group="tensor parallel: 8 local heads")
+        print(f"  {label}: share of max |ref| {t['max_rel_err']:.3g} (tol "
+              f"5e-05); kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+              f"ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+def wait_for_references(torch, ref_dir, timeout_s=600):
+    """The parent's serial references, once it has written them."""
+    path = os.path.join(ref_dir, "ref.pt")
+    end = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        check(time.monotonic() < end, "the serial references never came")
+        time.sleep(0.5)
+    return torch.load(path)
+
+
+def _tp_rank(rank, world, port, ref_dir, out_path):
+    """One gloo rank of phase 15 (b) on the card: every case in turn; the
+    errors and counts go back to the parent in ``out_path``."""
+    import pickle
+    import traceback
+    import types
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    res = {"rank": rank}
+    try:
+        from apex_tpu_torch import checkpoint, ops
+        from apex_tpu_torch.examples.gpt import pretrain_gpt
+        from apex_tpu_torch.parallel import mesh, multiproc
+        import torch.distributed as dist
+
+        multiproc.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                         backend="gloo", timeout_s=600)
+        dev = torch.device("cuda", 0)
+        probe = {}
+        for name, fn in (
+                ("all_reduce bf16", lambda: dist.all_reduce(
+                    torch.ones(4, dtype=torch.bfloat16, device=dev))),
+                ("all_gather bf16", lambda: dist.all_gather(
+                    [torch.empty(4, dtype=torch.bfloat16, device=dev)
+                     for _ in range(world)],
+                    torch.ones(4, dtype=torch.bfloat16, device=dev))),
+                ("reduce_scatter_tensor bf16",
+                 lambda: dist.reduce_scatter_tensor(
+                     torch.empty(4, dtype=torch.bfloat16, device=dev),
+                     torch.ones(4 * world, dtype=torch.bfloat16,
+                                device=dev))),
+                ("reduce_scatter_tensor fp32",
+                 lambda: dist.reduce_scatter_tensor(
+                     torch.empty(4, device=dev),
+                     torch.ones(4 * world, device=dev)))):
+            try:
+                fn()
+                probe[name] = "ok"
+            except RuntimeError as e:
+                probe[name] = f"refused: {str(e)[:120]}"
+        res["gloo"] = probe
+        mesh.initialize_model_parallel(tensor_model_parallel_size=world)
+
+        # 1. pretrain_gpt --tp 2, then its checkpoint and the next loss
+        t0 = time.perf_counter()
+        bench, losses, snaps, grads, counts = pretrain_steps(
+            torch, ops, TP_345M, TP_STEPS, snap=True)
+        res["L"] = bench.cfg.num_layers
+        res["heads"] = bench.model.layers[0].qkv.kernel.shape[1] // (
+            3 * bench.cfg.head_dim)
+        ref = wait_for_references(torch, ref_dir)
+        tp_grads = full_grads(torch, bench.model, grads)
+        res["gpt"] = {"losses": losses, "counts": counts,
+                      "errs": leaf_errs(torch, bench.model, tp_grads,
+                                        ref["gpt_grads"]),
+                      "ranks_equal": replicated_equal(torch, bench.model,
+                                                      snaps)}
+        del grads, snaps
+        ck_dir = os.path.join(ref_dir, "ckpt")
+        checkpoint.save_checkpoint(
+            ck_dir, TP_STEPS, pretrain_gpt.train_state(bench, device=dev),
+            specs=pretrain_gpt.train_state_specs(bench))
+        dist.barrier()
+        args = pretrain_gpt.parse_args(TP_345M)
+        toks, tgts = next(pretrain_gpt.batches(args, bench.batch))
+        with torch.no_grad():
+            res["gpt"]["next_loss"] = float(sum(
+                bench.model.loss(t, g) for t, g in zip(
+                    toks.chunk(args.num_microbatches),
+                    tgts.chunk(args.num_microbatches)))
+                / args.num_microbatches)
+        res["gpt"]["s"] = time.perf_counter() - t0
+        del bench
+        gc.collect()
+        torch.cuda.empty_cache()
+        # its fp32-compute twin, one step: the parallel math without bf16
+        # rounding, against the serial fp32-compute grads
+        bench, _, _, grads, counts = pretrain_steps(
+            torch, ops, TP_345M, 1, compute_dtype=torch.float32)
+        res["gpt_f32"] = {"counts": counts, "errs": leaf_errs(
+            torch, bench.model, full_grads(torch, bench.model, grads),
+            ref["gpt_grads_f32"])}
+        del bench, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. the same under sequence parallelism
+        t0 = time.perf_counter()
+        bench, losses, snaps, grads, counts = pretrain_steps(
+            torch, ops, TP_345M, TP_STEPS, snap=True,
+            sequence_parallel=True)
+        check(bench.model._sp, "the SP model is sequence parallel")
+        sp_grads = full_grads(torch, bench.model, grads)
+        res["sp"] = {"losses": losses, "counts": counts,
+                     "errs": leaf_errs(torch, bench.model, sp_grads,
+                                       ref["gpt_grads"]),
+                     "vs_tp": grads_err(torch, sp_grads, tp_grads),
+                     "ranks_equal": replicated_equal(torch, bench.model,
+                                                     snaps),
+                     "s": time.perf_counter() - t0}
+        del bench, grads, snaps, sp_grads, tp_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. BERT-large at tp 2
+        t0 = time.perf_counter()
+        trainer, losses, grads, counts = bert_tp_steps(
+            torch, ops, ref["bert_batch"], tp_axis=mesh.AXIS_MODEL)
+        res["bert"] = {"losses": losses, "counts": counts,
+                       "errs": leaf_errs(torch, trainer.model, full_grads(
+                           torch, trainer.model, grads), ref["bert_grads"]),
+                       "s": time.perf_counter() - t0}
+        del trainer, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer, _, grads, counts = bert_tp_steps(
+            torch, ops, ref["bert_batch"], tp_axis=mesh.AXIS_MODEL, steps=1,
+            compute_dtype=torch.float32)
+        res["bert_f32"] = {"counts": counts, "errs": leaf_errs(
+            torch, trainer.model, full_grads(torch, trainer.model, grads),
+            ref["bert_grads_f32"])}
+        del trainer, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. generate_gpt --tp 2, monolithic, then prefix cache + spec_k 4;
+        # each token against the full-context argmax of this TP model and
+        # the serial engine's tokens
+        serial = {rid: types.SimpleNamespace(tokens=t)
+                  for rid, t in ref["generate"].items()}
+        res["generate"] = {}
+        for label, extra in (("gen", []), ("gen_spec", GENERATE_TP_SPEC)):
+            out, counts = generate_run(torch, ops, GENERATE_TP + extra,
+                                       f"(b) rank {rank} generate --tp 2 "
+                                       f"{label}")
+            mesh.initialize_model_parallel(tensor_model_parallel_size=world)
+            eng = out["engine"]
+            n = check_greedy(torch, out["model"], out["results"],
+                             f"generate --tp 2 {label} rank {rank}",
+                             ref=serial)
+            res["generate"][label] = {
+                "counts": counts, "checked": n, "kv_heads":
+                    eng.kv_config.kv_heads, "stats": eng.stats,
+                "expected": serve_expected(counts, eng, res["L"], 6),
+                "tokens_s": out["latency"]["tokens_s"]}
+            del out, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    except Exception:  # noqa: BLE001 - reported by the parent
+        res["error"] = traceback.format_exc()
+    finally:
+        try:
+            from apex_tpu_torch.parallel import multiproc
+
+            multiproc.shutdown()
+        except Exception as e:  # noqa: BLE001
+            res.setdefault("error", f"shutdown: {e}")
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def tp_world1(torch, ops, dev, total):
+    """(a): NCCL at world size 1 in this process: ``pretrain_gpt`` on the
+    model axis at tp = 1 (345M, 8 x 1024, O2), 3 steps, its losses and
+    params after every step bit for bit the serial run's. Returns the
+    serial run's losses and first step's grads ((b)'s references)."""
+    from apex_tpu_torch.parallel import multiproc
+
+    _, slosses, ssnaps, sgrads, _ = pretrain_steps(
+        torch, ops, PRETRAIN_345M, TP_STEPS, snap=True)
+    sgrads = [g.cpu() for g in sgrads]
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(multiproc.initialize_distributed(
+        f"127.0.0.1:{free_port()}", 1, 0), "NCCL world 1 initialized")
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    try:
+        bench, losses, snaps, _, counts = pretrain_steps(
+            torch, ops, PRETRAIN_345M, TP_STEPS, snap=True, axis="model")
+        check(bench.cfg.axis == "model", "(a) built on the model axis")
+        L = bench.cfg.num_layers
+        check_counts(counts, expected_counts(counts, TP_STEPS,
+                                             pretrain_per_step(L, 2)), "tp")
+        total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+        same = [losses == slosses] + [
+            all(torch.equal(a, b) for a, b in zip(s, t))
+            for s, t in zip(snaps, ssnaps)]
+        print(f"  (a) pretrain_gpt 345M O2 on the model axis at tp 1 over "
+              f"{backend} (world size 1), {TP_STEPS} steps of {bench.batch} "
+              f"x 1024: losses {losses} (serial {slosses}); losses and "
+              f"params after each step bit-identical to the serial run: "
+              f"{same}")
+        verdict("tp (a) 345M at tp 1 bit for bit the serial run",
+                0 if all(same) else 1, 0,
+                group="tensor parallel (a) NCCL world 1")
+        del bench, snaps, ssnaps
+    finally:
+        multiproc.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return slosses, sgrads
+
+
+def tp_spawn(ref_dir, world=2):
+    """Start (b)'s gloo ranks: ``(processes, result paths)``."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(ref_dir, f"rank{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=_tp_rank,
+                         args=(r, world, port, ref_dir, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, outs
+
+
+def tp_two_ranks(torch, ops, dev, total, smi, slosses, sgrads, ref_dir,
+                 procs, outs):
+    """(b): two gloo ranks on the one card (host-staged; correctness only),
+    spawned before (a), every case in turn against the serial references
+    made here (they wait for ``ref.pt``)."""
+    import pickle
+
+    from apex_tpu_torch.examples.gpt import pretrain_gpt
+
+    t_spawn = time.perf_counter()
+    t0 = time.perf_counter()
+    from apex_tpu_torch.models import BertConfig
+
+    bert_batch = bert_tp_batch(torch, BertConfig().vocab_size)
+    _, blosses, bgrads, _ = bert_tp_steps(torch, ops, bert_batch)
+    bgrads = [g.cpu() for g in bgrads]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the rounding floor of the bf16 grads: the serial runs' step-1
+    # grads in fp32 compute on the same bf16 params
+    # (the fp32-compute twins' references too)
+    floor = {}
+    _, _, _, fgrads, _ = pretrain_steps(
+        torch, ops, PRETRAIN_345M, 1, compute_dtype=torch.float32)
+    gpt_f32 = [f.cpu() for f in fgrads]
+    floor["gpt"] = [l2_err(f, g) for f, g in zip(gpt_f32, sgrads)]
+    _, _, fgrads, _ = bert_tp_steps(torch, ops, bert_batch, steps=1,
+                                    compute_dtype=torch.float32)
+    bert_f32 = [f.cpu() for f in fgrads]
+    floor["bert"] = [l2_err(f, g) for f, g in zip(bert_f32, bgrads)]
+    del fgrads
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen, _ = generate_run(torch, ops, GENERATE_SHARED,
+                          "(b) serial generate 345M fp32")
+    ref = {"gpt_grads": sgrads, "bert_batch": bert_batch,
+           "bert_grads": bgrads, "gpt_grads_f32": gpt_f32,
+           "bert_grads_f32": bert_f32,
+           "generate": {rid: r.tokens
+                        for rid, r in gen["results"].items()}}
+    del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(ref, os.path.join(ref_dir, "ref.tmp"))  # whole, or absent
+    os.replace(os.path.join(ref_dir, "ref.tmp"),
+               os.path.join(ref_dir, "ref.pt"))
+    del ref
+    print(f"  (b) serial references (BERT-large 8 x 512 O2 FusedLAMB, "
+          f"a 345M fp32 generate; 345M 8 x 1024 from (a)) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    end = time.monotonic() + 600
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    check(not alive, "the two gloo ranks finished within 600 s")
+    res = []
+    for r, path in enumerate(outs):
+        check(os.path.exists(path), f"gloo rank {r} left no result")
+        with open(path, "rb") as f:
+            res.append(pickle.load(f))
+    for r in res:
+        check("error" not in r,
+              f"gloo rank {r['rank']}: {r.get('error', '')[-3000:]}")
+    spawn_s = time.perf_counter() - t_spawn
+
+    # the tp 2 checkpoint resumed serial: its first loss (batch 0)
+    t0 = time.perf_counter()
+    resumed = pretrain_gpt.run(PRETRAIN_345M + [
+        "--save-dir", os.path.join(ref_dir, "ckpt"), "--steps", "1",
+        "--save-every", "1000000"])
+    check(resumed["start"] == TP_STEPS, "resumed at the tp 2 save's step")
+    resumed_loss = resumed["losses"][0]
+    resume_s = time.perf_counter() - t0
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    group = "tensor parallel (b) 2 gloo ranks on the card"
+    print(f"  (b) gloo on CUDA tensors: {res[0]['gloo']}")
+    for r in res:
+        for key in ("gpt", "sp", "bert", "gpt_f32", "bert_f32"):
+            x = r[key]
+            x["grad_err"] = (max(e[1] for e in x["errs"]),
+                             max(e[2] for e in x["errs"]))
+        for key in ("gpt", "sp", "bert"):  # L2 over the bf16 rounding floor
+            fl = floor["bert" if key == "bert" else "gpt"]
+            x = r[key]
+            x["floor_ratio"] = sorted(
+                ((e[3] / max(f, 1e-12), e[0]) for e, f in zip(x["errs"], fl)),
+                reverse=True)[:3]
+    for key, label in (("gpt", "pretrain_gpt --tp 2"),
+                       ("sp", "pretrain_gpt --tp 2, sequence parallel"),
+                       ("bert", "BERT-large at tp 2, 8 x 512 with padding, "
+                                "O2 FusedLAMB")):
+        x, f32 = res[0][key], res[0].get(f"{key}_f32")
+        print(f"  (b) {label}: losses {[r[key]['losses'] for r in res]} "
+              f"(serial {blosses if key == 'bert' else slosses}); O2 step-1 "
+              f"grads gathered, worst (share, row) "
+              f"{[r[key]['grad_err'] for r in res]}, leaves furthest "
+              f"{worst_leaves(x['errs'])}; L2 over the serial run's "
+              f"fp32-compute distance, worst "
+              f"{[(round(v, 3), n) for v, n in x['floor_ratio']]}; "
+              f"{x['s']:.1f} s (host-staged gloo, not a speed number)")
+        if f32 is not None:
+            print(f"  (b) {label}, its fp32-compute twin (1 step) against "
+                  f"the serial fp32-compute grads: worst (share, row) "
+                  f"{[r[key + '_f32']['grad_err'] for r in res]}, leaves "
+                  f"furthest {worst_leaves(f32['errs'])}")
+        if key == "sp":
+            print(f"  (b) {label}: O2 step-1 grads against the TP run's "
+                  f"(share, row) {[r['sp']['vs_tp'] for r in res]}")
+        if key != "bert":
+            print(f"  (b) {label}: replicated leaves equal across the ranks "
+                  f"after each step {[r[key]['ranks_equal'] for r in res]}")
+    print(f"  (b) the serial runs' bf16 grads' L2 distance from their "
+          f"fp32-compute twins', largest: gpt "
+          f"{sorted((round(v, 4) for v in floor['gpt']), reverse=True)[:3]}, "
+          f"bert {sorted((round(v, 4) for v in floor['bert']), reverse=True)[:3]}")
+    print(f"  (b) checkpoint at tp 2 after {TP_STEPS} steps, resumed serial "
+          f"in {resume_s:.1f} s: next loss on batch 0 {resumed_loss} (tp 2 "
+          f"ranks {[r['gpt']['next_loss'] for r in res]})")
+    for label in ("gen", "gen_spec"):
+        g = [r["generate"][label] for r in res]
+        print(f"  (b) generate_gpt --tp 2 {label}: {[x['checked'] for x in g]}"
+              f" tokens equal the full-context argmax and the serial "
+              f"engine's; kv heads a rank {g[0]['kv_heads']}; stats "
+              f"{g[0]['stats']}; {[round(x['tokens_s'], 1) for x in g]} "
+              f"tokens/s (host-staged gloo)")
+    print(f"  (b) the two ranks took {spawn_s:.1f} s from (a)'s end to their "
+          f"join, spawned before (a); card: {smi}")
+    for r in res:
+        L, rk = r["L"], r["rank"]
+        check(r["heads"] == 8, "8 local heads a rank")
+        for key in ("gpt", "sp", "bert", "gpt_f32", "bert_f32"):
+            x = r[key]
+            bert = key.startswith("bert")
+            steps = (1 if key.endswith("f32")
+                     else BERT_TP_STEPS if bert else TP_STEPS)
+            check_counts(x["counts"], expected_counts(
+                x["counts"], steps,
+                bert_per_step(L) if bert else pretrain_per_step(L, 2)), "tp")
+            if key.endswith("f32"):
+                e, e_row = x["grad_err"]
+                verdict(f"tp (b) {key} rank {rk} step-1 grads", e,
+                        TP_GRAD[0], group=group)
+                verdict(f"tp (b) {key} rank {rk} step-1 grads row", e_row,
+                        TP_GRAD[1], group=group)
+                continue
+            ref_losses = blosses if bert else slosses
+            rel = max(abs(a - b) / abs(b) for a, b in zip(x["losses"],
+                                                        ref_losses))
+            verdict(f"tp (b) {key} rank {rk} losses rel", rel, TP_LOSS_REL,
+                    group=group)
+            verdict(f"tp (b) {key} rank {rk} worst grad leaf L2 over the "
+                    f"serial fp32-compute distance", x["floor_ratio"][0][0],
+                    TP_FLOOR, group=group)
+            if not bert:
+                verdict(f"tp (b) {key} rank {rk} replicated leaves equal "
+                        f"across the ranks",
+                        0 if all(x["ranks_equal"]) else 1, 0, group=group)
+        e, e_row = r["sp"]["vs_tp"]
+        verdict(f"tp (b) sp rank {rk} step-1 grads against tp's", e,
+                TP_GRAD[0], group=group)
+        verdict(f"tp (b) sp rank {rk} step-1 grads against tp's row", e_row,
+                TP_GRAD[1], group=group)
+        verdict(f"tp (b) checkpoint at tp 2 resumed serial, rank {rk} next "
+                f"loss rel", abs(resumed_loss - r["gpt"]["next_loss"])
+                / abs(resumed_loss), TP_LOSS_REL, group=group)
+        for label, g in r["generate"].items():
+            check(g["kv_heads"] == 8, "the TP engine's pools hold 8 heads")
+            check_counts(g["counts"], g["expected"], "tp")
+            verdict(f"tp (b) generate --tp 2 {label} rank {rk} tokens "
+                    f"checked", 0 if g["checked"] else 1, 0, group=group)
+        for c in ([r[k]["counts"] for k in ("gpt", "gpt_f32", "sp", "bert",
+                                            "bert_f32")]
+                  + [g["counts"] for g in r["generate"].values()]):
+            total.update({k: total.get(k, 0) + v for k, v in c.items()})
+    check(res[0]["generate"]["gen_spec"]["stats"]["mean_accepted_len"] > 1,
+          "generate --tp 2 accepted drafts")
+
+
+def tp_phase(torch, ops, dev):
+    """Phase 15: (a) :func:`tp_world1`, (b) :func:`tp_two_ranks`, #9 / #10
+    fp32 at 8 local heads. Returns the launches of the tensor-parallel
+    runs (path ``tp``: (a)'s in this process, (b)'s in both ranks) and the
+    8-head times."""
+    import shutil
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    total = {}
+    ref_dir = os.path.join(HERE, "build", "tp_check")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    os.makedirs(ref_dir)
+    procs = []
+    try:
+        # the ranks start first: their first case runs while this process
+        # makes (a) and the serial references
+        procs, outs = tp_spawn(ref_dir)
+        slosses, sgrads = tp_world1(torch, ops, dev, total)
+        tp_two_ranks(torch, ops, dev, total, smi, slosses, sgrads, ref_dir,
+                     procs, outs)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    heads8 = tp_fp32_decode_heads(torch, ops, dev)
+    print(f"  phase 15 launches {total}; phase 15 took "
+          f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    return total, heads8
+
+
+def tp_main():
+    """``python3 chip_smoke.py --tp``: phase 15 alone after the build, with
+    its verdict."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.csrc import build
+
+    print(f"card: {nvidia_smi()}; torch {torch.__version__}")
+    build.load()
+    tp_phase(torch, ops, torch.device("cuda", 0))
+    print_verdict()
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ln-times"]:
         sys.exit(times_of_tree(sys.argv[2], ln_times))
@@ -8122,4 +8818,6 @@ if __name__ == "__main__":
         sys.exit(contrib_main())
     if sys.argv[1:2] == ["--dp"]:
         sys.exit(dp_main())
+    if sys.argv[1:2] == ["--tp"]:
+        sys.exit(tp_main())
     sys.exit(main())

@@ -89,10 +89,18 @@ def test_entry_points_default_to_the_card(monkeypatch):
     ("context_axis", "context"), ("moe_num_experts", 4),
 ])
 def test_options_outside_the_slice_raise(field, value):
-    """Each option raises where the slice stops: at construction."""
+    """Each option raises where the slice stops: at construction. Tensor
+    parallelism needs the topology installed first; sequence parallelism
+    without an axis builds the serial model, as in the JAX package."""
     cfg = GPTConfig(**{field: value}, **SMALL)
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        GPTModel(cfg, device="cpu")
+    if field == "axis":
+        with pytest.raises(ValueError, match="initialize_model_parallel"):
+            GPTModel(cfg, device="cpu")
+    elif field == "sequence_parallel":
+        assert not GPTModel(cfg, device="cpu")._sp
+    else:
+        with pytest.raises(NotImplementedError, match="later|slice"):
+            GPTModel(cfg, device="cpu")
 
 
 def test_window_raises_on_the_card_and_runs_plain_on_the_cpu(monkeypatch):
@@ -100,7 +108,8 @@ def test_window_raises_on_the_card_and_runs_plain_on_the_cpu(monkeypatch):
     too now: with the device check answering 'cuda' the call goes through
     FlashAttention (on these CPU tensors its plain versions, as the card
     runs the resident kernels) and agrees with mha_reference; the model
-    takes the window, and tensor parallelism still raises."""
+    takes the window, and a tensor-parallel layer without the topology
+    raises."""
     tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     q = torch.randn(1, 2, 12, 8)
     out = tfa.flash_attention(q, q, q, causal=True, window=4, stream="never")
@@ -117,7 +126,7 @@ def test_window_raises_on_the_card_and_runs_plain_on_the_cpu(monkeypatch):
     assert m.apply(torch.zeros(1, 12, dtype=torch.long)).shape == (1, 12, 61)
     from apex_tpu_torch.transformer.tensor_parallel import (
         ColumnParallelLinear)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="initialize_model_parallel"):
         ColumnParallelLinear(4, 4, axis="model")
 
 
@@ -216,11 +225,15 @@ def test_new_modules_import_no_jax():
     functions, the native runtime, the DCGAN example), the probe
     slice's (the convergence probe, utils/io and utils/nn, the rest of the
     optimizers, fp16_utils, rnn, reparameterization), the contrib
-    slice's (multihead_attn, bottleneck, groupbn, transducer, sparsity)
-    and the data-parallel slice's (mesh, collectives, distributed,
-    multiproc, parallel_state, transformer amp, the simple example) are
-    among the scanned files."""
+    slice's (multihead_attn, bottleneck, groupbn, transducer, sparsity),
+    the data-parallel slice's (mesh, collectives, distributed,
+    multiproc, parallel_state, transformer amp, the simple example) and
+    the tensor-parallel slice's (tensor_parallel's utils, mappings,
+    random, data) are among the scanned files."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"apex_tpu_torch/transformer/tensor_parallel/" + f for f in (
+        "utils.py", "mappings.py", "random.py", "data.py", "layers.py",
+        "cross_entropy.py")} <= rel
     assert {"apex_tpu_torch/parallel/mesh.py",
             "apex_tpu_torch/parallel/collectives.py",
             "apex_tpu_torch/parallel/distributed.py",

@@ -66,6 +66,13 @@ def _child(fn, rank, world, store, out, args):
 def run_ranks(fn, world, tmp_path, *args, deadline=DEADLINE_S):
     """``[fn(rank, world, *args) for rank in range(world)]``, each in its own
     gloo rank."""
+    return start_ranks(fn, world, tmp_path, *args, deadline=deadline)()
+
+
+def start_ranks(fn, world, tmp_path, *args, deadline=DEADLINE_S):
+    """Start :func:`run_ranks`'s ranks and return its join: a call that
+    waits for them (within ``deadline`` of the start) and returns their
+    results, so the parent can work meanwhile."""
     ctx = multiprocessing.get_context("spawn")
     tmp = str(tmp_path)
     store = os.path.join(tmp, f"store-{fn.__name__}-{time.monotonic_ns()}")
@@ -77,6 +84,10 @@ def run_ranks(fn, world, tmp_path, *args, deadline=DEADLINE_S):
     for p in procs:
         p.start()
     end = time.monotonic() + deadline
+    return lambda: _join(fn, procs, outs, end, deadline)
+
+
+def _join(fn, procs, outs, end, deadline):
     for p in procs:
         p.join(max(0.0, end - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
