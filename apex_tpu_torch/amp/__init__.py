@@ -1,11 +1,13 @@
 """Automatic mixed precision (port of ``apex_tpu/amp``): policies, the loss
-scaler, the mixed-precision optimizer without ZeRO, ``initialize`` with its
-``AmpTrainState``, and the O1 function registries (``functions``)."""
+scaler, the mixed-precision optimizer with its ZeRO levels 1-3,
+``initialize`` with its ``AmpTrainState``, and the O1 function registries
+(``functions``)."""
 
 from apex_tpu_torch.amp.frontend import (
     AmpTrainState,
     MixedPrecisionOptimizer,
     MPOptState,
+    Zero3Setup,
     initialize,
     load_state_tree_,
     state_tree,
@@ -30,6 +32,7 @@ __all__ = [
     "LossScaler",
     "MPOptState",
     "MixedPrecisionOptimizer",
+    "Zero3Setup",
     "Policy",
     "cast_params",
     "disable_casts",

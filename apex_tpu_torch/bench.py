@@ -61,7 +61,9 @@ partial-record checkpoint, ``BENCH_JOURNAL`` / ``BENCH_TRACE`` /
 ``BENCH_FLIGHT`` / ``BENCH_LEDGER`` / ``BENCH_STALL``, ``--gpt-profile`` and
 the ``pyprof_scope_seconds`` stage. ``main`` runs without them; setting
 one of the variables or passing the flag raises ``NotImplementedError``.
-``BENCH_ZERO`` / ``BENCH_QCOMM`` (ZeRO) raise, naming item 11.
+``BENCH_ZERO=1|3`` arms the ZeRO optimizer at level 2 or 3 over a data
+axis of one rank, and ``BENCH_QCOMM=int8|e5m2`` (with ``BENCH_ZERO`` at
+level 2) its quantized grad wire (``bench.py:302-325``).
 ``BENCH_DEVICE=cpu`` (``--device cpu``) runs everything on the CPU through
 the plain versions; the default is the card, and without one the entry
 points raise.
@@ -99,8 +101,7 @@ MONITOR_VARS = ("BENCH_JOURNAL", "BENCH_TRACE", "BENCH_FLIGHT",
 
 def check_later(argv=()) -> None:
     """Raise on what this slice of the port does not run: the telemetry
-    variables and ``--gpt-profile`` (ROADMAP Queue 1 item 21), and
-    ``BENCH_ZERO`` / ``BENCH_QCOMM`` (item 11)."""
+    variables and ``--gpt-profile`` (ROADMAP Queue 1 item 21)."""
     later = [v for v in MONITOR_VARS if os.environ.get(v)]
     later += [a for a in argv if a == "--gpt-profile"]
     if later:
@@ -108,10 +109,24 @@ def check_later(argv=()) -> None:
             f"{later}: the watchdog, journal, tracer, flight recorder, "
             f"ledger and profile stages of bench.py come with monitor/ and "
             f"pyprof/ (ROADMAP Queue 1 item 21)")
-    if os.environ.get("BENCH_ZERO") or os.environ.get("BENCH_QCOMM"):
-        raise NotImplementedError(
-            "BENCH_ZERO / BENCH_QCOMM: the ZeRO optimizer path is not in "
-            "this slice of the port; it comes with ROADMAP Queue 1 item 11")
+
+
+def _zero_env_level():
+    """``(zero, zero_level)`` from ``BENCH_ZERO`` (``bench.py:209-215``):
+    "3" is level 3, any other non-empty value level 2, unset off."""
+    zero_env = os.environ.get("BENCH_ZERO", "")
+    zero = bool(zero_env)
+    return zero, (3 if zero_env.strip() == "3" else 2 if zero else 0)
+
+
+def _qcomm_env():
+    """The ZeRO grad reduce-scatter's wire dtype from ``BENCH_QCOMM``
+    (``bench.py:218-225``): "int8" / "e5m2", "1" for int8, unset or empty
+    for the exact fp32 wire."""
+    v = os.environ.get("BENCH_QCOMM", "").strip().lower()
+    if not v:
+        return None
+    return "int8" if v == "1" else v
 
 
 def _device(device: DeviceLike = None) -> torch.device:
@@ -171,17 +186,51 @@ class Bench:
     opt_state: amp.MPOptState
     cfg: GPTConfig
     batch: int
+    #: the ZeRO-3 working chunks and metadata (``mp_opt.zero3_init``), or
+    #: None; the host-offload driver, or None
+    zero3: Any = None
+    offload: Any = None
 
     @torch.no_grad()
     def load_params_(self, tree: Dict[str, Any]) -> "Bench":
         """Before the first step: load a JAX-layout parameter tree (the
         reference build's params as arrays) into the model, cast to its
         dtypes, and copy the fp32 masters, where the policy keeps them, up
-        from the cast params in place (as the reference inits them)."""
-        self.model.params_from_numpy(tree)
-        if self.opt_state.master is not None:
-            for m, p in zip(self.opt_state.master, self.model.parameters()):
-                m.copy_(p)
+        from the cast params in place (as the reference inits them). Under
+        ZeRO the masters are this rank's chunks of the cast params (at
+        level 3 the working chunks too: the model holds no params)."""
+        if getattr(self.mp_opt, "zero_axis", None) is None:
+            self.model.params_from_numpy(tree)
+            if self.opt_state.master is not None:
+                for m, p in zip(self.opt_state.master,
+                                self.model.parameters()):
+                    m.copy_(p)
+            return self
+        from apex_tpu_torch._params import tensors_of_tree
+        from apex_tpu_torch.optimizers.distributed import local_chunk
+
+        n, idx = self.mp_opt._zero_world()
+        if self.zero3 is None:
+            self.model.params_from_numpy(tree)
+            fulls = [p.detach() for p in self.model.parameters()]
+        else:
+            from apex_tpu_torch.amp.frontend import _flat_shapes
+            from apex_tpu_torch.transformer import tensor_parallel as tp
+
+            c = self.model.cfg
+            if c.axis is not None:
+                rank, size = tp.mappings.axis_world(c.axis)
+                tree = tp.shard_params(tree, self.model.specs(), rank, size,
+                                       c.axis)
+            shapes = _flat_shapes(self.zero3.meta)
+            fulls = [t.to(self.model.device, s.dtype) for t, s in zip(
+                tensors_of_tree(self.model, tree), shapes)]
+            for ch, f in zip(self.zero3.params, fulls):
+                ch.copy_(local_chunk(f, n, idx))
+        masters = (self.opt_state.master if self.offload is None else
+                   [m for b in self.opt_state.host for m in b["master"]])
+        for m, f in zip(masters, fulls):
+            m.copy_(local_chunk(f.float(), n, idx))
         return self
 
 
@@ -219,8 +268,22 @@ def build(policy_level: str = "O2", *, remat_policy: Optional[str] = None,
               f"plain route on the card", file=sys.stderr)
     model = GPTModel(cfg, device=dev, seed=seed)
     amp.cast_params(model, policy)
+    # BENCH_ZERO arms the ZeRO optimizer over a data axis of one rank
+    # (bench.py:302-325): the exact program a dp > 1 run executes, with
+    # degenerate collectives; BENCH_QCOMM quantizes its grad wire
+    zero, zero_level = _zero_env_level()
+    qcomm = _qcomm_env()
+    if qcomm and not zero:
+        raise SystemExit(
+            "BENCH_QCOMM requires BENCH_ZERO (levels 1/2): the quantized "
+            "wire is the ZeRO grad reduce-scatter")
     mp_opt = amp.MixedPrecisionOptimizer(
-        FusedAdam(lr=1e-4) if fused else Adam(lr=1e-4), policy)
+        FusedAdam(lr=1e-4) if fused else Adam(lr=1e-4), policy,
+        zero_axis="data" if zero else None, zero_level=zero_level or 2,
+        gather_dtype="bf16" if (zero and fused) else None,
+        reduce_dtype=qcomm if zero else None)
+    if zero:
+        return _zero_bench(model, mp_opt, cfg, batch)
     bench = Bench(None, model, mp_opt, mp_opt.init(model), cfg, batch)
 
     def step(tokens: torch.Tensor, targets: torch.Tensor):
@@ -231,6 +294,21 @@ def build(policy_level: str = "O2", *, remat_policy: Optional[str] = None,
 
     bench.step = step
     return bench
+
+
+def _zero_bench(model, mp_opt, cfg, batch) -> Bench:
+    """The ``BENCH_ZERO`` leg: the sharded state (level-3 chunks under
+    ``BENCH_ZERO=3``) and ``build_zero_train_step``'s step, one
+    micro-batch."""
+    from apex_tpu_torch.parallel import mesh
+    from apex_tpu_torch.transformer.amp import build_zero_train_step
+
+    if not mesh.model_parallel_is_initialized():
+        mesh.initialize_model_parallel()
+    zero3 = mp_opt.zero3_init(model) if mp_opt.zero_level >= 3 else None
+    state = zero3.opt_state if zero3 is not None else mp_opt.init(model)
+    step = build_zero_train_step(mp_opt, model, state, zero3=zero3)
+    return Bench(step, model, mp_opt, state, cfg, batch, zero3)
 
 
 def fixed_batch(bench: Bench, seed: int = 1):

@@ -16,8 +16,8 @@ labels), a fresh batch a step from ``np.random.default_rng(0)``. The
 padding bias reaches every layer's attention, which runs the resident flash
 kernels with the bias on the card.
 
-ZeRO (``--zero``, ``--zero-level``, ``--reduce-dtype``) is ROADMAP Queue 1
-item 11, the two-tier mesh (``--mesh-islands`` > 1) item 16, and the
+ZeRO (``--zero``, ``--zero-level``, ``--reduce-dtype``) for BERT is ROADMAP
+Queue 1 item 24, the two-tier mesh (``--mesh-islands`` > 1) item 16, and the
 journal, ledger, trace and flight recorder (``--journal``, ``--ledger``,
 ``--trace``, ``--flight``) item 21: each raises. ``--dcn-wire`` is accepted
 and unused, as in the reference without islands. ``--device cpu`` runs the
@@ -44,9 +44,9 @@ from apex_tpu_torch.optimizers import FusedLAMB
 
 #: flags of the reference that later slices bring, with their ROADMAP items
 _LATER = {
-    "zero": "ZeRO (ROADMAP Queue 1 item 11)",
-    "zero_level": "ZeRO (ROADMAP Queue 1 item 11)",
-    "reduce_dtype": "the quantized ZeRO wire (ROADMAP Queue 1 item 11)",
+    "zero": "BERT under ZeRO (ROADMAP Queue 1 item 24)",
+    "zero_level": "BERT under ZeRO (ROADMAP Queue 1 item 24)",
+    "reduce_dtype": "BERT's quantized ZeRO wire (ROADMAP Queue 1 item 24)",
     "mesh_islands": "the two-tier mesh (ROADMAP Queue 1 item 16)",
     "journal": "the metrics journal (ROADMAP Queue 1 item 21)",
     "ledger": "the run ledger (ROADMAP Queue 1 item 21)",

@@ -49,9 +49,19 @@ of either package resumes in the other) and prints the reference's lines.
 As in the reference, a resumed run's data stream starts again at its
 first batch: the generator and the loader are built anew at every start.
 
+ZeRO (``--zero``, ``--zero-level 1|2|3``, ``:400-420``, ``:516-600``): the
+optimizer shards over the data axis through
+``transformer.amp.build_zero_train_step``; ``--zero-gather bf16|int8`` is
+the param-gather wire, ``--reduce-dtype int8|e5m2`` the grad
+reduce-scatter's, ``--zero3-prefetch N`` double-buffers the level-3 layer
+gathers, ``--offload-optimizer`` keeps the sharded state in host memory
+(``--offload-buckets``). A ZeRO checkpoint holds each chunk leaf as its
+global array (the JAX package's layout), so it resumes in either package
+at the same data-parallel size.
+
 ``--unroll`` is accepted and changes nothing: the port always drives the
-layers one by one. The pipeline, ZeRO and monitoring options raise
-``NotImplementedError`` with the ROADMAP item that brings them; the
+layers one by one. The pipeline, two-tier mesh, MoE and monitoring options
+raise ``NotImplementedError`` with the ROADMAP item that brings them; the
 reference's own argument-consistency errors are kept. ``--device cpu``
 runs the plain versions of the kernels on the CPU; the default is the card.
 
@@ -85,6 +95,11 @@ from apex_tpu_torch.parallel.distributed import (
     data_parallel_world,
     local_rows,
 )
+from apex_tpu_torch.transformer import amp as tamp
+from apex_tpu_torch.transformer.amp import (
+    MeshGradScaler,
+    build_zero_train_step,
+)
 
 #: options of the reference outside this slice -> the ROADMAP Queue 1 item
 #: that brings them
@@ -92,12 +107,7 @@ _LATER = {
     "pp": ("pipeline parallelism", 12),
     "pp_schedule": ("the pipeline schedules", 12),
     "vpp": ("interleaved pipeline chunks", 12),
-    "zero": ("ZeRO", 11),
-    "zero_gather": ("ZeRO's compressed gather", 11),
-    "zero3_prefetch": ("ZeRO-3 prefetch", 11),
-    "reduce_dtype": ("the quantized ZeRO wire", 11),
     "mesh_islands": ("the two-tier mesh", 16),
-    "offload_optimizer": ("the host-offloaded optimizer", 11),
     "moe_experts": ("MoE FFNs", 16),
     "moe_dispatch_dtype": ("MoE FFNs", 16),
     "plan": ("the placement search", 21),
@@ -177,16 +187,47 @@ def parse_args(argv=None):
     if args.pp_schedule == "zerobubble" and (args.pp < 2 or args.tp > 1):
         p.error("--pp-schedule zerobubble needs --pp >= 2 and --tp 1 (the "
                 "explicit-backward executor drives the pipe axis only)")
-    if args.zero3_prefetch and (args.zero_level or 0) < 3:
-        p.error("--zero3-prefetch requires --zero-level 3 (it "
-                "double-buffers the per-layer chunk gathers)")
-    if args.offload_optimizer and args.save_dir:
-        p.error("--offload-optimizer does not checkpoint: the optimizer "
-                "state is host-resident numpy, outside the device "
-                "checkpoint tree")
+    if args.pp_schedule == "zerobubble" and (args.zero_level or 0) >= 3:
+        p.error("--pp-schedule zerobubble composes with ZeRO levels 1/2 "
+                "only (level 3 rebuilds the pipelined loss)")
+    if args.zero3_prefetch:
+        if (args.zero_level or 0) < 3:
+            p.error("--zero3-prefetch requires --zero-level 3 (it "
+                    "double-buffers the per-layer chunk gathers)")
+        if not args.unroll:
+            p.error("--zero3-prefetch requires --unroll (the prefetch "
+                    "schedule is a static unrolled structure)")
+    if args.mesh_islands > 1:
+        if not args.zero or (args.zero_level or 0) >= 3:
+            p.error("--mesh-islands > 1 requires --zero at levels 1/2: "
+                    "the hierarchical grad path is the ZeRO optimizer's "
+                    "dcn_axis")
+        if args.reduce_dtype:
+            p.error("--reduce-dtype is the FLAT quantized wire; on a "
+                    "two-tier mesh the grad wire is per TIER -- use "
+                    "--dcn-wire for the inter-island hop")
+        if args.moe_experts:
+            p.error("--mesh-islands does not compose with --moe-experts")
+    if args.offload_optimizer:
+        if not args.zero or (args.zero_level or 0) >= 3:
+            p.error("--offload-optimizer requires --zero at levels 1/2 "
+                    "(the offloaded state IS the ZeRO chunk tree; at "
+                    "level 3 grads arrive inside the backward, not in "
+                    "one apply phase)")
+        if args.moe_experts:
+            p.error("--offload-optimizer requires every param replicated "
+                    "over the zero group -- expert-sharded MoE masters "
+                    "are the local shard and stay resident")
+        if args.save_dir:
+            p.error("--offload-optimizer does not checkpoint: the "
+                    "optimizer state is host-resident, outside the device "
+                    "checkpoint tree")
     if args.moe_dispatch_dtype and not args.moe_experts:
         p.error("--moe-dispatch-dtype requires --moe-experts (it is the "
                 "expert-parallel dispatch wire dtype)")
+    if args.moe_experts and (args.zero_level or 0) >= 3:
+        p.error("--moe-experts composes with ZeRO levels 1/2 only "
+                "(level 3's chunk drive has no expert-shard story)")
     return args
 
 
@@ -197,11 +238,7 @@ def check_slice(args) -> None:
     on = {
         "pp": args.pp > 1,
         "pp_schedule": args.pp_schedule != "1f1b", "vpp": args.vpp > 1,
-        "zero": args.zero, "zero_gather": bool(args.zero_gather),
-        "zero3_prefetch": bool(args.zero3_prefetch),
-        "reduce_dtype": bool(args.reduce_dtype),
         "mesh_islands": args.mesh_islands > 1,
-        "offload_optimizer": args.offload_optimizer,
         "moe_experts": bool(args.moe_experts),
         "moe_dispatch_dtype": bool(args.moe_dispatch_dtype),
         "plan": bool(args.plan), "journal": bool(args.journal),
@@ -213,8 +250,8 @@ def check_slice(args) -> None:
             what, item = _LATER[name]
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}: {what} is not in this slice of "
-                f"the port (the serial, data- and tensor-parallel branches); "
-                f"it comes with ROADMAP Queue 1 item {item}")
+                f"the port (the serial, data- and tensor-parallel branches "
+                f"and ZeRO); it comes with ROADMAP Queue 1 item {item}")
 
 
 def microbatched_backward(bench: Bench, tokens: torch.Tensor,
@@ -232,29 +269,9 @@ def microbatched_backward(bench: Bench, tokens: torch.Tensor,
 def _microbatched_backward(model, mp_opt, state, tokens, targets,
                            num_microbatches):
     tokens, targets = tokens.to(model.device), targets.to(model.device)
-    if tokens.shape[0] % num_microbatches:
-        raise ValueError(f"batch ({tokens.shape[0]}) must divide by "
-                         f"microbatches ({num_microbatches})")
-    params = list(model.parameters())
-    acc = total = None
-    for tok, tgt in zip(tokens.chunk(num_microbatches),
-                        targets.chunk(num_microbatches)):
-        loss = model.loss(tok, tgt)
-        mp_opt.scale_loss(loss / num_microbatches, state).backward()
-        loss = loss.detach()
-        total = loss if total is None else total + loss
-        if num_microbatches > 1:
-            if acc is None:  # fp32 copies; an fp32 grad is kept as it is
-                acc = [p.grad.float() for p in params]
-            else:
-                for a, p in zip(acc, params):
-                    a.add_(p.grad)
-            for p in params:
-                p.grad = None
-    if acc is not None:
-        for p, a in zip(params, acc):
-            p.grad = a.to(p.dtype)
-    return total / num_microbatches
+    return tamp.microbatched_backward(model.loss, list(model.parameters()),
+                                      mp_opt, state, tokens, targets,
+                                      num_microbatches)
 
 
 def reduce_data_parallel(model: GPTModel,
@@ -293,6 +310,10 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
           num_microbatches: int = 2, lr: float = 3e-4,
           opt_level: str = "O2", remat_policy: Optional[str] = None,
           seed: int = 0, tp: int = 1, axis: Optional[str] = None,
+          zero_level: Optional[int] = None,
+          zero_gather: Optional[str] = None,
+          reduce_dtype: Optional[str] = None, zero3_prefetch: int = 0,
+          offload: bool = False, offload_buckets: int = 2,
           device: DeviceLike = None) -> Bench:
     """The reference's model and optimizer state (``:391-424``) on one
     device (the card unless ``device="cpu"``), random weights from
@@ -308,8 +329,21 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
     num_microbatches``. ``tp`` > 1 installs the dp x tp mesh
     (``initialize_model_parallel(tensor_model_parallel_size=tp)``) unless
     one of that tp size is installed, and builds the model on the model
-    axis; ``axis="model"`` does so at ``tp`` = 1 too."""
+    axis; ``axis="model"`` does so at ``tp`` = 1 too.
+
+    ``zero_level`` (1, 2 or 3; ``--zero``) shards the optimizer over the
+    data axis (``:400-420``, ``:516-600``): ``MixedPrecisionOptimizer(
+    zero_axis="data", gather_dtype=zero_gather, reduce_dtype=...)`` and
+    :func:`~apex_tpu_torch.transformer.amp.build_zero_train_step`, whose
+    reduce-scatter is the data-parallel reduction; at level 3 the
+    params persist as chunks (``Bench.zero3``) and ``zero3_prefetch``
+    double-buffers the layer gathers; ``offload`` keeps the sharded state
+    in host memory in ``offload_buckets`` buckets (``Bench.offload``)."""
     dev = resolve_device(device)
+    zero = zero_level is not None
+    if zero and not mesh.model_parallel_is_initialized() and tp == 1 \
+            and axis is None:
+        mesh.initialize_model_parallel()
     if tp > 1 or axis is not None:
         axis = axis or mesh.AXIS_MODEL
         if not (mesh.model_parallel_is_initialized()
@@ -330,10 +364,19 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
         remat=True,
         remat_policy=remat_policy,
         axis=axis,
+        zero3_prefetch=zero3_prefetch,
     )
     model = GPTModel(cfg, device=dev, seed=seed)
     amp.cast_params(model, policy)
-    mp_opt = amp.MixedPrecisionOptimizer(FusedAdam(lr=lr), policy)
+    mp_opt = amp.MixedPrecisionOptimizer(
+        FusedAdam(lr=lr), policy,
+        zero_axis=mesh.AXIS_DATA if zero else None,
+        zero_level=zero_level or 2, gather_dtype=zero_gather,
+        reduce_dtype=reduce_dtype)
+    if zero:
+        return _build_zero(model, mp_opt, cfg, num_microbatches, offload,
+                           offload_buckets,
+                           micro_batch * dp * num_microbatches, dp, rank)
     opt_state = mp_opt.init(model)
 
     vote = None
@@ -355,6 +398,35 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
                  micro_batch * dp * num_microbatches)
 
 
+def _build_zero(model, mp_opt, cfg, num_microbatches, offload,
+                offload_buckets, batch, dp, rank) -> Bench:
+    """:func:`build`'s ZeRO branch: the sharded state (resident, level-3
+    chunks or host-offloaded) and the step of ``build_zero_train_step`` on
+    this rank's rows."""
+    zero3 = off = None
+    if offload:
+        from apex_tpu_torch.optimizers.offload import HostOffloadedZero
+
+        off = HostOffloadedZero(
+            mp_opt, num_buckets=offload_buckets,
+            found_inf_reducer=MeshGradScaler().found_inf_reducer)
+        opt_state = off.init(model)
+    elif mp_opt.zero_level >= 3:
+        zero3 = mp_opt.zero3_init(model)
+        opt_state = zero3.opt_state
+    else:
+        opt_state = mp_opt.init(model)
+    zstep = build_zero_train_step(mp_opt, model, opt_state,
+                                  num_microbatches=num_microbatches,
+                                  zero3=zero3, offload=off)
+
+    def step(tokens: torch.Tensor, targets: torch.Tensor):
+        return zstep(local_rows(tokens, dp, rank),
+                     local_rows(targets, dp, rank))
+
+    return Bench(step, model, mp_opt, opt_state, cfg, batch, zero3, off)
+
+
 def from_args(args, remat_policy: Optional[str] = None) -> Bench:
     """:func:`build` from :func:`parse_args`'s namespace."""
     return build(vocab=args.vocab, hidden=args.hidden, layers=args.layers,
@@ -362,26 +434,44 @@ def from_args(args, remat_policy: Optional[str] = None) -> Bench:
                  micro_batch=args.micro_batch,
                  num_microbatches=args.num_microbatches, lr=args.lr,
                  opt_level=args.opt_level, remat_policy=remat_policy,
-                 tp=args.tp, device=args.device)
+                 tp=args.tp,
+                 zero_level=args.zero_level if args.zero else None,
+                 zero_gather=args.zero_gather, reduce_dtype=args.reduce_dtype,
+                 zero3_prefetch=args.zero3_prefetch,
+                 offload=args.offload_optimizer,
+                 offload_buckets=args.offload_buckets, device=args.device)
 
 
 def train_state(bench: Bench, device="cpu") -> Dict[str, Any]:
     """``{"params", "opt"}`` in the JAX example's checkpoint layout
     (``:850-851``): this rank's shards under tensor parallelism.
     ``device="meta"``: the structure alone (a restore target), with no
-    copy."""
-    return {"params": module_tree(bench.model, device=device),
-            "opt": amp.state_tree(bench.opt_state, bench.model,
-                                  device=device)}
+    copy. Under ZeRO the optimizer state (and at level 3 the params) are
+    the global chunk arrays, which every rank must call to gather."""
+    mp = bench.mp_opt
+    if mp.zero_axis is None:
+        return {"params": module_tree(bench.model, device=device),
+                "opt": amp.state_tree(bench.opt_state, bench.model,
+                                      device=device)}
+    dev = "cpu" if device == "meta" else device
+    params = (mp.zero3_params_tree(bench.zero3, bench.model, dev)
+              if bench.zero3 is not None
+              else module_tree(bench.model, device=dev))
+    return {"params": params,
+            "opt": mp.zero_state_tree(bench.opt_state, bench.model, dev)}
 
 
 def train_state_specs(bench: Bench) -> Optional[Dict[str, Any]]:
     """The split of each leaf of :func:`train_state` over the model axis
     (the masters and moments split as their params; the step count and
-    the scaler replicated), or None for a serial model."""
+    the scaler replicated), or None for a serial model. ZeRO's global
+    chunk arrays are whole on every rank (None)."""
     if bench.model.cfg.axis is None:
         return None
     specs = bench.model.specs()
+    if bench.mp_opt.zero_axis is not None:
+        return {"params": None if bench.zero3 is not None else specs,
+                "opt": None}
     opt = train_state(bench, device="meta")["opt"]
     return {"params": specs, "opt": {
         "inner": {k: specs if isinstance(v, dict) else None
@@ -392,8 +482,16 @@ def train_state_specs(bench: Bench) -> Optional[Dict[str, Any]]:
 def load_train_state_(bench: Bench, tree: Dict[str, Any]) -> None:
     """Copy a ``{"params", "opt"}`` tree (this rank's shards) into the
     model and its optimizer state in place."""
-    load_tree_(bench.model, tree["params"])
-    amp.load_state_tree_(bench.opt_state, bench.model, tree["opt"])
+    mp = bench.mp_opt
+    if mp.zero_axis is None:
+        load_tree_(bench.model, tree["params"])
+        amp.load_state_tree_(bench.opt_state, bench.model, tree["opt"])
+        return
+    if bench.zero3 is not None:
+        mp.zero3_load_params_tree_(bench.zero3, bench.model, tree["params"])
+    else:
+        load_tree_(bench.model, tree["params"])
+    mp.zero_load_state_tree_(bench.opt_state, bench.model, tree["opt"])
 
 
 def batches(args, batch: int) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
@@ -474,6 +572,11 @@ def _run(args) -> Dict[str, Any]:
                 checkpoint.save_checkpoint(
                     args.save_dir, i + 1, train_state(bench, device=dev),
                     specs=specs)
+            elif bench.mp_opt.zero_axis is not None:
+                state = train_state(bench)  # ZeRO's chunks: all gather
+                if lead:
+                    checkpoint.save_checkpoint(args.save_dir, i + 1, state)
+                del state
             elif lead:  # the state is the same on every rank
                 checkpoint.save_checkpoint(args.save_dir, i + 1,
                                            train_state(bench))

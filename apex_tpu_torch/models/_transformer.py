@@ -41,12 +41,27 @@ checkpointed layer, and inverted hidden dropout draws from an explicit
 ``torch.Generator``. Both drives thread an additive attention bias (BERT's
 padding mask) through ``_layer``, ``_attention`` and ``_attend`` to
 ``flash_attention``, as the reference's ``run_layers`` does.
+
+ZeRO-3 (``run_layers_train(chunk_meta=...)``, ``_transformer.py:558-626``
+and ``_prefetched_zero3_drive``, ``:145-200``): the layers' parameters are
+this rank's chunks, and :class:`_Zero3Drive`, one autograd Function over
+the whole stack, all-gathers each layer's weights just in time, runs the
+layer with them swapped into its module (:func:`swap_params`) and frees
+them. Its backward gathers each layer again, recomputes the layer under
+autograd (always: the reference's level-3 body is rematerialized whatever
+``cfg.remat``) and reduce-scatters the layer's weight grads into chunk
+grads on the spot, so gathered weights are never saved. With
+``cfg.zero3_prefetch`` = N > 0 the gather of layer i + N is issued
+(``async_op=True``) before layer i computes, forward and backward. The
+flash kernels launch through ctypes inside the layer body like any other
+op; the attention's Function is simply part of the recomputed layer.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
+import contextlib
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -91,6 +106,121 @@ def _dots_context():
                 else CheckpointPolicy.PREFER_RECOMPUTE)
 
     return create_selective_checkpoint_contexts(policy)
+
+
+@contextlib.contextmanager
+def swap_params(module: nn.Module, tensors: Dict[str, torch.Tensor]):
+    """Within the block, each named parameter of ``module`` (``"qkv.kernel"``
+    style names) reads as the given tensor: a gathered ZeRO-3 weight, with
+    its own autograd history. The parameters are put back after."""
+    saved = []
+    try:
+        for name, t in tensors.items():
+            owner_name, _, attr = name.rpartition(".")
+            owner = module.get_submodule(owner_name) if owner_name \
+                else module
+            saved.append((owner, attr, owner._parameters[attr]))
+            owner._parameters[attr] = t
+        yield
+    finally:
+        for owner, attr, p in reversed(saved):
+            owner._parameters[attr] = p
+
+
+class _Zero3Drive(torch.autograd.Function):
+    """The ZeRO-3 layer drive (module docstring): ``forward(ctx, model,
+    meta, seeds, bias, h, *chunks)`` with the chunks flattened layer by
+    layer in ``meta.shapes`` order."""
+
+    @staticmethod
+    def forward(ctx, model, meta, seeds, bias, h, *chunks):
+        names = [list(row) for row in meta.shapes]
+        ctx.model, ctx.meta, ctx.seeds, ctx.bias = model, meta, seeds, bias
+        ctx.names = names
+        pf = max(int(getattr(model.cfg, "zero3_prefetch", 0) or 0), 0)
+        ctx.prefetch = pf
+        rows = _rows(names, chunks)
+        n = len(names)
+        window = [_gather_row(rows[j], meta, j)
+                  for j in range(min(pf, n))]
+        hs = []
+        for i in range(n):
+            if i + pf < n:  # layer i + pf's gather goes out first
+                window.append(_gather_row(rows[i + pf], meta, i + pf))
+            full = window.pop(0).wait()
+            hs.append(h)
+            with swap_params(model.layers[i], full):
+                h = model._train_layer(model.layers[i], seeds[i], h, bias)
+            del full
+        # the layers' inputs: the input itself, then intermediates
+        ctx.hs = hs[1:]
+        ctx.save_for_backward(hs[0], *chunks)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        from apex_tpu_torch.optimizers.distributed import scatter_grad
+
+        model, meta, names = ctx.model, ctx.meta, ctx.names
+        n = len(names)
+        saved = ctx.saved_tensors
+        hs, chunks = [saved[0], *ctx.hs], saved[1:]
+        rows = _rows(names, chunks)
+        order = list(reversed(range(n)))
+        pf = ctx.prefetch
+        window = [_gather_row(rows[j], meta, j)
+                  for j in order[:min(pf, n)]]
+        grads: List[Optional[torch.Tensor]] = [None] * len(chunks)
+        offsets = _row_offsets(names)
+        for pos, i in enumerate(order):
+            if pos + pf < n:  # the re-gather pf layers ahead of the sweep
+                window.append(_gather_row(rows[order[pos + pf]], meta,
+                                          order[pos + pf]))
+            full = {k: v.detach().requires_grad_(True)
+                    for k, v in window.pop(0).wait().items()}
+            x = hs[i].detach().requires_grad_(True)
+            with torch.enable_grad(), swap_params(model.layers[i], full):
+                out = model._train_layer(model.layers[i], ctx.seeds[i], x,
+                                         ctx.bias)
+            got = torch.autograd.grad(out, [x, *full.values()], g,
+                                      allow_unused=True)
+            g, got = got[0], got[1:]
+            for j, (key, gp) in enumerate(zip(full, got)):
+                c = rows[i][key]
+                shape = meta.shapes[i][key]
+                if gp is None:
+                    gp = torch.zeros(shape.shape, dtype=shape.dtype,
+                                     device=c.device)
+                grads[offsets[i] + j] = scatter_grad(
+                    gp, c.numel(), c.dtype, meta.axis,
+                    meta.gather_dtype or shape.dtype)
+            del full, out
+        return (None, None, None, None, g, *grads)
+
+
+def _rows(names, chunks):
+    out, k = [], 0
+    for row in names:
+        out.append({key: chunks[k + j] for j, key in enumerate(row)})
+        k += len(row)
+    return out
+
+
+def _row_offsets(names):
+    out, k = [], 0
+    for row in names:
+        out.append(k)
+        k += len(row)
+    return out
+
+
+def _gather_row(row, meta, i):
+    """Issue the gathers of layer ``i``'s chunks (``.wait()`` for them)."""
+    from apex_tpu_torch.optimizers.distributed import gather_leaves_async
+
+    return gather_leaves_async(
+        {k: (c, meta.shapes[i][k]) for k, c in row.items()}, meta.axis,
+        meta.gather_dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -166,7 +296,8 @@ class TransformerLayer(nn.Module):
     """One layer's parameter tree (the reference's per-layer slice)."""
 
     def __init__(self, cfg, device, generator: torch.Generator,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False,
+                 comm_dtype: Optional[str] = None):
         super().__init__()
         c = cfg
         init = tp.scaled_normal(c.init_method_std)
@@ -176,7 +307,7 @@ class TransformerLayer(nn.Module):
             c.init_method_std / (2 * c.num_layers) ** 0.5)
         kw = dict(params_dtype=c.params_dtype, device=device,
                   generator=generator, axis=c.axis,
-                  sequence_parallel=sequence_parallel)
+                  sequence_parallel=sequence_parallel, comm_dtype=comm_dtype)
         self.ln1 = LayerNormParams(c.hidden_size, c.params_dtype, device)
         self.qkv = tp.ColumnParallelLinear(
             c.hidden_size, 3 * c.hidden_size, gather_output=False,
@@ -224,6 +355,22 @@ class TransformerBase(nn.Module):
         self.device = device
         # sequence parallelism rides the model axis; serial ignores it
         self._sp = bool(c.sequence_parallel) and c.axis is not None
+        # the quantized wire of the sequence-parallel conjugates
+        # (activation_comm_dtype, _transformer.py:243-263): ignored serial
+        # (the serial twin of a sharded config runs), and it needs SP
+        self._acd = getattr(c, "activation_comm_dtype", None)
+        if self._acd is not None:
+            from apex_tpu_torch.parallel.quantize import canon_wire_dtype
+
+            self._acd = canon_wire_dtype(self._acd)
+            if c.axis is None:
+                self._acd = None
+            elif not self._sp:
+                raise ValueError(
+                    "activation_comm_dtype requires sequence_parallel=True: "
+                    "the quantized wire dtype rides the sequence-parallel "
+                    "scatter/gather conjugates -- plain-TP all-reduces have "
+                    "no encode/decode seam")
         if c.axis is not None:
             _, tp_size = tp.mappings.axis_world(c.axis)
             tp.divide(c.num_attention_heads, tp_size)
@@ -235,11 +382,12 @@ class TransformerBase(nn.Module):
                     f"the sequence tp ways")
         self.embedding = tp.VocabParallelEmbedding(
             c.vocab_size, c.hidden_size, axis=c.axis,
-            sequence_parallel=self._sp, params_dtype=c.params_dtype,
+            sequence_parallel=self._sp, comm_dtype=self._acd,
+            params_dtype=c.params_dtype,
             init_method=tp.scaled_normal(c.init_method_std), device=device,
             generator=generator)
         self.layers = nn.ModuleList(
-            TransformerLayer(c, device, generator, self._sp)
+            TransformerLayer(c, device, generator, self._sp, self._acd)
             for _ in range(c.num_layers))
 
     def layer_stack_specs(self):
@@ -457,11 +605,23 @@ class TransformerBase(nn.Module):
 
     def run_layers_train(self, h: torch.Tensor,
                          dropout_generator: Optional[torch.Generator] = None,
-                         bias: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         bias: Optional[torch.Tensor] = None,
+                         chunk_meta=None) -> torch.Tensor:
         """The differentiable layer drive: each layer checkpointed when
         ``cfg.remat`` is set, under ``cfg.remat_policy`` (the bias one of
-        the checkpointed inputs)."""
+        the checkpointed inputs). ``chunk_meta`` (a ZeRO-3
+        :class:`~apex_tpu_torch.optimizers.distributed.ChunkedMeta` of the
+        layer stack, with its ``chunks``) drives the layers from this
+        rank's chunks through :class:`_Zero3Drive`."""
+        if chunk_meta is not None:
+            if bias is not None and bias.requires_grad:
+                raise NotImplementedError(
+                    "the ZeRO-3 drive takes an attention bias that needs no "
+                    "grad (a padding mask)")
+            chunks = [c for row in chunk_meta.chunks for c in row.values()]
+            return _Zero3Drive.apply(
+                self, chunk_meta, self._layer_seeds(dropout_generator),
+                bias, h, *chunks)
         policy = remat_policy(getattr(self.cfg, "remat_policy", None))
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer, seed in zip(self.layers,

@@ -84,10 +84,10 @@ def _check_slice(c: BertConfig) -> None:
                          "ring/Ulysses context parallelism with the padding "
                          "mask as segment ids (Queue 1 item 15)"),
         "unroll_layers": (c.unroll_layers,
-                          "the ZeRO-3 drives (Queue 1 item 11; the port's "
+                          "BERT under ZeRO (Queue 1 item 24; the port's "
                           "layer loop is a Python loop already)"),
         "zero3_prefetch": (bool(c.zero3_prefetch),
-                           "the ZeRO-3 prefetch drive (Queue 1 item 11)"),
+                           "BERT's ZeRO-3 drive (Queue 1 item 24)"),
     }
     for name, (on, where) in later.items():
         if on:

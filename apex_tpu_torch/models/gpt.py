@@ -32,7 +32,12 @@ the LN/dropout/residual regions on sequence shards (``models/
 _transformer.py``). The serving drives run at local heads and
 :meth:`GPTModel.serve_head` all-gathers the vocab-sharded logits, so every
 rank sees the same full-vocab logits (``gpt.py:522-535``); serving refuses
-sequence parallelism as the reference does. Context parallelism and MoE
+sequence parallelism as the reference does. Under ZeRO-3
+:meth:`GPTModel.loss` takes ``layer_chunk_meta`` and drives the layers from
+this rank's chunks, each gathered just in time (``GPTConfig.
+zero3_prefetch`` layers ahead; ``models/_transformer.py``), and
+``activation_comm_dtype`` quantizes the sequence-parallel conjugates'
+wire. Context parallelism and MoE
 FFNs are later slices and raise ``NotImplementedError``.
 """
 
@@ -71,6 +76,9 @@ class GPTConfig:
     # Megatron-style sequence parallelism on the model axis (ignored
     # serial); needs max_seq_len divisible by the tp size
     sequence_parallel: bool = False
+    # the quantized wire ("int8" | "e5m2") of the sequence-parallel
+    # conjugates (needs sequence_parallel; ignored serial)
+    activation_comm_dtype: Optional[str] = None
     params_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
     init_method_std: float = 0.02
@@ -84,6 +92,9 @@ class GPTConfig:
     remat_policy: Optional[str] = None  # None/"full" | "save_attn" | "dots"
     # vocab chunks of the fused LM-head CE (None: plain head + per-token CE)
     lm_head_chunks: Optional[int] = None
+    # ZeRO-3 gather prefetch depth: layer i + N's gather is issued before
+    # layer i computes, forward and backward (0: gather just in time)
+    zero3_prefetch: int = 0
 
     @property
     def ffn(self) -> int:
@@ -216,7 +227,8 @@ class GPTModel(TransformerBase):
             return lm_head_cross_entropy(x, wte, targets, c.lm_head_chunks)
         if c.axis is not None:
             if self._sp:
-                x = tp.gather_from_sequence_parallel_region(x, c.axis)
+                x = tp.gather_from_sequence_parallel_region(
+                    x, c.axis, True, self._acd)
             else:
                 x = tp.copy_to_tensor_model_parallel_region(x, c.axis)
         logits = x @ tp.cast_param(wte, x.dtype).t()
@@ -226,22 +238,28 @@ class GPTModel(TransformerBase):
 
     def forward(self, tokens: torch.Tensor,
                 targets: Optional[torch.Tensor] = None,
-                dropout_generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                dropout_generator: Optional[torch.Generator] = None,
+                layer_chunk_meta=None) -> torch.Tensor:
         """Differentiable forward (the reference's ``apply``): per-token
         fp32 loss ``(b, s)`` with ``targets``, logits without. Hidden
-        dropout runs only with a ``dropout_generator``."""
+        dropout runs only with a ``dropout_generator``.
+        ``layer_chunk_meta`` (``Zero3Setup.layer_chunk_meta()``) drives the
+        ZeRO-3 path: the layers run from their chunks, each gathered just
+        in time; the other params must be in place (gathered: the step
+        builder's job, ``transformer.amp.build_zero_train_step``)."""
         tokens = tokens.to(self.device)
         if targets is not None:
             targets = targets.to(self.device)
-        h = self.run_layers_train(self.embed(tokens), dropout_generator)
+        h = self.run_layers_train(self.embed(tokens), dropout_generator,
+                                  chunk_meta=layer_chunk_meta)
         return self.head(h, targets)
 
     def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
-             dropout_generator: Optional[torch.Generator] = None
-             ) -> torch.Tensor:
+             dropout_generator: Optional[torch.Generator] = None,
+             layer_chunk_meta=None) -> torch.Tensor:
         """Mean per-token loss (``gpt.py:537-542``)."""
-        return self.forward(tokens, targets, dropout_generator).mean()
+        return self.forward(tokens, targets, dropout_generator,
+                            layer_chunk_meta).mean()
 
     @torch.no_grad()
     def apply(self, tokens: torch.Tensor) -> torch.Tensor:

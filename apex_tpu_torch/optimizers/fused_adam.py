@@ -26,7 +26,9 @@ class FusedAdamState(NamedTuple):
 class FusedAdam:
     """``init(params) -> state``; ``update_(params, grads, state, lr=None)
     -> state`` steps ``params`` in place and returns the new state (the
-    moment tensors are updated in place too)."""
+    moment tensors are updated in place too); ``updates(...)`` returns the
+    fp32 updates with the new state and leaves ``params`` as they are
+    (optax's ``update``, which ``optimizers.distributed`` gathers)."""
 
     def __init__(self, lr: float = 1e-3, bias_correction: bool = True,
                  betas: Tuple[float, float] = (0.9, 0.999),
@@ -50,6 +52,15 @@ class FusedAdam:
     def update_(self, params: Sequence[torch.Tensor],
                 grads: Sequence[torch.Tensor], state: FusedAdamState,
                 lr: Optional[float] = None) -> FusedAdamState:
+        upd, state = self.updates(params, grads, state, lr)
+        apply_updates_(params, upd)
+        return state
+
+    @torch.no_grad()
+    def updates(self, params: Sequence[torch.Tensor],
+                grads: Sequence[torch.Tensor], state: FusedAdamState,
+                lr: Optional[float] = None
+                ) -> Tuple[List[torch.Tensor], FusedAdamState]:
         beta1, beta2 = self.betas
         step = state.step + 1
         lr = self.lr if lr is None else lr
@@ -76,5 +87,4 @@ class FusedAdam:
         torch._foreach_mul_(upd, -lr)
         if self.adam_w_mode and wd != 0.0:
             torch._foreach_add_(upd, p32, alpha=-lr * wd)
-        apply_updates_(params, upd)
-        return FusedAdamState(step, m, v)
+        return upd, FusedAdamState(step, m, v)

@@ -10,8 +10,12 @@ _common.lamb_leaf_update`). The moments and the arithmetic are fp32, in
 ``torch._foreach_*`` passes over the param list (the reference's update is
 one XLA computation, not a Pallas kernel), in the ``init`` / ``update_``
 shape of ``FusedAdam`` so ``amp.MixedPrecisionOptimizer`` takes it as it
-is. ``adam_w_mode=False`` raises as in the reference; ``norm_psum_axis``
-(the ZeRO-sharded norms) raises: ROADMAP Queue 1 item 11.
+is. ``adam_w_mode=False`` raises as in the reference.
+
+``norm_psum_axis`` (ZeRO, ``optimizers.distributed``): every leaf is this
+rank's 1-D chunk of a tensor sharded over that mesh axis, so the squared
+norms of every leaf -- the global clip norm's and each trust ratio's --
+are summed over the axis (``fused_lamb.py:46-60``).
 
 Under tensor parallelism a leaf may be this rank's shard of a tensor split
 over the model axis: ``update_(..., sharded=flags, axis="model")`` sums
@@ -55,10 +59,6 @@ class FusedLAMB:
             raise RuntimeError("FusedLAMB only supports adam_w_mode "
                                "(decoupled wd), as the reference kernel "
                                "does.")
-        if norm_psum_axis is not None:
-            raise NotImplementedError(
-                f"FusedLAMB(norm_psum_axis={norm_psum_axis!r}): the norms of "
-                f"ZeRO-sharded leaves come with ROADMAP Queue 1 item 11")
         self.lr = lr
         self.bias_correction = bias_correction
         self.betas = betas
@@ -67,6 +67,7 @@ class FusedLAMB:
         self.grad_averaging = grad_averaging
         self.max_grad_norm = max_grad_norm
         self.use_nvlamb = use_nvlamb
+        self.norm_psum_axis = norm_psum_axis
 
     def init(self, params: Sequence[torch.Tensor]) -> FusedLAMBState:
         return FusedLAMBState(0, tree_zeros_like(params),
@@ -78,6 +79,18 @@ class FusedLAMB:
                 lr: Optional[float] = None,
                 sharded: Optional[Sequence[bool]] = None,
                 axis: Optional[str] = None) -> FusedLAMBState:
+        upd, state = self.updates(params, grads, state, lr, sharded, axis)
+        apply_updates_(params, upd)
+        return state
+
+    @torch.no_grad()
+    def updates(self, params: Sequence[torch.Tensor],
+                grads: Sequence[torch.Tensor], state: FusedLAMBState,
+                lr: Optional[float] = None,
+                sharded: Optional[Sequence[bool]] = None,
+                axis: Optional[str] = None
+                ) -> Tuple[List[torch.Tensor], FusedLAMBState]:
+        """The fp32 updates and the new state; ``params`` unchanged."""
         beta1, beta2 = self.betas
         step = state.step + 1
         lr = self.lr if lr is None else lr
@@ -88,8 +101,9 @@ class FusedLAMB:
             bc1 = bc2 = 1.0
         g32 = [g.float() for g in grads]
         reduce = None
-        if axis is not None and sharded is not None and any(sharded):
-            reduce = _sumsq_reduce(sharded, axis)
+        if (axis is not None and sharded is not None and any(sharded)) \
+                or self.norm_psum_axis is not None:
+            reduce = _sumsq_reduce(sharded, axis, self.norm_psum_axis)
         if self.max_grad_norm and self.max_grad_norm > 0 and g32:
             # phase 1: the global norm and the clip factor, on the device
             if reduce is None:
@@ -106,16 +120,21 @@ class FusedLAMB:
             bc1=bc1, bc2=bc2, eps=self.eps, weight_decay=self.weight_decay,
             use_nvlamb=self.use_nvlamb, sumsq_reduce=reduce)
         torch._foreach_mul_(upd, -lr)
-        apply_updates_(params, upd)
-        return FusedLAMBState(step, state.exp_avg, state.exp_avg_sq)
+        return upd, FusedLAMBState(step, state.exp_avg, state.exp_avg_sq)
 
 
-def _sumsq_reduce(sharded: Sequence[bool], axis: str):
-    """Per-leaf squared norms -> those of the whole tensors: the flagged
-    entries summed over ``axis`` (one all-reduce of the vector)."""
+def _sumsq_reduce(sharded: Optional[Sequence[bool]], axis: Optional[str],
+                  psum_axis: Optional[str] = None):
+    """Per-leaf squared norms -> those of the whole tensors: every entry
+    summed over ``psum_axis`` (the ZeRO chunks), then the flagged entries
+    over ``axis`` (one all-reduce of the vector each)."""
     from apex_tpu_torch.parallel import collectives
 
     def reduce(sq: torch.Tensor) -> torch.Tensor:
+        if psum_axis is not None:
+            sq = collectives.psum(sq, psum_axis)
+        if axis is None or sharded is None or not any(sharded):
+            return sq
         mask = torch.tensor(list(sharded), device=sq.device)
         return torch.where(mask, collectives.psum(sq, axis), sq)
 

@@ -13,7 +13,7 @@ the fp32 masters.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -28,7 +28,8 @@ class FusedSGDState(NamedTuple):
 class FusedSGD:
     """``init(params) -> state``; ``update_(params, grads, state, lr=None)
     -> state`` steps ``params`` in place and returns the new state (the
-    momentum buffers are updated in place too)."""
+    momentum buffers are updated in place too); ``updates(...)`` returns
+    the updates and the new state instead."""
 
     def __init__(self, lr: float = 1e-3, momentum: float = 0.0,
                  dampening: float = 0.0, weight_decay: float = 0.0,
@@ -50,6 +51,16 @@ class FusedSGD:
     def update_(self, params: Sequence[torch.Tensor],
                 grads: Sequence[torch.Tensor], state: FusedSGDState,
                 lr: Optional[float] = None) -> FusedSGDState:
+        upd, state = self.updates(params, grads, state, lr)
+        apply_updates_(params, upd)
+        return state
+
+    @torch.no_grad()
+    def updates(self, params: Sequence[torch.Tensor],
+                grads: Sequence[torch.Tensor], state: FusedSGDState,
+                lr: Optional[float] = None
+                ) -> Tuple[List[torch.Tensor], FusedSGDState]:
+        """The fp32 updates and the new state; ``params`` unchanged."""
         lr = self.lr if lr is None else lr
         wd, mom = self.weight_decay, self.momentum
         d = [g.float() for g in grads]
@@ -67,5 +78,5 @@ class FusedSGD:
                 else list(buf)
         if wd != 0.0 and self.wd_after_momentum:
             d = torch._foreach_add(d, p32, alpha=wd)
-        apply_updates_(params, torch._foreach_mul(d, -lr))
-        return FusedSGDState(state.step + 1, buf)
+        return torch._foreach_mul(d, -lr), FusedSGDState(state.step + 1,
+                                                         buf)

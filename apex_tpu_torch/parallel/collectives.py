@@ -273,10 +273,16 @@ def all_to_all(x: torch.Tensor, axis: AxisNames, *, split_axis: int,
                          f"{tuple(x.shape)} does not divide by {n}")
     if pg is None:
         return x.clone()
-    send = _in_group_order(ranks, [b.contiguous()
-                                   for b in x.chunk(n, dim=split_axis)])
-    got = [torch.empty_like(b) for b in send]
-    _run("all_to_all", axis, pg, lambda: dist.all_to_all(got, send, group=pg))
+    # one flat buffer of equal blocks through all_to_all_single: gloo has
+    # no list all_to_all in every release (PyTorch 2.11's refuses it), and
+    # every backend takes the single form
+    blocks = _in_group_order(ranks, [b.contiguous()
+                                     for b in x.chunk(n, dim=split_axis)])
+    send = torch.cat([b.reshape(-1) for b in blocks])
+    recv = torch.empty_like(send)
+    _run("all_to_all", axis, pg,
+         lambda: dist.all_to_all_single(recv, send, group=pg))
+    got = [r.view(blocks[0].shape) for r in recv.view(n, -1).unbind(0)]
     return torch.cat(_in_axis_order(ranks, got), dim=concat_axis)
 
 

@@ -8,18 +8,24 @@ model-parallel group so every TP/PP rank takes the same skip decision
 ``MixedPrecisionOptimizer.apply_gradients(found_inf_reducer=...)``, which
 applies it on the card before the step's one host read of the flag.
 
-``build_zero_train_step`` (the ZeRO-sharded train step, ``amp.py:60``)
-comes with ZeRO, ROADMAP Queue 1 item 11.
+:func:`build_zero_train_step` (``amp.py:60-401``) is the ZeRO train step:
+the micro-batched backward, the spec-aware reduction over every axis but
+the zero axis (whose reduce-scatter inside the sharded optimizer IS the
+data-parallel reduction), then the sharded step with the overflow flag
+voted over the model and pipeline axes. At level 3 it gathers the
+non-layer params once a micro-batch and drives the layers from their
+chunks (``GPTModel.loss(layer_chunk_meta=)``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from apex_tpu_torch.parallel import collectives
-from apex_tpu_torch.parallel.mesh import AXIS_MODEL, AXIS_PIPE, AxisNames
+from apex_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_MODEL, AXIS_PIPE,
+                                          AxisNames)
 
 
 def model_parallel_found_inf_reducer(
@@ -48,3 +54,165 @@ class MeshGradScaler:
         self.axes = (axes,) if isinstance(axes, str) else tuple(axes)
         self.found_inf_reducer = model_parallel_found_inf_reducer(self.axes)
 
+
+
+def microbatched_backward(loss_fn: Callable[[torch.Tensor, torch.Tensor],
+                                            torch.Tensor],
+                          leaves: Sequence[torch.Tensor], mp_opt, state,
+                          tokens: torch.Tensor, targets: torch.Tensor,
+                          num_microbatches: int) -> torch.Tensor:
+    """The loss of ``pipelined_loss_fn`` at one stage: each of the M
+    micro-batches' mean loss ``loss_fn(tokens, targets)``, scaled by the
+    loss scale over M, runs its own backward, so the ``.grad`` of
+    ``leaves`` sums to the batch mean's. With M > 1 each micro-batch's
+    grads are added into fp32 buffers and the sum is rounded once to each
+    leaf's dtype. Returns the batch mean (detached)."""
+    if tokens.shape[0] % num_microbatches:
+        raise ValueError(f"batch ({tokens.shape[0]}) must divide by "
+                         f"microbatches ({num_microbatches})")
+    leaves = list(leaves)
+    acc = total = None
+    for tok, tgt in zip(tokens.chunk(num_microbatches),
+                        targets.chunk(num_microbatches)):
+        loss = loss_fn(tok, tgt)
+        mp_opt.scale_loss(loss / num_microbatches, state).backward()
+        loss = loss.detach()
+        total = loss if total is None else total + loss
+        if num_microbatches > 1:
+            if acc is None:  # fp32 copies; an fp32 grad is kept as it is
+                acc = [p.grad.float() for p in leaves]
+            else:
+                for a, p in zip(acc, leaves):
+                    a.add_(p.grad)
+            for p in leaves:
+                p.grad = None
+    if acc is not None:
+        for p, a in zip(leaves, acc):
+            p.grad = a.to(p.dtype)
+    return total / num_microbatches
+
+
+def _param_specs(model) -> List[Any]:
+    from apex_tpu_torch.amp.frontend import _specs_of
+
+    return _specs_of(model, len(list(model.parameters())))
+
+
+def build_zero_train_step(
+    mp_opt,
+    model,
+    opt_state,
+    *,
+    num_microbatches: int = 1,
+    grad_axes: Optional[Tuple[str, ...]] = None,
+    zero_axis: str = AXIS_DATA,
+    zero3=None,
+    offload=None,
+    virtual_pipeline_size: int = 1,
+    with_aux: bool = False,
+    traced: bool = False,
+    tracer=None,
+    pipe_value_and_grad=None,
+):
+    """The ZeRO train step of a GPT-style ``model`` (``loss(tokens,
+    targets, layer_chunk_meta=)``), ``amp.py:60-401`` in PyTorch's idiom:
+    ``train_step(tokens, targets) -> (loss, metrics)`` on THIS rank's rows.
+    The M micro-batches' backward (:func:`microbatched_backward`), then the
+    grads reduced by their params' specs over ``grad_axes`` (default the
+    mesh's gradient-reduction axes) less ``zero_axis`` -- the sharded
+    optimizer's reduce-scatter is the reduction over it -- then
+    ``mp_opt.apply_gradients`` with the overflow flag voted over the model
+    and pipeline axes (:class:`MeshGradScaler`). The loss is the
+    ``pmean`` over ``grad_axes``. ``opt_state`` is ``mp_opt.init(model)``'s
+    (levels 1/2) or ``zero3.opt_state``.
+
+    At ``mp_opt.zero_level`` 3 pass ``zero3`` (``mp_opt.zero3_init(model)``):
+    each micro-batch gathers the non-layer params (their grads come back as
+    reduced chunks through the gathers' adjoints), the layers run from
+    their chunks, and the step finishes on the chunks with no gather.
+    ``offload`` (a :class:`~apex_tpu_torch.optimizers.offload.
+    HostOffloadedZero` over ``mp_opt``, levels 1/2) steps through the
+    host-offloaded buckets instead; ``opt_state`` is then its
+    ``HostOffloadState``.
+
+    The pipeline arguments (``num_microbatches`` across stages is the
+    stage-local M here; ``virtual_pipeline_size`` > 1 and
+    ``pipe_value_and_grad``) raise ``NotImplementedError``: ROADMAP Queue 1
+    item 12. ``traced`` / ``tracer`` (the span anatomy) raise: item 21.
+    ``with_aux`` (MoE router losses) raises: item 16."""
+    from apex_tpu_torch.models._transformer import swap_params
+    from apex_tpu_torch.parallel import mesh
+    from apex_tpu_torch.parallel.distributed import (
+        allreduce_gradients_by_spec,
+    )
+
+    if virtual_pipeline_size != 1 or pipe_value_and_grad is not None:
+        raise NotImplementedError(
+            "build_zero_train_step: the pipeline schedules (virtual_pipeline"
+            "_size, pipe_value_and_grad) come with ROADMAP Queue 1 item 12")
+    if traced or tracer is not None:
+        raise NotImplementedError(
+            "build_zero_train_step(traced=/tracer=): the zero.grads / "
+            "zero.apply spans come with monitor/ (ROADMAP Queue 1 item 21)")
+    if with_aux:
+        raise NotImplementedError(
+            "build_zero_train_step(with_aux=True): MoE router losses come "
+            "with ROADMAP Queue 1 item 16")
+    if mesh.model_parallel_is_initialized() \
+            and mesh.get_pipeline_model_parallel_world_size() > 1:
+        raise NotImplementedError(
+            "build_zero_train_step over a pipeline axis: ROADMAP Queue 1 "
+            "item 12")
+    level3 = getattr(mp_opt, "zero_level", 2) >= 3
+    if level3 and zero3 is None:
+        raise ValueError(
+            "zero_level=3 needs zero3=(mp_opt.zero3_init(model)) -- the "
+            "builder drives the layers from their chunks")
+    if grad_axes is None:
+        grad_axes = mesh.get_gradient_reduction_axes()
+    nonzero_axes = tuple(a for a in grad_axes if a != zero_axis)
+    specs = _param_specs(model)
+    reducer = MeshGradScaler().found_inf_reducer
+
+    def reduce_nonzero(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        if not nonzero_axes:
+            return grads
+        return allreduce_gradients_by_spec(grads, specs,
+                                           data_axes=nonzero_axes)
+
+    if level3:
+        leaves = zero3.params
+        layer_meta = zero3.layer_chunk_meta()
+        rest_meta = zero3.rest_meta()
+
+        def loss_fn(tok, tgt):
+            from apex_tpu_torch.optimizers.distributed import (
+                gather_chunked_tree,
+            )
+
+            rest = gather_chunked_tree(rest_meta.chunks, rest_meta)
+            with swap_params(model, rest):
+                return model.loss(tok, tgt, layer_chunk_meta=layer_meta)
+    else:
+        leaves = list(model.parameters())
+
+        def loss_fn(tok, tgt):
+            return model.loss(tok, tgt)
+
+    def train_step(tokens: torch.Tensor, targets: torch.Tensor):
+        tokens = tokens.to(model.device)
+        targets = targets.to(model.device)
+        loss = microbatched_backward(loss_fn, leaves, mp_opt, opt_state,
+                                     tokens, targets, num_microbatches)
+        grads = reduce_nonzero([p.grad if p.grad is not None
+                                else torch.zeros_like(p) for p in leaves])
+        for p in leaves:
+            p.grad = None
+        if offload is not None:
+            metrics = offload.apply_gradients(opt_state, leaves, grads)
+        else:
+            metrics = mp_opt.apply_gradients(opt_state, leaves, grads,
+                                             found_inf_reducer=reducer)
+        return collectives.pmean(loss, grad_axes), metrics
+
+    return train_step

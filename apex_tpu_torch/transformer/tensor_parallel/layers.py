@@ -119,7 +119,7 @@ def _check_flags(sequence_parallel: bool, comm_dtype: Optional[str],
             "comm_dtype only applies with sequence_parallel=True: the "
             "plain-TP path has no scatter/gather conjugate to quantize "
             "(mappings.py table 2)")
-    mappings.check_comm_dtype(comm_dtype)
+    return mappings.check_comm_dtype(comm_dtype)
 
 
 class ColumnParallelLinear(nn.Module):
@@ -138,8 +138,9 @@ class ColumnParallelLinear(nn.Module):
                  init_method: Optional[Callable] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_flags(sequence_parallel, comm_dtype,
-                     "gather_output=False" if gather_output else None)
+        self.comm_dtype = _check_flags(
+            sequence_parallel, comm_dtype,
+            "gather_output=False" if gather_output else None)
         self.axis, self.gather_output = axis, gather_output
         self.skip_bias_add = skip_bias_add
         self.sequence_parallel = sequence_parallel
@@ -159,7 +160,8 @@ class ColumnParallelLinear(nn.Module):
         axis = self.axis
         if axis is not None:
             if self.sequence_parallel:
-                x = mappings.gather_from_sequence_parallel_region(x, axis)
+                x = mappings.gather_from_sequence_parallel_region(
+                    x, axis, True, self.comm_dtype)
             else:
                 x = mappings.copy_to_tensor_model_parallel_region(x, axis)
         y = x @ cast_param(self.kernel, x.dtype)
@@ -192,8 +194,9 @@ class RowParallelLinear(nn.Module):
                  init_method: Optional[Callable] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_flags(sequence_parallel, comm_dtype,
-                     None if input_is_parallel else "input_is_parallel=True")
+        self.comm_dtype = _check_flags(
+            sequence_parallel, comm_dtype,
+            None if input_is_parallel else "input_is_parallel=True")
         self.axis, self.input_is_parallel = axis, input_is_parallel
         self.skip_bias_add = skip_bias_add
         self.sequence_parallel = sequence_parallel
@@ -218,7 +221,7 @@ class RowParallelLinear(nn.Module):
         if axis is not None:
             if self.sequence_parallel:
                 y = mappings.reduce_scatter_to_sequence_parallel_region(
-                    y, axis)
+                    y, axis, self.comm_dtype)
             else:
                 y = mappings.reduce_from_tensor_model_parallel_region(y,
                                                                       axis)
@@ -250,7 +253,7 @@ class VocabParallelEmbedding(nn.Module):
                  init_method: Optional[Callable] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_flags(sequence_parallel, comm_dtype)
+        self.comm_dtype = _check_flags(sequence_parallel, comm_dtype)
         self.axis, self.sequence_parallel = axis, sequence_parallel
         self.embedding = _shard_param(
             (num_embeddings, embedding_dim), 0, axis, params_dtype, device,
@@ -271,7 +274,7 @@ class VocabParallelEmbedding(nn.Module):
         out = out.masked_fill(~in_range[..., None], 0)
         if self.sequence_parallel:
             return mappings.reduce_scatter_to_sequence_parallel_region(
-                out, self.axis)
+                out, self.axis, self.comm_dtype)
         return mappings.reduce_from_tensor_model_parallel_region(out,
                                                                  self.axis)
 

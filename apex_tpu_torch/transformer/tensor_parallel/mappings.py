@@ -30,9 +30,13 @@ plain slice, for call sites whose cotangent is already replicated across
 the group (after a ``copy_to``), where a reduce-scatter would count it
 ``tp`` times.
 
-Slices are contiguous copies (the reference's ``_split``). A ``comm_dtype``
-other than None (the quantized wire of ``parallel/quantize.py``) raises:
-it comes with ROADMAP Queue 1 item 11. Every conjugate needs the topology
+Slices are contiguous copies (the reference's ``_split``). ``comm_dtype``
+("int8" | "e5m2", default None = exact) routes the sequence-parallel
+conjugates' all-gathers and reduce-scatters, forward and backward, through
+the encode / all-to-all / decode pairs of :mod:`apex_tpu_torch.parallel.
+quantize` (1 byte an element plus a per-shard fp32 scale; activations
+carry no error-feedback residual: fresh values every step, so the
+per-shard scales bound the error). Every conjugate needs the topology
 installed (:func:`apex_tpu_torch.parallel.initialize_model_parallel`); at
 one rank without ``torch.distributed`` each collective is the identity.
 """
@@ -65,12 +69,12 @@ def axis_world(axis: str) -> Tuple[int, int]:
     return _coll.axis_rank(axis), _coll.axis_size(axis)
 
 
-def check_comm_dtype(comm_dtype: Optional[str]) -> None:
-    if comm_dtype is not None:
-        raise NotImplementedError(
-            f"comm_dtype={comm_dtype!r}: the quantized wire of the "
-            f"sequence-parallel conjugates (parallel/quantize.py) is not in "
-            f"the port yet; it comes with ROADMAP Queue 1 item 11")
+def check_comm_dtype(comm_dtype: Optional[str]) -> Optional[str]:
+    """``comm_dtype`` as its canonical wire name (None stays None); an
+    unknown dtype raises ``ValueError``."""
+    from apex_tpu_torch.parallel.quantize import canon_wire_dtype
+
+    return canon_wire_dtype(comm_dtype)
 
 
 def _local_slice(x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
@@ -88,6 +92,29 @@ def _gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
 
 def _reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
     return _coll.reduce_scatter(x, axis, scatter_axis=dim % x.dim())
+
+
+def _seq_all_gather(x: torch.Tensor, axis: str,
+                    comm_dtype: Optional[str]) -> torch.Tensor:
+    """The sequence all-gather at its wire dtype (``mappings.py:163``)."""
+    if comm_dtype is None:
+        return _gather(x, axis, _SEQ_DIM)
+    from apex_tpu_torch.parallel.quantize import quantized_all_gather
+
+    return quantized_all_gather(x.contiguous(), axis, comm_dtype,
+                                gather_dim=_SEQ_DIM)
+
+
+def _seq_reduce_scatter(x: torch.Tensor, axis: str,
+                        comm_dtype: Optional[str]) -> torch.Tensor:
+    """The sequence reduce-scatter at its wire dtype, summed in fp32 after
+    decode on the quantized wire (``mappings.py:176``)."""
+    if comm_dtype is None:
+        return _reduce_scatter(x, axis, _SEQ_DIM)
+    from apex_tpu_torch.parallel.quantize import quantized_psum_scatter
+
+    return quantized_psum_scatter(x.contiguous(), axis, comm_dtype,
+                                  scatter_dim=_SEQ_DIM)
 
 
 class _CopyToModelParallelRegion(torch.autograd.Function):
@@ -135,37 +162,39 @@ class _GatherFromModelParallelRegion(torch.autograd.Function):
 
 class _ScatterToSequenceParallelRegion(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
+    def forward(ctx, x, axis, comm_dtype):
+        ctx.axis, ctx.wire = axis, comm_dtype
         return _local_slice(x, axis, _SEQ_DIM)
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, ctx.axis, _SEQ_DIM), None
+        return _seq_all_gather(g, ctx.axis, ctx.wire), None, None
 
 
 class _GatherFromSequenceParallelRegion(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, tensor_parallel_output_grad):
+    def forward(ctx, x, axis, tensor_parallel_output_grad, comm_dtype):
         ctx.axis, ctx.reduce = axis, tensor_parallel_output_grad
-        return _gather(x, axis, _SEQ_DIM)
+        ctx.wire = comm_dtype
+        return _seq_all_gather(x, axis, comm_dtype)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.reduce:
-            return _reduce_scatter(g, ctx.axis, _SEQ_DIM), None, None
-        return _local_slice(g, ctx.axis, _SEQ_DIM), None, None
+            return (_seq_reduce_scatter(g, ctx.axis, ctx.wire), None, None,
+                    None)
+        return _local_slice(g, ctx.axis, _SEQ_DIM), None, None, None
 
 
 class _ReduceScatterToSequenceParallelRegion(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
-        return _reduce_scatter(x, axis, _SEQ_DIM)
+    def forward(ctx, x, axis, comm_dtype):
+        ctx.axis, ctx.wire = axis, comm_dtype
+        return _seq_reduce_scatter(x, axis, comm_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, ctx.axis, _SEQ_DIM), None
+        return _seq_all_gather(g, ctx.axis, ctx.wire), None, None
 
 
 def copy_to_tensor_model_parallel_region(x: torch.Tensor,
@@ -209,8 +238,8 @@ def scatter_to_sequence_parallel_region(x: torch.Tensor,
                                         ) -> torch.Tensor:
     """This rank's sequence chunk forward, all-gather backward: the entry
     into a sequence-sharded region from a replicated tensor."""
-    check_comm_dtype(comm_dtype)
-    return _ScatterToSequenceParallelRegion.apply(x, axis)
+    return _ScatterToSequenceParallelRegion.apply(
+        x, axis, check_comm_dtype(comm_dtype))
 
 
 def gather_from_sequence_parallel_region(
@@ -221,10 +250,10 @@ def gather_from_sequence_parallel_region(
     partial per-rank cotangents (the pre-GEMM gather of a sequence-parallel
     column linear), or slices an already replicated one with
     ``tensor_parallel_output_grad=False``."""
-    check_comm_dtype(comm_dtype)
+    wire = check_comm_dtype(comm_dtype)
     axis_world(axis)
     return _GatherFromSequenceParallelRegion.apply(
-        x, axis, bool(tensor_parallel_output_grad))
+        x, axis, bool(tensor_parallel_output_grad), wire)
 
 
 def reduce_scatter_to_sequence_parallel_region(
@@ -233,6 +262,6 @@ def reduce_scatter_to_sequence_parallel_region(
     """Reduce-scatter the sequence forward, all-gather backward: the
     row-parallel psum under sequence parallelism, whose output lands
     sequence-sharded."""
-    check_comm_dtype(comm_dtype)
+    wire = check_comm_dtype(comm_dtype)
     axis_world(axis)
-    return _ReduceScatterToSequenceParallelRegion.apply(x, axis)
+    return _ReduceScatterToSequenceParallelRegion.apply(x, axis, wire)

@@ -12,8 +12,9 @@
     python3 chip_smoke.py --contrib   # the build, then phase 13 alone
     python3 chip_smoke.py --dp   # the build, then phase 14 alone
     python3 chip_smoke.py --tp   # the build, then phase 15 alone
+    python3 chip_smoke.py --zero   # the build, then phase 16 alone
 
-Fifteen phases; any failure raises and exits non-zero:
+Sixteen phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
@@ -225,9 +226,10 @@ Fifteen phases; any failure raises and exits non-zero:
    native host runtime (``csrc.available()``, a flatten round trip).
 12. **The convergence probe, the rest of the optimizers and the legacy
    APIs** (:func:`optimizers_and_legacy`): (a) ``python -m
-   apex_tpu_torch.benchmarks.convergence_probe`` at its defaults (GPT-2
-   345M O2, 600 steps of 2 x 512 tokens, lr 3e-4 warmed up over 50 steps;
-   the CPU replay in a subprocess cut to 3 steps): exit 0, final loss <=
+   apex_tpu_torch.benchmarks.convergence_probe`` at GPT-2 345M O2, 2 x
+   512 tokens, lr 3e-4 warmed up over 50 steps, cut to 300 steps (its
+   default 600) and a CPU replay of 2 (:data:`PROBE_ARGS`, to leave room
+   for phase 16): exit 0, final loss <=
    6.0, the replay with no error within 0.05, the exact launch counts
    (path ``probe``); (b) ``FusedMixedPrecisionLamb`` beside
    ``MixedPrecisionOptimizer(FusedLAMB)`` at BERT-large (16 x 512, O2, 5
@@ -292,6 +294,21 @@ Fifteen phases; any failure raises and exits non-zero:
    monolithic and with the prefix cache and spec_k 4 (every token against
    the TP model's full-context argmax and the serial engine's tokens, 8 kv
    heads a rank); then #9 / #10 fp32 at 8 heads, times only.
+16. **ZeRO** (:func:`zero_phase`): (a) NCCL at world size 1 in this
+   process: ``pretrain_gpt`` at 345M (8 x 1024, O2) with ``--zero-level``
+   1, 2 and 3, level 3 with ``--zero3-prefetch 1``, and
+   ``--offload-optimizer --offload-buckets 2``, 3 steps each, losses and
+   params after each step bit for bit the serial run's; ``BENCH_ZERO=1``'s
+   O2 step against the bench's (step 1 bit for bit, the fp32 LayerNorm
+   params at the bf16 gather's rounding; step 2's loss). (b) Two gloo
+   ranks on the one card (host-staged: correctness only), spawned before
+   (a): at 345M a 16-row batch, DP, then ZeRO-1, ZeRO-2 (against DP),
+   ZeRO-3 (against ZeRO-2) and offload (bit for bit ZeRO-2), params equal
+   on both ranks; at 345M width with 4 layers the bf16 param gather and
+   the int8 and e5m2 grad wires tracking the fp32 wire, offload bit for
+   bit, and an inf in rank 1's grads alone skipping the step on both
+   ranks with masters, moments and residual unchanged; each run's peak
+   memory per rank (``torch.cuda.max_memory_allocated``, reported).
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -303,7 +320,8 @@ each counted from 0, phase 8's BERT run (``bert``), phase 9's (``fmha``)
 and phase 10's (``gpt_pretrain``, ``gpt_pretrain_o0``, ``gpt_remat_*``,
 ``gpt_generate*``, ``gpt_pretrain_o0_long``), phase 11's (``bench``) and
 phase 12's (``probe``), phase 13's (``contrib``), phase 14's (``dp``:
-(a)'s runs and both ranks' of (b)) and phase 15's (``tp``: the same);
+(a)'s runs and both ranks' of (b)), phase 15's (``tp``: the same) and
+phase 16's (``zero``: the same);
 ``by_shape`` also holds phase 10's fp32 times and phase 15's at 8 heads;
 ``segments``: phase 9's times on #1-#6; ``launches``:
 their sum; ``bias_route``: #1, #5 and #6 with and without the bias;
@@ -6244,11 +6262,13 @@ def bench_harness(torch, ops, dev):
 # APIs
 # ---------------------------------------------------------------------------
 
-#: the probe's arguments beyond its defaults (GPT-2 345M, 600 steps of 2 x
-#: 512 tokens, lr 3e-4 warmed up over 50 steps): the CPU replay cut from 6
-#: steps to 3, its fewest; a replay step of the 345M bf16 model takes
-#: about 32 s on the card's host, after about 37 s of set-up (PERF.md)
-PROBE_ARGS = ["--cpu-check-steps", "3"]
+#: the probe's arguments beyond its defaults (GPT-2 345M, 2 x 512 tokens,
+#: lr 3e-4 warmed up over 50 steps): 300 steps, not the default 600, and
+#: the CPU replay cut from 6 steps to 2 -- a replay step of the 345M bf16
+#: model takes about 32 s on the card's host after about 37 s of set-up
+#: (PERF.md) -- so that phase 16 fits the script's time limit: the 600-step
+#: curve read 0.0069 at step 300 against the bar of 6.0 (PERF.md)
+PROBE_ARGS = ["--cpu-check-steps", "2", "--steps", "300"]
 PROBE_OUTPUT = os.path.join(HERE, "build", "convergence_probe.json")
 
 
@@ -6256,8 +6276,8 @@ def convergence_probe(torch, ops, dev):
     """Phase 12 (a): ``python -m apex_tpu_torch.benchmarks.convergence_probe``
     at its defaults but :data:`PROBE_ARGS`, in this process (its ``main``):
     GPT-2 345M O2 (full remat, the 8-chunk LM head, FusedAdam with a
-    50-step warm-up) trains 600 steps on 2 fixed batches of 2 x 512
-    tokens, then replays the first 3 on the CPU in a subprocess. Requires
+    50-step warm-up) trains 300 steps on 2 fixed batches of 2 x 512
+    tokens, then replays the first 2 on the CPU in a subprocess. Requires
     exit 0 and ``ok``, a final loss
     <= 6.0, a replay with no ``error`` within its band (0.05), and the
     exact launch counts of the card's steps (#1 2L a step with the remat
@@ -6675,6 +6695,11 @@ def main():
     print("phase 15: tensor parallel (NCCL at world size 1; two gloo ranks "
           "on the card)")
     gpt_counts["tp"], heads8 = tp_phase(torch, ops, dev)
+    torch.cuda.empty_cache()
+
+    print("phase 16: ZeRO 1/2/3, the quantized wires and host offload (NCCL "
+          "at world size 1; two gloo ranks on the card)")
+    gpt_counts["zero"] = zero_phase(torch, ops, dev)
     torch.cuda.empty_cache()
     for row in rows:
         if row["name"] in fp32_rows:
@@ -7668,13 +7693,14 @@ def capture_grads(torch, trainer, into):
 
 
 def pretrain_steps(torch, ops, argv, steps, snap=False, axis=None,
-                   **config):
+                   snap_to=None, hook=None, **config):
     """``pretrain_gpt.build`` from ``argv`` on the stream's first ``steps``
     batches: (bench, losses, each step's params when ``snap``, first
     step's grads, launches). ``axis="model"`` builds on the model axis at
     the argv's ``--tp`` (1 too); ``config`` (``sequence_parallel``,
     ``compute_dtype``) goes into the example's config, which has no flag
-    for them."""
+    for them. ``snap_to`` puts the snapshots on that device; ``hook(bench)``
+    runs after the build."""
     from apex_tpu_torch.examples.gpt import pretrain_gpt
 
     args = pretrain_gpt.parse_args(argv)
@@ -7687,11 +7713,17 @@ def pretrain_steps(torch, ops, argv, steps, snap=False, axis=None,
             heads=args.heads, seq=args.seq, micro_batch=args.micro_batch,
             num_microbatches=args.num_microbatches, lr=args.lr,
             opt_level=args.opt_level, tp=args.tp, axis=axis,
-            device=args.device)
+            zero_level=args.zero_level if args.zero else None,
+            zero_gather=args.zero_gather, reduce_dtype=args.reduce_dtype,
+            zero3_prefetch=args.zero3_prefetch,
+            offload=args.offload_optimizer,
+            offload_buckets=args.offload_buckets, device=args.device)
     finally:
         pretrain_gpt.GPTConfig = real
     grads, losses, snaps = [], [], []
     capture_grads(torch, bench, grads)
+    if hook is not None:
+        hook(bench)
     batches = pretrain_gpt.batches(args, bench.batch)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -7699,9 +7731,13 @@ def pretrain_steps(torch, ops, argv, steps, snap=False, axis=None,
         loss, m = bench.step(*next(batches))
         check(not m["found_inf"], "no 345M pretrain step skipped")
         losses.append(float(loss))
-        if snap:
-            snaps.append([p.detach().clone()
-                          for p in bench.model.parameters()])
+        if snap:  # at ZeRO-3 the full params gathered from the chunks
+            full = (bench.mp_opt.zero3_materialize(bench.zero3)
+                    if bench.zero3 is not None else
+                    [p.detach() for p in bench.model.parameters()])
+            snaps.append([p.to(snap_to or p.device, copy=True)
+                          for p in full])
+            del full
     torch.cuda.synchronize()
     return bench, losses, snaps, grads, ops.launch_counts()
 
@@ -8799,6 +8835,566 @@ def tp_main():
     return 0
 
 
+
+# ---------------------------------------------------------------------------
+# phase 16: ZeRO 1/2/3, the quantized wires and host offload (NCCL at world
+# size 1; two gloo ranks on the card)
+# ---------------------------------------------------------------------------
+
+ZERO_STEPS = 3
+#: (a)'s variants of PRETRAIN_345M at world size 1, each bit for bit the
+#: serial run: at n = 1 the scatter and the gather are identities and Adam
+#: is elementwise on the chunks
+ZERO_WORLD1 = (
+    ("ZeRO-1", ["--zero-level", "1"]),
+    ("ZeRO-2", ["--zero-level", "2"]),
+    ("ZeRO-3", ["--zero-level", "3"]),
+    ("ZeRO-3 prefetch 1", ["--zero-level", "3", "--zero3-prefetch", "1",
+                           "--unroll"]),
+    ("offload 2 buckets", ["--zero-level", "2", "--offload-optimizer",
+                           "--offload-buckets", "2"]),
+)
+#: (b)'s wire and offload cases: 345M width at 4 layers, the DP batch
+ZERO_WIRE_LAYERS = 4
+#: limits of (b): params after each step against the DP run (and ZeRO-3's
+#: against ZeRO-2's) by share of max |ref| and by row: phase 14's grad
+#: limits (the DP run sums bf16 grads in bf16, ZeRO sums their fp32
+#: unscaled values in fp32; Adam moves an element by about lr whatever
+#: its grad, so a near-zero grad rounded the other way flips a step);
+#: the quantized wires track the fp32 wire within the JAX tests' band
+#: (``tests/test_quantized_comm.py:213``: params within 5e-2) and the
+#: losses within phase 14's relative limit
+ZERO_LOSS_REL = DP_LOSS_REL
+ZERO_WIRE_BAND = 5e-2
+#: two runs whose reductions round differently (DP sums bf16 grads in
+#: bf16, ZeRO-2 their unscaled fp32 values in fp32, ZeRO-3 in bf16 at its
+#: gather's wire): step 1's reduced grads by share of max and by row
+#: (phase 14's DP limits); the params after step 1, where Adam's step is
+#: lr times the grad's sign, at most 2% of a leaf's elements (one of a
+#: leaf under 200) further apart than lr / 5: a grad whose two ranks'
+#: halves cancel within a bf16 unit takes either sign, about 2**-8 of
+#: random-signed halves (0.39% for ZeRO-3 against ZeRO-2 on an H100),
+#: where a chunk in the wrong place moves about half of a leaf; after
+#: every step none further than 2.5 lr a step (Adam's m / sqrt(v)
+#: normalizes a near-zero grad's rounding noise into a full step, so from
+#: step 2 on the share is only reported: 6-20% of a random-init 345M's
+#: small leaves on an H100, PERF.md); each distance beyond one bf16 unit of
+#: the reference where the param is bf16
+ZERO_GRAD = DP_GRAD
+ZERO_DRIFT = (0.02, 1.0)
+
+
+def zero_argv(base, flags, layers=None):
+    argv = list(base) + list(flags)
+    if layers is not None:
+        i = argv.index("--layers")
+        argv[i + 1] = str(layers)
+    return argv
+
+
+def zero_steps(torch, ops, argv, steps, snap=True):
+    """:func:`pretrain_steps` of a ZeRO (or DP) argv from a clean
+    allocator: (bench, losses, each step's full params on the host,
+    launches, the run's peak bytes above its start, step 1's reduced
+    unscaled fp32 grads on the host: ZeRO's chunks gathered, DP's
+    all-reduced grads)."""
+    from apex_tpu_torch.amp.frontend import _flat_shapes
+    from apex_tpu_torch.optimizers.distributed import gather_leaf
+
+    first = []
+
+    def hook(bench):
+        mp = bench.mp_opt
+        if mp.zero_axis is None:
+            return
+        real = mp._metrics
+
+        def metrics(state, found_inf, g_chunks, base):
+            if not first:
+                first.append([c.detach().clone() for c in g_chunks])
+            return real(state, found_inf, g_chunks, base)
+
+        mp._metrics = metrics
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bench, losses, snaps, grads, counts = pretrain_steps(
+        torch, ops, argv, steps, snap=snap, snap_to="cpu", hook=hook)
+    peak = torch.cuda.max_memory_allocated() - base
+    if first:
+        shapes = ([sh.shape for sh in _flat_shapes(bench.zero3.meta)]
+                  if bench.zero3 is not None else
+                  [p.shape for p in bench.model.parameters()])
+        grads = [gather_leaf(c, sh, torch.float32, "data").cpu()
+                 for c, sh in zip(first[0], shapes)]
+    else:  # DP: the scaled all-reduced grads, at step 1's scale 2**16
+        grads = [g.float().cpu() / 2.0 ** 16 for g in grads]
+    return bench, losses, snaps, counts, peak, grads
+
+
+def params_drift(torch, got, ref, lr, steps):
+    """(the worst leaf's share of elements further than lr / 5 apart, the
+    worst element's distance over 2.5 lr x ``steps``), each distance less
+    one bf16 unit (2**-7 |ref|) of a bf16 reference: the
+    :data:`ZERO_DRIFT` measures of two param lists."""
+    share, worst = 0.0, 0.0
+    for a, b in zip(got, ref):
+        d = (a.float() - b.float()).abs()
+        if b.dtype == torch.bfloat16:
+            d = (d - b.float().abs() * 2.0 ** -7).clamp_min(0)
+        n = int((d > lr / 5).sum())
+        share = max(share, 0.0 if n <= (1 if d.numel() < 200 else 0)
+                    else n / d.numel())
+        worst = max(worst, float(d.max()) / (2.5 * lr * steps))
+    return share, worst
+
+
+def state_fingerprint(torch, st):
+    """:func:`param_fingerprint` of a ZeRO state's masters, moments and
+    residual."""
+    ts = list(st.master) + list(st.inner.exp_avg) + list(
+        st.inner.exp_avg_sq)
+    if st.residual is not None:
+        ts += [e for e in st.residual["err"] if e.numel()]
+    return param_fingerprint(torch, ts)
+
+
+def zero_bench_legs(torch, ops):
+    """``BENCH_ZERO=1``'s O2 step and the bench's own, 2 steps each on the
+    fixed batch. The ZeRO leg gathers the params at bf16, as the
+    reference's does (``bench.py:355``), so its fp32 LayerNorm params are
+    the bf16 rounding of their masters: (step 1's loss bit for bit, every
+    param after step 1 bit for bit that of the bench's step -- the fp32
+    ones at their bf16 rounding, step 2's loss relative error, the two
+    runs' losses, the ZeRO leg's launches)."""
+    from apex_tpu_torch import bench as bench_mod
+
+    out = {}
+    for label, env in (("plain", None), ("zero", "1")):
+        if env:
+            os.environ["BENCH_ZERO"] = env
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            b = bench_mod.build("O2")
+        finally:
+            os.environ.pop("BENCH_ZERO", None)
+        toks, tgts = bench_mod.fixed_batch(b)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        losses, first = [], None
+        for _ in range(2):
+            loss, m = b.step(toks, tgts)
+            check(not m["found_inf"], "no bench step skipped")
+            losses.append(float(loss))
+            if first is None:
+                first = [p.detach().clone() for p in b.model.parameters()]
+        torch.cuda.synchronize()
+        out[label] = (losses, first, ops.launch_counts(), b.mp_opt.zero_axis)
+        del b
+    check(out["zero"][3] == "data", "BENCH_ZERO built the ZeRO leg")
+    (pl, pp, _, _), (zl, zp, counts, _) = out["plain"], out["zero"]
+    same = all(torch.equal(z, p if p.dtype == torch.bfloat16 else
+                           p.to(torch.bfloat16).to(p.dtype))
+               for z, p in zip(zp, pp))
+    return (zl[0] == pl[0], same, abs(zl[1] - pl[1]) / abs(pl[1]), pl, zl,
+            counts)
+
+
+def zero_world1(torch, ops, dev, total, smi):
+    """(a): NCCL at world size 1 in this process: ``pretrain_gpt --zero*``
+    at 345M (PRETRAIN_345M), each variant of :data:`ZERO_WORLD1` 3 O2
+    steps, its losses and params after every step bit for bit the serial
+    run's; then ``BENCH_ZERO=1``'s step against the bench's."""
+    from apex_tpu_torch.parallel import multiproc
+
+    _, slosses, ssnaps, _, _ = pretrain_steps(torch, ops, PRETRAIN_345M,
+                                              ZERO_STEPS, snap=True)
+    check(multiproc.initialize_distributed(
+        f"127.0.0.1:{free_port()}", 1, 0), "NCCL world 1 initialized")
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    group = "ZeRO (a) NCCL world 1"
+    try:
+        for label, flags in ZERO_WORLD1:
+            t0 = time.perf_counter()
+            bench, losses, snaps, counts, peak, _ = zero_steps(
+                torch, ops, PRETRAIN_345M + flags, ZERO_STEPS)
+            L = bench.cfg.num_layers
+            check_counts(counts, expected_counts(
+                counts, ZERO_STEPS, pretrain_per_step(L, 2)), "zero")
+            total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+            same = [losses == slosses] + [
+                all(torch.equal(a.to(b.device), b) for a, b in zip(s, t))
+                for s, t in zip(snaps, ssnaps)]
+            print(f"  (a) pretrain_gpt 345M O2 {' '.join(flags)} on "
+                  f"{backend} at world size 1, {ZERO_STEPS} steps of "
+                  f"{bench.batch} x 1024: losses {losses}; losses and "
+                  f"params after each step bit-identical to the serial "
+                  f"run's {slosses}: {same}; {time.perf_counter() - t0:.1f} s")
+            verdict(f"zero (a) {label} world 1 bit for bit the serial run",
+                    0 if all(same) else 1, 0, group=group)
+            del bench, snaps
+        del ssnaps
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss1, same, rel2, plain, zl, counts = zero_bench_legs(torch, ops)
+        total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+        print(f"  (a) the bench's O2 step (345M, 8 x 1024, 2 steps): losses "
+              f"{plain}; with BENCH_ZERO=1 {zl}: step 1's loss bit for bit "
+              f"{loss1}, the params after it bit for bit (the fp32 "
+              f"LayerNorm params at the bf16 gather's rounding) {same}, "
+              f"step 2's loss rel {rel2:.3g}")
+        verdict("zero (a) BENCH_ZERO=1 step 1 bit for bit the bench's",
+                0 if (loss1 and same) else 1, 0, group=group)
+        verdict("zero (a) BENCH_ZERO=1 step 2 loss rel", rel2,
+                ZERO_LOSS_REL, group=group)
+    finally:
+        multiproc.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (a) card: {smi}")
+
+
+def _zero_rank(rank, world, port, out_path):
+    """One gloo rank of phase 16 (b) on the card: every case in turn; the
+    errors, counts and peak memory go back to the parent."""
+    import pickle
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    res = {"rank": rank, "memory": {}, "counts": []}
+    try:
+        from apex_tpu_torch import ops
+        from apex_tpu_torch.parallel import collectives, mesh, multiproc
+        from apex_tpu_torch.transformer.amp import MeshGradScaler
+        import torch.distributed as dist
+
+        multiproc.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                         backend="gloo", timeout_s=600)
+        dev = torch.device("cuda", 0)
+        probe = {}
+        for name, fn in (
+                ("all_to_all (list) int8", lambda: dist.all_to_all(
+                    [torch.empty(2, dtype=torch.int8, device=dev)
+                     for _ in range(world)],
+                    [torch.ones(2, dtype=torch.int8, device=dev)
+                     for _ in range(world)])),
+                ("all_to_all_single int8", lambda: dist.all_to_all_single(
+                    torch.empty(2 * world, dtype=torch.int8, device=dev),
+                    torch.ones(2 * world, dtype=torch.int8, device=dev))),
+                ("all_to_all_single uint8 (e5m2 bytes)",
+                 lambda: dist.all_to_all_single(
+                     torch.empty(2 * world, dtype=torch.uint8, device=dev),
+                     torch.ones(2 * world, dtype=torch.uint8, device=dev))),
+                ("all_to_all_single fp32", lambda: dist.all_to_all_single(
+                    torch.empty(2 * world, device=dev),
+                    torch.ones(2 * world, device=dev))),
+                ("all_gather async bf16", lambda: dist.all_gather(
+                    [torch.empty(4, dtype=torch.bfloat16, device=dev)
+                     for _ in range(world)],
+                    torch.ones(4, dtype=torch.bfloat16, device=dev),
+                    async_op=True).wait())):
+            try:
+                fn()
+                probe[name] = "ok"
+            except RuntimeError as e:
+                probe[name] = f"refused: {str(e)[:120]}"
+        res["gloo"] = probe
+        mesh.initialize_model_parallel()
+
+        def same_on_ranks(ts):
+            fp = param_fingerprint(torch, ts)
+            both = collectives.all_gather(fp, "data", tiled=False)
+            return bool(torch.equal(both[0], both[1]))
+
+        def run(label, argv, steps, snap=True):
+            t0 = time.perf_counter()
+            bench, losses, snaps, counts, peak, grads = zero_steps(
+                torch, ops, argv, steps, snap=snap)
+            res["memory"][label] = peak
+            res["counts"].append((steps, bench.cfg.num_layers, counts))
+            res.setdefault("s", {})[label] = time.perf_counter() - t0
+            return bench, losses, snaps, grads
+
+        lr = float(DP_345M[DP_345M.index("--lr") + 1])
+
+        def against(snaps, ref, grads, ref_grads):
+            return {"drift": [params_drift(torch, a, b, lr, k + 1)
+                              for k, (a, b) in enumerate(zip(snaps, ref))],
+                    "grads": grads_err(torch, grads, ref_grads),
+                    "ranks_equal": [same_on_ranks(a) for a in snaps]}
+
+        # 1. 345M: DP, then ZeRO-1/2/3 and offload, against DP
+        b, dlosses, dsnaps, dgrads = run("DP", DP_345M, ZERO_STEPS)
+        res["dp_losses"], res["L"] = dlosses, b.cfg.num_layers
+        del b
+        b, l1, _, _ = run("ZeRO-1", DP_345M + ["--zero-level", "1"], 1,
+                          snap=False)
+        res["zero1_losses"] = l1
+        del b
+        b, l2, z2, g2 = run("ZeRO-2", DP_345M + ["--zero-level", "2"],
+                            ZERO_STEPS)
+        res["zero2"] = dict(against(z2, dsnaps, g2, dgrads), losses=l2)
+        del b, dsnaps, dgrads
+        b, l3, z3, g3 = run("ZeRO-3", DP_345M + ["--zero-level", "3"],
+                            ZERO_STEPS)
+        res["zero3"] = dict(against(z3, z2, g3, g2), losses=l3,
+                            chunks=sum(c.numel() for c in b.zero3.params))
+        del b, z3, g3, g2
+        b, lo, zo, _ = run("offload", DP_345M + [
+            "--zero-level", "2", "--offload-optimizer",
+            "--offload-buckets", "2"], 1)
+        res["offload"] = {"losses": lo, "same": lo[0] == l2[0] and all(
+            torch.equal(a, c) for a, c in zip(zo[0], z2[0]))}
+        del b, zo, z2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. the wires and offload at 345M width, 4 layers
+        base = zero_argv(DP_345M, ["--zero-level", "2"], ZERO_WIRE_LAYERS)
+        b, wl, ws, _ = run("4 layers fp32 wire", base, ZERO_STEPS)
+        del b
+        res["wire"] = {"fp32": wl}
+        b, losses, snaps, _ = run("4 layers offload", base + [
+            "--offload-optimizer", "--offload-buckets", "2"], ZERO_STEPS)
+        res["wire"]["offload"] = {
+            "losses": losses, "same": losses == wl and all(
+                torch.equal(a, c) for s, t in zip(snaps, ws)
+                for a, c in zip(s, t))}
+        del b, snaps
+        # the bf16 param gather rounds the fp32 LayerNorm params to bf16
+        # (the reference's wire, amp/frontend.py:213-231): step 1's bf16
+        # params bit for bit, the fp32 ones at their bf16 rounding, then
+        # it tracks the fp32 wire as the quantized grad wires do
+        for wire, flags in (("gather bf16", ["--zero-gather", "bf16"]),
+                            ("int8", ["--reduce-dtype", "int8"]),
+                            ("e5m2", ["--reduce-dtype", "e5m2"])):
+            b, losses, snaps, _ = run(f"4 layers {wire}", base + flags,
+                                      ZERO_STEPS)
+            res["wire"][wire] = {
+                "losses": losses,
+                "loss_rel": max(abs(a - c) / abs(c)
+                                for a, c in zip(losses, wl)),
+                "params_abs": max(float((a.float() - c.float()).abs().max())
+                                  for s, t in zip(snaps, ws)
+                                  for a, c in zip(s, t)),
+                "ranks_equal": [same_on_ranks(s) for s in snaps]}
+            if wire == "gather bf16":
+                res["wire"][wire]["step1"] = all(torch.equal(
+                    a, c if c.dtype == torch.bfloat16 else
+                    c.to(torch.bfloat16).to(c.dtype))
+                    for a, c in zip(snaps[0], ws[0]))
+            if wire == "int8":
+                # 3. an inf in rank 1's grads alone: both ranks skip
+                st, model = b.opt_state, b.model
+                before = state_fingerprint(torch, st)
+                pbefore = param_fingerprint(torch, model.parameters())
+                scale = st.scaler.loss_scale
+                grads = [torch.zeros_like(p) for p in model.parameters()]
+                if rank == 1:
+                    grads[0].view(-1)[0] = float("inf")
+                m = b.mp_opt.apply_gradients(
+                    st, list(model.parameters()), grads,
+                    found_inf_reducer=MeshGradScaler().found_inf_reducer)
+                res["vote"] = {
+                    "found_inf": m["found_inf"], "scale": scale,
+                    "scale_after": st.scaler.loss_scale,
+                    "unchanged": bool(torch.equal(
+                        before, state_fingerprint(torch, st))
+                        and torch.equal(pbefore, param_fingerprint(
+                            torch, model.parameters()))),
+                    "residual": st.residual is not None}
+            del b, snaps
+            gc.collect()
+            torch.cuda.empty_cache()
+    except Exception:  # noqa: BLE001 - reported by the parent
+        res["error"] = traceback.format_exc()
+    finally:
+        try:
+            from apex_tpu_torch.parallel import multiproc
+
+            multiproc.shutdown()
+        except Exception as e:  # noqa: BLE001
+            res.setdefault("error", f"shutdown: {e}")
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def zero_spawn(ref_dir, world=2):
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(ref_dir, f"rank{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=_zero_rank, args=(r, world, port, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, outs
+
+
+def zero_two_ranks(torch, total, smi, procs, outs):
+    """(b): the two gloo ranks' results, each case's verdicts."""
+    import pickle
+
+    end = time.monotonic() + 900
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    check(not alive, "the two gloo ranks finished within 900 s")
+    res = []
+    for r, path in enumerate(outs):
+        check(os.path.exists(path), f"gloo rank {r} left no result")
+        with open(path, "rb") as f:
+            res.append(pickle.load(f))
+    for r in res:
+        check("error" not in r,
+              f"gloo rank {r['rank']}: {r.get('error', '')[-3000:]}")
+    group = "ZeRO (b) 2 gloo ranks on the card"
+    print(f"  (b) gloo on CUDA tensors: {res[0]['gloo']}")
+    print(f"  (b) 345M O2, 2 ranks x 8 rows of a 16 x 1024 batch: DP losses "
+          f"{[r['dp_losses'] for r in res]}; ZeRO-1 (1 step) "
+          f"{[r['zero1_losses'] for r in res]}; ZeRO-2 "
+          f"{[r['zero2']['losses'] for r in res]}, step 1's reduced grads "
+          f"against DP's (share, row) {[r['zero2']['grads'] for r in res]}, "
+          f"params after each step (share of a leaf beyond lr/5, worst "
+          f"element over 2.5 lr a step) {[r['zero2']['drift'] for r in res]}"
+          f"; ZeRO-3 {[r['zero3']['losses'] for r in res]}, against ZeRO-2: "
+          f"grads {[r['zero3']['grads'] for r in res]}, params "
+          f"{[r['zero3']['drift'] for r in res]}; offload 2 buckets (1 step) "
+          f"bit for bit ZeRO-2: {[r['offload']['same'] for r in res]}; "
+          f"seconds {res[0]['s']} (host-staged gloo, not speed numbers)")
+    w = res[0]["wire"]
+    g = w["gather bf16"]
+    print(f"  (b) 345M width, {ZERO_WIRE_LAYERS} layers, ZeRO-2: fp32 wire "
+          f"losses {w['fp32']}; offload bit for bit "
+          f"{[r['wire']['offload']['same'] for r in res]}; --zero-gather "
+          f"bf16 step 1 bit for bit at the bf16 rounding "
+          f"{[r['wire']['gather bf16']['step1'] for r in res]}, then "
+          f"{g['losses']} (loss rel {g['loss_rel']:.3g}, params max abs "
+          f"{g['params_abs']:.3g}); int8 "
+          f"{w['int8']['losses']} (loss rel {w['int8']['loss_rel']:.3g}, "
+          f"params max abs {w['int8']['params_abs']:.3g}); e5m2 "
+          f"{w['e5m2']['losses']} (loss rel {w['e5m2']['loss_rel']:.3g}, "
+          f"params max abs {w['e5m2']['params_abs']:.3g})")
+    print(f"  (b) overflow vote (inf in rank 1's grads only, int8 wire): "
+          f"{[r['vote'] for r in res]}")
+    for r in res:
+        mem = ", ".join(f"{k} {v / 2**30:.2f} GiB"
+                        for k, v in r["memory"].items())
+        print(f"  (b) rank {r['rank']} peak memory "
+              f"(torch.cuda.max_memory_allocated): {mem}; card: {smi}")
+    for r in res:
+        rk = r["rank"]
+        for steps, L, counts in r["counts"]:
+            check_counts(counts, expected_counts(
+                counts, steps, pretrain_per_step(L, 2)), "zero")
+            total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+        for label, losses in (("ZeRO-1", r["zero1_losses"]),
+                              ("ZeRO-2", r["zero2"]["losses"])):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                        r["dp_losses"]))
+            verdict(f"zero (b) {label} rank {rk} losses rel to DP", rel,
+                    ZERO_LOSS_REL, group=group)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            r["zero3"]["losses"], r["zero2"]["losses"]))
+        verdict(f"zero (b) ZeRO-3 rank {rk} losses rel to ZeRO-2", rel,
+                ZERO_LOSS_REL, group=group)
+        for key, ref in (("zero2", "DP"), ("zero3", "ZeRO-2")):
+            x = r[key]
+            verdict(f"zero (b) {key} rank {rk} step-1 grads vs {ref}",
+                    x["grads"][0], ZERO_GRAD[0], group=group)
+            verdict(f"zero (b) {key} rank {rk} step-1 grads vs {ref} row",
+                    x["grads"][1], ZERO_GRAD[1], group=group)
+            verdict(f"zero (b) {key} rank {rk} step-1 params vs {ref}, "
+                    f"share beyond lr/5", x["drift"][0][0], ZERO_DRIFT[0],
+                    group=group)
+            verdict(f"zero (b) {key} rank {rk} params vs {ref}, worst over "
+                    f"2.5 lr a step", max(e[1] for e in x["drift"]),
+                    ZERO_DRIFT[1], group=group)
+            verdict(f"zero (b) {key} rank {rk} params equal across ranks",
+                    0 if all(r[key]["ranks_equal"]) else 1, 0, group=group)
+        verdict(f"zero (b) offload rank {rk} bit for bit ZeRO-2",
+                0 if r["offload"]["same"] else 1, 0, group=group)
+        w = r["wire"]
+        verdict(f"zero (b) 4 layers offload rank {rk} bit for bit",
+                0 if w["offload"]["same"] else 1, 0, group=group)
+        verdict(f"zero (b) 4 layers gather bf16 rank {rk} step 1 bit for "
+                f"bit at the bf16 rounding",
+                0 if w["gather bf16"]["step1"] else 1, 0, group=group)
+        for wire in ("gather bf16", "int8", "e5m2"):
+            verdict(f"zero (b) {wire} wire rank {rk} losses rel to fp32",
+                    w[wire]["loss_rel"], ZERO_LOSS_REL, group=group)
+            verdict(f"zero (b) {wire} wire rank {rk} params vs fp32 abs",
+                    w[wire]["params_abs"], ZERO_WIRE_BAND, group=group)
+            verdict(f"zero (b) {wire} wire rank {rk} params equal across "
+                    f"ranks", 0 if all(w[wire]["ranks_equal"]) else 1, 0,
+                    group=group)
+        v = r["vote"]
+        verdict(f"zero (b) overflow vote rank {rk} skips, state and residual "
+                f"unchanged, scale halved",
+                0 if (v["found_inf"] and v["unchanged"] and v["residual"]
+                      and v["scale_after"] == v["scale"] / 2) else 1, 0,
+                group=group)
+    return res
+
+
+def zero_phase(torch, ops, dev):
+    """Phase 16: (b)'s ranks spawned first, (a) :func:`zero_world1` in this
+    process meanwhile, then (b)'s verdicts. Returns the launches of the
+    ZeRO runs (path ``zero``: (a)'s and both ranks')."""
+    import shutil
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    total = {}
+    ref_dir = os.path.join(HERE, "build", "zero_check")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    os.makedirs(ref_dir)
+    procs = []
+    try:
+        procs, outs = zero_spawn(ref_dir)
+        zero_world1(torch, ops, dev, total, smi)
+        zero_two_ranks(torch, total, smi, procs, outs)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    print(f"  phase 16 launches {total}; phase 16 took "
+          f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    return total
+
+
+def zero_main():
+    """``python3 chip_smoke.py --zero``: phase 16 alone after the build,
+    with its verdict."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.csrc import build
+
+    print(f"card: {nvidia_smi()}; torch {torch.__version__}")
+    build.load()
+    zero_phase(torch, ops, torch.device("cuda", 0))
+    print_verdict()
+    return 0
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ln-times"]:
         sys.exit(times_of_tree(sys.argv[2], ln_times))
@@ -8820,4 +9416,6 @@ if __name__ == "__main__":
         sys.exit(dp_main())
     if sys.argv[1:2] == ["--tp"]:
         sys.exit(tp_main())
+    if sys.argv[1:2] == ["--zero"]:
+        sys.exit(zero_main())
     sys.exit(main())

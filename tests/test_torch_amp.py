@@ -179,11 +179,21 @@ def test_o2_fused_adam_matches_jax_with_a_skipped_step():
 
 
 def test_zero_options_raise():
+    """ZeRO constructs now; the two-tier dcn axis raises naming item 16,
+    and the reference's argument checks raise ValueError."""
     pol = tamp.get_policy("O2")
-    for kw in (dict(zero_axis="data"), dict(dcn_axis="dcn"),
-               dict(gather_dtype="bf16"), dict(reduce_dtype="int8"),
+    z = tamp.MixedPrecisionOptimizer(FusedAdam(), pol, zero_axis="data",
+                                     gather_dtype="bf16",
+                                     reduce_dtype="int8",
+                                     stochastic_rounding=True)
+    assert (z.zero_axis, z.gather_dtype, z.reduce_dtype) == (
+        "data", torch.bfloat16, "int8")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        tamp.MixedPrecisionOptimizer(FusedAdam(), pol, zero_axis="data",
+                                     dcn_axis="dcn")
+    for kw in (dict(gather_dtype="bf16"), dict(reduce_dtype="int8"),
                dict(stochastic_rounding=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(ValueError):
             tamp.MixedPrecisionOptimizer(FusedAdam(), pol, **kw)
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(amsgrad=True)

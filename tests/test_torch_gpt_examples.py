@@ -519,13 +519,17 @@ def test_data_dir_batches_are_the_references(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--tp", "2"], 10), (["--pp", "2"], 12), (["--zero"], 11),
-    (["--mesh-islands", "2"], 16), (["--moe-experts", "4"], 16),
+    (["--zero", "--mesh-islands", "2"], 16), (["--moe-experts", "4"], 16),
     (["--journal", "j.jsonl"], 21), (["--plan", "auto"], 21),
 ])
 def test_pretrain_options_outside_the_slice_raise(flags, item):
     if item == 10:  # --tp is in the port: one process has too few ranks
         with pytest.raises(RuntimeError, match="world size"):
             pg.run(EX + ["--device", "cpu", "--steps", "1"] + flags)
+        return
+    if item == 11:  # ZeRO is in the port: one rank runs it
+        out = pg.run(EX + ["--device", "cpu", "--steps", "1"] + flags)
+        assert np.isfinite(out["losses"][0])
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         pg.run(EX + ["--device", "cpu", "--steps", "1"] + flags)

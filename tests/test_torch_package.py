@@ -25,6 +25,7 @@ import torch
 import apex_tpu_torch
 from apex_tpu_torch.csrc import build
 from apex_tpu_torch.models import GPTConfig, GPTModel
+from apex_tpu_torch.parallel import mesh
 from apex_tpu_torch.serve import Engine, ServeConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -229,8 +230,13 @@ def test_new_modules_import_no_jax():
     the data-parallel slice's (mesh, collectives, distributed,
     multiproc, parallel_state, transformer amp, the simple example) and
     the tensor-parallel slice's (tensor_parallel's utils, mappings,
-    random, data) are among the scanned files."""
+    random, data) and the ZeRO slice's (parallel/quantize,
+    optimizers/distributed, optimizers/offload) are among the scanned
+    files."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"apex_tpu_torch/parallel/quantize.py",
+            "apex_tpu_torch/optimizers/distributed.py",
+            "apex_tpu_torch/optimizers/offload.py"} <= rel
     assert {"apex_tpu_torch/transformer/tensor_parallel/" + f for f in (
         "utils.py", "mappings.py", "random.py", "data.py", "layers.py",
         "cross_entropy.py")} <= rel
@@ -310,22 +316,74 @@ def test_flash_decode_refuses_inputs_that_require_grad():
         assert ops.flash_decode(q, *args).shape == (1, 2, 4)
 
 
+def test_zero_surface_constructs_and_later_items_raise():
+    """The ZeRO arguments construct (the mixed-precision optimizer, the
+    distributed optimizers, the offload driver, the step builder and
+    ``pretrain_gpt``'s flags); the two-tier ``dcn_axis`` and
+    ``--mesh-islands`` raise naming item 16, ``--pp`` item 12, and the
+    step builder's pipeline and tracing arguments items 12 and 21."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.gpt import pretrain_gpt as pg
+    from apex_tpu_torch.optimizers import (
+        DistributedFusedAdam,
+        DistributedFusedLAMB,
+        DistributedFusedSGD,
+        FusedAdam,
+        HostOffloadedZero,
+    )
+    from apex_tpu_torch.transformer.amp import build_zero_train_step
+
+    pol = amp.get_policy("O2")
+    for level in (1, 2, 3):
+        amp.MixedPrecisionOptimizer(FusedAdam(), pol, zero_axis="data",
+                                    zero_level=level, gather_dtype="bf16")
+    z = amp.MixedPrecisionOptimizer(FusedAdam(), pol, zero_axis="data",
+                                    reduce_dtype="e5m2")
+    HostOffloadedZero(z, num_buckets=2)
+    for cls in (DistributedFusedAdam, DistributedFusedLAMB,
+                DistributedFusedSGD):
+        cls(lr=1e-3)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        amp.MixedPrecisionOptimizer(FusedAdam(), pol, zero_axis="data",
+                                    dcn_axis="dcn")
+    args = pg.parse_args(["--zero-level", "3", "--zero-gather", "bf16",
+                          "--zero3-prefetch", "1", "--unroll"])
+    pg.check_slice(args)
+    pg.check_slice(pg.parse_args(["--zero", "--reduce-dtype", "int8",
+                                  "--offload-optimizer"]))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        pg.check_slice(pg.parse_args(["--zero", "--mesh-islands", "2"]))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        pg.check_slice(pg.parse_args(["--zero", "--pp", "2"]))
+    model = GPTModel(GPTConfig(**SMALL), device="cpu")
+    for kw, item in ((dict(virtual_pipeline_size=2), 12),
+                     (dict(traced=True), 21)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            build_zero_train_step(z, model, None, **kw)
+    mesh.destroy_model_parallel()
+
+
 def test_unknown_remat_policy_raises():
     with pytest.raises(ValueError, match="unknown remat_policy"):
         GPTModel(GPTConfig(remat_policy="bogus", **SMALL), device="cpu")
 
 
 def test_bench_options_outside_the_slice_raise(monkeypatch):
-    """ZeRO raises naming item 11; the telemetry variables and
+    """``BENCH_ZERO`` builds the ZeRO leg now, and ``BENCH_QCOMM`` alone
+    refuses as the reference's does; the telemetry variables and
     ``--gpt-profile`` raise naming item 21 (the O0 leg runs now)."""
     from apex_tpu_torch import bench
     from apex_tpu_torch.bench import build
 
-    for var in ("BENCH_ZERO", "BENCH_QCOMM"):
-        monkeypatch.setenv(var, "1")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            build("O2", device="cpu")
-        monkeypatch.delenv(var)
+    monkeypatch.setenv("BENCH_QCOMM", "1")
+    with pytest.raises(SystemExit, match="BENCH_ZERO"):
+        build("O2", device="cpu", hidden=32, layers=1)
+    monkeypatch.setenv("BENCH_ZERO", "1")
+    z = build("O2", device="cpu", hidden=32, layers=1)
+    assert (z.mp_opt.zero_axis, z.mp_opt.reduce_dtype) == ("data", "int8")
+    monkeypatch.delenv("BENCH_QCOMM")
+    monkeypatch.delenv("BENCH_ZERO")
+    mesh.destroy_model_parallel()
     for var in bench.MONITOR_VARS:
         monkeypatch.setenv(var, "1")
         with pytest.raises(NotImplementedError, match="Queue 1 item 21"):

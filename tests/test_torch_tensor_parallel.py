@@ -325,12 +325,13 @@ def test_sequence_parallel_layer_flag_validation():
                                   sequence_parallel=True)
     with pytest.raises(ValueError, match="comm_dtype only applies"):
         tp.ColumnParallelLinear(8, 8, comm_dtype="int8")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tp.RowParallelLinear(8, 8, sequence_parallel=True,
-                             comm_dtype="int8")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the quantized wire is in the port: it constructs, and an unknown
+    # wire dtype raises as the reference's canon_wire_dtype does
+    assert tp.RowParallelLinear(8, 8, sequence_parallel=True,
+                                comm_dtype="int8").comm_dtype == "int8"
+    with pytest.raises(ValueError, match="wire dtype"):
         tp.gather_from_sequence_parallel_region(torch.ones(1, 2, 1),
-                                                comm_dtype="e5m2")
+                                                comm_dtype="int4")
 
 
 def test_sequence_parallel_key_differs_per_rank_and_stream(results):
