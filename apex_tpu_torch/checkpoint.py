@@ -24,7 +24,8 @@ gathers every model-sharded leaf to its full shape -- every rank of the
 axis calls it -- and the first rank of the world writes; and
 :func:`restore_checkpoint` with ``specs`` cuts the full tree to one tensor-
 parallel rank's shard. So a checkpoint saved at tp 2 resumes serial, and a
-serial one resumes at tp 2. A subtree with no entry in ``specs`` (None) is
+serial one resumes at tp 2. Pipeline stages save and restore the same way
+over ``("model", "pipe")``: the file holds the whole layer stack. A subtree with no entry in ``specs`` (None) is
 replicated.
 """
 
@@ -33,7 +34,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -138,17 +139,25 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _axes(axis: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
 def save_checkpoint(directory: str, step: int, state: Any,
-                    specs: Any = None, axis: str = AXIS_MODEL) -> str:
+                    specs: Any = None,
+                    axis: Union[str, Sequence[str]] = AXIS_MODEL) -> str:
     """Save ``state`` (a tree) as ``directory/step_{step}/state.npz``;
-    returns the step directory. With ``specs`` (tensor parallelism) the
-    model-sharded leaves are gathered over ``axis`` first, so every rank of
-    it must call this, and only the world's first rank writes."""
+    returns the step directory. With ``specs`` (tensor and pipeline
+    parallelism) the leaves split over ``axis`` (a name or a tuple of
+    them: ``("model", "pipe")`` gathers the pipeline stages' layer blocks
+    too) are gathered first, so every rank of it must call this, and only
+    the world's first rank writes."""
     path = _step_dir(directory, step)
     if specs is not None:
         from apex_tpu_torch.transformer.tensor_parallel import gather_params
 
-        state = gather_params(state, specs, axis)
+        for a in _axes(axis):
+            state = gather_params(state, specs, a)
         if dist.is_available() and dist.is_initialized() \
                 and dist.get_rank() != 0:
             return path
@@ -159,13 +168,13 @@ def save_checkpoint(directory: str, step: int, state: Any,
 
 def restore_checkpoint(directory: str, target: Any,
                        step: Optional[int] = None, specs: Any = None,
-                       axis: str = AXIS_MODEL) -> Any:
+                       axis: Union[str, Sequence[str]] = AXIS_MODEL) -> Any:
     """The tree saved at ``step`` (default: the latest) in the structure of
     ``target`` (only its keys are read: the dtypes and shapes are the
     saved ones), with CPU tensors as leaves. Keys of the file that
     ``target`` does not name are not read. With ``specs`` the full tree is
-    cut to this process's shard along ``axis`` of the installed
-    topology."""
+    cut to this process's shard along ``axis`` (a name or a tuple) of the
+    installed topology."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -177,5 +186,7 @@ def restore_checkpoint(directory: str, target: Any,
     from apex_tpu_torch.transformer.tensor_parallel import mappings, \
         shard_params
 
-    rank, size = mappings.axis_world(axis)
-    return shard_params(tree, specs, rank, size, axis)
+    for a in _axes(axis):
+        rank, size = mappings.axis_world(a)
+        tree = shard_params(tree, specs, rank, size, a)
+    return tree

@@ -1,5 +1,5 @@
-"""GPT pretraining with checkpoint and resume: the serial, data-parallel
-and tensor-parallel branches (``--pp 1``) of ``examples/gpt/pretrain_gpt.py``.
+"""GPT pretraining with checkpoint and resume: the serial, data-,
+tensor- and pipeline-parallel branches of ``examples/gpt/pretrain_gpt.py``.
 
     python -m apex_tpu_torch.examples.gpt.pretrain_gpt --hidden 1024 \\
         --layers 24 --heads 16 --seq 1024 --micro-batch 4 \\
@@ -8,6 +8,7 @@ and tensor-parallel branches (``--pp 1``) of ``examples/gpt/pretrain_gpt.py``.
     torchrun --nproc_per_node N -m apex_tpu_torch.examples.gpt.pretrain_gpt \\
         ...   # data parallel over N ranks (NCCL; gloo with --device cpu)
     torchrun --nproc_per_node N -m ... --tp T   # a dp (N / T) x tp T mesh
+    torchrun --nproc_per_node N -m ... --pp P --pp-schedule interleaved
 
 The moving parts are the reference's (``:391-510``): ``GPTConfig(
 hidden_dropout=0, remat=True, bf16 compute under O1-O3, else fp32)``,
@@ -59,9 +60,26 @@ gathers, ``--offload-optimizer`` keeps the sharded state in host memory
 global array (the JAX package's layout), so it resumes in either package
 at the same data-parallel size.
 
+Pipeline parallelism (``--pp P``, ``--pp-schedule``, ``--vpp``,
+``:298-318``, ``:430-510``): the mesh of ``initialize_model_parallel(
+tensor_model_parallel_size=T, pipeline_model_parallel_size=P)`` (dp =
+world / (T P)), each rank a stage model holding its ``layers / P`` layers
+(``GPTConfig(pipeline_axis="pipe")``; in the interleaved order of
+``--vpp`` chunks, which the interleaved schedule defaults to 2). gpipe,
+1f1b and interleaved run the autograd ring
+(``transformer.pipeline_parallel.pipelined_loss_fn`` over the
+``--num-microbatches`` micro-batches); zerobubble runs the plan executor
+(``zero_bubble_grads_fn``; needs ``--pp`` >= 2, ``--tp 1`` and a ZeRO
+level below 3). The non-layer grads are summed over the pipe axis by their
+specs, and the overflow vote spans the model and pipe axes. A checkpoint
+holds the whole layer stack in the interleaved order the JAX example
+writes (gathered over ``("model", "pipe")``); ZeRO level 3 over a pipe
+axis and a ZeRO checkpoint of a pipelined run raise naming ROADMAP Queue 1
+item 25.
+
 ``--unroll`` is accepted and changes nothing: the port always drives the
-layers one by one. The pipeline, two-tier mesh, MoE and monitoring options
-raise ``NotImplementedError`` with the ROADMAP item that brings them; the
+layers one by one. The two-tier mesh, MoE and monitoring options raise
+``NotImplementedError`` with the ROADMAP item that brings them; the
 reference's own argument-consistency errors are kept. ``--device cpu``
 runs the plain versions of the kernels on the CPU; the default is the card.
 
@@ -104,9 +122,6 @@ from apex_tpu_torch.transformer.amp import (
 #: options of the reference outside this slice -> the ROADMAP Queue 1 item
 #: that brings them
 _LATER = {
-    "pp": ("pipeline parallelism", 12),
-    "pp_schedule": ("the pipeline schedules", 12),
-    "vpp": ("interleaved pipeline chunks", 12),
     "mesh_islands": ("the two-tier mesh", 16),
     "moe_experts": ("MoE FFNs", 16),
     "moe_dispatch_dtype": ("MoE FFNs", 16),
@@ -233,11 +248,15 @@ def parse_args(argv=None):
 
 def check_slice(args) -> None:
     """Raise ``NotImplementedError`` for an option outside the serial,
-    data-parallel and tensor-parallel branches, naming the ROADMAP item
-    that brings it."""
+    data-, tensor- and pipeline-parallel branches and ZeRO, naming the
+    ROADMAP item that brings it."""
+    if args.pp > 1 and args.zero and (args.zero_level >= 3
+                                      or args.save_dir):
+        raise NotImplementedError(
+            "--pp with --zero-level 3, or a ZeRO checkpoint of a pipelined "
+            "run (--save-dir): ZeRO over a pipe axis at level 3 and its "
+            "chunk checkpoint come with ROADMAP Queue 1 item 25")
     on = {
-        "pp": args.pp > 1,
-        "pp_schedule": args.pp_schedule != "1f1b", "vpp": args.vpp > 1,
         "mesh_islands": args.mesh_islands > 1,
         "moe_experts": bool(args.moe_experts),
         "moe_dispatch_dtype": bool(args.moe_dispatch_dtype),
@@ -250,8 +269,9 @@ def check_slice(args) -> None:
             what, item = _LATER[name]
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}: {what} is not in this slice of "
-                f"the port (the serial, data- and tensor-parallel branches "
-                f"and ZeRO); it comes with ROADMAP Queue 1 item {item}")
+                f"the port (the serial, data-, tensor- and pipeline-parallel "
+                f"branches and ZeRO); it comes with ROADMAP Queue 1 item "
+                f"{item}")
 
 
 def microbatched_backward(bench: Bench, tokens: torch.Tensor,
@@ -278,8 +298,9 @@ def reduce_data_parallel(model: GPTModel,
                          loss: torch.Tensor) -> torch.Tensor:
     """The reference's data-parallel reduction (``:505-514``) on the
     parameters' ``.grad``: the non-layer grads through
-    ``allreduce_gradients_by_spec`` by the model's specs, the layers'
-    through ``allreduce_gradients`` over the gradient-reduction axes.
+    ``allreduce_gradients_by_spec`` by the model's specs (which also sums
+    them over the pipe axis), the layers' through ``allreduce_gradients``
+    over the gradient-reduction axes.
     Returns the ``pmean`` of ``loss``."""
     axes = mesh.get_gradient_reduction_axes()
     named = list(model.named_parameters())
@@ -310,6 +331,7 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
           num_microbatches: int = 2, lr: float = 3e-4,
           opt_level: str = "O2", remat_policy: Optional[str] = None,
           seed: int = 0, tp: int = 1, axis: Optional[str] = None,
+          pp: int = 1, vpp: int = 1, pp_schedule: str = "1f1b",
           zero_level: Optional[int] = None,
           zero_gather: Optional[str] = None,
           reduce_dtype: Optional[str] = None, zero3_prefetch: int = 0,
@@ -329,7 +351,13 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
     num_microbatches``. ``tp`` > 1 installs the dp x tp mesh
     (``initialize_model_parallel(tensor_model_parallel_size=tp)``) unless
     one of that tp size is installed, and builds the model on the model
-    axis; ``axis="model"`` does so at ``tp`` = 1 too.
+    axis; ``axis="model"`` does so at ``tp`` = 1 too. ``pp`` > 1 installs
+    the dp x pp x tp mesh and builds this rank's stage (``vpp`` chunks a
+    stage): the step runs the autograd ring, or the zero-bubble executor
+    with ``pp_schedule="zerobubble"``
+    (:func:`~apex_tpu_torch.transformer.amp.pipelined_backward`), and
+    :func:`reduce_data_parallel` sums the non-layer grads over the pipe
+    axis.
 
     ``zero_level`` (1, 2 or 3; ``--zero``) shards the optimizer over the
     data axis (``:400-420``, ``:516-600``): ``MixedPrecisionOptimizer(
@@ -342,13 +370,17 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
     dev = resolve_device(device)
     zero = zero_level is not None
     if zero and not mesh.model_parallel_is_initialized() and tp == 1 \
-            and axis is None:
+            and axis is None and pp == 1:
         mesh.initialize_model_parallel()
     if tp > 1 or axis is not None:
         axis = axis or mesh.AXIS_MODEL
+    if tp > 1 or axis is not None or pp > 1:
         if not (mesh.model_parallel_is_initialized()
-                and mesh.get_tensor_model_parallel_world_size() == tp):
-            mesh.initialize_model_parallel(tensor_model_parallel_size=tp)
+                and mesh.get_tensor_model_parallel_world_size() == tp
+                and mesh.get_pipeline_model_parallel_world_size() == pp):
+            mesh.initialize_model_parallel(
+                tensor_model_parallel_size=tp,
+                pipeline_model_parallel_size=pp)
     dp, rank = data_parallel_world()
     distributed = dist.is_available() and dist.is_initialized()
     policy = amp.get_policy(opt_level)
@@ -364,6 +396,8 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
         remat=True,
         remat_policy=remat_policy,
         axis=axis,
+        pipeline_axis=mesh.AXIS_PIPE if pp > 1 else None,
+        virtual_pipeline_size=vpp,
         zero3_prefetch=zero3_prefetch,
     )
     model = GPTModel(cfg, device=dev, seed=seed)
@@ -373,22 +407,38 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
         zero_axis=mesh.AXIS_DATA if zero else None,
         zero_level=zero_level or 2, gather_dtype=zero_gather,
         reduce_dtype=reduce_dtype)
+    pipe_vg = None
+    if pp > 1 and pp_schedule == "zerobubble":
+        from apex_tpu_torch.transformer.pipeline_parallel import (
+            zero_bubble_grads_fn,
+        )
+
+        pipe_vg = zero_bubble_grads_fn(model, num_microbatches, pp)
     if zero:
         return _build_zero(model, mp_opt, cfg, num_microbatches, offload,
                            offload_buckets,
-                           micro_batch * dp * num_microbatches, dp, rank)
+                           micro_batch * dp * num_microbatches, dp, rank,
+                           vpp, pipe_vg)
     opt_state = mp_opt.init(model)
 
     vote = None
-    if axis is not None:  # every rank of the model axis skips or steps
+    if pp > 1:  # every rank of the model and pipe axes skips or steps
+        vote = MeshGradScaler().found_inf_reducer
+    elif axis is not None:  # every rank of the model axis skips or steps
         def vote(found):
             return collectives.found_inf_max(found, axis)
 
     def step(tokens: torch.Tensor, targets: torch.Tensor):
         # over the parts, not the Bench: no cycle keeps a dropped trainer
-        loss = _microbatched_backward(
-            model, mp_opt, opt_state, local_rows(tokens, dp, rank),
-            local_rows(targets, dp, rank), num_microbatches)
+        toks, tgts = (local_rows(tokens, dp, rank),
+                      local_rows(targets, dp, rank))
+        if pp > 1:
+            loss = tamp.pipelined_backward(
+                mp_opt, opt_state, model, toks.to(dev), tgts.to(dev),
+                num_microbatches, pipe_vg)
+        else:
+            loss = _microbatched_backward(model, mp_opt, opt_state, toks,
+                                          tgts, num_microbatches)
         if distributed:
             loss = reduce_data_parallel(model, loss)
         metrics = mp_opt.step(opt_state, model, found_inf_reducer=vote)
@@ -399,7 +449,8 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
 
 
 def _build_zero(model, mp_opt, cfg, num_microbatches, offload,
-                offload_buckets, batch, dp, rank) -> Bench:
+                offload_buckets, batch, dp, rank, vpp=1,
+                pipe_vg=None) -> Bench:
     """:func:`build`'s ZeRO branch: the sharded state (resident, level-3
     chunks or host-offloaded) and the step of ``build_zero_train_step`` on
     this rank's rows."""
@@ -418,7 +469,9 @@ def _build_zero(model, mp_opt, cfg, num_microbatches, offload,
         opt_state = mp_opt.init(model)
     zstep = build_zero_train_step(mp_opt, model, opt_state,
                                   num_microbatches=num_microbatches,
-                                  zero3=zero3, offload=off)
+                                  zero3=zero3, offload=off,
+                                  virtual_pipeline_size=vpp,
+                                  pipe_value_and_grad=pipe_vg)
 
     def step(tokens: torch.Tensor, targets: torch.Tensor):
         return zstep(local_rows(tokens, dp, rank),
@@ -434,7 +487,8 @@ def from_args(args, remat_policy: Optional[str] = None) -> Bench:
                  micro_batch=args.micro_batch,
                  num_microbatches=args.num_microbatches, lr=args.lr,
                  opt_level=args.opt_level, remat_policy=remat_policy,
-                 tp=args.tp,
+                 tp=args.tp, pp=args.pp, vpp=args.vpp,
+                 pp_schedule=args.pp_schedule,
                  zero_level=args.zero_level if args.zero else None,
                  zero_gather=args.zero_gather, reduce_dtype=args.reduce_dtype,
                  zero3_prefetch=args.zero3_prefetch,
@@ -462,11 +516,12 @@ def train_state(bench: Bench, device="cpu") -> Dict[str, Any]:
 
 
 def train_state_specs(bench: Bench) -> Optional[Dict[str, Any]]:
-    """The split of each leaf of :func:`train_state` over the model axis
-    (the masters and moments split as their params; the step count and
-    the scaler replicated), or None for a serial model. ZeRO's global
-    chunk arrays are whole on every rank (None)."""
-    if bench.model.cfg.axis is None:
+    """The split of each leaf of :func:`train_state` over the model and
+    pipe axes (the masters and moments split as their params; the step
+    count and the scaler replicated), or None for a serial model. ZeRO's
+    global chunk arrays are whole on every rank (None)."""
+    c = bench.model.cfg
+    if c.axis is None and c.pipeline_axis is None:
         return None
     specs = bench.model.specs()
     if bench.mp_opt.zero_axis is not None:
@@ -538,6 +593,7 @@ def _run(args) -> Dict[str, Any]:
     lead = dist.get_rank() == 0 if distributed else True
     dev = bench.model.device
     specs = train_state_specs(bench)
+    axes = (mesh.AXIS_MODEL, mesh.AXIS_PIPE)
     out: Dict[str, Any] = {"bench": bench, "losses": [], "metrics": [],
                            "step_s": [], "save_s": [], "restore_s": None}
     next_batch = batches(args, batch)
@@ -546,12 +602,24 @@ def _run(args) -> Dict[str, Any]:
             step := checkpoint.latest_step(args.save_dir)) is not None:
         t0 = time.perf_counter()
         load_train_state_(bench, checkpoint.restore_checkpoint(
-            args.save_dir, train_state(bench, device="meta"), specs=specs))
+            args.save_dir, train_state(bench, device="meta"), specs=specs,
+            axis=axes))
         out["restore_s"] = time.perf_counter() - t0
         start = step
         if lead:
             print(f"resumed from step {step}")
     out["start"] = start
+    if args.pp_schedule == "zerobubble" and lead:
+        from apex_tpu_torch.transformer.pipeline_parallel import (
+            plan_schedule,
+        )
+
+        zb = plan_schedule("zero-bubble", args.num_microbatches, args.pp)
+        f1 = plan_schedule("1f1b", args.num_microbatches, args.pp)
+        print(f"pp-schedule zerobubble: {zb.ticks} ticks, "
+              f"{zb.idle_slots()[0]} idle/rank (plan bubble "
+              f"{zb.bubble_fraction():.4f} vs 1f1b "
+              f"{f1.bubble_fraction():.4f})")
 
     t0 = time.perf_counter()
     for i in range(start, start + args.steps):
@@ -568,10 +636,10 @@ def _run(args) -> Dict[str, Any]:
                   f"scale {float(metrics['loss_scale']):.0f}")
         if args.save_dir and (i + 1) % args.save_every == 0:
             s0 = time.perf_counter()
-            if specs is not None:  # gathered over the model axis: all call
+            if specs is not None:  # gathered over model and pipe: all call
                 checkpoint.save_checkpoint(
                     args.save_dir, i + 1, train_state(bench, device=dev),
-                    specs=specs)
+                    specs=specs, axis=axes)
             elif bench.mp_opt.zero_axis is not None:
                 state = train_state(bench)  # ZeRO's chunks: all gather
                 if lead:

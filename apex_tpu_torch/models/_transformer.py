@@ -71,6 +71,10 @@ from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import layer_norm
+from apex_tpu_torch.parallel.pipeline_layout import (
+    interleave_stack,
+    stage_layer_ids,
+)
 from apex_tpu_torch.transformer import tensor_parallel as tp
 from apex_tpu_torch.utils.nn import inverted_dropout
 
@@ -323,6 +327,21 @@ class TransformerLayer(nn.Module):
             c.ffn, c.hidden_size, input_is_parallel=True,
             init_method=out_init, **kw)
 
+    @staticmethod
+    def skip_draws(cfg, device, generator: torch.Generator) -> None:
+        """Advance ``generator`` past one layer's draws without building
+        it: the same normal fills as ``__init__`` (the full qkv, proj, fc1
+        and fc2 kernels, in that order; the biases and LN params draw
+        nothing), into one scratch buffer."""
+        c = cfg
+        h, f = c.hidden_size, c.ffn
+        shapes = ((h, 3 * h), (h, h), (h, f), (f, h))
+        buf = torch.empty(max(a * b for a, b in shapes),
+                          dtype=c.params_dtype, device=device)
+        with torch.no_grad():
+            for a, b in shapes:
+                buf[:a * b].view(a, b).normal_(generator=generator)
+
     def specs(self):
         """Each leaf's split over the model axis, in the JAX tree's layout
         (``layer_stack_specs`` without the stacked dim)."""
@@ -386,32 +405,53 @@ class TransformerBase(nn.Module):
             params_dtype=c.params_dtype,
             init_method=tp.scaled_normal(c.init_method_std), device=device,
             generator=generator)
-        self.layers = nn.ModuleList(
-            TransformerLayer(c, device, generator, self._sp, self._acd)
-            for _ in range(c.num_layers))
+        # every layer is drawn from the generator, so a stage holds the
+        # serial model's layers from the same seed: it builds its own and
+        # only advances the generator past each other one
+        self._pipe = getattr(c, "pipeline_axis", None)
+        ids = list(range(c.num_layers))
+        if self._pipe is not None:
+            rank, size = tp.mappings.axis_world(self._pipe)
+            ids = stage_layer_ids(c.num_layers, size,
+                                  c.virtual_pipeline_size, rank)
+        drawn = {}
+        for i in range(c.num_layers):
+            if i in ids:
+                drawn[i] = TransformerLayer(c, device, generator, self._sp,
+                                            self._acd)
+            else:
+                TransformerLayer.skip_draws(c, device, generator)
+        self.layers = nn.ModuleList(drawn[i] for i in ids)
 
     def layer_stack_specs(self):
         """The layers' specs with the stacked ``num_layers`` dim first
-        (``stack_specs``)."""
+        (``stack_specs``), named over the pipeline axis on a stage."""
 
         def stack(t):
             if isinstance(t, dict):
                 return {k: stack(v) for k, v in t.items()}
-            return (None, *t)
+            return (self._pipe, *t)
 
         return stack(self.layers[0].specs())
 
     def params_from_numpy(self, tree):
         """Load the JAX ``init`` tree given as numpy arrays (layer leaves
         stacked ``(num_layers, ...)``, ``kernel`` in JAX's ``(in, out)``
-        layout, which the port keeps): the FULL tree, of which a
-        tensor-parallel model loads this rank's shard
+        layout, which the port keeps): the FULL tree, of which a pipeline
+        stage loads its block of the interleaved layer stack and a
+        tensor-parallel model this rank's shard
         (:func:`apex_tpu_torch.transformer.tensor_parallel.shard_params`
         by :meth:`specs`). Shapes must match
         (:func:`apex_tpu_torch._params.load_tree_`)."""
         from apex_tpu_torch._params import load_tree_
 
         c = self.cfg
+        if self._pipe is not None:
+            rank, size = tp.mappings.axis_world(self._pipe)
+            tree = dict(tree, layers=interleave_stack(
+                tree["layers"], size, c.virtual_pipeline_size))
+            tree = tp.shard_params(tree, self.specs(), rank, size,
+                                   self._pipe)
         if c.axis is not None:
             rank, size = tp.mappings.axis_world(c.axis)
             tree = tp.shard_params(tree, self.specs(), rank, size, c.axis)
@@ -564,13 +604,14 @@ class TransformerBase(nn.Module):
                                                   device)
         return tp.data_parallel_generator(seed, device)
 
-    def _layer_seeds(self, generator: Optional[torch.Generator]
-                     ) -> List[Optional[int]]:
-        """One seed per layer from ``generator`` (the reference splits the
-        dropout key per layer, ``_transformer.py:587``). Each layer draws
-        its masks from a fresh generator of its own seed, so a checkpointed
-        layer's recompute draws the same masks as its forward."""
-        n = len(self.layers)
+    def _layer_seeds(self, generator: Optional[torch.Generator],
+                     n: Optional[int] = None) -> List[Optional[int]]:
+        """One seed per layer (of ``n``, default all) from ``generator``
+        (the reference splits the dropout key per layer,
+        ``_transformer.py:587``). Each layer draws its masks from a fresh
+        generator of its own seed, so a checkpointed layer's recompute
+        draws the same masks as its forward."""
+        n = len(self.layers) if n is None else n
         if generator is None or self.cfg.hidden_dropout == 0.0:
             return [None] * n
         seeds = torch.randint(0, 2 ** 62, (n,), generator=generator,
@@ -606,10 +647,11 @@ class TransformerBase(nn.Module):
     def run_layers_train(self, h: torch.Tensor,
                          dropout_generator: Optional[torch.Generator] = None,
                          bias: Optional[torch.Tensor] = None,
-                         chunk_meta=None) -> torch.Tensor:
+                         chunk_meta=None, layers=None) -> torch.Tensor:
         """The differentiable layer drive: each layer checkpointed when
         ``cfg.remat`` is set, under ``cfg.remat_policy`` (the bias one of
-        the checkpointed inputs). ``chunk_meta`` (a ZeRO-3
+        the checkpointed inputs). ``layers``: the layer modules to run (a
+        pipeline chunk; default all of them). ``chunk_meta`` (a ZeRO-3
         :class:`~apex_tpu_torch.optimizers.distributed.ChunkedMeta` of the
         layer stack, with its ``chunks``) drives the layers from this
         rank's chunks through :class:`_Zero3Drive`."""
@@ -624,8 +666,9 @@ class TransformerBase(nn.Module):
                 bias, h, *chunks)
         policy = remat_policy(getattr(self.cfg, "remat_policy", None))
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for layer, seed in zip(self.layers,
-                               self._layer_seeds(dropout_generator)):
+        layers = self.layers if layers is None else layers
+        for layer, seed in zip(layers, self._layer_seeds(dropout_generator,
+                                                         len(layers))):
             fn = functools.partial(self._train_layer, layer, seed)
             if not remat:
                 h = fn(h, bias)

@@ -37,8 +37,14 @@ sequence parallelism as the reference does. Under ZeRO-3
 this rank's chunks, each gathered just in time (``GPTConfig.
 zero3_prefetch`` layers ahead; ``models/_transformer.py``), and
 ``activation_comm_dtype`` quantizes the sequence-parallel conjugates'
-wire. Context parallelism and MoE
-FFNs are later slices and raise ``NotImplementedError``.
+wire. Pipeline parallelism (``pipeline_axis="pipe"``, after
+``initialize_model_parallel(pipeline_model_parallel_size=S)``): the model
+is one stage, holding its ``num_layers / S`` layers (the serial model's
+from the same seed, in the interleaved order of ``virtual_pipeline_size``
+chunks), its layer specs named over the pipe axis; it trains through
+``transformer.pipeline_parallel`` and :meth:`GPTModel.forward` refuses to
+run it alone. Context parallelism and MoE FFNs are later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -73,6 +79,11 @@ class GPTConfig:
     max_seq_len: int = 1024
     ffn_hidden_size: Optional[int] = None  # default 4 * hidden
     axis: Optional[str] = None  # tensor-parallel mesh axis (None: serial)
+    # pipeline mesh axis (None: every layer here): a model on "pipe" holds
+    # its stage's num_layers / pp layers, in the interleaved order of
+    # virtual_pipeline_size chunks a stage
+    pipeline_axis: Optional[str] = None
+    virtual_pipeline_size: int = 1
     # Megatron-style sequence parallelism on the model axis (ignored
     # serial); needs max_seq_len divisible by the tp size
     sequence_parallel: bool = False
@@ -250,6 +261,11 @@ class GPTModel(TransformerBase):
         tokens = tokens.to(self.device)
         if targets is not None:
             targets = targets.to(self.device)
+        if self._pipe is not None:
+            raise ValueError(
+                "a pipeline stage model (pipeline_axis set) runs through "
+                "apex_tpu_torch.transformer.pipeline_parallel "
+                "(prepare_pipelined_model / pipelined_loss_fn)")
         h = self.run_layers_train(self.embed(tokens), dropout_generator,
                                   chunk_meta=layer_chunk_meta)
         return self.head(h, targets)

@@ -225,22 +225,27 @@ def reduce_scatter(tree: Any, axis: AxisNames, *,
 
 def ppermute_shift(tree: Any, axis: AxisNames, shift: int = 1) -> Any:
     """Ring shift: each rank's leaf goes to the rank ``shift`` further along
-    ``axis`` (mod its size), by paired sends and receives."""
+    ``axis`` (mod its size), by paired sends and receives. The wire is
+    chosen by backend: gloo's point-to-point transport reads and writes
+    host memory, so on gloo a CUDA leaf crosses as a host copy and lands
+    back on its device; NCCL takes it as it is."""
     pg, ranks, idx = _group(axis)
     n = len(ranks)
     if pg is None or shift % n == 0:
         return tree_map(lambda t: t.clone(), tree)
     dst, src = ranks[(idx + shift) % n], ranks[(idx - shift) % n]
+    staged = dist.get_backend(pg) == "gloo"
 
     def shift_one(t):
-        send = t.contiguous()
-        recv = torch.empty_like(send)
+        host = staged and t.is_cuda
+        send = t.detach().contiguous().cpu() if host else t.contiguous()
+        recv = torch.empty_like(send, memory_format=torch.contiguous_format)
         ops = [dist.P2POp(dist.isend, send, dst, group=pg),
                dist.P2POp(dist.irecv, recv, src, group=pg)]
         for w in _run("ppermute", axis, pg,
                       lambda: dist.batch_isend_irecv(ops)):
             w.wait()
-        return recv
+        return recv.to(t.device) if host else recv
 
     return tree_map(shift_one, tree)
 

@@ -61,35 +61,54 @@ def microbatched_backward(loss_fn: Callable[[torch.Tensor, torch.Tensor],
                           leaves: Sequence[torch.Tensor], mp_opt, state,
                           tokens: torch.Tensor, targets: torch.Tensor,
                           num_microbatches: int) -> torch.Tensor:
-    """The loss of ``pipelined_loss_fn`` at one stage: each of the M
+    """The loss of ``pipelined_loss_fn`` at one stage, through
+    ``get_forward_backward_func(1)`` (no pipelining): each of the M
     micro-batches' mean loss ``loss_fn(tokens, targets)``, scaled by the
     loss scale over M, runs its own backward, so the ``.grad`` of
     ``leaves`` sums to the batch mean's. With M > 1 each micro-batch's
     grads are added into fp32 buffers and the sum is rounded once to each
     leaf's dtype. Returns the batch mean (detached)."""
-    if tokens.shape[0] % num_microbatches:
-        raise ValueError(f"batch ({tokens.shape[0]}) must divide by "
-                         f"microbatches ({num_microbatches})")
-    leaves = list(leaves)
-    acc = total = None
-    for tok, tgt in zip(tokens.chunk(num_microbatches),
-                        targets.chunk(num_microbatches)):
-        loss = loss_fn(tok, tgt)
-        mp_opt.scale_loss(loss / num_microbatches, state).backward()
-        loss = loss.detach()
-        total = loss if total is None else total + loss
-        if num_microbatches > 1:
-            if acc is None:  # fp32 copies; an fp32 grad is kept as it is
-                acc = [p.grad.float() for p in leaves]
-            else:
-                for a, p in zip(acc, leaves):
-                    a.add_(p.grad)
-            for p in leaves:
-                p.grad = None
-    if acc is not None:
-        for p, a in zip(leaves, acc):
-            p.grad = a.to(p.dtype)
-    return total / num_microbatches
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        get_forward_backward_func,
+    )
+
+    loss, _ = get_forward_backward_func(1)(
+        loss_fn, leaves, tokens, targets, num_microbatches,
+        scale_loss=lambda x: mp_opt.scale_loss(x, state))
+    return loss
+
+
+def pipelined_backward(mp_opt, state, model, tokens: torch.Tensor,
+                       targets: torch.Tensor, num_microbatches: int,
+                       pipe_value_and_grad=None) -> torch.Tensor:
+    """The backward of a pipeline stage model (``GPTConfig(pipeline_axis=
+    "pipe")``) on this rank's rows: the scaled loss of the autograd ring
+    (``pipelined_loss_fn`` over M micro-batches) run backward, or, with
+    ``pipe_value_and_grad`` (``(layers_local, tokens, targets, scale) ->
+    (scaled_loss, rest_g, layer_g)``, e.g. ``zero_bubble_grads_fn``), the
+    explicit executor's grads put in ``.grad``. Each param's ``.grad`` is
+    then this stage's share: its layers' grads and its partial non-layer
+    grads (the spec-aware reduction sums them over ``pipe``). The ring's
+    interleaving is the stage model's (``model.cfg.virtual_pipeline_size``,
+    fixed when it placed its layers). Returns the full-batch mean loss
+    (detached, the same on every stage)."""
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        prepare_pipelined_model,
+    )
+
+    if pipe_value_and_grad is None:
+        _, layers, pipe_loss = prepare_pipelined_model(
+            model, num_microbatches=num_microbatches)
+        loss = pipe_loss(layers, tokens, targets)
+        mp_opt.scale_loss(loss, state).backward()
+        return loss.detach()
+    scale = state.scaler.loss_scale
+    loss, rest_g, layer_g = pipe_value_and_grad(model.layers, tokens,
+                                                targets, scale)
+    rest, layer = iter(rest_g), iter(layer_g)
+    for name, p in model.named_parameters():
+        p.grad = next(layer if name.startswith("layers.") else rest)
+    return loss / scale
 
 
 def _param_specs(model) -> List[Any]:
@@ -135,21 +154,24 @@ def build_zero_train_step(
     host-offloaded buckets instead; ``opt_state`` is then its
     ``HostOffloadState``.
 
-    The pipeline arguments (``num_microbatches`` across stages is the
-    stage-local M here; ``virtual_pipeline_size`` > 1 and
-    ``pipe_value_and_grad``) raise ``NotImplementedError``: ROADMAP Queue 1
-    item 12. ``traced`` / ``tracer`` (the span anatomy) raise: item 21.
-    ``with_aux`` (MoE router losses) raises: item 16."""
+    Over a pipeline axis (a stage model, ``GPTConfig(pipeline_axis=
+    "pipe")``; levels 1 and 2) the backward is :func:`pipelined_backward`:
+    the autograd ring over the ``num_microbatches`` micro-batches (its
+    layers in the model's chunks: ``virtual_pipeline_size`` is only checked
+    against ``model.cfg.virtual_pipeline_size``),
+    or ``pipe_value_and_grad`` (the zero-bubble executor,
+    ``zero_bubble_grads_fn``); the spec-aware reduction then sums the
+    non-layer grads over ``pipe`` (the layer specs name it) and the
+    overflow vote spans ``pipe``. Level 3 over a pipe axis raises
+    ``NotImplementedError``: ROADMAP Queue 1 item 25. ``traced`` /
+    ``tracer`` (the span anatomy) raise: item 21. ``with_aux`` (MoE router
+    losses) raises: item 16."""
     from apex_tpu_torch.models._transformer import swap_params
     from apex_tpu_torch.parallel import mesh
     from apex_tpu_torch.parallel.distributed import (
         allreduce_gradients_by_spec,
     )
 
-    if virtual_pipeline_size != 1 or pipe_value_and_grad is not None:
-        raise NotImplementedError(
-            "build_zero_train_step: the pipeline schedules (virtual_pipeline"
-            "_size, pipe_value_and_grad) come with ROADMAP Queue 1 item 12")
     if traced or tracer is not None:
         raise NotImplementedError(
             "build_zero_train_step(traced=/tracer=): the zero.grads / "
@@ -158,12 +180,31 @@ def build_zero_train_step(
         raise NotImplementedError(
             "build_zero_train_step(with_aux=True): MoE router losses come "
             "with ROADMAP Queue 1 item 16")
-    if mesh.model_parallel_is_initialized() \
-            and mesh.get_pipeline_model_parallel_world_size() > 1:
-        raise NotImplementedError(
-            "build_zero_train_step over a pipeline axis: ROADMAP Queue 1 "
-            "item 12")
     level3 = getattr(mp_opt, "zero_level", 2) >= 3
+    piped = getattr(model.cfg, "pipeline_axis", None) is not None
+    if level3 and pipe_value_and_grad is not None:
+        raise ValueError(
+            "pipe_value_and_grad (the zero-bubble schedule engine) "
+            "composes with ZeRO levels 1/2 only: the level-3 branch "
+            "rebuilds the pipelined loss around the fully-sharded chunk "
+            "drive")
+    if level3 and (piped or virtual_pipeline_size != 1 or (
+            mesh.model_parallel_is_initialized()
+            and mesh.get_pipeline_model_parallel_world_size() > 1)):
+        raise NotImplementedError(
+            "build_zero_train_step at zero_level 3 over a pipeline axis: "
+            "ROADMAP Queue 1 item 25")
+    if not piped and (virtual_pipeline_size != 1
+                      or pipe_value_and_grad is not None):
+        raise ValueError(
+            "virtual_pipeline_size / pipe_value_and_grad need a pipeline "
+            "stage model (GPTConfig(pipeline_axis='pipe'))")
+    if piped and virtual_pipeline_size != model.cfg.virtual_pipeline_size:
+        raise ValueError(
+            f"virtual_pipeline_size={virtual_pipeline_size} but the stage "
+            f"model holds its layers in "
+            f"{model.cfg.virtual_pipeline_size} chunks a stage (GPTConfig."
+            f"virtual_pipeline_size places them when it is built)")
     if level3 and zero3 is None:
         raise ValueError(
             "zero_level=3 needs zero3=(mp_opt.zero3_init(model)) -- the "
@@ -202,8 +243,13 @@ def build_zero_train_step(
     def train_step(tokens: torch.Tensor, targets: torch.Tensor):
         tokens = tokens.to(model.device)
         targets = targets.to(model.device)
-        loss = microbatched_backward(loss_fn, leaves, mp_opt, opt_state,
-                                     tokens, targets, num_microbatches)
+        if piped:
+            loss = pipelined_backward(
+                mp_opt, opt_state, model, tokens, targets, num_microbatches,
+                pipe_value_and_grad)
+        else:
+            loss = microbatched_backward(loss_fn, leaves, mp_opt, opt_state,
+                                         tokens, targets, num_microbatches)
         grads = reduce_nonzero([p.grad if p.grad is not None
                                 else torch.zeros_like(p) for p in leaves])
         for p in leaves:

@@ -25,6 +25,17 @@ of ``(b, s, h)`` activations:
 | gather_from_sequence_...      | all-gather (seq)   | reduce-scatter (seq)*|
 | reduce_scatter_to_sequence_...| reduce-scatter     | all-gather (seq)     |
 
+The pipeline's pair moves tensors between the stages of the ``"pipe"``
+axis:
+
+| fn                            | forward               | backward            |
+|-------------------------------|-----------------------|---------------------|
+| ring_shift                    | shift +k along axis   | shift -k            |
+| reduce_scatter_along_first_dim| reduce-scatter dim 0  | all-gather dim 0    |
+
+and ``reduce_from_tensor_model_parallel_region(x, axis="pipe")`` is the
+reference's identity-backward psum of the stage losses.
+
 (*) ``tensor_parallel_output_grad=False`` makes the gather's backward a
 plain slice, for call sites whose cotangent is already replicated across
 the group (after a ``copy_to``), where a reduce-scatter would count it
@@ -195,6 +206,46 @@ class _ReduceScatterToSequenceParallelRegion(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _seq_all_gather(g, ctx.axis, ctx.wire), None, None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, shift):
+        ctx.axis, ctx.shift = axis, shift
+        return _coll.ppermute_shift(x, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _coll.ppermute_shift(g, ctx.axis, -ctx.shift), None, None
+
+
+class _ReduceScatterFirstDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _reduce_scatter(x, axis, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.axis, 0), None
+
+
+def ring_shift(x: torch.Tensor, axis: str, shift: int = 1) -> torch.Tensor:
+    """Each rank's ``x`` goes to the rank ``shift`` further along ``axis``
+    (mod its size); the backward sends the cotangent back by ``-shift``
+    (the transpose of the pipeline ring's ``ppermute``). Every rank of the
+    axis must run both, in the same order."""
+    axis_world(axis)
+    return _RingShift.apply(x, axis, int(shift))
+
+
+def reduce_scatter_along_first_dim(x: torch.Tensor,
+                                   axis: str) -> torch.Tensor:
+    """Sum over ``axis``, then this rank's block of dim 0 (``lax.psum_
+    scatter(tiled=True)``); the backward all-gathers dim 0 (its AD
+    transpose): the pipeline's sharded LM head."""
+    axis_world(axis)
+    return _ReduceScatterFirstDim.apply(x, axis)
 
 
 def copy_to_tensor_model_parallel_region(x: torch.Tensor,

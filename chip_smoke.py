@@ -13,8 +13,9 @@
     python3 chip_smoke.py --dp   # the build, then phase 14 alone
     python3 chip_smoke.py --tp   # the build, then phase 15 alone
     python3 chip_smoke.py --zero   # the build, then phase 16 alone
+    python3 chip_smoke.py --pp   # the build, then phase 17 alone
 
-Sixteen phases; any failure raises and exits non-zero:
+Seventeen phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
@@ -229,7 +230,7 @@ Sixteen phases; any failure raises and exits non-zero:
    apex_tpu_torch.benchmarks.convergence_probe`` at GPT-2 345M O2, 2 x
    512 tokens, lr 3e-4 warmed up over 50 steps, cut to 300 steps (its
    default 600) and a CPU replay of 2 (:data:`PROBE_ARGS`, to leave room
-   for phase 16): exit 0, final loss <=
+   for phases 16 and 17): exit 0, final loss <=
    6.0, the replay with no error within 0.05, the exact launch counts
    (path ``probe``); (b) ``FusedMixedPrecisionLamb`` beside
    ``MixedPrecisionOptimizer(FusedLAMB)`` at BERT-large (16 x 512, O2, 5
@@ -309,6 +310,20 @@ Sixteen phases; any failure raises and exits non-zero:
    bit, and an inf in rank 1's grads alone skipping the step on both
    ranks with masters, moments and residual unchanged; each run's peak
    memory per rank (``torch.cuda.max_memory_allocated``, reported).
+17. **Pipeline parallel** (:func:`pp_phase`): (a) NCCL at world size 1 in
+   this process: ``pretrain_gpt`` at 345M (8 x 1024 as 4 micro-batches of
+   2, O2) through ``get_forward_backward_func(1)`` on a pipe axis of 1, 3
+   steps, losses and params after each step bit for bit the serial run's.
+   (b) Two gloo ranks on the one card, spawned before (a): a CUDA tensor
+   through the ring shift by value (gloo carries it through the host, as
+   the printout says), then ``pretrain_gpt --pp 2`` at 345M (12 layers a
+   stage, 3 O2 steps) with 1f1b, interleaved ``--vpp 2`` and zerobubble
+   against the serial run (losses, step 1's grads by their bf16 floor,
+   each stage's layers held against the serial layers it holds, the
+   non-layer params equal on both stages after each step), gpipe one step
+   bit for bit the 1f1b run's first, the 1f1b run's O0 twin against the
+   serial O0 step (loss, grads by share and by row, :data:`PP_O0_GRAD`)
+   and ``--pp 2 --zero`` against ``--pp 2``; each stage's launches exact.
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -321,7 +336,7 @@ and phase 10's (``gpt_pretrain``, ``gpt_pretrain_o0``, ``gpt_remat_*``,
 ``gpt_generate*``, ``gpt_pretrain_o0_long``), phase 11's (``bench``) and
 phase 12's (``probe``), phase 13's (``contrib``), phase 14's (``dp``:
 (a)'s runs and both ranks' of (b)), phase 15's (``tp``: the same) and
-phase 16's (``zero``: the same);
+phase 16's (``zero``: the same) and phase 17's (``pp``: the same);
 ``by_shape`` also holds phase 10's fp32 times and phase 15's at 8 heads;
 ``segments``: phase 9's times on #1-#6; ``launches``:
 their sum; ``bias_route``: #1, #5 and #6 with and without the bias;
@@ -6266,8 +6281,8 @@ def bench_harness(torch, ops, dev):
 #: lr 3e-4 warmed up over 50 steps): 300 steps, not the default 600, and
 #: the CPU replay cut from 6 steps to 2 -- a replay step of the 345M bf16
 #: model takes about 32 s on the card's host after about 37 s of set-up
-#: (PERF.md) -- so that phase 16 fits the script's time limit: the 600-step
-#: curve read 0.0069 at step 300 against the bar of 6.0 (PERF.md)
+#: (PERF.md) -- so that phases 16 and 17 fit the script's time limit: the
+#: 600-step curve read 0.0069 at step 300 against the bar of 6.0 (PERF.md)
 PROBE_ARGS = ["--cpu-check-steps", "2", "--steps", "300"]
 PROBE_OUTPUT = os.path.join(HERE, "build", "convergence_probe.json")
 
@@ -6700,6 +6715,11 @@ def main():
     print("phase 16: ZeRO 1/2/3, the quantized wires and host offload (NCCL "
           "at world size 1; two gloo ranks on the card)")
     gpt_counts["zero"] = zero_phase(torch, ops, dev)
+    torch.cuda.empty_cache()
+
+    print("phase 17: pipeline parallel (NCCL at world size 1; two gloo "
+          "ranks on the card)")
+    gpt_counts["pp"] = pp_phase(torch, ops, dev)
     torch.cuda.empty_cache()
     for row in rows:
         if row["name"] in fp32_rows:
@@ -7712,7 +7732,8 @@ def pretrain_steps(torch, ops, argv, steps, snap=False, axis=None,
             vocab=args.vocab, hidden=args.hidden, layers=args.layers,
             heads=args.heads, seq=args.seq, micro_batch=args.micro_batch,
             num_microbatches=args.num_microbatches, lr=args.lr,
-            opt_level=args.opt_level, tp=args.tp, axis=axis,
+            opt_level=args.opt_level, tp=args.tp, axis=axis, pp=args.pp,
+            vpp=args.vpp, pp_schedule=args.pp_schedule,
             zero_level=args.zero_level if args.zero else None,
             zero_gather=args.zero_gather, reduce_dtype=args.reduce_dtype,
             zero3_prefetch=args.zero3_prefetch,
@@ -9395,6 +9416,466 @@ def zero_main():
     print_verdict()
     return 0
 
+
+# ---------------------------------------------------------------------------
+# phase 17: pipeline parallelism (NCCL at world size 1; two gloo ranks on
+# the card)
+# ---------------------------------------------------------------------------
+
+PP_STEPS = 3
+#: BASELINE config 4 as 4 micro-batches of 2 (8 x 1024 a step): the serial
+#: run, (a)'s world-1 run and (b)'s reference; (b) adds ``--pp 2``
+PP_SERIAL = GPT_345M + ["--seq", "1024", "--micro-batch", "2",
+                        "--num-microbatches", "4", "--lr", "1e-4"]
+PP_345M = PP_SERIAL + ["--pp", "2"]
+#: (label, flags, steps): gpipe and 1f1b both run the autograd ring in
+#: ``pretrain_gpt`` (the reference's example does the same), so gpipe runs
+#: one step, held bit for bit against the 1f1b run's first
+PP_1F1B = ["--pp-schedule", "1f1b"]
+PP_CASES = (("1f1b", PP_1F1B, PP_STEPS),
+            ("gpipe", ["--pp-schedule", "gpipe"], 1),
+            ("interleaved", ["--pp-schedule", "interleaved", "--vpp", "2"],
+             PP_STEPS),
+            ("zerobubble", ["--pp-schedule", "zerobubble"], PP_STEPS))
+#: limits of (b), phase 15's: the losses relative; the O2 step-1 grads by
+#: their floor (each leaf's L2 distance from the serial run's over the
+#: serial run's own distance from its fp32-compute twin: the pipelined step
+#: sums each layer's grads over its ticks inside one backward in the param
+#: dtype, bf16, as the reference's scan does, where the serial one sums in
+#: fp32 and rounds once, and its sharded head projects 4 rows a stage where
+#: the serial one projects 2 a micro-batch; on an H100 the position grad
+#: read 0.0157 by row against phase 14's 0.015, PERF.md);
+#: the 1f1b run's O0 twin (fp32 params and compute: the parallel math with
+#: no bf16 rounding) against the serial O0 run: its step-1 loss relative
+#: and its grads by share of max |ref| and by row, at about 15x what an
+#: H100 read (grads 6.8e-6 by share and 5.0e-6 by row, PERF.md), so a
+#: lost micro-batch or a head share off by a factor of M or S fails;
+#: ``--zero`` against the same run without it as phase 16 holds ZeRO-2
+#: against DP
+PP_LOSS_REL = DP_LOSS_REL
+PP_FLOOR = TP_FLOOR
+PP_O0_LOSS_REL = 2e-5
+PP_O0_GRAD = (1e-4, 1e-4)
+
+
+def pp_per_step(L, M, S, vpp, schedule, last):
+    """Launches of one pipelined step on one stage of ``L / S`` layers.
+    The ring (gpipe, 1f1b, interleaved) runs its chunk of ``L / (S vpp)``
+    layers on every one of its ``vpp M + S - 1`` ticks, each a checkpointed
+    layer (the forward, its recompute, the backward; LN twice a layer each
+    way), and the sharded head once (the final LN). The zero-bubble
+    executor runs per micro-batch a forward with no graph, then the
+    input-grad and the weight-grad slots, each a forward under autograd,
+    its recompute and the backward; the last stage's head chained onto
+    both slots."""
+    n = L // S
+    if schedule == "zerobubble":
+        head = 2 * M if last else 0
+        return {"flash_attention_fwd": 5 * n * M,
+                "flash_attention_bwd_dq": 2 * n * M,
+                "flash_attention_bwd_dkv": 2 * n * M,
+                "layer_norm_fwd": 10 * n * M + head,
+                "layer_norm_bwd": 4 * n * M + head}
+    apps = n * (vpp * M + S - 1) // vpp
+    return {"flash_attention_fwd": 2 * apps,
+            "flash_attention_bwd_dq": apps,
+            "flash_attention_bwd_dkv": apps,
+            "layer_norm_fwd": 4 * apps + 1,
+            "layer_norm_bwd": 2 * apps + 1}
+
+
+def pp_world1(torch, ops, dev, total):
+    """(a): NCCL at world size 1 in this process: the serial run of
+    :data:`PP_SERIAL`, then the same through ``get_forward_backward_func(1)``
+    (no pipelining) on a pipe axis of 1, 3 steps, losses and params after
+    each step bit for bit. Returns the serial run's losses and (b)'s
+    references: step 1's grads, each leaf's floor, the O0 run's step-1
+    grads and the parameter names."""
+    from apex_tpu_torch.parallel import mesh, multiproc
+    from apex_tpu_torch.transformer import pipeline_parallel as ppl
+
+    bench, slosses, ssnaps, sgrads, _ = pretrain_steps(
+        torch, ops, PP_SERIAL, PP_STEPS, snap=True)
+    names = [n for n, _ in bench.model.named_parameters()]
+    sgrads = [g.cpu() for g in sgrads]
+    del bench
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each leaf's bf16 rounding floor: the serial step-1 grads in fp32
+    # compute on the same bf16 params; and the O0 twin's reference
+    _, _, _, fgrads, _ = pretrain_steps(torch, ops, PP_SERIAL, 1,
+                                        compute_dtype=torch.float32)
+    floor = [l2_err(f.cpu(), g) for f, g in zip(fgrads, sgrads)]
+    del fgrads
+    _, olosses, _, ograds, _ = pretrain_steps(
+        torch, ops, PP_SERIAL + ["--opt-level", "O0"], 1)
+    o0 = [g.cpu() for g in ograds]
+    del ograds
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(multiproc.initialize_distributed(
+        f"127.0.0.1:{free_port()}", 1, 0), "NCCL world 1 initialized")
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    try:
+        mesh.initialize_model_parallel(pipeline_model_parallel_size=1)
+        check(ppl.get_forward_backward_func(1)
+              is ppl.forward_backward_no_pipelining,
+              "pp 1 dispatches to forward_backward_no_pipelining")
+        bench, losses, snaps, _, counts = pretrain_steps(
+            torch, ops, PP_SERIAL, PP_STEPS, snap=True)
+        check(mesh.get_pipeline_model_parallel_world_size() == 1,
+              "(a) on a pipe axis of 1")
+        L = bench.cfg.num_layers
+        check_counts(counts, expected_counts(counts, PP_STEPS,
+                                             pretrain_per_step(L, 4)), "pp")
+        total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+        same = [losses == slosses] + [
+            all(torch.equal(a, b) for a, b in zip(s, t))
+            for s, t in zip(snaps, ssnaps)]
+        print(f"  (a) pretrain_gpt 345M O2 through get_forward_backward_func"
+              f"(1) over {backend} (world size 1), {PP_STEPS} steps of "
+              f"{bench.batch} x 1024 as 4 micro-batches of 2: losses "
+              f"{losses} (serial {slosses}); losses and params after each "
+              f"step bit-identical to the serial run: {same}")
+        verdict("pp (a) 345M no pipelining at world 1 bit for bit the "
+                "serial run", 0 if all(same) else 1, 0,
+                group="pipeline parallel (a) NCCL world 1")
+        del bench, snaps, ssnaps
+    finally:
+        multiproc.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return slosses, {"grads": sgrads, "grads_o0": o0, "floor": floor,
+                     "names": names, "loss_o0": olosses[0]}
+
+
+def pp_wire_check(torch, dev):
+    """The ring shift on this backend, by value: each rank sends a CUDA
+    tensor of its rank's values to the next; returns (the wire, whether
+    what arrived on the card is the sender's exactly)."""
+    from apex_tpu_torch.parallel import collectives
+    import torch.distributed as dist
+
+    rank = collectives.axis_rank("pipe")
+    n = collectives.axis_size("pipe")
+    x = torch.arange(1 << 20, device=dev, dtype=torch.float32) + 1e6 * rank
+    got = collectives.ppermute_shift(x.to(torch.bfloat16), "pipe", 1)
+    src = (rank - 1) % n
+    want = (torch.arange(1 << 20, device=dev, dtype=torch.float32)
+            + 1e6 * src).to(torch.bfloat16)
+    wire = ("host-staged (gloo's point-to-point reads host memory: the CUDA "
+            "payload crosses as a host copy and lands back on the card)"
+            if dist.get_backend() == "gloo" else "device (NCCL)")
+    return wire, bool(got.device == x.device and torch.equal(got, want))
+
+
+def pp_stage_errs(torch, model, grads, ref, names):
+    """Per parameter of this stage: the share of max |ref|, the row error
+    and the L2 distance of its step-1 grads from the serial run's, each
+    local layer held against the serial layer it holds (the stage's block
+    of the interleaved stack: together the stages cover the serial
+    stack)."""
+    from apex_tpu_torch.parallel import collectives
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+        stage_layer_ids,
+    )
+
+    c = model.cfg
+    ids = stage_layer_ids(c.num_layers, collectives.axis_size("pipe"),
+                          c.virtual_pipeline_size,
+                          collectives.axis_rank("pipe"))
+    index = {n: i for i, n in enumerate(names)}
+    out = []
+    for (name, _), g in zip(model.named_parameters(), grads):
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts[1] = str(ids[int(parts[1])])
+        r = ref[index[".".join(parts)]].to(g.device)
+        out.append((".".join(parts), rel_err(g, r),
+                    row_err(g if g.dim() else g[None],
+                            r if r.dim() else r[None]), l2_err(g, r)))
+    return out
+
+
+def replicated_over_pipe(torch, model, snaps):
+    """Per snapshot: whether the non-layer params are bit-identical on
+    both stages."""
+    from apex_tpu_torch.parallel import collectives
+
+    rest = [i for i, (n, _) in enumerate(model.named_parameters())
+            if not n.startswith("layers.")]
+    out = []
+    for snap in snaps:
+        fp = param_fingerprint(torch, [snap[i] for i in rest])
+        both = collectives.all_gather(fp, "pipe", tiled=False)
+        out.append(all(torch.equal(both[0], x) for x in both[1:]))
+    return out
+
+
+def _pp_rank(rank, world, port, ref_dir, out_path):
+    """One gloo rank of phase 17 (b) on the card: the wire check, every
+    schedule at pp 2 against the serial references (gpipe also bit for bit
+    against the 1f1b run's first step), then ``--zero`` against the 1f1b
+    run; the errors and counts go back to the parent."""
+    import pickle
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    res = {"rank": rank, "counts": []}
+    try:
+        from apex_tpu_torch import ops
+        from apex_tpu_torch.examples.gpt import pretrain_gpt
+        from apex_tpu_torch.parallel import mesh, multiproc
+
+        multiproc.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                         backend="gloo", timeout_s=600)
+        dev = torch.device("cuda", 0)
+        mesh.initialize_model_parallel(pipeline_model_parallel_size=world)
+        res["wire"] = pp_wire_check(torch, dev)
+        ref = wait_for_references(torch, ref_dir)
+        lr = float(PP_345M[PP_345M.index("--lr") + 1])
+        base = None
+        for label, flags, steps in PP_CASES + (("zero", ["--zero"],
+                                                 PP_STEPS),):
+            t0 = time.perf_counter()
+            bench, losses, snaps, grads, counts = pretrain_steps(
+                torch, ops, PP_345M + flags, steps, snap=True,
+                snap_to="cpu")
+            c = bench.cfg
+            args = pretrain_gpt.parse_args(PP_345M + flags)
+            res["counts"].append((label, steps, counts, pp_per_step(
+                c.num_layers, args.num_microbatches, world,
+                c.virtual_pipeline_size, args.pp_schedule,
+                rank == world - 1)))
+            x = {"losses": losses, "layers": len(bench.model.layers),
+                 "ranks_equal": replicated_over_pipe(torch, bench.model,
+                                                     snaps)}
+            if label == "zero":
+                x["drift"] = [params_drift(torch, a, b, lr, k + 1)
+                              for k, (a, b) in enumerate(zip(snaps, base))]
+            else:
+                x["errs"] = pp_stage_errs(torch, bench.model, grads,
+                                          ref["grads"], ref["names"])
+                floor = dict(zip(ref["names"], ref["floor"]))
+                x["floor_ratio"] = sorted(
+                    ((e[3] / max(floor[e[0]], 1e-12), e[0])
+                     for e in x["errs"]), reverse=True)[:3]
+            if label == "1f1b":
+                base, base_loss = snaps, losses[0]
+                base_grads = [g.cpu() for g in grads]
+            if label == "gpipe":
+                x["same_as_1f1b"] = [
+                    losses[0] == base_loss,
+                    all(torch.equal(g.cpu(), b)
+                        for g, b in zip(grads, base_grads)),
+                    all(torch.equal(a, b) for a, b in zip(snaps[0],
+                                                          base[0]))]
+            x["s"] = time.perf_counter() - t0
+            res[label] = x
+            del bench, grads, snaps
+            gc.collect()
+            torch.cuda.empty_cache()
+        del base_grads
+        # the 1f1b run's O0 twin, one step
+        bench, losses, _, grads, counts = pretrain_steps(
+            torch, ops, PP_345M + PP_1F1B + ["--opt-level", "O0"], 1)
+        res["counts"].append(("1f1b O0", 1, counts, pp_per_step(
+            bench.cfg.num_layers, 4, world, 1, "1f1b", rank == world - 1)))
+        res["o0"] = {"loss": losses[0],
+                     "errs": pp_stage_errs(torch, bench.model, grads,
+                                           ref["grads_o0"], ref["names"])}
+        del bench, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    except Exception:  # noqa: BLE001 - reported by the parent
+        res["error"] = traceback.format_exc()
+    finally:
+        try:
+            from apex_tpu_torch.parallel import multiproc
+
+            multiproc.shutdown()
+        except Exception as e:  # noqa: BLE001
+            res.setdefault("error", f"shutdown: {e}")
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def pp_spawn(ref_dir, world=2):
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(ref_dir, f"rank{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=_pp_rank,
+                         args=(r, world, port, ref_dir, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, outs
+
+
+def pp_two_ranks(torch, total, smi, slosses, o0_loss, procs, outs):
+    """(b): the two gloo ranks' results, each case's verdicts."""
+    import pickle
+
+    end = time.monotonic() + 600
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    check(not alive, "the two gloo ranks finished within 600 s")
+    res = []
+    for r, path in enumerate(outs):
+        check(os.path.exists(path), f"gloo rank {r} left no result")
+        with open(path, "rb") as f:
+            res.append(pickle.load(f))
+    for r in res:
+        check("error" not in r,
+              f"gloo rank {r['rank']}: {r.get('error', '')[-3000:]}")
+    group = "pipeline parallel (b) 2 gloo ranks on the card"
+    print(f"  (b) the ring shift of a CUDA tensor: "
+          f"{[r['wire'] for r in res]}")
+    for r in res:
+        verdict(f"pp (b) rank {r['rank']} ring shift of a CUDA tensor "
+                f"arrives exact", 0 if r["wire"][1] else 1, 0, group=group)
+    for label, _, _ in PP_CASES:
+        xs = [r[label] for r in res]
+        errs = [max(e[1] for e in x["errs"]) for x in xs]
+        rows = [max(e[2] for e in x["errs"]) for x in xs]
+        print(f"  (b) pretrain_gpt --pp 2 --pp-schedule {label} (345M O2, "
+              f"{[x['layers'] for x in xs]} layers a stage, 8 x 1024 as 4 "
+              f"micro-batches of 2): losses {[x['losses'] for x in xs]} "
+              f"(serial {slosses}); step 1's grads against the serial run's "
+              f"by share {errs}, by row {rows}, worst leaves "
+              f"{[worst_leaves(x['errs']) for x in xs]}; L2 over the "
+              f"floor, worst {[x['floor_ratio'] for x in xs]}; non-layer "
+              f"params equal on both stages {[x['ranks_equal'] for x in xs]}; "
+              f"{[round(x['s'], 1) for x in xs]} s (host-staged gloo, not "
+              f"speed numbers)")
+        for r, x in zip(res, xs):
+            rk = r["rank"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(x["losses"],
+                                                        slosses))
+            verdict(f"pp (b) {label} rank {rk} losses rel to serial", rel,
+                    PP_LOSS_REL, group=group)
+            verdict(f"pp (b) {label} rank {rk} worst grad leaf L2 over the "
+                    f"serial fp32-compute distance", x["floor_ratio"][0][0],
+                    PP_FLOOR, group=group)
+            verdict(f"pp (b) {label} rank {rk} non-layer params equal on "
+                    f"both stages", 0 if all(x["ranks_equal"]) else 1, 0,
+                    group=group)
+    same = [r["gpipe"]["same_as_1f1b"] for r in res]
+    print(f"  (b) gpipe's step against 1f1b's first (both the autograd "
+          f"ring in pretrain_gpt): loss, step-1 grads, params after the "
+          f"step bit-identical {same}")
+    for r, x in zip(res, same):
+        verdict(f"pp (b) gpipe rank {r['rank']} step 1 bit for bit the "
+                f"1f1b run's", 0 if all(x) else 1, 0, group=group)
+    fs = [r["o0"]["errs"] for r in res]
+    f_share = [max(e[1] for e in x) for x in fs]
+    f_row = [max(e[2] for e in x) for x in fs]
+    print(f"  (b) the 1f1b run's O0 twin (1 step, fp32 params and compute) "
+          f"against the serial O0 run: losses {[r['o0']['loss'] for r in res]}"
+          f" (serial {o0_loss}); grads by share {f_share}, by row "
+          f"{f_row}, worst leaves {[worst_leaves(x) for x in fs]}")
+    for r, e, w in zip(res, f_share, f_row):
+        verdict(f"pp (b) 1f1b O0 rank {r['rank']} step-1 loss rel to serial",
+                abs(r["o0"]["loss"] - o0_loss) / abs(o0_loss),
+                PP_O0_LOSS_REL, group=group)
+        verdict(f"pp (b) 1f1b O0 rank {r['rank']} step-1 grads", e,
+                PP_O0_GRAD[0], group=group)
+        verdict(f"pp (b) 1f1b O0 rank {r['rank']} step-1 grads row", w,
+                PP_O0_GRAD[1], group=group)
+    zs = [r["zero"] for r in res]
+    print(f"  (b) pretrain_gpt --pp 2 --zero (level 2) against --pp 2: "
+          f"losses {[z['losses'] for z in zs]} (1f1b "
+          f"{[r['1f1b']['losses'] for r in res]}); params after each step "
+          f"(share of a leaf beyond lr/5, worst element over 2.5 lr a step) "
+          f"{[z['drift'] for z in zs]}; card: {smi}")
+    for r, z in zip(res, zs):
+        rk = r["rank"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            z["losses"], r["1f1b"]["losses"]))
+        verdict(f"pp (b) --zero rank {rk} losses rel to --pp 2", rel,
+                ZERO_LOSS_REL, group=group)
+        verdict(f"pp (b) --zero rank {rk} step-1 params vs --pp 2, share "
+                f"beyond lr/5", z["drift"][0][0], ZERO_DRIFT[0], group=group)
+        verdict(f"pp (b) --zero rank {rk} params vs --pp 2, worst over 2.5 "
+                f"lr a step", max(e[1] for e in z["drift"]), ZERO_DRIFT[1],
+                group=group)
+        verdict(f"pp (b) --zero rank {rk} non-layer params equal on both "
+                f"stages", 0 if all(z["ranks_equal"]) else 1, 0, group=group)
+    for r in res:
+        for label, steps, counts, per_step in r["counts"]:
+            check_counts(counts, expected_counts(counts, steps, per_step),
+                         "pp")
+            total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+    return res
+
+
+def pp_phase(torch, ops, dev):
+    """Phase 17: (b)'s ranks spawned first, (a) :func:`pp_world1` in this
+    process meanwhile (its serial run is (b)'s reference), then (b)'s
+    verdicts. Returns the launches of the pipeline runs (path ``pp``: (a)'s
+    and both ranks')."""
+    import shutil
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    total = {}
+    ref_dir = os.path.join(HERE, "build", "pp_check")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    os.makedirs(ref_dir)
+    procs = []
+    try:
+        procs, outs = pp_spawn(ref_dir)
+        slosses, ref = pp_world1(torch, ops, dev, total)
+        torch.save(ref, os.path.join(ref_dir, "ref.tmp"))  # whole, or absent
+        os.replace(os.path.join(ref_dir, "ref.tmp"),
+                   os.path.join(ref_dir, "ref.pt"))
+        print(f"  (b) the serial run's bf16 grads' L2 distance from its "
+              f"fp32-compute twin's (the floor), largest "
+              f"{sorted((round(v, 4) for v in ref['floor']), reverse=True)[:3]}")
+        o0_loss = ref["loss_o0"]
+        del ref
+        pp_two_ranks(torch, total, smi, slosses, o0_loss, procs, outs)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    print(f"  phase 17 launches {total}; phase 17 took "
+          f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    return total
+
+
+def pp_main():
+    """``python3 chip_smoke.py --pp``: phase 17 alone after the build, with
+    its verdict."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.csrc import build
+
+    print(f"card: {nvidia_smi()}; torch {torch.__version__}")
+    build.load()
+    pp_phase(torch, ops, torch.device("cuda", 0))
+    print_verdict()
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ln-times"]:
         sys.exit(times_of_tree(sys.argv[2], ln_times))
@@ -9418,4 +9899,6 @@ if __name__ == "__main__":
         sys.exit(tp_main())
     if sys.argv[1:2] == ["--zero"]:
         sys.exit(zero_main())
+    if sys.argv[1:2] == ["--pp"]:
+        sys.exit(pp_main())
     sys.exit(main())

@@ -319,9 +319,10 @@ def test_flash_decode_refuses_inputs_that_require_grad():
 def test_zero_surface_constructs_and_later_items_raise():
     """The ZeRO arguments construct (the mixed-precision optimizer, the
     distributed optimizers, the offload driver, the step builder and
-    ``pretrain_gpt``'s flags); the two-tier ``dcn_axis`` and
-    ``--mesh-islands`` raise naming item 16, ``--pp`` item 12, and the
-    step builder's pipeline and tracing arguments items 12 and 21."""
+    ``pretrain_gpt``'s flags, ``--pp`` at levels 1/2 and the builder's
+    ``virtual_pipeline_size`` on a stage model); the two-tier ``dcn_axis``
+    and ``--mesh-islands`` raise naming item 16, ZeRO-3 over a pipe axis
+    item 25, and the step builder's tracing arguments item 21."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.examples.gpt import pretrain_gpt as pg
     from apex_tpu_torch.optimizers import (
@@ -353,13 +354,23 @@ def test_zero_surface_constructs_and_later_items_raise():
                                   "--offload-optimizer"]))
     with pytest.raises(NotImplementedError, match="item 16"):
         pg.check_slice(pg.parse_args(["--zero", "--mesh-islands", "2"]))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pg.check_slice(pg.parse_args(["--zero", "--pp", "2"]))
+    pg.check_slice(pg.parse_args(["--zero", "--pp", "2"]))
+    with pytest.raises(NotImplementedError, match="item 25"):
+        pg.check_slice(pg.parse_args(["--zero-level", "3", "--pp", "2"]))
     model = GPTModel(GPTConfig(**SMALL), device="cpu")
-    for kw, item in ((dict(virtual_pipeline_size=2), 12),
-                     (dict(traced=True), 21)):
+    mesh.initialize_model_parallel()
+    stage = GPTModel(GPTConfig(pipeline_axis="pipe", virtual_pipeline_size=2,
+                               **SMALL), device="cpu")
+    build_zero_train_step(z, stage, None, virtual_pipeline_size=2)
+    with pytest.raises(ValueError, match="2 chunks a stage"):
+        build_zero_train_step(z, stage, None, virtual_pipeline_size=1)
+    z3 = amp.MixedPrecisionOptimizer(FusedAdam(), pol, zero_axis="data",
+                                     zero_level=3)
+    for zopt, m, kw, item in (
+            (z3, stage, dict(virtual_pipeline_size=2), 25),
+            (z, model, dict(traced=True), 21)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
-            build_zero_train_step(z, model, None, **kw)
+            build_zero_train_step(zopt, m, None, zero3=object(), **kw)
     mesh.destroy_model_parallel()
 
 

@@ -374,8 +374,9 @@ def test_pretrain_zero_arguments_and_raises():
                                   "--reduce-dtype", "e5m2"]))
     with pytest.raises(NotImplementedError, match="item 16"):
         pg.check_slice(pg.parse_args(["--zero", "--mesh-islands", "2"]))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pg.check_slice(pg.parse_args(["--pp", "2"]))
+    pg.check_slice(pg.parse_args(["--pp", "2", "--zero"]))
+    with pytest.raises(NotImplementedError, match="item 25"):
+        pg.check_slice(pg.parse_args(["--pp", "2", "--zero-level", "3"]))
 
 
 def test_qcomm_env_value_mapping(monkeypatch):
