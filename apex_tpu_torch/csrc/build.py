@@ -55,21 +55,21 @@ _SEG = [_P] * 6 + [_I] * 2
 SIGNATURES = {
     "apex_ln_fwd": [_P] * 6 + [_L, _I, _F] + [_I] * 4 + [_P],
     "apex_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_P] + [_L] * 4
-                      + [_F] + [_I] * 6 + _SEG + [_P],
+                      + [_F] + [_I] * 7 + _SEG + [_P],
     "apex_flash_decode": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "apex_flash_decode_multi": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3
                                + [_P],
     "apex_ln_bwd": [_P] * 10 + [_L] + [_I] * 6 + [_P],
     "apex_flash_bwd_dq": [_P] * 10 + [_I] * 5 + [_L] * 16 + [_I] * 2
-                         + [_F] + [_I] * 6 + _SEG + [_P],
+                         + [_F] + [_I] * 7 + _SEG + [_P],
     "apex_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_L] * 16
-                          + [_F] + [_I] * 6 + _SEG + [_P],
+                          + [_F] + [_I] * 7 + _SEG + [_P],
     "apex_flash_fwd_stream": [_P] * 8 + [_I] * 5 + [_L] * 9
-                             + [_F] + [_I] * 7 + _SEG + [_P],
+                             + [_F] + [_I] * 8 + _SEG + [_P],
     "apex_flash_bwd_dq_stream": [_P] * 7 + [_I] * 5 + [_L] * 12
-                                + [_F] + [_I] * 7 + _SEG + [_P],
+                                + [_F] + [_I] * 8 + _SEG + [_P],
     "apex_flash_bwd_dkv_stream": [_P] * 8 + [_I] * 5 + [_L] * 12
-                                 + [_F] + [_I] * 7 + _SEG + [_P],
+                                 + [_F] + [_I] * 8 + _SEG + [_P],
     "apex_xent_fwd": [_P] * 4 + [_L, _I, _F, _L, _I, _P],
     "apex_xent_bwd": [_P] * 5 + [_L, _I, _F, _L, _I, _P],
     "apex_softmax_fwd": [_P] * 3 + [_L] + [_I] * 4 + [_F] + [_I] * 3 + [_P],

@@ -21,6 +21,16 @@
 // non-pad id; an edge block tests q_id == k_id beside visible(). A query
 // tile whose band is empty still writes o = 0 and lse = kNegInf.
 //
+// The ring offsets (the reference's off_ref, :262-263): a ring step's
+// shards sit at global positions q_off and k_off, and the causal and window
+// tests take query row r and key c at (r + q_off) - (c + k_off). Only that
+// difference enters, so the entry point takes one signed `shift` = q_off -
+// k_off; the bands shift with it (k_tiles), c < sk stays a test of the
+// local key. A shift can leave a tile's band, or every band, empty: such
+// rows write o = 0 and lse = kNegInf like any row that sees no key. The
+// shift is read by the kGen instances alone, so a launch at shift 0 is the
+// launch it was.
+//
 // The additive bias (b|1, h|1, sq, sk), fp32, is read in place through
 // four element strides (0 on a broadcast dim) and added after the scale,
 // before the row max (_fwd_kernel :274-275). Each thread loads the values
@@ -104,11 +114,11 @@ constexpr int kMaxD = 128;
 int launch_res_fwd_f32(const void* q, const void* k, const void* v, void* o,
                        void* lse, int b, int h, int sq, int sk, int d,
                        Strides qs, Strides ks, Strides vs, float scale,
-                       int causal, int window, const BiasArgs& bias,
-                       const SegArgs& seg, int inner_tile,
-                       cudaStream_t stream) {
+                       int causal, int window, int shift,
+                       const BiasArgs& bias, const SegArgs& seg,
+                       int inner_tile, cudaStream_t stream) {
   FwdF32Args a = fwd_f32_args(q, k, v, o, lse, h, b * h, sq, sk, d, qs, ks,
-                              vs, scale, causal, window, seg, nullptr,
+                              vs, scale, causal, window, shift, seg, nullptr,
                               nullptr, nullptr,
                               (sk + inner_tile - 1) / inner_tile, 1);
   a.bias = bias;
@@ -130,6 +140,7 @@ struct ResFwdArgs {
   uint32_t qpos, kpos, vpos, opos;  // coordinate placement of each map
   float scale;
   int causal, window;
+  int shift;        // q_off - k_off (k_tiles); kGen instances only
   int bh, n_outer;  // b*h, query tiles of a head
   int items;        // bh * n_outer: the CTAs of the plain grid
   BiasArgs bias;    // read by the kBias instances only
@@ -164,7 +175,8 @@ struct ResFwdShape {
 // the window and the segment ids: the band is then the causal limit, the
 // window and the segment bounds (seg_band; an empty one writes o = 0 and
 // lse = kNegInf like a fully masked row), and edge blocks take the segment
-// test; the instances without them are the causal kernel as it was.
+// test; the ring's shift joins the masks and the bands there too. The
+// instances without them are the causal kernel as it was.
 template <int DP, int BN, int NWG, bool kBias, bool kGen>
 __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
                                   ResFwdShape<NWG>::kMinBlocks)
@@ -180,6 +192,7 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
   uint64_t* q_empty = q_full + 1;      // the consumers are done with it
   const int nk = (a.sk + BN - 1) / BN;
   const int window = kGen ? a.window : 0;
+  const int shift = kGen ? a.shift : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
@@ -199,7 +212,7 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
     for (int w = blockIdx.x, j = 0; w < a.items; w += gridDim.x, ++j) {
       const int bh = w % a.bh, qt = a.n_outer - 1 - w / a.bh;
       const int bi = bh / a.h, hi = bh - bi * a.h;
-      Band band = k_tiles(qt, nk, a.causal, window, BM, BN);
+      Band band = k_tiles(qt, nk, a.causal, window, BM, BN, shift);
       if constexpr (kGen) band = seg_band(a.seg, band, bi, qt);
       hopper::mbar_wait(q_empty, (j & 1) ^ 1);
       hopper::mbar_arrive_tx(q_full, L::kQBytes);
@@ -230,7 +243,7 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
     const int bh = w % a.bh, qt = a.n_outer - 1 - w / a.bh;
     const int bi = bh / a.h, hi = bh - bi * a.h;
     const int qw = qt * BM + wg * 64;  // this warpgroup's queries
-    Band band = k_tiles(qt, nk, a.causal, window, BM, BN);
+    Band band = k_tiles(qt, nk, a.causal, window, BM, BN, shift);
     SegRows sg{};
     if constexpr (kGen) {
       band = seg_band(a.seg, band, bi, qt);
@@ -251,9 +264,9 @@ __global__ void __launch_bounds__(ResFwdShape<NWG>::kThreads,
       hopper::mbar_wait(&full[s], (g / kStages) & 1);
       if constexpr (kGen)
         fwd_tile<DP, BM, BN, kBias, true>(
-            o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c, qw + r0,
-            k0 + kcol, a.sk, a.causal, a.window,
-            !interior<BN>(qw, k0, a.sk, a.causal, a.window) ||
+            o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c,
+            qw + r0 + shift, k0 + kcol, a.sk, a.causal, a.window,
+            !interior<BN>(qw + shift, k0, a.sk, a.causal, a.window) ||
                 !seg_interior(a.seg, sg, bi, qt, band.lo + n, k0, BN),
             brows, &sg);
       else
@@ -320,12 +333,12 @@ int launch_res_fwd_k(const ResFwdMaps& maps, const ResFwdArgs& a,
 }
 
 // The instance with the bias where one is given, and with the general
-// masks where a window or segment ids are
+// masks where a window, segment ids or a ring shift are
 template <int DP, int BN, int NWG>
 int launch_res_fwd(const ResFwdMaps& maps, const ResFwdArgs& a,
                    bool persistent, cudaStream_t stream) {
   const bool bias = a.bias.p != nullptr;
-  if (a.window > 0 || a.seg.q != nullptr)
+  if (a.window > 0 || a.seg.q != nullptr || a.shift != 0)
     return bias ? launch_res_fwd_k<DP, BN, NWG, true, true>(maps, a,
                                                             persistent, stream)
                 : launch_res_fwd_k<DP, BN, NWG, false, true>(
@@ -344,14 +357,16 @@ int launch_res_fwd(const ResFwdMaps& maps, const ResFwdArgs& a,
 int launch_res_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                         void* lse, int b, int h, int sq, int sk, int d,
                         Strides qs, Strides ks, Strides vs, float scale,
-                        int causal, int window, const BiasArgs& bias,
-                        const SegArgs& seg, int outer_tile, int inner_tile,
-                        int persistent, cudaStream_t stream) {
+                        int causal, int window, int shift,
+                        const BiasArgs& bias, const SegArgs& seg,
+                        int outer_tile, int inner_tile, int persistent,
+                        cudaStream_t stream) {
   ResFwdMaps maps;
   ResFwdArgs a{};
   a.bias = bias;
   a.seg = seg;
   a.window = window;
+  a.shift = shift;
   int err = encode_rows_map(&maps.q, &a.qpos, q, b, h, sq, d, qs.b, qs.h,
                             qs.s);
   if (!err) err = encode_rows_map(&maps.k, &a.kpos, k, b, h, sk, d, ks.b,
@@ -405,7 +420,10 @@ using namespace apex_torch;
 // o is contiguous (b, h, sq, d) in q's dtype; lse contiguous (b, h, sq) fp32.
 // bias: an fp32 (b|1, h|1, sq, sk) additive bias read through its element
 // strides (bsb, bsh, bsq, bsk; 0 on a broadcast dim), or null for none.
-// window <= 0: none. outer_tile / inner_tile: the query rows of an item and
+// window <= 0: none. shift: q_off - k_off, the global position of q's row 0
+// minus k's (a ring step's offsets; 0 unsharded), which the causal and
+// window tests and their bands take. outer_tile / inner_tile: the query
+// rows of an item and
 // the key rows of a streamed tile; persistent: as many CTAs as fit on the
 // card walking the items (bf16: 128, or 64 where d <= 64 / 64 or 128 / 0 or
 // 1; fp32: 64 / 64, or 64 / 32 above d = 64 / 0). bf16 reads q/k/v and
@@ -422,7 +440,8 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               long long vss, const void* bias,
                               long long bsb, long long bsh, long long bsq,
                               long long bsk, float scale, int causal,
-                              int window, int outer_tile, int inner_tile,
+                              int window, int shift, int outer_tile,
+                              int inner_tile,
                               int persistent, int dtype, const void* qseg,
                               const void* kseg, const void* bounds,
                               const void* omm, const void* imm,
@@ -439,8 +458,9 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_res_fwd_f32(q, k, v, o, lse, b, h, sq, sk, d, qs, ks, vs,
-                              scale, causal, window, ba, seg, inner_tile, s);
+                              scale, causal, window, shift, ba, seg,
+                              inner_tile, s);
   return launch_res_fwd_bf16(q, k, v, o, lse, b, h, sq, sk, d, qs, ks, vs,
-                             scale, causal, window, ba, seg, outer_tile,
-                             inner_tile, persistent, s);
+                             scale, causal, window, shift, ba, seg,
+                             outer_tile, inner_tile, persistent, s);
 }

@@ -27,6 +27,13 @@
 // empty band still stores its rows: dQ = 0, or dK = dV = 0. A fully
 // masked row has lse kNegInf, so its P is 0 (lse2_of) and its dQ 0.
 //
+// The ring offsets (off_ref, :345-346 and :421-422) as the forward takes
+// them: one signed shift = q_off - k_off moves the causal and window tests
+// and the bands (k_tiles / q_tiles), in the bf16 kGen instances and in the
+// fp32 pair. A tile left with no band by the shift (a ring step whose keys
+// all lie after its queries) still writes its zeros, into output memory
+// nobody zeroed.
+//
 // The additive bias (b|1, h|1, sq, sk), fp32, read in place through four
 // element strides (0 on a broadcast dim), joins S before P is recomputed
 // in both passes (S = scale * Q K^T + bias, :345-346 and :442-443). Where
@@ -145,6 +152,7 @@ struct CallArgs {
   Strides qs, ks, vs, dos;
   float scale;
   int causal, window;  // window <= 0: none
+  int shift;           // q_off - k_off: the ring offsets (k_tiles)
   BiasArgs bias;  // p == nullptr: none
   float* dbias;   // (b, h, sq, sk) fp32 dS, or nullptr: no dbias
   SegArgs seg;
@@ -206,8 +214,8 @@ struct ResLayout {
 // delta rows. kBias: the bias joins S (add_bias) and, where r.dbias is
 // given, each tile's dS is stored to it as well (store_dbias). kGen: the
 // general masks (the window, the segment ids: bands narrowed by seg_band,
-// the segment test on edge blocks); without them the causal kernel as it
-// was.
+// the segment test on edge blocks; the ring's shift on the bands and the
+// masks); without them the causal kernel as it was.
 template <int DP, int BN, bool kBias, bool kGen>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     dq_resident_wgmma(const __grid_constant__ ResMaps maps,
@@ -223,6 +231,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   uint64_t* res_empty = res_full + 1;    // the consumers are done with them
   const int nk = (a.sk + BN - 1) / BN;
   const int window = kGen ? a.window : 0;
+  const int shift = kGen ? a.shift : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
@@ -243,7 +252,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     for (int w = blockIdx.x, j = 0; w < r.items; w += gridDim.x, ++j) {
       const int bh = w % r.bh, qt = r.n_outer - 1 - w / r.bh;
       const int bi = bh / a.h, hi = bh - bi * a.h, q0 = qt * kOuter;
-      Band band = k_tiles(qt, nk, a.causal, window, kOuter, BN);
+      Band band = k_tiles(qt, nk, a.causal, window, kOuter, BN, shift);
       if constexpr (kGen) band = seg_band(seg, band, bi, qt);
       hopper::mbar_wait(res_empty, (j & 1) ^ 1);
       if (lane == 0) {
@@ -282,7 +291,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const int bh = w % r.bh, qt = r.n_outer - 1 - w / r.bh;
     const int bi = bh / a.h, hi = bh - bi * a.h;
     const int qw = qt * kOuter + wg * 64;  // this warpgroup's queries
-    Band band = k_tiles(qt, nk, a.causal, window, kOuter, BN);
+    Band band = k_tiles(qt, nk, a.causal, window, kOuter, BN, shift);
     SegRows sg{};
     if constexpr (kGen) {
       band = seg_band(seg, band, bi, qt);
@@ -325,12 +334,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         const int k0 = (band.lo + n) * BN;
         add_bias<BN>(st, brows, c, k0 + kcol, a.sk);
         if constexpr (kGen) {
-          if (interior<BN>(qw, k0, a.sk, a.causal, a.window) &&
+          if (interior<BN>(qw + shift, k0, a.sk, a.causal, a.window) &&
               seg_interior(seg, sg, bi, qt, band.lo + n, k0, BN)) {
             dq_probs<false, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a);
           } else {
             seg_mask<BN>(st, sg, k0 + kcol);
-            dq_probs<true, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a);
+            dq_probs<true, BN>(dp, st, l2, dl, 1.f, qw + r0, k0 + kcol, a,
+                               shift);
           }
         } else {
           if (interior<BN>(qw, k0, a.sk, a.causal, 0))
@@ -351,12 +361,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       auto finish = [&](float (&st)[BN / 2], float (&dp)[BN / 2], int n) {
         const int k0 = (band.lo + n) * BN;
         if constexpr (kGen) {
-          if (interior<BN>(qw, k0, a.sk, a.causal, a.window) &&
+          if (interior<BN>(qw + shift, k0, a.sk, a.causal, a.window) &&
               seg_interior(seg, sg, bi, qt, band.lo + n, k0, BN)) {
             dq_probs<false, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
           } else {
             seg_mask<BN>(st, sg, k0 + kcol);
-            dq_probs<true, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+            dq_probs<true, BN>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a,
+                               shift);
           }
         } else {
           if (interior<BN>(qw, k0, a.sk, a.causal, 0))
@@ -415,6 +426,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   uint64_t* res_empty = res_full + 1;    // the consumers are done with them
   const int nq = (a.sq + BN - 1) / BN;
   const int window = kGen ? a.window : 0;
+  const int shift = kGen ? a.shift : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1 + 32);  // the TMA's, each lane's copies
@@ -435,7 +447,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     for (int w = blockIdx.x, j = 0; w < r.items; w += gridDim.x, ++j) {
       const int bh = w % r.bh, kt = w / r.bh;
       const int bi = bh / a.h, hi = bh - bi * a.h, k0 = kt * kOuter;
-      Band band = q_tiles(kt, nq, a.causal, window, BN, kOuter);
+      Band band = q_tiles(kt, nq, a.causal, window, BN, kOuter, shift);
       if constexpr (kGen) band = seg_band(seg, band, bi, kt);
       hopper::mbar_wait(res_empty, (j & 1) ^ 1);
       if (lane == 0) {
@@ -476,7 +488,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const int bi = bh / a.h, hi = bh - bi * a.h;
     const int kw = kt * kOuter + wg * 64;        // this warpgroup's keys
     const int key0 = kw + warp * 16 + lane / 4;  // of d[i]: + 8 ((i/2)%2)
-    Band band = q_tiles(kt, nq, a.causal, window, BN, kOuter);
+    Band band = q_tiles(kt, nq, a.causal, window, BN, kOuter, shift);
     SegRows sg{};
     if constexpr (kGen) {
       band = seg_band(seg, band, bi, kt);
@@ -509,12 +521,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         const float* st_s = stats + s * 2 * BN;
         add_bias_t<BN>(st, bcols, c, q0 + qcol, a.sq);
         if constexpr (kGen) {
-          if (interior<64, BN>(q0, kw, a.sk, a.causal, a.window) &&
+          if (interior<64, BN>(q0 + shift, kw, a.sk, a.causal, a.window) &&
               seg_interior(seg, sg, bi, kt, band.lo + n, q0, BN)) {
             dkv_probs<false, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a);
           } else {
             seg_mask<BN>(st, sg, q0 + qcol);
-            dkv_probs<true, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a);
+            dkv_probs<true, BN>(st, dp, st_s, 1.f, q0 + qcol, key0, a,
+                                shift);
           }
         } else {
           if (interior<64, BN>(q0, kw, a.sk, a.causal, 0))
@@ -538,12 +551,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         const int s = (it0 + n) % kStages, q0 = (band.lo + n) * BN;
         const float* st_s = stats + s * 2 * BN;
         if constexpr (kGen) {
-          if (interior<64, BN>(q0, kw, a.sk, a.causal, a.window) &&
+          if (interior<64, BN>(q0 + shift, kw, a.sk, a.causal, a.window) &&
               seg_interior(seg, sg, bi, kt, band.lo + n, q0, BN)) {
             dkv_probs<false, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
           } else {
             seg_mask<BN>(st, sg, q0 + qcol);
-            dkv_probs<true, BN>(st, dp, st_s, c, q0 + qcol, key0, a);
+            dkv_probs<true, BN>(st, dp, st_s, c, q0 + qcol, key0, a, shift);
           }
         } else {
           if (interior<64, BN>(q0, kw, a.sk, a.causal, 0))
@@ -624,8 +637,8 @@ __global__ void __launch_bounds__(NW * 32) dq_f32_blocked(const F32Args r) {
         static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.h;
     const float* oh =
         static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.h;
-    const Band band =
-        seg_band(a.seg, k_tiles(qt, nk, a.causal, a.window, BM, BN), bi, qt);
+    const Band band = seg_band(
+        a.seg, k_tiles(qt, nk, a.causal, a.window, BM, BN, a.shift), bi, qt);
     const int nt = band.hi - band.lo;
     auto load_stage = [&](int i, int s) {
       float* to = ring + s * L::kStage;
@@ -678,7 +691,7 @@ __global__ void __launch_bounds__(NW * 32) dq_f32_blocked(const F32Args r) {
       const float* ks = ring + (n & 1) * L::kStage;
       const int k0 = (band.lo + n) * BN;
       const bool edge =
-          !(interior<BN, BM>(q0, k0, a.sk, a.causal, a.window) &&
+          !(interior<BN, BM>(q0 + a.shift, k0, a.sk, a.causal, a.window) &&
             seg_interior(a.seg, sg[0], bi, qt, band.lo + n, k0, BN) &&
             seg_interior(a.seg, sg[1], bi, qt, band.lo + n, k0, BN));
       {
@@ -695,8 +708,8 @@ __global__ void __launch_bounds__(NW * 32) dq_f32_blocked(const F32Args r) {
             if (b.r[i & 1] != nullptr && key < a.sk)
               sv += __ldg(b.r[i & 1] + key * b.s);
             float p = expf(sv - l[i]);
-            if (edge && !(visible(q0 + own_row<BM>(ty, i), key, a.sk,
-                                  a.causal, a.window) &&
+            if (edge && !(visible(q0 + a.shift + own_row<BM>(ty, i), key,
+                                  a.sk, a.causal, a.window) &&
                           sg[i >> 1].sees(i & 1, key)))
               p = 0.f;
             dp[i][j] = p * (dp[i][j] - dl[i]);
@@ -747,8 +760,8 @@ __global__ void __launch_bounds__(NW * 32) dkv_f32_blocked(const F32Args r) {
     const float* oh =
         static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.h;
     const size_t head = (size_t)bh * a.sq;
-    const Band band =
-        seg_band(a.seg, q_tiles(kt, nq, a.causal, a.window, BN, BM), bi, kt);
+    const Band band = seg_band(
+        a.seg, q_tiles(kt, nq, a.causal, a.window, BN, BM, a.shift), bi, kt);
     const int nt = band.hi - band.lo;
     auto load_stage = [&](int i, int s) {
       float* to = ring + s * L::kStage;
@@ -796,7 +809,7 @@ __global__ void __launch_bounds__(NW * 32) dkv_f32_blocked(const F32Args r) {
       const int q0 = (band.lo + n) * BN;
       const bool edge =
           !(q0 + BN <= a.sq &&
-            interior<BM, BN>(q0, k0, a.sk, a.causal, a.window) &&
+            interior<BM, BN>(q0 + a.shift, k0, a.sk, a.causal, a.window) &&
             seg_interior(a.seg, sg[0], bi, kt, band.lo + n, q0, BN) &&
             seg_interior(a.seg, sg[1], bi, kt, band.lo + n, q0, BN));
       {
@@ -816,8 +829,8 @@ __global__ void __launch_bounds__(NW * 32) dkv_f32_blocked(const F32Args r) {
               sv += __ldg(b.r[i & 1] + q * b.s);
             float p = expf(sv - lq);
             if (edge && !(q < a.sq &&
-                          visible(q, k0 + own_row<BM>(ty, i), a.sk,
-                                  a.causal, a.window) &&
+                          visible(q + a.shift, k0 + own_row<BM>(ty, i),
+                                  a.sk, a.causal, a.window) &&
                           sg[i >> 1].sees(i & 1, q)))
               p = 0.f;
             s[i][j] = p;
@@ -896,7 +909,7 @@ int launch_res(const ResMaps& maps, const Args& r, const SegArgs& seg,
 }
 
 // The instance with the bias where one is given, and with the general
-// masks where a window or segment ids are
+// masks where a window, segment ids or a ring shift are
 template <int DP, int BN, bool kGen>
 int launch_dq_k(const ResMaps& maps, const ResBiasArgs& r,
                 const SegArgs& seg, int grid, cudaStream_t stream) {
@@ -911,7 +924,7 @@ int launch_dq_k(const ResMaps& maps, const ResBiasArgs& r,
 template <int DP, int BN>
 int launch_dq(const ResMaps& maps, const ResBiasArgs& r, const SegArgs& seg,
               int grid, cudaStream_t stream) {
-  return r.a.window > 0 || seg.q != nullptr
+  return r.a.window > 0 || seg.q != nullptr || r.a.shift != 0
              ? launch_dq_k<DP, BN, true>(maps, r, seg, grid, stream)
              : launch_dq_k<DP, BN, false>(maps, r, seg, grid, stream);
 }
@@ -930,7 +943,7 @@ int launch_dkv_k(const ResMaps& maps, const ResBiasArgs& r,
 template <int DP>
 int launch_dkv(const ResMaps& maps, const ResBiasArgs& r, const SegArgs& seg,
                int grid, cudaStream_t stream) {
-  return r.a.window > 0 || seg.q != nullptr
+  return r.a.window > 0 || seg.q != nullptr || r.a.shift != 0
              ? launch_dkv_k<DP, true>(maps, r, seg, grid, stream)
              : launch_dkv_k<DP, false>(maps, r, seg, grid, stream);
 }
@@ -1004,6 +1017,7 @@ int launch_res_bwd(bool dkv, const CallArgs& f, int b, int inner_tile,
   a.scale = f.scale;
   a.causal = f.causal;
   a.window = f.window;
+  a.shift = f.shift;
   r.bias = f.bias;
   r.dbias = f.dbias;
   r.bh = b * h;
@@ -1058,7 +1072,7 @@ CallArgs make_args(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta, int h,
                   int sq, int sk, int d, const long long* st,
                   const void* bias, const long long* bst, float scale,
-                  int causal, int window, const SegArgs& seg) {
+                  int causal, int window, int shift, const SegArgs& seg) {
   CallArgs a{};
   a.q = q;
   a.k = k;
@@ -1077,6 +1091,7 @@ CallArgs make_args(const void* q, const void* k, const void* v,
   a.scale = scale;
   a.causal = causal;
   a.window = window;
+  a.shift = shift;
   a.seg = seg;
   a.bias = BiasArgs{static_cast<const float*>(bias), bst[0], bst[1], bst[2],
                     bst[3]};
@@ -1097,7 +1112,8 @@ using namespace apex_torch;
 // unvisited: causal, a window, segment bounds); dbias: (bb, bh, sq, sk)
 // contiguous fp32, the same buffer as dbias_ws where (bb, bh) == (b, h),
 // else the dbias_finish launch sums the partials into it. window <= 0:
-// none. outer_tile / inner_tile: the rows a CTA keeps and streams;
+// none. shift: q_off - k_off, the ring offsets as apex_flash_fwd takes
+// them (a band left empty writes zeros). outer_tile / inner_tile: the rows a CTA keeps and streams;
 // persistent: as many CTAs as the card holds, walking the items (bf16: 128
 // / 64, or 128 for dQ with d <= 64 / 0 or 1; fp32: 64 or 128 (d <= 64) /
 // 64, or 32 for dK/dV above d = 64 / 0 or 1). bf16 reads q/k/v/dout and
@@ -1114,7 +1130,7 @@ extern "C" int apex_flash_bwd_dq(
     long long kss, long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, long long bsb, long long bsh, long long bsq,
     long long bsk, int bb, int bh, float scale, int causal, int window,
-    int outer_tile, int inner_tile, int persistent, int dtype,
+    int shift, int outer_tile, int inner_tile, int persistent, int dtype,
     const void* qseg, const void* kseg, const void* bounds, const void* omm,
     const void* imm, const void* ranges, int pad_id, int has_pad,
     void* stream) {
@@ -1128,8 +1144,9 @@ extern "C" int apex_flash_bwd_dq(
     return (int)cudaErrorInvalidValue;
   CallArgs a = make_args(
       q, k, v, dout, lse, delta, h, sq, sk, d, st, bias, bst, scale, causal,
-      window, make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
-                       sq, sk, outer_tile, inner_tile));
+      window, shift,
+      make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad, sq, sk,
+               outer_tile, inner_tile));
   a.dq = dq;
   a.dbias = static_cast<float*>(dbias_ws);
   cudaStream_t s = (cudaStream_t)stream;
@@ -1149,8 +1166,8 @@ extern "C" int apex_flash_bwd_dkv(
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
     long long bsb, long long bsh, long long bsq, long long bsk, float scale,
-    int causal, int window, int outer_tile, int inner_tile, int persistent,
-    int dtype, const void* qseg, const void* kseg, const void* bounds,
+    int causal, int window, int shift, int outer_tile, int inner_tile,
+    int persistent, int dtype, const void* qseg, const void* kseg, const void* bounds,
     const void* omm, const void* imm, const void* ranges, int pad_id,
     int has_pad, void* stream) {
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
@@ -1160,8 +1177,9 @@ extern "C" int apex_flash_bwd_dkv(
     return (int)cudaErrorInvalidValue;
   CallArgs a = make_args(
       q, k, v, dout, lse, delta, h, sq, sk, d, st, bias, bst, scale, causal,
-      window, make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
-                       sk, sq, outer_tile, inner_tile));
+      window, shift,
+      make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad, sk, sq,
+               outer_tile, inner_tile));
   a.dk = dk;
   a.dv = dv;
   return launch_bwd(true, a, b, outer_tile, inner_tile, persistent, dtype,

@@ -26,6 +26,12 @@
 // gives what mask-only evaluation gives; an empty dQ or dK/dV split adds
 // nothing and skips its atomics.
 //
+// The ring offsets (off_ref, :517-518, :584-585, :645-646): one signed
+// shift = q_off - k_off moves the causal and window tests and the bands
+// (k_tiles / q_tiles, and the merge's), in the kGen instances of the bf16
+// kernels and in the fp32 forward's. A shift that leaves a band empty
+// leaves it as an empty band is left above.
+//
 // On the TPU the streamed kernels put the K/V (or Q) loop in the grid and
 // carry acc/m/l, or the dQ/dK/dV sums, in VMEM scratch from one sequential
 // trip to the next; the window shrinks the grid to the band (_window_grid).
@@ -131,6 +137,7 @@ struct StreamArgs {
   Strides qs, ks, vs, dos;
   float scale;
   int causal, window, split_tiles;  // window <= 0: none
+  int shift;                        // q_off - k_off (k_tiles)
   SegArgs seg;
 };
 
@@ -150,8 +157,8 @@ __global__ void __launch_bounds__(kMergeRows * 32)
   if (row >= rows) return;
   const int d = a.d;
   const int qt = (int)(row % a.sq) / bq;
-  const Band band =
-      k_tiles(qt, (a.sk + bk - 1) / bk, a.causal, a.window, bq, bk);
+  const Band band = k_tiles(qt, (a.sk + bk - 1) / bk, a.causal, a.window,
+                            bq, bk, a.shift);
   const int ns = n_splits(band, a.split_tiles);
   if (ns < min_splits) return;
   int t0, t1;
@@ -194,8 +201,9 @@ __global__ void __launch_bounds__(kMergeRows * 32)
 // registers, and dV += P^T dO, dK += dS^T Q with Q and dO read through the
 // descriptor as MN-major B -- no transposed copy. Warp 8 starts the TMA
 // loads and the cp.async copies of the row statistics. kGen: the segment
-// ids (the split narrowed by seg_band, the segment test on edge blocks);
-// without them the kernel as it was.
+// ids (the split narrowed by seg_band, the segment test on edge blocks)
+// and the ring's shift (the bands and the masks); without them the kernel
+// as it was.
 template <int DP, bool kGen>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     dkv_wgmma(const __grid_constant__ BwdMaps maps, const BwdArgs a,
@@ -209,9 +217,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   uint64_t* kv_ready = empty + kStages;
 
   const int bh = blockIdx.x, kt = blockIdx.y, split = blockIdx.z;
+  const int shift = kGen ? a.shift : 0;
   int t0, t1;
   if (!split_of(q_tiles(kt, (a.sq + kInner - 1) / kInner, a.causal, a.window,
-                        kInner, kOuter),
+                        kInner, kOuter, shift),
                 split, a.split_tiles, t0, t1))
     return;
   const int bi = bh / a.h, hi = bh - bi * a.h;
@@ -290,12 +299,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const int s = n % kStages, q0 = (t0 + n) * kInner;
     const float* l2 = stats + s * 2 * kInner;
     if constexpr (kGen) {
-      if (interior(q0, kw, a.sk, a.causal, a.window) &&
+      if (interior(q0 + shift, kw, a.sk, a.causal, a.window) &&
           seg_interior(seg, sg, bi, kt, t0 + n, q0, kInner)) {
         dkv_probs<false>(st, dp, l2, c, q0 + qcol, key0, a);
       } else {
         seg_mask<kInner>(st, sg, q0 + qcol);
-        dkv_probs<true>(st, dp, l2, c, q0 + qcol, key0, a);
+        dkv_probs<true>(st, dp, l2, c, q0 + qcol, key0, a, shift);
       }
     } else {
       if (interior(q0, kw, a.sk, a.causal, a.window))
@@ -360,9 +369,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int n_outer = (a.sq + kOuter - 1) / kOuter;
   const int bh = blockIdx.x, split = blockIdx.z;
   const int qt = n_outer - 1 - (int)blockIdx.y;  // causal: longest band first
+  const int shift = kGen ? a.shift : 0;
   int t0, t1;
   if (!split_of(k_tiles(qt, (a.sk + kInner - 1) / kInner, a.causal, a.window,
-                        kOuter, kInner),
+                        kOuter, kInner, shift),
                 split, a.split_tiles, t0, t1))
     return;
   const int bi = bh / a.h, hi = bh - bi * a.h;
@@ -441,12 +451,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   auto finish = [&](float (&st)[32], float (&dp)[32], int n) {
     const int k0 = (t0 + n) * kInner;
     if constexpr (kGen) {
-      if (interior(qw, k0, a.sk, a.causal, a.window) &&
+      if (interior(qw + shift, k0, a.sk, a.causal, a.window) &&
           seg_interior(seg, sg, bi, qt, t0 + n, k0, kInner)) {
         dq_probs<false>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
       } else {
         seg_mask<kInner>(st, sg, k0 + kcol);
-        dq_probs<true>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a);
+        dq_probs<true>(dp, st, l2, dl, c, qw + r0, k0 + kcol, a, shift);
       }
     } else {
       if (interior(qw, k0, a.sk, a.causal, a.window))
@@ -499,6 +509,7 @@ struct FwdArgs {
   uint32_t qpos, kpos, vpos;  // coordinate placement of each map
   float scale;
   int causal, window, split_tiles;
+  int shift;  // q_off - k_off (k_tiles); kGen instances only
 };
 
 // The forward: one CTA keeps 128 queries (Q, loaded once by TMA) and
@@ -513,8 +524,8 @@ struct FwdArgs {
 // rows' o = 0 and lse = -1e30. kGen: the segment ids (the split narrowed
 // by seg_band, the segment test on edge blocks); a split that the segment
 // bounds leave empty writes what split 0 of an empty band writes (its
-// band's only split) or an empty partial. Without them the kernel as it
-// was.
+// band's only split) or an empty partial; and the ring's shift (the bands
+// and the masks). Without them the kernel as it was.
 template <int DP, int BN, bool kGen>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     fwd_wgmma(const __grid_constant__ FwdMaps maps, const FwdArgs a,
@@ -530,8 +541,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int bh = blockIdx.x, split = blockIdx.z;
   const int qt = n_outer - 1 - (int)blockIdx.y;  // causal: longest band first
   const int q0 = qt * kFwdOuter;
-  const Band band =
-      k_tiles(qt, (a.sk + BN - 1) / BN, a.causal, a.window, kFwdOuter, BN);
+  const int shift = kGen ? a.shift : 0;
+  const Band band = k_tiles(qt, (a.sk + BN - 1) / BN, a.causal, a.window,
+                            kFwdOuter, BN, shift);
   int t0, t1;
   if (!split_of(band, split, a.split_tiles, t0, t1)) {
     if (split == 0 && band.hi <= band.lo) {  // no query here sees a key
@@ -621,9 +633,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     hopper::mbar_wait(&full[s], (n / kStages) & 1);
     if constexpr (kGen)
       fwd_tile<DP, kFwdOuter, BN, false, true>(
-          o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c, qw + r0,
+          o, m2, l, qs, wg * 64, ks, ks + L::kTileBytes, c, qw + r0 + shift,
           k0 + kcol, a.sk, a.causal, a.window,
-          !interior<BN>(qw, k0, a.sk, a.causal, a.window) ||
+          !interior<BN>(qw + shift, k0, a.sk, a.causal, a.window) ||
               !seg_interior(seg, sg, bi, qt, t0 + n, k0, BN),
           {}, &sg);
     else
@@ -697,11 +709,11 @@ int launch_fwd_wgmma_k(const FwdMaps& maps, const FwdArgs& a,
   return (int)cudaGetLastError();
 }
 
-// The instance with the segment ids where they are given
+// The instance with the segment ids or a ring shift where they are given
 template <int DP, int BN>
 int launch_fwd_wgmma(const FwdMaps& maps, const FwdArgs& a,
                      const SegArgs& seg, int nsplit, cudaStream_t stream) {
-  return seg.q != nullptr
+  return seg.q != nullptr || a.shift != 0
              ? launch_fwd_wgmma_k<DP, BN, true>(maps, a, seg, nsplit, stream)
              : launch_fwd_wgmma_k<DP, BN, false>(maps, a, seg, nsplit,
                                                  stream);
@@ -731,6 +743,7 @@ int launch_fwd_bf16(const StreamArgs& s, int b, int inner_tile, int nsplit,
   a.scale = s.scale;
   a.causal = s.causal;
   a.window = s.window;
+  a.shift = s.shift;
   a.split_tiles = s.split_tiles;
   if (s.d <= 64)
     err = inner_tile == 64
@@ -756,7 +769,8 @@ int launch_fwd_f32_split(const StreamArgs& s, int outer_tile,
                          cudaStream_t stream) {
   const int err = launch_fwd_f32<true>(
       fwd_f32_args(s.q, s.k, s.v, o, lse, s.h, s.bh, s.sq, s.sk, s.d, s.qs,
-                   s.ks, s.vs, s.scale, s.causal, s.window, s.seg, s.acc,
+                   s.ks, s.vs, s.scale, s.causal, s.window, s.shift, s.seg,
+                   s.acc,
                    s.m, s.l, s.split_tiles, nsplit),
       stream);
   if (err || nsplit <= 1) return err;
@@ -789,12 +803,12 @@ int launch_bwd_dp_k(Pass pass, const BwdMaps& maps, const BwdArgs& a,
   return (int)cudaGetLastError();
 }
 
-// The instance with the segment ids where they are given
+// The instance with the segment ids or a ring shift where they are given
 template <int DP>
 int launch_bwd_dp(Pass pass, const BwdMaps& maps, const BwdArgs& a,
                   const SegArgs& seg, int bh, int nsplit,
                   cudaStream_t stream) {
-  return seg.q != nullptr
+  return seg.q != nullptr || a.shift != 0
              ? launch_bwd_dp_k<DP, true>(pass, maps, a, seg, bh, nsplit,
                                          stream)
              : launch_bwd_dp_k<DP, false>(pass, maps, a, seg, bh, nsplit,
@@ -827,6 +841,7 @@ int launch_bwd(Pass pass, const StreamArgs& s, int b, int nsplit,
   a.scale = s.scale;
   a.causal = s.causal;
   a.window = s.window;
+  a.shift = s.shift;
   a.split_tiles = s.split_tiles;
   return s.d <= 64
              ? launch_bwd_dp<64>(pass, maps, a, s.seg, s.bh, nsplit, stream)
@@ -855,7 +870,7 @@ bool args_ok(int b, int h, int sq, int sk, int d, int split_tiles,
 
 StreamArgs make_args(const void* q, const void* k, const void* v, int b,
                      int h, int sq, int sk, int d, float scale, int causal,
-                     int window, int split_tiles) {
+                     int window, int shift, int split_tiles) {
   StreamArgs a{};
   a.q = q;
   a.k = k;
@@ -868,6 +883,7 @@ StreamArgs make_args(const void* q, const void* k, const void* v, int b,
   a.scale = scale;
   a.causal = causal;
   a.window = window;
+  a.shift = shift;
   a.split_tiles = split_tiles;
   return a;
 }
@@ -880,7 +896,8 @@ using namespace apex_torch;
 // Forward: the split pass, then the merge. q/k/v strides in elements,
 // (batch, head, seq) each, head_dim stride 1. acc (nsplit, b*h, sq, d) and
 // m, l (nsplit, b*h, sq) are fp32 workspaces; o contiguous (b, h, sq, d) in
-// q's dtype, lse contiguous (b, h, sq) fp32. window <= 0: none. nsplit: the
+// q's dtype, lse contiguous (b, h, sq) fp32. window <= 0: none. shift:
+// q_off - k_off, the ring offsets as apex_flash_fwd takes them. nsplit: the
 // most splits any query tile's band has (the wrapper computes it with
 // outer_tile / inner_tile / split_tiles). bf16 (fwd_wgmma, read by TMA:
 // 16-byte aligned bases and strides, d % 8 == 0): kFwdOuter / 64 or 128;
@@ -896,10 +913,10 @@ extern "C" int apex_flash_fwd_stream(
     void* o, void* lse, int b, int h, int sq, int sk, int d, long long qsb,
     long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, float scale, int causal,
-    int window, int outer_tile, int inner_tile, int split_tiles, int nsplit,
-    int dtype, const void* qseg, const void* kseg, const void* bounds,
-    const void* omm, const void* imm, const void* ranges, int pad_id,
-    int has_pad, void* stream) {
+    int window, int shift, int outer_tile, int inner_tile, int split_tiles,
+    int nsplit, int dtype, const void* qseg, const void* kseg,
+    const void* bounds, const void* omm, const void* imm, const void* ranges,
+    int pad_id, int has_pad, void* stream) {
   if (!args_ok(b, h, sq, sk, d, split_tiles, nsplit) ||
       !seg_ok(qseg, kseg, bounds, omm, imm, ranges))
     return (int)cudaErrorInvalidValue;
@@ -911,7 +928,7 @@ extern "C" int apex_flash_fwd_stream(
                       (nsplit <= 1 || (acc && m && l));
   if (!bf16_ok && !f32_ok) return (int)cudaErrorInvalidValue;
   StreamArgs a = make_args(q, k, v, b, h, sq, sk, d, scale, causal, window,
-                           split_tiles);
+                           shift, split_tiles);
   a.qs = Strides{qsb, qsh, qss};
   a.ks = Strides{ksb, ksh, kss};
   a.vs = Strides{vsb, vsh, vss};
@@ -938,8 +955,8 @@ extern "C" int apex_flash_bwd_dq_stream(
     int sk, int d, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss, float scale, int causal,
-    int window, int outer_tile, int inner_tile, int split_tiles, int nsplit,
-    int dtype, const void* qseg, const void* kseg, const void* bounds,
+    int window, int shift, int outer_tile, int inner_tile, int split_tiles,
+    int nsplit, int dtype, const void* qseg, const void* kseg, const void* bounds,
     const void* omm, const void* imm, const void* ranges, int pad_id,
     int has_pad, void* stream) {
   if (!args_ok(b, h, sq, sk, d, split_tiles, nsplit) ||
@@ -947,7 +964,7 @@ extern "C" int apex_flash_bwd_dq_stream(
       !seg_ok(qseg, kseg, bounds, omm, imm, ranges))
     return (int)cudaErrorInvalidValue;
   StreamArgs a = make_args(q, k, v, b, h, sq, sk, d, scale, causal, window,
-                           split_tiles);
+                           shift, split_tiles);
   a.seg = make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
                    sq, sk, outer_tile, inner_tile);
   a.dout = dout;
@@ -969,8 +986,8 @@ extern "C" int apex_flash_bwd_dkv_stream(
     int h, int sq, int sk, int d, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss, float scale,
-    int causal, int window, int outer_tile, int inner_tile, int split_tiles,
-    int nsplit, int dtype, const void* qseg, const void* kseg,
+    int causal, int window, int shift, int outer_tile, int inner_tile,
+    int split_tiles, int nsplit, int dtype, const void* qseg, const void* kseg,
     const void* bounds, const void* omm, const void* imm, const void* ranges,
     int pad_id, int has_pad, void* stream) {
   if (!args_ok(b, h, sq, sk, d, split_tiles, nsplit) ||
@@ -978,7 +995,7 @@ extern "C" int apex_flash_bwd_dkv_stream(
       !seg_ok(qseg, kseg, bounds, omm, imm, ranges))
     return (int)cudaErrorInvalidValue;
   StreamArgs a = make_args(q, k, v, b, h, sq, sk, d, scale, causal, window,
-                           split_tiles);
+                           shift, split_tiles);
   a.seg = make_seg(qseg, kseg, bounds, omm, imm, ranges, pad_id, has_pad,
                    sk, sq, outer_tile, inner_tile);
   a.dout = dout;

@@ -40,29 +40,38 @@ struct Band {
 };
 
 // key tiles (bk rows) that query tile qt (bq rows) sees: the causal limit,
-// then the window (_window_k_range with no ring offsets)
+// then the window (_window_k_range). shift: the global position of the
+// queries' row 0 minus the keys' (a ring step's q_off - k_off, 0 unsharded);
+// the masks take query row r at r + shift. A band may come out empty, with
+// hi < lo where the window starts past the last tile: the kernels that take
+// a shift clip it (seg_band).
 __device__ __forceinline__ Band k_tiles(int qt, int nk, int causal,
                                         int window, int bq = kTile,
-                                        int bk = kTile) {
+                                        int bk = kTile, int shift = 0) {
   Band r{0, nk};
-  if (causal) r.hi = min(r.hi, ((qt + 1) * bq + bk - 1) / bk);
+  if (causal)
+    r.hi = min(r.hi, max(0, floordiv(shift + (qt + 1) * bq + bk - 1, bk)));
   if (window > 0) {
-    r.lo = max(r.lo, floordiv(qt * bq - window + 1, bk));
+    r.lo = max(r.lo, floordiv(shift + qt * bq - window + 1, bk));
     if (!causal)
-      r.hi = max(0, min(r.hi, floordiv((qt + 1) * bq + window - 2, bk) + 1));
+      r.hi = max(0, min(r.hi, floordiv(shift + (qt + 1) * bq + window - 2,
+                                       bk) + 1));
   }
   return r;
 }
 
-// query tiles (bq rows) that see key tile kt (bk rows) (_window_q_range)
+// query tiles (bq rows) that see key tile kt (bk rows) (_window_q_range),
+// shift as in k_tiles
 __device__ __forceinline__ Band q_tiles(int kt, int nq, int causal,
                                         int window, int bq = kTile,
-                                        int bk = kTile) {
+                                        int bk = kTile, int shift = 0) {
   Band r{0, nq};
-  if (causal) r.lo = min(kt * bk / bq, nq);
+  if (causal) r.lo = min(max(0, floordiv(kt * bk - shift, bq)), nq);
   if (window > 0) {
-    r.hi = max(0, min(r.hi, floordiv((kt + 1) * bk + window - 2, bq) + 1));
-    if (!causal) r.lo = max(r.lo, floordiv(kt * bk - window + 1, bq));
+    r.hi = max(0, min(r.hi, floordiv((kt + 1) * bk - shift + window - 2,
+                                     bq) + 1));
+    if (!causal)
+      r.lo = max(r.lo, floordiv(kt * bk - shift - window + 1, bq));
   }
   return r;
 }
@@ -88,6 +97,9 @@ __device__ __forceinline__ bool split_of(Band r, int s, int split_tiles,
   return t0 < t1;
 }
 
+// Whether query position row sees key col (a local column, tested against
+// sk): the causal and window tests on positions, where a ring step passes
+// its query row plus the shift (k_tiles)
 __device__ __forceinline__ bool visible(int row, int col, int sk, int causal,
                                         int window) {
   return col < sk && (!causal || col <= row) &&
@@ -386,6 +398,7 @@ struct BwdArgs {
   uint32_t qpos, kpos, vpos, opos;  // coordinate placement of each map
   float scale;
   int causal, window, split_tiles;
+  int shift;  // q_off - k_off (k_tiles); read by the kGen instances only
 };
 
 // Byte offsets in dynamic shared memory (after aligning it to 1024): the two
@@ -511,7 +524,9 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
 // block, whose scores need no test. Edge blocks (the diagonal, a window
 // edge, the ragged end) test each score. Queries past sq need no test:
 // their Q and dO rows are TMA's zero fill, so they add 0 (the backward),
-// and their o and lse are never stored (the forward).
+// and their o and lse are never stored (the forward). qa: the queries'
+// first position for the masks (a ring step's row plus its shift,
+// k_tiles); ka: the keys' first local row.
 template <int BK = 64, int BQ = 64>
 __device__ __forceinline__ bool interior(int qa, int ka, int sk, int causal,
                                          int window) {
@@ -583,12 +598,14 @@ __device__ __forceinline__ void scores(float (&s)[RB / 2], uint32_t a_tile,
 // q + 8 (i/4) + i%2; lse and delta of the tile's N queries in `stats`
 // (lse, then delta). kMask: the block is an edge block (the diagonal, a
 // window edge, the ragged end), so each pair is tested; interior blocks
-// skip the test. A segment edge is masked before (seg_mask).
+// skip the test. A segment edge is masked before (seg_mask). shift: added
+// to the queries' rows for the test (k_tiles).
 template <bool kMask, int N = 64>
 __device__ __forceinline__ void dkv_probs(float (&st)[N / 2],
                                           float (&dp)[N / 2],
                                           const float* stats, float c, int q,
-                                          int key0, const BwdArgs& a) {
+                                          int key0, const BwdArgs& a,
+                                          int shift = 0) {
   const int qc = q % N;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
@@ -601,8 +618,8 @@ __device__ __forceinline__ void dkv_probs(float (&st)[N / 2],
     for (int e = 0; e < 4; ++e) {
       const int i = 4 * j + e;
       float p = hopper::fast_exp2(fmaf(st[i], c, -l[e & 1]));
-      if (kMask && !visible(q + 8 * j + (e & 1), key0 + 8 * (e >> 1), a.sk,
-                            a.causal, a.window))
+      if (kMask && !visible(q + shift + 8 * j + (e & 1), key0 + 8 * (e >> 1),
+                            a.sk, a.causal, a.window))
         p = 0.f;
       st[i] = p;
       dp[i] = p * (dp[i] - dl[e & 1]);
@@ -612,20 +629,20 @@ __device__ __forceinline__ void dkv_probs(float (&st)[N / 2],
 
 // dS of a 64-query x N-key block in place of dP: element i is query
 // row + 8 ((i/2)%2), key col + 8 (i/4) + i%2; l2 / dl: the base-2 lse and
-// the delta of the thread's two rows
+// the delta of the thread's two rows; shift as in dkv_probs
 template <bool kMask, int N = 64>
 __device__ __forceinline__ void dq_probs(float (&dp)[N / 2],
                                          const float (&st)[N / 2],
                                          const float (&l2)[2],
                                          const float (&dl)[2], float c,
                                          int row, int col,
-                                         const BwdArgs& a) {
+                                         const BwdArgs& a, int shift = 0) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     const int hf = (i >> 1) & 1;
     float p = hopper::fast_exp2(fmaf(st[i], c, -l2[hf]));
-    if (kMask && !visible(row + 8 * hf, col + 8 * (i >> 2) + (i & 1), a.sk,
-                          a.causal, a.window))
+    if (kMask && !visible(row + shift + 8 * hf, col + 8 * (i >> 2) + (i & 1),
+                          a.sk, a.causal, a.window))
       p = 0.f;
     dp[i] = p * (dp[i] - dl[hf]);
   }

@@ -236,6 +236,7 @@ struct FwdF32Args {
   Strides qs, ks, vs;
   float scale;
   int causal, window;  // window <= 0: none
+  int shift;           // q_off - k_off (k_tiles); kGen instances only
   int n_outer;         // query tiles of a head
   int nsplit;          // splits of the longest band (1: the resident route)
   int split_tiles;     // key tiles of a split at most
@@ -245,14 +246,16 @@ struct FwdF32Args {
   SegArgs seg;
 };
 
-// FwdF32Args of both routes: the operands, the masks and the split fields
+// FwdF32Args of both routes: the operands, the masks (with the ring's
+// shift) and the split fields
 // (acc, m, l: the partials, null where no band has several splits;
 // split_tiles; nsplit, 1 for bands of one split), with no bias
 inline FwdF32Args fwd_f32_args(const void* q, const void* k, const void* v,
                                void* o, void* lse, int h, int bh, int sq,
                                int sk, int d, Strides qs, Strides ks,
                                Strides vs, float scale, int causal,
-                               int window, const SegArgs& seg, float* acc,
+                               int window, int shift, const SegArgs& seg,
+                               float* acc,
                                float* m, float* l, int split_tiles,
                                int nsplit) {
   FwdF32Args a{};
@@ -275,6 +278,7 @@ inline FwdF32Args fwd_f32_args(const void* q, const void* k, const void* v,
   a.scale = scale;
   a.causal = causal;
   a.window = window;
+  a.shift = shift;
   a.split_tiles = split_tiles;
   a.nsplit = nsplit > 1 ? nsplit : 1;
   a.seg = seg;
@@ -310,7 +314,8 @@ constexpr int kFwdAccUnroll = 2;
 // s = scale S (+ the bias line's value where kBias, as _fwd_kernel adds
 // it after the scale), kNegInf where an edge tile masks the pair (visible()
 // and, where kGen, the segment rows' test), the row max over the 8 lanes
-// that share a row (three shuffles), alpha = exp(m_old - m), P = exp(s -
+// that share a row (three shuffles; q0: the first row's position for the
+// masks, plus a ring step's shift), alpha = exp(m_old - m), P = exp(s -
 // m) (0 while a row has seen nothing: m <= kNegInf / 2, the plain
 // version's guard), l and O rescaled by alpha, P through the warp's own
 // rows of the shared tile pt (store_tile, __syncwarp) and O += P V
@@ -391,8 +396,9 @@ __device__ __forceinline__ void fwd_f32_step(
 // writes its partial (acc = O, m: kNegInf where l == 0, l) for fwd_merge,
 // an empty one too. Each element is written once, with no atomics: two
 // calls give the same bits. kBias: the additive bias (the resident
-// route's); kGen: the window and the segment ids; the instances without
-// them run no test for either.
+// route's); kGen: the window, the segment ids and the ring's shift (the
+// bands and the masks at row + shift; an empty band writes o = 0 and lse
+// kNegInf); the instances without them run no test for either.
 template <int DP, int NW, int BN, bool kBias, bool kGen, bool kSplit>
 __global__ void __launch_bounds__(NW * 32,
                                   FwdF32Layout<DP, NW, BN>::kMinBlocks)
@@ -406,12 +412,13 @@ __global__ void __launch_bounds__(NW * 32,
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
   const int kd4 = (a.d + 3) / 4, nk = (a.sk + BN - 1) / BN;
   const int window = kGen ? a.window : 0;
+  const int shift = kGen ? a.shift : 0;
   const int nsplit = kSplit ? a.nsplit : 1;
   const int w = blockIdx.x;
   const int bh = w % a.bh, t = w / a.bh;
   const int split = t % nsplit, qt = a.n_outer - 1 - t / nsplit;
   const int bi = bh / a.h, hi = bh - bi * a.h, q0 = qt * BM;
-  Band band = k_tiles(qt, nk, a.causal, window, BM, BN);
+  Band band = k_tiles(qt, nk, a.causal, window, BM, BN, shift);
   bool direct = true;
   if constexpr (kSplit) {
     // an empty band's split 0 writes its rows' o = 0 and lse
@@ -465,12 +472,13 @@ __global__ void __launch_bounds__(NW * 32,
     __syncthreads();
     const float* ks = ring + (n & 1) * L::kStage;
     const int ti = band.lo + n, k0 = ti * BN;
-    bool edge = !interior<BN, BM>(q0, k0, a.sk, a.causal, window);
+    bool edge = !interior<BN, BM>(q0 + shift, k0, a.sk, a.causal, window);
     if constexpr (kGen)
       edge = edge || !(seg_interior(a.seg, sg[0], bi, qt, ti, k0, BN) &&
                        seg_interior(a.seg, sg[1], bi, qt, ti, k0, BN));
     fwd_f32_step<DP, BM, BN, kBias, kGen>(
-        acc, m, l, qs, ks, ks + BN * kP, pt, kd4, ty, tx, q0, k0, a.scale,
+        acc, m, l, qs, ks, ks + BN * kP, pt, kd4, ty, tx, q0 + shift, k0,
+        a.scale,
         a.sk, a.causal, window, edge, br, sg);
     __syncthreads();  // this stage is free for tile n + 2
   }
@@ -552,10 +560,10 @@ int launch_fwd_f32_k(const FwdF32Args& a, cudaStream_t stream) {
 constexpr int kFwdF32Warps = 4;
 
 // The instance with the bias where one is given (resident only), and with
-// the general masks where a window or segment ids are
+// the general masks where a window, segment ids or a ring shift are
 template <int DP, int BN, bool kSplit>
 int launch_fwd_f32_masks(const FwdF32Args& a, cudaStream_t stream) {
-  const bool gen = a.window > 0 || a.seg.q != nullptr;
+  const bool gen = a.window > 0 || a.seg.q != nullptr || a.shift != 0;
   if constexpr (!kSplit) {
     if (a.bias.p != nullptr)
       return gen ? launch_fwd_f32_k<DP, kFwdF32Warps, BN, true, true, false>(

@@ -82,8 +82,9 @@ __device__ __forceinline__ void online_softmax(float (&st)[BN / 2],
 // edge block), o rescaled, then O += P V with P straight from the score
 // registers as A fragments and V read through the descriptor as an
 // MN-major B -- no V^T copy, no P in shared memory. Each product group is
-// waited for in straight-line code. row / col: the thread's first query and
-// key (online_softmax); edge: whether the block needs the test (in the
+// waited for in straight-line code. row / col: the thread's first query's
+// position for the masks (its row, plus a ring step's shift: k_tiles) and
+// its first key (online_softmax); edge: whether the block needs the test (in the
 // general-mask kernels, kGen, with the rows' segment step, seg_mask of
 // sg, first). kBias: the
 // additive bias (the resident forward's), read through `bias` (the rows of

@@ -4,8 +4,23 @@ The JAX package stacks every layer's parameters on a leading
 ``num_layers`` dim and scans them; here each layer is a module of an
 ``nn.ModuleList`` holding the same tree ``{ln1, qkv, proj, ln2, fc1, fc2}``
 under the same names, and the helpers take that layer module where the
-reference takes its parameter slice. Context parallelism and MoE FFNs
-raise.
+reference takes its parameter slice. MoE FFNs raise.
+
+Context parallelism (``cfg.context_axis``, the mesh's ``"context"``; the
+topology installed first, ``initialize_model_parallel(
+context_parallel_size=N)``): tokens arrive sliced, rank r holding global
+positions ``[r s, (r + 1) s)`` of its ``s`` tokens, and attention runs as
+the ring or Ulysses (``cfg.sequence_parallel_impl``,
+``apex_tpu_torch.transformer.ring``) with the causal mask and the window
+in global positions (``_transformer.py:490-530``). The learned position
+table is sliced at the shard's start (:meth:`TransformerBase.
+_seq_shard_start`: the context offset plus, under SP, the tp offset) and
+RoPE rotates at the global positions (:meth:`TransformerBase.
+_token_positions`). Masks travel as a :class:`SegmentMask` (a dense bias
+under a context axis raises). Grads are each rank's partial sums: the
+caller reduces them over the context axis
+(``mesh.get_gradient_reduction_axes()``), as the reference's harness
+does.
 
 Tensor parallelism (``cfg.axis``, the mesh's ``"model"``): the embedding is
 vocab-parallel, QKV and fc1 column-parallel with no gather, proj and fc2
@@ -59,8 +74,9 @@ op; the attention's Function is simply part of the recomputed layer.
 
 from __future__ import annotations
 
-import functools
 import contextlib
+import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -81,6 +97,27 @@ from apex_tpu_torch.utils.nn import inverted_dropout
 
 #: the remat policies (``_remat_policy``, ``_transformer.py:123-142``)
 REMAT_POLICIES = tp.checkpoint_policies
+
+#: the context-parallel attention schemes (``sequence_parallel_impl``)
+SEQUENCE_PARALLEL_IMPLS = ("ring", "ulysses")
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentMask:
+    """Attention masking by segment ids instead of an additive bias
+    (``_transformer.py:40-60``): it rides the ``bias`` channel of
+    ``run_layers`` -> ``_layer`` -> ``_attention`` -> ``_attend`` to the
+    flash kernels' segment path, which, unlike a dense bias, works under
+    context parallelism: the kv-id shards rotate with their K/V shard.
+    BERT's padding mask takes this form under ``context_axis``.
+
+    ``q_seg`` / ``kv_seg``: ``(b, s)`` int tensors (local shards under
+    context parallelism); keys of id ``pad_id`` are never attended, and a
+    query that sees no key outputs exactly 0."""
+
+    q_seg: torch.Tensor
+    kv_seg: torch.Tensor
+    pad_id: Optional[int] = None
 
 
 def remat_policy(name: Optional[str]) -> str:
@@ -390,6 +427,16 @@ class TransformerBase(nn.Module):
                     "the quantized wire dtype rides the sequence-parallel "
                     "scatter/gather conjugates -- plain-TP all-reduces have "
                     "no encode/decode seam")
+        self._ctx = getattr(c, "context_axis", None)
+        if self._ctx is not None:
+            from apex_tpu_torch.parallel import mesh as _mesh
+
+            if not _mesh.model_parallel_is_initialized():
+                raise ValueError(
+                    f"context parallelism over axis {self._ctx!r} needs the "
+                    f"topology: call apex_tpu_torch.parallel."
+                    f"initialize_model_parallel(context_parallel_size=N) "
+                    f"first (or build with context_axis=None)")
         if c.axis is not None:
             _, tp_size = tp.mappings.axis_world(c.axis)
             tp.divide(c.num_attention_heads, tp_size)
@@ -484,18 +531,36 @@ class TransformerBase(nn.Module):
             return x
         return tp.copy_to_tensor_model_parallel_region(x, self.cfg.axis)
 
-    def _seq_shard_start(self, s_local: int) -> int:
-        """Global position of this rank's first token for a
-        sequence-sharded activation of ``s_local`` tokens (0 outside SP)."""
+    def _sp_shard_start(self, s_local: int) -> int:
+        """The sequence-parallel part of :meth:`_seq_shard_start`: this
+        tp rank's offset in the context-local sequence (0 outside SP)."""
         if not self._sp:
             return 0
         rank, _ = tp.mappings.axis_world(self.cfg.axis)
         return rank * s_local
 
+    def _seq_shard_start(self, s_local: int) -> int:
+        """Global position of this rank's first token for a sequence-sharded
+        activation of ``s_local`` tokens (``_transformer.py:449-462``): the
+        context-parallel offset (tokens arrive sliced over the context
+        axis) plus the sequence-parallel one (the embedding's
+        reduce-scatter slices the context-local sequence tp ways more); 0
+        when neither shards the sequence."""
+        start = 0
+        if self._ctx is not None:
+            rank, _ = tp.mappings.axis_world(self._ctx)
+            tp_size = tp.mappings.axis_world(self.cfg.axis)[1] \
+                if self._sp else 1
+            start = rank * s_local * tp_size
+        return start + self._sp_shard_start(s_local)
+
     def _positions(self, pos_table: torch.Tensor,
                    s_local: int) -> torch.Tensor:
-        """The learned position rows of this shard's tokens; under SP the
-        table rides :meth:`_sp_param` (``_transformer.py:466-479``)."""
+        """The learned position rows of this shard's tokens, from
+        :meth:`_seq_shard_start`; under SP the table rides
+        :meth:`_sp_param` (``_transformer.py:466-479``). The context slice
+        needs no such wrap: the caller's reduction of the grads over the
+        context axis sums the disjoint rows."""
         start = self._seq_shard_start(s_local)
         return self._sp_param(pos_table)[start:start + s_local]
 
@@ -544,10 +609,14 @@ class TransformerBase(nn.Module):
         return q, k, v
 
     def _token_positions(self, s: int, device) -> torch.Tensor:
-        """Global positions of the tokens (``_transformer.py:481-488``):
-        serial, so ``0 .. s-1``; the context-parallel offset comes with
-        ROADMAP Queue 1 item 15."""
-        return torch.arange(s, dtype=torch.int64, device=device)
+        """Global positions of the ``s`` tokens attention sees, for RoPE
+        (``_transformer.py:481-488``): on the gathered sequence, where only
+        the context axis still shards it, so the context offset and never
+        the sequence-parallel one."""
+        start = 0
+        if self._ctx is not None:
+            start = tp.mappings.axis_world(self._ctx)[0] * s
+        return start + torch.arange(s, dtype=torch.int64, device=device)
 
     def _attn_out(self, layer: TransformerLayer,
                   attn: torch.Tensor) -> torch.Tensor:
@@ -557,12 +626,40 @@ class TransformerBase(nn.Module):
         return self._dense(layer.proj, attn)
 
     def _attend(self, q, k, v, bias=None) -> torch.Tensor:
-        """Core attention on ``(b, heads, s, d)`` (no context axis), with
-        the additive ``bias`` and the config's sliding window
-        (``_transformer.py:490-507``, serial branch); ``stream='auto'``
-        picks the kernels."""
-        return flash_attention(q, k, v, bias, causal=self.causal,
-                               window=self.cfg.attention_window)
+        """Core attention on ``(b, heads, s, d)`` with the additive ``bias``
+        or a :class:`SegmentMask` and the config's sliding window
+        (``_transformer.py:490-530``): serial, ``flash_attention``
+        (``stream='auto'`` picks the kernels); under ``context_axis`` the
+        ring or Ulysses of ``cfg.sequence_parallel_impl``, which take
+        segment masks and no dense bias."""
+        c = self.cfg
+        win = c.attention_window
+        seg = bias if isinstance(bias, SegmentMask) else None
+        seg_kw = {} if seg is None else dict(
+            segment_ids=(seg.q_seg, seg.kv_seg), pad_id=seg.pad_id)
+        if self._ctx is None:
+            if seg is not None:
+                return flash_attention(q, k, v, causal=self.causal,
+                                       window=win, **seg_kw)
+            return flash_attention(q, k, v, bias, causal=self.causal,
+                                   window=win)
+        from apex_tpu_torch.transformer import ring
+
+        if bias is not None and seg is None:
+            raise NotImplementedError(
+                "a dense attention bias is not supported under sequence "
+                "parallelism (it would have to be materialized (sq, SK) per "
+                "shard); express masking as a SegmentMask -- padding masks "
+                "map directly (models/bert.py) -- or run with "
+                "context_axis=None")
+        impl = getattr(c, "sequence_parallel_impl", "ring")
+        if impl not in SEQUENCE_PARALLEL_IMPLS:
+            raise ValueError(
+                f"sequence_parallel_impl must be 'ring' or 'ulysses', "
+                f"got {impl!r}")
+        fn = ring.ring_attention if impl == "ring" else ring.ulysses_attention
+        return fn(q, k, v, axis=self._ctx, causal=self.causal, window=win,
+                  **seg_kw)
 
     def _attention(self, layer: TransformerLayer, h: torch.Tensor,
                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:

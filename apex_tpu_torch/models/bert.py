@@ -19,10 +19,19 @@ runs the embedding LN, the layers' LNs, dropout and residuals on sequence
 shards: the tokentype ids are this shard's (``bert.py:189``) and the head
 first all-gathers the sequence with ``tensor_parallel_output_grad=False``
 (``bert.py:222``: everything downstream is replicated). Context
-parallelism (``context_axis``, whose padding mask becomes segment ids) and
-the ZeRO-3 drives (``unroll_layers``, ``zero3_prefetch``) are later slices
-and raise ``NotImplementedError``, naming their ROADMAP items. Hidden
-dropout runs only with a dropout generator.
+parallelism (``context_axis``, after ``initialize_model_parallel(
+context_parallel_size=N)``; ``bert.py:227-241``, ``:270-279``,
+``:307-327``): each rank takes its ``s / N`` tokens (and tokentype ids),
+the padding mask becomes ``SegmentMask(seg, seg, pad_id=0)``, whose kv ids
+ride the ring, the global [CLS] is rank 0's row, replicated by a sum over
+the axis of the rank-0-masked slice (:class:`_PsumBoth`: psum forward and
+backward, ``lax.psum``'s transpose under ``check_vma=False``, so rank 0's
+[CLS] grad arrives n times and the caller's mean over the axis cancels
+it), and :meth:`BertModel.loss` normalises the local masked sum by the
+global weight, times n, for that mean to recover. The ZeRO-3 drives
+(``unroll_layers``, ``zero3_prefetch``) are later slices and raise
+``NotImplementedError``, naming their ROADMAP items. Hidden dropout runs
+only with a dropout generator.
 """
 
 from __future__ import annotations
@@ -37,9 +46,11 @@ from torch import nn
 from apex_tpu_torch._device import DeviceLike, resolve_device
 from apex_tpu_torch.models._transformer import (
     LayerNormParams,
+    SegmentMask,
     TransformerBase,
     TransformerLayer,
 )
+from apex_tpu_torch.parallel import collectives
 from apex_tpu_torch.transformer import tensor_parallel as tp
 
 
@@ -68,6 +79,7 @@ class BertConfig:
     unroll_layers: bool = False
     zero3_prefetch: int = 0
     context_axis: Optional[str] = None
+    sequence_parallel_impl: str = "ring"  # 'ring' | 'ulysses'
 
     @property
     def ffn(self) -> int:
@@ -80,9 +92,6 @@ class BertConfig:
 
 def _check_slice(c: BertConfig) -> None:
     later = {
-        "context_axis": (c.context_axis is not None,
-                         "ring/Ulysses context parallelism with the padding "
-                         "mask as segment ids (Queue 1 item 15)"),
         "unroll_layers": (c.unroll_layers,
                           "BERT under ZeRO (Queue 1 item 24; the port's "
                           "layer loop is a Python loop already)"),
@@ -94,6 +103,21 @@ def _check_slice(c: BertConfig) -> None:
             raise NotImplementedError(
                 f"BertConfig {name} is not in this slice of the port; it "
                 f"comes with {where}")
+
+
+class _PsumBoth(torch.autograd.Function):
+    """The sum over ``axis`` whose backward is the sum of the cotangents:
+    ``lax.psum`` and its transpose under ``check_vma=False``, not
+    Megatron's reduce (identity backward)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return collectives.psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.psum(g, ctx.axis), None
 
 
 def extended_attention_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -176,7 +200,8 @@ class BertModel(TransformerBase):
         s_local = h.shape[1]
         h = h + self._positions(self.position, s_local)
         if tokentype_ids is not None:
-            start = self._seq_shard_start(s_local)
+            # the context slice arrives with the tokens: only SP's is taken
+            start = self._sp_shard_start(s_local)
             ids = tokentype_ids[:, start:start + s_local]
             h = h + self._sp_param(self.tokentype)[ids]
         h = self._ln(self.ln_emb, h.to(c.compute_dtype))
@@ -212,7 +237,13 @@ class BertModel(TransformerBase):
                 h, c.axis, tensor_parallel_output_grad=False)
         binary_logits = None
         if c.add_binary_head:
-            pooled = torch.tanh(self._dense(self.pooler, h[:, 0]))
+            cls = h[:, 0]
+            if self._ctx is not None:
+                # the global [CLS] is rank 0's row (bert.py:227-241)
+                rank, _ = tp.mappings.axis_world(self._ctx)
+                cls = _PsumBoth.apply(cls if rank == 0 else cls * 0,
+                                      self._ctx)
+            pooled = torch.tanh(self._dense(self.pooler, cls))
             binary_logits = self._dense(self.binary_head, pooled.float())
         g = F.gelu(self._dense(self.lm_dense, h), approximate="tanh")
         g = self._ln(self.lm_ln, g, sequence_region=False)
@@ -232,13 +263,19 @@ class BertModel(TransformerBase):
               masked_lm_labels: Optional[torch.Tensor] = None,
               dropout_generator: Optional[torch.Generator] = None):
         """Differentiable forward (``bert.py:255-293``): the padding mask
-        becomes the additive bias of every layer's attention; returns
+        becomes the additive bias of every layer's attention, or under
+        ``context_axis`` a :class:`SegmentMask` (valid 1, pad 0, ``pad_id``
+        0: padded keys are never attended either way, and the padded query
+        rows, 0 here, are the rows the loss mask drops); returns
         :meth:`head`'s pair. Each layer is checkpointed under ``remat``
         where a gradient is tracked."""
         dev = self.device
         tokens = tokens.to(dev)
         bias = None
-        if attention_mask is not None:
+        if attention_mask is not None and self._ctx is not None:
+            seg = attention_mask.to(dev).to(torch.int32)
+            bias = SegmentMask(seg, seg, pad_id=0)
+        elif attention_mask is not None:
             bias = extended_attention_mask(attention_mask.to(dev))
         if tokentype_ids is not None:
             tokentype_ids = tokentype_ids.to(dev)
@@ -257,12 +294,20 @@ class BertModel(TransformerBase):
              dropout_generator: Optional[torch.Generator] = None
              ) -> torch.Tensor:
         """The MLM loss averaged over the masked positions, plus the NSP
-        cross entropy (``bert.py:295-378``, serial)."""
+        cross entropy (``bert.py:295-378``). Under ``context_axis`` the
+        local term whose mean over the axis is the global loss: the local
+        masked sum over the GLOBAL weight (no gradient through it), times
+        the axis size (``bert.py:307-327``)."""
         lm_loss, binary_logits = self.apply(
             tokens, attention_mask, tokentype_ids, masked_lm_labels,
             dropout_generator)
         w = loss_mask.to(self.device).float()
-        loss = (lm_loss * w).sum() / w.sum().clamp_min(1.0)
+        if self._ctx is not None:
+            _, n = tp.mappings.axis_world(self._ctx)
+            total = collectives.psum(w.sum().detach(), self._ctx)
+            loss = (lm_loss * w).sum() * n / total.clamp_min(1.0)
+        else:
+            loss = (lm_loss * w).sum() / w.sum().clamp_min(1.0)
         if nsp_labels is not None and binary_logits is not None:
             logp = F.log_softmax(binary_logits.float(), dim=-1)
             nsp = nsp_labels.to(self.device).long()[:, None]

@@ -43,8 +43,13 @@ is one stage, holding its ``num_layers / S`` layers (the serial model's
 from the same seed, in the interleaved order of ``virtual_pipeline_size``
 chunks), its layer specs named over the pipe axis; it trains through
 ``transformer.pipeline_parallel`` and :meth:`GPTModel.forward` refuses to
-run it alone. Context parallelism and MoE FFNs are later slices and raise
-``NotImplementedError``.
+run it alone. Context parallelism (``context_axis="context"``, after
+``initialize_model_parallel(context_parallel_size=N)``): each rank takes
+its ``s / N`` tokens and targets, attention runs as the ring or Ulysses
+(``sequence_parallel_impl``), positions are global (``models/
+_transformer.py``), :meth:`GPTModel.loss` is the local mean and the caller
+reduces loss and grads over the context axis; serving refuses it. MoE FFNs
+are a later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -96,7 +101,10 @@ class GPTConfig:
     attention_window: Optional[int] = None
     position_embedding: str = "learned"  # learned | rope | none
     rope_theta: float = 10000.0
+    # ring/Ulysses context parallelism over this mesh axis (the topology
+    # installed first: initialize_model_parallel(context_parallel_size=N))
     context_axis: Optional[str] = None
+    sequence_parallel_impl: str = "ring"  # 'ring' | 'ulysses'
     moe_num_experts: Optional[int] = None
     hidden_dropout: float = 0.1  # applied only with a dropout generator
     remat: bool = True  # activation checkpointing per layer (training)
@@ -118,8 +126,6 @@ class GPTConfig:
 
 def _check_slice(c: GPTConfig, device: torch.device) -> None:
     later = {
-        "context_axis": (c.context_axis is not None,
-                         "ring/Ulysses context parallelism (Queue 1 item 15)"),
         "moe_num_experts": (c.moe_num_experts is not None,
                             "MoE FFNs (Queue 1 item 16)"),
     }
@@ -292,8 +298,14 @@ class GPTModel(TransformerBase):
 
     def check_servable(self) -> None:
         """Serving takes tensor parallelism (local kv heads, gathered
-        logits) and refuses sequence parallelism: a decode step's one token
-        cannot shard ``s / tp`` ways (``gpt.py:380-398``)."""
+        logits) and refuses context parallelism (the paged cache is per
+        slot, not ring-sharded) and sequence parallelism (a decode step's
+        one token cannot shard ``s / tp`` ways), ``gpt.py:380-398``."""
+        if self._ctx is not None:
+            raise ValueError(
+                "serving does not support context parallelism: the paged "
+                "cache is per-slot, not ring-sharded -- run decode with "
+                "context_axis=None")
         if self._sp:
             raise ValueError(
                 "serving does not support sequence_parallel=True: decode "

@@ -55,6 +55,16 @@ kernel walks and read on the card), so packed sequences cost
 ``sum(len_i^2)`` score blocks. The streamed kernels keep their static
 splits and narrow each one.
 
+The ring offsets of ``apex_tpu/transformer/ring.py`` (the reference's
+``offsets`` pair, ``off_ref`` in all six kernels): a q shard and a k shard
+that sit at global positions ``q_off`` and ``k_off``. The causal and window
+masks see the pair (row, col) at ``(row + q_off) - (col + k_off)``, so every
+kernel wrapper and plain version takes the one signed ``shift = q_off -
+k_off`` (0: unsharded) and moves its masks and its bands
+(:func:`_window_k_range`, :func:`_window_q_range`) by it; a shift that
+leaves a tile, or the whole call, with nothing visible gives o = 0, lse =
+NEG_INF and zero gradients, as any row that sees no key does.
+
 ``stream='auto'`` streams when ``max(sq, sk) >= STREAM_MIN_SEQ`` or a window
 is set; a dense bias never streams. Both devices route alike; the card takes
 any sq/sk, head_dim <= 128, bf16 or fp32.
@@ -194,22 +204,25 @@ def mha_reference(q, k, v, bias=None, *, causal: bool = False,
                   segment_ids: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
                   pad_id: Optional[int] = None,
-                  window: Optional[int] = None) -> torch.Tensor:
-    """Unfused attention, the plain version of the forward kernel."""
+                  window: Optional[int] = None,
+                  shift: int = 0) -> torch.Tensor:
+    """Unfused attention, the plain version of the forward kernel; ``shift``
+    the ring offsets' ``q_off - k_off``."""
     d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias.float()
-    # a cross-shape window can fully mask rows too, like segment masks
-    masked = segment_ids is not None or window is not None
+    # a cross-shape window or a ring shift can fully mask rows too, like
+    # segment masks
+    masked = segment_ids is not None or window is not None or shift != 0
     if segment_ids is not None:
         q_seg, kv_seg = segment_ids
         valid = q_seg[:, None, :, None] == kv_seg[:, None, None, :]
         if pad_id is not None:
             valid = valid & (kv_seg != pad_id)[:, None, None, :]
         s = torch.where(valid, s, NEG_INF)
-    s = _mask_scores(s, causal, window)
+    s = _mask_scores(s, causal, window, shift=shift)
     p = torch.softmax(s, dim=-1)
     if masked:
         # rows with no visible key output exactly zero (softmax of an
@@ -488,7 +501,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor] = None,
                         window: Optional[int] = None,
                         segment_ids=None, pad_id: Optional[int] = None,
-                        contiguous_segments: bool = False
+                        contiguous_segments: bool = False, shift: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA tensors: ``(o, lse)``, o
     ``(b, h, sq, d)`` in q's dtype and lse ``(b, h, sq)`` fp32. bf16 takes
@@ -499,9 +512,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``bias`` (fp32 ``(b|1, h|1, sq, sk)``, :func:`_bias_args`) joins the
     scores after the scale; the ``window`` and the segment masks as
     :func:`flash_attention` takes them, the bounds at the kernel's tiles
-    (:func:`_seg_args`). Counts its launches in
+    (:func:`_seg_args`). ``shift``: the ring offsets, passed as their
+    difference ``q_off - k_off`` (the one number the masks read), moving
+    the causal and window masks and the bands; 0 launches what a call
+    without it launches. Counts its launches in
     ``flash_attention_fwd.launches``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
+    shift = _shift_arg(shift, causal, window)
     q, k, v, (b, h, sq, sk, d) = _fwd_args(q, k, v, "flash_attention_fwd")
     bargs = _bias_args(bias, q, sq, sk)
     scale = (d ** -0.5) if scale is None else float(scale)
@@ -524,7 +541,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, h, sq, sk, dk_, q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), *bargs,
-        scale, int(causal), _window_arg(window), *tiles,
+        scale, int(causal), _window_arg(window), shift, *tiles,
         build.DTYPES[q.dtype], *sargs, build.current_stream(q.get_device()))
     build.check(err, "apex_flash_fwd")
     flash_attention_fwd.launches += 1
@@ -535,15 +552,17 @@ flash_attention_fwd.launches = 0
 
 
 def _mask_scores(s, causal, window=None, q0=0, k0=0, seg=None,
-                 rows=slice(None)):
+                 rows=slice(None), shift=0):
     """The segment, causal and window masks on scores whose first row and
-    column sit at positions ``q0`` and ``k0`` (batch rows ``rows`` of
-    ``seg``)."""
+    column sit at rows ``q0`` and ``k0`` (batch rows ``rows`` of ``seg``),
+    the causal and window masks with the rows at ``shift`` past the
+    columns (the ring offsets' ``q_off - k_off``)."""
     if seg is not None:
         s = torch.where(_seg_valid(seg, q0, k0, s.shape[-2], s.shape[-1],
                                    rows), s, NEG_INF)
     if causal or window is not None:
         sq, sk = s.shape[-2], s.shape[-1]
+        q0 = q0 + shift
         s = _dense_pos_masks(
             s, torch.arange(q0, q0 + sq, device=s.device)[:, None],
             torch.arange(k0, k0 + sk, device=s.device)[None, :], causal,
@@ -551,11 +570,12 @@ def _mask_scores(s, causal, window=None, q0=0, k0=0, seg=None,
     return s
 
 
-def _lse_reference(q, k, causal, scale, window=None):
+def _lse_reference(q, k, causal, scale, window=None, shift=0):
     """fp32 per-row logsumexp of the masked scores, as the forward kernel
     writes it (NEG_INF for a row with no visible key)."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    return torch.logsumexp(_mask_scores(s, causal, window), dim=-1)
+    return torch.logsumexp(_mask_scores(s, causal, window, shift=shift),
+                           dim=-1)
 
 
 def flash_attention_fwd_reference(q, k, v, *, causal: bool, scale: float,
@@ -563,7 +583,8 @@ def flash_attention_fwd_reference(q, k, v, *, causal: bool, scale: float,
                                   window: Optional[int] = None,
                                   segment_ids=None,
                                   pad_id: Optional[int] = None,
-                                  contiguous_segments: bool = False
+                                  contiguous_segments: bool = False,
+                                  shift: int = 0
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain resident forward with the kernel's arithmetic, in fp32:
     ``S = scale * Q K^T + bias``, the segment, causal and window masks
@@ -571,7 +592,8 @@ def flash_attention_fwd_reference(q, k, v, *, causal: bool, scale: float,
     then ``(o, lse)`` with o in q's dtype. A row whose every score is at
     most NEG_INF / 2 (an all -inf bias row, a row that sees no key) gives
     o = 0 exactly and lse = NEG_INF, as ``_fwd_kernel`` gives for its
-    ``l == 0`` rows (``flash_attention.py:313``)."""
+    ``l == 0`` rows (``flash_attention.py:313``). ``shift``: the ring
+    offsets' ``q_off - k_off`` (:func:`_mask_scores`)."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
@@ -579,7 +601,7 @@ def flash_attention_fwd_reference(q, k, v, *, causal: bool, scale: float,
     if seg is not None:
         s = torch.where(_res_seg_valid(seg, q.shape[2], k.shape[2], True), s,
                         NEG_INF)
-    s = _mask_scores(s, causal, window)
+    s = _mask_scores(s, causal, window, shift=shift)
     m = s.amax(-1, keepdim=True)
     dead = m <= NEG_INF / 2
     p = torch.where(dead, 0.0, torch.exp(s - m))
@@ -597,10 +619,11 @@ def _sum_to_bias(ds: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return ds.sum(dims, keepdim=True) if dims else ds
 
 
-def _probs(s, lse, causal, window, q0=0, k0=0, seg=None, rows=slice(None)):
+def _probs(s, lse, causal, window, q0=0, k0=0, seg=None, rows=slice(None),
+           shift=0):
     """``P = exp(S - lse)`` as the backward kernels recompute it: 0 where
     masked and on rows whose ``lse <= NEG_INF / 2`` (no visible key)."""
-    s = _mask_scores(s, causal, window, q0, k0, seg, rows)
+    s = _mask_scores(s, causal, window, q0, k0, seg, rows, shift)
     lse = lse[..., None]
     return torch.where(lse <= NEG_INF / 2, 0.0, torch.exp(s - lse))
 
@@ -611,11 +634,13 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool,
                                   bias: Optional[torch.Tensor] = None,
                                   segment_ids=None,
                                   pad_id: Optional[int] = None,
-                                  contiguous_segments: bool = False):
+                                  contiguous_segments: bool = False,
+                                  shift: int = 0):
     """Plain backward, the arithmetic of the backward kernels:
     ``P = exp(S - lse)`` with ``S = scale * Q K^T [+ bias]`` (0 where the
-    segment, causal or window mask hides the key, outside the kernels'
-    contiguous-segment bounds, or where ``lse <= NEG_INF / 2``),
+    segment, causal or window mask hides the key (the latter two at the
+    ring offsets' ``shift``), outside the kernels' contiguous-segment
+    bounds, or where ``lse <= NEG_INF / 2``),
     ``dS = P * (dO V^T - delta)`` with ``delta = rowsum(dO * O)``; returns
     ``(dq, dk, dv)`` in q/k/v's dtypes, computed in fp32, and with a
     ``bias`` also dbias = dS summed over its broadcast b/h dims, fp32
@@ -629,7 +654,7 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool,
     if seg is not None:
         s = torch.where(_res_seg_valid(seg, q.shape[2], k.shape[2], False),
                         s, NEG_INF)
-    p = _probs(s, lse.float(), causal, window)
+    p = _probs(s, lse.float(), causal, window, shift=shift)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
     dp = torch.einsum("bhqd,bhkd->bhqk", do32, v32)
     ds = p * (dp - delta)
@@ -719,7 +744,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
                            dbias: bool = False,
                            window: Optional[int] = None, segment_ids=None,
                            pad_id: Optional[int] = None,
-                           contiguous_segments: bool = False):
+                           contiguous_segments: bool = False,
+                           shift: int = 0):
     """Launch the dQ kernel on CUDA tensors: dQ ``(b, h, sq, d)`` in q's
     dtype from the forward's fp32 lse and ``delta = rowsum(dO * O)`` (both
     ``(b, h, sq)``), written once by the kernel (no workspace, no atomics:
@@ -728,21 +754,24 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
     kernel also writes dS, fp32, and the call returns ``(dq, dbias)``,
     dbias in the bias's ``(b|1, h|1, sq, sk)``: written directly where the
     bias is ``(b, h, ...)``, else as per-(b, h) partials that the same
-    launch call's ``dbias_finish`` sums in a fixed order. The ``window``
-    and the segment masks as :func:`flash_attention_fwd` takes them. Counts
-    its launches in ``flash_attention_bwd_dq.launches``."""
+    launch call's ``dbias_finish`` sums in a fixed order. The ``window``,
+    the segment masks and the ring offsets' ``shift`` (``q_off - k_off``)
+    as :func:`flash_attention_fwd` takes them: a query tile the shift
+    leaves no key gets dQ = 0. Counts its launches in
+    ``flash_attention_bwd_dq.launches``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     return _bwd_dq(q, k, v, do, lse, delta, causal, scale, bias, dbias,
-                   window, seg, flash_attention_bwd_dq)
+                   window, seg, flash_attention_bwd_dq, shift)
 
 
 def _bwd_dq(q, k, v, do, lse, delta, causal, scale, bias, dbias, window,
-            seg, wrapper):
+            seg, wrapper, shift=0):
     """The launch of the resident dQ kernel for ``wrapper`` (the entry point
     that counts it: :func:`flash_attention_bwd_dq`, or the streamed one for
     fp32 operands)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    shift = _shift_arg(shift, causal, window)
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _res_bwd_launch(
         q, k, v, do, lse, delta, wrapper.__name__, True, bias is not None)
     bargs = _bias_args(bias, q, sq, sk)
@@ -769,7 +798,7 @@ def _bwd_dq(q, k, v, do, lse, delta, causal, scale, bias, dbias, window,
         None if ws is None else ws.data_ptr(),
         None if out is None else out.data_ptr(), b, h, sq, sk, dk_,
         *strides, *bargs[1:], bb, bh, float(scale), int(causal),
-        _window_arg(window), *tiles, build.DTYPES[q.dtype], *sargs,
+        _window_arg(window), shift, *tiles, build.DTYPES[q.dtype], *sargs,
         build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dq")
     wrapper.launches += 1
@@ -785,24 +814,26 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
                             bias: Optional[torch.Tensor] = None,
                             window: Optional[int] = None, segment_ids=None,
                             pad_id: Optional[int] = None,
-                            contiguous_segments: bool = False
+                            contiguous_segments: bool = False,
+                            shift: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel on CUDA tensors: ``(dk, dv)``, each
     ``(b, h, sk, d)`` in k's dtype, written once by the kernel (a key no
-    query sees gets 0); a ``bias``, the ``window`` and the segment masks
-    as in the forward. Counts its launches in
+    query sees gets 0); a ``bias``, the ``window``, the segment masks and
+    the ring offsets' ``shift`` as in the forward. Counts its launches in
     ``flash_attention_bwd_dkv.launches``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     return _bwd_dkv(q, k, v, do, lse, delta, causal, scale, bias, window,
-                    seg, flash_attention_bwd_dkv)
+                    seg, flash_attention_bwd_dkv, shift)
 
 
 def _bwd_dkv(q, k, v, do, lse, delta, causal, scale, bias, window, seg,
-             wrapper):
+             wrapper, shift=0):
     """The launch of the resident dK/dV kernel for ``wrapper``, as
     :func:`_bwd_dq`."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    shift = _shift_arg(shift, causal, window)
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _res_bwd_launch(
         q, k, v, do, lse, delta, wrapper.__name__, False)
     bargs = _bias_args(bias, q, sq, sk)
@@ -815,8 +846,8 @@ def _bwd_dkv(q, k, v, do, lse, delta, causal, scale, bias, window, seg,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         bargs[0], b, h, sq, sk, dk_, *strides, *bargs[1:], float(scale),
-        int(causal), _window_arg(window), *tiles, build.DTYPES[q.dtype],
-        *sargs, build.current_stream(q.get_device()))
+        int(causal), _window_arg(window), shift, *tiles,
+        build.DTYPES[q.dtype], *sargs, build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dkv")
     wrapper.launches += 1
     if dk_ != d:
@@ -838,34 +869,41 @@ def _cdiv(a: int, b: int) -> int:
 
 def _window_k_range(qt: int, nk: int, causal: bool, window: Optional[int],
                     blk_q: int = BWD_INNER_TILE,
-                    blk_k: int = BWD_INNER_TILE) -> Tuple[int, int]:
+                    blk_k: int = BWD_INNER_TILE,
+                    shift: int = 0) -> Tuple[int, int]:
     """``[lo, hi)`` of the key tiles (``blk_k`` rows) that query tile ``qt``
-    (``blk_q`` rows) sees: the causal limit, then the window
-    (``_window_k_range``, ``flash_attention.py:117-130``, with no ring
-    offsets)."""
+    (``blk_q`` rows) sees: the causal limit (``flash_attention.py:
+    304-309``), then the window (``_window_k_range``, ``:117-130``), with
+    the ring offsets' ``shift = q_off - k_off`` (``k_tiles`` in
+    ``csrc/flash_bwd_wgmma.cuh``). ``hi < lo`` where the window starts past
+    the last tile: an empty band."""
     lo, hi = 0, nk
     if causal:
-        hi = min(hi, _cdiv((qt + 1) * blk_q, blk_k))
+        hi = min(hi, max(0, (shift + (qt + 1) * blk_q + blk_k - 1) // blk_k))
     if window is not None:
-        lo = max(lo, (qt * blk_q - window + 1) // blk_k)
+        lo = max(lo, (shift + qt * blk_q - window + 1) // blk_k)
         if not causal:
-            hi = max(0, min(hi, ((qt + 1) * blk_q + window - 2) // blk_k + 1))
+            hi = max(0, min(hi, (shift + (qt + 1) * blk_q + window - 2)
+                            // blk_k + 1))
     return lo, hi
 
 
 def _window_q_range(kt: int, nq: int, causal: bool, window: Optional[int],
                     blk_q: int = BWD_INNER_TILE,
-                    blk_k: int = BWD_INNER_TILE) -> Tuple[int, int]:
+                    blk_k: int = BWD_INNER_TILE,
+                    shift: int = 0) -> Tuple[int, int]:
     """``[lo, hi)`` of the query tiles (``blk_q`` rows) that see key tile
-    ``kt`` (``blk_k`` rows) (``_window_q_range``, ``flash_attention.py:
-    133-143``)."""
+    ``kt`` (``blk_k`` rows): the causal start (``flash_attention.py:478``)
+    and the window (``_window_q_range``, ``:133-143``), with the ring
+    offsets' ``shift`` (``q_tiles``)."""
     lo, hi = 0, nq
     if causal:
-        lo = min(kt * blk_k // blk_q, nq)
+        lo = min(max(0, (kt * blk_k - shift) // blk_q), nq)
     if window is not None:
-        hi = max(0, min(hi, ((kt + 1) * blk_k + window - 2) // blk_q + 1))
+        hi = max(0, min(hi, ((kt + 1) * blk_k - shift + window - 2) // blk_q
+                        + 1))
         if not causal:
-            lo = max(lo, (kt * blk_k - window + 1) // blk_q)
+            lo = max(lo, (kt * blk_k - shift - window + 1) // blk_q)
     return lo, hi
 
 
@@ -884,12 +922,14 @@ def _splits(lo: int, hi: int, split_tiles: int) -> List[Tuple[int, int]]:
 
 @functools.lru_cache(maxsize=64)
 def _bands(n_outer: int, n_inner: int, causal: bool, window: Optional[int],
-           inner_is_k: bool, split_tiles: int, blk_q: int, blk_k: int):
+           inner_is_k: bool, split_tiles: int, blk_q: int, blk_k: int,
+           shift: int = 0):
     """Per outer tile its list of splits, and the most splits of any: the
-    grid's split extent."""
+    grid's split extent (0 where the ring offsets' ``shift`` leaves every
+    band empty)."""
     rng = _window_k_range if inner_is_k else _window_q_range
     bands = tuple(tuple(_splits(*rng(i, n_inner, causal, window, blk_q,
-                                     blk_k), split_tiles))
+                                     blk_k, shift), split_tiles))
                   for i in range(n_outer))
     return bands, max((len(b) for b in bands), default=0)
 
@@ -905,14 +945,14 @@ def _fwd_tiles(bf16: bool, d: int) -> Tuple[int, int, int]:
             FWD_F32_SPLIT_TILES)
 
 
-def _fwd_bands(sq, sk, causal, window, tiles=None):
+def _fwd_bands(sq, sk, causal, window, tiles=None, shift=0):
     """The forward's bands, as the kernel and the plain version cut them at
     ``tiles`` (:func:`_fwd_tiles`; the bf16 route's by default): query
     tiles of ``tiles[0]`` rows, key tiles of ``tiles[1]`` rows, splits of
-    ``tiles[2]`` key tiles."""
+    ``tiles[2]`` key tiles; at the ring offsets' ``shift``."""
     o, i, split = tiles or _fwd_tiles(True, 0)
     return _bands(_cdiv(sq, o), _cdiv(sk, i), causal, window, True, split,
-                  o, i)
+                  o, i, shift)
 
 
 def _fwd_merges(nsplit: int) -> bool:
@@ -935,59 +975,61 @@ def _bwd_tiles(bf16: bool, inner_is_k: bool,
     return (*_res_bwd_tiles(False, inner_is_k, d)[:2], None)
 
 
-def _bwd_bands(sq, sk, causal, window, inner_is_k, tiles=None):
+def _bwd_bands(sq, sk, causal, window, inner_is_k, tiles=None, shift=0):
     """The backward kernels' bands, as the kernels and the plain versions
     cut them at ``tiles`` (:func:`_bwd_tiles`; the bf16 route's by
     default): outer tiles of ``tiles[0]`` rows (queries when
     ``inner_is_k``, else keys), inner tiles of ``tiles[1]`` rows, splits of
-    ``tiles[2]`` inner tiles (None: one piece a band)."""
+    ``tiles[2]`` inner tiles (None: one piece a band); at the ring
+    offsets' ``shift``."""
     o, i, split = tiles or _bwd_tiles(True, inner_is_k, 0)
     n_out, n_in = ((_cdiv(sq, o), _cdiv(sk, i)) if inner_is_k
                    else (_cdiv(sk, o), _cdiv(sq, i)))
     split = split or max(n_in, 1)
     if inner_is_k:
-        return _bands(n_out, n_in, causal, window, True, split, o, i)
-    return _bands(n_out, n_in, causal, window, False, split, i, o)
+        return _bands(n_out, n_in, causal, window, True, split, o, i, shift)
+    return _bands(n_out, n_in, causal, window, False, split, i, o, shift)
 
 
 def _res_bwd_bands(sq: int, sk: int, causal: bool, inner_is_k: bool,
                    outer: Optional[int] = None,
                    inner: Optional[int] = None,
-                   window: Optional[int] = None) -> Tuple[Tuple[int, int],
-                                                          ...]:
+                   window: Optional[int] = None,
+                   shift: int = 0) -> Tuple[Tuple[int, int], ...]:
     """The resident kernels' bands, one piece each: per outer tile of
     ``outer`` rows (BWD_OUTER_TILE; queries when ``inner_is_k``, the dQ
     pass, else keys) the ``[lo, hi)`` of the ``inner``-row inner tiles (the
     pass's at d <= 64, :func:`_res_bwd_inner`) its CTA streams -- the
     causal limit and the window for dQ, the causal start and the window
     for dK/dV (``k_tiles`` / ``q_tiles`` in ``csrc/flash_bwd_wgmma.cuh``),
-    before the segment bounds narrow them."""
+    at the ring offsets' ``shift``, before the segment bounds narrow
+    them."""
     o = BWD_OUTER_TILE if outer is None else outer
     i = _res_bwd_inner(inner_is_k, 64) if inner is None else inner
     if inner_is_k:
         nk = _cdiv(sk, i)
-        return tuple(_window_k_range(t, nk, causal, window, o, i)
+        return tuple(_window_k_range(t, nk, causal, window, o, i, shift)
                      for t in range(_cdiv(sq, o)))
     nq = _cdiv(sq, i)
-    return tuple(_window_q_range(t, nq, causal, window, i, o)
+    return tuple(_window_q_range(t, nq, causal, window, i, o, shift)
                  for t in range(_cdiv(sk, o)))
 
 
 def _res_fwd_bands(sq: int, sk: int, causal: bool,
                    outer: Optional[int] = None,
                    inner: Optional[int] = None,
-                   window: Optional[int] = None) -> Tuple[Tuple[int, int],
-                                                          ...]:
+                   window: Optional[int] = None,
+                   shift: int = 0) -> Tuple[Tuple[int, int], ...]:
     """The resident forward's bands, one piece each: per query tile of
     ``outer`` rows (RES_FWD_OUTER_TILE) the ``[lo, hi)`` of the
     ``inner``-row key tiles (RES_FWD_INNER_TILE; the tiles of a launch:
     :func:`_res_fwd_tiles`) its CTA streams -- the causal limit and the
-    window (``k_tiles`` in ``csrc/flash_bwd_wgmma.cuh``), before the
-    segment bounds narrow them."""
+    window (``k_tiles`` in ``csrc/flash_bwd_wgmma.cuh``) at the ring
+    offsets' ``shift``, before the segment bounds narrow them."""
     o = RES_FWD_OUTER_TILE if outer is None else outer
     i = RES_FWD_INNER_TILE if inner is None else inner
     nk = _cdiv(sk, i)
-    return tuple(_window_k_range(t, nk, causal, window, o, i)
+    return tuple(_window_k_range(t, nk, causal, window, o, i, shift)
                  for t in range(_cdiv(sq, o)))
 
 
@@ -1070,7 +1112,8 @@ def flash_attention_fwd_stream_reference(q, k, v, *, causal: bool,
                                          window: Optional[int] = None,
                                          segment_ids=None,
                                          pad_id: Optional[int] = None,
-                                         contiguous_segments: bool = False
+                                         contiguous_segments: bool = False,
+                                         shift: int = 0
                                          ) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
     """Plain streamed forward, the kernel's arithmetic in fp32: per query
@@ -1083,7 +1126,8 @@ def flash_attention_fwd_stream_reference(q, k, v, *, causal: bool,
     ``lse = m* + log l*`` (a band of one split is that split's own
     normalisation). A row with no visible key gives o = 0 exactly and lse =
     NEG_INF. Returns ``(o, lse)`` as the kernels do, at the tiles of q's
-    dtype's route (:func:`_fwd_tiles`)."""
+    dtype's route (:func:`_fwd_tiles`); ``shift``: the ring offsets' ``q_off
+    - k_off``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -1093,7 +1137,7 @@ def flash_attention_fwd_stream_reference(q, k, v, *, causal: bool,
     q32, k32, v32 = q.float(), k.float(), v.float()
     o = torch.zeros(b, h, sq, d, device=q.device)
     lse = torch.full((b, h, sq), NEG_INF, device=q.device)
-    bands, _ = _fwd_bands(sq, sk, causal, window, tiles)
+    bands, _ = _fwd_bands(sq, sk, causal, window, tiles, shift)
     bounds = _stream_bounds(seg, to, ti, True)
     for rows in _stream_rows(seg, b):
         for qt, splits in enumerate(bands):
@@ -1111,7 +1155,7 @@ def flash_attention_fwd_stream_reference(q, k, v, *, causal: bool,
                 c0, c1 = a * ti, min(sk, e * ti)
                 s = torch.einsum("bhqd,bhkd->bhqk", q32[rows, :, r0:r1],
                                  k32[rows, :, c0:c1]) * scale
-                s = _mask_scores(s, causal, window, r0, c0, seg, rows)
+                s = _mask_scores(s, causal, window, r0, c0, seg, rows, shift)
                 m = s.amax(-1)
                 p = torch.where((m <= NEG_INF / 2)[..., None], 0.0,
                                 torch.exp(s - m[..., None]))
@@ -1136,14 +1180,15 @@ def flash_attention_bwd_dq_stream_reference(q, k, v, do, lse, delta, *,
                                             window: Optional[int] = None,
                                             segment_ids=None,
                                             pad_id: Optional[int] = None,
-                                            contiguous_segments: bool = False
+                                            contiguous_segments: bool = False,
+                                            shift: int = 0
                                             ) -> torch.Tensor:
     """Plain streamed dQ: per query tile, each split of its band of key
     tiles (at the tiles of q's dtype's route, :func:`_bwd_tiles`: in fp32
     the whole band), narrowed by the segment bounds (an empty one adds
     nothing), adds ``scale * dS K`` over its keys into an fp32 sum (the
     bf16 kernel's atomics), ``dS = P * (dO V^T - delta)``; dQ in q's
-    dtype."""
+    dtype; at the ring offsets' ``shift``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -1152,7 +1197,7 @@ def flash_attention_bwd_dq_stream_reference(q, k, v, do, lse, delta, *,
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     lse, delta = lse.float(), delta.float()
     dq = torch.zeros(b, h, sq, d, device=q.device)
-    bands, _ = _bwd_bands(sq, sk, causal, window, True, tiles)
+    bands, _ = _bwd_bands(sq, sk, causal, window, True, tiles, shift)
     bounds = _stream_bounds(seg, to, ti, True)
     for rows in _stream_rows(seg, b):
         for qt, splits in enumerate(bands):
@@ -1165,7 +1210,7 @@ def flash_attention_bwd_dq_stream_reference(q, k, v, do, lse, delta, *,
                 s = torch.einsum("bhqd,bhkd->bhqk", q32[rows, :, r0:r1],
                                  k32[rows, :, c0:c1]) * scale
                 p = _probs(s, lse[rows, :, r0:r1], causal, window, r0, c0,
-                           seg, rows)
+                           seg, rows, shift)
                 dp = torch.einsum("bhqd,bhkd->bhqk", do32[rows, :, r0:r1],
                                   v32[rows, :, c0:c1])
                 ds = p * (dp - delta[rows, :, r0:r1, None])
@@ -1179,14 +1224,15 @@ def flash_attention_bwd_dkv_stream_reference(q, k, v, do, lse, delta, *,
                                              window: Optional[int] = None,
                                              segment_ids=None,
                                              pad_id: Optional[int] = None,
-                                             contiguous_segments: bool = False
+                                             contiguous_segments: bool = False,
+                                             shift: int = 0
                                              ) -> Tuple[torch.Tensor,
                                                         torch.Tensor]:
     """Plain streamed dK/dV: per key tile, each split of the query tiles
     that see it (at the tiles of q's dtype's route, :func:`_bwd_tiles`: in
     fp32 the whole band), narrowed by the segment bounds (an empty one adds
     nothing), adds ``scale * dS^T Q`` and ``P^T dO`` into fp32 sums;
-    ``(dk, dv)`` in k's dtype."""
+    ``(dk, dv)`` in k's dtype; at the ring offsets' ``shift``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -1196,7 +1242,7 @@ def flash_attention_bwd_dkv_stream_reference(q, k, v, do, lse, delta, *,
     lse, delta = lse.float(), delta.float()
     dk = torch.zeros(b, h, sk, d, device=q.device)
     dv = torch.zeros_like(dk)
-    bands, _ = _bwd_bands(sq, sk, causal, window, False, tiles)
+    bands, _ = _bwd_bands(sq, sk, causal, window, False, tiles, shift)
     bounds = _stream_bounds(seg, to, ti, False)
     for rows in _stream_rows(seg, b):
         for kt, splits in enumerate(bands):
@@ -1209,7 +1255,7 @@ def flash_attention_bwd_dkv_stream_reference(q, k, v, do, lse, delta, *,
                 s = torch.einsum("bhqd,bhkd->bhqk", q32[rows, :, r0:r1],
                                  k32[rows, :, c0:c1]) * scale
                 p = _probs(s, lse[rows, :, r0:r1], causal, window, r0, c0,
-                           seg, rows)
+                           seg, rows, shift)
                 dp = torch.einsum("bhqd,bhkd->bhqk", do32[rows, :, r0:r1],
                                   v32[rows, :, c0:c1])
                 ds = p * (dp - delta[rows, :, r0:r1, None])
@@ -1224,24 +1270,33 @@ def _window_arg(window: Optional[int]) -> int:
     return 0 if window is None else int(window)
 
 
+def _shift_arg(shift: int, causal: bool, window: Optional[int]) -> int:
+    """The ring offsets' ``q_off - k_off`` as a launch takes it: 0 where
+    neither the causal nor the window mask reads it (and the launch is the
+    one a call without it makes)."""
+    return int(shift) if causal or window is not None else 0
+
+
 def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = False,
                                scale: Optional[float] = None,
                                window: Optional[int] = None,
                                segment_ids=None,
                                pad_id: Optional[int] = None,
-                               contiguous_segments: bool = False
+                               contiguous_segments: bool = False,
+                               shift: int = 0
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the streamed forward on CUDA tensors: ``(o, lse)`` as
-    :func:`flash_attention_fwd`, with the sliding ``window`` and the
-    segment masks. bf16 takes the wgmma kernel (operands TMA can read:
-    :func:`_tma_operands`), fp32 the register-blocked FMA kernel, each at
+    :func:`flash_attention_fwd`, with the sliding ``window``, the segment
+    masks and the ring offsets' ``shift`` (``q_off - k_off``). bf16 takes
+    the wgmma kernel (operands TMA can read: :func:`_tma_operands`), fp32 the register-blocked FMA kernel, each at
     its route's tiles (:func:`_fwd_tiles`), with the merge pass and its
     fp32 workspace only where a band has several splits
     (:func:`_fwd_merges`). The splits come from shapes alone; the segment
     bounds narrow each on the card. Counts its launches in
     ``flash_attention_fwd_stream.launches``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
+    shift = _shift_arg(shift, causal, window)
     q, k, v, (b, h, sq, sk, d) = _fwd_args(q, k, v,
                                            "flash_attention_fwd_stream")
     scale = (d ** -0.5) if scale is None else float(scale)
@@ -1250,7 +1305,7 @@ def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
     if bf16:
         (q, k, v), dk_ = _tma_operands([q, k, v])
     route = _fwd_tiles(bf16, d)
-    _, nsplit = _fwd_bands(sq, sk, causal, window, route)
+    _, nsplit = _fwd_bands(sq, sk, causal, window, route, shift)
     tiles = (*route, nsplit)
     sargs, _keep = _seg_args(seg, tiles[0], tiles[1], True)
     o = torch.empty((b, h, sq, dk_), device=q.device, dtype=q.dtype)
@@ -1272,7 +1327,7 @@ def flash_attention_fwd_stream(q: torch.Tensor, k: torch.Tensor,
         lse.data_ptr(), b, h, sq, sk, dk_, q.stride(0), q.stride(1),
         q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), scale, int(causal),
-        _window_arg(window), *tiles, build.DTYPES[q.dtype], *sargs,
+        _window_arg(window), shift, *tiles, build.DTYPES[q.dtype], *sargs,
         build.current_stream(q.get_device()))
     build.check(err, "apex_flash_fwd_stream")
     flash_attention_fwd_stream.launches += 1
@@ -1285,7 +1340,7 @@ flash_attention_fwd_stream.launches = 0
 
 
 def _bwd_stream_launch(q, k, v, do, lse, delta, causal, window, name,
-                       inner_is_k):
+                       inner_is_k, shift=0):
     """Check the bf16 operands of a streamed backward kernel (the wgmma
     kernels: operands TMA can read, :func:`_tma_operands`). Returns the
     operands, lse/delta, the head_dim the kernel sees, the strides and the
@@ -1295,7 +1350,7 @@ def _bwd_stream_launch(q, k, v, do, lse, delta, causal, window, name,
         q, k, v, do, lse, delta, name)
     (q, k, v, do), d = _tma_operands([q, k, v, do])
     route = _bwd_tiles(True, inner_is_k, d)
-    _, nsplit = _bwd_bands(sq, sk, causal, window, inner_is_k, route)
+    _, nsplit = _bwd_bands(sq, sk, causal, window, inner_is_k, route, shift)
     tiles = (*route, nsplit)
     strides = [st for t in (q, k, v, do) for st in t.stride()[:3]]
     return (q, k, v, do), (lse, delta), d, strides, tiles
@@ -1306,23 +1361,26 @@ def flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, *, causal: bool,
                                   window: Optional[int] = None,
                                   segment_ids=None,
                                   pad_id: Optional[int] = None,
-                                  contiguous_segments: bool = False
+                                  contiguous_segments: bool = False,
+                                  shift: int = 0
                                   ) -> torch.Tensor:
     """Launch the streamed dQ kernel on CUDA tensors: dQ in q's dtype. In
     bf16 its CTAs add into a zeroed fp32 accumulator (a split the segment
     bounds leave empty adds nothing), cast to bf16 after; in fp32 it is the
     resident fp32 kernel over whole bands (:func:`flash_attention_bwd_dq`
-    with no bias), which writes each element once. Counts its launches in
-    ``flash_attention_bwd_dq_stream.launches``."""
+    with no bias), which writes each element once. The ring offsets'
+    ``shift`` as :func:`flash_attention_fwd_stream` takes it. Counts its
+    launches in ``flash_attention_bwd_dq_stream.launches``."""
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     if q.dtype == torch.float32:
         return _bwd_dq(q, k, v, do, lse, delta, causal, scale, None, False,
-                       window, seg, flash_attention_bwd_dq_stream)
+                       window, seg, flash_attention_bwd_dq_stream, shift)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    shift = _shift_arg(shift, causal, window)
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _bwd_stream_launch(
         q, k, v, do, lse, delta, causal, window,
-        "flash_attention_bwd_dq_stream", True)
+        "flash_attention_bwd_dq_stream", True, shift)
     sargs, _keep = _seg_args(seg, tiles[0], tiles[1], True)
     dq = torch.zeros((b, h, sq, dk_), device=q.device, dtype=torch.float32)
     if dq.numel() == 0:
@@ -1330,8 +1388,9 @@ def flash_attention_bwd_dq_stream(q, k, v, do, lse, delta, *, causal: bool,
     err = build.load().apex_flash_bwd_dq_stream(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, dk_,
-        *strides, float(scale), int(causal), _window_arg(window), *tiles,
-        build.DTYPES[q.dtype], *sargs, build.current_stream(q.get_device()))
+        *strides, float(scale), int(causal), _window_arg(window), shift,
+        *tiles, build.DTYPES[q.dtype], *sargs,
+        build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dq_stream")
     flash_attention_bwd_dq_stream.launches += 1
     return dq[..., :d].to(q.dtype)
@@ -1345,7 +1404,8 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
                                    window: Optional[int] = None,
                                    segment_ids=None,
                                    pad_id: Optional[int] = None,
-                                   contiguous_segments: bool = False
+                                   contiguous_segments: bool = False,
+                                   shift: int = 0
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the streamed dK/dV kernel on CUDA tensors: ``(dk, dv)`` in
     k's dtype, as :func:`flash_attention_bwd_dq_stream` gives dQ (in fp32
@@ -1355,12 +1415,13 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
     seg = _as_seg(segment_ids, pad_id, contiguous_segments, q, k)
     if q.dtype == torch.float32:
         return _bwd_dkv(q, k, v, do, lse, delta, causal, scale, None, window,
-                        seg, flash_attention_bwd_dkv_stream)
+                        seg, flash_attention_bwd_dkv_stream, shift)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    shift = _shift_arg(shift, causal, window)
     (q, k, v, do), (lse, delta), dk_, strides, tiles = _bwd_stream_launch(
         q, k, v, do, lse, delta, causal, window,
-        "flash_attention_bwd_dkv_stream", False)
+        "flash_attention_bwd_dkv_stream", False, shift)
     sargs, _keep = _seg_args(seg, tiles[0], tiles[1], False)
     dk = torch.zeros((b, h, sk, dk_), device=q.device, dtype=torch.float32)
     dv = torch.zeros_like(dk)
@@ -1370,7 +1431,7 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
         sq, sk, dk_, *strides, float(scale), int(causal), _window_arg(window),
-        *tiles, build.DTYPES[q.dtype], *sargs,
+        shift, *tiles, build.DTYPES[q.dtype], *sargs,
         build.current_stream(q.get_device()))
     build.check(err, "apex_flash_bwd_dkv_stream")
     flash_attention_bwd_dkv_stream.launches += 1
@@ -1380,10 +1441,13 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, delta, *, causal: bool,
 flash_attention_bwd_dkv_stream.launches = 0
 
 
-def _forward(q, k, v, causal, scale, stream, window, bias=None, seg=None):
+def _forward(q, k, v, causal, scale, stream, window, bias=None, seg=None,
+             shift=0):
     """``(o, lse)``: the kernel on a CUDA tensor, its plain version on a
-    CPU one. A bias never streams (:func:`use_stream`)."""
-    kw = dict(causal=causal, scale=scale, window=window, segment_ids=seg)
+    CPU one. A bias never streams (:func:`use_stream`). ``shift``: the ring
+    offsets' ``q_off - k_off``."""
+    kw = dict(causal=causal, scale=scale, window=window, segment_ids=seg,
+              shift=shift)
     if stream:
         fn = (flash_attention_fwd_stream if q.device.type == "cuda"
               else flash_attention_fwd_stream_reference)
@@ -1391,9 +1455,42 @@ def _forward(q, k, v, causal, scale, stream, window, bias=None, seg=None):
     if q.device.type == "cuda":
         return flash_attention_fwd(q, k, v, bias=bias, **kw)
     if bias is None and seg is None and window is None:
-        return (mha_reference(q, k, v, causal=causal, scale=scale),
-                _lse_reference(q, k, causal, scale))
+        return (mha_reference(q, k, v, causal=causal, scale=scale,
+                              shift=shift),
+                _lse_reference(q, k, causal, scale, shift=shift))
     return flash_attention_fwd_reference(q, k, v, bias=bias, **kw)
+
+
+def _backward(q, k, v, o, lse, do, causal, scale, stream, window, bias=None,
+              want_db=False, seg=None, shift=0, delta=None):
+    """``(dq, dk, dv, dbias or None)`` of the two-pass backward from the
+    forward's ``o`` and fp32 ``lse``: the kernels on CUDA tensors, their
+    plain versions on CPU ones; dbias from the dQ pass where ``want_db``.
+    ``delta`` (``rowsum(dO * O)`` in fp32) is computed from ``o`` unless
+    given; ``shift``: the ring offsets' ``q_off - k_off``."""
+    kw = dict(causal=causal, scale=scale, window=window, segment_ids=seg,
+              shift=shift)
+    cuda = q.device.type == "cuda"
+    if not stream and not cuda:
+        dq, dk, dv, *db = flash_attention_bwd_reference(
+            q, k, v, o, lse, do, bias=bias, **kw)
+        return dq, dk, dv, (db[0] if want_db else None)
+    if delta is None:
+        delta = (o.float() * do.float()).sum(-1)
+    if stream:
+        dq_fn, dkv_fn = ((flash_attention_bwd_dq_stream,
+                          flash_attention_bwd_dkv_stream) if cuda else
+                         (flash_attention_bwd_dq_stream_reference,
+                          flash_attention_bwd_dkv_stream_reference))
+        dq = dq_fn(q, k, v, do, lse, delta, **kw)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None
+    got = flash_attention_bwd_dq(q, k, v, do, lse, delta, bias=bias,
+                                 dbias=want_db, **kw)
+    dq, db = got if want_db else (got, None)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias=bias,
+                                     **kw)
+    return dq, dk, dv, db
 
 
 class FlashAttention(torch.autograd.Function):
@@ -1417,29 +1514,9 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, o, lse = ctx.saved_tensors
         want_db = bias is not None and ctx.needs_input_grad[3]
-        kw = dict(causal=ctx.causal, scale=ctx.scale, window=ctx.window,
-                  segment_ids=ctx.seg)
-        cuda = q.device.type == "cuda"
-        none = (None,) * 5
-        if not ctx.stream and not cuda:
-            dq, dk, dv, *db = flash_attention_bwd_reference(
-                q, k, v, o, lse, do, bias=bias, **kw)
-            return dq, dk, dv, (db[0] if want_db else None), *none
-        delta = (o.float() * do.float()).sum(-1)
-        if ctx.stream:
-            dq_fn, dkv_fn = ((flash_attention_bwd_dq_stream,
-                              flash_attention_bwd_dkv_stream) if cuda else
-                             (flash_attention_bwd_dq_stream_reference,
-                              flash_attention_bwd_dkv_stream_reference))
-            dq = dq_fn(q, k, v, do, lse, delta, **kw)
-            dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
-            return dq, dk, dv, None, *none
-        got = flash_attention_bwd_dq(q, k, v, do, lse, delta, bias=bias,
-                                     dbias=want_db, **kw)
-        dq, db = got if want_db else (got, None)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias=bias,
-                                         **kw)
-        return dq, dk, dv, db, *none
+        grads = _backward(q, k, v, o, lse, do, ctx.causal, ctx.scale,
+                          ctx.stream, ctx.window, bias, want_db, ctx.seg)
+        return (*grads, *(None,) * 5)
 
 
 _STREAM_CHOICES = ("auto", "never", "always")

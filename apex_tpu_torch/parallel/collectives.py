@@ -270,7 +270,9 @@ def all_to_all(x: torch.Tensor, axis: AxisNames, *, split_axis: int,
     """Split ``x`` into the axis size's blocks along ``split_axis``, send
     block j to the rank at index j, and concatenate what arrives along
     ``concat_axis`` in the senders' order (``lax.all_to_all(tiled=True)``).
-    """
+    On gloo a 16-bit float crosses as its bytes (a ``uint8`` view: bit for
+    bit), a wire gloo takes on host and CUDA tensors alike; gloo refuses
+    ``all_to_all_single`` of int16 outright."""
     pg, ranks, _ = _group(axis)
     n = len(ranks)
     if x.shape[split_axis] % n:
@@ -284,9 +286,13 @@ def all_to_all(x: torch.Tensor, axis: AxisNames, *, split_axis: int,
     blocks = _in_group_order(ranks, [b.contiguous()
                                      for b in x.chunk(n, dim=split_axis)])
     send = torch.cat([b.reshape(-1) for b in blocks])
-    recv = torch.empty_like(send)
+    as_bytes = (x.dtype in (torch.bfloat16, torch.float16)
+                and dist.get_backend(pg) == "gloo")
+    wire = send.view(torch.uint8) if as_bytes else send
+    recv = torch.empty_like(wire)
     _run("all_to_all", axis, pg,
-         lambda: dist.all_to_all_single(recv, send, group=pg))
+         lambda: dist.all_to_all_single(recv, wire, group=pg))
+    recv = recv.view(x.dtype)
     got = [r.view(blocks[0].shape) for r in recv.view(n, -1).unbind(0)]
     return torch.cat(_in_axis_order(ranks, got), dim=concat_axis)
 

@@ -14,8 +14,10 @@
     python3 chip_smoke.py --tp   # the build, then phase 15 alone
     python3 chip_smoke.py --zero   # the build, then phase 16 alone
     python3 chip_smoke.py --pp   # the build, then phase 17 alone
+    python3 chip_smoke.py --cp   # the build, then phase 18 alone
+    python3 chip_smoke.py --offsets   # the build, then the ring offsets
 
-Seventeen phases; any failure raises and exits non-zero:
+Eighteen phases; any failure raises and exits non-zero:
 
 1. **Build** every kernel from ``apex_tpu_torch/csrc`` with nvcc
    (``sm_90a``) and print the build seconds, the card's name and its power
@@ -92,7 +94,11 @@ Seventeen phases; any failure raises and exits non-zero:
    same-id keys lie above the diagonal (exactly 0), the window with
    segments and the window alone on the resident route, cut split lengths
    (empty partials merged), d = 128, a halved tail caught, two calls
-   bit-identical, and the root bench.py selftest's streamed case.
+   bit-identical, and the root bench.py selftest's streamed case. The
+   ring offsets on all six (:func:`check_flash_offsets`): at shift 0 bit
+   for bit the launch without it, the full band, every band empty (exactly
+   0 / -1e30 in NaN-poisoned memory), partial windowed bands with dead
+   rows; and the ring steps' times beside their bounds and SDPA.
 3. **Serving**: fp32 gates on a small model (the monolithic engine, then
    chunked prefill, the prefix cache, speculative decoding with a
    self-draft and a 1-layer draft, and all three: every token against the
@@ -228,9 +234,9 @@ Seventeen phases; any failure raises and exits non-zero:
 12. **The convergence probe, the rest of the optimizers and the legacy
    APIs** (:func:`optimizers_and_legacy`): (a) ``python -m
    apex_tpu_torch.benchmarks.convergence_probe`` at GPT-2 345M O2, 2 x
-   512 tokens, lr 3e-4 warmed up over 50 steps, cut to 300 steps (its
-   default 600) and a CPU replay of 2 (:data:`PROBE_ARGS`, to leave room
-   for phases 16 and 17): exit 0, final loss <=
+   512 tokens, lr 3e-4 warmed up over 50 steps, cut to 150 steps (its
+   default 600) and a CPU replay of 1 (:data:`PROBE_ARGS`, to leave room
+   for phases 16, 17 and 18): exit 0, final loss <=
    6.0, the replay with no error within 0.05, the exact launch counts
    (path ``probe``); (b) ``FusedMixedPrecisionLamb`` beside
    ``MixedPrecisionOptimizer(FusedLAMB)`` at BERT-large (16 x 512, O2, 5
@@ -283,22 +289,22 @@ Seventeen phases; any failure raises and exits non-zero:
    example's ``--dp 2`` at 2 x 8192 against the serial run at batch 2.
 15. **Tensor parallel** (:func:`tp_phase`): (a) NCCL at world size 1 in
    this process: ``pretrain_gpt`` on the model axis at tp = 1 (GPT-2 345M,
-   8 x 1024, O2), 3 steps, its losses and params after each step bit for
+   8 x 1024, O2), 2 steps, its losses and params after each step bit for
    bit the serial run's. (b) Two gloo ranks on the one card (host-staged:
    correctness only), spawned once, every case against serial references
-   this process makes first: ``pretrain_gpt --tp 2`` at 345M (3 O2 steps:
+   this process makes first: ``pretrain_gpt --tp 2`` at 345M (2 O2 steps:
    losses, step 1's grads gathered to full shape by share and by row, the
    replicated leaves equal on both ranks after each step), the same under
    sequence parallelism, a checkpoint saved at tp 2 resumed serial (the
    next loss), BERT-large at tp 2 (8 x 512 with padding, O2 FusedLAMB with
-   whole-tensor norms, 2 steps), ``generate_gpt --tp 2`` at 345M fp32,
+   whole-tensor norms, 1 step), ``generate_gpt --tp 2`` at 345M fp32,
    monolithic and with the prefix cache and spec_k 4 (every token against
    the TP model's full-context argmax and the serial engine's tokens, 8 kv
    heads a rank); then #9 / #10 fp32 at 8 heads, times only.
 16. **ZeRO** (:func:`zero_phase`): (a) NCCL at world size 1 in this
    process: ``pretrain_gpt`` at 345M (8 x 1024, O2) with ``--zero-level``
    1, 2 and 3, level 3 with ``--zero3-prefetch 1``, and
-   ``--offload-optimizer --offload-buckets 2``, 3 steps each, losses and
+   ``--offload-optimizer --offload-buckets 2``, 2 steps each, losses and
    params after each step bit for bit the serial run's; ``BENCH_ZERO=1``'s
    O2 step against the bench's (step 1 bit for bit, the fp32 LayerNorm
    params at the bf16 gather's rounding; step 2's loss). (b) Two gloo
@@ -324,6 +330,19 @@ Seventeen phases; any failure raises and exits non-zero:
    bit for bit the 1f1b run's first, the 1f1b run's O0 twin against the
    serial O0 step (loss, grads by share and by row, :data:`PP_O0_GRAD`)
    and ``--pp 2 --zero`` against ``--pp 2``; each stage's launches exact.
+18. **Context parallel** (:func:`cp_phase`): (a) NCCL at world size 1 in
+   this process, on a context axis of 1: ``ring_attention`` and
+   ``ulysses_attention`` at (1,16,4096,64) bf16, causal and with a window,
+   values and grads bit for bit ``flash_attention``'s. (b) Two gloo ranks
+   on the one card, spawned before (a), against serial references this
+   process makes meanwhile: the ring shift and the bf16 all-to-all by
+   value; ``train_long_context --cp 2`` at 345M (8192 tokens, 4096 a
+   rank), ring and Ulysses, 3 O2 steps (losses, step 1's grads by their
+   bf16 floor); the ring's O0 twin at 4 layers, held at ~15x its
+   readings; ``--seq 16384 --pos rope --window 4096`` (the window across
+   the shard boundary), 1 step; BERT-large at cp 2 (8 x 512 with padding
+   as segment ids riding the ring, FusedLAMB, NSP) against the serial
+   bias-route step, and its O0 twin; every launch counted.
 
 Every check with a limit is also kept for the closing verdict: one line
 per check (name, worst error, limit, result, route) after phase 7, so
@@ -336,8 +355,10 @@ and phase 10's (``gpt_pretrain``, ``gpt_pretrain_o0``, ``gpt_remat_*``,
 ``gpt_generate*``, ``gpt_pretrain_o0_long``), phase 11's (``bench``) and
 phase 12's (``probe``), phase 13's (``contrib``), phase 14's (``dp``:
 (a)'s runs and both ranks' of (b)), phase 15's (``tp``: the same) and
-phase 16's (``zero``: the same) and phase 17's (``pp``: the same);
-``by_shape`` also holds phase 10's fp32 times and phase 15's at 8 heads;
+phase 16's (``zero``: the same), phase 17's (``pp``: the same) and
+phase 18's (``cp``: the same);
+``by_shape`` also holds phase 10's fp32 times, phase 15's at 8 heads
+and phase 2's ring-step times on #2-#4;
 ``segments``: phase 9's times on #1-#6; ``launches``:
 their sum; ``bias_route``: #1, #5 and #6 with and without the bias;
 ``launch_floor_ms`` on the decode and xentropy rows), the decode split-count
@@ -2047,26 +2068,29 @@ def res_bwd_f32_tuning(torch, ops, tfa, dev, gen):
             "F_ms": times}
 
 
-def visible_pairs(sq, sk, causal, window):
-    """(query, key) pairs the causal and window masks leave, per head."""
+def visible_pairs(sq, sk, causal, window, shift=0):
+    """(query, key) pairs the causal and window masks leave, per head, with
+    query row r at position r + ``shift`` (a ring step's q_off - k_off)."""
     total = 0
-    for q in range(sq):
-        hi = min(q + 1, sk) if causal else sk
+    for r in range(sq):
+        q = r + shift
+        hi = max(0, min(q + 1, sk)) if causal else sk
         lo = 0
         if window is not None:
             lo = max(0, q - window + 1)
             if not causal:
-                hi = min(sk, q + window)
+                hi = max(0, min(sk, q + window))
         total += max(0, hi - lo)
     return total
 
 
-def stream_bounds(b, h, sq, sk, d, causal, window, dtype="bfloat16"):
+def stream_bounds(b, h, sq, sk, d, causal, window, dtype="bfloat16",
+                  shift=0):
     """(fwd, dq, dkv) bounds of the streamed kernels: each operand read
     once and each output written once (q/k/v/o/dO/dq/dk/dv in ``dtype``,
     fp32 lse/delta) against 2, 3 and 4 products of 2*d FLOPs per visible
-    pair at ``dtype``'s peak."""
-    pairs = visible_pairs(sq, sk, causal, window) * b * h
+    pair at ``dtype``'s peak (the pairs at the ring offsets' ``shift``)."""
+    pairs = visible_pairs(sq, sk, causal, window, shift) * b * h
     q_el, k_el = b * h * sq * d, b * h * sk * d
     rows = b * h * sq * 4
     es = 4 if dtype == "float32" else 2
@@ -2197,6 +2221,238 @@ def check_fp32_stream_bwd(torch, ops, dev, gen):
         rand(2, 4, 300, 64), rand(2, 4, 300, 64), rand(2, 4, 300, 64), seg,
         zero=(slice(262, None), slice(262, None)))
     torch.cuda.empty_cache()
+
+
+# the ring offsets (transformer/ring.py): the cases of check_flash_offsets,
+# (label, (b, h, sq, sk, d), causal, window, shift, kind); kind "zero": at
+# shift 0 bit for bit the launch without it; "full": every key visible;
+# "empty": nothing visible, outputs exactly 0 / NEG_INF in poisoned
+# memory; "band": a partial band (dead rows exactly 0, the rest held)
+OFFSET_CASES = (
+    ("causal shift 0", (1, 4, 1024, 1024, 64), True, None, 0, "zero"),
+    ("causal shift sk: the full band", (1, 4, 1024, 1024, 64), True, None,
+     1024, "full"),
+    ("causal shift -sq: every band empty", (1, 4, 1024, 1024, 64), True,
+     None, -1024, "empty"),
+    ("non-causal window 300 shift -700: a partial band",
+     (1, 4, 1024, 1024, 64), False, 300, -700, "band"),
+    ("window 4096 shift 8192: the step across a shard boundary, dead tail "
+     "rows", (1, 16, 8192, 8192, 64), True, 4096, 8192, "band"),
+)
+#: the ring-step shapes timed (streamed, the ring's route at 4096 tokens a
+#: shard): (label, s, shift, window, SDPA yardstick)
+RING_STEPS = (
+    ("L/2 (1,16,4096,64) causal shift 0: the diagonal step", 4096, 0, None,
+     "causal"),
+    ("L/2 (1,16,4096,64) causal shift 4096: the full band", 4096, 4096,
+     None, "dense"),
+    ("(1,16,8192,64) causal window 4096 shift 8192: the window step", 8192,
+     8192, 4096, "band mask"))
+
+
+def poison(torch, dev, specs):
+    """Fill and free one tensor of each ``(shape, dtype)`` with NaN (every
+    bit set), so that the next ``torch.empty`` of those sizes reuses memory
+    that reads NaN; returns whether a probe of the first read NaN."""
+    junk = [torch.full(s, float("nan"), dtype=dt, device=dev)
+            for s, dt in specs]
+    del junk
+    probe = torch.empty(specs[0][0], dtype=specs[0][1], device=dev)
+    reused = bool(torch.isnan(probe).all())
+    del probe
+    return reused
+
+
+def check_flash_offsets(torch, ops, dev):
+    """The ring offsets (``shift = q_off - k_off``) on the six flash
+    kernels, bf16 and fp32, resident (#1 #5 #6) and streamed (#2 #3 #4),
+    forward and backward, against the plain versions at the same shift
+    (:data:`OFFSET_CASES`): at shift 0 the launch is bit for bit the
+    launch without the argument; at shift sk every key is visible; at
+    shift -sq nothing is, and o, lse and the grads are exactly 0 / NEG_INF
+    / 0 in memory filled with NaN before the launch; a non-causal window
+    at a negative shift and the window step across a shard boundary
+    (partial bands with dead rows, exactly 0 with lse NEG_INF) are held
+    with check_flash_segments' limits. Then the ring-step times
+    (:func:`ring_step_times`). Returns those times by kernel name."""
+    import importlib
+
+    tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(27)
+    routes = {False: (ops.flash_attention_fwd, ops.flash_attention_bwd_dq,
+                      ops.flash_attention_bwd_dkv),
+              True: (ops.flash_attention_fwd_stream,
+                     ops.flash_attention_bwd_dq_stream,
+                     ops.flash_attention_bwd_dkv_stream)}
+
+    def kernels(stream, q, k, v, do, kw, **shift):
+        fwd, dq_fn, dkv_fn = routes[stream]
+        b, h, sq, d = q.shape
+        reused = poison(torch, dev, [((b, h, sq, d), q.dtype),
+                                     ((b, h, sq), f32)])
+        o, lse = fwd(q, k, v, **kw, **shift)
+        delta = (o.float() * do.float()).sum(-1)
+        poison(torch, dev, [((b, h, sq, d), q.dtype)])
+        dq = dq_fn(q, k, v, do, lse, delta, **kw, **shift)
+        poison(torch, dev, [(tuple(k.shape), k.dtype)] * 2)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw, **shift)
+        torch.cuda.synchronize()
+        return (o, lse, dq, dk, dv), delta, reused
+
+    def plain(stream, q, k, v, o, lse, do, delta, kw):
+        if stream:
+            ro, rlse = ops.flash_attention_fwd_stream_reference(q, k, v, **kw)
+            return (ro, rlse, ops.flash_attention_bwd_dq_stream_reference(
+                q, k, v, do, lse, delta, **kw),
+                *ops.flash_attention_bwd_dkv_stream_reference(
+                    q, k, v, do, lse, delta, **kw))
+        ro, rlse = ops.flash_attention_fwd_reference(q, k, v, **kw)
+        return (ro, rlse, *ops.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, **kw))
+
+    for stream in (False, True):
+        for dt in (bf16, f32):
+            route = ("streamed" if stream else "resident") + f" {str(dt)[6:]}"
+            grp = f"flash ring offsets {route}"
+            bf = dt == bf16
+            for label, (b, h, sq, sk, d), causal, window, shift, kind in \
+                    OFFSET_CASES:
+                name = f"flash offsets {route} {label}"
+                q, k, v, do = (torch.randn(b, h, n, d, device=dev,
+                                           generator=gen).to(dt)
+                               for n in (sq, sk, sk, sq))
+                kw = dict(causal=causal, scale=d ** -0.5, window=window)
+                got, delta, reused = kernels(stream, q, k, v, do, kw,
+                                             shift=shift)
+                o, lse, dq, dk, dv = got
+                if kind == "zero":
+                    base, _, _ = kernels(stream, q, k, v, do, kw)
+                    same = [torch.equal(a, b_) for a, b_ in zip(got, base)]
+                    verdict(f"{name}: bit for bit the launch without the "
+                            f"shift", 0 if all(same) else 1, 0, group=grp)
+                    print(f"  {name}: o, lse, dq, dk, dv bit-identical to "
+                          f"the launch without the shift: {same}")
+                    continue
+                kw["shift"] = shift
+                if kind == "empty":
+                    exact = (bool((o == 0).all())
+                             and bool((lse == tfa.NEG_INF).all())
+                             and all(bool((g == 0).all())
+                                     for g in (dq, dk, dv)))
+                    verdict(f"{name}: o, dq, dk, dv exactly 0, lse NEG_INF",
+                            0 if exact else 1, 0, group=grp)
+                    print(f"  {name}: exactly 0 / NEG_INF {exact} (memory "
+                          f"reused that read NaN: {reused})")
+                    continue
+                ro, rlse, rdq, rdk, rdv = plain(stream, q, k, v, o, lse, do,
+                                                delta, kw)
+                torch.cuda.synchronize()
+                dead = rlse <= tfa.NEG_INF / 2
+                exact = (bool((lse[dead] == tfa.NEG_INF).all())
+                         and bool((o[dead] == 0).all())
+                         and bool((dq[dead] == 0).all()))
+                verdict(f"{name}: rows that see no key exactly 0, lse "
+                        f"NEG_INF, dQ 0", 0 if exact else 1, 0, group=grp)
+                lse_h = lse.masked_fill(dead, 0.0)[..., None]
+                rlse_h = rlse.masked_fill(dead, 0.0)[..., None]
+                ftol, frow = (2e-2, ROW_TOL[True][0]) if bf else SEG_F32_TOL
+                btol, brow = (1e-2, ROW_TOL[True][1]) if bf else SEG_F32_TOL
+                parts = [held(f"{name} o", o, ro, ftol, frow, group=grp),
+                         held(f"{name} lse", lse_h, rlse_h, *LSE_TOL[:2],
+                              floor=LSE_TOL[2], group=grp)]
+                for gname, a, r in (("dq", dq, rdq), ("dk", dk, rdk),
+                                    ("dv", dv, rdv)):
+                    check(a.dtype == dt and a.shape == r.shape,
+                          f"{name} {gname} dtype/shape")
+                    parts.append(held(f"{name} {gname}", a, r, btol, brow,
+                                      group=grp))
+                print(f"  {name}: " + ", ".join(parts)
+                      + f"; {int(dead.sum())} rows see no key, exactly 0 "
+                      f"with lse NEG_INF (NaN memory reused: {reused})")
+                del ro, rlse, rdq, rdk, rdv
+            del q, k, v, do, got, o, lse, dq, dk, dv
+            torch.cuda.empty_cache()
+    return ring_step_times(torch, ops, dev, gen)
+
+
+def ring_step_times(torch, ops, dev, gen):
+    """Device times of the ring's steps at the 345M long-context shard
+    shapes (:data:`RING_STEPS`), on the route the ring takes there (the
+    streamed kernels): each kernel, its plain version at the same shift,
+    the bound (the visible pairs at the shift) and a PyTorch yardstick
+    (SDPA: causal for the diagonal, dense for the full band, with the
+    boolean mask of the window step's band). Returns
+    ``{kernel name: {label: {ms, plain_ms, bound_ms, bound_by,
+    library_ms}}}``."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    names = {"fwd": "flash_attention_fwd_stream",
+             "dq": "flash_attention_bwd_dq_stream",
+             "dkv": "flash_attention_bwd_dkv_stream"}
+    out = {n: {} for n in names.values()}
+    for label, s, shift, window, lib in RING_STEPS:
+        b, h, d = 1, 16, 64
+        q, k, v, do = (torch.randn(b, h, s, d, device=dev,
+                                   generator=gen).to(bf16) for _ in range(4))
+        kw = dict(causal=True, scale=d ** -0.5, window=window, shift=shift)
+        o, lse = ops.flash_attention_fwd_stream(q, k, v, **kw)
+        delta = (o.float() * do.float()).sum(-1)
+        t = {"fwd": {}, "dq": {}, "dkv": {}}
+        t["fwd"]["ms"] = time_ms(
+            lambda: ops.flash_attention_fwd_stream(q, k, v, **kw), 10)
+        t["dq"]["ms"] = time_ms(lambda: ops.flash_attention_bwd_dq_stream(
+            q, k, v, do, lse, delta, **kw), 10)
+        t["dkv"]["ms"] = time_ms(lambda: ops.flash_attention_bwd_dkv_stream(
+            q, k, v, do, lse, delta, **kw), 10)
+        t["fwd"]["plain_ms"] = time_ms(
+            lambda: ops.flash_attention_fwd_stream_reference(q, k, v, **kw),
+            1, 2)
+        t["dq"]["plain_ms"] = time_ms(
+            lambda: ops.flash_attention_bwd_dq_stream_reference(
+                q, k, v, do, lse, delta, **kw), 1, 2)
+        t["dkv"]["plain_ms"] = time_ms(
+            lambda: ops.flash_attention_bwd_dkv_stream_reference(
+                q, k, v, do, lse, delta, **kw), 1, 2)
+        fb, qb, kb, pairs = stream_bounds(b, h, s, s, d, True, window,
+                                          shift=shift)
+        for key, bd in (("fwd", fb), ("dq", qb), ("dkv", kb)):
+            t[key]["bound_ms"], t[key]["bound_by"] = bd
+        if lib == "causal":
+            sdpa_kw = dict(is_causal=True)
+        elif lib == "dense":
+            sdpa_kw = {}
+        else:  # the step's band: 0 <= (r + shift) - c < window
+            i = torch.arange(s, device=dev, dtype=torch.int32)
+            diff = i[:, None] + shift - i[None, :]
+            sdpa_kw = dict(attn_mask=(diff >= 0) & (diff < window))
+            del i, diff
+        t["fwd"]["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw), 10)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            so = F.scaled_dot_product_attention(ql, kl, vl, **sdpa_kw)
+        torch.cuda.synchronize()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            so, (ql, kl, vl), do, retain_graph=True), 10, stream=side)
+        t["dq"]["library_ms"] = t["dkv"]["library_ms"] = lib_bwd
+        del so, ql, kl, vl, sdpa_kw
+        flops = {"fwd": 4, "dq": 6, "dkv": 8}
+        for key, name in names.items():
+            x = t[key]
+            rate = flops[key] * d * pairs / x["ms"] / 1e9
+            print(f"  ring step {label} {key}: kernel {x['ms']:.4f} ms "
+                  f"({rate:.1f} TFLOP/s), bound {x['bound_ms']:.4f} ms "
+                  f"({x['bound_by']}), plain {x['plain_ms']:.4f} ms, SDPA "
+                  f"({lib}) {x['library_ms']:.4f} ms"
+                  + (" (backward: dQ+dK+dV)" if key != "fwd" else ""))
+            out[name][f"ring step {label}"] = x
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_flash_attention_stream(torch, ops, dev):
@@ -6278,12 +6534,14 @@ def bench_harness(torch, ops, dev):
 # ---------------------------------------------------------------------------
 
 #: the probe's arguments beyond its defaults (GPT-2 345M, 2 x 512 tokens,
-#: lr 3e-4 warmed up over 50 steps): 300 steps, not the default 600, and
-#: the CPU replay cut from 6 steps to 2 -- a replay step of the 345M bf16
-#: model takes about 32 s on the card's host after about 37 s of set-up
-#: (PERF.md) -- so that phases 16 and 17 fit the script's time limit: the
-#: 600-step curve read 0.0069 at step 300 against the bar of 6.0 (PERF.md)
-PROBE_ARGS = ["--cpu-check-steps", "2", "--steps", "300"]
+#: lr 3e-4 warmed up over 50 steps): 150 steps, not the default 600, and
+#: the CPU replay cut from 6 steps to 1 (the first step's loss, before any
+#: update; the card's update is held in phases 4 and 10) -- a replay step
+#: of the 345M bf16 model takes about 32 s on the card's host after about
+#: 37 s of set-up (PERF.md) -- so that phases 16, 17 and 18 fit the
+#: script's time limit: the 300-step curve read 0.0225 at step 150
+#: against the bar of 6.0 (PERF.md)
+PROBE_ARGS = ["--cpu-check-steps", "1", "--steps", "150"]
 PROBE_OUTPUT = os.path.join(HERE, "build", "convergence_probe.json")
 
 
@@ -6291,8 +6549,8 @@ def convergence_probe(torch, ops, dev):
     """Phase 12 (a): ``python -m apex_tpu_torch.benchmarks.convergence_probe``
     at its defaults but :data:`PROBE_ARGS`, in this process (its ``main``):
     GPT-2 345M O2 (full remat, the 8-chunk LM head, FusedAdam with a
-    50-step warm-up) trains 300 steps on 2 fixed batches of 2 x 512
-    tokens, then replays the first 2 on the CPU in a subprocess. Requires
+    50-step warm-up) trains 150 steps on 2 fixed batches of 2 x 512
+    tokens, then replays the first on the CPU in a subprocess. Requires
     exit 0 and ``ok``, a final loss
     <= 6.0, a replay with no ``error`` within its band (0.05), and the
     exact launch counts of the card's steps (#1 2L a step with the remat
@@ -6641,6 +6899,11 @@ def main():
     torch.cuda.empty_cache()
     check_flash_segments(torch, ops, dev)
     torch.cuda.empty_cache()
+    ring_times = check_flash_offsets(torch, ops, dev)
+    for row in rows:
+        if row["name"] in ring_times:
+            row.setdefault("by_shape", {}).update(ring_times[row["name"]])
+    torch.cuda.empty_cache()
 
     print("phase 3: serving")
     greedy_gate(torch, dev)
@@ -6720,6 +6983,11 @@ def main():
     print("phase 17: pipeline parallel (NCCL at world size 1; two gloo "
           "ranks on the card)")
     gpt_counts["pp"] = pp_phase(torch, ops, dev)
+    torch.cuda.empty_cache()
+
+    print("phase 18: context parallel (NCCL at world size 1; two gloo "
+          "ranks on the card)")
+    gpt_counts["cp"] = cp_phase(torch, ops, dev)
     torch.cuda.empty_cache()
     for row in rows:
         if row["name"] in fp32_rows:
@@ -8206,11 +8474,12 @@ def dp_main():
 #: micro-batches of 4, O2, FusedAdam, full remat), the serial run on the
 #: same 8 rows as its reference
 TP_345M = PRETRAIN_345M + ["--tp", "2"]
-TP_STEPS = 3
+#: 2 steps (and BERT's 1): the room phase 18 needs in the time limit
+TP_STEPS = 2
 #: (b)'s BERT-large: 8 x 512, O2, FusedLAMB; the padding bias from row i's
 #: length 512 - 37 i
 BERT_TP = dict(hidden=1024, layers=24, heads=16, seq=512, batch=8)
-BERT_TP_STEPS = 2
+BERT_TP_STEPS = 1
 #: (b)'s serving: ``generate_gpt`` at 345M fp32 (random weights, seed 0)
 #: on prompts behind a 500-token shared prefix, monolithic, then with the
 #: prefix cache and spec_k 4; the serial reference monolithic
@@ -8245,13 +8514,15 @@ def bert_tp_batch(torch, vocab):
 
 
 def bert_tp_steps(torch, ops, batch, tp_axis=None, steps=BERT_TP_STEPS,
-                  **config):
+                  opt_level="O2", o2_values=False, **config):
     """BERT-large O2 FusedLAMB (``pretrain_bert.build`` at :data:`BERT_TP`)
-    ``steps`` steps on ``batch``: (trainer, losses, first step's scaled
-    grads, launches). With ``tp_axis`` the model is built on it and the
+    ``steps`` steps on ``batch``: (trainer, losses, first step's grads
+    over the loss scale, launches). With ``tp_axis`` the model is built on it and the
     step votes on overflow over it and hands FusedLAMB the sharded flags,
     so its norms are the whole tensors'; ``config`` goes into the
-    example's config."""
+    example's config, ``opt_level`` into its ``build``; ``o2_values``
+    rounds the params O2 casts to bf16 through bf16 (their O2 values in
+    the O0 step's fp32)."""
     from apex_tpu_torch.examples.bert import pretrain_bert
     from apex_tpu_torch.parallel import collectives
 
@@ -8261,10 +8532,17 @@ def bert_tp_steps(torch, ops, batch, tp_axis=None, steps=BERT_TP_STEPS,
     if config:
         pretrain_bert.BertConfig = lambda **c: real(**dict(c, **config))
     try:
-        trainer = pretrain_bert.build(**BERT_TP)
+        trainer = pretrain_bert.build(**BERT_TP, opt_level=opt_level)
     finally:
         pretrain_bert.BertConfig = real
     model, mp_opt, st = trainer.model, trainer.mp_opt, trainer.opt_state
+    if o2_values:
+        from apex_tpu_torch.precision import name_is_norm
+
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if not name_is_norm(name):
+                    p.copy_(p.to(torch.bfloat16).float())
     kw = {}
     if tp_axis is not None:
         kw = dict(found_inf_reducer=lambda f: collectives.found_inf_max(
@@ -8277,7 +8555,8 @@ def bert_tp_steps(torch, ops, batch, tp_axis=None, steps=BERT_TP_STEPS,
         loss = model.loss(*batch)
         mp_opt.scale_loss(loss, st).backward()
         if not grads:
-            grads.extend(p.grad.detach().clone() for p in model.parameters())
+            grads.extend(p.grad.detach() / st.scaler.loss_scale
+                         for p in model.parameters())
         m = mp_opt.step(st, model, **kw)
         check(not m["found_inf"], "no BERT TP step skipped")
         losses.append(float(loss))
@@ -8862,7 +9141,8 @@ def tp_main():
 # size 1; two gloo ranks on the card)
 # ---------------------------------------------------------------------------
 
-ZERO_STEPS = 3
+#: 2 steps: the room phase 18 needs in the script's time limit
+ZERO_STEPS = 2
 #: (a)'s variants of PRETRAIN_345M at world size 1, each bit for bit the
 #: serial run: at n = 1 the scatter and the gather are identities and Adam
 #: is elementwise on the chunks
@@ -9857,6 +10137,27 @@ def pp_phase(torch, ops, dev):
     return total
 
 
+def offsets_main():
+    """``python3 chip_smoke.py --offsets``: the build, then phase 2's ring
+    offset cases and ring-step times alone, with their verdict."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.csrc import build
+
+    print(f"card: {nvidia_smi()}; torch {torch.__version__}")
+    t0 = time.perf_counter()
+    build.load()
+    print(f"  kernels built in {time.perf_counter() - t0:.2f} s")
+    check_flash_offsets(torch, ops, torch.device("cuda", 0))
+    print_verdict()
+    return 0
+
+
 def pp_main():
     """``python3 chip_smoke.py --pp``: phase 17 alone after the build, with
     its verdict."""
@@ -9872,6 +10173,601 @@ def pp_main():
     print(f"card: {nvidia_smi()}; torch {torch.__version__}")
     build.load()
     pp_phase(torch, ops, torch.device("cuda", 0))
+    print_verdict()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 18: context parallel (NCCL at world size 1; two gloo ranks on the
+# card)
+# ---------------------------------------------------------------------------
+
+CP_STEPS = 3
+#: phase 6's configuration: GPT-2 345M at full width and depth, one row of
+#: 8192 tokens, the chunked LM-head CE, O2; 4096 tokens a rank at cp 2
+CP_LONG = dict(seq=8192, hidden=1024, layers=24, heads=16, vocab=50304,
+               batch=1, lm_head_chunks=8, seed=0)
+#: phase 6's second configuration: RoPE and a window of 4096 at 16384
+#: tokens, the window crossing the shard boundary at cp 2
+CP_WINDOW = dict(CP_LONG, seq=16384, pos="rope", window=4096)
+CP_WINDOW_STEPS = 1
+#: the O0 twin of the ring (fp32 params and compute): CP_LONG at this
+#: depth, one step
+CP_TWIN_LAYERS = 4
+#: limits of (b), phase 15/17's: the losses relative; the O2 step-1 grads
+#: by their floor (each leaf's L2 distance from the serial run's over the
+#: serial run's own distance from its fp32-compute twin; for BERT over the
+#: larger of that and its distance from the serial O0 step on the same
+#: (bf16-rounded) values, whose grads are fp32 too: BERT's tokentype row
+#: sums every token's grad in the bf16 grad, and that sum's rounding is in
+#: both serial bf16-param runs alike, so their fp32-compute distance does
+#: not see it; on an H100 the leaf read 3.31 times that floor at cp 2 in
+#: O2 and, with fp32 compute on the same bf16 params, 0.0599 of its L2
+#: from the serial run's); the O0 twins
+#: (fp32 params and compute: the ring's merge order and the mean over the
+#: ranks are all that differ from the serial pass) by its step-1 loss and
+#: its grads' share of max |ref| and worst row, about 15x what an H100
+#: 80GB HBM3 at 700 W read (grads 2.86e-6 by share and 3.45e-6 by row, the
+#: loss equal; PERF.md), so that a lost ring step or a wrong offset fails
+CP_LOSS_REL = DP_LOSS_REL
+CP_FLOOR = TP_FLOOR
+
+CP_TWIN_LOSS_REL = 1e-6
+CP_TWIN_GRAD = (4.5e-5, 5e-5)
+#: BERT-large's O0 twin at cp 2 (grads by share and by row), about 15x
+#: what an H100 80GB HBM3 at 700 W read (2.42e-6 by share, 1.60e-4 by
+#: row: a row at the floor of its leaf's largest; the loss within 8.3e-8)
+CP_BERT_TWIN_GRAD = (4e-5, 2.5e-3)
+#: (a)'s attention shape (the ring's 345M shard) and window
+CP_A_SHAPE = (1, 16, 4096, 64)
+CP_A_WINDOW = 1024
+
+
+def cp_per_step(L, rank, impl):
+    """Launches of one long-context step on context rank ``rank`` at cp 2:
+    the ring runs a causal step for each K/V shard at or before its own
+    (``rank + 1``; the later one is skipped: nothing visible), each layer's
+    forward twice (the remat recompute); Ulysses one streamed attention a
+    layer on the whole sequence, as the serial step (:func:`long_per_step`
+    for the norms)."""
+    n = rank + 1 if impl == "ring" else 1
+    per = long_per_step(L)
+    return dict(per, flash_attention_fwd_stream=2 * L * n,
+                flash_attention_bwd_dq_stream=L * n,
+                flash_attention_bwd_dkv_stream=L * n)
+
+
+def bert_cp_per_step(L, cp):
+    """One BERT step at cp ranks, the ring over segment ids (non-causal:
+    every step visible, the resident kernels at 256 tokens a shard)."""
+    return dict(bert_per_step(L), flash_attention_fwd=2 * L * cp,
+                flash_attention_bwd_dq=L * cp,
+                flash_attention_bwd_dkv=L * cp)
+
+
+def long_cp_steps(torch, ops, cfg, steps, cp=1, sp_impl="ring",
+                  opt_level="O2", compute_dtype=None):
+    """``train_long_context.build(**cfg)`` (at ``cp`` context ranks with
+    ``sp_impl``, at ``opt_level``, its config's compute dtype replaced by
+    ``compute_dtype`` where given) ``steps`` steps on ``fixed_batch``'s
+    global batch: (losses, the first step's reduced scaled grads on the
+    CPU, launches, parameter names, layers)."""
+    from apex_tpu_torch.bench import fixed_batch
+    from apex_tpu_torch.examples.longcontext import train_long_context
+
+    real = train_long_context.GPTConfig
+    if compute_dtype is not None:
+        train_long_context.GPTConfig = lambda **c: real(
+            **dict(c, compute_dtype=compute_dtype))
+    try:
+        trainer = train_long_context.build(**cfg, cp=cp, sp_impl=sp_impl,
+                                           opt_level=opt_level)
+    finally:
+        train_long_context.GPTConfig = real
+    tokens, targets = fixed_batch(trainer)
+    grads = []
+    capture_grads(torch, trainer, grads)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses = []
+    for _ in range(steps):
+        loss, m = trainer.step(tokens, targets)
+        losses.append(float(loss))
+        check(not m["found_inf"], "no long-context step skipped")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    names = [n for n, _ in trainer.model.named_parameters()]
+    L = trainer.cfg.num_layers
+    grads = [g.cpu() for g in grads]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, grads, counts, names, L
+
+
+def bert_cp_batch(torch, vocab):
+    """(b)'s BERT batch (phase 15's, rows padded from 512 - 37 i on) with
+    the loss mask zero on the padding: under a context axis a padded query
+    row attends nothing (output 0) where the bias route mixes it, and the
+    masked-LM loss reads neither."""
+    batch = list(bert_tp_batch(torch, vocab))
+    batch[2] = batch[2] * batch[1]
+    return tuple(batch)
+
+
+def bert_cp_steps(torch, ops, batch, cp, steps=1, opt_level="O2",
+                  **config):
+    """BERT-large O2 FusedLAMB (:data:`BERT_TP`) on the context axis at
+    ``cp`` ranks (at ``opt_level``), ring attention over the padding as
+    segment ids: this rank's ``s / cp`` tokens of every (b, s) input, the
+    grads reduced over the context axis before the step, the loss
+    ``pmean``-ed. Returns (losses, the first step's reduced grads over the
+    loss scale on the CPU, launches, layers)."""
+    from apex_tpu_torch.parallel import collectives, mesh
+    from apex_tpu_torch.parallel.distributed import (
+        allreduce_gradients_by_spec,
+    )
+
+    config = dict(config, context_axis=mesh.AXIS_CONTEXT,
+                  sequence_parallel_impl="ring")
+    from apex_tpu_torch.examples.bert import pretrain_bert
+
+    real = pretrain_bert.BertConfig
+    pretrain_bert.BertConfig = lambda **c: real(**dict(c, **config))
+    try:
+        trainer = pretrain_bert.build(**BERT_TP, opt_level=opt_level)
+    finally:
+        pretrain_bert.BertConfig = real
+    model, mp_opt, st = trainer.model, trainer.mp_opt, trainer.opt_state
+    r = collectives.axis_rank(mesh.AXIS_CONTEXT)
+    s = BERT_TP["seq"] // cp
+    local = [t if t.dim() == 1 else t[:, r * s:(r + 1) * s] for t in batch]
+    local = [t.to(model.device) for t in local]
+    params = list(model.parameters())
+    grads, losses = [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for _ in range(steps):
+        loss = model.loss(*local)
+        mp_opt.scale_loss(loss, st).backward()
+        reduced = allreduce_gradients_by_spec([p.grad for p in params],
+                                              [()] * len(params))
+        for p, g in zip(params, reduced):
+            p.grad = g
+        if not grads:
+            grads.extend((g.detach() / st.scaler.loss_scale).cpu()
+                         for g in reduced)
+        m = mp_opt.step(st, model)
+        check(not m["found_inf"], "no BERT CP step skipped")
+        losses.append(float(collectives.pmean(loss.detach(),
+                                              mesh.AXIS_CONTEXT)))
+    torch.cuda.synchronize()
+    L = trainer.cfg.num_layers
+    del trainer, model, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, grads, ops.launch_counts(), L
+
+
+def floor_ratios(names, grads, ref, floor):
+    """Each leaf's L2 distance from ``ref`` over its ``floor``, the worst
+    three: [(ratio, name)]."""
+    return sorted(((l2_err(g, r) / max(f, 1e-12), n)
+                   for n, g, r, f in zip(names, grads, ref, floor)),
+                  reverse=True)[:3]
+
+
+def cp_wire_check(torch, dev):
+    """The context axis's two wires on this backend, by value: the ring
+    shift of a bf16 CUDA tensor, and the all-to-all of one (which gloo
+    takes as its bytes): every rank builds every rank's input from its
+    seed, so each can hold what arrives against what was sent. Returns
+    (the backend, shift exact, all-to-all exact)."""
+    from apex_tpu_torch.parallel import collectives
+    import torch.distributed as dist
+
+    rank = collectives.axis_rank("context")
+    n = collectives.axis_size("context")
+
+    def x_of(r):
+        g = torch.Generator(device=dev).manual_seed(100 + r)
+        return torch.randn(1, 2 * n, 64, 64, device=dev,
+                           generator=g).to(torch.bfloat16)
+
+    got = collectives.ppermute_shift(x_of(rank), "context", 1)
+    shift_ok = bool(torch.equal(got, x_of((rank - 1) % n)))
+    got = collectives.all_to_all(x_of(rank), "context", split_axis=1,
+                                 concat_axis=2)
+    want = torch.cat([x_of(r)[:, 2 * rank:2 * rank + 2] for r in range(n)],
+                     dim=2)
+    return dist.get_backend(), shift_ok, bool(torch.equal(got, want))
+
+
+def _cp_rank(rank, world, port, ref_dir, out_path):
+    """One gloo rank of phase 18 (b) on the card: the wire check, then
+    ``train_long_context --cp 2`` ring and Ulysses at 345M, the fp32
+    twin, the window at 16384 and BERT-large, each run first and held
+    against the parent's serial references after all of them ran (the
+    parent computes those meanwhile)."""
+    import pickle
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    res = {"rank": rank, "counts": []}
+    try:
+        from apex_tpu_torch import ops
+        from apex_tpu_torch.parallel import mesh, multiproc
+
+        multiproc.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                         backend="gloo", timeout_s=600)
+        dev = torch.device("cuda", 0)
+        mesh.initialize_model_parallel(context_parallel_size=world)
+        res["wire"] = cp_wire_check(torch, dev)
+        got = {}
+        for impl in ("ring", "ulysses"):
+            t0 = time.perf_counter()
+            losses, grads, counts, names, L = long_cp_steps(
+                torch, ops, CP_LONG, CP_STEPS, cp=world, sp_impl=impl)
+            res["counts"].append((impl, CP_STEPS, counts,
+                                  cp_per_step(L, rank, impl)))
+            got[impl] = grads
+            res[impl] = {"losses": losses, "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        losses, got["twin"], counts, _, L = long_cp_steps(
+            torch, ops, dict(CP_LONG, layers=CP_TWIN_LAYERS), 1, cp=world,
+            opt_level="O0")
+        res["counts"].append(("O0 twin", 1, counts,
+                              cp_per_step(L, rank, "ring")))
+        res["twin"] = {"loss": losses[0], "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        losses, got["window"], counts, wnames, L = long_cp_steps(
+            torch, ops, CP_WINDOW, CP_WINDOW_STEPS, cp=world)
+        res["counts"].append(("window", CP_WINDOW_STEPS, counts,
+                              cp_per_step(L, rank, "ring")))
+        res["window"] = {"losses": losses, "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        bert = bert_cp_batch(torch, 30592)
+        losses, got["bert"], counts, L = bert_cp_steps(torch, ops, bert,
+                                                       world)
+        res["counts"].append(("bert", 1, counts, bert_cp_per_step(L, world)))
+        res["bert"] = {"losses": losses, "s": time.perf_counter() - t0}
+        losses, got["bert_o0"], counts, L = bert_cp_steps(
+            torch, ops, bert, world, opt_level="O0")
+        res["counts"].append(("bert O0", 1, counts,
+                              bert_cp_per_step(L, world)))
+        res["bert_o0"] = {"loss": losses[0]}
+
+        ref = wait_for_references(torch, ref_dir)
+        for impl in ("ring", "ulysses"):
+            res[impl]["floor_ratio"] = floor_ratios(
+                names, got[impl], ref["grads"], ref["floor"])
+            res[impl]["errs"] = grads_err(torch, got[impl], ref["grads"])
+        res["twin"]["errs"] = grads_err(torch, got["twin"],
+                                        ref["twin_grads"])
+        res["window"]["floor_ratio"] = floor_ratios(
+            wnames, got["window"], ref["window_grads"], ref["window_floor"])
+        res["bert"]["floor_ratio"] = floor_ratios(
+            ref["bert_names"], got["bert"], ref["bert_grads"],
+            ref["bert_floor"])
+        res["bert_o0"]["errs"] = grads_err(torch, got["bert_o0"],
+                                           ref["bert_o0_grads"])
+    except Exception:  # noqa: BLE001 - reported by the parent
+        res["error"] = traceback.format_exc()
+    finally:
+        try:
+            from apex_tpu_torch.parallel import multiproc
+
+            multiproc.shutdown()
+        except Exception as e:  # noqa: BLE001
+            res.setdefault("error", f"shutdown: {e}")
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def cp_spawn(ref_dir, world=2):
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(ref_dir, f"rank{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=_cp_rank,
+                         args=(r, world, port, ref_dir, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, outs
+
+
+def cp_references(torch, ops):
+    """(b)'s serial references, in this process: the 345M run at 8192
+    (its losses, step-1 grads and their floor against its fp32-compute
+    twin), the O0 run at :data:`CP_TWIN_LAYERS`, the window run
+    at 16384 (losses, grads, floor) and BERT-large's bias-route step
+    (losses, grads, floor)."""
+    ref = {}
+    ref["losses"], ref["grads"], _, _, _ = long_cp_steps(
+        torch, ops, CP_LONG, CP_STEPS)
+    _, fgrads, _, _, _ = long_cp_steps(torch, ops, CP_LONG, 1,
+                                       compute_dtype=torch.float32)
+    ref["floor"] = [l2_err(f, g) for f, g in zip(fgrads, ref["grads"])]
+    del fgrads
+    twin, ref["twin_grads"], _, _, _ = long_cp_steps(
+        torch, ops, dict(CP_LONG, layers=CP_TWIN_LAYERS), 1, opt_level="O0")
+    ref["twin_loss"] = twin[0]
+    ref["window_losses"], ref["window_grads"], _, _, _ = long_cp_steps(
+        torch, ops, CP_WINDOW, CP_WINDOW_STEPS)
+    _, fgrads, _, _, _ = long_cp_steps(torch, ops, CP_WINDOW, 1,
+                                       compute_dtype=torch.float32)
+    ref["window_floor"] = [l2_err(f, g)
+                           for f, g in zip(fgrads, ref["window_grads"])]
+    del fgrads
+    batch = bert_cp_batch(torch, 30592)
+    trainer, ref["bert_losses"], grads, _ = bert_tp_steps(torch, ops, batch,
+                                                          steps=1)
+    ref["bert_names"] = [n for n, _ in trainer.model.named_parameters()]
+    ref["bert_grads"] = [g.cpu() for g in grads]
+    del trainer, grads
+    _, _, fgrads, _ = bert_tp_steps(torch, ops, batch, steps=1,
+                                    compute_dtype=torch.float32)
+    ref["bert_floor"] = [l2_err(f.cpu(), g)
+                         for f, g in zip(fgrads, ref["bert_grads"])]
+    del fgrads
+    _, _, o0, _ = bert_tp_steps(torch, ops, batch, steps=1,
+                                opt_level="O0", o2_values=True)
+    o0 = [g.cpu() for g in o0]
+    ref["bert_o0_over"] = sorted(
+        (round(l2_err(g, r) / max(f, 1e-12), 2), n) for n, g, r, f in zip(
+            ref["bert_names"], o0, ref["bert_grads"], ref["bert_floor"])
+        if l2_err(g, r) > f)[-3:]
+    ref["bert_floor"] = [max(f, l2_err(g, r)) for f, g, r in zip(
+        ref["bert_floor"], o0, ref["bert_grads"])]
+    _, ref["bert_o0_losses"], o0, _ = bert_tp_steps(torch, ops, batch,
+                                                    steps=1, opt_level="O0")
+    ref["bert_o0_grads"] = [g.cpu() for g in o0]
+    del o0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def cp_world1(torch, ops, dev, total):
+    """(a): NCCL at world size 1 in this process, on a context axis of 1:
+    ``ring_attention`` and ``ulysses_attention`` at the ring's shard shape
+    (:data:`CP_A_SHAPE`, bf16), causal and with a window
+    (:data:`CP_A_WINDOW`), forward and grads bit for bit
+    ``flash_attention``'s."""
+    from apex_tpu_torch.ops import flash_attention
+    from apex_tpu_torch.parallel import mesh, multiproc
+    from apex_tpu_torch.transformer import ring
+
+    check(multiproc.initialize_distributed(
+        f"127.0.0.1:{free_port()}", 1, 0), "NCCL world 1 initialized")
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    group = "context parallel (a) NCCL world 1"
+    gen = torch.Generator(device=dev).manual_seed(18)
+    try:
+        mesh.initialize_model_parallel(context_parallel_size=1)
+        q, k, v, do = (torch.randn(*CP_A_SHAPE, device=dev,
+                                   generator=gen).to(torch.bfloat16)
+                       for _ in range(4))
+
+        def run(fn, **kw):
+            xs = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = fn(*xs, causal=True, **kw)
+            o.backward(do)
+            return [o.detach()] + [x.grad for x in xs]
+
+        for window in (None, CP_A_WINDOW):
+            ops.reset_launch_counts()
+            want = run(flash_attention, window=window)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            total.update({k_: total.get(k_, 0) + c
+                          for k_, c in counts.items()})
+            for name, fn in (("ring", ring.ring_attention),
+                             ("ulysses", ring.ulysses_attention)):
+                ops.reset_launch_counts()
+                got = run(fn, window=window)
+                torch.cuda.synchronize()
+                c = ops.launch_counts()
+                check(c == counts, f"(a) {name} launches {c} as "
+                      f"flash_attention's {counts}")
+                total.update({k_: total.get(k_, 0) + n
+                              for k_, n in c.items()})
+                same = [torch.equal(a, b) for a, b in zip(got, want)]
+                label = f"window {window}" if window else "causal"
+                print(f"  (a) {name}_attention over {backend} (world size "
+                      f"1), {CP_A_SHAPE} bf16 {label}: o, dq, dk, dv "
+                      f"bit-identical to flash_attention's {same}")
+                verdict(f"cp (a) {name} {label} bit for bit "
+                        f"flash_attention", 0 if all(same) else 1, 0,
+                        group=group)
+        del q, k, v, do
+    finally:
+        multiproc.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cp_two_ranks(torch, total, smi, ref, procs, outs):
+    """(b): the two gloo ranks' results, each case's verdicts."""
+    import pickle
+
+    end = time.monotonic() + 900
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    check(not alive, "the two gloo ranks finished within 900 s")
+    res = []
+    for r, path in enumerate(outs):
+        check(os.path.exists(path), f"gloo rank {r} left no result")
+        with open(path, "rb") as f:
+            res.append(pickle.load(f))
+    for r in res:
+        check("error" not in r,
+              f"gloo rank {r['rank']}: {r.get('error', '')[-3000:]}")
+    group = "context parallel (b) 2 gloo ranks on the card"
+    print(f"  (b) the wires (backend, ring shift exact, bf16 all-to-all "
+          f"exact): {[r['wire'] for r in res]}")
+    for r in res:
+        verdict(f"cp (b) rank {r['rank']} ring shift and all-to-all of "
+                f"bf16 CUDA tensors arrive exact",
+                0 if all(r["wire"][1:]) else 1, 0, group=group)
+
+    def losses_rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+    for impl in ("ring", "ulysses"):
+        xs = [r[impl] for r in res]
+        print(f"  (b) train_long_context --cp 2 --sp-impl {impl} (345M O2, "
+              f"8192 tokens, 4096 a rank, --lm-head-chunks 8): losses "
+              f"{[x['losses'] for x in xs]} (serial {ref['losses']}); "
+              f"step 1's grads by share and row {[x['errs'] for x in xs]}, "
+              f"L2 over the floor, worst {[x['floor_ratio'] for x in xs]}; "
+              f"{[round(x['s'], 1) for x in xs]} s (host-staged gloo, not "
+              f"speed numbers)")
+        for r, x in zip(res, xs):
+            rk = r["rank"]
+            verdict(f"cp (b) {impl} rank {rk} losses rel to serial",
+                    losses_rel(x["losses"], ref["losses"]), CP_LOSS_REL,
+                    group=group)
+            verdict(f"cp (b) {impl} rank {rk} worst grad leaf L2 over the "
+                    f"serial fp32-compute distance", x["floor_ratio"][0][0],
+                    CP_FLOOR, group=group)
+    ts = [r["twin"] for r in res]
+    print(f"  (b) the ring's O0 twin ({CP_TWIN_LAYERS} layers, fp32 params "
+          f"and compute, 8192 tokens, 1 step): losses "
+          f"{[t['loss'] for t in ts]} (serial "
+          f"{ref['twin_loss']}); grads by share and row "
+          f"{[t['errs'] for t in ts]}")
+    for r, t in zip(res, ts):
+        rk = r["rank"]
+        verdict(f"cp (b) O0 twin rank {rk} step-1 loss rel to serial",
+                abs(t["loss"] - ref["twin_loss"]) / abs(ref["twin_loss"]),
+                CP_TWIN_LOSS_REL, group=group)
+        verdict(f"cp (b) O0 twin rank {rk} step-1 grads", t["errs"][0],
+                CP_TWIN_GRAD[0], group=group)
+        verdict(f"cp (b) O0 twin rank {rk} step-1 grads row", t["errs"][1],
+                CP_TWIN_GRAD[1], group=group)
+    ws = [r["window"] for r in res]
+    print(f"  (b) train_long_context --cp 2 --seq 16384 --pos rope --window "
+          f"4096 (ring, the window across the shard boundary): losses "
+          f"{[w['losses'] for w in ws]} (serial {ref['window_losses']}); "
+          f"step 1's grads L2 over the floor, worst "
+          f"{[w['floor_ratio'] for w in ws]}")
+    for r, w in zip(res, ws):
+        rk = r["rank"]
+        verdict(f"cp (b) window rank {rk} losses rel to serial",
+                losses_rel(w["losses"], ref["window_losses"]), CP_LOSS_REL,
+                group=group)
+        verdict(f"cp (b) window rank {rk} worst grad leaf L2 over the "
+                f"serial fp32-compute distance", w["floor_ratio"][0][0],
+                CP_FLOOR, group=group)
+    bs = [r["bert"] for r in res]
+    print(f"  (b) BERT-large O2 FusedLAMB, 8 x 512 with padding as segment "
+          f"ids, ring at cp 2, NSP included: losses "
+          f"{[b['losses'] for b in bs]} (serial bias route "
+          f"{ref['bert_losses']}); step 1's grads L2 over the floor, worst "
+          f"{[b['floor_ratio'] for b in bs]} (the floor from the O0 step "
+          f"where it is above the fp32-compute one, by their ratio: "
+          f"{ref['bert_o0_over']}); card: {smi}")
+    os_ = [r["bert_o0"] for r in res]
+    print(f"  (b) BERT-large at cp 2, its O0 twin (fp32 params and compute, "
+          f"1 step) against the serial O0 step: losses "
+          f"{[o['loss'] for o in os_]} (serial {ref['bert_o0_losses'][0]}); "
+          f"grads (share, row) {[o['errs'] for o in os_]}")
+    for r, o in zip(res, os_):
+        rk = r["rank"]
+        verdict(f"cp (b) BERT O0 twin rank {rk} step-1 loss rel to serial",
+                abs(o["loss"] - ref["bert_o0_losses"][0])
+                / abs(ref["bert_o0_losses"][0]), CP_TWIN_LOSS_REL,
+                group=group)
+        verdict(f"cp (b) BERT O0 twin rank {rk} step-1 grads",
+                o["errs"][0], CP_BERT_TWIN_GRAD[0], group=group)
+        verdict(f"cp (b) BERT O0 twin rank {rk} step-1 grads row",
+                o["errs"][1], CP_BERT_TWIN_GRAD[1], group=group)
+    for r, b in zip(res, bs):
+        rk = r["rank"]
+        verdict(f"cp (b) BERT rank {rk} loss rel to serial",
+                losses_rel(b["losses"], ref["bert_losses"]), CP_LOSS_REL,
+                group=group)
+        verdict(f"cp (b) BERT rank {rk} worst grad leaf L2 over the serial "
+                f"fp32-compute distance", b["floor_ratio"][0][0], CP_FLOOR,
+                group=group)
+    for r in res:
+        for label, steps, counts, per_step in r["counts"]:
+            check_counts(counts, expected_counts(counts, steps, per_step),
+                         "cp")
+            total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+    return res
+
+
+def cp_phase(torch, ops, dev):
+    """Phase 18: (b)'s ranks spawned first; this process computes their
+    serial references (:func:`cp_references`) and runs (a)
+    (:func:`cp_world1`) meanwhile, then (b)'s verdicts. Returns the
+    launches of the context-parallel runs (path ``cp``: (a)'s and both
+    ranks')."""
+    import shutil
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    total = {}
+    ref_dir = os.path.join(HERE, "build", "cp_check")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    os.makedirs(ref_dir)
+    procs = []
+    try:
+        procs, outs = cp_spawn(ref_dir)
+        ref = cp_references(torch, ops)
+        torch.save(ref, os.path.join(ref_dir, "ref.tmp"))  # whole, or absent
+        os.replace(os.path.join(ref_dir, "ref.tmp"),
+                   os.path.join(ref_dir, "ref.pt"))
+        top = sorted((round(v, 4) for v in ref["floor"]), reverse=True)[:3]
+        print(f"  (b) the serial references in {time.perf_counter() - t0:.1f}"
+              f" s; the 345M run's bf16 grads' L2 distance from its "
+              f"fp32-compute twin's (the floor), largest {top}")
+        small = {k: v for k, v in ref.items()
+                 if "loss" in k or k == "bert_o0_over"}
+        del ref
+        gc.collect()
+        cp_world1(torch, ops, dev, total)
+        cp_two_ranks(torch, total, smi, small, procs, outs)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    print(f"  phase 18 launches {total}; phase 18 took "
+          f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    return total
+
+
+def cp_main():
+    """``python3 chip_smoke.py --cp``: phase 18 alone after the build, with
+    its verdict."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.csrc import build
+
+    print(f"card: {nvidia_smi()}; torch {torch.__version__}")
+    build.load()
+    torch.empty(1, device="cuda")
+    cp_phase(torch, ops, torch.device("cuda", 0))
     print_verdict()
     return 0
 
@@ -9901,4 +10797,8 @@ if __name__ == "__main__":
         sys.exit(zero_main())
     if sys.argv[1:2] == ["--pp"]:
         sys.exit(pp_main())
+    if sys.argv[1:2] == ["--offsets"]:
+        sys.exit(offsets_main())
+    if sys.argv[1:2] == ["--cp"]:
+        sys.exit(cp_main())
     sys.exit(main())

@@ -212,12 +212,20 @@ def test_serial_cross_entropy_matches_jax(eps):
 ])
 def test_options_outside_the_slice_raise(field, value):
     cfg = BertConfig(**{field: value}, **TINY)
-    if field == "axis":  # tensor parallelism needs the topology first
+    if field in ("axis", "context_axis"):  # both need the topology first
         with pytest.raises(ValueError, match="initialize_model_parallel"):
             BertModel(cfg, device="cpu")
+    if field == "context_axis":  # which installed, the model builds
+        from apex_tpu_torch.parallel import mesh
+
+        mesh.initialize_model_parallel(context_parallel_size=1)
+        try:
+            assert BertModel(cfg, device="cpu")._ctx == "context"
+        finally:
+            mesh.destroy_model_parallel()
     elif field == "sequence_parallel":  # ignored serial, as in the JAX model
         assert not BertModel(cfg, device="cpu")._sp
-    else:
+    elif field != "axis":
         with pytest.raises(NotImplementedError,
                            match="ROADMAP|Queue 1 item"):
             BertModel(cfg, device="cpu")

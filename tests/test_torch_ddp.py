@@ -185,7 +185,8 @@ def test_allreduce_gradients_by_spec_sharded_leaf(ddp):
 
 def test_no_fallback_without_a_launcher(monkeypatch):
     """One process: ``initialize_distributed`` is a no-op; a world above
-    one without an address raises; ``--dp 2`` on one rank raises."""
+    one without an address raises; ``--dp 2`` and ``--cp 2`` on one rank
+    raise, naming the processes to launch."""
     from apex_tpu_torch.parallel import multiproc
 
     for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
@@ -196,7 +197,7 @@ def test_no_fallback_without_a_launcher(monkeypatch):
         multiproc.initialize_distributed(device="cpu")
     with pytest.raises(RuntimeError, match="--dp 2"):
         lc.build(**LONG, batch=2, dp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(RuntimeError, match="launch 2 processes"):
         lc.build(**LONG, cp=2, device="cpu")
 
 

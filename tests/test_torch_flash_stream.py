@@ -21,6 +21,7 @@ by ``chip_smoke.py``.
 """
 
 import importlib
+import inspect
 
 import numpy as np
 import pytest
@@ -705,11 +706,12 @@ def test_routing_on_cpu_tensors(monkeypatch):
 
 
 def test_card_refusals_name_their_roadmap_items(monkeypatch):
-    # the card refuses no flash mask any more: segment ids with pad_id on
-    # the streamed route and the window on the resident one reach
-    # FlashAttention (tests/test_torch_package.py has the bias); what is
-    # left is the ring's global offsets, with context parallelism (Queue 1
-    # item 15), which the long-context example names
+    # the card refuses no flash mask: segment ids with pad_id on the
+    # streamed route and the window on the resident one reach
+    # FlashAttention (tests/test_torch_package.py has the bias), and the
+    # ring's global offsets reach every kernel wrapper (shift=): the
+    # long-context example's --cp runs, and on one process asks for its
+    # ranks
     monkeypatch.setattr(tfa, "check_device", lambda t, name: "cuda")
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(0, sq=64, sk=64))
     q.requires_grad_()
@@ -728,7 +730,12 @@ def test_card_refusals_name_their_roadmap_items(monkeypatch):
     assert not hasattr(tfa, "_card_refusal")
     from apex_tpu_torch.examples.longcontext import train_long_context as lc
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    for fn in (tfa.flash_attention_fwd, tfa.flash_attention_fwd_stream,
+               tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv,
+               tfa.flash_attention_bwd_dq_stream,
+               tfa.flash_attention_bwd_dkv_stream):
+        assert "shift" in inspect.signature(fn).parameters
+    with pytest.raises(RuntimeError, match="launch 2 processes"):
         lc.main(["--device", "cpu", "--cp", "2"])
 
 

@@ -210,9 +210,10 @@ def test_example_main_on_cpu_writes_the_reference_record(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,error,match", [
-    (["--cp", "2"], NotImplementedError, "Queue 1 item 15"),
-    # data parallelism runs under a launcher of --dp processes (held on
-    # gloo ranks in tests/test_torch_ddp.py); one process has 1 rank
+    # context and data parallelism run under a launcher of --cp x --dp
+    # processes (held on gloo ranks in tests/test_torch_context_parallel.py
+    # and tests/test_torch_ddp.py); one process has 1 rank
+    (["--cp", "2"], RuntimeError, "launch 2 processes"),
     (["--dp", "2"], RuntimeError, "launch 2 processes")],
     ids=["flag0", "flag1"])
 def test_parallel_modes_raise_naming_their_roadmap_items(flag, error, match):

@@ -91,15 +91,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
 ])
 def test_options_outside_the_slice_raise(field, value):
     """Each option raises where the slice stops: at construction. Tensor
-    parallelism needs the topology installed first; sequence parallelism
-    without an axis builds the serial model, as in the JAX package."""
+    and context parallelism need the topology installed first (and a
+    context axis then builds); sequence parallelism without an axis builds
+    the serial model, as in the JAX package."""
     cfg = GPTConfig(**{field: value}, **SMALL)
-    if field == "axis":
+    if field in ("axis", "context_axis"):
         with pytest.raises(ValueError, match="initialize_model_parallel"):
             GPTModel(cfg, device="cpu")
+    if field == "context_axis":
+        from apex_tpu_torch.parallel import mesh
+
+        mesh.initialize_model_parallel(context_parallel_size=1)
+        try:
+            assert GPTModel(cfg, device="cpu")._ctx == "context"
+        finally:
+            mesh.destroy_model_parallel()
     elif field == "sequence_parallel":
         assert not GPTModel(cfg, device="cpu")._sp
-    else:
+    elif field != "axis":
         with pytest.raises(NotImplementedError, match="later|slice"):
             GPTModel(cfg, device="cpu")
 
@@ -136,10 +145,10 @@ def test_a_bias_reaches_the_kernels_and_segment_ids_raise_on_the_card(
     """On the card a bias and segment ids (with pad_id and
     contiguous_segments, resident and streamed) go to the kernels through
     FlashAttention, with no refusal; stream='always' with a bias still
-    raises the reference's ValueError, and what waits for the ring's
-    global offsets (context parallelism) raises naming ROADMAP Queue 1
-    item 15."""
-    from apex_tpu_torch.models.bert import BertConfig, _check_slice
+    raises the reference's ValueError, and context parallelism, which
+    the ring's global offsets carry to the kernels, passes the slice check
+    and asks only for its topology."""
+    from apex_tpu_torch.models.bert import BertConfig, BertModel, _check_slice
 
     tfa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     q = torch.randn(1, 2, 12, 8, requires_grad=True)
@@ -156,8 +165,11 @@ def test_a_bias_reaches_the_kernels_and_segment_ids_raise_on_the_card(
         assert torch.allclose(out, ref, atol=1e-6)
     with pytest.raises(ValueError, match="dense bias"):
         tfa.flash_attention(q, q, q, bias, stream="always")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        _check_slice(BertConfig(context_axis="context"))
+    cfg = BertConfig(context_axis="context", vocab_size=64, hidden_size=32,
+                     num_layers=1, num_attention_heads=4, max_seq_len=12)
+    _check_slice(cfg)
+    with pytest.raises(ValueError, match="initialize_model_parallel"):
+        BertModel(cfg, device="cpu")
 
 
 def test_the_model_takes_the_window_on_the_card_through_the_stream():

@@ -491,7 +491,8 @@ def test_generate_tp2_matches_the_serial_example(setup, capsys):
 
 def test_tp_options_need_ranks_and_keep_later_items_raising():
     """One process: ``--tp 2`` raises naming the world size; sequence
-    parallelism does not serve; ``context_axis`` still raises (item 15)."""
+    parallelism does not serve; a ``context_axis`` model builds on the
+    installed topology and does not serve either (``gpt.py:381-385``)."""
     with pytest.raises(RuntimeError, match="world size"):
         pg.run(["--device", "cpu", "--tp", "2", "--steps", "1",
                 "--hidden", "32", "--layers", "1", "--heads", "4",
@@ -515,8 +516,11 @@ def test_tp_options_need_ranks_and_keep_later_items_raising():
             Engine(tpm, ServeConfig(max_seq=16, spec_k=2), device="cpu",
                    mesh=mesh.get_mesh(),
                    draft_model=GPTModel(GPTConfig(**TINY), device="cpu"))
-        with pytest.raises(NotImplementedError, match="item 15"):
-            GPTModel(GPTConfig(**dict(TINY, axis="model",
-                                      context_axis="context")), device="cpu")
+        cpm = GPTModel(GPTConfig(**dict(TINY, axis="model",
+                                        context_axis="context")),
+                       device="cpu")
+        with pytest.raises(ValueError, match="context parallelism"):
+            Engine(cpm, ServeConfig(max_seq=16), device="cpu",
+                   mesh=mesh.get_mesh())
     finally:
         mesh.destroy_model_parallel()
