@@ -25,7 +25,9 @@ axis calls it -- and the first rank of the world writes; and
 :func:`restore_checkpoint` with ``specs`` cuts the full tree to one tensor-
 parallel rank's shard. So a checkpoint saved at tp 2 resumes serial, and a
 serial one resumes at tp 2. Pipeline stages save and restore the same way
-over ``("model", "pipe")``: the file holds the whole layer stack. A subtree with no entry in ``specs`` (None) is
+over ``("model", "pipe")``: the file holds the whole layer stack, and an
+expert-parallel MoE model over ``("model", "pipe", "data")``: the file
+holds every expert. A subtree with no entry in ``specs`` (None) is
 replicated.
 """
 

@@ -77,8 +77,24 @@ writes (gathered over ``("model", "pipe")``); ZeRO level 3 over a pipe
 axis and a ZeRO checkpoint of a pipelined run raise naming ROADMAP Queue 1
 item 25.
 
+Mixture of experts (``--moe-experts E``, ``--moe-top-k``,
+``--moe-capacity-factor``, ``--moe-dispatch-dtype``, ``:379-390``,
+``:470``): every FFN is a top-k routed ``MoEMLP``; with dp > 1 the experts
+shard over the data axis (expert parallelism: each rank routes its own
+rows, the dispatch and combine are all-to-alls over ``data``, at the
+1-byte wire under ``--moe-dispatch-dtype``), composing with ``--tp`` (each
+expert's FFN over the model axis), ``--pp`` (the router losses ride the
+ring) and ``--zero`` levels 1/2 (the expert leaves' state is their local
+shard). The router losses fold into the loss. The data-parallel reduction
+is by spec under MoE (:func:`reduce_data_parallel`): the expert grads skip
+the all-reduce and are divided by the data size, which the JAX example's
+non-ZeRO step does not do (its ``allreduce_gradients`` of the layer grads,
+``:513``, averages rank 0's experts with rank 1's). A checkpoint of an
+expert-parallel run holds the experts gathered over ``data``; the ZeRO
+checkpoint of one raises ``NotImplementedError``.
+
 ``--unroll`` is accepted and changes nothing: the port always drives the
-layers one by one. The two-tier mesh, MoE and monitoring options raise
+layers one by one. The two-tier mesh and monitoring options raise
 ``NotImplementedError`` with the ROADMAP item that brings them; the
 reference's own argument-consistency errors are kept. ``--device cpu``
 runs the plain versions of the kernels on the CPU; the default is the card.
@@ -123,8 +139,6 @@ from apex_tpu_torch.transformer.amp import (
 #: that brings them
 _LATER = {
     "mesh_islands": ("the two-tier mesh", 16),
-    "moe_experts": ("MoE FFNs", 16),
-    "moe_dispatch_dtype": ("MoE FFNs", 16),
     "plan": ("the placement search", 21),
     "journal": ("the metrics journal", 21),
     "trace": ("span tracing", 21),
@@ -240,15 +254,20 @@ def parse_args(argv=None):
     if args.moe_dispatch_dtype and not args.moe_experts:
         p.error("--moe-dispatch-dtype requires --moe-experts (it is the "
                 "expert-parallel dispatch wire dtype)")
-    if args.moe_experts and (args.zero_level or 0) >= 3:
-        p.error("--moe-experts composes with ZeRO levels 1/2 only "
-                "(level 3's chunk drive has no expert-shard story)")
+    if args.moe_experts:
+        if (args.zero_level or 0) >= 3:
+            p.error("--moe-experts composes with ZeRO levels 1/2 only "
+                    "(level 3's chunk drive has no expert-shard story)")
+        if args.pp_schedule == "zerobubble":
+            p.error("--moe-experts does not compose with --pp-schedule "
+                    "zerobubble (the W/B-split executor has no aux-loss "
+                    "plumbing)")
     return args
 
 
 def check_slice(args) -> None:
     """Raise ``NotImplementedError`` for an option outside the serial,
-    data-, tensor- and pipeline-parallel branches and ZeRO, naming the
+    data-, tensor- and pipeline-parallel branches, ZeRO and MoE, naming the
     ROADMAP item that brings it."""
     if args.pp > 1 and args.zero and (args.zero_level >= 3
                                       or args.save_dir):
@@ -258,8 +277,6 @@ def check_slice(args) -> None:
             "chunk checkpoint come with ROADMAP Queue 1 item 25")
     on = {
         "mesh_islands": args.mesh_islands > 1,
-        "moe_experts": bool(args.moe_experts),
-        "moe_dispatch_dtype": bool(args.moe_dispatch_dtype),
         "plan": bool(args.plan), "journal": bool(args.journal),
         "trace": bool(args.trace),
         "ledger": bool(args.ledger or os.environ.get("APEX_TPU_LEDGER")),
@@ -270,7 +287,7 @@ def check_slice(args) -> None:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}: {what} is not in this slice of "
                 f"the port (the serial, data-, tensor- and pipeline-parallel "
-                f"branches and ZeRO); it comes with ROADMAP Queue 1 item "
+                f"branches, ZeRO and MoE); it comes with ROADMAP Queue 1 item "
                 f"{item}")
 
 
@@ -300,28 +317,35 @@ def reduce_data_parallel(model: GPTModel,
     parameters' ``.grad``: the non-layer grads through
     ``allreduce_gradients_by_spec`` by the model's specs (which also sums
     them over the pipe axis), the layers' through ``allreduce_gradients``
-    over the gradient-reduction axes.
+    over the gradient-reduction axes -- except the layer leaves sharded
+    over one of those axes (the experts of an expert-parallel MoE model,
+    over ``data``), which go through ``allreduce_gradients_by_spec`` too:
+    each rank's expert grads already sum every rank's tokens through the
+    all-to-all, so they skip the all-reduce and are only divided by the
+    axis size (``transformer/moe.py:341-351``; the JAX example's
+    ``allreduce_gradients`` would average different experts together).
+    A dense model has no such leaf and reduces exactly as before.
     Returns the ``pmean`` of ``loss``."""
+    from apex_tpu_torch.amp.frontend import _specs_of
+    from apex_tpu_torch.parallel.distributed import _spec_axes
+
     axes = mesh.get_gradient_reduction_axes()
     named = list(model.named_parameters())
-    rest = [(n, p) for n, p in named if not n.startswith("layers.")]
-    layers = [p for n, p in named if n.startswith("layers.")]
-    specs = model.specs()
-
-    def spec_of(name):
-        leaf = specs
-        for key in name.split("."):
-            leaf = leaf[key]
-        return leaf
+    specs = _specs_of(model, len(named))
 
     def grads(ps):
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in ps]
 
-    rest_g = allreduce_gradients_by_spec(grads([p for _, p in rest]),
-                                         [spec_of(n) for n, _ in rest])
-    layer_g = allreduce_gradients(grads(layers), axes)
-    for p, g in zip([p for _, p in rest] + layers, rest_g + layer_g):
+    by_spec = [i for i, (n, _) in enumerate(named)
+               if not n.startswith("layers.")
+               or _spec_axes(specs[i]) & set(axes)]
+    rest = sorted(set(range(len(named))) - set(by_spec))
+    params = [named[i][1] for i in by_spec + rest]
+    spec_g = allreduce_gradients_by_spec(grads(params[:len(by_spec)]),
+                                         [specs[i] for i in by_spec])
+    layer_g = allreduce_gradients(grads(params[len(by_spec):]), axes)
+    for p, g in zip(params, spec_g + layer_g):
         p.grad = g
     return collectives.pmean(loss, axes)
 
@@ -336,6 +360,9 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
           zero_gather: Optional[str] = None,
           reduce_dtype: Optional[str] = None, zero3_prefetch: int = 0,
           offload: bool = False, offload_buckets: int = 2,
+          moe_experts: Optional[int] = None, moe_top_k: int = 2,
+          moe_capacity_factor: float = 1.25,
+          moe_dispatch_dtype: Optional[str] = None,
           device: DeviceLike = None) -> Bench:
     """The reference's model and optimizer state (``:391-424``) on one
     device (the card unless ``device="cpu"``), random weights from
@@ -366,7 +393,14 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
     reduce-scatter is the data-parallel reduction; at level 3 the
     params persist as chunks (``Bench.zero3``) and ``zero3_prefetch``
     double-buffers the layer gathers; ``offload`` keeps the sharded state
-    in host memory in ``offload_buckets`` buckets (``Bench.offload``)."""
+    in host memory in ``offload_buckets`` buckets (``Bench.offload``).
+
+    ``moe_experts`` (``--moe-experts``) makes every FFN a routed
+    ``MoEMLP`` of that many experts (``moe_top_k``, ``moe_capacity_factor``;
+    ``:379-390``), the experts sharded over the data axis when dp > 1
+    (``moe_dispatch_dtype``: the 1-byte dispatch wire, ignored serial); the
+    router losses fold into the loss, and through the pipeline ring and the
+    ZeRO step (``with_aux``)."""
     dev = resolve_device(device)
     zero = zero_level is not None
     if zero and not mesh.model_parallel_is_initialized() and tp == 1 \
@@ -384,6 +418,16 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
     dp, rank = data_parallel_world()
     distributed = dist.is_available() and dist.is_initialized()
     policy = amp.get_policy(opt_level)
+    moe = {}
+    if moe_experts:
+        # the experts shard over the data axis when dp > 1 (the token
+        # shards are the expert shards); serial experts otherwise: the
+        # serial twin of the same config (:379-390)
+        moe = dict(moe_num_experts=moe_experts, moe_top_k=moe_top_k,
+                   moe_capacity_factor=moe_capacity_factor,
+                   moe_expert_axis=mesh.AXIS_DATA if dp > 1 else None,
+                   moe_dispatch_dtype=moe_dispatch_dtype)
+    with_aux = bool(moe_experts)
     cfg = GPTConfig(
         vocab_size=vocab,
         hidden_size=hidden,
@@ -399,6 +443,7 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
         pipeline_axis=mesh.AXIS_PIPE if pp > 1 else None,
         virtual_pipeline_size=vpp,
         zero3_prefetch=zero3_prefetch,
+        **moe,
     )
     model = GPTModel(cfg, device=dev, seed=seed)
     amp.cast_params(model, policy)
@@ -418,7 +463,7 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
         return _build_zero(model, mp_opt, cfg, num_microbatches, offload,
                            offload_buckets,
                            micro_batch * dp * num_microbatches, dp, rank,
-                           vpp, pipe_vg)
+                           vpp, pipe_vg, with_aux)
     opt_state = mp_opt.init(model)
 
     vote = None
@@ -435,7 +480,7 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
         if pp > 1:
             loss = tamp.pipelined_backward(
                 mp_opt, opt_state, model, toks.to(dev), tgts.to(dev),
-                num_microbatches, pipe_vg)
+                num_microbatches, pipe_vg, with_aux=with_aux)
         else:
             loss = _microbatched_backward(model, mp_opt, opt_state, toks,
                                           tgts, num_microbatches)
@@ -450,7 +495,7 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
 
 def _build_zero(model, mp_opt, cfg, num_microbatches, offload,
                 offload_buckets, batch, dp, rank, vpp=1,
-                pipe_vg=None) -> Bench:
+                pipe_vg=None, with_aux=False) -> Bench:
     """:func:`build`'s ZeRO branch: the sharded state (resident, level-3
     chunks or host-offloaded) and the step of ``build_zero_train_step`` on
     this rank's rows."""
@@ -471,6 +516,7 @@ def _build_zero(model, mp_opt, cfg, num_microbatches, offload,
                                   num_microbatches=num_microbatches,
                                   zero3=zero3, offload=off,
                                   virtual_pipeline_size=vpp,
+                                  with_aux=with_aux,
                                   pipe_value_and_grad=pipe_vg)
 
     def step(tokens: torch.Tensor, targets: torch.Tensor):
@@ -493,7 +539,11 @@ def from_args(args, remat_policy: Optional[str] = None) -> Bench:
                  zero_gather=args.zero_gather, reduce_dtype=args.reduce_dtype,
                  zero3_prefetch=args.zero3_prefetch,
                  offload=args.offload_optimizer,
-                 offload_buckets=args.offload_buckets, device=args.device)
+                 offload_buckets=args.offload_buckets,
+                 moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
+                 moe_capacity_factor=args.moe_capacity_factor,
+                 moe_dispatch_dtype=args.moe_dispatch_dtype,
+                 device=args.device)
 
 
 def train_state(bench: Bench, device="cpu") -> Dict[str, Any]:
@@ -516,12 +566,14 @@ def train_state(bench: Bench, device="cpu") -> Dict[str, Any]:
 
 
 def train_state_specs(bench: Bench) -> Optional[Dict[str, Any]]:
-    """The split of each leaf of :func:`train_state` over the model and
-    pipe axes (the masters and moments split as their params; the step
-    count and the scaler replicated), or None for a serial model. ZeRO's
-    global chunk arrays are whole on every rank (None)."""
+    """The split of each leaf of :func:`train_state` over the model, pipe
+    and (an expert-parallel model's experts) data axes (the masters and
+    moments split as their params; the step count and the scaler
+    replicated), or None for a serial model. ZeRO's global chunk arrays
+    are whole on every rank (None)."""
     c = bench.model.cfg
-    if c.axis is None and c.pipeline_axis is None:
+    if c.axis is None and c.pipeline_axis is None \
+            and c.moe_expert_axis is None:
         return None
     specs = bench.model.specs()
     if bench.mp_opt.zero_axis is not None:
@@ -592,8 +644,17 @@ def _run(args) -> Dict[str, Any]:
     distributed = dist.is_initialized()
     lead = dist.get_rank() == 0 if distributed else True
     dev = bench.model.device
+    if (args.save_dir and bench.mp_opt.zero_axis is not None
+            and bench.model.cfg.moe_expert_axis is not None):
+        raise NotImplementedError(
+            "--save-dir with --zero and --moe-experts at dp > 1: the ZeRO "
+            "checkpoint of expert-sharded leaves (their state is the local "
+            "shard, not a chunk) is not in the port; it comes with ROADMAP "
+            "Queue 1 item 16")
     specs = train_state_specs(bench)
     axes = (mesh.AXIS_MODEL, mesh.AXIS_PIPE)
+    if bench.model.cfg.moe_expert_axis is not None:
+        axes += (mesh.AXIS_DATA,)  # the experts, gathered at a save
     out: Dict[str, Any] = {"bench": bench, "losses": [], "metrics": [],
                            "step_s": [], "save_s": [], "restore_s": None}
     next_batch = batches(args, batch)

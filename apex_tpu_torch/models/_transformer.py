@@ -4,7 +4,13 @@ The JAX package stacks every layer's parameters on a leading
 ``num_layers`` dim and scans them; here each layer is a module of an
 ``nn.ModuleList`` holding the same tree ``{ln1, qkv, proj, ln2, fc1, fc2}``
 under the same names, and the helpers take that layer module where the
-reference takes its parameter slice. MoE FFNs raise.
+reference takes its parameter slice. A model with routed-expert FFNs
+(``cfg.moe_num_experts``) holds :class:`MoETransformerLayer` modules, ``{ln1,
+qkv, proj, ln2, moe}``, whose layers emit aux losses (the router's): the
+drives sum them over the layers in fp32 and hand them back with
+``return_aux=True``, and refuse to drop them without it
+(``_transformer.py:588-595``); under checkpointing the layer body returns
+``(h, *aux)``.
 
 Context parallelism (``cfg.context_axis``, the mesh's ``"context"``; the
 topology installed first, ``initialize_model_parallel(
@@ -357,6 +363,9 @@ class TransformerLayer(nn.Module):
             c.hidden_size, c.hidden_size, input_is_parallel=True,
             init_method=out_init, **kw)
         self.ln2 = LayerNormParams(c.hidden_size, c.params_dtype, device)
+        self._build_ffn(c, init, out_init, kw)
+
+    def _build_ffn(self, c, init, out_init, kw) -> None:
         self.fc1 = tp.ColumnParallelLinear(
             c.hidden_size, c.ffn, gather_output=False, init_method=init,
             **kw)
@@ -364,20 +373,24 @@ class TransformerLayer(nn.Module):
             c.ffn, c.hidden_size, input_is_parallel=True,
             init_method=out_init, **kw)
 
-    @staticmethod
-    def skip_draws(cfg, device, generator: torch.Generator) -> None:
+    @classmethod
+    def skip_draws(cls, cfg, device, generator: torch.Generator) -> None:
         """Advance ``generator`` past one layer's draws without building
         it: the same normal fills as ``__init__`` (the full qkv, proj, fc1
         and fc2 kernels, in that order; the biases and LN params draw
         nothing), into one scratch buffer."""
         c = cfg
-        h, f = c.hidden_size, c.ffn
-        shapes = ((h, 3 * h), (h, h), (h, f), (f, h))
+        h = c.hidden_size
+        shapes = ((h, 3 * h), (h, h)) + cls._ffn_shapes(c)
         buf = torch.empty(max(a * b for a, b in shapes),
                           dtype=c.params_dtype, device=device)
         with torch.no_grad():
             for a, b in shapes:
                 buf[:a * b].view(a, b).normal_(generator=generator)
+
+    @staticmethod
+    def _ffn_shapes(c):
+        return ((c.hidden_size, c.ffn), (c.ffn, c.hidden_size))
 
     def specs(self):
         """Each leaf's split over the model axis, in the JAX tree's layout
@@ -385,7 +398,88 @@ class TransformerLayer(nn.Module):
         ln = {"scale": (), "bias": ()}
         return {"ln1": ln, "qkv": self.qkv.specs(),
                 "proj": self.proj.specs(), "ln2": dict(ln),
-                "fc1": self.fc1.specs(), "fc2": self.fc2.specs()}
+                **self._ffn_specs()}
+
+    def _ffn_specs(self):
+        return {"fc1": self.fc1.specs(), "fc2": self.fc2.specs()}
+
+
+class MoETransformerLayer(TransformerLayer):
+    """One MoE layer's parameter tree ``{ln1, qkv, proj, ln2, moe}``
+    (``gpt.py:205-231``): the attention half of :class:`TransformerLayer`
+    and a :class:`~apex_tpu_torch.transformer.moe.MoEMLP` for the FFN, its
+    experts sharded over ``cfg.moe_expert_axis`` and each expert's FFN over
+    ``cfg.axis`` (EP x TP). The experts draw from the generator after the
+    attention half: the router, fc1 and fc2 kernels, each whole."""
+
+    def _build_ffn(self, c, init, out_init, kw) -> None:
+        from apex_tpu_torch.transformer.moe import MoEMLP
+
+        ep = c.moe_expert_axis
+        self.moe = MoEMLP(
+            c.hidden_size, c.ffn, num_experts=c.moe_num_experts,
+            top_k=c.moe_top_k, capacity_factor=c.moe_capacity_factor,
+            expert_axis=ep, tp_axis=c.axis, params_dtype=c.params_dtype,
+            init_method=init,
+            # a serial build of an expert-parallel config runs: it has no
+            # dispatch wire to quantize (gpt.py:196-200)
+            dispatch_dtype=c.moe_dispatch_dtype if ep is not None else None,
+            device=kw["device"], generator=kw["generator"])
+
+    @staticmethod
+    def _ffn_shapes(c):
+        h, f, E = c.hidden_size, c.ffn, c.moe_num_experts
+        return ((h, E), (E * h, f), (E * f, h))
+
+    def _ffn_specs(self):
+        return {"moe": self.moe.specs()}
+
+
+def _layer_class(cfg):
+    """:class:`MoETransformerLayer` for a config with routed experts, else
+    :class:`TransformerLayer`."""
+    if getattr(cfg, "moe_num_experts", None) is not None:
+        return MoETransformerLayer
+    return TransformerLayer
+
+
+def _flat(h: torch.Tensor, aux):
+    """A layer's ``(h, aux)`` as the checkpointed body returns it: ``h``
+    alone, or ``(h, *aux values)`` in ``AUX_KEYS`` order."""
+    if aux is None:
+        return h
+    from apex_tpu_torch.transformer.moe import AUX_KEYS
+
+    return (h,) + tuple(aux[k] for k in AUX_KEYS)
+
+
+def _unflat(out):
+    if not isinstance(out, tuple):
+        return out, None
+    from apex_tpu_torch.transformer.moe import AUX_KEYS
+
+    return out[0], dict(zip(AUX_KEYS, out[1:]))
+
+
+def _add_aux(acc, aux):
+    """The running fp32 sum of the layers' aux trees
+    (``_transformer.py:627-631``)."""
+    if aux is None:
+        return acc
+    aux = {k: v.float() for k, v in aux.items()}
+    if acc is None:
+        return aux
+    return {k: acc[k] + aux[k] for k in acc}
+
+
+#: the refusal of a drive that would drop the layers' aux losses
+#: (``_transformer.py:588-595``)
+DROPPED_AUX = (
+    "this model's layers emit aux losses (MoE router); call "
+    "run_layers(..., return_aux=True) and fold them into the "
+    "loss -- dropping them silently disables load balancing. "
+    "Under the pipeline schedules, pass run_layers with "
+    "return_aux=True plus aux_to_loss to pipelined_loss_fn.")
 
 
 class TransformerBase(nn.Module):
@@ -462,12 +556,13 @@ class TransformerBase(nn.Module):
             ids = stage_layer_ids(c.num_layers, size,
                                   c.virtual_pipeline_size, rank)
         drawn = {}
+        layer_cls = _layer_class(c)
         for i in range(c.num_layers):
             if i in ids:
-                drawn[i] = TransformerLayer(c, device, generator, self._sp,
-                                            self._acd)
+                drawn[i] = layer_cls(c, device, generator, self._sp,
+                                     self._acd)
             else:
-                TransformerLayer.skip_draws(c, device, generator)
+                layer_cls.skip_draws(c, device, generator)
         self.layers = nn.ModuleList(drawn[i] for i in ids)
 
     def layer_stack_specs(self):
@@ -485,8 +580,9 @@ class TransformerBase(nn.Module):
         """Load the JAX ``init`` tree given as numpy arrays (layer leaves
         stacked ``(num_layers, ...)``, ``kernel`` in JAX's ``(in, out)``
         layout, which the port keeps): the FULL tree, of which a pipeline
-        stage loads its block of the interleaved layer stack and a
-        tensor-parallel model this rank's shard
+        stage loads its block of the interleaved layer stack, a
+        tensor-parallel model this rank's shard and an expert-parallel one
+        its experts
         (:func:`apex_tpu_torch.transformer.tensor_parallel.shard_params`
         by :meth:`specs`). Shapes must match
         (:func:`apex_tpu_torch._params.load_tree_`)."""
@@ -499,9 +595,10 @@ class TransformerBase(nn.Module):
                 tree["layers"], size, c.virtual_pipeline_size))
             tree = tp.shard_params(tree, self.specs(), rank, size,
                                    self._pipe)
-        if c.axis is not None:
-            rank, size = tp.mappings.axis_world(c.axis)
-            tree = tp.shard_params(tree, self.specs(), rank, size, c.axis)
+        for axis in (c.axis, getattr(c, "moe_expert_axis", None)):
+            if axis is not None:
+                rank, size = tp.mappings.axis_world(axis)
+                tree = tp.shard_params(tree, self.specs(), rank, size, axis)
         return load_tree_(self, tree)
 
     def sharded_flags(self) -> List[bool]:
@@ -678,11 +775,37 @@ class TransformerBase(nn.Module):
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         raise NotImplementedError
 
+    # -- per-layer aux losses (the MoE router's) -------------------------------
+
+    def _emits_aux(self) -> bool:
+        """Whether the layers emit aux losses (``_aux_init`` not None)."""
+        return getattr(self.cfg, "moe_num_experts", None) is not None
+
+    def _layer_aux(self, layer, h: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   bias: Optional[torch.Tensor] = None):
+        """``(h, aux)`` of one layer; dense layers emit no aux (None)."""
+        return self._layer(layer, h, generator, bias), None
+
+    def _post_attention_aux(self, layer, h: torch.Tensor,
+                            attn: torch.Tensor,
+                            generator: Optional[torch.Generator]):
+        """``(h, aux)`` of the layer after its attention call."""
+        return self._post_attention(layer, h, attn, generator), None
+
     def run_layers(self, h: torch.Tensor,
-                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   bias: Optional[torch.Tensor] = None,
+                   return_aux: bool = False):
+        """The layers with no dropout; ``(h, aux)`` with ``return_aux`` (aux
+        None for dense layers). Aux-emitting layers without ``return_aux``
+        raise ``ValueError``."""
+        if self._emits_aux() and not return_aux:
+            raise ValueError(DROPPED_AUX)
+        acc = None
         for layer in self.layers:
-            h = self._layer(layer, h, None, bias)
-        return h
+            h, aux = self._layer_aux(layer, h, None, bias)
+            acc = _add_aux(acc, aux)
+        return (h, acc) if return_aux else h
 
     def _dropout(self, x: torch.Tensor,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -721,6 +844,14 @@ class TransformerBase(nn.Module):
         return self._layer(layer, h, self._dropout_generator(seed, h.device),
                            bias)
 
+    def _train_layer_flat(self, layer, seed: Optional[int], h: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None):
+        """:meth:`_train_layer` with the layer's aux: ``h`` or ``(h,
+        *aux)`` (:func:`_flat`), the checkpointed body of aux-emitting
+        layers."""
+        return _flat(*self._layer_aux(
+            layer, h, self._dropout_generator(seed, h.device), bias))
+
     def _save_attn_layer(self, layer: TransformerLayer,
                          seed: Optional[int], h: torch.Tensor,
                          bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -737,43 +868,59 @@ class TransformerBase(nn.Module):
 
     def _train_post_attention(self, layer: TransformerLayer,
                               seed: Optional[int], h: torch.Tensor,
-                              attn: torch.Tensor) -> torch.Tensor:
-        return self._post_attention(layer, h, attn,
-                                    self._dropout_generator(seed, h.device))
+                              attn: torch.Tensor):
+        return _flat(*self._post_attention_aux(
+            layer, h, attn, self._dropout_generator(seed, h.device)))
 
     def run_layers_train(self, h: torch.Tensor,
                          dropout_generator: Optional[torch.Generator] = None,
                          bias: Optional[torch.Tensor] = None,
-                         chunk_meta=None, layers=None) -> torch.Tensor:
+                         chunk_meta=None, layers=None,
+                         return_aux: bool = False):
         """The differentiable layer drive: each layer checkpointed when
         ``cfg.remat`` is set, under ``cfg.remat_policy`` (the bias one of
         the checkpointed inputs). ``layers``: the layer modules to run (a
         pipeline chunk; default all of them). ``chunk_meta`` (a ZeRO-3
         :class:`~apex_tpu_torch.optimizers.distributed.ChunkedMeta` of the
         layer stack, with its ``chunks``) drives the layers from this
-        rank's chunks through :class:`_Zero3Drive`."""
+        rank's chunks through :class:`_Zero3Drive`. ``return_aux``: return
+        ``(h, aux)``, the layers' aux losses summed in fp32 (None for dense
+        layers); aux-emitting layers without it raise ``ValueError``, and
+        under the ZeRO-3 drive ``NotImplementedError``."""
+        emits = self._emits_aux()
+        if emits and not return_aux:
+            raise ValueError(DROPPED_AUX)
+        if chunk_meta is not None and emits:
+            raise NotImplementedError(
+                "the ZeRO-3 chunk drive does not take aux-emitting layers "
+                "(MoE routers): train MoE models at ZeRO levels 1/2")
         if chunk_meta is not None:
             if bias is not None and bias.requires_grad:
                 raise NotImplementedError(
                     "the ZeRO-3 drive takes an attention bias that needs no "
                     "grad (a padding mask)")
             chunks = [c for row in chunk_meta.chunks for c in row.values()]
-            return _Zero3Drive.apply(
+            h = _Zero3Drive.apply(
                 self, chunk_meta, self._layer_seeds(dropout_generator),
                 bias, h, *chunks)
+            return (h, None) if return_aux else h
         policy = remat_policy(getattr(self.cfg, "remat_policy", None))
         remat = self.cfg.remat and torch.is_grad_enabled()
         layers = self.layers if layers is None else layers
+        body = self._train_layer_flat if emits else self._train_layer
+        acc = None
         for layer, seed in zip(layers, self._layer_seeds(dropout_generator,
                                                          len(layers))):
-            fn = functools.partial(self._train_layer, layer, seed)
+            fn = functools.partial(body, layer, seed)
             if not remat:
-                h = fn(h, bias)
+                out = fn(h, bias)
             elif policy == "save_attn":
-                h = self._save_attn_layer(layer, seed, h, bias)
+                out = self._save_attn_layer(layer, seed, h, bias)
             elif policy == "dots":
-                h = checkpoint(fn, h, bias, use_reentrant=False,
-                               context_fn=_dots_context)
+                out = checkpoint(fn, h, bias, use_reentrant=False,
+                                 context_fn=_dots_context)
             else:
-                h = checkpoint(fn, h, bias, use_reentrant=False)
-        return h
+                out = checkpoint(fn, h, bias, use_reentrant=False)
+            h, aux = _unflat(out)
+            acc = _add_aux(acc, aux)
+        return (h, acc) if return_aux else h

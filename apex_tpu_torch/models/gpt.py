@@ -48,8 +48,22 @@ run it alone. Context parallelism (``context_axis="context"``, after
 its ``s / N`` tokens and targets, attention runs as the ring or Ulysses
 (``sequence_parallel_impl``), positions are global (``models/
 _transformer.py``), :meth:`GPTModel.loss` is the local mean and the caller
-reduces loss and grads over the context axis; serving refuses it. MoE FFNs
-are a later slice and raise ``NotImplementedError``.
+reduces loss and grads over the context axis; serving refuses it.
+
+Mixture of experts (``moe_num_experts=E``, ``gpt.py:128-231``): every
+layer's FFN is a top-k routed :class:`~apex_tpu_torch.transformer.moe.
+MoEMLP` (layer tree ``{ln1, qkv, proj, ln2, moe}``). The router losses
+summed over the layers fold into every token's loss through
+:meth:`GPTModel.aux_to_loss` (``gpt.py:334-363``).
+``moe_expert_axis="data"`` shards the experts over the data axis (after
+``initialize_model_parallel``): each rank feeds its own rows, the dispatch
+and combine are all-to-alls (at the 1-byte ``moe_dispatch_dtype`` wire
+when set), :meth:`GPTModel.loss` is the local mean and the caller reduces
+the grads by their specs (``parallel.distributed.
+allreduce_gradients_by_spec``: expert grads only divided by the axis
+size). Serving routes the same way on every rank and adds the local
+experts' shares with one ``psum`` (``_serve_ffn``). MoE does not compose
+with sequence parallelism (``ValueError``, as in the reference).
 """
 
 from __future__ import annotations
@@ -105,7 +119,17 @@ class GPTConfig:
     # installed first: initialize_model_parallel(context_parallel_size=N))
     context_axis: Optional[str] = None
     sequence_parallel_impl: str = "ring"  # 'ring' | 'ulysses'
+    # routed-expert FFNs (gpt.py:128-146): E experts a layer, top-k routing
+    # at capacity factor cf; the experts shard over moe_expert_axis (the
+    # data axis: tokens and experts shard together); the router losses'
+    # weights; the 1-byte dispatch wire (ignored on a serial build)
     moe_num_experts: Optional[int] = None
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_expert_axis: Optional[str] = None
+    moe_aux_loss_weight: float = 0.01
+    moe_z_loss_weight: float = 1e-3
+    moe_dispatch_dtype: Optional[str] = None
     hidden_dropout: float = 0.1  # applied only with a dropout generator
     remat: bool = True  # activation checkpointing per layer (training)
     remat_policy: Optional[str] = None  # None/"full" | "save_attn" | "dots"
@@ -125,16 +149,12 @@ class GPTConfig:
 
 
 def _check_slice(c: GPTConfig, device: torch.device) -> None:
-    later = {
-        "moe_num_experts": (c.moe_num_experts is not None,
-                            "MoE FFNs (Queue 1 item 16)"),
-    }
     remat_policy(c.remat_policy)
-    for name, (on, where) in later.items():
-        if on:
-            raise NotImplementedError(
-                f"GPTConfig {name} is not in this slice of the port; it "
-                f"comes with {where}")
+    if c.sequence_parallel and c.moe_num_experts is not None:
+        raise ValueError(
+            "sequence_parallel does not compose with MoE FFNs yet: the "
+            "router must see gathered tokens (the dense fc1/fc2 gather/"
+            "reduce-scatter pair has no MoE counterpart here)")
     if c.position_embedding not in ("learned", "rope", "none"):
         raise ValueError(f"position_embedding must be learned|rope|none, got "
                          f"{c.position_embedding!r}")
@@ -210,9 +230,7 @@ class GPTModel(TransformerBase):
         """Pre-LN block: residual + dropout(sublayer(LN(h))), the dropout
         masks drawn from ``generator`` attention first (``_layer_aux``,
         ``gpt.py:286-301``)."""
-        q, k, v = self._pre_attention(layer, h)
-        return self._post_attention(layer, h, self._attend(q, k, v, bias),
-                                    generator)
+        return self._layer_aux(layer, h, generator, bias)[0]
 
     def _pre_attention(self, layer: TransformerLayer, h: torch.Tensor):
         """LN and the QKV heads: the layer up to its attention call."""
@@ -223,9 +241,53 @@ class GPTModel(TransformerBase):
                         generator: Optional[torch.Generator]) -> torch.Tensor:
         """The layer after its attention call: the output projection and
         the MLP half, each a residual with dropout."""
+        return self._post_attention_aux(layer, h, attn, generator)[0]
+
+    def _post_attention_aux(self, layer, h: torch.Tensor,
+                            attn: torch.Tensor,
+                            generator: Optional[torch.Generator]):
+        """:meth:`_post_attention` with the FFN's aux losses (None for the
+        dense MLP; the router's for an MoE layer, ``gpt.py:286-301``)."""
         h = h + self._dropout(self._attn_out(layer, attn), generator)
-        return h + self._dropout(self._mlp(layer, self._ln(layer.ln2, h)),
-                                 generator)
+        out, aux = self._ffn(layer, self._ln(layer.ln2, h))
+        return h + self._dropout(out, generator), aux
+
+    def _layer_aux(self, layer, h: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   bias: Optional[torch.Tensor] = None):
+        q, k, v = self._pre_attention(layer, h)
+        return self._post_attention_aux(layer, h, self._attend(q, k, v, bias),
+                                        generator)
+
+    def _ffn(self, layer, x: torch.Tensor):
+        """``(out, aux)`` of the FFN half: the dense MLP (aux None), or the
+        routed experts, expert-parallel over ``moe_expert_axis`` when set."""
+        if self.cfg.moe_num_experts is None:
+            return self._mlp(layer, x), None
+        if self.cfg.moe_expert_axis is not None:
+            return layer.moe.apply_expert_parallel(x)
+        return layer.moe.apply(x)
+
+    def _serve_ffn(self, layer, x: torch.Tensor) -> torch.Tensor:
+        """The FFN half of a serving layer (``gpt.py:406-419``): the dense
+        MLP, or the routed experts at inference (aux dropped); an
+        expert-parallel build routes every token on every rank and adds
+        the local experts' shares (``MoEMLP.apply_expert_sharded``), the
+        serial function."""
+        c = self.cfg
+        if c.moe_num_experts is None:
+            return self._mlp(layer, x)
+        if c.moe_expert_axis is not None:
+            return layer.moe.apply_expert_sharded(x)
+        return layer.moe.apply(x)[0]
+
+    def aux_to_loss(self, aux) -> torch.Tensor:
+        """The linear fold of the layers' summed router losses into one
+        scalar (``gpt.py:334-340``), shared by :meth:`forward` and the
+        pipelined loss."""
+        c = self.cfg
+        return (c.moe_aux_loss_weight * aux["load_balancing_loss"]
+                + c.moe_z_loss_weight * aux["router_z_loss"]) / c.num_layers
 
     def head(self, h: torch.Tensor,
              targets: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -272,9 +334,15 @@ class GPTModel(TransformerBase):
                 "a pipeline stage model (pipeline_axis set) runs through "
                 "apex_tpu_torch.transformer.pipeline_parallel "
                 "(prepare_pipelined_model / pipelined_loss_fn)")
-        h = self.run_layers_train(self.embed(tokens), dropout_generator,
-                                  chunk_meta=layer_chunk_meta)
-        return self.head(h, targets)
+        h, aux = self.run_layers_train(self.embed(tokens), dropout_generator,
+                                       chunk_meta=layer_chunk_meta,
+                                       return_aux=True)
+        out = self.head(h, targets)
+        if aux is not None and targets is not None:
+            # the per-layer-averaged router losses added to every token's
+            # loss: a scalar added uniformly keeps the mean-loss contract
+            out = out + self.aux_to_loss(aux).to(out.dtype)
+        return out
 
     def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
              dropout_generator: Optional[torch.Generator] = None,
@@ -291,7 +359,7 @@ class GPTModel(TransformerBase):
         through :meth:`forward` / :meth:`loss`. Under SP the sequence
         shards are gathered before the head."""
         tokens = tokens.to(self.device)
-        h = self.run_layers(self.embed(tokens))
+        h, _ = self.run_layers(self.embed(tokens), return_aux=True)
         if self._sp:
             h = tp.gather_from_sequence_parallel_region(h, self.cfg.axis)
         return self.serve_head(h)
@@ -325,7 +393,7 @@ class GPTModel(TransformerBase):
             x = self._ln(layer.ln1, h)
             q, k, v = self._qkv_heads(layer, x)
             h = h + self._attn_out(layer, self._attend(q, k, v))
-            h = h + self._mlp(layer, self._ln(layer.ln2, h))
+            h = h + self._serve_ffn(layer, self._ln(layer.ln2, h))
             ks.append(k)
             vs.append(v)
         return h, torch.stack(ks), torch.stack(vs)
@@ -373,7 +441,7 @@ class GPTModel(TransformerBase):
                                 attend_lengths,
                                 window=self.cfg.attention_window)
             h = h + self._attn_out(layer, attn[:, :, None, :])
-            h = h + self._mlp(layer, self._ln(layer.ln2, h))
+            h = h + self._serve_ffn(layer, self._ln(layer.ln2, h))
         return h, k_pages, v_pages
 
     @torch.no_grad()
@@ -409,7 +477,7 @@ class GPTModel(TransformerBase):
                                       attend_lengths,
                                       window=self.cfg.attention_window)
             h = h + self._attn_out(layer, attn)
-            h = h + self._mlp(layer, self._ln(layer.ln2, h))
+            h = h + self._serve_ffn(layer, self._ln(layer.ln2, h))
         return h, k_pages, v_pages
 
     @torch.no_grad()

@@ -42,6 +42,12 @@ loop in lockstep on the same requests: the gathered logits are the same on
 every rank (``GPTModel.serve_head``), so greedy picks agree, and a sampled
 pick draws from generators seeded by (seed, slot, tick), the same on every
 rank. Sequence-parallel models are refused (``GPTModel.check_servable``).
+A model with routed experts serves serial, or expert-parallel
+(``moe_expert_axis``, ``engine.py:185-194``: it too needs ``mesh=``): the
+ranks of the expert axis run this loop in lockstep on the same requests,
+each routes every token and computes its own experts' share, and one
+``psum`` adds them (``MoEMLP.apply_expert_sharded``), so every rank holds
+the serial engine's logits.
 
 Not in this port yet (ROADMAP Queue 1 item 14): SLO windows, request traces
 (``serve/reqtrace.py``), journals and tracer spans, and a CUDA graph of
@@ -130,7 +136,7 @@ class Engine:
     ``draft_model`` (with ``spec_k``) defaults to the target itself; its
     pools have its own geometry but share the target's block tables and
     allocator, so one block id addresses both caches. ``mesh``: the
-    installed topology, required by a tensor-parallel model."""
+    installed topology, required by a tensor- or expert-parallel model."""
 
     def __init__(self, model, config: ServeConfig,
                  device: DeviceLike = None, draft_model=None, mesh=None):
@@ -143,11 +149,17 @@ class Engine:
         self.model = model
         self.mesh = mesh
         self.axis = c.axis
-        if self.axis is not None and mesh is None:
+        # expert-parallel decode: every rank routes the same tokens and
+        # adds its local experts' shares (GPTModel._serve_ffn); per-tick
+        # routing is data, not shapes
+        self.expert_axis = getattr(c, "moe_expert_axis", None)
+        if (self.axis is not None or self.expert_axis is not None) \
+                and mesh is None:
             raise ValueError(
-                "a tensor-parallel model (cfg.axis set) needs the mesh: "
-                "pass mesh= (initialize_model_parallel's), or build the "
-                "serve model serial (axis=None)")
+                "a sharded model (cfg.axis or cfg.moe_expert_axis set) "
+                "needs the mesh -- pass mesh= (initialize_model_parallel's), "
+                "or build the serve model serial (axis=None, "
+                "moe_expert_axis=None)")
         self.config = cfg = config.resolved()
         if cfg.max_seq > c.max_seq_len:
             raise ValueError(

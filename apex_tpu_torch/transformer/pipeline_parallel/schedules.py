@@ -364,17 +364,21 @@ def prepare_pipelined_model(
     :func:`pipelined_loss_fn`'s ``loss(layers_local, batch, targets)``.
     The interleaving is the model's: the stage fixed its layers' order at
     construction (``GPTConfig.virtual_pipeline_size``), so the ring reads
-    it from there and takes no other. ``with_aux`` (MoE router losses) raises: ROADMAP Queue 1 item 16."""
-    if with_aux:
-        raise NotImplementedError(
-            "prepare_pipelined_model(with_aux=True): MoE router losses come "
-            "with ROADMAP Queue 1 item 16")
+    it from there and takes no other. ``with_aux=True`` threads the
+    layers' aux losses (MoE routers) through the ring
+    (``run_layers_train(return_aux=True)``) and folds them with
+    ``model.aux_to_loss`` (``schedules.py:432-441``); an MoE model without
+    it raises, as its ``run_layers_train`` refuses to drop them."""
+    def run_layers(chunk, h):
+        return model.run_layers_train(h, layers=chunk, return_aux=with_aux)
+
     pipe_loss = pipelined_loss_fn(
         embed=model.embed,
-        run_layers=lambda chunk, h: model.run_layers_train(h, layers=chunk),
+        run_layers=run_layers,
         head_loss=lambda h, t: model.head(h, t),
         num_microbatches=num_microbatches,
-        virtual_pipeline_size=model.cfg.virtual_pipeline_size)
+        virtual_pipeline_size=model.cfg.virtual_pipeline_size,
+        aux_to_loss=model.aux_to_loss if with_aux else None)
     return model.specs(), model.layers, pipe_loss
 
 
@@ -400,9 +404,12 @@ def _pipeline_ring(run_stage: Callable, layers_local: Sequence,
                    h_mb: List[torch.Tensor], axis: str, vpp: int = 1):
     """Rotate the M microbatches ``h_mb`` through the stage ring, through
     all ``vpp`` local chunks a stage (the interleaved schedule). Returns
-    ``(out, emits_aux)``: the M completed activations, valid on the last
-    stage (zeros elsewhere, each still tied to every tick's output), and
-    whether ``run_stage`` returned an aux tree.
+    ``(out, emits_aux, aux_sum)``: the M completed activations, valid on
+    the last stage (zeros elsewhere, each still tied to every tick's
+    output), whether ``run_stage`` returned an aux tree, and the fp32 sum
+    of its aux trees over the live ticks (``schedules.py:522-567``: the
+    fill and drain ticks run on garbage activations; each (microbatch,
+    chunk) unit is live exactly once across the ring).
 
     Work-unit decode at tick ``t`` on stage ``s`` (k = t - s):
     ``j = k mod S`` (microbatch within its group of S), ``q = (k div S) mod
@@ -433,7 +440,7 @@ def _pipeline_ring(run_stage: Callable, layers_local: Sequence,
     no = torch.zeros((), dtype=torch.bool, device=dev)
     buf = torch.zeros_like(h_mb[0])
     out = [torch.zeros_like(h_mb[0]) for _ in range(M)]
-    emits_aux = False
+    emits_aux, aux_sum = False, None
     for t in range(n_ticks):
         live = bool(ring["live"][t, s_idx])
         m = int(ring["mb"][t, s_idx])
@@ -445,11 +452,15 @@ def _pipeline_ring(run_stage: Callable, layers_local: Sequence,
         h_out, aux = _stage_out(
             run_stage(layers_local[q * per:(q + 1) * per], h_in))
         emits_aux = emits_aux or aux is not None
+        if aux is not None and live:
+            aux = {k: v.float() for k, v in aux.items()}
+            aux_sum = aux if aux_sum is None else {
+                k: aux_sum[k] + aux[k] for k in aux_sum}
         finished = s_idx == S - 1 and q == vpp - 1 and live
         out[m] = torch.where(yes if finished else no, h_out, out[m])
         if t < n_ticks - 1:  # the last tick's shift is dropped by all
             buf = ring_shift(h_out, axis, 1)
-    return out, emits_aux
+    return out, emits_aux, aux_sum
 
 
 def pipelined_loss_fn(
@@ -475,10 +486,13 @@ def pipelined_loss_fn(
       axis: the pipeline mesh axis.
       virtual_pipeline_size: interleaved chunks a stage; the stage's layers
         must be in :func:`interleave_stack` order when > 1.
-      aux_to_loss: the MoE router losses' fold. A ``run_layers`` that
-        returns ``(h, aux)`` with an aux tree, or an ``aux_to_loss`` with a
-        ``run_layers`` that emits none, raises as in the reference; the
-        aux path itself comes with ROADMAP Queue 1 item 16.
+      aux_to_loss: the MoE router losses' fold: a ``run_layers`` that
+        returns ``(h, aux)`` adds ``aux_to_loss(aux summed over the live
+        ticks / M)`` to every stage's share of the loss (the per-microbatch
+        mean, the serial ``run_layers`` scale: summed over layers). A
+        ``run_layers`` that emits aux with no ``aux_to_loss``, or an
+        ``aux_to_loss`` with one that emits none, raises as in the
+        reference.
 
     The loss is the full-batch mean on every stage (the identity-backward
     psum over ``axis``); ``loss.backward()`` on every rank leaves each
@@ -497,7 +511,7 @@ def pipelined_loss_fn(
         if bsz % M:
             raise ValueError(f"batch ({bsz}) must divide by microbatches "
                              f"({M})")
-        out, emits_aux = _pipeline_ring(run_layers, layers_local,
+        out, emits_aux, aux_sum = _pipeline_ring(run_layers, layers_local,
                                         list(h.chunk(M)), axis, vpp=vpp)
         if emits_aux and aux_to_loss is None:
             raise ValueError(
@@ -511,10 +525,6 @@ def pipelined_loss_fn(
                 "either the model has no aux-emitting layers (drop "
                 "aux_to_loss) or run_layers isn't wired with "
                 "return_aux=True")
-        if emits_aux:
-            raise NotImplementedError(
-                "pipelined MoE router losses come with ROADMAP Queue 1 "
-                "item 16")
         h_full = torch.cat(out)
         last = torch.full((), s_idx == S - 1, dtype=torch.bool,
                           device=h_full.device)
@@ -532,6 +542,11 @@ def pipelined_loss_fn(
             local = torch.where(last, per_loss.mean(),
                                 torch.zeros((), dtype=per_loss.dtype,
                                             device=per_loss.device))
+        if emits_aux:
+            # stage-local aux shares ride the head loss's identity-backward
+            # psum, in fp32 (schedules.py:632-641)
+            local = local.float() + aux_to_loss(
+                {k: v / M for k, v in aux_sum.items()}).float()
         return _psum_identity_bwd(local, axis)
 
     return loss_fn

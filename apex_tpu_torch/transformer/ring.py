@@ -25,8 +25,8 @@ kernels (``apex_tpu_torch.ops.flash_attention``):
   Every rank still runs every shift of the ring.
 - :func:`ulysses_attention`: an all-to-all reshards seq-sharded heads into
   head-sharded whole sequences, ``flash_attention`` runs on those, and the
-  inverse all-to-all brings the output back (:class:`_AllToAll`, whose
-  backward is the inverse all-to-all).
+  inverse all-to-all brings the output back (``tensor_parallel.mappings.
+  all_to_all``, whose backward is the inverse all-to-all).
 
 Segment ids (``(q_seg, kv_seg)``, each rank's ``(b, s / N)`` slices) ride
 the ring with their K/V shard, mask only (``contiguous_segments=False``:
@@ -218,24 +218,6 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        pad_id, stream, window)
 
 
-class _AllToAll(torch.autograd.Function):
-    """``collectives.all_to_all`` with the inverse all-to-all as its
-    backward (``lax.all_to_all``'s transpose)."""
-
-    @staticmethod
-    def forward(ctx, x, axis, split_axis, concat_axis):
-        ctx.args = (axis, split_axis, concat_axis)
-        return collectives.all_to_all(x, axis, split_axis=split_axis,
-                                      concat_axis=concat_axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        axis, split_axis, concat_axis = ctx.args
-        return (collectives.all_to_all(g, axis, split_axis=concat_axis,
-                                       concat_axis=split_axis),
-                None, None, None)
-
-
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       axis: str = AXIS_CONTEXT, causal: bool = False,
                       scale: Optional[float] = None, segment_ids=None,
@@ -251,7 +233,8 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(
             f"ulysses_attention needs heads ({q.shape[1]}) divisible by the "
             f"'{axis}' axis size ({n})")
-    qg, kg, vg = (_AllToAll.apply(x, axis, 1, 2) for x in (q, k, v))
+    qg, kg, vg = (mappings.all_to_all(x, axis, split_axis=1, concat_axis=2)
+                  for x in (q, k, v))
     seg_g = None
     if segment_ids is not None:
         seg_g = tuple(collectives.all_gather(s.to(torch.int32), axis,
@@ -259,7 +242,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       for s in segment_ids)
     o = flash_attention(qg, kg, vg, causal=causal, scale=scale,
                            segment_ids=seg_g, pad_id=pad_id, window=window)
-    return _AllToAll.apply(o, axis, 2, 1)
+    return mappings.all_to_all(o, axis, split_axis=2, concat_axis=1)
 
 
 # ---------------------------------------------------------------------------

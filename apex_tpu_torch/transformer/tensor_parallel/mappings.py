@@ -36,6 +36,11 @@ axis:
 and ``reduce_from_tensor_model_parallel_region(x, axis="pipe")`` is the
 reference's identity-backward psum of the stage losses.
 
+:func:`all_to_all` (forward: ``lax.all_to_all(tiled=True)``; backward: the
+inverse all-to-all, its transpose) is shared by the Ulysses reshard
+(``transformer/ring.py``) and the expert-parallel dispatch and combine
+(``transformer/moe.py``).
+
 (*) ``tensor_parallel_output_grad=False`` makes the gather's backward a
 plain slice, for call sites whose cotangent is already replicated across
 the group (after a ``copy_to``), where a reduce-scatter would count it
@@ -228,6 +233,30 @@ class _ReduceScatterFirstDim(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _gather(g, ctx.axis, 0), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_axis, concat_axis):
+        ctx.args = (axis, split_axis, concat_axis)
+        return _coll.all_to_all(x, axis, split_axis=split_axis,
+                                concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, split_axis, concat_axis = ctx.args
+        return (_coll.all_to_all(g.contiguous(), axis,
+                                 split_axis=concat_axis,
+                                 concat_axis=split_axis), None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axis: str, *, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``collectives.all_to_all`` over ``axis`` (``lax.all_to_all(tiled=
+    True)``: ``split_axis`` cut into one block a rank, what arrives
+    concatenated along ``concat_axis`` in the senders' order), differentiable:
+    the backward is the inverse all-to-all (split and concat swapped)."""
+    return _AllToAll.apply(x, axis, int(split_axis), int(concat_axis))
 
 
 def ring_shift(x: torch.Tensor, axis: str, shift: int = 1) -> torch.Tensor:

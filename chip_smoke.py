@@ -367,8 +367,10 @@ them, and the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
+import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -5210,6 +5212,21 @@ GPT_345M = ["--hidden", "1024", "--layers", "24", "--heads", "16",
 #: for no known cause (:func:`pretrain_default_lr` prints it)
 PRETRAIN_345M = GPT_345M + ["--seq", "1024", "--micro-batch", "4",
                             "--num-microbatches", "2", "--lr", "1e-4"]
+
+
+def with_layers(argv, layers):
+    """``argv`` with its ``--layers`` set to ``layers``."""
+    argv = list(argv)
+    argv[argv.index("--layers") + 1] = str(layers)
+    return argv
+
+
+#: phases 14-18 run GPT-2 345M's width (and BERT-large's) at 8 layers, not
+#: 24: each holds runs of one config against each other (a parallel run
+#: against its serial twin), so both sides shrink together; the room phase
+#: 19 needs in the script's 1200 s
+RANK_LAYERS = 8
+RANKS_PRETRAIN = with_layers(PRETRAIN_345M, RANK_LAYERS)
 #: the generate example's engine at 345M
 GENERATE_345M = GPT_345M + ["--max-seq", "1024", "--max-batch", "8",
                             "--block-size", "16", "--max-new-tokens", "32"]
@@ -6855,6 +6872,23 @@ def optimizers_and_legacy(torch, ops, dev):
     return counts
 
 
+#: each phase's seconds, start to the next phase's start (main's run)
+PHASE_S = {}
+_PHASE_AT = []
+
+
+def phase_start(n, title):
+    """Print phase ``n``'s title and close the previous phase's clock
+    (``n`` None closes the last)."""
+    now = time.perf_counter()
+    if _PHASE_AT:
+        k, t = _PHASE_AT.pop()
+        PHASE_S[k] = now - t
+    if n is not None:
+        print(f"phase {n}: {title}")
+        _PHASE_AT.append((n, now))
+
+
 def main():
     import torch
 
@@ -6869,7 +6903,7 @@ def main():
     smi = nvidia_smi()
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    print("phase 1: build")
+    phase_start(1, "build")
     t0 = time.perf_counter()
     build.load()
     print(f"  kernels built in {time.perf_counter() - t0:.2f} s "
@@ -6880,7 +6914,7 @@ def main():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("   ", line.rstrip())
 
-    print("phase 2: kernels against their plain versions")
+    phase_start(2, "kernels against their plain versions")
     rows = [check_layer_norm(torch, ops, dev),
             check_layer_norm_bwd(torch, ops, dev),
             check_flash_attention(torch, ops, dev),
@@ -6905,7 +6939,7 @@ def main():
             row.setdefault("by_shape", {}).update(ring_times[row["name"]])
     torch.cuda.empty_cache()
 
-    print("phase 3: serving")
+    phase_start(3, "serving")
     greedy_gate(torch, dev)
     feature_gates(torch, ops, dev)
     serve_counts, model, mono = serve_345m(torch, ops, dev)
@@ -6914,81 +6948,90 @@ def main():
     del model
     torch.cuda.empty_cache()
 
-    print("phase 4: training")
+    phase_start(4, "training")
     gradient_gate(torch, ops, dev)
     train_counts = train_345m(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 5: ResNet-50 training")
+    phase_start(5, "ResNet-50 training")
     resnet_gradient_gate(torch, ops, dev)
     resnet_counts = train_resnet50(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 6: long-context training")
+    phase_start(6, "long-context training")
     long_context_gradient_gate(torch, ops, dev)
     long_counts = train_long_context(torch, ops, dev, 8192, None, "learned")
     window_counts = train_long_context(torch, ops, dev, 16384, 4096, "rope")
     torch.cuda.empty_cache()
 
-    print("phase 7: fused softmax and the small layers")
+    phase_start(7, "fused softmax and the small layers")
     softmax_counts = fused_softmax_and_small_layers(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 8: BERT-large pretraining with FusedLAMB")
+    phase_start(8, "BERT-large pretraining with FusedLAMB")
     bert_gradient_gate(torch, ops, dev)
     bert_counts = train_bert_large(torch, ops, dev)
     optimizer_step_line(torch, dev)
     torch.cuda.empty_cache()
 
-    print("phase 9: packed varlen attention (contrib.fmha) at BERT-large "
+    phase_start(9, "packed varlen attention (contrib.fmha) at BERT-large "
           "width")
     fmha_counts, fmha_rows = fmha_packed(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 10: the GPT examples (pretrain_gpt -> checkpoint -> resume "
+    phase_start(10, "the GPT examples (pretrain_gpt -> checkpoint -> resume "
           "-> generate_gpt) at GPT-2 345M")
     gpt_counts, fp32_rows = gpt_examples(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 11: the root bench.py harness (python -m "
+    phase_start(11, "the root bench.py harness (python -m "
           "apex_tpu_torch.bench), the DCGAN example, the native runtime")
     gpt_counts["bench"] = bench_harness(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 12: the convergence probe, the rest of the optimizers and "
+    phase_start(12, "the convergence probe, the rest of the optimizers and "
           "the legacy APIs")
     gpt_counts["probe"] = optimizers_and_legacy(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 13: contrib (fused multi-head attention, ResNet50Frozen, "
+    phase_start(13, "contrib (fused multi-head attention, ResNet50Frozen, "
           "the RNN-T transducer, ASP 2:4 sparsity)")
     gpt_counts["contrib"] = contrib_phase(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 14: data parallel (NCCL at world size 1; two gloo ranks "
+    phase_start(14, "data parallel (NCCL at world size 1; two gloo ranks "
           "on the card)")
     gpt_counts["dp"] = dp_phase(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 15: tensor parallel (NCCL at world size 1; two gloo ranks "
+    phase_start(15, "tensor parallel (NCCL at world size 1; two gloo ranks "
           "on the card)")
     gpt_counts["tp"], heads8 = tp_phase(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 16: ZeRO 1/2/3, the quantized wires and host offload (NCCL "
+    phase_start(16, "ZeRO 1/2/3, the quantized wires and host offload (NCCL "
           "at world size 1; two gloo ranks on the card)")
     gpt_counts["zero"] = zero_phase(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 17: pipeline parallel (NCCL at world size 1; two gloo "
+    phase_start(17, "pipeline parallel (NCCL at world size 1; two gloo "
           "ranks on the card)")
     gpt_counts["pp"] = pp_phase(torch, ops, dev)
     torch.cuda.empty_cache()
 
-    print("phase 18: context parallel (NCCL at world size 1; two gloo "
+    phase_start(18, "context parallel (NCCL at world size 1; two gloo "
           "ranks on the card)")
     gpt_counts["cp"] = cp_phase(torch, ops, dev)
     torch.cuda.empty_cache()
+
+    phase_start(19, "mixture of experts (routed-expert FFNs: 345M-MoE "
+                "training and serving; expert parallelism at NCCL world size "
+                "1 and over two gloo ranks on the card)")
+    gpt_counts["moe"] = moe_phase(torch, ops, dev)
+    torch.cuda.empty_cache()
+    phase_start(None, None)
+    print("phase seconds: " + json.dumps(
+        {str(k): round(v, 1) for k, v in PHASE_S.items()}))
     for row in rows:
         if row["name"] in fp32_rows:
             row.setdefault("by_shape", {}).update(fp32_rows[row["name"]])
@@ -7919,9 +7962,11 @@ def contrib_main():
 
 #: (b)'s 345M run: each of 2 ranks takes 2 micro-batches of 4 of a 16-row
 #: global batch; the serial reference takes all 16 as 4 micro-batches of 4
-DP_345M = GPT_345M + ["--seq", "1024", "--micro-batch", "4",
+DP_345M = with_layers(GPT_345M, RANK_LAYERS) + [
+    "--seq", "1024", "--micro-batch", "4",
                       "--num-microbatches", "2", "--lr", "1e-4"]
-SERIAL_16 = GPT_345M + ["--seq", "1024", "--micro-batch", "4",
+SERIAL_16 = with_layers(GPT_345M, RANK_LAYERS) + [
+    "--seq", "1024", "--micro-batch", "4",
                         "--num-microbatches", "4", "--lr", "1e-4"]
 #: ResNet-50 at 64 x 224^2: (a) O2, --sync-bn at world 1 against local BN;
 #: (b) in fp32 (O0), 2 x 32 a rank against 64 serial, so that the check
@@ -7930,7 +7975,8 @@ SERIAL_16 = GPT_345M + ["--seq", "1024", "--micro-batch", "4",
 DP_RESNET = dict(arch="resnet50", opt_level="O2", batch_size=64,
                  image_size=224, num_classes=1000, seed=0)
 DP_RESNET_B = dict(DP_RESNET, opt_level="O0")
-DP_LONG = dict(seq=8192, hidden=1024, layers=24, heads=16, vocab=50304,
+DP_LONG = dict(seq=8192, hidden=1024, layers=RANK_LAYERS, heads=16,
+               vocab=50304,
                batch=2, lm_head_chunks=8, seed=0)
 DP_STEPS = 2
 #: limits of (b): losses relative; grads by share of max |ref| and by row
@@ -7981,14 +8027,15 @@ def capture_grads(torch, trainer, into):
 
 
 def pretrain_steps(torch, ops, argv, steps, snap=False, axis=None,
-                   snap_to=None, hook=None, **config):
+                   snap_to=None, hook=None, fixed=False, **config):
     """``pretrain_gpt.build`` from ``argv`` on the stream's first ``steps``
     batches: (bench, losses, each step's params when ``snap``, first
     step's grads, launches). ``axis="model"`` builds on the model axis at
     the argv's ``--tp`` (1 too); ``config`` (``sequence_parallel``,
     ``compute_dtype``) goes into the example's config, which has no flag
     for them. ``snap_to`` puts the snapshots on that device; ``hook(bench)``
-    runs after the build."""
+    runs after the build; ``fixed`` takes the stream's first batch at every
+    step."""
     from apex_tpu_torch.examples.gpt import pretrain_gpt
 
     args = pretrain_gpt.parse_args(argv)
@@ -8006,7 +8053,10 @@ def pretrain_steps(torch, ops, argv, steps, snap=False, axis=None,
             zero_gather=args.zero_gather, reduce_dtype=args.reduce_dtype,
             zero3_prefetch=args.zero3_prefetch,
             offload=args.offload_optimizer,
-            offload_buckets=args.offload_buckets, device=args.device)
+            offload_buckets=args.offload_buckets,
+            moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
+            moe_capacity_factor=args.moe_capacity_factor,
+            moe_dispatch_dtype=args.moe_dispatch_dtype, device=args.device)
     finally:
         pretrain_gpt.GPTConfig = real
     grads, losses, snaps = [], [], []
@@ -8014,6 +8064,9 @@ def pretrain_steps(torch, ops, argv, steps, snap=False, axis=None,
     if hook is not None:
         hook(bench)
     batches = pretrain_gpt.batches(args, bench.batch)
+    if fixed:
+        first = next(batches)
+        batches = iter(lambda: first, None)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     for _ in range(steps):
@@ -8222,12 +8275,12 @@ def _dp_rank(rank, world, port, ref_dir, out_path):
 
 def dp_world1(torch, ops, dev, total):
     """(a): NCCL at world size 1 in this process. ``pretrain_gpt``'s DP
-    branch at 345M (PRETRAIN_345M), 3 O2 steps, bit for bit the serial
+    branch at 345M (RANKS_PRETRAIN), 3 O2 steps, bit for bit the serial
     run's losses and params after every step; ``main_amp --sync-bn``
     (ResNet-50, 64 x 224^2, 3 steps) against the serial local-BN run."""
     from apex_tpu_torch.parallel import multiproc
 
-    _, slosses, ssnaps, _, _ = pretrain_steps(torch, ops, PRETRAIN_345M, 3,
+    _, slosses, ssnaps, _, _ = pretrain_steps(torch, ops, RANKS_PRETRAIN, 3,
                                               snap=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -8241,7 +8294,7 @@ def dp_world1(torch, ops, dev, total):
     backend = dist.get_backend()
     try:
         bench, losses, snaps, _, counts = pretrain_steps(
-            torch, ops, PRETRAIN_345M, 3, snap=True)
+            torch, ops, RANKS_PRETRAIN, 3, snap=True)
         L = bench.cfg.num_layers
         check_counts(counts, expected_counts(counts, 3, pretrain_per_step(
             L, 2)), "dp")
@@ -8473,17 +8526,18 @@ def dp_main():
 #: (b)'s GPT runs: ``pretrain_gpt --tp 2`` at config 4 (8 x 1024 as 2
 #: micro-batches of 4, O2, FusedAdam, full remat), the serial run on the
 #: same 8 rows as its reference
-TP_345M = PRETRAIN_345M + ["--tp", "2"]
+TP_345M = RANKS_PRETRAIN + ["--tp", "2"]
 #: 2 steps (and BERT's 1): the room phase 18 needs in the time limit
 TP_STEPS = 2
 #: (b)'s BERT-large: 8 x 512, O2, FusedLAMB; the padding bias from row i's
 #: length 512 - 37 i
-BERT_TP = dict(hidden=1024, layers=24, heads=16, seq=512, batch=8)
+BERT_TP = dict(hidden=1024, layers=RANK_LAYERS, heads=16, seq=512, batch=8)
 BERT_TP_STEPS = 1
 #: (b)'s serving: ``generate_gpt`` at 345M fp32 (random weights, seed 0)
 #: on prompts behind a 500-token shared prefix, monolithic, then with the
 #: prefix cache and spec_k 4; the serial reference monolithic
-GENERATE_SHARED = GENERATE_345M + ["--shared-prefix", "500"]
+GENERATE_SHARED = with_layers(GENERATE_345M, RANK_LAYERS) + [
+    "--shared-prefix", "500"]
 GENERATE_TP = GENERATE_SHARED + ["--tp", "2"]
 GENERATE_TP_SPEC = ["--prefix-cache", "--spec-k", "4"]
 #: limits of (b), phase 14's: losses relative; step-1 grads by share of
@@ -8846,7 +8900,7 @@ def tp_world1(torch, ops, dev, total):
     from apex_tpu_torch.parallel import multiproc
 
     _, slosses, ssnaps, sgrads, _ = pretrain_steps(
-        torch, ops, PRETRAIN_345M, TP_STEPS, snap=True)
+        torch, ops, RANKS_PRETRAIN, TP_STEPS, snap=True)
     sgrads = [g.cpu() for g in sgrads]
     gc.collect()
     torch.cuda.empty_cache()
@@ -8857,7 +8911,7 @@ def tp_world1(torch, ops, dev, total):
     backend = dist.get_backend()
     try:
         bench, losses, snaps, _, counts = pretrain_steps(
-            torch, ops, PRETRAIN_345M, TP_STEPS, snap=True, axis="model")
+            torch, ops, RANKS_PRETRAIN, TP_STEPS, snap=True, axis="model")
         check(bench.cfg.axis == "model", "(a) built on the model axis")
         L = bench.cfg.num_layers
         check_counts(counts, expected_counts(counts, TP_STEPS,
@@ -8920,7 +8974,7 @@ def tp_two_ranks(torch, ops, dev, total, smi, slosses, sgrads, ref_dir,
     # (the fp32-compute twins' references too)
     floor = {}
     _, _, _, fgrads, _ = pretrain_steps(
-        torch, ops, PRETRAIN_345M, 1, compute_dtype=torch.float32)
+        torch, ops, RANKS_PRETRAIN, 1, compute_dtype=torch.float32)
     gpt_f32 = [f.cpu() for f in fgrads]
     floor["gpt"] = [l2_err(f, g) for f, g in zip(gpt_f32, sgrads)]
     _, _, fgrads, _ = bert_tp_steps(torch, ops, bert_batch, steps=1,
@@ -8969,7 +9023,7 @@ def tp_two_ranks(torch, ops, dev, total, smi, slosses, sgrads, ref_dir,
 
     # the tp 2 checkpoint resumed serial: its first loss (batch 0)
     t0 = time.perf_counter()
-    resumed = pretrain_gpt.run(PRETRAIN_345M + [
+    resumed = pretrain_gpt.run(RANKS_PRETRAIN + [
         "--save-dir", os.path.join(ref_dir, "ckpt"), "--steps", "1",
         "--save-every", "1000000"])
     check(resumed["start"] == TP_STEPS, "resumed at the tp 2 save's step")
@@ -9143,7 +9197,7 @@ def tp_main():
 
 #: 2 steps: the room phase 18 needs in the script's time limit
 ZERO_STEPS = 2
-#: (a)'s variants of PRETRAIN_345M at world size 1, each bit for bit the
+#: (a)'s variants of RANKS_PRETRAIN at world size 1, each bit for bit the
 #: serial run: at n = 1 the scatter and the gather are identities and Adam
 #: is elementwise on the chunks
 ZERO_WORLD1 = (
@@ -9306,12 +9360,12 @@ def zero_bench_legs(torch, ops):
 
 def zero_world1(torch, ops, dev, total, smi):
     """(a): NCCL at world size 1 in this process: ``pretrain_gpt --zero*``
-    at 345M (PRETRAIN_345M), each variant of :data:`ZERO_WORLD1` 3 O2
+    at 345M (RANKS_PRETRAIN), each variant of :data:`ZERO_WORLD1` 3 O2
     steps, its losses and params after every step bit for bit the serial
     run's; then ``BENCH_ZERO=1``'s step against the bench's."""
     from apex_tpu_torch.parallel import multiproc
 
-    _, slosses, ssnaps, _, _ = pretrain_steps(torch, ops, PRETRAIN_345M,
+    _, slosses, ssnaps, _, _ = pretrain_steps(torch, ops, RANKS_PRETRAIN,
                                               ZERO_STEPS, snap=True)
     check(multiproc.initialize_distributed(
         f"127.0.0.1:{free_port()}", 1, 0), "NCCL world 1 initialized")
@@ -9323,7 +9377,7 @@ def zero_world1(torch, ops, dev, total, smi):
         for label, flags in ZERO_WORLD1:
             t0 = time.perf_counter()
             bench, losses, snaps, counts, peak, _ = zero_steps(
-                torch, ops, PRETRAIN_345M + flags, ZERO_STEPS)
+                torch, ops, RANKS_PRETRAIN + flags, ZERO_STEPS)
             L = bench.cfg.num_layers
             check_counts(counts, expected_counts(
                 counts, ZERO_STEPS, pretrain_per_step(L, 2)), "zero")
@@ -9705,7 +9759,8 @@ def zero_main():
 PP_STEPS = 3
 #: BASELINE config 4 as 4 micro-batches of 2 (8 x 1024 a step): the serial
 #: run, (a)'s world-1 run and (b)'s reference; (b) adds ``--pp 2``
-PP_SERIAL = GPT_345M + ["--seq", "1024", "--micro-batch", "2",
+PP_SERIAL = with_layers(GPT_345M, RANK_LAYERS) + [
+    "--seq", "1024", "--micro-batch", "2",
                         "--num-microbatches", "4", "--lr", "1e-4"]
 PP_345M = PP_SERIAL + ["--pp", "2"]
 #: (label, flags, steps): gpipe and 1f1b both run the autograd ring in
@@ -10185,7 +10240,8 @@ def pp_main():
 CP_STEPS = 3
 #: phase 6's configuration: GPT-2 345M at full width and depth, one row of
 #: 8192 tokens, the chunked LM-head CE, O2; 4096 tokens a rank at cp 2
-CP_LONG = dict(seq=8192, hidden=1024, layers=24, heads=16, vocab=50304,
+CP_LONG = dict(seq=8192, hidden=1024, layers=RANK_LAYERS, heads=16,
+               vocab=50304,
                batch=1, lm_head_chunks=8, seed=0)
 #: phase 6's second configuration: RoPE and a window of 4096 at 16384
 #: tokens, the window crossing the shard boundary at cp 2
@@ -10772,6 +10828,633 @@ def cp_main():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 19: mixture of experts (routed-expert FFNs; expert parallelism over
+# the data axis: NCCL at world size 1, two gloo ranks on the card; serving)
+# ---------------------------------------------------------------------------
+
+#: GPT-2 345M-MoE: phase 10's pretrain argv with 8 experts in every layer,
+#: top-2 at capacity factor 1.25 (the MoE example's defaults): vocab 50304,
+#: hidden 1024, 24 layers, 16 heads, seq 1024, O2, FusedAdam, full remat
+MOE_345M = PRETRAIN_345M + ["--moe-experts", "8"]
+MOE_STEPS = 4
+#: (d): NCCL at world size 1, the experts on the data axis of 1
+MOE_WORLD1_STEPS = 2
+#: (e): two gloo ranks, ep 2: 2 rows a micro-batch a rank, (b)'s global
+#: batch of 8 rows (argparse keeps the last --micro-batch)
+MOE_EP_345M = MOE_345M + ["--micro-batch", "2"]
+MOE_EP_STEPS = 2
+#: (e)'s wire, ZeRO and pipeline cases: 345M-MoE width at 4 layers
+MOE_LAYERS = 4
+MOE_SMALL_STEPS = 2
+#: (a)'s gradient gate and (c)'s greedy gate: a small MoE GPT in fp32
+MOE_GATE = dict(vocab_size=1024, hidden_size=256, num_layers=2,
+                num_attention_heads=4, max_seq_len=256, hidden_dropout=0.0,
+                moe_num_experts=8)
+#: (c)'s and (e)'s engines: GPT-2 345M's width (the config's defaults)
+MOE_SERVE = {}
+MOE_GATE_CASES = (("top-1", dict(moe_top_k=1)),
+                  ("top-2", dict(moe_top_k=2)),
+                  ("top-2 congested (cf 0.5)",
+                   dict(moe_top_k=2, moe_capacity_factor=0.5)))
+#: limits: (a) phase 4's gate (loss 1e-5 relative, each grad 1e-4 of its
+#: max |CPU grad|), the dropped fraction equal; (e) the losses against
+#: the serial run at the same global batch by phase 14's relative limit
+#: (the EP run caps capacity per rank and groups a micro-batch's router
+#: statistics over both ranks' rows, the serial run over its own: the
+#: reference's documented divergence), the 1-byte wires within phase 16's
+#: band of the exact wire, ZeRO-2 against the replicated optimizer by
+#: phase 16's limits, pp 2 against serial by phase 17's
+MOE_LOSS_REL = DP_LOSS_REL
+
+
+def moe_gradient_gate(torch, ops, dev):
+    """(a): the small MoE GPT in fp32 on the card through the kernels and
+    on the CPU through the plain versions, top-1, top-2 and top-2 under
+    congestion (tokens dropped): the loss, every grad (the router's and the
+    experts' included) and the dropped fraction; then two calls of one
+    ``MoEMLP`` on the card bit for bit equal."""
+    import numpy as np
+
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+
+    group = "MoE (a) fp32 gradient gate"
+    for label, over in MOE_GATE_CASES:
+        cfg = GPTConfig(compute_dtype=torch.float32, **MOE_GATE, **over)
+        card = GPTModel(cfg, device=dev, seed=7)
+        host = GPTModel(cfg, device="cpu", seed=7)
+        host.load_state_dict({k: v.cpu()
+                              for k, v in card.state_dict().items()})
+        rng = np.random.default_rng(7)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
+        targets = torch.roll(tokens, -1, dims=-1)
+        ops.reset_launch_counts()
+        loss_c = card.loss(tokens.to(dev), targets.to(dev))
+        loss_c.backward()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        loss_h = host.loss(tokens, targets)
+        loss_h.backward()
+        with torch.no_grad():
+            drop_c = float(card.run_layers(card.embed(tokens.to(dev)),
+                                           return_aux=True)[1][
+                "dropped_fraction"])
+            drop_h = float(host.run_layers(host.embed(tokens),
+                                           return_aux=True)[1][
+                "dropped_fraction"])
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv", "layer_norm_fwd",
+                     "layer_norm_bwd"):
+            check(counts[name] > 0, f"MoE gate {label} never launched {name}")
+        lc, lh = float(loss_c.detach()), float(loss_h.detach())
+        rel = abs(lc - lh) / abs(lh)
+        worst, router = (0.0, ""), 0.0
+        for (name, pc), ph in zip(card.named_parameters(),
+                                  host.parameters()):
+            check(pc.grad is not None and ph.grad is not None,
+                  f"MoE gate {label}: no grad for {name}")
+            e = rel_err(pc.grad.cpu(), ph.grad)
+            worst = max(worst, (e, name))
+            if "router" in name:
+                router = max(router, e)
+        print(f"  (a) fp32 MoE gate {label}: loss card {lc:.7f} cpu "
+              f"{lh:.7f} (rel {rel:.3g}); dropped fraction (summed over "
+              f"the layers) card {drop_c} cpu {drop_h}; worst grad "
+              f"{worst[0]:.3g} ({worst[1]}), "
+              f"router {router:.3g}; launches {counts}")
+        verdict(f"MoE gate {label} loss", rel, 1e-5, group=group)
+        verdict(f"MoE gate {label} worst grad ({worst[1]})", worst[0], 1e-4,
+                group=group)
+        verdict(f"MoE gate {label} dropped fraction card vs cpu",
+                abs(drop_c - drop_h), 0, group=group)
+        if "congested" in label:
+            check(drop_c > 0, "the congested gate drops tokens")
+            moe = card.layers[0].moe
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(3)
+            x = torch.randn(512, cfg.hidden_size, device=dev, generator=gen)
+            with torch.no_grad():
+                a, aux_a = moe.apply(x)
+                b, aux_b = moe.apply(x)
+            same = bool(torch.equal(a, b)) and all(
+                torch.equal(aux_a[k], aux_b[k]) for k in aux_a)
+            print(f"  (a) two calls of MoEMLP on the card (512 tokens, "
+                  f"dropped {float(aux_a['dropped_fraction']):.4f}): "
+                  f"bit-identical {same}")
+            verdict("MoE MoEMLP two calls on the card bit-identical",
+                    0 if same else 1, 0, group=group)
+        del card, host
+
+
+def moe_aux_hook(into):
+    """A ``pretrain_steps`` hook recording every router-aux fold of the
+    model (one a micro-batch) as floats."""
+    def hook(bench):
+        real = bench.model.aux_to_loss
+
+        def record(aux):
+            into.append({k: float(v.detach()) for k, v in aux.items()})
+            return real(aux)
+
+        bench.model.aux_to_loss = record
+    return hook
+
+
+def moe_345m(torch, ops, dev, total):
+    """(b): ``pretrain_gpt --moe-experts 8`` at 345M width and depth, O2,
+    :data:`MOE_STEPS` steps on the example stream's first batch (one batch:
+    a fall over a few steps is not lost in the batches' spread): the
+    losses fall, no
+    step skipped, the launches exact by the dense schedule (MoE adds no
+    kernel), the router losses and dropped fraction, the step ms (one more
+    step, untraced), the peak memory and the device's idle share (one
+    traced step: its kernels' device time over the untraced step's
+    wall time). Returns the losses and the params' fingerprints after each
+    step ((d)'s reference)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.examples.gpt import pretrain_gpt
+
+    aux = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bench, losses, snaps, _, counts = pretrain_steps(
+        torch, ops, MOE_345M, MOE_STEPS, snap=True, snap_to="cpu",
+        hook=moe_aux_hook(aux), fixed=True)
+    fps = [param_fingerprint(torch, s) for s in snaps]
+    del snaps
+    c = bench.cfg
+    n_params = sum(p.numel() for p in bench.model.parameters())
+    L, M = c.num_layers, 2
+    check(c.moe_num_experts == 8 and c.moe_top_k == 2
+          and c.moe_capacity_factor == 1.25 and c.moe_expert_axis is None,
+          "(b) 345M-MoE: 8 experts top-2 cf 1.25, serial")
+    check_counts(counts, expected_counts(counts, MOE_STEPS,
+                                         pretrain_per_step(L, M)), "moe")
+    total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+    args = pretrain_gpt.parse_args(MOE_345M)
+    batch = next(pretrain_gpt.batches(args, bench.batch))
+    batch = tuple(t.to(dev) for t in batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = bench.step(*batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    idle = "not measured"
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bench.step(*batch)
+            torch.cuda.synchronize()
+        busy = sum(t for _, t in device_time_by_kernel(torch,
+                                                       prof).values()) / 1e3
+        if busy > 0:
+            idle = f"{1 - busy / step_ms:.3f} ({busy:.1f} ms of kernels)"
+    except Exception as e:  # noqa: BLE001 - the profiler is reported only
+        idle = f"not measured ({type(e).__name__})"
+    lb = [a["load_balancing_loss"] / L for a in aux[:MOE_STEPS * M]]
+    z = [a["router_z_loss"] / L for a in aux[:MOE_STEPS * M]]
+    drop = [a["dropped_fraction"] / L for a in aux[:MOE_STEPS * M]]
+    tokens = bench.batch * c.max_seq_len
+    print(f"  (b) pretrain_gpt --moe-experts 8 (345M-MoE: {n_params / 1e9:.3f}"
+          f" B params, top-2, cf 1.25, O2, full remat), {MOE_STEPS} steps of "
+          f"{bench.batch} x 1024 as 2 micro-batches: losses {losses}; per "
+          f"micro-batch the mean per layer of the load-balancing loss "
+          f"{[round(v, 4) for v in lb]}, the z-loss "
+          f"{[round(v, 3) for v in z]}, the dropped fraction "
+          f"{[round(v, 4) for v in drop]}; step {step_ms:.1f} ms "
+          f"({tokens / step_ms * 1e3:.0f} tokens/s), peak "
+          f"{peak:.2f} GiB, device idle share {idle}; launches {counts}")
+    check(not m["found_inf"], "the timed 345M-MoE step not skipped")
+    check(all(math.isfinite(v) for v in losses + lb + z), "(b) finite")
+    verdict("MoE (b) 345M-MoE loss falls (last - first)",
+            0 if losses[-1] < losses[0] else losses[-1] - losses[0], 0,
+            group="MoE (b) 345M-MoE training")
+    del bench, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, fps
+
+
+def moe_world1(torch, ops, dev, total, slosses, sfps):
+    """(d): NCCL at world size 1: the 345M-MoE run with its experts on the
+    data axis (size 1), so the dispatch and combine are all-to-alls over
+    NCCL and the expert grads reduce by spec, :data:`MOE_WORLD1_STEPS`
+    steps: losses and params after each step bit for bit (b)'s."""
+    from apex_tpu_torch.parallel import multiproc
+
+    check(multiproc.initialize_distributed(
+        f"127.0.0.1:{free_port()}", 1, 0), "NCCL world 1 initialized")
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    try:
+        bench, losses, snaps, _, counts = pretrain_steps(
+            torch, ops, MOE_345M, MOE_WORLD1_STEPS, snap=True,
+            snap_to="cpu", fixed=True, moe_expert_axis="data")
+        check(bench.cfg.moe_expert_axis == "data", "(d) experts on data")
+        L = bench.cfg.num_layers
+        check_counts(counts, expected_counts(
+            counts, MOE_WORLD1_STEPS, pretrain_per_step(L, 2)), "moe")
+        total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+        same = [losses == slosses[:MOE_WORLD1_STEPS]] + [
+            bool(torch.equal(param_fingerprint(torch, s), f))
+            for s, f in zip(snaps, sfps)]
+        print(f"  (d) 345M-MoE with its experts on the data axis over "
+              f"{backend} (world size 1), {MOE_WORLD1_STEPS} steps: losses "
+              f"{losses} (serial {slosses[:MOE_WORLD1_STEPS]}); losses and "
+              f"params after each step bit-identical to (b): {same}")
+        verdict("MoE (d) EP at world 1 bit for bit the serial run",
+                0 if all(same) else 1, 0, group="MoE (d) NCCL world 1")
+        del bench, snaps
+    finally:
+        multiproc.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_serving(torch, ops, dev, total):
+    """(c): the small fp32 MoE engine's greedy tokens against the
+    full-context argmax (at a capacity that drops nothing); then 16 requests at 345M-MoE width (phase 3's mix:
+    64-768-token prompts, 64 new tokens, 8 slots): the launches exact,
+    the output checks of phase 3, no page left."""
+    import numpy as np
+
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.serve import Engine, Request, ServeConfig
+
+    # capacity factor E / k: C = ceil(k N cf / E) = N tokens, so no call
+    # drops a token and each token's output is its own (the engine routes
+    # a prefill's, a decode tick's slots' tokens together, the full-context
+    # forward the whole sequence's: with drops the two would differ)
+    small = GPTModel(GPTConfig(compute_dtype=torch.float32, remat=False,
+                               **dict(MOE_GATE, moe_top_k=2,
+                                      moe_capacity_factor=8 / 2)),
+                     device=dev, seed=5)
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=list(rng.integers(0, 1024, n)),
+                    max_new_tokens=m, request_id=i)
+            for i, (n, m) in enumerate(((5, 16), (60, 12), (17, 20),
+                                        (33, 9), (1, 16), (100, 24)))]
+    eng = Engine(small, ServeConfig(max_batch=4, max_seq=128, block_size=16),
+                 device=dev)
+    res = eng.run(reqs)
+    checked = check_greedy(torch, small, res, "MoE gate")
+    check(len(res) == len(reqs) and eng.allocator.used == 0,
+          "MoE gate drain")
+    print(f"  (c) fp32 MoE greedy gate: {len(res)} requests, {checked} "
+          f"generated tokens equal the full-context argmax")
+    del small, eng
+    cfg = GPTConfig(moe_num_experts=8, **MOE_SERVE)  # 345M-MoE, top-2
+    model = GPTModel(cfg, device=dev, seed=0)
+    eng = Engine(model, ServeConfig(max_batch=8, max_seq=1024,
+                                    block_size=16), device=dev)
+    eng.run([Request(prompt=list(range(64)), max_new_tokens=4,
+                     request_id="warmup")])
+    reqs = mix_345m(cfg)
+    p0, d0 = eng.prefills, eng.decode_steps
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    prefills, ticks = eng.prefills - p0, eng.decode_steps - d0
+    L = cfg.num_layers
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"flash_attention_fwd": L * prefills,
+                     "flash_decode": L * ticks,
+                     "layer_norm_fwd": (2 * L + 1) * (prefills + ticks)})
+    check(prefills == len(reqs), "MoE serve: one prefill per request")
+    check_counts(counts, expected, "moe")
+    total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+    check_moe_serve_output(torch, model, eng, res, reqs)
+    check(eng.allocator.used == 0, "MoE serve: every page freed")
+    m = latency(res, wall)
+    print(f"  (c) 345M-MoE serve: {len(res)} requests, {prefills} prefills, "
+          f"{ticks} decode ticks, {m['tokens']} tokens in {wall:.3f} s = "
+          f"{m['tokens_s']:.1f} tokens/s, TTFT p50 {m['ttft_ms']:.2f} ms, "
+          f"ITL p50 {m['itl_ms']:.2f} ms; launches {counts}")
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_moe_serve_output(torch, model, eng, res, reqs, new=64):
+    """Phase 3's output checks for an MoE engine: every request got its
+    tokens, in range; one request's first token is in the top 5 (bf16) of
+    a full forward over what its prefill routed -- the prompt padded to
+    ``prefill_len`` -- since an MoE layer's capacity drops depend on the
+    tokens routed together (a forward over prompt + generated tokens
+    drops others and moves near-tied logits past the top 5)."""
+    vocab = model.cfg.vocab_size
+    check(len(res) == len(reqs) and all(len(r.tokens) == new
+                                        for r in res.values()),
+          "MoE serve: every request got its tokens")
+    check(all(0 <= t < vocab for r in res.values() for t in r.tokens),
+          "MoE serve: token range")
+    r = res[reqs[3].request_id]
+    plen = len(r.prompt)
+    seq = list(r.prompt) + [0] * (eng.config.prefill_len - plen)
+    logits = model.apply(torch.tensor([seq], device=model.device))[0].float()
+    check(bool(torch.isfinite(logits).all()), "345M-MoE logits finite")
+    top5 = torch.topk(logits[plen - 1], 5).indices.tolist()
+    check(r.tokens[0] in top5, "345M-MoE first token in the top 5 of the "
+          "forward over its padded prompt")
+
+
+def moe_small_argv(flags=(), layers=MOE_LAYERS):
+    return zero_argv(MOE_EP_345M, flags, layers)
+
+
+def _moe_rank(rank, world, port, ref_dir, out_path):
+    """One gloo rank of phase 19 (e) on the card: ep 2 at full width and
+    depth, then at 4 layers the exact, int8 and e5m2 wires, ``--zero``
+    (level 2) and ``--pp 2``, then the EP engine against the serial
+    engine; the results go back to the parent in ``out_path``."""
+    import pickle
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    res = {"rank": rank, "counts": []}
+    try:
+        from apex_tpu_torch import ops
+        from apex_tpu_torch.models import GPTConfig, GPTModel
+        from apex_tpu_torch.parallel import mesh, multiproc
+        from apex_tpu_torch.serve import Engine, Request, ServeConfig
+
+        multiproc.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                         backend="gloo", timeout_s=600)
+        dev = torch.device("cuda", 0)
+        mesh.initialize_model_parallel()
+        ref = wait_for_references(torch, ref_dir)
+        # 1. ep 2 at 345M-MoE width and depth
+        aux = []
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bench, losses, _, _, counts = pretrain_steps(
+            torch, ops, MOE_EP_345M, MOE_EP_STEPS, hook=moe_aux_hook(aux),
+            fixed=True)
+        c = bench.cfg
+        res["full"] = {
+            "losses": losses, "s": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "axis": c.moe_expert_axis, "batch": bench.batch,
+            "experts_here": bench.model.layers[0].moe.fc1.kernel.shape[0],
+            "dropped": [a["dropped_fraction"] / c.num_layers for a in aux]}
+        res["counts"].append(("ep 2 345M-MoE", MOE_EP_STEPS, counts,
+                              pretrain_per_step(c.num_layers, 2)))
+        del bench
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 2. the 4-layer cases
+        lr = float(MOE_345M[MOE_345M.index("--lr") + 1])
+        base = None
+        for label, flags in (("exact", ()),
+                             ("int8", ("--moe-dispatch-dtype", "int8")),
+                             ("e5m2", ("--moe-dispatch-dtype", "e5m2")),
+                             ("zero", ("--zero-level", "2")),
+                             ("pp 2", ("--pp", "2", "--micro-batch", "4"))):
+            if label == "pp 2":
+                mesh.destroy_model_parallel()
+            bench, losses, snaps, _, counts = pretrain_steps(
+                torch, ops, moe_small_argv(flags), MOE_SMALL_STEPS,
+                snap=label in ("exact", "zero"), snap_to="cpu", fixed=True)
+            c = bench.cfg
+            x = {"losses": losses, "axis": c.moe_expert_axis}
+            if label == "pp 2":
+                per = pp_per_step(c.num_layers, 2, world, 1, "1f1b",
+                                  rank == world - 1)
+                x["layers_here"] = len(bench.model.layers)
+            else:
+                per = pretrain_per_step(c.num_layers, 2)
+            if label == "exact":
+                base = snaps
+            if label == "zero":
+                x["drift"] = [params_drift(torch, a, b, lr, k + 1)
+                              for k, (a, b) in enumerate(zip(snaps, base))]
+            res["counts"].append((label, MOE_SMALL_STEPS, counts, per))
+            res[label] = x
+            del bench, snaps
+            gc.collect()
+            torch.cuda.empty_cache()
+        del base
+        # 3. the EP engine against the serial engine (fp32, 4 layers)
+        mesh.destroy_model_parallel()
+        mesh.initialize_model_parallel()
+        cfg = GPTConfig(**dict(MOE_SERVE, num_layers=MOE_LAYERS),
+                        moe_num_experts=8, compute_dtype=torch.float32)
+        ep = GPTModel(dataclasses.replace(cfg, moe_expert_axis="data"),
+                      device=dev, seed=0)
+        serial = GPTModel(cfg, device=dev, seed=0)
+        import numpy as np
+
+        rng = np.random.default_rng(9)
+        reqs = [(list(rng.integers(0, cfg.vocab_size, n)), 16)
+                for n in (40, 200, 7, 513, 96, 300, 64, 128)]
+        toks = {}
+        for name, model, kw in (("ep", ep, {"mesh": mesh.get_mesh()}),
+                                ("serial", serial, {})):
+            eng = Engine(model, ServeConfig(max_batch=4, max_seq=1024,
+                                            block_size=16), device=dev, **kw)
+            out = eng.run([Request(prompt=p, max_new_tokens=m,
+                                   request_id=i)
+                           for i, (p, m) in enumerate(reqs)])
+            toks[name] = {i: r.tokens for i, r in out.items()}
+            toks[name + "_used"] = eng.allocator.used
+            del eng
+        res["engine"] = toks
+        del ep, serial
+    except Exception:  # noqa: BLE001 - reported by the parent
+        res["error"] = traceback.format_exc()
+    finally:
+        try:
+            from apex_tpu_torch.parallel import multiproc
+
+            multiproc.shutdown()
+        except Exception as e:  # noqa: BLE001
+            res.setdefault("error", f"shutdown: {e}")
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def moe_spawn(ref_dir, world=2):
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(ref_dir, f"rank{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=_moe_rank,
+                         args=(r, world, port, ref_dir, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, outs
+
+
+def moe_two_ranks(torch, total, smi, slosses, small, procs, outs):
+    """(e): the two gloo ranks' results, each case's verdicts."""
+    import pickle
+
+    end = time.monotonic() + 900
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    check(not alive, "the two gloo ranks finished within 900 s")
+    res = []
+    for r, path in enumerate(outs):
+        check(os.path.exists(path), f"gloo rank {r} left no result")
+        with open(path, "rb") as f:
+            res.append(pickle.load(f))
+    for r in res:
+        check("error" not in r,
+              f"gloo rank {r['rank']}: {r.get('error', '')[-3000:]}")
+    group = "MoE (e) 2 gloo ranks on the card"
+    fs = [r["full"] for r in res]
+    ref = slosses[:MOE_EP_STEPS]
+    print(f"  (e) pretrain_gpt --moe-experts 8 at dp 2 (ep 2: "
+          f"{[f['experts_here'] for f in fs]} experts a rank, 345M-MoE, "
+          f"{fs[0]['batch']} x 1024 a step as 2 micro-batches of 2 a rank): "
+          f"losses {[f['losses'] for f in fs]} (serial {ref}); dropped "
+          f"fraction by micro-batch {[[round(v, 4) for v in f['dropped']] for f in fs]}; "
+          f"peak {[round(f['peak'], 2) for f in fs]} GiB a rank; "
+          f"{[round(f['s'], 1) for f in fs]} s (host-staged gloo, not "
+          f"speed numbers)")
+    for r, f in zip(res, fs):
+        rk = r["rank"]
+        check(f["axis"] == "data" and f["experts_here"] == 4
+              and f["batch"] == 8, f"(e) rank {rk}: ep 2, 4 experts here")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(f["losses"], ref))
+        verdict(f"MoE (e) ep 2 345M-MoE rank {rk} losses rel to serial",
+                rel, MOE_LOSS_REL, group=group)
+    ex = [r["exact"] for r in res]
+    print(f"  (e) at {MOE_LAYERS} layers: ep 2 exact wire losses "
+          f"{[x['losses'] for x in ex]} (serial {small}); int8 "
+          f"{[r['int8']['losses'] for r in res]}, e5m2 "
+          f"{[r['e5m2']['losses'] for r in res]}; --zero (level 2) "
+          f"{[r['zero']['losses'] for r in res]}, params against the exact "
+          f"run (share beyond lr/5, worst over 2.5 lr a step) "
+          f"{[r['zero']['drift'] for r in res]}; --pp 2 (experts serial, "
+          f"{[r['pp 2']['layers_here'] for r in res]} layers a stage) "
+          f"{[r['pp 2']['losses'] for r in res]}; card: {smi}")
+    for r in res:
+        rk = r["rank"]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(r["exact"]["losses"], small))
+        verdict(f"MoE (e) ep 2 {MOE_LAYERS} layers rank {rk} losses rel to "
+                f"serial", rel, MOE_LOSS_REL, group=group)
+        for wire in ("int8", "e5m2"):
+            ls = r[wire]["losses"]
+            check(all(math.isfinite(v) for v in ls), f"(e) {wire} finite")
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(ls, r["exact"]["losses"]))
+            verdict(f"MoE (e) {wire} dispatch wire rank {rk} losses rel to "
+                    f"the exact wire", rel, ZERO_WIRE_BAND, group=group)
+        z = r["zero"]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(z["losses"], r["exact"]["losses"]))
+        verdict(f"MoE (e) --zero rank {rk} losses rel to replicated", rel,
+                ZERO_LOSS_REL, group=group)
+        verdict(f"MoE (e) --zero rank {rk} step-1 params, share beyond "
+                f"lr/5", z["drift"][0][0], ZERO_DRIFT[0], group=group)
+        verdict(f"MoE (e) --zero rank {rk} params, worst over 2.5 lr a step",
+                max(e[1] for e in z["drift"]), ZERO_DRIFT[1], group=group)
+        p = r["pp 2"]
+        check(p["axis"] is None, "(e) pp 2 leaves dp 1: experts serial")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(p["losses"], small))
+        verdict(f"MoE (e) --pp 2 rank {rk} losses rel to serial", rel,
+                PP_LOSS_REL, group=group)
+        e = r["engine"]
+        same = e["ep"] == e["serial"]
+        verdict(f"MoE (e) EP engine rank {rk} tokens equal the serial "
+                f"engine's", 0 if same else 1, 0, group=group)
+        check(e["ep_used"] == 0 and e["serial_used"] == 0,
+              "(e) engines freed every page")
+    print(f"  (e) the EP engine (fp32, {MOE_LAYERS} layers, 8 requests of 16 "
+          f"tokens) against the serial engine: tokens equal "
+          f"{[r['engine']['ep'] == r['engine']['serial'] for r in res]}")
+    for r in res:
+        for label, steps, counts, per_step in r["counts"]:
+            check_counts(counts, expected_counts(counts, steps, per_step),
+                         "moe")
+            total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+    return res
+
+
+def moe_phase(torch, ops, dev):
+    """Phase 19: (a) the fp32 gradient gate; (b) 345M-MoE training; (d)
+    NCCL at world size 1 against (b); the serial 4-layer reference; then
+    (e)'s two gloo ranks spawned while (c) serving runs here, then (e)'s
+    verdicts. Returns the launches of the MoE runs (path ``moe``)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    total = {}
+    moe_gradient_gate(torch, ops, dev)
+    slosses, sfps = moe_345m(torch, ops, dev, total)
+    moe_world1(torch, ops, dev, total, slosses, sfps)
+    del sfps
+    _, small, _, _, counts = pretrain_steps(
+        torch, ops, zero_argv(MOE_345M, (), MOE_LAYERS), MOE_SMALL_STEPS,
+        fixed=True)
+    check_counts(counts, expected_counts(counts, MOE_SMALL_STEPS,
+                                         pretrain_per_step(MOE_LAYERS, 2)),
+                 "moe")
+    total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_dir = os.path.join(HERE, "build", "moe_check")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    os.makedirs(ref_dir)
+    procs = []
+    try:
+        torch.save({"small": small},
+                   os.path.join(ref_dir, "ref.tmp"))  # whole, or absent
+        os.replace(os.path.join(ref_dir, "ref.tmp"),
+                   os.path.join(ref_dir, "ref.pt"))
+        procs, outs = moe_spawn(ref_dir)
+        moe_serving(torch, ops, dev, total)
+        moe_two_ranks(torch, total, smi, slosses, small, procs, outs)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    print(f"  phase 19 launches {total}; phase 19 took "
+          f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    return total
+
+
+def moe_main():
+    """``python3 chip_smoke.py --moe``: phase 19 alone after the build,
+    with its verdict."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.csrc import build
+
+    print(f"card: {nvidia_smi()}; torch {torch.__version__}")
+    build.load()
+    torch.empty(1, device="cuda")
+    moe_phase(torch, ops, torch.device("cuda", 0))
+    print_verdict()
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ln-times"]:
         sys.exit(times_of_tree(sys.argv[2], ln_times))
@@ -10801,4 +11484,6 @@ if __name__ == "__main__":
         sys.exit(offsets_main())
     if sys.argv[1:2] == ["--cp"]:
         sys.exit(cp_main())
+    if sys.argv[1:2] == ["--moe"]:
+        sys.exit(moe_main())
     sys.exit(main())

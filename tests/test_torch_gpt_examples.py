@@ -527,9 +527,14 @@ def test_pretrain_options_outside_the_slice_raise(flags, item):
         with pytest.raises(RuntimeError, match="world size"):
             pg.run(EX + ["--device", "cpu", "--steps", "1"] + flags)
         return
-    if item == 11:  # ZeRO is in the port: one rank runs it
+    if item == 11 or flags[0] == "--moe-experts":
+        # ZeRO and MoE are in the port: one rank runs them (MoE with its
+        # experts serial at dp 1)
         out = pg.run(EX + ["--device", "cpu", "--steps", "1"] + flags)
         assert np.isfinite(out["losses"][0])
+        if flags[0] == "--moe-experts":
+            assert out["bench"].cfg.moe_num_experts == 4
+            assert out["bench"].cfg.moe_expert_axis is None
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         pg.run(EX + ["--device", "cpu", "--steps", "1"] + flags)

@@ -93,7 +93,9 @@ def test_options_outside_the_slice_raise(field, value):
     """Each option raises where the slice stops: at construction. Tensor
     and context parallelism need the topology installed first (and a
     context axis then builds); sequence parallelism without an axis builds
-    the serial model, as in the JAX package."""
+    the serial model, as in the JAX package. MoE FFNs build (their layer
+    tree ``{ln1, qkv, proj, ln2, moe}``); an expert axis needs the topology
+    and sequence parallelism with MoE raises, as in the reference."""
     cfg = GPTConfig(**{field: value}, **SMALL)
     if field in ("axis", "context_axis"):
         with pytest.raises(ValueError, match="initialize_model_parallel"):
@@ -108,9 +110,17 @@ def test_options_outside_the_slice_raise(field, value):
             mesh.destroy_model_parallel()
     elif field == "sequence_parallel":
         assert not GPTModel(cfg, device="cpu")._sp
-    elif field != "axis":
-        with pytest.raises(NotImplementedError, match="later|slice"):
-            GPTModel(cfg, device="cpu")
+    elif field == "moe_num_experts":
+        layer = GPTModel(cfg, device="cpu").layers[0]
+        assert sorted(n for n, _ in layer.named_children()) == [
+            "ln1", "ln2", "moe", "proj", "qkv"]
+        assert layer.moe.fc1.kernel.shape == (4, 32, 128)
+        with pytest.raises(ValueError, match="initialize_model_parallel"):
+            GPTModel(GPTConfig(moe_expert_axis="data", **{field: value},
+                               **SMALL), device="cpu")
+        with pytest.raises(ValueError, match="sequence_parallel"):
+            GPTModel(GPTConfig(sequence_parallel=True, **{field: value},
+                               **SMALL), device="cpu")
 
 
 def test_window_raises_on_the_card_and_runs_plain_on_the_cpu(monkeypatch):
@@ -246,6 +256,8 @@ def test_new_modules_import_no_jax():
     optimizers/distributed, optimizers/offload) are among the scanned
     files."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"apex_tpu_torch/transformer/moe.py",
+            "apex_tpu_torch/examples/moe/pretrain_moe_gpt.py"} <= rel
     assert {"apex_tpu_torch/parallel/quantize.py",
             "apex_tpu_torch/optimizers/distributed.py",
             "apex_tpu_torch/optimizers/offload.py"} <= rel

@@ -442,8 +442,13 @@ def test_pretrain_pp_checkpoint_holds_the_interleaved_stack(setup):
 
 
 def test_pipeline_surface_checks():
-    """One process: the reference's aux checks, the MoE aux path (item 16)
-    and the traced timelines (item 21) raise; plan_schedule's errors."""
+    """One process: the reference's aux checks raise, and the MoE aux path
+    runs: a stage's aux summed over the live ticks over M joins the loss
+    (head mean 1 + 24 / 2), and ``prepare_pipelined_model(with_aux=True)``
+    gives an MoE model's serial loss (each micro-batch's aux folded into
+    its tokens, the mean over micro-batches) where ``with_aux=False``
+    refuses to drop the router losses; the traced timelines (item 21)
+    raise; plan_schedule's errors."""
     mesh.initialize_model_parallel()
     try:
         h = torch.ones(4, 2, 3)
@@ -451,20 +456,38 @@ def test_pipeline_surface_checks():
                 (lambda c, x: (x, None), lambda a: a, ValueError),
                 (lambda c, x: (x, {"z": x.sum()}), None, ValueError),
                 (lambda c, x: (x, {"z": x.sum()}), lambda a: a["z"],
-                 NotImplementedError)):
+                 None)):
             fn = ppl.pipelined_loss_fn(
                 embed=lambda b: b, run_layers=run,
                 head_loss=lambda x, t: x.mean(-1), num_microbatches=2,
                 aux_to_loss=aux_to_loss)
+            if err is None:
+                assert float(fn([], h, None)) == 13.0
+                continue
             with pytest.raises(err):
                 fn([], h, None)
         with pytest.raises(NotImplementedError, match="item 21"):
             ppl.traced_pipeline_timeline()
         with pytest.raises(NotImplementedError, match="item 21"):
             ppl.traced_schedule_timeline()
-        with pytest.raises(NotImplementedError, match="item 16"):
-            ppl.prepare_pipelined_model(None, num_microbatches=2,
-                                        with_aux=True)
+        moe = GPTModel(GPTConfig(**dict(
+            TINY, num_layers=2, moe_num_experts=4, moe_top_k=1,
+            moe_capacity_factor=16.0, moe_aux_loss_weight=0.5,
+            compute_dtype=torch.float32)), device="cpu")
+        toks = torch.randint(0, 64, (4, 16),
+                             generator=torch.Generator().manual_seed(1))
+        tgts = toks.roll(-1, dims=-1)
+        _, layers, pipe_loss = ppl.prepare_pipelined_model(
+            moe, num_microbatches=2, with_aux=True)
+        with torch.no_grad():
+            ref = (moe.loss(toks[:2], tgts[:2])
+                   + moe.loss(toks[2:], tgts[2:])) / 2
+            got = pipe_loss(layers, toks, tgts)
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+        _, layers, pipe_loss = ppl.prepare_pipelined_model(
+            moe, num_microbatches=2)
+        with pytest.raises(ValueError, match="return_aux"):
+            pipe_loss(layers, toks, tgts)
         with pytest.raises(ValueError, match="pipeline_parallel"):
             GPTModel(GPTConfig(**dict(TINY, pipeline_axis="pipe")),
                      device="cpu").loss(torch.zeros(2, 4).long(),
