@@ -400,7 +400,7 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
     ``:379-390``), the experts sharded over the data axis when dp > 1
     (``moe_dispatch_dtype``: the 1-byte dispatch wire, ignored serial); the
     router losses fold into the loss, and through the pipeline ring and the
-    ZeRO step (``with_aux``)."""
+    ZeRO step."""
     dev = resolve_device(device)
     zero = zero_level is not None
     if zero and not mesh.model_parallel_is_initialized() and tp == 1 \
@@ -427,7 +427,6 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
                    moe_capacity_factor=moe_capacity_factor,
                    moe_expert_axis=mesh.AXIS_DATA if dp > 1 else None,
                    moe_dispatch_dtype=moe_dispatch_dtype)
-    with_aux = bool(moe_experts)
     cfg = GPTConfig(
         vocab_size=vocab,
         hidden_size=hidden,
@@ -463,7 +462,7 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
         return _build_zero(model, mp_opt, cfg, num_microbatches, offload,
                            offload_buckets,
                            micro_batch * dp * num_microbatches, dp, rank,
-                           vpp, pipe_vg, with_aux)
+                           vpp, pipe_vg)
     opt_state = mp_opt.init(model)
 
     vote = None
@@ -480,7 +479,7 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
         if pp > 1:
             loss = tamp.pipelined_backward(
                 mp_opt, opt_state, model, toks.to(dev), tgts.to(dev),
-                num_microbatches, pipe_vg, with_aux=with_aux)
+                num_microbatches, pipe_vg)
         else:
             loss = _microbatched_backward(model, mp_opt, opt_state, toks,
                                           tgts, num_microbatches)
@@ -495,7 +494,7 @@ def build(*, vocab: int = 50304, hidden: int = 256, layers: int = 4,
 
 def _build_zero(model, mp_opt, cfg, num_microbatches, offload,
                 offload_buckets, batch, dp, rank, vpp=1,
-                pipe_vg=None, with_aux=False) -> Bench:
+                pipe_vg=None) -> Bench:
     """:func:`build`'s ZeRO branch: the sharded state (resident, level-3
     chunks or host-offloaded) and the step of ``build_zero_train_step`` on
     this rank's rows."""
@@ -516,7 +515,6 @@ def _build_zero(model, mp_opt, cfg, num_microbatches, offload,
                                   num_microbatches=num_microbatches,
                                   zero3=zero3, offload=off,
                                   virtual_pipeline_size=vpp,
-                                  with_aux=with_aux,
                                   pipe_value_and_grad=pipe_vg)
 
     def step(tokens: torch.Tensor, targets: torch.Tensor):

@@ -772,26 +772,14 @@ class TransformerBase(nn.Module):
 
     def _layer(self, layer: TransformerLayer, h: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None):
+        """``(h, aux)`` of one layer: aux the layer's router losses, None
+        for a dense layer."""
         raise NotImplementedError
-
-    # -- per-layer aux losses (the MoE router's) -------------------------------
 
     def _emits_aux(self) -> bool:
         """Whether the layers emit aux losses (``_aux_init`` not None)."""
         return getattr(self.cfg, "moe_num_experts", None) is not None
-
-    def _layer_aux(self, layer, h: torch.Tensor,
-                   generator: Optional[torch.Generator] = None,
-                   bias: Optional[torch.Tensor] = None):
-        """``(h, aux)`` of one layer; dense layers emit no aux (None)."""
-        return self._layer(layer, h, generator, bias), None
-
-    def _post_attention_aux(self, layer, h: torch.Tensor,
-                            attn: torch.Tensor,
-                            generator: Optional[torch.Generator]):
-        """``(h, aux)`` of the layer after its attention call."""
-        return self._post_attention(layer, h, attn, generator), None
 
     def run_layers(self, h: torch.Tensor,
                    bias: Optional[torch.Tensor] = None,
@@ -803,7 +791,7 @@ class TransformerBase(nn.Module):
             raise ValueError(DROPPED_AUX)
         acc = None
         for layer in self.layers:
-            h, aux = self._layer_aux(layer, h, None, bias)
+            h, aux = self._layer(layer, h, None, bias)
             acc = _add_aux(acc, aux)
         return (h, acc) if return_aux else h
 
@@ -839,17 +827,11 @@ class TransformerBase(nn.Module):
         return [int(s) for s in seeds.tolist()]
 
     def _train_layer(self, layer: TransformerLayer, seed: Optional[int],
-                     h: torch.Tensor,
-                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self._layer(layer, h, self._dropout_generator(seed, h.device),
-                           bias)
-
-    def _train_layer_flat(self, layer, seed: Optional[int], h: torch.Tensor,
-                          bias: Optional[torch.Tensor] = None):
-        """:meth:`_train_layer` with the layer's aux: ``h`` or ``(h,
-        *aux)`` (:func:`_flat`), the checkpointed body of aux-emitting
-        layers."""
-        return _flat(*self._layer_aux(
+                     h: torch.Tensor, bias: Optional[torch.Tensor] = None):
+        """One layer with its dropout masks drawn from ``seed``: ``h``, or
+        ``(h, *aux)`` for an aux-emitting layer (:func:`_flat`), the
+        checkpointed body."""
+        return _flat(*self._layer(
             layer, h, self._dropout_generator(seed, h.device), bias))
 
     def _save_attn_layer(self, layer: TransformerLayer,
@@ -869,7 +851,7 @@ class TransformerBase(nn.Module):
     def _train_post_attention(self, layer: TransformerLayer,
                               seed: Optional[int], h: torch.Tensor,
                               attn: torch.Tensor):
-        return _flat(*self._post_attention_aux(
+        return _flat(*self._post_attention(
             layer, h, attn, self._dropout_generator(seed, h.device)))
 
     def run_layers_train(self, h: torch.Tensor,
@@ -907,11 +889,10 @@ class TransformerBase(nn.Module):
         policy = remat_policy(getattr(self.cfg, "remat_policy", None))
         remat = self.cfg.remat and torch.is_grad_enabled()
         layers = self.layers if layers is None else layers
-        body = self._train_layer_flat if emits else self._train_layer
         acc = None
         for layer, seed in zip(layers, self._layer_seeds(dropout_generator,
                                                          len(layers))):
-            fn = functools.partial(body, layer, seed)
+            fn = functools.partial(self._train_layer, layer, seed)
             if not remat:
                 out = fn(h, bias)
             elif policy == "save_attn":

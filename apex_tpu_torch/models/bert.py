@@ -215,13 +215,13 @@ class BertModel(TransformerBase):
 
     def _layer(self, layer: TransformerLayer, h: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None):
         """Post-LN block: LN(residual + dropout(sublayer(h)))
-        (``bert.py:192-197``)."""
+        (``bert.py:192-197``); ``(h, None)``: BERT's layers emit no aux."""
         h = self._ln(layer.ln1, h + self._dropout(
             self._attention(layer, h, bias), generator))
         return self._ln(layer.ln2, h + self._dropout(self._mlp(layer, h),
-                                                     generator))
+                                                     generator)), None
 
     def head(self, h: torch.Tensor,
              masked_lm_labels: Optional[torch.Tensor] = None):

@@ -226,11 +226,13 @@ class GPTModel(TransformerBase):
 
     def _layer(self, layer: TransformerLayer, h: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None):
         """Pre-LN block: residual + dropout(sublayer(LN(h))), the dropout
-        masks drawn from ``generator`` attention first (``_layer_aux``,
-        ``gpt.py:286-301``)."""
-        return self._layer_aux(layer, h, generator, bias)[0]
+        masks drawn from ``generator`` attention first; ``(h, aux)``, aux
+        the FFN's router losses (``gpt.py:286-301``)."""
+        q, k, v = self._pre_attention(layer, h)
+        return self._post_attention(layer, h, self._attend(q, k, v, bias),
+                                    generator)
 
     def _pre_attention(self, layer: TransformerLayer, h: torch.Tensor):
         """LN and the QKV heads: the layer up to its attention call."""
@@ -238,26 +240,13 @@ class GPTModel(TransformerBase):
 
     def _post_attention(self, layer: TransformerLayer, h: torch.Tensor,
                         attn: torch.Tensor,
-                        generator: Optional[torch.Generator]) -> torch.Tensor:
+                        generator: Optional[torch.Generator]):
         """The layer after its attention call: the output projection and
-        the MLP half, each a residual with dropout."""
-        return self._post_attention_aux(layer, h, attn, generator)[0]
-
-    def _post_attention_aux(self, layer, h: torch.Tensor,
-                            attn: torch.Tensor,
-                            generator: Optional[torch.Generator]):
-        """:meth:`_post_attention` with the FFN's aux losses (None for the
-        dense MLP; the router's for an MoE layer, ``gpt.py:286-301``)."""
+        the FFN half, each a residual with dropout; ``(h, aux)``, aux None
+        for the dense MLP and the router's for an MoE layer."""
         h = h + self._dropout(self._attn_out(layer, attn), generator)
         out, aux = self._ffn(layer, self._ln(layer.ln2, h))
         return h + self._dropout(out, generator), aux
-
-    def _layer_aux(self, layer, h: torch.Tensor,
-                   generator: Optional[torch.Generator] = None,
-                   bias: Optional[torch.Tensor] = None):
-        q, k, v = self._pre_attention(layer, h)
-        return self._post_attention_aux(layer, h, self._attend(q, k, v, bias),
-                                        generator)
 
     def _ffn(self, layer, x: torch.Tensor):
         """``(out, aux)`` of the FFN half: the dense MLP (aux None), or the

@@ -80,8 +80,7 @@ def microbatched_backward(loss_fn: Callable[[torch.Tensor, torch.Tensor],
 
 def pipelined_backward(mp_opt, state, model, tokens: torch.Tensor,
                        targets: torch.Tensor, num_microbatches: int,
-                       pipe_value_and_grad=None,
-                       with_aux: bool = False) -> torch.Tensor:
+                       pipe_value_and_grad=None) -> torch.Tensor:
     """The backward of a pipeline stage model (``GPTConfig(pipeline_axis=
     "pipe")``) on this rank's rows: the scaled loss of the autograd ring
     (``pipelined_loss_fn`` over M micro-batches) run backward, or, with
@@ -91,17 +90,16 @@ def pipelined_backward(mp_opt, state, model, tokens: torch.Tensor,
     then this stage's share: its layers' grads and its partial non-layer
     grads (the spec-aware reduction sums them over ``pipe``). The ring's
     interleaving is the stage model's (``model.cfg.virtual_pipeline_size``,
-    fixed when it placed its layers). ``with_aux``: the layers' router
-    losses ride the ring (``prepare_pipelined_model(with_aux=True)``).
-    Returns the full-batch mean loss (detached, the same on every
-    stage)."""
+    fixed when it placed its layers), and so are its router losses (an MoE
+    model's ride the ring). Returns the full-batch mean loss (detached,
+    the same on every stage)."""
     from apex_tpu_torch.transformer.pipeline_parallel import (
         prepare_pipelined_model,
     )
 
     if pipe_value_and_grad is None:
         _, layers, pipe_loss = prepare_pipelined_model(
-            model, num_microbatches=num_microbatches, with_aux=with_aux)
+            model, num_microbatches=num_microbatches)
         loss = pipe_loss(layers, tokens, targets)
         mp_opt.scale_loss(loss, state).backward()
         return loss.detach()
@@ -131,7 +129,7 @@ def build_zero_train_step(
     zero3=None,
     offload=None,
     virtual_pipeline_size: int = 1,
-    with_aux: bool = False,
+    with_aux: Optional[bool] = None,
     traced: bool = False,
     tracer=None,
     pipe_value_and_grad=None,
@@ -168,10 +166,11 @@ def build_zero_train_step(
     overflow vote spans ``pipe``. Level 3 over a pipe axis raises
     ``NotImplementedError``: ROADMAP Queue 1 item 25. ``traced`` /
     ``tracer`` (the span anatomy) raise: item 21. ``with_aux`` (MoE router
-    losses, JAX ``amp.py:158-160``): a stage model's ring threads the
-    layers' aux and folds it (``prepare_pipelined_model(with_aux=True)``);
-    a model without a pipe axis folds its own aux in ``loss``; the level-3
-    chunk drive refuses aux-emitting layers."""
+    losses, JAX ``amp.py:158-160``) is the model's own (None, the default,
+    reads it; a value the model does not have raises ``ValueError``): a
+    stage model's ring threads the layers' aux and folds it; a model
+    without a pipe axis folds its own aux in ``loss``; the level-3 chunk
+    drive refuses aux-emitting layers."""
     from apex_tpu_torch.models._transformer import swap_params
     from apex_tpu_torch.parallel import mesh
     from apex_tpu_torch.parallel.distributed import (
@@ -182,6 +181,11 @@ def build_zero_train_step(
         raise NotImplementedError(
             "build_zero_train_step(traced=/tracer=): the zero.grads / "
             "zero.apply spans come with monitor/ (ROADMAP Queue 1 item 21)")
+    emits = getattr(model, "_emits_aux", lambda: False)()
+    if with_aux is not None and bool(with_aux) != emits:
+        raise ValueError(
+            f"build_zero_train_step(with_aux={with_aux}) on a model whose "
+            f"layers {'emit' if emits else 'emit no'} aux losses")
     level3 = getattr(mp_opt, "zero_level", 2) >= 3
     piped = getattr(model.cfg, "pipeline_axis", None) is not None
     if level3 and pipe_value_and_grad is not None:
@@ -248,7 +252,7 @@ def build_zero_train_step(
         if piped:
             loss = pipelined_backward(
                 mp_opt, opt_state, model, tokens, targets, num_microbatches,
-                pipe_value_and_grad, with_aux=with_aux)
+                pipe_value_and_grad)
         else:
             loss = microbatched_backward(loss_fn, leaves, mp_opt, opt_state,
                                          tokens, targets, num_microbatches)

@@ -352,7 +352,7 @@ def prepare_pipelined_model(
     model: Any,
     *,
     num_microbatches: int,
-    with_aux: bool = False,
+    with_aux: Optional[bool] = None,
 ):
     """The shared TP x PP setup every pipelined harness needs (reference:
     ``schedules.py:389-443``) over a stage model (``GPTConfig(
@@ -367,8 +367,13 @@ def prepare_pipelined_model(
     it from there and takes no other. ``with_aux=True`` threads the
     layers' aux losses (MoE routers) through the ring
     (``run_layers_train(return_aux=True)``) and folds them with
-    ``model.aux_to_loss`` (``schedules.py:432-441``); an MoE model without
-    it raises, as its ``run_layers_train`` refuses to drop them."""
+    ``model.aux_to_loss`` (``schedules.py:432-441``); ``with_aux=False`` on
+    an MoE model raises, as its ``run_layers_train`` refuses to drop them.
+    The default, None, is what the model's layers do (``model.
+    _emits_aux()``)."""
+    if with_aux is None:
+        with_aux = model._emits_aux()
+
     def run_layers(chunk, h):
         return model.run_layers_train(h, layers=chunk, return_aux=with_aux)
 

@@ -181,7 +181,8 @@ Eighteen phases; any failure raises and exits non-zero:
    len_i^2 pairs) and SDPA over the padded batch and with the
    block-diagonal mask.
 10. **The GPT examples** (:func:`gpt_examples`), through their entry points
-   at GPT-2 345M: (a) ``pretrain_gpt.run`` at amp O2, 8 x 1024 tokens a
+   at GPT-2 345M's width and :data:`RANK_LAYERS` (8) layers, not 24 (the
+   room phase 19's exact reference needs): (a) ``pretrain_gpt.run`` at amp O2, 8 x 1024 tokens a
    step as 2 micro-batches of 4, 11 steps, saving at step 11 into a
    directory under ``build/`` (removed at the end): exact launches, finite
    losses, no skipped step, the step time, tokens/s, the model-FLOPs share,
@@ -233,10 +234,10 @@ Eighteen phases; any failure raises and exits non-zero:
    native host runtime (``csrc.available()``, a flatten round trip).
 12. **The convergence probe, the rest of the optimizers and the legacy
    APIs** (:func:`optimizers_and_legacy`): (a) ``python -m
-   apex_tpu_torch.benchmarks.convergence_probe`` at GPT-2 345M O2, 2 x
-   512 tokens, lr 3e-4 warmed up over 50 steps, cut to 150 steps (its
-   default 600) and a CPU replay of 1 (:data:`PROBE_ARGS`, to leave room
-   for phases 16, 17 and 18): exit 0, final loss <=
+   apex_tpu_torch.benchmarks.convergence_probe`` at GPT-2 345M's width
+   and 12 layers, O2, 2 x 512 tokens, lr 3e-4 warmed up over 50 steps, cut
+   to 150 steps (its default 600) and a CPU replay of 1 (:data:`PROBE_ARGS`,
+   to leave room for phases 16-19): exit 0, final loss <=
    6.0, the replay with no error within 0.05, the exact launch counts
    (path ``probe``); (b) ``FusedMixedPrecisionLamb`` beside
    ``MixedPrecisionOptimizer(FusedLAMB)`` at BERT-large (16 x 512, O2, 5
@@ -4191,13 +4192,15 @@ def device_busy(torch, eng, reqs, label):
     """Device busy share of a serving window: the kernels' device time from
     ``torch.profiler`` over the window's wall time, and the decode kernels'
     device time and launches beside it, per decode tick (the engine's
-    decode steps and speculative ticks in the window). Not a check."""
+    decode steps and speculative ticks in the window). Not a check. The
+    CUDA activity alone: the CPU activity's op events lengthen the window
+    itself and about double the profile's processing, for the same
+    kernel times."""
     from torch.profiler import ProfilerActivity, profile
 
     ticks0 = eng.decode_steps + eng.spec_ticks
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run(reqs)
         torch.cuda.synchronize()
@@ -5227,9 +5230,15 @@ def with_layers(argv, layers):
 #: 19 needs in the script's 1200 s
 RANK_LAYERS = 8
 RANKS_PRETRAIN = with_layers(PRETRAIN_345M, RANK_LAYERS)
+#: phase 10 runs the examples at 345M's width and :data:`RANK_LAYERS`
+#: layers, not 24 (the room phase 19's exact reference needs): it holds
+#: the examples' paths (launches, checkpoint bits, greedy tokens) whatever
+#: the depth, and the 24-layer 345M step is timed in phases 4 and 11
+PRETRAIN_10 = RANKS_PRETRAIN
 #: the generate example's engine at 345M
 GENERATE_345M = GPT_345M + ["--max-seq", "1024", "--max-batch", "8",
                             "--block-size", "16", "--max-new-tokens", "32"]
+GENERATE_10 = with_layers(GENERATE_345M, RANK_LAYERS)
 
 
 def pretrain_per_step(L, M, policy="full"):
@@ -5275,7 +5284,7 @@ def pretrain_save_resume(torch, ops, dev, ckpt_dir):
 
     from apex_tpu_torch.examples.gpt import pretrain_gpt
 
-    argv = PRETRAIN_345M + ["--save-dir", ckpt_dir, "--save-every", "11"]
+    argv = PRETRAIN_10 + ["--save-dir", ckpt_dir, "--save-every", "11"]
     steps = 11
     gc.collect()
     torch.cuda.empty_cache()
@@ -5354,7 +5363,7 @@ def pretrain_default_lr(torch, dev, opt_level="O2", beside=None):
     Reported, not a check. Returns (before, after)."""
     from apex_tpu_torch.examples.gpt import pretrain_gpt
 
-    argv = PRETRAIN_345M + ["--lr", "3e-4", "--opt-level", opt_level]
+    argv = PRETRAIN_10 + ["--lr", "3e-4", "--opt-level", opt_level]
     res = pretrain_gpt.run(argv + ["--steps", "11"])
     toks, tgts = next(pretrain_gpt.batches(pretrain_gpt.parse_args(argv),
                                            res["bench"].batch))
@@ -5391,7 +5400,7 @@ def pretrain_o0(torch, ops, dev):
     from apex_tpu_torch.examples.gpt import pretrain_gpt
 
     torch.cuda.empty_cache()
-    args = pretrain_gpt.parse_args(PRETRAIN_345M + ["--opt-level", "O0"])
+    args = pretrain_gpt.parse_args(PRETRAIN_10 + ["--opt-level", "O0"])
     bench = pretrain_gpt.from_args(args)
     toks, tgts = next(pretrain_gpt.batches(args, bench.batch))
     L, steps = bench.cfg.num_layers, 3
@@ -5423,7 +5432,7 @@ def pretrain_o0(torch, ops, dev):
 #: (f): the pretrain example at O0 (fp32) on one 8192-token sequence a step,
 #: which routes attention to the streamed kernels (STREAM_MIN_SEQ): #2, #3
 #: and #4 on their fp32 routes
-PRETRAIN_O0_LONG = PRETRAIN_345M + ["--opt-level", "O0", "--seq", "8192",
+PRETRAIN_O0_LONG = PRETRAIN_10 + ["--opt-level", "O0", "--seq", "8192",
                                     "--micro-batch", "1",
                                     "--num-microbatches", "1"]
 
@@ -5972,7 +5981,7 @@ def remat_policies(torch, ops, dev, a_peak):
     (``a_peak``)."""
     from apex_tpu_torch.examples.gpt import pretrain_gpt
 
-    args = pretrain_gpt.parse_args(PRETRAIN_345M)
+    args = pretrain_gpt.parse_args(PRETRAIN_10)
     full = None
     counts_by = {}
     for policy in ("full", "save_attn", "dots"):
@@ -6107,7 +6116,7 @@ def generate_checkpoint(torch, ops, dev, ckpt_dir):
     ``--prefill-chunk 256``. Every token against the full-context argmax
     (:func:`check_greedy`), the speculative run's also against the plain
     run's, with exact launch counts."""
-    argv = GENERATE_345M + ["--load-dir", ckpt_dir]
+    argv = GENERATE_10 + ["--load-dir", ckpt_dir]
     counts_by = {}
     plain, counts = generate_run(torch, ops, argv, "(d) generate 345M fp32")
     L = plain["model"].cfg.num_layers
@@ -6160,8 +6169,8 @@ def generate_rope(torch, ops, dev):
     window on #9) and with 128-token chunks and speculation (#10 with the
     window), each token against the full-context argmax, the second's also
     against the first's."""
-    argv = GENERATE_345M + ["--pos", "rope", "--window", "256",
-                            "--shared-prefix", "300"]
+    argv = GENERATE_10 + ["--pos", "rope", "--window", "256",
+                          "--shared-prefix", "300"]
     counts_by = {}
     mono, counts = generate_run(torch, ops, argv,
                                 "(e) generate 345M rope window 256")
@@ -6194,10 +6203,10 @@ def generate_rope(torch, ops, dev):
 
 #: (e)'s chunked speculative run (gRS): RoPE, window 256, 128-token chunks,
 #: spec_k 4, random weights
-GENERATE_ROPE_SPEC = GENERATE_345M + ["--pos", "rope", "--window", "256",
-                                      "--shared-prefix", "300",
-                                      "--prefill-chunk", "128",
-                                      "--spec-k", "4"]
+GENERATE_ROPE_SPEC = GENERATE_10 + ["--pos", "rope", "--window", "256",
+                                    "--shared-prefix", "300",
+                                    "--prefill-chunk", "128",
+                                    "--spec-k", "4"]
 
 
 def generate_profile(torch, ops, dev):
@@ -6386,27 +6395,45 @@ def gpt_examples(torch, ops, dev):
     from apex_tpu_torch.csrc import build
 
     t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = round(time.perf_counter() - t, 1)
+        return out
+
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="gpt_ckpt-", dir=build.BUILD_DIR)
     try:
-        counts, a_peak = pretrain_save_resume(torch, ops, dev, ckpt)
+        counts, a_peak = part("pretrain_save_resume", pretrain_save_resume,
+                              torch, ops, dev, ckpt)
         by_path = {"gpt_pretrain": counts}
-        o2_lr = pretrain_default_lr(torch, dev)
-        by_path["gpt_pretrain_o0"] = pretrain_o0(torch, ops, dev)
-        pretrain_default_lr(torch, dev, "O0", o2_lr)
-        fp32 = {k: {"fp32 O0 pretrain": v}
-                for k, v in fp32_train_times(torch, ops, dev).items()}
-        fp32.update(fp32_stream_bwd_times(torch, ops, dev))
-        by_path.update(remat_policies(torch, ops, dev, a_peak))
-        by_path.update(generate_checkpoint(torch, ops, dev, ckpt))
-        fp32.update(fp32_decode_times(torch, ops, dev))
-        rope_counts, longest = generate_rope(torch, ops, dev)
+        o2_lr = part("default_lr O2", pretrain_default_lr, torch, dev)
+        by_path["gpt_pretrain_o0"] = part("pretrain_o0", pretrain_o0, torch,
+                                          ops, dev)
+        part("default_lr O0", pretrain_default_lr, torch, dev, "O0", o2_lr)
+        fp32 = {k: {"fp32 O0 pretrain": v} for k, v in part(
+            "fp32_train_times", fp32_train_times, torch, ops, dev).items()}
+        fp32.update(part("fp32_stream_bwd_times", fp32_stream_bwd_times,
+                         torch, ops, dev))
+        by_path.update(part("remat_policies", remat_policies, torch, ops,
+                            dev, a_peak))
+        by_path.update(part("generate_checkpoint", generate_checkpoint,
+                            torch, ops, dev, ckpt))
+        fp32.update(part("fp32_decode_times", fp32_decode_times, torch, ops,
+                         dev))
+        rope_counts, longest = part("generate_rope", generate_rope, torch,
+                                    ops, dev)
         by_path.update(rope_counts)
-        generate_profile_apart()
-        fp32.update(fp32_rope_prefill_times(torch, ops, dev, longest))
-        by_path["gpt_pretrain_o0_long"] = pretrain_o0_long(torch, ops, dev)
+        part("generate_profile_apart", generate_profile_apart)
+        fp32.update(part("fp32_rope_prefill_times", fp32_rope_prefill_times,
+                         torch, ops, dev, longest))
+        by_path["gpt_pretrain_o0_long"] = part(
+            "pretrain_o0_long", pretrain_o0_long, torch, ops, dev)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"  phase 10 parts (s): {json.dumps(parts)}")
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
     return by_path, fp32
 
@@ -6557,16 +6584,18 @@ def bench_harness(torch, ops, dev):
 #: of the 345M bf16 model takes about 32 s on the card's host after about
 #: 37 s of set-up (PERF.md) -- so that phases 16, 17 and 18 fit the
 #: script's time limit: the 300-step curve read 0.0225 at step 150
-#: against the bar of 6.0 (PERF.md)
-PROBE_ARGS = ["--cpu-check-steps", "1", "--steps", "150"]
+#: against the bar of 6.0 (PERF.md); and at 12 of the 24 layers (345M's
+#: width), which halves both the card's steps and the replay, for phase
+#: 19's room
+PROBE_ARGS = ["--cpu-check-steps", "1", "--steps", "150", "--layers", "12"]
 PROBE_OUTPUT = os.path.join(HERE, "build", "convergence_probe.json")
 
 
 def convergence_probe(torch, ops, dev):
     """Phase 12 (a): ``python -m apex_tpu_torch.benchmarks.convergence_probe``
     at its defaults but :data:`PROBE_ARGS`, in this process (its ``main``):
-    GPT-2 345M O2 (full remat, the 8-chunk LM head, FusedAdam with a
-    50-step warm-up) trains 150 steps on 2 fixed batches of 2 x 512
+    GPT-2 345M's width at 12 layers, O2 (full remat, the 8-chunk LM head,
+    FusedAdam with a 50-step warm-up) trains 150 steps on 2 fixed batches of 2 x 512
     tokens, then replays the first on the CPU in a subprocess. Requires
     exit 0 and ``ok``, a final loss
     <= 6.0, a replay with no ``error`` within its band (0.05), and the
@@ -6603,7 +6632,8 @@ def convergence_probe(torch, ops, dev):
     check("error" not in cc and "cpu_curve_max_rel_dev" in cc,
           f"probe CPU replay failed: {cc}")
     curve = rec["curve_every_10"]
-    print(f"  probe (GPT-2 345M O2, {rec['batch']} x {rec['seq']}, lr "
+    print(f"  probe (GPT-2 345M's width at {L} layers, O2, {rec['batch']} x "
+          f"{rec['seq']}, lr "
           f"{rec['lr']} warmed up over {rec['warmup_steps']} steps): loss "
           f"{rec['loss_first']} -> {rec['loss_final']} (bar "
           f"{cp.LOSS_BAR}), max after warm-up {rec['loss_max_after_warmup']}"
@@ -6980,7 +7010,7 @@ def main():
     torch.cuda.empty_cache()
 
     phase_start(10, "the GPT examples (pretrain_gpt -> checkpoint -> resume "
-          "-> generate_gpt) at GPT-2 345M")
+          "-> generate_gpt) at GPT-2 345M's width, 8 layers")
     gpt_counts, fp32_rows = gpt_examples(torch, ops, dev)
     torch.cuda.empty_cache()
 
@@ -10840,12 +10870,20 @@ MOE_345M = PRETRAIN_345M + ["--moe-experts", "8"]
 MOE_STEPS = 4
 #: (d): NCCL at world size 1, the experts on the data axis of 1
 MOE_WORLD1_STEPS = 2
-#: (e): two gloo ranks, ep 2: 2 rows a micro-batch a rank, (b)'s global
-#: batch of 8 rows (argparse keeps the last --micro-batch)
-MOE_EP_345M = MOE_345M + ["--micro-batch", "2"]
+#: (e)'s exact comparison at full width and depth: capacity factor E / k
+#: = 4 (C = N: neither side drops a token) and one micro-batch of (b)'s 8
+#: rows a step, so the router statistics of the serial run's micro-batch
+#: and of the two ranks' micro-batches (4 rows each, pmean'd) cover the
+#: same rows: ep 2 is then the serial run up to rounding (argparse keeps
+#: the last --micro-batch)
+MOE_EXACT_345M = MOE_345M + ["--moe-capacity-factor", "4", "--micro-batch",
+                             "8", "--num-microbatches", "1"]
+MOE_EP_345M = MOE_EXACT_345M + ["--micro-batch", "4"]
 MOE_EP_STEPS = 2
-#: (e)'s wire, ZeRO and pipeline cases: 345M-MoE width at 4 layers
+#: (e)'s wire, ZeRO and pipeline cases: 345M-MoE width at 4 layers, cf
+#: 1.25, 2 rows a micro-batch a rank: (b)'s global batch of 8 rows
 MOE_LAYERS = 4
+MOE_SMALL_EP = MOE_345M + ["--micro-batch", "2"]
 MOE_SMALL_STEPS = 2
 #: (a)'s gradient gate and (c)'s greedy gate: a small MoE GPT in fp32
 MOE_GATE = dict(vocab_size=1024, hidden_size=256, num_layers=2,
@@ -10858,11 +10896,16 @@ MOE_GATE_CASES = (("top-1", dict(moe_top_k=1)),
                   ("top-2 congested (cf 0.5)",
                    dict(moe_top_k=2, moe_capacity_factor=0.5)))
 #: limits: (a) phase 4's gate (loss 1e-5 relative, each grad 1e-4 of its
-#: max |CPU grad|), the dropped fraction equal; (e) the losses against
-#: the serial run at the same global batch by phase 14's relative limit
-#: (the EP run caps capacity per rank and groups a micro-batch's router
-#: statistics over both ranks' rows, the serial run over its own: the
-#: reference's documented divergence), the 1-byte wires within phase 16's
+#: max |CPU grad|), the dropped fraction equal; (e) at full width the
+#: losses against the serial run of :data:`MOE_EXACT_345M` by phase 14's
+#: relative limit and its step-1 grads by their floor as phases 15-17
+#: hold theirs (each leaf's L2 distance from the serial grad, an expert
+#: leaf from its rank's experts' rows, over the serial run's own distance
+#: from its fp32-compute twin, at most :data:`TP_FLOOR`); at 4 layers and
+#: cf 1.25 the losses against the serial run by phase 14's limit (the EP
+#: run caps capacity per rank and groups a micro-batch's router statistics
+#: over both ranks' rows, the serial run over its own: the reference's
+#: documented divergence, reported), the 1-byte wires within phase 16's
 #: band of the exact wire, ZeRO-2 against the replicated optimizer by
 #: phase 16's limits, pp 2 against serial by phase 17's
 MOE_LOSS_REL = DP_LOSS_REL
@@ -11004,8 +11047,9 @@ def moe_345m(torch, ops, dev, total):
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     idle = "not measured"
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # the CUDA activity alone, as device_busy: the busy time is the
+        # kernels' (over the untraced step's wall time)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             bench.step(*batch)
             torch.cuda.synchronize()
         busy = sum(t for _, t in device_time_by_kernel(torch,
@@ -11166,14 +11210,64 @@ def check_moe_serve_output(torch, model, eng, res, reqs, new=64):
 
 
 def moe_small_argv(flags=(), layers=MOE_LAYERS):
-    return zero_argv(MOE_EP_345M, flags, layers)
+    return zero_argv(MOE_SMALL_EP, flags, layers)
+
+
+def moe_exact_reference(torch, ops, total):
+    """(e)'s exact reference: the serial run of :data:`MOE_EXACT_345M`,
+    :data:`MOE_EP_STEPS` steps on the stream's first batch (launches exact,
+    nothing dropped), its step-1 grads on the host, and each leaf's bf16
+    floor: its L2 distance from the same step's grads in fp32 compute on
+    the same bf16 params."""
+    aux = []
+    bench, losses, _, grads, counts = pretrain_steps(
+        torch, ops, MOE_EXACT_345M, MOE_EP_STEPS, hook=moe_aux_hook(aux),
+        fixed=True)
+    c = bench.cfg
+    check(c.moe_capacity_factor == 4.0 and c.moe_expert_axis is None
+          and bench.batch == 8, "(e) exact reference: serial, cf 4, 8 rows")
+    check(all(a["dropped_fraction"] == 0 for a in aux),
+          "(e) exact reference drops no token")
+    check_counts(counts, expected_counts(
+        counts, MOE_EP_STEPS, pretrain_per_step(c.num_layers, 1)), "moe")
+    total.update({k: total.get(k, 0) + v for k, v in counts.items()})
+    names = [n for n, _ in bench.model.named_parameters()]
+    grads = [g.cpu() for g in grads]
+    del bench
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, flosses, _, fgrads, _ = pretrain_steps(
+        torch, ops, MOE_EXACT_345M, 1, fixed=True,
+        compute_dtype=torch.float32)
+    floor = [l2_err(f.cpu(), g) for f, g in zip(fgrads, grads)]
+    del fgrads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "loss_f32": flosses[0], "grads": grads,
+            "names": names, "floor": floor}
+
+
+def moe_floor_ratios(torch, model, grads, ref, rank):
+    """Each step-1 grad's L2 distance from the serial run's over its
+    floor, the worst three [(ratio, name)]: an expert-sharded leaf (dim 0
+    this rank's experts) against its rows of the serial grad."""
+    names = [n for n, _ in model.named_parameters()]
+    check(names == ref["names"], "(e) the EP model's leaves are serial's")
+    out = []
+    for n, g, r, f in zip(names, grads, ref["grads"], ref["floor"]):
+        if g.shape != r.shape:
+            e = g.shape[0]
+            r = r[rank * e:(rank + 1) * e]
+        out.append((l2_err(g.cpu(), r) / max(f, 1e-12), n))
+    return sorted(out, reverse=True)[:3]
 
 
 def _moe_rank(rank, world, port, ref_dir, out_path):
-    """One gloo rank of phase 19 (e) on the card: ep 2 at full width and
-    depth, then at 4 layers the exact, int8 and e5m2 wires, ``--zero``
-    (level 2) and ``--pp 2``, then the EP engine against the serial
-    engine; the results go back to the parent in ``out_path``."""
+    """One gloo rank of phase 19 (e) on the card: at 4 layers the exact,
+    int8 and e5m2 wires, ``--zero`` (level 2) and ``--pp 2``, then the EP
+    engine against the serial engine, then ep 2 at full width and depth
+    against the parent's exact reference; the results go back to the
+    parent in ``out_path``."""
     import pickle
     import traceback
 
@@ -11191,27 +11285,8 @@ def _moe_rank(rank, world, port, ref_dir, out_path):
                                          backend="gloo", timeout_s=600)
         dev = torch.device("cuda", 0)
         mesh.initialize_model_parallel()
-        ref = wait_for_references(torch, ref_dir)
-        # 1. ep 2 at 345M-MoE width and depth
-        aux = []
-        t0 = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats(dev)
-        bench, losses, _, _, counts = pretrain_steps(
-            torch, ops, MOE_EP_345M, MOE_EP_STEPS, hook=moe_aux_hook(aux),
-            fixed=True)
-        c = bench.cfg
-        res["full"] = {
-            "losses": losses, "s": time.perf_counter() - t0,
-            "peak": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-            "axis": c.moe_expert_axis, "batch": bench.batch,
-            "experts_here": bench.model.layers[0].moe.fc1.kernel.shape[0],
-            "dropped": [a["dropped_fraction"] / c.num_layers for a in aux]}
-        res["counts"].append(("ep 2 345M-MoE", MOE_EP_STEPS, counts,
-                              pretrain_per_step(c.num_layers, 2)))
-        del bench
-        gc.collect()
-        torch.cuda.empty_cache()
-        # 2. the 4-layer cases
+        # 1. the 4-layer cases (cf 1.25), while the parent runs the exact
+        # reference
         lr = float(MOE_345M[MOE_345M.index("--lr") + 1])
         base = None
         for label, flags in (("exact", ()),
@@ -11243,7 +11318,7 @@ def _moe_rank(rank, world, port, ref_dir, out_path):
             gc.collect()
             torch.cuda.empty_cache()
         del base
-        # 3. the EP engine against the serial engine (fp32, 4 layers)
+        # 2. the EP engine against the serial engine (fp32, 4 layers)
         mesh.destroy_model_parallel()
         mesh.initialize_model_parallel()
         cfg = GPTConfig(**dict(MOE_SERVE, num_layers=MOE_LAYERS),
@@ -11269,6 +11344,30 @@ def _moe_rank(rank, world, port, ref_dir, out_path):
             del eng
         res["engine"] = toks
         del ep, serial
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 3. ep 2 at 345M-MoE width and depth against the exact reference,
+        # once the parent has written it (and freed its card memory)
+        ref = wait_for_references(torch, ref_dir)
+        aux = []
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bench, losses, _, grads, counts = pretrain_steps(
+            torch, ops, MOE_EP_345M, MOE_EP_STEPS, hook=moe_aux_hook(aux),
+            fixed=True)
+        c = bench.cfg
+        res["full"] = {
+            "losses": losses, "s": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "axis": c.moe_expert_axis, "batch": bench.batch,
+            "cf": c.moe_capacity_factor,
+            "experts_here": bench.model.layers[0].moe.fc1.kernel.shape[0],
+            "dropped": [a["dropped_fraction"] / c.num_layers for a in aux],
+            "floor_ratio": moe_floor_ratios(torch, bench.model, grads, ref,
+                                            rank)}
+        res["counts"].append(("ep 2 345M-MoE", MOE_EP_STEPS, counts,
+                              pretrain_per_step(c.num_layers, 1)))
+        del bench, grads, ref
     except Exception:  # noqa: BLE001 - reported by the parent
         res["error"] = traceback.format_exc()
     finally:
@@ -11296,7 +11395,7 @@ def moe_spawn(ref_dir, world=2):
     return procs, outs
 
 
-def moe_two_ranks(torch, total, smi, slosses, small, procs, outs):
+def moe_two_ranks(torch, total, smi, exact, small, procs, outs):
     """(e): the two gloo ranks' results, each case's verdicts."""
     import pickle
 
@@ -11319,25 +11418,41 @@ def moe_two_ranks(torch, total, smi, slosses, small, procs, outs):
               f"gloo rank {r['rank']}: {r.get('error', '')[-3000:]}")
     group = "MoE (e) 2 gloo ranks on the card"
     fs = [r["full"] for r in res]
-    ref = slosses[:MOE_EP_STEPS]
-    print(f"  (e) pretrain_gpt --moe-experts 8 at dp 2 (ep 2: "
-          f"{[f['experts_here'] for f in fs]} experts a rank, 345M-MoE, "
-          f"{fs[0]['batch']} x 1024 a step as 2 micro-batches of 2 a rank): "
-          f"losses {[f['losses'] for f in fs]} (serial {ref}); dropped "
-          f"fraction by micro-batch {[[round(v, 4) for v in f['dropped']] for f in fs]}; "
-          f"peak {[round(f['peak'], 2) for f in fs]} GiB a rank; "
+    ref = exact["losses"]
+    rels = [[abs(a - b) / abs(b) for a, b in zip(f["losses"], ref)]
+            for f in fs]
+    top = sorted(((round(v, 4), n) for v, n in zip(exact["floor"],
+                                                  exact["names"])),
+                 reverse=True)[:3]
+    print(f"  (e) pretrain_gpt --moe-experts 8 --moe-capacity-factor 4 at "
+          f"dp 2 (ep 2: {[f['experts_here'] for f in fs]} experts a rank, "
+          f"345M-MoE, {fs[0]['batch']} x 1024 a step as one micro-batch of "
+          f"4 a rank): losses {[f['losses'] for f in fs]} (serial, one "
+          f"micro-batch of 8: {ref}; its step 1 in fp32 compute "
+          f"{exact['loss_f32']}), relative gaps {rels}; step 1's grads L2 "
+          f"over the floor, worst {[f['floor_ratio'] for f in fs]} (the "
+          f"serial run's distance from its fp32-compute twin, largest "
+          f"{top}); dropped fraction {[f['dropped'] for f in fs]}; peak "
+          f"{[round(f['peak'], 2) for f in fs]} GiB a rank; "
           f"{[round(f['s'], 1) for f in fs]} s (host-staged gloo, not "
           f"speed numbers)")
-    for r, f in zip(res, fs):
+    for r, f, rel in zip(res, fs, rels):
         rk = r["rank"]
         check(f["axis"] == "data" and f["experts_here"] == 4
-              and f["batch"] == 8, f"(e) rank {rk}: ep 2, 4 experts here")
-        rel = max(abs(a - b) / abs(b) for a, b in zip(f["losses"], ref))
-        verdict(f"MoE (e) ep 2 345M-MoE rank {rk} losses rel to serial",
-                rel, MOE_LOSS_REL, group=group)
+              and f["batch"] == 8 and f["cf"] == 4.0,
+              f"(e) rank {rk}: ep 2, 4 experts here, cf 4")
+        check(all(v == 0 for v in f["dropped"]),
+              f"(e) rank {rk}: cf 4 drops no token")
+        verdict(f"MoE (e) ep 2 345M-MoE cf 4 rank {rk} losses rel to serial",
+                max(rel), MOE_LOSS_REL, group=group)
+        verdict(f"MoE (e) ep 2 345M-MoE cf 4 rank {rk} step-1 grads L2 over "
+                f"the serial fp32-compute distance", f["floor_ratio"][0][0],
+                TP_FLOOR, group=group)
     ex = [r["exact"] for r in res]
-    print(f"  (e) at {MOE_LAYERS} layers: ep 2 exact wire losses "
-          f"{[x['losses'] for x in ex]} (serial {small}); int8 "
+    print(f"  (e) at {MOE_LAYERS} layers, cf 1.25: ep 2 exact wire losses "
+          f"{[x['losses'] for x in ex]} (serial {small}: relative gap "
+          f"{[max(abs(a - b) / abs(b) for a, b in zip(x['losses'], small)) for x in ex]}, "
+          f"the per-rank capacity and router grouping); int8 "
           f"{[r['int8']['losses'] for r in res]}, e5m2 "
           f"{[r['e5m2']['losses'] for r in res]}; --zero (level 2) "
           f"{[r['zero']['losses'] for r in res]}, params against the exact "
@@ -11392,8 +11507,9 @@ def moe_two_ranks(torch, total, smi, slosses, small, procs, outs):
 def moe_phase(torch, ops, dev):
     """Phase 19: (a) the fp32 gradient gate; (b) 345M-MoE training; (d)
     NCCL at world size 1 against (b); the serial 4-layer reference; then
-    (e)'s two gloo ranks spawned while (c) serving runs here, then (e)'s
-    verdicts. Returns the launches of the MoE runs (path ``moe``)."""
+    (e)'s two gloo ranks spawned while (e)'s exact reference and then (c)
+    serving run here, then (e)'s verdicts. Returns the launches of the MoE
+    runs (path ``moe``)."""
     import shutil
 
     t0 = time.perf_counter()
@@ -11417,13 +11533,15 @@ def moe_phase(torch, ops, dev):
     os.makedirs(ref_dir)
     procs = []
     try:
-        torch.save({"small": small},
+        procs, outs = moe_spawn(ref_dir)
+        exact = moe_exact_reference(torch, ops, total)
+        torch.save({k: exact[k] for k in ("grads", "names", "floor")},
                    os.path.join(ref_dir, "ref.tmp"))  # whole, or absent
         os.replace(os.path.join(ref_dir, "ref.tmp"),
                    os.path.join(ref_dir, "ref.pt"))
-        procs, outs = moe_spawn(ref_dir)
+        del exact["grads"]
         moe_serving(torch, ops, dev, total)
-        moe_two_ranks(torch, total, smi, slosses, small, procs, outs)
+        moe_two_ranks(torch, total, smi, exact, small, procs, outs)
     finally:
         for p in procs:
             if p.is_alive():

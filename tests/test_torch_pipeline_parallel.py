@@ -446,8 +446,9 @@ def test_pipeline_surface_checks():
     runs: a stage's aux summed over the live ticks over M joins the loss
     (head mean 1 + 24 / 2), and ``prepare_pipelined_model(with_aux=True)``
     gives an MoE model's serial loss (each micro-batch's aux folded into
-    its tokens, the mean over micro-batches) where ``with_aux=False``
-    refuses to drop the router losses; the traced timelines (item 21)
+    its tokens, the mean over micro-batches), as does the default (the
+    model's own), where ``with_aux=False`` refuses to drop the router
+    losses; the traced timelines (item 21)
     raise; plan_schedule's errors."""
     mesh.initialize_model_parallel()
     try:
@@ -486,6 +487,11 @@ def test_pipeline_surface_checks():
         torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
         _, layers, pipe_loss = ppl.prepare_pipelined_model(
             moe, num_microbatches=2)
+        with torch.no_grad():
+            torch.testing.assert_close(pipe_loss(layers, toks, tgts), ref,
+                                       rtol=1e-6, atol=0)
+        _, layers, pipe_loss = ppl.prepare_pipelined_model(
+            moe, num_microbatches=2, with_aux=False)
         with pytest.raises(ValueError, match="return_aux"):
             pipe_loss(layers, toks, tgts)
         with pytest.raises(ValueError, match="pipeline_parallel"):

@@ -147,7 +147,7 @@ def _zero_case(cfg_kw, tree, toks, tgts, level):
     """One O2 step of the EP model through ``build_zero_train_step`` at
     ``level`` (``level`` None: the replicated optimizer after the
     spec-aware reduction), from the same cast params: the loss and the
-    params after the step (local shards, JAX layout)."""
+    params before and after the step (local shards, JAX layout)."""
     from apex_tpu_torch import amp
     from apex_tpu_torch._params import module_tree
     from apex_tpu_torch.optimizers import FusedAdam
@@ -161,6 +161,7 @@ def _zero_case(cfg_kw, tree, toks, tgts, level):
                                         gather_dtype="bf16")
     mp = amp.MixedPrecisionOptimizer(FusedAdam(lr=1e-2), policy, **kw)
     state = mp.init(model)
+    params0 = module_tree(model)
     if level is None:
         loss = model.loss(_rows(toks), _rows(tgts))
         mp.scale_loss(loss, state).backward()
@@ -171,7 +172,7 @@ def _zero_case(cfg_kw, tree, toks, tgts, level):
         step = build_zero_train_step(mp, model, state, with_aux=True)
         loss, metrics = step(_rows(toks), _rows(tgts))
     return {"loss": float(loss), "found_inf": bool(metrics["found_inf"]),
-            "params": module_tree(model)}
+            "params0": params0, "params": module_tree(model)}
 
 
 def _zero3_refusal(cfg_kw, tree):
